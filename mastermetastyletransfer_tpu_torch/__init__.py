@@ -1,0 +1,18 @@
+"""PyTorch and CUDA port of the MasterMetaStyleTransfer pipeline for one
+NVIDIA H100 (Hopper, ``sm_90a``).
+
+The module names follow the JAX package beside it, so each function has a
+counterpart of the same name; public tensors are NHWC, as there. The port
+imports torch and numpy only.
+
+Layout:
+  config.py   configuration dataclasses (own copy; accepts the JAX JSON)
+  ops/        window geometry, norms, MLP, attention, convs, and the
+              hand-written Swin block kernel (ops/window_block.py +
+              csrc/window_block.cu, built by ops/_build.py)
+  models/     Swin backbone, style transformer, CNN decoder, full model
+  utils/      parameter loading (flat .npz key scheme, JAX param trees)
+  inference.py, serve.py   bucketed stylization and the pair service
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,173 @@
+"""Configuration dataclasses of the port.
+
+The port keeps its own copy of the configuration (it imports nothing of the
+JAX package). Field names and defaults follow the JAX package's
+``config.py`` for the fields this port reads; ``from_dict`` accepts that
+package's JSON and ignores the keys it does not know (reference:
+codes/full_model.py:21-60, codes/style_transformer.py:1159-1226).
+
+``use_pallas`` keeps its JAX name so that JSON round-trips: in the port it
+means "run the hand-written CUDA kernel of this stage". Only the Swin
+stage's block kernel exists so far; the style transformer's and the
+decoder's kernels are not ported yet, and asking for them raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+
+class _ConfigBase:
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]):
+        """Build from a (possibly nested) plain dict, ignoring extra keys."""
+        kwargs = {}
+        for f in dataclasses.fields(cls):
+            if f.name not in d:
+                continue
+            v = d[f.name]
+            if isinstance(v, list):
+                v = tuple(v)
+            kwargs[f.name] = v
+        return cls(**kwargs)
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class AttentionConfig(_ConfigBase):
+    """Shifted-window attention block (reference:
+    codes/style_transformer.py:175-295)."""
+    dim: int = 256
+    num_heads: int = 8
+    window_size: Tuple[int, int] = (7, 7)
+    shift_size: Tuple[int, int] = (4, 4)
+    qkv_bias: bool = True
+    proj_bias: bool = True
+    use_pallas: bool = False
+
+
+@dataclass(frozen=True)
+class StyleTransformerConfig(_ConfigBase):
+    """Style transformer encoder/decoder pair (reference:
+    codes/style_transformer.py:1159-1226)."""
+    encoder_dim: int = 256
+    decoder_dim: int = 256
+    encoder_num_heads: int = 8
+    decoder_num_heads: int = 8
+    encoder_window_size: Tuple[int, int] = (7, 7)
+    decoder_window_size: Tuple[int, int] = (7, 7)
+    encoder_shift_size: Tuple[int, int] = (4, 4)
+    decoder_shift_size: Tuple[int, int] = (4, 4)
+    encoder_mlp_ratio: float = 4.0
+    decoder_mlp_ratio: float = 4.0
+    encoder_qkv_bias: bool = True
+    decoder_qkv_bias: bool = True
+    encoder_proj_bias: bool = True
+    decoder_proj_bias: bool = True
+    # The style encoder runs norm-free, the decoder self block with
+    # LayerNorm (reference: codes/style_transformer.py:807, :946).
+    encoder_use_norm: bool = False
+    decoder_use_norm: bool = True
+    encoder_if_use_processed_Key_in_Scale_and_Shift_calculation: bool = True
+    decoder_use_instance_norm_with_affine: bool = False
+    decoder_use_regular_MHA_instead_of_Swin_at_the_end: bool = False
+    decoder_use_Key_instance_norm_after_linear_transformation: bool = True
+    decoder_exclude_MLP_after_Fcs_self_MHA: bool = False
+    use_pallas: bool = False
+
+    def encoder_attn(self) -> AttentionConfig:
+        return AttentionConfig(
+            dim=self.encoder_dim, num_heads=self.encoder_num_heads,
+            window_size=self.encoder_window_size,
+            shift_size=self.encoder_shift_size,
+            qkv_bias=self.encoder_qkv_bias, proj_bias=self.encoder_proj_bias,
+            use_pallas=self.use_pallas)
+
+    def decoder_attn(self) -> AttentionConfig:
+        return AttentionConfig(
+            dim=self.decoder_dim, num_heads=self.decoder_num_heads,
+            window_size=self.decoder_window_size,
+            shift_size=self.decoder_shift_size,
+            qkv_bias=self.decoder_qkv_bias, proj_bias=self.decoder_proj_bias,
+            use_pallas=self.use_pallas)
+
+
+@dataclass(frozen=True)
+class SwinConfig(_ConfigBase):
+    """First two stages of torchvision's swin_{t,s,b} (reference:
+    codes/utils.py:59-102). Output is NHWC (B, H/8, W/8, 2*embed_dim)."""
+    variant: str = "swin_B"
+    embed_dim: int = 128
+    depths: Tuple[int, int] = (2, 2)
+    num_heads: Tuple[int, int] = (4, 8)
+    window_size: Tuple[int, int] = (7, 7)
+    mlp_ratio: float = 4.0
+    use_pallas: bool = False
+
+    @staticmethod
+    def for_variant(variant: str) -> "SwinConfig":
+        if variant == "swin_B":
+            return SwinConfig(variant=variant, embed_dim=128, num_heads=(4, 8))
+        if variant in ("swin_S", "swin_T"):
+            return SwinConfig(variant=variant, embed_dim=96, num_heads=(3, 6))
+        raise ValueError(
+            f"unknown swin variant {variant!r} (swin_T/swin_S/swin_B)")
+
+    @property
+    def out_dim(self) -> int:
+        return self.embed_dim * 2
+
+
+@dataclass(frozen=True)
+class DecoderConfig(_ConfigBase):
+    """CNN (AdaIN-paper) decoder (reference: codes/decoder.py:15-21)."""
+    channel_dim: int = 256
+    initializer: str = "kaiming_normal_"
+    use_pallas: bool = False
+
+
+@dataclass(frozen=True)
+class ModelConfig(_ConfigBase):
+    """Swin encoder + style transformer + CNN decoder (reference:
+    codes/full_model.py:21-155)."""
+    swin: SwinConfig = field(default_factory=SwinConfig)
+    transformer: StyleTransformerConfig = field(
+        default_factory=StyleTransformerConfig)
+    decoder: DecoderConfig = field(default_factory=DecoderConfig)
+    # "float32" or "bfloat16"; parameters stay float32.
+    compute_dtype: str = "float32"
+    # Per-stage overrides; None means compute_dtype.
+    swin_dtype: Optional[str] = None
+    transformer_dtype: Optional[str] = None
+    decoder_dtype: Optional[str] = None
+
+    def stage_dtype(self, stage: str) -> str:
+        return getattr(self, f"{stage}_dtype") or self.compute_dtype
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ModelConfig":
+        return cls(
+            swin=SwinConfig.from_dict(d.get("swin", {})),
+            transformer=StyleTransformerConfig.from_dict(
+                d.get("transformer", {})),
+            decoder=DecoderConfig.from_dict(d.get("decoder", {})),
+            compute_dtype=d.get("compute_dtype", "float32"),
+            swin_dtype=d.get("swin_dtype"),
+            transformer_dtype=d.get("transformer_dtype"),
+            decoder_dtype=d.get("decoder_dtype"),
+        )
+
+    @classmethod
+    def from_json(cls, s: str) -> "ModelConfig":
+        return cls.from_dict(json.loads(s))

@@ -1,0 +1,111 @@
+"""Full model: Swin encoder -> style transformer -> CNN decoder (JAX
+counterpart: models/master.py; reference: codes/full_model.py:21-226).
+NHWC throughout.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Union
+
+import torch
+
+from mastermetastyletransfer_tpu_torch.config import ModelConfig
+from mastermetastyletransfer_tpu_torch.models.decoder import (
+    cnn_decoder_apply, init_cnn_decoder,
+)
+from mastermetastyletransfer_tpu_torch.models.style_transformer import (
+    init_style_transformer, style_transformer_apply,
+)
+from mastermetastyletransfer_tpu_torch.models.swin import (
+    init_swin_backbone, swin_backbone_apply,
+)
+from mastermetastyletransfer_tpu_torch.utils.checkpoint import tree_map
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def init_master_model(cfg: ModelConfig, generator: torch.Generator,
+                      device: Union[str, torch.device] = "cuda") -> dict:
+    """Float32 parameters drawn on the CPU from ``generator`` with the JAX
+    package's tree, shapes and initializer distributions, then moved to
+    ``device``. (The two frameworks draw different numbers from one seed;
+    tests share weights through utils/checkpoint.py.)"""
+    params = {
+        "swin": init_swin_backbone(generator, cfg.swin),
+        "style_transformer": init_style_transformer(generator,
+                                                    cfg.transformer),
+        "decoder": init_cnn_decoder(generator, cfg.decoder),
+    }
+    return tree_map(lambda t: t.to(device), params)
+
+
+def cast_params(params: dict, dtype: torch.dtype) -> dict:
+    """Cast floating-point leaves to ``dtype``."""
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                    params)
+
+
+def master_apply(params: dict, content: torch.Tensor, style: torch.Tensor,
+                 cfg: ModelConfig, *, k: int = 1) -> torch.Tensor:
+    """Stylize ``content`` with ``style`` (NHWC RGB, normalized the way the
+    Swin encoder expects) in evaluation mode; returns float32 RGB.
+
+    Content and style share one Swin pass when their shapes agree (the
+    reference calls it twice, codes/full_model.py:219-220; every op is
+    independent per image, so the concatenation is exact)."""
+    dtype = DTYPES[cfg.stage_dtype("swin")]
+    content, style = content.to(dtype), style.to(dtype)
+    if content.shape == style.shape:
+        b = content.shape[0]
+        both = swin_backbone_apply(params["swin"],
+                                   torch.cat([content, style]), cfg.swin)
+        fc, fs = both[:b], both[b:]
+    else:
+        fc = swin_backbone_apply(params["swin"], content, cfg.swin)
+        fs = swin_backbone_apply(params["swin"], style, cfg.swin)
+    return stylize_from_features(params, fc, fs, cfg, k=k)
+
+
+def stylize_from_features(params: dict, fc: torch.Tensor, fs: torch.Tensor,
+                          cfg: ModelConfig, *, k: int = 1) -> torch.Tensor:
+    """Style transformer + CNN decoder on encoder features."""
+    td = DTYPES[cfg.stage_dtype("transformer")]
+    fcs = style_transformer_apply(params["style_transformer"], fc.to(td),
+                                  fs.to(td), cfg.transformer, k=k)
+    dd = DTYPES[cfg.stage_dtype("decoder")]
+    out = cnn_decoder_apply(params["decoder"], fcs.to(dd), cfg.decoder)
+    return out.float()
+
+
+def make_stylize_fn(cfg: ModelConfig, k: int = 1,
+                    device: Union[str, torch.device] = "cuda"
+                    ) -> Callable[..., torch.Tensor]:
+    """Zero-shot stylization closure: (params, content, style) -> RGB on
+    ``device``. Inputs may be numpy arrays or tensors; params must already
+    be on ``device``."""
+    device = torch.device(device)
+
+    def stylize(params, content, style):
+        with torch.inference_mode():
+            return master_apply(params, torch.as_tensor(content, device=device),
+                                torch.as_tensor(style, device=device), cfg,
+                                k=k)
+
+    return stylize
+
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def imagenet_normalize(x: torch.Tensor) -> torch.Tensor:
+    """NHWC [0, 1] RGB -> ImageNet-normalized (reference: train.py:418-424)."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
+    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    return (x - mean) / std
+
+
+def imagenet_denormalize(x: torch.Tensor) -> torch.Tensor:
+    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
+    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    return x * std + mean

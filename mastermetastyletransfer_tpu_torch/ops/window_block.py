@@ -1,0 +1,298 @@
+"""The whole Swin block kernel (JAX counterparts: the Pallas kernels K1
+``fused_window_block_rows`` and K2 ``fused_window_block`` in
+ops/pallas_attention.py, which both compute ``_block_compute``).
+
+Two entries over one CUDA computation (csrc/window_block.cu):
+
+* ``window_block_rows``: x is the window-padded NHWC image (B, Hp, Wp, C);
+  the cyclic shift is folded into the kernel's index arithmetic and the
+  output comes back in the plain (un-rolled) frame;
+* ``window_block_windows``: x is partitioned, (B, nW, N, C).
+
+Each wrapper runs its kernel for a CUDA tensor and the plain PyTorch
+version below for a CPU tensor; any other device raises. The plain version
+is the yardstick the kernel is held to: it rounds to the input type at the
+same points as the kernel, and it computes GELU with the exact erf (the JAX
+kernel uses the Abramowitz-Stegun erf, |err| <= 1.5e-7).
+
+``LAUNCHES`` counts kernel launches per entry; a wrapper adds one only
+where it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from mastermetastyletransfer_tpu_torch.ops import _build
+from mastermetastyletransfer_tpu_torch.ops.windows import (
+    relative_position_bias, window_merge, window_partition,
+)
+
+LAUNCHES = {"window_block_rows": 0, "window_block_windows": 0}
+
+# Shared memory one thread block may use on an H100 (dynamic, opted in).
+MAX_SMEM_BYTES = 232448
+
+
+class BlockWeights(NamedTuple):
+    """A block's parameters as the kernel takes them: the three matrices of
+    the products in the compute type, everything else float32. Norms are
+    None for a norm-free block."""
+    wqkv: torch.Tensor      # (C, 3C) = [wq | wk | wv]
+    bqkv: torch.Tensor      # (3C,)
+    wp: torch.Tensor        # (C, C)
+    bp: torch.Tensor        # (C,)
+    rel_bias: torch.Tensor  # (heads, N, N)
+    n1s: Optional[torch.Tensor]
+    n1b: Optional[torch.Tensor]
+    n2s: Optional[torch.Tensor]
+    n2b: Optional[torch.Tensor]
+    w1: torch.Tensor        # (C, hidden)
+    b1: torch.Tensor        # (hidden,)
+    w2: torch.Tensor        # (hidden, C)
+    b2: torch.Tensor        # (C,)
+
+
+def block_weights(block_params: dict, window: Tuple[int, int],
+                  dtype: torch.dtype, use_norm: bool) -> BlockWeights:
+    """Prepare a block's param dict ({"attn", "mlp", "norm1", "norm2"}, the
+    JAX layout) for the kernel."""
+    attn, mlp = block_params["attn"], block_params["mlp"]
+    c = attn["wq"]["kernel"].shape[0]
+
+    def bias(p, n):
+        if "bias" in p:
+            return p["bias"].float().contiguous()
+        return torch.zeros(n, dtype=torch.float32, device=p["kernel"].device)
+
+    def mat(p):
+        return p["kernel"].to(dtype).contiguous()
+
+    def norm(name, part):
+        return (block_params[name][part].float().contiguous()
+                if use_norm else None)
+
+    hidden = mlp["fc1"]["kernel"].shape[1]
+    return BlockWeights(
+        wqkv=torch.cat([mat(attn[k]) for k in ("wq", "wk", "wv")], 1),
+        bqkv=torch.cat([bias(attn[k], c) for k in ("wq", "wk", "wv")]),
+        wp=mat(attn["proj"]), bp=bias(attn["proj"], c),
+        rel_bias=relative_position_bias(
+            attn["rel_bias_table"].float(), *window).contiguous(),
+        n1s=norm("norm1", "scale"), n1b=norm("norm1", "bias"),
+        n2s=norm("norm2", "scale"), n2b=norm("norm2", "bias"),
+        w1=mat(mlp["fc1"]), b1=bias(mlp["fc1"], hidden),
+        w2=mat(mlp["fc2"]), b2=bias(mlp["fc2"], c))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _ln(x: torch.Tensor, s: torch.Tensor, b: torch.Tensor,
+        eps: float = 1e-5) -> torch.Tensor:
+    mean = x.mean(-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * s + b
+
+
+def window_block_windows_plain(x: torch.Tensor, w: BlockWeights, *,
+                               heads: int,
+                               mask: Optional[torch.Tensor] = None,
+                               padmask: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """x (B, nW, N, C) -> x + attn(LN1 x) -> + MLP(LN2 .), same layout.
+    Every product runs on float32 copies of T-typed operands, which is what
+    the kernel's f32-accumulated products compute."""
+    t = x.dtype
+    b, nw, n, c = x.shape
+    dh = c // heads
+    xf = x.float()
+    ln = _ln(xf, w.n1s, w.n1b).to(t) if w.n1s is not None else x
+    if padmask is not None:
+        ln = ln * padmask.to(t)[None, :, :, None]
+    qkv = (ln.float() @ w.wqkv.float() + w.bqkv).to(t)
+    q, k, v = qkv.split(c, dim=-1)
+    q = (q.float() * dh ** -0.5).to(t)
+
+    def split_heads(z):
+        return z.reshape(b, nw, n, heads, dh).transpose(2, 3).float()
+
+    comb = w.rel_bias[None, None]
+    if mask is not None:
+        comb = mask[None, :, None] + comb
+    s = split_heads(q) @ split_heads(k).transpose(-1, -2) + comb
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    recip = 1.0 / e.sum(-1, keepdim=True)
+    o = ((e.to(t).float() @ split_heads(v)) * recip).to(t)
+    o = o.transpose(2, 3).reshape(b, nw, n, c)
+    y = xf + o.float() @ w.wp.float() + w.bp
+    h2 = _ln(y, w.n2s, w.n2b) if w.n2s is not None else y
+    hid = F.gelu(h2.to(t).float() @ w.w1.float() + w.b1).to(t)
+    return (y + (hid.float() @ w.w2.float() + w.b2)).to(t)
+
+
+def window_block_rows_plain(x: torch.Tensor, w: BlockWeights, *, heads: int,
+                            window: Tuple[int, int], shift: Tuple[int, int],
+                            mask: Optional[torch.Tensor] = None,
+                            padmask: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """x (B, Hp, Wp, C) window-padded -> same shape, plain frame: roll by
+    (-sh, -sw), partition, block, merge, roll back."""
+    b, hp, wp, c = x.shape
+    (wh, ww), (sh, sw) = window, shift
+    if sh or sw:
+        x = torch.roll(x, (-sh, -sw), (1, 2))
+    xw = window_partition(x, wh, ww).reshape(b, -1, wh * ww, c)
+    y = window_block_windows_plain(xw, w, heads=heads, mask=mask,
+                                   padmask=padmask)
+    y = window_merge(y.reshape(-1, wh * ww, c), b, hp, wp, wh, ww)
+    return torch.roll(y, (sh, sw), (1, 2)) if sh or sw else y
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_PTRS = ("x", "out", "wqkv", "bqkv", "wp", "bp", "rel_bias", "mask",
+         "padmask", "n1s", "n1b", "n2s", "n2b", "w1", "b1", "w2", "b2")
+_INTS = ("dtype", "B", "Hp", "Wp", "C", "heads", "hidden", "wh", "ww", "sh",
+         "sw", "nW")
+
+
+class WindowBlockArgs(ctypes.Structure):
+    """The C struct ``Args`` of csrc/window_block.cu, field for field."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in _PTRS]
+                + [("scale", ctypes.c_double)]
+                + [(f, ctypes.c_longlong) for f in _INTS])
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("window_block")
+    for entry in ("mmst_window_block_rows", "mmst_window_block_windows"):
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.POINTER(WindowBlockArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.mmst_window_block_smem_bytes.argtypes = [ctypes.c_longlong] * 4
+    lib.mmst_window_block_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _need(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, x on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"the kernel takes {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(entry: str, x: torch.Tensor, w: BlockWeights, *, heads: int,
+            n: int, nw: int, geometry: dict,
+            mask: Optional[torch.Tensor],
+            padmask: Optional[torch.Tensor]) -> torch.Tensor:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x is {x.dtype}; the kernel takes float32 or "
+                        "bfloat16")
+    c = x.shape[-1]
+    hidden = w.w1.shape[1]
+    if c % heads or hidden % c:
+        raise ValueError(f"C={c} must divide by heads={heads} and the MLP "
+                         f"width {hidden} by C")
+    dev, f32 = x.device, torch.float32
+    _need("x", x, x.shape, x.dtype, dev)
+    for name, shape, dtype in (
+            ("wqkv", (c, 3 * c), x.dtype), ("bqkv", (3 * c,), f32),
+            ("wp", (c, c), x.dtype), ("bp", (c,), f32),
+            ("rel_bias", (heads, n, n), f32),
+            ("w1", (c, hidden), x.dtype), ("b1", (hidden,), f32),
+            ("w2", (hidden, c), x.dtype), ("b2", (c,), f32)):
+        _need(name, getattr(w, name), shape, dtype, dev)
+    for name in ("n1s", "n1b", "n2s", "n2b"):
+        if getattr(w, name) is not None:
+            _need(name, getattr(w, name), (c,), f32, dev)
+    if (w.n1s is None) != (w.n1b is None) or (w.n2s is None) != (w.n2b is None):
+        raise ValueError("a norm needs both its scale and its bias")
+    if mask is not None:
+        _need("mask", mask, (nw, n, n), f32, dev)
+    if padmask is not None:
+        _need("padmask", padmask, (nw, n), f32, dev)
+    lib = _lib()
+    smem = lib.mmst_window_block_smem_bytes(n, c, heads, x.element_size())
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"N={n}, C={c} needs {smem} bytes of shared memory "
+                         f"per block, over the {MAX_SMEM_BYTES} available")
+
+    out = torch.empty_like(x)
+    keep = {"x": x, "out": out, "mask": mask, "padmask": padmask,
+            **w._asdict()}
+    args = WindowBlockArgs(
+        **{f: (keep[f].data_ptr() if keep[f] is not None else None)
+           for f in _PTRS},
+        scale=(c // heads) ** -0.5,
+        dtype=1 if x.dtype == torch.bfloat16 else 0,
+        C=c, heads=heads, hidden=hidden, nW=nw, **geometry)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(lib, f"mmst_{entry}")(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")
+    LAUNCHES[entry] += 1
+    return out
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no window-block kernel for device {x.device}")
+
+
+def window_block_rows(x: torch.Tensor, w: BlockWeights, *, heads: int,
+                      window: Tuple[int, int], shift: Tuple[int, int],
+                      mask: Optional[torch.Tensor] = None,
+                      padmask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Swin block on a window-padded image (B, Hp, Wp, C), output in the
+    plain frame. mask (nW, N, N) and padmask (nW, N) are in the window order
+    of the rolled grid, as ops/windows.py builds them."""
+    if not _on_cuda(x):
+        return window_block_rows_plain(x, w, heads=heads, window=window,
+                                       shift=shift, mask=mask,
+                                       padmask=padmask)
+    b, hp, wp, _ = x.shape
+    (wh, ww), (sh, sw) = window, shift
+    if hp % wh or wp % ww or not (0 <= sh < wh and 0 <= sw < ww):
+        raise ValueError(f"image {hp}x{wp} is not padded to window {window},"
+                         f" or shift {shift} is outside it")
+    return _launch("window_block_rows", x, w, heads=heads, n=wh * ww,
+                   nw=(hp // wh) * (wp // ww),
+                   geometry=dict(B=b, Hp=hp, Wp=wp, wh=wh, ww=ww, sh=sh,
+                                 sw=sw),
+                   mask=mask, padmask=padmask)
+
+
+def window_block_windows(x: torch.Tensor, w: BlockWeights, *, heads: int,
+                         mask: Optional[torch.Tensor] = None,
+                         padmask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Swin block on partitioned windows (B, nW, N, C)."""
+    if not _on_cuda(x):
+        return window_block_windows_plain(x, w, heads=heads, mask=mask,
+                                          padmask=padmask)
+    b, nw, n, _ = x.shape
+    # The kernel reads windows as 1 x N strips; the geometry fields only
+    # matter to the rows entry.
+    return _launch("window_block_windows", x, w, heads=heads, n=n, nw=nw,
+                   geometry=dict(B=b, Hp=1, Wp=n, wh=1, ww=n, sh=0, sw=0),
+                   mask=mask, padmask=padmask)

@@ -1,0 +1,51 @@
+"""The port and chip_smoke.py stand alone: they import neither JAX nor the
+JAX package nor PIL (the machine with the card has none of them)."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib.abc, sys
+
+BLOCKED = {"jax", "jaxlib", "mastermetastyletransfer_tpu", "PIL"}
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"refused import of {name}")
+        return None
+
+for mod in list(sys.modules):
+    if mod.split(".")[0] in BLOCKED:
+        del sys.modules[mod]
+sys.meta_path.insert(0, Refuse())
+import mastermetastyletransfer_tpu_torch
+import mastermetastyletransfer_tpu_torch.serve
+import mastermetastyletransfer_tpu_torch.inference
+import mastermetastyletransfer_tpu_torch.models
+import chip_smoke
+print("isolated-ok")
+"""
+
+
+def test_port_and_smoke_import_without_jax_or_pil():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("isolated-ok")
+
+
+def test_sources_name_no_jax():
+    files = sorted((ROOT / "mastermetastyletransfer_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    jax_import = re.compile(r"\bimport jax|\bfrom jax\b")
+    jax_package = re.compile(r"\bmastermetastyletransfer_tpu\b(?!_torch)")
+    for f in files:
+        text = f.read_text()
+        assert not jax_import.search(text), f
+        assert not jax_package.search(text), f
+    assert "PIL" not in (ROOT / "chip_smoke.py").read_text()
