@@ -2,14 +2,28 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA sources (csrc/ -> build/, at first use), holds each
-kernel entry against its plain PyTorch version at the shapes of the slice,
-then drives the slice -- pair serving, ``StylizeService`` -> ``master_apply``
-at swin_B widths, 512x512 images, k=1 -- through its entry points with
-weights drawn from a seeded ``torch.Generator``. One JSON line per phase,
-flushed as it goes; any failed phase raises and the exit code is not 0. The
-last line is {"ok": true, "device": {...}}; before it come the card's name
-and power limit as nvidia-smi gives them, and the kernel summary.
+Builds the port's CUDA sources (csrc/ -> build/, one nvcc per source, side
+by side, at first use), holds each kernel entry against its plain PyTorch
+version at the shapes of the slice, then drives the slice -- pair serving,
+``StylizeService`` -> ``master_apply`` at swin_B widths, 512x512 images,
+k=1, with the Swin and style-transformer kernels on -- through its entry
+points with weights drawn from a seeded ``torch.Generator``. One JSON line
+per phase, flushed as it goes; any failed phase raises and the exit code is
+not 0. The last line is {"ok": true, "device": {...}}; before it come the
+card's name and power limit as nvidia-smi gives them, and the kernel
+summary.
+
+Phases: device, build; kernels (each entry against its plain version, with
+ms per call, the bound, the plain version's ms and shared memory per
+block): the four Swin blocks of one pass (K1 row entry, K2 window entry),
+the style transformer's K2 blocks (encoder Key block without norms, decoder
+self block with both), K3 and K4 at the shapes of one request batch, and a
+swin_S-width block (C=192, 6 heads); slice (the bf16 and f32 services,
+launches per path counted from zero just before each path's run, each
+against the same service with every kernel off); f32_entry (one float32
+pair through ``make_stylize_fn`` on the card against the same call on the
+CPU, with PyTorch's own TF32 settings); stages (CUDA-event times of one
+batch-8 pair call at bf16 per stage, kernels on and off).
 
 Needs only torch, numpy and the standard library, and one CUDA card.
 
@@ -17,13 +31,14 @@ Tolerances, kernel against plain version, element by element. float32:
 1e-4 of the largest magnitude of the plain output (order of sums).
 bfloat16: two units in the last place of the plain output element (the two
 sides round the same f32 value to bf16, and a value near a rounding
-boundary may land on either side) plus 2^-6 of the block's largest update
+boundary may land on either side) plus 2^-6 of the largest update
 |out - x| (an intermediate rounded to bf16 on the other side of a boundary
-moves the update by about 2^-8 of itself). Both entries are checked at
-float32 on the slice's blocks as well. Slice: the kernel-path service
-against the same service with the blocks in plain PyTorch, per-pixel MAE
-relative to the mean output magnitude: 2e-2 at bfloat16 (independent
-roundings of two bf16 paths through the whole model), 1e-4 at float32.
+moves the update by about 2^-8 of itself); x is the block's input, K3's
+Scale or Shift input, K4's Query. Slice: the kernel-path service against
+the same service with the kernels off, per-pixel MAE relative to the mean
+output magnitude: 2e-2 at bfloat16 (independent roundings of two bf16 paths
+through the whole model), 1e-4 at float32; the same 1e-4 for the float32
+entry point on the card against the CPU.
 """
 
 from __future__ import annotations
@@ -40,12 +55,21 @@ import torch
 from mastermetastyletransfer_tpu_torch.config import (
     AttentionConfig, ModelConfig,
 )
-from mastermetastyletransfer_tpu_torch.models.master import init_master_model
-from mastermetastyletransfer_tpu_torch.models.style_transformer import (
-    init_style_swin_block,
+from mastermetastyletransfer_tpu_torch.models.decoder import cnn_decoder_apply
+from mastermetastyletransfer_tpu_torch.models.master import (
+    init_master_model, make_stylize_fn,
 )
+from mastermetastyletransfer_tpu_torch.models.style_transformer import (
+    init_style_swin_block, style_transformer_apply,
+)
+from mastermetastyletransfer_tpu_torch.models.swin import swin_backbone_apply
 from mastermetastyletransfer_tpu_torch.ops import _build
+from mastermetastyletransfer_tpu_torch.ops import style_block as sb
 from mastermetastyletransfer_tpu_torch.ops import window_block as wb
+from mastermetastyletransfer_tpu_torch.ops.attention import (
+    init_dual_value_window_attention, init_window_attention,
+)
+from mastermetastyletransfer_tpu_torch.ops.mlp import init_mlp
 from mastermetastyletransfer_tpu_torch.ops.windows import (
     effective_shift, shift_attention_mask, valid_token_mask, window_partition,
 )
@@ -58,15 +82,27 @@ PEAK_BYTES = 3.35e12
 TOL_F32 = 1e-4
 TOL_BF16_ULPS, TOL_BF16_UPDATE = 2, 2.0 ** -6
 TOL_SLICE_MAE = {"bfloat16": 2e-2, "float32": 1e-4}
-# The dtype each entry runs at on the main path.
-MAIN_DTYPE = {"window_block_rows": "bfloat16",
-              "window_block_windows": "float32"}
+LAUNCHES = (wb.LAUNCHES, sb.LAUNCHES)
 
 DEVICE = "cuda"
 SIZE, MAX_BATCH, K = 512, 8, 1
 REQUESTS, CLIENTS = 16, 4
 F32_REQUESTS = 4
+F32_ENTRY_SIZE = 128
+# Launches per request batch on each slice path (the main path is bf16).
+PER_BATCH = {
+    "bfloat16": {"window_block_rows": 4, "window_block_windows": 2 * K,
+                 "encoder_scale_shift": K, "decoder_tail": K},
+    "float32": {"window_block_rows": 0, "window_block_windows": 4 + 2 * K,
+                "encoder_scale_shift": K, "decoder_tail": K},
+}
+ST_C, ST_HEADS = 256, 8
 T0 = time.perf_counter()
+
+
+def padded(n: int) -> int:
+    """n tokens padded to the 7-token window."""
+    return -(-n // 7) * 7
 
 
 def emit(phase: str, **fields) -> None:
@@ -86,6 +122,16 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def all_launches() -> dict:
+    return {k: v for counts in LAUNCHES for k, v in counts.items()}
+
+
+def reset_launches() -> None:
+    for counts in LAUNCHES:
+        for key in counts:
+            counts[key] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +155,15 @@ def kernel_error(got: torch.Tensor, ref: torch.Tensor, x: torch.Tensor):
     return err.max().item(), (err / tol).max().item()
 
 
+def item_bytes(dtype) -> int:
+    return torch.finfo(dtype).bits // 8
+
+
+def mask_bytes(nw: int, n: int, has_mask: bool, has_padmask: bool) -> int:
+    return ((nw * n * n * 4 if has_mask else 0)
+            + (nw * n * 4 if has_padmask else 0))
+
+
 def block_cost(b: int, nw: int, n: int, c: int, heads: int, hidden: int,
                dtype, has_mask: bool, has_padmask: bool):
     """(operations, bytes) one block call needs: every token of the padded
@@ -117,86 +172,178 @@ def block_cost(b: int, nw: int, n: int, c: int, heads: int, hidden: int,
     tokens = b * nw * n
     flops = tokens * (2 * c * 3 * c + 2 * c * c + 2 * 2 * c * hidden)
     flops += b * nw * heads * 2 * (2 * n * n * (c // heads))
-    item = torch.finfo(dtype).bits // 8
-    weights = (3 * c * c + c * c + 2 * c * hidden) * item
+    weights = (3 * c * c + c * c + 2 * c * hidden) * item_bytes(dtype)
     vectors = (3 * c + c + hidden + c + 4 * c) * 4 + heads * n * n * 4
-    masks = (nw * n * n * 4 if has_mask else 0) + (nw * n * 4
-                                                   if has_padmask else 0)
-    return flops, 2 * tokens * c * item + weights + vectors + masks
+    return flops, (2 * tokens * c * item_bytes(dtype) + weights + vectors
+                   + mask_bytes(nw, n, has_mask, has_padmask))
 
 
-def kernel_cases():
-    """The blocks of the slice's Swin pass: batch 2 x max_batch images of
-    512^2 -> stage 1 on 133x133 padded tokens (valid 128), stage 2 on 70x70
-    (valid 64); shift 0 and window // 2."""
-    b = 2 * MAX_BATCH
-    for stage, (c, heads, hp, valid) in enumerate(((128, 4, 133, 128),
-                                                   (256, 8, 70, 64))):
-        for shift in ((0, 0), (3, 3)):
-            yield dict(stage=stage + 1, b=b, c=c, heads=heads, hp=hp,
-                       valid=valid, shift=shift)
+def style_cost(kernel: str, b: int, nw: int, n: int, c: int, heads: int,
+               dtype, has_mask: bool, has_padmask: bool):
+    """(operations, bytes) of one K3 or K4 call, per window: K3 44 N C^2 +
+    6 N^2 C (q and k from Key, v of two streams through the shared wv, the
+    shared proj twice, two MLPs of width 4C), K4 24 N C^2 + 6 N^2 C; one
+    softmax per head shared by two value products. Bytes: K3 reads three
+    window tensors and writes two, K4 reads five and writes one."""
+    per_window = {"encoder_scale_shift": 44, "decoder_tail": 24}[kernel]
+    flops = b * nw * (per_window * n * c * c + 6 * n * n * c)
+    tiles = {"encoder_scale_shift": 5, "decoder_tail": 6}[kernel]
+    mats = {"encoder_scale_shift": 20, "decoder_tail": 11}[kernel]
+    vecs = {"encoder_scale_shift": 14, "decoder_tail": 8}[kernel]
+    nbytes = (tiles * b * nw * n * c * item_bytes(dtype)
+              + mats * c * c * item_bytes(dtype) + vecs * c * 4
+              + heads * n * n * 4 + mask_bytes(nw, n, has_mask, has_padmask))
+    return flops, nbytes
+
+
+def run_case(rows: list, entry: str, label: str, dtype, kern, plain, xs,
+             cost, smem: int, **meta) -> None:
+    """Check kern() against plain() output by output (xs: the input each
+    output's bf16 tolerance measures its update from), time both, and emit
+    one kernels line."""
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    errs = [kernel_error(g, r, x) for g, r, x in zip(got, ref, xs)]
+    err = max(e[0] for e in errs)
+    err_over_tol = max(e[1] for e in errs)
+    if not err_over_tol <= 1.0:
+        raise AssertionError(f"{entry} {label} {dtype}: max-abs {err}, "
+                             f"error/tolerance {err_over_tol} > 1")
+    del got, ref
+    ms = cuda_ms(kern, 5)
+    plain_ms = cuda_ms(plain, 3)
+    flops, nbytes = cost
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    row = dict(entry=entry, case=label, dtype=str(dtype).replace("torch.", ""),
+               shape=list(xs[0].shape), max_abs_err=err,
+               err_over_tol=err_over_tol, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(t_ops, t_bytes), ops_ms=t_ops, bytes_ms=t_bytes,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               gflop=flops / 1e9, mbytes=nbytes / 1e6, smem_bytes=smem,
+               **meta)
+    emit("kernels", **row)
+    rows.append(row)
+
+
+def swin_block_cases(gen, rows, *, b, c, heads, hp, valid, shift, label,
+                     entries):
+    """One Swin block (norms on both sides) on a (b, hp, hp, c) padded grid
+    of which valid x valid tokens are real, through the given (entry,
+    dtype) pairs."""
+    dev = torch.device(DEVICE)
+    sh, sw = effective_shift(hp, hp, (7, 7), shift)
+    acfg = AttentionConfig(dim=c, num_heads=heads, window_size=(7, 7),
+                           shift_size=(sh, sw))
+    params = tree_map(lambda t: t.to(dev), init_style_swin_block(
+        gen, acfg, use_norm=True, exclude_mlp=False, mlp_ratio=4.0))
+    mask = (torch.from_numpy(shift_attention_mask(hp, hp, 7, 7, sh, sw))
+            .to(dev) if sh or sw else None)
+    padmask = torch.from_numpy(
+        valid_token_mask(valid, valid, hp, hp, 7, 7, sh, sw)).to(dev)
+    x32 = torch.randn((b, hp, hp, c), generator=gen).to(dev)
+    nw = (hp // 7) ** 2
+    for entry, dtype in entries:
+        w = wb.block_weights(params, (7, 7), dtype, use_norm=True)
+        kw = dict(heads=heads, mask=mask, padmask=padmask)
+        if entry == "window_block_rows":
+            x = x32.to(dtype).contiguous()
+            kw.update(window=(7, 7), shift=(sh, sw))
+            kern, plain = wb.window_block_rows, wb.window_block_rows_plain
+        else:
+            xr = torch.roll(x32, (-sh, -sw), (1, 2)) if sh or sw else x32
+            x = window_partition(xr, 7, 7).reshape(b, nw, 49, c)
+            x = x.to(dtype).contiguous()
+            kern = wb.window_block_windows
+            plain = wb.window_block_windows_plain
+        run_case(rows, entry, label, dtype,
+                 lambda: [kern(x, w, **kw)], lambda: [plain(x, w, **kw)],
+                 [x], block_cost(b, nw, 49, c, heads, 4 * c, dtype,
+                                 mask is not None, True),
+                 wb._lib().mmst_window_block_smem_bytes(
+                     49, c, heads, item_bytes(dtype)),
+                 shift=[sh, sw])
+
+
+def style_cases(gen, rows):
+    """The style transformer's kernels at the shapes of one request batch:
+    at 512^2, (8, 100, 49, 256) windows of the 64x64 token grid padded to
+    70x70, shift (4, 4), 8 heads -- K2 as the encoder Key block (no norms)
+    and as the decoder self block (both norms), K3 and K4."""
+    dev = torch.device(DEVICE)
+    grid = SIZE // 8
+    pad = padded(grid)
+    b, nw, n, c, heads = MAX_BATCH, (pad // 7) ** 2, 49, ST_C, ST_HEADS
+    sh, sw = effective_shift(pad, pad, (7, 7), (4, 4))
+    mask = torch.from_numpy(shift_attention_mask(pad, pad, 7, 7, sh, sw)
+                            ).to(dev)
+    padmask = torch.from_numpy(valid_token_mask(
+        grid, grid, pad, pad, 7, 7, sh, sw)).to(dev)
+    kw = dict(heads=heads, mask=mask, padmask=padmask)
+    acfg = AttentionConfig(dim=c, num_heads=heads, window_size=(7, 7),
+                           shift_size=(sh, sw))
+    block = init_style_swin_block(gen, acfg, use_norm=True, exclude_mlp=False,
+                                  mlp_ratio=4.0)
+    params = tree_map(lambda t: t.to(dev), {
+        "block": block, "attn": init_window_attention(gen, acfg),
+        "dual": init_dual_value_window_attention(gen, acfg),
+        **{m: init_mlp(gen, c, 4 * c, init="xavier_uniform")
+           for m in ("mlp_scale", "mlp_shift", "last_mlp")}})
+    x32 = [torch.randn((b, nw, n, c), generator=gen).to(dev)
+           for _ in range(5)]
+    for dtype in (torch.bfloat16, torch.float32):
+        xs = [x.to(dtype).contiguous() for x in x32]
+        for label, use_norm in (("st_encoder_key", False),
+                                ("st_decoder_self", True)):
+            w = wb.block_weights(params["block"], (7, 7), dtype, use_norm)
+            run_case(rows, "window_block_windows", label, dtype,
+                     lambda: [wb.window_block_windows(xs[0], w, **kw)],
+                     lambda: [wb.window_block_windows_plain(xs[0], w, **kw)],
+                     [xs[0]], block_cost(b, nw, n, c, heads, 4 * c, dtype,
+                                         True, True),
+                     wb._lib().mmst_window_block_smem_bytes(
+                         n, c, heads, item_bytes(dtype)))
+        w = sb.encoder_weights(params["attn"], params["mlp_scale"],
+                               params["mlp_shift"], None, (7, 7), dtype)
+        run_case(rows, "encoder_scale_shift", "st_encoder", dtype,
+                 lambda: sb.encoder_scale_shift(*xs[:3], w, **kw),
+                 lambda: sb.encoder_scale_shift_plain(*xs[:3], w, **kw),
+                 xs[1:3], style_cost("encoder_scale_shift", b, nw, n, c,
+                                     heads, dtype, True, True),
+                 sb.smem_bytes(n, c, heads, dtype))
+        w = sb.decoder_tail_weights(params["dual"], params["last_mlp"],
+                                    (7, 7), dtype)
+        run_case(rows, "decoder_tail", "st_decoder", dtype,
+                 lambda: [sb.decoder_tail(*xs, w, **kw)],
+                 lambda: [sb.decoder_tail_plain(*xs, w, **kw)],
+                 [xs[4]], style_cost("decoder_tail", b, nw, n, c, heads,
+                                     dtype, True, True),
+                 sb.smem_bytes(n, c, heads, dtype))
 
 
 def check_kernels(gen: torch.Generator):
-    dev = torch.device(DEVICE)
     rows = []
-    for case in kernel_cases():
-        b, c, heads, hp, valid = (case[k] for k in
-                                  ("b", "c", "heads", "hp", "valid"))
-        sh, sw = effective_shift(hp, hp, (7, 7), case["shift"])
-        acfg = AttentionConfig(dim=c, num_heads=heads, window_size=(7, 7),
-                               shift_size=(sh, sw))
-        params = init_style_swin_block(gen, acfg, use_norm=True,
-                                       exclude_mlp=False, mlp_ratio=4.0)
-        params = tree_map(lambda t: t.to(dev), params)
-        mask = (torch.from_numpy(shift_attention_mask(hp, hp, 7, 7, sh, sw))
-                .to(dev) if sh or sw else None)
-        padmask = torch.from_numpy(
-            valid_token_mask(valid, valid, hp, hp, 7, 7, sh, sw)).to(dev)
-        x32 = torch.randn((b, hp, hp, c), generator=gen).to(dev)
-        nw = (hp // 7) ** 2
-        for entry, dtype in (("window_block_rows", torch.bfloat16),
-                             ("window_block_rows", torch.float32),
-                             ("window_block_windows", torch.float32)):
-            w = wb.block_weights(params, (7, 7), dtype, use_norm=True)
-            kw = dict(heads=heads, mask=mask, padmask=padmask)
-            if entry == "window_block_rows":
-                x = x32.to(dtype).contiguous()
-                kw.update(window=(7, 7), shift=(sh, sw))
-                kern, plain = wb.window_block_rows, wb.window_block_rows_plain
-            else:
-                xr = torch.roll(x32, (-sh, -sw), (1, 2)) if sh or sw else x32
-                x = window_partition(xr, 7, 7).reshape(b, nw, 49, c)
-                x = x.to(dtype).contiguous()
-                kern = wb.window_block_windows
-                plain = wb.window_block_windows_plain
-            got = kern(x, w, **kw)
-            ref = plain(x, w, **kw)
-            torch.cuda.synchronize()
-            err, err_over_tol = kernel_error(got, ref, x)
-            if not err_over_tol <= 1.0:
-                raise AssertionError(
-                    f"{entry} stage {case['stage']} shift {(sh, sw)} "
-                    f"{dtype}: max-abs {err}, error/tolerance "
-                    f"{err_over_tol} > 1")
-            del got, ref
-            ms = cuda_ms(lambda: kern(x, w, **kw), 5)
-            plain_ms = cuda_ms(lambda: plain(x, w, **kw), 3)
-            flops, nbytes = block_cost(b, nw, 49, c, heads, 4 * c, dtype,
-                                       mask is not None, True)
-            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-            t_bytes = nbytes / PEAK_BYTES * 1e3
-            row = dict(entry=entry, stage=case["stage"], shift=[sh, sw],
-                       ops_ms=t_ops, bytes_ms=t_bytes,
-                       dtype=str(dtype).replace("torch.", ""),
-                       shape=list(x.shape), max_abs_err=err,
-                       err_over_tol=err_over_tol,
-                       ms=ms, plain_ms=plain_ms,
-                       bound_ms=max(t_ops, t_bytes),
-                       bound_by="operations" if t_ops >= t_bytes else "bytes",
-                       gflop=flops / 1e9, mbytes=nbytes / 1e6)
-            emit("kernels", **row)
-            rows.append(row)
+    # The Swin pass of one request batch: 2 x max_batch images; at 512^2
+    # stage 1 on 133x133 padded tokens (valid 128), stage 2 on 70x70 (valid
+    # 64); shift 0 and window // 2. Both entries at f32 too.
+    swin_entries = (("window_block_rows", torch.bfloat16),
+                    ("window_block_rows", torch.float32),
+                    ("window_block_windows", torch.float32))
+    for stage, (c, heads, valid) in enumerate(((128, 4, SIZE // 4),
+                                               (256, 8, SIZE // 8))):
+        for shift in ((0, 0), (3, 3)):
+            swin_block_cases(gen, rows, b=2 * MAX_BATCH, c=c, heads=heads,
+                             hp=padded(valid), valid=valid, shift=shift,
+                             label=f"swin_stage{stage + 1}",
+                             entries=swin_entries)
+    style_cases(gen, rows)
+    # A swin_S/T-width block (stage 2: C=192, 6 heads, head dim 32), which
+    # the port's gate sends through the block kernel too.
+    swin_block_cases(gen, rows, b=2 * MAX_BATCH, c=192, heads=6,
+                     hp=padded(SIZE // 8), valid=SIZE // 8, shift=(3, 3),
+                     label="swin_S_stage2",
+                     entries=(("window_block_rows", torch.bfloat16),
+                              ("window_block_windows", torch.float32)))
     return rows
 
 
@@ -205,8 +352,7 @@ def check_kernels(gen: torch.Generator):
 # ---------------------------------------------------------------------------
 
 def slice_config(dtype: str, kernels: bool) -> ModelConfig:
-    cfg = ModelConfig(compute_dtype=dtype)
-    return cfg.replace(swin=cfg.swin.replace(use_pallas=kernels))
+    return ModelConfig(compute_dtype=dtype).with_kernels(kernels)
 
 
 def serve_requests(svc: StylizeService, pairs, clients: int):
@@ -241,6 +387,17 @@ def serve_requests(svc: StylizeService, pairs, clients: int):
     return outs, lat, wall
 
 
+def check_launches(dtype: str, launches: dict) -> int:
+    """Every entry launched its expected count per request batch on this
+    path; returns the number of batches."""
+    batches = launches["encoder_scale_shift"] // K
+    want = {e: n * batches for e, n in PER_BATCH[dtype].items()}
+    if batches <= 0 or launches != want:
+        raise AssertionError(f"{dtype} path launched {launches}, expected "
+                             f"{PER_BATCH[dtype]} per batch")
+    return batches
+
+
 def run_slice(params, pairs_bf16, pairs_f32):
     results = {}
     services = {}
@@ -250,34 +407,28 @@ def run_slice(params, pairs_bf16, pairs_f32):
         svc.warmup()
         services[dtype] = svc
     torch.cuda.synchronize()
-    emit("slice_warmup", launches=dict(wb.LAUNCHES))
+    emit("slice_warmup", launches=all_launches())
 
-    # Each path's launch counts from zero, read right after its own run:
-    # the bf16 service runs the row entry, the f32 service the window entry.
+    # Each path's launch counts from zero, read right after its own run.
     for dtype, pairs in (("bfloat16", pairs_bf16), ("float32", pairs_f32)):
-        for key in wb.LAUNCHES:
-            wb.LAUNCHES[key] = 0
+        reset_launches()
         outs, lat, wall = serve_requests(services[dtype], pairs, CLIENTS)
         results[dtype] = dict(outs=outs, lat=lat, wall=wall,
-                              launches=dict(wb.LAUNCHES))
+                              launches=all_launches())
     for svc in services.values():
         svc.close()
-    launches = {entry: results[dtype]["launches"][entry]
-                for entry, dtype in MAIN_DTYPE.items()}
-    for entry, dtype in MAIN_DTYPE.items():
-        if launches[entry] <= 0:
-            raise AssertionError(f"{entry} never launched on the {dtype} "
-                                 f"path: {results[dtype]['launches']}")
+    batches = {dtype: check_launches(dtype, r["launches"])
+               for dtype, r in results.items()}
 
     summary = {}
     for dtype, pairs in (("bfloat16", pairs_bf16), ("float32", pairs_f32)):
         r = results[dtype]
-        before = dict(wb.LAUNCHES)
+        before = all_launches()
         plain = StylizeService(params, slice_config(dtype, False), size=SIZE,
                                k=K, max_batch=MAX_BATCH, device=DEVICE)
         ref_outs, _, _ = serve_requests(plain, pairs, CLIENTS)
         plain.close()
-        if wb.LAUNCHES != before:
+        if all_launches() != before:
             raise AssertionError("the plain service launched a kernel")
         got = np.stack(r["outs"])
         ref = np.stack(ref_outs)
@@ -291,16 +442,83 @@ def run_slice(params, pairs_bf16, pairs_f32):
         if not mae <= tol:
             raise AssertionError(f"{dtype} slice MAE {mae} > {tol}")
         summary[dtype] = dict(
-            requests=len(pairs), clients=CLIENTS,
+            requests=len(pairs), clients=CLIENTS, batches=batches[dtype],
             imgs_per_s=len(pairs) / r["wall"],
             p50_ms=float(np.median(r["lat"])) * 1e3,
             max_ms=float(np.max(r["lat"])) * 1e3,
-            launches=r["launches"], mae_vs_plain=mae, mae_tol=tol,
-            mean_abs_output=ref_mean, max_abs_vs_plain=float(
-                np.abs(got - ref).max()))
+            launches=r["launches"], launches_per_batch=PER_BATCH[dtype],
+            mae_vs_plain=mae, mae_tol=tol, mean_abs_output=ref_mean,
+            max_abs_vs_plain=float(np.abs(got - ref).max()))
         emit("slice", dtype=dtype, size=SIZE, k=K, max_batch=MAX_BATCH,
              **summary[dtype])
-    return launches, summary
+    return results["bfloat16"]["launches"], summary
+
+
+def check_f32_entry(params, rng) -> None:
+    """One float32 pair through make_stylize_fn, every ported kernel on, on
+    the card under PyTorch's own TF32 defaults, against the same call on
+    the CPU (plain versions, no TF32)."""
+    cfg = slice_config("float32", True)
+    c, s = (rng.random((1, F32_ENTRY_SIZE, F32_ENTRY_SIZE, 3),
+                       dtype=np.float32) for _ in range(2))
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    got = make_stylize_fn(cfg, k=K, device=DEVICE)(params, c, s).cpu().numpy()
+    if (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) != flags:
+        raise AssertionError("the float32 call left the TF32 flags changed")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    ref = make_stylize_fn(cfg, k=K, device="cpu")(cpu_params, c, s).numpy()
+    mae = float(np.abs(got - ref).mean())
+    ref_mean = float(np.abs(ref).mean())
+    tol = TOL_SLICE_MAE["float32"] * ref_mean
+    emit("f32_entry", size=F32_ENTRY_SIZE, k=K, mae_vs_cpu=mae, mae_tol=tol,
+         mean_abs_output=ref_mean,
+         max_abs_vs_cpu=float(np.abs(got - ref).max()),
+         tf32_flags_matmul_cudnn=list(flags))
+    if not (np.isfinite(got).all() and mae <= tol):
+        raise AssertionError(f"float32 entry point MAE {mae} > {tol}")
+
+
+def stage_times(params, content: np.ndarray, style: np.ndarray) -> dict:
+    """CUDA-event times (ms) of one batch-8 pair call at bf16, stage by
+    stage, through the functions master_apply runs, kernels on and off:
+    host-to-device copies, the Swin pass of content and style together,
+    the style transformer, the decoder, the device-to-host copy."""
+    out = {}
+    names = ("h2d", "swin", "style_transformer", "decoder", "d2h")
+    for kernels in (True, False):
+        cfg = slice_config("bfloat16", kernels)
+        dtype = torch.bfloat16
+
+        def once():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            ev[0].record()
+            c = torch.as_tensor(content, device=DEVICE)
+            s = torch.as_tensor(style, device=DEVICE)
+            ev[1].record()
+            both = swin_backbone_apply(params["swin"],
+                                       torch.cat([c, s]).to(dtype), cfg.swin)
+            ev[2].record()
+            fcs = style_transformer_apply(
+                params["style_transformer"], both[:len(content)],
+                both[len(content):], cfg.transformer, k=K)
+            ev[3].record()
+            rgb = cnn_decoder_apply(params["decoder"], fcs, cfg.decoder)
+            ev[4].record()
+            rgb.float().cpu()
+            ev[5].record()
+            torch.cuda.synchronize()
+            return [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+
+        with torch.inference_mode():
+            once()
+            runs = [once() for _ in range(3)]
+        ms = {n: float(np.mean([r[i] for r in runs]))
+              for i, n in enumerate(names)}
+        ms["total"] = sum(ms.values())
+        out["kernels_on" if kernels else "kernels_off"] = ms
+    return out
 
 
 def main() -> int:
@@ -308,20 +526,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible to torch; nothing run",
               file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     emit("device", name=kind, count=torch.cuda.device_count(),
-         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         tf32_cudnn=torch.backends.cudnn.allow_tf32)
 
     fresh = not _build.BUILD_DIR.exists()
+    t0 = time.perf_counter()
     built = _build.build_all()
     emit("build", from_scratch=fresh, seconds=built,
-         build_dir=_build.BUILD_DIR.name)
+         wall_s=time.perf_counter() - t0, build_dir=_build.BUILD_DIR.name)
 
     gen = torch.Generator().manual_seed(0)
     rows = check_kernels(gen)
@@ -336,29 +555,43 @@ def main() -> int:
                 for _ in range(n)]
 
     launches, _ = run_slice(params, pairs(REQUESTS), pairs(F32_REQUESTS))
+    check_f32_entry(params, rng)
+    batch = np.stack([p for pair in pairs(MAX_BATCH) for p in pair])
+    emit("stages", dtype="bfloat16", batch=MAX_BATCH, size=SIZE, k=K,
+         **stage_times(params, batch[0::2], batch[1::2]))
 
+    # The main path is the bf16 slice: each entry's launches from its run,
+    # its times summed over the calls of one request batch.
     kernels = []
-    # "replaces": the TPU kernel's pl.pallas_call, file:line in the JAX
-    # package beside the port.
-    for entry, replaces in (
-            ("window_block_rows", "ops/pallas_attention.py:961"),
-            ("window_block_windows", "ops/pallas_attention.py:1036")):
-        dtype = MAIN_DTYPE[entry]
-        mine = [r for r in rows if r["entry"] == entry and r["dtype"] == dtype]
-        # Per request batch: the four Swin blocks of one 2 x 8-image pass.
+    for entry, source, replaces, cases, per in (
+            ("window_block_rows", "window_block.cu",
+             "ops/pallas_attention.py:961", ("swin_stage1", "swin_stage2"),
+             "the 4 Swin blocks of one 16-image pass"),
+            ("window_block_windows", "window_block.cu",
+             "ops/pallas_attention.py:1036",
+             ("st_encoder_key", "st_decoder_self"),
+             "the style transformer's Key and self blocks of one batch, k=1"),
+            ("encoder_scale_shift", "style_block.cu",
+             "ops/pallas_attention.py:1284", ("st_encoder",),
+             "one call on one batch"),
+            ("decoder_tail", "style_block.cu",
+             "ops/pallas_attention.py:1386", ("st_decoder",),
+             "one call on one batch")):
+        mine = [r for r in rows if r["entry"] == entry
+                and r["dtype"] == "bfloat16" and r["case"] in cases]
         kernels.append(dict(
             name=entry, route="cuda",
-            source="mastermetastyletransfer_tpu_torch/csrc/window_block.cu",
+            source=f"mastermetastyletransfer_tpu_torch/csrc/{source}",
             replaces=replaces, launches=launches[entry],
-            launches_from=f"{dtype} slice run",
+            launches_from="bfloat16 slice run",
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=sum(r["ms"] for r in mine),
             plain_ms=sum(r["plain_ms"] for r in mine),
             bound_ms=sum(r["bound_ms"] for r in mine),
             bound_by=("operations" if sum(r["ops_ms"] for r in mine)
                       >= sum(r["bytes_ms"] for r in mine) else "bytes"),
-            library_ms=None,
-            dtype=dtype, per="4 blocks of one 16-image Swin pass"))
+            library_ms=None, dtype="bfloat16", per=per,
+            smem_bytes=max(r["smem_bytes"] for r in mine)))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,9 @@ package's JSON and ignores the keys it does not know (reference:
 codes/full_model.py:21-60, codes/style_transformer.py:1159-1226).
 
 ``use_pallas`` keeps its JAX name so that JSON round-trips: in the port it
-means "run the hand-written CUDA kernel of this stage". Only the Swin
-stage's block kernel exists so far; the style transformer's and the
-decoder's kernels are not ported yet, and asking for them raises.
+means "run the hand-written CUDA kernels of this stage". The Swin stage's
+and the style transformer's exist; the decoder's are not ported yet, and
+asking for them raises.
 """
 
 from __future__ import annotations
@@ -154,6 +154,14 @@ class ModelConfig(_ConfigBase):
 
     def stage_dtype(self, stage: str) -> str:
         return getattr(self, f"{stage}_dtype") or self.compute_dtype
+
+    def with_kernels(self, on: bool = True) -> "ModelConfig":
+        """The hand-written kernels on (or off) in every stage that has them
+        in the port: the Swin blocks and the style transformer (the JAX
+        service also turns on the decoder's, which are not ported yet)."""
+        return self.replace(
+            swin=self.swin.replace(use_pallas=on),
+            transformer=self.transformer.replace(use_pallas=on))
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ModelConfig":

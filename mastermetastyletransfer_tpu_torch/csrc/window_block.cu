@@ -41,9 +41,7 @@
 // -shared -Xcompiler -fPIC. Plain C interface; each entry returns the CUDA
 // error code of its launch (0 on success).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "window_common.cuh"
 
 // The entry points' argument block. It stays outside the anonymous
 // namespace: a type with internal linkage would hide the extern "C" entries.
@@ -82,35 +80,6 @@ namespace {
 
 using mmst::Args;
 
-constexpr int kThreads = 256;
-constexpr int kRowBlock = 7;  // rows of A per GEMM work item
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <typename T> __device__ __forceinline__ float round_t(float v) {
-  return to_f(from_f<T>(v));
-}
-
-// Row strides in shared memory, padded by one 4-byte word so that one
-// thread per row (row statistics) or per key (scores) hits distinct banks.
-__host__ __device__ inline int ld_f32(int n) { return n + 1; }
-__host__ __device__ inline int ld_t(int n, int tsize) {
-  return n + 4 / tsize;
-}
-__host__ __device__ inline size_t align16(size_t b) {
-  return (b + 15) & ~static_cast<size_t>(15);
-}
-
 struct Layout {
   size_t xs, ln, ob, qh, kh, vh, sc, rs, mean, rstd, toff, total;
 };
@@ -132,38 +101,6 @@ __host__ __device__ inline Layout smem_layout(int n, int c, int dh,
   l.toff = o; o = align16(o + sizeof(long long) * n);
   l.total = o;
   return l;
-}
-
-// out(m, n) = sum_k A[m][k] * W[k][col(n)] for m < M, n < ncols; A in shared
-// memory (row stride lda), W in device memory (row stride ldw). A work item
-// is kRowBlock rows of one column: a warp covers 32 neighbouring columns of
-// the same rows, so its A reads are broadcasts and its W reads coalesce.
-template <typename TA, typename TW, typename ColMap, typename Epi>
-__device__ __forceinline__ void block_gemm(const TA* A, int lda, int M, int K,
-                                           const TW* W, long long ldw,
-                                           int ncols, ColMap col, Epi epi) {
-  const int nrb = (M + kRowBlock - 1) / kRowBlock;
-  for (int it = threadIdx.x; it < nrb * ncols; it += blockDim.x) {
-    const int n = it % ncols;
-    const int m0 = (it / ncols) * kRowBlock;
-    const TW* wcol = W + col(n);
-    const TA* arow[kRowBlock];
-    float acc[kRowBlock];
-#pragma unroll
-    for (int r = 0; r < kRowBlock; ++r) {
-      arow[r] = A + static_cast<size_t>(min(m0 + r, M - 1)) * lda;
-      acc[r] = 0.f;
-    }
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float w = to_f(wcol[k * ldw]);
-#pragma unroll
-      for (int r = 0; r < kRowBlock; ++r) acc[r] += to_f(arow[r][k]) * w;
-    }
-#pragma unroll
-    for (int r = 0; r < kRowBlock; ++r)
-      if (m0 + r < M) epi(m0 + r, n, acc[r]);
-  }
 }
 
 // Offset of token t of window w of image b in x (and in out).
@@ -195,7 +132,6 @@ window_block_kernel(const Args a) {
   const int hidden = static_cast<int>(a.hidden);
   const int w = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, nthr = blockDim.x;
-  const float eps = 1e-5f;
   const float scale = static_cast<float>(a.scale);
 
   const Layout L = smem_layout(N, C, dh, sizeof(T));
@@ -230,21 +166,7 @@ window_block_kernel(const Args a) {
   __syncthreads();
 
   // 2. LN1 (two-pass statistics, one thread per row), pad tokens zeroed.
-  if (a.n1s != nullptr) {
-    for (int t = tid; t < N; t += nthr) {
-      float s = 0.f;
-      for (int c = 0; c < C; ++c) s += xs[t * LDX + c];
-      const float mu = s / C;
-      float v = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float d = xs[t * LDX + c] - mu;
-        v += d * d;
-      }
-      mean[t] = mu;
-      rstd[t] = rsqrtf(v / C + eps);
-    }
-    __syncthreads();
-  }
+  if (a.n1s != nullptr) row_stats(xs, LDX, N, C, mean, rstd);
   for (int e = tid; e < N * C; e += nthr) {
     const int t = e / C, c = e % C;
     float v = xs[t * LDX + c];
@@ -275,38 +197,10 @@ window_block_kernel(const Args a) {
             vh[m * LDH + d] = from_f<T>(v);
         });
     __syncthreads();
-    // 3b. Scores + (mask + bias).
-    const float* bias_h = a.rel_bias + static_cast<long long>(h) * N * N;
-    for (int e = tid; e < N * N; e += nthr) {
-      const int i = e / N, j = e % N;
-      float s = 0.f;
-      for (int d = 0; d < dh; ++d)
-        s += to_f(qh[i * LDH + d]) * to_f(kh[j * LDH + d]);
-      const float comb = (mask_w != nullptr ? mask_w[e] : 0.f) + bias_h[e];
-      sc[e] = s + comb;
-    }
-    __syncthreads();
-    // 3c. Softmax numerators (rounded to T) and 1 / sum (of the f32 ones).
-    for (int i = tid; i < N; i += nthr) {
-      float mx = sc[i * N];
-      for (int j = 1; j < N; ++j) mx = fmaxf(mx, sc[i * N + j]);
-      float sum = 0.f;
-      for (int j = 0; j < N; ++j) {
-        const float p = expf(sc[i * N + j] - mx);
-        sum += p;
-        sc[i * N + j] = round_t<T>(p);
-      }
-      rs[i] = 1.f / sum;
-    }
-    __syncthreads();
-    // 3d. Head output = (p . v) / sum, into columns h*dh.. of ob.
-    for (int e = tid; e < N * dh; e += nthr) {
-      const int i = e / dh, d = e % dh;
-      float o = 0.f;
-      for (int j = 0; j < N; ++j) o += sc[i * N + j] * to_f(vh[j * LDH + d]);
-      ob[i * LDT + h * dh + d] = from_f<T>(o * rs[i]);
-    }
-    __syncthreads();
+    // 3b. Scores, softmax, head output into columns h*dh.. of ob.
+    attend_head(qh, kh, vh, LDH, N, dh,
+                a.rel_bias + static_cast<long long>(h) * N * N, mask_w, sc,
+                rs, ob, LDT, h * dh);
   }
 
   // 4. y = x + proj(heads) + bp, in place in the residual stream.
@@ -317,21 +211,7 @@ window_block_kernel(const Args a) {
   __syncthreads();
 
   // 5. LN2 (or the plain y) rounded to T as the MLP input.
-  if (a.n2s != nullptr) {
-    for (int t = tid; t < N; t += nthr) {
-      float s = 0.f;
-      for (int c = 0; c < C; ++c) s += xs[t * LDX + c];
-      const float mu = s / C;
-      float v = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float d = xs[t * LDX + c] - mu;
-        v += d * d;
-      }
-      mean[t] = mu;
-      rstd[t] = rsqrtf(v / C + eps);
-    }
-    __syncthreads();
-  }
+  if (a.n2s != nullptr) row_stats(xs, LDX, N, C, mean, rstd);
   for (int e = tid; e < N * C; e += nthr) {
     const int t = e / C, c = e % C;
     float v = xs[t * LDX + c];
@@ -350,9 +230,7 @@ window_block_kernel(const Args a) {
   for (int c0 = 0; c0 < hidden; c0 += C) {
     block_gemm(ln, LDT, N, C, w1 + c0, a.hidden, C, [](int n) { return n; },
                [&](int m, int n, float acc) {
-                 const float v = acc + a.b1[c0 + n];
-                 const float g = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-                 ob[m * LDT + n] = from_f<T>(g);
+                 ob[m * LDT + n] = from_f<T>(gelu(acc + a.b1[c0 + n]));
                });
     __syncthreads();
     block_gemm(ob, LDT, N, C, w2 + static_cast<long long>(c0) * C, a.C, C,
@@ -373,13 +251,9 @@ int launch(const Args& a, cudaStream_t stream) {
   const int n = static_cast<int>(a.wh * a.ww);
   const int c = static_cast<int>(a.C);
   const Layout L = smem_layout(n, c, c / static_cast<int>(a.heads), sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      window_block_kernel<T, kRows>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.total));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(a.nW), static_cast<unsigned>(a.B));
-  window_block_kernel<T, kRows><<<grid, kThreads, L.total, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_kernel(window_block_kernel<T, kRows>, grid, L.total, stream,
+                       a);
 }
 
 template <bool kRows>

@@ -5,6 +5,8 @@ NHWC throughout.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Callable, Union
 
 import torch
@@ -45,6 +47,47 @@ def cast_params(params: dict, dtype: torch.dtype) -> dict:
                     params)
 
 
+class _TF32Off:
+    """TF32 off for cuBLAS matmuls and cuDNN convolutions while any thread
+    is inside. The flags are process-wide and one service per k runs its
+    own worker thread, so the first thread in saves the flags and the last
+    one out restores them."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._inside = 0
+        self._saved = None
+
+    def __enter__(self):
+        matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+        with self._lock:
+            if self._inside == 0:
+                self._saved = (matmul.allow_tf32, cudnn.allow_tf32)
+                matmul.allow_tf32 = cudnn.allow_tf32 = False
+            self._inside += 1
+
+    def __exit__(self, *exc):
+        with self._lock:
+            self._inside -= 1
+            if self._inside == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = self._saved
+
+
+_TF32_OFF = _TF32Off()
+
+
+def _stage_ctx(cfg: ModelConfig, stage: str):
+    """Precision of one stage of the forward pass: a float32 stage runs with
+    TF32 off (PyTorch's default lets cuDNN run float32 convolutions in
+    TF32), and the caller's setting comes back after it; a bfloat16 stage
+    is left as it is. (The JAX package's counterpart runs a float32 stage
+    at matmul precision HIGHEST.)"""
+    if DTYPES[cfg.stage_dtype(stage)] == torch.float32:
+        return _TF32_OFF
+    return contextlib.nullcontext()
+
+
 def master_apply(params: dict, content: torch.Tensor, style: torch.Tensor,
                  cfg: ModelConfig, *, k: int = 1) -> torch.Tensor:
     """Stylize ``content`` with ``style`` (NHWC RGB, normalized the way the
@@ -55,14 +98,15 @@ def master_apply(params: dict, content: torch.Tensor, style: torch.Tensor,
     independent per image, so the concatenation is exact)."""
     dtype = DTYPES[cfg.stage_dtype("swin")]
     content, style = content.to(dtype), style.to(dtype)
-    if content.shape == style.shape:
-        b = content.shape[0]
-        both = swin_backbone_apply(params["swin"],
-                                   torch.cat([content, style]), cfg.swin)
-        fc, fs = both[:b], both[b:]
-    else:
-        fc = swin_backbone_apply(params["swin"], content, cfg.swin)
-        fs = swin_backbone_apply(params["swin"], style, cfg.swin)
+    with _stage_ctx(cfg, "swin"):
+        if content.shape == style.shape:
+            b = content.shape[0]
+            both = swin_backbone_apply(params["swin"],
+                                       torch.cat([content, style]), cfg.swin)
+            fc, fs = both[:b], both[b:]
+        else:
+            fc = swin_backbone_apply(params["swin"], content, cfg.swin)
+            fs = swin_backbone_apply(params["swin"], style, cfg.swin)
     return stylize_from_features(params, fc, fs, cfg, k=k)
 
 
@@ -70,10 +114,12 @@ def stylize_from_features(params: dict, fc: torch.Tensor, fs: torch.Tensor,
                           cfg: ModelConfig, *, k: int = 1) -> torch.Tensor:
     """Style transformer + CNN decoder on encoder features."""
     td = DTYPES[cfg.stage_dtype("transformer")]
-    fcs = style_transformer_apply(params["style_transformer"], fc.to(td),
-                                  fs.to(td), cfg.transformer, k=k)
+    with _stage_ctx(cfg, "transformer"):
+        fcs = style_transformer_apply(params["style_transformer"], fc.to(td),
+                                      fs.to(td), cfg.transformer, k=k)
     dd = DTYPES[cfg.stage_dtype("decoder")]
-    out = cnn_decoder_apply(params["decoder"], fcs.to(dd), cfg.decoder)
+    with _stage_ctx(cfg, "decoder"):
+        out = cnn_decoder_apply(params["decoder"], fcs.to(dd), cfg.decoder)
     return out.float()
 
 

@@ -4,24 +4,32 @@ counterpart: models/style_transformer.py; reference:
 codes/style_transformer.py:303-398 StyleSwinTransformerBlock, :777-912
 StyleEncoder, :918-1128 StyleDecoder, :1133-1245 StyleTransformer).
 
-This is the generic evaluation path at a static k. The JAX package's
-window-resident path and its kernels (K3, K4) come with the next slice;
-until then ``use_pallas=True`` on this stage raises.
+Evaluation only, at a static k. With ``use_pallas`` the stage takes the
+JAX package's window-resident path (``style_transformer_apply_windowed``):
+Fc and Fs are partitioned into rolled, padded windows once, all k
+iterations run in the (B, nW, N, C) layout through the hand-written kernels
+-- the block kernel K2 for the encoder Key block and the decoder self block
+(ops/window_block.py), K3 for the encoder's Scale/Shift update and K4 for
+the decoder tail (ops/style_block.py) -- and the result is merged once.
+Without it, the generic path runs every attention through its own
+pad/roll/partition round trip in plain PyTorch.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from mastermetastyletransfer_tpu_torch.config import (
     AttentionConfig, StyleTransformerConfig,
 )
+from mastermetastyletransfer_tpu_torch.ops import style_block, window_block
 from mastermetastyletransfer_tpu_torch.ops.attention import (
-    block_kernel_supports, fused_self_attention_block,
-    init_dual_value_window_attention, init_window_attention,
-    shifted_window_attention, shifted_window_attention_dual_value,
+    _finalize, _prepare, _shift_mask, _valid_mask, block_kernel_supports,
+    fused_self_attention_block, init_dual_value_window_attention,
+    init_window_attention, shifted_window_attention,
+    shifted_window_attention_dual_value,
 )
 from mastermetastyletransfer_tpu_torch.ops.mlp import (
     init_linear, init_mlp, linear, mlp_apply,
@@ -29,6 +37,7 @@ from mastermetastyletransfer_tpu_torch.ops.mlp import (
 from mastermetastyletransfer_tpu_torch.ops.norm import (
     instance_norm, layer_norm,
 )
+from mastermetastyletransfer_tpu_torch.ops.windows import valid_token_mask
 
 
 def _norm_params(d: int) -> dict:
@@ -204,18 +213,336 @@ def style_decoder_apply(params: dict, Fcs: torch.Tensor, Key: torch.Tensor,
     return Query + mlp_apply(params["last_mlp"], Query)
 
 
+# ---------------------------------------------------------------------------
+# The window-resident evaluation path
+# ---------------------------------------------------------------------------
+
+def _st_windowed_ok(cfg: StyleTransformerConfig) -> bool:
+    """The window-resident path needs the kernels on, the JAX package's
+    128-aligned width, one window geometry for encoder and decoder (so one
+    partition serves every attention) and the windowed decoder tail. The
+    port runs evaluation only, with no dropout, so the JAX gate's mode and
+    dropout conditions always hold here."""
+    return (cfg.use_pallas and cfg.encoder_dim % 128 == 0
+            and cfg.encoder_dim == cfg.decoder_dim
+            and cfg.encoder_window_size == cfg.decoder_window_size
+            and cfg.encoder_shift_size == cfg.decoder_shift_size
+            and not cfg.decoder_use_regular_MHA_instead_of_Swin_at_the_end)
+
+
+def _generic_only(cfg: StyleTransformerConfig) -> None:
+    """The generic path with kernels on runs the training slice's kernels in
+    the JAX package; the port has none of them yet."""
+    if cfg.use_pallas:
+        raise NotImplementedError(
+            "this style-transformer configuration takes the generic path, "
+            "whose kernels (K8 fused_window_attention, K9 "
+            "fused_window_attention_dual, K10 fused_ln_mlp_residual) are not "
+            "ported yet; run it with StyleTransformerConfig.use_pallas=False")
+
+
+def _masked_instance_norm(x4: torch.Tensor, vm: torch.Tensor, count: float,
+                          eps: float = 1e-5,
+                          scale: Optional[torch.Tensor] = None,
+                          bias: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """InstanceNorm over the valid tokens of a window tensor (B, nW, N, C):
+    the image-layout statistics of the un-padded image (the reference
+    normalizes before padding). One-pass biased variance E[x^2] - mean^2,
+    f32 statistics, eps 1e-5, as the JAX package."""
+    xf = x4.float()
+    xm = xf * vm
+    mean = xm.sum((1, 2), keepdim=True) / count
+    var = (xm * xm).sum((1, 2), keepdim=True) / count - mean * mean
+    y = (xf - mean) * (var + eps) ** -0.5
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x4.dtype)
+
+
+def _to4(x: torch.Tensor, b: int) -> torch.Tensor:
+    bn, n, c = x.shape
+    return x.reshape(b, bn // b, n, c)
+
+
+def _finalize_windowed(x4: torch.Tensor, geom: dict,
+                       window: Tuple[int, int]) -> torch.Tensor:
+    return _finalize(x4.reshape(-1, x4.shape[2], x4.shape[3]), geom, window)
+
+
+class WindowedStyleStream:
+    """The k (Key, Scale, Shift) encoder triples of one style in the window
+    layout (B, nW, N, C), with the feature-map (h, w) they were partitioned
+    at: window shapes alone cannot tell a 56x28 grid from a 28x56 one, or
+    26x26 from 28x28 (same padded grid, other valid tokens), so the consumer
+    checks (h, w)."""
+
+    def __init__(self, triples, hw):
+        self.triples = list(triples)
+        self.hw = tuple(hw)
+
+    def __iter__(self):
+        return iter(self.triples)
+
+    def __len__(self):
+        return len(self.triples)
+
+    def __getitem__(self, i):
+        return self.triples[i]
+
+
+def _bcast_stream_batch(t: torch.Tensor, bc: int) -> torch.Tensor:
+    """One batch-1 style stream serves a whole content batch (style-locked
+    serving); equal batches pass through. The copy is contiguous, as the
+    kernels take it."""
+    if t.shape[0] == bc:
+        return t
+    if t.shape[0] == 1:
+        return t.expand(bc, *t.shape[1:]).contiguous()
+    raise ValueError(f"stream batch {t.shape[0]} vs content batch {bc}")
+
+
+def _windowed_machinery(params: dict, cfg: StyleTransformerConfig,
+                        geom: dict, dtype: torch.dtype, device: torch.device,
+                        fuse_iteration: Optional[bool] = None):
+    """The window-resident (encoder, decoder) closures for one geometry.
+    encoder: (Key, Scale, Shift) -> the updated triple; decoder: (Fcs, Key,
+    Scale, Shift) -> Fcs'; all (B, nW, N, C). Shared by the interleaved path
+    and the style-stream API (the encoder triple evolves from the style
+    alone)."""
+    if fuse_iteration is False:
+        raise NotImplementedError(
+            "fuse_iteration=False is the JAX package's float32 split route "
+            "through K9 (fused_window_attention_dual) and K10 "
+            "(fused_ln_mlp_residual), which are not ported yet; the port "
+            "fuses the iteration (K3, K4) at both dtypes")
+    window = cfg.encoder_attn().window_size
+    wh, ww = window
+    heads_e, heads_d = cfg.encoder_num_heads, cfg.decoder_num_heads
+    b, h, w = geom["b"], geom["h"], geom["w"]
+    ph, pw, sh, sw = geom["pad_h"], geom["pad_w"], geom["sh"], geom["sw"]
+    mask = _shift_mask(ph, pw, wh, ww, sh, sw, device) if sh or sw else None
+    padmask = _valid_mask(h, w, ph, pw, wh, ww, sh, sw, device)
+    vm = torch.from_numpy(
+        valid_token_mask(h, w, ph, pw, wh, ww, sh, sw)).to(device)[
+            None, :, :, None]
+    count = float(h * w)
+
+    def zp(x4):
+        """Re-zero the pad tokens (the identity when the window divides the
+        grid)."""
+        return x4 if padmask is None else x4 * vm.to(x4.dtype)
+
+    def kernel_args(heads):
+        return dict(heads=heads, mask=mask, padmask=padmask)
+
+    enc, dec = params["encoder"], params["decoder"]
+    e_attn = enc["shared_mha"]["attn"]
+    n1p = enc["shared_mha"].get("norm1") if cfg.encoder_use_norm else None
+    # The Key block is the block kernel's chain with the norm-free MLP_Key
+    # and no LN2 (reference: codes/style_transformer.py:859-865).
+    key_w = window_block.block_weights(
+        {"attn": e_attn, "mlp": enc["mlp_key"], "norm1": n1p}, window, dtype,
+        n1p is not None, norm2=False)
+    ss_w = style_block.encoder_weights(e_attn, enc["mlp_scale"],
+                                       enc["mlp_shift"], n1p, window, dtype)
+
+    def key_block(Key):
+        return window_block.window_block_windows(Key, key_w,
+                                                 **kernel_args(heads_e))
+
+    def scale_shift(Key, Scale, Shift):
+        return style_block.encoder_scale_shift(Key, Scale, Shift, ss_w,
+                                               **kernel_args(heads_e))
+
+    def encoder(Key, Scale, Shift):
+        if cfg.encoder_if_use_processed_Key_in_Scale_and_Shift_calculation:
+            Key = key_block(Key)
+            Scale, Shift = scale_shift(Key, Scale, Shift)
+        else:
+            Scale, Shift = scale_shift(Key, Scale, Shift)
+            Key = key_block(Key)
+        return Key, Scale, Shift
+
+    d_self, d_dual = dec["self_mha"], dec["dual_mha"]
+    self_w = (None if cfg.decoder_exclude_MLP_after_Fcs_self_MHA
+              else window_block.block_weights(d_self, window, dtype,
+                                              cfg.decoder_use_norm))
+    tail_w = style_block.decoder_tail_weights(d_dual, dec["last_mlp"],
+                                              window, dtype)
+    affine = cfg.decoder_use_instance_norm_with_affine
+
+    def affine_of(which):
+        aff = dec.get(which) if affine else None
+        return {} if aff is None else {"scale": aff["scale"],
+                                       "bias": aff["bias"]}
+
+    def in_masked(x4, which):
+        return _masked_instance_norm(x4, vm, count, **affine_of(which))
+
+    def decoder(Fcs, Key, Scale, Shift):
+        if self_w is None:
+            raise NotImplementedError(
+                "decoder_exclude_MLP_after_Fcs_self_MHA runs the decoder's "
+                "self attention through K8 (fused_window_attention), which "
+                "is not ported yet")
+        Query = window_block.window_block_windows(Fcs, self_w,
+                                                  **kernel_args(heads_d))
+        # The entry INs see the un-padded image: masked statistics
+        # (reference: codes/style_transformer.py:1053-1057).
+        query_in = in_masked(Query, "in_q")
+        key_in = in_masked(Key, "in_k")
+        # The in-attention Q IN (reference :468), applied again, masked.
+        q = zp(in_masked(query_in, "in_q"))
+        if cfg.decoder_use_Key_instance_norm_after_linear_transformation:
+            # Post-linear IN over the whole padded grid, where the pad
+            # tokens hold the wk bias (reference :520-530).
+            kk = linear(d_dual["wk"], zp(key_in))
+            kk = instance_norm(kk.reshape(b, -1, kk.shape[-1]),
+                               **affine_of("in_k")).reshape(kk.shape)
+        else:
+            kk = linear(d_dual["wk"], zp(in_masked(key_in, "in_k")))
+        return style_block.decoder_tail(q, kk, Scale, Shift, Query, tail_w,
+                                        **kernel_args(heads_d))
+
+    return encoder, decoder
+
+
+def _partition(x: torch.Tensor, cfg: StyleTransformerConfig):
+    acfg = cfg.encoder_attn()
+    (xw,), geom = _prepare([x], acfg.window_size, acfg.shift_size)
+    return _to4(xw, geom["b"]), geom
+
+
+def style_transformer_apply_windowed(params: dict, Fc: torch.Tensor,
+                                     Fs: torch.Tensor,
+                                     cfg: StyleTransformerConfig, *, k: int,
+                                     fuse_iteration: Optional[bool] = None
+                                     ) -> torch.Tensor:
+    """Partition Fc and Fs into (rolled, padded) windows once, run all k
+    iterations of encoder and decoder in the (B, nW, N, C) layout, merge
+    once. Every attention of the style transformer shares one geometry, and
+    every op between them is token-local or permutation-invariant, so the
+    generic path's per-attention round trips are pure overhead.
+
+    Parity: pad tokens are re-zeroed before each attention (the reference
+    pads fresh zeros each time, and pad tokens take part as keys in border
+    windows); the decoder's entry INs take masked statistics, the
+    post-linear Key IN full padded-grid ones; residuals come from q for the
+    Key and self blocks and from v for Scale/Shift (reference:
+    codes/style_transformer.py:382-386)."""
+    acfg = cfg.encoder_attn()
+    (fc_w, fs_w), geom = _prepare([Fc, Fs], acfg.window_size,
+                                  acfg.shift_size)
+    fc_w, fs_w = _to4(fc_w, geom["b"]), _to4(fs_w, geom["b"])
+    encoder, decoder = _windowed_machinery(params, cfg, geom, fc_w.dtype,
+                                           fc_w.device, fuse_iteration)
+    Key = Scale = Shift = fs_w
+    Fcs = fc_w
+    for _ in range(int(k)):
+        Key, Scale, Shift = encoder(Key, Scale, Shift)
+        Fcs = decoder(Fcs, Key, Scale, Shift)
+    return _finalize_windowed(Fcs, geom, acfg.window_size)
+
+
+def style_stream_windowed(params: dict, Fs: torch.Tensor,
+                          cfg: StyleTransformerConfig, *, k: int,
+                          fuse_iteration: Optional[bool] = None
+                          ) -> WindowedStyleStream:
+    """The k encoder triples of one style, in the window layout. They evolve
+    from Fs alone (reference: codes/style_transformer.py:1229-1245), so a
+    fixed style's stream serves any number of contents of its size."""
+    fs_w, geom = _partition(Fs, cfg)
+    encoder, _ = _windowed_machinery(params, cfg, geom, fs_w.dtype,
+                                     fs_w.device, fuse_iteration)
+    Key = Scale = Shift = fs_w
+    stream = []
+    for _ in range(int(k)):
+        Key, Scale, Shift = encoder(Key, Scale, Shift)
+        stream.append((Key, Scale, Shift))
+    return WindowedStyleStream(stream, (geom["h"], geom["w"]))
+
+
+def style_apply_windowed_from_stream(params: dict, Fc: torch.Tensor, stream,
+                                     cfg: StyleTransformerConfig, *,
+                                     fuse_iteration: Optional[bool] = None
+                                     ) -> torch.Tensor:
+    """The decoder half of the windowed path against a precomputed style
+    stream. Fc must have the feature size the stream was built at."""
+    fc_w, geom = _partition(Fc, cfg)
+    if isinstance(stream, WindowedStyleStream):
+        if stream.hw != (geom["h"], geom["w"]):
+            raise ValueError(
+                f"style stream was built at feature size {stream.hw}; "
+                f"content features are {(geom['h'], geom['w'])}: stream "
+                f"and content must share (H, W)")
+    elif len(stream) and stream[0][0].shape[1:] != fc_w.shape[1:]:
+        raise ValueError(
+            f"style stream geometry {tuple(stream[0][0].shape[1:])} does not "
+            f"match content windows {tuple(fc_w.shape[1:])}")
+    _, decoder = _windowed_machinery(params, cfg, geom, fc_w.dtype,
+                                     fc_w.device, fuse_iteration)
+    bc = fc_w.shape[0]
+    Fcs = fc_w
+    for Key, Scale, Shift in stream:
+        Fcs = decoder(Fcs, _bcast_stream_batch(Key, bc),
+                      _bcast_stream_batch(Scale, bc),
+                      _bcast_stream_batch(Shift, bc))
+    return _finalize_windowed(Fcs, geom, cfg.encoder_attn().window_size)
+
+
 def style_transformer_apply(params: dict, Fc: torch.Tensor, Fs: torch.Tensor,
                             cfg: StyleTransformerConfig, *,
                             k: int = 1) -> torch.Tensor:
     """k stacked iterations of (encoder, decoder) with shared params
     (reference: codes/style_transformer.py:1229-1245)."""
-    if cfg.use_pallas:
-        raise NotImplementedError(
-            "the style transformer's kernels are not ported yet; run it "
-            "with StyleTransformerConfig.use_pallas=False")
+    if _st_windowed_ok(cfg):
+        return style_transformer_apply_windowed(params, Fc, Fs, cfg, k=int(k))
+    _generic_only(cfg)
     Scale = Shift = Fs
     for _ in range(int(k)):
         Fs, Scale, Shift = style_encoder_apply(params["encoder"], Fs, Scale,
                                                Shift, cfg)
         Fc = style_decoder_apply(params["decoder"], Fc, Fs, Scale, Shift, cfg)
+    return Fc
+
+
+def style_transformer_stream(params: dict, Fs: torch.Tensor,
+                             cfg: StyleTransformerConfig, *, k: int):
+    """The content-independent half of the style transformer: the k encoder
+    triples evolved from Fs. Pair it with
+    ``style_transformer_apply_from_stream`` under the same cfg (the stream
+    is windowed exactly when the windowed path is taken)."""
+    if _st_windowed_ok(cfg):
+        return style_stream_windowed(params, Fs, cfg, k=int(k))
+    _generic_only(cfg)
+    Key = Scale = Shift = Fs
+    stream = []
+    for _ in range(int(k)):
+        Key, Scale, Shift = style_encoder_apply(params["encoder"], Key,
+                                                Scale, Shift, cfg)
+        stream.append((Key, Scale, Shift))
+    return stream
+
+
+def style_transformer_apply_from_stream(params: dict, Fc: torch.Tensor,
+                                        stream, cfg: StyleTransformerConfig
+                                        ) -> torch.Tensor:
+    """Decode Fc against a precomputed style stream. A batch-1 stream
+    serves any content batch (style-locked serving)."""
+    if _st_windowed_ok(cfg):
+        return style_apply_windowed_from_stream(params, Fc, stream, cfg)
+    _generic_only(cfg)
+    if len(stream) and stream[0][0].shape[1:3] != Fc.shape[1:3]:
+        raise ValueError(
+            f"style stream feature size {tuple(stream[0][0].shape[1:3])} "
+            f"does not match content features {tuple(Fc.shape[1:3])}")
+    bc = Fc.shape[0]
+    for Key, Scale, Shift in stream:
+        Fc = style_decoder_apply(
+            params["decoder"], Fc, _bcast_stream_batch(Key, bc),
+            _bcast_stream_batch(Scale, bc), _bcast_stream_batch(Shift, bc),
+            cfg)
     return Fc

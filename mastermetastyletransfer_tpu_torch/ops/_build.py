@@ -6,9 +6,10 @@ Each ``csrc/<name>.cu`` is compiled on first use with
          -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
 
 into ``build/`` at the repository root (listed in .gitignore), keyed by a
-hash of the source and the flags, so an edited source builds anew and an
-unchanged one is loaded as it is. The library has a plain C interface: no
-PyTorch headers, which keeps a build to seconds.
+hash of every file under csrc/ (the sources share a header) and the flags,
+so an edited source builds anew and an unchanged one is loaded as it is.
+The library has a plain C interface: no PyTorch headers, which keeps a
+build to seconds. ``build_all`` starts one nvcc per source, all at once.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
 
@@ -51,8 +53,9 @@ def sources() -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        digest.update(f.name.encode() + b"\0" + f.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -74,12 +77,14 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> Dict[str, float]:
-    """Build and load every source; returns {name: seconds of its build}
-    (0.0 for a library that was already built)."""
-    seconds = {}
-    for name in sources():
+    """Build and load every source, the builds side by side; returns {name:
+    seconds of its build} (0.0 for a library that was already built)."""
+    def timed(name):
         fresh = not library_path(name).exists()
         t0 = time.perf_counter()
         load(name)
-        seconds[name] = time.perf_counter() - t0 if fresh else 0.0
-    return seconds
+        return time.perf_counter() - t0 if fresh else 0.0
+
+    names = sources()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(timed, names)))

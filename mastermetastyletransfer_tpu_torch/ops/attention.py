@@ -147,8 +147,8 @@ def shifted_window_attention_two_v(params: dict, q_in: torch.Tensor,
     """One attention map, two value inputs through the same Wv and proj
     (the style encoder's Scale and Shift blocks, reference:
     codes/style_transformer.py:867-882, which computes the softmax twice).
-    Plain PyTorch; the JAX package runs it through its dual-value kernel,
-    whose port is queued with the style transformer's kernels."""
+    Plain PyTorch; the JAX package runs it through its dual-value kernel
+    K9, whose port is queued with the training slice."""
     (qw, kw, v1w, v2w), geom = _prepare(
         [q_in, k_in, v1_in, v2_in], cfg.window_size, cfg.shift_size)
     q = linear(params["wq"], qw)

@@ -58,36 +58,44 @@ class BlockWeights(NamedTuple):
     b2: torch.Tensor        # (C,)
 
 
+def _mat(p: dict, dtype: torch.dtype) -> torch.Tensor:
+    """A linear layer's kernel in the compute type."""
+    return p["kernel"].to(dtype).contiguous()
+
+
+def _vec(p: dict, n: int) -> torch.Tensor:
+    """A linear layer's bias in float32 (zeros where it has none)."""
+    if "bias" in p:
+        return p["bias"].float().contiguous()
+    return torch.zeros(n, dtype=torch.float32, device=p["kernel"].device)
+
+
 def block_weights(block_params: dict, window: Tuple[int, int],
-                  dtype: torch.dtype, use_norm: bool) -> BlockWeights:
+                  dtype: torch.dtype, use_norm: bool, *,
+                  norm2: Optional[bool] = None) -> BlockWeights:
     """Prepare a block's param dict ({"attn", "mlp", "norm1", "norm2"}, the
-    JAX layout) for the kernel."""
+    JAX layout) for the kernel. ``use_norm`` takes LN1, and LN2 too unless
+    ``norm2`` says otherwise (the style encoder's Key block has an optional
+    LN1 and never an LN2)."""
     attn, mlp = block_params["attn"], block_params["mlp"]
     c = attn["wq"]["kernel"].shape[0]
-
-    def bias(p, n):
-        if "bias" in p:
-            return p["bias"].float().contiguous()
-        return torch.zeros(n, dtype=torch.float32, device=p["kernel"].device)
-
-    def mat(p):
-        return p["kernel"].to(dtype).contiguous()
+    use = {"norm1": use_norm, "norm2": use_norm if norm2 is None else norm2}
 
     def norm(name, part):
         return (block_params[name][part].float().contiguous()
-                if use_norm else None)
+                if use[name] else None)
 
     hidden = mlp["fc1"]["kernel"].shape[1]
     return BlockWeights(
-        wqkv=torch.cat([mat(attn[k]) for k in ("wq", "wk", "wv")], 1),
-        bqkv=torch.cat([bias(attn[k], c) for k in ("wq", "wk", "wv")]),
-        wp=mat(attn["proj"]), bp=bias(attn["proj"], c),
+        wqkv=torch.cat([_mat(attn[k], dtype) for k in ("wq", "wk", "wv")], 1),
+        bqkv=torch.cat([_vec(attn[k], c) for k in ("wq", "wk", "wv")]),
+        wp=_mat(attn["proj"], dtype), bp=_vec(attn["proj"], c),
         rel_bias=relative_position_bias(
             attn["rel_bias_table"].float(), *window).contiguous(),
         n1s=norm("norm1", "scale"), n1b=norm("norm1", "bias"),
         n2s=norm("norm2", "scale"), n2b=norm("norm2", "bias"),
-        w1=mat(mlp["fc1"]), b1=bias(mlp["fc1"], hidden),
-        w2=mat(mlp["fc2"]), b2=bias(mlp["fc2"], c))
+        w1=_mat(mlp["fc1"], dtype), b1=_vec(mlp["fc1"], hidden),
+        w2=_mat(mlp["fc2"], dtype), b2=_vec(mlp["fc2"], c))
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +109,32 @@ def _ln(x: torch.Tensor, s: torch.Tensor, b: torch.Tensor,
     return (x - mean) * torch.rsqrt(var + eps) * s + b
 
 
+def attend(q: torch.Tensor, k: torch.Tensor, values, rel_bias: torch.Tensor,
+           *, heads: int, mask: Optional[torch.Tensor] = None):
+    """Window attention core of the kernels, one softmax per head shared by
+    every value stream: q (already scaled), k and each v are (B, nW, N, C)
+    in the compute type T; returns one (B, nW, N, C) head-output tensor in T
+    per value stream. The softmax runs in f32; its numerators are rounded to
+    T before the value product, and each head output is scaled by 1 / sum
+    before its rounding, as the kernels do."""
+    t = q.dtype
+    b, nw, n, c = q.shape
+    dh = c // heads
+
+    def split_heads(z):
+        return z.reshape(b, nw, n, heads, dh).transpose(2, 3).float()
+
+    comb = rel_bias[None, None]
+    if mask is not None:
+        comb = mask[None, :, None] + comb
+    s = split_heads(q) @ split_heads(k).transpose(-1, -2) + comb
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    recip = 1.0 / e.sum(-1, keepdim=True)
+    p = e.to(t).float()
+    return tuple(((p @ split_heads(v)) * recip).to(t).transpose(2, 3)
+                 .reshape(b, nw, n, c) for v in values)
+
+
 def window_block_windows_plain(x: torch.Tensor, w: BlockWeights, *,
                                heads: int,
                                mask: Optional[torch.Tensor] = None,
@@ -110,27 +144,15 @@ def window_block_windows_plain(x: torch.Tensor, w: BlockWeights, *,
     Every product runs on float32 copies of T-typed operands, which is what
     the kernel's f32-accumulated products compute."""
     t = x.dtype
-    b, nw, n, c = x.shape
-    dh = c // heads
+    c = x.shape[-1]
     xf = x.float()
     ln = _ln(xf, w.n1s, w.n1b).to(t) if w.n1s is not None else x
     if padmask is not None:
         ln = ln * padmask.to(t)[None, :, :, None]
     qkv = (ln.float() @ w.wqkv.float() + w.bqkv).to(t)
     q, k, v = qkv.split(c, dim=-1)
-    q = (q.float() * dh ** -0.5).to(t)
-
-    def split_heads(z):
-        return z.reshape(b, nw, n, heads, dh).transpose(2, 3).float()
-
-    comb = w.rel_bias[None, None]
-    if mask is not None:
-        comb = mask[None, :, None] + comb
-    s = split_heads(q) @ split_heads(k).transpose(-1, -2) + comb
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    recip = 1.0 / e.sum(-1, keepdim=True)
-    o = ((e.to(t).float() @ split_heads(v)) * recip).to(t)
-    o = o.transpose(2, 3).reshape(b, nw, n, c)
+    q = (q.float() * (c // heads) ** -0.5).to(t)
+    (o,) = attend(q, k, (v,), w.rel_bias, heads=heads, mask=mask)
     y = xf + o.float() @ w.wp.float() + w.bp
     h2 = _ln(y, w.n2s, w.n2b) if w.n2s is not None else y
     hid = F.gelu(h2.to(t).float() @ w.w1.float() + w.b1).to(t)
@@ -255,7 +277,7 @@ def _on_cuda(x: torch.Tensor) -> bool:
         return True
     if x.device.type == "cpu":
         return False
-    raise ValueError(f"no window-block kernel for device {x.device}")
+    raise ValueError(f"no kernel of the port for device {x.device}")
 
 
 def window_block_rows(x: torch.Tensor, w: BlockWeights, *, heads: int,

@@ -237,7 +237,8 @@ def main(argv=None):
                     choices=["bfloat16", "float32"])
     ap.add_argument("--use_kernels", action=argparse.BooleanOptionalAction,
                     default=True,
-                    help="run the Swin blocks through the block kernel")
+                    help="run the Swin blocks and the style transformer "
+                         "through the hand-written kernels")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights used without "
@@ -251,8 +252,8 @@ def main(argv=None):
         load_params_npz,
     )
 
-    cfg = ModelConfig(compute_dtype=args.compute_dtype)
-    cfg = cfg.replace(swin=cfg.swin.replace(use_pallas=args.use_kernels))
+    cfg = ModelConfig(compute_dtype=args.compute_dtype).with_kernels(
+        args.use_kernels)
     params = init_master_model(
         cfg, torch.Generator().manual_seed(args.seed), device=args.device)
     if args.checkpoint:

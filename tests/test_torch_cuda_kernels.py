@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels (ops/window_block.py, ops/style_block.py)
+against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor tests/conftest.py's fixtures, so that it also runs on a
@@ -21,6 +22,7 @@ from mastermetastyletransfer_tpu_torch.config import AttentionConfig
 from mastermetastyletransfer_tpu_torch.models.style_transformer import (
     init_style_swin_block,
 )
+from mastermetastyletransfer_tpu_torch.ops import style_block as sb
 from mastermetastyletransfer_tpu_torch.ops import window_block as wb
 from mastermetastyletransfer_tpu_torch.ops import windows as twin
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import tree_map
@@ -104,3 +106,139 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         wb.window_block_rows(x.to(torch.bfloat16), w, **kw)
     with pytest.raises(ValueError):       # not contiguous
         wb.window_block_rows(x.transpose(1, 2), w, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The block kernel at the swin_T/S widths, and with LN1 only
+# ---------------------------------------------------------------------------
+
+def _block_case(cuda, dtype, c, heads, use_norm=True, norm2=None):
+    g = torch.Generator().manual_seed(1)
+    acfg = AttentionConfig(dim=c, num_heads=heads, window_size=(7, 7),
+                           shift_size=(3, 3))
+    params = init_style_swin_block(g, acfg, use_norm=True, exclude_mlp=False,
+                                   mlp_ratio=4.0)
+    for name in ("norm1", "norm2"):       # non-trivial affine
+        params[name] = {"scale": 1 + 0.3 * torch.randn(c, generator=g),
+                        "bias": 0.3 * torch.randn(c, generator=g)}
+    params = tree_map(lambda t: t.to(cuda), params)
+    w = wb.block_weights(params, (7, 7), dtype, use_norm, norm2=norm2)
+    x = torch.randn((2, 21, 21, c), generator=g).to(cuda, dtype)
+    mask = torch.from_numpy(
+        twin.shift_attention_mask(21, 21, 7, 7, 3, 3)).to(cuda)
+    padmask = torch.from_numpy(
+        twin.valid_token_mask(16, 16, 21, 21, 7, 7, 3, 3)).to(cuda)
+    return w, x, mask, padmask
+
+
+def _run_entry(entry, w, x, heads, mask, padmask):
+    before = wb.LAUNCHES[f"window_block_{entry}"]
+    if entry == "rows":
+        kw = dict(heads=heads, window=(7, 7), shift=(3, 3), mask=mask,
+                  padmask=padmask)
+        got = wb.window_block_rows(x, w, **kw)
+        ref = wb.window_block_rows_plain(x, w, **kw)
+    else:
+        x = twin.window_partition(torch.roll(x, (-3, -3), (1, 2)), 7, 7)
+        x = x.reshape(2, 9, 49, -1).contiguous()
+        kw = dict(heads=heads, mask=mask, padmask=padmask)
+        got = wb.window_block_windows(x, w, **kw)
+        ref = wb.window_block_windows_plain(x, w, **kw)
+    assert wb.LAUNCHES[f"window_block_{entry}"] == before + 1
+    _check(got, ref, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,heads", [(96, 3), (192, 6)])
+@pytest.mark.parametrize("entry", ["rows", "windows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swin_t_s_widths_match_plain(cuda, dtype, entry, c, heads):
+    """The port's gate sends swin_T/S blocks (C=96 with 3 heads, C=192 with
+    6, head dim 32) through the block kernel."""
+    w, x, mask, padmask = _block_case(cuda, dtype, c, heads)
+    _run_entry(entry, w, x, heads, mask, padmask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln1_only_block_matches_plain(cuda, dtype):
+    """LN1 and no LN2: the style encoder's Key block with encoder_use_norm."""
+    w, x, mask, padmask = _block_case(cuda, dtype, C, HEADS, norm2=False)
+    assert w.n1s is not None and w.n2s is None
+    _run_entry("windows", w, x, HEADS, mask, padmask)
+
+
+# ---------------------------------------------------------------------------
+# The style transformer's kernels (ops/style_block.py)
+# ---------------------------------------------------------------------------
+
+ST_C, ST_HEADS = 256, 8
+
+
+def _style_case(cuda, dtype, n_windows):
+    """Weights, window tensors (2, 4, 49, 256) of a 9x9 token grid padded
+    to 14x14 with shift (4, 4), its shift mask and its pad mask."""
+    from mastermetastyletransfer_tpu_torch.ops.attention import (
+        init_dual_value_window_attention, init_window_attention,
+    )
+    from mastermetastyletransfer_tpu_torch.ops.mlp import init_mlp
+
+    g = torch.Generator().manual_seed(2)
+    acfg = AttentionConfig(dim=ST_C, num_heads=ST_HEADS, window_size=(7, 7),
+                           shift_size=(4, 4))
+    params = {"attn": init_window_attention(g, acfg),
+              "dual": init_dual_value_window_attention(g, acfg),
+              "norm1": {"scale": 1 + 0.3 * torch.randn(ST_C, generator=g),
+                        "bias": 0.3 * torch.randn(ST_C, generator=g)}}
+    for name in ("mlp_scale", "mlp_shift", "last_mlp"):
+        params[name] = init_mlp(g, ST_C, 4 * ST_C, init="xavier_uniform")
+    params = tree_map(lambda t: t.to(cuda), params)
+    xs = [(0.5 * torch.randn((2, 4, 49, ST_C), generator=g)).to(cuda, dtype)
+          for _ in range(n_windows)]
+    mask = torch.from_numpy(
+        twin.shift_attention_mask(14, 14, 7, 7, 4, 4)).to(cuda)
+    padmask = torch.from_numpy(
+        twin.valid_token_mask(9, 9, 14, 14, 7, 7, 4, 4)).to(cuda)
+    return params, xs, dict(heads=ST_HEADS, mask=mask, padmask=padmask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_ln1", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_scale_shift_matches_plain(cuda, dtype, use_ln1):
+    params, (key, scale, shift), kw = _style_case(cuda, dtype, 3)
+    w = sb.encoder_weights(params["attn"], params["mlp_scale"],
+                           params["mlp_shift"],
+                           params["norm1"] if use_ln1 else None, (7, 7),
+                           dtype)
+    before = sb.LAUNCHES["encoder_scale_shift"]
+    got_s, got_h = sb.encoder_scale_shift(key, scale, shift, w, **kw)
+    assert sb.LAUNCHES["encoder_scale_shift"] == before + 1
+    ref_s, ref_h = sb.encoder_scale_shift_plain(key, scale, shift, w, **kw)
+    _check(got_s, ref_s, scale)
+    _check(got_h, ref_h, shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decoder_tail_matches_plain(cuda, dtype):
+    params, xs, kw = _style_case(cuda, dtype, 5)
+    w = sb.decoder_tail_weights(params["dual"], params["last_mlp"], (7, 7),
+                                dtype)
+    before = sb.LAUNCHES["decoder_tail"]
+    got = sb.decoder_tail(*xs, w, **kw)
+    assert sb.LAUNCHES["decoder_tail"] == before + 1
+    _check(got, sb.decoder_tail_plain(*xs, w, **kw), xs[4])
+
+
+@pytest.mark.cuda
+def test_style_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    params, xs, kw = _style_case(cuda, torch.float32, 5)
+    w = sb.decoder_tail_weights(params["dual"], params["last_mlp"], (7, 7),
+                                torch.float32)
+    with pytest.raises(TypeError):        # inputs of another type
+        sb.decoder_tail(*[x.to(torch.bfloat16) for x in xs], w, **kw)
+    with pytest.raises(ValueError):       # not contiguous
+        sb.decoder_tail(xs[0].transpose(1, 2), *xs[1:], w, **kw)
+    with pytest.raises(ValueError):       # another shape
+        sb.decoder_tail(xs[0][:, :3].contiguous(), *xs[1:], w, **kw)

@@ -49,3 +49,21 @@ def test_sources_name_no_jax():
         assert not jax_import.search(text), f
         assert not jax_package.search(text), f
     assert "PIL" not in (ROOT / "chip_smoke.py").read_text()
+
+
+def test_every_port_module_imports_without_jax_or_pil():
+    """Each module of the package on its own, the kernel wrappers
+    (ops/window_block.py, ops/style_block.py) included."""
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in (ROOT / "mastermetastyletransfer_tpu_torch").rglob("*.py")
+        if p.name != "__init__.py")
+    assert "mastermetastyletransfer_tpu_torch.ops.style_block" in modules
+    probe = _PROBE.replace(
+        "import chip_smoke\n",
+        "import chip_smoke\nimport importlib\n"
+        + "".join(f"importlib.import_module({m!r})\n" for m in modules))
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("isolated-ok")

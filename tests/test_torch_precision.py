@@ -1,0 +1,138 @@
+"""Precision of the port's forward pass.
+
+* Every float32 stage runs with TF32 off for cuBLAS matmuls and cuDNN
+  convolutions, and the caller's setting comes back afterwards
+  (models/master.py:_stage_ctx). PyTorch lets cuDNN run float32
+  convolutions in TF32 by default, which would make the decoder's float32
+  convolutions TF32 on the card. The flags are plain attributes on a CPU
+  build too, so the stage context is checked here; chip_smoke.py checks
+  the float32 output on the card.
+* bfloat16 against the JAX package: the port's bf16 ``master_apply`` with
+  the Swin and style-transformer kernels on (their plain versions here)
+  against JAX's bf16 ``master_apply`` with K1-K4 in interpret mode, at 64^2.
+  Bound: per-pixel MAE <= 2e-2 of the mean |JAX output|, the relative bound
+  chip_smoke.py holds the bf16 slice to (two bf16 paths round
+  independently through the whole model).
+"""
+
+import sys
+import threading
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mastermetastyletransfer_tpu import config as jcfg
+from mastermetastyletransfer_tpu.models import master as jmaster
+from mastermetastyletransfer_tpu_torch import config as tcfg
+from mastermetastyletransfer_tpu_torch.models import master as tmaster
+from mastermetastyletransfer_tpu_torch.utils.checkpoint import params_from_jax
+
+TF32_FLAGS = (torch.backends.cuda.matmul, torch.backends.cudnn)
+
+
+@pytest.fixture
+def tf32_on():
+    """Both TF32 flags on, as PyTorch's cuDNN default; restored after."""
+    before = [m.allow_tf32 for m in TF32_FLAGS]
+    for m in TF32_FLAGS:
+        m.allow_tf32 = True
+    yield
+    for m, b in zip(TF32_FLAGS, before):
+        m.allow_tf32 = b
+
+
+@pytest.fixture(scope="module")
+def model():
+    pj = jax.device_get(jmaster.init_master_model(jax.random.PRNGKey(0),
+                                                  jcfg.ModelConfig()))
+    return pj, params_from_jax(pj)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stages_run_float32_without_tf32(tf32_on, monkeypatch, model, dtype):
+    """Each stage of master_apply sees TF32 off at float32 and the caller's
+    setting at bfloat16; the caller's setting is back afterwards."""
+    seen = {}
+
+    def spy(stage, fn):
+        def wrapped(*args, **kwargs):
+            seen[stage] = tuple(m.allow_tf32 for m in TF32_FLAGS)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for stage, name in (("swin", "swin_backbone_apply"),
+                        ("transformer", "style_transformer_apply"),
+                        ("decoder", "cnn_decoder_apply")):
+        monkeypatch.setattr(tmaster, name, spy(stage, getattr(tmaster, name)))
+    cfg = tcfg.ModelConfig(compute_dtype=dtype).with_kernels()
+    x = torch.rand(1, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    out = tmaster.make_stylize_fn(cfg, k=1, device="cpu")(model[1], x, x)
+    assert out.shape == (1, 32, 32, 3) and out.dtype == torch.float32
+    inside = (False, False) if dtype == "float32" else (True, True)
+    assert seen == {"swin": inside, "transformer": inside, "decoder": inside}
+    assert all(m.allow_tf32 for m in TF32_FLAGS)
+
+
+def test_stage_ctx_restores_the_flags_after_an_error(tf32_on):
+    cfg = tcfg.ModelConfig(compute_dtype="float32")
+    with pytest.raises(RuntimeError):
+        with tmaster._stage_ctx(cfg, "decoder"):
+            assert not any(m.allow_tf32 for m in TF32_FLAGS)
+            raise RuntimeError("stage failed")
+    assert all(m.allow_tf32 for m in TF32_FLAGS)
+
+
+def test_concurrent_float32_stages_keep_tf32_off(tf32_on):
+    """Stages of several float32 services (one worker thread each) overlap:
+    TF32 stays off until the last one has left, then comes back."""
+    cfg = tcfg.ModelConfig(compute_dtype="float32")
+    seen, errors = [], []
+
+    def stage(i):
+        try:
+            for _ in range(50):
+                with tmaster._stage_ctx(cfg, "decoder"):
+                    time.sleep(0.0002 * (i % 3))
+                    seen.append(tuple(m.allow_tf32 for m in TF32_FLAGS))
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=stage, args=(i,))
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert len(seen) == 16 * 50 and set(seen) == {(False, False)}
+    assert all(m.allow_tf32 for m in TF32_FLAGS)
+
+
+def test_bf16_master_apply_matches_jax(model):
+    pj, pt = model
+    cj = jcfg.ModelConfig(compute_dtype="bfloat16")
+    cj = cj.replace(swin=cj.swin.replace(use_pallas=True),
+                    transformer=cj.transformer.replace(use_pallas=True))
+    ct = tcfg.ModelConfig.from_dict(cj.to_dict())
+    assert ct.swin.use_pallas and ct.transformer.use_pallas
+    pj = jmaster.cast_params(pj, jnp.bfloat16)
+    pt = tmaster.cast_params(pt, torch.bfloat16)
+    rng = np.random.default_rng(5)
+    c, s = (rng.random((1, 64, 64, 3), dtype=np.float32) for _ in range(2))
+    want = np.asarray(jmaster.master_apply(pj, jnp.asarray(c), jnp.asarray(s),
+                                           cj, k=1), np.float32)
+    got = tmaster.make_stylize_fn(ct, k=1, device="cpu")(pt, c, s).numpy()
+    assert np.isfinite(got).all() and got.shape == want.shape
+    mae, scale = np.abs(got - want).mean(), np.abs(want).mean()
+    print(f"bf16 port vs JAX: MAE {mae:.6g}, mean |JAX| {scale:.6g}, "
+          f"relative {mae / scale:.6g}")
+    assert mae <= 2e-2 * scale, (mae, scale)
