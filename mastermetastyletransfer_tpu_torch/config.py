@@ -7,9 +7,8 @@ package's JSON and ignores the keys it does not know (reference:
 codes/full_model.py:21-60, codes/style_transformer.py:1159-1226).
 
 ``use_pallas`` keeps its JAX name so that JSON round-trips: in the port it
-means "run the hand-written CUDA kernels of this stage". The Swin stage's
-and the style transformer's exist; the decoder's are not ported yet, and
-asking for them raises.
+means "run the hand-written CUDA kernels of this stage" (the Swin blocks,
+the style transformer, the decoder's phase convs).
 """
 
 from __future__ import annotations
@@ -131,10 +130,26 @@ class SwinConfig(_ConfigBase):
 
 @dataclass(frozen=True)
 class DecoderConfig(_ConfigBase):
-    """CNN (AdaIN-paper) decoder (reference: codes/decoder.py:15-21)."""
+    """CNN (AdaIN-paper) decoder (reference: codes/decoder.py:15-21). The
+    phase-space switches are exact rewrites of the same nine convs
+    (ops/conv.py); with ``use_pallas`` the phase convs run the stencil
+    kernels K5-K7 (ops/phase_conv.py)."""
     channel_dim: int = 256
     initializer: str = "kaiming_normal_"
+    # Each upsample -> pad -> conv pair as one coarse-grid phase conv.
+    fuse_upsample: bool = True
     use_pallas: bool = False
+    # First conv index that runs on the plain fine grid instead.
+    phase_exit: int = 99
+    # The stencil conv (K5, K6) for the phase convs that pass its gate.
+    use_stencil_conv: bool = True
+    # The last upsample enters a second phase level (L2) in eval.
+    phase2_tail: bool = True
+    # The RGB conv under phase2_tail: "l2" (composed conv), "l1" (down to
+    # L1, then a phase conv) or "l2k128" (the RGB kernel K12, not ported).
+    # "l2gemm", the JAX package's four-shifted-products form of "l2" (a TPU
+    # speed variant of the same function), runs the "l2" route here.
+    rgb_tail: str = "l2"
 
 
 @dataclass(frozen=True)
@@ -156,12 +171,13 @@ class ModelConfig(_ConfigBase):
         return getattr(self, f"{stage}_dtype") or self.compute_dtype
 
     def with_kernels(self, on: bool = True) -> "ModelConfig":
-        """The hand-written kernels on (or off) in every stage that has them
-        in the port: the Swin blocks and the style transformer (the JAX
-        service also turns on the decoder's, which are not ported yet)."""
+        """The hand-written kernels on (or off) in every stage, as the JAX
+        service's --use_pallas sets them: the Swin blocks, the style
+        transformer and the decoder."""
         return self.replace(
             swin=self.swin.replace(use_pallas=on),
-            transformer=self.transformer.replace(use_pallas=on))
+            transformer=self.transformer.replace(use_pallas=on),
+            decoder=self.decoder.replace(use_pallas=on))
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ModelConfig":

@@ -1,0 +1,351 @@
+// The CNN decoder's phase-space kernels, hand-written for Hopper.
+//
+// Replace the TPU kernels of mastermetastyletransfer_tpu/ops/pallas_conv.py
+//
+//   K5 `stencil_phase_conv` (body `_stencil_kernel`)
+//      -> mmst_stencil_phase_conv
+//   K6 `stencil_phase2_conv` (body `_stencil2_kernel`)
+//      -> mmst_stencil_phase2_conv
+//   K6 `stencil_phase2_conv_padcols` (body `_stencil2_padcols_kernel`)
+//      -> mmst_stencil_phase2_conv_padcols
+//   K7 `phase_align` (body `_kernel`)
+//      -> mmst_phase_align
+//
+// K5 and K6 are one "stencil GEMM": a 2x2-tap convolution of a padded
+// phase tensor pp (B, H+2, W+2, Cin) into G output groups of C' channels
+// (G = 4 for K5, 16 for K6), with the phase align folded into per-group read
+// offsets (oy_g, ox_g):
+//
+//   out[b, i, j, g C' + n] = ReLU(bias[g C' + n] + sum over the taps (dy, dx)
+//       of pp[b, i + oy_g + dy, j + ox_g + dx, :] . w[dy, dx, :, g C' + n])
+//
+// The composed phase kernels are block-sparse: split Cin into `nchunks`
+// equal chunks (the input phases); a (tap, chunk) block of w is zero for a
+// group unless bit tap * nchunks + chunk of blocks[g] is set (tap = 2 dy +
+// dx). The bitmask comes from the phase algebra (ops/conv.py), not from the
+// weights, and the kernel skips the zero blocks. Products accumulate in f32
+// (plain FMAs, no TF32), the f32 bias is added, ReLU applied, and the value
+// rounds once to the type T of pp, as `_stencil_kernel` and
+// `_stencil2_accum` do.
+//
+// The padcols entry writes (B, H, W+2, 16 C'): the interior at columns
+// 1..W, and columns 0 and W+1 hold the next L2 conv's phase-pad columns.
+// Pad slot s of a column border copies, for every row phase and channel, the
+// output at column src[s] and column phase ph[s] (ops/conv.py:
+// _phase2_pad_maps). Each thread that writes an output element whose
+// (column, column phase) is a source of a slot writes the same rounded value
+// to that slot too, so the border is an exact copy and needs nothing from
+// other blocks.
+//
+// K7 is a pure permutation: out[b, i, j, g C' + c] = big[b, i + a, j + bb,
+// g C' + c] for g = 2 a + bb, copied in 16-byte vectors.
+//
+// What bounds them on an H100: at the decoder's shapes (512^2, batch 8)
+// K5 does 17-39 GFLOP of nonzero products per call against 43-103 MB, K6
+// 17 GFLOP against 172 MB, so the bf16 bound is the tensor cores for
+// conv1-4 and the memory for conv6, conv7 and K7. This first version does
+// the products with scalar f32 FMAs on the CUDA cores (67 TFLOP/s peak), so
+// the operations bound it, far above the tensor-core bound; wgmma is the
+// next step. What the design does: a block owns 256 output pixels x 32
+// channels of one group, so every tile reads one shifted window of pp; the
+// pixel tile (16 channels deep, f32) and the weight tile sit in 18 KB of
+// shared memory, each thread keeps an 8 x 4 register tile of sums, and the
+// zero weight blocks are never read (7 of 16 for an L1 phase-space kernel,
+// 12 of 16 for an L2 one).
+// K7 moves each byte once, in 16-byte accesses.
+//
+// Built by ops/_build.py: nvcc -gencode arch=compute_90a,code=sm_90a -O3
+// -shared -Xcompiler -fPIC. Plain C interface; each entry returns the CUDA
+// error code of its launch (0 on success).
+
+#include "window_common.cuh"
+
+// The entry points' argument blocks. They stay outside the anonymous
+// namespace: a type with internal linkage would hide the extern "C" entries.
+namespace mmst {
+
+// Mirrors StencilArgs in ops/phase_conv.py field for field.
+struct StencilArgs {
+  const void* pp;     // T (B, H+2, W+2, Cin)
+  const void* w;      // T (2, 2, Cin, groups * Cout)
+  const float* bias;  // (groups * Cout)
+  void* out;          // T (B, H, W + 2 padcols, groups * Cout)
+  long long dtype;    // 0 float32, 1 bfloat16
+  long long B, H, W, Cin, Cout, groups, nchunks, relu, padcols;
+  long long off_y[16], off_x[16];       // per group read offsets, 0 or 1
+  unsigned long long blocks[16];        // per group nonzero (tap, chunk)
+  long long left_src[4], left_ph[4];    // padcols: column border slots
+  long long right_src[4], right_ph[4];
+};
+
+// Mirrors AlignArgs in ops/phase_conv.py.
+struct AlignArgs {
+  const void* big;  // T (B, H+1, W+1, 4 Cout)
+  void* out;        // T (B, H, W, 4 Cout)
+  long long tsize;  // bytes per element
+  long long B, H, W, Cout;
+};
+
+}  // namespace mmst
+
+namespace {
+
+using mmst::AlignArgs;
+using mmst::StencilArgs;
+
+constexpr int BM = 256;  // output pixels per block
+constexpr int BN = 32;   // output channels per block, inside one group
+constexpr int BK = 16;   // input channels per step
+constexpr int TM = 8;    // pixels per thread
+constexpr int TN = 4;    // channels per thread
+
+__device__ __forceinline__ float bf16_lo(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// Sixteen consecutive values (16-byte aligned) as f32.
+__device__ __forceinline__ void load16(const float* p, float* v) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 x = q[i];
+    v[4 * i] = x.x;
+    v[4 * i + 1] = x.y;
+    v[4 * i + 2] = x.z;
+    v[4 * i + 3] = x.w;
+  }
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* v) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint4 x = q[i];
+    const uint32_t u[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[8 * i + 2 * k] = bf16_lo(u[k]);
+      v[8 * i + 2 * k + 1] = bf16_hi(u[k]);
+    }
+  }
+}
+
+// Four consecutive values (aligned to 4 elements) as f32.
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  v[0] = bf16_lo(x.x);
+  v[1] = bf16_hi(x.x);
+  v[2] = bf16_lo(x.y);
+  v[3] = bf16_hi(x.y);
+}
+
+// One block: output pixels [m0, m0 + BM) of the flattened (B, H, W) grid and
+// channels [n0, n0 + BN) of one group. Thread (tm, tn) = (tid / 8, tid % 8)
+// sums pixels m0 + tm * TM + [0, TM) and channels n0 + tn * TN + [0, TN).
+// Each step loads one pixel's BK input channels per thread, transposed into
+// As[k][pixel], and BK x BN weights into Bs.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    stencil_kernel(const StencilArgs a) {
+  __shared__ __align__(16) float As[BK][BM];
+  __shared__ __align__(16) float Bs[BK][BN];
+  const int tid = threadIdx.x;
+  const long long H = a.H, W = a.W, Cin = a.Cin;
+  const long long N = a.groups * a.Cout;
+  const long long M = a.B * H * W;
+  const long long n0 = static_cast<long long>(blockIdx.y) * BN;
+  const int g = static_cast<int>(n0 / a.Cout);
+  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
+  const unsigned long long blocks = a.blocks[g];
+  const long long chunk = Cin / a.nchunks;
+
+  // The pixel this thread loads, and its window's top-left in pp.
+  const long long ml = m0 + tid;
+  const bool lvalid = ml < M;
+  const long long lb = lvalid ? ml / (H * W) : 0;
+  const long long li = lvalid ? (ml / W) % H : 0;
+  const long long lj = lvalid ? ml % W : 0;
+  const T* pp = static_cast<const T*>(a.pp);
+  const T* wt = static_cast<const T*>(a.w);
+  const T* win = pp + ((lb * (H + 2) + li + a.off_y[g]) * (W + 2) + lj +
+                       a.off_x[g]) * Cin;
+
+  const int tm = tid / (BN / TN), tn = tid % (BN / TN);
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int tap = 0; tap < 4; ++tap) {
+    const int dy = tap >> 1, dx = tap & 1;
+    const T* src = win + (dy * (W + 2) + dx) * Cin;
+    const T* wsrc = wt + tap * Cin * N + n0;
+    for (long long c = 0; c < a.nchunks; ++c) {
+      if (!((blocks >> (tap * a.nchunks + c)) & 1ull)) continue;
+      for (long long k0 = c * chunk; k0 < (c + 1) * chunk; k0 += BK) {
+        float v[BK];
+        if (lvalid) {
+          load16(src + k0, v);
+        } else {
+#pragma unroll
+          for (int k = 0; k < BK; ++k) v[k] = 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < BK; ++k) As[k][tid] = v[k];
+        if (tid < BK * BN / 4) {
+          const int r = tid / (BN / 4), col = (tid % (BN / 4)) * 4;
+          load4(wsrc + (k0 + r) * N + col, &Bs[r][col]);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < BK; ++k) {
+          const float4 a0 = *reinterpret_cast<const float4*>(&As[k][tm * TM]);
+          const float4 a1 =
+              *reinterpret_cast<const float4*>(&As[k][tm * TM + 4]);
+          const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tn * TN]);
+          const float av[TM] = {a0.x, a0.y, a0.z, a0.w,
+                                a1.x, a1.y, a1.z, a1.w};
+          const float bv[TN] = {b0.x, b0.y, b0.z, b0.w};
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+              acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+  // Epilogue: bias, ReLU, one rounding; the pad columns copy the rounded
+  // value.
+  T* out = static_cast<T*>(a.out);
+  const long long Wo = W + 2 * a.padcols;
+  const long long Cout = a.Cout;
+  const int pa = g / 4, q = g % 4;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const long long m = m0 + tm * TM + i;
+    if (m >= M) break;
+    const long long b = m / (H * W), y = (m / W) % H, x = m % W;
+    const long long row = (b * H + y) * Wo;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const long long n = n0 + tn * TN + j;
+      float val = acc[i][j] + a.bias[n];
+      if (a.relu) val = fmaxf(val, 0.f);
+      const T r = from_f<T>(val);
+      out[(row + x + a.padcols) * N + n] = r;
+      if (a.padcols) {
+        const long long ch = n - g * Cout;
+        for (int s = 0; s < 4; ++s) {
+          if (a.left_src[s] == x && a.left_ph[s] == q)
+            out[row * N + (4 * pa + s) * Cout + ch] = r;
+          if (a.right_src[s] == x && a.right_ph[s] == q)
+            out[(row + Wo - 1) * N + (4 * pa + s) * Cout + ch] = r;
+        }
+      }
+    }
+  }
+}
+
+// One thread per 16-byte vector of the output.
+__global__ void __launch_bounds__(kThreads) align_kernel(const AlignArgs a) {
+  const long long vec = 16 / a.tsize;             // elements per vector
+  const long long c4 = 4 * a.Cout;
+  const long long per_pixel = c4 / vec;
+  const long long total = a.B * a.H * a.W * per_pixel;
+  const uint4* big = static_cast<const uint4*>(a.big);
+  uint4* out = static_cast<uint4*>(a.out);
+  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long v = e % per_pixel, m = e / per_pixel;
+    const long long b = m / (a.H * a.W), i = (m / a.W) % a.H, j = m % a.W;
+    const long long g = v * vec / a.Cout;
+    const long long src = ((b * (a.H + 1) + i + g / 2) * (a.W + 1) + j +
+                           g % 2) * per_pixel + v;
+    out[e] = big[src];
+  }
+}
+
+template <typename T>
+int launch_stencil(const StencilArgs& a, cudaStream_t stream) {
+  const long long M = a.B * a.H * a.W;
+  const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM),
+                  static_cast<unsigned>(a.groups * a.Cout / BN));
+  stencil_kernel<T><<<grid, kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Each entry takes its own group count and output form; the shapes the
+// kernel needs (C' % BN, chunks of whole BK steps) are checked here too.
+int stencil(const StencilArgs* a, void* stream, long long groups,
+            long long padcols) {
+  if (a->groups != groups || a->padcols != padcols || a->Cout % BN ||
+      a->nchunks < 1 || a->Cin % (a->nchunks * BK) ||
+      (padcols && a->W < 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->dtype == 1) return launch_stencil<__nv_bfloat16>(*a, s);
+  return launch_stencil<float>(*a, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Static shared memory and registers per thread of one block of a kernel:
+// which 0 the stencil GEMM, 1 the align copy; dtype 0 float32, 1 bfloat16.
+int mmst_phase_conv_attributes(long long which, long long dtype,
+                               long long* smem, long long* regs) {
+  cudaFuncAttributes attr;
+  cudaError_t err;
+  if (which == 1)
+    err = cudaFuncGetAttributes(&attr, align_kernel);
+  else if (dtype == 1)
+    err = cudaFuncGetAttributes(&attr, stencil_kernel<__nv_bfloat16>);
+  else
+    err = cudaFuncGetAttributes(&attr, stencil_kernel<float>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem = static_cast<long long>(attr.sharedSizeBytes);
+  *regs = static_cast<long long>(attr.numRegs);
+  return 0;
+}
+
+int mmst_stencil_phase_conv(const mmst::StencilArgs* a, void* stream) {
+  return stencil(a, stream, 4, 0);
+}
+
+int mmst_stencil_phase2_conv(const mmst::StencilArgs* a, void* stream) {
+  return stencil(a, stream, 16, 0);
+}
+
+int mmst_stencil_phase2_conv_padcols(const mmst::StencilArgs* a,
+                                     void* stream) {
+  return stencil(a, stream, 16, 1);
+}
+
+int mmst_phase_align(const mmst::AlignArgs* a, void* stream) {
+  if ((a->tsize != 2 && a->tsize != 4) || a->Cout % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = a->B * a->H * a->W * 4 * a->Cout * a->tsize / 16;
+  // A grid-stride loop over at most 16 blocks per SM of an H100.
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  const unsigned grid = static_cast<unsigned>(
+      blocks < 1 ? 1 : (blocks < 132 * 16 ? blocks : 132 * 16));
+  align_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,5 +1,6 @@
-// Pieces shared by the port's per-window kernels (window_block.cu,
-// style_block.cu): type conversion and rounding to the input type T,
+// Pieces shared by the port's kernels (window_block.cu, style_block.cu,
+// phase_conv.cu): the block size, type conversion and rounding to the
+// input type T,
 // shared-memory strides, a block-wide GEMM with its A tile in shared memory,
 // row statistics, and one attention head over a window.
 //

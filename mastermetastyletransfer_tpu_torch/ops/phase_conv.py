@@ -1,0 +1,356 @@
+"""The decoder's phase-space kernels (JAX counterparts: the Pallas kernels K5
+``stencil_phase_conv``, K6 ``stencil_phase2_conv`` and
+``stencil_phase2_conv_padcols``, and K7 ``phase_align`` in
+ops/pallas_conv.py), over the phase tensors of ops/conv.py.
+
+* ``stencil_phase_conv`` (K5) and ``stencil_phase2_conv`` (K6): a 2x2-tap
+  convolution of a padded phase tensor pp (B, H+2, W+2, Cin) into 4 (K5)
+  or 16 (K6) output groups of C' channels, each group reading pp at its own
+  offset (the phase align folded into the reads), then bias, ReLU and one
+  rounding to the input type:
+
+      out[b, i, j, g] = ReLU(sum over (dy, dx) of
+                             pp[b, i + oy_g + dy, j + ox_g + dx] @ w[dy, dx][:, g]
+                             + bias[g])
+
+* ``stencil_phase2_conv_padcols`` (K6): the same, returned with the next L2
+  conv's phase-pad columns, (B, H, W+2, 16 C');
+* ``phase_align`` (K7): (B, H+1, W+1, 4 C') -> (B, H, W, 4 C'), group
+  g = 2a + b taken at offset (a, b).
+
+All four are one CUDA source (csrc/phase_conv.cu). Each wrapper runs its
+kernel for a CUDA tensor and the plain PyTorch version below for a CPU
+tensor; any other device raises. The plain versions are the yardstick the
+kernels are held to: f32 sums of products of T-typed operands, the f32
+bias, ReLU, and one rounding to T, as the kernels and the JAX kernels do.
+
+``LAUNCHES`` counts kernel launches per entry; a wrapper adds one only where
+it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable, NamedTuple, Sequence, Tuple
+
+import torch
+
+from mastermetastyletransfer_tpu_torch.ops import _build
+from mastermetastyletransfer_tpu_torch.ops.window_block import (
+    _need, _on_cuda,
+)
+
+LAUNCHES = {"stencil_phase_conv": 0, "stencil_phase2_conv": 0,
+            "stencil_phase2_conv_padcols": 0, "phase_align": 0}
+
+PadMaps = Sequence[Tuple[int, int]]
+
+
+class GroupTable(NamedTuple):
+    """What the stencil kernel needs of a composed phase kernel, per output
+    group g: its read offsets into the padded input, and the bitmask of its
+    nonzero weight blocks, bit tap * nchunks + chunk (tap = 2 dy + dx; the
+    input channels split into ``nchunks`` equal chunks, its input phases).
+    Built from the phase algebra in ops/conv.py, never from the weights."""
+    offsets: Tuple[Tuple[int, int], ...]
+    blocks: Tuple[int, ...]
+    nchunks: int
+
+    @property
+    def present(self) -> Tuple[Tuple[Tuple[int, int], ...], ...]:
+        """Per group, the (dy, dx) taps with a nonzero block (the JAX
+        kernels' ``present``)."""
+        return tuple(tuple((t // 2, t % 2) for t in range(4)
+                           if (mask >> (t * self.nchunks))
+                           & ((1 << self.nchunks) - 1))
+                     for mask in self.blocks)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _stencil_plain(pp: torch.Tensor, pk: torch.Tensor, bias: torch.Tensor,
+                   offsets, relu: bool) -> torch.Tensor:
+    """Every group over all four taps (the absent blocks of the composed
+    kernels are exact zeros and add nothing). Products of T-typed operands
+    summed in f32 (float32 matmuls, which PyTorch runs without TF32 by
+    default), the f32 bias, ReLU, one rounding."""
+    _, hp, wp, _ = pp.shape
+    h, w = hp - 2, wp - 2
+    c_out = pk.shape[-1] // len(offsets)
+    ppf, pkf = pp.float(), pk.float()
+    outs = []
+    for g, (oy, ox) in enumerate(offsets):
+        cols = slice(g * c_out, (g + 1) * c_out)
+        acc = None
+        for dy in range(2):
+            for dx in range(2):
+                t = (ppf[:, oy + dy:oy + dy + h, ox + dx:ox + dx + w]
+                     @ pkf[dy, dx, :, cols])
+                acc = t if acc is None else acc + t
+        outs.append(acc)
+    y = torch.cat(outs, -1) + bias.float()
+    if relu:
+        y = torch.relu(y)
+    return y.to(pp.dtype)
+
+
+def stencil_phase_conv_plain(pp: torch.Tensor, pk: torch.Tensor,
+                             bias4: torch.Tensor, table: GroupTable,
+                             relu: bool = True) -> torch.Tensor:
+    """K5's function: (B, H+2, W+2, Cin) -> (B, H, W, 4 C')."""
+    return _stencil_plain(pp, pk, bias4, table.offsets, relu)
+
+
+def stencil_phase2_conv_plain(pp: torch.Tensor, pk: torch.Tensor,
+                              bias16: torch.Tensor, table: GroupTable,
+                              relu: bool = True) -> torch.Tensor:
+    """K6's function: (B, H+2, W+2, Cin) -> (B, H, W, 16 C')."""
+    return _stencil_plain(pp, pk, bias16, table.offsets, relu)
+
+
+@functools.lru_cache(maxsize=None)
+def _border_index(maps: Tuple[Tuple[int, int], ...], nph: int, c: int,
+                  row_axis: bool, device: torch.device) -> torch.Tensor:
+    """pad_border's gather index over the stacked sources, on device."""
+    srcs = sorted({s for s, _ in maps})
+    n2c = nph * nph * c
+    lane = torch.arange(n2c)
+    r, q, ch = lane // (nph * c), (lane // c) % nph, lane % c
+    slot, other = (r, q) if row_axis else (q, r)
+    which = torch.tensor([srcs.index(s) for s, _ in maps])[slot]
+    phase = torch.tensor([p for _, p in maps])[slot]
+    group = phase * nph + other if row_axis else other * nph + phase
+    return (which * n2c + group * c + ch).to(device)
+
+
+def pad_border(get: Callable[[int], torch.Tensor], maps: PadMaps, nph: int,
+               c: int, row_axis: bool) -> torch.Tensor:
+    """One phase-pad border row (``row_axis``) or column of a phase tensor
+    with nph x nph phase groups of c channels: pad slot g copies, for every
+    phase along the other axis and every channel, the lane group of source
+    index maps[g][0] whose phase along this axis is maps[g][1]
+    (ops/conv.py:_phase2_pad_maps). ``get(s)`` returns source row or column
+    s, (..., nph^2 c). One exact index gather over the stacked sources,
+    its index built once per maps, shape and device."""
+    maps = tuple(tuple(m) for m in maps)
+    stacked = torch.cat([get(s) for s in sorted({s for s, _ in maps})], -1)
+    return stacked.index_select(
+        -1, _border_index(maps, nph, c, row_axis, stacked.device))
+
+
+def stencil_phase2_conv_padcols_plain(pp: torch.Tensor, pk: torch.Tensor,
+                                      bias16: torch.Tensor,
+                                      table: GroupTable,
+                                      colmaps: Tuple[PadMaps, PadMaps],
+                                      relu: bool = True) -> torch.Tensor:
+    """K6 padcols' function: the L2 output with its pad columns, (B, H,
+    W+2, 16 C'). ``colmaps`` = (left, right) slot maps of the columns
+    (ops/conv.py:_phase2_pad_maps(W, 4, False))."""
+    y = stencil_phase2_conv_plain(pp, pk, bias16, table, relu)
+    c_out = y.shape[-1] // 16
+    left, right = (pad_border(lambda s: y[:, :, s], m, 4, c_out, False)
+                   for m in colmaps)
+    return torch.cat([left[:, :, None], y, right[:, :, None]], 2)
+
+
+def phase_align_plain(big: torch.Tensor, c_out: int) -> torch.Tensor:
+    """K7's function: (B, H+1, W+1, 4 C') -> (B, H, W, 4 C'), group
+    g = 2a + b at offset (a, b)."""
+    _, hp, wp, _ = big.shape
+    h, w = hp - 1, wp - 1
+    return torch.cat([big[:, a:a + h, b:b + w,
+                          (2 * a + b) * c_out:(2 * a + b + 1) * c_out]
+                      for a in range(2) for b in range(2)], -1)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_LL = ctypes.c_longlong
+
+
+class StencilArgs(ctypes.Structure):
+    """The C struct ``StencilArgs`` of csrc/phase_conv.cu, field for field."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("pp", "w", "bias", "out")]
+                + [(f, _LL) for f in ("dtype", "B", "H", "W", "Cin", "Cout",
+                                      "groups", "nchunks", "relu",
+                                      "padcols")]
+                + [("off_y", _LL * 16), ("off_x", _LL * 16),
+                   ("blocks", ctypes.c_ulonglong * 16)]
+                + [(f, _LL * 4) for f in ("left_src", "left_ph", "right_src",
+                                          "right_ph")])
+
+
+class AlignArgs(ctypes.Structure):
+    """The C struct ``AlignArgs`` of csrc/phase_conv.cu."""
+    _fields_ = ([("big", ctypes.c_void_p), ("out", ctypes.c_void_p)]
+                + [(f, _LL) for f in ("tsize", "B", "H", "W", "Cout")])
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("phase_conv")
+    for entry in LAUNCHES:
+        fn = getattr(lib, f"mmst_{entry}")
+        args = AlignArgs if entry == "phase_align" else StencilArgs
+        fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.mmst_phase_conv_attributes.argtypes = [
+        _LL, _LL, ctypes.POINTER(_LL), ctypes.POINTER(_LL)]
+    lib.mmst_phase_conv_attributes.restype = ctypes.c_int
+    return lib
+
+
+def kernel_attributes(kernel: str, dtype: torch.dtype) -> Tuple[int, int]:
+    """(static shared memory bytes per block, registers per thread) of the
+    "stencil" or the "align" kernel at ``dtype``."""
+    smem, regs = _LL(), _LL()
+    err = _lib().mmst_phase_conv_attributes(
+        int(kernel == "align"), int(dtype == torch.bfloat16),
+        ctypes.byref(smem), ctypes.byref(regs))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes: CUDA error {err}")
+    return smem.value, regs.value
+
+
+def _aligned(name: str, t: torch.Tensor) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def _call(entry: str, args: ctypes.Structure, dev: torch.device) -> None:
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(_lib(), f"mmst_{entry}")(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")
+    LAUNCHES[entry] += 1
+
+
+def _stencil_launch(entry: str, pp: torch.Tensor, pk: torch.Tensor,
+                    bias: torch.Tensor, table: GroupTable, relu: bool,
+                    colmaps=None) -> torch.Tensor:
+    """Check what the kernel takes and launch it."""
+    if pp.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"pp is {pp.dtype}; the kernel takes float32 or "
+                        "bfloat16")
+    if pp.dim() != 4:
+        raise ValueError(f"pp has shape {tuple(pp.shape)}, not (B, H+2, "
+                         "W+2, Cin)")
+    b, hp, wp, cin = pp.shape
+    h, w = hp - 2, wp - 2
+    groups = len(table.offsets)
+    n = pk.shape[-1]
+    c_out = n // groups
+    if h < 1 or w < 1 or (colmaps is not None and w < 2):
+        raise ValueError(f"pp of {hp}x{wp} is too small for the stencil")
+    if n % groups or c_out % 32:
+        raise ValueError(f"{n} output channels do not split into {groups} "
+                         "groups of a multiple of 32")
+    if (len(table.blocks) != groups or table.nchunks < 1
+            or cin % (16 * table.nchunks)):
+        raise ValueError(f"Cin={cin} does not split into {table.nchunks} "
+                         "chunks of a multiple of 16, or the table has "
+                         f"{len(table.blocks)} groups, not {groups}")
+    if not all(o in (0, 1) for off in table.offsets for o in off):
+        raise ValueError(f"read offsets {table.offsets} outside 0..1")
+    dev = pp.device
+    _need("pp", pp, pp.shape, pp.dtype, dev)
+    _need("pk", pk, (2, 2, cin, n), pp.dtype, dev)
+    _need("bias", bias, (n,), torch.float32, dev)
+    padcols = int(colmaps is not None)
+    out = torch.empty((b, h, w + 2 * padcols, n), dtype=pp.dtype, device=dev)
+    for name, t in (("pp", pp), ("pk", pk), ("bias", bias), ("out", out)):
+        _aligned(name, t)
+
+    def table16(vals):
+        vals = list(vals)
+        return vals + [0] * (16 - len(vals))
+
+    args = StencilArgs(
+        pp=pp.data_ptr(), w=pk.data_ptr(), bias=bias.data_ptr(),
+        out=out.data_ptr(), dtype=int(pp.dtype == torch.bfloat16), B=b, H=h,
+        W=w, Cin=cin, Cout=c_out, groups=groups, nchunks=table.nchunks,
+        relu=int(relu), padcols=padcols,
+        off_y=(_LL * 16)(*table16(o[0] for o in table.offsets)),
+        off_x=(_LL * 16)(*table16(o[1] for o in table.offsets)),
+        blocks=(ctypes.c_ulonglong * 16)(*table16(table.blocks)))
+    if colmaps is not None:
+        (lsrc, lph), (rsrc, rph) = (zip(*m) for m in colmaps)
+        args.left_src, args.left_ph = (_LL * 4)(*lsrc), (_LL * 4)(*lph)
+        args.right_src, args.right_ph = (_LL * 4)(*rsrc), (_LL * 4)(*rph)
+    _call(entry, args, dev)
+    return out
+
+
+def stencil_phase_conv(pp: torch.Tensor, pk: torch.Tensor,
+                       bias4: torch.Tensor, table: GroupTable,
+                       relu: bool = True) -> torch.Tensor:
+    """K5: pp (B, H+2, W+2, Cin) edge-padded (phase or coarse) tensor, pk
+    (2, 2, Cin, 4 C') composed kernel in pp's type, bias4 (4 C',) float32,
+    ``table`` its 4 groups -> the aligned phase tensor (B, H, W, 4 C')."""
+    if not _on_cuda(pp):
+        return stencil_phase_conv_plain(pp, pk, bias4, table, relu)
+    if len(table.offsets) != 4:
+        raise ValueError("K5 takes 4 output groups")
+    return _stencil_launch("stencil_phase_conv", pp, pk, bias4, table, relu)
+
+
+def stencil_phase2_conv(pp: torch.Tensor, pk: torch.Tensor,
+                        bias16: torch.Tensor, table: GroupTable,
+                        relu: bool = True) -> torch.Tensor:
+    """K6: pp (B, H+2, W+2, Cin) phase-padded (ops/conv.py:_phase2_pad),
+    pk (2, 2, Cin, 16 C'), ``table`` its 16 groups -> the aligned L2 phase
+    tensor (B, H, W, 16 C')."""
+    if not _on_cuda(pp):
+        return stencil_phase2_conv_plain(pp, pk, bias16, table, relu)
+    if len(table.offsets) != 16:
+        raise ValueError("K6 takes 16 output groups")
+    return _stencil_launch("stencil_phase2_conv", pp, pk, bias16, table,
+                           relu)
+
+
+def stencil_phase2_conv_padcols(pp: torch.Tensor, pk: torch.Tensor,
+                                bias16: torch.Tensor, table: GroupTable,
+                                colmaps: Tuple[PadMaps, PadMaps],
+                                relu: bool = True) -> torch.Tensor:
+    """K6 with the next conv's pad columns: (B, H, W+2, 16 C'); the caller
+    adds the pad rows (ops/conv.py:_phase2_pad_rows)."""
+    if not _on_cuda(pp):
+        return stencil_phase2_conv_padcols_plain(pp, pk, bias16, table,
+                                                 colmaps, relu)
+    if len(table.offsets) != 16:
+        raise ValueError("K6 takes 16 output groups")
+    w = pp.shape[2] - 2
+    if any(len(m) != 4 or not all(0 <= s < w and 0 <= p < 4 for s, p in m)
+           for m in colmaps):
+        raise ValueError(f"column maps {colmaps} do not fit W={w}")
+    return _stencil_launch("stencil_phase2_conv_padcols", pp, pk, bias16,
+                           table, relu, colmaps)
+
+
+def phase_align(big: torch.Tensor, c_out: int) -> torch.Tensor:
+    """K7: (B, H+1, W+1, 4 C') -> (B, H, W, 4 C'), exact."""
+    if not _on_cuda(big):
+        return phase_align_plain(big, c_out)
+    if big.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"big is {big.dtype}; the kernel takes float32 or "
+                        "bfloat16")
+    if big.dim() != 4 or big.shape[-1] != 4 * c_out or c_out % 32:
+        raise ValueError(f"big has shape {tuple(big.shape)}; the kernel "
+                         "takes (B, H+1, W+1, 4 C') with C' % 32 == 0")
+    b, hp, wp, _ = big.shape
+    if hp < 2 or wp < 2:
+        raise ValueError(f"big of {hp}x{wp} is too small to align")
+    _need("big", big, big.shape, big.dtype, big.device)
+    out = torch.empty((b, hp - 1, wp - 1, 4 * c_out), dtype=big.dtype,
+                      device=big.device)
+    _aligned("big", big)
+    _aligned("out", out)
+    _call("phase_align", AlignArgs(
+        big=big.data_ptr(), out=out.data_ptr(), tsize=big.element_size(),
+        B=b, H=hp - 1, W=wp - 1, Cout=c_out), big.device)
+    return out

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (ops/window_block.py, ops/style_block.py)
-against their plain PyTorch versions on the card.
+"""The port's CUDA kernels (ops/window_block.py, ops/style_block.py,
+ops/phase_conv.py) against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor tests/conftest.py's fixtures, so that it also runs on a
@@ -12,7 +12,9 @@ Tolerance, element by element, as chip_smoke.py states it: at float32
 bfloat16 two units in the last place of the plain output element (a value
 near a rounding boundary may land on either side) plus 2^-6 of the block's
 largest update |out - x| (intermediates rounded on either side of a
-boundary).
+boundary). The decoder's stencil kernels: at bfloat16 two units in the
+last place plus 2^-8 of the largest |output| (both sides sum in f32 and
+round once); the phase align exactly.
 """
 
 import pytest
@@ -242,3 +244,131 @@ def test_style_wrappers_reject_what_the_kernels_do_not_take(cuda):
         sb.decoder_tail(xs[0].transpose(1, 2), *xs[1:], w, **kw)
     with pytest.raises(ValueError):       # another shape
         sb.decoder_tail(xs[0][:, :3].contiguous(), *xs[1:], w, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The decoder's phase-space kernels (ops/phase_conv.py): K5, K6, K7
+# ---------------------------------------------------------------------------
+
+def _check_conv(got, ref):
+    """Stencil tolerance: both sides sum the same products in f32 and
+    round once, so at bfloat16 two units in the last place of the element
+    plus 2^-8 of the largest |output|; at float32 1e-4 of it."""
+    torch.cuda.synchronize()
+    bf16 = got.dtype == torch.bfloat16
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    scale = max(1.0, ref.abs().max().item())
+    if bf16:
+        ulp = torch.exp2((torch.frexp(ref)[1] - 8).float())
+        tol = 2 * torch.where(ref == 0, 0.0, ulp) + 2.0 ** -8 * scale
+    else:
+        tol = TOL_F32 * scale
+    assert (err <= tol).all(), (err.max().item(), (err / tol).max().item())
+
+
+# An odd height and a pixel count (2 x 7 x 13 = 182) that is not a multiple
+# of the kernel's 256-pixel tile.
+PH, PW = 7, 13
+
+
+def _phase_case(cuda, dtype, kind):
+    """(pp, pk, bias, table) of one stencil call: "up" the upsample kernel
+    (Cin 128 -> 4 x 64), "phase" the L1 phase-space kernel (4 x 64 ->
+    4 x 64), "l2" the L2 up-conv kernel (4 x 32 -> 16 x 32)."""
+    from mastermetastyletransfer_tpu_torch.ops import conv as tconv
+
+    g = torch.Generator().manual_seed(3)
+    if kind == "up":
+        x = torch.randn((2, PH, PW, 128), generator=g)
+        k = tconv._phase_kernel(0.05 * torch.randn((3, 3, 128, 64),
+                                                   generator=g))
+        pp, table, groups = tconv._edge_pad(x), tconv._UPSAMPLE_TABLE, 4
+    elif kind == "phase":
+        x = torch.randn((2, PH, PW, 256), generator=g)
+        k = tconv._phase_space_kernel(0.05 * torch.randn((3, 3, 64, 64),
+                                                         generator=g))
+        pp, table, groups = tconv._edge_pad(x), tconv._phase_space_table(), 4
+    else:
+        x = torch.randn((2, PH, PW, 128), generator=g)
+        k, _ = tconv._phase2_kernel(0.1 * torch.randn((3, 3, 32, 32),
+                                                      generator=g), True)
+        pp = tconv._phase2_pad(x, 2, 32, True)
+        table, groups = tconv._phase2_table(True), 16
+    bias = torch.randn(k.shape[-1] // groups, generator=g).repeat(groups)
+    return (pp.to(cuda, dtype).contiguous(), k.to(cuda, dtype).contiguous(),
+            bias.to(cuda), table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["up", "phase"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stencil_phase_conv_matches_plain(cuda, dtype, kind):
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+
+    pp, pk, bias, table = _phase_case(cuda, dtype, kind)
+    before = pc.LAUNCHES["stencil_phase_conv"]
+    got = pc.stencil_phase_conv(pp, pk, bias, table)
+    assert pc.LAUNCHES["stencil_phase_conv"] == before + 1
+    assert got.shape == (2, PH, PW, pk.shape[-1])
+    _check_conv(got, pc.stencil_phase_conv_plain(pp, pk, bias, table))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padcols", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stencil_phase2_conv_matches_plain(cuda, dtype, padcols):
+    from mastermetastyletransfer_tpu_torch.ops import conv as tconv
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+
+    pp, pk, bias, table = _phase_case(cuda, dtype, "l2")
+    if padcols:
+        cm = tconv._phase2_pad_maps(PW, 4, False)
+        before = pc.LAUNCHES["stencil_phase2_conv_padcols"]
+        got = pc.stencil_phase2_conv_padcols(pp, pk, bias, table, cm)
+        assert pc.LAUNCHES["stencil_phase2_conv_padcols"] == before + 1
+        assert got.shape == (2, PH, PW + 2, 512)
+        _check_conv(got, pc.stencil_phase2_conv_padcols_plain(
+            pp, pk, bias, table, cm))
+        # the pad columns are exact copies of the kernel's own interior
+        assert torch.equal(tconv._phase2_pad_rows(got, 4, 32),
+                           tconv._phase2_pad(got[:, :, 1:-1], 4, 32, False))
+    else:
+        before = pc.LAUNCHES["stencil_phase2_conv"]
+        got = pc.stencil_phase2_conv(pp, pk, bias, table)
+        assert pc.LAUNCHES["stencil_phase2_conv"] == before + 1
+        _check_conv(got, pc.stencil_phase2_conv_plain(pp, pk, bias, table))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_phase_align_is_exact(cuda, dtype):
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+
+    g = torch.Generator().manual_seed(4)
+    big = torch.randn((2, PH + 1, PW + 1, 256), generator=g).to(cuda, dtype)
+    before = pc.LAUNCHES["phase_align"]
+    got = pc.phase_align(big, 64)
+    assert pc.LAUNCHES["phase_align"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, pc.phase_align_plain(big, 64))
+
+
+@pytest.mark.cuda
+def test_phase_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+
+    pp, pk, bias, table = _phase_case(cuda, torch.float32, "phase")
+    with pytest.raises(TypeError):        # weights of another type
+        pc.stencil_phase_conv(pp, pk.to(torch.bfloat16), bias, table)
+    with pytest.raises(ValueError):       # not contiguous
+        pc.stencil_phase_conv(pp.transpose(1, 2), pk, bias, table)
+    with pytest.raises(ValueError):       # C' not a multiple of 32
+        pc.stencil_phase_conv(pp, pk[..., :240].contiguous(),
+                              bias[:240].contiguous(), table)
+    with pytest.raises(ValueError):       # 16 groups for K5
+        pc.stencil_phase_conv(pp, pk, bias, table._replace(
+            offsets=table.offsets * 4, blocks=table.blocks * 4))
+    big = torch.zeros((2, 5, 5, 96), device=cuda)
+    with pytest.raises(ValueError):       # C' = 24
+        pc.phase_align(big, 24)

@@ -53,12 +53,13 @@ def test_sources_name_no_jax():
 
 def test_every_port_module_imports_without_jax_or_pil():
     """Each module of the package on its own, the kernel wrappers
-    (ops/window_block.py, ops/style_block.py) included."""
+    (ops/window_block.py, ops/style_block.py, ops/phase_conv.py) included."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in (ROOT / "mastermetastyletransfer_tpu_torch").rglob("*.py")
         if p.name != "__init__.py")
     assert "mastermetastyletransfer_tpu_torch.ops.style_block" in modules
+    assert "mastermetastyletransfer_tpu_torch.ops.phase_conv" in modules
     probe = _PROBE.replace(
         "import chip_smoke\n",
         "import chip_smoke\nimport importlib\n"

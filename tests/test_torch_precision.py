@@ -8,11 +8,16 @@
   build too, so the stage context is checked here; chip_smoke.py checks
   the float32 output on the card.
 * bfloat16 against the JAX package: the port's bf16 ``master_apply`` with
-  the Swin and style-transformer kernels on (their plain versions here)
-  against JAX's bf16 ``master_apply`` with K1-K4 in interpret mode, at 64^2.
-  Bound: per-pixel MAE <= 2e-2 of the mean |JAX output|, the relative bound
-  chip_smoke.py holds the bf16 slice to (two bf16 paths round
-  independently through the whole model).
+  the Swin, style-transformer and decoder kernels on (their plain versions
+  here; the decoder on its phase-space path) against JAX's bf16
+  ``master_apply`` with K1-K7 in interpret mode, at 64^2.
+  Bound: per-pixel MAE <= 2e-2 of the mean |JAX output| (two bf16 paths
+  round independently through the whole model).
+* bfloat16 against float32, the criterion of chip_smoke.py's bf16 slice
+  check on a few weight draws: the port's bf16 kernel route (every kernel
+  on, their plain versions here, which round where the kernels round) is
+  no further from the float32 reference service (kernels off, nine-conv
+  decoder) than 1.5 times the bf16 reference service is.
 """
 
 import sys
@@ -30,6 +35,8 @@ from mastermetastyletransfer_tpu.models import master as jmaster
 from mastermetastyletransfer_tpu_torch import config as tcfg
 from mastermetastyletransfer_tpu_torch.models import master as tmaster
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import params_from_jax
+
+import chip_smoke
 
 TF32_FLAGS = (torch.backends.cuda.matmul, torch.backends.cudnn)
 
@@ -121,9 +128,11 @@ def test_bf16_master_apply_matches_jax(model):
     pj, pt = model
     cj = jcfg.ModelConfig(compute_dtype="bfloat16")
     cj = cj.replace(swin=cj.swin.replace(use_pallas=True),
-                    transformer=cj.transformer.replace(use_pallas=True))
+                    transformer=cj.transformer.replace(use_pallas=True),
+                    decoder=cj.decoder.replace(use_pallas=True))
     ct = tcfg.ModelConfig.from_dict(cj.to_dict())
-    assert ct.swin.use_pallas and ct.transformer.use_pallas
+    assert ct == tcfg.ModelConfig(compute_dtype="bfloat16").with_kernels()
+    assert ct.decoder.fuse_upsample and ct.decoder.phase2_tail
     pj = jmaster.cast_params(pj, jnp.bfloat16)
     pt = tmaster.cast_params(pt, torch.bfloat16)
     rng = np.random.default_rng(5)
@@ -136,3 +145,22 @@ def test_bf16_master_apply_matches_jax(model):
     print(f"bf16 port vs JAX: MAE {mae:.6g}, mean |JAX| {scale:.6g}, "
           f"relative {mae / scale:.6g}")
     assert mae <= 2e-2 * scale, (mae, scale)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bf16_kernel_route_within_plain_bf16_noise(seed):
+    params = tmaster.init_master_model(
+        tcfg.ModelConfig(), torch.Generator().manual_seed(seed), device="cpu")
+    rng = np.random.default_rng(seed)
+    c, s = (rng.random((2, 64, 64, 3), dtype=np.float32) for _ in range(2))
+
+    def run(cfg):
+        fn = tmaster.make_stylize_fn(cfg, k=1, device="cpu")
+        return fn(params, c, s).numpy()
+
+    verdict = chip_smoke.bf16_noise_verdict(
+        run(chip_smoke.slice_config("bfloat16", True)),
+        run(chip_smoke.reference_config("bfloat16")),
+        run(chip_smoke.reference_config("float32")))
+    print(verdict)
+    assert verdict["noise_ratio"] <= chip_smoke.TOL_BF16_NOISE, verdict

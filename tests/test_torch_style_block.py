@@ -254,12 +254,12 @@ def test_routes_without_their_kernels_raise(st_default):
 
 
 def test_master_apply_all_kernels_matches_jax():
-    """The slice at float32: Swin and style-transformer kernels on, both
-    sides (JAX: K1, K2, K3, K4 in interpret mode; the port: the plain
-    versions)."""
+    """The slice at float32: every stage's kernels on, both sides (JAX:
+    K1-K7 in interpret mode; the port: the plain versions)."""
     cj = jcfg.ModelConfig()
     cj = cj.replace(swin=cj.swin.replace(use_pallas=True),
-                    transformer=cj.transformer.replace(use_pallas=True))
+                    transformer=cj.transformer.replace(use_pallas=True),
+                    decoder=cj.decoder.replace(use_pallas=True))
     ct = tcfg.ModelConfig.from_dict(cj.to_dict())
     assert ct == tcfg.ModelConfig().with_kernels()
     pj = jax.device_get(jmaster.init_master_model(jax.random.PRNGKey(0), cj))
