@@ -1,17 +1,21 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only-train-grads   # the training gradient
+                                               # checks alone, no result line
 
 Builds the port's CUDA sources (csrc/ -> build/, one nvcc per source, side
 by side, at first use), holds each kernel entry against its plain PyTorch
-version at the shapes of the slice, then drives the slice -- pair serving,
-``StylizeService`` -> ``master_apply`` at swin_B widths, 512x512 images,
-k=1, with the Swin, style-transformer and decoder kernels on -- through its
-entry points with weights drawn from a seeded ``torch.Generator``. One JSON line
-per phase, flushed as it goes; any failed phase raises and the exit code is
-not 0. The last line is {"ok": true, "device": {...}}; before it come the
-card's name and power limit as nvidia-smi gives them, and the kernel
-summary.
+version at the shapes of the two slices, then drives them through their
+entry points with weights drawn from seeded ``torch.Generator``s: pair
+serving -- ``StylizeService`` -> ``master_apply`` at swin_B widths, 512x512
+images, k=1, with the Swin, style-transformer and decoder kernels on --
+and the plain training step -- ``make_train_step`` at 256x256, batch 8,
+bf16, k fixed at 1 and 4 and then random in [1, 4], with K5, K7 and the
+training kernels K8-K10 on. One JSON line per phase, flushed as it goes;
+any failed phase raises and the exit code is not 0. The last line is
+{"ok": true, "device": {...}}; before it come the card's name and power
+limit as nvidia-smi gives them, and the kernel summary (K1-K10).
 
 Phases: device, build; kernels (each entry against its plain version, with
 ms per call, the bound, the plain version's ms and shared memory per
@@ -29,7 +33,17 @@ nine plain convs, so that the reference shares no phase algebra with
 K5-K7); f32_entry (one float32 pair through ``make_stylize_fn`` on the card
 against the same call on the CPU, with PyTorch's own TF32 settings);
 stages (CUDA-event times of one batch-8 pair call at bf16 per stage,
-kernels on, off, and as the reference service runs).
+kernels on, off, and as the reference service runs); the training
+kernels (K8 at the Swin's two stages and the style transformer's shape, K9
+in its two forms, K10 at the three row shapes with and without LN, each
+forward and backward, bf16 and f32, against the plain forward and
+torch.autograd of it; the backward passes of K5 and K7 at the decoder's
+training shapes); train_grads (the first step's gradients per parameter
+group: f32 with every kernel on against the f32 route with every kernel
+off, and the bf16 kernel path's error against the bf16 plain route's);
+train_step (one line per step: k, loss, ms, imgs/s, peak memory, the
+launches of each step checked against ``train_per_step``), train and a
+stages line of the step (forward, backward, optimizer).
 
 Needs only torch, numpy and the standard library, and one CUDA card.
 
@@ -51,6 +65,18 @@ model, and its size against the output moves with the weight draw, so the
 kernel path is held to the plain bf16 route on the same draw and pairs:
 its per-pixel MAE against the float32 reference at most 1.5 times the
 plain bf16 reference service's.
+
+The training kernels' gradients: at float32 1e-4 of the largest |grad| of
+the tensor, at bfloat16 two units in the last place plus 2^-6 of it (the
+forward outputs as the other per-window kernels, with the update measured
+from 0 for K8/K9 and from x for K10); a projection bias is scaled by the
+largest |grad| of all the projection biases, since the key bias's own
+gradient is zero up to rounding. The training step: at float32, the
+kernel path's first-step gradients within 1e-3 (relative max-abs per
+parameter group) of the route with every kernel off; at bfloat16, its
+relative L1 gradient error against that float32 route at most 1.5 times
+the plain bf16 route's, per group (the slice's noise-ratio idea); every
+loss finite.
 """
 
 from __future__ import annotations
@@ -67,11 +93,13 @@ import torch
 import torch.nn.functional as F
 
 from mastermetastyletransfer_tpu_torch.config import (
-    AttentionConfig, ModelConfig,
+    AttentionConfig, DataConfig, ExperimentConfig, ModelConfig,
 )
+from mastermetastyletransfer_tpu_torch.losses.loss import perceptual_loss
+from mastermetastyletransfer_tpu_torch.losses.vgg import init_vgg19_features
 from mastermetastyletransfer_tpu_torch.models.decoder import cnn_decoder_apply
 from mastermetastyletransfer_tpu_torch.models.master import (
-    _TF32_OFF, init_master_model, make_stylize_fn,
+    _TF32_OFF, init_master_model, make_stylize_fn, master_apply,
 )
 from mastermetastyletransfer_tpu_torch.models.style_transformer import (
     init_style_swin_block, style_transformer_apply,
@@ -79,8 +107,10 @@ from mastermetastyletransfer_tpu_torch.models.style_transformer import (
 from mastermetastyletransfer_tpu_torch.models.swin import swin_backbone_apply
 from mastermetastyletransfer_tpu_torch.ops import _build
 from mastermetastyletransfer_tpu_torch.ops import conv as tconv
+from mastermetastyletransfer_tpu_torch.ops import ln_mlp as lm
 from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
 from mastermetastyletransfer_tpu_torch.ops import style_block as sb
+from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
 from mastermetastyletransfer_tpu_torch.ops import window_block as wb
 from mastermetastyletransfer_tpu_torch.ops.attention import (
     init_dual_value_window_attention, init_window_attention,
@@ -90,6 +120,11 @@ from mastermetastyletransfer_tpu_torch.ops.windows import (
     effective_shift, shift_attention_mask, valid_token_mask, window_partition,
 )
 from mastermetastyletransfer_tpu_torch.serve import StylizeService
+from mastermetastyletransfer_tpu_torch.train.state import create_train_state
+from mastermetastyletransfer_tpu_torch.train.step import (
+    _loss_views, _sample_k, make_loss_and_grad, make_train_step,
+    prepare_batch_for_model,
+)
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import tree_map
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -100,7 +135,7 @@ TOL_BF16_ULPS, TOL_BF16_UPDATE = 2, 2.0 ** -6
 TOL_SLICE_MAE = 1e-4
 TOL_BF16_NOISE = 1.5
 TOL_CONV_BF16_SCALE = 2.0 ** -8
-LAUNCHES = (wb.LAUNCHES, sb.LAUNCHES, pc.LAUNCHES)
+LAUNCHES = (wb.LAUNCHES, sb.LAUNCHES, pc.LAUNCHES, wa.LAUNCHES, lm.LAUNCHES)
 
 DEVICE = "cuda"
 SIZE, MAX_BATCH, K = 512, 8, 1
@@ -109,7 +144,9 @@ F32_REQUESTS = 4
 F32_ENTRY_SIZE = 128
 # Launches per request batch on each slice path (the main path is bf16).
 DECODER_PER_BATCH = {"stencil_phase_conv": 5, "stencil_phase2_conv": 0,
-                     "stencil_phase2_conv_padcols": 1, "phase_align": 1}
+                     "stencil_phase2_conv_padcols": 1, "phase_align": 1,
+                     # serving runs no training kernel
+                     **{e: 0 for e in (*wa.LAUNCHES, *lm.LAUNCHES)}}
 PER_BATCH = {
     "bfloat16": {"window_block_rows": 4, "window_block_windows": 2 * K,
                  "encoder_scale_shift": K, "decoder_tail": K,
@@ -468,6 +505,361 @@ def decoder_cases(gen, rows):
                  (0, nbytes), smem, check=exact_error, registers=regs)
 
 
+def grad_error(got: torch.Tensor, ref: torch.Tensor, scale: float, dtype):
+    """A gradient's (max-abs error, largest error / tolerance): at float32
+    1e-4 of ``scale``, at bfloat16 two units in the last place of the
+    element plus 2^-6 of ``scale``; ``scale`` is the largest |grad| of the
+    tensor (of all the projection biases for a bias, whose key bias has a
+    zero gradient up to rounding)."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    if dtype == torch.float32:
+        tol = TOL_F32 * scale
+    else:
+        ulp = torch.exp2((torch.frexp(ref)[1] - 8).float())
+        tol = (TOL_BF16_ULPS * torch.where(ref == 0, 0.0, ulp)
+               + TOL_BF16_UPDATE * scale)
+    return err.max().item(), (err / tol).max().item()
+
+
+def attention_cost(nv: int, backward: bool, b: int, nw: int, n: int, c: int,
+                   heads: int, dtype):
+    """(operations, bytes) of one K8 (nv 1) or K9 (nv 2) call. Per window,
+    forward: the projections (K8 q, k, v and wp: 8 N C^2; K9 two value
+    streams and wp twice: 8 N C^2) and the attention (2 N^2 C for q k^T and
+    2 N^2 C per value stream). Backward, from the inputs: the forward's
+    projections and scores again, dO per stream, o per stream (for dWp), dP,
+    dq, dk, dv per stream, the input grads through W^T and the weight grads
+    (K8 22 N C^2 + 12 N^2 C, K9 20 N C^2 + 14 N^2 C). Bytes: the window
+    tensors read and written once, the weights, the bias and the mask; the
+    weight grads written in f32."""
+    win = b * nw
+    if backward:
+        per = ((22 * n * c * c + 12 * n * n * c) if nv == 1
+               else (20 * n * c * c + 14 * n * n * c))
+        tiles = (3 + 1 + 3) if nv == 1 else (4 + 2 + 4)
+        mats = 4 if nv == 1 else 3
+        out_f32 = mats * c * c + (mats + 1) * c + heads * n * n
+    else:
+        per = 8 * n * c * c + (2 + 2 * nv) * n * n * c
+        tiles = 4 if nv == 1 else 6
+        mats = 4 if nv == 1 else 3
+        out_f32 = 0
+    nbytes = (tiles * win * n * c * item_bytes(dtype)
+              + mats * c * c * item_bytes(dtype)
+              + (mats * c + heads * n * n + nw * n * n) * 4 + out_f32 * 4)
+    return win * per, nbytes
+
+
+def mlp_cost(backward: bool, rows: int, c: int, hidden: int, dtype,
+             use_norm: bool):
+    """(operations, bytes) of one K10 call: forward 4 rows C hidden
+    (fc1, fc2); backward 10 rows C hidden (fc1 again, dz, dh, dW1, dW2).
+    Bytes: x (and g, dx) once, the weights, the grads in f32."""
+    mats = 2 * c * hidden
+    vecs = hidden + c + (2 * c if use_norm else 0)
+    if backward:
+        return (10 * rows * c * hidden,
+                3 * rows * c * item_bytes(dtype) + mats * item_bytes(dtype)
+                + (mats + vecs) * 4 + vecs * 4)
+    return (4 * rows * c * hidden,
+            2 * rows * c * item_bytes(dtype) + mats * item_bytes(dtype)
+            + vecs * 4)
+
+
+def run_grad_case(rows: list, entry: str, label: str, dtype, *, leaves,
+                  function, plain, grads_out, fwd_kernel, fwd_plain,
+                  bwd_kernel, bwd_plain, residual, names, cost_fwd,
+                  cost_bwd, smem_fwd, smem_bwd) -> None:
+    """One training kernel: the kernel path (the autograd Function on CUDA
+    tensors: the forward and the backward kernels) against the plain
+    forward and torch.autograd of it, on the same inputs; then the times of
+    the forward kernel, the backward kernel, the plain forward and the
+    explicit plain backward. Emits one kernels line per direction."""
+    kern = [t.detach().clone().requires_grad_() if t is not None else None
+            for t in leaves]
+    ref_in = [t.detach().clone().requires_grad_() if t is not None else None
+              for t in leaves]
+    got_out = function(*kern)
+    ref_out = plain(*ref_in)
+    got_out = got_out if isinstance(got_out, tuple) else (got_out,)
+    ref_out = ref_out if isinstance(ref_out, tuple) else (ref_out,)
+    live = [i for i, t in enumerate(kern) if t is not None]
+    got = torch.autograd.grad(got_out, [kern[i] for i in live], grads_out)
+    ref = torch.autograd.grad(ref_out, [ref_in[i] for i in live], grads_out)
+    torch.cuda.synchronize()
+    fwd_errs = [kernel_error(g, r, residual if residual is not None
+                             else torch.zeros_like(r))
+                for g, r in zip(got_out, ref_out)]
+    vec = max([r.abs().max().item() for n, r in zip(names, ref)
+               if n.startswith("b")] or [0.0])
+    bwd_errs = [grad_error(g, r, vec if n.startswith("b") and vec
+                           else r.float().abs().max().item(), dtype)
+                for n, g, r in zip(names, got, ref)]
+    for direction, errs in (("forward", fwd_errs), ("backward", bwd_errs)):
+        worst = max(e[1] for e in errs)
+        if not worst <= 1.0:
+            raise AssertionError(f"{entry} {label} {dtype} {direction}: "
+                                 f"error/tolerance {worst} > 1")
+    del got, ref, got_out, ref_out, kern, ref_in
+    with torch.no_grad():
+        timed = {"fwd": cuda_ms(fwd_kernel, 5), "bwd": cuda_ms(bwd_kernel, 3),
+                 "plain_fwd": cuda_ms(fwd_plain, 3),
+                 "plain_bwd": cuda_ms(bwd_plain, 2)}
+    for suffix, errs, cost, smem, ms, plain_ms in (
+            ("", fwd_errs, cost_fwd, smem_fwd, timed["fwd"],
+             timed["plain_fwd"]),
+            ("_bwd", bwd_errs, cost_bwd, smem_bwd, timed["bwd"],
+             timed["plain_bwd"])):
+        flops, nbytes = cost
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        row = dict(entry=entry + suffix, case=label,
+                   dtype=str(dtype).replace("torch.", ""),
+                   shape=list(leaves[0].shape),
+                   max_abs_err=max(e[0] for e in errs),
+                   err_over_tol=max(e[1] for e in errs), ms=ms,
+                   plain_ms=plain_ms, library_ms=None,
+                   bound_ms=max(t_ops, t_bytes), ops_ms=t_ops,
+                   bytes_ms=t_bytes,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   gflop=flops / 1e9, mbytes=nbytes / 1e6, smem_bytes=smem)
+        emit("kernels", **row)
+        rows.append(row)
+
+
+# The training step's calls at 256^2, batch 8 content + 8 style: the Swin
+# pass of 16 images (stage 1: 64x64 tokens padded to 70x70, 100 windows,
+# C=128, 4 heads; stage 2: 32x32 -> 35x35, 25 windows, C=256, 8 heads) and
+# the style transformer on the 8 contents (32x32 -> 25 windows, C=256).
+TRAIN_SIZE, TRAIN_BATCH = 256, 8
+ATTN_SHAPES = (("swin_stage1", 16, 100, 128, 4),
+               ("swin_stage2", 16, 25, 256, 8),
+               ("style_transformer", 8, 25, 256, 8))
+MLP_SHAPES = (("swin_stage1", 16 * 64 * 64, 128, True),
+              ("swin_stage2", 16 * 32 * 32, 256, True),
+              ("st_ln", 8 * 32 * 32, 256, True),
+              ("st", 8 * 32 * 32, 256, False))
+
+
+def train_kernel_cases(gen, rows):
+    """K8 at the Swin's two stages and the style transformer's shape, K9 in
+    both forms (separate wv_scale/wv_shift; one wv twice), K10 at the three
+    row shapes with and without LN, each forward and backward at bf16 and
+    f32, against the plain forward and autograd of it; the backward of K5
+    and K7 (plain PyTorch) at the decoder's training shapes."""
+    dev = torch.device(DEVICE)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, b, nw, c, heads in ATTN_SHAPES:
+            grid = int(round(nw ** 0.5)) * 7
+            sh = sw = 4 if label == "style_transformer" else 3
+            mask = torch.from_numpy(shift_attention_mask(
+                grid, grid, 7, 7, sh, sw)).to(dev)
+            projs = [(randn((c, c), c ** -0.5), randn(c, 0.02))
+                     for _ in range(4)]
+            xs = [randn((b, nw, 49, c)).to(dtype) for _ in range(4)]
+            bias = randn((heads, 49, 49), 0.02)
+            g = [randn((b, nw, 49, c)).to(dtype) for _ in range(2)]
+            w = [t for p in projs for t in p]
+            pr = [wa.Proj(*p) for p in projs]
+            run_grad_case(
+                rows, "window_attention", label, dtype,
+                leaves=xs[:3] + w + [bias],
+                function=lambda *a: wa._WindowAttention.apply(
+                    *a, mask, heads),
+                plain=lambda q, k, v, *r: wa.window_attention_plain(
+                    q, k, v, *(wa.Proj(r[i], r[i + 1]) for i in (0, 2, 4, 6)),
+                    r[8], mask, heads),
+                grads_out=g[0],
+                fwd_kernel=lambda: wa.window_attention_fwd_kernel(
+                    *xs[:3], *pr, bias, mask, heads),
+                fwd_plain=lambda: wa.window_attention_plain(
+                    *xs[:3], *pr, bias, mask, heads),
+                bwd_kernel=lambda: wa.window_attention_bwd_kernel(
+                    g[0], *xs[:3], *pr, bias, mask, heads),
+                bwd_plain=lambda: wa.window_attention_bwd_plain(
+                    g[0], *xs[:3], *pr, bias, mask, heads),
+                residual=None,
+                names=["q", "k", "v", "wq", "bq", "wk", "bk", "wv", "bv",
+                       "wp", "bp", "rel_bias"],
+                cost_fwd=attention_cost(1, False, b, nw, 49, c, heads,
+                                        dtype),
+                cost_bwd=attention_cost(1, True, b, nw, 49, c, heads, dtype),
+                smem_fwd=wa.smem_bytes(49, c, heads, dtype, 1, False),
+                smem_bwd=wa.smem_bytes(49, c, heads, dtype, 1, True))
+            if label != "style_transformer":
+                continue
+            # K9 with its own value projections (the decoder's form), and
+            # with one wv used for both streams (the encoder's Scale/Shift
+            # pair: autograd sums the two uses).
+            for form, vprojs, names in (
+                    ("st_dual", pr[:2], ["wvs", "bvs", "wvh", "bvh"]),
+                    ("st_shared_wv", pr[:1], ["wv", "bv"])):
+                dp = (list(vprojs) * (2 if len(vprojs) == 1 else 1)
+                      + [pr[3]])
+                vw = [t for p in vprojs for t in p]
+                nvw = len(vw)
+
+                def dual_fn(q, k, vs, vh, *r, nvw=nvw):
+                    vws = list(r[:nvw]) * (4 // nvw)
+                    return wa._WindowAttentionDual.apply(
+                        q, k, vs, vh, *vws, *r[nvw:], mask, heads)
+
+                def dual_plain(q, k, vs, vh, *r, nvw=nvw):
+                    vws = list(r[:nvw]) * (4 // nvw)
+                    return wa.window_attention_dual_plain(
+                        q, k, vs, vh, wa.Proj(vws[0], vws[1]),
+                        wa.Proj(vws[2], vws[3]), wa.Proj(r[nvw], r[nvw + 1]),
+                        r[nvw + 2], mask, heads)
+
+                run_grad_case(
+                    rows, "window_attention_dual", form, dtype,
+                    leaves=xs + vw + list(pr[3]) + [bias],
+                    function=dual_fn, plain=dual_plain, grads_out=tuple(g),
+                    fwd_kernel=lambda dp=dp:
+                        wa.window_attention_dual_fwd_kernel(
+                            *xs, *dp, bias, mask, heads),
+                    fwd_plain=lambda dp=dp: wa.window_attention_dual_plain(
+                        *xs, *dp, bias, mask, heads),
+                    bwd_kernel=lambda dp=dp:
+                        wa.window_attention_dual_bwd_kernel(
+                            *g, *xs, *dp, bias, mask, heads),
+                    bwd_plain=lambda dp=dp:
+                        wa.window_attention_dual_bwd_plain(
+                            *g, *xs, *dp, bias, mask, heads),
+                    residual=None,
+                    names=["q", "k", "vs", "vh"] + names
+                    + ["wp", "bp", "rel_bias"],
+                    cost_fwd=attention_cost(2, False, b, nw, 49, c, heads,
+                                            dtype),
+                    cost_bwd=attention_cost(2, True, b, nw, 49, c, heads,
+                                            dtype),
+                    smem_fwd=wa.smem_bytes(49, c, heads, dtype, 2, False),
+                    smem_bwd=wa.smem_bytes(49, c, heads, dtype, 2, True))
+        for label, nrows, c, use_norm in MLP_SHAPES:
+            hidden = 4 * c
+            x = randn((nrows, c)).to(dtype)
+            gy = randn((nrows, c)).to(dtype)
+            w = [randn((c, hidden), c ** -0.5), randn(hidden, 0.02),
+                 randn((hidden, c), hidden ** -0.5), randn(c, 0.02)]
+            norm = ([1 + randn(c, 0.1), randn(c, 0.1)] if use_norm
+                    else [None, None])
+            run_grad_case(
+                rows, "ln_mlp_residual", label + ("" if use_norm else
+                                                  "_no_ln"), dtype,
+                leaves=[x] + w + norm,
+                function=lambda *a: lm._LnMlpResidual.apply(*a),
+                plain=lm.ln_mlp_residual_plain, grads_out=gy,
+                fwd_kernel=lambda: lm.ln_mlp_residual_fwd_kernel(
+                    x, *w, *norm),
+                fwd_plain=lambda: lm.ln_mlp_residual_plain(x, *w, *norm),
+                bwd_kernel=lambda: lm.ln_mlp_residual_bwd_kernel(
+                    gy, x, w[0], w[1], w[2], *norm),
+                bwd_plain=lambda: lm.ln_mlp_residual_bwd_plain(
+                    gy, x, w[0], w[1], w[2], *norm),
+                residual=x,
+                names=["x", "w1", "b1", "w2", "b2", "ns", "nb"][
+                    :5 + 2 * use_norm],
+                cost_fwd=mlp_cost(False, nrows, c, hidden, dtype, use_norm),
+                cost_bwd=mlp_cost(True, nrows, c, hidden, dtype, use_norm),
+                smem_fwd=lm.smem_bytes(c, hidden, dtype, False),
+                smem_bwd=lm.smem_bytes(c, hidden, dtype, True))
+    decoder_backward_cases(gen, rows)
+
+
+def decoder_backward_cases(gen, rows):
+    """The backward passes of K5 (conv1-4, conv6) and K7 (conv5, conv7) at
+    the training step's shapes (decoder input (8, 32, 32, 256)): the
+    Function's gradients (the kernel forward, the plain backward) against
+    autograd of the plain forward, bf16 and f32 (TF32 off), with the time of
+    the backward alone."""
+    dev = torch.device(DEVICE)
+    b, g0 = TRAIN_BATCH, TRAIN_SIZE // 8
+    convs = (("conv1", (b, g0, g0, 128), 128, 128, "up"),
+             ("conv2", (b, g0, g0, 512), 128, 128, "l1"),
+             ("conv3", (b, g0, g0, 512), 128, 128, "l1"),
+             ("conv4", (b, g0, g0, 512), 128, 64, "l1"),
+             ("conv6", (b, 2 * g0, 2 * g0, 256), 64, 32, "l1"))
+    for dtype in (torch.bfloat16, torch.float32):
+        ctx = _TF32_OFF if dtype == torch.float32 else contextlib.nullcontext()
+        with ctx:
+            for label, shape, cin, c_out, form in convs:
+                w3 = tconv.init_conv(gen, cin, c_out)["kernel"]
+                if form == "up":
+                    pk, table = tconv._phase_kernel(w3), tconv._UPSAMPLE_TABLE
+                else:
+                    pk = tconv._phase_space_kernel(w3)
+                    table = tconv._phase_space_table()
+                x = torch.randn(shape, generator=gen)
+                pp = tconv._edge_pad(x).to(dev, dtype).contiguous()
+                pk = pk.to(dev, dtype).contiguous()
+                bias = (torch.randn(4 * c_out, generator=gen) * 0.1).to(dev)
+                gy = torch.randn((*shape[:3], 4 * c_out),
+                                 generator=gen).to(dev, dtype)
+                decoder_bwd_case(rows, "stencil_phase_conv", label, dtype,
+                                 [pp, pk, bias],
+                                 lambda a, b_, c: pc.stencil_phase_conv(
+                                     a, b_, c, table),
+                                 lambda a, b_, c: pc.stencil_phase_conv_plain(
+                                     a, b_, c, table, relu=False), gy,
+                                 relu=True)
+            for label, hw, c_out in (("conv5", 2 * g0, 64),
+                                     ("conv7", 4 * g0, 32)):
+                big = torch.randn((b, hw + 1, hw + 1, 4 * c_out),
+                                  generator=gen).to(dev, dtype)
+                gy = torch.randn((b, hw, hw, 4 * c_out),
+                                 generator=gen).to(dev, dtype)
+                decoder_bwd_case(rows, "phase_align", label, dtype, [big],
+                                 lambda a, c_out=c_out: pc.phase_align(
+                                     a, c_out),
+                                 lambda a, c_out=c_out: pc.phase_align_plain(
+                                     a, c_out), gy)
+
+
+def decoder_bwd_case(rows, entry, label, dtype, leaves, function, plain, gy,
+                     relu=False):
+    """The Function's gradients against autograd of the plain forward. With
+    ``relu`` the plain forward is the conv without its ReLU, fed the
+    cotangent masked by the kernel's own output (y > 0): where the two
+    forwards round an output of nearly 0 to opposite signs the ReLU routes
+    the gradient differently, which is no error of the backward (at f32 a
+    few such outputs come in every 2 million)."""
+    kern = [t.detach().clone().requires_grad_() for t in leaves]
+    out = function(*kern)
+    got = torch.autograd.grad(out, kern, gy, retain_graph=True)
+    ref_in = [t.detach().clone().requires_grad_() for t in leaves]
+    g_ref = gy * (out.detach() > 0).to(gy.dtype) if relu else gy
+    ref = torch.autograd.grad(plain(*ref_in), ref_in, g_ref)
+    torch.cuda.synchronize()
+    errs = [grad_error(g, r, r.float().abs().max().item(), dtype)
+            for g, r in zip(got, ref)]
+    worst = max(e[1] for e in errs)
+    if not worst <= 1.0:
+        raise AssertionError(f"{entry} {label} {dtype} backward: "
+                             f"error/tolerance {worst} > 1")
+
+    def backward():
+        torch.autograd.grad(out, kern, gy, retain_graph=True)
+
+    def plain_backward():
+        torch.autograd.grad(ref_out, ref_in, gy, retain_graph=True)
+
+    ref_out = plain(*ref_in)
+    row = dict(entry=entry + "_bwd", case=label,
+               dtype=str(dtype).replace("torch.", ""),
+               shape=list(leaves[0].shape),
+               max_abs_err=max(e[0] for e in errs), err_over_tol=worst,
+               ms=cuda_ms(backward, 3), plain_ms=cuda_ms(plain_backward, 3),
+               route="plain PyTorch (the JAX package's backward is plain "
+                     "XLA)")
+    emit("kernels", **row)
+    rows.append(row)
+
+
 def check_kernels(gen: torch.Generator):
     rows = []
     # The Swin pass of one request batch: 2 x max_batch images; at 512^2
@@ -713,7 +1105,290 @@ def stage_times(params, content: np.ndarray, style: np.ndarray) -> dict:
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# 5. the training step: 256^2, batch 8, bf16, random k
+# ---------------------------------------------------------------------------
+
+TOL_TRAIN_F32 = 1e-3
+TRAIN_FIXED_K, TRAIN_FIXED_STEPS, TRAIN_RANDOM_STEPS = (1, 4), 3, 5
+TRAIN_SEED = 1
+TRAIN_SPREAD_EPS, TRAIN_SPREAD_FACTOR = (2.0 ** -23, 2.0 ** -20), 4
+
+
+def train_config(dtype: str, kernels: bool) -> ExperimentConfig:
+    """The JAX train bench's configuration: swin_B, the ModelConfig
+    defaults, 256^2 crops, batch 8, VGG19 loss at lambda 10, Adam 1e-4 with
+    the reference's schedule, Swin frozen, k in [1, 4]."""
+    return ExperimentConfig(
+        model=ModelConfig(compute_dtype=dtype).with_kernels(kernels),
+        data=DataConfig(crop_to=TRAIN_SIZE))
+
+
+def train_per_step(k: int) -> dict:
+    """Launches of one training step at depth k, per entry (the Swin's four
+    blocks run forward only: it is frozen, so nothing of it is
+    differentiated). Per style-transformer iteration the encoder runs K8 once
+    (Key block), K9 once (Scale/Shift) and K10 three times (the three MLP
+    residuals); the decoder K8 once (self block), K9 once (dual attention)
+    and K10 twice (the self block's MLP, the last MLP). The decoder runs K5
+    at conv1-4 and conv6 and K7 at conv5 and conv7, each forward once."""
+    return {"window_attention": 4 + 2 * k, "window_attention_bwd": 2 * k,
+            "window_attention_dual": 2 * k,
+            "window_attention_dual_bwd": 2 * k,
+            "ln_mlp_residual": 4 + 5 * k, "ln_mlp_residual_bwd": 5 * k,
+            "stencil_phase_conv": 5, "stencil_phase2_conv": 0,
+            "stencil_phase2_conv_padcols": 0, "phase_align": 2,
+            "window_block_rows": 0, "window_block_windows": 0,
+            "encoder_scale_shift": 0, "decoder_tail": 0}
+
+
+def param_group(key: str) -> str:
+    """A parameter's group for the gradient checks: the style transformer's
+    blocks and MLPs (three path levels), the decoder's convs (two)."""
+    parts = key.split("/")
+    return "/".join(parts[:3] if parts[0] == "style_transformer"
+                    else parts[:2])
+
+
+def first_step_grads(cfg: ExperimentConfig, params0: dict, vgg: dict,
+                     content, style, seed: int):
+    """The first step's gradients (by flat key) from a copy of the weights,
+    with the step generator of ``seed`` (the same k and masks for every
+    configuration); returns (k, grads)."""
+    params = tree_map(lambda t: t.detach().clone(), params0)
+    state = create_train_state(params, cfg.train)
+    gen = torch.Generator().manual_seed(seed)
+    k = _sample_k(gen, cfg.train.max_layers)
+    loss, _, grads = make_loss_and_grad(cfg, vgg)(state.params, content,
+                                                   style, k, gen)
+    if not torch.isfinite(loss):
+        raise AssertionError(f"first-step loss {loss} is not finite")
+    return k, {key: g.detach() for key, g in grads.items()}
+
+
+def grad_checks(params0, vgg, content, style) -> dict:
+    """The first step's gradients per parameter group against the float32
+    route with every kernel off. float32 with the kernels on: relative
+    max-abs within TOL_TRAIN_F32, or within TRAIN_SPREAD_FACTOR times the
+    reference's own spread, whichever is larger. The spread is how far the
+    reference's gradient moves when the content images are scaled by
+    (1 + eps), eps in TRAIN_SPREAD_EPS (one and eight units in the last
+    place): the loss is piecewise smooth (ReLUs and max pools, the absolute
+    values of its distances), and a group whose gradient is small against
+    its terms (the encoder's key MLP above all) moves by more than 1e-3
+    under such a change (1.6e-3 on the CPU at 128^2), so no f32 route can
+    be held closer than that. bfloat16: the kernel path's relative L1
+    error at most TOL_BF16_NOISE times the plain bf16 route's."""
+    k, ref = first_step_grads(train_config("float32", False), params0, vgg,
+                              content, style, seed=100)
+    got = {(dtype, kernels): first_step_grads(
+        train_config(dtype, kernels), params0, vgg, content, style,
+        seed=100)[1]
+        for dtype, kernels in (("float32", True), ("bfloat16", True),
+                               ("bfloat16", False))}
+    moved = [first_step_grads(train_config("float32", False), params0, vgg,
+                              content * (1 + eps), style, seed=100)[1]
+             for eps in TRAIN_SPREAD_EPS]
+    groups = sorted({param_group(key) for key in ref})
+
+    def per_group(grads, measure):
+        out = {}
+        for grp in groups:
+            keys = [key for key in ref if param_group(key) == grp]
+            out[grp] = measure([grads[key].float() for key in keys],
+                               [ref[key] for key in keys])
+        return out
+
+    def rel_max(a, b):
+        return (max((x - y).abs().max().item() for x, y in zip(a, b))
+                / max(y.abs().max().item() for y in b))
+
+    def rel_l1(a, b):
+        return (sum((x - y).abs().sum().item() for x, y in zip(a, b))
+                / sum(y.abs().sum().item() for y in b))
+
+    f32 = per_group(got["float32", True], rel_max)
+    spread = {grp: max(per_group(m, rel_max)[grp] for m in moved)
+              for grp in groups}
+    f32_tol = {grp: max(TOL_TRAIN_F32, TRAIN_SPREAD_FACTOR * spread[grp])
+               for grp in groups}
+    f32_over = {grp: f32[grp] / f32_tol[grp] for grp in groups}
+    bf16_k = per_group(got["bfloat16", True], rel_l1)
+    bf16_p = per_group(got["bfloat16", False], rel_l1)
+    ratio = {grp: bf16_k[grp] / bf16_p[grp] for grp in groups}
+    out = dict(k=k, groups=len(groups),
+               f32_rel_max=max(f32.values()),
+               f32_worst_group=max(f32, key=f32.get),
+               f32_over_tol=max(f32_over.values()),
+               f32_tol=TOL_TRAIN_F32, spread_max=max(spread.values()),
+               f32_within_1e3=sum(v <= TOL_TRAIN_F32 for v in f32.values()),
+               bf16_noise_ratio=max(ratio.values()),
+               bf16_worst_group=max(ratio, key=ratio.get),
+               bf16_noise_tol=TOL_BF16_NOISE,
+               bf16_kernel_rel_l1=max(bf16_k.values()),
+               bf16_plain_rel_l1=max(bf16_p.values()),
+               per_group={grp: dict(f32_rel_max=f32[grp],
+                                    spread=spread[grp],
+                                    bf16_kernel_rel_l1=bf16_k[grp],
+                                    bf16_plain_rel_l1=bf16_p[grp])
+                          for grp in groups})
+    emit("train_grads", **out)
+    if not out["f32_over_tol"] <= 1.0:
+        worst = max(f32_over, key=f32_over.get)
+        raise AssertionError(
+            f"float32 kernel gradients of {worst} are {f32[worst]} "
+            f"(relative max-abs) from the kernels-off route, over "
+            f"{f32_tol[worst]}")
+    if not out["bf16_noise_ratio"] <= TOL_BF16_NOISE:
+        raise AssertionError(
+            f"bfloat16 kernel gradients of {out['bf16_worst_group']}: error "
+            f"{out['bf16_noise_ratio']} times the plain bf16 route's, over "
+            f"{TOL_BF16_NOISE}")
+    return out
+
+
+def train_run(params0, vgg, batches, kernels: bool) -> dict:
+    """The bf16 step through make_train_step: TRAIN_FIXED_STEPS steps at each
+    fixed k, then TRAIN_RANDOM_STEPS at random k; per step its k, loss,
+    wall time (ending in a synchronize), imgs/s and peak memory, and, with
+    the kernels on, its launches against ``train_per_step``."""
+    cfg = train_config("bfloat16", kernels)
+    params = tree_map(lambda t: t.detach().clone(), params0)
+    state = create_train_state(params, cfg.train)
+    step = make_train_step(cfg, vgg, device=DEVICE)
+    plan = [k for k in TRAIN_FIXED_K for _ in range(TRAIN_FIXED_STEPS)]
+    plan += [None] * TRAIN_RANDOM_STEPS
+    # one untimed step first: allocator and library warm-up
+    step(state, *batches[0], torch.Generator().manual_seed(0), k=1)
+    torch.cuda.synchronize()
+    steps = []
+    launches = {}
+    reset_launches()
+    for i, k in enumerate(plan):
+        content, style = batches[i % len(batches)]
+        before = all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, content, style,
+                        torch.Generator().manual_seed(1000 + i), k=k)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        now = all_launches()
+        per = {e: now[e] - before[e] for e in now}
+        if not np.isfinite(m["total"]):
+            raise AssertionError(f"step {i}: loss {m['total']} not finite")
+        if kernels and per != train_per_step(m["k"]):
+            raise AssertionError(f"step {i} (k={m['k']}) launched {per}, "
+                                 f"expected {train_per_step(m['k'])}")
+        if not kernels and any(per.values()):
+            raise AssertionError(f"the kernels-off step launched {per}")
+        row = dict(step=i, k=m["k"], loss=m["total"], content=m["content"],
+                   style=m["style"], lr=m["lr"], ms=dt * 1e3,
+                   imgs_per_s=TRAIN_BATCH / dt,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        emit("train_step", kernels=kernels, **row)
+        steps.append(row)
+    launches = all_launches()
+    by_k = {}
+    for r in steps:
+        by_k.setdefault(r["k"], []).append(r["imgs_per_s"])
+    return dict(steps=steps, launches=launches,
+                imgs_per_s_by_k={k: float(np.mean(v)) for k, v in
+                                 sorted(by_k.items())},
+                imgs_per_s_mean=float(np.mean([r["imgs_per_s"]
+                                               for r in steps])),
+                peak_mem_gib=max(r["peak_mem_gib"] for r in steps))
+
+
+def train_stage_times(params0, vgg, content, style) -> dict:
+    """CUDA-event ms of one bf16 step at k=1, kernels on and off: the
+    forward (model and loss), the backward, the optimizer update; mean of 3
+    after one warm-up."""
+    out = {}
+    for label, kernels in (("kernels_on", True), ("kernels_off", False)):
+        cfg = train_config("bfloat16", kernels)
+        params = tree_map(lambda t: t.detach().clone(), params0)
+        state = create_train_state(params, cfg.train)
+        leaves = list(state.trainable().values())
+        c = torch.as_tensor(content, device=DEVICE)
+        s = torch.as_tensor(style, device=DEVICE)
+
+        def once():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            mc, ms = prepare_batch_for_model(c, s, cfg.data)
+            y = master_apply(state.params, mc, ms, cfg.model, k=1,
+                             deterministic=False,
+                             generator=torch.Generator().manual_seed(0))
+            lc, ls, lo = _loss_views(c, s, y, cfg.data)
+            loss = perceptual_loss(vgg, lc, ls, lo, cfg.loss,
+                                   lambda_value=cfg.train.lambda_style)
+            ev[1].record()
+            grads = torch.autograd.grad(loss["total"], leaves,
+                                        allow_unused=True)
+            ev[2].record()
+            state.opt.step([g if g is not None else torch.zeros_like(p)
+                            for g, p in zip(grads, leaves)])
+            ev[3].record()
+            torch.cuda.synchronize()
+            return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+        once()
+        runs = [once() for _ in range(3)]
+        ms = {n: float(np.mean([r[i] for r in runs]))
+              for i, n in enumerate(("forward", "backward", "optimizer"))}
+        ms["total"] = sum(ms.values())
+        out[label] = ms
+    return out
+
+
+def train_inputs(seed: int = TRAIN_SEED):
+    """The training phase's weights (model and VGG19) and batches (uniform
+    noise, as the JAX train bench feeds), drawn from their own seed."""
+    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    params0 = init_master_model(train_config("bfloat16", True).model, gen,
+                                device=DEVICE)
+    vgg = init_vgg19_features(gen, device=DEVICE)
+
+    def batch():
+        return tuple(torch.from_numpy(rng.random(
+            (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+            dtype=np.float32)).to(DEVICE) for _ in range(2))
+
+    return params0, vgg, [batch() for _ in range(3)]
+
+
+def run_train() -> dict:
+    """The training phase: the gradient checks, the bf16 run with the
+    kernels on and off, and the step's stage times."""
+    params0, vgg, batches = train_inputs()
+    checks = grad_checks(params0, vgg, *batches[0])
+    runs = {kernels: train_run(params0, vgg, batches, kernels)
+            for kernels in (True, False)}
+    stages = train_stage_times(params0, vgg, *batches[0])
+    summary = dict(size=TRAIN_SIZE, batch=TRAIN_BATCH, dtype="bfloat16",
+                   imgs_per_s_kernels_on=runs[True]["imgs_per_s_mean"],
+                   imgs_per_s_kernels_off=runs[False]["imgs_per_s_mean"],
+                   imgs_per_s_by_k_on=runs[True]["imgs_per_s_by_k"],
+                   imgs_per_s_by_k_off=runs[False]["imgs_per_s_by_k"],
+                   peak_mem_gib_on=runs[True]["peak_mem_gib"],
+                   peak_mem_gib_off=runs[False]["peak_mem_gib"],
+                   launches=runs[True]["launches"],
+                   per_step_k1=train_per_step(1),
+                   f32_rel_max=checks["f32_rel_max"],
+                   bf16_noise_ratio=checks["bf16_noise_ratio"])
+    emit("train", **summary)
+    emit("stages", what="train_step", dtype="bfloat16", batch=TRAIN_BATCH,
+         size=TRAIN_SIZE, k=1, **stages)
+    return summary
+
+
+def main(argv=None) -> int:
+    only = (argv if argv is not None else sys.argv[1:])
+    if only not in ([], ["--only-train-grads"]):
+        print("usage: chip_smoke.py [--only-train-grads]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; nothing run",
               file=sys.stderr)
@@ -734,6 +1409,13 @@ def main() -> int:
     emit("build", from_scratch=fresh, seconds=built,
          wall_s=time.perf_counter() - t0, build_dir=_build.BUILD_DIR.name)
 
+    if only:
+        # The training phase's gradient checks alone (a planted fault's
+        # check is quick to rerun this way); no result line.
+        params0, vgg, batches = train_inputs()
+        grad_checks(params0, vgg, *batches[0])
+        return 0
+
     gen = torch.Generator().manual_seed(0)
     rows = check_kernels(gen)
 
@@ -751,6 +1433,12 @@ def main() -> int:
     batch = np.stack([p for pair in pairs(MAX_BATCH) for p in pair])
     emit("stages", dtype="bfloat16", batch=MAX_BATCH, size=SIZE, k=K,
          **stage_times(params, batch[0::2], batch[1::2]))
+    del params
+    # The training slice's kernel cases and run draw from generators of
+    # their own, after the serving phases, whose weights stay the draw they
+    # were checked on before the training slice came.
+    train_kernel_cases(torch.Generator().manual_seed(TRAIN_SEED + 1), rows)
+    train = run_train()
 
     # The main path is the bf16 slice: each entry's launches from its run,
     # its times summed over the calls of one request batch.
@@ -795,6 +1483,48 @@ def main() -> int:
             library_ms=(None if None in lib_ms else sum(lib_ms)),
             dtype="bfloat16", per=per,
             smem_bytes=max(r["smem_bytes"] for r in mine)))
+    # The training kernels: launches from the bf16 train run, times summed
+    # over the calls of one step at k=1.
+    for entry, replaces, calls, per in (
+            ("window_attention", "ops/pallas_attention.py:384",
+             {"swin_stage1": 2, "swin_stage2": 2, "style_transformer": 2},
+             "the 4 Swin blocks of one 16-image pass and the style "
+             "transformer's Key and self blocks, one step at k=1"),
+            ("window_attention_bwd", "ops/pallas_attention_vjp.py:274",
+             {"style_transformer": 2}, "one step at k=1"),
+            ("window_attention_dual", "ops/pallas_attention.py:428",
+             {"st_dual": 1, "st_shared_wv": 1}, "one step at k=1"),
+            ("window_attention_dual_bwd", "ops/pallas_attention_vjp.py:522",
+             {"st_dual": 1, "st_shared_wv": 1}, "one step at k=1"),
+            ("ln_mlp_residual", "ops/pallas_mlp.py:137",
+             {"swin_stage1": 2, "swin_stage2": 2, "st_ln": 1,
+              "st_no_ln": 4}, "one step at k=1"),
+            ("ln_mlp_residual_bwd", "ops/pallas_mlp_vjp.py:133",
+             {"st_ln": 1, "st_no_ln": 4}, "one step at k=1")):
+        mine = [(r, calls[r["case"]]) for r in rows if r["entry"] == entry
+                and r["dtype"] == "bfloat16" and r["case"] in calls]
+        source = ("window_attention.cu" if entry.startswith("window")
+                  else "ln_mlp.cu")
+        kernels.append(dict(
+            name=entry, route="cuda",
+            source=f"mastermetastyletransfer_tpu_torch/csrc/{source}",
+            replaces=replaces, launches=train["launches"][entry],
+            launches_from="bfloat16 train run",
+            max_abs_err=max(r["max_abs_err"] for r, _ in mine),
+            ms=sum(r["ms"] * n for r, n in mine),
+            plain_ms=sum(r["plain_ms"] * n for r, n in mine),
+            bound_ms=sum(r["bound_ms"] * n for r, n in mine),
+            bound_by=("operations" if sum(r["ops_ms"] * n for r, n in mine)
+                      >= sum(r["bytes_ms"] * n for r, n in mine)
+                      else "bytes"),
+            library_ms=None, dtype="bfloat16", per=per,
+            smem_bytes=max(r["smem_bytes"] for r, _ in mine)))
+    for k in kernels:
+        if k["name"] in ("stencil_phase_conv", "phase_align"):
+            k["train_launches"] = train["launches"][k["name"]]
+            k["train_bwd_ms"] = sum(
+                r["ms"] for r in rows if r["entry"] == k["name"] + "_bwd"
+                and r["dtype"] == "bfloat16")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,13 @@ imports torch and numpy only.
 Layout:
   config.py   configuration dataclasses (own copy; accepts the JAX JSON)
   ops/        window geometry, norms, MLP, attention, convs, and the
-              hand-written Swin block kernel (ops/window_block.py +
-              csrc/window_block.cu, built by ops/_build.py)
+              wrappers of the hand-written kernels in csrc/ (built by
+              ops/_build.py): the evaluation blocks K1-K4, the decoder's
+              phase convs K5-K7, the training kernels K8-K10 with their
+              backward passes
   models/     Swin backbone, style transformer, CNN decoder, full model
+  losses/     VGG19 features and the perceptual loss
+  train/      the plain training step, Adam, the lr schedule
   utils/      parameter loading (flat .npz key scheme, JAX param trees)
   inference.py, serve.py   bucketed stylization and the pair service
 """

@@ -9,6 +9,11 @@ codes/full_model.py:21-60, codes/style_transformer.py:1159-1226).
 ``use_pallas`` keeps its JAX name so that JSON round-trips: in the port it
 means "run the hand-written CUDA kernels of this stage" (the Swin blocks,
 the style transformer, the decoder's phase convs).
+
+The training fields (dropouts, stochastic depth, ``LossConfig``,
+``DataConfig``, ``TrainConfig``, ``ExperimentConfig``) follow the same
+rule: the JAX package's names and defaults, for the fields the port's
+plain training step reads.
 """
 
 from __future__ import annotations
@@ -53,6 +58,8 @@ class AttentionConfig(_ConfigBase):
     shift_size: Tuple[int, int] = (4, 4)
     qkv_bias: bool = True
     proj_bias: bool = True
+    dropout: float = 0.0
+    attention_dropout: float = 0.0
     use_pallas: bool = False
 
 
@@ -70,10 +77,16 @@ class StyleTransformerConfig(_ConfigBase):
     decoder_shift_size: Tuple[int, int] = (4, 4)
     encoder_mlp_ratio: float = 4.0
     decoder_mlp_ratio: float = 4.0
+    encoder_dropout: float = 0.0
+    decoder_dropout: float = 0.0
+    encoder_attention_dropout: float = 0.0
+    decoder_attention_dropout: float = 0.0
     encoder_qkv_bias: bool = True
     decoder_qkv_bias: bool = True
     encoder_proj_bias: bool = True
     decoder_proj_bias: bool = True
+    encoder_stochastic_depth_prob: float = 0.1
+    decoder_stochastic_depth_prob: float = 0.1
     # The style encoder runs norm-free, the decoder self block with
     # LayerNorm (reference: codes/style_transformer.py:807, :946).
     encoder_use_norm: bool = False
@@ -91,6 +104,8 @@ class StyleTransformerConfig(_ConfigBase):
             window_size=self.encoder_window_size,
             shift_size=self.encoder_shift_size,
             qkv_bias=self.encoder_qkv_bias, proj_bias=self.encoder_proj_bias,
+            dropout=self.encoder_dropout,
+            attention_dropout=self.encoder_attention_dropout,
             use_pallas=self.use_pallas)
 
     def decoder_attn(self) -> AttentionConfig:
@@ -99,6 +114,8 @@ class StyleTransformerConfig(_ConfigBase):
             window_size=self.decoder_window_size,
             shift_size=self.decoder_shift_size,
             qkv_bias=self.decoder_qkv_bias, proj_bias=self.decoder_proj_bias,
+            dropout=self.decoder_dropout,
+            attention_dropout=self.decoder_attention_dropout,
             use_pallas=self.use_pallas)
 
 
@@ -112,14 +129,27 @@ class SwinConfig(_ConfigBase):
     num_heads: Tuple[int, int] = (4, 8)
     window_size: Tuple[int, int] = (7, 7)
     mlp_ratio: float = 4.0
+    # torchvision scales stochastic depth linearly over all blocks of the
+    # full model; the first 4 blocks of swin_B (24 blocks, p_max 0.5) get
+    # p_i = 0.5 i / 23.
+    stochastic_depth_probs: Tuple[float, ...] = (0.0, 0.5 / 23, 1.0 / 23,
+                                                 1.5 / 23)
     use_pallas: bool = False
 
     @staticmethod
     def for_variant(variant: str) -> "SwinConfig":
         if variant == "swin_B":
-            return SwinConfig(variant=variant, embed_dim=128, num_heads=(4, 8))
-        if variant in ("swin_S", "swin_T"):
-            return SwinConfig(variant=variant, embed_dim=96, num_heads=(3, 6))
+            return SwinConfig(variant=variant, embed_dim=128, num_heads=(4, 8),
+                              stochastic_depth_probs=(0.0, 0.5 / 23,
+                                                      1.0 / 23, 1.5 / 23))
+        if variant == "swin_S":
+            return SwinConfig(variant=variant, embed_dim=96, num_heads=(3, 6),
+                              stochastic_depth_probs=(0.0, 0.3 / 23,
+                                                      0.6 / 23, 0.9 / 23))
+        if variant == "swin_T":
+            return SwinConfig(variant=variant, embed_dim=96, num_heads=(3, 6),
+                              stochastic_depth_probs=(0.0, 0.2 / 11,
+                                                      0.4 / 11, 0.6 / 11))
         raise ValueError(
             f"unknown swin variant {variant!r} (swin_T/swin_S/swin_B)")
 
@@ -194,4 +224,68 @@ class ModelConfig(_ConfigBase):
 
     @classmethod
     def from_json(cls, s: str) -> "ModelConfig":
+        return cls.from_dict(json.loads(s))
+
+
+@dataclass(frozen=True)
+class LossConfig(_ConfigBase):
+    """VGG19 perceptual loss (reference: codes/loss.py:77-98). The two
+    ``replicate_*`` flags reproduce the reference's bugs bit for bit: an
+    explicit lambda overwritten by the default (codes/loss.py:189-190), and
+    a similarity loss of the content features against themselves
+    (codes/loss.py:333-334). ``use_vgg19_with_batchnorm`` only says which
+    torchvision weights a conversion folds into the same conv plan; the
+    loss reads it nowhere, as in the JAX package."""
+    use_vgg19_with_batchnorm: bool = False
+    default_lambda_value: float = 10.0
+    distance_content: str = "euclidian"      # or "euclidian_squared"
+    distance_style: str = "euclidian"
+    replicate_lambda_override_bug: bool = False
+    replicate_similarity_bug: bool = False
+
+
+@dataclass(frozen=True)
+class DataConfig(_ConfigBase):
+    """The fields of the data pipeline's config that the training step reads
+    (reference: train_only_inner_loop.py:494-575, get_dataloader.py)."""
+    crop_to: int = 256
+    use_imagenet_normalization_for_swin: bool = True
+    use_imagenet_normalization_for_loss: bool = True
+
+
+@dataclass(frozen=True)
+class TrainConfig(_ConfigBase):
+    """The fields of the training loop's config that the plain step, the
+    optimizer and the schedule read (reference: train.py:589-806,
+    train_only_inner_loop.py:321-341, :619-879)."""
+    mode: str = "plain"                 # "plain" | "meta" | "fast_adaptation"
+    inner_lr: float = 1e-4
+    max_layers: int = 4                 # random k in [1, max_layers]
+    lambda_style: float = 10.0
+    freeze_encoder: bool = True
+    use_lr_schedule: bool = True
+    warmup_iterations: int = 0
+    lr_decay_rate: float = 0.02
+    lr_decay_every: int = 3000
+    lr_decay_until: float = 0.0
+
+
+@dataclass(frozen=True)
+class ExperimentConfig(_ConfigBase):
+    model: ModelConfig = field(default_factory=ModelConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    exp_name: str = "master"
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ExperimentConfig":
+        return cls(model=ModelConfig.from_dict(d.get("model", {})),
+                   loss=LossConfig.from_dict(d.get("loss", {})),
+                   data=DataConfig.from_dict(d.get("data", {})),
+                   train=TrainConfig.from_dict(d.get("train", {})),
+                   exp_name=d.get("exp_name", "master"))
+
+    @classmethod
+    def from_json(cls, s: str) -> "ExperimentConfig":
         return cls.from_dict(json.loads(s))

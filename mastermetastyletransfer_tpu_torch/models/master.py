@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -89,37 +89,49 @@ def _stage_ctx(cfg: ModelConfig, stage: str):
 
 
 def master_apply(params: dict, content: torch.Tensor, style: torch.Tensor,
-                 cfg: ModelConfig, *, k: int = 1) -> torch.Tensor:
+                 cfg: ModelConfig, *, k: int = 1, deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Stylize ``content`` with ``style`` (NHWC RGB, normalized the way the
-    Swin encoder expects) in evaluation mode; returns float32 RGB.
+    Swin encoder expects); returns float32 RGB. Evaluation by default;
+    training passes ``deterministic=False`` and the generator its
+    stochastic-depth (and dropout) masks are drawn from, the Swin's first,
+    then the style transformer's.
 
     Content and style share one Swin pass when their shapes agree (the
     reference calls it twice, codes/full_model.py:219-220; every op is
     independent per image, so the concatenation is exact)."""
     dtype = DTYPES[cfg.stage_dtype("swin")]
     content, style = content.to(dtype), style.to(dtype)
+    rand = dict(deterministic=deterministic, generator=generator)
     with _stage_ctx(cfg, "swin"):
         if content.shape == style.shape:
             b = content.shape[0]
             both = swin_backbone_apply(params["swin"],
-                                       torch.cat([content, style]), cfg.swin)
+                                       torch.cat([content, style]), cfg.swin,
+                                       **rand)
             fc, fs = both[:b], both[b:]
         else:
-            fc = swin_backbone_apply(params["swin"], content, cfg.swin)
-            fs = swin_backbone_apply(params["swin"], style, cfg.swin)
-    return stylize_from_features(params, fc, fs, cfg, k=k)
+            fc = swin_backbone_apply(params["swin"], content, cfg.swin, **rand)
+            fs = swin_backbone_apply(params["swin"], style, cfg.swin, **rand)
+    return stylize_from_features(params, fc, fs, cfg, k=k, **rand)
 
 
 def stylize_from_features(params: dict, fc: torch.Tensor, fs: torch.Tensor,
-                          cfg: ModelConfig, *, k: int = 1) -> torch.Tensor:
+                          cfg: ModelConfig, *, k: int = 1,
+                          deterministic: bool = True,
+                          generator: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
     """Style transformer + CNN decoder on encoder features."""
     td = DTYPES[cfg.stage_dtype("transformer")]
     with _stage_ctx(cfg, "transformer"):
         fcs = style_transformer_apply(params["style_transformer"], fc.to(td),
-                                      fs.to(td), cfg.transformer, k=k)
+                                      fs.to(td), cfg.transformer, k=k,
+                                      deterministic=deterministic,
+                                      generator=generator)
     dd = DTYPES[cfg.stage_dtype("decoder")]
     with _stage_ctx(cfg, "decoder"):
-        out = cnn_decoder_apply(params["decoder"], fcs.to(dd), cfg.decoder)
+        out = cnn_decoder_apply(params["decoder"], fcs.to(dd), cfg.decoder,
+                                deterministic=deterministic)
     return out.float()
 
 

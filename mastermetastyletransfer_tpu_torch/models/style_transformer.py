@@ -4,15 +4,24 @@ counterpart: models/style_transformer.py; reference:
 codes/style_transformer.py:303-398 StyleSwinTransformerBlock, :777-912
 StyleEncoder, :918-1128 StyleDecoder, :1133-1245 StyleTransformer).
 
-Evaluation only, at a static k. With ``use_pallas`` the stage takes the
-JAX package's window-resident path (``style_transformer_apply_windowed``):
-Fc and Fs are partitioned into rolled, padded windows once, all k
-iterations run in the (B, nW, N, C) layout through the hand-written kernels
--- the block kernel K2 for the encoder Key block and the decoder self block
-(ops/window_block.py), K3 for the encoder's Scale/Shift update and K4 for
-the decoder tail (ops/style_block.py) -- and the result is merged once.
-Without it, the generic path runs every attention through its own
-pad/roll/partition round trip in plain PyTorch.
+In evaluation with ``use_pallas`` the stage takes the JAX package's
+window-resident path (``style_transformer_apply_windowed``): Fc and Fs are
+partitioned into rolled, padded windows once, all k iterations run in the
+(B, nW, N, C) layout through the evaluation kernels -- the block kernel K2
+for the encoder Key block and the decoder self block (ops/window_block.py),
+K3 for the encoder's Scale/Shift update and K4 for the decoder tail
+(ops/style_block.py) -- and the result is merged once.
+
+Otherwise (training, or a configuration the windowed gate refuses) the
+generic path runs every attention through its own pad/roll/partition round
+trip, at the k it is given (a Python loop; the JAX package's masked scan
+over a traced k is a TPU-compiler workaround). With ``use_pallas`` its
+attentions run K8 and K9 (ops/window_attention.py) and its MLP residuals
+K10 (ops/ln_mlp.py), all differentiable; without it, plain PyTorch.
+Training (``deterministic=False``) draws the stochastic-depth and dropout
+masks from ``generator`` in the same order on both routes, as the JAX
+package keeps its rng streams aligned, so the two can be compared at one
+seed.
 """
 
 from __future__ import annotations
@@ -26,13 +35,15 @@ from mastermetastyletransfer_tpu_torch.config import (
 )
 from mastermetastyletransfer_tpu_torch.ops import style_block, window_block
 from mastermetastyletransfer_tpu_torch.ops.attention import (
-    _finalize, _prepare, _shift_mask, _valid_mask, block_kernel_supports,
-    fused_self_attention_block, init_dual_value_window_attention,
-    init_window_attention, shifted_window_attention,
-    shifted_window_attention_dual_value,
+    _finalize, _pallas_dim_ok, _prepare, _shift_mask, _valid_mask,
+    block_kernel_supports, fused_self_attention_block,
+    init_dual_value_window_attention, init_window_attention,
+    shifted_window_attention, shifted_window_attention_dual_value,
+    shifted_window_attention_two_v,
 )
+from mastermetastyletransfer_tpu_torch.ops.ln_mlp import ln_mlp_residual
 from mastermetastyletransfer_tpu_torch.ops.mlp import (
-    init_linear, init_mlp, linear, mlp_apply,
+    init_linear, init_mlp, linear, mlp_apply, sd_lerp, stochastic_depth,
 )
 from mastermetastyletransfer_tpu_torch.ops.norm import (
     instance_norm, layer_norm,
@@ -60,36 +71,50 @@ def init_style_swin_block(g: torch.Generator, attn_cfg: AttentionConfig, *,
     return p
 
 
+def _fuse_mlp_ok(attn_cfg: AttentionConfig, deterministic: bool) -> bool:
+    """K10 serves evaluation and training where the MLP dropout is off;
+    stochastic depth is applied around it (``sd_lerp``)."""
+    return attn_cfg.use_pallas and (deterministic or attn_cfg.dropout == 0.0)
+
+
 def style_swin_block_apply(params: dict, q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, attn_cfg: AttentionConfig, *,
                            use_norm: bool, exclude_mlp: bool,
-                           calculating_key: bool = False) -> torch.Tensor:
+                           sd_prob: float = 0.0,
+                           calculating_key: bool = False,
+                           deterministic: bool = True,
+                           generator: Optional[torch.Generator] = None
+                           ) -> torch.Tensor:
     """Generalized Swin block. The residual comes from q for the Key and
     MLP-bearing blocks, from v for Scale/Shift (reference:
-    codes/style_transformer.py:382-386). A full self-attention block with
-    ``use_pallas`` runs through the block kernel, norm1 included."""
-    if (attn_cfg.use_pallas and not exclude_mlp and q is k and k is v
+    codes/style_transformer.py:382-386). In evaluation a full
+    self-attention block with ``use_pallas`` runs through the block kernel,
+    norm1 included; otherwise the attention takes K8 and the MLP residual
+    K10 under ``use_pallas`` (JAX models/style_transformer.py:86-152)."""
+    if (deterministic and attn_cfg.use_pallas and not exclude_mlp
+            and q is k and k is v
             and block_kernel_supports(attn_cfg.dim, attn_cfg.num_heads,
                                       attn_cfg.window_size)):
         return fused_self_attention_block(params, q, attn_cfg,
                                           use_norm=use_norm)
     x = q if (calculating_key or not exclude_mlp) else v
-    if use_norm:
-        n1 = params["norm1"]
-        a = shifted_window_attention(
-            params["attn"], layer_norm(q, n1["scale"], n1["bias"]),
-            layer_norm(k, n1["scale"], n1["bias"]),
-            layer_norm(v, n1["scale"], n1["bias"]), attn_cfg)
-        x = x + a
-        if not exclude_mlp:
-            n2 = params["norm2"]
-            x = x + mlp_apply(params["mlp"],
-                              layer_norm(x, n2["scale"], n2["bias"]))
-    else:
-        x = x + shifted_window_attention(params["attn"], q, k, v, attn_cfg)
-        if not exclude_mlp:
-            x = x + mlp_apply(params["mlp"], x)
-    return x
+    rand = dict(deterministic=deterministic, generator=generator)
+    n1 = params.get("norm1") if use_norm else None
+    if n1 is not None:
+        def norm(t):
+            return layer_norm(t, n1["scale"], n1["bias"])
+        q, k, v = norm(q), norm(k), norm(v)
+    a = shifted_window_attention(params["attn"], q, k, v, attn_cfg, **rand)
+    x = x + stochastic_depth(a, sd_prob, **rand)
+    if exclude_mlp:
+        return x
+    n2 = params["norm2"] if use_norm else None
+    if _fuse_mlp_ok(attn_cfg, deterministic):
+        return sd_lerp(x, ln_mlp_residual(x, params["mlp"], n2), sd_prob,
+                       **rand)
+    h = layer_norm(x, n2["scale"], n2["bias"]) if n2 is not None else x
+    m = mlp_apply(params["mlp"], h, dropout_p=attn_cfg.dropout, **rand)
+    return x + stochastic_depth(m, sd_prob, **rand)
 
 
 def init_style_transformer(g: torch.Generator,
@@ -131,31 +156,56 @@ def init_style_transformer(g: torch.Generator,
 
 
 def style_encoder_apply(params: dict, Key: torch.Tensor, Scale: torch.Tensor,
-                        Shift: torch.Tensor, cfg: StyleTransformerConfig
+                        Shift: torch.Tensor, cfg: StyleTransformerConfig, *,
+                        deterministic: bool = True,
+                        generator: Optional[torch.Generator] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One shared MHA applied three times (Key self-attention; Scale and
     Shift cross-attention with the Key as Q and K), each followed by its own
-    MLP residual (reference: codes/style_transformer.py:855-912)."""
+    MLP and stochastic-depth residual (reference:
+    codes/style_transformer.py:855-912). With ``use_pallas`` the Scale and
+    Shift attentions share one softmax through K9 and the MLP residuals run
+    K10, where no dropout is on (JAX models/style_transformer.py:176-252)."""
     acfg = cfg.encoder_attn()
+    sd = cfg.encoder_stochastic_depth_prob
+    rand = dict(deterministic=deterministic, generator=generator)
 
     def block(q, k, v, calc_key):
         return style_swin_block_apply(
             params["shared_mha"], q, k, v, acfg,
-            use_norm=cfg.encoder_use_norm, exclude_mlp=True,
-            calculating_key=calc_key)
+            use_norm=cfg.encoder_use_norm, exclude_mlp=True, sd_prob=sd,
+            calculating_key=calc_key, **rand)
 
     def mlp_res(x, mlp_params):
-        return x + mlp_apply(mlp_params, x)
+        if _fuse_mlp_ok(acfg, deterministic):
+            return sd_lerp(x, ln_mlp_residual(x, mlp_params), sd, **rand)
+        m = mlp_apply(mlp_params, x, dropout_p=cfg.encoder_dropout, **rand)
+        return x + stochastic_depth(m, sd, **rand)
+
+    def scale_shift(Key, Scale, Shift):
+        # One softmax for both streams (the reference computes it twice),
+        # where the kernels have no dropout to skip; the masks are drawn in
+        # the order of the two block() calls.
+        if (_fuse_mlp_ok(acfg, deterministic) and _pallas_dim_ok(acfg.dim)
+                and (deterministic or acfg.attention_dropout == 0.0)):
+            qk, v1, v2 = Key, Scale, Shift
+            if cfg.encoder_use_norm:
+                n1 = params["shared_mha"]["norm1"]
+                qk, v1, v2 = (layer_norm(t, n1["scale"], n1["bias"])
+                              for t in (Key, Scale, Shift))
+            a1, a2 = shifted_window_attention_two_v(
+                params["shared_mha"]["attn"], qk, qk, v1, v2, acfg)
+            return (Scale + stochastic_depth(a1, sd, **rand),
+                    Shift + stochastic_depth(a2, sd, **rand))
+        return block(Key, Key, Scale, False), block(Key, Key, Shift, False)
 
     if cfg.encoder_if_use_processed_Key_in_Scale_and_Shift_calculation:
         Key = mlp_res(block(Key, Key, Key, True), params["mlp_key"])
-        Scale, Shift = (block(Key, Key, Scale, False),
-                        block(Key, Key, Shift, False))
+        Scale, Shift = scale_shift(Key, Scale, Shift)
         Scale = mlp_res(Scale, params["mlp_scale"])
         Shift = mlp_res(Shift, params["mlp_shift"])
     else:
-        Scale, Shift = (block(Key, Key, Scale, False),
-                        block(Key, Key, Shift, False))
+        Scale, Shift = scale_shift(Key, Scale, Shift)
         Scale = mlp_res(Scale, params["mlp_scale"])
         Shift = mlp_res(Shift, params["mlp_shift"])
         Key = mlp_res(block(Key, Key, Key, True), params["mlp_key"])
@@ -164,15 +214,20 @@ def style_encoder_apply(params: dict, Key: torch.Tensor, Scale: torch.Tensor,
 
 def style_decoder_apply(params: dict, Fcs: torch.Tensor, Key: torch.Tensor,
                         Scale: torch.Tensor, Shift: torch.Tensor,
-                        cfg: StyleTransformerConfig) -> torch.Tensor:
+                        cfg: StyleTransformerConfig, *,
+                        deterministic: bool = True,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
     """Fcs self-attention -> IN(Q)/IN(K) -> dual-value MHA -> Fcs' =
     Query * sigma + mu -> last MLP residual (reference:
     codes/style_transformer.py:1045-1128)."""
     acfg = cfg.decoder_attn()
+    sd = cfg.decoder_stochastic_depth_prob
+    rand = dict(deterministic=deterministic, generator=generator)
     Query = style_swin_block_apply(
         params["self_mha"], Fcs, Fcs, Fcs, acfg, use_norm=cfg.decoder_use_norm,
-        exclude_mlp=cfg.decoder_exclude_MLP_after_Fcs_self_MHA,
-        calculating_key=True)
+        exclude_mlp=cfg.decoder_exclude_MLP_after_Fcs_self_MHA, sd_prob=sd,
+        calculating_key=True, **rand)
     affine = cfg.decoder_use_instance_norm_with_affine
 
     def _in(x, which):
@@ -191,7 +246,7 @@ def style_decoder_apply(params: dict, Fcs: torch.Tensor, Key: torch.Tensor,
             Scale, Shift, acfg, use_q_proj=False,
             key_instance_norm_after_linear=(
                 cfg.decoder_use_Key_instance_norm_after_linear_transformation),
-            instance_norm_params=in_params)
+            instance_norm_params=in_params, **rand)
     else:
         # plain (non-windowed) MHA over flattened tokens (reference:
         # codes/style_transformer.py:1063-1119)
@@ -210,35 +265,34 @@ def style_decoder_apply(params: dict, Fcs: torch.Tensor, Key: torch.Tensor,
         sigma = linear(params["proj_sigma"], attn @ S).reshape(b, h, w, c)
         mu = linear(params["proj_mu"], attn @ Sh).reshape(b, h, w, c)
     Query = Query * sigma + mu
-    return Query + mlp_apply(params["last_mlp"], Query)
+    if _fuse_mlp_ok(acfg, deterministic):
+        return sd_lerp(Query, ln_mlp_residual(Query, params["last_mlp"]), sd,
+                       **rand)
+    m = mlp_apply(params["last_mlp"], Query, dropout_p=cfg.decoder_dropout,
+                  **rand)
+    return Query + stochastic_depth(m, sd, **rand)
 
 
 # ---------------------------------------------------------------------------
 # The window-resident evaluation path
 # ---------------------------------------------------------------------------
 
-def _st_windowed_ok(cfg: StyleTransformerConfig) -> bool:
-    """The window-resident path needs the kernels on, the JAX package's
-    128-aligned width, one window geometry for encoder and decoder (so one
-    partition serves every attention) and the windowed decoder tail. The
-    port runs evaluation only, with no dropout, so the JAX gate's mode and
-    dropout conditions always hold here."""
-    return (cfg.use_pallas and cfg.encoder_dim % 128 == 0
+def _st_windowed_ok(cfg: StyleTransformerConfig,
+                    deterministic: bool = True) -> bool:
+    """The window-resident path (evaluation kernels) needs evaluation, the
+    kernels on, the JAX package's 128-aligned width, no dropout, one window
+    geometry for encoder and decoder (so one partition serves every
+    attention) and the windowed decoder tail (JAX
+    models/style_transformer.py:371-385)."""
+    return (deterministic and cfg.use_pallas
+            and _pallas_dim_ok(cfg.encoder_dim)
+            and cfg.encoder_dropout == 0.0 and cfg.decoder_dropout == 0.0
+            and cfg.encoder_attention_dropout == 0.0
+            and cfg.decoder_attention_dropout == 0.0
             and cfg.encoder_dim == cfg.decoder_dim
             and cfg.encoder_window_size == cfg.decoder_window_size
             and cfg.encoder_shift_size == cfg.decoder_shift_size
             and not cfg.decoder_use_regular_MHA_instead_of_Swin_at_the_end)
-
-
-def _generic_only(cfg: StyleTransformerConfig) -> None:
-    """The generic path with kernels on runs the training slice's kernels in
-    the JAX package; the port has none of them yet."""
-    if cfg.use_pallas:
-        raise NotImplementedError(
-            "this style-transformer configuration takes the generic path, "
-            "whose kernels (K8 fused_window_attention, K9 "
-            "fused_window_attention_dual, K10 fused_ln_mlp_residual) are not "
-            "ported yet; run it with StyleTransformerConfig.use_pallas=False")
 
 
 def _masked_instance_norm(x4: torch.Tensor, vm: torch.Tensor, count: float,
@@ -314,10 +368,9 @@ def _windowed_machinery(params: dict, cfg: StyleTransformerConfig,
     alone)."""
     if fuse_iteration is False:
         raise NotImplementedError(
-            "fuse_iteration=False is the JAX package's float32 split route "
-            "through K9 (fused_window_attention_dual) and K10 "
-            "(fused_ln_mlp_residual), which are not ported yet; the port "
-            "fuses the iteration (K3, K4) at both dtypes")
+            "fuse_iteration=False (the JAX package's float32 split route "
+            "through K9 and K10) is not wired into the windowed path yet; "
+            "the port fuses the iteration (K3, K4) at both dtypes")
     window = cfg.encoder_attn().window_size
     wh, ww = window
     heads_e, heads_d = cfg.encoder_num_heads, cfg.decoder_num_heads
@@ -385,9 +438,9 @@ def _windowed_machinery(params: dict, cfg: StyleTransformerConfig,
     def decoder(Fcs, Key, Scale, Shift):
         if self_w is None:
             raise NotImplementedError(
-                "decoder_exclude_MLP_after_Fcs_self_MHA runs the decoder's "
-                "self attention through K8 (fused_window_attention), which "
-                "is not ported yet")
+                "decoder_exclude_MLP_after_Fcs_self_MHA (the decoder's self "
+                "attention through K8) is not wired into the windowed path "
+                "yet")
         Query = window_block.window_block_windows(Fcs, self_w,
                                                   **kernel_args(heads_d))
         # The entry INs see the un-padded image: masked statistics
@@ -494,18 +547,22 @@ def style_apply_windowed_from_stream(params: dict, Fc: torch.Tensor, stream,
 
 
 def style_transformer_apply(params: dict, Fc: torch.Tensor, Fs: torch.Tensor,
-                            cfg: StyleTransformerConfig, *,
-                            k: int = 1) -> torch.Tensor:
+                            cfg: StyleTransformerConfig, *, k: int = 1,
+                            deterministic: bool = True,
+                            generator: Optional[torch.Generator] = None
+                            ) -> torch.Tensor:
     """k stacked iterations of (encoder, decoder) with shared params
-    (reference: codes/style_transformer.py:1229-1245)."""
-    if _st_windowed_ok(cfg):
+    (reference: codes/style_transformer.py:1229-1245). Training passes
+    ``deterministic=False`` and the generator of its random masks."""
+    if _st_windowed_ok(cfg, deterministic):
         return style_transformer_apply_windowed(params, Fc, Fs, cfg, k=int(k))
-    _generic_only(cfg)
+    rand = dict(deterministic=deterministic, generator=generator)
     Scale = Shift = Fs
     for _ in range(int(k)):
         Fs, Scale, Shift = style_encoder_apply(params["encoder"], Fs, Scale,
-                                               Shift, cfg)
-        Fc = style_decoder_apply(params["decoder"], Fc, Fs, Scale, Shift, cfg)
+                                               Shift, cfg, **rand)
+        Fc = style_decoder_apply(params["decoder"], Fc, Fs, Scale, Shift, cfg,
+                                 **rand)
     return Fc
 
 
@@ -517,7 +574,6 @@ def style_transformer_stream(params: dict, Fs: torch.Tensor,
     is windowed exactly when the windowed path is taken)."""
     if _st_windowed_ok(cfg):
         return style_stream_windowed(params, Fs, cfg, k=int(k))
-    _generic_only(cfg)
     Key = Scale = Shift = Fs
     stream = []
     for _ in range(int(k)):
@@ -534,7 +590,6 @@ def style_transformer_apply_from_stream(params: dict, Fc: torch.Tensor,
     serves any content batch (style-locked serving)."""
     if _st_windowed_ok(cfg):
         return style_apply_windowed_from_stream(params, Fc, stream, cfg)
-    _generic_only(cfg)
     if len(stream) and stream[0][0].shape[1:3] != Fc.shape[1:3]:
         raise ValueError(
             f"style stream feature size {tuple(stream[0][0].shape[1:3])} "

@@ -6,13 +6,19 @@ NHWC: patch embedding (4x4 stride-4 conv + LayerNorm, as a space-to-depth
 GEMM) -> stage 1 (dim E, shift 0 then window//2) -> patch merging (-> 2E)
 -> stage 2 (dim 2E). Output (B, H/8, W/8, 2E).
 
-With ``cfg.use_pallas`` every block runs through the block kernel and each
-stage stays padded: pad to the window multiple once, run both blocks on the
-padded grid (the kernel's validity mask keeps the pad tokens inert), crop
-once at the end of the stage.
+In evaluation with ``cfg.use_pallas`` every block runs through the block
+kernel and each stage stays padded: pad to the window multiple once, run
+both blocks on the padded grid (the kernel's validity mask keeps the pad
+tokens inert), crop once at the end of the stage. In training
+(``deterministic=False``) every block is the generic block with stochastic
+depth at ``cfg.stochastic_depth_probs`` (active on the frozen encoder too,
+as the reference runs the whole model in train mode), its attention
+through K8 and its MLP residual through K10 under ``use_pallas``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -72,7 +78,9 @@ def patch_merging(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def swin_backbone_apply(params: dict, images: torch.Tensor,
-                        cfg: SwinConfig) -> torch.Tensor:
+                        cfg: SwinConfig, *, deterministic: bool = True,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
     """NHWC images (B, H, W, 3) -> features (B, H/8, W/8, 2E)."""
     b, h, w, cin = images.shape
     pe = params["patch_embed"]["conv"]
@@ -87,10 +95,11 @@ def swin_backbone_apply(params: dict, images: torch.Tensor,
 
     # A stage stays padded only where every block runs through the kernel:
     # the composed path has no validity mask for the pad tokens.
-    resident = cfg.use_pallas and all(
+    resident = deterministic and cfg.use_pallas and all(
         block_kernel_supports(cfg.embed_dim * 2 ** s, cfg.num_heads[s],
                               cfg.window_size) for s in range(2))
     wh, ww = cfg.window_size
+    sd_idx = 0
     for stage in range(2):
         if stage == 1:
             x = patch_merging(params["patch_merge"], x)
@@ -104,9 +113,12 @@ def swin_backbone_apply(params: dict, images: torch.Tensor,
                 x = fused_self_attention_block(bp, x, bcfg, use_norm=True,
                                                valid_hw=(vh, vw))
             else:
-                x = style_swin_block_apply(bp, x, x, x, bcfg, use_norm=True,
-                                           exclude_mlp=False,
-                                           calculating_key=True)
+                x = style_swin_block_apply(
+                    bp, x, x, x, bcfg, use_norm=True, exclude_mlp=False,
+                    sd_prob=cfg.stochastic_depth_probs[sd_idx],
+                    calculating_key=True, deterministic=deterministic,
+                    generator=generator)
+            sd_idx += 1
         if resident:
             x = x[:, :vh, :vw]
     return x

@@ -2,8 +2,11 @@
 codes/style_transformer.py:37-169 for W-MSA/SW-MSA with separate Q/K/V,
 :414-611 for the dual-value attention).
 
-The composed ops below are plain PyTorch. ``fused_self_attention_block``
-runs a whole self-attention block through the hand-written block kernel
+The composed ops below are plain PyTorch. With ``use_pallas`` (and the
+JAX package's gate, ``_pallas_ok``) the attentions run through the
+differentiable kernels K8 and K9 (ops/window_attention.py), in evaluation
+and in training; ``fused_self_attention_block`` runs a whole
+self-attention block through the evaluation-only block kernel
 (ops/window_block.py).
 
 Parity rule: inputs are zero-padded BEFORE the projections, so pad tokens
@@ -21,7 +24,10 @@ import torch
 from mastermetastyletransfer_tpu_torch.config import AttentionConfig
 from mastermetastyletransfer_tpu_torch.ops import window_block
 from mastermetastyletransfer_tpu_torch.ops.mlp import (
-    init_linear, linear, trunc_normal,
+    dropout, init_linear, linear, trunc_normal,
+)
+from mastermetastyletransfer_tpu_torch.ops.window_attention import (
+    window_attention, window_attention_dual,
 )
 from mastermetastyletransfer_tpu_torch.ops.norm import instance_norm
 from mastermetastyletransfer_tpu_torch.ops.windows import (
@@ -80,20 +86,30 @@ def _finalize(x_win: torch.Tensor, geom: dict,
     return x[:, :geom["h"], :geom["w"], :]
 
 
+# The cached constants are built outside inference mode: a tensor first
+# built under a served call's inference_mode could not take part in a later
+# training step's autograd.
+
 @functools.lru_cache(maxsize=64)
 def _shift_mask(pad_h, pad_w, wh, ww, sh, sw, device) -> torch.Tensor:
-    return torch.from_numpy(
-        shift_attention_mask(pad_h, pad_w, wh, ww, sh, sw)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            shift_attention_mask(pad_h, pad_w, wh, ww, sh, sw)).to(device)
 
 
 @functools.lru_cache(maxsize=64)
 def _valid_mask(vh, vw, pad_h, pad_w, wh, ww, sh, sw, device):
     m = valid_token_mask(vh, vw, pad_h, pad_w, wh, ww, sh, sw)
-    return None if m.min() >= 1.0 else torch.from_numpy(m).to(device)
+    if m.min() >= 1.0:
+        return None
+    with torch.inference_mode(False):
+        return torch.from_numpy(m).to(device)
 
 
-def _attention_weights(q_win, k_win, params, cfg: AttentionConfig, geom):
-    """softmax(q k^T / sqrt(d) + rel_bias + shift_mask) in float32."""
+def _attention_weights(q_win, k_win, params, cfg: AttentionConfig, geom,
+                       deterministic: bool = True, generator=None):
+    """softmax(q k^T / sqrt(d) + rel_bias + shift_mask) in float32, then the
+    attention dropout (training only)."""
     wh, ww = cfg.window_size
     n = wh * ww
     heads, d_head = cfg.num_heads, cfg.dim // cfg.num_heads
@@ -110,7 +126,9 @@ def _attention_weights(q_win, k_win, params, cfg: AttentionConfig, geom):
         nw = mask.shape[0]
         attn = attn.reshape(geom["b"], nw, heads, n, n) + mask[None, :, None]
         attn = attn.reshape(bn, heads, n, n)
-    return torch.softmax(attn, dim=-1)
+    attn = torch.softmax(attn, dim=-1)
+    return dropout(attn, cfg.attention_dropout, deterministic=deterministic,
+                   generator=generator)
 
 
 def _apply_values(attn, v_win, proj_params, cfg: AttentionConfig):
@@ -124,19 +142,73 @@ def _apply_values(attn, v_win, proj_params, cfg: AttentionConfig):
     return linear(proj_params, x)
 
 
+def _pallas_dim_ok(dim: int) -> bool:
+    """The JAX package's gate for its attention kernels (128-aligned
+    widths: swin_B's 128 and 256 and the style transformer's 256), kept so
+    that the same calls take the kernels as there."""
+    return dim % 128 == 0
+
+
+def _pallas_ok(cfg: AttentionConfig, deterministic: bool) -> bool:
+    """K8 and K9 have backward kernels, so they serve training too where
+    no dropout is on (the kernels have none), as in the JAX package
+    (ops/attention.py:160-167 there)."""
+    return cfg.use_pallas and _pallas_dim_ok(cfg.dim) and (
+        deterministic or (cfg.dropout == 0.0
+                          and cfg.attention_dropout == 0.0))
+
+
+def _kernel_geometry(params: dict, cfg: AttentionConfig, geom: dict,
+                     device: torch.device):
+    """The kernels' expanded bias (heads, N, N) (a differentiable gather
+    from the table) and the shift mask (nW, N, N) or None."""
+    wh, ww = cfg.window_size
+    bias = relative_position_bias(params["rel_bias_table"], wh,
+                                  ww).float().contiguous()
+    mask = (_shift_mask(geom["pad_h"], geom["pad_w"], wh, ww, geom["sh"],
+                        geom["sw"], device)
+            if geom["sh"] or geom["sw"] else None)
+    return bias, mask
+
+
+def _win4(x_win: torch.Tensor, b: int) -> torch.Tensor:
+    """(B*nW, N, C) -> the kernels' (B, nW, N, C), contiguous."""
+    bn, n, c = x_win.shape
+    return x_win.reshape(b, bn // b, n, c).contiguous()
+
+
+def _finalize4(out4: torch.Tensor, geom: dict,
+               window: Tuple[int, int]) -> torch.Tensor:
+    return _finalize(out4.reshape(-1, out4.shape[2], out4.shape[3]), geom,
+                     window)
+
+
 def shifted_window_attention(params: dict, q_in: torch.Tensor,
                              k_in: torch.Tensor, v_in: torch.Tensor,
-                             cfg: AttentionConfig) -> torch.Tensor:
+                             cfg: AttentionConfig, *,
+                             deterministic: bool = True,
+                             generator: Optional[torch.Generator] = None
+                             ) -> torch.Tensor:
     """W-MSA / SW-MSA with separate Q/K/V inputs and weights; NHWC in and
     out: pad -> roll -> partition -> project -> attention -> proj -> merge ->
-    un-roll -> un-pad."""
+    un-roll -> un-pad. Under ``_pallas_ok`` the projections and the
+    attention run in K8."""
     (qw, kw, vw), geom = _prepare([q_in, k_in, v_in], cfg.window_size,
                                   cfg.shift_size)
+    if _pallas_ok(cfg, deterministic):
+        bias, mask = _kernel_geometry(params, cfg, geom, q_in.device)
+        b = geom["b"]
+        out4 = window_attention(params, _win4(qw, b), _win4(kw, b),
+                                _win4(vw, b), bias, mask, cfg.num_heads)
+        return _finalize4(out4, geom, cfg.window_size)
     q = linear(params["wq"], qw)
     k = linear(params["wk"], kw)
     v = linear(params["wv"], vw)
-    attn = _attention_weights(q, k, params, cfg, geom)
+    attn = _attention_weights(q, k, params, cfg, geom, deterministic,
+                              generator)
     x = _apply_values(attn, v, params["proj"], cfg)
+    x = dropout(x, cfg.dropout, deterministic=deterministic,
+                generator=generator)
     return _finalize(x, geom, cfg.window_size)
 
 
@@ -147,12 +219,23 @@ def shifted_window_attention_two_v(params: dict, q_in: torch.Tensor,
     """One attention map, two value inputs through the same Wv and proj
     (the style encoder's Scale and Shift blocks, reference:
     codes/style_transformer.py:867-882, which computes the softmax twice).
-    Plain PyTorch; the JAX package runs it through its dual-value kernel
-    K9, whose port is queued with the training slice."""
+    With ``use_pallas`` (the callers gate it as the JAX package does: no
+    dropout) q and k are projected outside and the rest runs in K9 with wv
+    passed as both value projections."""
     (qw, kw, v1w, v2w), geom = _prepare(
         [q_in, k_in, v1_in, v2_in], cfg.window_size, cfg.shift_size)
     q = linear(params["wq"], qw)
     k = linear(params["wk"], kw)
+    if cfg.use_pallas and _pallas_dim_ok(cfg.dim):
+        bias, mask = _kernel_geometry(params, cfg, geom, q_in.device)
+        b = geom["b"]
+        shared = {"wv_scale": params["wv"], "wv_shift": params["wv"],
+                  "proj": params["proj"]}
+        o1, o2 = window_attention_dual(shared, _win4(q, b), _win4(k, b),
+                                       _win4(v1w, b), _win4(v2w, b), bias,
+                                       mask, cfg.num_heads)
+        return (_finalize4(o1, geom, cfg.window_size),
+                _finalize4(o2, geom, cfg.window_size))
     attn = _attention_weights(q, k, params, cfg, geom)
     outs = []
     for vw in (v1w, v2w):
@@ -166,12 +249,15 @@ def shifted_window_attention_dual_value(
         v_scale_in: torch.Tensor, v_shift_in: torch.Tensor,
         cfg: AttentionConfig, *, use_q_proj: bool = False,
         key_instance_norm_after_linear: bool = True,
-        instance_norm_params: Optional[dict] = None
+        instance_norm_params: Optional[dict] = None,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One softmax(QK^T), two value streams through a shared output
     projection -> (sigma, mu). Q is instance-normed on entry; K before its
     linear or after it, then with statistics over the whole padded, rolled
-    grid (reference: codes/style_transformer.py:468-530)."""
+    grid (reference: codes/style_transformer.py:468-530). Under
+    ``_pallas_ok`` the value projections and the attention run in K9."""
     inp = instance_norm_params or {}
 
     def _in(x, which):
@@ -191,11 +277,24 @@ def shifted_window_attention_dual_value(
         bn, n, c = k.shape
         k = _in(k.reshape(geom["b"], (bn // geom["b"]) * n, c),
                 "k").reshape(bn, n, c)
-    attn = _attention_weights(q, k, params, cfg, geom)
+    if _pallas_ok(cfg, deterministic):
+        bias, mask = _kernel_geometry(params, cfg, geom, q_in.device)
+        b = geom["b"]
+        s4, m4 = window_attention_dual(params, _win4(q, b), _win4(k, b),
+                                       _win4(vsw, b), _win4(vshw, b), bias,
+                                       mask, cfg.num_heads)
+        return (_finalize4(s4, geom, cfg.window_size),
+                _finalize4(m4, geom, cfg.window_size))
+    attn = _attention_weights(q, k, params, cfg, geom, deterministic,
+                              generator)
     sigma = _apply_values(attn, linear(params["wv_scale"], vsw),
                           params["proj"], cfg)
+    sigma = dropout(sigma, cfg.dropout, deterministic=deterministic,
+                    generator=generator)
     mu = _apply_values(attn, linear(params["wv_shift"], vshw),
                        params["proj"], cfg)
+    mu = dropout(mu, cfg.dropout, deterministic=deterministic,
+                 generator=generator)
     return (_finalize(sigma, geom, cfg.window_size),
             _finalize(mu, geom, cfg.window_size))
 

@@ -81,7 +81,9 @@ def _derived(t: torch.Tensor, key, build: Callable[[], torch.Tensor]
              ) -> torch.Tensor:
     """build(), a function of the weight tensor t alone, kept for as long as
     t lives and is not changed in place. Built afresh, never kept, while t
-    takes part in autograd."""
+    takes part in autograd. A kept tensor is built outside inference mode,
+    so that a training step (a frozen decoder's weights among its inputs)
+    can use what a served call kept."""
     if t.requires_grad and torch.is_grad_enabled():
         return build()
     version = 0 if t.is_inference() else t._version
@@ -89,7 +91,8 @@ def _derived(t: torch.Tensor, key, build: Callable[[], torch.Tensor]
         per_t = _DERIVED.setdefault(t, {})
         hit = per_t.get(key)
         if hit is None or hit[0] != version:
-            hit = per_t[key] = (version, build())
+            with torch.inference_mode(False):
+                hit = per_t[key] = (version, build())
         return hit[1]
 
 
@@ -186,7 +189,8 @@ def _phase_space_table() -> pc.GroupTable:
 
 @functools.lru_cache(maxsize=None)
 def _edge_index(n: int, device: torch.device) -> torch.Tensor:
-    return torch.arange(-1, n + 1, device=device).clamp(0, n - 1)
+    with torch.inference_mode(False):   # cached: usable under autograd too
+        return torch.arange(-1, n + 1, device=device).clamp(0, n - 1)
 
 
 def _edge_pad(x: torch.Tensor) -> torch.Tensor:

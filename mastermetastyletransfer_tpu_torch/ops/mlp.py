@@ -2,11 +2,18 @@
 
 The MLP is torchvision.ops.MLP(dim, [hidden, dim], GELU): Linear -> exact-
 erf GELU -> Linear (reference: codes/style_transformer.py:366, :839-841,
-:991). Kernels are (in, out). The port serves evaluation only, where
-dropout and stochastic depth are the identity, so neither appears here.
+:991). Kernels are (in, out).
+
+Training draws its random masks from an explicit ``torch.Generator`` (the
+JAX package's rng keys), on the generator's device, one draw per call that
+is not the identity: at evaluation (``deterministic``) and at a rate of 0
+nothing is drawn, so two routes that make the same calls in the same order
+see the same masks.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,9 +26,58 @@ def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+def _uniform_like(x: torch.Tensor, shape, g: torch.Generator
+                  ) -> torch.Tensor:
+    return torch.rand(shape, generator=g, device=g.device).to(x.device)
+
+
+def dropout(x: torch.Tensor, p: float, *, deterministic: bool = True,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Elementwise dropout: keep with probability 1 - p, scaled by
+    1 / (1 - p)."""
+    if deterministic or p == 0.0:
+        return x
+    keep = _uniform_like(x, x.shape, generator) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+
+
+def mlp_apply(params: dict, x: torch.Tensor, *, dropout_p: float = 0.0,
+              deterministic: bool = True,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """fc1 -> GELU -> dropout -> fc2 -> dropout (JAX ops/mlp.py:66-79)."""
     h = F.gelu(linear(params["fc1"], x), approximate="none")
-    return linear(params["fc2"], h)
+    h = dropout(h, dropout_p, deterministic=deterministic,
+                generator=generator)
+    y = linear(params["fc2"], h)
+    return dropout(y, dropout_p, deterministic=deterministic,
+                   generator=generator)
+
+
+def stochastic_depth(x: torch.Tensor, p: float, *,
+                     deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """torchvision StochasticDepth(p, "row"): one Bernoulli keep per sample
+    with probability 1 - p, scaled by 1 / (1 - p); the identity at
+    evaluation (JAX ops/mlp.py:81-91; reference:
+    codes/style_transformer.py:361, :819)."""
+    if deterministic or p == 0.0:
+        return x
+    keep_prob = 1.0 - p
+    keep = _uniform_like(x, (x.shape[0],), generator) < keep_prob
+    keep = keep.reshape((-1,) + (1,) * (x.ndim - 1))
+    return torch.where(keep, x / keep_prob, 0.0).to(x.dtype)
+
+
+def sd_lerp(x: torch.Tensor, y: torch.Tensor, p: float, *,
+            deterministic: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Stochastic depth over a fused residual y = x + m: x + SD(y - x)
+    (JAX models/style_transformer.py:78-84)."""
+    if deterministic or p == 0.0:
+        return y
+    return x + stochastic_depth(y - x, p, deterministic=False,
+                                generator=generator)
 
 
 def uniform(g: torch.Generator, shape, bound: float) -> torch.Tensor:

@@ -24,6 +24,11 @@ tensor; any other device raises. The plain versions are the yardstick the
 kernels are held to: f32 sums of products of T-typed operands, the f32
 bias, ReLU, and one rounding to T, as the kernels and the JAX kernels do.
 
+K5, K6's plain entry and K7 are ``torch.autograd.Function``s whose
+backward passes are plain PyTorch ports of the JAX package's (plain XLA
+there too); K6's pad-columns entry is for evaluation and refuses autograd
+on the card (ops/window_block.py:refuse_grad).
+
 ``LAUNCHES`` counts kernel launches per entry; a wrapper adds one only where
 it launches its kernel.
 """
@@ -38,7 +43,7 @@ import torch
 
 from mastermetastyletransfer_tpu_torch.ops import _build
 from mastermetastyletransfer_tpu_torch.ops.window_block import (
-    _need, _on_cuda,
+    _need, _on_cuda, refuse_grad,
 )
 
 LAUNCHES = {"stencil_phase_conv": 0, "stencil_phase2_conv": 0,
@@ -114,16 +119,18 @@ def stencil_phase2_conv_plain(pp: torch.Tensor, pk: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _border_index(maps: Tuple[Tuple[int, int], ...], nph: int, c: int,
                   row_axis: bool, device: torch.device) -> torch.Tensor:
-    """pad_border's gather index over the stacked sources, on device."""
+    """pad_border's gather index over the stacked sources, on device (built
+    outside inference mode: cached, it may serve autograd too)."""
     srcs = sorted({s for s, _ in maps})
     n2c = nph * nph * c
-    lane = torch.arange(n2c)
-    r, q, ch = lane // (nph * c), (lane // c) % nph, lane % c
-    slot, other = (r, q) if row_axis else (q, r)
-    which = torch.tensor([srcs.index(s) for s, _ in maps])[slot]
-    phase = torch.tensor([p for _, p in maps])[slot]
-    group = phase * nph + other if row_axis else other * nph + phase
-    return (which * n2c + group * c + ch).to(device)
+    with torch.inference_mode(False):
+        lane = torch.arange(n2c)
+        r, q, ch = lane // (nph * c), (lane // c) % nph, lane % c
+        slot, other = (r, q) if row_axis else (q, r)
+        which = torch.tensor([srcs.index(s) for s, _ in maps])[slot]
+        phase = torch.tensor([p for _, p in maps])[slot]
+        group = phase * nph + other if row_axis else other * nph + phase
+        return (which * n2c + group * c + ch).to(device)
 
 
 def pad_border(get: Callable[[int], torch.Tensor], maps: PadMaps, nph: int,
@@ -286,17 +293,103 @@ def _stencil_launch(entry: str, pp: torch.Tensor, pk: torch.Tensor,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Backward passes (plain: the JAX package's are plain XLA inside its
+# custom_vjps, not Pallas kernels)
+# ---------------------------------------------------------------------------
+
+def stencil_conv_bwd_plain(g: torch.Tensor, pp: torch.Tensor,
+                           pk: torch.Tensor, bias: torch.Tensor,
+                           y: torch.Tensor, table: GroupTable, relu: bool):
+    """The stencil conv's backward without recomputing the forward (JAX
+    ops/pallas_conv.py:_stencil_bwd and _stencil2_bwd): the ReLU mask from
+    the saved output y, the cotangent scattered back through the align (each
+    group's read offset) onto the (H+1, W+1) grid of the conv, then the
+    transposes of the VALID conv for pp and pk, in pp's type, and the bias
+    grad as an f32 sum. Returns (d pp, d pk, d bias)."""
+    if relu:
+        g = g * (y > 0).to(g.dtype)
+    b, hp, wp, _ = pp.shape
+    h, w = hp - 2, wp - 2
+    n = pk.shape[-1]
+    c_out = n // len(table.offsets)
+    d_big = g.new_zeros((b, h + 1, w + 1, n))
+    for i, (oy, ox) in enumerate(table.offsets):
+        cols = slice(i * c_out, (i + 1) * c_out)
+        d_big[:, oy:oy + h, ox:ox + w, cols] = g[..., cols]
+    d_nchw = d_big.to(pp.dtype).permute(0, 3, 1, 2)
+    w_oihw = pk.to(pp.dtype).permute(3, 2, 0, 1)
+    pp_nchw = pp.permute(0, 3, 1, 2)
+    d_pp = torch.nn.grad.conv2d_input(pp_nchw.shape, w_oihw, d_nchw)
+    d_pk = torch.nn.grad.conv2d_weight(pp_nchw, w_oihw.shape, d_nchw)
+    d_bias = d_big.float().sum((0, 1, 2))
+    return (d_pp.permute(0, 2, 3, 1), d_pk.permute(2, 3, 1, 0).to(pk.dtype),
+            d_bias.to(bias.dtype))
+
+
+def phase_align_bwd_plain(g: torch.Tensor, c_out: int) -> torch.Tensor:
+    """K7's backward (JAX ops/pallas_conv.py:_phase_align_bwd): the align is
+    a selection whose groups are disjoint, so each group's cotangent is
+    padded back to its offset on the (H+1, W+1) grid."""
+    parts = []
+    for a in range(2):
+        for b in range(2):
+            gi = 2 * a + b
+            parts.append(torch.nn.functional.pad(
+                g[..., gi * c_out:(gi + 1) * c_out],
+                (0, 0, b, 1 - b, a, 1 - a)))
+    return torch.cat(parts, -1)
+
+
+class _StencilConv(torch.autograd.Function):
+    """K5 or K6's plain entry with the plain backward: the kernel forward
+    for a CUDA tensor, the plain version for a CPU one. Saves pp, pk, the
+    bias and the output, as the JAX package's custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, pp, pk, bias, table, relu, entry):
+        if _on_cuda(pp):
+            groups = 4 if entry == "stencil_phase_conv" else 16
+            if len(table.offsets) != groups:
+                raise ValueError(f"{entry} takes {groups} output groups")
+            y = _stencil_launch(entry, pp, pk, bias, table, relu)
+        else:
+            y = _stencil_plain(pp, pk, bias, table.offsets, relu)
+        ctx.save_for_backward(pp, pk, bias, y)
+        ctx.table, ctx.relu = table, relu
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        pp, pk, bias, y = ctx.saved_tensors
+        return (*stencil_conv_bwd_plain(g, pp, pk, bias, y, ctx.table,
+                                        ctx.relu), None, None, None)
+
+
+class _PhaseAlign(torch.autograd.Function):
+    """K7 with its plain backward."""
+
+    @staticmethod
+    def forward(ctx, big, c_out):
+        ctx.c_out = c_out
+        if _on_cuda(big):
+            return _align_launch(big, c_out)
+        return phase_align_plain(big, c_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return phase_align_bwd_plain(g, ctx.c_out), None
+
+
 def stencil_phase_conv(pp: torch.Tensor, pk: torch.Tensor,
                        bias4: torch.Tensor, table: GroupTable,
                        relu: bool = True) -> torch.Tensor:
     """K5: pp (B, H+2, W+2, Cin) edge-padded (phase or coarse) tensor, pk
     (2, 2, Cin, 4 C') composed kernel in pp's type, bias4 (4 C',) float32,
-    ``table`` its 4 groups -> the aligned phase tensor (B, H, W, 4 C')."""
-    if not _on_cuda(pp):
-        return stencil_phase_conv_plain(pp, pk, bias4, table, relu)
-    if len(table.offsets) != 4:
-        raise ValueError("K5 takes 4 output groups")
-    return _stencil_launch("stencil_phase_conv", pp, pk, bias4, table, relu)
+    ``table`` its 4 groups -> the aligned phase tensor (B, H, W, 4 C').
+    Differentiable (a plain backward)."""
+    return _StencilConv.apply(pp, pk, bias4, table, relu,
+                              "stencil_phase_conv")
 
 
 def stencil_phase2_conv(pp: torch.Tensor, pk: torch.Tensor,
@@ -304,13 +397,9 @@ def stencil_phase2_conv(pp: torch.Tensor, pk: torch.Tensor,
                         relu: bool = True) -> torch.Tensor:
     """K6: pp (B, H+2, W+2, Cin) phase-padded (ops/conv.py:_phase2_pad),
     pk (2, 2, Cin, 16 C'), ``table`` its 16 groups -> the aligned L2 phase
-    tensor (B, H, W, 16 C')."""
-    if not _on_cuda(pp):
-        return stencil_phase2_conv_plain(pp, pk, bias16, table, relu)
-    if len(table.offsets) != 16:
-        raise ValueError("K6 takes 16 output groups")
-    return _stencil_launch("stencil_phase2_conv", pp, pk, bias16, table,
-                           relu)
+    tensor (B, H, W, 16 C'). Differentiable (a plain backward)."""
+    return _StencilConv.apply(pp, pk, bias16, table, relu,
+                              "stencil_phase2_conv")
 
 
 def stencil_phase2_conv_padcols(pp: torch.Tensor, pk: torch.Tensor,
@@ -318,10 +407,12 @@ def stencil_phase2_conv_padcols(pp: torch.Tensor, pk: torch.Tensor,
                                 colmaps: Tuple[PadMaps, PadMaps],
                                 relu: bool = True) -> torch.Tensor:
     """K6 with the next conv's pad columns: (B, H, W+2, 16 C'); the caller
-    adds the pad rows (ops/conv.py:_phase2_pad_rows)."""
+    adds the pad rows (ops/conv.py:_phase2_pad_rows). Evaluation only (the
+    JAX entry has no backward): under autograd the CUDA branch raises."""
     if not _on_cuda(pp):
         return stencil_phase2_conv_padcols_plain(pp, pk, bias16, table,
                                                  colmaps, relu)
+    refuse_grad("stencil_phase2_conv_padcols", pp, pk, bias16)
     if len(table.offsets) != 16:
         raise ValueError("K6 takes 16 output groups")
     w = pp.shape[2] - 2
@@ -332,10 +423,7 @@ def stencil_phase2_conv_padcols(pp: torch.Tensor, pk: torch.Tensor,
                            table, relu, colmaps)
 
 
-def phase_align(big: torch.Tensor, c_out: int) -> torch.Tensor:
-    """K7: (B, H+1, W+1, 4 C') -> (B, H, W, 4 C'), exact."""
-    if not _on_cuda(big):
-        return phase_align_plain(big, c_out)
+def _align_launch(big: torch.Tensor, c_out: int) -> torch.Tensor:
     if big.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"big is {big.dtype}; the kernel takes float32 or "
                         "bfloat16")
@@ -354,3 +442,9 @@ def phase_align(big: torch.Tensor, c_out: int) -> torch.Tensor:
         big=big.data_ptr(), out=out.data_ptr(), tsize=big.element_size(),
         B=b, H=hp - 1, W=wp - 1, Cout=c_out), big.device)
     return out
+
+
+def phase_align(big: torch.Tensor, c_out: int) -> torch.Tensor:
+    """K7: (B, H+1, W+1, 4 C') -> (B, H, W, 4 C'), exact; differentiable
+    (a plain backward)."""
+    return _PhaseAlign.apply(big, c_out)

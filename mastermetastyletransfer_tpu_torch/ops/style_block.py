@@ -20,7 +20,8 @@ and computes GELU with the exact erf (the JAX kernels use the Abramowitz-
 Stegun erf, |err| <= 1.5e-7).
 
 ``LAUNCHES`` counts kernel launches per entry; a wrapper adds one only where
-it launches its kernel.
+it launches its kernel. Both kernels are for evaluation: under autograd
+their CUDA branches raise (ops/window_block.py:refuse_grad).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import torch.nn.functional as F
 
 from mastermetastyletransfer_tpu_torch.ops import _build
 from mastermetastyletransfer_tpu_torch.ops.window_block import (
-    MAX_SMEM_BYTES, _ln, _mat, _need, _on_cuda, _vec, attend,
+    MAX_SMEM_BYTES, _ln, _mat, _need, _on_cuda, _vec, attend, refuse_grad,
 )
 from mastermetastyletransfer_tpu_torch.ops.windows import (
     relative_position_bias,
@@ -249,6 +250,7 @@ def _launch(entry: str, struct: type, windows: dict, w: NamedTuple, *,
     """Check what the kernel takes and launch it. ``windows`` maps the
     struct's window-tensor fields, inputs and outputs, all (B, nW, N, C), to
     tensors; the first is the reference for shape, type and device."""
+    refuse_grad(entry, *windows.values(), *w, mask, padmask)
     x = next(iter(windows.values()))
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"inputs are {x.dtype}; the kernel takes float32 or "

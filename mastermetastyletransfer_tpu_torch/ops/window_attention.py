@@ -1,0 +1,468 @@
+"""Window attention with its projections, forward and backward (JAX
+counterparts: the Pallas kernels K8 ``fused_window_attention`` and K9
+``fused_window_attention_dual`` in ops/pallas_attention.py, and their
+backward kernels ``_bwd`` and ``_bwd_dual`` in ops/pallas_attention_vjp.py),
+over window tensors (B, nW, N, C):
+
+* ``window_attention`` (K8): q, k, v are the raw window inputs; the kernel
+  projects them (wq, wk, wv), attends per head with the relative-position
+  bias and the shift mask, and projects the heads' output (wp);
+* ``window_attention_dual`` (K9): q and k arrive projected; one softmax per
+  head feeds two value streams, each through its own value projection, and
+  both through the shared wp -> (sigma, mu). The style encoder's Scale and
+  Shift blocks pass the same wv twice (autograd sums its two gradients).
+
+Both are ``torch.autograd.Function``s. For a CUDA tensor the forward and
+the backward each launch their kernel (csrc/window_attention.cu, one body
+per direction for one or two value streams); for a CPU tensor they run the
+plain versions below, the forward and the explicit backward; any other
+device raises. The expanded bias (heads, N, N) is a differentiable input
+(its gather from the table stays outside, so autograd does the scatter);
+the shift mask (nW, N, N) is a constant.
+
+Rounding points, as the JAX kernels: products in f32 of T-typed operands;
+q * scale, k and v rounded to T after their f32 projection, the softmax
+numerators before the value product, each head's output. Backward (the
+docstring of pallas_attention_vjp.py): g rounded to T; dO = round(G Wp^T);
+P = softmax(S); dS = P (dP - rowsum(dP P)); dq = s dS_T k, dk = s dS_T^T q,
+dv = P_T^T dO; dX = round(d{q,k,v}) W^T; dW = X^T round(d{q,k,v});
+db = sum d{q,k,v}; dWp = O_T^T G (O from the normalized P); d bias = sum
+of dS over every window of every image.
+
+``LAUNCHES`` counts kernel launches per entry; a wrapper adds one only where
+it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from mastermetastyletransfer_tpu_torch.ops import _build
+from mastermetastyletransfer_tpu_torch.ops.ln_mlp import weight_splits
+from mastermetastyletransfer_tpu_torch.ops.window_block import (
+    MAX_SMEM_BYTES, _need, _on_cuda, attend,
+)
+
+LAUNCHES = {"window_attention": 0, "window_attention_bwd": 0,
+            "window_attention_dual": 0, "window_attention_dual_bwd": 0}
+
+
+class Proj(NamedTuple):
+    """One linear layer as stored: kernel (C, C) float32, bias or None."""
+    w: torch.Tensor
+    b: Optional[torch.Tensor]
+
+
+def _tf(w: torch.Tensor, t: torch.dtype) -> torch.Tensor:
+    return w.to(t).float()
+
+
+def _bias(b: Optional[torch.Tensor], c: int, like: torch.Tensor
+          ) -> torch.Tensor:
+    return torch.zeros(c, device=like.device) if b is None else b.float()
+
+
+def _proj(x: torch.Tensor, p: Proj) -> torch.Tensor:
+    """f32 projection of T-typed x through the T-rounded kernel."""
+    return x.float() @ _tf(p.w, x.dtype) + _bias(p.b, x.shape[-1], x)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _heads(z: torch.Tensor, heads: int) -> torch.Tensor:
+    b, nw, n, c = z.shape
+    return z.reshape(b, nw, n, heads, c // heads).transpose(2, 3).float()
+
+
+def _merge(z: torch.Tensor) -> torch.Tensor:
+    b, nw, h, n, dh = z.shape
+    return z.transpose(2, 3).reshape(b, nw, n, h * dh)
+
+
+def window_attention_plain(q, k, v, wq: Proj, wk: Proj, wv: Proj, wp: Proj,
+                           bias: torch.Tensor,
+                           mask: Optional[torch.Tensor], heads: int
+                           ) -> torch.Tensor:
+    """K8's function: raw window inputs (B, nW, N, C) in T -> (B, nW, N, C)
+    in T."""
+    t, c = q.dtype, q.shape[-1]
+    scale = (c // heads) ** -0.5
+    qs = (_proj(q, wq) * scale).to(t)
+    kc, vc = _proj(k, wk).to(t), _proj(v, wv).to(t)
+    (o,) = attend(qs, kc, (vc,), bias, heads=heads, mask=mask)
+    return _proj(o, wp).to(t)
+
+
+def window_attention_dual_plain(q, k, v_scale, v_shift, wvs: Proj,
+                                wvh: Proj, wp: Proj, bias: torch.Tensor,
+                                mask: Optional[torch.Tensor], heads: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9's function: q, k projected, the two value streams raw -> (sigma,
+    mu), both (B, nW, N, C) in T."""
+    t, c = v_scale.dtype, v_scale.shape[-1]
+    scale = (c // heads) ** -0.5
+    qs = (q.float() * scale).to(t)
+    vs, vh = _proj(v_scale, wvs).to(t), _proj(v_shift, wvh).to(t)
+    os_, oh = attend(qs, k.to(t), (vs, vh), bias, heads=heads, mask=mask)
+    return _proj(os_, wp).to(t), _proj(oh, wp).to(t)
+
+
+def _attn_bwd_core(qs, qc, kc, vcs: Sequence[torch.Tensor],
+                   gs: Sequence[torch.Tensor], wp: Proj, bias, mask,
+                   heads: int, scale: float):
+    """The per-head backward shared by K8 and K9: (dq, dk, [dv per
+    stream]) in f32 (B, nW, N, C), dWp, d bias (heads, N, N)."""
+    t = qs.dtype
+    wpt = _tf(wp.w, t)
+    comb = bias.float()[None, None]
+    if mask is not None:
+        comb = mask[None, :, None] + comb
+    s = _heads(qs, heads) @ _heads(kc, heads).transpose(-1, -2) + comb
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    pc = p.to(t).float()
+    dos = [_heads((g.float() @ wpt.T).to(t), heads) for g in gs]
+    vhs = [_heads(v, heads) for v in vcs]
+    dwp = sum(_merge(pc @ vh).to(t).float().flatten(0, 2).T
+              @ g.float().flatten(0, 2) for vh, g in zip(vhs, gs))
+    dp = sum(do @ vh.transpose(-1, -2) for do, vh in zip(dos, vhs))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dsc = ds.to(t).float()
+    dq = _merge(scale * (dsc @ _heads(kc, heads)))
+    dk = _merge(scale * (dsc.transpose(-1, -2) @ _heads(qc, heads)))
+    dvs = [_merge(pc.transpose(-1, -2) @ do) for do in dos]
+    return dq, dk, dvs, dwp, ds.sum((0, 1))
+
+
+def _through(x: torch.Tensor, d: torch.Tensor, p: Proj):
+    """Back through a projection: (dX in T, dW, db) from the f32 grad of
+    its output."""
+    t = x.dtype
+    dt = d.to(t).float()
+    dx = (dt @ _tf(p.w, t).T).to(t)
+    dw = x.float().flatten(0, 2).T @ dt.flatten(0, 2)
+    return dx, dw, d.sum((0, 1, 2))
+
+
+def window_attention_bwd_plain(g, q, k, v, wq: Proj, wk: Proj, wv: Proj,
+                               wp: Proj, bias, mask, heads: int):
+    """K8's backward from the inputs alone: (dq, dk, dv in T; dWq, dbq,
+    dWk, dbk, dWv, dbv, dWp, dbp, d bias in float32)."""
+    t, c = q.dtype, q.shape[-1]
+    scale = (c // heads) ** -0.5
+    qf = _proj(q, wq)
+    qs, qc = (qf * scale).to(t), qf.to(t)
+    kc, vc = _proj(k, wk).to(t), _proj(v, wv).to(t)
+    gt = g.to(t)
+    dq, dk, (dv,), dwp, dbias = _attn_bwd_core(qs, qc, kc, (vc,), (gt,), wp,
+                                               bias, mask, heads, scale)
+    dxq, dwq, dbq = _through(q, dq, wq)
+    dxk, dwk, dbk = _through(k, dk, wk)
+    dxv, dwv, dbv = _through(v, dv, wv)
+    return (dxq, dxk, dxv, dwq, dbq, dwk, dbk, dwv, dbv, dwp,
+            gt.float().sum((0, 1, 2)), dbias)
+
+
+def window_attention_dual_bwd_plain(g_sigma, g_mu, q, k, v_scale, v_shift,
+                                    wvs: Proj, wvh: Proj, wp: Proj, bias,
+                                    mask, heads: int):
+    """K9's backward: (dq, dk, dv_scale, dv_shift in T; dWvs, dbvs, dWvh,
+    dbvh, dWp, dbp, d bias in float32)."""
+    t, c = v_scale.dtype, v_scale.shape[-1]
+    scale = (c // heads) ** -0.5
+    qs = (q.float() * scale).to(t)
+    vs, vh = _proj(v_scale, wvs).to(t), _proj(v_shift, wvh).to(t)
+    gs, gh = g_sigma.to(t), g_mu.to(t)
+    dq, dk, (dvs, dvh), dwp, dbias = _attn_bwd_core(
+        qs, q.to(t), k.to(t), (vs, vh), (gs, gh), wp, bias, mask, heads,
+        scale)
+    dxs, dwvs, dbvs = _through(v_scale, dvs, wvs)
+    dxh, dwvh, dbvh = _through(v_shift, dvh, wvh)
+    dbp = (gs.float() + gh.float()).sum((0, 1, 2))
+    return (dq.to(t), dk.to(t), dxs, dxh, dwvs, dbvs, dwvh, dbvh, dwp, dbp,
+            dbias)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_PTRS = ("q", "k", "v0", "v1", "out0", "out1", "g0", "g1", "dq", "dk",
+         "dv0", "dv1", "wq", "bq", "wk", "bk", "wv0", "bv0", "wv1", "bv1",
+         "wp", "bp", "wqt", "wkt", "wv0t", "wv1t", "wpt", "rel_bias", "mask",
+         "dq_t", "dk_t", "dv0_t", "dv1_t", "o0_t", "o1_t", "part_vec",
+         "part_bias", "part_w", "dwq", "dwk", "dwv0", "dwv1", "dwp", "dbq",
+         "dbk", "dbv0", "dbv1", "dbp", "dbias")
+_INTS = ("dtype", "B", "nW", "N", "C", "heads", "nv", "wsplit")
+
+
+class AttnArgs(ctypes.Structure):
+    """The C struct ``AttnArgs`` of csrc/window_attention.cu, field for
+    field."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in _PTRS]
+                + [("scale", ctypes.c_double)]
+                + [(f, ctypes.c_longlong) for f in _INTS])
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("window_attention")
+    for entry in LAUNCHES:
+        fn = getattr(lib, f"mmst_{entry}")
+        fn.argtypes = [ctypes.POINTER(AttnArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.mmst_window_attention_smem_bytes.argtypes = [ctypes.c_longlong] * 6
+    lib.mmst_window_attention_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def smem_bytes(n: int, c: int, heads: int, dtype: torch.dtype, nv: int,
+               backward: bool) -> int:
+    return _lib().mmst_window_attention_smem_bytes(
+        n, c, heads, torch.finfo(dtype).bits // 8, nv, int(backward))
+
+
+def _check(xs: Sequence[torch.Tensor], projs: Sequence[Proj], bias, mask,
+           heads: int, backward: bool):
+    """What the kernels take (nv = the value streams among xs after q and
+    k); returns (b, nw, n, c)."""
+    t = xs[0].dtype
+    if t not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"inputs are {t}; the kernels take float32 or "
+                        "bfloat16")
+    if xs[0].dim() != 4:
+        raise ValueError(f"inputs have shape {tuple(xs[0].shape)}, not "
+                         "(B, nW, N, C)")
+    b, nw, n, c = xs[0].shape
+    if c % heads or c % 32:
+        raise ValueError(f"C={c} must divide by heads={heads} and by 32")
+    dev = xs[0].device
+    for i, x in enumerate(xs):
+        _need(f"input {i}", x, (b, nw, n, c), t, dev)
+    for p in projs:
+        if tuple(p.w.shape) != (c, c) or p.w.device != dev or (
+                p.b is not None and (tuple(p.b.shape) != (c,)
+                                     or p.b.device != dev)):
+            raise ValueError(f"a projection of shape {tuple(p.w.shape)} on "
+                             f"{p.w.device} does not fit C={c} on {dev}")
+    _need("bias", bias, (heads, n, n), torch.float32, dev)
+    if mask is not None:
+        _need("mask", mask, (nw, n, n), torch.float32, dev)
+    smem = smem_bytes(n, c, heads, t, len(xs) - 2, backward)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"N={n}, C={c} needs {smem} bytes of shared memory "
+                         "per block")
+    return b, nw, n, c
+
+
+def _operands(projs: dict, t: torch.dtype, x: torch.Tensor,
+              transposed: bool) -> dict:
+    """Matrices in T (and their transposes for the backward), biases in
+    float32 (zeros where the layer has none)."""
+    ops = {}
+    for name, p in projs.items():
+        w = p.w.to(t).contiguous()
+        ops[f"w{name}"] = w
+        ops[f"b{name}"] = _bias(p.b, w.shape[0], x).contiguous()
+        if transposed:
+            ops[f"w{name}t"] = w.T.contiguous()
+    return ops
+
+
+def _call(entry: str, keep: dict, x: torch.Tensor, heads: int, nv: int,
+          wsplit: int = 1) -> None:
+    b, nw, n, c = x.shape
+    args = AttnArgs(
+        **{f: (keep[f].data_ptr() if keep.get(f) is not None else None)
+           for f in _PTRS},
+        scale=(c // heads) ** -0.5, dtype=int(x.dtype == torch.bfloat16),
+        B=b, nW=nw, N=n, C=c, heads=heads, nv=nv, wsplit=wsplit)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = getattr(_lib(), f"mmst_{entry}")(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")
+    LAUNCHES[entry] += 1
+
+
+def _bwd_scratch(x: torch.Tensor, heads: int,
+                 nv: int) -> Tuple[dict, int]:
+    """The backward's outputs and device scratch, and its row chunks for
+    the weight gradients."""
+    b, nw, n, c = x.shape
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    rows = b * nw * n
+    wsplit = weight_splits(rows, (c // 32) ** 2)
+    return dict(
+        part_vec=torch.empty((b * nw, (4 if nv == 1 else 3) * c), **f32),
+        part_bias=torch.empty((b * nw, heads * n * n), **f32),
+        part_w=torch.empty((wsplit, c * c), **f32),
+        dbias=torch.empty((heads, n, n), **f32), dbp=torch.empty(c, **f32),
+        dwp=torch.empty((c, c), **f32),
+        **{f"o{s}_t": torch.empty_like(x) for s in range(nv)},
+        **{f"dv{s}_t": torch.empty_like(x) for s in range(nv)},
+        **{f"dwv{s}": torch.empty((c, c), **f32) for s in range(nv)},
+        **{f"dbv{s}": torch.empty(c, **f32) for s in range(nv)},
+        **{f"dv{s}": torch.empty_like(x) for s in range(nv)},
+        dq=torch.empty_like(x), dk=torch.empty_like(x)), wsplit
+
+
+def window_attention_fwd_kernel(q, k, v, wq, wk, wv, wp, bias, mask, heads):
+    _check((q, k, v), (wq, wk, wv, wp), bias, mask, heads, False)
+    keep = dict(_operands({"q": wq, "k": wk, "v0": wv, "p": wp}, q.dtype, q,
+                          False),
+                q=q, k=k, v0=v, out0=torch.empty_like(q), rel_bias=bias,
+                mask=mask)
+    _call("window_attention", keep, q, heads, 1)
+    return keep["out0"]
+
+
+def window_attention_bwd_kernel(g, q, k, v, wq, wk, wv, wp, bias, mask,
+                                heads):
+    _check((q, k, v), (wq, wk, wv, wp), bias, mask, heads, True)
+    scratch, wsplit = _bwd_scratch(q, heads, 1)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    c = q.shape[-1]
+    keep = dict(_operands({"q": wq, "k": wk, "v0": wv, "p": wp}, q.dtype, q,
+                          True),
+                **scratch, q=q, k=k, v0=v,
+                g0=g.to(q.dtype).contiguous(), rel_bias=bias, mask=mask,
+                dq_t=torch.empty_like(q), dk_t=torch.empty_like(q),
+                dwq=torch.empty((c, c), **f32), dwk=torch.empty((c, c), **f32),
+                dbq=torch.empty(c, **f32), dbk=torch.empty(c, **f32))
+    _call("window_attention_bwd", keep, q, heads, 1, wsplit)
+    return tuple(keep[f] for f in (
+        "dq", "dk", "dv0", "dwq", "dbq", "dwk", "dbk", "dwv0", "dbv0", "dwp",
+        "dbp", "dbias"))
+
+
+def window_attention_dual_fwd_kernel(q, k, v_scale, v_shift, wvs, wvh, wp,
+                                     bias, mask, heads):
+    _check((q, k, v_scale, v_shift), (wvs, wvh, wp), bias, mask, heads,
+           False)
+    keep = dict(_operands({"v0": wvs, "v1": wvh, "p": wp}, q.dtype, q,
+                          False),
+                q=q, k=k, v0=v_scale, v1=v_shift, out0=torch.empty_like(q),
+                out1=torch.empty_like(q), rel_bias=bias, mask=mask)
+    _call("window_attention_dual", keep, q, heads, 2)
+    return keep["out0"], keep["out1"]
+
+
+def window_attention_dual_bwd_kernel(g_sigma, g_mu, q, k, v_scale, v_shift,
+                                     wvs, wvh, wp, bias, mask, heads):
+    _check((q, k, v_scale, v_shift), (wvs, wvh, wp), bias, mask, heads,
+           True)
+    scratch, wsplit = _bwd_scratch(q, heads, 2)
+    t = q.dtype
+    keep = dict(_operands({"v0": wvs, "v1": wvh, "p": wp}, t, q, True),
+                **scratch, q=q, k=k, v0=v_scale, v1=v_shift,
+                g0=g_sigma.to(t).contiguous(), g1=g_mu.to(t).contiguous(),
+                rel_bias=bias, mask=mask)
+    _call("window_attention_dual_bwd", keep, q, heads, 2, wsplit)
+    return tuple(keep[f] for f in (
+        "dq", "dk", "dv0", "dv1", "dwv0", "dbv0", "dwv1", "dbv1", "dwp",
+        "dbp", "dbias"))
+
+
+def _grad_of(p_b: Optional[torch.Tensor], d: torch.Tensor):
+    return None if p_b is None else d.to(p_b.dtype)
+
+
+class _WindowAttention(torch.autograd.Function):
+    """K8 with its backward: the kernels for CUDA tensors, the plain
+    versions for CPU tensors; the inputs are the only residuals."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, wq, bq, wk, bk, wv, bv, wp, bp, bias, mask,
+                heads):
+        ctx.heads = heads
+        ctx.save_for_backward(q, k, v, wq, bq, wk, bk, wv, bv, wp, bp, bias,
+                              mask)
+        projs = (Proj(wq, bq), Proj(wk, bk), Proj(wv, bv), Proj(wp, bp))
+        if _on_cuda(q):
+            return window_attention_fwd_kernel(q, k, v, *projs, bias, mask,
+                                               heads)
+        return window_attention_plain(q, k, v, *projs, bias, mask, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, wq, bq, wk, bk, wv, bv, wp, bp, bias, mask = \
+            ctx.saved_tensors
+        projs = (Proj(wq, bq), Proj(wk, bk), Proj(wv, bv), Proj(wp, bp))
+        bwd = (window_attention_bwd_kernel if _on_cuda(q)
+               else window_attention_bwd_plain)
+        (dq, dk, dv, dwq, dbq, dwk, dbk, dwv, dbv, dwp, dbp,
+         dbias) = bwd(g.contiguous(), q, k, v, *projs, bias, mask,
+                      ctx.heads)
+        return (dq, dk, dv, dwq.to(wq.dtype), _grad_of(bq, dbq),
+                dwk.to(wk.dtype), _grad_of(bk, dbk), dwv.to(wv.dtype),
+                _grad_of(bv, dbv), dwp.to(wp.dtype), _grad_of(bp, dbp),
+                dbias.to(bias.dtype), None, None)
+
+
+class _WindowAttentionDual(torch.autograd.Function):
+    """K9 with its backward, as ``_WindowAttention``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v_scale, v_shift, wvs, bvs, wvh, bvh, wp, bp,
+                bias, mask, heads):
+        ctx.heads = heads
+        ctx.save_for_backward(q, k, v_scale, v_shift, wvs, bvs, wvh, bvh,
+                              wp, bp, bias, mask)
+        projs = (Proj(wvs, bvs), Proj(wvh, bvh), Proj(wp, bp))
+        if _on_cuda(q):
+            return window_attention_dual_fwd_kernel(
+                q, k, v_scale, v_shift, *projs, bias, mask, heads)
+        return window_attention_dual_plain(q, k, v_scale, v_shift, *projs,
+                                           bias, mask, heads)
+
+    @staticmethod
+    def backward(ctx, g_sigma, g_mu):
+        (q, k, v_scale, v_shift, wvs, bvs, wvh, bvh, wp, bp, bias,
+         mask) = ctx.saved_tensors
+        projs = (Proj(wvs, bvs), Proj(wvh, bvh), Proj(wp, bp))
+        if g_sigma is None:
+            g_sigma = torch.zeros_like(q)
+        if g_mu is None:
+            g_mu = torch.zeros_like(q)
+        bwd = (window_attention_dual_bwd_kernel if _on_cuda(q)
+               else window_attention_dual_bwd_plain)
+        (dq, dk, dvs, dvh, dwvs, dbvs, dwvh, dbvh, dwp, dbp,
+         dbias) = bwd(g_sigma.contiguous(), g_mu.contiguous(), q, k,
+                      v_scale, v_shift, *projs, bias, mask, ctx.heads)
+        return (dq, dk, dvs, dvh, dwvs.to(wvs.dtype), _grad_of(bvs, dbvs),
+                dwvh.to(wvh.dtype), _grad_of(bvh, dbvh), dwp.to(wp.dtype),
+                _grad_of(bp, dbp), dbias.to(bias.dtype), None, None)
+
+
+def _p(params: dict) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    return params["kernel"], params.get("bias")
+
+
+def window_attention(params: dict, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, bias: torch.Tensor,
+                     mask: Optional[torch.Tensor], heads: int
+                     ) -> torch.Tensor:
+    """K8 on raw window inputs (B, nW, N, C), params {"wq", "wk", "wv",
+    "proj"} in the JAX layout; bias (heads, N, N) float32, mask (nW, N, N)
+    float32 or None."""
+    return _WindowAttention.apply(q, k, v, *_p(params["wq"]),
+                                  *_p(params["wk"]), *_p(params["wv"]),
+                                  *_p(params["proj"]), bias, mask, heads)
+
+
+def window_attention_dual(params: dict, q: torch.Tensor, k: torch.Tensor,
+                          v_scale: torch.Tensor, v_shift: torch.Tensor,
+                          bias: torch.Tensor, mask: Optional[torch.Tensor],
+                          heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9 on projected q, k and the raw value streams, params {"wv_scale",
+    "wv_shift", "proj"}."""
+    return _WindowAttentionDual.apply(
+        q, k, v_scale, v_shift, *_p(params["wv_scale"]),
+        *_p(params["wv_shift"]), *_p(params["proj"]), bias, mask, heads)

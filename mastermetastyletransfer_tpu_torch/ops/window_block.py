@@ -17,6 +17,10 @@ kernel uses the Abramowitz-Stegun erf, |err| <= 1.5e-7).
 
 ``LAUNCHES`` counts kernel launches per entry; a wrapper adds one only
 where it launches its kernel.
+
+The block kernel has no backward (neither has the JAX kernel): where
+autograd would record the call, its CUDA branch raises instead of cutting
+the output from the graph (``refuse_grad``).
 """
 
 from __future__ import annotations
@@ -222,6 +226,7 @@ def _launch(entry: str, x: torch.Tensor, w: BlockWeights, *, heads: int,
             n: int, nw: int, geometry: dict,
             mask: Optional[torch.Tensor],
             padmask: Optional[torch.Tensor]) -> torch.Tensor:
+    refuse_grad(entry, x, mask, padmask, *w)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x is {x.dtype}; the kernel takes float32 or "
                         "bfloat16")
@@ -269,6 +274,19 @@ def _launch(entry: str, x: torch.Tensor, w: BlockWeights, *, heads: int,
         raise RuntimeError(f"{entry}: CUDA error {err} at launch")
     LAUNCHES[entry] += 1
     return out
+
+
+def refuse_grad(entry: str, *tensors: Optional[torch.Tensor]) -> None:
+    """An evaluation kernel, which has no backward, refuses to launch where
+    autograd would record it: grad enabled and an input that requires grad.
+    Its output, written through ctypes, would carry no graph, and every
+    gradient through it would silently be lost."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{entry} is an evaluation kernel with no backward; run it under "
+            "torch.no_grad() or inference_mode(), or on inputs that do not "
+            "require grad (training takes the kernels with a backward)")
 
 
 def _on_cuda(x: torch.Tensor) -> bool:

@@ -8,7 +8,9 @@ tensors as leaves: the same keys, the same shapes and the same layouts
   ``save_params_npz`` (utils/checkpoint.py:70-101 there): one array per
   leaf, keyed by its path joined with "/", list items by their index;
 * ``params_from_jax`` takes a nested params dict with numpy leaves (a JAX
-  param tree after ``jax.device_get``) and converts it leaf by leaf.
+  param tree after ``jax.device_get``) and converts it leaf by leaf; the
+  model's tree and the VGG19 loss's (``init_vgg19_features``, {"conv0":
+  {"kernel", "bias"}, ...}) alike.
 """
 
 from __future__ import annotations

@@ -1,5 +1,7 @@
 """The port's CUDA kernels (ops/window_block.py, ops/style_block.py,
-ops/phase_conv.py) against their plain PyTorch versions on the card.
+ops/phase_conv.py, ops/window_attention.py, ops/ln_mlp.py) against their
+plain PyTorch versions on the card, the training kernels' backward passes
+against torch.autograd of the plain forward.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor tests/conftest.py's fixtures, so that it also runs on a
@@ -372,3 +374,228 @@ def test_phase_wrappers_reject_what_the_kernels_do_not_take(cuda):
     big = torch.zeros((2, 5, 5, 96), device=cuda)
     with pytest.raises(ValueError):       # C' = 24
         pc.phase_align(big, 24)
+
+
+# ---------------------------------------------------------------------------
+# The training kernels K8, K9 (ops/window_attention.py) and K10
+# (ops/ln_mlp.py), forward and backward; the backward passes of K5 and K7;
+# the evaluation kernels' refusal under autograd. The kernel path (the
+# autograd Function on CUDA tensors) against torch.autograd of the plain
+# forward on the same inputs. Gradients: at float32 1e-4 of the largest
+# |grad| of the tensor; at bfloat16 two units in the last place plus 2^-6
+# of that largest |grad|. A bias of the projections is scaled by the
+# largest |grad| of all of them (the key bias's own gradient is zero up to
+# rounding).
+# ---------------------------------------------------------------------------
+
+AB, ANW = 2, 4
+
+
+def _grad_check(got, ref, scale, dtype):
+    """A gradient of a ``dtype`` computation against its reference."""
+    torch.cuda.synchronize()
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    if dtype == torch.float32:
+        tol = TOL_F32 * scale
+    else:
+        ulp = torch.exp2((torch.frexp(ref)[1] - 8).float())
+        tol = TOL_BF16_ULPS * torch.where(ref == 0, 0.0, ulp) \
+            + TOL_BF16_UPDATE * scale
+    assert (err <= tol).all(), (err.max().item(), (err / tol).max().item())
+
+
+def _compare_grads(names, got, ref, dtype):
+    vec = [r.abs().max().item() for n, r in zip(names, ref)
+           if n.startswith("b")]
+    for n, g, r in zip(names, got, ref):
+        scale = (max(vec) if n.startswith("b")
+                 else r.float().abs().max().item())
+        _grad_check(g, r, scale, dtype)
+
+
+def _attn_case(cuda, dtype, nv, shared=False):
+    from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
+
+    g = torch.Generator().manual_seed(5 + nv)
+
+    def proj():
+        return [(torch.randn((C, C), generator=g) * C ** -0.5).to(cuda),
+                (torch.randn(C, generator=g) * 0.1).to(cuda)]
+
+    xs = [torch.randn((AB, ANW, 49, C), generator=g).to(cuda, dtype)
+          for _ in range(2 + nv)]
+    ws = [t for _ in range(4 if nv == 1 else 3) for t in proj()]
+    if shared:
+        ws[2:4] = ws[0:2]
+    bias = (torch.randn((HEADS, 49, 49), generator=g) * 0.1).to(cuda)
+    mask = torch.from_numpy(
+        twin.shift_attention_mask(14, 14, 7, 7, 3, 3)).to(cuda)
+    gs = [torch.randn((AB, ANW, 49, C), generator=g).to(cuda, dtype)
+          for _ in range(nv)]
+    return xs, ws, bias, mask, gs
+
+
+def _leaves(tensors):
+    return [t.detach().clone().requires_grad_() for t in tensors]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_fwd_bwd_match_plain(cuda, dtype):
+    """K8 forward and backward."""
+    from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
+
+    xs, ws, bias, mask, (g,) = _attn_case(cuda, dtype, 1)
+    names = ["q", "k", "v", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp",
+             "rel_bias"]
+    kern = _leaves(xs + ws + [bias])
+    before = dict(wa.LAUNCHES)
+    out = wa._WindowAttention.apply(*kern, mask, HEADS)
+    got = torch.autograd.grad(out, kern, g)
+    assert wa.LAUNCHES["window_attention"] == \
+        before["window_attention"] + 1
+    assert wa.LAUNCHES["window_attention_bwd"] == \
+        before["window_attention_bwd"] + 1
+    plain = _leaves(xs + ws + [bias])
+    ref_out = wa.window_attention_plain(
+        *plain[:3], *(wa.Proj(plain[i], plain[i + 1]) for i in (3, 5, 7, 9)),
+        plain[11], mask, HEADS)
+    ref = torch.autograd.grad(ref_out, plain, g)
+    _check(out, ref_out, torch.zeros_like(ref_out))
+    _compare_grads(names, got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_dual_fwd_bwd_match_plain(cuda, dtype, shared):
+    """K9 forward and backward, with its two value projections or one
+    shared (the style encoder's form, whose gradient autograd sums)."""
+    from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
+
+    xs, ws, bias, mask, gs = _attn_case(cuda, dtype, 2, shared)
+    names = ["q", "k", "vs", "vh", "wvs", "bvs", "wvh", "bvh", "wp", "bp",
+             "rel_bias"]
+    kern = _leaves(xs + ws + [bias])
+    if shared:
+        kern[6:8] = kern[4:6]
+    before = dict(wa.LAUNCHES)
+    outs = wa._WindowAttentionDual.apply(*kern, mask, HEADS)
+    got = torch.autograd.grad(outs, kern, gs)
+    assert wa.LAUNCHES["window_attention_dual_bwd"] == \
+        before["window_attention_dual_bwd"] + 1
+    plain = _leaves(xs + ws + [bias])
+    if shared:
+        plain[6:8] = plain[4:6]
+    ref_outs = wa.window_attention_dual_plain(
+        *plain[:4], *(wa.Proj(plain[i], plain[i + 1]) for i in (4, 6, 8)),
+        plain[10], mask, HEADS)
+    ref = torch.autograd.grad(ref_outs, plain, gs)
+    for o, r in zip(outs, ref_outs):
+        _check(o, r, torch.zeros_like(r))
+    _compare_grads(names, got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_norm", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_mlp_residual_fwd_bwd_match_plain(cuda, dtype, use_norm):
+    """K10 forward and backward, with and without its LayerNorm, over a
+    row count that is no multiple of the kernels' row tiles."""
+    from mastermetastyletransfer_tpu_torch.ops import ln_mlp as lm
+
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn((3, 37, 256), generator=g).to(cuda, dtype)
+    gy = torch.randn((3, 37, 256), generator=g).to(cuda, dtype)
+    ws = [(torch.randn((256, 1024), generator=g) / 16).to(cuda),
+          (torch.randn(1024, generator=g) * 0.1).to(cuda),
+          (torch.randn((1024, 256), generator=g) / 32).to(cuda),
+          (torch.randn(256, generator=g) * 0.1).to(cuda)]
+    if use_norm:
+        ws += [(1 + 0.1 * torch.randn(256, generator=g)).to(cuda),
+               (0.1 * torch.randn(256, generator=g)).to(cuda)]
+    kern = _leaves([x] + ws)
+    pad = [None] * (2 if not use_norm else 0)
+    before = dict(lm.LAUNCHES)
+    out = lm._LnMlpResidual.apply(*kern, *pad)
+    got = torch.autograd.grad(out, kern, gy)
+    assert lm.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    plain = _leaves([x] + ws)
+    ref_out = lm.ln_mlp_residual_plain(*plain, *pad)
+    ref = torch.autograd.grad(ref_out, plain, gy)
+    _check(out, ref_out, x)
+    for a, r in zip(got, ref):
+        _grad_check(a, r, r.float().abs().max().item(), dtype)
+
+
+@pytest.mark.cuda
+def test_training_kernel_gradients_are_deterministic(cuda):
+    """The weight, bias and relative-bias gradients are sums over every
+    window, reduced in a fixed order: two runs give the same bits."""
+    from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
+
+    xs, ws, bias, mask, (g,) = _attn_case(cuda, torch.float32, 1)
+    runs = []
+    for _ in range(2):
+        kern = _leaves(xs + ws + [bias])
+        out = wa._WindowAttention.apply(*kern, mask, HEADS)
+        runs.append(torch.autograd.grad(out, kern, g))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["up", "phase", "align"])
+def test_decoder_kernel_backward_matches_plain(cuda, kind):
+    """K5 (the upsample and L1 forms) and K7 on the card carry gradients:
+    their Functions' plain backward against autograd of the plain forward,
+    float32 with TF32 off."""
+    from mastermetastyletransfer_tpu_torch.models.master import _TF32_OFF
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+
+    with _TF32_OFF:
+        if kind == "align":
+            g = torch.Generator().manual_seed(4)
+            big = torch.randn((2, PH + 1, PW + 1, 256), generator=g).to(cuda)
+            gy = torch.randn((2, PH, PW, 256), generator=g).to(cuda)
+            (a,) = _leaves([big])
+            (got,) = torch.autograd.grad(pc.phase_align(a, 64), a, gy)
+            (b,) = _leaves([big])
+            (ref,) = torch.autograd.grad(pc.phase_align_plain(b, 64), b, gy)
+            assert torch.equal(got, ref)
+            return
+        pp, pk, bias, table = _phase_case(cuda, torch.float32, kind)
+        gy = torch.randn((2, PH, PW, pk.shape[-1]),
+                         generator=torch.Generator().manual_seed(6)).to(cuda)
+        kern = _leaves([pp, pk, bias])
+        out = pc.stencil_phase_conv(*kern, table)
+        assert out.grad_fn is not None
+        got = torch.autograd.grad(out, kern, gy)
+        # the conv without its ReLU, fed the cotangent through the kernel's
+        # own ReLU mask: an output of nearly 0 that the two forwards round
+        # to opposite signs routes the gradient differently, no error of
+        # the backward
+        plain = _leaves([pp, pk, bias])
+        ref = torch.autograd.grad(
+            pc.stencil_phase_conv_plain(*plain, table, relu=False), plain,
+            gy * (out.detach() > 0))
+        for a, r in zip(got, ref):
+            _grad_check(a, r, r.abs().max().item(), torch.float32)
+
+
+@pytest.mark.cuda
+def test_eval_kernels_refuse_autograd_on_the_card(cuda):
+    """An evaluation kernel (K2 here; K1, K3, K4 and K6 with pad columns
+    share the guard) raises under autograd and launches nothing; under
+    no_grad it runs."""
+    w, x, mask, padmask = _inputs(cuda, torch.float32, True)
+    xw = x[:, :14, :14].reshape(2, 4, 49, C).contiguous()
+    xw.requires_grad_()
+    before = wb.LAUNCHES["window_block_windows"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        wb.window_block_windows(xw, w, heads=HEADS)
+    assert wb.LAUNCHES["window_block_windows"] == before
+    with torch.no_grad():
+        wb.window_block_windows(xw, w, heads=HEADS)
+    assert wb.LAUNCHES["window_block_windows"] == before + 1

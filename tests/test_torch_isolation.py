@@ -53,13 +53,17 @@ def test_sources_name_no_jax():
 
 def test_every_port_module_imports_without_jax_or_pil():
     """Each module of the package on its own, the kernel wrappers
-    (ops/window_block.py, ops/style_block.py, ops/phase_conv.py) included."""
+    (ops/window_block.py, ops/style_block.py, ops/phase_conv.py,
+    ops/window_attention.py, ops/ln_mlp.py), the losses and the training
+    step included."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in (ROOT / "mastermetastyletransfer_tpu_torch").rglob("*.py")
         if p.name != "__init__.py")
-    assert "mastermetastyletransfer_tpu_torch.ops.style_block" in modules
-    assert "mastermetastyletransfer_tpu_torch.ops.phase_conv" in modules
+    for name in ("ops.style_block", "ops.phase_conv", "ops.window_attention",
+                 "ops.ln_mlp", "losses.vgg", "losses.loss",
+                 "train.schedule", "train.state", "train.step"):
+        assert f"mastermetastyletransfer_tpu_torch.{name}" in modules, name
     probe = _PROBE.replace(
         "import chip_smoke\n",
         "import chip_smoke\nimport importlib\n"

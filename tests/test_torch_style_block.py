@@ -236,9 +236,11 @@ def test_style_stream_rejects_another_feature_size(st_default):
 
 
 def test_routes_without_their_kernels_raise(st_default):
-    """What the port cannot run through kernels yet raises rather than run
-    in plain PyTorch: the f32 split route (K9, K10), the decoder without
-    its self-block MLP (K8) and the generic path with kernels on."""
+    """What the windowed path has not wired yet raises rather than run in
+    plain PyTorch: the f32 split route (K9, K10) and the decoder without its
+    self-block MLP (K8). The generic path with kernels on (a configuration
+    the windowed gate refuses) now runs K8-K10, and matches the same path
+    with the kernels off."""
     _, ct, _, pt = st_default
     _, fct = _features(11)
     with pytest.raises(NotImplementedError, match="K9"):
@@ -247,10 +249,12 @@ def test_routes_without_their_kernels_raise(st_default):
     exclude = ct.replace(decoder_exclude_MLP_after_Fcs_self_MHA=True)
     with pytest.raises(NotImplementedError, match="K8"):
         tst.style_transformer_apply(pt, fct, fct, exclude, k=1)
-    regular = ct.replace(
-        decoder_use_regular_MHA_instead_of_Swin_at_the_end=True)
-    with pytest.raises(NotImplementedError, match="K10"):
-        tst.style_transformer_apply(pt, fct, fct, regular, k=1)
+    cj, regular, pj, preg = _st(
+        {"decoder_use_regular_MHA_instead_of_Swin_at_the_end": True})
+    assert not tst._st_windowed_ok(regular)
+    fcj, fct = _features(11)
+    _close(tst.style_transformer_apply(preg, fct, fct, regular, k=1),
+           jst.style_transformer_apply(pj, fcj, fcj, cj, k=1))
 
 
 def test_master_apply_all_kernels_matches_jax():
