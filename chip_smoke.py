@@ -9,13 +9,16 @@ by side, at first use), holds each kernel entry against its plain PyTorch
 version at the shapes of the two slices, then drives them through their
 entry points with weights drawn from seeded ``torch.Generator``s: pair
 serving -- ``StylizeService`` -> ``master_apply`` at swin_B widths, 512x512
-images, k=1, with the Swin, style-transformer and decoder kernels on --
-and the plain training step -- ``make_train_step`` at 256x256, batch 8,
-bf16, k fixed at 1 and 4 and then random in [1, 4], with K5, K7 and the
-training kernels K8-K10 on. One JSON line per phase, flushed as it goes;
-any failed phase raises and the exit code is not 0. The last line is
-{"ok": true, "device": {...}}; before it come the card's name and power
-limit as nvidia-smi gives them, and the kernel summary (K1-K10).
+images, k=1, with the Swin, style-transformer and decoder kernels on,
+then in the JAX package's round-5 configuration (the pair slice: each Swin
+stage's two blocks as one K11 launch under MMST_BLOCK_PAIR=1, the RGB conv
+through K12 with rgb_tail="l2k128") -- and the plain training step --
+``make_train_step`` at 256x256, batch 8, bf16, k fixed at 1 and 4 and then
+random in [1, 4], with K5, K7 and the training kernels K8-K10 on. One JSON
+line per phase, flushed as it goes; any failed phase raises and the exit
+code is not 0. The last line is {"ok": true, "device": {...}}; before it
+come the card's name and power limit as nvidia-smi gives them, and the
+kernel summary (K1-K13).
 
 Phases: device, build; kernels (each entry against its plain version, with
 ms per call, the bound, the plain version's ms and shared memory per
@@ -33,7 +36,11 @@ nine plain convs, so that the reference shares no phase algebra with
 K5-K7); f32_entry (one float32 pair through ``make_stylize_fn`` on the card
 against the same call on the CPU, with PyTorch's own TF32 settings);
 stages (CUDA-event times of one batch-8 pair call at bf16 per stage,
-kernels on, off, and as the reference service runs); the training
+kernels on, off, as the reference service runs, and in the pair slice's
+configuration); slice_pair (the pair slice's bf16 and f32 services and a
+bf16 one with _RGB_KERNEL_ON, which routes the RGB conv to K12's rgb entry,
+their launches checked as the slice's, each against the slice's reference
+outputs by the slice's criteria); the training
 kernels (K8 at the Swin's two stages and the style transformer's shape, K9
 in its two forms, K10 at the three row shapes with and without LN, each
 forward and backward, bf16 and f32, against the plain forward and
@@ -43,7 +50,12 @@ group: f32 with every kernel on against the f32 route with every kernel
 off, and the bf16 kernel path's error against the bf16 plain route's);
 train_step (one line per step: k, loss, ms, imgs/s, peak memory, the
 launches of each step checked against ``train_per_step``), train and a
-stages line of the step (forward, backward, optimizer).
+stages line of the step (forward, backward, optimizer); then, from a
+generator of their own, the kernels of the pair slice and K13: K11 at the
+Swin's two stages (bf16, f32) and at C=192, K12's two entries at conv8
+(bf16, f32; cuDNN's conv of the same composed kernel as the yardstick) and
+their plain backward passes, K13 at the patch embedding of one 16-image
+pass; refusals (K11 and K13 raise under autograd and launch nothing).
 
 Needs only torch, numpy and the standard library, and one CUDA card.
 
@@ -54,9 +66,11 @@ sides round the same f32 value to bf16, and a value near a rounding
 boundary may land on either side) plus 2^-6 of the largest update
 |out - x| (an intermediate rounded to bf16 on the other side of a boundary
 moves the update by about 2^-8 of itself); x is the block's input, K3's
-Scale or Shift input, K4's Query. The decoder's stencil kernels at bfloat16:
-two units in the last place plus 2^-8 of the largest |output| (both sides
-sum the same products in f32 and round once); the phase align exactly.
+Scale or Shift input, K4's Query; K11 as the block, x its input image; K13
+with the update measured from 0. The decoder's stencil kernels and K12 at
+bfloat16: two units in the last place plus 2^-8 of the largest |output|
+(both sides sum the same products in f32 and round once); the phase align
+exactly.
 Slice, float32: the kernel-path service against the float32 reference
 service, per-pixel MAE at most 1e-4 of the mean output magnitude; the same
 1e-4 for the float32 entry point on the card against the CPU. Slice,
@@ -83,6 +97,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -106,8 +121,10 @@ from mastermetastyletransfer_tpu_torch.models.style_transformer import (
 )
 from mastermetastyletransfer_tpu_torch.models.swin import swin_backbone_apply
 from mastermetastyletransfer_tpu_torch.ops import _build
+from mastermetastyletransfer_tpu_torch.ops import block_pair as bpr
 from mastermetastyletransfer_tpu_torch.ops import conv as tconv
 from mastermetastyletransfer_tpu_torch.ops import ln_mlp as lm
+from mastermetastyletransfer_tpu_torch.ops import patch_embed as tpe
 from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
 from mastermetastyletransfer_tpu_torch.ops import style_block as sb
 from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
@@ -135,7 +152,8 @@ TOL_BF16_ULPS, TOL_BF16_UPDATE = 2, 2.0 ** -6
 TOL_SLICE_MAE = 1e-4
 TOL_BF16_NOISE = 1.5
 TOL_CONV_BF16_SCALE = 2.0 ** -8
-LAUNCHES = (wb.LAUNCHES, sb.LAUNCHES, pc.LAUNCHES, wa.LAUNCHES, lm.LAUNCHES)
+LAUNCHES = (wb.LAUNCHES, sb.LAUNCHES, pc.LAUNCHES, wa.LAUNCHES, lm.LAUNCHES,
+            bpr.LAUNCHES, tpe.LAUNCHES)
 
 DEVICE = "cuda"
 SIZE, MAX_BATCH, K = 512, 8, 1
@@ -145,16 +163,31 @@ F32_ENTRY_SIZE = 128
 # Launches per request batch on each slice path (the main path is bf16).
 DECODER_PER_BATCH = {"stencil_phase_conv": 5, "stencil_phase2_conv": 0,
                      "stencil_phase2_conv_padcols": 1, "phase_align": 1,
-                     # serving runs no training kernel
-                     **{e: 0 for e in (*wa.LAUNCHES, *lm.LAUNCHES)}}
+                     "stencil_phase2_rgb": 0, "stencil_phase2_rgb128": 0,
+                     # serving runs no training kernel, and no path runs
+                     # the patch-embed kernel (nor does the JAX package's)
+                     **{e: 0 for e in (*wa.LAUNCHES, *lm.LAUNCHES,
+                                       *tpe.LAUNCHES)}}
 PER_BATCH = {
     "bfloat16": {"window_block_rows": 4, "window_block_windows": 2 * K,
+                 "window_block_pair_rows": 0,
                  "encoder_scale_shift": K, "decoder_tail": K,
                  **DECODER_PER_BATCH},
     "float32": {"window_block_rows": 0, "window_block_windows": 4 + 2 * K,
+                "window_block_pair_rows": 0,
                 "encoder_scale_shift": K, "decoder_tail": K,
                 **DECODER_PER_BATCH},
 }
+# The round-5 configuration (the pair slice): each Swin stage's two blocks
+# as one K11 launch (MMST_BLOCK_PAIR=1), the RGB conv through K12's rgb128
+# entry (rgb_tail="l2k128"), at either dtype; and the same with the JAX
+# package's _RGB_KERNEL_ON, which routes the RGB conv to K12's rgb entry.
+PAIR_PER_BATCH = {
+    route: {**PER_BATCH["bfloat16"], "window_block_rows": 0,
+            "window_block_windows": 2 * K, "window_block_pair_rows": 2,
+            "stencil_phase2_rgb128": int(route != "rgb"),
+            "stencil_phase2_rgb": int(route == "rgb")}
+    for route in ("bfloat16", "float32", "rgb")}
 ST_C, ST_HEADS = 256, 8
 T0 = time.perf_counter()
 
@@ -887,6 +920,186 @@ def check_kernels(gen: torch.Generator):
     return rows
 
 
+def pair_cases(gen, rows):
+    """K11 at the Swin stages of one request batch's pass (2 x max_batch
+    images; stage 1 on 133x133 padded tokens of which 128 are valid, C=128,
+    4 heads; stage 2 on 70x70 of 64, C=256, 8 heads; shift 3), bf16 and
+    f32, and a swin_S-width stage 2 (C=192, 6 heads) at bf16, against the
+    plain version (K1's applied twice). Bytes: the image read once and
+    written once, both blocks' weights and masks (block 0's output is no
+    part of the function)."""
+    dev = torch.device(DEVICE)
+    bf16, f32 = torch.bfloat16, torch.float32
+    b = 2 * MAX_BATCH
+    for label, c, heads, valid, dtypes in (
+            ("swin_stage1", 128, 4, SIZE // 4, (bf16, f32)),
+            ("swin_stage2", 256, 8, SIZE // 8, (bf16, f32)),
+            ("swin_S_stage2", 192, 6, SIZE // 8, (bf16,))):
+        hp = padded(valid)
+        nw = (hp // 7) ** 2
+        sh, sw = effective_shift(hp, hp, (7, 7), (3, 3))
+        blocks = [tree_map(lambda t: t.to(dev), init_style_swin_block(
+            gen, AttentionConfig(dim=c, num_heads=heads, window_size=(7, 7),
+                                 shift_size=shift),
+            use_norm=True, exclude_mlp=False, mlp_ratio=4.0))
+            for shift in ((0, 0), (sh, sw))]
+        kw = dict(heads=heads, window=(7, 7), shift=(sh, sw),
+                  mask1=torch.from_numpy(shift_attention_mask(
+                      hp, hp, 7, 7, sh, sw)).to(dev),
+                  padmask0=torch.from_numpy(valid_token_mask(
+                      valid, valid, hp, hp, 7, 7, 0, 0)).to(dev),
+                  padmask1=torch.from_numpy(valid_token_mask(
+                      valid, valid, hp, hp, 7, 7, sh, sw)).to(dev))
+        x32 = torch.randn((b, hp, hp, c), generator=gen).to(dev)
+        for dtype in dtypes:
+            w0, w1 = (wb.block_weights(p, (7, 7), dtype, use_norm=True)
+                      for p in blocks)
+            x = x32.to(dtype).contiguous()
+            f0, b0 = block_cost(b, nw, 49, c, heads, 4 * c, dtype, False,
+                                True)
+            f1, b1 = block_cost(b, nw, 49, c, heads, 4 * c, dtype, True,
+                                True)
+            run_case(rows, "window_block_pair_rows", label, dtype,
+                     lambda: [bpr.window_block_pair_rows(x, w0, w1, **kw)],
+                     lambda: [bpr.window_block_pair_rows_plain(x, w0, w1,
+                                                               **kw)],
+                     [x], (f0 + f1, b0 + b1 - 2 * b * nw * 49 * c
+                           * item_bytes(dtype)),
+                     bpr.smem_bytes(49, c, heads, dtype), shift=[sh, sw])
+
+
+def rgb_cases(gen, rows):
+    """K12 at conv8 of one request batch: the L2 tail's padded input (8,
+    130, 130, 16 x 32) and conv8's composed kernel (2, 2, 512, 16 x 3), with
+    the L2 table the decoder passes; the rgb entry (the fine grid (8, 512,
+    512, 3)) and the rgb128 entry (the kernel and bias in 8-lane slots,
+    (8, 128, 128, 128)), bf16 and f32, against the plain versions; the
+    library yardstick one cuDNN conv of the same composed kernel over the
+    same input with bias (no align). Then both entries' backward passes
+    (plain PyTorch, as the JAX package's are plain XLA) against autograd of
+    the plain forward."""
+    dev = torch.device(DEVICE)
+    g0 = SIZE // 8
+    x32 = torch.randn((MAX_BATCH, 2 * g0, 2 * g0, 16 * 32), generator=gen)
+    w3 = tconv.init_conv(gen, 32, 3)["kernel"]
+    bias = torch.randn(3, generator=gen) * 0.1
+    k2, bases = tconv._phase2_kernel(w3, False)
+    table = tconv._phase2_table(False)
+    pp32 = tconv._phase2_pad(x32, 4, 32, False)
+    for dtype in (torch.bfloat16, torch.float32):
+        pp = pp32.to(dev, dtype).contiguous()
+        for entry, kind in (("stencil_phase2_rgb", "rgb"),
+                            ("stencil_phase2_rgb128", "rgb128")):
+            if kind == "rgb":
+                pk = k2.to(dev, dtype).contiguous()
+                bias_n = bias.repeat(16).to(dev).contiguous()
+                cg, out_numel = 3, MAX_BATCH * SIZE * SIZE * 3
+            else:
+                pk = tconv._slots128(k2.to(dtype), 3).to(dev).contiguous()
+                bias_n = tconv._slots128(bias.repeat(16), 3).to(
+                    dtype).float().to(dev)
+                cg, out_numel = 8, MAX_BATCH * (2 * g0) ** 2 * 128
+            args = (pp, pk, bias_n, bases)
+            kern_fn = getattr(pc, entry)
+            plain_fn = getattr(pc, entry + "_plain")
+            w_lib = pk.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            x_lib = pp.permute(0, 3, 1, 2)
+            b_lib = bias_n.to(dtype)
+
+            def library():
+                with (_TF32_OFF if dtype == torch.float32
+                      else contextlib.nullcontext()):
+                    return F.conv2d(x_lib, w_lib, b_lib)
+
+            smem, regs = pc.kernel_attributes(kind, dtype)
+            run_case(rows, entry, "conv8", dtype,
+                     lambda: [kern_fn(*args, table=table)],
+                     lambda: [plain_fn(*args)], [pp],
+                     stencil_cost(pp, table, cg, out_numel, pk.numel()),
+                     smem, check=conv_error, library=library,
+                     registers=regs)
+            gy = torch.randn(((MAX_BATCH, SIZE, SIZE, 3) if kind == "rgb"
+                              else (MAX_BATCH, 2 * g0, 2 * g0, 128)),
+                             generator=gen).to(dev, dtype)
+            with (_TF32_OFF if dtype == torch.float32
+                  else contextlib.nullcontext()):
+                decoder_bwd_case(
+                    rows, entry, "conv8", dtype, [pp, pk, bias_n],
+                    lambda a, b_, c, kern_fn=kern_fn: kern_fn(
+                        a, b_, c, bases, table=table),
+                    lambda a, b_, c, plain_fn=plain_fn: plain_fn(
+                        a, b_, c, bases), gy)
+
+
+def patch_embed_cases(gen, rows):
+    """K13 at the Swin's patch embedding of one request batch's pass: (16,
+    512, 512, 3) images into (16, 128, 128, 128) with the LayerNorm, bf16
+    and f32, against the plain version; at bf16 two units in the last place
+    plus 2^-6 of the largest |output|. No path calls the kernel (nor does
+    the JAX package's)."""
+    dev = torch.device(DEVICE)
+    b, e = 2 * MAX_BATCH, 128
+    img32 = torch.rand((b, SIZE, SIZE, 3), generator=gen)
+    k = (torch.randn((4, 4, 3, e), generator=gen) * 48 ** -0.5).to(dev)
+    vecs = [(torch.randn(e, generator=gen) * 0.02).to(dev),
+            (1 + 0.1 * torch.randn(e, generator=gen)).to(dev),
+            (0.1 * torch.randn(e, generator=gen)).to(dev)]
+    hc = SIZE // 4
+    for dtype in (torch.bfloat16, torch.float32):
+        img = img32.to(dev, dtype).contiguous()
+        args = (img, k, *vecs)
+        flops = 2 * b * hc * hc * 48 * e + 8 * b * hc * hc * e
+        nbytes = ((img.numel() + b * hc * hc * e + 48 * e)
+                  * item_bytes(dtype) + 3 * e * 4)
+        run_case(rows, "patch_embed", "swin_patch_embed", dtype,
+                 lambda: [tpe.patch_embed(*args)],
+                 lambda: [tpe.patch_embed_plain(*args)], [img],
+                 (flops, nbytes), tpe.smem_bytes(4, 3, e),
+                 check=lambda g, r: kernel_error(g, r, torch.zeros_like(r)))
+
+
+def refusal_checks() -> None:
+    """K11 and K13 are evaluation kernels with no backward (neither has a
+    VJP in JAX): on the card, an input that requires grad under grad mode
+    makes the wrapper raise and launch nothing; under no_grad it launches
+    (the check the other evaluation kernels pass, F4)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(2)
+    block = tree_map(lambda t: t.to(dev), init_style_swin_block(
+        gen, AttentionConfig(dim=128, num_heads=4, window_size=(7, 7),
+                             shift_size=(3, 3)),
+        use_norm=True, exclude_mlp=False, mlp_ratio=4.0))
+    w = wb.block_weights(block, (7, 7), torch.float32, use_norm=True)
+    x = torch.randn((1, 14, 14, 128), generator=gen).to(dev)
+    img = torch.rand((1, 16, 16, 3), generator=gen).to(dev)
+    k = torch.randn((4, 4, 3, 128), generator=gen).to(dev)
+    calls = {
+        "window_block_pair_rows": (bpr.LAUNCHES, x, lambda t: (
+            bpr.window_block_pair_rows(t, w, w, heads=4, window=(7, 7),
+                                       shift=(3, 3)))),
+        "patch_embed": (tpe.LAUNCHES, k, lambda t: tpe.patch_embed(
+            img, t, torch.zeros(128, device=dev)))}
+    for entry, (counts, leaf, call) in calls.items():
+        before = counts[entry]
+        try:
+            call(leaf.clone().requires_grad_())
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{entry} ran under autograd")
+        if counts[entry] != before:
+            raise AssertionError(f"{entry} launched under autograd")
+        with torch.no_grad():
+            call(leaf)
+        torch.cuda.synchronize()
+        if counts[entry] != before + 1:
+            raise AssertionError(f"{entry} did not launch under no_grad")
+    emit("refusals", entries=list(calls), raised_under_autograd=True,
+         launched_under_no_grad=True)
+
+
 # ---------------------------------------------------------------------------
 # 3. the slice: pair serving at 512^2
 # ---------------------------------------------------------------------------
@@ -947,14 +1160,16 @@ def serve_requests(svc: StylizeService, pairs, clients: int):
     return outs, lat, wall
 
 
-def check_launches(dtype: str, launches: dict) -> int:
+def check_launches(dtype: str, launches: dict, table=None) -> int:
     """Every entry launched its expected count per request batch on this
-    path; returns the number of batches."""
+    path (``table``, PER_BATCH by default, keyed by path); returns the
+    number of batches."""
+    per = (PER_BATCH if table is None else table)[dtype]
     batches = launches["encoder_scale_shift"] // K
-    want = {e: n * batches for e, n in PER_BATCH[dtype].items()}
+    want = {e: n * batches for e, n in per.items()}
     if batches <= 0 or launches != want:
         raise AssertionError(f"{dtype} path launched {launches}, expected "
-                             f"{PER_BATCH[dtype]} per batch")
+                             f"{per} per batch")
     return batches
 
 
@@ -1032,7 +1247,96 @@ def run_slice(params, pairs):
     if not mae32 <= TOL_SLICE_MAE * mean32:
         raise AssertionError(f"float32 slice MAE {mae32} > "
                              f"{TOL_SLICE_MAE * mean32}")
-    return results["bfloat16"]["launches"], summary
+    return results["bfloat16"]["launches"], summary, refs
+
+
+@contextlib.contextmanager
+def block_pair_env():
+    """MMST_BLOCK_PAIR=1 in the environment for the duration, which the
+    Swin reads at each call; its earlier value (or its absence) after."""
+    old = os.environ.get("MMST_BLOCK_PAIR")
+    os.environ["MMST_BLOCK_PAIR"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MMST_BLOCK_PAIR", None)
+        else:
+            os.environ["MMST_BLOCK_PAIR"] = old
+
+
+@contextlib.contextmanager
+def rgb_kernel_on():
+    """ops/conv.py's _RGB_KERNEL_ON set for the duration (the JAX package's
+    switch for K12's rgb entry, off there)."""
+    old = tconv._RGB_KERNEL_ON
+    tconv._RGB_KERNEL_ON = True
+    try:
+        yield
+    finally:
+        tconv._RGB_KERNEL_ON = old
+
+
+def pair_config(dtype: str) -> ModelConfig:
+    """The round-5 configuration: every kernel on and the l2k128 RGB tail
+    (the Swin pair comes from MMST_BLOCK_PAIR=1, block_pair_env)."""
+    cfg = slice_config(dtype, True)
+    return cfg.replace(decoder=cfg.decoder.replace(rgb_tail="l2k128"))
+
+
+def run_pair_slice(params, pairs, refs) -> dict:
+    """The pair slice: the round-5 configuration's bf16 service on every
+    pair, its f32 service on the first F32_REQUESTS, and a bf16 service with
+    _RGB_KERNEL_ON too (K12's rgb entry), each path's launches counted from
+    zero after its warm-up and checked against PAIR_PER_BATCH, each output
+    against the slice's reference services (``refs``, from run_slice) by
+    the slice's criteria."""
+    summary = {}
+    with block_pair_env():
+        for route, dtype, reqs in (("bfloat16", "bfloat16", pairs),
+                                   ("float32", "float32",
+                                    pairs[:F32_REQUESTS]),
+                                   ("rgb", "bfloat16", pairs)):
+            svc = StylizeService(params, pair_config(dtype), size=SIZE, k=K,
+                                 max_batch=MAX_BATCH, device=DEVICE)
+            with (rgb_kernel_on() if route == "rgb"
+                  else contextlib.nullcontext()):
+                svc.warmup()
+                torch.cuda.synchronize()
+                reset_launches()
+                outs, lat, wall = serve_requests(svc, reqs, CLIENTS)
+                launches = all_launches()
+            svc.close()
+            outs = np.stack(outs)
+            if outs.shape[1:] != (SIZE, SIZE, 3) or not np.isfinite(
+                    outs).all():
+                raise AssertionError(f"pair slice {route}: output of shape "
+                                     f"{outs.shape}, or not finite")
+            batches = check_launches(route, launches, PAIR_PER_BATCH)
+            if dtype == "float32":
+                ref32 = refs["float32"][:len(outs)]
+                mean32 = float(np.abs(ref32).mean())
+                mae = float(np.abs(outs - ref32).mean())
+                check = dict(mae_vs_f32=mae, mae_tol=TOL_SLICE_MAE * mean32,
+                             mean_abs_output=mean32,
+                             max_abs_vs_f32=float(np.abs(outs - ref32).max()))
+                ok = mae <= TOL_SLICE_MAE * mean32
+            else:
+                check = bf16_noise_verdict(outs, refs["bfloat16"],
+                                           refs["float32"])
+                ok = check["noise_ratio"] <= TOL_BF16_NOISE
+            summary[route] = dict(
+                dtype=dtype, requests=len(outs), clients=CLIENTS,
+                batches=batches, imgs_per_s=len(outs) / wall,
+                p50_ms=float(np.median(lat)) * 1e3,
+                max_ms=float(np.max(lat)) * 1e3, launches=launches,
+                launches_per_batch=PAIR_PER_BATCH[route], **check)
+            emit("slice_pair", route=route, size=SIZE, k=K,
+                 max_batch=MAX_BATCH, block_pair=True, rgb_tail="l2k128",
+                 rgb_kernel_on=route == "rgb", **summary[route])
+            if not ok:
+                raise AssertionError(f"pair slice {route}: {check}")
+    return summary
 
 
 def check_f32_entry(params, rng) -> None:
@@ -1064,16 +1368,18 @@ def check_f32_entry(params, rng) -> None:
 def stage_times(params, content: np.ndarray, style: np.ndarray) -> dict:
     """CUDA-event times (ms) of one batch-8 pair call at bf16, stage by
     stage, through the functions master_apply runs, with the kernels on,
-    off, and as the reference service runs (kernels off, nine-conv
-    decoder): host-to-device copies, the Swin pass of content and style
-    together, the style transformer, the decoder, the device-to-host
-    copy."""
+    off, as the reference service runs (kernels off, nine-conv decoder),
+    and in the pair slice's configuration (K11, K12 rgb128): host-to-device
+    copies, the Swin pass of content and style together, the style
+    transformer, the decoder, the device-to-host copy."""
     out = {}
     names = ("h2d", "swin", "style_transformer", "decoder", "d2h")
     dtype = torch.bfloat16
-    for label, cfg in (("kernels_on", slice_config("bfloat16", True)),
-                       ("kernels_off", slice_config("bfloat16", False)),
-                       ("reference", reference_config("bfloat16"))):
+    for label, cfg, pair in (
+            ("kernels_on", slice_config("bfloat16", True), False),
+            ("kernels_off", slice_config("bfloat16", False), False),
+            ("reference", reference_config("bfloat16"), False),
+            ("pair_l2k128", pair_config("bfloat16"), True)):
 
         def once():
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
@@ -1095,7 +1401,8 @@ def stage_times(params, content: np.ndarray, style: np.ndarray) -> dict:
             torch.cuda.synchronize()
             return [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
 
-        with torch.inference_mode():
+        with torch.inference_mode(), (block_pair_env() if pair
+                                      else contextlib.nullcontext()):
             once()
             runs = [once() for _ in range(3)]
         ms = {n: float(np.mean([r[i] for r in runs]))
@@ -1139,7 +1446,9 @@ def train_per_step(k: int) -> dict:
             "stencil_phase_conv": 5, "stencil_phase2_conv": 0,
             "stencil_phase2_conv_padcols": 0, "phase_align": 2,
             "window_block_rows": 0, "window_block_windows": 0,
-            "encoder_scale_shift": 0, "decoder_tail": 0}
+            "encoder_scale_shift": 0, "decoder_tail": 0,
+            "window_block_pair_rows": 0, "stencil_phase2_rgb": 0,
+            "stencil_phase2_rgb128": 0, "patch_embed": 0}
 
 
 def param_group(key: str) -> str:
@@ -1428,17 +1737,53 @@ def main(argv=None) -> int:
                  rng.random((SIZE, SIZE, 3), dtype=np.float32))
                 for _ in range(n)]
 
-    launches, _ = run_slice(params, pairs(REQUESTS))
+    reqs = pairs(REQUESTS)
+    launches, _, refs = run_slice(params, reqs)
     check_f32_entry(params, rng)
     batch = np.stack([p for pair in pairs(MAX_BATCH) for p in pair])
     emit("stages", dtype="bfloat16", batch=MAX_BATCH, size=SIZE, k=K,
          **stage_times(params, batch[0::2], batch[1::2]))
-    del params
+    # The pair slice reuses the weights, the requests and the reference
+    # outputs, and draws nothing.
+    pair = run_pair_slice(params, reqs, refs)
+    del params, refs
     # The training slice's kernel cases and run draw from generators of
     # their own, after the serving phases, whose weights stay the draw they
     # were checked on before the training slice came.
     train_kernel_cases(torch.Generator().manual_seed(TRAIN_SEED + 1), rows)
     train = run_train()
+    # The kernels of the pair slice and K13, from a generator of their own,
+    # after every phase whose draws they would otherwise move.
+    gen_k = torch.Generator().manual_seed(TRAIN_SEED + 2)
+    pair_cases(gen_k, rows)
+    rgb_cases(gen_k, rows)
+    patch_embed_cases(gen_k, rows)
+    refusal_checks()
+
+    def summary(entry, source, replaces, mine, count, origin, per,
+                library=True):
+        """One entry of the kernels line: ``mine`` the bf16 kernels rows
+        of one call each, with its weight in the sum."""
+        lib_ms = [r["library_ms"] for r, _ in mine]
+        return dict(
+            name=entry, route="cuda",
+            source=f"mastermetastyletransfer_tpu_torch/csrc/{source}",
+            replaces=replaces, launches=count, launches_from=origin,
+            max_abs_err=max(r["max_abs_err"] for r, _ in mine),
+            ms=sum(r["ms"] * n for r, n in mine),
+            plain_ms=sum(r["plain_ms"] * n for r, n in mine),
+            bound_ms=sum(r["bound_ms"] * n for r, n in mine),
+            bound_by=("operations" if sum(r["ops_ms"] * n for r, n in mine)
+                      >= sum(r["bytes_ms"] * n for r, n in mine)
+                      else "bytes"),
+            library_ms=(None if not library or None in lib_ms
+                        else sum(v * n for v, (_, n) in zip(lib_ms, mine))),
+            dtype="bfloat16", per=per,
+            smem_bytes=max(r["smem_bytes"] for r, _ in mine))
+
+    def bf16_rows(entry, calls):
+        return [(r, calls[r["case"]]) for r in rows if r["entry"] == entry
+                and r["dtype"] == "bfloat16" and r["case"] in calls]
 
     # The main path is the bf16 slice: each entry's launches from its run,
     # its times summed over the calls of one request batch.
@@ -1466,23 +1811,9 @@ def main(argv=None) -> int:
              "conv7 of one batch (the path's K6 entry)"),
             ("phase_align", "phase_conv.cu", "ops/pallas_conv.py:80",
              ("conv5",), "conv5's realign of one batch")):
-        mine = [r for r in rows if r["entry"] == entry
-                and r["dtype"] == "bfloat16" and r["case"] in cases]
-        lib_ms = [r["library_ms"] for r in mine]
-        kernels.append(dict(
-            name=entry, route="cuda",
-            source=f"mastermetastyletransfer_tpu_torch/csrc/{source}",
-            replaces=replaces, launches=launches[entry],
-            launches_from="bfloat16 slice run",
-            max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=sum(r["ms"] for r in mine),
-            plain_ms=sum(r["plain_ms"] for r in mine),
-            bound_ms=sum(r["bound_ms"] for r in mine),
-            bound_by=("operations" if sum(r["ops_ms"] for r in mine)
-                      >= sum(r["bytes_ms"] for r in mine) else "bytes"),
-            library_ms=(None if None in lib_ms else sum(lib_ms)),
-            dtype="bfloat16", per=per,
-            smem_bytes=max(r["smem_bytes"] for r in mine)))
+        kernels.append(summary(entry, source, replaces,
+                               bf16_rows(entry, dict.fromkeys(cases, 1)),
+                               launches[entry], "bfloat16 slice run", per))
     # The training kernels: launches from the bf16 train run, times summed
     # over the calls of one step at k=1.
     for entry, replaces, calls, per in (
@@ -1501,30 +1832,48 @@ def main(argv=None) -> int:
               "st_no_ln": 4}, "one step at k=1"),
             ("ln_mlp_residual_bwd", "ops/pallas_mlp_vjp.py:133",
              {"st_ln": 1, "st_no_ln": 4}, "one step at k=1")):
-        mine = [(r, calls[r["case"]]) for r in rows if r["entry"] == entry
-                and r["dtype"] == "bfloat16" and r["case"] in calls]
         source = ("window_attention.cu" if entry.startswith("window")
                   else "ln_mlp.cu")
-        kernels.append(dict(
-            name=entry, route="cuda",
-            source=f"mastermetastyletransfer_tpu_torch/csrc/{source}",
-            replaces=replaces, launches=train["launches"][entry],
-            launches_from="bfloat16 train run",
-            max_abs_err=max(r["max_abs_err"] for r, _ in mine),
-            ms=sum(r["ms"] * n for r, n in mine),
-            plain_ms=sum(r["plain_ms"] * n for r, n in mine),
-            bound_ms=sum(r["bound_ms"] * n for r, n in mine),
-            bound_by=("operations" if sum(r["ops_ms"] * n for r, n in mine)
-                      >= sum(r["bytes_ms"] * n for r, n in mine)
-                      else "bytes"),
-            library_ms=None, dtype="bfloat16", per=per,
-            smem_bytes=max(r["smem_bytes"] for r, _ in mine)))
+        kernels.append(summary(entry, source, replaces,
+                               bf16_rows(entry, calls),
+                               train["launches"][entry],
+                               "bfloat16 train run", per, library=False))
     for k in kernels:
         if k["name"] in ("stencil_phase_conv", "phase_align"):
             k["train_launches"] = train["launches"][k["name"]]
             k["train_bwd_ms"] = sum(
                 r["ms"] for r in rows if r["entry"] == k["name"] + "_bwd"
                 and r["dtype"] == "bfloat16")
+    # The pair slice's kernels: launches from its bf16 runs, times summed
+    # over the calls of one request batch; K13, which no path runs.
+    for entry, source, replaces, cases, route, per in (
+            ("window_block_pair_rows", "block_pair.cu",
+             "ops/pallas_attention.py:836", ("swin_stage1", "swin_stage2"),
+             "bfloat16", "the 2 pair launches of one 16-image Swin pass"),
+            ("stencil_phase2_rgb128", "phase_conv.cu",
+             "ops/pallas_conv.py:761", ("conv8",), "bfloat16",
+             "conv8 of one batch"),
+            ("stencil_phase2_rgb", "phase_conv.cu",
+             "ops/pallas_conv.py:600", ("conv8",), "rgb",
+             "conv8 of one batch (_RGB_KERNEL_ON)"),
+            ("patch_embed", "patch_embed.cu", "ops/pallas_conv.py:882",
+             ("swin_patch_embed",), None,
+             "the patch embedding of one 16-image pass")):
+        if route is None:
+            count, origin = 0, ("no path: the kernel phase alone runs it, "
+                                "as only a test runs the JAX kernel")
+        else:
+            count = pair[route]["launches"][entry]
+            origin = ("bfloat16 pair slice run" + (" with _RGB_KERNEL_ON"
+                                                   if route == "rgb" else ""))
+        k = summary(entry, source, replaces,
+                    bf16_rows(entry, dict.fromkeys(cases, 1)), count, origin,
+                    per, library=entry.startswith("stencil"))
+        if entry.startswith("stencil"):
+            k["bwd_ms"] = sum(r["ms"] for r in rows
+                              if r["entry"] == entry + "_bwd"
+                              and r["dtype"] == "bfloat16")
+        kernels.append(k)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,13 @@
 
 The port keeps its own copy of the configuration (it imports nothing of the
 JAX package). Field names and defaults follow the JAX package's
-``config.py`` for the fields this port reads; ``from_dict`` accepts that
-package's JSON and ignores the keys it does not know (reference:
-codes/full_model.py:21-60, codes/style_transformer.py:1159-1226).
+``config.py``; ``from_dict`` accepts that package's JSON and ignores the
+keys it does not know (reference: codes/full_model.py:21-60,
+codes/style_transformer.py:1159-1226). The model's configurations carry
+every field of the JAX package's, so that no model field of its JSON is
+dropped: a value the port does not run raises where it is read
+(``matmul_mode`` other than "native" where its stage is built), never
+silently.
 
 ``use_pallas`` keeps its JAX name so that JSON round-trips: in the port it
 means "run the hand-written CUDA kernels of this stage" (the Swin blocks,
@@ -22,6 +26,24 @@ import dataclasses
 import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
+
+
+def require_native_matmul(cfg, stage: str) -> None:
+    """Raise where a stage is built with a matmul mode the port does not
+    run. The JAX package's modes (its ops/precision.py): "native", the
+    products in the working type with f32 sums, as every kernel of the
+    port runs them; "split3", three bf16 passes of a hi/lo split of f32
+    operands, not ported (ROADMAP.md queue 1 item 4)."""
+    if cfg.matmul_mode != "native":
+        raise NotImplementedError(
+            f"{stage}: matmul_mode={cfg.matmul_mode!r} is not ported; the "
+            "port's kernels run the 'native' products (ROADMAP.md queue 1 "
+            "item 4)")
+
+
+def _one_of(name: str, value: str, allowed) -> None:
+    if value not in allowed:
+        raise ValueError(f"{name}={value!r}, not one of {allowed}")
 
 
 class _ConfigBase:
@@ -97,6 +119,16 @@ class StyleTransformerConfig(_ConfigBase):
     decoder_use_Key_instance_norm_after_linear_transformation: bool = True
     decoder_exclude_MLP_after_Fcs_self_MHA: bool = False
     use_pallas: bool = False
+    # The kernels' products: "native" (or "split3", which raises).
+    matmul_mode: str = "native"
+    # How the JAX package compiles a traced k: a masked scan or a switch
+    # over the depths, two XLA graph shapes of one function. The port runs
+    # a Python loop over the sampled k, which computes that function, so it
+    # takes either value.
+    traced_k_impl: str = "scan"
+
+    def __post_init__(self):
+        _one_of("traced_k_impl", self.traced_k_impl, ("scan", "switch"))
 
     def encoder_attn(self) -> AttentionConfig:
         return AttentionConfig(
@@ -135,6 +167,14 @@ class SwinConfig(_ConfigBase):
     stochastic_depth_probs: Tuple[float, ...] = (0.0, 0.5 / 23, 1.0 / 23,
                                                  1.5 / 23)
     use_pallas: bool = False
+    # The kernels' products: "native" (or "split3", which raises).
+    matmul_mode: str = "native"
+    # The 4x4 stride-4 patch embedding as a space-to-depth GEMM ("s2d") or
+    # a direct strided convolution ("conv"): one function.
+    patch_embed_impl: str = "s2d"
+
+    def __post_init__(self):
+        _one_of("patch_embed_impl", self.patch_embed_impl, ("s2d", "conv"))
 
     @staticmethod
     def for_variant(variant: str) -> "SwinConfig":
@@ -169,6 +209,8 @@ class DecoderConfig(_ConfigBase):
     # Each upsample -> pad -> conv pair as one coarse-grid phase conv.
     fuse_upsample: bool = True
     use_pallas: bool = False
+    # The kernels' products: "native" (or "split3", which raises).
+    matmul_mode: str = "native"
     # First conv index that runs on the plain fine grid instead.
     phase_exit: int = 99
     # The stencil conv (K5, K6) for the phase convs that pass its gate.
@@ -176,7 +218,8 @@ class DecoderConfig(_ConfigBase):
     # The last upsample enters a second phase level (L2) in eval.
     phase2_tail: bool = True
     # The RGB conv under phase2_tail: "l2" (composed conv), "l1" (down to
-    # L1, then a phase conv) or "l2k128" (the RGB kernel K12, not ported).
+    # L1, then a phase conv) or "l2k128" (the RGB-tail kernel K12's
+    # 128-lane entry, ops/phase_conv.stencil_phase2_rgb128).
     # "l2gemm", the JAX package's four-shifted-products form of "l2" (a TPU
     # speed variant of the same function), runs the "l2" route here.
     rgb_tail: str = "l2"

@@ -10,6 +10,10 @@
 //      -> mmst_stencil_phase2_conv_padcols
 //   K7 `phase_align` (body `_kernel`)
 //      -> mmst_phase_align
+//   K12 `stencil_phase2_rgb` (body `_rgb_kernel`)
+//      -> mmst_stencil_phase2_rgb
+//   K12 `stencil_phase2_rgb128` (body `_rgb128_kernel`)
+//      -> mmst_stencil_phase2_rgb128
 //
 // K5 and K6 are one "stencil GEMM": a 2x2-tap convolution of a padded
 // phase tensor pp (B, H+2, W+2, Cin) into G output groups of C' channels
@@ -37,6 +41,33 @@
 // to that slot too, so the border is an exact copy and needs nothing from
 // other blocks.
 //
+// K12 is the decoder's RGB conv (conv8, 32 -> 3) on the L2 phase tensor:
+// the same stencil with the same 16 read offsets (the generalized align),
+// but with output groups of Cg <= 8 channels, too narrow for the BN = 32
+// tile. Its kernel gives each thread one output pixel of one group and all
+// Cg channels of it: the group's nonzero weight blocks pass through shared
+// memory 16 input channels at a time, and each thread's pixel reads its 16
+// channels as vectors. The sums (f32) get the bias and optional ReLU and
+// round once to T, then go out in one of two layouts:
+//
+//   mmst_stencil_phase2_rgb     the interleaved fine grid (B, 4H, 4W, Cg):
+//                               group g = 4a + b of pixel (i, j) at
+//                               (4i + a, 4j + b) -- `_rgb_kernel` rounds
+//                               its sums to T before its exact selection
+//                               and interleave;
+//   mmst_stencil_phase2_rgb128  the aligned L2 tensor (B, H, W, 16 Cg) with
+//                               Cg = 8: group g's lanes [8g, 8g + 8), the
+//                               zero lanes of its composed kernel included
+//                               -- `_rgb128_kernel` keeps its sums in f32
+//                               through its masked align, whose one nonzero
+//                               term per lane is the same value, and rounds
+//                               once.
+//
+// A table with every block set (nchunks = 1, blocks 0b1111) computes the
+// JAX kernels' dense tap products; the decoder passes the L2 table, whose
+// zero blocks are structurally zero, so the function is the same up to the
+// order of the sums.
+//
 // K7 is a pure permutation: out[b, i, j, g C' + c] = big[b, i + a, j + bb,
 // g C' + c] for g = 2 a + bb, copied in 16-byte vectors.
 //
@@ -53,6 +84,9 @@
 // zero weight blocks are never read (7 of 16 for an L1 phase-space kernel,
 // 12 of 16 for an L2 one).
 // K7 moves each byte once, in 16-byte accesses.
+// K12 reads a 138 MB (bf16) L2 tensor for 1.6 GFLOP of nonzero products,
+// so the memory bounds it; its pixel-per-thread form reads each input pixel
+// once per group, through L1 and L2, and writes each output once.
 //
 // Built by ops/_build.py: nvcc -gencode arch=compute_90a,code=sm_90a -O3
 // -shared -Xcompiler -fPIC. Plain C interface; each entry returns the CUDA
@@ -78,6 +112,18 @@ struct StencilArgs {
   long long right_src[4], right_ph[4];
 };
 
+// Mirrors RgbArgs in ops/phase_conv.py field for field.
+struct RgbArgs {
+  const void* pp;     // T (B, H+2, W+2, Cin)
+  const void* w;      // T (2, 2, Cin, 16 Cg)
+  const float* bias;  // (16 Cg)
+  void* out;          // T (B, 4H, 4W, Cg) or (B, H, W, 16 Cg)
+  long long dtype;    // 0 float32, 1 bfloat16
+  long long B, H, W, Cin, Cg, nchunks, relu;
+  long long off_y[16], off_x[16];       // per group read offsets, 0 or 1
+  unsigned long long blocks[16];        // per group nonzero (tap, chunk)
+};
+
 // Mirrors AlignArgs in ops/phase_conv.py.
 struct AlignArgs {
   const void* big;  // T (B, H+1, W+1, 4 Cout)
@@ -91,6 +137,7 @@ struct AlignArgs {
 namespace {
 
 using mmst::AlignArgs;
+using mmst::RgbArgs;
 using mmst::StencilArgs;
 
 constexpr int BM = 256;  // output pixels per block
@@ -259,6 +306,78 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kMaxCg = 8;  // K12: output channels per group
+
+// K12: thread tid of block (x, g) owns output pixel blockIdx.x * kThreads +
+// tid of the flattened (B, H, W) grid and the Cg channels of group g.
+template <typename T, bool kFine>
+__global__ void __launch_bounds__(kThreads) rgb_kernel(const RgbArgs a) {
+  __shared__ float Ws[BK][kMaxCg];
+  const int tid = threadIdx.x;
+  const int g = blockIdx.y;
+  const int Cg = static_cast<int>(a.Cg);
+  const long long H = a.H, W = a.W, Cin = a.Cin;
+  const long long N = 16 * a.Cg;
+  const long long M = a.B * H * W;
+  const long long m = static_cast<long long>(blockIdx.x) * kThreads + tid;
+  const bool valid = m < M;
+  const long long b = valid ? m / (H * W) : 0;
+  const long long i = valid ? (m / W) % H : 0;
+  const long long j = valid ? m % W : 0;
+  const T* pp = static_cast<const T*>(a.pp);
+  const T* wt = static_cast<const T*>(a.w);
+  const T* win = pp + ((b * (H + 2) + i + a.off_y[g]) * (W + 2) + j +
+                       a.off_x[g]) * Cin;
+  const unsigned long long blocks = a.blocks[g];
+  const long long chunk = Cin / a.nchunks;
+
+  float acc[kMaxCg];
+#pragma unroll
+  for (int c = 0; c < kMaxCg; ++c) acc[c] = 0.f;
+  for (int tap = 0; tap < 4; ++tap) {
+    const int dy = tap >> 1, dx = tap & 1;
+    const T* src = win + (dy * (W + 2) + dx) * Cin;
+    const T* wsrc = wt + tap * Cin * N + g * a.Cg;
+    for (long long c = 0; c < a.nchunks; ++c) {
+      if (!((blocks >> (tap * a.nchunks + c)) & 1ull)) continue;
+      for (long long k0 = c * chunk; k0 < (c + 1) * chunk; k0 += BK) {
+        if (tid < BK * Cg) {
+          const int r = tid / Cg, col = tid % Cg;
+          Ws[r][col] = to_f(wsrc[(k0 + r) * N + col]);
+        }
+        float v[BK];
+        if (valid) {
+          load16(src + k0, v);
+        } else {
+#pragma unroll
+          for (int k = 0; k < BK; ++k) v[k] = 0.f;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < BK; ++k)
+#pragma unroll
+          for (int col = 0; col < kMaxCg; ++col)
+            if (col < Cg) acc[col] = fmaf(v[k], Ws[k][col], acc[col]);
+        __syncthreads();
+      }
+    }
+  }
+  if (!valid) return;
+  T* out = static_cast<T*>(a.out);
+  const int ga = g / 4, gb = g % 4;
+#pragma unroll
+  for (int col = 0; col < kMaxCg; ++col) {
+    if (col >= Cg) break;
+    float val = acc[col] + a.bias[g * Cg + col];
+    if (a.relu) val = fmaxf(val, 0.f);
+    const T r = from_f<T>(val);
+    if (kFine)
+      out[((b * 4 * H + 4 * i + ga) * 4 * W + 4 * j + gb) * Cg + col] = r;
+    else
+      out[m * N + g * Cg + col] = r;
+  }
+}
+
 // One thread per 16-byte vector of the output.
 __global__ void __launch_bounds__(kThreads) align_kernel(const AlignArgs a) {
   const long long vec = 16 / a.tsize;             // elements per vector
@@ -301,18 +420,53 @@ int stencil(const StencilArgs* a, void* stream, long long groups,
   return launch_stencil<float>(*a, s);
 }
 
+template <typename T, bool kFine>
+int launch_rgb(const RgbArgs& a, cudaStream_t stream) {
+  const long long M = a.B * a.H * a.W;
+  const dim3 grid(static_cast<unsigned>((M + kThreads - 1) / kThreads), 16);
+  rgb_kernel<T, kFine><<<grid, kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shapes the RGB kernel takes: groups of at most kMaxCg channels (8 for
+// the slot entry), chunks of whole BK steps, read offsets 0 or 1.
+int rgb(const RgbArgs* a, void* stream, bool fine) {
+  bool ok = a->Cg >= 1 && a->Cg <= kMaxCg && (fine || a->Cg == kMaxCg) &&
+            a->nchunks >= 1 && a->Cin % (a->nchunks * BK) == 0 &&
+            a->H >= 1 && a->W >= 1;
+  for (int g = 0; g < 16; ++g)
+    ok = ok && a->off_y[g] >= 0 && a->off_y[g] <= 1 && a->off_x[g] >= 0 &&
+         a->off_x[g] <= 1;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->dtype == 1)
+    return fine ? launch_rgb<__nv_bfloat16, true>(*a, s)
+                : launch_rgb<__nv_bfloat16, false>(*a, s);
+  return fine ? launch_rgb<float, true>(*a, s)
+              : launch_rgb<float, false>(*a, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Static shared memory and registers per thread of one block of a kernel:
-// which 0 the stencil GEMM, 1 the align copy; dtype 0 float32, 1 bfloat16.
+// which 0 the stencil GEMM, 1 the align copy, 2 the RGB kernel's fine-grid
+// form, 3 its slot form; dtype 0 float32, 1 bfloat16.
 int mmst_phase_conv_attributes(long long which, long long dtype,
                                long long* smem, long long* regs) {
   cudaFuncAttributes attr;
   cudaError_t err;
   if (which == 1)
     err = cudaFuncGetAttributes(&attr, align_kernel);
+  else if (which == 2)
+    err = dtype == 1
+              ? cudaFuncGetAttributes(&attr, rgb_kernel<__nv_bfloat16, true>)
+              : cudaFuncGetAttributes(&attr, rgb_kernel<float, true>);
+  else if (which == 3)
+    err = dtype == 1
+              ? cudaFuncGetAttributes(&attr, rgb_kernel<__nv_bfloat16, false>)
+              : cudaFuncGetAttributes(&attr, rgb_kernel<float, false>);
   else if (dtype == 1)
     err = cudaFuncGetAttributes(&attr, stencil_kernel<__nv_bfloat16>);
   else
@@ -334,6 +488,14 @@ int mmst_stencil_phase2_conv(const mmst::StencilArgs* a, void* stream) {
 int mmst_stencil_phase2_conv_padcols(const mmst::StencilArgs* a,
                                      void* stream) {
   return stencil(a, stream, 16, 1);
+}
+
+int mmst_stencil_phase2_rgb(const mmst::RgbArgs* a, void* stream) {
+  return rgb(a, stream, true);
+}
+
+int mmst_stencil_phase2_rgb128(const mmst::RgbArgs* a, void* stream) {
+  return rgb(a, stream, false);
 }
 
 int mmst_phase_align(const mmst::AlignArgs* a, void* stream) {

@@ -1,8 +1,9 @@
-// Pieces shared by the port's kernels (window_block.cu, style_block.cu,
-// phase_conv.cu): the block size, type conversion and rounding to the
-// input type T,
-// shared-memory strides, a block-wide GEMM with its A tile in shared memory,
-// row statistics, and one attention head over a window.
+// Pieces shared by the port's kernels (window_block.cu, block_pair.cu,
+// style_block.cu, phase_conv.cu, ...): the block size, type conversion and
+// rounding to the input type T, shared-memory strides, a block-wide GEMM
+// with its A tile in shared memory, row statistics, one attention head over
+// a window, and the whole Swin block on one window (the body of K1, K2 and
+// K11).
 //
 // No warp shuffles anywhere: every step is a plain loop between barriers.
 // That keeps the sources runnable under a CPU emulation of the thread model
@@ -142,6 +143,176 @@ __device__ __forceinline__ void attend_head(
     ob[i * ldo + col0 + d] = from_f<T>(o * rs[i]);
   }
   __syncthreads();
+}
+
+// Shared memory of the per-window body: the window's residual stream in
+// f32, the normed tile, the head outputs, one head's q/k/v and its scores,
+// the row statistics and the tokens' offsets in device memory.
+struct BlockLayout {
+  size_t xs, ln, ob, qh, kh, vh, sc, rs, mean, rstd, toff, total;
+};
+
+__host__ __device__ inline BlockLayout block_smem_layout(int n, int c, int dh,
+                                                         int tsize) {
+  BlockLayout l;
+  size_t o = 0;
+  l.xs = o;   o = align16(o + sizeof(float) * n * ld_f32(c));
+  l.ln = o;   o = align16(o + tsize * n * ld_t(c, tsize));
+  l.ob = o;   o = align16(o + tsize * n * ld_t(c, tsize));
+  l.qh = o;   o = align16(o + tsize * n * ld_t(dh, tsize));
+  l.kh = o;   o = align16(o + tsize * n * ld_t(dh, tsize));
+  l.vh = o;   o = align16(o + tsize * n * ld_t(dh, tsize));
+  l.sc = o;   o = align16(o + sizeof(float) * n * n);
+  l.rs = o;   o = align16(o + sizeof(float) * n);
+  l.mean = o; o = align16(o + sizeof(float) * n);
+  l.rstd = o; o = align16(o + sizeof(float) * n);
+  l.toff = o; o = align16(o + sizeof(long long) * n);
+  l.total = o;
+  return l;
+}
+
+// A load of x, through L2 only where kL2Only: the K11 kernel's second block
+// reads what other thread blocks of the same launch wrote.
+template <bool kL2Only>
+__device__ __forceinline__ float load_x(const float* p) {
+  if (kL2Only) return __ldcg(p);
+  return *p;
+}
+template <bool kL2Only>
+__device__ __forceinline__ float load_x(const __nv_bfloat16* p) {
+  if (kL2Only) return to_f(__ldcg(p));
+  return to_f(*p);
+}
+
+// The whole Swin block on one window of N tokens (kThreads threads):
+// LN1 (pad tokens' normed view zeroed by the validity mask) -> q, k, v from
+// one fused (C, 3C) weight -> per head q k^T * scale + relative-position
+// bias + shift mask, softmax in f32, . v -> proj -> + residual -> optional
+// LN2 -> fc1, GELU (erff), fc2 -> + residual. Token t is read from
+// x[toff[t] ..] and its result written to out[toff[t] ..]; the caller fills
+// toff (the layout's slot of `smem`) and passes a barrier first. mask_w
+// (N x N) and pm_w (N) are this window's shift and validity masks, or null.
+// Products accumulate in f32; intermediates round to T after LN1, after the
+// qkv projection, after q * scale, the softmax numerators before the value
+// product, the head outputs, the LN2 output and the GELU output.
+//
+// W holds the block's weights in fields named as in window_block.cu's Args:
+// wqkv (C, 3C), wp (C, C), w1 (C, hidden), w2 (hidden, C) as pointers to T
+// (void pointers there), and the f32 vectors bqkv, bp, rel_bias (heads, N,
+// N), n1s, n1b, n2s, n2b (a null norm is no norm), b1, b2. The body reads
+// them where W lies: a kernel's parameter struct stays in the constant
+// bank. (Copied into a local struct first, the pointers took registers,
+// and K1 ran 35-55% slower at the Swin's shapes.)
+template <typename T, bool kL2Only, typename W>
+__device__ void block_window(const W& p, int C, int heads, int hidden,
+                             float scale, const T* x, T* out, int N,
+                             const float* mask_w, const float* pm_w,
+                             unsigned char* smem) {
+  const int dh = C / heads;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const T* wqkv = static_cast<const T*>(p.wqkv);
+  const T* wp = static_cast<const T*>(p.wp);
+  const T* w1 = static_cast<const T*>(p.w1);
+  const T* w2 = static_cast<const T*>(p.w2);
+  const BlockLayout L = block_smem_layout(N, C, dh, sizeof(T));
+  float* xs = reinterpret_cast<float*>(smem + L.xs);  // residual stream
+  T* ln = reinterpret_cast<T*>(smem + L.ln);          // LN1, later LN2 out
+  T* ob = reinterpret_cast<T*>(smem + L.ob);          // heads, later hidden
+  T* qh = reinterpret_cast<T*>(smem + L.qh);
+  T* kh = reinterpret_cast<T*>(smem + L.kh);
+  T* vh = reinterpret_cast<T*>(smem + L.vh);
+  float* sc = reinterpret_cast<float*>(smem + L.sc);  // one head's scores
+  float* rs = reinterpret_cast<float*>(smem + L.rs);  // 1 / softmax sums
+  float* mean = reinterpret_cast<float*>(smem + L.mean);
+  float* rstd = reinterpret_cast<float*>(smem + L.rstd);
+  const long long* toff = reinterpret_cast<const long long*>(smem + L.toff);
+  const int LDX = ld_f32(C), LDT = ld_t(C, sizeof(T));
+  const int LDH = ld_t(dh, sizeof(T));
+  const long long lc = C, lh = hidden;
+
+  // 1. The window's tokens into the f32 residual stream.
+  for (int e = tid; e < N * C; e += nthr) {
+    const int t = e / C, c = e % C;
+    xs[t * LDX + c] = load_x<kL2Only>(x + toff[t] + c);
+  }
+  __syncthreads();
+
+  // 2. LN1 (two-pass statistics, one thread per row), pad tokens zeroed.
+  if (p.n1s != nullptr) row_stats(xs, LDX, N, C, mean, rstd);
+  for (int e = tid; e < N * C; e += nthr) {
+    const int t = e / C, c = e % C;
+    float v = xs[t * LDX + c];
+    if (p.n1s != nullptr)
+      v = round_t<T>((v - mean[t]) * rstd[t] * p.n1s[c] + p.n1b[c]);
+    if (pm_w != nullptr && pm_w[t] == 0.f) v = 0.f;
+    ln[t * LDT + c] = from_f<T>(v);
+  }
+  __syncthreads();
+
+  // 3. Attention, one head at a time.
+  for (int h = 0; h < heads; ++h) {
+    // 3a. This head's q, k, v: columns h*dh.. of each third of wqkv.
+    block_gemm(
+        ln, LDT, N, C, wqkv, 3 * lc, 3 * dh,
+        [&](int n) { return (n / dh) * C + h * dh + n % dh; },
+        [&](int m, int n, float acc) {
+          const int part = n / dh, d = n % dh;
+          const float v = round_t<T>(acc + p.bqkv[part * C + h * dh + d]);
+          if (part == 0)
+            qh[m * LDH + d] = from_f<T>(v * scale);
+          else if (part == 1)
+            kh[m * LDH + d] = from_f<T>(v);
+          else
+            vh[m * LDH + d] = from_f<T>(v);
+        });
+    __syncthreads();
+    // 3b. Scores, softmax, head output into columns h*dh.. of ob.
+    attend_head(qh, kh, vh, LDH, N, dh,
+                p.rel_bias + static_cast<long long>(h) * N * N, mask_w, sc,
+                rs, ob, LDT, h * dh);
+  }
+
+  // 4. y = x + proj(heads) + bp, in place in the residual stream.
+  block_gemm(ob, LDT, N, C, wp, lc, C, [](int n) { return n; },
+             [&](int m, int n, float acc) {
+               xs[m * LDX + n] = xs[m * LDX + n] + acc + p.bp[n];
+             });
+  __syncthreads();
+
+  // 5. LN2 (or the plain y) rounded to T as the MLP input.
+  if (p.n2s != nullptr) row_stats(xs, LDX, N, C, mean, rstd);
+  for (int e = tid; e < N * C; e += nthr) {
+    const int t = e / C, c = e % C;
+    float v = xs[t * LDX + c];
+    if (p.n2s != nullptr) v = (v - mean[t]) * rstd[t] * p.n2s[c] + p.n2b[c];
+    ln[t * LDT + c] = from_f<T>(v);
+  }
+  __syncthreads();
+  for (int e = tid; e < N * C; e += nthr) {
+    const int t = e / C, c = e % C;
+    xs[t * LDX + c] += p.b2[c];
+  }
+  __syncthreads();
+
+  // 6. MLP over hidden chunks of C: ob = GELU(ln . w1[:, chunk] + b1), then
+  //    the residual stream accumulates ob . w2[chunk, :].
+  for (int c0 = 0; c0 < hidden; c0 += C) {
+    block_gemm(ln, LDT, N, C, w1 + c0, lh, C, [](int n) { return n; },
+               [&](int m, int n, float acc) {
+                 ob[m * LDT + n] = from_f<T>(gelu(acc + p.b1[c0 + n]));
+               });
+    __syncthreads();
+    block_gemm(ob, LDT, N, C, w2 + static_cast<long long>(c0) * C, lc, C,
+               [](int n) { return n; },
+               [&](int m, int n, float acc) { xs[m * LDX + n] += acc; });
+    __syncthreads();
+  }
+
+  // 7. Store, each token where it was read.
+  for (int e = tid; e < N * C; e += nthr) {
+    const int t = e / C, c = e % C;
+    out[toff[t] + c] = from_f<T>(xs[t * LDX + c]);
+  }
 }
 
 // Opt the kernel in to `bytes` of dynamic shared memory and launch it on

@@ -9,14 +9,18 @@ it stay phase-packed until the next upsample, and in eval
 (``phase2_tail``) the last upsample enters a second phase level, so the
 fine RGB grid is built once, at the end. With ``use_pallas`` the phase
 convs run the stencil kernels K5/K6 and the realign K7
-(ops/phase_conv.py). Without ``fuse_upsample``, the plain nine convs.
+(ops/phase_conv.py); with ``rgb_tail="l2k128"`` the RGB conv runs the
+RGB-tail kernel K12 (its ``rgb128`` entry), with or without ``use_pallas``,
+as in the JAX package. Without ``fuse_upsample``, the plain nine convs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mastermetastyletransfer_tpu_torch.config import DecoderConfig
+from mastermetastyletransfer_tpu_torch.config import (
+    DecoderConfig, require_native_matmul,
+)
 from mastermetastyletransfer_tpu_torch.ops.conv import (
     init_conv, l2_to_l1, phase2_conv3x3, phase_conv3x3, phase_interleave,
     phase_interleave2, reflect_conv, upsample_conv_fused, upsample_nearest,
@@ -50,6 +54,7 @@ def cnn_decoder_apply(params: dict, x: torch.Tensor, cfg: DecoderConfig,
     (eval) allows the double-phase tail, as in the JAX package. A conv
     that emits the L2 tail's padded output always does so when the stencil
     kernels run (the JAX package's default padded-output chaining)."""
+    require_native_matmul(cfg, "decoder")
     plan = _channel_plan(cfg.channel_dim)
     n = len(plan)
     pending_up = False   # the previous conv is marked upsample-after

@@ -3,13 +3,18 @@ reference: codes/utils.py:59-102, torchvision swin_{t,s,b} cut to
 features[:4]).
 
 NHWC: patch embedding (4x4 stride-4 conv + LayerNorm, as a space-to-depth
-GEMM) -> stage 1 (dim E, shift 0 then window//2) -> patch merging (-> 2E)
--> stage 2 (dim 2E). Output (B, H/8, W/8, 2E).
+GEMM or, with ``patch_embed_impl="conv"``, a strided convolution) -> stage
+1 (dim E, shift 0 then window//2) -> patch merging (-> 2E) -> stage 2 (dim
+2E). Output (B, H/8, W/8, 2E).
 
 In evaluation with ``cfg.use_pallas`` every block runs through the block
 kernel and each stage stays padded: pad to the window multiple once, run
 both blocks on the padded grid (the kernel's validity mask keeps the pad
-tokens inert), crop once at the end of the stage. In training
+tokens inert), crop once at the end of the stage. With ``MMST_BLOCK_PAIR=1``
+in the environment (read at each call, as the JAX package reads it) a
+stage of two blocks runs them as one pair kernel K11 (ops/block_pair.py),
+where block 1's effective shift is nonzero in both axes; elsewhere, as on
+a grid of one window, the blocks run one by one. In training
 (``deterministic=False``) every block is the generic block with stochastic
 depth at ``cfg.stochastic_depth_probs`` (active on the frozen encoder too,
 as the reference runs the whole model in train mode), its attention
@@ -18,20 +23,27 @@ through K8 and its MLP residual through K10 under ``use_pallas``.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-from mastermetastyletransfer_tpu_torch.config import AttentionConfig, SwinConfig
+from mastermetastyletransfer_tpu_torch.config import (
+    AttentionConfig, SwinConfig, require_native_matmul,
+)
 from mastermetastyletransfer_tpu_torch.models.style_transformer import (
     init_style_swin_block, style_swin_block_apply,
 )
 from mastermetastyletransfer_tpu_torch.ops.attention import (
     block_kernel_supports, fused_self_attention_block,
+    fused_self_attention_block_pair,
 )
 from mastermetastyletransfer_tpu_torch.ops.mlp import uniform
 from mastermetastyletransfer_tpu_torch.ops.norm import layer_norm
-from mastermetastyletransfer_tpu_torch.ops.windows import pad_to_windows
+from mastermetastyletransfer_tpu_torch.ops.windows import (
+    effective_shift, pad_to_windows,
+)
 
 
 def _block_cfg(cfg: SwinConfig, stage: int, block_idx: int) -> AttentionConfig:
@@ -82,14 +94,20 @@ def swin_backbone_apply(params: dict, images: torch.Tensor,
                         generator: Optional[torch.Generator] = None
                         ) -> torch.Tensor:
     """NHWC images (B, H, W, 3) -> features (B, H/8, W/8, 2E)."""
+    require_native_matmul(cfg, "swin")
     b, h, w, cin = images.shape
     pe = params["patch_embed"]["conv"]
     e = pe["kernel"].shape[-1]
-    patches = images.reshape(b, h // 4, 4, w // 4, 4, cin)
-    patches = patches.permute(0, 1, 3, 2, 4, 5).reshape(b, h // 4, w // 4,
-                                                        16 * cin)
-    x = (patches @ pe["kernel"].reshape(16 * cin, e).to(patches.dtype)
-         + pe["bias"].to(patches.dtype))
+    kernel = pe["kernel"].to(images.dtype)
+    if cfg.patch_embed_impl == "conv":
+        x = F.conv2d(images.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
+                     stride=4).permute(0, 2, 3, 1)
+    else:
+        patches = images.reshape(b, h // 4, 4, w // 4, 4, cin)
+        patches = patches.permute(0, 1, 3, 2, 4, 5).reshape(
+            b, h // 4, w // 4, 16 * cin)
+        x = patches @ kernel.reshape(16 * cin, e)
+    x = x + pe["bias"].to(images.dtype)
     pn = params["patch_embed"]["norm"]
     x = layer_norm(x, pn["scale"], pn["bias"])
 
@@ -98,6 +116,11 @@ def swin_backbone_apply(params: dict, images: torch.Tensor,
     resident = deterministic and cfg.use_pallas and all(
         block_kernel_supports(cfg.embed_dim * 2 ** s, cfg.num_heads[s],
                               cfg.window_size) for s in range(2))
+    # The pair kernel's only shape gate is the block kernel's shared memory
+    # (``resident``); the JAX gate's bf16 and row-width terms are TPU
+    # scoped-VMEM limits, and its MMST_PAIR_BUDGET (a VMEM tile budget) has
+    # no counterpart here.
+    pair_on = os.environ.get("MMST_BLOCK_PAIR", "0") == "1"
     wh, ww = cfg.window_size
     sd_idx = 0
     for stage in range(2):
@@ -106,9 +129,20 @@ def swin_backbone_apply(params: dict, images: torch.Tensor,
         vh, vw = x.shape[1], x.shape[2]
         if resident:
             x = pad_to_windows(x, wh, ww)[0]
-        for blk in range(cfg.depths[stage]):
-            bp, bcfg = params[f"stage{stage}_block{blk}"], _block_cfg(
-                cfg, stage, blk)
+        cfgs = [_block_cfg(cfg, stage, blk)
+                for blk in range(cfg.depths[stage])]
+        if (pair_on and resident and len(cfgs) == 2
+                and all(effective_shift(x.shape[1], x.shape[2],
+                                        cfg.window_size,
+                                        cfgs[1].shift_size))):
+            x = fused_self_attention_block_pair(
+                params[f"stage{stage}_block0"], params[f"stage{stage}_block1"],
+                x, cfgs[0], cfgs[1], use_norm=True, valid_hw=(vh, vw))
+            sd_idx += 2
+            x = x[:, :vh, :vw]
+            continue
+        for blk, bcfg in enumerate(cfgs):
+            bp = params[f"stage{stage}_block{blk}"]
             if resident:
                 x = fused_self_attention_block(bp, x, bcfg, use_norm=True,
                                                valid_hw=(vh, vw))

@@ -7,7 +7,8 @@ JAX package's gate, ``_pallas_ok``) the attentions run through the
 differentiable kernels K8 and K9 (ops/window_attention.py), in evaluation
 and in training; ``fused_self_attention_block`` runs a whole
 self-attention block through the evaluation-only block kernel
-(ops/window_block.py).
+(ops/window_block.py), ``fused_self_attention_block_pair`` a Swin stage's
+two blocks through the pair kernel (ops/block_pair.py).
 
 Parity rule: inputs are zero-padded BEFORE the projections, so pad tokens
 carry the qkv bias into border windows as keys, as in the reference
@@ -22,7 +23,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from mastermetastyletransfer_tpu_torch.config import AttentionConfig
-from mastermetastyletransfer_tpu_torch.ops import window_block
+from mastermetastyletransfer_tpu_torch.ops import block_pair, window_block
 from mastermetastyletransfer_tpu_torch.ops.mlp import (
     dropout, init_linear, linear, trunc_normal,
 )
@@ -339,6 +340,38 @@ def fused_self_attention_block(block_params: dict, x_in: torch.Tensor,
         xw.reshape(b, -1, wh * ww, c).contiguous(), weights,
         heads=cfg.num_heads, mask=mask, padmask=padmask)
     return _finalize(out.reshape(-1, wh * ww, c), geom, cfg.window_size)
+
+
+def fused_self_attention_block_pair(bp0: dict, bp1: dict,
+                                    x_in: torch.Tensor,
+                                    cfg0: AttentionConfig,
+                                    cfg1: AttentionConfig, *, use_norm: bool,
+                                    valid_hw: Optional[Tuple[int, int]] = None
+                                    ) -> torch.Tensor:
+    """A Swin stage's (W-MSA, SW-MSA) block pair through the pair kernel
+    K11: the same function as ``fused_self_attention_block`` with cfg0 and
+    then with cfg1, in one launch. x_in may arrive padded (a padded-resident
+    stage), valid_hw marking the true content. The output is in the plain
+    frame (the JAX kernel gives block 1's rolled frame and its caller here
+    un-rolls). The caller gates on a nonzero effective shift of block 1,
+    which the pair's one-window-row dependence assumes in JAX."""
+    wh, ww = cfg1.window_size
+    b, h, w, c = x_in.shape
+    xp, pad_h, pad_w = pad_to_windows(x_in, wh, ww)
+    sh, sw = effective_shift(pad_h, pad_w, cfg1.window_size, cfg1.shift_size)
+    dev = x_in.device
+    mask1 = (_shift_mask(pad_h, pad_w, wh, ww, sh, sw, dev)
+             if sh or sw else None)
+    vh, vw = valid_hw if valid_hw is not None else (h, w)
+    pm0 = _valid_mask(vh, vw, pad_h, pad_w, wh, ww, 0, 0, dev)
+    pm1 = _valid_mask(vh, vw, pad_h, pad_w, wh, ww, sh, sw, dev)
+    w0, w1 = (window_block.block_weights(bp, cfg1.window_size, x_in.dtype,
+                                         use_norm) for bp in (bp0, bp1))
+    out = block_pair.window_block_pair_rows(
+        xp.contiguous(), w0, w1, heads=cfg1.num_heads,
+        window=cfg1.window_size, shift=(sh, sw), mask1=mask1, padmask0=pm0,
+        padmask1=pm1)
+    return out[:, :h, :w]
 
 
 def block_kernel_supports(dim: int, heads: int,

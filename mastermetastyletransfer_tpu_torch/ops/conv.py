@@ -8,9 +8,10 @@ as 2x2-tap convs on the coarse grid with the fine grid's phases packed into
 the channels. One phase level (L1) packs 2x2 phases (4 C channels), the
 double level (L2) 4x4 (16 C). With ``use_pallas`` the convs that pass the
 stencil gate run the stencil kernels K5 (L1) and K6 (L2), and the L1
-realign runs K7 (ops/phase_conv.py); otherwise a plain conv of the composed
-kernel, the bias and ReLU in the working type, and a slice realign, as the
-JAX package's XLA route computes them.
+realign runs K7 (ops/phase_conv.py); the RGB conv of the L2 tail runs the
+RGB-tail kernel K12 where the JAX package runs its RGB kernels; otherwise
+a plain conv of the composed kernel, the bias and ReLU in the working type,
+and a slice realign, as the JAX package's XLA route computes them.
 
 The composed kernels and repeated biases depend on the weights alone, so
 they are built once per weight tensor and type (``_derived``), and the
@@ -430,6 +431,20 @@ def phase_interleave2(p: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, 4 * h, 4 * w, c)
 
 
+# The JAX package's switch for its first RGB-tail kernel (K12's ``rgb``
+# entry), off there since a TPU measurement; the same constant and route
+# here (``phase2_conv3x3``).
+_RGB_KERNEL_ON = False
+
+
+def _slots128(k2: torch.Tensor, c_out: int) -> torch.Tensor:
+    """An L2 kernel (..., 16 C') with its 16 groups' C' <= 8 lanes moved to
+    8-lane slots, zeros elsewhere: (..., 128)."""
+    out = k2.new_zeros((*k2.shape[:-1], 16, 8))
+    out[..., :c_out] = k2.reshape(*k2.shape[:-1], 16, c_out)
+    return out.reshape(*k2.shape[:-1], 128)
+
+
 def l2_to_l1(p: torch.Tensor) -> torch.Tensor:
     """L2 phase tensor (B, H, W, 16 C) -> the L1 phase tensor of the same
     fine grid (B, 2H, 2W, 4 C): fine row 4i + 2a1 + a0 = 2(2i+a1) + a0."""
@@ -456,11 +471,13 @@ def phase2_conv3x3(params: dict, p: torch.Tensor, *, up: bool,
     and ``_phase2_pad_rows`` the rows; the conv route pads the finished
     output.
 
-    The RGB-tail kernels K12 (``rgb_tail="l2k128"``, and the JAX package's
-    ``stencil_phase2_rgb``, which no configuration there turns on) are not
-    ported: ``k128`` raises."""
+    The RGB conv (``interleave``, C' <= 8) runs the RGB-tail kernel K12 as
+    the JAX package routes it: its ``rgb`` entry under ``use_pallas`` and
+    ``_RGB_KERNEL_ON``; else, with ``k128`` (``rgb_tail="l2k128"``, whether
+    or not ``use_pallas``), its ``rgb128`` entry on the kernel and bias
+    moved to 8-lane slots, the fine grid then interleaved and sliced here."""
     assert not (emit_padded and interleave)
-    _, h, w, _ = p.shape
+    b, h, w, _ = p.shape
     if in_padded:
         h, w = h - 2, w - 2
     wk = params["kernel"]
@@ -468,10 +485,24 @@ def phase2_conv3x3(params: dict, p: torch.Tensor, *, up: bool,
     k2 = _derived(wk, ("l2up" if up else "l2", p.dtype),
                   lambda: _phase2_kernel(wk.float(), up)[0].to(p.dtype))
     pp = p if in_padded else _phase2_pad(p, 2 if up else 4, c_in, up)
-    if k128 and not up and interleave and c_out <= 8:
-        raise NotImplementedError("rgb_tail='l2k128' needs the RGB-tail "
-                                  "kernel K12 (stencil_phase2_rgb128), "
-                                  "which is not ported")
+    if (use_pallas and not up and interleave and c_out < 32
+            and pp.shape[-1] % 128 == 0 and _RGB_KERNEL_ON):
+        return pc.stencil_phase2_rgb(pp, k2, _bias(params, 16, torch.float32),
+                                     _phase2_bases(False), relu,
+                                     table=_phase2_table(False))
+    if (k128 and not up and interleave and c_out <= 8
+            and pp.shape[-1] % 128 == 0):
+        bias = params["bias"]
+        pk128 = _derived(wk, ("l2k128", p.dtype),
+                         lambda: _slots128(k2, c_out))
+        # the JAX route rounds the slot bias to the working type
+        b128 = _derived(bias, ("bias128", p.dtype), lambda: _slots128(
+            bias.float().repeat(16), c_out).to(p.dtype).float())
+        out = pc.stencil_phase2_rgb128(pp, pk128, b128, _phase2_bases(False),
+                                       relu, table=_phase2_table(False))
+        fine = (out.reshape(b, h, w, 4, 4, 8).permute(0, 1, 3, 2, 4, 5)
+                .reshape(b, 4 * h, 4 * w, 8))
+        return fine[..., :c_out]
     if use_pallas and c_out % 32 == 0 and pp.shape[-1] % 128 == 0:
         table = _phase2_table(up)
         bias16 = _bias(params, 16, torch.float32)

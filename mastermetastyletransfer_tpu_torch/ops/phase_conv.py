@@ -1,7 +1,8 @@
 """The decoder's phase-space kernels (JAX counterparts: the Pallas kernels K5
 ``stencil_phase_conv``, K6 ``stencil_phase2_conv`` and
-``stencil_phase2_conv_padcols``, and K7 ``phase_align`` in
-ops/pallas_conv.py), over the phase tensors of ops/conv.py.
+``stencil_phase2_conv_padcols``, K7 ``phase_align`` and K12
+``stencil_phase2_rgb`` and ``stencil_phase2_rgb128`` in ops/pallas_conv.py),
+over the phase tensors of ops/conv.py.
 
 * ``stencil_phase_conv`` (K5) and ``stencil_phase2_conv`` (K6): a 2x2-tap
   convolution of a padded phase tensor pp (B, H+2, W+2, Cin) into 4 (K5)
@@ -16,18 +17,24 @@ ops/pallas_conv.py), over the phase tensors of ops/conv.py.
 * ``stencil_phase2_conv_padcols`` (K6): the same, returned with the next L2
   conv's phase-pad columns, (B, H, W+2, 16 C');
 * ``phase_align`` (K7): (B, H+1, W+1, 4 C') -> (B, H, W, 4 C'), group
-  g = 2a + b taken at offset (a, b).
+  g = 2a + b taken at offset (a, b);
+* ``stencil_phase2_rgb`` and ``stencil_phase2_rgb128`` (K12): the RGB conv
+  on the L2 phase tensor, the same stencil with groups of C' <= 8 channels
+  and the read offsets of the align bases; the first returns the
+  interleaved fine grid (B, 4H, 4W, C'), the second the aligned L2 tensor
+  (B, H, W, 128) with group g in lanes [8g, 8g + 8).
 
-All four are one CUDA source (csrc/phase_conv.cu). Each wrapper runs its
+All six are one CUDA source (csrc/phase_conv.cu). Each wrapper runs its
 kernel for a CUDA tensor and the plain PyTorch version below for a CPU
 tensor; any other device raises. The plain versions are the yardstick the
 kernels are held to: f32 sums of products of T-typed operands, the f32
 bias, ReLU, and one rounding to T, as the kernels and the JAX kernels do.
 
-K5, K6's plain entry and K7 are ``torch.autograd.Function``s whose
-backward passes are plain PyTorch ports of the JAX package's (plain XLA
-there too); K6's pad-columns entry is for evaluation and refuses autograd
-on the card (ops/window_block.py:refuse_grad).
+K5, K6's plain entry, K7 and both K12 entries are
+``torch.autograd.Function``s whose backward passes are plain PyTorch ports
+of the JAX package's (plain XLA there too); K6's pad-columns entry is for
+evaluation and refuses autograd on the card
+(ops/window_block.py:refuse_grad).
 
 ``LAUNCHES`` counts kernel launches per entry; a wrapper adds one only where
 it launches its kernel.
@@ -37,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, NamedTuple, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -47,7 +54,8 @@ from mastermetastyletransfer_tpu_torch.ops.window_block import (
 )
 
 LAUNCHES = {"stencil_phase_conv": 0, "stencil_phase2_conv": 0,
-            "stencil_phase2_conv_padcols": 0, "phase_align": 0}
+            "stencil_phase2_conv_padcols": 0, "phase_align": 0,
+            "stencil_phase2_rgb": 0, "stencil_phase2_rgb128": 0}
 
 PadMaps = Sequence[Tuple[int, int]]
 
@@ -173,6 +181,71 @@ def phase_align_plain(big: torch.Tensor, c_out: int) -> torch.Tensor:
                       for a in range(2) for b in range(2)], -1)
 
 
+def rgb_table(bases) -> GroupTable:
+    """The dense table of K12's JAX kernels: group g = 4a + b reads at
+    (bases[a], bases[b]) and every tap's whole input (one chunk)."""
+    return GroupTable(tuple((bases[g // 4], bases[g % 4])
+                            for g in range(16)), (0b1111,) * 16, 1)
+
+
+def _rgb_aligned(pp: torch.Tensor, pk: torch.Tensor, bias: torch.Tensor,
+                 bases, relu: bool) -> torch.Tensor:
+    """K12's sums: the composed 2x2 conv of pp over (H+1, W+1) in f32
+    (float32 products of T-typed operands), the f32 bias, ReLU, and group g
+    = 4a + b of its N / 16 lanes taken at (bases[a], bases[b]); (B, H, W,
+    N), f32, not yet rounded."""
+    _, hp, wp, _ = pp.shape
+    h, w = hp - 2, wp - 2
+    cg = pk.shape[-1] // 16
+    ppf, pkf = pp.float(), pk.float()
+    big = None
+    for dy in range(2):
+        for dx in range(2):
+            t = ppf[:, dy:dy + h + 1, dx:dx + w + 1] @ pkf[dy, dx]
+            big = t if big is None else big + t
+    big = big + bias.float()
+    if relu:
+        big = torch.relu(big)
+    return torch.cat([big[:, bases[g // 4]:bases[g // 4] + h,
+                          bases[g % 4]:bases[g % 4] + w,
+                          g * cg:(g + 1) * cg] for g in range(16)], -1)
+
+
+def _interleave(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 16 C), group 4a + b -> the fine grid (B, 4H, 4W, C)."""
+    b, h, w, c16 = x.shape
+    c = c16 // 16
+    return (x.reshape(b, h, w, 4, 4, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(b, 4 * h, 4 * w, c))
+
+
+def _deinterleave(x: torch.Tensor) -> torch.Tensor:
+    """The fine grid (B, 4H, 4W, C) -> (B, H, W, 16 C), group 4a + b."""
+    b, h4, w4, c = x.shape
+    return (x.reshape(b, h4 // 4, 4, w4 // 4, 4, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(b, h4 // 4, w4 // 4, 16 * c))
+
+
+def stencil_phase2_rgb_plain(pp: torch.Tensor, pk: torch.Tensor,
+                             bias16: torch.Tensor, bases,
+                             relu: bool = False) -> torch.Tensor:
+    """K12 ``rgb``'s function: pp (B, H+2, W+2, Cin), pk (2, 2, Cin, 16 C')
+    -> the fine grid (B, 4H, 4W, C'); one rounding to pp's type, as
+    ``_rgb_kernel`` rounds its sums before its exact selection."""
+    return _interleave(_rgb_aligned(pp, pk, bias16, bases, relu)
+                       .to(pp.dtype))
+
+
+def stencil_phase2_rgb128_plain(pp: torch.Tensor, pk128: torch.Tensor,
+                                bias128: torch.Tensor, bases,
+                                relu: bool = False) -> torch.Tensor:
+    """K12 ``rgb128``'s function: pk128 (2, 2, Cin, 128) with group g's
+    lanes at [8g, 8g + 8) -> the aligned L2 tensor (B, H, W, 128), zero
+    lanes included; one rounding, as ``_rgb128_kernel`` rounds after its
+    masked align."""
+    return _rgb_aligned(pp, pk128, bias128, bases, relu).to(pp.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -192,6 +265,15 @@ class StencilArgs(ctypes.Structure):
                                           "right_ph")])
 
 
+class RgbArgs(ctypes.Structure):
+    """The C struct ``RgbArgs`` of csrc/phase_conv.cu, field for field."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in ("pp", "w", "bias", "out")]
+                + [(f, _LL) for f in ("dtype", "B", "H", "W", "Cin", "Cg",
+                                      "nchunks", "relu")]
+                + [("off_y", _LL * 16), ("off_x", _LL * 16),
+                   ("blocks", ctypes.c_ulonglong * 16)])
+
+
 class AlignArgs(ctypes.Structure):
     """The C struct ``AlignArgs`` of csrc/phase_conv.cu."""
     _fields_ = ([("big", ctypes.c_void_p), ("out", ctypes.c_void_p)]
@@ -203,7 +285,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("phase_conv")
     for entry in LAUNCHES:
         fn = getattr(lib, f"mmst_{entry}")
-        args = AlignArgs if entry == "phase_align" else StencilArgs
+        args = (AlignArgs if entry == "phase_align" else
+                RgbArgs if "rgb" in entry else StencilArgs)
         fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.mmst_phase_conv_attributes.argtypes = [
@@ -212,12 +295,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+_KERNELS = ("stencil", "align", "rgb", "rgb128")
+
+
 def kernel_attributes(kernel: str, dtype: torch.dtype) -> Tuple[int, int]:
     """(static shared memory bytes per block, registers per thread) of the
-    "stencil" or the "align" kernel at ``dtype``."""
+    "stencil", "align", "rgb" or "rgb128" kernel at ``dtype``."""
     smem, regs = _LL(), _LL()
     err = _lib().mmst_phase_conv_attributes(
-        int(kernel == "align"), int(dtype == torch.bfloat16),
+        _KERNELS.index(kernel), int(dtype == torch.bfloat16),
         ctypes.byref(smem), ctypes.byref(regs))
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes: CUDA error {err}")
@@ -448,3 +534,110 @@ def phase_align(big: torch.Tensor, c_out: int) -> torch.Tensor:
     """K7: (B, H+1, W+1, 4 C') -> (B, H, W, 4 C'), exact; differentiable
     (a plain backward)."""
     return _PhaseAlign.apply(big, c_out)
+
+
+def _rgb_launch(entry: str, pp: torch.Tensor, pk: torch.Tensor,
+                bias: torch.Tensor, table: GroupTable,
+                relu: bool) -> torch.Tensor:
+    """Check what K12's kernel takes and launch it."""
+    if pp.dtype not in (torch.float32, torch.bfloat16) or pp.dim() != 4:
+        raise TypeError(f"pp is {pp.dtype} of shape {tuple(pp.shape)}; the "
+                        "kernel takes a (B, H+2, W+2, Cin) float32 or "
+                        "bfloat16 tensor")
+    b, hp, wp, cin = pp.shape
+    h, w = hp - 2, wp - 2
+    n = pk.shape[-1]
+    cg = n // 16
+    fine = entry == "stencil_phase2_rgb"
+    if h < 1 or w < 1:
+        raise ValueError(f"pp of {hp}x{wp} is too small for the stencil")
+    if n % 16 or not (1 <= cg <= 8) or (not fine and cg != 8):
+        raise ValueError(f"{n} output lanes: {entry} takes 16 groups of "
+                         + ("1 to 8 channels" if fine else "8 slots"))
+    if (len(table.offsets) != 16 or len(table.blocks) != 16
+            or table.nchunks < 1 or cin % (16 * table.nchunks)):
+        raise ValueError(f"Cin={cin} does not split into {table.nchunks} "
+                         "chunks of a multiple of 16, or the table has not "
+                         "16 groups")
+    dev = pp.device
+    _need("pp", pp, pp.shape, pp.dtype, dev)
+    _need("pk", pk, (2, 2, cin, n), pp.dtype, dev)
+    _need("bias", bias, (n,), torch.float32, dev)
+    shape = (b, 4 * h, 4 * w, cg) if fine else (b, h, w, n)
+    out = torch.empty(shape, dtype=pp.dtype, device=dev)
+    _aligned("pp", pp)
+    args = RgbArgs(
+        pp=pp.data_ptr(), w=pk.data_ptr(), bias=bias.data_ptr(),
+        out=out.data_ptr(), dtype=int(pp.dtype == torch.bfloat16), B=b, H=h,
+        W=w, Cin=cin, Cg=cg, nchunks=table.nchunks, relu=int(relu),
+        off_y=(_LL * 16)(*(o[0] for o in table.offsets)),
+        off_x=(_LL * 16)(*(o[1] for o in table.offsets)),
+        blocks=(ctypes.c_ulonglong * 16)(*table.blocks))
+    _call(entry, args, dev)
+    return out
+
+
+class _RgbTail(torch.autograd.Function):
+    """A K12 entry with the plain backward of the JAX package's custom_vjps
+    (``_rgb_bwd``, ``_rgb128_bwd``: plain XLA there): the cotangent
+    (un-interleaved for ``rgb``) scattered back through the align onto the
+    conv's (H+1, W+1) grid, then the VALID conv's transposes. Saves pp, the
+    kernel, the bias and the output."""
+
+    @staticmethod
+    def forward(ctx, pp, pk, bias, bases, relu, table, entry):
+        fine = entry == "stencil_phase2_rgb"
+        if _on_cuda(pp):
+            y = _rgb_launch(entry, pp, pk, bias, table, relu)
+        elif fine:
+            y = stencil_phase2_rgb_plain(pp, pk, bias, bases, relu)
+        else:
+            y = stencil_phase2_rgb128_plain(pp, pk, bias, bases, relu)
+        ctx.save_for_backward(pp, pk, bias, y)
+        ctx.bases, ctx.relu, ctx.fine = bases, relu, fine
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        pp, pk, bias, y = ctx.saved_tensors
+        if ctx.fine:
+            g, y = _deinterleave(g), _deinterleave(y)
+        grads = stencil_conv_bwd_plain(g, pp, pk, bias, y,
+                                       rgb_table(ctx.bases), ctx.relu)
+        return (*grads, None, None, None, None)
+
+
+def _rgb_entry(entry: str, pp, pk, bias, bases, relu, table):
+    bases = tuple(int(v) for v in bases)
+    dense = rgb_table(bases)
+    table = dense if table is None else table
+    if table.offsets != dense.offsets:
+        raise ValueError(f"table offsets {table.offsets} are not the align "
+                         f"of bases {bases}")
+    return _RgbTail.apply(pp, pk, bias, bases, relu, table, entry)
+
+
+def stencil_phase2_rgb(pp: torch.Tensor, pk: torch.Tensor,
+                       bias16: torch.Tensor, bases, relu: bool = False,
+                       table: Optional[GroupTable] = None) -> torch.Tensor:
+    """K12 ``rgb``: pp (B, H+2, W+2, Cin) custom-padded L2 input, pk (2, 2,
+    Cin, 16 C') composed kernel in pp's type (C' <= 8), bias16 (16 C',)
+    float32, ``bases`` the align bases -> the fine grid (B, 4H, 4W, C').
+    ``table``: the kernel's nonzero blocks (ops/conv.py:_phase2_table),
+    whose zero blocks the CUDA kernel skips; None, every block.
+    Differentiable (a plain backward)."""
+    return _rgb_entry("stencil_phase2_rgb", pp, pk, bias16, bases, relu,
+                      table)
+
+
+def stencil_phase2_rgb128(pp: torch.Tensor, pk128: torch.Tensor,
+                          bias128: torch.Tensor, bases, relu: bool = False,
+                          table: Optional[GroupTable] = None
+                          ) -> torch.Tensor:
+    """K12 ``rgb128``: pk128 (2, 2, Cin, 128) with group g's C' output
+    lanes at [8g, 8g + C') and zeros elsewhere, bias128 (128,) float32 the
+    same way -> the aligned L2 tensor (B, H, W, 128); the caller interleaves
+    and slices. ``table`` as for ``stencil_phase2_rgb``. Differentiable (a
+    plain backward)."""
+    return _rgb_entry("stencil_phase2_rgb128", pp, pk128, bias128, bases,
+                      relu, table)

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels (ops/window_block.py, ops/style_block.py,
-ops/phase_conv.py, ops/window_attention.py, ops/ln_mlp.py) against their
-plain PyTorch versions on the card, the training kernels' backward passes
-against torch.autograd of the plain forward.
+"""The port's CUDA kernels (ops/window_block.py, ops/block_pair.py,
+ops/style_block.py, ops/phase_conv.py, ops/patch_embed.py,
+ops/window_attention.py, ops/ln_mlp.py) against their plain PyTorch versions
+on the card, the training kernels' backward passes against torch.autograd
+of the plain forward.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither JAX nor tests/conftest.py's fixtures, so that it also runs on a
@@ -16,7 +17,10 @@ near a rounding boundary may land on either side) plus 2^-6 of the block's
 largest update |out - x| (intermediates rounded on either side of a
 boundary). The decoder's stencil kernels: at bfloat16 two units in the
 last place plus 2^-8 of the largest |output| (both sides sum in f32 and
-round once); the phase align exactly.
+round once); the phase align exactly. The pair kernel K11 as the block
+kernel, and bit for bit as K1 applied twice (the same per-window body); the
+RGB-tail kernel K12 as the stencil kernels; the patch-embed kernel K13 at
+bfloat16 two units in the last place plus 2^-6 of the largest |output|.
 """
 
 import pytest
@@ -26,6 +30,8 @@ from mastermetastyletransfer_tpu_torch.config import AttentionConfig
 from mastermetastyletransfer_tpu_torch.models.style_transformer import (
     init_style_swin_block,
 )
+from mastermetastyletransfer_tpu_torch.ops import block_pair as bpr
+from mastermetastyletransfer_tpu_torch.ops import patch_embed as tpe
 from mastermetastyletransfer_tpu_torch.ops import style_block as sb
 from mastermetastyletransfer_tpu_torch.ops import window_block as wb
 from mastermetastyletransfer_tpu_torch.ops import windows as twin
@@ -599,3 +605,169 @@ def test_eval_kernels_refuse_autograd_on_the_card(cuda):
     with torch.no_grad():
         wb.window_block_windows(xw, w, heads=HEADS)
     assert wb.LAUNCHES["window_block_windows"] == before + 1
+
+
+# ---------------------------------------------------------------------------
+# The Swin block pair (ops/block_pair.py): K11
+# ---------------------------------------------------------------------------
+
+def _pair_case(cuda, dtype, hp, wp, vh, vw, c=C, heads=HEADS):
+    """Two blocks' weights (non-trivial norms), a (2, hp, wp, c) image of
+    which vh x vw tokens are valid, and the K11 keywords at shift 3."""
+    g = torch.Generator().manual_seed(7)
+    acfg = AttentionConfig(dim=c, num_heads=heads, window_size=(7, 7),
+                           shift_size=(3, 3))
+    ws = []
+    for _ in range(2):
+        params = init_style_swin_block(g, acfg, use_norm=True,
+                                       exclude_mlp=False, mlp_ratio=4.0)
+        for name in ("norm1", "norm2"):
+            params[name] = {"scale": 1 + 0.3 * torch.randn(c, generator=g),
+                            "bias": 0.3 * torch.randn(c, generator=g)}
+        ws.append(wb.block_weights(tree_map(lambda t: t.to(cuda), params),
+                                   (7, 7), dtype, True))
+    x = torch.randn((2, hp, wp, c), generator=g).to(cuda, dtype)
+    sh, sw = twin.effective_shift(hp, wp, (7, 7), (3, 3))
+    kw = dict(heads=heads, window=(7, 7), shift=(sh, sw),
+              mask1=torch.from_numpy(twin.shift_attention_mask(
+                  hp, wp, 7, 7, sh, sw)).to(cuda),
+              padmask0=torch.from_numpy(twin.valid_token_mask(
+                  vh, vw, hp, wp, 7, 7, 0, 0)).to(cuda),
+              padmask1=torch.from_numpy(twin.valid_token_mask(
+                  vh, vw, hp, wp, 7, 7, sh, sw)).to(cuda))
+    return ws, x, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(21, 21, 17, 16), (14, 35, 12, 30),
+                                  (14, 14, 14, 14)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_pair_matches_plain_and_k1_twice(cuda, dtype, grid):
+    (w0, w1), x, kw = _pair_case(cuda, dtype, *grid)
+    before = bpr.LAUNCHES["window_block_pair_rows"]
+    got = bpr.window_block_pair_rows(x, w0, w1, **kw)
+    assert bpr.LAUNCHES["window_block_pair_rows"] == before + 1
+    _check(got, bpr.window_block_pair_rows_plain(x, w0, w1, **kw), x)
+    y0 = wb.window_block_rows(x, w0, heads=kw["heads"], window=(7, 7),
+                              shift=(0, 0), padmask=kw["padmask0"])
+    y1 = wb.window_block_rows(y0, w1, heads=kw["heads"], window=(7, 7),
+                              shift=kw["shift"], mask=kw["mask1"],
+                              padmask=kw["padmask1"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, y1)
+
+
+@pytest.mark.cuda
+def test_block_pair_swin_s_width_matches_plain(cuda):
+    (w0, w1), x, kw = _pair_case(cuda, torch.bfloat16, 14, 14, 10, 10,
+                                 c=192, heads=6)
+    _check(bpr.window_block_pair_rows(x, w0, w1, **kw),
+           bpr.window_block_pair_rows_plain(x, w0, w1, **kw), x)
+
+
+# ---------------------------------------------------------------------------
+# The RGB-tail kernel (ops/phase_conv.py): K12
+# ---------------------------------------------------------------------------
+
+def _rgb_case(cuda, dtype, entry):
+    """conv8 on an L2 tensor of 16 x 32 channels at (2, PH, PW): pp, the
+    composed kernel (in 8-lane slots for the rgb128 entry), its f32 bias and
+    the bases."""
+    from mastermetastyletransfer_tpu_torch.ops import conv as tconv
+
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((2, PH, PW, 512), generator=g)
+    k, bases = tconv._phase2_kernel(0.1 * torch.randn((3, 3, 32, 3),
+                                                      generator=g), False)
+    bias = torch.randn(3, generator=g).repeat(16)
+    if entry == "stencil_phase2_rgb128":
+        k, bias = tconv._slots128(k, 3), tconv._slots128(bias, 3)
+    pp = tconv._phase2_pad(x, 4, 32, False)
+    return (pp.to(cuda, dtype).contiguous(), k.to(cuda, dtype).contiguous(),
+            bias.to(cuda), bases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["dense", "l2"])
+@pytest.mark.parametrize("entry", ["stencil_phase2_rgb",
+                                   "stencil_phase2_rgb128"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rgb_tail_matches_plain(cuda, dtype, entry, table):
+    from mastermetastyletransfer_tpu_torch.ops import conv as tconv
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+
+    pp, pk, bias, bases = _rgb_case(cuda, dtype, entry)
+    tab = tconv._phase2_table(False) if table == "l2" else None
+    before = pc.LAUNCHES[entry]
+    got = getattr(pc, entry)(pp, pk, bias, bases, table=tab)
+    assert pc.LAUNCHES[entry] == before + 1
+    _check_conv(got, getattr(pc, entry + "_plain")(pp, pk, bias, bases))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["stencil_phase2_rgb",
+                                   "stencil_phase2_rgb128"])
+def test_rgb_tail_backward_matches_plain(cuda, entry):
+    """K12 on the card carries gradients: its Function's plain backward
+    against autograd of the plain forward, float32 with TF32 off."""
+    from mastermetastyletransfer_tpu_torch.models.master import _TF32_OFF
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+
+    with _TF32_OFF:
+        pp, pk, bias, bases = _rgb_case(cuda, torch.float32, entry)
+        kern = _leaves([pp, pk, bias])
+        out = getattr(pc, entry)(*kern, bases)
+        assert out.grad_fn is not None
+        gy = torch.randn(out.shape,
+                         generator=torch.Generator().manual_seed(9)).to(cuda)
+        got = torch.autograd.grad(out, kern, gy)
+        plain = _leaves([pp, pk, bias])
+        ref = torch.autograd.grad(
+            getattr(pc, entry + "_plain")(*plain, bases), plain, gy)
+        for a, r in zip(got, ref):
+            _grad_check(a, r, r.abs().max().item(), torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# The patch-embed kernel (ops/patch_embed.py): K13
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_ln", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_patch_embed_matches_plain(cuda, dtype, use_ln):
+    g = torch.Generator().manual_seed(10)
+    # 10 rows: the last 2 (below the last whole patch row) are dropped
+    img = torch.randn((2, 10, 140, 3), generator=g).to(cuda, dtype)
+    k = (0.1 * torch.randn((4, 4, 3, 96), generator=g)).to(cuda)
+    vecs = [(0.1 * torch.randn(96, generator=g)).to(cuda) for _ in range(3)]
+    vecs[1] = vecs[1] + 1
+    args = (img, k, *(vecs if use_ln else vecs[:1]))
+    before = tpe.LAUNCHES["patch_embed"]
+    got = tpe.patch_embed(*args)
+    assert tpe.LAUNCHES["patch_embed"] == before + 1
+    assert got.shape == (2, 2, 35, 96)
+    ref = tpe.patch_embed_plain(*args)
+    _check(got, ref, torch.zeros_like(ref))
+
+
+@pytest.mark.cuda
+def test_pair_and_patch_embed_refuse_autograd_on_the_card(cuda):
+    """K11 and K13 have no backward: under autograd they raise and launch
+    nothing; under no_grad they run."""
+    (w0, w1), x, kw = _pair_case(cuda, torch.float32, 14, 14, 14, 14)
+    img = torch.rand((1, 8, 8, 3), device=cuda)
+    k = torch.randn((4, 4, 3, 32), device=cuda)
+    bias = torch.zeros(32, device=cuda)
+    for counts, entry, call, leaf in (
+            (bpr.LAUNCHES, "window_block_pair_rows",
+             lambda t: bpr.window_block_pair_rows(t, w0, w1, **kw), x),
+            (tpe.LAUNCHES, "patch_embed",
+             lambda t: tpe.patch_embed(img, t, bias), k)):
+        before = counts[entry]
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(leaf.clone().requires_grad_())
+        assert counts[entry] == before
+        with torch.no_grad():
+            call(leaf)
+        assert counts[entry] == before + 1

@@ -53,14 +53,15 @@ def test_sources_name_no_jax():
 
 def test_every_port_module_imports_without_jax_or_pil():
     """Each module of the package on its own, the kernel wrappers
-    (ops/window_block.py, ops/style_block.py, ops/phase_conv.py,
-    ops/window_attention.py, ops/ln_mlp.py), the losses and the training
-    step included."""
+    (ops/window_block.py, ops/block_pair.py, ops/style_block.py,
+    ops/phase_conv.py, ops/patch_embed.py, ops/window_attention.py,
+    ops/ln_mlp.py), the losses and the training step included."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in (ROOT / "mastermetastyletransfer_tpu_torch").rglob("*.py")
         if p.name != "__init__.py")
-    for name in ("ops.style_block", "ops.phase_conv", "ops.window_attention",
+    for name in ("ops.block_pair", "ops.style_block", "ops.phase_conv",
+                 "ops.patch_embed", "ops.window_attention",
                  "ops.ln_mlp", "losses.vgg", "losses.loss",
                  "train.schedule", "train.state", "train.step"):
         assert f"mastermetastyletransfer_tpu_torch.{name}" in modules, name

@@ -255,18 +255,11 @@ def test_decoder_route_reaches_each_kernel(decoder, monkeypatch):
     assert cfg.use_pallas
     tdec.cnn_decoder_apply(pt, x, cfg)
     assert calls == {"stencil_phase_conv": 5, "stencil_phase2_conv": 0,
-                     "stencil_phase2_conv_padcols": 1, "phase_align": 1}
+                     "stencil_phase2_conv_padcols": 1, "phase_align": 1,
+                     "stencil_phase2_rgb": 0, "stencil_phase2_rgb128": 0}
     calls.update(dict.fromkeys(calls, 0))
     tdec.cnn_decoder_apply(pt, x, cfg.replace(use_pallas=False))
     assert set(calls.values()) == {0}
-
-
-def test_l2k128_tail_raises_naming_k12(decoder):
-    _, pt = decoder
-    x = torch.from_numpy(_np(13, (1, 8, 8, 256)))
-    with pytest.raises(NotImplementedError, match="K12"):
-        tdec.cnn_decoder_apply(pt, x, tcfg.DecoderConfig(use_pallas=True,
-                                                         rgb_tail="l2k128"))
 
 
 def test_decoder_composes_its_kernels_once_per_weights(decoder, monkeypatch):

@@ -43,8 +43,10 @@ from mastermetastyletransfer_tpu_torch import config as tcfg
 from mastermetastyletransfer_tpu_torch.config import AttentionConfig
 from mastermetastyletransfer_tpu_torch.losses import loss as tloss
 from mastermetastyletransfer_tpu_torch.models import style_transformer as tst
+from mastermetastyletransfer_tpu_torch.ops import block_pair as bpr
 from mastermetastyletransfer_tpu_torch.ops import ln_mlp as lm
 from mastermetastyletransfer_tpu_torch.ops import mlp as tmlp
+from mastermetastyletransfer_tpu_torch.ops import patch_embed as tpe
 from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
 from mastermetastyletransfer_tpu_torch.ops import style_block as sb
 from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
@@ -301,7 +303,7 @@ class _StubLib:
 
 def _eval_cases():
     """A call of each evaluation-only kernel's wrapper on inputs of which
-    one requires grad: K1, K2, K3, K4 and K6 with pad columns."""
+    one requires grad: K1, K2, K3, K4, K6 with pad columns, K11 and K13."""
     g = torch.Generator().manual_seed(0)
     acfg = AttentionConfig(dim=128, num_heads=4, window_size=(7, 7),
                            shift_size=(3, 3))
@@ -333,18 +335,26 @@ def _eval_cases():
         "stencil_phase2_conv_padcols": lambda: pc.stencil_phase2_conv_padcols(
             pp, pk, torch.zeros(16 * 32), table,
             (((0, 0),) * 4, ((2, 3),) * 4)),
+        "window_block_pair_rows": lambda: bpr.window_block_pair_rows(
+            torch.randn((1, 14, 14, 128), requires_grad=True), w, w,
+            heads=4, window=(7, 7), shift=(3, 3)),
+        "patch_embed": lambda: tpe.patch_embed(
+            torch.randn((1, 8, 8, 3)),
+            torch.randn((4, 4, 3, 128), requires_grad=True),
+            torch.zeros(128)),
     }
 
 
 @pytest.mark.parametrize("entry", ["window_block_rows", "window_block_windows",
                                    "encoder_scale_shift", "decoder_tail",
-                                   "stencil_phase2_conv_padcols"])
+                                   "stencil_phase2_conv_padcols",
+                                   "window_block_pair_rows", "patch_embed"])
 def test_eval_kernels_refuse_autograd(monkeypatch, entry):
     """F4: an evaluation-only kernel's CUDA branch (its wrapper made to see a
     card, its library a stub) raises where autograd would record it, and
     launches nothing; under no_grad it launches."""
     lib = _StubLib()
-    for mod in (wb, sb, pc):
+    for mod in (wb, sb, pc, bpr, tpe):
         monkeypatch.setattr(mod, "_on_cuda", lambda t: True)
         monkeypatch.setattr(mod, "_lib", lambda: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -358,12 +368,14 @@ def test_eval_kernels_refuse_autograd(monkeypatch, entry):
     assert f"mmst_{entry}" in lib.calls
 
 
-@pytest.mark.parametrize("entry", ["stencil_phase_conv", "phase_align"])
+@pytest.mark.parametrize("entry", ["stencil_phase_conv", "phase_align",
+                                   "stencil_phase2_rgb",
+                                   "stencil_phase2_rgb128"])
 def test_decoder_kernels_carry_gradients_on_the_card_branch(monkeypatch,
                                                             entry):
-    """F4: K5 and K7 launch their kernel under autograd too (their wrapper
-    made to see a card, the library a stub), and their output is in the
-    graph: the gradient reaches the input, shaped as it."""
+    """F4: K5, K7 and K12 launch their kernel under autograd too (their
+    wrapper made to see a card, the library a stub), and their output is in
+    the graph: the gradient reaches the input, shaped as it."""
     lib = _StubLib()
     monkeypatch.setattr(pc, "_on_cuda", lambda t: True)
     monkeypatch.setattr(pc, "_lib", lambda: lib)
@@ -372,6 +384,11 @@ def test_decoder_kernels_carry_gradients_on_the_card_branch(monkeypatch,
     if entry == "phase_align":
         x = torch.randn((1, 5, 6, 128), requires_grad=True)
         y = pc.phase_align(x, 32)
+    elif entry.startswith("stencil_phase2_rgb"):
+        x = torch.randn((1, 5, 6, 128), requires_grad=True)
+        n = 48 if entry == "stencil_phase2_rgb" else 128
+        y = getattr(pc, entry)(x, torch.randn((2, 2, 128, n)),
+                               torch.zeros(n), (0, 1, 1, 1))
     else:
         x = torch.randn((1, 6, 7, 128), requires_grad=True)
         table = pc.GroupTable(((0, 0), (0, 1), (1, 0), (1, 1)), (15,) * 4, 1)
