@@ -21,15 +21,23 @@ come the card's name and power limit as nvidia-smi gives them, and the
 kernel summary (K1-K13).
 
 Phases: device, build; kernels (each entry against its plain version, with
-ms per call, the bound, the plain version's ms and shared memory per
-block): the four Swin blocks of one pass (K1 row entry, K2 window entry),
+ms per call, the bound and the share of it reached, the plain version's
+ms and shared memory per block; ms is the card's time alone: a sleep
+kernel ahead of each timed window lets the host queue every call first,
+and the host's own ms per call is kept beside as host_ms): the four Swin
+blocks of one pass (K1 row entry, K2 window entry),
 the style transformer's K2 blocks (encoder Key block without norms, decoder
 self block with both), K3 and K4 at the shapes of one request batch, and a
 swin_S-width block (C=192, 6 heads), the decoder's stencil and align
 kernels at the convs of one request batch (K5 at conv1-4 and conv6, K6 with
 pad columns at conv7 and without them at the same shape, K7 at conv5; with
 the time of one cuDNN conv of the same composed kernel and padded input as
-the library yardstick, a conv without the align); slice (the bf16 and f32
+the library yardstick, a conv without the align; for K5 and K12 the body
+that ran -- the tensor-core body's plan and compiled table at bf16 (K12 at
+f32 too), the scalar-FMA body at f32 -- with its registers and static and
+dynamic shared memory); stencil_shapes (K5 at the training step's five
+convs, decoder input (8, 32, 32, 256), bf16 and f32, as at the serving
+shapes); slice (the bf16 and f32
 services, launches per path counted from zero just before each path's run,
 each against the reference services: every kernel off and the decoder's
 nine plain convs, so that the reference shares no phase algebra with
@@ -203,17 +211,32 @@ def emit(phase: str, **fields) -> None:
                       **fields}), flush=True)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over iters runs, after one warm-up run."""
+SLEEP_CYCLES = 20_000_000  # ~10 ms of a sleep kernel ahead of the window
+
+
+def cuda_times(fn, iters: int):
+    """(device ms, host ms) per run of fn() over iters runs, after one
+    warm-up run. A sleep kernel runs first, so that the host queues the
+    runs while the card sleeps and the window holds the card's time alone,
+    not the host's between launches."""
     fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_ms = (time.perf_counter() - t0) / iters * 1e3
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_ms
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of fn() over iters runs (cuda_times)."""
+    return cuda_times(fn, iters)[0]
 
 
 def all_launches() -> dict:
@@ -312,9 +335,10 @@ def exact_error(got: torch.Tensor, ref: torch.Tensor):
 
 
 def run_case(rows: list, entry: str, label: str, dtype, kern, plain, xs,
-             cost, smem: int, check=None, library=None, **meta) -> None:
+             cost, smem: int, check=None, library=None, phase="kernels",
+             **meta) -> None:
     """Check kern() against plain() output by output, time both, and emit
-    one kernels line. ``check(got, ref)`` gives (max-abs error, error /
+    one line of ``phase``. ``check(got, ref)`` gives (max-abs error, error /
     tolerance); by default kernel_error against xs, the input each output's
     bf16 tolerance measures its update from. ``library``: one PyTorch call
     timed beside the kernel as its yardstick."""
@@ -330,7 +354,7 @@ def run_case(rows: list, entry: str, label: str, dtype, kern, plain, xs,
         raise AssertionError(f"{entry} {label} {dtype}: max-abs {err}, "
                              f"error/tolerance {err_over_tol} > 1")
     del got, ref
-    ms = cuda_ms(kern, 5)
+    ms, host_ms = cuda_times(kern, 5)
     plain_ms = cuda_ms(plain, 3)
     library_ms = cuda_ms(library, 5) if library is not None else None
     flops, nbytes = cost
@@ -338,13 +362,14 @@ def run_case(rows: list, entry: str, label: str, dtype, kern, plain, xs,
     t_bytes = nbytes / PEAK_BYTES * 1e3
     row = dict(entry=entry, case=label, dtype=str(dtype).replace("torch.", ""),
                shape=list(xs[0].shape), max_abs_err=err,
-               err_over_tol=err_over_tol, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms,
+               err_over_tol=err_over_tol, ms=ms, host_ms=host_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=max(t_ops, t_bytes), ops_ms=t_ops, bytes_ms=t_bytes,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
+               share_of_bound=max(t_ops, t_bytes) / ms,
                gflop=flops / 1e9, mbytes=nbytes / 1e6, smem_bytes=smem,
                **meta)
-    emit("kernels", **row)
+    emit(phase, **row)
     rows.append(row)
 
 
@@ -459,6 +484,32 @@ def stencil_cost(pp: torch.Tensor, table: pc.GroupTable, c_out: int,
     return flops, nbytes
 
 
+def stencil_attributes(entry: str, dtype, pp: torch.Tensor,
+                       table: pc.GroupTable, c_out: int, launch) -> dict:
+    """The body one stencil or K12 call runs and its attributes: K5 at bf16
+    and K12 the tensor-core body (its plan's instantiation; static and
+    dynamic shared memory after one launch of this call, so the dynamic
+    size is at least this call's own), K5 at f32 and K6 the scalar-FMA
+    body."""
+    b, hp, wp, cin = pp.shape
+    if entry.startswith("stencil_phase2_rgb") or (
+            entry == "stencil_phase_conv" and dtype == torch.bfloat16):
+        kind = ("stencil" if entry == "stencil_phase_conv"
+                else entry.replace("stencil_phase2_", ""))
+        plan = pc.stencil_plan(table, kind, b, hp - 2, wp - 2, cin, c_out,
+                               dtype)
+        launch()
+        torch.cuda.synchronize()
+        kernel, extra = plan.kernel, dict(
+            tile=list(plan.tile), bn=plan.bn, stage_k=plan.stage_k,
+            blocks=plan.blocks, plan_smem_bytes=plan.smem_bytes)
+    else:
+        kernel, extra = "stencil", {}
+    smem, dyn, regs = pc.kernel_attributes(kernel, dtype)
+    return dict(smem=smem, smem_dynamic=dyn, registers=regs, body=kernel,
+                **extra)
+
+
 def decoder_cases(gen, rows):
     """The decoder's kernels at the convs of one request batch (B=8 at
     512^2, decoder input (8, 64, 64, 256)): K5 at conv1 (the upsample
@@ -518,20 +569,20 @@ def decoder_cases(gen, rows):
                       else contextlib.nullcontext()):
                     return F.conv2d(x_lib, w_lib, b_lib)
 
-            smem, regs = pc.kernel_attributes("stencil", dtype)
+            attrs = stencil_attributes(entry, dtype, pp, table, c_out,
+                                       lambda: kern_fn(*args))
             run_case(rows, entry, label, dtype,
                      lambda: [kern_fn(*args)], lambda: [plain_fn(*args)],
                      [pp], stencil_cost(pp, table, c_out,
                                         shape[0] * shape[1] * out_w
                                         * groups * c_out, pk.numel()),
-                     smem, check=conv_error, library=library,
-                     registers=regs)
+                     check=conv_error, library=library, **attrs)
     # K7 at conv5: the realign of the (8, 129, 129, 4 x 64) conv output
     big32 = torch.randn((b, 2 * g0 + 1, 2 * g0 + 1, 256), generator=gen)
     for dtype in (torch.bfloat16, torch.float32):
         big = big32.to(dev, dtype).contiguous()
         nbytes = (big.numel() + b * 4 * g0 * g0 * 256) * big.element_size()
-        smem, regs = pc.kernel_attributes("align", dtype)
+        smem, _, regs = pc.kernel_attributes("align", dtype)
         run_case(rows, "phase_align", "conv5", dtype,
                  lambda: [pc.phase_align(big, 64)],
                  lambda: [pc.phase_align_plain(big, 64)], [big],
@@ -853,6 +904,54 @@ def decoder_backward_cases(gen, rows):
                                      a, c_out), gy)
 
 
+def stencil_shape_cases(gen, rows):
+    """K5 forward at the training step's five conv shapes (decoder input
+    (8, 32, 32, 256): conv1-4 on a 32^2 coarse grid, conv6 on 64^2), bf16
+    and f32, against the plain version, timed: the tensor-core body's tiles
+    at the grids the training slice gives it. Inputs and weights random;
+    the library yardstick as at the serving shapes."""
+    dev = torch.device(DEVICE)
+    b, g0 = TRAIN_BATCH, TRAIN_SIZE // 8
+    convs = (("conv1", (b, g0, g0, 128), 128, 128, "up"),
+             ("conv2", (b, g0, g0, 512), 128, 128, "l1"),
+             ("conv3", (b, g0, g0, 512), 128, 128, "l1"),
+             ("conv4", (b, g0, g0, 512), 128, 64, "l1"),
+             ("conv6", (b, 2 * g0, 2 * g0, 256), 64, 32, "l1"))
+    for label, shape, cin, c_out, form in convs:
+        w3 = tconv.init_conv(gen, cin, c_out)["kernel"]
+        bias = (torch.randn(c_out, generator=gen) * 0.1).repeat(4).to(dev)
+        x32 = torch.randn(shape, generator=gen)
+        if form == "up":
+            pk32, table = tconv._phase_kernel(w3), tconv._UPSAMPLE_TABLE
+        else:
+            pk32 = tconv._phase_space_kernel(w3)
+            table = tconv._phase_space_table()
+        for dtype in (torch.bfloat16, torch.float32):
+            pp = tconv._edge_pad(x32).to(dev, dtype).contiguous()
+            pk = pk32.to(dev, dtype).contiguous()
+            args = (pp, pk, bias, table)
+            w_lib = pk.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            x_lib, b_lib = pp.permute(0, 3, 1, 2), bias.to(dtype)
+
+            def library():
+                with (_TF32_OFF if dtype == torch.float32
+                      else contextlib.nullcontext()):
+                    return F.conv2d(x_lib, w_lib, b_lib)
+
+            attrs = stencil_attributes("stencil_phase_conv", dtype, pp,
+                                       table, c_out,
+                                       lambda: pc.stencil_phase_conv(*args))
+            run_case(rows, "stencil_phase_conv", label, dtype,
+                     lambda: [pc.stencil_phase_conv(*args)],
+                     lambda: [pc.stencil_phase_conv_plain(*args)], [pp],
+                     stencil_cost(pp, table, c_out,
+                                  shape[0] * shape[1] * shape[2] * 4 * c_out,
+                                  pk.numel()),
+                     check=conv_error, library=library,
+                     phase="stencil_shapes", **attrs)
+
+
 def decoder_bwd_case(rows, entry, label, dtype, leaves, function, plain, gy,
                      relu=False):
     """The Function's gradients against autograd of the plain forward. With
@@ -1012,13 +1111,13 @@ def rgb_cases(gen, rows):
                       else contextlib.nullcontext()):
                     return F.conv2d(x_lib, w_lib, b_lib)
 
-            smem, regs = pc.kernel_attributes(kind, dtype)
+            attrs = stencil_attributes(entry, dtype, pp, table, cg,
+                                       lambda: kern_fn(*args, table=table))
             run_case(rows, entry, "conv8", dtype,
                      lambda: [kern_fn(*args, table=table)],
                      lambda: [plain_fn(*args)], [pp],
                      stencil_cost(pp, table, cg, out_numel, pk.numel()),
-                     smem, check=conv_error, library=library,
-                     registers=regs)
+                     check=conv_error, library=library, **attrs)
             gy = torch.randn(((MAX_BATCH, SIZE, SIZE, 3) if kind == "rgb"
                               else (MAX_BATCH, 2 * g0, 2 * g0, 128)),
                              generator=gen).to(dev, dtype)
@@ -1727,6 +1826,9 @@ def main(argv=None) -> int:
 
     gen = torch.Generator().manual_seed(0)
     rows = check_kernels(gen)
+    # K5 at the training shapes, from a generator of its own so that the
+    # serving weights stay the draw they were.
+    stencil_shape_cases(torch.Generator().manual_seed(TRAIN_SEED + 3), [])
 
     params = init_master_model(slice_config("bfloat16", True), gen,
                                device=DEVICE)
@@ -1765,21 +1867,24 @@ def main(argv=None) -> int:
         """One entry of the kernels line: ``mine`` the bf16 kernels rows
         of one call each, with its weight in the sum."""
         lib_ms = [r["library_ms"] for r, _ in mine]
+        ms = sum(r["ms"] * n for r, n in mine)
+        bound = sum(r["bound_ms"] * n for r, n in mine)
+        body = {k: max(r[k] for r, _ in mine)
+                for k in ("registers", "smem_dynamic") if k in mine[0][0]}
         return dict(
             name=entry, route="cuda",
             source=f"mastermetastyletransfer_tpu_torch/csrc/{source}",
             replaces=replaces, launches=count, launches_from=origin,
             max_abs_err=max(r["max_abs_err"] for r, _ in mine),
-            ms=sum(r["ms"] * n for r, n in mine),
-            plain_ms=sum(r["plain_ms"] * n for r, n in mine),
-            bound_ms=sum(r["bound_ms"] * n for r, n in mine),
+            ms=ms, plain_ms=sum(r["plain_ms"] * n for r, n in mine),
+            bound_ms=bound, share_of_bound=bound / ms,
             bound_by=("operations" if sum(r["ops_ms"] * n for r, n in mine)
                       >= sum(r["bytes_ms"] * n for r, n in mine)
                       else "bytes"),
             library_ms=(None if not library or None in lib_ms
                         else sum(v * n for v, (_, n) in zip(lib_ms, mine))),
             dtype="bfloat16", per=per,
-            smem_bytes=max(r["smem_bytes"] for r, _ in mine))
+            smem_bytes=max(r["smem_bytes"] for r, _ in mine), **body)
 
     def bf16_rows(entry, calls):
         return [(r, calls[r["case"]]) for r in rows if r["entry"] == entry

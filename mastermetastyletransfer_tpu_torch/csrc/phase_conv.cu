@@ -43,12 +43,8 @@
 //
 // K12 is the decoder's RGB conv (conv8, 32 -> 3) on the L2 phase tensor:
 // the same stencil with the same 16 read offsets (the generalized align),
-// but with output groups of Cg <= 8 channels, too narrow for the BN = 32
-// tile. Its kernel gives each thread one output pixel of one group and all
-// Cg channels of it: the group's nonzero weight blocks pass through shared
-// memory 16 input channels at a time, and each thread's pixel reads its 16
-// channels as vectors. The sums (f32) get the bias and optional ReLU and
-// round once to T, then go out in one of two layouts:
+// but with output groups of Cg <= 8 channels. The sums (f32) get the bias
+// and optional ReLU and round once to T, then go out in one of two layouts:
 //
 //   mmst_stencil_phase2_rgb     the interleaved fine grid (B, 4H, 4W, Cg):
 //                               group g = 4a + b of pixel (i, j) at
@@ -71,28 +67,28 @@
 // K7 is a pure permutation: out[b, i, j, g C' + c] = big[b, i + a, j + bb,
 // g C' + c] for g = 2 a + bb, copied in 16-byte vectors.
 //
+// Two bodies compute the stencil. K5 at bf16 and both K12 entries run the
+// tensor-core body of stencil_tc.cuh (one block per pixel tile across all
+// groups, cp.async staging, mma.sync at bf16, FMAs at f32 for K12). K5 at
+// f32 and both K6 entries run stencil_kernel below: a block owns 256 output
+// pixels x 32 channels of one group, the pixel tile (16 channels deep, f32)
+// and the weight tile sit in 18 KB of shared memory, each thread keeps an
+// 8 x 4 register tile of scalar f32 FMAs, and the zero weight blocks are
+// never read. At f32 the tensor cores would mean TF32, which the port's
+// rounding points forbid.
+//
 // What bounds them on an H100: at the decoder's shapes (512^2, batch 8)
 // K5 does 17-39 GFLOP of nonzero products per call against 43-103 MB, K6
 // 17 GFLOP against 172 MB, so the bf16 bound is the tensor cores for
-// conv1-4 and the memory for conv6, conv7 and K7. This first version does
-// the products with scalar f32 FMAs on the CUDA cores (67 TFLOP/s peak), so
-// the operations bound it, far above the tensor-core bound; wgmma is the
-// next step. What the design does: a block owns 256 output pixels x 32
-// channels of one group, so every tile reads one shifted window of pp; the
-// pixel tile (16 channels deep, f32) and the weight tile sit in 18 KB of
-// shared memory, each thread keeps an 8 x 4 register tile of sums, and the
-// zero weight blocks are never read (7 of 16 for an L1 phase-space kernel,
-// 12 of 16 for an L2 one).
-// K7 moves each byte once, in 16-byte accesses.
-// K12 reads a 138 MB (bf16) L2 tensor for 1.6 GFLOP of nonzero products,
-// so the memory bounds it; its pixel-per-thread form reads each input pixel
-// once per group, through L1 and L2, and writes each output once.
+// conv1-4 and the memory for conv6, conv7 and K7. K12 reads a 138 MB (bf16)
+// L2 tensor for 1.6 GFLOP of nonzero products, so the memory bounds it. K7
+// moves each byte once, in 16-byte accesses.
 //
 // Built by ops/_build.py: nvcc -gencode arch=compute_90a,code=sm_90a -O3
 // -shared -Xcompiler -fPIC. Plain C interface; each entry returns the CUDA
 // error code of its launch (0 on success).
 
-#include "window_common.cuh"
+#include "stencil_tc.cuh"
 
 // The entry points' argument blocks. They stay outside the anonymous
 // namespace: a type with internal linkage would hide the extern "C" entries.
@@ -110,6 +106,7 @@ struct StencilArgs {
   unsigned long long blocks[16];        // per group nonzero (tap, chunk)
   long long left_src[4], left_ph[4];    // padcols: column border slots
   long long right_src[4], right_ph[4];
+  TilePlan plan;                        // the tensor-core body (bf16 K5)
 };
 
 // Mirrors RgbArgs in ops/phase_conv.py field for field.
@@ -122,6 +119,7 @@ struct RgbArgs {
   long long B, H, W, Cin, Cg, nchunks, relu;
   long long off_y[16], off_x[16];       // per group read offsets, 0 or 1
   unsigned long long blocks[16];        // per group nonzero (tap, chunk)
+  TilePlan plan;                        // the tensor-core body
 };
 
 // Mirrors AlignArgs in ops/phase_conv.py.
@@ -306,78 +304,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int kMaxCg = 8;  // K12: output channels per group
-
-// K12: thread tid of block (x, g) owns output pixel blockIdx.x * kThreads +
-// tid of the flattened (B, H, W) grid and the Cg channels of group g.
-template <typename T, bool kFine>
-__global__ void __launch_bounds__(kThreads) rgb_kernel(const RgbArgs a) {
-  __shared__ float Ws[BK][kMaxCg];
-  const int tid = threadIdx.x;
-  const int g = blockIdx.y;
-  const int Cg = static_cast<int>(a.Cg);
-  const long long H = a.H, W = a.W, Cin = a.Cin;
-  const long long N = 16 * a.Cg;
-  const long long M = a.B * H * W;
-  const long long m = static_cast<long long>(blockIdx.x) * kThreads + tid;
-  const bool valid = m < M;
-  const long long b = valid ? m / (H * W) : 0;
-  const long long i = valid ? (m / W) % H : 0;
-  const long long j = valid ? m % W : 0;
-  const T* pp = static_cast<const T*>(a.pp);
-  const T* wt = static_cast<const T*>(a.w);
-  const T* win = pp + ((b * (H + 2) + i + a.off_y[g]) * (W + 2) + j +
-                       a.off_x[g]) * Cin;
-  const unsigned long long blocks = a.blocks[g];
-  const long long chunk = Cin / a.nchunks;
-
-  float acc[kMaxCg];
-#pragma unroll
-  for (int c = 0; c < kMaxCg; ++c) acc[c] = 0.f;
-  for (int tap = 0; tap < 4; ++tap) {
-    const int dy = tap >> 1, dx = tap & 1;
-    const T* src = win + (dy * (W + 2) + dx) * Cin;
-    const T* wsrc = wt + tap * Cin * N + g * a.Cg;
-    for (long long c = 0; c < a.nchunks; ++c) {
-      if (!((blocks >> (tap * a.nchunks + c)) & 1ull)) continue;
-      for (long long k0 = c * chunk; k0 < (c + 1) * chunk; k0 += BK) {
-        if (tid < BK * Cg) {
-          const int r = tid / Cg, col = tid % Cg;
-          Ws[r][col] = to_f(wsrc[(k0 + r) * N + col]);
-        }
-        float v[BK];
-        if (valid) {
-          load16(src + k0, v);
-        } else {
-#pragma unroll
-          for (int k = 0; k < BK; ++k) v[k] = 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < BK; ++k)
-#pragma unroll
-          for (int col = 0; col < kMaxCg; ++col)
-            if (col < Cg) acc[col] = fmaf(v[k], Ws[k][col], acc[col]);
-        __syncthreads();
-      }
-    }
-  }
-  if (!valid) return;
-  T* out = static_cast<T*>(a.out);
-  const int ga = g / 4, gb = g % 4;
-#pragma unroll
-  for (int col = 0; col < kMaxCg; ++col) {
-    if (col >= Cg) break;
-    float val = acc[col] + a.bias[g * Cg + col];
-    if (a.relu) val = fmaxf(val, 0.f);
-    const T r = from_f<T>(val);
-    if (kFine)
-      out[((b * 4 * H + 4 * i + ga) * 4 * W + 4 * j + gb) * Cg + col] = r;
-    else
-      out[m * N + g * Cg + col] = r;
-  }
-}
-
 // One thread per 16-byte vector of the output.
 __global__ void __launch_bounds__(kThreads) align_kernel(const AlignArgs a) {
   const long long vec = 16 / a.tsize;             // elements per vector
@@ -420,65 +346,237 @@ int stencil(const StencilArgs* a, void* stream, long long groups,
   return launch_stencil<float>(*a, s);
 }
 
-template <typename T, bool kFine>
-int launch_rgb(const RgbArgs& a, cudaStream_t stream) {
-  const long long M = a.B * a.H * a.W;
-  const dim3 grid(static_cast<unsigned>((M + kThreads - 1) / kThreads), 16);
-  rgb_kernel<T, kFine><<<grid, kThreads, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+// The tensor-core body's launch: the plan must be the one this
+// instantiation was compiled for (ops/phase_conv.py:stencil_plan builds it)
+// and its shared memory what the instantiation needs.
+template <typename T, int G, int BN, int WARPS_M, int WARPS_N, int STAGES,
+          int MINB, bool kFine, int PAT = kPatGeneral>
+struct TcKernel {
+  static inline long long configured = 0;  // dynamic smem opted in so far
+
+  static int launch(const TcArgs& a, cudaStream_t stream) {
+    const mmst::TilePlan& p = a.plan;
+    const long long sk = p.stage_k;
+    const long long tiles = static_cast<long long>(a.B) *
+                            ((a.H + kTileH - 1) / kTileH) *
+                            ((a.W + kTileW - 1) / kTileW);
+    bool ok = p.tile_h == kTileH && p.tile_w == kTileW && p.bn == BN &&
+              p.stages == STAGES && (sk == 16 || sk == 32) &&
+              a.chunk % sk == 0 && a.cg >= 1 &&
+              (a.cg % BN == 0 || (G == 16 && a.cg < BN)) &&
+              p.blocks == tiles * ((a.cg + BN - 1) / BN) &&
+              p.max_pairs >= 0 && p.max_pairs <= 4 * G && p.nused >= 0 &&
+              p.nused <= 16 && a.Cin / a.chunk <= 16 &&
+              // offsets within one image and within the weights are ints
+              (a.H + 2LL) * (a.W + 2) * a.Cin < (1LL << 31) &&
+              4LL * a.Cin * a.N < (1LL << 31) &&
+              p.smem_bytes == tc_smem_bytes<T, G, BN, STAGES, kFine>(
+                                  sk, p.max_pairs, a.cg) &&
+              p.smem_bytes <= kMaxDynSmem;
+    ok = ok && p.pattern == PAT;
+    for (int i = 0; ok && i < p.nused; ++i) {
+      const int c = p.used[i];
+      ok = c < a.Cin / a.chunk && p.npairs[c] <= p.max_pairs;
+      unsigned long long bits = 0;
+      for (int slot = 0; ok && slot < p.npairs[c]; ++slot) {
+        const int g = p.pairs[c][slot] & 15, tap = p.pairs[c][slot] >> 4;
+        ok = g < G && tap < 4 && (1ull << (4 * g + tap)) > bits;
+        bits |= 1ull << (4 * g + tap);
+      }
+      // a compiled table's pairs and offsets are the ones compiled in
+      if (PAT == kPatDense) ok = ok && bits == dense_bits<G>();
+      if (PAT == kPatPhase)
+        ok = ok && G == 4 && a.Cin / a.chunk == 4 && bits == kPhaseBits[c];
+      if (PAT == kPatRgb)
+        ok = ok && G == 16 && a.Cin / a.chunk == 16 && bits == kRgbBits[c];
+    }
+    for (int g = 0; ok && PAT != kPatGeneral && g < G; ++g)
+      ok = a.off_y[g] == known_oy<G>(g) && a.off_x[g] == known_ox<G>(g);
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    if (p.smem_bytes > configured) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          tc_stencil_kernel<T, G, BN, WARPS_M, WARPS_N, STAGES, MINB, kFine, PAT>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(p.smem_bytes));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      configured = p.smem_bytes;
+    }
+    if (p.blocks > 0)
+      tc_stencil_kernel<T, G, BN, WARPS_M, WARPS_N, STAGES, MINB, kFine, PAT>
+          <<<static_cast<unsigned>(p.blocks), WARPS_M * WARPS_N * 32,
+             static_cast<size_t>(p.smem_bytes), stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  // Static and dynamic shared memory (the largest a launch has used so
+  // far) and registers per thread.
+  static int attributes(long long* smem, long long* dyn, long long* regs) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(
+        &attr,
+        tc_stencil_kernel<T, G, BN, WARPS_M, WARPS_N, STAGES, MINB, kFine, PAT>);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *smem = static_cast<long long>(attr.sharedSizeBytes);
+    *dyn = configured;
+    *regs = static_cast<long long>(attr.numRegs);
+    return 0;
+  }
+};
+
+// K5 at bf16: 4 groups, a slice of 64 (C' % 64 == 0) or 32 channels of
+// each; 8 warps as 4 (rows) x 2 (channels).
+template <int BN, int PAT>
+using K5Tc = TcKernel<__nv_bfloat16, 4, BN, 4, 2, 3, 1, false, PAT>;
+// K12: 16 groups of one 8-lane slot; 8 warps, one tile row each for a
+// compiled table, two groups each for any other; at bf16 two blocks per SM.
+template <typename T, bool kFine, int PAT = kPatGeneral>
+using K12Tc =
+    TcKernel<T, 16, 8, 8, 1, 4, sizeof(T) == 2 ? 2 : 1, kFine, PAT>;
+
+template <typename Args>
+TcArgs tc_args(const Args& a, long long cg, long long n) {
+  TcArgs t;
+  t.pp = a.pp;
+  t.w = a.w;
+  t.bias = a.bias;
+  t.out = a.out;
+  t.B = static_cast<int>(a.B);
+  t.H = static_cast<int>(a.H);
+  t.W = static_cast<int>(a.W);
+  t.Cin = static_cast<int>(a.Cin);
+  t.cg = static_cast<int>(cg);
+  t.N = static_cast<int>(n);
+  t.chunk = static_cast<int>(a.Cin / a.nchunks);
+  t.relu = static_cast<int>(a.relu);
+  for (int g = 0; g < 16; ++g) {
+    t.off_y[g] = static_cast<int>(a.off_y[g]);
+    t.off_x[g] = static_cast<int>(a.off_x[g]);
+  }
+  t.plan = a.plan;
+  return t;
 }
 
-// The shapes the RGB kernel takes: groups of at most kMaxCg channels (8 for
-// the slot entry), chunks of whole BK steps, read offsets 0 or 1.
+// K5's entry: the tensor-core body at bf16, stencil_kernel at f32.
+int stencil_phase(const StencilArgs* a, void* stream) {
+  if (a->dtype != 1) return stencil(a, stream, 4, 0);
+  if (a->groups != 4 || a->padcols || a->Cout % 32 || a->nchunks < 1 ||
+      a->nchunks > 16 || a->Cin % (a->nchunks * 16) || a->H < 1 || a->W < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TcArgs t = tc_args(*a, a->Cout, 4 * a->Cout);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = a->Cout % 64 == 0;
+  switch (a->plan.pattern) {
+    case kPatDense:
+      return wide ? K5Tc<64, kPatDense>::launch(t, s)
+                  : K5Tc<32, kPatDense>::launch(t, s);
+    case kPatPhase:
+      return wide ? K5Tc<64, kPatPhase>::launch(t, s)
+                  : K5Tc<32, kPatPhase>::launch(t, s);
+    default:
+      return wide ? K5Tc<64, kPatGeneral>::launch(t, s)
+                  : K5Tc<32, kPatGeneral>::launch(t, s);
+  }
+}
+
+// The shapes the RGB kernel takes: groups of at most 8 channels (8 for the
+// slot entry), chunks of whole 16-channel steps, read offsets 0 or 1.
 int rgb(const RgbArgs* a, void* stream, bool fine) {
-  bool ok = a->Cg >= 1 && a->Cg <= kMaxCg && (fine || a->Cg == kMaxCg) &&
-            a->nchunks >= 1 && a->Cin % (a->nchunks * BK) == 0 &&
-            a->H >= 1 && a->W >= 1;
+  bool ok = a->Cg >= 1 && a->Cg <= 8 && (fine || a->Cg == 8) &&
+            a->nchunks >= 1 && a->nchunks <= 16 &&
+            a->Cin % (a->nchunks * 16) == 0 && a->H >= 1 && a->W >= 1;
   for (int g = 0; g < 16; ++g)
     ok = ok && a->off_y[g] >= 0 && a->off_y[g] <= 1 && a->off_x[g] >= 0 &&
          a->off_x[g] <= 1;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const TcArgs t = tc_args(*a, a->Cg, 16 * a->Cg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->dtype == 1)
-    return fine ? launch_rgb<__nv_bfloat16, true>(*a, s)
-                : launch_rgb<__nv_bfloat16, false>(*a, s);
-  return fine ? launch_rgb<float, true>(*a, s)
-              : launch_rgb<float, false>(*a, s);
+  if (a->dtype != 1)
+    return fine ? K12Tc<float, true>::launch(t, s)
+                : K12Tc<float, false>::launch(t, s);
+  using B16 = __nv_bfloat16;
+  switch (a->plan.pattern) {
+    case kPatDense:
+      return fine ? K12Tc<B16, true, kPatDense>::launch(t, s)
+                  : K12Tc<B16, false, kPatDense>::launch(t, s);
+    case kPatRgb:
+      return fine ? K12Tc<B16, true, kPatRgb>::launch(t, s)
+                  : K12Tc<B16, false, kPatRgb>::launch(t, s);
+    default:
+      return fine ? K12Tc<B16, true>::launch(t, s)
+                  : K12Tc<B16, false>::launch(t, s);
+  }
+}
+
+// Static shared memory, dynamic shared memory (the largest a launch has
+// used so far; 0 for the kernels that use none) and registers per thread of
+// one block of a kernel: which 0 stencil_kernel (K5 at f32, K6), 1 the
+// align copy, 2 K12's fine-grid form, 3 its slot form, 4 and 5 K5's
+// tensor-core body with 64- and 32-channel slices (bf16 only); pattern the
+// compiled table of the tensor-core body (0 for any table; bf16 only);
+// dtype 0 float32, 1 bfloat16.
+template <int PAT>
+int k5_attributes(long long which, long long* smem, long long* dyn,
+                  long long* regs) {
+  return which == 4 ? K5Tc<64, PAT>::attributes(smem, dyn, regs)
+                    : K5Tc<32, PAT>::attributes(smem, dyn, regs);
+}
+template <bool kFine>
+int k12_attributes(long long dtype, long long pattern, long long* smem,
+                   long long* dyn, long long* regs) {
+  if (dtype != 1)
+    return pattern == kPatGeneral
+               ? K12Tc<float, kFine>::attributes(smem, dyn, regs)
+               : static_cast<int>(cudaErrorInvalidValue);
+  switch (pattern) {
+    case kPatGeneral:
+      return K12Tc<__nv_bfloat16, kFine>::attributes(smem, dyn, regs);
+    case kPatDense:
+      return K12Tc<__nv_bfloat16, kFine, kPatDense>::attributes(smem, dyn,
+                                                                regs);
+    case kPatRgb:
+      return K12Tc<__nv_bfloat16, kFine, kPatRgb>::attributes(smem, dyn,
+                                                              regs);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Static shared memory and registers per thread of one block of a kernel:
-// which 0 the stencil GEMM, 1 the align copy, 2 the RGB kernel's fine-grid
-// form, 3 its slot form; dtype 0 float32, 1 bfloat16.
 int mmst_phase_conv_attributes(long long which, long long dtype,
-                               long long* smem, long long* regs) {
+                               long long pattern, long long* smem,
+                               long long* dyn, long long* regs) {
+  if (which == 2) return k12_attributes<true>(dtype, pattern, smem, dyn, regs);
+  if (which == 3)
+    return k12_attributes<false>(dtype, pattern, smem, dyn, regs);
+  if (which == 4 || which == 5) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    switch (pattern) {
+      case kPatGeneral: return k5_attributes<kPatGeneral>(which, smem, dyn, regs);
+      case kPatDense: return k5_attributes<kPatDense>(which, smem, dyn, regs);
+      case kPatPhase: return k5_attributes<kPatPhase>(which, smem, dyn, regs);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   cudaFuncAttributes attr;
   cudaError_t err;
   if (which == 1)
     err = cudaFuncGetAttributes(&attr, align_kernel);
-  else if (which == 2)
-    err = dtype == 1
-              ? cudaFuncGetAttributes(&attr, rgb_kernel<__nv_bfloat16, true>)
-              : cudaFuncGetAttributes(&attr, rgb_kernel<float, true>);
-  else if (which == 3)
-    err = dtype == 1
-              ? cudaFuncGetAttributes(&attr, rgb_kernel<__nv_bfloat16, false>)
-              : cudaFuncGetAttributes(&attr, rgb_kernel<float, false>);
   else if (dtype == 1)
     err = cudaFuncGetAttributes(&attr, stencil_kernel<__nv_bfloat16>);
   else
     err = cudaFuncGetAttributes(&attr, stencil_kernel<float>);
   if (err != cudaSuccess) return static_cast<int>(err);
   *smem = static_cast<long long>(attr.sharedSizeBytes);
+  *dyn = 0;
   *regs = static_cast<long long>(attr.numRegs);
   return 0;
 }
 
 int mmst_stencil_phase_conv(const mmst::StencilArgs* a, void* stream) {
-  return stencil(a, stream, 4, 0);
+  return stencil_phase(a, stream);
 }
 
 int mmst_stencil_phase2_conv(const mmst::StencilArgs* a, void* stream) {

@@ -24,11 +24,14 @@ over the phase tensors of ops/conv.py.
   interleaved fine grid (B, 4H, 4W, C'), the second the aligned L2 tensor
   (B, H, W, 128) with group g in lanes [8g, 8g + 8).
 
-All six are one CUDA source (csrc/phase_conv.cu). Each wrapper runs its
-kernel for a CUDA tensor and the plain PyTorch version below for a CPU
-tensor; any other device raises. The plain versions are the yardstick the
-kernels are held to: f32 sums of products of T-typed operands, the f32
-bias, ReLU, and one rounding to T, as the kernels and the JAX kernels do.
+All six are one CUDA source (csrc/phase_conv.cu). K5 at bfloat16 and both
+K12 entries run its tensor-core stencil body (csrc/stencil_tc.cuh), whose
+tiling ``stencil_plan`` below computes and passes in; K5 at float32 and K6
+run the scalar-FMA body. Each wrapper runs its kernel for a CUDA tensor and
+the plain PyTorch version below for a CPU tensor; any other device raises.
+The plain versions are the yardstick the kernels are held to: f32 sums of
+products of T-typed operands, the f32 bias, ReLU, and one rounding to T,
+as the kernels and the JAX kernels do.
 
 K5, K6's plain entry, K7 and both K12 entries are
 ``torch.autograd.Function``s whose backward passes are plain PyTorch ports
@@ -247,10 +250,162 @@ def stencil_phase2_rgb128_plain(pp: torch.Tensor, pk128: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The tensor-core body's plan (csrc/stencil_tc.cuh)
+# ---------------------------------------------------------------------------
+
+_TILE = (8, 16)             # coarse output pixels per block (rows, columns)
+_SMEM_CAP = 200 * 1024      # the kernel's dynamic shared memory limit
+# The decoder's tables that the body compiles in (csrc/stencil_tc.cuh:
+# kPatDense, kPatPhase, kPatRgb): every pair of each used chunk (K5's
+# upsample kernel, K12's JAX tables), K5's L1 phase-space kernel and K12's
+# L2 RGB kernel (bit 4 g + tap of a chunk's word), each with the read
+# offsets of _known_offsets.
+PATTERNS = ("", "_dense", "_phase", "_l2")
+_PHASE_BITS = (0xfac8, 0x5f4c, 0x32fa, 0x135f)
+_RGB_BITS = (
+    0x8048000020128048, 0x0448000001120448, 0x4440000011104440,
+    0x4404000011014404, 0x0000201220128048, 0x0000011201120448,
+    0x0000111011104440, 0x0000110111014404, 0x2012201220120000,
+    0x0112011201120000, 0x1110111011100000, 0x1101110111010000,
+    0x2012201200002012, 0x0112011200000112, 0x1110111000001110,
+    0x1101110100001101)
+
+
+def _known_offsets(groups: int) -> Tuple[Tuple[int, int], ...]:
+    """The read offsets of the compiled tables: (g // 2, g % 2) for 4
+    groups, the align bases (0, 1, 1, 1) for 16."""
+    if groups == 4:
+        return tuple((g // 2, g % 2) for g in range(4))
+    return tuple((min(g // 4, 1), min(g % 4, 1)) for g in range(16))
+
+
+class StencilPlan(NamedTuple):
+    """How the tensor-core stencil body tiles one call; built by
+    ``stencil_plan`` and passed to the kernel as it is (``TilePlan``).
+
+    A block owns a ``tile`` of coarse output pixels of one image and the
+    same ``bn`` output channels of every group; blocks run channel slice
+    fastest, then tiles row-major, then images (``blocks`` of them). For
+    each chunk in ``used`` and each ``stage_k``-deep slice of it, the block
+    stages the tile's halo window ((rows + 2) x (columns + 2) pixels) and
+    the weight rows of the chunk's ``pairs`` (the (group, tap) of each
+    weight slot, by group and then tap) in a ring of ``stages`` slices of
+    ``smem_bytes``. ``pattern`` indexes PATTERNS: one of the decoder's
+    tables, whose pairs the kernel has compiled in, or 0 for any other.
+    ``kernel`` names the compiled instantiation."""
+    kernel: str
+    tile: Tuple[int, int]
+    bn: int
+    stage_k: int
+    stages: int
+    blocks: int
+    smem_bytes: int
+    max_pairs: int
+    used: Tuple[int, ...]
+    pairs: Tuple[Tuple[Tuple[int, int], ...], ...]
+    pattern: int
+
+
+def _smem_bytes(kind: str, groups: int, bn: int, stages: int, sk: int,
+                max_pairs: int, c_out: int, esize: int) -> int:
+    """The dynamic shared memory of one block (csrc/stencil_tc.cuh:
+    tc_smem_bytes): the ring of halo and weight slices, each row padded by
+    16 bytes where ldmatrix reads it (K12 rgb's weights, C' < 8 lanes a
+    group, as the whole rows of up to four taps), or the output tile (padded
+    rows of every group's slice; the fine tile for rgb) where larger."""
+    th, tw = _TILE
+    a_row = sk + 16 // esize
+    b_row = bn + (8 if esize == 2 and bn >= 16 else 0)
+    b_elems = (4 * sk * groups * c_out if c_out < bn
+               else max_pairs * sk * b_row)
+    ring = stages * ((th + 2) * (tw + 2) * a_row + b_elems) * esize
+    if kind == "rgb":
+        tile = 16 * th * tw * c_out * esize
+    else:
+        tile = th * tw * (groups * bn + 16 // esize) * esize
+    return max(ring, tile)
+
+
+@functools.lru_cache(maxsize=None)
+def stencil_plan(table: GroupTable, kind: str, b: int, h: int, w: int,
+                 cin: int, c_out: int, dtype: torch.dtype) -> StencilPlan:
+    """The tensor-core body's tiling of one call: ``kind`` "stencil" (K5,
+    and any table of C' % 32 == 0 channels per group), "rgb" or "rgb128"
+    (K12, C' <= 8 channels per group in one 8-lane slot); pp (b, h + 2,
+    w + 2, cin) of ``dtype``. Stages 32 channels deep where the ring fits
+    in _SMEM_CAP, else 16; at bfloat16 names the compiled table the
+    decoder's tables match (PATTERNS)."""
+    groups, nchunks = len(table.offsets), table.nchunks
+    esize = torch.finfo(dtype).bits // 8
+    if kind == "stencil":
+        bn = 64 if c_out % 64 == 0 else 32
+        stages, kernel, nsplit = 3, f"stencil_tc{bn}", c_out // bn
+    else:
+        bn, stages, kernel, nsplit = 8, 4, kind, 1
+    pairs = tuple(tuple((g, t) for g in range(groups) for t in range(4)
+                        if (table.blocks[g] >> (t * nchunks + c)) & 1)
+                  for c in range(nchunks))
+    max_pairs = max(len(p) for p in pairs)
+    chunk = cin // nchunks
+    sk = 16
+    if chunk % 32 == 0 and _smem_bytes(kind, groups, bn, stages, 32,
+                                       max_pairs, c_out,
+                                       esize) <= _SMEM_CAP:
+        sk = 32
+    smem = _smem_bytes(kind, groups, bn, stages, sk, max_pairs, c_out, esize)
+    if smem > _SMEM_CAP:
+        raise ValueError(f"{max_pairs} pairs per chunk need {smem} bytes of "
+                         "shared memory")
+    th, tw = _TILE
+    blocks = b * -(-h // th) * -(-w // tw) * nsplit
+    used = tuple(c for c in range(nchunks) if pairs[c])
+    bits = tuple(sum(1 << (4 * g + t) for g, t in p) for p in pairs)
+    pattern = 0
+    if (dtype == torch.bfloat16 and groups == (4 if kind == "stencil" else 16)
+            and table.offsets == _known_offsets(groups)):
+        if all(bits[c] == (1 << 4 * groups) - 1 for c in used):
+            pattern = 1
+        elif groups == 4 and bits == _PHASE_BITS:
+            pattern = 2
+        elif groups == 16 and bits == _RGB_BITS:
+            pattern = 3
+    return StencilPlan(kernel + PATTERNS[pattern], _TILE, bn, sk, stages,
+                       blocks, smem, max_pairs, used, pairs, pattern)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
 _LL = ctypes.c_longlong
+_UB = ctypes.c_ubyte
+
+
+class TilePlan(ctypes.Structure):
+    """The C struct ``TilePlan`` of csrc/stencil_tc.cuh, field for field."""
+    _fields_ = ([(f, _LL) for f in ("tile_h", "tile_w", "bn", "stage_k",
+                                    "stages", "blocks", "smem_bytes",
+                                    "max_pairs", "nused", "pattern")]
+                + [("used", _UB * 16), ("npairs", _UB * 16),
+                   ("pairs", (_UB * 64) * 16)])
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan_struct(plan: StencilPlan) -> TilePlan:
+    """``plan`` as the kernel reads it: per chunk, slot -> group | tap << 4
+    (the kernel inverts it into each group's taps and their slots)."""
+    t = TilePlan(tile_h=plan.tile[0], tile_w=plan.tile[1], bn=plan.bn,
+                 stage_k=plan.stage_k, stages=plan.stages,
+                 blocks=plan.blocks, smem_bytes=plan.smem_bytes,
+                 max_pairs=plan.max_pairs, nused=len(plan.used),
+                 pattern=plan.pattern)
+    for i, c in enumerate(plan.used):
+        t.used[i] = c
+    for c, slots in enumerate(plan.pairs):
+        t.npairs[c] = len(slots)
+        for slot, (g, tap) in enumerate(slots):
+            t.pairs[c][slot] = g | tap << 4
+    return t
 
 
 class StencilArgs(ctypes.Structure):
@@ -262,7 +417,8 @@ class StencilArgs(ctypes.Structure):
                 + [("off_y", _LL * 16), ("off_x", _LL * 16),
                    ("blocks", ctypes.c_ulonglong * 16)]
                 + [(f, _LL * 4) for f in ("left_src", "left_ph", "right_src",
-                                          "right_ph")])
+                                          "right_ph")]
+                + [("plan", TilePlan)])
 
 
 class RgbArgs(ctypes.Structure):
@@ -271,7 +427,7 @@ class RgbArgs(ctypes.Structure):
                 + [(f, _LL) for f in ("dtype", "B", "H", "W", "Cin", "Cg",
                                       "nchunks", "relu")]
                 + [("off_y", _LL * 16), ("off_x", _LL * 16),
-                   ("blocks", ctypes.c_ulonglong * 16)])
+                   ("blocks", ctypes.c_ulonglong * 16), ("plan", TilePlan)])
 
 
 class AlignArgs(ctypes.Structure):
@@ -290,24 +446,35 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.mmst_phase_conv_attributes.argtypes = [
-        _LL, _LL, ctypes.POINTER(_LL), ctypes.POINTER(_LL)]
+        _LL, _LL, _LL, *[ctypes.POINTER(_LL)] * 3]
     lib.mmst_phase_conv_attributes.restype = ctypes.c_int
     return lib
 
 
-_KERNELS = ("stencil", "align", "rgb", "rgb128")
+_KERNELS = ("stencil", "align", "rgb", "rgb128", "stencil_tc64",
+            "stencil_tc32")
 
 
-def kernel_attributes(kernel: str, dtype: torch.dtype) -> Tuple[int, int]:
-    """(static shared memory bytes per block, registers per thread) of the
-    "stencil", "align", "rgb" or "rgb128" kernel at ``dtype``."""
-    smem, regs = _LL(), _LL()
+def kernel_attributes(kernel: str, dtype: torch.dtype
+                      ) -> Tuple[int, int, int]:
+    """(static shared memory bytes per block, dynamic shared memory bytes,
+    registers per thread) of a kernel at ``dtype``: "stencil" (the
+    scalar-FMA body: K5 at float32, K6), "align", or a StencilPlan's
+    ``kernel`` of the tensor-core body ("rgb", "rgb128", K5's
+    "stencil_tc64" and "stencil_tc32", each with the suffix of its
+    compiled table, PATTERNS). Dynamic: the largest a launch of the kernel
+    has used so far in this process (0 for the kernels that use none)."""
+    base, pattern = kernel, 0
+    for i, suffix in enumerate(PATTERNS[1:], 1):
+        if kernel.endswith(suffix):
+            base, pattern = kernel[:-len(suffix)], i
+    smem, dyn, regs = _LL(), _LL(), _LL()
     err = _lib().mmst_phase_conv_attributes(
-        _KERNELS.index(kernel), int(dtype == torch.bfloat16),
-        ctypes.byref(smem), ctypes.byref(regs))
+        _KERNELS.index(base), int(dtype == torch.bfloat16), pattern,
+        ctypes.byref(smem), ctypes.byref(dyn), ctypes.byref(regs))
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes: CUDA error {err}")
-    return smem.value, regs.value
+    return smem.value, dyn.value, regs.value
 
 
 def _aligned(name: str, t: torch.Tensor) -> None:
@@ -375,6 +542,9 @@ def _stencil_launch(entry: str, pp: torch.Tensor, pk: torch.Tensor,
         (lsrc, lph), (rsrc, rph) = (zip(*m) for m in colmaps)
         args.left_src, args.left_ph = (_LL * 4)(*lsrc), (_LL * 4)(*lph)
         args.right_src, args.right_ph = (_LL * 4)(*rsrc), (_LL * 4)(*rph)
+    if entry == "stencil_phase_conv" and pp.dtype == torch.bfloat16:
+        args.plan = tile_plan_struct(stencil_plan(
+            table, "stencil", b, h, w, cin, c_out, pp.dtype))
     _call(entry, args, dev)
     return out
 
@@ -565,14 +735,18 @@ def _rgb_launch(entry: str, pp: torch.Tensor, pk: torch.Tensor,
     _need("bias", bias, (n,), torch.float32, dev)
     shape = (b, 4 * h, 4 * w, cg) if fine else (b, h, w, n)
     out = torch.empty(shape, dtype=pp.dtype, device=dev)
-    _aligned("pp", pp)
+    for name, t in (("pp", pp), ("pk", pk), ("out", out)):
+        _aligned(name, t)
     args = RgbArgs(
         pp=pp.data_ptr(), w=pk.data_ptr(), bias=bias.data_ptr(),
         out=out.data_ptr(), dtype=int(pp.dtype == torch.bfloat16), B=b, H=h,
         W=w, Cin=cin, Cg=cg, nchunks=table.nchunks, relu=int(relu),
         off_y=(_LL * 16)(*(o[0] for o in table.offsets)),
         off_x=(_LL * 16)(*(o[1] for o in table.offsets)),
-        blocks=(ctypes.c_ulonglong * 16)(*table.blocks))
+        blocks=(ctypes.c_ulonglong * 16)(*table.blocks),
+        plan=tile_plan_struct(stencil_plan(
+            table, "rgb" if fine else "rgb128", b, h, w, cin, cg,
+            pp.dtype)))
     _call(entry, args, dev)
     return out
 

@@ -280,25 +280,32 @@ def _check_conv(got, ref):
 PH, PW = 7, 13
 
 
-def _phase_case(cuda, dtype, kind):
-    """(pp, pk, bias, table) of one stencil call: "up" the upsample kernel
-    (Cin 128 -> 4 x 64), "phase" the L1 phase-space kernel (4 x 64 ->
-    4 x 64), "l2" the L2 up-conv kernel (4 x 32 -> 16 x 32)."""
+def _phase_case(cuda, dtype, kind, shape=(2, PH, PW)):
+    """(pp, pk, bias, table) of one stencil call over a (B, H, W) grid: "up"
+    the upsample kernel (Cin 128 -> 4 x 64), "phase" the L1 phase-space
+    kernel (4 x 64 -> 4 x 64), "dense" every (tap, input phase) block of
+    4 x 64 -> 4 x 32 set, "l2" the L2 up-conv kernel (4 x 32 -> 16 x 32)."""
     from mastermetastyletransfer_tpu_torch.ops import conv as tconv
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
 
     g = torch.Generator().manual_seed(3)
     if kind == "up":
-        x = torch.randn((2, PH, PW, 128), generator=g)
+        x = torch.randn((*shape, 128), generator=g)
         k = tconv._phase_kernel(0.05 * torch.randn((3, 3, 128, 64),
                                                    generator=g))
         pp, table, groups = tconv._edge_pad(x), tconv._UPSAMPLE_TABLE, 4
     elif kind == "phase":
-        x = torch.randn((2, PH, PW, 256), generator=g)
+        x = torch.randn((*shape, 256), generator=g)
         k = tconv._phase_space_kernel(0.05 * torch.randn((3, 3, 64, 64),
                                                          generator=g))
         pp, table, groups = tconv._edge_pad(x), tconv._phase_space_table(), 4
+    elif kind == "dense":
+        x = torch.randn((*shape, 256), generator=g)
+        k = 0.03 * torch.randn((2, 2, 256, 128), generator=g)
+        table = pc.GroupTable(tconv._L1_OFFSETS, (0xFFFF,) * 4, 4)
+        pp, groups = tconv._edge_pad(x), 4
     else:
-        x = torch.randn((2, PH, PW, 128), generator=g)
+        x = torch.randn((*shape, 128), generator=g)
         k, _ = tconv._phase2_kernel(0.1 * torch.randn((3, 3, 32, 32),
                                                       generator=g), True)
         pp = tconv._phase2_pad(x, 2, 32, True)
@@ -309,7 +316,7 @@ def _phase_case(cuda, dtype, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["up", "phase"])
+@pytest.mark.parametrize("kind", ["up", "phase", "dense"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_stencil_phase_conv_matches_plain(cuda, dtype, kind):
     from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
@@ -320,6 +327,51 @@ def test_stencil_phase_conv_matches_plain(cuda, dtype, kind):
     assert pc.LAUNCHES["stencil_phase_conv"] == before + 1
     assert got.shape == (2, PH, PW, pk.shape[-1])
     _check_conv(got, pc.stencil_phase_conv_plain(pp, pk, bias, table))
+
+
+# (H, W) around the tensor-core body's 8 x 16 pixel tile: 1, tile - 1,
+# tile + 1; at B = 1.
+RAGGED = [(1, 1), (7, 15), (9, 17), (1, 17), (9, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", RAGGED)
+@pytest.mark.parametrize("kind", ["up", "phase", "dense"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stencil_phase_conv_ragged_tiles(cuda, dtype, kind, hw):
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+
+    pp, pk, bias, table = _phase_case(cuda, dtype, kind, (1, *hw))
+    got = pc.stencil_phase_conv(pp, pk, bias, table)
+    assert got.shape == (1, *hw, pk.shape[-1])
+    _check_conv(got, pc.stencil_phase_conv_plain(pp, pk, bias, table))
+
+
+@pytest.mark.cuda
+def test_tensor_core_body_reports_its_attributes(cuda):
+    """bf16 K5 and both K12 entries run the tensor-core body: its
+    instantiations report dynamic shared memory once they have launched;
+    the scalar-FMA body (K5 at f32, K6) uses none."""
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+
+    for kind in ("up", "phase"):
+        pp, pk, bias, table = _phase_case(cuda, torch.bfloat16, kind)
+        pc.stencil_phase_conv(pp, pk, bias, table)
+        plan = pc.stencil_plan(table, "stencil", 2, PH, PW, pp.shape[-1],
+                               pk.shape[-1] // 4, torch.bfloat16)
+        smem, dyn, regs = pc.kernel_attributes(plan.kernel, torch.bfloat16)
+        assert dyn >= plan.smem_bytes > 0 and regs > 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for entry in ("stencil_phase2_rgb", "stencil_phase2_rgb128"):
+            pp, pk, bias, bases = _rgb_case(cuda, dtype, entry)
+            getattr(pc, entry)(pp, pk, bias, bases)
+            plan = pc.stencil_plan(
+                pc.rgb_table(tuple(int(v) for v in bases)),
+                entry.replace("stencil_phase2_", ""),
+                2, PH, PW, pp.shape[-1], pk.shape[-1] // 16, dtype)
+            smem, dyn, regs = pc.kernel_attributes(plan.kernel, dtype)
+            assert dyn >= plan.smem_bytes > 0 and regs > 0
+        assert pc.kernel_attributes("stencil", dtype)[1] == 0
 
 
 @pytest.mark.cuda
@@ -701,6 +753,28 @@ def test_rgb_tail_matches_plain(cuda, dtype, entry, table):
     before = pc.LAUNCHES[entry]
     got = getattr(pc, entry)(pp, pk, bias, bases, table=tab)
     assert pc.LAUNCHES[entry] == before + 1
+    _check_conv(got, getattr(pc, entry + "_plain")(pp, pk, bias, bases))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", RAGGED)
+@pytest.mark.parametrize("table", ["dense", "l2"])
+@pytest.mark.parametrize("entry", ["stencil_phase2_rgb",
+                                   "stencil_phase2_rgb128"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rgb_tail_ragged_tiles(cuda, dtype, entry, table, hw):
+    """K12 over a (1, H, W) grid around the 8 x 16 tile: pp random (the
+    kernel takes any L2 input), the kernel zero outside the table's blocks
+    for the L2 table."""
+    from mastermetastyletransfer_tpu_torch.ops import conv as tconv
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+
+    _, pk, bias, bases = _rgb_case(cuda, dtype, entry)
+    g = torch.Generator().manual_seed(10)
+    pp = torch.randn((1, hw[0] + 2, hw[1] + 2, 512),
+                     generator=g).to(cuda, dtype)
+    tab = tconv._phase2_table(False) if table == "l2" else None
+    got = getattr(pc, entry)(pp, pk, bias, bases, table=tab)
     _check_conv(got, getattr(pc, entry + "_plain")(pp, pk, bias, bases))
 
 
