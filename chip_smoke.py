@@ -32,16 +32,21 @@ swin_S-width block (C=192, 6 heads), the decoder's stencil and align
 kernels at the convs of one request batch (K5 at conv1-4 and conv6, K6 with
 pad columns at conv7 and without them at the same shape, K7 at conv5; with
 the time of one cuDNN conv of the same composed kernel and padded input as
-the library yardstick, a conv without the align; for K5 and K12 the body
-that ran -- the tensor-core body's plan and compiled table at bf16 (K12 at
-f32 too), the scalar-FMA body at f32 -- with its registers and static and
-dynamic shared memory); stencil_shapes (K5 at the training step's five
+the library yardstick, a conv without the align; for K1, K5, K6 and K12 the
+body that ran -- K1's tensor-core body and its form at bf16, the
+tensor-core stencil body's plan and compiled table (K6 and K12 at f32 too,
+its FMA form), the scalar bodies otherwise -- with its registers and
+static and dynamic shared memory); stencil_shapes (K5 at the training step's five
 convs, decoder input (8, 32, 32, 256), bf16 and f32, as at the serving
 shapes); slice (the bf16 and f32
 services, launches per path counted from zero just before each path's run,
 each against the reference services: every kernel off and the decoder's
 nine plain convs, so that the reference shares no phase algebra with
-K5-K7); f32_entry (one float32 pair through ``make_stylize_fn`` on the card
+K5-K7); concurrent (two bf16 services, k=1 and k=3, serving the slice's
+requests at once from client threads of their own, so that kernels launch
+from two host threads at shared-memory sizes that differ: no request may
+fail, and each output must equal bit for bit what the same service gave
+alone); f32_entry (one float32 pair through ``make_stylize_fn`` on the card
 against the same call on the CPU, with PyTorch's own TF32 settings);
 stages (CUDA-event times of one batch-8 pair call at bf16 per stage,
 kernels on, off, as the reference service runs, and in the pair slice's
@@ -86,7 +91,11 @@ bfloat16: every bf16 route carries bf16 rounding noise through the whole
 model, and its size against the output moves with the weight draw, so the
 kernel path is held to the plain bf16 route on the same draw and pairs:
 its per-pixel MAE against the float32 reference at most 1.5 times the
-plain bf16 reference service's.
+plain bf16 reference service's, over the whole image and, apart, over the
+outermost column on each side, which K6's pad columns feed and where a
+wrong pad slot shows while the whole-image ratio averages it away (the
+edge ratio measured 0.84 on an H100 before K6's tensor-core form, and a
+planted wrong slot gave 5.4).
 
 The training kernels' gradients: at float32 1e-4 of the largest |grad| of
 the tensor, at bfloat16 two units in the last place plus 2^-6 of it (the
@@ -159,6 +168,9 @@ TOL_F32 = 1e-4
 TOL_BF16_ULPS, TOL_BF16_UPDATE = 2, 2.0 ** -6
 TOL_SLICE_MAE = 1e-4
 TOL_BF16_NOISE = 1.5
+# The same ratio over the output's outermost column on each side (F6).
+EDGE_COLS = 1
+TOL_BF16_EDGE_NOISE = 1.5
 TOL_CONV_BF16_SCALE = 2.0 ** -8
 LAUNCHES = (wb.LAUNCHES, sb.LAUNCHES, pc.LAUNCHES, wa.LAUNCHES, lm.LAUNCHES,
             bpr.LAUNCHES, tpe.LAUNCHES)
@@ -393,10 +405,21 @@ def swin_block_cases(gen, rows, *, b, c, heads, hp, valid, shift, label,
     for entry, dtype in entries:
         w = wb.block_weights(params, (7, 7), dtype, use_norm=True)
         kw = dict(heads=heads, mask=mask, padmask=padmask)
+        plan = wb.block_plan(entry, 49, c, heads, 4 * c, dtype)
+        attrs = {}
         if entry == "window_block_rows":
             x = x32.to(dtype).contiguous()
             kw.update(window=(7, 7), shift=(sh, sw))
             kern, plain = wb.window_block_rows, wb.window_block_rows_plain
+            # the body that runs, its registers and shared memory after one
+            # launch of this call
+            kern(x, w, **kw)
+            torch.cuda.synchronize()
+            smem, dyn, regs = wb.kernel_attributes(plan, dtype, c // heads)
+            attrs = dict(
+                body=(f"window_tc{c // heads}_x{plan.blocks_per_sm}"
+                      if plan.body == "tc" else "block_window"),
+                registers=regs, smem_static=smem, smem_dynamic=dyn)
         else:
             xr = torch.roll(x32, (-sh, -sw), (1, 2)) if sh or sw else x32
             x = window_partition(xr, 7, 7).reshape(b, nw, 49, c)
@@ -407,9 +430,8 @@ def swin_block_cases(gen, rows, *, b, c, heads, hp, valid, shift, label,
                  lambda: [kern(x, w, **kw)], lambda: [plain(x, w, **kw)],
                  [x], block_cost(b, nw, 49, c, heads, 4 * c, dtype,
                                  mask is not None, True),
-                 wb._lib().mmst_window_block_smem_bytes(
-                     49, c, heads, item_bytes(dtype)),
-                 shift=[sh, sw])
+                 wb.smem_bytes(plan, 49, c, heads, dtype),
+                 shift=[sh, sw], **attrs)
 
 
 def style_cases(gen, rows):
@@ -486,15 +508,14 @@ def stencil_cost(pp: torch.Tensor, table: pc.GroupTable, c_out: int,
 
 def stencil_attributes(entry: str, dtype, pp: torch.Tensor,
                        table: pc.GroupTable, c_out: int, launch) -> dict:
-    """The body one stencil or K12 call runs and its attributes: K5 at bf16
-    and K12 the tensor-core body (its plan's instantiation; static and
+    """The body one stencil or K12 call runs and its attributes: K5 at bf16,
+    K6 and K12 the tensor-core body (its plan's instantiation; static and
     dynamic shared memory after one launch of this call, so the dynamic
-    size is at least this call's own), K5 at f32 and K6 the scalar-FMA
-    body."""
+    size is at least this call's own), K5 at f32 the scalar-FMA body."""
     b, hp, wp, cin = pp.shape
-    if entry.startswith("stencil_phase2_rgb") or (
-            entry == "stencil_phase_conv" and dtype == torch.bfloat16):
+    if entry != "stencil_phase_conv" or dtype == torch.bfloat16:
         kind = ("stencil" if entry == "stencil_phase_conv"
+                else "phase2" if entry.startswith("stencil_phase2_conv")
                 else entry.replace("stencil_phase2_", ""))
         plan = pc.stencil_plan(table, kind, b, hp - 2, wp - 2, cin, c_out,
                                dtype)
@@ -1214,17 +1235,37 @@ def reference_config(dtype: str) -> ModelConfig:
     return cfg.replace(decoder=cfg.decoder.replace(fuse_upsample=False))
 
 
+def edge_columns(img: np.ndarray) -> np.ndarray:
+    """The outermost EDGE_COLS columns on each side of (N, H, W, 3) images:
+    the output columns that K6's pad columns feed (conv8's 3x3 window past
+    the image's edge reads the pad slot next to it)."""
+    return np.concatenate([img[:, :, :EDGE_COLS], img[:, :, -EDGE_COLS:]], 2)
+
+
 def bf16_noise_verdict(got: np.ndarray, plain: np.ndarray,
                        ref32: np.ndarray) -> dict:
     """The bf16 slice check's numbers: the per-pixel MAE of the kernel path
     (got) and of the plain bf16 route (plain) against the float32
-    reference, and their ratio, which may be at most TOL_BF16_NOISE."""
+    reference, and their ratio, which may be at most TOL_BF16_NOISE; the
+    same over the edge columns alone (``edge_columns``), where a wrong pad
+    slot of K6 shows and the whole image averages it away, at most
+    TOL_BF16_EDGE_NOISE. ``ok`` holds both."""
     mae = float(np.abs(got - ref32).mean())
     plain_mae = float(np.abs(plain - ref32).mean())
-    return dict(mae_vs_f32=mae, plain_mae_vs_f32=plain_mae,
-                noise_ratio=mae / plain_mae, noise_ratio_tol=TOL_BF16_NOISE,
-                mae_vs_plain=float(np.abs(got - plain).mean()),
-                mean_abs_output=float(np.abs(ref32).mean()))
+    ge, pe, re = (edge_columns(a) for a in (got, plain, ref32))
+    edge_mae = float(np.abs(ge - re).mean())
+    edge_plain_mae = float(np.abs(pe - re).mean())
+    out = dict(mae_vs_f32=mae, plain_mae_vs_f32=plain_mae,
+               noise_ratio=mae / plain_mae, noise_ratio_tol=TOL_BF16_NOISE,
+               edge_cols=EDGE_COLS, edge_mae_vs_f32=edge_mae,
+               edge_plain_mae_vs_f32=edge_plain_mae,
+               edge_noise_ratio=edge_mae / edge_plain_mae,
+               edge_noise_ratio_tol=TOL_BF16_EDGE_NOISE,
+               mae_vs_plain=float(np.abs(got - plain).mean()),
+               mean_abs_output=float(np.abs(ref32).mean()))
+    out["ok"] = bool(out["noise_ratio"] <= TOL_BF16_NOISE
+                     and out["edge_noise_ratio"] <= TOL_BF16_EDGE_NOISE)
+    return out
 
 
 def serve_requests(svc: StylizeService, pairs, clients: int):
@@ -1338,15 +1379,70 @@ def run_slice(params, pairs):
         emit("slice", dtype=dtype, size=SIZE, k=K, max_batch=MAX_BATCH,
              **summary[dtype])
     bf16 = checks["bfloat16"]
-    if not bf16["noise_ratio"] <= TOL_BF16_NOISE:
+    if not bf16["ok"]:
         raise AssertionError(
             f"bfloat16 slice: MAE {bf16['mae_vs_f32']} against float32 is "
             f"{bf16['noise_ratio']} times the plain bf16 route's "
-            f"{bf16['plain_mae_vs_f32']} (at most {TOL_BF16_NOISE})")
+            f"{bf16['plain_mae_vs_f32']} (at most {TOL_BF16_NOISE}); on the "
+            f"edge columns {bf16['edge_noise_ratio']} times (at most "
+            f"{TOL_BF16_EDGE_NOISE})")
     if not mae32 <= TOL_SLICE_MAE * mean32:
         raise AssertionError(f"float32 slice MAE {mae32} > "
                              f"{TOL_SLICE_MAE * mean32}")
     return results["bfloat16"]["launches"], summary, refs
+
+
+CONCURRENT_K = (1, 3)
+
+
+def run_concurrent(params, pairs) -> dict:
+    """Two bf16 kernel services, k=1 and k=3, each on the slice's requests
+    from CLIENTS client threads of its own: first each alone, then both at
+    once, so that kernels launch from two host threads (each service's
+    worker) at shapes whose shared memory differs. No request may fail, and
+    each output must equal, bit for bit, what the same service gave alone
+    (every kernel sums in a fixed order, and a batch's images do not mix)."""
+    svcs = {k: StylizeService(params, slice_config("bfloat16", True),
+                              size=SIZE, k=k, max_batch=MAX_BATCH,
+                              device=DEVICE) for k in CONCURRENT_K}
+    try:
+        for svc in svcs.values():
+            svc.warmup()
+        alone = {k: np.stack(serve_requests(svc, pairs, CLIENTS)[0])
+                 for k, svc in svcs.items()}
+        together, walls, errors = {}, {}, []
+
+        def serve(k):
+            try:
+                outs, _, walls[k] = serve_requests(svcs[k], pairs, CLIENTS)
+                together[k] = np.stack(outs)
+            except Exception as e:  # re-raised below, in the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=serve, args=(k,)) for k in svcs]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        wall = time.perf_counter() - t0
+    finally:
+        for svc in svcs.values():
+            svc.close()
+    if errors:
+        raise AssertionError(f"concurrent serving: a request failed: "
+                             f"{errors[0]!r}")
+    if set(together) != set(svcs):
+        raise AssertionError("concurrent serving did not complete")
+    diffs = {str(k): float(np.abs(together[k] - alone[k]).max())
+             for k in svcs}
+    emit("concurrent", dtype="bfloat16", ks=list(CONCURRENT_K),
+         requests_each=len(pairs), clients_each=CLIENTS, wall_s=wall,
+         walls_s={str(k): v for k, v in walls.items()},
+         max_abs_diff_vs_alone=diffs)
+    if any(d != 0.0 for d in diffs.values()):
+        raise AssertionError(f"concurrent serving changed outputs: {diffs}")
+    return diffs
 
 
 @contextlib.contextmanager
@@ -1423,7 +1519,7 @@ def run_pair_slice(params, pairs, refs) -> dict:
             else:
                 check = bf16_noise_verdict(outs, refs["bfloat16"],
                                            refs["float32"])
-                ok = check["noise_ratio"] <= TOL_BF16_NOISE
+                ok = check["ok"]
             summary[route] = dict(
                 dtype=dtype, requests=len(outs), clients=CLIENTS,
                 batches=batches, imgs_per_s=len(outs) / wall,
@@ -1841,6 +1937,7 @@ def main(argv=None) -> int:
 
     reqs = pairs(REQUESTS)
     launches, _, refs = run_slice(params, reqs)
+    run_concurrent(params, reqs)
     check_f32_entry(params, rng)
     batch = np.stack([p for pair in pairs(MAX_BATCH) for p in pair])
     emit("stages", dtype="bfloat16", batch=MAX_BATCH, size=SIZE, k=K,
@@ -1870,7 +1967,10 @@ def main(argv=None) -> int:
         ms = sum(r["ms"] * n for r, n in mine)
         bound = sum(r["bound_ms"] * n for r, n in mine)
         body = {k: max(r[k] for r, _ in mine)
-                for k in ("registers", "smem_dynamic") if k in mine[0][0]}
+                for k in ("registers", "smem_dynamic", "smem_static")
+                if k in mine[0][0]}
+        if "body" in mine[0][0]:
+            body["body"] = sorted({r["body"] for r, _ in mine})
         return dict(
             name=entry, route="cuda",
             source=f"mastermetastyletransfer_tpu_torch/csrc/{source}",

@@ -36,10 +36,10 @@
 // 1..W, and columns 0 and W+1 hold the next L2 conv's phase-pad columns.
 // Pad slot s of a column border copies, for every row phase and channel, the
 // output at column src[s] and column phase ph[s] (ops/conv.py:
-// _phase2_pad_maps). Each thread that writes an output element whose
-// (column, column phase) is a source of a slot writes the same rounded value
-// to that slot too, so the border is an exact copy and needs nothing from
-// other blocks.
+// _phase2_pad_maps). The thread that writes a 16-byte piece of an output
+// whose (column, column phase) is a source of a slot writes the same
+// rounded piece to that slot too, so the border is an exact copy and needs
+// nothing from other blocks.
 //
 // K12 is the decoder's RGB conv (conv8, 32 -> 3) on the L2 phase tensor:
 // the same stencil with the same 16 read offsets (the generalized align),
@@ -67,15 +67,16 @@
 // K7 is a pure permutation: out[b, i, j, g C' + c] = big[b, i + a, j + bb,
 // g C' + c] for g = 2 a + bb, copied in 16-byte vectors.
 //
-// Two bodies compute the stencil. K5 at bf16 and both K12 entries run the
-// tensor-core body of stencil_tc.cuh (one block per pixel tile across all
-// groups, cp.async staging, mma.sync at bf16, FMAs at f32 for K12). K5 at
-// f32 and both K6 entries run stencil_kernel below: a block owns 256 output
-// pixels x 32 channels of one group, the pixel tile (16 channels deep, f32)
-// and the weight tile sit in 18 KB of shared memory, each thread keeps an
-// 8 x 4 register tile of scalar f32 FMAs, and the zero weight blocks are
-// never read. At f32 the tensor cores would mean TF32, which the port's
-// rounding points forbid.
+// Two bodies compute the stencil. K5 at bf16, both K6 entries and both K12
+// entries run the tensor-core body of stencil_tc.cuh (one block per pixel
+// tile across all groups, cp.async staging, mma.sync at bf16, FMAs at f32
+// for K6 and K12; K6 padcols writes its pad columns from the output tile).
+// K5 at f32 runs stencil_kernel below: a block owns 256 output pixels x 32
+// channels of one group, the pixel tile (16 channels deep, f32) and the
+// weight tile sit in 18 KB of shared memory, each thread keeps an 8 x 4
+// register tile of scalar f32 FMAs, and the zero weight blocks are never
+// read. At f32 the tensor cores would mean TF32, which the port's rounding
+// points forbid.
 //
 // What bounds them on an H100: at the decoder's shapes (512^2, batch 8)
 // K5 does 17-39 GFLOP of nonzero products per call against 43-103 MB, K6
@@ -106,7 +107,7 @@ struct StencilArgs {
   unsigned long long blocks[16];        // per group nonzero (tap, chunk)
   long long left_src[4], left_ph[4];    // padcols: column border slots
   long long right_src[4], right_ph[4];
-  TilePlan plan;                        // the tensor-core body (bf16 K5)
+  TilePlan plan;                        // the tensor-core body (K6, bf16 K5)
 };
 
 // Mirrors RgbArgs in ops/phase_conv.py field for field.
@@ -272,34 +273,18 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // Epilogue: bias, ReLU, one rounding; the pad columns copy the rounded
-  // value.
+  // Epilogue: bias, ReLU, one rounding.
   T* out = static_cast<T*>(a.out);
-  const long long Wo = W + 2 * a.padcols;
-  const long long Cout = a.Cout;
-  const int pa = g / 4, q = g % 4;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const long long m = m0 + tm * TM + i;
     if (m >= M) break;
-    const long long b = m / (H * W), y = (m / W) % H, x = m % W;
-    const long long row = (b * H + y) * Wo;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const long long n = n0 + tn * TN + j;
       float val = acc[i][j] + a.bias[n];
       if (a.relu) val = fmaxf(val, 0.f);
-      const T r = from_f<T>(val);
-      out[(row + x + a.padcols) * N + n] = r;
-      if (a.padcols) {
-        const long long ch = n - g * Cout;
-        for (int s = 0; s < 4; ++s) {
-          if (a.left_src[s] == x && a.left_ph[s] == q)
-            out[row * N + (4 * pa + s) * Cout + ch] = r;
-          if (a.right_src[s] == x && a.right_ph[s] == q)
-            out[(row + Wo - 1) * N + (4 * pa + s) * Cout + ch] = r;
-        }
-      }
+      out[m * N + n] = from_f<T>(val);
     }
   }
 }
@@ -333,17 +318,13 @@ int launch_stencil(const StencilArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Each entry takes its own group count and output form; the shapes the
-// kernel needs (C' % BN, chunks of whole BK steps) are checked here too.
-int stencil(const StencilArgs* a, void* stream, long long groups,
-            long long padcols) {
-  if (a->groups != groups || a->padcols != padcols || a->Cout % BN ||
-      a->nchunks < 1 || a->Cin % (a->nchunks * BK) ||
-      (padcols && a->W < 2))
+// K5 at f32; the shapes the kernel needs (C' % BN, chunks of whole BK
+// steps) are checked here too.
+int stencil(const StencilArgs* a, void* stream) {
+  if (a->groups != 4 || a->padcols || a->Cout % BN || a->nchunks < 1 ||
+      a->Cin % (a->nchunks * BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->dtype == 1) return launch_stencil<__nv_bfloat16>(*a, s);
-  return launch_stencil<float>(*a, s);
+  return launch_stencil<float>(*a, static_cast<cudaStream_t>(stream));
 }
 
 // The tensor-core body's launch: the plan must be the one this
@@ -352,8 +333,6 @@ int stencil(const StencilArgs* a, void* stream, long long groups,
 template <typename T, int G, int BN, int WARPS_M, int WARPS_N, int STAGES,
           int MINB, bool kFine, int PAT = kPatGeneral>
 struct TcKernel {
-  static inline long long configured = 0;  // dynamic smem opted in so far
-
   static int launch(const TcArgs& a, cudaStream_t stream) {
     const mmst::TilePlan& p = a.plan;
     const long long sk = p.stage_k;
@@ -389,18 +368,16 @@ struct TcKernel {
         ok = ok && G == 4 && a.Cin / a.chunk == 4 && bits == kPhaseBits[c];
       if (PAT == kPatRgb)
         ok = ok && G == 16 && a.Cin / a.chunk == 16 && bits == kRgbBits[c];
+      if (PAT == kPatL2Up)
+        ok = ok && G == 16 && a.Cin / a.chunk == 4 && bits == kL2UpBits[c];
     }
     for (int g = 0; ok && PAT != kPatGeneral && g < G; ++g)
       ok = a.off_y[g] == known_oy<G>(g) && a.off_x[g] == known_ox<G>(g);
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-    if (p.smem_bytes > configured) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          tc_stencil_kernel<T, G, BN, WARPS_M, WARPS_N, STAGES, MINB, kFine, PAT>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(p.smem_bytes));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      configured = p.smem_bytes;
-    }
+    const int err = opt_in_smem(
+        tc_stencil_kernel<T, G, BN, WARPS_M, WARPS_N, STAGES, MINB, kFine, PAT>,
+        static_cast<size_t>(p.smem_bytes));
+    if (err != 0) return err;
     if (p.blocks > 0)
       tc_stencil_kernel<T, G, BN, WARPS_M, WARPS_N, STAGES, MINB, kFine, PAT>
           <<<static_cast<unsigned>(p.blocks), WARPS_M * WARPS_N * 32,
@@ -417,7 +394,8 @@ struct TcKernel {
         tc_stencil_kernel<T, G, BN, WARPS_M, WARPS_N, STAGES, MINB, kFine, PAT>);
     if (err != cudaSuccess) return static_cast<int>(err);
     *smem = static_cast<long long>(attr.sharedSizeBytes);
-    *dyn = configured;
+    *dyn = opted_in_smem(
+        tc_stencil_kernel<T, G, BN, WARPS_M, WARPS_N, STAGES, MINB, kFine, PAT>);
     *regs = static_cast<long long>(attr.numRegs);
     return 0;
   }
@@ -427,11 +405,18 @@ struct TcKernel {
 // each; 8 warps as 4 (rows) x 2 (channels).
 template <int BN, int PAT>
 using K5Tc = TcKernel<__nv_bfloat16, 4, BN, 4, 2, 3, 1, false, PAT>;
+// K6 at bf16: 16 groups, a slice of 16 of their 32 channels; 8 warps, one
+// tile row each (128 accumulators, as K5's 64-channel form).
+template <int PAT>
+using K6Tc = TcKernel<__nv_bfloat16, 16, 16, 8, 1, 3, 1, false, PAT>;
 // K12: 16 groups of one 8-lane slot; 8 warps, one tile row each for a
 // compiled table, two groups each for any other; at bf16 two blocks per SM.
 template <typename T, bool kFine, int PAT = kPatGeneral>
 using K12Tc =
     TcKernel<T, 16, 8, 8, 1, 4, sizeof(T) == 2 ? 2 : 1, kFine, PAT>;
+// K6 at f32 on the body's FMA form: K12 rgb128's f32 instantiation (16
+// groups, two a warp), slices of 8 of C' channels.
+using K6F32 = K12Tc<float, false>;
 
 template <typename Args>
 TcArgs tc_args(const Args& a, long long cg, long long n) {
@@ -452,13 +437,14 @@ TcArgs tc_args(const Args& a, long long cg, long long n) {
     t.off_y[g] = static_cast<int>(a.off_y[g]);
     t.off_x[g] = static_cast<int>(a.off_x[g]);
   }
+  t.padcols = 0;
   t.plan = a.plan;
   return t;
 }
 
 // K5's entry: the tensor-core body at bf16, stencil_kernel at f32.
 int stencil_phase(const StencilArgs* a, void* stream) {
-  if (a->dtype != 1) return stencil(a, stream, 4, 0);
+  if (a->dtype != 1) return stencil(a, stream);
   if (a->groups != 4 || a->padcols || a->Cout % 32 || a->nchunks < 1 ||
       a->nchunks > 16 || a->Cin % (a->nchunks * 16) || a->H < 1 || a->W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -476,6 +462,33 @@ int stencil_phase(const StencilArgs* a, void* stream) {
       return wide ? K5Tc<64, kPatGeneral>::launch(t, s)
                   : K5Tc<32, kPatGeneral>::launch(t, s);
   }
+}
+
+// K6's two entries on the tensor-core body (with the pad columns for
+// padcols): mma.sync at bf16, its FMA form at f32 (0.84 against
+// stencil_kernel's 1.20 ms at conv7 on an H100, PERF.md).
+int stencil_phase2(const StencilArgs* a, void* stream, long long padcols) {
+  if (a->groups != 16 || a->padcols != padcols || a->Cout % 16 ||
+      a->nchunks < 1 || a->nchunks > 16 || a->Cin % (a->nchunks * 16) ||
+      a->H < 1 || a->W < 1 || (padcols && a->W < 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TcArgs t = tc_args(*a, a->Cout, 16 * a->Cout);
+  t.padcols = static_cast<int>(padcols);
+  for (int s = 0; s < 4; ++s) {
+    if (padcols && (a->left_src[s] < 0 || a->left_src[s] >= a->W ||
+                    a->right_src[s] < 0 || a->right_src[s] >= a->W ||
+                    a->left_ph[s] < 0 || a->left_ph[s] > 3 ||
+                    a->right_ph[s] < 0 || a->right_ph[s] > 3))
+      return static_cast<int>(cudaErrorInvalidValue);
+    t.left_src[s] = static_cast<int>(a->left_src[s]);
+    t.left_ph[s] = static_cast<int>(a->left_ph[s]);
+    t.right_src[s] = static_cast<int>(a->right_src[s]);
+    t.right_ph[s] = static_cast<int>(a->right_ph[s]);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->dtype != 1) return K6F32::launch(t, s);
+  return a->plan.pattern == kPatL2Up ? K6Tc<kPatL2Up>::launch(t, s)
+                                     : K6Tc<kPatGeneral>::launch(t, s);
 }
 
 // The shapes the RGB kernel takes: groups of at most 8 channels (8 for the
@@ -509,11 +522,12 @@ int rgb(const RgbArgs* a, void* stream, bool fine) {
 
 // Static shared memory, dynamic shared memory (the largest a launch has
 // used so far; 0 for the kernels that use none) and registers per thread of
-// one block of a kernel: which 0 stencil_kernel (K5 at f32, K6), 1 the
+// one block of a kernel: which 0 stencil_kernel (K5 at f32), 1 the
 // align copy, 2 K12's fine-grid form, 3 its slot form, 4 and 5 K5's
-// tensor-core body with 64- and 32-channel slices (bf16 only); pattern the
-// compiled table of the tensor-core body (0 for any table; bf16 only);
-// dtype 0 float32, 1 bfloat16.
+// tensor-core body with 64- and 32-channel slices (bf16 only), 6 and 7
+// K6's (16-channel slices at bf16, 8 at f32);
+// pattern the compiled table of the tensor-core body (0 for any table;
+// bf16 only); dtype 0 float32, 1 bfloat16.
 template <int PAT>
 int k5_attributes(long long which, long long* smem, long long* dyn,
                   long long* regs) {
@@ -551,6 +565,16 @@ int mmst_phase_conv_attributes(long long which, long long dtype,
   if (which == 2) return k12_attributes<true>(dtype, pattern, smem, dyn, regs);
   if (which == 3)
     return k12_attributes<false>(dtype, pattern, smem, dyn, regs);
+  if (which == 6 || which == 7) {
+    if (dtype != 1)
+      return pattern == kPatGeneral ? K6F32::attributes(smem, dyn, regs)
+                                    : static_cast<int>(cudaErrorInvalidValue);
+    switch (pattern) {
+      case kPatGeneral: return K6Tc<kPatGeneral>::attributes(smem, dyn, regs);
+      case kPatL2Up: return K6Tc<kPatL2Up>::attributes(smem, dyn, regs);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   if (which == 4 || which == 5) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     switch (pattern) {
@@ -580,12 +604,12 @@ int mmst_stencil_phase_conv(const mmst::StencilArgs* a, void* stream) {
 }
 
 int mmst_stencil_phase2_conv(const mmst::StencilArgs* a, void* stream) {
-  return stencil(a, stream, 16, 0);
+  return stencil_phase2(a, stream, 0);
 }
 
 int mmst_stencil_phase2_conv_padcols(const mmst::StencilArgs* a,
                                      void* stream) {
-  return stencil(a, stream, 16, 1);
+  return stencil_phase2(a, stream, 1);
 }
 
 int mmst_stencil_phase2_rgb(const mmst::RgbArgs* a, void* stream) {

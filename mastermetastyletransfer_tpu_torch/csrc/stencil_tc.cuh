@@ -1,13 +1,15 @@
 // The stencil body of the decoder's phase-space kernels on Hopper: K5's
-// bf16 entry (mmst_stencil_phase_conv) and both K12 entries
-// (mmst_stencil_phase2_rgb, mmst_stencil_phase2_rgb128) at either type.
-// phase_conv.cu has the function they compute; this file has how.
+// bf16 entry (mmst_stencil_phase_conv), and both K6 entries
+// (mmst_stencil_phase2_conv, mmst_stencil_phase2_conv_padcols) and both K12
+// entries (mmst_stencil_phase2_rgb, mmst_stencil_phase2_rgb128) at either
+// type. phase_conv.cu has the function they compute; this file has how.
 //
 // A thread block owns a tile of 8 x 16 coarse output pixels of one image
 // and, for every one of the G output groups, the same slice of BN output
-// channels (K5: G = 4, BN = 64 or 32 of C' = 128, 64 or 32; K12: G = 16,
-// one 8-lane slot, C' <= 8). For each input chunk c with a nonzero block,
-// one stage_k-deep slice of the chunk at a time (32 or 16 channels), it
+// channels (K5: G = 4, BN = 64 or 32 of C' = 128, 64 or 32; K6: G = 16, BN
+// = 16 of C' = 32 at bf16, 8 at f32; K12: G = 16, one 8-lane slot, C' <=
+// 8). For each input chunk c with a nonzero block, one stage_k-deep slice
+// of the chunk at a time (32 or 16 channels), it
 // copies the tile's (8 + 2) x (16 + 2) halo window of that slice into
 // shared memory once, with the weight rows of every (group, tap) pair
 // whose bit tap * nchunks + c is set, and applies all those pairs to the
@@ -29,12 +31,13 @@
 // slots are constants and each 16-channel step is straight-line code, K5
 // sharing a shift's A fragments among the pairs at it; warp (wm, wn) owns
 // WM tile rows (an m16 tile is one row of 16 pixels) and WN n8 tiles of
-// every group (K5: two rows, 32 or 16 channels; K12: one row, its 8-lane
-// slot). Any other table loops over each group's taps at run time (K5 as
-// above; K12 with warp w owning groups 2 w and 2 w + 1 over all eight
-// rows, so that a pair's B fragment serves eight independent HMMAs), the
-// form whose loop control costs K5 as much as its math. f32 (K12 only; f32
-// K5 keeps phase_conv.cu's stencil_kernel): the same staging and the
+// every group (K5: two rows, 32 or 16 channels; K6: one row, 16 channels,
+// 128 accumulators as K5's; K12: one row, its 8-lane slot). Any other table
+// loops over each group's taps at run time (K5 and K6 as above; K12 with
+// warp w owning groups 2 w and 2 w + 1 over all eight rows, so that a
+// pair's B fragment serves eight independent HMMAs), the form whose loop
+// control costs K5 as much as its math. f32 (K6 and K12, in 8-lane slots;
+// f32 K5 keeps phase_conv.cu's stencil_kernel): the same staging and the
 // run-time form, products as f32 FMAs from shared memory, never TF32, a
 // thread's four pixels sharing each weight row.
 //
@@ -47,14 +50,21 @@
 // the lanes past C' compute values that are never written.
 //
 // Epilogue: the f32 bias, optional ReLU, one rounding to T, into an output
-// tile in shared memory; the aligned form (K5; K12 rgb128, C' = 8) then
+// tile in shared memory; the aligned form (K5, K6; K12 rgb128, C' = 8) then
 // goes out in 16-byte pieces of (B, H, W, G C'), the fine form (K12 rgb) in
-// the fine grid's contiguous rows.
+// the fine grid's contiguous rows. K6 is bound by these stores (its
+// 512-channel output is nearly all of its bytes): a pixel's BN = 16
+// channels of a group are one 32-byte sector, two neighbouring threads'
+// pieces. K6's padcols form writes (B, H, W + 2, 16 C'): each 16-byte piece
+// of a source column of a pad slot goes to that slot too, from the same
+// register, so the writer of a source column writes its pad slots and the
+// border is an exact copy that needs nothing of other blocks.
 
 #pragma once
 
 #include <type_traits>
 
+#include "mma_common.cuh"
 #include "window_common.cuh"
 
 namespace mmst {
@@ -87,10 +97,16 @@ namespace {
 //   kPatPhase  K5's L1 phase-space kernel, nine pairs in each of 4 chunks
 //              (ops/conv.py:_phase_space_table);
 //   kPatRgb    K12's L2 RGB kernel, nine pairs in each of 16 chunks
-//              (ops/conv.py:_phase2_table(False)).
+//              (ops/conv.py:_phase2_table(False));
+//   kPatL2Up   K6's L2 up-conv kernel, one tap of every group in each of 4
+//              chunks (ops/conv.py:_phase2_table(True)).
 // In all of them group g reads at (g / 2, g % 2) for G = 4 and at the align
 // bases (0, 1, 1, 1): (min(g / 4, 1), min(g % 4, 1)) for G = 16.
-constexpr int kPatGeneral = 0, kPatDense = 1, kPatPhase = 2, kPatRgb = 3;
+constexpr int kPatGeneral = 0, kPatDense = 1, kPatPhase = 2, kPatRgb = 3,
+              kPatL2Up = 4;
+constexpr unsigned long long kL2UpBits[4] = {
+    0x8448211221128448, 0x4444111111114444, 0x2112211221122112,
+    0x1111111111111111};
 constexpr unsigned long long kPhaseBits[4] = {0xfac8, 0x5f4c, 0x32fa, 0x135f};
 constexpr unsigned long long kRgbBits[16] = {
     0x8048000020128048, 0x0448000001120448, 0x4440000011104440,
@@ -145,61 +161,13 @@ struct TcArgs {
   void* out;          // T (B, H, W, N) or the fine grid (B, 4H, 4W, cg)
   int B, H, W, Cin, cg, N, chunk, relu;
   int off_y[16], off_x[16];
+  // K6 padcols: out is (B, H, W + 2, N); slot s of the left (right) border
+  // copies column left_src[s] (right_src[s]) at column phase left_ph[s]
+  // (right_ph[s]).
+  int padcols;
+  int left_src[4], left_ph[4], right_src[4], right_ph[4];
   mmst::TilePlan plan;
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; zero-filled when !ok.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1,
-                                              uint32_t& r2, uint32_t& r3,
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1,
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r0), "=r"(r1)
-      : "r"(smem_addr(p)));
-}
-
-// d += a b: one m16n8k16 product, bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Elements of a staged row: the A row (one halo pixel) and the B row (one
 // input channel of one pair) are padded by 16 bytes where ldmatrix reads
@@ -271,7 +239,7 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MINB)
   constexpr int LVPR = ilog2(BN / VEC);     // 16-byte pieces per B row
   // A pieces a thread copies per stage (stage_k <= 32).
   constexpr int kAMax = (kHaloPix * 32 / VEC + NT - 1) / NT;
-  static_assert(kMma || (G == 16 && BN == 8), "f32: K12 only");
+  static_assert(kMma || (G == 16 && BN == 8), "f32: 16 groups, 8 lanes");
   static_assert(!kMma || WN == 1 || WN % 2 == 0, "n8 tiles in pairs");
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -409,7 +377,7 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MINB)
   // (G = 16): warp w owns groups 2 w and 2 w + 1, every pixel of the tile
   // (bf16: the eight rows' m16 tiles; f32: a thread's four pixels lane +
   // 32 j).
-  constexpr bool kGroupWarps = G == 16 && PAT == kPatGeneral;
+  constexpr bool kGroupWarps = G == 16 && PAT == kPatGeneral && BN == 8;
   static_assert(!kGroupWarps || NT == 8 * 32, "two groups a warp");
   constexpr int ACC = kGroupWarps ? 64 : WM * G * WN * 4;
   float acc[ACC];
@@ -510,8 +478,8 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MINB)
                    popc64(CT & ((1u << tap) - 1u)), kb, kRaw);
             products(g, af, bf);
           };
-          if constexpr (G == 4) {
-            // K5: the A fragments of a shift serve every pair at it.
+          if constexpr (G == 4 || PAT == kPatL2Up) {
+            // K5, K6: the A fragments of a shift serve every pair at it.
 #pragma unroll
             for (int sh = 0; sh < 9; ++sh) {
               if (!any_at<G>(PB, sh)) continue;
@@ -565,6 +533,20 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MINB)
           default:
             known(std::integral_constant<unsigned long long, kPhaseBits[3]>());
         }
+      } else if constexpr (PAT == kPatL2Up) {
+        switch (c) {
+          case 0:
+            known(std::integral_constant<unsigned long long, kL2UpBits[0]>());
+            break;
+          case 1:
+            known(std::integral_constant<unsigned long long, kL2UpBits[1]>());
+            break;
+          case 2:
+            known(std::integral_constant<unsigned long long, kL2UpBits[2]>());
+            break;
+          default:
+            known(std::integral_constant<unsigned long long, kL2UpBits[3]>());
+        }
       } else {
         static_assert(PAT == kPatRgb, "a compiled table");
         switch (c) {
@@ -582,10 +564,10 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MINB)
 #undef MMST_RGB_CHUNK
         }
       }
-    } else if constexpr (kMma && G == 4) {
-      // K5, any other table: group by group (the accumulators' index fixed
-      // at compile time), each group's taps in a loop, so that every HMMA
-      // a warp issues is one of the table's nonzero blocks.
+    } else if constexpr (kMma && !kGroupWarps) {
+      // K5 and K6, any other table: group by group (the accumulators' index
+      // fixed at compile time), each group's taps in a loop, so that every
+      // HMMA a warp issues is one of the table's nonzero blocks.
 #pragma unroll 1
       for (int kb = 0; kb < sk; kb += 16)
 #pragma unroll
@@ -744,7 +726,7 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MINB)
 #pragma unroll
         for (int n = 0; n < 8; ++n)
           if (!kFine || n < cg)
-            put(lane / kTileW + 2 * j, lane % kTileW, 2 * warp + gi, n,
+            put(lane / kTileW + 2 * j, lane % kTileW, 2 * warp + gi, n0 + n,
                 acc[(gi * 4 + j) * 8 + n]);
   }
   __syncthreads();
@@ -771,19 +753,33 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MINB)
       }
     }
   } else {
-    // Per pixel, every group's BN channels: G * BN / VEC pieces.
+    // Per pixel, every group's BN channels: G * BN / VEC pieces; with pad
+    // columns, a source column's pieces to its pad slots too.
     constexpr int LPG = LVPR;  // pieces per group, log2
     constexpr int LPP = ilog2(G) + LPG;
+    const int pad = a.padcols, Wo = W + 2 * pad;
     for (int i = tid; i < (kTileH * kTileW) << LPP; i += NT) {
       const int pix = i >> LPP, q = i & ((1 << LPP) - 1);
       const int y = pix / kTileW, x = pix % kTileW;
       if (y >= th || x >= tw) continue;
       const int g = q >> LPG, v = q & ((1 << LPG) - 1);
-      *reinterpret_cast<uint4*>(
-          out + ((static_cast<long long>(b) * H + i0 + y) * W + j0 + x) * N +
-          g * cg + n0 + v * VEC) =
-          *reinterpret_cast<const uint4*>(tile + pix * OST + g * BN +
-                                          v * VEC);
+      const uint4 val = *reinterpret_cast<const uint4*>(tile + pix * OST +
+                                                        g * BN + v * VEC);
+      const long long row = (static_cast<long long>(b) * H + i0 + y) * Wo;
+      const int xg = j0 + x, ch = n0 + v * VEC;
+      *reinterpret_cast<uint4*>(out + (row + xg + pad) * N + g * cg + ch) =
+          val;
+      if (pad) {
+        const int slot0 = 4 * (g >> 2) * cg + ch, ph = g & 3;
+#pragma unroll
+        for (int sl = 0; sl < 4; ++sl) {
+          if (a.left_src[sl] == xg && a.left_ph[sl] == ph)
+            *reinterpret_cast<uint4*>(out + row * N + slot0 + sl * cg) = val;
+          if (a.right_src[sl] == xg && a.right_ph[sl] == ph)
+            *reinterpret_cast<uint4*>(out + (row + Wo - 1) * N + slot0 +
+                                      sl * cg) = val;
+        }
+      }
     }
   }
 }

@@ -25,13 +25,19 @@
 // What bounds it on an H100: at the slice's shapes (bf16, C = 128/256,
 // 49-token windows) the work is some 400k bf16 operations per token against
 // 4C bytes read and written, so the card's tensor-core rate bounds it, not
-// its memory. This first version keeps every intermediate of a window in
-// shared memory, so device memory sees each token once in and once out plus
-// the weights through L2 -- the byte side is at its minimum -- but it does the
-// products with scalar FMAs on the CUDA cores, so it runs well below that
-// bound. Moving the four products to wgmma is the next step for speed.
+// its memory. Both bodies keep every intermediate of a window in shared
+// memory, so device memory sees each token once in and once out plus the
+// weights through L2 -- the byte side is at its minimum.
 //
-// Design: one thread block of 256 threads per (image, window). Shared memory
+// Two bodies. K1 at bf16 (the rows entry, as the Swin runs it) runs the
+// tensor-core body of window_tc.cuh where ops/window_block.py:block_plan
+// says so (C % 32 == 0, head dim 16, 32 or 64, N <= 64, hidden % 128 == 0:
+// the Swin stages of swin_T/S/B): mma.sync products, weights streamed
+// through a cp.async ring, the softmax in registers. Every other call -- K2,
+// f32 -- runs the scalar body described next, which K11 (block_pair.cu)
+// shares.
+//
+// Scalar body: one thread block of 256 threads per (image, window). Shared memory
 // holds the window's residual stream in f32, the normed tile, the head
 // outputs, one head's q/k/v and its 49x49 scores; the MLP hidden dimension
 // runs in chunks of C so that C = 256 fits. Weights stream from device
@@ -44,10 +50,22 @@
 // error code of its launch (0 on success).
 
 #include "window_common.cuh"
+#include "window_tc.cuh"
 
 // The entry points' argument block. It stays outside the anonymous
 // namespace: a type with internal linkage would hide the extern "C" entries.
 namespace mmst {
+
+// Mirrors BlockPlan in ops/window_block.py (the fields the kernel reads).
+struct TcPlan {
+  long long body;        // 0 the scalar body; the tensor-core body at 1 or
+                         // 2 blocks an SM (its two forms)
+  long long rows;        // a window's tokens padded to m16 tiles: 64
+  long long panel;       // output columns per weight panel: 128
+  long long kp;          // weight rows per ring tile: 32 or 64
+  long long stages;      // ring tiles: 3 (one block an SM) or 2 (two)
+  long long smem_bytes;  // dynamic shared memory per block
+};
 
 // Mirrors WindowBlockArgs in ops/window_block.py field for field: every
 // field is 8 bytes, so the two layouts agree without padding rules.
@@ -74,6 +92,7 @@ struct Args {
   long long B, Hp, Wp, C, heads, hidden;
   long long wh, ww, sh, sw;
   long long nW;           // windows per image
+  TcPlan plan;            // the body and its tiling
 };
 
 }  // namespace mmst
@@ -127,6 +146,71 @@ window_block_kernel(const Args a) {
       smem);
 }
 
+// K1 at bf16 on the tensor-core body: one block of NT threads per (window,
+// image); MINB blocks an SM, a ring of S tiles, the head outputs in the
+// normed tile's place at two blocks an SM.
+template <int DH, int S, int MINB, int NT>
+__global__ void __launch_bounds__(NT, MINB)
+window_block_tc_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int N = static_cast<int>(a.wh * a.ww), C = static_cast<int>(a.C);
+  const int kp = static_cast<int>(a.plan.kp);
+  const int w = blockIdx.x, b = blockIdx.y;
+  const TcBlockLayout L = tc_block_layout(N, C, kp, S, MINB == 2);
+  long long* toff = reinterpret_cast<long long*>(smem + L.toff);
+  for (int t = threadIdx.x; t < N; t += blockDim.x)
+    toff[t] = token_offset<true>(a, b, w, t);
+  __syncthreads();
+  block_window_tc<DH, S, NT>(
+      a, C, static_cast<int>(a.hidden), static_cast<float>(a.scale),
+      static_cast<const __nv_bfloat16*>(a.x),
+      static_cast<__nv_bfloat16*>(a.out), N,
+      a.mask != nullptr ? a.mask + static_cast<long long>(w) * N * N
+                        : nullptr,
+      a.padmask != nullptr ? a.padmask + static_cast<long long>(w) * N
+                           : nullptr,
+      kp, MINB == 2, smem);
+}
+
+// The two forms of the tensor-core kernel at head dim DH: one block of 16
+// warps an SM with 3 stages, and two of 8 warps with 2.
+template <int DH>
+int launch_tc_dh(const Args& a, dim3 grid, size_t bytes,
+                 cudaStream_t stream) {
+  if (a.plan.body == 2)
+    return launch_kernel(window_block_tc_kernel<DH, 2, 2, 256>, grid, bytes,
+                         stream, a, 256);
+  return launch_kernel(window_block_tc_kernel<DH, 3, 1, 512>, grid, bytes,
+                       stream, a, 512);
+}
+
+// The tensor-core body's launch: the plan must be one block_plan gives for
+// this call (checked here), its shared memory what the layout needs.
+int launch_tc(const Args& a, cudaStream_t stream) {
+  const mmst::TcPlan& p = a.plan;
+  const long long n = a.wh * a.ww, c = a.C, dh = a.heads ? c / a.heads : 0;
+  const bool two = p.body == 2;
+  const bool ok =
+      a.dtype == 1 && p.rows == kTcRows && p.panel == kTcPanel &&
+      p.stages == (two ? 2 : 3) && (p.kp == 32 || p.kp == 64) && n >= 1 &&
+      n <= kTcRows && c % 32 == 0 && c % p.kp == 0 && a.heads * dh == c &&
+      (dh == 16 || dh == 32 || dh == 64) && a.hidden % kTcPanel == 0 &&
+      a.hidden >= kTcPanel && (!two || c <= kTcPanel) &&
+      p.smem_bytes == static_cast<long long>(
+                          tc_block_layout(static_cast<int>(n),
+                                          static_cast<int>(c),
+                                          static_cast<int>(p.kp),
+                                          static_cast<int>(p.stages), two)
+                              .total) &&
+      p.smem_bytes <= (two ? 115712 : 232448);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(a.nW), static_cast<unsigned>(a.B));
+  const size_t bytes = static_cast<size_t>(p.smem_bytes);
+  if (dh == 16) return launch_tc_dh<16>(a, grid, bytes, stream);
+  if (dh == 32) return launch_tc_dh<32>(a, grid, bytes, stream);
+  return launch_tc_dh<64>(a, grid, bytes, stream);
+}
+
 template <typename T, bool kRows>
 int launch(const Args& a, cudaStream_t stream) {
   const int n = static_cast<int>(a.wh * a.ww);
@@ -141,8 +225,35 @@ int launch(const Args& a, cudaStream_t stream) {
 template <bool kRows>
 int dispatch(const Args* a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->plan.body == 1 || a->plan.body == 2)
+    return kRows ? launch_tc(*a, s)
+                 : static_cast<int>(cudaErrorInvalidValue);
+  if (a->plan.body != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (a->dtype == 1) return launch<__nv_bfloat16, kRows>(*a, s);
   return launch<float, kRows>(*a, s);
+}
+
+// A kernel's static shared memory, dynamic shared memory opted in so far on
+// the current device, and registers per thread.
+template <typename Kernel>
+int attributes_of(Kernel kernel, long long* smem, long long* dyn,
+                  long long* regs) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem = static_cast<long long>(attr.sharedSizeBytes);
+  *dyn = opted_in_smem(kernel);
+  *regs = static_cast<long long>(attr.numRegs);
+  return 0;
+}
+
+template <int DH>
+int tc_attributes(long long body, long long* smem, long long* dyn,
+                  long long* regs) {
+  return body == 2 ? attributes_of(window_block_tc_kernel<DH, 2, 2, 256>,
+                                   smem, dyn, regs)
+                   : attributes_of(window_block_tc_kernel<DH, 3, 1, 512>,
+                                   smem, dyn, regs);
 }
 
 }  // namespace
@@ -156,6 +267,25 @@ long long mmst_window_block_smem_bytes(long long n, long long c,
       block_smem_layout(static_cast<int>(n), static_cast<int>(c),
                         static_cast<int>(c / heads), static_cast<int>(tsize))
           .total);
+}
+
+// Static shared memory, dynamic shared memory opted in so far on the
+// current device and registers per thread of a kernel: body 0 the scalar
+// rows kernel at dtype (0 f32, 1 bf16), body 1 or 2 the tensor-core
+// kernel of head dim dh at that many blocks an SM.
+int mmst_window_block_attributes(long long body, long long dtype,
+                                 long long dh, long long* smem,
+                                 long long* dyn, long long* regs) {
+  if (body == 1 || body == 2) {
+    if (dh == 16) return tc_attributes<16>(body, smem, dyn, regs);
+    if (dh == 32) return tc_attributes<32>(body, smem, dyn, regs);
+    if (dh == 64) return tc_attributes<64>(body, smem, dyn, regs);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 1)
+    return attributes_of(window_block_kernel<__nv_bfloat16, true>, smem, dyn,
+                         regs);
+  return attributes_of(window_block_kernel<float, true>, smem, dyn, regs);
 }
 
 int mmst_window_block_rows(const mmst::Args* a, void* stream) {

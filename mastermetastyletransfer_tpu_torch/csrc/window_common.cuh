@@ -15,6 +15,10 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -315,16 +319,70 @@ __device__ void block_window(const W& p, int C, int heads, int hidden,
   }
 }
 
-// Opt the kernel in to `bytes` of dynamic shared memory and launch it on
-// `grid` x kThreads; returns the CUDA error code (0 on success).
+// The dynamic-shared-memory opt-in of a kernel on the current device.
+// Above 48 KB a launch needs cudaFuncAttributeMaxDynamicSharedMemorySize
+// at least its size, and that attribute is state of the function shared by
+// every host thread: StylizeService runs one worker thread per service and
+// ctypes drops the GIL, so two threads may launch one instantiation at two
+// sizes (one K1 kernel serves both Swin stages; K5's its convs) at once.
+// So the opted-in size lives in one table per library, keyed by (kernel,
+// device) under a mutex, and only ever rises: a thread raises it to its
+// own size if that is larger, and launches at that size or below, so no
+// other thread can lower it under a launch. (The form raises to the size
+// asked for rather than once to the device's
+// cudaDevAttrMaxSharedMemoryPerBlockOptin: either is race-free, since the
+// size launched, not the attribute, sets a block's shared memory and the
+// occupancy; this one leaves the attribute as a single-threaded caller set
+// it before, which is what attributes() report.) Returns the CUDA error.
+struct SmemOptIns {
+  std::mutex mu;
+  std::map<std::pair<const void*, int>, size_t> bytes;
+};
+
+inline SmemOptIns& smem_opt_ins() {
+  static SmemOptIns table;
+  return table;
+}
+
+template <typename Kernel>
+int opt_in_smem(Kernel kernel, size_t bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  SmemOptIns& t = smem_opt_ins();
+  std::lock_guard<std::mutex> lock(t.mu);
+  size_t& have = t.bytes[{reinterpret_cast<const void*>(kernel), dev}];
+  if (bytes > have) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    have = bytes;
+  }
+  return 0;
+}
+
+// The dynamic shared memory a kernel is opted in to on the current device
+// (the largest size a launch has asked for so far; 0 before any).
+template <typename Kernel>
+long long opted_in_smem(Kernel kernel) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  SmemOptIns& t = smem_opt_ins();
+  std::lock_guard<std::mutex> lock(t.mu);
+  const auto it = t.bytes.find({reinterpret_cast<const void*>(kernel), dev});
+  return it == t.bytes.end() ? 0 : static_cast<long long>(it->second);
+}
+
+// Opt the kernel in to `bytes` of dynamic shared memory (opt_in_smem) and
+// launch it on `grid` x `threads`; returns the CUDA error code (0 on
+// success).
 template <typename Kernel, typename A>
 int launch_kernel(Kernel kernel, dim3 grid, size_t bytes, cudaStream_t stream,
-                  const A& args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, bytes, stream>>>(args);
+                  const A& args, int threads = kThreads) {
+  const int err = opt_in_smem(kernel, bytes);
+  if (err != 0) return err;
+  kernel<<<grid, threads, bytes, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 

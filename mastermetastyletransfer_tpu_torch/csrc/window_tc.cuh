@@ -1,0 +1,491 @@
+// The Swin block on one window on Hopper's tensor cores: K1's bf16 body
+// (mmst_window_block_rows at bfloat16; window_block.cu has the function and
+// the launch, ops/window_block.py:block_plan the tiling, and
+// tests/test_torch_window_tc_plan.py replays it in torch). It computes what
+// block_window (window_common.cuh) computes, with the same rounding points;
+// only the order of the f32 sums differs.
+//
+// What bounds it: some 400k bf16 operations per token against 4C bytes, so
+// the tensor cores. The products -- QKV, q.k^T, p.v, proj, fc1, fc2 -- run
+// as mma.sync m16n8k16 (bf16 x bf16 -> f32) from ldmatrix fragments, on a
+// window's 49 tokens padded to 64 rows (four m16 tiles): the pad rows of the
+// normed tile are zeros, so every row stays finite; pad keys get -inf
+// before the softmax, so its sums run over the real keys; pad query rows
+// are never stored.
+//
+// Design: one block per window. Shared memory holds the window's residual
+// stream in f32 (N x C), the normed tile (64 x C, bf16;
+// LN1, later LN2), the head outputs (64 x C; where C <= 128, one head
+// group, in the normed tile's place, which the attention no longer needs),
+// one head group's q, k and v (three 64 x 128 tiles; later the MLP's hidden
+// chunk) and a ring of S weight tiles (kp rows x 128 columns): stage 2's
+// weights (384 KB for QKV, 512 KB for fc1) never fit, so they stream
+// through the ring in one fixed order of tiles, each tile copied by every
+// thread with cp.async (16 bytes, L2 only) S - 1 tiles ahead of its use,
+// across the boundaries of the products and the attention between them.
+// Two forms (ops/window_block.py:block_plan picks): where C <= 128, two
+// blocks of 8 warps an SM (a ring of 2 tiles of 32 rows, the head outputs
+// in the normed tile's place, 128 registers: 114 KB at C = 128), so that
+// one window's latency hides behind the other's work; else one block of 16
+// warps an SM (3 tiles of 64 rows; 224 KB at C = 256). The order
+// (ops/window_block.py:tile_schedule has the same arithmetic):
+//   per head group gi (a 128-column panel of C): q, k, v panels, C / kp
+//     tiles each; then that group's attention;
+//   proj: per 128-column panel of C, C / kp tiles;
+//   per 128-wide hidden chunk j: fc1's panel, C / kp tiles; fc2's panels
+//     of C, 128 / kp tiles each.
+// A product's 64 x width output (width <= 128) splits over the warps as
+// 4 (m16 tiles) x 2 or 4 (column parts); a warp keeps up to 8 or 4 n8
+// accumulators and reads one A fragment per 16-deep step for them all (a
+// part of an odd number of n8 tiles computes one more, never stored).
+// Attention: a warp per (head, m16 tile); its 16 x 64 scores stay in
+// registers, the softmax runs there (quad shuffles for the row max and
+// sum), and the rounded numerators are the A fragments of p.v directly.
+// Row statistics: a warp per row.
+
+#pragma once
+
+#include "mma_common.cuh"
+#include "window_common.cuh"
+
+namespace {
+
+constexpr int kTcRows = 64;           // a window's tokens, padded
+constexpr int kTcPanel = 128;         // output columns per weight panel
+constexpr int kTcLdp = kTcPanel + 8;  // row stride of a panel tile (bf16)
+
+// Shared memory of the tensor-core body (ops/window_block.py:tc_layout
+// computes the same): rows padded by 16 bytes where ldmatrix reads them,
+// so that its eight rows hit distinct banks; with ob_in_ln the head outputs
+// share the normed tile's place.
+struct TcBlockLayout {
+  size_t xs, ln, ob, qkv, ring, mean, rstd, toff, total;
+};
+
+__host__ __device__ inline TcBlockLayout tc_block_layout(int n, int c, int kp,
+                                                         int stages,
+                                                         bool ob_in_ln) {
+  TcBlockLayout l;
+  size_t o = 0;
+  l.xs = o;   o = align16(o + sizeof(float) * n * (c + 4));
+  l.ln = o;   o = align16(o + 2 * kTcRows * (c + 8));
+  l.ob = ob_in_ln ? l.ln : o;
+  if (!ob_in_ln) o = align16(o + 2 * kTcRows * (c + 8));
+  l.qkv = o;  o = align16(o + 2 * 3 * kTcRows * kTcLdp);
+  l.ring = o; o = align16(o + 2 * stages * kp * kTcLdp);
+  l.mean = o; o = align16(o + sizeof(float) * kTcRows);
+  l.rstd = o; o = align16(o + sizeof(float) * kTcRows);
+  l.toff = o; o = align16(o + sizeof(long long) * kTcRows);
+  l.total = o;
+  return l;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// The block of NT threads on one window of N <= 64 tokens, head dim DH
+// (16, 32 or 64), C % 32 == 0, hidden % 128 == 0, weight tiles of kp (32
+// or 64) rows in a ring of S; ob_in_ln (C <= 128 only) as the layout's.
+// Fields of W as block_window's. Token t is read from x[toff[t] ..] and
+// written to out[toff[t] ..]; the caller fills toff (the layout's slot)
+// and passes a barrier first. mask_w (N x N) and pm_w (N) as
+// block_window's.
+template <int DH, int S, int NT, typename W>
+__device__ __forceinline__ void block_window_tc(
+    const W& p, int C, int hidden, float scale, const __nv_bfloat16* x,
+    __nv_bfloat16* out, int N, const float* mask_w, const float* pm_w,
+    int kp, bool ob_in_ln, unsigned char* smem) {
+  using bf16 = __nv_bfloat16;
+  constexpr int NW = NT / 32;              // warps
+  constexpr int WSPLIT = NW / 4;           // column parts of a product
+  constexpr int MT = kTcPanel / (8 * WSPLIT);  // n8 tiles of a part, at most
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / WSPLIT, wn = warp % WSPLIT;  // m16 tile, part
+  const int g4 = lane >> 2, q4 = lane & 3;  // fragment row, column pair
+  const TcBlockLayout L = tc_block_layout(N, C, kp, S, ob_in_ln);
+  float* xs = reinterpret_cast<float*>(smem + L.xs);  // residual stream
+  bf16* ln = reinterpret_cast<bf16*>(smem + L.ln);    // LN1, later LN2
+  bf16* ob = reinterpret_cast<bf16*>(smem + L.ob);    // head outputs
+  bf16* qs = reinterpret_cast<bf16*>(smem + L.qkv);   // a head group's q
+  bf16* ks = qs + kTcRows * kTcLdp;
+  bf16* vs = ks + kTcRows * kTcLdp;
+  bf16* hid = qs;                                     // an MLP chunk
+  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
+  float* mean = reinterpret_cast<float*>(smem + L.mean);
+  float* rstd = reinterpret_cast<float*>(smem + L.rstd);
+  const long long* toff = reinterpret_cast<const long long*>(smem + L.toff);
+  const int LDX = C + 4, LDA = C + 8;
+  const bf16* wqkv = static_cast<const bf16*>(p.wqkv);
+  const bf16* wp = static_cast<const bf16*>(p.wp);
+  const bf16* w1 = static_cast<const bf16*>(p.w1);
+  const bf16* w2 = static_cast<const bf16*>(p.w2);
+
+  // The weight tiles in the order the products use them (see the header).
+  const int nk = C / kp;                             // tiles of K = C
+  const int ng = (C + kTcPanel - 1) / kTcPanel;      // panels of C
+  const int kpc = kTcPanel / kp;                     // tiles of K = 128
+  const int t1 = 3 * ng * nk, t2 = ng * nk, tcn = nk + ng * kpc;
+  const int total = t1 + t2 + (hidden / kTcPanel) * tcn;
+  auto issue = [&](int t) {
+    if (t < total) {
+      const bf16* src;
+      int ld, width;
+      if (t < t1) {
+        const int gi = t / (3 * nk), part = (t / nk) % 3, kt = t % nk;
+        ld = 3 * C;
+        width = min(kTcPanel, C - gi * kTcPanel);
+        src = wqkv + static_cast<long long>(kt * kp) * ld + part * C +
+              gi * kTcPanel;
+      } else if (t < t1 + t2) {
+        const int u = t - t1, pn = u / nk, kt = u % nk;
+        ld = C;
+        width = min(kTcPanel, C - pn * kTcPanel);
+        src = wp + static_cast<long long>(kt * kp) * ld + pn * kTcPanel;
+      } else {
+        const int u = t - t1 - t2, j = u / tcn, r = u % tcn;
+        if (r < nk) {
+          ld = hidden;
+          width = kTcPanel;
+          src = w1 + static_cast<long long>(r * kp) * ld + j * kTcPanel;
+        } else {
+          const int pn = (r - nk) / kpc, kt = (r - nk) % kpc;
+          ld = C;
+          width = min(kTcPanel, C - pn * kTcPanel);
+          src = w2 + static_cast<long long>(j * kTcPanel + kt * kp) * ld +
+                pn * kTcPanel;
+        }
+      }
+      bf16* dst = ring + (t % S) * kp * kTcLdp;
+      const int vpr = width >> 3;  // 16-byte pieces per row
+      for (int i = tid; i < kp * vpr; i += NT) {
+        const int row = i / vpr, v = i - row * vpr;
+        cp_async16(dst + row * kTcLdp + v * 8,
+                   src + static_cast<long long>(row) * ld + v * 8, true);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // One product panel: acc = A (64 x K in shared memory, row stride lda)
+  // times the next K / kp tiles of the ring, width columns; each tile is
+  // waited for, and the tile S - 1 ahead issued into the slot the last one
+  // left (every warp is past it: the barrier).
+  int t = 0;
+  float acc[MT][4];
+  auto gemm = [&](const bf16* A, int lda, int K, int width) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    const int part = width / WSPLIT;          // columns of this warp
+    const int npair = (part / 8 + 1) >> 1;    // n8 tile pairs
+    const bf16* arow = A + (16 * wm + (lane & 15)) * lda + (lane >> 4) * 8;
+    for (int k0 = 0; k0 < K; k0 += kp, ++t) {
+      cp_async_wait<S - 2>();
+      __syncthreads();
+      issue(t + S - 1);
+      const bf16* B = ring + (t % S) * kp * kTcLdp + wn * part +
+                      (lane & 15) * kTcLdp + (lane >> 4) * 8;
+#pragma unroll 2
+      for (int kk = 0; kk < kp; kk += 16) {
+        uint32_t af[4];
+        ldsm_x4(af, arow + k0 + kk);
+#pragma unroll
+        for (int nj = 0; nj < MT / 2; ++nj) {
+          if (nj < npair) {
+            uint32_t b0, b1, b2, b3;
+            ldsm_x4_trans(b0, b1, b2, b3, B + kk * kTcLdp + nj * 16);
+            mma_bf16(acc[2 * nj], af, b0, b1);
+            mma_bf16(acc[2 * nj + 1], af, b2, b3);
+          }
+        }
+      }
+    }
+  };
+  // The panel's outputs: put(row, column in the panel, value, next value,
+  // bias, next bias) for this thread's fragment elements, rows 0..63; the
+  // panel's f32 bias (null: zeros) is read first, through the read-only
+  // path, so that its loads are not ordered after the puts' stores.
+  auto epilogue = [&](int width, const float* bias, auto&& put) {
+    const int part = width / WSPLIT, ntile = part / 8;
+    float2 bv[MT];
+#pragma unroll
+    for (int ni = 0; ni < MT; ++ni) {
+      const int col = wn * part + ni * 8 + 2 * q4;
+      bv[ni] = (ni < ntile && bias != nullptr)
+                   ? __ldg(reinterpret_cast<const float2*>(bias + col))
+                   : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int ni = 0; ni < MT; ++ni) {
+      if (ni < ntile) {
+        const int col = wn * part + ni * 8 + 2 * q4;
+        put(16 * wm + g4, col, acc[ni][0], acc[ni][1], bv[ni].x, bv[ni].y);
+        put(16 * wm + g4 + 8, col, acc[ni][2], acc[ni][3], bv[ni].x,
+            bv[ni].y);
+      }
+    }
+  };
+  // LayerNorm statistics of rows 0..N-1 of xs (two passes in f32), a warp
+  // per row; ends with a barrier.
+  auto stats = [&]() {
+    for (int r = warp; r < N; r += NW) {
+      const float* row = xs + r * LDX;
+      float s = 0.f;
+      for (int c = lane; c < C; c += 32) s += row[c];
+      const float mu = warp_sum(s) / C;
+      float v = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        const float d = row[c] - mu;
+        v += d * d;
+      }
+      v = warp_sum(v);
+      if (lane == 0) {
+        mean[r] = mu;
+        rstd[r] = rsqrtf(v / C + 1e-5f);
+      }
+    }
+    __syncthreads();
+  };
+
+  for (int s = 0; s < S - 1; ++s) issue(s);
+
+  // 1. The window's tokens into the f32 residual stream, 16 bytes a piece.
+  const int vpc = C >> 3;
+  for (int i = tid; i < N * vpc; i += NT) {
+    const int tk = i / vpc, c = (i - tk * vpc) * 8;
+    const uint4 u = *reinterpret_cast<const uint4*>(x + toff[tk] + c);
+    const bf16* e = reinterpret_cast<const bf16*>(&u);
+    float* d = xs + tk * LDX + c;
+    *reinterpret_cast<float4*>(d) =
+        make_float4(__bfloat162float(e[0]), __bfloat162float(e[1]),
+                    __bfloat162float(e[2]), __bfloat162float(e[3]));
+    *reinterpret_cast<float4*>(d + 4) =
+        make_float4(__bfloat162float(e[4]), __bfloat162float(e[5]),
+                    __bfloat162float(e[6]), __bfloat162float(e[7]));
+  }
+  __syncthreads();
+
+  // 2. LN1 rounded to bf16, pad tokens zeroed, pad rows N..63 zero (the
+  //    f32 vectors through the read-only path, as the epilogues').
+  if (p.n1s != nullptr) stats();
+  for (int i = tid; i < kTcRows * (C >> 1); i += NT) {
+    const int r = i / (C >> 1), c = (i - r * (C >> 1)) * 2;
+    float v0 = 0.f, v1 = 0.f;
+    if (r < N && !(pm_w != nullptr && __ldg(pm_w + r) == 0.f)) {
+      v0 = xs[r * LDX + c];
+      v1 = xs[r * LDX + c + 1];
+      if (p.n1s != nullptr) {
+        const float2 s2 = __ldg(reinterpret_cast<const float2*>(p.n1s + c));
+        const float2 b2 = __ldg(reinterpret_cast<const float2*>(p.n1b + c));
+        v0 = (v0 - mean[r]) * rstd[r] * s2.x + b2.x;
+        v1 = (v1 - mean[r]) * rstd[r] * s2.y + b2.y;
+      }
+    }
+    *reinterpret_cast<uint32_t*>(ln + r * LDA + c) = pack_bf16x2(v0, v1);
+  }
+
+  // 3. Per head group: its q, k, v (q scaled), then its heads' attention.
+  for (int gi = 0; gi < ng; ++gi) {
+    const int wg = min(kTcPanel, C - gi * kTcPanel);
+    for (int part = 0; part < 3; ++part) {
+      gemm(ln, LDA, C, wg);
+      bf16* dst = part == 0 ? qs : part == 1 ? ks : vs;
+      const float* bq = p.bqkv + part * C + gi * kTcPanel;
+      epilogue(wg, bq, [&](int r, int c, float a0, float a1, float b0,
+                           float b1) {
+        float v0 = round_bf16(a0 + b0), v1 = round_bf16(a1 + b1);
+        if (part == 0) {
+          v0 *= scale;
+          v1 *= scale;
+        }
+        *reinterpret_cast<uint32_t*>(dst + r * kTcLdp + c) =
+            pack_bf16x2(v0, v1);
+      });
+    }
+    __syncthreads();
+    const int hg = wg / DH;  // heads in the group
+    for (int it = warp; it < hg * 4; it += NW) {
+      const int hl = it >> 2, mt = it & 3;
+      const int h = gi * (kTcPanel / DH) + hl, qc = hl * DH;
+      float sc[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DH; kk += 16) {
+        uint32_t qa[4];
+        ldsm_x4(qa, qs + (16 * mt + (lane & 15)) * kTcLdp + qc + kk +
+                        (lane >> 4) * 8);
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          uint32_t kb[4];
+          ldsm_x4(kb, ks + (16 * nj + (lane & 7) + ((lane >> 4) << 3)) *
+                               kTcLdp +
+                           qc + kk + ((lane >> 3) & 1) * 8);
+          mma_bf16(sc[2 * nj], qa, kb[0], kb[1]);
+          mma_bf16(sc[2 * nj + 1], qa, kb[2], kb[3]);
+        }
+      }
+      // + (mask + bias) on the real keys, -inf on the pad keys; softmax
+      // in f32 over the row (a quad of lanes holds it).
+      const float* bh = p.rel_bias + static_cast<long long>(h) * N * N;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 16 * mt + g4 + (e >> 1) * 8;
+          const int j = ni * 8 + 2 * q4 + (e & 1);
+          float v = sc[ni][e];
+          if (j >= N)
+            v = -INFINITY;
+          else if (i < N)
+            v += (mask_w != nullptr ? __ldg(mask_w + i * N + j) : 0.f) +
+                 __ldg(bh + i * N + j);
+          sc[ni][e] = v;
+          mx[e >> 1] = fmaxf(mx[e >> 1], v);
+        }
+      float sum[2] = {0.f, 0.f};
+      uint32_t pa[8][2];  // the rounded numerators, packed
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      }
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        const float e0 = expf(sc[ni][0] - mx[0]), e1 = expf(sc[ni][1] - mx[0]);
+        const float e2 = expf(sc[ni][2] - mx[1]), e3 = expf(sc[ni][3] - mx[1]);
+        sum[0] += e0 + e1;
+        sum[1] += e2 + e3;
+        pa[ni][0] = pack_bf16x2(e0, e1);
+        pa[ni][1] = pack_bf16x2(e2, e3);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+        sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+      }
+      float o[DH / 8][4];
+#pragma unroll
+      for (int i = 0; i < DH / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+#pragma unroll
+      for (int kj = 0; kj < 4; ++kj) {
+        const uint32_t a[4] = {pa[2 * kj][0], pa[2 * kj][1],
+                               pa[2 * kj + 1][0], pa[2 * kj + 1][1]};
+#pragma unroll
+        for (int dj = 0; dj < DH / 16; ++dj) {
+          uint32_t b0, b1, b2, b3;
+          ldsm_x4_trans(b0, b1, b2, b3,
+                        vs + (16 * kj + (lane & 15)) * kTcLdp + qc + dj * 16 +
+                            (lane >> 4) * 8);
+          mma_bf16(o[2 * dj], a, b0, b1);
+          mma_bf16(o[2 * dj + 1], a, b2, b3);
+        }
+      }
+      const float inv0 = 1.f / sum[0], inv1 = 1.f / sum[1];
+      const int r0 = 16 * mt + g4;
+#pragma unroll
+      for (int dt = 0; dt < DH / 8; ++dt) {
+        const int col = gi * kTcPanel + qc + dt * 8 + 2 * q4;
+        *reinterpret_cast<uint32_t*>(ob + r0 * LDA + col) =
+            pack_bf16x2(o[dt][0] * inv0, o[dt][1] * inv0);
+        *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * LDA + col) =
+            pack_bf16x2(o[dt][2] * inv1, o[dt][3] * inv1);
+      }
+    }
+  }
+
+  // 4. y = x + proj(heads) + bp, in place in the residual stream.
+  for (int pn = 0; pn < ng; ++pn) {
+    const int width = min(kTcPanel, C - pn * kTcPanel);
+    gemm(ob, LDA, C, width);
+    epilogue(width, p.bp + pn * kTcPanel,
+             [&](int r, int c, float a0, float a1, float b0, float b1) {
+      if (r < N) {
+        float2* d =
+            reinterpret_cast<float2*>(xs + r * LDX + pn * kTcPanel + c);
+        float2 v = *d;
+        v.x = v.x + a0 + b0;
+        v.y = v.y + a1 + b1;
+        *d = v;
+      }
+    });
+  }
+  __syncthreads();
+
+  // 5. LN2 (or the plain y) rounded to bf16 as the MLP input, pad rows
+  //    zero, and the residual stream takes b2.
+  if (p.n2s != nullptr) stats();
+  for (int i = tid; i < kTcRows * (C >> 1); i += NT) {
+    const int r = i / (C >> 1), c = (i - r * (C >> 1)) * 2;
+    if (r >= N) {
+      *reinterpret_cast<uint32_t*>(ln + r * LDA + c) = 0u;
+      continue;
+    }
+    float2* d = reinterpret_cast<float2*>(xs + r * LDX + c);
+    const float2 y = *d;
+    float v0 = y.x, v1 = y.y;
+    if (p.n2s != nullptr) {
+      const float2 s2 = __ldg(reinterpret_cast<const float2*>(p.n2s + c));
+      const float2 b2 = __ldg(reinterpret_cast<const float2*>(p.n2b + c));
+      v0 = (v0 - mean[r]) * rstd[r] * s2.x + b2.x;
+      v1 = (v1 - mean[r]) * rstd[r] * s2.y + b2.y;
+    }
+    *reinterpret_cast<uint32_t*>(ln + r * LDA + c) = pack_bf16x2(v0, v1);
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(p.b2 + c));
+    *d = make_float2(y.x + bb.x, y.y + bb.y);
+  }
+
+  // 6. The MLP by 128-wide hidden chunks: hid = GELU(ln . w1 + b1) rounded
+  //    to bf16, then the residual stream accumulates hid . w2.
+  for (int j = 0; j < hidden / kTcPanel; ++j) {
+    gemm(ln, LDA, C, kTcPanel);
+    epilogue(kTcPanel, p.b1 + j * kTcPanel,
+             [&](int r, int c, float a0, float a1, float b0, float b1) {
+      *reinterpret_cast<uint32_t*>(hid + r * kTcLdp + c) =
+          pack_bf16x2(gelu(a0 + b0), gelu(a1 + b1));
+    });
+    for (int pn = 0; pn < ng; ++pn) {
+      const int width = min(kTcPanel, C - pn * kTcPanel);
+      gemm(hid, kTcLdp, kTcPanel, width);
+      epilogue(width, nullptr,
+               [&](int r, int c, float a0, float a1, float, float) {
+        if (r < N) {
+          float2* d = reinterpret_cast<float2*>(xs + r * LDX +
+                                                pn * kTcPanel + c);
+          float2 v = *d;
+          v.x += a0;
+          v.y += a1;
+          *d = v;
+        }
+      });
+    }
+  }
+  __syncthreads();
+
+  // 7. Store, each token where it was read, 16 bytes a piece.
+  for (int i = tid; i < N * vpc; i += NT) {
+    const int tk = i / vpc, c = (i - tk * vpc) * 8;
+    const float* s = xs + tk * LDX + c;
+    uint4 u;
+    u.x = pack_bf16x2(s[0], s[1]);
+    u.y = pack_bf16x2(s[2], s[3]);
+    u.z = pack_bf16x2(s[4], s[5]);
+    u.w = pack_bf16x2(s[6], s[7]);
+    *reinterpret_cast<uint4*>(out + toff[tk] + c) = u;
+  }
+}
+
+}  // namespace

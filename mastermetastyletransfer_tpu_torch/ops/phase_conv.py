@@ -24,10 +24,11 @@ over the phase tensors of ops/conv.py.
   interleaved fine grid (B, 4H, 4W, C'), the second the aligned L2 tensor
   (B, H, W, 128) with group g in lanes [8g, 8g + 8).
 
-All six are one CUDA source (csrc/phase_conv.cu). K5 at bfloat16 and both
-K12 entries run its tensor-core stencil body (csrc/stencil_tc.cuh), whose
-tiling ``stencil_plan`` below computes and passes in; K5 at float32 and K6
-run the scalar-FMA body. Each wrapper runs its kernel for a CUDA tensor and
+All six are one CUDA source (csrc/phase_conv.cu). K5 at bfloat16, both K6
+entries and both K12 entries run its tensor-core stencil body
+(csrc/stencil_tc.cuh; at float32 its FMA form, never TF32), whose tiling
+``stencil_plan`` below computes and passes in; K5 at float32 runs the
+scalar-FMA body. Each wrapper runs its kernel for a CUDA tensor and
 the plain PyTorch version below for a CPU tensor; any other device raises.
 The plain versions are the yardstick the kernels are held to: f32 sums of
 products of T-typed operands, the f32 bias, ReLU, and one rounding to T,
@@ -256,11 +257,11 @@ def stencil_phase2_rgb128_plain(pp: torch.Tensor, pk128: torch.Tensor,
 _TILE = (8, 16)             # coarse output pixels per block (rows, columns)
 _SMEM_CAP = 200 * 1024      # the kernel's dynamic shared memory limit
 # The decoder's tables that the body compiles in (csrc/stencil_tc.cuh:
-# kPatDense, kPatPhase, kPatRgb): every pair of each used chunk (K5's
-# upsample kernel, K12's JAX tables), K5's L1 phase-space kernel and K12's
-# L2 RGB kernel (bit 4 g + tap of a chunk's word), each with the read
-# offsets of _known_offsets.
-PATTERNS = ("", "_dense", "_phase", "_l2")
+# kPatDense, kPatPhase, kPatRgb, kPatL2Up): every pair of each used chunk
+# (K5's upsample kernel, K12's JAX tables), K5's L1 phase-space kernel,
+# K12's L2 RGB kernel and K6's L2 up-conv kernel (bit 4 g + tap of a
+# chunk's word), each with the read offsets of _known_offsets.
+PATTERNS = ("", "_dense", "_phase", "_l2", "_l2up")
 _PHASE_BITS = (0xfac8, 0x5f4c, 0x32fa, 0x135f)
 _RGB_BITS = (
     0x8048000020128048, 0x0448000001120448, 0x4440000011104440,
@@ -269,6 +270,8 @@ _RGB_BITS = (
     0x0112011201120000, 0x1110111011100000, 0x1101110111010000,
     0x2012201200002012, 0x0112011200000112, 0x1110111000001110,
     0x1101110100001101)
+_L2UP_BITS = (0x8448211221128448, 0x4444111111114444, 0x2112211221122112,
+              0x1111111111111111)
 
 
 def _known_offsets(groups: int) -> Tuple[Tuple[int, int], ...]:
@@ -292,7 +295,9 @@ class StencilPlan(NamedTuple):
     weight slot, by group and then tap) in a ring of ``stages`` slices of
     ``smem_bytes``. ``pattern`` indexes PATTERNS: one of the decoder's
     tables, whose pairs the kernel has compiled in, or 0 for any other.
-    ``kernel`` names the compiled instantiation."""
+    ``kernel`` names the compiled instantiation. The output tile goes out
+    in 16-byte pieces, and K6's padcols entry writes each piece of a pad
+    slot's source column to the slot too (csrc/stencil_tc.cuh)."""
     kernel: str
     tile: Tuple[int, int]
     bn: int
@@ -330,16 +335,21 @@ def _smem_bytes(kind: str, groups: int, bn: int, stages: int, sk: int,
 def stencil_plan(table: GroupTable, kind: str, b: int, h: int, w: int,
                  cin: int, c_out: int, dtype: torch.dtype) -> StencilPlan:
     """The tensor-core body's tiling of one call: ``kind`` "stencil" (K5,
-    and any table of C' % 32 == 0 channels per group), "rgb" or "rgb128"
-    (K12, C' <= 8 channels per group in one 8-lane slot); pp (b, h + 2,
-    w + 2, cin) of ``dtype``. Stages 32 channels deep where the ring fits
-    in _SMEM_CAP, else 16; at bfloat16 names the compiled table the
+    and any table of C' % 32 == 0 channels per group), "phase2" (K6's two
+    entries, 16 groups, slices of 16 (bfloat16) or 8 (float32, the FMA
+    form) of C' % 32 == 0 channels), "rgb" or
+    "rgb128" (K12, C' <= 8 channels per group in one 8-lane slot); pp (b,
+    h + 2, w + 2, cin) of ``dtype``. Stages 32 channels deep where the ring
+    fits in _SMEM_CAP, else 16; at bfloat16 names the compiled table the
     decoder's tables match (PATTERNS)."""
     groups, nchunks = len(table.offsets), table.nchunks
     esize = torch.finfo(dtype).bits // 8
     if kind == "stencil":
         bn = 64 if c_out % 64 == 0 else 32
         stages, kernel, nsplit = 3, f"stencil_tc{bn}", c_out // bn
+    elif kind == "phase2":
+        bn, stages = (16, 3) if dtype == torch.bfloat16 else (8, 4)
+        kernel, nsplit = f"stencil2_tc{bn}", c_out // bn
     else:
         bn, stages, kernel, nsplit = 8, 4, kind, 1
     pairs = tuple(tuple((g, t) for g in range(groups) for t in range(4)
@@ -363,7 +373,9 @@ def stencil_plan(table: GroupTable, kind: str, b: int, h: int, w: int,
     pattern = 0
     if (dtype == torch.bfloat16 and groups == (4 if kind == "stencil" else 16)
             and table.offsets == _known_offsets(groups)):
-        if all(bits[c] == (1 << 4 * groups) - 1 for c in used):
+        if kind == "phase2":
+            pattern = 4 if bits == _L2UP_BITS else 0
+        elif all(bits[c] == (1 << 4 * groups) - 1 for c in used):
             pattern = 1
         elif groups == 4 and bits == _PHASE_BITS:
             pattern = 2
@@ -452,17 +464,18 @@ def _lib() -> ctypes.CDLL:
 
 
 _KERNELS = ("stencil", "align", "rgb", "rgb128", "stencil_tc64",
-            "stencil_tc32")
+            "stencil_tc32", "stencil2_tc16", "stencil2_tc8")
 
 
 def kernel_attributes(kernel: str, dtype: torch.dtype
                       ) -> Tuple[int, int, int]:
     """(static shared memory bytes per block, dynamic shared memory bytes,
     registers per thread) of a kernel at ``dtype``: "stencil" (the
-    scalar-FMA body: K5 at float32, K6), "align", or a StencilPlan's
+    scalar-FMA body: K5 at float32), "align", or a StencilPlan's
     ``kernel`` of the tensor-core body ("rgb", "rgb128", K5's
-    "stencil_tc64" and "stencil_tc32", each with the suffix of its
-    compiled table, PATTERNS). Dynamic: the largest a launch of the kernel
+    "stencil_tc64" and "stencil_tc32", K6's "stencil2_tc16" at bfloat16
+    and "stencil2_tc8" at float32, each with the suffix of its compiled
+    table, PATTERNS). Dynamic: the largest a launch of the kernel
     has used so far in this process (0 for the kernels that use none)."""
     base, pattern = kernel, 0
     for i, suffix in enumerate(PATTERNS[1:], 1):
@@ -542,9 +555,10 @@ def _stencil_launch(entry: str, pp: torch.Tensor, pk: torch.Tensor,
         (lsrc, lph), (rsrc, rph) = (zip(*m) for m in colmaps)
         args.left_src, args.left_ph = (_LL * 4)(*lsrc), (_LL * 4)(*lph)
         args.right_src, args.right_ph = (_LL * 4)(*rsrc), (_LL * 4)(*rph)
-    if entry == "stencil_phase_conv" and pp.dtype == torch.bfloat16:
+    if pp.dtype == torch.bfloat16 or entry != "stencil_phase_conv":
         args.plan = tile_plan_struct(stencil_plan(
-            table, "stencil", b, h, w, cin, c_out, pp.dtype))
+            table, "stencil" if entry == "stencil_phase_conv" else "phase2",
+            b, h, w, cin, c_out, pp.dtype))
     _call(entry, args, dev)
     return out
 

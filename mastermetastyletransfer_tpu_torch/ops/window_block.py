@@ -9,6 +9,13 @@ Two entries over one CUDA computation (csrc/window_block.cu):
   output comes back in the plain (un-rolled) frame;
 * ``window_block_windows``: x is partitioned, (B, nW, N, C).
 
+Two bodies compute the block: K1 at bfloat16 runs the tensor-core body
+(csrc/window_tc.cuh) where ``block_plan`` below says so -- the Swin stages
+of swin_T/S/B -- and every other call the scalar body (K2, f32, and K11
+in ops/block_pair.py). ``block_plan`` and ``tile_schedule`` give the
+tensor-core body's tiling, which tests/test_torch_window_tc_plan.py replays
+in torch on the CPU.
+
 Each wrapper runs its kernel for a CUDA tensor and the plain PyTorch
 version below for a CPU tensor; any other device raises. The plain version
 is the yardstick the kernel is held to: it rounds to the input type at the
@@ -27,10 +34,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+import threading
+import weakref
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from mastermetastyletransfer_tpu_torch.ops import _build
 from mastermetastyletransfer_tpu_torch.ops.windows import (
@@ -74,13 +84,58 @@ def _vec(p: dict, n: int) -> torch.Tensor:
     return torch.zeros(n, dtype=torch.float32, device=p["kernel"].device)
 
 
+# block_weights' cache, as ops/conv.py's _derived: kept for as long as the
+# block's first tensor lives (a weak key), per (each source tensor's
+# data_ptr and _version, the window, dtype and norms), so that an in-place
+# update of any source (an optimizer step) misses and rebuilds. Services of
+# several k share one params tree from their own threads.
+_WEIGHTS: WeakIdKeyDictionary = WeakIdKeyDictionary()
+_WEIGHTS_LOCK = threading.Lock()
+
+
+def _sources(block_params: dict) -> List[torch.Tensor]:
+    """Every tensor of a block's param dict, in a fixed order."""
+    out = []
+    for name in sorted(block_params):
+        v = block_params[name]
+        if isinstance(v, dict):
+            out.extend(_sources(v))
+        elif isinstance(v, torch.Tensor):
+            out.append(v)
+    return out
+
+
 def block_weights(block_params: dict, window: Tuple[int, int],
                   dtype: torch.dtype, use_norm: bool, *,
                   norm2: Optional[bool] = None) -> BlockWeights:
     """Prepare a block's param dict ({"attn", "mlp", "norm1", "norm2"}, the
     JAX layout) for the kernel. ``use_norm`` takes LN1, and LN2 too unless
     ``norm2`` says otherwise (the style encoder's Key block has an optional
-    LN1 and never an LN2)."""
+    LN1 and never an LN2). Cached per the source tensors, the dtype and the
+    options (``_WEIGHTS``); built afresh, never kept, while a source takes
+    part in autograd. A kept result is built outside inference mode, so
+    that a training step can use what a served call kept."""
+    srcs = _sources(block_params)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in srcs):
+        return _block_weights(block_params, window, dtype, use_norm, norm2)
+    key = (tuple((t.data_ptr(), 0 if t.is_inference() else t._version)
+                 for t in srcs), tuple(window), dtype, use_norm, norm2)
+    with _WEIGHTS_LOCK:
+        per_block = _WEIGHTS.setdefault(srcs[0], {})
+        hit = per_block.get(key)
+        if hit is not None and all(r() is t for r, t in zip(hit[0], srcs)):
+            return hit[1]
+        with torch.inference_mode(False):
+            w = _block_weights(block_params, window, dtype, use_norm, norm2)
+        for stale in [k for k in per_block if k[1:] == key[1:]]:
+            del per_block[stale]    # an older version of these weights
+        per_block[key] = (tuple(weakref.ref(t) for t in srcs), w)
+        return w
+
+
+def _block_weights(block_params: dict, window: Tuple[int, int],
+                   dtype: torch.dtype, use_norm: bool,
+                   norm2: Optional[bool]) -> BlockWeights:
     attn, mlp = block_params["attn"], block_params["mlp"]
     c = attn["wq"]["kernel"].shape[0]
     use = {"norm1": use_norm, "norm2": use_norm if norm2 is None else norm2}
@@ -100,6 +155,123 @@ def block_weights(block_params: dict, window: Tuple[int, int],
         n2s=norm("norm2", "scale"), n2b=norm("norm2", "bias"),
         w1=_mat(mlp["fc1"], dtype), b1=_vec(mlp["fc1"], hidden),
         w2=_mat(mlp["fc2"], dtype), b2=_vec(mlp["fc2"], c))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core body's plan (csrc/window_tc.cuh)
+# ---------------------------------------------------------------------------
+
+TC_ROWS, TC_PANEL = 64, 128
+SMEM_PER_SM = 233472   # an H100 SM's shared memory; 1 KB of it per block
+# The tensor-core body's forms, in order of preference: (blocks an SM,
+# weight rows per ring tile, ring tiles). Two blocks of 8 warps an SM where
+# C <= 128 fits (the head outputs then take the normed tile's place), else
+# one block of 16 warps.
+TC_FORMS = ((2, 32, 2), (1, 64, 3), (1, 32, 3))
+
+
+class BlockPlan(NamedTuple):
+    """How one call's block runs; built by ``block_plan`` and passed to the
+    kernel (``TcPlan``). ``body`` "tc": the tensor-core body, one block
+    per window, ``blocks_per_sm`` of them an SM (of 8 warps at two, of 16
+    at one), the window's
+    tokens padded to ``rows`` (four m16 tiles; pad keys -inf before the
+    softmax, pad queries never stored), each product in panels of up to
+    ``panel`` output columns, the weights streamed as tiles of ``kp`` rows
+    through a ring of ``stages`` (``tile_schedule``), ``head_groups`` the
+    (first column, width) panels of C whose heads' q, k and v it holds at
+    once, ``smem_bytes`` its dynamic shared memory (``tc_layout``).
+    "scalar": the scalar body, the other fields 0."""
+    body: str
+    rows: int
+    panel: int
+    kp: int
+    stages: int
+    blocks_per_sm: int
+    smem_bytes: int
+    head_groups: Tuple[Tuple[int, int], ...]
+
+
+def _align16(b: int) -> int:
+    return (b + 15) & ~15
+
+
+def tc_layout(n: int, c: int, kp: int, stages: int, ob_in_ln: bool) -> dict:
+    """Byte offsets and total of the tensor-core body's shared memory
+    (csrc/window_tc.cuh:tc_block_layout): the f32 residual stream (n rows),
+    the normed tile and the head outputs (64 rows each; with ob_in_ln one
+    tile for both), a head group's q, k and v (three 64 x 128 tiles), the
+    ring, the row statistics and the token offsets; bf16 rows padded by 16
+    bytes."""
+    sizes = (("xs", 4 * n * (c + 4)), ("ln", 2 * TC_ROWS * (c + 8)),
+             ("ob", 0 if ob_in_ln else 2 * TC_ROWS * (c + 8)),
+             ("qkv", 2 * 3 * TC_ROWS * (TC_PANEL + 8)),
+             ("ring", 2 * stages * kp * (TC_PANEL + 8)),
+             ("mean", 4 * TC_ROWS), ("rstd", 4 * TC_ROWS),
+             ("toff", 8 * TC_ROWS))
+    out, o = {}, 0
+    for name, size in sizes:
+        out[name] = out["ln"] if name == "ob" and ob_in_ln else o
+        o = _align16(o + size)
+    out["total"] = o
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def block_plan(entry: str, n: int, c: int, heads: int, hidden: int,
+               dtype: torch.dtype) -> BlockPlan:
+    """The body one call runs: the tensor-core body for the rows entry at
+    bfloat16 where N <= 64, C % 32 == 0, the head dim is 16, 32 or 64 and
+    the MLP width a multiple of 128 (the Swin stages of swin_T/S/B), in the
+    first of TC_FORMS that C allows and whose shared memory fits that many
+    blocks an SM (two where C <= 128: one head group, so that the head
+    outputs may take the normed tile's place); the scalar body for every
+    other call."""
+    dh = c // heads if heads else 0
+    if (entry == "window_block_rows" and dtype == torch.bfloat16
+            and 1 <= n <= TC_ROWS and c % 32 == 0 and dh * heads == c
+            and dh in (16, 32, 64) and hidden >= TC_PANEL
+            and hidden % TC_PANEL == 0):
+        groups = tuple((c0, min(TC_PANEL, c - c0))
+                       for c0 in range(0, c, TC_PANEL))
+        for per_sm, kp, stages in TC_FORMS:
+            if c % kp or (per_sm == 2 and c > TC_PANEL):
+                continue
+            smem = tc_layout(n, c, kp, stages, per_sm == 2)["total"]
+            if smem <= min(MAX_SMEM_BYTES, SMEM_PER_SM // per_sm - 1024):
+                return BlockPlan("tc", TC_ROWS, TC_PANEL, kp, stages,
+                                 per_sm, smem, groups)
+    return BlockPlan("scalar", 0, 0, 0, 0, 0, 0, ())
+
+
+def tile_schedule(plan: BlockPlan, c: int, hidden: int
+                  ) -> List[Tuple[str, int, int, int, int]]:
+    """The weight tiles in the order the tensor-core body uses them, by the
+    kernel's own arithmetic for tile t (csrc/window_tc.cuh, ``issue``):
+    (matrix, first row, first column, rows, width). Per head group, its q,
+    k and v panels over K = C; proj's panels over C; per 128-wide hidden
+    chunk, fc1's panel over C and fc2's panels over the chunk."""
+    kp, p = plan.kp, plan.panel
+    nk, ng, kpc = c // kp, -(-c // p), p // kp
+    t1, t2, tcn = 3 * ng * nk, ng * nk, nk + ng * kpc
+    out = []
+    for t in range(t1 + t2 + (hidden // p) * tcn):
+        if t < t1:
+            gi, part, kt = t // (3 * nk), (t // nk) % 3, t % nk
+            out.append(("wqkv", kt * kp, part * c + gi * p, kp,
+                        min(p, c - gi * p)))
+        elif t < t1 + t2:
+            pn, kt = divmod(t - t1, nk)
+            out.append(("wp", kt * kp, pn * p, kp, min(p, c - pn * p)))
+        else:
+            j, r = divmod(t - t1 - t2, tcn)
+            if r < nk:
+                out.append(("w1", r * kp, j * p, kp, p))
+            else:
+                pn, kt = divmod(r - nk, kpc)
+                out.append(("w2", j * p + kt * kp, pn * p, kp,
+                            min(p, c - pn * p)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -191,11 +363,27 @@ _INTS = ("dtype", "B", "Hp", "Wp", "C", "heads", "hidden", "wh", "ww", "sh",
          "sw", "nW")
 
 
+class TcPlan(ctypes.Structure):
+    """The C struct ``TcPlan`` of csrc/window_block.cu: a BlockPlan as the
+    kernel reads it."""
+    _fields_ = [(f, ctypes.c_longlong) for f in ("body", "rows", "panel",
+                                                 "kp", "stages",
+                                                 "smem_bytes")]
+
+    @classmethod
+    def of(cls, plan: BlockPlan) -> "TcPlan":
+        return cls(body=plan.blocks_per_sm if plan.body == "tc" else 0,
+                   rows=plan.rows,
+                   panel=plan.panel, kp=plan.kp, stages=plan.stages,
+                   smem_bytes=plan.smem_bytes)
+
+
 class WindowBlockArgs(ctypes.Structure):
     """The C struct ``Args`` of csrc/window_block.cu, field for field."""
     _fields_ = ([(f, ctypes.c_void_p) for f in _PTRS]
                 + [("scale", ctypes.c_double)]
-                + [(f, ctypes.c_longlong) for f in _INTS])
+                + [(f, ctypes.c_longlong) for f in _INTS]
+                + [("plan", TcPlan)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -207,7 +395,34 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.mmst_window_block_smem_bytes.argtypes = [ctypes.c_longlong] * 4
     lib.mmst_window_block_smem_bytes.restype = ctypes.c_longlong
+    lib.mmst_window_block_attributes.argtypes = (
+        [ctypes.c_longlong] * 3 + [ctypes.POINTER(ctypes.c_longlong)] * 3)
+    lib.mmst_window_block_attributes.restype = ctypes.c_int
     return lib
+
+
+def smem_bytes(plan: BlockPlan, n: int, c: int, heads: int,
+               dtype: torch.dtype) -> int:
+    """Dynamic shared memory one block of the call's body takes."""
+    if plan.body == "tc":
+        return plan.smem_bytes
+    return _lib().mmst_window_block_smem_bytes(
+        n, c, heads, torch.finfo(dtype).bits // 8)
+
+
+def kernel_attributes(plan: BlockPlan, dtype: torch.dtype, dh: int
+                      ) -> Tuple[int, int, int]:
+    """(static shared memory bytes per block, dynamic shared memory opted
+    in so far on this device, registers per thread) of the rows entry's
+    kernel that ``plan`` runs: the tensor-core kernel of head dim dh in the
+    plan's form, or the scalar kernel at ``dtype``."""
+    vals = [ctypes.c_longlong() for _ in range(3)]
+    err = _lib().mmst_window_block_attributes(
+        TcPlan.of(plan).body, int(dtype == torch.bfloat16), dh,
+        *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes: CUDA error {err}")
+    return tuple(v.value for v in vals)
 
 
 def _need(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -254,7 +469,8 @@ def _launch(entry: str, x: torch.Tensor, w: BlockWeights, *, heads: int,
     if padmask is not None:
         _need("padmask", padmask, (nw, n), f32, dev)
     lib = _lib()
-    smem = lib.mmst_window_block_smem_bytes(n, c, heads, x.element_size())
+    plan = block_plan(entry, n, c, heads, hidden, x.dtype)
+    smem = smem_bytes(plan, n, c, heads, x.dtype)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"N={n}, C={c} needs {smem} bytes of shared memory "
                          f"per block, over the {MAX_SMEM_BYTES} available")
@@ -267,7 +483,8 @@ def _launch(entry: str, x: torch.Tensor, w: BlockWeights, *, heads: int,
            for f in _PTRS},
         scale=(c // heads) ** -0.5,
         dtype=1 if x.dtype == torch.bfloat16 else 0,
-        C=c, heads=heads, hidden=hidden, nW=nw, **geometry)
+        C=c, heads=heads, hidden=hidden, nW=nw, plan=TcPlan.of(plan),
+        **geometry)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(lib, f"mmst_{entry}")(ctypes.byref(args), stream)
     if err != 0:

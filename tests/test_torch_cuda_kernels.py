@@ -18,8 +18,10 @@ largest update |out - x| (intermediates rounded on either side of a
 boundary). The decoder's stencil kernels: at bfloat16 two units in the
 last place plus 2^-8 of the largest |output| (both sides sum in f32 and
 round once); the phase align exactly. The pair kernel K11 as the block
-kernel, and bit for bit as K1 applied twice (the same per-window body); the
-RGB-tail kernel K12 as the stencil kernels; the patch-embed kernel K13 at
+kernel, and at float32 bit for bit as K1 applied twice (the same scalar
+per-window body; at bfloat16 K1 runs the tensor-core body, whose sums run
+in another order, so there within the block tolerance); the RGB-tail
+kernel K12 as the stencil kernels; the patch-embed kernel K13 at
 bfloat16 two units in the last place plus 2^-6 of the largest |output|.
 """
 
@@ -176,6 +178,54 @@ def test_ln1_only_block_matches_plain(cuda, dtype):
     w, x, mask, padmask = _block_case(cuda, dtype, C, HEADS, norm2=False)
     assert w.n1s is not None and w.n2s is None
     _run_entry("windows", w, x, HEADS, mask, padmask)
+
+
+# K1's tensor-core body at the Swin stages' widths on ragged grids:
+# (Hp, Wp, valid h, valid w), the padded grid a multiple of the window.
+K1_GRIDS = [(14, 14, 9, 12), (21, 35, 16, 30), (7, 7, 7, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", K1_GRIDS)
+@pytest.mark.parametrize("shift", [(0, 0), (3, 3)])
+@pytest.mark.parametrize("c,heads", [(128, 4), (256, 8), (32, 2), (128, 2),
+                                     (256, 4)])
+def test_k1_tensor_core_body_matches_plain(cuda, c, heads, shift, grid):
+    """K1 at bf16 runs the tensor-core body (block_plan) at stage 1's and
+    stage 2's widths (head dim 32; two blocks an SM at C = 128, one at
+    256), and at head dims 16 and 64 in both forms, with and without the
+    shift, against the plain version; the pad tokens hold garbage that
+    must stay inert."""
+    hp, wp, vh, vw = grid
+    g = torch.Generator().manual_seed(c + hp + wp + shift[0])
+    acfg = AttentionConfig(dim=c, num_heads=heads, window_size=(7, 7),
+                           shift_size=shift)
+    params = init_style_swin_block(g, acfg, use_norm=True, exclude_mlp=False,
+                                   mlp_ratio=4.0)
+    for name in ("norm1", "norm2"):
+        params[name] = {"scale": 1 + 0.3 * torch.randn(c, generator=g),
+                        "bias": 0.3 * torch.randn(c, generator=g)}
+    params = tree_map(lambda t: t.to(cuda), params)
+    w = wb.block_weights(params, (7, 7), torch.bfloat16, True)
+    x = torch.randn((2, hp, wp, c), generator=g)
+    x[:, vh:] = 5.0
+    x[:, :, vw:] = -5.0
+    x = x.to(cuda, torch.bfloat16)
+    sh, sw = twin.effective_shift(hp, wp, (7, 7), shift)
+    kw = dict(heads=heads, window=(7, 7), shift=(sh, sw),
+              mask=(torch.from_numpy(twin.shift_attention_mask(
+                  hp, wp, 7, 7, sh, sw)).to(cuda) if sh or sw else None),
+              padmask=torch.from_numpy(twin.valid_token_mask(
+                  vh, vw, hp, wp, 7, 7, sh, sw)).to(cuda))
+    plan = wb.block_plan("window_block_rows", 49, c, heads, 4 * c,
+                         torch.bfloat16)
+    assert plan.body == "tc"
+    before = wb.LAUNCHES["window_block_rows"]
+    got = wb.window_block_rows(x, w, **kw)
+    assert wb.LAUNCHES["window_block_rows"] == before + 1
+    _check(got, wb.window_block_rows_plain(x, w, **kw), x)
+    smem, dyn, regs = wb.kernel_attributes(plan, torch.bfloat16, c // heads)
+    assert dyn >= plan.smem_bytes and regs > 0
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +401,7 @@ def test_stencil_phase_conv_ragged_tiles(cuda, dtype, kind, hw):
 def test_tensor_core_body_reports_its_attributes(cuda):
     """bf16 K5 and both K12 entries run the tensor-core body: its
     instantiations report dynamic shared memory once they have launched;
-    the scalar-FMA body (K5 at f32, K6) uses none."""
+    the scalar-FMA body (K5 at f32) uses none."""
     from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
 
     for kind in ("up", "phase"):
@@ -398,6 +448,106 @@ def test_stencil_phase2_conv_matches_plain(cuda, dtype, padcols):
         got = pc.stencil_phase2_conv(pp, pk, bias, table)
         assert pc.LAUNCHES["stencil_phase2_conv"] == before + 1
         _check_conv(got, pc.stencil_phase2_conv_plain(pp, pk, bias, table))
+
+
+# K6 at B = 1 on grids of 1, tile - 1 and tile + 1 rows by 1, tile - 1 and
+# tile + 1 columns of the tensor-core body's 8 x 16 tile.
+K6_RAGGED = [(h, w) for h in (1, 7, 9) for w in (1, 15, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", K6_RAGGED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stencil_phase2_conv_ragged_tiles(cuda, dtype, hw):
+    """Both K6 entries (the pad columns where W >= 2, which they need)
+    against their plain versions on the tensor-core body: bf16 with the L2
+    up-conv table compiled in, f32 its FMA form."""
+    from mastermetastyletransfer_tpu_torch.ops import conv as tconv
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+
+    pp, pk, bias, table = _phase_case(cuda, dtype, "l2", (1, *hw))
+    got = pc.stencil_phase2_conv(pp, pk, bias, table)
+    assert got.shape == (1, *hw, 512)
+    _check_conv(got, pc.stencil_phase2_conv_plain(pp, pk, bias, table))
+    if hw[1] >= 2:
+        cm = tconv._phase2_pad_maps(hw[1], 4, False)
+        got = pc.stencil_phase2_conv_padcols(pp, pk, bias, table, cm)
+        assert got.shape == (1, hw[0], hw[1] + 2, 512)
+        _check_conv(got, pc.stencil_phase2_conv_padcols_plain(
+            pp, pk, bias, table, cm))
+        torch.cuda.synchronize()
+        # the pad columns are exact copies of the kernel's own interior
+        for col, maps in ((0, cm[0]), (-1, cm[1])):
+            want = pc.pad_border(lambda s: got[:, :, 1 + s], maps, 4, 32,
+                                 False)
+            assert torch.equal(got[:, :, col], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_runs_the_tensor_core_body(cuda, dtype):
+    """K6 runs the tensor-core body (at bf16 its compiled L2 up-conv
+    table, at f32 the FMA form): its instantiation reports the dynamic
+    shared memory of the plan it ran."""
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+
+    pp, pk, bias, table = _phase_case(cuda, dtype, "l2")
+    pc.stencil_phase2_conv(pp, pk, bias, table)
+    plan = pc.stencil_plan(table, "phase2", 2, PH, PW, pp.shape[-1], 32,
+                           dtype)
+    assert plan.kernel == ("stencil2_tc16_l2up" if dtype == torch.bfloat16
+                           else "stencil2_tc8")
+    smem, dyn, regs = pc.kernel_attributes(plan.kernel, dtype)
+    assert dyn >= plan.smem_bytes > 0 and regs > 0
+
+
+@pytest.mark.cuda
+def test_two_host_threads_launch_bit_equal(cuda):
+    """F5: the shared-memory opt-in is per (kernel, device) and only
+    rises, so two host threads launching one instantiation at two sizes --
+    K1 at C = 128 and 256, K5 at conv1's and conv2's tables -- each 200
+    times, alternately and in opposite orders, never see a launch refused,
+    and every output equals, bit for bit, the same call on one thread
+    (these kernels sum in a fixed order)."""
+    import threading
+
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+
+    calls = {}
+    for c, heads in ((128, 4), (256, 8)):
+        w, x, mask, padmask = _block_case(cuda, torch.bfloat16, c, heads)
+        calls[f"k1_{c}"] = (lambda w=w, x=x, heads=heads, mask=mask,
+                            padmask=padmask: wb.window_block_rows(
+                                x, w, heads=heads, window=(7, 7),
+                                shift=(3, 3), mask=mask, padmask=padmask))
+    for kind in ("up", "phase"):
+        args = _phase_case(cuda, torch.bfloat16, kind)
+        calls[f"k5_{kind}"] = lambda args=args: pc.stencil_phase_conv(*args)
+    want = {name: fn() for name, fn in calls.items()}
+    torch.cuda.synchronize()
+    names = list(calls)
+    results, errors = {}, []
+
+    def work(tag, order):
+        try:
+            outs = [(order[i % 4], calls[order[i % 4]]()) for i in range(200)]
+            torch.cuda.synchronize()
+            results[tag] = outs
+        except Exception as e:  # reported below, in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=("a", names)),
+               threading.Thread(target=work, args=("b", names[::-1]))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert not errors, errors[0]
+    assert set(results) == {"a", "b"}
+    for outs in results.values():
+        assert len(outs) == 200
+        for name, got in outs:
+            assert torch.equal(got, want[name]), name
 
 
 @pytest.mark.cuda
@@ -706,7 +856,10 @@ def test_block_pair_matches_plain_and_k1_twice(cuda, dtype, grid):
                               shift=kw["shift"], mask=kw["mask1"],
                               padmask=kw["padmask1"])
     torch.cuda.synchronize()
-    assert torch.equal(got, y1)
+    if dtype == torch.float32:
+        assert torch.equal(got, y1)
+    else:  # K1 on the tensor-core body, K11 on the scalar one
+        _check(got, y1, x)
 
 
 @pytest.mark.cuda

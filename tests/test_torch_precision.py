@@ -17,7 +17,9 @@
   check on a few weight draws: the port's bf16 kernel route (every kernel
   on, their plain versions here, which round where the kernels round) is
   no further from the float32 reference service (kernels off, nine-conv
-  decoder) than 1.5 times the bf16 reference service is.
+  decoder) than 1.5 times the bf16 reference service is, over the whole
+  image and over its outermost columns, where a wrong K6 pad slot shows
+  (and the whole-image ratio misses it, as a planted one shows).
 """
 
 import sys
@@ -164,3 +166,42 @@ def test_bf16_kernel_route_within_plain_bf16_noise(seed):
         run(chip_smoke.reference_config("float32")))
     print(verdict)
     assert verdict["noise_ratio"] <= chip_smoke.TOL_BF16_NOISE, verdict
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_edge_criterion_catches_a_wrong_pad_slot(seed, monkeypatch):
+    """F6: chip_smoke.py's bf16 slice check also holds the outermost output
+    columns (the ones K6's pad columns feed) to the noise ratio. The kernel
+    route passes both; with K6's left pad slot 3 fed from slot 0's source
+    (a wrong slot, planted here through the wrapper) the whole-image ratio
+    still passes and the edge ratio fails."""
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+
+    params = tmaster.init_master_model(
+        tcfg.ModelConfig(), torch.Generator().manual_seed(seed), device="cpu")
+    rng = np.random.default_rng(seed)
+    c, s = (rng.random((2, 64, 64, 3), dtype=np.float32) for _ in range(2))
+
+    def run(cfg):
+        fn = tmaster.make_stylize_fn(cfg, k=1, device="cpu")
+        return fn(params, c, s).numpy()
+
+    plain = run(chip_smoke.reference_config("bfloat16"))
+    ref32 = run(chip_smoke.reference_config("float32"))
+    kernel_cfg = chip_smoke.slice_config("bfloat16", True)
+    good = chip_smoke.bf16_noise_verdict(run(kernel_cfg), plain, ref32)
+    assert good["ok"], good
+
+    orig = pc.stencil_phase2_conv_padcols
+
+    def wrong_slot(pp, pk, bias, table, colmaps, relu=True):
+        left, right = colmaps
+        left = list(left)
+        left[3] = left[0]
+        return orig(pp, pk, bias, table, (left, right), relu)
+
+    monkeypatch.setattr(pc, "stencil_phase2_conv_padcols", wrong_slot)
+    bad = chip_smoke.bf16_noise_verdict(run(kernel_cfg), plain, ref32)
+    assert bad["noise_ratio"] <= chip_smoke.TOL_BF16_NOISE, bad
+    assert bad["edge_noise_ratio"] > chip_smoke.TOL_BF16_EDGE_NOISE, bad
+    assert not bad["ok"]

@@ -8,12 +8,14 @@ halo window (zero past the input's edge) and the weight rows of each slot
 (for K12 rgb, the raw rows of the chunk's taps); group by group, each of
 its taps' A rows (the halo shifted by the group's read offset plus the
 tap) against the slot the kernel finds for (group, tap); every group's sum
-in f32; the bias, ReLU and one rounding at the
-end; the fine interleave for K12 rgb. It must agree with the plain
-versions (the kernels' yardstick) within 1e-5 at f32, for the five tables
-the wrappers take -- dense (K12's, nchunks 1), upsample, L1 phase, L2
-(K6's, 16 groups of 32) and L2-RGB -- at B of 1 and 2 and odd H, W that
-cross the 8 x 16 tile's edges.
+in f32; the bias, ReLU and one rounding per block; K6's pad columns
+written by the block that writes their source column (each slot a copy of
+the rounded value); the fine interleave for K12 rgb. It must agree with
+the plain versions (the kernels' yardstick) within 1e-5 at f32, for the
+five tables the wrappers take -- dense (K12's, nchunks 1), upsample, L1
+phase, L2 (K6's, 16 groups of 32, as "stencil" and as K6's own "phase2"
+plan, with and without pad columns) and L2-RGB -- at B of 1 and 2 and odd
+H, W that cross the 8 x 16 tile's edges.
 """
 
 import pytest
@@ -25,8 +27,10 @@ from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
 TOL = 1e-5
 
 
-def _replay(pp, pk, bias, table, kind, relu, plan_dtype):
-    """The kernel's computation, block by block, from the plan it gets."""
+def _replay(pp, pk, bias, table, kind, relu, plan_dtype, colmaps=None):
+    """The kernel's computation, block by block, from the plan it gets;
+    ``colmaps`` (K6 padcols) the (left, right) pad-slot maps of the
+    columns."""
     b, hp, wp, cin = pp.shape
     h, w = hp - 2, wp - 2
     groups = len(table.offsets)
@@ -41,7 +45,9 @@ def _replay(pp, pk, bias, table, kind, relu, plan_dtype):
     chunk = cin // table.nchunks
     assert chunk % sk == 0
     ppf, pkf = pp.float(), pk.float()
-    sums = torch.full((b, h, w, groups * cg), float("nan"))
+    pad = int(colmaps is not None)
+    out = torch.full((b, h, w + 2 * pad, groups * cg), float("nan"),
+                     dtype=pp.dtype)
     for blk in range(plan.blocks):
         n0 = (blk % nsplit) * bn
         t = blk // nsplit
@@ -93,13 +99,22 @@ def _replay(pp, pk, bias, table, kind, relu, plan_dtype):
         hv, wv = min(th, h - i0), min(tw, w - j0)
         for g in range(groups):
             cols = slice(g * cg + n0, g * cg + n0 + lanes)
-            sums[bi, i0:i0 + hv, j0:j0 + wv, cols] = acc[g, :hv, :wv, :lanes]
-    assert not sums.isnan().any()    # every output written once
-    y = sums + bias.float()
-    if relu:
-        y = torch.relu(y)
-    y = y.to(pp.dtype)
-    return pc._interleave(y) if kind == "rgb" else y
+            y = acc[g, :hv, :wv, :lanes] + bias[cols].float()
+            if relu:
+                y = torch.relu(y)
+            y = y.to(pp.dtype)
+            out[bi, i0:i0 + hv, j0 + pad:j0 + pad + wv, cols] = y
+            if not pad:
+                continue
+            # the writer of a source column writes the pad slots it feeds
+            for col, maps in ((0, colmaps[0]), (w + 1, colmaps[1])):
+                for slot, (src, ph) in enumerate(maps):
+                    if ph == g % 4 and j0 <= src < j0 + wv:
+                        dst = (4 * (g // 4) + slot) * cg + n0
+                        out[bi, i0:i0 + hv, col, dst:dst + lanes] = \
+                            y[:, src - j0]
+    assert not out.isnan().any()    # every output written
+    return pc._interleave(out) if kind == "rgb" else out
 
 
 def _block_sparse(pk, table):
@@ -128,7 +143,9 @@ def _table(name):
 
 
 # (kind, table, Cin, C' per group)
-CASES = [("stencil", "upsample", 32, 64),
+CASES = [("phase2", "l2", 128, 32),
+         ("phase2", "l2", 64, 64),
+         ("stencil", "upsample", 32, 64),
          ("stencil", "upsample", 48, 96),
          ("stencil", "l1", 64, 32),
          ("stencil", "l1", 128, 128),
@@ -150,7 +167,7 @@ def test_plan_replay_matches_plain(kind, name, cin, cg, bhw):
     pk = _block_sparse(torch.randn((2, 2, cin, groups * cg), generator=g)
                        * cin ** -0.5, table)
     bias = torch.randn(groups * cg, generator=g) * 0.1
-    relu = kind == "stencil"
+    relu = kind in ("stencil", "phase2")
     bases = tconv._phase2_bases(False)
     if kind == "rgb":
         ref = pc.stencil_phase2_rgb_plain(pp, pk, bias, bases, relu)
@@ -158,7 +175,8 @@ def test_plan_replay_matches_plain(kind, name, cin, cg, bhw):
         ref = pc.stencil_phase2_rgb128_plain(pp, pk, bias, bases, relu)
     else:
         ref = pc._stencil_plain(pp, pk, bias, table.offsets, relu)
-    # K5 runs its plan at bf16 only; K12 at both types, whose plans differ.
+    # K5 runs its plan at bf16 only; K6 and K12 at both types, whose plans
+    # differ.
     dtypes = ((torch.bfloat16,) if kind == "stencil"
               else (torch.bfloat16, torch.float32))
     for plan_dtype in dtypes:
@@ -166,6 +184,38 @@ def test_plan_replay_matches_plain(kind, name, cin, cg, bhw):
         assert got.shape == ref.shape
         err = (got - ref).abs().max().item()
         assert err <= TOL, (plan_dtype, err)
+
+
+# (H, W) around the 8 x 16 tile at B = 1, and B = 2 at odd sizes; W >= 2
+# for the pad columns.
+PHASE2_SHAPES = [(1, 1, 2), (1, 7, 15), (1, 9, 17), (1, 1, 17), (1, 9, 2),
+                 (2, 7, 13)]
+
+
+@pytest.mark.parametrize("bhw", PHASE2_SHAPES)
+def test_phase2_plan_replay_writes_the_pad_columns(bhw):
+    """K6's padcols entry: the "phase2" plan's blocks, each writing its own
+    interior and the pad slots whose source column it writes, against
+    stencil_phase2_conv_padcols_plain within 1e-5 at f32; every pad slot
+    is written (none left over) and equals its source exactly."""
+    table = _table("l2")
+    b, h, w = bhw
+    g = torch.Generator().manual_seed(h * 31 + w)
+    pp = torch.randn((b, h + 2, w + 2, 128), generator=g)
+    pk = _block_sparse(torch.randn((2, 2, 128, 512), generator=g)
+                       * 128 ** -0.5, table)
+    bias = torch.randn(512, generator=g) * 0.1
+    colmaps = tconv._phase2_pad_maps(w, 4, False)
+    ref = pc.stencil_phase2_conv_padcols_plain(pp, pk, bias, table, colmaps)
+    for plan_dtype in (torch.bfloat16, torch.float32):
+        got = _replay(pp, pk, bias, table, "phase2", True, plan_dtype,
+                      colmaps)
+        assert got.shape == ref.shape == (b, h, w + 2, 512)
+        assert (got - ref).abs().max().item() <= TOL
+        if h >= 2:  # the pad rows' maps need two rows
+            assert torch.equal(
+                tconv._phase2_pad_rows(got, 4, 32),
+                tconv._phase2_pad(got[:, :, 1:-1], 4, 32, False))
 
 
 def test_plan_slots_are_the_tables_nonzero_blocks():
@@ -222,6 +272,8 @@ def test_plan_names_the_compiled_tables():
     assert phase.offsets == tconv._UPSAMPLE_TABLE.offsets \
         == pc._known_offsets(4)
     assert rgb.offsets == _table("dense").offsets == pc._known_offsets(16)
+    assert chunk_bits(_table("l2")) == pc._L2UP_BITS
+    assert _table("l2").offsets == pc._known_offsets(16)
     bf16 = torch.bfloat16
     for table, kind, cin, c_out, dtype, kernel in (
             (tconv._UPSAMPLE_TABLE, "stencil", 128, 128, bf16,
@@ -231,6 +283,9 @@ def test_plan_names_the_compiled_tables():
             (phase, "stencil", 512, 128, bf16, "stencil_tc64_phase"),
             (phase, "stencil", 512, 32, bf16, "stencil_tc32_phase"),
             (_table("l2"), "stencil", 128, 32, bf16, "stencil_tc32"),
+            (_table("l2"), "phase2", 128, 32, bf16, "stencil2_tc16_l2up"),
+            (_table("l2rgb"), "phase2", 512, 32, bf16, "stencil2_tc16"),
+            (_table("l2"), "phase2", 128, 32, torch.float32, "stencil2_tc8"),
             (rgb, "rgb", 512, 3, bf16, "rgb_l2"),
             (rgb, "rgb128", 512, 8, bf16, "rgb128_l2"),
             (_table("dense"), "rgb", 512, 3, bf16, "rgb_dense"),
