@@ -32,11 +32,13 @@ swin_S-width block (C=192, 6 heads), the decoder's stencil and align
 kernels at the convs of one request batch (K5 at conv1-4 and conv6, K6 with
 pad columns at conv7 and without them at the same shape, K7 at conv5; with
 the time of one cuDNN conv of the same composed kernel and padded input as
-the library yardstick, a conv without the align; for K1, K5, K6 and K12 the
-body that ran -- K1's tensor-core body and its form at bf16, the
-tensor-core stencil body's plan and compiled table (K6 and K12 at f32 too,
-its FMA form), the scalar bodies otherwise -- with its registers and
-static and dynamic shared memory); stencil_shapes (K5 at the training step's five
+the library yardstick, a conv without the align; for K1, K2, K3, K5, K6
+and K12 the body that ran -- the tensor-core block body and its form at
+bf16 (K1, and K2 in both of the style transformer's forms), K3's
+tensor-core body at bf16, the tensor-core stencil body's plan and
+compiled table (K6 and K12 at f32 too, its FMA form), the scalar bodies
+otherwise -- with its registers and static and dynamic shared memory);
+stencil_shapes (K5 at the training step's five
 convs, decoder input (8, 32, 32, 256), bf16 and f32, as at the serving
 shapes); slice (the bf16 and f32
 services, launches per path counted from zero just before each path's run,
@@ -434,6 +436,18 @@ def swin_block_cases(gen, rows, *, b, c, heads, hp, valid, shift, label,
                  shift=[sh, sw], **attrs)
 
 
+def body_attributes(plan, tc_name: str, scalar_name: str, launch,
+                    attributes) -> dict:
+    """The body a K2 or K3 call runs (its plan's) and its registers, static
+    and dynamic shared memory, read after one launch of the call, so that
+    the dynamic size is at least the call's own."""
+    launch()
+    torch.cuda.synchronize()
+    smem, dyn, regs = attributes()
+    return dict(body=tc_name if plan.body == "tc" else scalar_name,
+                registers=regs, smem_static=smem, smem_dynamic=dyn)
+
+
 def style_cases(gen, rows):
     """The style transformer's kernels at the shapes of one request batch:
     at 512^2, (8, 100, 49, 256) windows of the 64x64 token grid padded to
@@ -465,21 +479,34 @@ def style_cases(gen, rows):
         for label, use_norm in (("st_encoder_key", False),
                                 ("st_decoder_self", True)):
             w = wb.block_weights(params["block"], (7, 7), dtype, use_norm)
+            plan = wb.block_plan("window_block_windows", n, c, heads, 4 * c,
+                                 dtype)
             run_case(rows, "window_block_windows", label, dtype,
                      lambda: [wb.window_block_windows(xs[0], w, **kw)],
                      lambda: [wb.window_block_windows_plain(xs[0], w, **kw)],
                      [xs[0]], block_cost(b, nw, n, c, heads, 4 * c, dtype,
                                          True, True),
-                     wb._lib().mmst_window_block_smem_bytes(
-                         n, c, heads, item_bytes(dtype)))
+                     wb.smem_bytes(plan, n, c, heads, dtype),
+                     **body_attributes(
+                         plan, f"window_tc{c // heads}_x{plan.blocks_per_sm}",
+                         "block_window",
+                         lambda: wb.window_block_windows(xs[0], w, **kw),
+                         lambda: wb.kernel_attributes(
+                             plan, dtype, c // heads,
+                             "window_block_windows")))
         w = sb.encoder_weights(params["attn"], params["mlp_scale"],
                                params["mlp_shift"], None, (7, 7), dtype)
+        plan = sb.style_plan(n, c, heads, 4 * c, dtype)
         run_case(rows, "encoder_scale_shift", "st_encoder", dtype,
                  lambda: sb.encoder_scale_shift(*xs[:3], w, **kw),
                  lambda: sb.encoder_scale_shift_plain(*xs[:3], w, **kw),
                  xs[1:3], style_cost("encoder_scale_shift", b, nw, n, c,
                                      heads, dtype, True, True),
-                 sb.smem_bytes(n, c, heads, dtype))
+                 sb.smem_bytes(n, c, heads, dtype, plan),
+                 **body_attributes(
+                     plan, f"style_tc{c // heads}", "encoder_scale_shift",
+                     lambda: sb.encoder_scale_shift(*xs[:3], w, **kw),
+                     lambda: sb.kernel_attributes(plan, dtype, c // heads)))
         w = sb.decoder_tail_weights(params["dual"], params["last_mlp"],
                                     (7, 7), dtype)
         run_case(rows, "decoder_tail", "st_decoder", dtype,

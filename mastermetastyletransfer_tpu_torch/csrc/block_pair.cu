@@ -12,7 +12,7 @@
 //                                (un-rolled) frame, as K1's row entry gives.
 //
 // Each window of each block runs `block_window` (window_common.cuh), the
-// per-window body of K1, with that block's weights and validity mask (and
+// scalar per-window body of K1 and K2, with that block's weights and validity mask (and
 // block 1's shift mask); block 0's output rounds to T, as the JAX kernel's
 // scratch holds it. So the function is K1's row entry applied twice.
 //

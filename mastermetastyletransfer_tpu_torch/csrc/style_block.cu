@@ -31,13 +31,18 @@
 // What bounds them on an H100: per window 44 N C^2 + 6 N^2 C operations for
 // K3 and 24 N C^2 + 6 N^2 C for K4 against 5 and 6 window tiles of bytes,
 // some 500 operations per byte at C = 256 in bf16, so the tensor-core rate
-// bounds them, not memory. Like window_block.cu, this first version keeps
-// every intermediate of a window in shared memory (device memory sees each
-// input once and each output once, plus the weights through L2) and does
-// the products with scalar FMAs on the CUDA cores, so it runs well below
-// that bound; wgmma is the next step for speed.
+// bounds them, not memory. Both keep every intermediate of a window in
+// shared memory (device memory sees each input once and each output once,
+// plus the weights through L2).
 //
-// Design: 256 threads per block. K3 runs one block per (image, window,
+// Two bodies for K3: at bf16, where ops/style_block.py:style_plan says so
+// (C % 32 == 0, head dim 16, 32 or 64, N <= 64, hidden % 128 == 0: the
+// style transformer at C = 256), the tensor-core body of style_tc.cuh
+// (K1's ring, products and register softmax; one block of 16 warps per
+// window and stream); at f32, and for K4, the scalar body described next,
+// whose products are scalar FMAs on the CUDA cores.
+//
+// Scalar design: 256 threads per block. K3 runs one block per (image, window,
 // stream): each recomputes the shared q, k and softmax (some 10% more
 // work) so that one stream's tiles fit in shared memory at f32 and C = 256.
 // K4 needs both streams in one block (y mixes sigma and mu): it attends with
@@ -51,6 +56,7 @@
 // -shared -Xcompiler -fPIC. Plain C interface; each entry returns the CUDA
 // error code of its launch (0 on success).
 
+#include "style_tc.cuh"
 #include "window_common.cuh"
 
 // The entry points' argument blocks. They stay outside the anonymous
@@ -84,6 +90,7 @@ struct EncoderArgs {
   double scale;           // head_dim ** -0.5
   long long dtype;        // 0 float32, 1 bfloat16
   long long B, nW, N, C, heads, hidden;
+  TcPlan plan;            // the body and its tiling (window_tc.cuh)
 };
 
 // Mirrors DecoderTailArgs in ops/style_block.py field for field.
@@ -388,6 +395,45 @@ decoder_tail_kernel(const DecoderTailArgs a) {
   }
 }
 
+// K3 at bf16 on the tensor-core body: one block of NT threads per (window,
+// image, stream), a ring of S tiles.
+template <int DH, int S, int NT>
+__global__ void __launch_bounds__(NT, 1)
+encoder_scale_shift_tc_kernel(const EncoderArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  encoder_scale_shift_tc<DH, S, NT>(a, smem);
+}
+
+// The tensor-core body's launch: the plan must be one style_plan gives for
+// this call (checked here), its shared memory what the layout needs.
+int launch_tc(const EncoderArgs& a, cudaStream_t stream) {
+  const mmst::TcPlan& p = a.plan;
+  const long long n = a.N, c = a.C, dh = a.heads ? c / a.heads : 0;
+  const bool ok =
+      a.dtype == 1 && p.body == 1 && p.rows == kTcRows &&
+      p.panel == kTcPanel && p.stages == 3 && (p.kp == 32 || p.kp == 64) &&
+      n >= 1 && n <= kTcRows && c % 32 == 0 && c % p.kp == 0 &&
+      a.heads * dh == c && (dh == 16 || dh == 32 || dh == 64) &&
+      a.hidden % kTcPanel == 0 && a.hidden >= kTcPanel &&
+      p.smem_bytes == static_cast<long long>(
+                          tc_style_layout(static_cast<int>(n),
+                                          static_cast<int>(c),
+                                          static_cast<int>(p.kp), 3)
+                              .total) &&
+      p.smem_bytes <= 232448;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(a.nW), static_cast<unsigned>(a.B), 2);
+  const size_t bytes = static_cast<size_t>(p.smem_bytes);
+  if (dh == 16)
+    return launch_kernel(encoder_scale_shift_tc_kernel<16, 3, 512>, grid,
+                         bytes, stream, a, 512);
+  if (dh == 32)
+    return launch_kernel(encoder_scale_shift_tc_kernel<32, 3, 512>, grid,
+                         bytes, stream, a, 512);
+  return launch_kernel(encoder_scale_shift_tc_kernel<64, 3, 512>, grid,
+                       bytes, stream, a, 512);
+}
+
 template <typename T, typename A, typename Kernel>
 int launch(Kernel kernel, const A& a, unsigned streams, cudaStream_t stream) {
   const Layout L = smem_layout(static_cast<int>(a.N), static_cast<int>(a.C),
@@ -410,8 +456,36 @@ long long mmst_style_block_smem_bytes(long long n, long long c,
           .total);
 }
 
+// Static shared memory, dynamic shared memory opted in so far on the
+// current device and registers per thread of K3's kernel: body 0 the
+// scalar kernel at dtype (0 f32, 1 bf16), body 1 the tensor-core kernel of
+// head dim dh.
+int mmst_encoder_scale_shift_attributes(long long body, long long dtype,
+                                        long long dh, long long* smem,
+                                        long long* dyn, long long* regs) {
+  if (body == 1) {
+    if (dh == 16)
+      return attributes_of(encoder_scale_shift_tc_kernel<16, 3, 512>, smem,
+                           dyn, regs);
+    if (dh == 32)
+      return attributes_of(encoder_scale_shift_tc_kernel<32, 3, 512>, smem,
+                           dyn, regs);
+    if (dh == 64)
+      return attributes_of(encoder_scale_shift_tc_kernel<64, 3, 512>, smem,
+                           dyn, regs);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (body != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1)
+    return attributes_of(encoder_scale_shift_kernel<__nv_bfloat16>, smem,
+                         dyn, regs);
+  return attributes_of(encoder_scale_shift_kernel<float>, smem, dyn, regs);
+}
+
 int mmst_encoder_scale_shift(const mmst::EncoderArgs* a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->plan.body == 1) return launch_tc(*a, s);
+  if (a->plan.body != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (a->dtype == 1)
     return launch<__nv_bfloat16>(encoder_scale_shift_kernel<__nv_bfloat16>,
                                  *a, 2, s);

@@ -29,13 +29,15 @@
 // memory, so device memory sees each token once in and once out plus the
 // weights through L2 -- the byte side is at its minimum.
 //
-// Two bodies. K1 at bf16 (the rows entry, as the Swin runs it) runs the
-// tensor-core body of window_tc.cuh where ops/window_block.py:block_plan
-// says so (C % 32 == 0, head dim 16, 32 or 64, N <= 64, hidden % 128 == 0:
-// the Swin stages of swin_T/S/B): mma.sync products, weights streamed
-// through a cp.async ring, the softmax in registers. Every other call -- K2,
-// f32 -- runs the scalar body described next, which K11 (block_pair.cu)
-// shares.
+// Two bodies. At bf16, both entries (K1 as the Swin runs it, K2 as the
+// style transformer does: its Key block without norms, its self block with
+// both) run the tensor-core body of window_tc.cuh where
+// ops/window_block.py:block_plan says so (C % 32 == 0, head dim 16, 32 or
+// 64, N <= 64, hidden % 128 == 0: the Swin stages of swin_T/S/B and the
+// style transformer at C = 256): mma.sync products, weights streamed
+// through a cp.async ring, the softmax in registers. Every other call --
+// f32 above all -- runs the scalar body described next, which K11
+// (block_pair.cu) shares.
 //
 // Scalar body: one thread block of 256 threads per (image, window). Shared memory
 // holds the window's residual stream in f32, the normed tile, the head
@@ -55,17 +57,6 @@
 // The entry points' argument block. It stays outside the anonymous
 // namespace: a type with internal linkage would hide the extern "C" entries.
 namespace mmst {
-
-// Mirrors BlockPlan in ops/window_block.py (the fields the kernel reads).
-struct TcPlan {
-  long long body;        // 0 the scalar body; the tensor-core body at 1 or
-                         // 2 blocks an SM (its two forms)
-  long long rows;        // a window's tokens padded to m16 tiles: 64
-  long long panel;       // output columns per weight panel: 128
-  long long kp;          // weight rows per ring tile: 32 or 64
-  long long stages;      // ring tiles: 3 (one block an SM) or 2 (two)
-  long long smem_bytes;  // dynamic shared memory per block
-};
 
 // Mirrors WindowBlockArgs in ops/window_block.py field for field: every
 // field is 8 bytes, so the two layouts agree without padding rules.
@@ -92,7 +83,7 @@ struct Args {
   long long B, Hp, Wp, C, heads, hidden;
   long long wh, ww, sh, sw;
   long long nW;           // windows per image
-  TcPlan plan;            // the body and its tiling
+  TcPlan plan;            // the body and its tiling (window_tc.cuh)
 };
 
 }  // namespace mmst
@@ -146,9 +137,12 @@ window_block_kernel(const Args a) {
       smem);
 }
 
-// K1 at bf16 on the tensor-core body: one block of NT threads per (window,
-// image); MINB blocks an SM, a ring of S tiles, the head outputs in the
-// normed tile's place at two blocks an SM.
+// Both entries at bf16 on the tensor-core body: one block of NT threads
+// per (window, image); MINB blocks an SM, a ring of S tiles, the head
+// outputs in the normed tile's place at two blocks an SM. The token offsets
+// are the rows entry's arithmetic: the windows entry passes its (B, nW, N,
+// C) tensor as an (nW, N) image of 1 x N windows, unshifted, whose token t
+// of window w lies at ((b nW + w) N + t) C.
 template <int DH, int S, int MINB, int NT>
 __global__ void __launch_bounds__(NT, MINB)
 window_block_tc_kernel(const Args a) {
@@ -184,8 +178,10 @@ int launch_tc_dh(const Args& a, dim3 grid, size_t bytes,
                        stream, a, 512);
 }
 
-// The tensor-core body's launch: the plan must be one block_plan gives for
-// this call (checked here), its shared memory what the layout needs.
+// The tensor-core body's launch, either entry: the plan must be one
+// block_plan gives for this call (checked here), its shared memory what the
+// layout needs; the windows entry's geometry the (nW, N) image of 1 x N
+// windows.
 int launch_tc(const Args& a, cudaStream_t stream) {
   const mmst::TcPlan& p = a.plan;
   const long long n = a.wh * a.ww, c = a.C, dh = a.heads ? c / a.heads : 0;
@@ -196,6 +192,8 @@ int launch_tc(const Args& a, cudaStream_t stream) {
       n <= kTcRows && c % 32 == 0 && c % p.kp == 0 && a.heads * dh == c &&
       (dh == 16 || dh == 32 || dh == 64) && a.hidden % kTcPanel == 0 &&
       a.hidden >= kTcPanel && (!two || c <= kTcPanel) &&
+      a.Hp == (a.Hp / a.wh) * a.wh && a.Wp == (a.Wp / a.ww) * a.ww &&
+      a.nW == (a.Hp / a.wh) * (a.Wp / a.ww) &&
       p.smem_bytes == static_cast<long long>(
                           tc_block_layout(static_cast<int>(n),
                                           static_cast<int>(c),
@@ -225,26 +223,10 @@ int launch(const Args& a, cudaStream_t stream) {
 template <bool kRows>
 int dispatch(const Args* a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->plan.body == 1 || a->plan.body == 2)
-    return kRows ? launch_tc(*a, s)
-                 : static_cast<int>(cudaErrorInvalidValue);
+  if (a->plan.body == 1 || a->plan.body == 2) return launch_tc(*a, s);
   if (a->plan.body != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (a->dtype == 1) return launch<__nv_bfloat16, kRows>(*a, s);
   return launch<float, kRows>(*a, s);
-}
-
-// A kernel's static shared memory, dynamic shared memory opted in so far on
-// the current device, and registers per thread.
-template <typename Kernel>
-int attributes_of(Kernel kernel, long long* smem, long long* dyn,
-                  long long* regs) {
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *smem = static_cast<long long>(attr.sharedSizeBytes);
-  *dyn = opted_in_smem(kernel);
-  *regs = static_cast<long long>(attr.numRegs);
-  return 0;
 }
 
 template <int DH>
@@ -271,21 +253,29 @@ long long mmst_window_block_smem_bytes(long long n, long long c,
 
 // Static shared memory, dynamic shared memory opted in so far on the
 // current device and registers per thread of a kernel: body 0 the scalar
-// rows kernel at dtype (0 f32, 1 bf16), body 1 or 2 the tensor-core
-// kernel of head dim dh at that many blocks an SM.
+// kernel of the entry (rows 1: the rows entry, 0: the windows entry) at
+// dtype (0 f32, 1 bf16), body 1 or 2 the tensor-core kernel (both entries)
+// of head dim dh at that many blocks an SM.
 int mmst_window_block_attributes(long long body, long long dtype,
-                                 long long dh, long long* smem,
-                                 long long* dyn, long long* regs) {
+                                 long long dh, long long rows,
+                                 long long* smem, long long* dyn,
+                                 long long* regs) {
   if (body == 1 || body == 2) {
     if (dh == 16) return tc_attributes<16>(body, smem, dyn, regs);
     if (dh == 32) return tc_attributes<32>(body, smem, dyn, regs);
     if (dh == 64) return tc_attributes<64>(body, smem, dyn, regs);
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (body != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1)
-    return attributes_of(window_block_kernel<__nv_bfloat16, true>, smem, dyn,
-                         regs);
-  return attributes_of(window_block_kernel<float, true>, smem, dyn, regs);
+    return rows ? attributes_of(window_block_kernel<__nv_bfloat16, true>,
+                                smem, dyn, regs)
+                : attributes_of(window_block_kernel<__nv_bfloat16, false>,
+                                smem, dyn, regs);
+  return rows ? attributes_of(window_block_kernel<float, true>, smem, dyn,
+                              regs)
+              : attributes_of(window_block_kernel<float, false>, smem, dyn,
+                              regs);
 }
 
 int mmst_window_block_rows(const mmst::Args* a, void* stream) {

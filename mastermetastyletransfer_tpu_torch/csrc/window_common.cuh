@@ -2,8 +2,8 @@
 // style_block.cu, phase_conv.cu, ...): the block size, type conversion and
 // rounding to the input type T, shared-memory strides, a block-wide GEMM
 // with its A tile in shared memory, row statistics, one attention head over
-// a window, and the whole Swin block on one window (the body of K1, K2 and
-// K11).
+// a window, and the whole Swin block on one window (the scalar body: K1
+// and K2 at f32, and K11).
 //
 // No warp shuffles anywhere: every step is a plain loop between barriers.
 // That keeps the sources runnable under a CPU emulation of the thread model
@@ -372,6 +372,20 @@ long long opted_in_smem(Kernel kernel) {
   std::lock_guard<std::mutex> lock(t.mu);
   const auto it = t.bytes.find({reinterpret_cast<const void*>(kernel), dev});
   return it == t.bytes.end() ? 0 : static_cast<long long>(it->second);
+}
+
+// A kernel's static shared memory, dynamic shared memory opted in so far on
+// the current device, and registers per thread.
+template <typename Kernel>
+int attributes_of(Kernel kernel, long long* smem, long long* dyn,
+                  long long* regs) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem = static_cast<long long>(attr.sharedSizeBytes);
+  *dyn = opted_in_smem(kernel);
+  *regs = static_cast<long long>(attr.numRegs);
+  return 0;
 }
 
 // Opt the kernel in to `bytes` of dynamic shared memory (opt_in_smem) and

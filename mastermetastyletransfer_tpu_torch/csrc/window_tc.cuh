@@ -1,9 +1,15 @@
-// The Swin block on one window on Hopper's tensor cores: K1's bf16 body
-// (mmst_window_block_rows at bfloat16; window_block.cu has the function and
-// the launch, ops/window_block.py:block_plan the tiling, and
-// tests/test_torch_window_tc_plan.py replays it in torch). It computes what
-// block_window (window_common.cuh) computes, with the same rounding points;
-// only the order of the f32 sums differs.
+// The Swin block on one window on Hopper's tensor cores: the bf16 body of
+// K1 and K2 (mmst_window_block_rows and mmst_window_block_windows at
+// bfloat16; window_block.cu has the functions and the launch,
+// ops/window_block.py:block_plan the tiling, and
+// tests/test_torch_window_tc_plan.py replays it in torch), and the pieces
+// that K3's body (style_tc.cuh) shares with it: the weight ring, the 64-row
+// panel product, a head group's attention and the row statistics. The
+// block computes what block_window (window_common.cuh) computes, with the
+// same rounding points; only the order of the f32 sums differs. A null LN1
+// (K2's encoder Key block) makes the normed tile the raw input times the
+// padmask, a null LN2 (the Key block too) the MLP input round(y), while the
+// second residual keeps y in f32 -- as block_window.
 //
 // What bounds it: some 400k bf16 operations per token against 4C bytes, so
 // the tensor cores. The products -- QKV, q.k^T, p.v, proj, fc1, fc2 -- run
@@ -48,6 +54,22 @@
 #include "mma_common.cuh"
 #include "window_common.cuh"
 
+namespace mmst {
+
+// Mirrors BlockPlan in ops/window_block.py (the fields the kernels read):
+// K1's and K2's plan (block_plan) and K3's (ops/style_block.py:style_plan).
+struct TcPlan {
+  long long body;        // 0 the scalar body; the tensor-core body at 1 or
+                         // 2 blocks an SM (its two forms)
+  long long rows;        // a window's tokens padded to m16 tiles: 64
+  long long panel;       // output columns per weight panel: 128
+  long long kp;          // weight rows per ring tile: 32 or 64
+  long long stages;      // ring tiles: 3 (one block an SM) or 2 (two)
+  long long smem_bytes;  // dynamic shared memory per block
+};
+
+}  // namespace mmst
+
 namespace {
 
 constexpr int kTcRows = 64;           // a window's tokens, padded
@@ -90,66 +112,56 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// The block of NT threads on one window of N <= 64 tokens, head dim DH
-// (16, 32 or 64), C % 32 == 0, hidden % 128 == 0, weight tiles of kp (32
-// or 64) rows in a ring of S; ob_in_ln (C <= 128 only) as the layout's.
-// Fields of W as block_window's. Token t is read from x[toff[t] ..] and
-// written to out[toff[t] ..]; the caller fills toff (the layout's slot)
-// and passes a barrier first. mask_w (N x N) and pm_w (N) as
-// block_window's.
-template <int DH, int S, int NT, typename W>
-__device__ __forceinline__ void block_window_tc(
-    const W& p, int C, int hidden, float scale, const __nv_bfloat16* x,
-    __nv_bfloat16* out, int N, const float* mask_w, const float* pm_w,
-    int kp, bool ob_in_ln, unsigned char* smem) {
+// The weight ring and the 64-row products of a block of NT threads (S
+// tiles of kp rows x 128 columns): the tiles in the order of the header,
+// over wqkv (C, 3C), wp (C, C), w1 (C, hidden) and w2 (hidden, C), and the
+// products that consume them in that order. acc holds this warp's part of
+// the last product's 64 x width output.
+template <int S, int NT>
+struct TcRing {
   using bf16 = __nv_bfloat16;
-  constexpr int NW = NT / 32;              // warps
-  constexpr int WSPLIT = NW / 4;           // column parts of a product
-  constexpr int MT = kTcPanel / (8 * WSPLIT);  // n8 tiles of a part, at most
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / WSPLIT, wn = warp % WSPLIT;  // m16 tile, part
-  const int g4 = lane >> 2, q4 = lane & 3;  // fragment row, column pair
-  const TcBlockLayout L = tc_block_layout(N, C, kp, S, ob_in_ln);
-  float* xs = reinterpret_cast<float*>(smem + L.xs);  // residual stream
-  bf16* ln = reinterpret_cast<bf16*>(smem + L.ln);    // LN1, later LN2
-  bf16* ob = reinterpret_cast<bf16*>(smem + L.ob);    // head outputs
-  bf16* qs = reinterpret_cast<bf16*>(smem + L.qkv);   // a head group's q
-  bf16* ks = qs + kTcRows * kTcLdp;
-  bf16* vs = ks + kTcRows * kTcLdp;
-  bf16* hid = qs;                                     // an MLP chunk
-  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
-  float* mean = reinterpret_cast<float*>(smem + L.mean);
-  float* rstd = reinterpret_cast<float*>(smem + L.rstd);
-  const long long* toff = reinterpret_cast<const long long*>(smem + L.toff);
-  const int LDX = C + 4, LDA = C + 8;
-  const bf16* wqkv = static_cast<const bf16*>(p.wqkv);
-  const bf16* wp = static_cast<const bf16*>(p.wp);
-  const bf16* w1 = static_cast<const bf16*>(p.w1);
-  const bf16* w2 = static_cast<const bf16*>(p.w2);
+  static constexpr int NW = NT / 32;              // warps
+  static constexpr int WSPLIT = NW / 4;           // column parts of a product
+  static constexpr int MT = kTcPanel / (8 * WSPLIT);  // n8 tiles of a part
+  const bf16 *wqkv, *wp, *w1, *w2;
+  bf16* ring;
+  int C, hidden, kp, nk, ng, kpc, t1, t2, tcn, total;
+  int t = 0;  // the next tile a product consumes
+  float acc[MT][4];
 
-  // The weight tiles in the order the products use them (see the header).
-  const int nk = C / kp;                             // tiles of K = C
-  const int ng = (C + kTcPanel - 1) / kTcPanel;      // panels of C
-  const int kpc = kTcPanel / kp;                     // tiles of K = 128
-  const int t1 = 3 * ng * nk, t2 = ng * nk, tcn = nk + ng * kpc;
-  const int total = t1 + t2 + (hidden / kTcPanel) * tcn;
-  auto issue = [&](int t) {
-    if (t < total) {
+  __device__ __forceinline__ TcRing(const bf16* wqkv_, const bf16* wp_,
+                                    const bf16* w1_, const bf16* w2_,
+                                    bf16* ring_, int C_, int hidden_, int kp_)
+      : wqkv(wqkv_), wp(wp_), w1(w1_), w2(w2_), ring(ring_), C(C_),
+        hidden(hidden_), kp(kp_) {
+    nk = C / kp;                             // tiles of K = C
+    ng = (C + kTcPanel - 1) / kTcPanel;      // panels of C
+    kpc = kTcPanel / kp;                     // tiles of K = 128
+    t1 = 3 * ng * nk;
+    t2 = ng * nk;
+    tcn = nk + ng * kpc;
+    total = t1 + t2 + (hidden / kTcPanel) * tcn;
+  }
+
+  // Copy tile u into its slot (every thread a share, cp.async) and commit
+  // a group, empty past the last tile.
+  __device__ __forceinline__ void issue(int u) const {
+    if (u < total) {
       const bf16* src;
       int ld, width;
-      if (t < t1) {
-        const int gi = t / (3 * nk), part = (t / nk) % 3, kt = t % nk;
+      if (u < t1) {
+        const int gi = u / (3 * nk), part = (u / nk) % 3, kt = u % nk;
         ld = 3 * C;
         width = min(kTcPanel, C - gi * kTcPanel);
         src = wqkv + static_cast<long long>(kt * kp) * ld + part * C +
               gi * kTcPanel;
-      } else if (t < t1 + t2) {
-        const int u = t - t1, pn = u / nk, kt = u % nk;
+      } else if (u < t1 + t2) {
+        const int v = u - t1, pn = v / nk, kt = v % nk;
         ld = C;
         width = min(kTcPanel, C - pn * kTcPanel);
         src = wp + static_cast<long long>(kt * kp) * ld + pn * kTcPanel;
       } else {
-        const int u = t - t1 - t2, j = u / tcn, r = u % tcn;
+        const int v = u - t1 - t2, j = v / tcn, r = v % tcn;
         if (r < nk) {
           ld = hidden;
           width = kTcPanel;
@@ -162,24 +174,30 @@ __device__ __forceinline__ void block_window_tc(
                 pn * kTcPanel;
         }
       }
-      bf16* dst = ring + (t % S) * kp * kTcLdp;
+      bf16* dst = ring + (u % S) * kp * kTcLdp;
       const int vpr = width >> 3;  // 16-byte pieces per row
-      for (int i = tid; i < kp * vpr; i += NT) {
+      for (int i = threadIdx.x; i < kp * vpr; i += NT) {
         const int row = i / vpr, v = i - row * vpr;
         cp_async16(dst + row * kTcLdp + v * 8,
                    src + static_cast<long long>(row) * ld + v * 8, true);
       }
     }
     cp_async_commit();
-  };
+  }
+
+  // The first S - 1 tiles, ahead of the first product.
+  __device__ __forceinline__ void start() const {
+    for (int s = 0; s < S - 1; ++s) issue(s);
+  }
 
   // One product panel: acc = A (64 x K in shared memory, row stride lda)
   // times the next K / kp tiles of the ring, width columns; each tile is
   // waited for, and the tile S - 1 ahead issued into the slot the last one
   // left (every warp is past it: the barrier).
-  int t = 0;
-  float acc[MT][4];
-  auto gemm = [&](const bf16* A, int lda, int K, int width) {
+  __device__ __forceinline__ void gemm(const bf16* A, int lda, int K,
+                                       int width) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int wm = warp / WSPLIT, wn = warp % WSPLIT;  // m16 tile, part
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -208,12 +226,18 @@ __device__ __forceinline__ void block_window_tc(
         }
       }
     }
-  };
+  }
+
   // The panel's outputs: put(row, column in the panel, value, next value,
   // bias, next bias) for this thread's fragment elements, rows 0..63; the
   // panel's f32 bias (null: zeros) is read first, through the read-only
   // path, so that its loads are not ordered after the puts' stores.
-  auto epilogue = [&](int width, const float* bias, auto&& put) {
+  template <typename Put>
+  __device__ __forceinline__ void epilogue(int width, const float* bias,
+                                           Put&& put) const {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int wm = warp / WSPLIT, wn = warp % WSPLIT;
+    const int g4 = lane >> 2, q4 = lane & 3;  // fragment row, column pair
     const int part = width / WSPLIT, ntile = part / 8;
     float2 bv[MT];
 #pragma unroll
@@ -232,30 +256,184 @@ __device__ __forceinline__ void block_window_tc(
             bv[ni].y);
       }
     }
-  };
-  // LayerNorm statistics of rows 0..N-1 of xs (two passes in f32), a warp
-  // per row; ends with a barrier.
-  auto stats = [&]() {
-    for (int r = warp; r < N; r += NW) {
-      const float* row = xs + r * LDX;
-      float s = 0.f;
-      for (int c = lane; c < C; c += 32) s += row[c];
-      const float mu = warp_sum(s) / C;
-      float v = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float d = row[c] - mu;
-        v += d * d;
-      }
-      v = warp_sum(v);
-      if (lane == 0) {
-        mean[r] = mu;
-        rstd[r] = rsqrtf(v / C + 1e-5f);
+  }
+};
+
+// The attention of one head group of a block of NT threads: the heads of
+// columns c0 .. c0 + wg of C (head dim DH), whose q (scaled), k and v
+// panels are in qs, ks, vs (64 x kTcPanel each, row stride kTcLdp); each
+// head's output (p . v) / sum, rounded to bf16, into columns c0.. of ob
+// (row stride ldo), rows 0..63. A warp per (head, m16 tile): scores +
+// (mask + bias) on the real keys, -inf on the pad keys, the softmax in f32
+// over the row (a quad of lanes holds it), the rounded numerators as p.v's
+// A fragments and the unrounded sum.
+template <int DH, int NT>
+__device__ __forceinline__ void tc_attend_group(
+    const __nv_bfloat16* qs, const __nv_bfloat16* ks,
+    const __nv_bfloat16* vs, __nv_bfloat16* ob, int ldo, int c0, int wg,
+    int N, const float* mask_w, const float* rel_bias) {
+  constexpr int NW = NT / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g4 = lane >> 2, q4 = lane & 3;
+  const int hg = wg / DH;  // heads in the group
+  for (int it = warp; it < hg * 4; it += NW) {
+    const int hl = it >> 2, mt = it & 3;
+    const int h = c0 / DH + hl, qc = hl * DH;
+    float sc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH; kk += 16) {
+      uint32_t qa[4];
+      ldsm_x4(qa, qs + (16 * mt + (lane & 15)) * kTcLdp + qc + kk +
+                      (lane >> 4) * 8);
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        uint32_t kb[4];
+        ldsm_x4(kb, ks + (16 * nj + (lane & 7) + ((lane >> 4) << 3)) *
+                             kTcLdp +
+                         qc + kk + ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[2 * nj], qa, kb[0], kb[1]);
+        mma_bf16(sc[2 * nj + 1], qa, kb[2], kb[3]);
       }
     }
+    const float* bh = rel_bias + static_cast<long long>(h) * N * N;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 16 * mt + g4 + (e >> 1) * 8;
+        const int j = ni * 8 + 2 * q4 + (e & 1);
+        float v = sc[ni][e];
+        if (j >= N)
+          v = -INFINITY;
+        else if (i < N)
+          v += (mask_w != nullptr ? __ldg(mask_w + i * N + j) : 0.f) +
+               __ldg(bh + i * N + j);
+        sc[ni][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    float sum[2] = {0.f, 0.f};
+    uint32_t pa[8][2];  // the rounded numerators, packed
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    }
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      const float e0 = expf(sc[ni][0] - mx[0]), e1 = expf(sc[ni][1] - mx[0]);
+      const float e2 = expf(sc[ni][2] - mx[1]), e3 = expf(sc[ni][3] - mx[1]);
+      sum[0] += e0 + e1;
+      sum[1] += e2 + e3;
+      pa[ni][0] = pack_bf16x2(e0, e1);
+      pa[ni][1] = pack_bf16x2(e2, e3);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+    }
+    float o[DH / 8][4];
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+#pragma unroll
+    for (int kj = 0; kj < 4; ++kj) {
+      const uint32_t a[4] = {pa[2 * kj][0], pa[2 * kj][1],
+                             pa[2 * kj + 1][0], pa[2 * kj + 1][1]};
+#pragma unroll
+      for (int dj = 0; dj < DH / 16; ++dj) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(b0, b1, b2, b3,
+                      vs + (16 * kj + (lane & 15)) * kTcLdp + qc + dj * 16 +
+                          (lane >> 4) * 8);
+        mma_bf16(o[2 * dj], a, b0, b1);
+        mma_bf16(o[2 * dj + 1], a, b2, b3);
+      }
+    }
+    const float inv0 = 1.f / sum[0], inv1 = 1.f / sum[1];
+    const int r0 = 16 * mt + g4;
+#pragma unroll
+    for (int dt = 0; dt < DH / 8; ++dt) {
+      const int col = c0 + qc + dt * 8 + 2 * q4;
+      *reinterpret_cast<uint32_t*>(ob + r0 * ldo + col) =
+          pack_bf16x2(o[dt][0] * inv0, o[dt][1] * inv0);
+      *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * ldo + col) =
+          pack_bf16x2(o[dt][2] * inv1, o[dt][3] * inv1);
+    }
+  }
+}
+
+// LayerNorm statistics of rows 0..n-1 of x (row stride ld, C columns; f32
+// or bf16), two passes in f32, a warp per row of a block of NT threads;
+// no barrier.
+template <int NT, typename TX>
+__device__ __forceinline__ void tc_row_stats(const TX* x, int ld, int n,
+                                             int C, float* mean,
+                                             float* rstd) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < n; r += NT / 32) {
+    const TX* row = x + r * ld;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += to_f(row[c]);
+    const float mu = warp_sum(s) / C;
+    float v = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = to_f(row[c]) - mu;
+      v += d * d;
+    }
+    v = warp_sum(v);
+    if (lane == 0) {
+      mean[r] = mu;
+      rstd[r] = rsqrtf(v / C + 1e-5f);
+    }
+  }
+}
+
+// The block of NT threads on one window of N <= 64 tokens, head dim DH
+// (16, 32 or 64), C % 32 == 0, hidden % 128 == 0, weight tiles of kp (32
+// or 64) rows in a ring of S; ob_in_ln (C <= 128 only) as the layout's.
+// Fields of W as block_window's. Token t is read from x[toff[t] ..] and
+// written to out[toff[t] ..]; the caller fills toff (the layout's slot)
+// and passes a barrier first. mask_w (N x N) and pm_w (N) as
+// block_window's.
+template <int DH, int S, int NT, typename W>
+__device__ __forceinline__ void block_window_tc(
+    const W& p, int C, int hidden, float scale, const __nv_bfloat16* x,
+    __nv_bfloat16* out, int N, const float* mask_w, const float* pm_w,
+    int kp, bool ob_in_ln, unsigned char* smem) {
+  using bf16 = __nv_bfloat16;
+  const int tid = threadIdx.x;
+  const TcBlockLayout L = tc_block_layout(N, C, kp, S, ob_in_ln);
+  float* xs = reinterpret_cast<float*>(smem + L.xs);  // residual stream
+  bf16* ln = reinterpret_cast<bf16*>(smem + L.ln);    // LN1, later LN2
+  bf16* ob = reinterpret_cast<bf16*>(smem + L.ob);    // head outputs
+  bf16* qs = reinterpret_cast<bf16*>(smem + L.qkv);   // a head group's q
+  bf16* ks = qs + kTcRows * kTcLdp;
+  bf16* vs = ks + kTcRows * kTcLdp;
+  bf16* hid = qs;                                     // an MLP chunk
+  float* mean = reinterpret_cast<float*>(smem + L.mean);
+  float* rstd = reinterpret_cast<float*>(smem + L.rstd);
+  const long long* toff = reinterpret_cast<const long long*>(smem + L.toff);
+  const int LDX = C + 4, LDA = C + 8;
+  TcRing<S, NT> ring(static_cast<const bf16*>(p.wqkv),
+                     static_cast<const bf16*>(p.wp),
+                     static_cast<const bf16*>(p.w1),
+                     static_cast<const bf16*>(p.w2),
+                     reinterpret_cast<bf16*>(smem + L.ring), C, hidden, kp);
+  const int ng = ring.ng;
+  // LayerNorm statistics of the residual stream's rows, then a barrier.
+  auto stats = [&]() {
+    tc_row_stats<NT>(xs, LDX, N, C, mean, rstd);
     __syncthreads();
   };
 
-  for (int s = 0; s < S - 1; ++s) issue(s);
+  ring.start();
 
   // 1. The window's tokens into the f32 residual stream, 16 bytes a piece.
   const int vpc = C >> 3;
@@ -273,8 +451,9 @@ __device__ __forceinline__ void block_window_tc(
   }
   __syncthreads();
 
-  // 2. LN1 rounded to bf16, pad tokens zeroed, pad rows N..63 zero (the
-  //    f32 vectors through the read-only path, as the epilogues').
+  // 2. LN1 rounded to bf16 (without LN1 the raw input, exact), pad tokens
+  //    zeroed, pad rows N..63 zero (the f32 vectors through the read-only
+  //    path, as the epilogues').
   if (p.n1s != nullptr) stats();
   for (int i = tid; i < kTcRows * (C >> 1); i += NT) {
     const int r = i / (C >> 1), c = (i - r * (C >> 1)) * 2;
@@ -296,11 +475,11 @@ __device__ __forceinline__ void block_window_tc(
   for (int gi = 0; gi < ng; ++gi) {
     const int wg = min(kTcPanel, C - gi * kTcPanel);
     for (int part = 0; part < 3; ++part) {
-      gemm(ln, LDA, C, wg);
+      ring.gemm(ln, LDA, C, wg);
       bf16* dst = part == 0 ? qs : part == 1 ? ks : vs;
       const float* bq = p.bqkv + part * C + gi * kTcPanel;
-      epilogue(wg, bq, [&](int r, int c, float a0, float a1, float b0,
-                           float b1) {
+      ring.epilogue(wg, bq, [&](int r, int c, float a0, float a1, float b0,
+                                float b1) {
         float v0 = round_bf16(a0 + b0), v1 = round_bf16(a1 + b1);
         if (part == 0) {
           v0 *= scale;
@@ -311,108 +490,16 @@ __device__ __forceinline__ void block_window_tc(
       });
     }
     __syncthreads();
-    const int hg = wg / DH;  // heads in the group
-    for (int it = warp; it < hg * 4; it += NW) {
-      const int hl = it >> 2, mt = it & 3;
-      const int h = gi * (kTcPanel / DH) + hl, qc = hl * DH;
-      float sc[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DH; kk += 16) {
-        uint32_t qa[4];
-        ldsm_x4(qa, qs + (16 * mt + (lane & 15)) * kTcLdp + qc + kk +
-                        (lane >> 4) * 8);
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) {
-          uint32_t kb[4];
-          ldsm_x4(kb, ks + (16 * nj + (lane & 7) + ((lane >> 4) << 3)) *
-                               kTcLdp +
-                           qc + kk + ((lane >> 3) & 1) * 8);
-          mma_bf16(sc[2 * nj], qa, kb[0], kb[1]);
-          mma_bf16(sc[2 * nj + 1], qa, kb[2], kb[3]);
-        }
-      }
-      // + (mask + bias) on the real keys, -inf on the pad keys; softmax
-      // in f32 over the row (a quad of lanes holds it).
-      const float* bh = p.rel_bias + static_cast<long long>(h) * N * N;
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 16 * mt + g4 + (e >> 1) * 8;
-          const int j = ni * 8 + 2 * q4 + (e & 1);
-          float v = sc[ni][e];
-          if (j >= N)
-            v = -INFINITY;
-          else if (i < N)
-            v += (mask_w != nullptr ? __ldg(mask_w + i * N + j) : 0.f) +
-                 __ldg(bh + i * N + j);
-          sc[ni][e] = v;
-          mx[e >> 1] = fmaxf(mx[e >> 1], v);
-        }
-      float sum[2] = {0.f, 0.f};
-      uint32_t pa[8][2];  // the rounded numerators, packed
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-      }
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const float e0 = expf(sc[ni][0] - mx[0]), e1 = expf(sc[ni][1] - mx[0]);
-        const float e2 = expf(sc[ni][2] - mx[1]), e3 = expf(sc[ni][3] - mx[1]);
-        sum[0] += e0 + e1;
-        sum[1] += e2 + e3;
-        pa[ni][0] = pack_bf16x2(e0, e1);
-        pa[ni][1] = pack_bf16x2(e2, e3);
-      }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
-        sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
-      }
-      float o[DH / 8][4];
-#pragma unroll
-      for (int i = 0; i < DH / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-#pragma unroll
-      for (int kj = 0; kj < 4; ++kj) {
-        const uint32_t a[4] = {pa[2 * kj][0], pa[2 * kj][1],
-                               pa[2 * kj + 1][0], pa[2 * kj + 1][1]};
-#pragma unroll
-        for (int dj = 0; dj < DH / 16; ++dj) {
-          uint32_t b0, b1, b2, b3;
-          ldsm_x4_trans(b0, b1, b2, b3,
-                        vs + (16 * kj + (lane & 15)) * kTcLdp + qc + dj * 16 +
-                            (lane >> 4) * 8);
-          mma_bf16(o[2 * dj], a, b0, b1);
-          mma_bf16(o[2 * dj + 1], a, b2, b3);
-        }
-      }
-      const float inv0 = 1.f / sum[0], inv1 = 1.f / sum[1];
-      const int r0 = 16 * mt + g4;
-#pragma unroll
-      for (int dt = 0; dt < DH / 8; ++dt) {
-        const int col = gi * kTcPanel + qc + dt * 8 + 2 * q4;
-        *reinterpret_cast<uint32_t*>(ob + r0 * LDA + col) =
-            pack_bf16x2(o[dt][0] * inv0, o[dt][1] * inv0);
-        *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * LDA + col) =
-            pack_bf16x2(o[dt][2] * inv1, o[dt][3] * inv1);
-      }
-    }
+    tc_attend_group<DH, NT>(qs, ks, vs, ob, LDA, gi * kTcPanel, wg, N, mask_w,
+                            p.rel_bias);
   }
 
   // 4. y = x + proj(heads) + bp, in place in the residual stream.
   for (int pn = 0; pn < ng; ++pn) {
     const int width = min(kTcPanel, C - pn * kTcPanel);
-    gemm(ob, LDA, C, width);
-    epilogue(width, p.bp + pn * kTcPanel,
-             [&](int r, int c, float a0, float a1, float b0, float b1) {
+    ring.gemm(ob, LDA, C, width);
+    ring.epilogue(width, p.bp + pn * kTcPanel,
+                  [&](int r, int c, float a0, float a1, float b0, float b1) {
       if (r < N) {
         float2* d =
             reinterpret_cast<float2*>(xs + r * LDX + pn * kTcPanel + c);
@@ -451,17 +538,17 @@ __device__ __forceinline__ void block_window_tc(
   // 6. The MLP by 128-wide hidden chunks: hid = GELU(ln . w1 + b1) rounded
   //    to bf16, then the residual stream accumulates hid . w2.
   for (int j = 0; j < hidden / kTcPanel; ++j) {
-    gemm(ln, LDA, C, kTcPanel);
-    epilogue(kTcPanel, p.b1 + j * kTcPanel,
-             [&](int r, int c, float a0, float a1, float b0, float b1) {
+    ring.gemm(ln, LDA, C, kTcPanel);
+    ring.epilogue(kTcPanel, p.b1 + j * kTcPanel,
+                  [&](int r, int c, float a0, float a1, float b0, float b1) {
       *reinterpret_cast<uint32_t*>(hid + r * kTcLdp + c) =
           pack_bf16x2(gelu(a0 + b0), gelu(a1 + b1));
     });
     for (int pn = 0; pn < ng; ++pn) {
       const int width = min(kTcPanel, C - pn * kTcPanel);
-      gemm(hid, kTcLdp, kTcPanel, width);
-      epilogue(width, nullptr,
-               [&](int r, int c, float a0, float a1, float, float) {
+      ring.gemm(hid, kTcLdp, kTcPanel, width);
+      ring.epilogue(width, nullptr,
+                    [&](int r, int c, float a0, float a1, float, float) {
         if (r < N) {
           float2* d = reinterpret_cast<float2*>(xs + r * LDX +
                                                 pn * kTcPanel + c);

@@ -12,12 +12,20 @@ window-resident path (models/style_transformer.py).
   norm-free last-MLP residual (reference: codes/style_transformer.py:
   1059-1125).
 
-Both are one CUDA source (csrc/style_block.cu). Each wrapper runs its kernel
-for a CUDA tensor and the plain PyTorch version below for a CPU tensor; any
-other device raises. The plain version is the yardstick the kernel is held
-to: it rounds to the input type where the kernel and the JAX kernel round,
-and computes GELU with the exact erf (the JAX kernels use the Abramowitz-
-Stegun erf, |err| <= 1.5e-7).
+Both are one CUDA source (csrc/style_block.cu). K3 at bfloat16 runs the
+tensor-core body (csrc/style_tc.cuh, built from K1's pieces) where
+``style_plan`` below says so -- the style transformer at C = 256 -- and
+every other call (f32, and K4) the scalar body. ``style_plan`` and
+``style_layout`` give the tensor-core body's tiling and shared memory; its
+weights stream in K1's order (ops/window_block.py:tile_schedule, the MLP
+being the stream's own), which tests/test_torch_style_tc_plan.py replays in
+torch on the CPU.
+
+Each wrapper runs its kernel for a CUDA tensor and the plain PyTorch
+version below for a CPU tensor; any other device raises. The plain version
+is the yardstick the kernel is held to: it rounds to the input type where
+the kernel and the JAX kernel round, and computes GELU with the exact erf
+(the JAX kernels use the Abramowitz-Stegun erf, |err| <= 1.5e-7).
 
 ``LAUNCHES`` counts kernel launches per entry; a wrapper adds one only where
 it launches its kernel. Both kernels are for evaluation: under autograd
@@ -35,7 +43,8 @@ import torch.nn.functional as F
 
 from mastermetastyletransfer_tpu_torch.ops import _build
 from mastermetastyletransfer_tpu_torch.ops.window_block import (
-    MAX_SMEM_BYTES, _ln, _mat, _need, _on_cuda, _vec, attend, refuse_grad,
+    MAX_SMEM_BYTES, TC_PANEL, TC_ROWS, BlockPlan, TcPlan, _align16, _ln,
+    _mat, _need, _on_cuda, _vec, attend, refuse_grad,
 )
 from mastermetastyletransfer_tpu_torch.ops.windows import (
     relative_position_bias,
@@ -116,6 +125,61 @@ def decoder_tail_weights(dual: dict, last_mlp: dict, window: Tuple[int, int],
         rel_bias=relative_position_bias(
             dual["rel_bias_table"].float(), *window).contiguous(),
         w1=w1, b1=b1, w2=w2, b2=b2)
+
+
+# ---------------------------------------------------------------------------
+# K3's tensor-core plan (csrc/style_tc.cuh)
+# ---------------------------------------------------------------------------
+
+# K3's forms, in order of preference: one block of 16 warps an SM with a
+# ring of 3 tiles of 64 weight rows (C % 64 == 0), else of 32.
+STYLE_FORMS = ((1, 64, 3), (1, 32, 3))
+
+
+def style_layout(n: int, c: int, kp: int, stages: int) -> dict:
+    """Byte offsets and total of K3's tensor-core shared memory
+    (csrc/style_tc.cuh:tc_style_layout): Key's normed view, the head
+    outputs and the stream's normed view (64 x C bf16 each, rows padded by
+    16 bytes), a head group's q, k and v, the ring, and the row statistics
+    of both views. The f32 output sum (n x (C + 4) floats) takes the first
+    two tiles' place once proj has read the head outputs."""
+    tile = 2 * TC_ROWS * (c + 8)
+    assert 4 * n * (c + 4) <= 2 * tile      # the f32 sum fits kt + ob
+    sizes = (("kt", tile), ("ob", tile), ("vt", tile),
+             ("qkv", 2 * 3 * TC_ROWS * (TC_PANEL + 8)),
+             ("ring", 2 * stages * kp * (TC_PANEL + 8)),
+             ("mean", 4 * 2 * TC_ROWS), ("rstd", 4 * 2 * TC_ROWS))
+    out, o = {}, 0
+    for name, size in sizes:
+        out[name] = o
+        o = _align16(o + size)
+    out["xs"] = out["kt"]
+    out["total"] = o
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def style_plan(n: int, c: int, heads: int, hidden: int,
+               dtype: torch.dtype) -> BlockPlan:
+    """The body one K3 call runs: the tensor-core body at bfloat16 where
+    N <= 64, C % 32 == 0, the head dim is 16, 32 or 64 and the MLP width a
+    multiple of 128 (the style transformer at C = 256), in the first of
+    STYLE_FORMS that C allows and that fits a block's shared memory; the
+    scalar body for every other call."""
+    dh = c // heads if heads else 0
+    if (dtype == torch.bfloat16 and 1 <= n <= TC_ROWS and c % 32 == 0
+            and dh * heads == c and dh in (16, 32, 64)
+            and hidden >= TC_PANEL and hidden % TC_PANEL == 0):
+        groups = tuple((c0, min(TC_PANEL, c - c0))
+                       for c0 in range(0, c, TC_PANEL))
+        for per_sm, kp, stages in STYLE_FORMS:
+            if c % kp:
+                continue
+            smem = style_layout(n, c, kp, stages)["total"]
+            if smem <= MAX_SMEM_BYTES:
+                return BlockPlan("tc", TC_ROWS, TC_PANEL, kp, stages,
+                                 per_sm, smem, groups)
+    return BlockPlan("scalar", 0, 0, 0, 0, 0, 0, ())
 
 
 # ---------------------------------------------------------------------------
@@ -204,15 +268,16 @@ _DEC_PTRS = ("q", "k", "v_scale", "v_shift", "query", "out", "wv", "bv",
              "b2")
 
 
-def _struct(name: str, ptrs) -> type:
+def _struct(name: str, ptrs, plan: bool) -> type:
     return type(name, (ctypes.Structure,), {"_fields_": (
         [(f, ctypes.c_void_p) for f in ptrs] + [("scale", ctypes.c_double)]
-        + [(f, ctypes.c_longlong) for f in _INTS])})
+        + [(f, ctypes.c_longlong) for f in _INTS]
+        + ([("plan", TcPlan)] if plan else []))})
 
 
 # The C structs of csrc/style_block.cu, field for field.
-EncoderArgs = _struct("EncoderArgs", _ENC_PTRS)
-DecoderTailArgs = _struct("DecoderTailArgs", _DEC_PTRS)
+EncoderArgs = _struct("EncoderArgs", _ENC_PTRS, plan=True)
+DecoderTailArgs = _struct("DecoderTailArgs", _DEC_PTRS, plan=False)
 
 
 @functools.lru_cache(maxsize=None)
@@ -225,13 +290,35 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.mmst_style_block_smem_bytes.argtypes = [ctypes.c_longlong] * 4
     lib.mmst_style_block_smem_bytes.restype = ctypes.c_longlong
+    lib.mmst_encoder_scale_shift_attributes.argtypes = (
+        [ctypes.c_longlong] * 3 + [ctypes.POINTER(ctypes.c_longlong)] * 3)
+    lib.mmst_encoder_scale_shift_attributes.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(n: int, c: int, heads: int, dtype: torch.dtype) -> int:
-    """Shared memory one block of either kernel takes."""
+def smem_bytes(n: int, c: int, heads: int, dtype: torch.dtype,
+               plan: Optional[BlockPlan] = None) -> int:
+    """Shared memory one block of the call's body takes: K3's tensor-core
+    body where ``plan`` says so, else the scalar body of either kernel."""
+    if plan is not None and plan.body == "tc":
+        return plan.smem_bytes
     return _lib().mmst_style_block_smem_bytes(
         n, c, heads, torch.finfo(dtype).bits // 8)
+
+
+def kernel_attributes(plan: BlockPlan, dtype: torch.dtype, dh: int
+                      ) -> Tuple[int, int, int]:
+    """(static shared memory bytes per block, dynamic shared memory opted
+    in so far on this device, registers per thread) of K3's kernel that
+    ``plan`` runs: the tensor-core kernel of head dim dh, or the scalar
+    kernel at ``dtype``."""
+    vals = [ctypes.c_longlong() for _ in range(3)]
+    err = _lib().mmst_encoder_scale_shift_attributes(
+        int(plan.body == "tc"), int(dtype == torch.bfloat16), dh,
+        *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes: CUDA error {err}")
+    return tuple(v.value for v in vals)
 
 
 def _weight_shapes(c: int, hidden: int, heads: int, n: int) -> dict:
@@ -249,7 +336,8 @@ def _launch(entry: str, struct: type, windows: dict, w: NamedTuple, *,
             padmask: Optional[torch.Tensor]) -> None:
     """Check what the kernel takes and launch it. ``windows`` maps the
     struct's window-tensor fields, inputs and outputs, all (B, nW, N, C), to
-    tensors; the first is the reference for shape, type and device."""
+    tensors; the first is the reference for shape, type and device. A
+    struct with a plan field (K3's) gets ``style_plan``'s."""
     refuse_grad(entry, *windows.values(), *w, mask, padmask)
     x = next(iter(windows.values()))
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -272,7 +360,9 @@ def _launch(entry: str, struct: type, windows: dict, w: NamedTuple, *,
         _need("mask", mask, (nw, n, n), f32, dev)
     if padmask is not None:
         _need("padmask", padmask, (nw, n), f32, dev)
-    smem = smem_bytes(n, c, heads, x.dtype)
+    planned = "plan" in dict(struct._fields_)
+    plan = style_plan(n, c, heads, hidden, x.dtype) if planned else None
+    smem = smem_bytes(n, c, heads, x.dtype, plan)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"N={n}, C={c} needs {smem} bytes of shared memory "
                          f"per block, over the {MAX_SMEM_BYTES} available")
@@ -284,7 +374,8 @@ def _launch(entry: str, struct: type, windows: dict, w: NamedTuple, *,
            for f in ptrs},
         scale=(c // heads) ** -0.5,
         dtype=1 if x.dtype == torch.bfloat16 else 0,
-        B=b, nW=nw, N=n, C=c, heads=heads, hidden=hidden)
+        B=b, nW=nw, N=n, C=c, heads=heads, hidden=hidden,
+        **({"plan": TcPlan.of(plan)} if planned else {}))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(_lib(), f"mmst_{entry}")(ctypes.byref(args), stream)
     if err != 0:

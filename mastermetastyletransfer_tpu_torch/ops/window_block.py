@@ -9,12 +9,13 @@ Two entries over one CUDA computation (csrc/window_block.cu):
   output comes back in the plain (un-rolled) frame;
 * ``window_block_windows``: x is partitioned, (B, nW, N, C).
 
-Two bodies compute the block: K1 at bfloat16 runs the tensor-core body
-(csrc/window_tc.cuh) where ``block_plan`` below says so -- the Swin stages
-of swin_T/S/B -- and every other call the scalar body (K2, f32, and K11
-in ops/block_pair.py). ``block_plan`` and ``tile_schedule`` give the
-tensor-core body's tiling, which tests/test_torch_window_tc_plan.py replays
-in torch on the CPU.
+Two bodies compute the block: both entries at bfloat16 run the tensor-core
+body (csrc/window_tc.cuh) where ``block_plan`` below says so -- K1 at the
+Swin stages of swin_T/S/B, K2 at the style transformer's Key block (no
+norms) and self block (both) -- and every other call the scalar body (f32,
+and K11 in ops/block_pair.py). ``block_plan`` and ``tile_schedule`` give
+the tensor-core body's tiling, which tests/test_torch_window_tc_plan.py
+replays in torch on the CPU.
 
 Each wrapper runs its kernel for a CUDA tensor and the plain PyTorch
 version below for a CPU tensor; any other device raises. The plain version
@@ -220,15 +221,17 @@ def tc_layout(n: int, c: int, kp: int, stages: int, ob_in_ln: bool) -> dict:
 @functools.lru_cache(maxsize=None)
 def block_plan(entry: str, n: int, c: int, heads: int, hidden: int,
                dtype: torch.dtype) -> BlockPlan:
-    """The body one call runs: the tensor-core body for the rows entry at
+    """The body one call runs: the tensor-core body for either entry at
     bfloat16 where N <= 64, C % 32 == 0, the head dim is 16, 32 or 64 and
-    the MLP width a multiple of 128 (the Swin stages of swin_T/S/B), in the
+    the MLP width a multiple of 128 (the Swin stages of swin_T/S/B, the
+    style transformer's blocks at C = 256), in the
     first of TC_FORMS that C allows and whose shared memory fits that many
     blocks an SM (two where C <= 128: one head group, so that the head
     outputs may take the normed tile's place); the scalar body for every
     other call."""
     dh = c // heads if heads else 0
-    if (entry == "window_block_rows" and dtype == torch.bfloat16
+    if (entry in ("window_block_rows", "window_block_windows")
+            and dtype == torch.bfloat16
             and 1 <= n <= TC_ROWS and c % 32 == 0 and dh * heads == c
             and dh in (16, 32, 64) and hidden >= TC_PANEL
             and hidden % TC_PANEL == 0):
@@ -364,8 +367,8 @@ _INTS = ("dtype", "B", "Hp", "Wp", "C", "heads", "hidden", "wh", "ww", "sh",
 
 
 class TcPlan(ctypes.Structure):
-    """The C struct ``TcPlan`` of csrc/window_block.cu: a BlockPlan as the
-    kernel reads it."""
+    """The C struct ``TcPlan`` of csrc/window_tc.cuh: a BlockPlan as the
+    kernels read it (K1, K2 and K3's tensor-core bodies)."""
     _fields_ = [(f, ctypes.c_longlong) for f in ("body", "rows", "panel",
                                                  "kp", "stages",
                                                  "smem_bytes")]
@@ -396,7 +399,7 @@ def _lib() -> ctypes.CDLL:
     lib.mmst_window_block_smem_bytes.argtypes = [ctypes.c_longlong] * 4
     lib.mmst_window_block_smem_bytes.restype = ctypes.c_longlong
     lib.mmst_window_block_attributes.argtypes = (
-        [ctypes.c_longlong] * 3 + [ctypes.POINTER(ctypes.c_longlong)] * 3)
+        [ctypes.c_longlong] * 4 + [ctypes.POINTER(ctypes.c_longlong)] * 3)
     lib.mmst_window_block_attributes.restype = ctypes.c_int
     return lib
 
@@ -410,16 +413,17 @@ def smem_bytes(plan: BlockPlan, n: int, c: int, heads: int,
         n, c, heads, torch.finfo(dtype).bits // 8)
 
 
-def kernel_attributes(plan: BlockPlan, dtype: torch.dtype, dh: int
+def kernel_attributes(plan: BlockPlan, dtype: torch.dtype, dh: int,
+                      entry: str = "window_block_rows"
                       ) -> Tuple[int, int, int]:
     """(static shared memory bytes per block, dynamic shared memory opted
-    in so far on this device, registers per thread) of the rows entry's
-    kernel that ``plan`` runs: the tensor-core kernel of head dim dh in the
-    plan's form, or the scalar kernel at ``dtype``."""
+    in so far on this device, registers per thread) of the kernel that
+    ``plan`` runs: the tensor-core kernel of head dim dh in the plan's form
+    (one for both entries), or the entry's scalar kernel at ``dtype``."""
     vals = [ctypes.c_longlong() for _ in range(3)]
     err = _lib().mmst_window_block_attributes(
         TcPlan.of(plan).body, int(dtype == torch.bfloat16), dh,
-        *(ctypes.byref(v) for v in vals))
+        int(entry == "window_block_rows"), *(ctypes.byref(v) for v in vals))
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes: CUDA error {err}")
     return tuple(v.value for v in vals)
@@ -548,8 +552,9 @@ def window_block_windows(x: torch.Tensor, w: BlockWeights, *, heads: int,
         return window_block_windows_plain(x, w, heads=heads, mask=mask,
                                           padmask=padmask)
     b, nw, n, _ = x.shape
-    # The kernel reads windows as 1 x N strips; the geometry fields only
-    # matter to the rows entry.
+    # The kernel reads the windows as an (nW, N) image of 1 x N windows,
+    # unshifted: the rows entry's token arithmetic then gives window w's
+    # token t at ((b nW + w) N + t) C.
     return _launch("window_block_windows", x, w, heads=heads, n=n, nw=nw,
-                   geometry=dict(B=b, Hp=1, Wp=n, wh=1, ww=n, sh=0, sw=0),
+                   geometry=dict(B=b, Hp=nw, Wp=n, wh=1, ww=n, sh=0, sw=0),
                    mask=mask, padmask=padmask)

@@ -40,6 +40,7 @@ from mastermetastyletransfer_tpu_torch.ops import patch_embed as tpe
 from mastermetastyletransfer_tpu_torch.ops import window_block as wb
 from mastermetastyletransfer_tpu_torch.ops import windows as twin
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import params_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ from mastermetastyletransfer_tpu_torch.models import decoder as tdec
 from mastermetastyletransfer_tpu_torch.models import style_transformer as tst
 from mastermetastyletransfer_tpu_torch.models import swin as tswin
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import params_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 MODEL_CONFIGS = ("AttentionConfig", "SwinConfig", "StyleTransformerConfig",

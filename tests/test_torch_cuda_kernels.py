@@ -291,6 +291,126 @@ def test_decoder_tail_matches_plain(cuda, dtype):
     _check(got, sb.decoder_tail_plain(*xs, w, **kw), xs[4])
 
 
+# K2 and K3 on the tensor-core bodies at the style transformer's width (C =
+# 256) at head dims 16, 32 and 64, and K2 at C = 128 (two blocks an SM).
+TC_STYLE_WIDTHS = [(256, 16), (256, 8), (256, 4)]
+
+
+def _tc_windows(cuda, g, c, masks):
+    """(2, 4, 49, c) bf16 windows of a 9x9 grid padded to 14x14, shift
+    (4, 4), the pad tokens holding garbage; with ``masks`` the shift mask
+    and the pad mask, else neither."""
+    x = torch.randn((2, 4, 49, c), generator=g)
+    kw = dict(mask=None, padmask=None)
+    if masks:
+        pm = torch.from_numpy(twin.valid_token_mask(9, 9, 14, 14, 7, 7, 4, 4))
+        x = torch.where(pm[None, :, :, None] == 0, 5.0, x)
+        kw = dict(mask=torch.from_numpy(twin.shift_attention_mask(
+            14, 14, 7, 7, 4, 4)).to(cuda), padmask=pm.to(cuda))
+    return x, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masks", [True, False])
+@pytest.mark.parametrize("norms", [False, True])
+@pytest.mark.parametrize("c,heads", TC_STYLE_WIDTHS + [(128, 4)])
+def test_k2_tensor_core_body_matches_plain(cuda, c, heads, norms, masks):
+    """K2 at bf16 runs the tensor-core body (block_plan): the encoder Key
+    block's form (no LN1, no LN2) and the decoder self block's (both), at
+    head dims 16, 32 and 64, with and without the shift and pad masks,
+    against the plain version; its kernel reports the plan's shared
+    memory."""
+    g = torch.Generator().manual_seed(c + heads + 2 * norms + masks)
+    acfg = AttentionConfig(dim=c, num_heads=heads, window_size=(7, 7),
+                           shift_size=(4, 4))
+    params = init_style_swin_block(g, acfg, use_norm=True, exclude_mlp=False,
+                                   mlp_ratio=4.0)
+    for name in ("norm1", "norm2"):
+        params[name] = {"scale": 1 + 0.3 * torch.randn(c, generator=g),
+                        "bias": 0.3 * torch.randn(c, generator=g)}
+    params = tree_map(lambda t: t.to(cuda), params)
+    w = wb.block_weights(params, (7, 7), torch.bfloat16, norms)
+    x, kw = _tc_windows(cuda, g, c, masks)
+    x = x.to(cuda, torch.bfloat16)
+    plan = wb.block_plan("window_block_windows", 49, c, heads, 4 * c,
+                         torch.bfloat16)
+    assert plan.body == "tc"
+    before = wb.LAUNCHES["window_block_windows"]
+    got = wb.window_block_windows(x, w, heads=heads, **kw)
+    assert wb.LAUNCHES["window_block_windows"] == before + 1
+    _check(got, wb.window_block_windows_plain(x, w, heads=heads, **kw), x)
+    smem, dyn, regs = wb.kernel_attributes(plan, torch.bfloat16, c // heads)
+    assert smem == 0 and dyn >= plan.smem_bytes > 0 and regs > 0
+
+
+def _k3_case(cuda, c, heads, use_ln1, masks):
+    """K3's bf16 weights (a non-trivial LN1 where use_ln1), its Key, Scale
+    and Shift windows as _tc_windows makes them, and its keywords."""
+    from mastermetastyletransfer_tpu_torch.ops.attention import (
+        init_window_attention,
+    )
+    from mastermetastyletransfer_tpu_torch.ops.mlp import init_mlp
+
+    g = torch.Generator().manual_seed(3 * c + heads + 2 * use_ln1 + masks)
+    acfg = AttentionConfig(dim=c, num_heads=heads, window_size=(7, 7),
+                           shift_size=(4, 4))
+    params = {"attn": init_window_attention(g, acfg),
+              "norm1": {"scale": 1 + 0.3 * torch.randn(c, generator=g),
+                        "bias": 0.3 * torch.randn(c, generator=g)},
+              **{m: init_mlp(g, c, 4 * c, init="xavier_uniform")
+                 for m in ("mlp_scale", "mlp_shift")}}
+    params = tree_map(lambda t: t.to(cuda), params)
+    w = sb.encoder_weights(params["attn"], params["mlp_scale"],
+                           params["mlp_shift"],
+                           params["norm1"] if use_ln1 else None, (7, 7),
+                           torch.bfloat16)
+    key, scale, shift = [
+        _tc_windows(cuda, g, c, masks)[0].to(cuda, torch.bfloat16)
+        for _ in range(3)]
+    kw = dict(heads=heads, **_tc_windows(cuda, g, c, masks)[1])
+    return w, [key, scale, shift], kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masks", [True, False])
+@pytest.mark.parametrize("use_ln1", [False, True])
+@pytest.mark.parametrize("c,heads", TC_STYLE_WIDTHS)
+def test_k3_tensor_core_body_matches_plain(cuda, c, heads, use_ln1, masks):
+    """K3 at bf16 runs its tensor-core body (style_plan) at head dims 16,
+    32 and 64, with LN1 and without, with and without the shift and pad
+    masks, against the plain version; its kernel reports the plan's shared
+    memory."""
+    w, (key, scale, shift), kw = _k3_case(cuda, c, heads, use_ln1, masks)
+    plan = sb.style_plan(49, c, heads, 4 * c, torch.bfloat16)
+    assert plan.body == "tc"
+    before = sb.LAUNCHES["encoder_scale_shift"]
+    got_s, got_h = sb.encoder_scale_shift(key, scale, shift, w, **kw)
+    assert sb.LAUNCHES["encoder_scale_shift"] == before + 1
+    ref_s, ref_h = sb.encoder_scale_shift_plain(key, scale, shift, w, **kw)
+    _check(got_s, ref_s, scale)
+    _check(got_h, ref_h, shift)
+    smem, dyn, regs = sb.kernel_attributes(plan, torch.bfloat16, c // heads)
+    assert smem == 0 and dyn >= plan.smem_bytes > 0 and regs > 0
+
+
+@pytest.mark.cuda
+def test_f32_k2_and_k3_keep_the_scalar_bodies(cuda):
+    """At f32 K2 and K3 plan the scalar body, and their kernels launch and
+    report no dynamic shared memory beyond the scalar layout's."""
+    for entry in ("window_block_windows", "window_block_rows"):
+        assert wb.block_plan(entry, 49, 256, 8, 1024,
+                             torch.float32).body == "scalar"
+    plan = sb.style_plan(49, 256, 8, 1024, torch.float32)
+    assert plan.body == "scalar"
+    params, (key, scale, shift), kw = _style_case(cuda, torch.float32, 3)
+    w = sb.encoder_weights(params["attn"], params["mlp_scale"],
+                           params["mlp_shift"], None, (7, 7), torch.float32)
+    sb.encoder_scale_shift(key, scale, shift, w, **kw)
+    torch.cuda.synchronize()
+    smem, dyn, regs = sb.kernel_attributes(plan, torch.float32, 32)
+    assert dyn >= sb.smem_bytes(49, 256, 8, torch.float32) and regs > 0
+
+
 @pytest.mark.cuda
 def test_style_wrappers_reject_what_the_kernels_do_not_take(cuda):
     params, xs, kw = _style_case(cuda, torch.float32, 5)
@@ -505,10 +625,11 @@ def test_k6_runs_the_tensor_core_body(cuda, dtype):
 def test_two_host_threads_launch_bit_equal(cuda):
     """F5: the shared-memory opt-in is per (kernel, device) and only
     rises, so two host threads launching one instantiation at two sizes --
-    K1 at C = 128 and 256, K5 at conv1's and conv2's tables -- each 200
-    times, alternately and in opposite orders, never see a launch refused,
-    and every output equals, bit for bit, the same call on one thread
-    (these kernels sum in a fixed order)."""
+    K1 and K2 (one kernel) at C = 128 and 256, K3 at 128 and 256, K5 at
+    conv1's and conv2's tables -- each 200 times, alternately and in
+    opposite orders, never see a launch refused, and every output equals,
+    bit for bit, the same call on one thread (these kernels sum in a fixed
+    order)."""
     import threading
 
     from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
@@ -520,9 +641,21 @@ def test_two_host_threads_launch_bit_equal(cuda):
                             padmask=padmask: wb.window_block_rows(
                                 x, w, heads=heads, window=(7, 7),
                                 shift=(3, 3), mask=mask, padmask=padmask))
+        # K2 on the same kernel as K1, at the other entry
+        xw = twin.window_partition(torch.roll(x, (-3, -3), (1, 2)), 7, 7)
+        xw = xw.reshape(2, 9, 49, c).contiguous()
+        calls[f"k2_{c}"] = (lambda w=w, xw=xw, heads=heads, mask=mask,
+                            padmask=padmask: wb.window_block_windows(
+                                xw, w, heads=heads, mask=mask,
+                                padmask=padmask))
     for kind in ("up", "phase"):
         args = _phase_case(cuda, torch.bfloat16, kind)
         calls[f"k5_{kind}"] = lambda args=args: pc.stencil_phase_conv(*args)
+    # K3 at two widths: its tensor-core kernel at two shared-memory sizes
+    for c, heads in ((256, 8), (128, 4)):
+        w, xs, kw = _k3_case(cuda, c, heads, False, True)
+        calls[f"k3_{c}"] = (lambda xs=xs, w=w, kw=kw: torch.stack(
+            sb.encoder_scale_shift(*xs, w, **kw)))
     want = {name: fn() for name, fn in calls.items()}
     torch.cuda.synchronize()
     names = list(calls)
@@ -530,7 +663,8 @@ def test_two_host_threads_launch_bit_equal(cuda):
 
     def work(tag, order):
         try:
-            outs = [(order[i % 4], calls[order[i % 4]]()) for i in range(200)]
+            outs = [(order[i % len(order)], calls[order[i % len(order)]]())
+                    for i in range(200)]
             torch.cuda.synchronize()
             results[tag] = outs
         except Exception as e:  # reported below, in the test's thread

@@ -33,6 +33,7 @@ from mastermetastyletransfer_tpu_torch.serve import StylizeService
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import (
     flatten_params, load_params_npz, params_from_jax, tree_map,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 

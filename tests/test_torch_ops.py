@@ -21,6 +21,7 @@ from mastermetastyletransfer_tpu_torch.ops import mlp as tmlp
 from mastermetastyletransfer_tpu_torch.ops import norm as tnorm
 from mastermetastyletransfer_tpu_torch.ops import windows as twin
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import params_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

@@ -37,6 +37,7 @@ from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import (
     params_from_jax, tree_map,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 

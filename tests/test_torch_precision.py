@@ -39,6 +39,7 @@ from mastermetastyletransfer_tpu_torch.models import master as tmaster
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import params_from_jax
 
 import chip_smoke
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TF32_FLAGS = (torch.backends.cuda.matmul, torch.backends.cudnn)
 

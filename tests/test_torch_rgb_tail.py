@@ -32,6 +32,7 @@ from mastermetastyletransfer_tpu_torch.models import master as tmaster
 from mastermetastyletransfer_tpu_torch.ops import conv as tconv
 from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import params_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 

@@ -3,7 +3,7 @@ tile_plan_struct; csrc/stencil_tc.cuh) replayed in torch on the CPU.
 
 The replay runs the kernel's algorithm from the plan and from the plan's C
 struct exactly as the kernel reads them: blocks by channel slice, tile and
-image; for each used chunk and each stage_k-deep slice of it, the tile's
+image (a slice's tiles side by side); for each used chunk and each stage_k-deep slice of it, the tile's
 halo window (zero past the input's edge) and the weight rows of each slot
 (for K12 rgb, the raw rows of the chunk's taps); group by group, each of
 its taps' A rows (the halo shifted by the group's read offset plus the
@@ -23,6 +23,7 @@ import torch
 
 from mastermetastyletransfer_tpu_torch.ops import conv as tconv
 from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 
@@ -48,16 +49,23 @@ def _replay(pp, pk, bias, table, kind, relu, plan_dtype, colmaps=None):
     pad = int(colmaps is not None)
     out = torch.full((b, h, w + 2 * pad, groups * cg), float("nan"),
                      dtype=pp.dtype)
+    # The blocks by channel slice, decoded from the block index as the
+    # kernel decodes it; a slice's tiles run side by side, each tile's
+    # arithmetic its block's.
+    slices = {}
     for blk in range(plan.blocks):
         n0 = (blk % nsplit) * bn
         t = blk // nsplit
         j0 = (t % tiles_x) * tw
         t //= tiles_x
         i0, bi = (t % tiles_y) * th, t // tiles_y
-        halo = torch.zeros((th + 2, tw + 2, cin))
-        src = ppf[bi, i0:i0 + th + 2, j0:j0 + tw + 2]
-        halo[:src.shape[0], :src.shape[1]] = src
-        acc = torch.zeros((groups, th, tw, bn))
+        slices.setdefault(n0, []).append((bi, i0, j0))
+    for n0, origins in slices.items():
+        halo = torch.zeros((len(origins), th + 2, tw + 2, cin))
+        for k, (bi, i0, j0) in enumerate(origins):
+            src = ppf[bi, i0:i0 + th + 2, j0:j0 + tw + 2]
+            halo[k, :src.shape[0], :src.shape[1]] = src
+        acc = torch.zeros((groups, len(origins), th, tw, bn))
         lanes = min(bn, cg - n0)
         for u in range(st.nused):
             c = st.used[u]
@@ -94,25 +102,27 @@ def _replay(pp, pk, bias, table, kind, relu, plan_dtype, colmaps=None):
                         else:
                             rows = slots[slotof[g, tap]]
                         sy, sx = oy + tap // 2, ox + tap % 2
-                        a = halo[sy:sy + th, sx:sx + tw, ks]
+                        a = halo[:, sy:sy + th, sx:sx + tw, ks]
                         acc[g] += a @ rows
-        hv, wv = min(th, h - i0), min(tw, w - j0)
-        for g in range(groups):
-            cols = slice(g * cg + n0, g * cg + n0 + lanes)
-            y = acc[g, :hv, :wv, :lanes] + bias[cols].float()
-            if relu:
-                y = torch.relu(y)
-            y = y.to(pp.dtype)
-            out[bi, i0:i0 + hv, j0 + pad:j0 + pad + wv, cols] = y
-            if not pad:
-                continue
-            # the writer of a source column writes the pad slots it feeds
-            for col, maps in ((0, colmaps[0]), (w + 1, colmaps[1])):
-                for slot, (src, ph) in enumerate(maps):
-                    if ph == g % 4 and j0 <= src < j0 + wv:
-                        dst = (4 * (g // 4) + slot) * cg + n0
-                        out[bi, i0:i0 + hv, col, dst:dst + lanes] = \
-                            y[:, src - j0]
+        for k, (bi, i0, j0) in enumerate(origins):
+            hv, wv = min(th, h - i0), min(tw, w - j0)
+            for g in range(groups):
+                cols = slice(g * cg + n0, g * cg + n0 + lanes)
+                y = acc[g, k, :hv, :wv, :lanes] + bias[cols].float()
+                if relu:
+                    y = torch.relu(y)
+                y = y.to(pp.dtype)
+                out[bi, i0:i0 + hv, j0 + pad:j0 + pad + wv, cols] = y
+                if not pad:
+                    continue
+                # the writer of a source column writes the pad slots it
+                # feeds
+                for col, maps in ((0, colmaps[0]), (w + 1, colmaps[1])):
+                    for slot, (src, ph) in enumerate(maps):
+                        if ph == g % 4 and j0 <= src < j0 + wv:
+                            dst = (4 * (g // 4) + slot) * cg + n0
+                            out[bi, i0:i0 + hv, col, dst:dst + lanes] = \
+                                y[:, src - j0]
     assert not out.isnan().any()    # every output written
     return pc._interleave(out) if kind == "rgb" else out
 

@@ -35,6 +35,7 @@ from mastermetastyletransfer_tpu_torch.models import style_transformer as tst
 from mastermetastyletransfer_tpu_torch.ops import style_block as sb
 from mastermetastyletransfer_tpu_torch.ops import window_block as wb
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import params_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 C, HEADS = 256, 8

@@ -46,6 +46,7 @@ from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import (
     flatten_params, params_from_jax,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL_FWD, TOL_GRAD = 1e-5, 1e-4
 C, HEADS, B, NW, N = 128, 4, 2, 4, 49
