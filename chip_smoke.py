@@ -32,10 +32,10 @@ swin_S-width block (C=192, 6 heads), the decoder's stencil and align
 kernels at the convs of one request batch (K5 at conv1-4 and conv6, K6 with
 pad columns at conv7 and without them at the same shape, K7 at conv5; with
 the time of one cuDNN conv of the same composed kernel and padded input as
-the library yardstick, a conv without the align; for K1, K2, K3, K5, K6
-and K12 the body that ran -- the tensor-core block body and its form at
-bf16 (K1, and K2 in both of the style transformer's forms), K3's
-tensor-core body at bf16, the tensor-core stencil body's plan and
+the library yardstick, a conv without the align; for K1-K6, K11 and K12
+the body that ran -- the tensor-core block body and its form at bf16 (K1,
+K2 in both of the style transformer's forms, K11 per ticket), K3's and
+K4's tensor-core bodies at bf16, the tensor-core stencil body's plan and
 compiled table (K6 and K12 at f32 too, its FMA form), the scalar bodies
 otherwise -- with its registers and static and dynamic shared memory);
 stencil_shapes (K5 at the training step's five
@@ -438,9 +438,9 @@ def swin_block_cases(gen, rows, *, b, c, heads, hp, valid, shift, label,
 
 def body_attributes(plan, tc_name: str, scalar_name: str, launch,
                     attributes) -> dict:
-    """The body a K2 or K3 call runs (its plan's) and its registers, static
-    and dynamic shared memory, read after one launch of the call, so that
-    the dynamic size is at least the call's own."""
+    """The body a K2, K3, K4 or K11 call runs (its plan's) and its
+    registers, static and dynamic shared memory, read after one launch of
+    the call, so that the dynamic size is at least the call's own."""
     launch()
     torch.cuda.synchronize()
     smem, dyn, regs = attributes()
@@ -509,12 +509,18 @@ def style_cases(gen, rows):
                      lambda: sb.kernel_attributes(plan, dtype, c // heads)))
         w = sb.decoder_tail_weights(params["dual"], params["last_mlp"],
                                     (7, 7), dtype)
+        plan = sb.tail_plan(n, c, heads, 4 * c, dtype)
         run_case(rows, "decoder_tail", "st_decoder", dtype,
                  lambda: [sb.decoder_tail(*xs, w, **kw)],
                  lambda: [sb.decoder_tail_plain(*xs, w, **kw)],
                  [xs[4]], style_cost("decoder_tail", b, nw, n, c, heads,
                                      dtype, True, True),
-                 sb.smem_bytes(n, c, heads, dtype))
+                 sb.smem_bytes(n, c, heads, dtype, plan),
+                 **body_attributes(
+                     plan, f"tail_tc{c // heads}", "decoder_tail",
+                     lambda: sb.decoder_tail(*xs, w, **kw),
+                     lambda: sb.kernel_attributes(plan, dtype, c // heads,
+                                                  "decoder_tail")))
 
 
 def stencil_cost(pp: torch.Tensor, table: pc.GroupTable, c_out: int,
@@ -1106,13 +1112,22 @@ def pair_cases(gen, rows):
                                 True)
             f1, b1 = block_cost(b, nw, 49, c, heads, 4 * c, dtype, True,
                                 True)
+            plan = bpr.pair_plan(49, c, heads, 4 * c, dtype)
             run_case(rows, "window_block_pair_rows", label, dtype,
                      lambda: [bpr.window_block_pair_rows(x, w0, w1, **kw)],
                      lambda: [bpr.window_block_pair_rows_plain(x, w0, w1,
                                                                **kw)],
                      [x], (f0 + f1, b0 + b1 - 2 * b * nw * 49 * c
                            * item_bytes(dtype)),
-                     bpr.smem_bytes(49, c, heads, dtype), shift=[sh, sw])
+                     bpr.smem_bytes(plan, 49, c, heads, dtype),
+                     shift=[sh, sw],
+                     **body_attributes(
+                         plan,
+                         f"window_tc{c // heads}_x{plan.blocks_per_sm}",
+                         "block_window",
+                         lambda: bpr.window_block_pair_rows(x, w0, w1, **kw),
+                         lambda: bpr.kernel_attributes(plan, dtype,
+                                                       c // heads)))
 
 
 def rgb_cases(gen, rows):

@@ -35,11 +35,15 @@
 // shared memory (device memory sees each input once and each output once,
 // plus the weights through L2).
 //
-// Two bodies for K3: at bf16, where ops/style_block.py:style_plan says so
-// (C % 32 == 0, head dim 16, 32 or 64, N <= 64, hidden % 128 == 0: the
-// style transformer at C = 256), the tensor-core body of style_tc.cuh
-// (K1's ring, products and register softmax; one block of 16 warps per
-// window and stream); at f32, and for K4, the scalar body described next,
+// Two bodies each. At bf16, where ops/style_block.py's plans say so (C %
+// 32 == 0, head dim 16, 32 or 64, N <= 64, hidden % 128 == 0: the style
+// transformer at C = 256), tensor-core bodies built from K1's pieces in
+// window_tc.cuh (its weight ring over a tile schedule, 64-row mma.sync
+// products, the softmax in registers; one block of 16 warps an SM): K3's
+// in style_tc.cuh (style_plan; a block per window and stream), K4's in
+// tail_tc.cuh (tail_plan; a block per window, both value streams in it). The
+// C entries check the plan against the layout and refuse a mismatch. At
+// f32 (no TF32), and for any other shape, the scalar bodies described next,
 // whose products are scalar FMAs on the CUDA cores.
 //
 // Scalar design: 256 threads per block. K3 runs one block per (image, window,
@@ -57,6 +61,7 @@
 // error code of its launch (0 on success).
 
 #include "style_tc.cuh"
+#include "tail_tc.cuh"
 #include "window_common.cuh"
 
 // The entry points' argument blocks. They stay outside the anonymous
@@ -115,6 +120,7 @@ struct DecoderTailArgs {
   double scale;
   long long dtype;
   long long B, nW, N, C, heads, hidden;
+  TcPlan plan;            // the body and its tiling (window_tc.cuh)
 };
 
 }  // namespace mmst
@@ -408,20 +414,13 @@ encoder_scale_shift_tc_kernel(const EncoderArgs a) {
 // this call (checked here), its shared memory what the layout needs.
 int launch_tc(const EncoderArgs& a, cudaStream_t stream) {
   const mmst::TcPlan& p = a.plan;
-  const long long n = a.N, c = a.C, dh = a.heads ? c / a.heads : 0;
-  const bool ok =
-      a.dtype == 1 && p.body == 1 && p.rows == kTcRows &&
-      p.panel == kTcPanel && p.stages == 3 && (p.kp == 32 || p.kp == 64) &&
-      n >= 1 && n <= kTcRows && c % 32 == 0 && c % p.kp == 0 &&
-      a.heads * dh == c && (dh == 16 || dh == 32 || dh == 64) &&
-      a.hidden % kTcPanel == 0 && a.hidden >= kTcPanel &&
-      p.smem_bytes == static_cast<long long>(
-                          tc_style_layout(static_cast<int>(n),
-                                          static_cast<int>(c),
-                                          static_cast<int>(p.kp), 3)
-                              .total) &&
-      p.smem_bytes <= 232448;
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const long long c = a.C, dh = a.heads ? c / a.heads : 0;
+  if (p.body != 1 ||
+      !tc_plan_ok(p, a.dtype, a.N, c, a.heads, a.hidden,
+                  tc_style_layout(static_cast<int>(a.N), static_cast<int>(c),
+                                  static_cast<int>(p.kp), 3)
+                      .total))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(a.nW), static_cast<unsigned>(a.B), 2);
   const size_t bytes = static_cast<size_t>(p.smem_bytes);
   if (dh == 16)
@@ -432,6 +431,38 @@ int launch_tc(const EncoderArgs& a, cudaStream_t stream) {
                          bytes, stream, a, 512);
   return launch_kernel(encoder_scale_shift_tc_kernel<64, 3, 512>, grid,
                        bytes, stream, a, 512);
+}
+
+// K4 at bf16 on the tensor-core body: one block of NT threads per (window,
+// image), a ring of S tiles.
+template <int DH, int S, int NT>
+__global__ void __launch_bounds__(NT, 1)
+decoder_tail_tc_kernel(const DecoderTailArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  decoder_tail_tc<DH, S, NT>(a, smem);
+}
+
+// K4's tensor-core launch: the plan must be one tail_plan gives for this
+// call (checked here), its shared memory what the layout needs.
+int launch_tail_tc(const DecoderTailArgs& a, cudaStream_t stream) {
+  const mmst::TcPlan& p = a.plan;
+  const long long c = a.C, dh = a.heads ? c / a.heads : 0;
+  if (p.body != 1 ||
+      !tc_plan_ok(p, a.dtype, a.N, c, a.heads, a.hidden,
+                  tc_tail_layout(static_cast<int>(a.N), static_cast<int>(c),
+                                 static_cast<int>(p.kp), 3)
+                      .total))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(a.nW), static_cast<unsigned>(a.B));
+  const size_t bytes = static_cast<size_t>(p.smem_bytes);
+  if (dh == 16)
+    return launch_kernel(decoder_tail_tc_kernel<16, 3, 512>, grid, bytes,
+                         stream, a, 512);
+  if (dh == 32)
+    return launch_kernel(decoder_tail_tc_kernel<32, 3, 512>, grid, bytes,
+                         stream, a, 512);
+  return launch_kernel(decoder_tail_tc_kernel<64, 3, 512>, grid, bytes,
+                       stream, a, 512);
 }
 
 template <typename T, typename A, typename Kernel>
@@ -482,6 +513,29 @@ int mmst_encoder_scale_shift_attributes(long long body, long long dtype,
   return attributes_of(encoder_scale_shift_kernel<float>, smem, dyn, regs);
 }
 
+// The same for K4's kernels: body 0 the scalar kernel at dtype, body 1
+// the tensor-core kernel of head dim dh.
+int mmst_decoder_tail_attributes(long long body, long long dtype,
+                                 long long dh, long long* smem,
+                                 long long* dyn, long long* regs) {
+  if (body == 1) {
+    if (dh == 16)
+      return attributes_of(decoder_tail_tc_kernel<16, 3, 512>, smem, dyn,
+                           regs);
+    if (dh == 32)
+      return attributes_of(decoder_tail_tc_kernel<32, 3, 512>, smem, dyn,
+                           regs);
+    if (dh == 64)
+      return attributes_of(decoder_tail_tc_kernel<64, 3, 512>, smem, dyn,
+                           regs);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (body != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1)
+    return attributes_of(decoder_tail_kernel<__nv_bfloat16>, smem, dyn, regs);
+  return attributes_of(decoder_tail_kernel<float>, smem, dyn, regs);
+}
+
 int mmst_encoder_scale_shift(const mmst::EncoderArgs* a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a->plan.body == 1) return launch_tc(*a, s);
@@ -494,6 +548,8 @@ int mmst_encoder_scale_shift(const mmst::EncoderArgs* a, void* stream) {
 
 int mmst_decoder_tail(const mmst::DecoderTailArgs* a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->plan.body == 1) return launch_tail_tc(*a, s);
+  if (a->plan.body != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (a->dtype == 1)
     return launch<__nv_bfloat16>(decoder_tail_kernel<__nv_bfloat16>, *a, 1,
                                  s);

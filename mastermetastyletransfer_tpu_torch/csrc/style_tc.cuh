@@ -5,8 +5,8 @@
 // the scalar K3 body computes, with the same rounding points; only the
 // order of the f32 sums differs.
 //
-// Built from K1's pieces (window_tc.cuh): the weight ring TcRing, whose
-// tile order is K1's (ops/window_block.py:tile_schedule) -- per head group
+// Built from K1's pieces (window_tc.cuh): the weight ring TcRing over K1's
+// tile order BlockTiles (ops/window_block.py:tile_schedule) -- per head group
 // the q, k and v panels of the shared [wq | wk | wv], proj's panels, then
 // per 128-wide hidden chunk fc1's panel and fc2's panels, here of the
 // stream's own MLP --, its 64-row panel product, a head group's attention
@@ -106,11 +106,13 @@ __device__ __forceinline__ void encoder_scale_shift_tc(const A& a,
                             ? a.mask + static_cast<long long>(w) * N * N
                             : nullptr;
   TcRing<S, NT> ring(
-      static_cast<const bf16*>(a.wqkv), static_cast<const bf16*>(a.wp),
-      static_cast<const bf16*>(shift_stream ? a.h_w1 : a.s_w1),
-      static_cast<const bf16*>(shift_stream ? a.h_w2 : a.s_w2),
-      reinterpret_cast<bf16*>(smem + L.ring), C, hidden, kp);
-  const int ng = ring.ng;
+      BlockTiles(static_cast<const bf16*>(a.wqkv),
+                 static_cast<const bf16*>(a.wp),
+                 static_cast<const bf16*>(shift_stream ? a.h_w1 : a.s_w1),
+                 static_cast<const bf16*>(shift_stream ? a.h_w2 : a.s_w2), C,
+                 hidden, kp),
+      reinterpret_cast<bf16*>(smem + L.ring), kp);
+  const int ng = ring.tiles.ng;
 
   ring.start();
 

@@ -12,7 +12,7 @@
 //   mmst_window_block_windows  x is already partitioned: (B, nW, N, C).
 //
 // Per window (`block_window` in window_common.cuh, the body K11 in
-// block_pair.cu runs too): LN1 (pad tokens' normed view zeroed by the
+// block_pair.cu runs too at f32): LN1 (pad tokens' normed view zeroed by the
 // validity mask) ->
 // q, k, v from one fused (C, 3C) weight -> per head q k^T * scale +
 // relative-position bias + shift mask, softmax in f32, . v -> proj ->
@@ -35,9 +35,9 @@
 // ops/window_block.py:block_plan says so (C % 32 == 0, head dim 16, 32 or
 // 64, N <= 64, hidden % 128 == 0: the Swin stages of swin_T/S/B and the
 // style transformer at C = 256): mma.sync products, weights streamed
-// through a cp.async ring, the softmax in registers. Every other call --
-// f32 above all -- runs the scalar body described next, which K11
-// (block_pair.cu) shares.
+// through a cp.async ring, the softmax in registers; K11 (block_pair.cu)
+// runs the same body per ticket. Every other call -- f32 above all -- runs
+// the scalar body described next, which K11 at f32 shares.
 //
 // Scalar body: one thread block of 256 threads per (image, window). Shared memory
 // holds the window's residual stream in f32, the normed tile, the head
@@ -185,22 +185,14 @@ int launch_tc_dh(const Args& a, dim3 grid, size_t bytes,
 int launch_tc(const Args& a, cudaStream_t stream) {
   const mmst::TcPlan& p = a.plan;
   const long long n = a.wh * a.ww, c = a.C, dh = a.heads ? c / a.heads : 0;
-  const bool two = p.body == 2;
   const bool ok =
-      a.dtype == 1 && p.rows == kTcRows && p.panel == kTcPanel &&
-      p.stages == (two ? 2 : 3) && (p.kp == 32 || p.kp == 64) && n >= 1 &&
-      n <= kTcRows && c % 32 == 0 && c % p.kp == 0 && a.heads * dh == c &&
-      (dh == 16 || dh == 32 || dh == 64) && a.hidden % kTcPanel == 0 &&
-      a.hidden >= kTcPanel && (!two || c <= kTcPanel) &&
+      tc_plan_ok(p, a.dtype, n, c, a.heads, a.hidden,
+                 tc_block_layout(static_cast<int>(n), static_cast<int>(c),
+                                 static_cast<int>(p.kp),
+                                 static_cast<int>(p.stages), p.body == 2)
+                     .total) &&
       a.Hp == (a.Hp / a.wh) * a.wh && a.Wp == (a.Wp / a.ww) * a.ww &&
-      a.nW == (a.Hp / a.wh) * (a.Wp / a.ww) &&
-      p.smem_bytes == static_cast<long long>(
-                          tc_block_layout(static_cast<int>(n),
-                                          static_cast<int>(c),
-                                          static_cast<int>(p.kp),
-                                          static_cast<int>(p.stages), two)
-                              .total) &&
-      p.smem_bytes <= (two ? 115712 : 232448);
+      a.nW == (a.Hp / a.wh) * (a.Wp / a.ww);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(a.nW), static_cast<unsigned>(a.B));
   const size_t bytes = static_cast<size_t>(p.smem_bytes);

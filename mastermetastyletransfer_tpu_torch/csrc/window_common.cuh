@@ -2,8 +2,8 @@
 // style_block.cu, phase_conv.cu, ...): the block size, type conversion and
 // rounding to the input type T, shared-memory strides, a block-wide GEMM
 // with its A tile in shared memory, row statistics, one attention head over
-// a window, and the whole Swin block on one window (the scalar body: K1
-// and K2 at f32, and K11).
+// a window, and the whole Swin block on one window (the scalar body: K1,
+// K2 and K11 at f32).
 //
 // No warp shuffles anywhere: every step is a plain loop between barriers.
 // That keeps the sources runnable under a CPU emulation of the thread model

@@ -2,9 +2,11 @@
 // K1 and K2 (mmst_window_block_rows and mmst_window_block_windows at
 // bfloat16; window_block.cu has the functions and the launch,
 // ops/window_block.py:block_plan the tiling, and
-// tests/test_torch_window_tc_plan.py replays it in torch), and the pieces
-// that K3's body (style_tc.cuh) shares with it: the weight ring, the 64-row
-// panel product, a head group's attention and the row statistics. The
+// tests/test_torch_window_tc_plan.py replays it in torch) and of each
+// ticket of K11 (block_pair.cu), and the pieces that K3's and K4's bodies
+// (style_tc.cuh, tail_tc.cuh) share with it: the weight ring over a tile
+// schedule, the 64-row panel product, a head group's attention and the row
+// statistics. The
 // block computes what block_window (window_common.cuh) computes, with the
 // same rounding points; only the order of the f32 sums differs. A null LN1
 // (K2's encoder Key block) makes the normed tile the raw input times the
@@ -76,6 +78,27 @@ constexpr int kTcRows = 64;           // a window's tokens, padded
 constexpr int kTcPanel = 128;         // output columns per weight panel
 constexpr int kTcLdp = kTcPanel + 8;  // row stride of a panel tile (bf16)
 
+// What every tensor-core launch checks of the plan it is given (K1, K2,
+// K11; K3 and K4, whose one form is body 1): bf16, a shape the bodies take
+// (N <= 64 tokens, C % 32 == 0, head dim 16, 32 or 64, hidden % 128 ==
+// 0), a form of TC_FORMS (two blocks of 8 warps an SM with 2 tiles only
+// where C <= 128), and shared memory equal to the body's layout (`total`)
+// and within a block's share of an SM. A mismatch is refused, never run.
+inline bool tc_plan_ok(const mmst::TcPlan& p, long long dtype, long long n,
+                       long long c, long long heads, long long hidden,
+                       size_t total) {
+  const long long dh = heads ? c / heads : 0;
+  const bool two = p.body == 2;
+  return dtype == 1 && (p.body == 1 || two) && p.rows == kTcRows &&
+         p.panel == kTcPanel && p.stages == (two ? 2 : 3) &&
+         (p.kp == 32 || p.kp == 64) && n >= 1 && n <= kTcRows &&
+         c % 32 == 0 && c % p.kp == 0 && heads * dh == c &&
+         (dh == 16 || dh == 32 || dh == 64) && hidden % kTcPanel == 0 &&
+         hidden >= kTcPanel && (!two || c <= kTcPanel) &&
+         p.smem_bytes == static_cast<long long>(total) &&
+         p.smem_bytes <= (two ? 115712 : 232448);
+}
+
 // Shared memory of the tensor-core body (ops/window_block.py:tc_layout
 // computes the same): rows padded by 16 bytes where ldmatrix reads them,
 // so that its eight rows hit distinct banks; with ob_in_ln the head outputs
@@ -112,68 +135,108 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// The weight tiles of one block's products, in the order they are used:
+// each schedule gives tile u's first element, row stride and width
+// (kp rows of at most 128 columns) and counts its tiles (total). The part
+// that K1's and K4's orders share: the MLP, per 128-wide hidden chunk j
+// fc1's panel of w1 (C, hidden) over K = C (nk tiles), then fc2's panels of
+// w2 (hidden, C) over the chunk (kpc = 128 / kp tiles each).
+struct MlpTiles {
+  using bf16 = __nv_bfloat16;
+  const bf16 *w1, *w2;
+  int C, hidden, kp, nk, ng, kpc, tcn;
+
+  __device__ __forceinline__ MlpTiles(const bf16* w1_, const bf16* w2_,
+                                      int C_, int hidden_, int kp_)
+      : w1(w1_), w2(w2_), C(C_), hidden(hidden_), kp(kp_) {
+    nk = C / kp;                             // tiles of K = C
+    ng = (C + kTcPanel - 1) / kTcPanel;      // panels of C
+    kpc = kTcPanel / kp;                     // tiles of K = 128
+    tcn = nk + ng * kpc;
+  }
+
+  __device__ __forceinline__ int count() const {
+    return (hidden / kTcPanel) * tcn;
+  }
+
+  __device__ __forceinline__ const bf16* tile(int v, int& ld,
+                                              int& width) const {
+    const int j = v / tcn, r = v % tcn;
+    if (r < nk) {
+      ld = hidden;
+      width = kTcPanel;
+      return w1 + static_cast<long long>(r * kp) * ld + j * kTcPanel;
+    }
+    const int pn = (r - nk) / kpc, kt = (r - nk) % kpc;
+    ld = C;
+    width = min(kTcPanel, C - pn * kTcPanel);
+    return w2 + static_cast<long long>(j * kTcPanel + kt * kp) * ld +
+           pn * kTcPanel;
+  }
+};
+
+// K1's order (K2's and K3's too; ops/window_block.py:tile_schedule): per
+// head group gi the q, k and v panels of wqkv (C, 3C) over K = C; proj's
+// panels of wp (C, C); then the MLP.
+struct BlockTiles : MlpTiles {
+  const bf16 *wqkv, *wp;
+  int t1, t2, total;
+
+  __device__ __forceinline__ BlockTiles(const bf16* wqkv_, const bf16* wp_,
+                                        const bf16* w1_, const bf16* w2_,
+                                        int C_, int hidden_, int kp_)
+      : MlpTiles(w1_, w2_, C_, hidden_, kp_), wqkv(wqkv_), wp(wp_) {
+    t1 = 3 * ng * nk;
+    t2 = ng * nk;
+    total = t1 + t2 + count();
+  }
+
+  __device__ __forceinline__ const bf16* tile(int u, int& ld,
+                                              int& width) const {
+    if (u < t1) {
+      const int gi = u / (3 * nk), part = (u / nk) % 3, kt = u % nk;
+      ld = 3 * C;
+      width = min(kTcPanel, C - gi * kTcPanel);
+      return wqkv + static_cast<long long>(kt * kp) * ld + part * C +
+             gi * kTcPanel;
+    }
+    if (u < t1 + t2) {
+      const int v = u - t1, pn = v / nk, kt = v % nk;
+      ld = C;
+      width = min(kTcPanel, C - pn * kTcPanel);
+      return wp + static_cast<long long>(kt * kp) * ld + pn * kTcPanel;
+    }
+    return MlpTiles::tile(u - t1 - t2, ld, width);
+  }
+};
+
 // The weight ring and the 64-row products of a block of NT threads (S
-// tiles of kp rows x 128 columns): the tiles in the order of the header,
-// over wqkv (C, 3C), wp (C, C), w1 (C, hidden) and w2 (hidden, C), and the
-// products that consume them in that order. acc holds this warp's part of
-// the last product's 64 x width output.
-template <int S, int NT>
+// tiles of kp rows x 128 columns): the tiles in the order of the schedule
+// Tiles (BlockTiles: K1's), and the products that consume them in that
+// order. acc holds this warp's part of the last product's 64 x width
+// output.
+template <int S, int NT, typename Tiles = BlockTiles>
 struct TcRing {
   using bf16 = __nv_bfloat16;
   static constexpr int NW = NT / 32;              // warps
   static constexpr int WSPLIT = NW / 4;           // column parts of a product
   static constexpr int MT = kTcPanel / (8 * WSPLIT);  // n8 tiles of a part
-  const bf16 *wqkv, *wp, *w1, *w2;
+  Tiles tiles;
   bf16* ring;
-  int C, hidden, kp, nk, ng, kpc, t1, t2, tcn, total;
+  int kp;
   int t = 0;  // the next tile a product consumes
   float acc[MT][4];
 
-  __device__ __forceinline__ TcRing(const bf16* wqkv_, const bf16* wp_,
-                                    const bf16* w1_, const bf16* w2_,
-                                    bf16* ring_, int C_, int hidden_, int kp_)
-      : wqkv(wqkv_), wp(wp_), w1(w1_), w2(w2_), ring(ring_), C(C_),
-        hidden(hidden_), kp(kp_) {
-    nk = C / kp;                             // tiles of K = C
-    ng = (C + kTcPanel - 1) / kTcPanel;      // panels of C
-    kpc = kTcPanel / kp;                     // tiles of K = 128
-    t1 = 3 * ng * nk;
-    t2 = ng * nk;
-    tcn = nk + ng * kpc;
-    total = t1 + t2 + (hidden / kTcPanel) * tcn;
-  }
+  __device__ __forceinline__ TcRing(const Tiles& tiles_, bf16* ring_,
+                                    int kp_)
+      : tiles(tiles_), ring(ring_), kp(kp_) {}
 
   // Copy tile u into its slot (every thread a share, cp.async) and commit
   // a group, empty past the last tile.
   __device__ __forceinline__ void issue(int u) const {
-    if (u < total) {
-      const bf16* src;
+    if (u < tiles.total) {
       int ld, width;
-      if (u < t1) {
-        const int gi = u / (3 * nk), part = (u / nk) % 3, kt = u % nk;
-        ld = 3 * C;
-        width = min(kTcPanel, C - gi * kTcPanel);
-        src = wqkv + static_cast<long long>(kt * kp) * ld + part * C +
-              gi * kTcPanel;
-      } else if (u < t1 + t2) {
-        const int v = u - t1, pn = v / nk, kt = v % nk;
-        ld = C;
-        width = min(kTcPanel, C - pn * kTcPanel);
-        src = wp + static_cast<long long>(kt * kp) * ld + pn * kTcPanel;
-      } else {
-        const int v = u - t1 - t2, j = v / tcn, r = v % tcn;
-        if (r < nk) {
-          ld = hidden;
-          width = kTcPanel;
-          src = w1 + static_cast<long long>(r * kp) * ld + j * kTcPanel;
-        } else {
-          const int pn = (r - nk) / kpc, kt = (r - nk) % kpc;
-          ld = C;
-          width = min(kTcPanel, C - pn * kTcPanel);
-          src = w2 + static_cast<long long>(j * kTcPanel + kt * kp) * ld +
-                pn * kTcPanel;
-        }
-      }
+      const bf16* src = tiles.tile(u, ld, width);
       bf16* dst = ring + (u % S) * kp * kTcLdp;
       const int vpr = width >> 3;  // 16-byte pieces per row
       for (int i = threadIdx.x; i < kp * vpr; i += NT) {
@@ -395,14 +458,34 @@ __device__ __forceinline__ void tc_row_stats(const TX* x, int ld, int n,
   }
 }
 
+// How a body reads its input tokens, 16 bytes a piece: kLoadPlain a plain
+// load (K1, K2; LDG.E.128); kLoadL2 through L2 only (__ldcg,
+// LDG.E.128.STRONG.GPU: K11's second block, which reads what other thread
+// blocks of the same launch wrote, so that no line an SM's L1 held from
+// before can answer); kLoadReadOnly through the read-only path (__ldg,
+// LDG.E.128.CONSTANT), which no body uses: it is the load that a const
+// __restrict__ path may compile to. block_pair.cu's probe shows on the card
+// that without a fence between, a plain or read-only load reads a line
+// another SM has since overwritten, and an L2-only load does not
+// (tests/test_torch_cuda_kernels.py).
+constexpr int kLoadPlain = 0, kLoadL2 = 1, kLoadReadOnly = 2;
+
+template <int kLoad>
+__device__ __forceinline__ uint4 load16(const void* p) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  if (kLoad == kLoadL2) return __ldcg(q);
+  if (kLoad == kLoadReadOnly) return __ldg(q);
+  return *q;
+}
+
 // The block of NT threads on one window of N <= 64 tokens, head dim DH
 // (16, 32 or 64), C % 32 == 0, hidden % 128 == 0, weight tiles of kp (32
 // or 64) rows in a ring of S; ob_in_ln (C <= 128 only) as the layout's.
-// Fields of W as block_window's. Token t is read from x[toff[t] ..] and
-// written to out[toff[t] ..]; the caller fills toff (the layout's slot)
-// and passes a barrier first. mask_w (N x N) and pm_w (N) as
-// block_window's.
-template <int DH, int S, int NT, typename W>
+// Fields of W as block_window's. Token t is read from x[toff[t] ..] with
+// load16<kLoad> and written to out[toff[t] ..]; the caller fills toff (the
+// layout's slot) and passes a barrier first. mask_w (N x N) and pm_w (N)
+// as block_window's.
+template <int DH, int S, int NT, int kLoad = kLoadPlain, typename W>
 __device__ __forceinline__ void block_window_tc(
     const W& p, int C, int hidden, float scale, const __nv_bfloat16* x,
     __nv_bfloat16* out, int N, const float* mask_w, const float* pm_w,
@@ -421,12 +504,13 @@ __device__ __forceinline__ void block_window_tc(
   float* rstd = reinterpret_cast<float*>(smem + L.rstd);
   const long long* toff = reinterpret_cast<const long long*>(smem + L.toff);
   const int LDX = C + 4, LDA = C + 8;
-  TcRing<S, NT> ring(static_cast<const bf16*>(p.wqkv),
-                     static_cast<const bf16*>(p.wp),
-                     static_cast<const bf16*>(p.w1),
-                     static_cast<const bf16*>(p.w2),
-                     reinterpret_cast<bf16*>(smem + L.ring), C, hidden, kp);
-  const int ng = ring.ng;
+  TcRing<S, NT> ring(BlockTiles(static_cast<const bf16*>(p.wqkv),
+                                static_cast<const bf16*>(p.wp),
+                                static_cast<const bf16*>(p.w1),
+                                static_cast<const bf16*>(p.w2), C, hidden,
+                                kp),
+                     reinterpret_cast<bf16*>(smem + L.ring), kp);
+  const int ng = ring.tiles.ng;
   // LayerNorm statistics of the residual stream's rows, then a barrier.
   auto stats = [&]() {
     tc_row_stats<NT>(xs, LDX, N, C, mean, rstd);
@@ -439,7 +523,7 @@ __device__ __forceinline__ void block_window_tc(
   const int vpc = C >> 3;
   for (int i = tid; i < N * vpc; i += NT) {
     const int tk = i / vpc, c = (i - tk * vpc) * 8;
-    const uint4 u = *reinterpret_cast<const uint4*>(x + toff[tk] + c);
+    const uint4 u = load16<kLoad>(x + toff[tk] + c);
     const bf16* e = reinterpret_cast<const bf16*>(&u);
     float* d = xs + tk * LDX + c;
     *reinterpret_cast<float4*>(d) =

@@ -6,8 +6,11 @@ K11 ``fused_window_block_pair_rows`` in ops/pallas_attention.py, behind
 returns block1(block0(x)): block 0 unshifted, block 1 shifted by (sh, sw),
 each with its validity mask, block 1 with the shift mask, in the plain
 (un-rolled) frame as K1's row entry gives (the JAX kernel returns block 1's
-rolled frame and its caller un-rolls). The kernel is
-csrc/block_pair.cu, whose windows run K1's per-window body.
+rolled frame and its caller un-rolls). The kernel is csrc/block_pair.cu,
+whose windows run K1's per-window bodies: at bfloat16, where ``pair_plan``
+(K1's ``block_plan`` for the rows entry) says so, the tensor-core body in
+K1's form for that width, block 1 reading block 0's output through L2
+only; at float32 the scalar body.
 
 The wrapper runs the kernel for a CUDA tensor and the plain PyTorch version
 below for a CPU tensor; any other device raises. The plain version is K1's
@@ -30,8 +33,8 @@ import torch
 
 from mastermetastyletransfer_tpu_torch.ops import _build
 from mastermetastyletransfer_tpu_torch.ops.window_block import (
-    MAX_SMEM_BYTES, BlockWeights, _need, _on_cuda, refuse_grad,
-    window_block_rows_plain,
+    MAX_SMEM_BYTES, BlockPlan, BlockWeights, TcPlan, _need, _on_cuda,
+    block_plan, refuse_grad, window_block_rows_plain,
 )
 
 LAUNCHES = {"window_block_pair_rows": 0}
@@ -67,7 +70,8 @@ class PairArgs(ctypes.Structure):
                 + [("blk", PairBlock * 2), ("scale", ctypes.c_double)]
                 + [(f, ctypes.c_longlong) for f in (
                     "dtype", "B", "Hp", "Wp", "C", "heads", "hidden", "wh",
-                    "ww", "sh", "sw")])
+                    "ww", "sh", "sw")]
+                + [("plan", TcPlan)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -78,13 +82,81 @@ def _lib() -> ctypes.CDLL:
     lib.mmst_window_block_pair_rows.restype = ctypes.c_int
     lib.mmst_window_block_pair_smem_bytes.argtypes = [ctypes.c_longlong] * 4
     lib.mmst_window_block_pair_smem_bytes.restype = ctypes.c_longlong
+    lib.mmst_window_block_pair_attributes.argtypes = (
+        [ctypes.c_longlong] * 3 + [ctypes.POINTER(ctypes.c_longlong)] * 3)
+    lib.mmst_window_block_pair_attributes.restype = ctypes.c_int
+    lib.mmst_pair_load_probe.argtypes = (
+        [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 5
+        + [ctypes.c_longlong, ctypes.c_void_p])
+    lib.mmst_pair_load_probe.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(n: int, c: int, heads: int, dtype: torch.dtype) -> int:
-    """Shared memory of one thread block of the kernel (K1's)."""
+def pair_plan(n: int, c: int, heads: int, hidden: int,
+              dtype: torch.dtype) -> BlockPlan:
+    """The body each window of one K11 call runs: K1's plan for the rows
+    entry at the same shape (ops/window_block.py:block_plan), so that each
+    stage takes K1's form -- two blocks of 8 warps an SM at C <= 128, one
+    of 16 above -- at bfloat16, and the scalar body at float32."""
+    return block_plan("window_block_rows", n, c, heads, hidden, dtype)
+
+
+def smem_bytes(plan: BlockPlan, n: int, c: int, heads: int,
+               dtype: torch.dtype) -> int:
+    """Dynamic shared memory one thread block of the call's body takes:
+    the plan's (the tensor-core layout, ops/window_block.py:tc_layout), or
+    the scalar body's (K1's scalar layout)."""
+    if plan.body == "tc":
+        return plan.smem_bytes
     return _lib().mmst_window_block_pair_smem_bytes(
         n, c, heads, torch.finfo(dtype).bits // 8)
+
+
+def kernel_attributes(plan: BlockPlan, dtype: torch.dtype, dh: int
+                      ) -> Tuple[int, int, int]:
+    """(static shared memory bytes per block, dynamic shared memory opted
+    in so far on this device, registers per thread) of the kernel ``plan``
+    runs: the tensor-core kernel of head dim dh in the plan's form, or the
+    scalar kernel at ``dtype``."""
+    vals = [ctypes.c_longlong() for _ in range(3)]
+    err = _lib().mmst_window_block_pair_attributes(
+        TcPlan.of(plan).body, int(dtype == torch.bfloat16), dh,
+        *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes: CUDA error {err}")
+    return tuple(v.value for v in vals)
+
+
+# The token loads the probe compares (csrc/window_tc.cuh, load16): a plain
+# load (K1's and K2's), through L2 only (K11's block 1), the read-only path.
+LOAD_POLICIES = {"plain": 0, "l2": 1, "read_only": 2}
+
+
+def load_probe(y: torch.Tensor, fresh: torch.Tensor, policy: str,
+               fence: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run csrc/block_pair.cu's load probe on the card: one thread block
+    reads the bf16 tensor y (a whole number of 16-byte pieces) through the
+    policy's load, publishes, waits on a flag as K11's block 1 waits, and
+    reads it again, while another thread block, after the first reading,
+    overwrites y with ``fresh`` and publishes as K11's block 0 does. With
+    ``fence`` off the reading block fences neither before publishing nor
+    after waiting. Returns (first reading, second reading), each shaped as
+    y; y ends holding fresh."""
+    if y.device.type != "cuda" or y.dtype != torch.bfloat16:
+        raise ValueError("the probe runs on a bfloat16 CUDA tensor")
+    _need("fresh", fresh, y.shape, y.dtype, y.device)
+    _need("y", y, y.shape, y.dtype, y.device)
+    if y.numel() % 8:
+        raise ValueError("y must hold whole 16-byte pieces")
+    first, second = torch.empty_like(y), torch.empty_like(y)
+    flags = torch.zeros(2, dtype=torch.int32, device=y.device)
+    err = _lib().mmst_pair_load_probe(
+        LOAD_POLICIES[policy], int(fence), y.data_ptr(), fresh.data_ptr(),
+        first.data_ptr(), second.data_ptr(), flags.data_ptr(),
+        y.numel() // 8, torch.cuda.current_stream(y.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"load probe: CUDA error {err} at launch")
+    return first, second
 
 
 def _check_block(name: str, w: BlockWeights, c: int, heads: int, n: int,
@@ -145,8 +217,8 @@ def window_block_pair_rows(x: torch.Tensor, w0: BlockWeights,
     for name, pm in (("padmask0", padmask0), ("padmask1", padmask1)):
         if pm is not None:
             _need(name, pm, (nw, n), torch.float32, dev)
-    smem = _lib().mmst_window_block_pair_smem_bytes(n, c, heads,
-                                                    x.element_size())
+    plan = pair_plan(n, c, heads, hidden, x.dtype)
+    smem = smem_bytes(plan, n, c, heads, x.dtype)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"N={n}, C={c} needs {smem} bytes of shared memory "
                          f"per block, over the {MAX_SMEM_BYTES} available")
@@ -169,7 +241,8 @@ def window_block_pair_rows(x: torch.Tensor, w0: BlockWeights,
                             ptrs(w1, mask1, padmask1)),
         scale=(c // heads) ** -0.5,
         dtype=1 if x.dtype == torch.bfloat16 else 0, B=b, Hp=hp, Wp=wp,
-        C=c, heads=heads, hidden=hidden, wh=wh, ww=ww, sh=sh, sw=sw)
+        C=c, heads=heads, hidden=hidden, wh=wh, ww=ww, sh=sh, sw=sw,
+        plan=TcPlan.of(plan))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().mmst_window_block_pair_rows(ctypes.byref(args), stream)
     if err != 0:

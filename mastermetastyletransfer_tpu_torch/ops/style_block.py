@@ -12,14 +12,16 @@ window-resident path (models/style_transformer.py).
   norm-free last-MLP residual (reference: codes/style_transformer.py:
   1059-1125).
 
-Both are one CUDA source (csrc/style_block.cu). K3 at bfloat16 runs the
-tensor-core body (csrc/style_tc.cuh, built from K1's pieces) where
-``style_plan`` below says so -- the style transformer at C = 256 -- and
-every other call (f32, and K4) the scalar body. ``style_plan`` and
-``style_layout`` give the tensor-core body's tiling and shared memory; its
-weights stream in K1's order (ops/window_block.py:tile_schedule, the MLP
-being the stream's own), which tests/test_torch_style_tc_plan.py replays in
-torch on the CPU.
+Both are one CUDA source (csrc/style_block.cu), each with two bodies. At
+bfloat16, where the plans below say so -- the style transformer at C =
+256 --, tensor-core bodies built from K1's pieces (csrc/window_tc.cuh): K3's
+(csrc/style_tc.cuh; ``style_plan``, ``style_layout``; its weights in K1's
+order, ops/window_block.py:tile_schedule, the MLP being the stream's own)
+and K4's (csrc/tail_tc.cuh; ``tail_plan``, ``tail_layout``,
+``tail_tile_schedule``: both value streams in one block, wp streamed twice
+for sigma and mu), which tests/test_torch_style_tc_plan.py and
+tests/test_torch_tail_tc_plan.py replay in torch on the CPU. At float32
+(no TF32), and for any other shape, the scalar bodies.
 
 Each wrapper runs its kernel for a CUDA tensor and the plain PyTorch
 version below for a CPU tensor; any other device raises. The plain version
@@ -36,7 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +46,7 @@ import torch.nn.functional as F
 from mastermetastyletransfer_tpu_torch.ops import _build
 from mastermetastyletransfer_tpu_torch.ops.window_block import (
     MAX_SMEM_BYTES, TC_PANEL, TC_ROWS, BlockPlan, TcPlan, _align16, _ln,
-    _mat, _need, _on_cuda, _vec, attend, refuse_grad,
+    _mat, _mlp_tiles, _need, _on_cuda, _vec, attend, refuse_grad,
 )
 from mastermetastyletransfer_tpu_torch.ops.windows import (
     relative_position_bias,
@@ -158,14 +160,34 @@ def style_layout(n: int, c: int, kp: int, stages: int) -> dict:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def style_plan(n: int, c: int, heads: int, hidden: int,
-               dtype: torch.dtype) -> BlockPlan:
-    """The body one K3 call runs: the tensor-core body at bfloat16 where
+def tail_layout(n: int, c: int, kp: int, stages: int) -> dict:
+    """Byte offsets and total of K4's tensor-core shared memory
+    (csrc/tail_tc.cuh:tc_tail_layout): the two head-output tiles and the
+    value view (64 x C bf16 each, rows padded by 16 bytes), a head group's
+    q, k and v (sigma's f32 panel, 64 x 132 floats, in their place during
+    proj), and the ring. The f32 output sum (n x (C + 4) floats) takes the
+    two head tiles' place once proj has read them."""
+    tile = 2 * TC_ROWS * (c + 8)
+    qkv = 2 * 3 * TC_ROWS * (TC_PANEL + 8)
+    assert 4 * n * (c + 4) <= 2 * tile      # the f32 sum fits ob_s + ob_h
+    assert 4 * TC_ROWS * (TC_PANEL + 4) <= qkv   # sigma's panel fits
+    sizes = (("ob_s", tile), ("ob_h", tile), ("vt", tile), ("qkv", qkv),
+             ("ring", 2 * stages * kp * (TC_PANEL + 8)))
+    out, o = {}, 0
+    for name, size in sizes:
+        out[name] = o
+        o = _align16(o + size)
+    out["xs"], out["sig"] = out["ob_s"], out["qkv"]
+    out["total"] = o
+    return out
+
+
+def _plan(layout, n: int, c: int, heads: int, hidden: int,
+          dtype: torch.dtype) -> BlockPlan:
+    """K3's and K4's gate and forms: the tensor-core body at bfloat16 where
     N <= 64, C % 32 == 0, the head dim is 16, 32 or 64 and the MLP width a
-    multiple of 128 (the style transformer at C = 256), in the first of
-    STYLE_FORMS that C allows and that fits a block's shared memory; the
-    scalar body for every other call."""
+    multiple of 128, in the first of STYLE_FORMS that C allows and whose
+    ``layout`` fits a block's shared memory; else the scalar body."""
     dh = c // heads if heads else 0
     if (dtype == torch.bfloat16 and 1 <= n <= TC_ROWS and c % 32 == 0
             and dh * heads == c and dh in (16, 32, 64)
@@ -175,11 +197,53 @@ def style_plan(n: int, c: int, heads: int, hidden: int,
         for per_sm, kp, stages in STYLE_FORMS:
             if c % kp:
                 continue
-            smem = style_layout(n, c, kp, stages)["total"]
+            smem = layout(n, c, kp, stages)["total"]
             if smem <= MAX_SMEM_BYTES:
                 return BlockPlan("tc", TC_ROWS, TC_PANEL, kp, stages,
                                  per_sm, smem, groups)
     return BlockPlan("scalar", 0, 0, 0, 0, 0, 0, ())
+
+
+@functools.lru_cache(maxsize=None)
+def style_plan(n: int, c: int, heads: int, hidden: int,
+               dtype: torch.dtype) -> BlockPlan:
+    """The body one K3 call runs (``_plan`` over ``style_layout``): the
+    tensor-core body at the style transformer's C = 256, the scalar body
+    at f32."""
+    return _plan(style_layout, n, c, heads, hidden, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def tail_plan(n: int, c: int, heads: int, hidden: int,
+              dtype: torch.dtype) -> BlockPlan:
+    """The body one K4 call runs (``_plan`` over ``tail_layout``, K3's
+    gate): one block of 16 warps per window with a ring of 3 tiles of 64
+    weight rows at the style transformer's C = 256; the scalar body at
+    f32."""
+    return _plan(tail_layout, n, c, heads, hidden, dtype)
+
+
+def tail_tile_schedule(plan: BlockPlan, c: int, hidden: int
+                       ) -> List[Tuple[str, int, int, int, int]]:
+    """K4's weight tiles in the order its tensor-core body uses them, by
+    the kernel's own arithmetic for tile t (csrc/tail_tc.cuh, TailTiles):
+    (matrix, first row, first column, rows, width). Per value stream s and
+    head group, wv's panel of the stream's columns over K = C; per panel of
+    C, wp's panel over K = C twice (sigma, then mu); then the MLP as K1's
+    (ops/window_block.py:tile_schedule)."""
+    kp, p = plan.kp, plan.panel
+    nk, ng = c // kp, -(-c // p)
+    out = []
+    for t in range(4 * ng * nk):
+        if t < 2 * ng * nk:
+            s, gi, kt = t // (ng * nk), (t // nk) % ng, t % nk
+            out.append(("wv", kt * kp, s * c + gi * p, kp,
+                        min(p, c - gi * p)))
+        else:
+            v = t - 2 * ng * nk
+            pn, kt = v // (2 * nk), v % nk
+            out.append(("wp", kt * kp, pn * p, kp, min(p, c - pn * p)))
+    return out + _mlp_tiles(plan, c, hidden)
 
 
 # ---------------------------------------------------------------------------
@@ -268,16 +332,17 @@ _DEC_PTRS = ("q", "k", "v_scale", "v_shift", "query", "out", "wv", "bv",
              "b2")
 
 
-def _struct(name: str, ptrs, plan: bool) -> type:
+def _struct(name: str, ptrs) -> type:
     return type(name, (ctypes.Structure,), {"_fields_": (
         [(f, ctypes.c_void_p) for f in ptrs] + [("scale", ctypes.c_double)]
-        + [(f, ctypes.c_longlong) for f in _INTS]
-        + ([("plan", TcPlan)] if plan else []))})
+        + [(f, ctypes.c_longlong) for f in _INTS] + [("plan", TcPlan)])})
 
 
 # The C structs of csrc/style_block.cu, field for field.
-EncoderArgs = _struct("EncoderArgs", _ENC_PTRS, plan=True)
-DecoderTailArgs = _struct("DecoderTailArgs", _DEC_PTRS, plan=False)
+EncoderArgs = _struct("EncoderArgs", _ENC_PTRS)
+DecoderTailArgs = _struct("DecoderTailArgs", _DEC_PTRS)
+# Each entry's plan (the body and its tiling) and its C attributes entry.
+_PLANS = {"encoder_scale_shift": style_plan, "decoder_tail": tail_plan}
 
 
 @functools.lru_cache(maxsize=None)
@@ -290,30 +355,34 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.mmst_style_block_smem_bytes.argtypes = [ctypes.c_longlong] * 4
     lib.mmst_style_block_smem_bytes.restype = ctypes.c_longlong
-    lib.mmst_encoder_scale_shift_attributes.argtypes = (
-        [ctypes.c_longlong] * 3 + [ctypes.POINTER(ctypes.c_longlong)] * 3)
-    lib.mmst_encoder_scale_shift_attributes.restype = ctypes.c_int
+    for entry in _PLANS:
+        fn = getattr(lib, f"mmst_{entry}_attributes")
+        fn.argtypes = ([ctypes.c_longlong] * 3
+                       + [ctypes.POINTER(ctypes.c_longlong)] * 3)
+        fn.restype = ctypes.c_int
     return lib
 
 
 def smem_bytes(n: int, c: int, heads: int, dtype: torch.dtype,
                plan: Optional[BlockPlan] = None) -> int:
-    """Shared memory one block of the call's body takes: K3's tensor-core
-    body where ``plan`` says so, else the scalar body of either kernel."""
+    """Shared memory one block of the call's body takes: the tensor-core
+    body (K3's or K4's) where ``plan`` says so, else the scalar body of
+    either kernel."""
     if plan is not None and plan.body == "tc":
         return plan.smem_bytes
     return _lib().mmst_style_block_smem_bytes(
         n, c, heads, torch.finfo(dtype).bits // 8)
 
 
-def kernel_attributes(plan: BlockPlan, dtype: torch.dtype, dh: int
+def kernel_attributes(plan: BlockPlan, dtype: torch.dtype, dh: int,
+                      entry: str = "encoder_scale_shift"
                       ) -> Tuple[int, int, int]:
     """(static shared memory bytes per block, dynamic shared memory opted
-    in so far on this device, registers per thread) of K3's kernel that
-    ``plan`` runs: the tensor-core kernel of head dim dh, or the scalar
-    kernel at ``dtype``."""
+    in so far on this device, registers per thread) of the entry's kernel
+    (K3's or K4's) that ``plan`` runs: the tensor-core kernel of head dim
+    dh, or the scalar kernel at ``dtype``."""
     vals = [ctypes.c_longlong() for _ in range(3)]
-    err = _lib().mmst_encoder_scale_shift_attributes(
+    err = getattr(_lib(), f"mmst_{entry}_attributes")(
         int(plan.body == "tc"), int(dtype == torch.bfloat16), dh,
         *(ctypes.byref(v) for v in vals))
     if err != 0:
@@ -336,8 +405,8 @@ def _launch(entry: str, struct: type, windows: dict, w: NamedTuple, *,
             padmask: Optional[torch.Tensor]) -> None:
     """Check what the kernel takes and launch it. ``windows`` maps the
     struct's window-tensor fields, inputs and outputs, all (B, nW, N, C), to
-    tensors; the first is the reference for shape, type and device. A
-    struct with a plan field (K3's) gets ``style_plan``'s."""
+    tensors; the first is the reference for shape, type and device. The
+    struct's plan field gets the entry's plan (``_PLANS``)."""
     refuse_grad(entry, *windows.values(), *w, mask, padmask)
     x = next(iter(windows.values()))
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -360,8 +429,7 @@ def _launch(entry: str, struct: type, windows: dict, w: NamedTuple, *,
         _need("mask", mask, (nw, n, n), f32, dev)
     if padmask is not None:
         _need("padmask", padmask, (nw, n), f32, dev)
-    planned = "plan" in dict(struct._fields_)
-    plan = style_plan(n, c, heads, hidden, x.dtype) if planned else None
+    plan = _PLANS[entry](n, c, heads, hidden, x.dtype)
     smem = smem_bytes(n, c, heads, x.dtype, plan)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"N={n}, C={c} needs {smem} bytes of shared memory "
@@ -375,7 +443,7 @@ def _launch(entry: str, struct: type, windows: dict, w: NamedTuple, *,
         scale=(c // heads) ** -0.5,
         dtype=1 if x.dtype == torch.bfloat16 else 0,
         B=b, nW=nw, N=n, C=c, heads=heads, hidden=hidden,
-        **({"plan": TcPlan.of(plan)} if planned else {}))
+        plan=TcPlan.of(plan))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(_lib(), f"mmst_{entry}")(ctypes.byref(args), stream)
     if err != 0:

@@ -12,10 +12,10 @@ Two entries over one CUDA computation (csrc/window_block.cu):
 Two bodies compute the block: both entries at bfloat16 run the tensor-core
 body (csrc/window_tc.cuh) where ``block_plan`` below says so -- K1 at the
 Swin stages of swin_T/S/B, K2 at the style transformer's Key block (no
-norms) and self block (both) -- and every other call the scalar body (f32,
-and K11 in ops/block_pair.py). ``block_plan`` and ``tile_schedule`` give
-the tensor-core body's tiling, which tests/test_torch_window_tc_plan.py
-replays in torch on the CPU.
+norms) and self block (both); K11 (ops/block_pair.py) runs it per window
+on the same plan -- and every other call (f32) the scalar body.
+``block_plan`` and ``tile_schedule`` give the tensor-core body's tiling,
+which tests/test_torch_window_tc_plan.py replays in torch on the CPU.
 
 Each wrapper runs its kernel for a CUDA tensor and the plain PyTorch
 version below for a CPU tensor; any other device raises. The plain version
@@ -255,25 +255,31 @@ def tile_schedule(plan: BlockPlan, c: int, hidden: int
     k and v panels over K = C; proj's panels over C; per 128-wide hidden
     chunk, fc1's panel over C and fc2's panels over the chunk."""
     kp, p = plan.kp, plan.panel
-    nk, ng, kpc = c // kp, -(-c // p), p // kp
-    t1, t2, tcn = 3 * ng * nk, ng * nk, nk + ng * kpc
+    nk, ng = c // kp, -(-c // p)
     out = []
-    for t in range(t1 + t2 + (hidden // p) * tcn):
-        if t < t1:
+    for t in range(3 * ng * nk + ng * nk):
+        if t < 3 * ng * nk:
             gi, part, kt = t // (3 * nk), (t // nk) % 3, t % nk
             out.append(("wqkv", kt * kp, part * c + gi * p, kp,
                         min(p, c - gi * p)))
-        elif t < t1 + t2:
-            pn, kt = divmod(t - t1, nk)
-            out.append(("wp", kt * kp, pn * p, kp, min(p, c - pn * p)))
         else:
-            j, r = divmod(t - t1 - t2, tcn)
-            if r < nk:
-                out.append(("w1", r * kp, j * p, kp, p))
-            else:
-                pn, kt = divmod(r - nk, kpc)
-                out.append(("w2", j * p + kt * kp, pn * p, kp,
-                            min(p, c - pn * p)))
+            pn, kt = divmod(t - 3 * ng * nk, nk)
+            out.append(("wp", kt * kp, pn * p, kp, min(p, c - pn * p)))
+    return out + _mlp_tiles(plan, c, hidden)
+
+
+def _mlp_tiles(plan: BlockPlan, c: int, hidden: int
+               ) -> List[Tuple[str, int, int, int, int]]:
+    """The MLP's tiles, which K1's and K4's orders share (window_tc.cuh,
+    MlpTiles): per 128-wide hidden chunk, fc1's panel over C and fc2's
+    panels over the chunk."""
+    kp, p = plan.kp, plan.panel
+    nk, ng, kpc = c // kp, -(-c // p), p // kp
+    out = []
+    for j in range(hidden // p):
+        out += [("w1", r * kp, j * p, kp, p) for r in range(nk)]
+        out += [("w2", j * p + kt * kp, pn * p, kp, min(p, c - pn * p))
+                for pn in range(ng) for kt in range(kpc)]
     return out
 
 

@@ -18,9 +18,9 @@ largest update |out - x| (intermediates rounded on either side of a
 boundary). The decoder's stencil kernels: at bfloat16 two units in the
 last place plus 2^-8 of the largest |output| (both sides sum in f32 and
 round once); the phase align exactly. The pair kernel K11 as the block
-kernel, and at float32 bit for bit as K1 applied twice (the same scalar
-per-window body; at bfloat16 K1 runs the tensor-core body, whose sums run
-in another order, so there within the block tolerance); the RGB-tail
+kernel, and bit for bit as K1 applied twice (the same per-window body
+with the same plan at either dtype: the scalar one at float32, the
+tensor-core one at bfloat16); the RGB-tail
 kernel K12 as the stencil kernels; the patch-embed kernel K13 at
 bfloat16 two units in the last place plus 2^-6 of the largest |output|.
 """
@@ -393,6 +393,48 @@ def test_k3_tensor_core_body_matches_plain(cuda, c, heads, use_ln1, masks):
     assert smem == 0 and dyn >= plan.smem_bytes > 0 and regs > 0
 
 
+def _k4_case(cuda, c, heads, masks):
+    """K4's bf16 weights, its q, k, Scale, Shift and Query windows as
+    _tc_windows makes them, and its keywords."""
+    from mastermetastyletransfer_tpu_torch.ops.attention import (
+        init_dual_value_window_attention,
+    )
+    from mastermetastyletransfer_tpu_torch.ops.mlp import init_mlp
+
+    g = torch.Generator().manual_seed(5 * c + heads + masks)
+    acfg = AttentionConfig(dim=c, num_heads=heads, window_size=(7, 7),
+                           shift_size=(4, 4))
+    params = tree_map(lambda t: t.to(cuda), {
+        "dual": init_dual_value_window_attention(g, acfg),
+        "last_mlp": init_mlp(g, c, 4 * c, init="xavier_uniform")})
+    w = sb.decoder_tail_weights(params["dual"], params["last_mlp"], (7, 7),
+                                torch.bfloat16)
+    xs = [_tc_windows(cuda, g, c, masks)[0].to(cuda, torch.bfloat16)
+          for _ in range(5)]
+    kw = dict(heads=heads, **_tc_windows(cuda, g, c, masks)[1])
+    return w, xs, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masks", [True, False])
+@pytest.mark.parametrize("c,heads", TC_STYLE_WIDTHS)
+def test_k4_tensor_core_body_matches_plain(cuda, c, heads, masks):
+    """K4 at bf16 runs its tensor-core body (tail_plan) at head dims 16, 32
+    and 64, with and without the shift and pad masks (the pad tokens of
+    every input hold garbage), against the plain version; its kernel
+    reports the plan's shared memory."""
+    w, xs, kw = _k4_case(cuda, c, heads, masks)
+    plan = sb.tail_plan(49, c, heads, 4 * c, torch.bfloat16)
+    assert plan.body == "tc"
+    before = sb.LAUNCHES["decoder_tail"]
+    got = sb.decoder_tail(*xs, w, **kw)
+    assert sb.LAUNCHES["decoder_tail"] == before + 1
+    _check(got, sb.decoder_tail_plain(*xs, w, **kw), xs[4])
+    smem, dyn, regs = sb.kernel_attributes(plan, torch.bfloat16, c // heads,
+                                           "decoder_tail")
+    assert smem == 0 and dyn >= plan.smem_bytes > 0 and regs > 0
+
+
 @pytest.mark.cuda
 def test_f32_k2_and_k3_keep_the_scalar_bodies(cuda):
     """At f32 K2 and K3 plan the scalar body, and their kernels launch and
@@ -409,6 +451,53 @@ def test_f32_k2_and_k3_keep_the_scalar_bodies(cuda):
     torch.cuda.synchronize()
     smem, dyn, regs = sb.kernel_attributes(plan, torch.float32, 32)
     assert dyn >= sb.smem_bytes(49, 256, 8, torch.float32) and regs > 0
+
+
+@pytest.mark.cuda
+def test_f32_k4_and_k11_keep_the_scalar_bodies(cuda):
+    """At f32 K4 and K11 plan the scalar body, and their scalar kernels
+    launch and report the scalar layout's dynamic shared memory."""
+    plan = sb.tail_plan(49, 256, 8, 1024, torch.float32)
+    assert plan.body == "scalar"
+    params, xs, kw = _style_case(cuda, torch.float32, 5)
+    w = sb.decoder_tail_weights(params["dual"], params["last_mlp"], (7, 7),
+                                torch.float32)
+    sb.decoder_tail(*xs, w, **kw)
+    torch.cuda.synchronize()
+    smem, dyn, regs = sb.kernel_attributes(plan, torch.float32, 32,
+                                           "decoder_tail")
+    assert dyn >= sb.smem_bytes(49, 256, 8, torch.float32) and regs > 0
+    pair = bpr.pair_plan(49, C, HEADS, 4 * C, torch.float32)
+    assert pair.body == "scalar"
+    (w0, w1), x, pkw = _pair_case(cuda, torch.float32, 14, 14, 12, 12)
+    bpr.window_block_pair_rows(x, w0, w1, **pkw)
+    torch.cuda.synchronize()
+    smem, dyn, regs = bpr.kernel_attributes(pair, torch.float32, C // HEADS)
+    assert dyn >= bpr.smem_bytes(pair, 49, C, HEADS, torch.float32)
+    assert regs > 0
+
+
+@pytest.mark.cuda
+def test_tc_entries_refuse_a_wrong_plan(cuda, monkeypatch):
+    """K4's and K11's C entries check the plan they are given against the
+    layout and refuse a mismatch (a shared-memory size 16 bytes off) with
+    cudaErrorInvalidValue, launching nothing; the wrappers raise."""
+    w, xs, kw = _k4_case(cuda, 256, 8, True)
+    good = sb.tail_plan(49, 256, 8, 1024, torch.bfloat16)
+    bad = good._replace(smem_bytes=good.smem_bytes + 16)
+    monkeypatch.setitem(sb._PLANS, "decoder_tail", lambda *a: bad)
+    before = sb.LAUNCHES["decoder_tail"]
+    with pytest.raises(RuntimeError, match="CUDA error 1 "):
+        sb.decoder_tail(*xs, w, **kw)
+    assert sb.LAUNCHES["decoder_tail"] == before
+    (w0, w1), x, pkw = _pair_case(cuda, torch.bfloat16, 14, 14, 12, 12)
+    good = bpr.pair_plan(49, C, HEADS, 4 * C, torch.bfloat16)
+    monkeypatch.setattr(bpr, "pair_plan", lambda *a: good._replace(
+        smem_bytes=good.smem_bytes + 16))
+    before = bpr.LAUNCHES["window_block_pair_rows"]
+    with pytest.raises(RuntimeError, match="CUDA error 1 "):
+        bpr.window_block_pair_rows(x, w0, w1, **pkw)
+    assert bpr.LAUNCHES["window_block_pair_rows"] == before
 
 
 @pytest.mark.cuda
@@ -625,8 +714,9 @@ def test_k6_runs_the_tensor_core_body(cuda, dtype):
 def test_two_host_threads_launch_bit_equal(cuda):
     """F5: the shared-memory opt-in is per (kernel, device) and only
     rises, so two host threads launching one instantiation at two sizes --
-    K1 and K2 (one kernel) at C = 128 and 256, K3 at 128 and 256, K5 at
-    conv1's and conv2's tables -- each 200 times, alternately and in
+    K1 and K2 (one kernel) at C = 128 and 256, K3 and K4 at 128 and 256, K5
+    at conv1's and conv2's tables; K11 at two grids -- each 200 times,
+    alternately and in
     opposite orders, never see a launch refused, and every output equals,
     bit for bit, the same call on one thread (these kernels sum in a fixed
     order)."""
@@ -651,11 +741,22 @@ def test_two_host_threads_launch_bit_equal(cuda):
     for kind in ("up", "phase"):
         args = _phase_case(cuda, torch.bfloat16, kind)
         calls[f"k5_{kind}"] = lambda args=args: pc.stencil_phase_conv(*args)
-    # K3 at two widths: its tensor-core kernel at two shared-memory sizes
+    # K3 and K4 at two widths: each tensor-core kernel at two shared-memory
+    # sizes
     for c, heads in ((256, 8), (128, 4)):
         w, xs, kw = _k3_case(cuda, c, heads, False, True)
         calls[f"k3_{c}"] = (lambda xs=xs, w=w, kw=kw: torch.stack(
             sb.encoder_scale_shift(*xs, w, **kw)))
+        w, xs, kw = _k4_case(cuda, c, heads, True)
+        calls[f"k4_{c}"] = (lambda xs=xs, w=w, kw=kw: sb.decoder_tail(
+            *xs, w, **kw))
+    # K11 at two grids of one width: its kernel, whose tickets wait on
+    # flags, launched from both threads at once
+    for grid in ((14, 14, 12, 12), (21, 21, 17, 16)):
+        (w0, w1), x, pkw = _pair_case(cuda, torch.bfloat16, *grid)
+        calls[f"k11_{grid[0]}"] = (
+            lambda x=x, w0=w0, w1=w1, pkw=pkw: bpr.window_block_pair_rows(
+                x, w0, w1, **pkw))
     want = {name: fn() for name, fn in calls.items()}
     torch.cuda.synchronize()
     names = list(calls)
@@ -979,6 +1080,9 @@ def _pair_case(cuda, dtype, hp, wp, vh, vw, c=C, heads=HEADS):
                                   (14, 14, 14, 14)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_block_pair_matches_plain_and_k1_twice(cuda, dtype, grid):
+    """K11 against its plain version, and bit for bit against K1's row
+    entry applied twice: both run the same per-window body (the scalar one
+    at f32, the tensor-core one at bf16) with the same plan."""
     (w0, w1), x, kw = _pair_case(cuda, dtype, *grid)
     before = bpr.LAUNCHES["window_block_pair_rows"]
     got = bpr.window_block_pair_rows(x, w0, w1, **kw)
@@ -990,16 +1094,88 @@ def test_block_pair_matches_plain_and_k1_twice(cuda, dtype, grid):
                               shift=kw["shift"], mask=kw["mask1"],
                               padmask=kw["padmask1"])
     torch.cuda.synchronize()
-    if dtype == torch.float32:
-        assert torch.equal(got, y1)
-    else:  # K1 on the tensor-core body, K11 on the scalar one
-        _check(got, y1, x)
+    assert torch.equal(got, y1)
+
+
+# K11's tensor-core body: stage 1's width (two blocks of 8 warps an SM),
+# stage 2's (one of 16), and head dims 16 and 64 in either form, on a grid
+# of 2 x 2 windows, whose block 1 wraps (its last window row and column
+# read row and column 0), and on a ragged 3 x 5 one.
+K11_WIDTHS = [(128, 4), (256, 8), (64, 4), (256, 4)]
+K11_GRIDS = [(14, 14, 12, 12), (21, 35, 16, 30)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", K11_GRIDS)
+@pytest.mark.parametrize("c,heads", K11_WIDTHS)
+def test_k11_tensor_core_body_matches_plain(cuda, c, heads, grid):
+    """K11 at bf16 runs K1's tensor-core body per ticket in K1's form for
+    the width (pair_plan), against the plain version and bit for bit
+    against K1 applied twice; its kernel reports the plan's shared
+    memory."""
+    (w0, w1), x, kw = _pair_case(cuda, torch.bfloat16, *grid, c=c,
+                                 heads=heads)
+    plan = bpr.pair_plan(49, c, heads, 4 * c, torch.bfloat16)
+    assert plan == wb.block_plan("window_block_rows", 49, c, heads, 4 * c,
+                                 torch.bfloat16)
+    assert plan.body == "tc" and plan.blocks_per_sm == (2 if c <= 128 else 1)
+    before = bpr.LAUNCHES["window_block_pair_rows"]
+    got = bpr.window_block_pair_rows(x, w0, w1, **kw)
+    assert bpr.LAUNCHES["window_block_pair_rows"] == before + 1
+    _check(got, bpr.window_block_pair_rows_plain(x, w0, w1, **kw), x)
+    y0 = wb.window_block_rows(x, w0, heads=heads, window=(7, 7),
+                              shift=(0, 0), padmask=kw["padmask0"])
+    y1 = wb.window_block_rows(y0, w1, heads=heads, window=(7, 7),
+                              shift=kw["shift"], mask=kw["mask1"],
+                              padmask=kw["padmask1"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, y1)
+    smem, dyn, regs = bpr.kernel_attributes(plan, torch.bfloat16, c // heads)
+    assert smem == 0 and dyn >= plan.smem_bytes > 0 and regs > 0
+
+
+@pytest.mark.cuda
+def test_k11_block1_load_policy(cuda):
+    """The y0 load of K11's block 1 (csrc/block_pair.cu's probe): one
+    thread block reads a y0 tile, waits on a flag as block 1 waits, and
+    reads it again after another thread block (on another SM) overwrote it
+    and published as block 0 publishes. Through L2 only (__ldcg, the
+    policy K11's block 1 runs) the second reading is the fresh tile, every
+    element, with the reader's fences or without. With them (K11's
+    protocol: each __threadfence() drops the SM's L1 lines) no policy
+    reads a stale element; without them the forced wrong policies -- a
+    plain load and the read-only path -- read the first reading's lines
+    again, so the policy is what keeps block 1 right should its fence
+    move."""
+    g = torch.Generator().manual_seed(11)
+    stale = {}
+    for fence in (True, False):
+        for policy in bpr.LOAD_POLICIES:
+            for _ in range(5):
+                old = torch.randn((49, 128), generator=g).to(
+                    cuda, torch.bfloat16)
+                fresh = (old.float() + 1.0 + torch.rand(
+                    (49, 128), generator=g).to(cuda)).to(torch.bfloat16)
+                y = old.clone()
+                first, second = bpr.load_probe(y, fresh, policy, fence)
+                torch.cuda.synchronize()
+                assert torch.equal(first, old) and torch.equal(y, fresh)
+                n = (second != fresh).sum().item()
+                stale[policy, fence] = stale.get((policy, fence), 0) + n
+    print("stale elements of 5 x 6272 per (policy, fence):", stale)
+    assert all(stale[p, True] == 0 for p in bpr.LOAD_POLICIES)
+    assert stale["l2", False] == 0
+    assert stale["plain", False] > 0 and stale["read_only", False] > 0
 
 
 @pytest.mark.cuda
 def test_block_pair_swin_s_width_matches_plain(cuda):
+    """swin_S's stage-2 width (C = 192, 6 heads) takes the form block_plan
+    gives it (one block of 16 warps an SM)."""
     (w0, w1), x, kw = _pair_case(cuda, torch.bfloat16, 14, 14, 10, 10,
                                  c=192, heads=6)
+    plan = bpr.pair_plan(49, 192, 6, 768, torch.bfloat16)
+    assert (plan.body, plan.blocks_per_sm) == ("tc", 1)
     _check(bpr.window_block_pair_rows(x, w0, w1, **kw),
            bpr.window_block_pair_rows_plain(x, w0, w1, **kw), x)
 
