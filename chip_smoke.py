@@ -59,7 +59,9 @@ outputs by the slice's criteria); the training
 kernels (K8 at the Swin's two stages and the style transformer's shape, K9
 in its two forms, K10 at the three row shapes with and without LN, each
 forward and backward, bf16 and f32, against the plain forward and
-torch.autograd of it; the backward passes of K5 and K7 at the decoder's
+torch.autograd of it, K10's rows with the body that ran -- its
+tensor-core bodies at bf16 -- and its registers, local memory (spills)
+and shared memory; the backward passes of K5 and K7 at the decoder's
 training shapes); train_grads (the first step's gradients per parameter
 group: f32 with every kernel on against the f32 route with every kernel
 off, and the bf16 kernel path's error against the bf16 plain route's);
@@ -708,12 +710,14 @@ def mlp_cost(backward: bool, rows: int, c: int, hidden: int, dtype,
 def run_grad_case(rows: list, entry: str, label: str, dtype, *, leaves,
                   function, plain, grads_out, fwd_kernel, fwd_plain,
                   bwd_kernel, bwd_plain, residual, names, cost_fwd,
-                  cost_bwd, smem_fwd, smem_bwd) -> None:
+                  cost_bwd, smem_fwd, smem_bwd, attrs=None) -> None:
     """One training kernel: the kernel path (the autograd Function on CUDA
     tensors: the forward and the backward kernels) against the plain
     forward and torch.autograd of it, on the same inputs; then the times of
     the forward kernel, the backward kernel, the plain forward and the
-    explicit plain backward. Emits one kernels line per direction."""
+    explicit plain backward. Emits one kernels line per direction, with
+    ``attrs(backward)`` (the body that ran, read after its launches) where
+    given."""
     kern = [t.detach().clone().requires_grad_() if t is not None else None
             for t in leaves]
     ref_in = [t.detach().clone().requires_grad_() if t is not None else None
@@ -761,7 +765,8 @@ def run_grad_case(rows: list, entry: str, label: str, dtype, *, leaves,
                    bound_ms=max(t_ops, t_bytes), ops_ms=t_ops,
                    bytes_ms=t_bytes,
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   gflop=flops / 1e9, mbytes=nbytes / 1e6, smem_bytes=smem)
+                   gflop=flops / 1e9, mbytes=nbytes / 1e6, smem_bytes=smem,
+                   **(attrs(suffix == "_bwd") if attrs is not None else {}))
         emit("kernels", **row)
         rows.append(row)
 
@@ -778,6 +783,16 @@ MLP_SHAPES = (("swin_stage1", 16 * 64 * 64, 128, True),
               ("swin_stage2", 16 * 32 * 32, 256, True),
               ("st_ln", 8 * 32 * 32, 256, True),
               ("st", 8 * 32 * 32, 256, False))
+
+
+def mlp_attributes(plan, dtype, backward: bool) -> dict:
+    """The body a K10 call ran (its plan's) and its registers, local memory
+    (spills) and static and dynamic shared memory."""
+    smem, dyn, regs, local = lm.kernel_attributes(plan, dtype, backward)
+    body = (f"mlp_tc_x{plan.blocks_per_sm}_kp{plan.kp}_s{plan.stages}"
+            if plan.body == "tc" else "ln_mlp_scalar")
+    return dict(body=body, registers=regs, local_bytes=local,
+                smem_static=smem, smem_dynamic=dyn)
 
 
 def train_kernel_cases(gen, rows):
@@ -880,6 +895,8 @@ def train_kernel_cases(gen, rows):
                     smem_bwd=wa.smem_bytes(49, c, heads, dtype, 2, True))
         for label, nrows, c, use_norm in MLP_SHAPES:
             hidden = 4 * c
+            plans = {b: lm.mlp_plan(nrows, c, hidden, b, dtype)
+                     for b in (False, True)}
             x = randn((nrows, c)).to(dtype)
             gy = randn((nrows, c)).to(dtype)
             w = [randn((c, hidden), c ** -0.5), randn(hidden, 0.02),
@@ -904,8 +921,11 @@ def train_kernel_cases(gen, rows):
                     :5 + 2 * use_norm],
                 cost_fwd=mlp_cost(False, nrows, c, hidden, dtype, use_norm),
                 cost_bwd=mlp_cost(True, nrows, c, hidden, dtype, use_norm),
-                smem_fwd=lm.smem_bytes(c, hidden, dtype, False),
-                smem_bwd=lm.smem_bytes(c, hidden, dtype, True))
+                smem_fwd=lm.smem_bytes(plans[False], c, hidden, dtype,
+                                       False),
+                smem_bwd=lm.smem_bytes(plans[True], c, hidden, dtype, True),
+                attrs=lambda b, plans=plans, dtype=dtype: mlp_attributes(
+                    plans[b], dtype, b))
     decoder_backward_cases(gen, rows)
 
 
@@ -2009,7 +2029,8 @@ def main(argv=None) -> int:
         ms = sum(r["ms"] * n for r, n in mine)
         bound = sum(r["bound_ms"] * n for r, n in mine)
         body = {k: max(r[k] for r, _ in mine)
-                for k in ("registers", "smem_dynamic", "smem_static")
+                for k in ("registers", "smem_dynamic", "smem_static",
+                          "local_bytes")
                 if k in mine[0][0]}
         if "body" in mine[0][0]:
             body["body"] = sorted({r["body"] for r, _ in mine})

@@ -17,31 +17,36 @@
 // d LN bias = sum dh. Products accumulate in f32; T roundings where the JAX
 // kernels round them; GELU with the exact erf.
 //
-// What bounds it on an H100: 4 C hidden operations per byte of a row at
-// C = 256, hidden 1024 in bf16 (16 C hidden per row against 4 C bytes),
-// some 1000 operations per byte: the tensor-core rate, not memory. This
-// first version keeps a tile of rows and its hidden activations in shared
-// memory and does the products with scalar FMAs on the CUDA cores, so it
-// runs far below that bound; wgmma is the next step for speed.
+// What bounds it on an H100: 4 C hidden operations per row forward, 12
+// backward with the weight gradients (20 with the recompute), against 4 C
+// bytes (8 C) of a row: at C = 256, hidden 1024 in bf16 some 250-400
+// operations per byte, the tensor-core rate, not memory.
 //
-// Design: 256 threads per block. The forward gives each block 28 rows (the
-// hidden tile in T stays in shared memory). The backward gives each block
-// 14 rows: their pre-activation a (f32) becomes da in place, so one f32
-// tile of (rows, hidden) carries both; the block writes round(h), round(z)
-// and round(da) of its rows to device scratch and its column sums (db1,
-// db2, the norm grads) as per-block partials. The weight gradients are
-// then sums over all rows, which grad_common.cuh's wgrad kernel computes
-// over fixed row chunks and reduces in a fixed order (no atomics: the same
-// inputs give the same bits). The backward reads W1^T and W2^T, transposed
-// by the wrapper, so that its products read the weights along rows.
-// Shared memory per block at C = 256, hidden 1024, f32 (bf16): forward
-// 144,032 B (72,352), backward 100,864 B (86,528).
+// Two bodies, chosen per call by the plan the wrapper passes
+// (ops/ln_mlp.py:mlp_plan; each entry refuses a plan that does not match
+// its layout). At bf16 where C % 32 == 0 and hidden % 128 == 0 (every
+// training shape): the tensor-core bodies of mlp_tc.cuh, one 64-row tile
+// of rows a block, mma.sync products over a cp.async weight ring, the
+// forward K1's own MLP steps. Every other call -- f32 above all -- the
+// scalar body below: 256 threads a block, 28 rows a block forward (the
+// hidden tile in T in shared memory), 14 backward, whose pre-activation a
+// (f32) becomes da in place, products as scalar FMAs (block_gemm). Both
+// backward bodies write round(h), round(z) and round(da) of their rows to
+// device scratch and their column sums (db1, db2, the norm grads) as
+// per-block partials. The weight gradients are sums over all rows, which
+// grad_common.cuh's wgrad computes over fixed row chunks -- a tensor-core
+// product at bf16, scalar FMAs at f32 -- and reduces in a fixed order (no
+// atomics: the same inputs give the same bits). The backward reads W1^T and
+// W2^T, transposed by the wrapper, so that its products read the weights
+// along rows. Scalar shared memory per block at C = 256, hidden 1024, f32
+// (bf16): forward 144,032 B (72,352), backward 100,864 B (86,528).
 //
 // Built by ops/_build.py: nvcc -gencode arch=compute_90a,code=sm_90a -O3
 // -shared -Xcompiler -fPIC. Plain C interface; each entry returns the CUDA
 // error code of its launches (0 on success).
 
 #include "grad_common.cuh"
+#include "mlp_tc.cuh"
 
 namespace mmst {
 
@@ -72,6 +77,7 @@ struct LnMlpArgs {
   float* dnb;         // (C)
   long long dtype;    // 0 float32, 1 bfloat16
   long long rows, C, hidden, wsplit;
+  TcPlan plan;        // the body and its tiling (body 0: the scalar one)
 };
 
 }  // namespace mmst
@@ -83,7 +89,6 @@ using mmst::LnMlpArgs;
 constexpr int kRowsFwd = 28;
 constexpr int kRowsBwd = 14;
 constexpr float kInvSqrt2 = 0.70710678118654752f;
-constexpr float kInvSqrt2Pi = 0.39894228040143268f;
 
 struct Layout {
   size_t h, z, g, dh, mean, rstd, m1, m2, total;
@@ -285,9 +290,88 @@ int launch(Kernel kernel, const LnMlpArgs& a, bool bwd, cudaStream_t s) {
   return launch_kernel(kernel, grid, L.total, s, a);
 }
 
+// The tensor-core bodies' kernels: one 64-row tile a block. The forward
+// in K1's two forms (two blocks of 8 warps an SM with a ring of 2 tiles,
+// or one of 16 warps with 3), the backward one block of 16 warps an SM
+// with a ring of S tiles (2 of 64 rows, or 4 of 32 where C % 64 != 0).
+template <int S, int MINB, int NT>
+__global__ void __launch_bounds__(NT, MINB)
+ln_mlp_fwd_tc_kernel(const LnMlpArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  ln_mlp_fwd_tc<S, NT>(a, smem);
+}
+
+template <int S>
+__global__ void __launch_bounds__(512, 1)
+ln_mlp_bwd_tc_kernel(const LnMlpArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  ln_mlp_bwd_tc<S, 512>(a, smem);
+}
+
+// What a tensor-core launch checks of the plan it is given: bf16, C % 32
+// == 0, hidden a multiple of 128, a form of ops/ln_mlp.py's MLP_FWD_FORMS
+// or MLP_BWD_FORMS (blocks an SM, kp, stages; two blocks an SM only where
+// C <= 128), 64-row tiles, 128-column panels, and shared memory equal to
+// the body's layout and within a block's share of an SM. A mismatch is
+// refused, never run.
+inline bool mlp_plan_ok(const LnMlpArgs& a, bool bwd) {
+  const mmst::TcPlan& p = a.plan;
+  const bool form =
+      bwd ? p.body == 1 && ((p.kp == 64 && p.stages == 2) ||
+                            (p.kp == 32 && p.stages == 4))
+          : (p.body == 2 && p.kp == 32 && p.stages == 2 &&
+             a.C <= kTcPanel) ||
+                (p.body == 1 && (p.kp == 64 || p.kp == 32) &&
+                 p.stages == 3);
+  return form && a.dtype == 1 && a.rows >= 1 && p.rows == kTcRows &&
+         p.panel == kTcPanel && a.C >= 32 && a.C % 32 == 0 &&
+         a.C % p.kp == 0 && a.hidden >= kTcPanel &&
+         a.hidden % kTcPanel == 0 &&
+         p.smem_bytes ==
+             static_cast<long long>(
+                 tc_mlp_layout(static_cast<int>(a.C),
+                               static_cast<int>(p.kp),
+                               static_cast<int>(p.stages), bwd)
+                     .total) &&
+         p.smem_bytes <= (p.body == 2 ? 115712 : 232448);
+}
+
+int launch_tc(const LnMlpArgs& a, bool bwd, cudaStream_t s) {
+  if (!mlp_plan_ok(a, bwd)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((a.rows + kTcRows - 1) / kTcRows));
+  const size_t bytes = static_cast<size_t>(a.plan.smem_bytes);
+  if (bwd)
+    return a.plan.stages == 2
+               ? launch_kernel(ln_mlp_bwd_tc_kernel<2>, grid, bytes, s, a,
+                               512)
+               : launch_kernel(ln_mlp_bwd_tc_kernel<4>, grid, bytes, s, a,
+                               512);
+  return a.plan.body == 2
+             ? launch_kernel(ln_mlp_fwd_tc_kernel<2, 2, 256>, grid, bytes, s,
+                             a, 256)
+             : launch_kernel(ln_mlp_fwd_tc_kernel<3, 1, 512>, grid, bytes, s,
+                             a, 512);
+}
+
+// The forward: the plan's body.
+int forward(const LnMlpArgs& a, cudaStream_t s) {
+  if (a.plan.body == 1 || a.plan.body == 2) return launch_tc(a, false, s);
+  if (a.plan.body != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.dtype == 1)
+    return launch<__nv_bfloat16>(ln_mlp_fwd_kernel<__nv_bfloat16>, a, false,
+                                 s);
+  return launch<float>(ln_mlp_fwd_kernel<float>, a, false, s);
+}
+
+// The backward: the plan's main body, then the two weight gradients and
+// the reductions of the column partials (one row of part_vec per tile of
+// the body).
 template <typename T>
 int backward(const LnMlpArgs& a, cudaStream_t s) {
-  int err = launch<T>(ln_mlp_bwd_kernel<T>, a, true, s);
+  const bool tc = a.plan.body == 1;
+  if (a.plan.body != 0 && !tc) return static_cast<int>(cudaErrorInvalidValue);
+  int err = tc ? launch_tc(a, true, s)
+               : launch<T>(ln_mlp_bwd_kernel<T>, a, true, s);
   if (err != 0) return err;
   const int C = static_cast<int>(a.C), hidden = static_cast<int>(a.hidden);
   const int splits = static_cast<int>(a.wsplit);
@@ -301,7 +385,8 @@ int backward(const LnMlpArgs& a, cudaStream_t s) {
                           a.part_w, a.dw2, a.rows, hidden, C},
               splits, s);
   if (err != 0) return err;
-  const long long tiles = (a.rows + kRowsBwd - 1) / kRowsBwd;
+  const int r = tc ? kTcRows : kRowsBwd;
+  const long long tiles = (a.rows + r - 1) / r;
   const long long stride = hidden + 3LL * C;
   err = reduce_parts(a.part_vec, tiles, stride, hidden, a.db1, s);
   if (err != 0) return err;
@@ -313,11 +398,21 @@ int backward(const LnMlpArgs& a, cudaStream_t s) {
                       s);
 }
 
+template <typename Kernel>
+int local_attributes(Kernel kernel, long long* smem, long long* dyn,
+                     long long* regs, long long* local) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *local = static_cast<long long>(attr.localSizeBytes);
+  return attributes_of(kernel, smem, dyn, regs);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory in bytes of one block of the forward (bwd 0) or the
+// Shared memory in bytes of one block of the scalar forward (bwd 0) or
 // backward (bwd 1) row kernel.
 long long mmst_ln_mlp_smem_bytes(long long c, long long hidden,
                                  long long tsize, long long bwd) {
@@ -327,17 +422,47 @@ long long mmst_ln_mlp_smem_bytes(long long c, long long hidden,
           .total);
 }
 
-// Rows per block of the forward (bwd 0) or the backward (bwd 1).
+// Rows per block of the scalar forward (bwd 0) or backward (bwd 1).
 long long mmst_ln_mlp_rows_per_block(long long bwd) {
   return bwd != 0 ? kRowsBwd : kRowsFwd;
 }
 
+// Static shared memory, dynamic shared memory opted in so far on the
+// current device, registers and local memory (spills) per thread of the
+// kernel of the forward (bwd 0) or backward (bwd 1): body 0 the scalar
+// kernel at dtype (0 f32, 1 bf16), body 1 or 2 the tensor-core kernel at
+// that many blocks an SM with a ring of `stages`.
+int mmst_ln_mlp_attributes(long long body, long long stages, long long dtype,
+                           long long bwd, long long* smem, long long* dyn,
+                           long long* regs, long long* local) {
+  if (bwd != 0) {
+    if (body == 1 && stages == 2)
+      return local_attributes(ln_mlp_bwd_tc_kernel<2>, smem, dyn, regs,
+                              local);
+    if (body == 1 && stages == 4)
+      return local_attributes(ln_mlp_bwd_tc_kernel<4>, smem, dyn, regs,
+                              local);
+    if (body != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return dtype == 1 ? local_attributes(ln_mlp_bwd_kernel<__nv_bfloat16>,
+                                         smem, dyn, regs, local)
+                      : local_attributes(ln_mlp_bwd_kernel<float>, smem, dyn,
+                                         regs, local);
+  }
+  if (body == 2)
+    return local_attributes(ln_mlp_fwd_tc_kernel<2, 2, 256>, smem, dyn, regs,
+                            local);
+  if (body == 1)
+    return local_attributes(ln_mlp_fwd_tc_kernel<3, 1, 512>, smem, dyn, regs,
+                            local);
+  if (body != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dtype == 1 ? local_attributes(ln_mlp_fwd_kernel<__nv_bfloat16>,
+                                       smem, dyn, regs, local)
+                    : local_attributes(ln_mlp_fwd_kernel<float>, smem, dyn,
+                                       regs, local);
+}
+
 int mmst_ln_mlp_residual(const mmst::LnMlpArgs* a, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->dtype == 1)
-    return launch<__nv_bfloat16>(ln_mlp_fwd_kernel<__nv_bfloat16>, *a, false,
-                                 s);
-  return launch<float>(ln_mlp_fwd_kernel<float>, *a, false, s);
+  return forward(*a, static_cast<cudaStream_t>(stream));
 }
 
 int mmst_ln_mlp_residual_bwd(const mmst::LnMlpArgs* a, void* stream) {

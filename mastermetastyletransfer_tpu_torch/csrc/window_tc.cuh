@@ -3,10 +3,11 @@
 // bfloat16; window_block.cu has the functions and the launch,
 // ops/window_block.py:block_plan the tiling, and
 // tests/test_torch_window_tc_plan.py replays it in torch) and of each
-// ticket of K11 (block_pair.cu), and the pieces that K3's and K4's bodies
-// (style_tc.cuh, tail_tc.cuh) share with it: the weight ring over a tile
-// schedule, the 64-row panel product, a head group's attention and the row
-// statistics. The
+// ticket of K11 (block_pair.cu), and the pieces that K3's, K4's and K10's
+// bodies (style_tc.cuh, tail_tc.cuh, mlp_tc.cuh) share with it: the weight
+// ring over a tile schedule, the 64-row panel product, a head group's
+// attention, the row statistics and -- K10's forward -- the token load and
+// the MLP half of the block (tc_load_rows, tc_mlp_residual). The
 // block computes what block_window (window_common.cuh) computes, with the
 // same rounding points; only the order of the f32 sums differs. A null LN1
 // (K2's encoder Key block) makes the normed tile the raw input times the
@@ -478,6 +479,112 @@ __device__ __forceinline__ uint4 load16(const void* p) {
   return *q;
 }
 
+// Rows 0..N-1 of a tile into the f32 tile xs (row stride ldx), 16 bytes a
+// piece: row t from x[toff[t] ..] with load16<kLoad>. No barrier.
+template <int NT, int kLoad>
+__device__ __forceinline__ void tc_load_rows(const __nv_bfloat16* x,
+                                             const long long* toff, int N,
+                                             int C, float* xs, int ldx) {
+  const int vpc = C >> 3;
+  for (int i = threadIdx.x; i < N * vpc; i += NT) {
+    const int tk = i / vpc, c = (i - tk * vpc) * 8;
+    const uint4 u = load16<kLoad>(x + toff[tk] + c);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+    float* d = xs + tk * ldx + c;
+    *reinterpret_cast<float4*>(d) =
+        make_float4(__bfloat162float(e[0]), __bfloat162float(e[1]),
+                    __bfloat162float(e[2]), __bfloat162float(e[3]));
+    *reinterpret_cast<float4*>(d + 4) =
+        make_float4(__bfloat162float(e[4]), __bfloat162float(e[5]),
+                    __bfloat162float(e[6]), __bfloat162float(e[7]));
+  }
+}
+
+// y -> y + fc2(GELU(fc1(LN(y)))) + b2 on a 64-row tile whose rows 0..N-1
+// the f32 tile xs holds (row stride ldx; every thread past a barrier since
+// they were written), then the store: K1's steps 5-7 (K2's, K11's) and the
+// whole of K10's forward (mlp_tc.cuh). The ring's next tiles are the MLP's
+// (MlpTiles' order). LN (p.n2s, p.n2b; null: the plain y) rounded to bf16
+// into ln (row stride lda) as the MLP input, its pad rows N..63 zero, while
+// xs takes p.b2; per 128-wide hidden chunk j, hid = round(GELU(ln . w1 +
+// p.b1)) (row stride kTcLdp), then xs accumulates hid . w2 panel by panel;
+// last, row t rounded to bf16 into out[toff[t] ..], 16 bytes a piece. The
+// vectors are read from p where they are used, as the block's other steps
+// read theirs (passed as pointers, ptxas spills 4 more bytes in K11).
+template <int NT, typename Ring, typename W>
+__device__ __forceinline__ void tc_mlp_residual(
+    const W& p, Ring& ring, float* xs, int ldx, __nv_bfloat16* ln, int lda,
+    __nv_bfloat16* hid, float* mean, float* rstd, const long long* toff,
+    int N, int C, int hidden, __nv_bfloat16* out) {
+  const int tid = threadIdx.x;
+  const int ng = ring.tiles.ng;
+  // LN (or the plain y) rounded to bf16 as the MLP input, pad rows zero,
+  // and the residual stream takes b2.
+  if (p.n2s != nullptr) {
+    tc_row_stats<NT>(xs, ldx, N, C, mean, rstd);
+    __syncthreads();
+  }
+  for (int i = tid; i < kTcRows * (C >> 1); i += NT) {
+    const int r = i / (C >> 1), c = (i - r * (C >> 1)) * 2;
+    if (r >= N) {
+      *reinterpret_cast<uint32_t*>(ln + r * lda + c) = 0u;
+      continue;
+    }
+    float2* d = reinterpret_cast<float2*>(xs + r * ldx + c);
+    const float2 y = *d;
+    float v0 = y.x, v1 = y.y;
+    if (p.n2s != nullptr) {
+      const float2 s2 = __ldg(reinterpret_cast<const float2*>(p.n2s + c));
+      const float2 b2 = __ldg(reinterpret_cast<const float2*>(p.n2b + c));
+      v0 = (v0 - mean[r]) * rstd[r] * s2.x + b2.x;
+      v1 = (v1 - mean[r]) * rstd[r] * s2.y + b2.y;
+    }
+    *reinterpret_cast<uint32_t*>(ln + r * lda + c) = pack_bf16x2(v0, v1);
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(p.b2 + c));
+    *d = make_float2(y.x + bb.x, y.y + bb.y);
+  }
+
+  // The MLP by 128-wide hidden chunks: hid = GELU(ln . w1 + b1) rounded to
+  // bf16, then the residual stream accumulates hid . w2.
+  for (int j = 0; j < hidden / kTcPanel; ++j) {
+    ring.gemm(ln, lda, C, kTcPanel);
+    ring.epilogue(kTcPanel, p.b1 + j * kTcPanel,
+                  [&](int r, int c, float a0, float a1, float b0, float b1) {
+      *reinterpret_cast<uint32_t*>(hid + r * kTcLdp + c) =
+          pack_bf16x2(gelu(a0 + b0), gelu(a1 + b1));
+    });
+    for (int pn = 0; pn < ng; ++pn) {
+      const int width = min(kTcPanel, C - pn * kTcPanel);
+      ring.gemm(hid, kTcLdp, kTcPanel, width);
+      ring.epilogue(width, nullptr,
+                    [&](int r, int c, float a0, float a1, float, float) {
+        if (r < N) {
+          float2* d = reinterpret_cast<float2*>(xs + r * ldx +
+                                                pn * kTcPanel + c);
+          float2 v = *d;
+          v.x += a0;
+          v.y += a1;
+          *d = v;
+        }
+      });
+    }
+  }
+  __syncthreads();
+
+  // Store, each row where it was read, 16 bytes a piece.
+  const int vpc = C >> 3;
+  for (int i = tid; i < N * vpc; i += NT) {
+    const int tk = i / vpc, c = (i - tk * vpc) * 8;
+    const float* s = xs + tk * ldx + c;
+    uint4 u;
+    u.x = pack_bf16x2(s[0], s[1]);
+    u.y = pack_bf16x2(s[2], s[3]);
+    u.z = pack_bf16x2(s[4], s[5]);
+    u.w = pack_bf16x2(s[6], s[7]);
+    *reinterpret_cast<uint4*>(out + toff[tk] + c) = u;
+  }
+}
+
 // The block of NT threads on one window of N <= 64 tokens, head dim DH
 // (16, 32 or 64), C % 32 == 0, hidden % 128 == 0, weight tiles of kp (32
 // or 64) rows in a ring of S; ob_in_ln (C <= 128 only) as the layout's.
@@ -519,20 +626,8 @@ __device__ __forceinline__ void block_window_tc(
 
   ring.start();
 
-  // 1. The window's tokens into the f32 residual stream, 16 bytes a piece.
-  const int vpc = C >> 3;
-  for (int i = tid; i < N * vpc; i += NT) {
-    const int tk = i / vpc, c = (i - tk * vpc) * 8;
-    const uint4 u = load16<kLoad>(x + toff[tk] + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&u);
-    float* d = xs + tk * LDX + c;
-    *reinterpret_cast<float4*>(d) =
-        make_float4(__bfloat162float(e[0]), __bfloat162float(e[1]),
-                    __bfloat162float(e[2]), __bfloat162float(e[3]));
-    *reinterpret_cast<float4*>(d + 4) =
-        make_float4(__bfloat162float(e[4]), __bfloat162float(e[5]),
-                    __bfloat162float(e[6]), __bfloat162float(e[7]));
-  }
+  // 1. The window's tokens into the f32 residual stream.
+  tc_load_rows<NT, kLoad>(x, toff, N, C, xs, LDX);
   __syncthreads();
 
   // 2. LN1 rounded to bf16 (without LN1 the raw input, exact), pad tokens
@@ -596,67 +691,9 @@ __device__ __forceinline__ void block_window_tc(
   }
   __syncthreads();
 
-  // 5. LN2 (or the plain y) rounded to bf16 as the MLP input, pad rows
-  //    zero, and the residual stream takes b2.
-  if (p.n2s != nullptr) stats();
-  for (int i = tid; i < kTcRows * (C >> 1); i += NT) {
-    const int r = i / (C >> 1), c = (i - r * (C >> 1)) * 2;
-    if (r >= N) {
-      *reinterpret_cast<uint32_t*>(ln + r * LDA + c) = 0u;
-      continue;
-    }
-    float2* d = reinterpret_cast<float2*>(xs + r * LDX + c);
-    const float2 y = *d;
-    float v0 = y.x, v1 = y.y;
-    if (p.n2s != nullptr) {
-      const float2 s2 = __ldg(reinterpret_cast<const float2*>(p.n2s + c));
-      const float2 b2 = __ldg(reinterpret_cast<const float2*>(p.n2b + c));
-      v0 = (v0 - mean[r]) * rstd[r] * s2.x + b2.x;
-      v1 = (v1 - mean[r]) * rstd[r] * s2.y + b2.y;
-    }
-    *reinterpret_cast<uint32_t*>(ln + r * LDA + c) = pack_bf16x2(v0, v1);
-    const float2 bb = __ldg(reinterpret_cast<const float2*>(p.b2 + c));
-    *d = make_float2(y.x + bb.x, y.y + bb.y);
-  }
-
-  // 6. The MLP by 128-wide hidden chunks: hid = GELU(ln . w1 + b1) rounded
-  //    to bf16, then the residual stream accumulates hid . w2.
-  for (int j = 0; j < hidden / kTcPanel; ++j) {
-    ring.gemm(ln, LDA, C, kTcPanel);
-    ring.epilogue(kTcPanel, p.b1 + j * kTcPanel,
-                  [&](int r, int c, float a0, float a1, float b0, float b1) {
-      *reinterpret_cast<uint32_t*>(hid + r * kTcLdp + c) =
-          pack_bf16x2(gelu(a0 + b0), gelu(a1 + b1));
-    });
-    for (int pn = 0; pn < ng; ++pn) {
-      const int width = min(kTcPanel, C - pn * kTcPanel);
-      ring.gemm(hid, kTcLdp, kTcPanel, width);
-      ring.epilogue(width, nullptr,
-                    [&](int r, int c, float a0, float a1, float, float) {
-        if (r < N) {
-          float2* d = reinterpret_cast<float2*>(xs + r * LDX +
-                                                pn * kTcPanel + c);
-          float2 v = *d;
-          v.x += a0;
-          v.y += a1;
-          *d = v;
-        }
-      });
-    }
-  }
-  __syncthreads();
-
-  // 7. Store, each token where it was read, 16 bytes a piece.
-  for (int i = tid; i < N * vpc; i += NT) {
-    const int tk = i / vpc, c = (i - tk * vpc) * 8;
-    const float* s = xs + tk * LDX + c;
-    uint4 u;
-    u.x = pack_bf16x2(s[0], s[1]);
-    u.y = pack_bf16x2(s[2], s[3]);
-    u.z = pack_bf16x2(s[4], s[5]);
-    u.w = pack_bf16x2(s[6], s[7]);
-    *reinterpret_cast<uint4*>(out + toff[tk] + c) = u;
-  }
+  // 5-7. LN2, the MLP and the store.
+  tc_mlp_residual<NT>(p, ring, xs, LDX, ln, LDA, hid, mean, rstd, toff, N,
+                      C, hidden, out);
 }
 
 }  // namespace

@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from mastermetastyletransfer_tpu_torch.ops import _build
 from mastermetastyletransfer_tpu_torch.ops.window_block import (
     MAX_SMEM_BYTES, TC_PANEL, TC_ROWS, BlockPlan, TcPlan, _align16, _ln,
-    _mat, _mlp_tiles, _need, _on_cuda, _vec, attend, refuse_grad,
+    _mat, _need, _on_cuda, _vec, attend, mlp_tile_schedule, refuse_grad,
 )
 from mastermetastyletransfer_tpu_torch.ops.windows import (
     relative_position_bias,
@@ -243,7 +243,7 @@ def tail_tile_schedule(plan: BlockPlan, c: int, hidden: int
             v = t - 2 * ng * nk
             pn, kt = v // (2 * nk), v % nk
             out.append(("wp", kt * kp, pn * p, kp, min(p, c - pn * p)))
-    return out + _mlp_tiles(plan, c, hidden)
+    return out + mlp_tile_schedule(plan, c, hidden)
 
 
 # ---------------------------------------------------------------------------

@@ -228,6 +228,14 @@ def smem_bytes(n: int, c: int, heads: int, dtype: torch.dtype, nv: int,
         n, c, heads, torch.finfo(dtype).bits // 8, nv, int(backward))
 
 
+def _aligned(*tensors: torch.Tensor) -> None:
+    """The bf16 weight-gradient product (csrc/grad_common.cuh) reads its
+    row operands 16 bytes a piece."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the bf16 backward's inputs and output gradients "
+                         "must start on 16-byte boundaries")
+
+
 def _check(xs: Sequence[torch.Tensor], projs: Sequence[Proj], bias, mask,
            heads: int, backward: bool):
     """What the kernels take (nv = the value streams among xs after q and
@@ -254,6 +262,8 @@ def _check(xs: Sequence[torch.Tensor], projs: Sequence[Proj], bias, mask,
     _need("bias", bias, (heads, n, n), torch.float32, dev)
     if mask is not None:
         _need("mask", mask, (nw, n, n), torch.float32, dev)
+    if backward and t == torch.bfloat16:
+        _aligned(*xs)
     smem = smem_bytes(n, c, heads, t, len(xs) - 2, backward)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"N={n}, C={c} needs {smem} bytes of shared memory "
@@ -298,7 +308,7 @@ def _bwd_scratch(x: torch.Tensor, heads: int,
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     rows = b * nw * n
-    wsplit = weight_splits(rows, (c // 32) ** 2)
+    wsplit = weight_splits(rows, c, c, x.dtype)
     return dict(
         part_vec=torch.empty((b * nw, (4 if nv == 1 else 3) * c), **f32),
         part_bias=torch.empty((b * nw, heads * n * n), **f32),
@@ -323,6 +333,15 @@ def window_attention_fwd_kernel(q, k, v, wq, wk, wv, wp, bias, mask, heads):
     return keep["out0"]
 
 
+def _grad(g: torch.Tensor, t: torch.dtype) -> torch.Tensor:
+    """An output gradient as the backward kernels read it: contiguous in
+    T, 16-byte aligned at bf16."""
+    g = g.to(t).contiguous()
+    if t == torch.bfloat16:
+        _aligned(g)
+    return g
+
+
 def window_attention_bwd_kernel(g, q, k, v, wq, wk, wv, wp, bias, mask,
                                 heads):
     _check((q, k, v), (wq, wk, wv, wp), bias, mask, heads, True)
@@ -332,7 +351,7 @@ def window_attention_bwd_kernel(g, q, k, v, wq, wk, wv, wp, bias, mask,
     keep = dict(_operands({"q": wq, "k": wk, "v0": wv, "p": wp}, q.dtype, q,
                           True),
                 **scratch, q=q, k=k, v0=v,
-                g0=g.to(q.dtype).contiguous(), rel_bias=bias, mask=mask,
+                g0=_grad(g, q.dtype), rel_bias=bias, mask=mask,
                 dq_t=torch.empty_like(q), dk_t=torch.empty_like(q),
                 dwq=torch.empty((c, c), **f32), dwk=torch.empty((c, c), **f32),
                 dbq=torch.empty(c, **f32), dbk=torch.empty(c, **f32))
@@ -362,7 +381,7 @@ def window_attention_dual_bwd_kernel(g_sigma, g_mu, q, k, v_scale, v_shift,
     t = q.dtype
     keep = dict(_operands({"v0": wvs, "v1": wvh, "p": wp}, t, q, True),
                 **scratch, q=q, k=k, v0=v_scale, v1=v_shift,
-                g0=g_sigma.to(t).contiguous(), g1=g_mu.to(t).contiguous(),
+                g0=_grad(g_sigma, t), g1=_grad(g_mu, t),
                 rel_bias=bias, mask=mask)
     _call("window_attention_dual_bwd", keep, q, heads, 2, wsplit)
     return tuple(keep[f] for f in (

@@ -265,14 +265,15 @@ def tile_schedule(plan: BlockPlan, c: int, hidden: int
         else:
             pn, kt = divmod(t - 3 * ng * nk, nk)
             out.append(("wp", kt * kp, pn * p, kp, min(p, c - pn * p)))
-    return out + _mlp_tiles(plan, c, hidden)
+    return out + mlp_tile_schedule(plan, c, hidden)
 
 
-def _mlp_tiles(plan: BlockPlan, c: int, hidden: int
-               ) -> List[Tuple[str, int, int, int, int]]:
-    """The MLP's tiles, which K1's and K4's orders share (window_tc.cuh,
-    MlpTiles): per 128-wide hidden chunk, fc1's panel over C and fc2's
-    panels over the chunk."""
+def mlp_tile_schedule(plan, c: int, hidden: int
+                      ) -> List[Tuple[str, int, int, int, int]]:
+    """The MLP's tiles, which K1's and K4's orders share and K10's forward
+    takes alone (window_tc.cuh, MlpTiles; mlp_tc.cuh, FwdMlpTiles): per
+    128-wide hidden chunk, fc1's panel over C and fc2's panels over the
+    chunk. ``plan`` is a ``BlockPlan`` or an ``ln_mlp.MlpPlan``."""
     kp, p = plan.kp, plan.panel
     nk, ng, kpc = c // kp, -(-c // p), p // kp
     out = []

@@ -940,26 +940,39 @@ def test_window_attention_dual_fwd_bwd_match_plain(cuda, dtype, shared):
     _compare_grads(names, got, ref, dtype)
 
 
+def _mlp_case(cuda, dtype, c, use_norm, seed=9):
+    """K10's inputs: x and the output's gradient (3, 37, c) -- 111 rows,
+    no multiple of either body's row tiles -- and its weights (hidden 4c),
+    with or without the norm."""
+    g = torch.Generator().manual_seed(seed)
+    hidden = 4 * c
+    x = torch.randn((3, 37, c), generator=g).to(cuda, dtype)
+    gy = torch.randn((3, 37, c), generator=g).to(cuda, dtype)
+    ws = [(torch.randn((c, hidden), generator=g) * c ** -0.5).to(cuda),
+          (torch.randn(hidden, generator=g) * 0.1).to(cuda),
+          (torch.randn((hidden, c), generator=g) * hidden ** -0.5).to(cuda),
+          (torch.randn(c, generator=g) * 0.1).to(cuda)]
+    if use_norm:
+        ws += [(1 + 0.1 * torch.randn(c, generator=g)).to(cuda),
+               (0.1 * torch.randn(c, generator=g)).to(cuda)]
+    return x, gy, ws, [None] * (0 if use_norm else 2)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [96, 128, 256])
 @pytest.mark.parametrize("use_norm", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ln_mlp_residual_fwd_bwd_match_plain(cuda, dtype, use_norm):
-    """K10 forward and backward, with and without its LayerNorm, over a
-    row count that is no multiple of the kernels' row tiles."""
+def test_ln_mlp_residual_fwd_bwd_match_plain(cuda, dtype, use_norm, c):
+    """K10 forward and backward, with and without its LayerNorm, at the
+    Swin's stage-1 width (C = 128, hidden 512), the style transformer's
+    (C = 256, hidden 1024) and C = 96 (hidden 384: the backward's ring of 4
+    x 32 rows, its form where C % 64 != 0), over a row count that is no
+    multiple of the kernels' row tiles; at bf16 the tensor-core bodies
+    (mlp_plan), whose kernels report the plan's shared memory."""
     from mastermetastyletransfer_tpu_torch.ops import ln_mlp as lm
 
-    g = torch.Generator().manual_seed(9)
-    x = torch.randn((3, 37, 256), generator=g).to(cuda, dtype)
-    gy = torch.randn((3, 37, 256), generator=g).to(cuda, dtype)
-    ws = [(torch.randn((256, 1024), generator=g) / 16).to(cuda),
-          (torch.randn(1024, generator=g) * 0.1).to(cuda),
-          (torch.randn((1024, 256), generator=g) / 32).to(cuda),
-          (torch.randn(256, generator=g) * 0.1).to(cuda)]
-    if use_norm:
-        ws += [(1 + 0.1 * torch.randn(256, generator=g)).to(cuda),
-               (0.1 * torch.randn(256, generator=g)).to(cuda)]
+    x, gy, ws, pad = _mlp_case(cuda, dtype, c, use_norm)
     kern = _leaves([x] + ws)
-    pad = [None] * (2 if not use_norm else 0)
     before = dict(lm.LAUNCHES)
     out = lm._LnMlpResidual.apply(*kern, *pad)
     got = torch.autograd.grad(out, kern, gy)
@@ -970,20 +983,63 @@ def test_ln_mlp_residual_fwd_bwd_match_plain(cuda, dtype, use_norm):
     _check(out, ref_out, x)
     for a, r in zip(got, ref):
         _grad_check(a, r, r.float().abs().max().item(), dtype)
+    for backward in (False, True):
+        plan = lm.mlp_plan(111, c, 4 * c, backward, dtype)
+        assert plan.body == ("tc" if dtype == torch.bfloat16 else "scalar")
+        if backward and plan.body == "tc":
+            assert (plan.kp, plan.stages) == ((64, 2) if c % 64 == 0
+                                              else (32, 4))
+        smem, dyn, regs, local = lm.kernel_attributes(plan, dtype, backward)
+        assert dyn >= lm.smem_bytes(plan, c, 4 * c, dtype, backward) > 0
+        assert regs > 0 and local >= 0
+        if plan.body == "tc":
+            assert smem == 0
 
 
 @pytest.mark.cuda
-def test_training_kernel_gradients_are_deterministic(cuda):
+def test_ln_mlp_entries_refuse_a_wrong_plan(cuda, monkeypatch):
+    """K10's C entries check the tensor-core plan they are given against
+    the layout and refuse a mismatch (a shared-memory size 16 bytes off, or
+    a ring the body lacks) with cudaErrorInvalidValue, launching nothing;
+    the wrappers raise."""
+    from mastermetastyletransfer_tpu_torch.ops import ln_mlp as lm
+
+    x, gy, ws, _ = _mlp_case(cuda, torch.bfloat16, 256, True)
+    plans = {b: lm.mlp_plan(111, 256, 1024, b, torch.bfloat16)
+             for b in (False, True)}
+    for change in (dict(smem_bytes=16), dict(stages=1)):
+        bad = {b: p._replace(**{k: getattr(p, k) + v
+                                for k, v in change.items()})
+               for b, p in plans.items()}
+        monkeypatch.setattr(lm, "mlp_plan", lambda r, c, h, b, t: bad[b])
+        before = dict(lm.LAUNCHES)
+        with pytest.raises(RuntimeError, match="CUDA error 1 "):
+            lm.ln_mlp_residual_fwd_kernel(x, *ws)
+        with pytest.raises(RuntimeError, match="CUDA error 1 "):
+            lm.ln_mlp_residual_bwd_kernel(gy, x, *ws[:3], *ws[4:])
+        assert lm.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_kernel_gradients_are_deterministic(cuda, dtype):
     """The weight, bias and relative-bias gradients are sums over every
-    window, reduced in a fixed order: two runs give the same bits."""
+    window or row, reduced in a fixed order: two runs give the same bits,
+    K8's and K10's (at bf16 the tensor-core bodies and weight-gradient
+    product)."""
+    from mastermetastyletransfer_tpu_torch.ops import ln_mlp as lm
     from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
 
-    xs, ws, bias, mask, (g,) = _attn_case(cuda, torch.float32, 1)
+    xs, ws, bias, mask, (g,) = _attn_case(cuda, dtype, 1)
+    x, gy, mws, _ = _mlp_case(cuda, dtype, 256, True)
     runs = []
     for _ in range(2):
         kern = _leaves(xs + ws + [bias])
         out = wa._WindowAttention.apply(*kern, mask, HEADS)
-        runs.append(torch.autograd.grad(out, kern, g))
+        grads = torch.autograd.grad(out, kern, g)
+        kern = _leaves([x] + mws)
+        out = lm._LnMlpResidual.apply(*kern)
+        runs.append(grads + torch.autograd.grad(out, kern, gy))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 

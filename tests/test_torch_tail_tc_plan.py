@@ -270,4 +270,5 @@ def test_schedule_streams_wv_once_per_stream_and_wp_twice(c, heads):
     # stream 0's columns before stream 1's
     cols = [t[2] for t in sched[:nv]]
     assert max(cols[:nv // 2]) < c <= min(cols[nv // 2:])
-    assert sched[nv + names.count("wp"):] == wb._mlp_tiles(plan, c, hidden)
+    assert sched[nv + names.count("wp"):] == wb.mlp_tile_schedule(
+        plan, c, hidden)
