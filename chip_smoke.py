@@ -59,10 +59,11 @@ outputs by the slice's criteria); the training
 kernels (K8 at the Swin's two stages and the style transformer's shape, K9
 in its two forms, K10 at the three row shapes with and without LN, each
 forward and backward, bf16 and f32, against the plain forward and
-torch.autograd of it, K10's rows with the body that ran -- its
-tensor-core bodies at bf16 -- and its registers, local memory (spills)
-and shared memory; the backward passes of K5 and K7 at the decoder's
-training shapes); train_grads (the first step's gradients per parameter
+torch.autograd of it, K8's, K9's and K10's rows with the body that ran
+-- K10's tensor-core bodies and K8's and K9's tensor-core backward at
+bf16 -- and its registers, local memory (spills) and shared memory; the
+backward passes of K5 and K7 at the decoder's training shapes);
+train_grads (the first step's gradients per parameter
 group: f32 with every kernel on against the f32 route with every kernel
 off, and the bf16 kernel path's error against the bf16 plain route's);
 train_step (one line per step: k, loss, ms, imgs/s, peak memory, the
@@ -795,6 +796,22 @@ def mlp_attributes(plan, dtype, backward: bool) -> dict:
                 smem_static=smem, smem_dynamic=dyn)
 
 
+def attn_attributes(nv: int, n: int, c: int, heads: int, dtype,
+                    backward: bool) -> dict:
+    """The body a K8 (nv 1) or K9 (nv 2) call ran -- the backward's plan's,
+    the forward's scalar one -- and its registers, local memory (spills)
+    and static and dynamic shared memory."""
+    plan = wa.attn_bwd_plan(n, c, heads, nv, dtype) if backward else None
+    smem, dyn, regs, local = wa.kernel_attributes(plan, dtype, nv, backward)
+    if plan is not None and plan.body == "tc":
+        body = (f"attn_tc_x{plan.blocks_per_sm}_g{plan.panel}_kp{plan.kp}"
+                f"_s{plan.stages}")
+    else:
+        body = "attn_bwd_scalar" if backward else "attn_fwd_scalar"
+    return dict(body=body, registers=regs, local_bytes=local,
+                smem_static=smem, smem_dynamic=dyn)
+
+
 def train_kernel_cases(gen, rows):
     """K8 at the Swin's two stages and the style transformer's shape, K9 in
     both forms (separate wv_scale/wv_shift; one wv twice), K10 at the three
@@ -843,7 +860,9 @@ def train_kernel_cases(gen, rows):
                                         dtype),
                 cost_bwd=attention_cost(1, True, b, nw, 49, c, heads, dtype),
                 smem_fwd=wa.smem_bytes(49, c, heads, dtype, 1, False),
-                smem_bwd=wa.smem_bytes(49, c, heads, dtype, 1, True))
+                smem_bwd=wa.smem_bytes(49, c, heads, dtype, 1, True),
+                attrs=lambda bwd, c=c, heads=heads, dtype=dtype:
+                    attn_attributes(1, 49, c, heads, dtype, bwd))
             if label != "style_transformer":
                 continue
             # K9 with its own value projections (the decoder's form), and
@@ -892,7 +911,9 @@ def train_kernel_cases(gen, rows):
                     cost_bwd=attention_cost(2, True, b, nw, 49, c, heads,
                                             dtype),
                     smem_fwd=wa.smem_bytes(49, c, heads, dtype, 2, False),
-                    smem_bwd=wa.smem_bytes(49, c, heads, dtype, 2, True))
+                    smem_bwd=wa.smem_bytes(49, c, heads, dtype, 2, True),
+                    attrs=lambda bwd, c=c, heads=heads, dtype=dtype:
+                        attn_attributes(2, 49, c, heads, dtype, bwd))
         for label, nrows, c, use_norm in MLP_SHAPES:
             hidden = 4 * c
             plans = {b: lm.mlp_plan(nrows, c, hidden, b, dtype)

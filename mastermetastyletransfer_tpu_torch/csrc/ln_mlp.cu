@@ -398,16 +398,6 @@ int backward(const LnMlpArgs& a, cudaStream_t s) {
                       s);
 }
 
-template <typename Kernel>
-int local_attributes(Kernel kernel, long long* smem, long long* dyn,
-                     long long* regs, long long* local) {
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *local = static_cast<long long>(attr.localSizeBytes);
-  return attributes_of(kernel, smem, dyn, regs);
-}
-
 }  // namespace
 
 extern "C" {

@@ -35,29 +35,37 @@
 // What bounds it on an H100: per window 8 N C^2 (NV = 1) or 6 N C^2
 // (NV = 2) operations of projections, and 4 N^2 C per stream of attention,
 // against a few window tiles of bytes: some 400 operations per byte at
-// C = 256 in bf16, so the tensor-core rate, not memory. This first version
-// does its products with scalar FMAs on the CUDA cores, one head at a time
-// in shared memory, so it runs far below that bound; wgmma is the next step
-// for speed.
+// C = 256 in bf16, so the tensor-core rate, not memory.
 //
-// Design: one block of 256 threads per (window, image). The forward keeps a
-// head's q, k, v (N x dh) and scores in shared memory and the heads' output
-// tiles (N x C per stream); the projection GEMMs read the window's inputs
-// from device memory (each row broadcast to a warp). The backward keeps a
-// head's q_s, q, k, v_s, dO_s, P and dS (N x dh and N x N) and writes the
-// rounded d{q,k,v} and head outputs of its window to device scratch; the
-// input grads then read them back through W^T (transposed by the wrapper)
-// after a barrier. Weight, bias and relative-bias grads sum over every
-// window: each block writes f32 partials of its own window, and
-// grad_common.cuh sums them in a fixed order (deterministic, no atomics).
-// Shared memory per block at N = 49, C = 256, 8 heads, f32 (bf16): forward
-// 79,648 B (45,152) with one value stream, 130,032 B (70,448) with two;
-// backward 58,320 B (42,640) and 71,280 B (49,328).
+// The forward bodies and the f32 backward run scalar FMAs on the CUDA
+// cores, one head at a time in shared memory, far below that bound. The
+// bf16 backward runs on the tensor cores where the plan the wrapper passes
+// says so (ops/window_attention.py:attn_bwd_plan; every training shape:
+// N <= 64, head dim 32, C a multiple of the head group): attn_tc.cuh, one
+// block per window, head group by head group, mma.sync products over a
+// cp.async weight ring; the entry refuses a plan that does not match its
+// layout. Every other backward call runs the scalar body below.
+//
+// Scalar design: one block of 256 threads per (window, image). The forward
+// keeps a head's q, k, v (N x dh) and scores in shared memory and the
+// heads' output tiles (N x C per stream); the projection GEMMs read the
+// window's inputs from device memory (each row broadcast to a warp). The
+// backward keeps a head's q_s, q, k, v_s, dO_s, P and dS (N x dh and N x
+// N) and writes the rounded d{q,k,v} and head outputs of its window to
+// device scratch; the input grads then read them back through W^T
+// (transposed by the wrapper) after a barrier. Weight, bias and
+// relative-bias grads sum over every window: each block (of either body)
+// writes f32 partials of its own window, and grad_common.cuh sums them in
+// a fixed order (deterministic, no atomics). Shared memory per block at
+// N = 49, C = 256, 8 heads, f32 (bf16): forward 79,648 B (45,152) with one
+// value stream, 130,032 B (70,448) with two; backward 58,320 B (42,640)
+// and 71,280 B (49,328).
 //
 // Built by ops/_build.py: nvcc -gencode arch=compute_90a,code=sm_90a -O3
 // -shared -Xcompiler -fPIC. Plain C interface; each entry returns the CUDA
 // error code of its launches (0 on success).
 
+#include "attn_tc.cuh"
 #include "grad_common.cuh"
 
 namespace mmst {
@@ -119,6 +127,8 @@ struct AttnArgs {
   double scale;       // head_dim ** -0.5
   long long dtype;    // 0 float32, 1 bfloat16
   long long B, nW, N, C, heads, nv, wsplit;
+  TcPlan plan;        // the backward's body and its tiling (body 0: the
+                      // scalar one; the forward reads none)
 };
 
 }  // namespace mmst
@@ -469,13 +479,60 @@ int forward(const AttnArgs& a, cudaStream_t s) {
   return launch_kernel(attn_fwd_kernel<T, NV>, grid, L.total, s, a);
 }
 
+// The tensor-core backward's kernel for NV value streams: one block of 16
+// warps an SM.
+template <int NV>
+__global__ void __launch_bounds__(kAtThreads, 1) attn_bwd_tc_kernel(
+    const AttnArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  attn_bwd_tc<NV>(a, smem);
+}
+
+// What a tensor-core launch checks of the plan it is given: bf16, the form
+// of ops/window_attention.py's ATTN_BWD_FORM (one block an SM, 128-column
+// head groups, kp 64, a ring of 2), N <= 64 tokens in 64 rows, head dim
+// 32, C a multiple of the group, and shared memory equal to the body's
+// layout and within a block's share of an SM. A mismatch is refused,
+// never run.
+inline bool attn_plan_ok(const AttnArgs& a) {
+  const mmst::TcPlan& p = a.plan;
+  return p.body == 1 && p.panel == kAtGroup && p.kp == kAtKp &&
+         a.dtype == 1 && p.rows == kTcRows && p.stages == 2 && a.N >= 1 &&
+         a.N <= kTcRows && a.heads * kAtDh == a.C && a.C % kAtGroup == 0 &&
+         p.smem_bytes ==
+             static_cast<long long>(
+                 attn_tc_layout(static_cast<int>(a.C), kAtGroup, kAtKp, 2,
+                                static_cast<int>(a.nv))
+                     .total) &&
+         p.smem_bytes <= 232448;
+}
+
+template <int NV>
+int launch_tc(const AttnArgs& a, cudaStream_t s) {
+  if (a.nv != NV || !attn_plan_ok(a))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(a.nW), static_cast<unsigned>(a.B));
+  return launch_kernel(attn_bwd_tc_kernel<NV>, grid,
+                       static_cast<size_t>(a.plan.smem_bytes), s, a,
+                       kAtThreads);
+}
+
+// The backward: the plan's body, then the weight gradients and the
+// reductions of the per-window partials.
 template <typename T, int NV>
 int backward(const AttnArgs& a, cudaStream_t s) {
   const int C = static_cast<int>(a.C), N = static_cast<int>(a.N);
-  const Layout L = smem_layout(N, C, static_cast<int>(a.C / a.heads),
-                               sizeof(T), NV, true);
-  const dim3 grid(static_cast<unsigned>(a.nW), static_cast<unsigned>(a.B));
-  int err = launch_kernel(attn_bwd_kernel<T, NV>, grid, L.total, s, a);
+  int err;
+  if (a.plan.body != 0) {
+    if (!std::is_same<T, __nv_bfloat16>::value)
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_tc<NV>(a, s);
+  } else {
+    const Layout L = smem_layout(N, C, static_cast<int>(a.C / a.heads),
+                                 sizeof(T), NV, true);
+    const dim3 grid(static_cast<unsigned>(a.nW), static_cast<unsigned>(a.B));
+    err = launch_kernel(attn_bwd_kernel<T, NV>, grid, L.total, s, a);
+  }
   if (err != 0) return err;
   const long long rows = a.B * a.nW * a.N;
   const int splits = static_cast<int>(a.wsplit);
@@ -517,9 +574,43 @@ int backward(const AttnArgs& a, cudaStream_t s) {
   return reduce_parts(a.part_bias, blocks, nb, nb, a.dbias, s);
 }
 
+template <typename T, int NV>
+int scalar_attributes(bool bwd, long long* smem, long long* dyn,
+                      long long* regs, long long* local) {
+  return bwd ? local_attributes(attn_bwd_kernel<T, NV>, smem, dyn, regs, local)
+             : local_attributes(attn_fwd_kernel<T, NV>, smem, dyn, regs,
+                                local);
+}
+
 }  // namespace
 
 extern "C" {
+
+// Static shared memory, dynamic shared memory opted in so far on the
+// current device, registers and local memory (spills) per thread of the
+// kernel of the forward (bwd 0) or backward (bwd 1) with nv value streams:
+// body 0 the scalar kernel at dtype (0 f32, 1 bf16), body 1 the backward's
+// tensor-core kernel.
+int mmst_window_attention_attributes(long long body, long long nv,
+                                     long long dtype, long long bwd,
+                                     long long* smem, long long* dyn,
+                                     long long* regs, long long* local) {
+  if (body == 1) {
+    if (bwd == 0) return static_cast<int>(cudaErrorInvalidValue);
+    return nv == 1 ? local_attributes(attn_bwd_tc_kernel<1>, smem, dyn, regs,
+                                      local)
+                   : local_attributes(attn_bwd_tc_kernel<2>, smem, dyn, regs,
+                                      local);
+  }
+  if (body != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1)
+    return nv == 1 ? scalar_attributes<__nv_bfloat16, 1>(bwd, smem, dyn,
+                                                         regs, local)
+                   : scalar_attributes<__nv_bfloat16, 2>(bwd, smem, dyn,
+                                                         regs, local);
+  return nv == 1 ? scalar_attributes<float, 1>(bwd, smem, dyn, regs, local)
+                 : scalar_attributes<float, 2>(bwd, smem, dyn, regs, local);
+}
 
 // Shared memory in bytes of one block of the forward (bwd 0) or backward
 // (bwd 1) kernel with nv value streams.

@@ -388,6 +388,17 @@ int attributes_of(Kernel kernel, long long* smem, long long* dyn,
   return 0;
 }
 
+// attributes_of, and the local memory (spills) per thread.
+template <typename Kernel>
+int local_attributes(Kernel kernel, long long* smem, long long* dyn,
+                     long long* regs, long long* local) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *local = static_cast<long long>(attr.localSizeBytes);
+  return attributes_of(kernel, smem, dyn, regs);
+}
+
 // Opt the kernel in to `bytes` of dynamic shared memory (opt_in_smem) and
 // launch it on `grid` x `threads`; returns the CUDA error code (0 on
 // success).

@@ -29,6 +29,12 @@ dv = P_T^T dO; dX = round(d{q,k,v}) W^T; dW = X^T round(d{q,k,v});
 db = sum d{q,k,v}; dWp = O_T^T G (O from the normalized P); d bias = sum
 of dS over every window of every image.
 
+At bfloat16 the backward runs a tensor-core body (csrc/attn_tc.cuh) where
+``attn_bwd_plan`` below says so -- every training shape -- and every other
+call (f32 above all) the scalar body. ``attn_bwd_plan``,
+``attn_bwd_layout`` and ``attn_bwd_tile_schedule`` give its tiling, which
+tests/test_torch_attn_tc_plan.py replays in torch on the CPU.
+
 ``LAUNCHES`` counts kernel launches per entry; a wrapper adds one only where
 it launches its kernel.
 """
@@ -37,14 +43,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from mastermetastyletransfer_tpu_torch.ops import _build
 from mastermetastyletransfer_tpu_torch.ops.ln_mlp import weight_splits
 from mastermetastyletransfer_tpu_torch.ops.window_block import (
-    MAX_SMEM_BYTES, _need, _on_cuda, attend,
+    MAX_SMEM_BYTES, SMEM_PER_SM, TC_PANEL, TC_ROWS, TcPlan, _align16, _need,
+    _on_cuda, attend,
 )
 
 LAUNCHES = {"window_attention": 0, "window_attention_bwd": 0,
@@ -69,6 +76,107 @@ def _bias(b: Optional[torch.Tensor], c: int, like: torch.Tensor
 def _proj(x: torch.Tensor, p: Proj) -> torch.Tensor:
     """f32 projection of T-typed x through the T-rounded kernel."""
     return x.float() @ _tf(p.w, x.dtype) + _bias(p.b, x.shape[-1], x)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core backward's plan (csrc/attn_tc.cuh)
+# ---------------------------------------------------------------------------
+
+ATTN_DH = 32          # the head dim the tensor-core body takes
+ATTN_LDS = TC_ROWS + 8  # row stride of a head's P or dS tile (bf16)
+# The backward's one form: (blocks an SM, head-group width, weight rows per
+# ring tile, ring tiles). One block of 16 warps an SM on 128-column head
+# groups; two blocks of 8 warps on 64-column groups ran the body 5% slower
+# at the style transformer's shape on an H100, though its 200 windows then
+# fit one wave (twice the input tiles and ring steps; PERF.md).
+ATTN_BWD_FORM = (1, 128, 64, 2)
+
+
+class AttnBwdPlan(NamedTuple):
+    """How one K8 or K9 backward call runs; built by ``attn_bwd_plan`` and
+    passed to the kernel (``TcPlan``). ``body`` "tc": the tensor-core body,
+    one block of 16 warps per window, ``blocks_per_sm`` (1) of them an SM,
+    the window's tokens padded to ``rows`` (four m16 tiles), the heads
+    taken ``panel`` columns (a head group) at a time, the
+    weights streamed as tiles of ``kp`` rows through a ring of ``stages``
+    (``attn_bwd_tile_schedule``), ``smem_bytes`` its dynamic shared memory
+    (``attn_bwd_layout``). ``dx`` says where the input gradients' products
+    read round(d{q,k,v}) from: "scratch", the window's rounded d-panels of
+    every head group written to the *_t tensors (which the weight gradients
+    read anyway) and read back after a barrier, since neither the full-width
+    d-tiles nor f32 accumulators of dX fit beside a group's panels.
+    "scalar": the scalar body, the other fields 0."""
+    body: str
+    rows: int
+    panel: int
+    kp: int
+    stages: int
+    blocks_per_sm: int
+    smem_bytes: int
+    dx: str
+
+
+def attn_bwd_layout(c: int, gw: int, kp: int, stages: int, nv: int) -> dict:
+    """Byte offsets and total of the tensor-core backward's shared memory
+    (csrc/attn_tc.cuh:attn_tc_layout): a head group's panels (NV 1 qs, qc,
+    k, v, dO; NV 2 qc, k, two v and two dO; 64 x (gw + 8) bf16 each), one
+    region that holds either a window input tile (64 x (C + 8) bf16) or the
+    group's round(P) and round(dS) tiles (64 x 72 bf16 per head each), the
+    ring (stages x kp x 136 bf16) and the column sums ((NV 1: 3, NV 2: 2) x
+    4 x gw f32)."""
+    tile = 2 * TC_ROWS * (c + 8)
+    pds = 2 * 2 * (gw // ATTN_DH) * TC_ROWS * ATTN_LDS
+    sizes = (("panels", (5 if nv == 1 else 6) * 2 * TC_ROWS * (gw + 8)),
+             ("u", max(tile, pds)),
+             ("ring", 2 * stages * kp * (TC_PANEL + 8)),
+             ("cs", 4 * (3 if nv == 1 else 2) * 4 * gw))
+    out, o = {}, 0
+    for name, size in sizes:
+        out[name] = o
+        o = _align16(o + size)
+    out["total"] = o
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def attn_bwd_plan(n: int, c: int, heads: int, nv: int,
+                  dtype: torch.dtype) -> AttnBwdPlan:
+    """The body one backward call runs: the tensor-core body in
+    ATTN_BWD_FORM at bfloat16 where N <= 64, the head dim is 32 and the
+    head group divides C (the style transformer's calls and both Swin
+    stages: C 256 with 8 heads, 128 with 4); the scalar body for every
+    other call."""
+    per_sm, gw, kp, stages = ATTN_BWD_FORM
+    if (dtype == torch.bfloat16 and 1 <= n <= TC_ROWS and nv in (1, 2)
+            and heads * ATTN_DH == c and c % gw == 0):
+        smem = attn_bwd_layout(c, gw, kp, stages, nv)["total"]
+        if smem <= min(MAX_SMEM_BYTES, SMEM_PER_SM // per_sm - 1024):
+            return AttnBwdPlan("tc", TC_ROWS, gw, kp, stages, per_sm, smem,
+                               "scratch")
+    return AttnBwdPlan("scalar", 0, 0, 0, 0, 0, 0, "")
+
+
+def attn_bwd_tile_schedule(plan: AttnBwdPlan, c: int, nv: int
+                           ) -> List[Tuple[str, int, int, int, int]]:
+    """The backward's weight tiles in the order its body uses them, by the
+    kernel's own arithmetic for tile u (csrc/attn_tc.cuh, AttnBwdTiles), as
+    (matrix, first row, first column, rows, width): per head group, the
+    group's panels of its four projections over K = C (NV 1 wq, wk, wv0 and
+    wpt = Wp^T; NV 2 wv0, wv1 and wpt twice, once per stream); then per
+    input gradient (NV 1 wqt, wkt, wv0t; NV 2 wv0t, wv1t: the transposes)
+    the 128-column panels of the matrix over K = C."""
+    kp, gw = plan.kp, plan.panel
+    proj = ("wq", "wk", "wv0", "wpt") if nv == 1 else ("wv0", "wv1", "wpt",
+                                                       "wpt")
+    dx = ("wqt", "wkt", "wv0t") if nv == 1 else ("wv0t", "wv1t")
+    out = []
+    for gi in range(c // gw):
+        out += [(m, kt * kp, gi * gw, kp, gw) for m in proj
+                for kt in range(c // kp)]
+    for m in dx:
+        out += [(m, kt * kp, p0, kp, min(TC_PANEL, c - p0))
+                for p0 in range(0, c, TC_PANEL) for kt in range(c // kp)]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +315,8 @@ class AttnArgs(ctypes.Structure):
     field."""
     _fields_ = ([(f, ctypes.c_void_p) for f in _PTRS]
                 + [("scale", ctypes.c_double)]
-                + [(f, ctypes.c_longlong) for f in _INTS])
+                + [(f, ctypes.c_longlong) for f in _INTS]
+                + [("plan", TcPlan)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -219,18 +328,46 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.mmst_window_attention_smem_bytes.argtypes = [ctypes.c_longlong] * 6
     lib.mmst_window_attention_smem_bytes.restype = ctypes.c_longlong
+    lib.mmst_window_attention_attributes.argtypes = (
+        [ctypes.c_longlong] * 4 + [ctypes.POINTER(ctypes.c_longlong)] * 4)
+    lib.mmst_window_attention_attributes.restype = ctypes.c_int
     return lib
 
 
 def smem_bytes(n: int, c: int, heads: int, dtype: torch.dtype, nv: int,
                backward: bool) -> int:
+    """Dynamic shared memory one block of the call's body takes: the
+    backward's tensor-core body where its plan says so, else the scalar
+    body."""
+    if backward:
+        plan = attn_bwd_plan(n, c, heads, nv, dtype)
+        if plan.body == "tc":
+            return plan.smem_bytes
     return _lib().mmst_window_attention_smem_bytes(
         n, c, heads, torch.finfo(dtype).bits // 8, nv, int(backward))
 
 
+def kernel_attributes(plan: Optional[AttnBwdPlan], dtype: torch.dtype,
+                      nv: int, backward: bool) -> Tuple[int, int, int, int]:
+    """(static shared memory bytes per block, dynamic shared memory opted
+    in so far on this device, registers per thread, local memory bytes per
+    thread -- spills) of the kernel a call runs: the backward's tensor-core
+    kernel of ``plan``'s form, or the scalar kernel of the direction at
+    ``dtype`` (``plan`` None or scalar)."""
+    vals = [ctypes.c_longlong() for _ in range(4)]
+    body = plan.blocks_per_sm if plan is not None and plan.body == "tc" else 0
+    err = _lib().mmst_window_attention_attributes(
+        body, nv, int(dtype == torch.bfloat16), int(backward),
+        *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes: CUDA error {err}")
+    return tuple(v.value for v in vals)
+
+
 def _aligned(*tensors: torch.Tensor) -> None:
     """The bf16 weight-gradient product (csrc/grad_common.cuh) reads its
-    row operands 16 bytes a piece."""
+    row operands 16 bytes a piece, and the tensor-core backward body
+    (csrc/attn_tc.cuh) its inputs and weights."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the bf16 backward's inputs and output gradients "
                          "must start on 16-byte boundaries")
@@ -286,13 +423,17 @@ def _operands(projs: dict, t: torch.dtype, x: torch.Tensor,
 
 
 def _call(entry: str, keep: dict, x: torch.Tensor, heads: int, nv: int,
-          wsplit: int = 1) -> None:
+          wsplit: int = 1, plan: Optional[AttnBwdPlan] = None) -> None:
     b, nw, n, c = x.shape
+    if plan is not None and plan.body == "tc":
+        _aligned(*(keep[f] for f in _PTRS
+                   if f.startswith("w") and keep.get(f) is not None))
     args = AttnArgs(
         **{f: (keep[f].data_ptr() if keep.get(f) is not None else None)
            for f in _PTRS},
         scale=(c // heads) ** -0.5, dtype=int(x.dtype == torch.bfloat16),
-        B=b, nW=nw, N=n, C=c, heads=heads, nv=nv, wsplit=wsplit)
+        B=b, nW=nw, N=n, C=c, heads=heads, nv=nv, wsplit=wsplit,
+        plan=TcPlan() if plan is None else TcPlan.of(plan))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = getattr(_lib(), f"mmst_{entry}")(ctypes.byref(args), stream)
     if err != 0:
@@ -355,7 +496,8 @@ def window_attention_bwd_kernel(g, q, k, v, wq, wk, wv, wp, bias, mask,
                 dq_t=torch.empty_like(q), dk_t=torch.empty_like(q),
                 dwq=torch.empty((c, c), **f32), dwk=torch.empty((c, c), **f32),
                 dbq=torch.empty(c, **f32), dbk=torch.empty(c, **f32))
-    _call("window_attention_bwd", keep, q, heads, 1, wsplit)
+    _call("window_attention_bwd", keep, q, heads, 1, wsplit,
+          attn_bwd_plan(*q.shape[2:], heads, 1, q.dtype))
     return tuple(keep[f] for f in (
         "dq", "dk", "dv0", "dwq", "dbq", "dwk", "dbk", "dwv0", "dbv0", "dwp",
         "dbp", "dbias"))
@@ -383,7 +525,8 @@ def window_attention_dual_bwd_kernel(g_sigma, g_mu, q, k, v_scale, v_shift,
                 **scratch, q=q, k=k, v0=v_scale, v1=v_shift,
                 g0=_grad(g_sigma, t), g1=_grad(g_mu, t),
                 rel_bias=bias, mask=mask)
-    _call("window_attention_dual_bwd", keep, q, heads, 2, wsplit)
+    _call("window_attention_dual_bwd", keep, q, heads, 2, wsplit,
+          attn_bwd_plan(*q.shape[2:], heads, 2, t))
     return tuple(keep[f] for f in (
         "dq", "dk", "dv0", "dv1", "dwv0", "dbv0", "dwv1", "dbv1", "dwp",
         "dbp", "dbias"))

@@ -832,6 +832,17 @@ def test_phase_wrappers_reject_what_the_kernels_do_not_take(cuda):
 # ---------------------------------------------------------------------------
 
 AB, ANW = 2, 4
+# The attention cases: (images, windows, C, heads, grid, shift) -- a small
+# one, and the training step's three shapes at 256^2: the Swin's stage 1
+# (16 images, 100 windows of a 70 x 70 grid, C 128, 4 heads) and stage 2
+# (25 windows of 35 x 35, C 256, 8 heads), the style transformer's (8
+# contents, shift 4).
+ATTN_SHAPES = {"small": (AB, ANW, C, HEADS, 14, 3),
+               "swin_stage1": (16, 100, 128, 4, 70, 3),
+               "swin_stage2": (16, 25, 256, 8, 35, 3),
+               "style_transformer": (8, 25, 256, 8, 35, 4)}
+ATTN_CASES = ([("small", torch.float32), ("small", torch.bfloat16)]
+              + [(s, torch.bfloat16) for s in ATTN_SHAPES if s != "small"])
 
 
 def _grad_check(got, ref, scale, dtype):
@@ -857,24 +868,25 @@ def _compare_grads(names, got, ref, dtype):
         _grad_check(g, r, scale, dtype)
 
 
-def _attn_case(cuda, dtype, nv, shared=False):
+def _attn_case(cuda, dtype, nv, shared=False, shape="small"):
     from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
 
+    b, nw, c, heads, grid, shift = ATTN_SHAPES[shape]
     g = torch.Generator().manual_seed(5 + nv)
 
     def proj():
-        return [(torch.randn((C, C), generator=g) * C ** -0.5).to(cuda),
-                (torch.randn(C, generator=g) * 0.1).to(cuda)]
+        return [(torch.randn((c, c), generator=g) * c ** -0.5).to(cuda),
+                (torch.randn(c, generator=g) * 0.1).to(cuda)]
 
-    xs = [torch.randn((AB, ANW, 49, C), generator=g).to(cuda, dtype)
+    xs = [torch.randn((b, nw, 49, c), generator=g).to(cuda, dtype)
           for _ in range(2 + nv)]
     ws = [t for _ in range(4 if nv == 1 else 3) for t in proj()]
     if shared:
         ws[2:4] = ws[0:2]
-    bias = (torch.randn((HEADS, 49, 49), generator=g) * 0.1).to(cuda)
+    bias = (torch.randn((heads, 49, 49), generator=g) * 0.1).to(cuda)
     mask = torch.from_numpy(
-        twin.shift_attention_mask(14, 14, 7, 7, 3, 3)).to(cuda)
-    gs = [torch.randn((AB, ANW, 49, C), generator=g).to(cuda, dtype)
+        twin.shift_attention_mask(grid, grid, 7, 7, shift, shift)).to(cuda)
+    gs = [torch.randn((b, nw, 49, c), generator=g).to(cuda, dtype)
           for _ in range(nv)]
     return xs, ws, bias, mask, gs
 
@@ -884,17 +896,20 @@ def _leaves(tensors):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_window_attention_fwd_bwd_match_plain(cuda, dtype):
-    """K8 forward and backward."""
+@pytest.mark.parametrize("shape,dtype", ATTN_CASES)
+def test_window_attention_fwd_bwd_match_plain(cuda, dtype, shape):
+    """K8 forward and backward, at a small shape at both types and at the
+    training step's three attention shapes at bf16 (the backward's
+    tensor-core body)."""
     from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
 
-    xs, ws, bias, mask, (g,) = _attn_case(cuda, dtype, 1)
+    heads = ATTN_SHAPES[shape][3]
+    xs, ws, bias, mask, (g,) = _attn_case(cuda, dtype, 1, shape=shape)
     names = ["q", "k", "v", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp",
              "rel_bias"]
     kern = _leaves(xs + ws + [bias])
     before = dict(wa.LAUNCHES)
-    out = wa._WindowAttention.apply(*kern, mask, HEADS)
+    out = wa._WindowAttention.apply(*kern, mask, heads)
     got = torch.autograd.grad(out, kern, g)
     assert wa.LAUNCHES["window_attention"] == \
         before["window_attention"] + 1
@@ -903,7 +918,7 @@ def test_window_attention_fwd_bwd_match_plain(cuda, dtype):
     plain = _leaves(xs + ws + [bias])
     ref_out = wa.window_attention_plain(
         *plain[:3], *(wa.Proj(plain[i], plain[i + 1]) for i in (3, 5, 7, 9)),
-        plain[11], mask, HEADS)
+        plain[11], mask, heads)
     ref = torch.autograd.grad(ref_out, plain, g)
     _check(out, ref_out, torch.zeros_like(ref_out))
     _compare_grads(names, got, ref, dtype)
@@ -911,20 +926,24 @@ def test_window_attention_fwd_bwd_match_plain(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shared", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_window_attention_dual_fwd_bwd_match_plain(cuda, dtype, shared):
+@pytest.mark.parametrize("shape,dtype", ATTN_CASES)
+def test_window_attention_dual_fwd_bwd_match_plain(cuda, dtype, shared,
+                                                   shape):
     """K9 forward and backward, with its two value projections or one
-    shared (the style encoder's form, whose gradient autograd sums)."""
+    shared (the style encoder's form, whose gradient autograd sums), at a
+    small shape at both types and at the training step's three attention
+    shapes at bf16 (the backward's tensor-core body)."""
     from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
 
-    xs, ws, bias, mask, gs = _attn_case(cuda, dtype, 2, shared)
+    heads = ATTN_SHAPES[shape][3]
+    xs, ws, bias, mask, gs = _attn_case(cuda, dtype, 2, shared, shape)
     names = ["q", "k", "vs", "vh", "wvs", "bvs", "wvh", "bvh", "wp", "bp",
              "rel_bias"]
     kern = _leaves(xs + ws + [bias])
     if shared:
         kern[6:8] = kern[4:6]
     before = dict(wa.LAUNCHES)
-    outs = wa._WindowAttentionDual.apply(*kern, mask, HEADS)
+    outs = wa._WindowAttentionDual.apply(*kern, mask, heads)
     got = torch.autograd.grad(outs, kern, gs)
     assert wa.LAUNCHES["window_attention_dual_bwd"] == \
         before["window_attention_dual_bwd"] + 1
@@ -933,11 +952,137 @@ def test_window_attention_dual_fwd_bwd_match_plain(cuda, dtype, shared):
         plain[6:8] = plain[4:6]
     ref_outs = wa.window_attention_dual_plain(
         *plain[:4], *(wa.Proj(plain[i], plain[i + 1]) for i in (4, 6, 8)),
-        plain[10], mask, HEADS)
+        plain[10], mask, heads)
     ref = torch.autograd.grad(ref_outs, plain, gs)
     for o, r in zip(outs, ref_outs):
         _check(o, r, torch.zeros_like(r))
     _compare_grads(names, got, ref, dtype)
+
+
+def _attn_bwd_call(cuda, nv, shape, dtype=torch.bfloat16):
+    """One K8 (nv 1) or K9 (nv 2) backward kernel call as a function of
+    nothing, on the case's inputs."""
+    from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
+
+    heads = ATTN_SHAPES[shape][3]
+    xs, ws, bias, mask, gs = _attn_case(cuda, dtype, nv, shape=shape)
+    projs = [wa.Proj(ws[i], ws[i + 1]) for i in range(0, len(ws), 2)]
+    if nv == 1:
+        return lambda: wa.window_attention_bwd_kernel(
+            gs[0], *xs, *projs, bias, mask, heads)
+    return lambda: wa.window_attention_dual_bwd_kernel(
+        *gs, *xs, *projs, bias, mask, heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv", [1, 2])
+@pytest.mark.parametrize("shape", ["swin_stage1", "style_transformer"])
+def test_attention_backward_runs_its_plans_body(cuda, nv, shape):
+    """At bf16 the backward launches the tensor-core body (by name, in
+    torch.profiler) and not the scalar one, in the plan's form, whose
+    kernel reports the plan's shared memory and at most 128 registers; at
+    f32 the scalar body."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
+
+    _, _, c, heads, _, _ = ATTN_SHAPES[shape]
+    for dtype in (torch.bfloat16, torch.float32):
+        fn = _attn_bwd_call(cuda, nv, shape, dtype)
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        tc = [n for n in names if "attn_bwd_tc_kernel" in n]
+        scalar = [n for n in names if "attn_bwd_kernel" in n]
+        plan = wa.attn_bwd_plan(49, c, heads, nv, dtype)
+        if dtype == torch.bfloat16:
+            assert plan.body == "tc" and len(tc) == 1 and not scalar, names
+            smem, dyn, regs, local = wa.kernel_attributes(plan, dtype, nv,
+                                                          True)
+            assert smem == 0 and dyn >= plan.smem_bytes > 0
+            assert 0 < regs <= 128 and local >= 0
+        else:
+            assert plan.body == "scalar" and len(scalar) == 1 and not tc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv", [1, 2])
+def test_attention_backward_is_bit_equal_call_to_call(cuda, nv):
+    """The tensor-core backward at the style transformer's shape gives the
+    same bits on two calls: every sum -- the column sums, the bias and
+    relative-bias partials, the weight gradients -- runs in a fixed
+    order, with no atomics."""
+    fn = _attn_bwd_call(cuda, nv, "style_transformer")
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_attention_backward_two_host_threads_bit_equal(cuda):
+    """F5 for the tensor-core backward: two host threads launch K8's and
+    K9's backward at two shapes each (two kernels, two shared-memory sizes
+    of K8's), 200 times each, alternately and in opposite orders; no launch
+    is refused and every output equals, bit for bit, the same call on one
+    thread."""
+    import threading
+
+    calls = {f"k{7 + nv}_{shape}": _attn_bwd_call(cuda, nv, shape)
+             for nv in (1, 2) for shape in ("small", "style_transformer")}
+    want = {name: fn() for name, fn in calls.items()}
+    torch.cuda.synchronize()
+    names = list(calls)
+    results, errors = {}, []
+
+    def work(tag, order):
+        try:
+            outs = [(order[i % len(order)], calls[order[i % len(order)]]())
+                    for i in range(200)]
+            torch.cuda.synchronize()
+            results[tag] = outs
+        except Exception as e:  # reported below, in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=("a", names)),
+               threading.Thread(target=work, args=("b", names[::-1]))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert not errors, errors[0]
+    assert set(results) == {"a", "b"}
+    for outs in results.values():
+        assert len(outs) == 200
+        for name, got in outs:
+            for x, y in zip(got, want[name]):
+                assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_attention_backward_refuses_a_wrong_plan(cuda, monkeypatch):
+    """The backward's C entries check the tensor-core plan they are given
+    against the layout and refuse a mismatch (a shared-memory size 16
+    bytes off, or a form the body lacks) with cudaErrorInvalidValue,
+    launching nothing; the wrappers raise."""
+    from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
+
+    for nv in (1, 2):
+        fn = _attn_bwd_call(cuda, nv, "small")
+        plan = wa.attn_bwd_plan(49, C, HEADS, nv, torch.bfloat16)
+        for change in (dict(smem_bytes=plan.smem_bytes + 16),
+                       dict(kp=plan.kp * 2)):
+            bad = plan._replace(**change)
+            monkeypatch.setattr(wa, "attn_bwd_plan",
+                                lambda *a, bad=bad: bad)
+            before = dict(wa.LAUNCHES)
+            with pytest.raises(RuntimeError, match="CUDA error 1 "):
+                fn()
+            assert wa.LAUNCHES == before
+            monkeypatch.undo()
 
 
 def _mlp_case(cuda, dtype, c, use_norm, seed=9):
