@@ -60,7 +60,7 @@ kernels (K8 at the Swin's two stages and the style transformer's shape, K9
 in its two forms, K10 at the three row shapes with and without LN, each
 forward and backward, bf16 and f32, against the plain forward and
 torch.autograd of it, K8's, K9's and K10's rows with the body that ran
--- K10's tensor-core bodies and K8's and K9's tensor-core backward at
+-- K10's and K8's and K9's tensor-core bodies, forward and backward, at
 bf16 -- and its registers, local memory (spills) and shared memory; the
 backward passes of K5 and K7 at the decoder's training shapes);
 train_grads (the first step's gradients per parameter
@@ -798,13 +798,15 @@ def mlp_attributes(plan, dtype, backward: bool) -> dict:
 
 def attn_attributes(nv: int, n: int, c: int, heads: int, dtype,
                     backward: bool) -> dict:
-    """The body a K8 (nv 1) or K9 (nv 2) call ran -- the backward's plan's,
-    the forward's scalar one -- and its registers, local memory (spills)
-    and static and dynamic shared memory."""
-    plan = wa.attn_bwd_plan(n, c, heads, nv, dtype) if backward else None
+    """The body a K8 (nv 1) or K9 (nv 2) call ran -- its direction's plan's
+    -- and its registers, local memory (spills) and static and dynamic
+    shared memory."""
+    plan = (wa.attn_bwd_plan if backward else wa.attn_fwd_plan)(
+        n, c, heads, nv, dtype)
     smem, dyn, regs, local = wa.kernel_attributes(plan, dtype, nv, backward)
-    if plan is not None and plan.body == "tc":
-        body = (f"attn_tc_x{plan.blocks_per_sm}_g{plan.panel}_kp{plan.kp}"
+    if plan.body == "tc":
+        body = (f"attn_{'bwd_' if backward else 'fwd_'}tc_x"
+                f"{plan.blocks_per_sm}_g{plan.panel}_kp{plan.kp}"
                 f"_s{plan.stages}")
     else:
         body = "attn_bwd_scalar" if backward else "attn_fwd_scalar"

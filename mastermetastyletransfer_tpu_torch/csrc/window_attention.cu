@@ -37,14 +37,15 @@
 // against a few window tiles of bytes: some 400 operations per byte at
 // C = 256 in bf16, so the tensor-core rate, not memory.
 //
-// The forward bodies and the f32 backward run scalar FMAs on the CUDA
-// cores, one head at a time in shared memory, far below that bound. The
-// bf16 backward runs on the tensor cores where the plan the wrapper passes
-// says so (ops/window_attention.py:attn_bwd_plan; every training shape:
-// N <= 64, head dim 32, C a multiple of the head group): attn_tc.cuh, one
-// block per window, head group by head group, mma.sync products over a
-// cp.async weight ring; the entry refuses a plan that does not match its
-// layout. Every other backward call runs the scalar body below.
+// At bf16 both directions run on the tensor cores where the plan the
+// wrapper passes says so (ops/window_attention.py:attn_fwd_plan,
+// attn_bwd_plan; every training shape: N <= 64, head dim 32, C a multiple
+// of the 128-column head group): the forward attn_fwd_tc.cuh, the backward
+// attn_tc.cuh, each one block per window, head group by head group,
+// mma.sync products over a cp.async weight ring; each entry refuses a plan
+// that does not match its layout. Every other call (f32 above all) runs
+// the scalar bodies below, scalar FMAs on the CUDA cores, one head at a
+// time in shared memory, far below that bound.
 //
 // Scalar design: one block of 256 threads per (window, image). The forward
 // keeps a head's q, k, v (N x dh) and scores in shared memory and the
@@ -65,7 +66,7 @@
 // -shared -Xcompiler -fPIC. Plain C interface; each entry returns the CUDA
 // error code of its launches (0 on success).
 
-#include "attn_tc.cuh"
+#include "attn_fwd_tc.cuh"
 #include "grad_common.cuh"
 
 namespace mmst {
@@ -127,8 +128,8 @@ struct AttnArgs {
   double scale;       // head_dim ** -0.5
   long long dtype;    // 0 float32, 1 bfloat16
   long long B, nW, N, C, heads, nv, wsplit;
-  TcPlan plan;        // the backward's body and its tiling (body 0: the
-                      // scalar one; the forward reads none)
+  TcPlan plan;        // the call's body and its tiling (body 0: the
+                      // scalar one; else the tensor-core body's form)
 };
 
 }  // namespace mmst
@@ -470,12 +471,60 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(
   }
 }
 
+// The tensor-core forward's kernel for NV value streams, in the form of NT
+// threads: a block of 16 warps an SM, or two of 8; a ring of 2 tiles.
+template <int NV, int NT>
+__global__ void __launch_bounds__(NT, 512 / NT) attn_fwd_tc_kernel(
+    const AttnArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  attn_fwd_tc<NV, NT, 2>(a, smem);
+}
+
+// What a forward tensor-core launch checks of the plan it is given: bf16,
+// a form of ops/window_attention.py's ATTN_FWD_FORMS (two blocks of 8 warps
+// an SM with 2 tiles of 32 rows; one of 16 warps with 2 tiles of 64 rows),
+// 128-column head groups, N <= 64 tokens in 64 rows, head dim 32, C a
+// multiple of the group, and shared memory equal to the body's layout and
+// within a block's share of an SM. A mismatch is refused, never run.
+inline bool attn_fwd_plan_ok(const AttnArgs& a) {
+  const mmst::TcPlan& p = a.plan;
+  const bool two = p.body == 2;
+  return (p.body == 1 || two) && a.dtype == 1 && p.rows == kTcRows &&
+         p.panel == kAtGroup && p.kp == (two ? 32 : 64) && p.stages == 2 &&
+         a.N >= 1 && a.N <= kTcRows && a.heads * kAtDh == a.C &&
+         a.C % kAtGroup == 0 &&
+         p.smem_bytes ==
+             static_cast<long long>(
+                 attn_fwd_tc_layout(static_cast<int>(a.C),
+                                    static_cast<int>(a.nv),
+                                    static_cast<int>(p.kp),
+                                    static_cast<int>(p.stages))
+                     .total) &&
+         p.smem_bytes <= (two ? 115712 : 232448);
+}
+
+using AttnKernel = void (*)(const AttnArgs);
+
+// The forward's kernel of a form: `body` blocks an SM.
+template <int NV>
+AttnKernel fwd_tc_kernel(long long body) {
+  return body == 2 ? attn_fwd_tc_kernel<NV, 256> : attn_fwd_tc_kernel<NV, 512>;
+}
+
 template <typename T, int NV>
 int forward(const AttnArgs& a, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(a.nW), static_cast<unsigned>(a.B));
+  if (a.plan.body != 0) {
+    if (!std::is_same<T, __nv_bfloat16>::value || a.nv != NV ||
+        !attn_fwd_plan_ok(a))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_kernel(fwd_tc_kernel<NV>(a.plan.body), grid,
+                         static_cast<size_t>(a.plan.smem_bytes), s, a,
+                         a.plan.body == 2 ? 256 : 512);
+  }
   const Layout L = smem_layout(static_cast<int>(a.N), static_cast<int>(a.C),
                                static_cast<int>(a.C / a.heads), sizeof(T), NV,
                                false);
-  const dim3 grid(static_cast<unsigned>(a.nW), static_cast<unsigned>(a.B));
   return launch_kernel(attn_fwd_kernel<T, NV>, grid, L.total, s, a);
 }
 
@@ -589,20 +638,21 @@ extern "C" {
 // Static shared memory, dynamic shared memory opted in so far on the
 // current device, registers and local memory (spills) per thread of the
 // kernel of the forward (bwd 0) or backward (bwd 1) with nv value streams:
-// body 0 the scalar kernel at dtype (0 f32, 1 bf16), body 1 the backward's
-// tensor-core kernel.
+// body 0 the scalar kernel at dtype (0 f32, 1 bf16); else the direction's
+// tensor-core kernel of the form of `body` blocks an SM (the forward's 1
+// or 2, the backward's 1).
 int mmst_window_attention_attributes(long long body, long long nv,
                                      long long dtype, long long bwd,
                                      long long* smem, long long* dyn,
                                      long long* regs, long long* local) {
-  if (body == 1) {
-    if (bwd == 0) return static_cast<int>(cudaErrorInvalidValue);
-    return nv == 1 ? local_attributes(attn_bwd_tc_kernel<1>, smem, dyn, regs,
-                                      local)
-                   : local_attributes(attn_bwd_tc_kernel<2>, smem, dyn, regs,
-                                      local);
+  if (body != 0) {
+    if (body != 1 && (bwd != 0 || body != 2))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const AttnKernel k =
+        bwd != 0 ? (nv == 1 ? attn_bwd_tc_kernel<1> : attn_bwd_tc_kernel<2>)
+                 : (nv == 1 ? fwd_tc_kernel<1>(body) : fwd_tc_kernel<2>(body));
+    return local_attributes(k, smem, dyn, regs, local);
   }
-  if (body != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1)
     return nv == 1 ? scalar_attributes<__nv_bfloat16, 1>(bwd, smem, dyn,
                                                          regs, local)

@@ -29,11 +29,13 @@ dv = P_T^T dO; dX = round(d{q,k,v}) W^T; dW = X^T round(d{q,k,v});
 db = sum d{q,k,v}; dWp = O_T^T G (O from the normalized P); d bias = sum
 of dS over every window of every image.
 
-At bfloat16 the backward runs a tensor-core body (csrc/attn_tc.cuh) where
-``attn_bwd_plan`` below says so -- every training shape -- and every other
-call (f32 above all) the scalar body. ``attn_bwd_plan``,
-``attn_bwd_layout`` and ``attn_bwd_tile_schedule`` give its tiling, which
-tests/test_torch_attn_tc_plan.py replays in torch on the CPU.
+At bfloat16 both directions run a tensor-core body where their plans
+below say so -- every training shape -- the forward csrc/attn_fwd_tc.cuh
+(``attn_fwd_plan``, ``attn_fwd_layout``, ``attn_fwd_tile_schedule``), the
+backward csrc/attn_tc.cuh (``attn_bwd_plan``, ``attn_bwd_layout``,
+``attn_bwd_tile_schedule``); every other call (f32 above all) runs the
+scalar bodies. tests/test_torch_attn_tc_plan.py replays both tilings in
+torch on the CPU.
 
 ``LAUNCHES`` counts kernel launches per entry; a wrapper adds one only where
 it launches its kernel.
@@ -175,6 +177,96 @@ def attn_bwd_tile_schedule(plan: AttnBwdPlan, c: int, nv: int
                 for kt in range(c // kp)]
     for m in dx:
         out += [(m, kt * kp, p0, kp, min(TC_PANEL, c - p0))
+                for p0 in range(0, c, TC_PANEL) for kt in range(c // kp)]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core forward's plan (csrc/attn_fwd_tc.cuh)
+# ---------------------------------------------------------------------------
+
+# The forward's forms, in the order attn_fwd_plan tries them: (blocks an
+# SM, weight rows per ring tile, ring tiles). Two blocks of 8 warps an SM
+# with a ring of 2 tiles of 32 rows, where their shared memory fits a
+# block's half of an SM (C = 128, one value stream), so that one window's
+# latency hides behind the other's: at the Swin's stage 1 it ran K8 16%
+# faster than one block of 16 warps; else one block of 16 warps with a
+# ring of 2 tiles of 64 rows, which ran 2-3% faster than a ring of 3 at
+# every training shape (PERF.md).
+ATTN_FWD_FORMS = ((2, 32, 2), (1, 64, 2))
+
+
+class AttnFwdPlan(NamedTuple):
+    """How one K8 or K9 forward call runs; built by ``attn_fwd_plan`` and
+    passed to the kernel (``TcPlan``). ``body`` "tc": the tensor-core body,
+    one block per window, ``blocks_per_sm`` of them an SM (16 warps a block
+    at one, 8 at two), the window's tokens padded to ``rows`` (four m16
+    tiles), the heads taken ``panel`` columns (a head group) at a time, the
+    weights streamed as tiles of ``kp`` rows through a ring of ``stages``
+    (``attn_fwd_tile_schedule``), ``smem_bytes`` its dynamic shared memory
+    (``attn_fwd_layout``). "scalar": the scalar body, the other fields 0."""
+    body: str
+    rows: int
+    panel: int
+    kp: int
+    stages: int
+    blocks_per_sm: int
+    smem_bytes: int
+
+
+def attn_fwd_layout(c: int, nv: int, kp: int, stages: int) -> dict:
+    """Byte offsets and total of the tensor-core forward's shared memory
+    (csrc/attn_fwd_tc.cuh:attn_fwd_tc_layout): the head-output tiles, one
+    per value stream, and the input tile (64 x (C + 8) bf16 each), a head
+    group's q, k and v panels (64 x 136 bf16 each) and the ring (stages x
+    kp x 136 bf16)."""
+    tile = 2 * TC_ROWS * (c + 8)
+    sizes = (("ob", nv * tile), ("x", tile),
+             ("panels", 3 * 2 * TC_ROWS * (TC_PANEL + 8)),
+             ("ring", 2 * stages * kp * (TC_PANEL + 8)))
+    out, o = {}, 0
+    for name, size in sizes:
+        out[name] = o
+        o = _align16(o + size)
+    out["total"] = o
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def attn_fwd_plan(n: int, c: int, heads: int, nv: int,
+                  dtype: torch.dtype) -> AttnFwdPlan:
+    """The body one forward call runs: the tensor-core body at bfloat16
+    where N <= 64, the head dim is 32 and C is a multiple of the 128-column
+    head group (the style transformer's calls and both Swin stages: C 256
+    with 8 heads, 128 with 4), in the first form of ATTN_FWD_FORMS whose
+    shared memory fits a block's share of an SM; the scalar body for every
+    other call."""
+    if (dtype == torch.bfloat16 and 1 <= n <= TC_ROWS and nv in (1, 2)
+            and heads * ATTN_DH == c and c % TC_PANEL == 0):
+        for per_sm, kp, stages in ATTN_FWD_FORMS:
+            smem = attn_fwd_layout(c, nv, kp, stages)["total"]
+            if smem <= min(MAX_SMEM_BYTES, SMEM_PER_SM // per_sm - 1024):
+                return AttnFwdPlan("tc", TC_ROWS, TC_PANEL, kp, stages,
+                                   per_sm, smem)
+    return AttnFwdPlan("scalar", 0, 0, 0, 0, 0, 0)
+
+
+def attn_fwd_tile_schedule(plan: AttnFwdPlan, c: int, nv: int
+                           ) -> List[Tuple[str, int, int, int, int]]:
+    """The forward's weight tiles in the order its body uses them, by the
+    kernel's own arithmetic for tile u (csrc/attn_fwd_tc.cuh,
+    AttnFwdTiles), as (matrix, first row, first column, rows, width): per
+    head group, the group's 128-wide panels of its projections over K = C
+    (NV 1 wq, wk, wv0; NV 2 wv0, wv1); then per value stream the
+    128-column panels of wp over K = C."""
+    kp, gw = plan.kp, plan.panel
+    proj = ("wq", "wk", "wv0") if nv == 1 else ("wv0", "wv1")
+    out = []
+    for gi in range(c // gw):
+        out += [(m, kt * kp, gi * gw, kp, gw) for m in proj
+                for kt in range(c // kp)]
+    for _ in range(nv):
+        out += [("wp", kt * kp, p0, kp, TC_PANEL)
                 for p0 in range(0, c, TC_PANEL) for kt in range(c // kp)]
     return out
 
@@ -334,26 +426,32 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _plan(n: int, c: int, heads: int, nv: int, dtype: torch.dtype,
+          backward: bool):
+    return (attn_bwd_plan if backward else attn_fwd_plan)(n, c, heads, nv,
+                                                          dtype)
+
+
 def smem_bytes(n: int, c: int, heads: int, dtype: torch.dtype, nv: int,
                backward: bool) -> int:
     """Dynamic shared memory one block of the call's body takes: the
-    backward's tensor-core body where its plan says so, else the scalar
+    direction's tensor-core body where its plan says so, else the scalar
     body."""
-    if backward:
-        plan = attn_bwd_plan(n, c, heads, nv, dtype)
-        if plan.body == "tc":
-            return plan.smem_bytes
+    plan = _plan(n, c, heads, nv, dtype, backward)
+    if plan.body == "tc":
+        return plan.smem_bytes
     return _lib().mmst_window_attention_smem_bytes(
         n, c, heads, torch.finfo(dtype).bits // 8, nv, int(backward))
 
 
-def kernel_attributes(plan: Optional[AttnBwdPlan], dtype: torch.dtype,
-                      nv: int, backward: bool) -> Tuple[int, int, int, int]:
+def kernel_attributes(plan, dtype: torch.dtype, nv: int, backward: bool
+                      ) -> Tuple[int, int, int, int]:
     """(static shared memory bytes per block, dynamic shared memory opted
     in so far on this device, registers per thread, local memory bytes per
-    thread -- spills) of the kernel a call runs: the backward's tensor-core
-    kernel of ``plan``'s form, or the scalar kernel of the direction at
-    ``dtype`` (``plan`` None or scalar)."""
+    thread -- spills) of the kernel a call runs: the direction's
+    tensor-core kernel of ``plan``'s form (an AttnFwdPlan or AttnBwdPlan),
+    or the scalar kernel of the direction at ``dtype`` (``plan`` None or
+    scalar)."""
     vals = [ctypes.c_longlong() for _ in range(4)]
     body = plan.blocks_per_sm if plan is not None and plan.body == "tc" else 0
     err = _lib().mmst_window_attention_attributes(
@@ -366,10 +464,10 @@ def kernel_attributes(plan: Optional[AttnBwdPlan], dtype: torch.dtype,
 
 def _aligned(*tensors: torch.Tensor) -> None:
     """The bf16 weight-gradient product (csrc/grad_common.cuh) reads its
-    row operands 16 bytes a piece, and the tensor-core backward body
-    (csrc/attn_tc.cuh) its inputs and weights."""
+    row operands 16 bytes a piece, and the tensor-core bodies
+    (csrc/attn_tc.cuh, csrc/attn_fwd_tc.cuh) their inputs and weights."""
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the bf16 backward's inputs and output gradients "
+        raise ValueError("the bf16 kernels' inputs and output gradients "
                          "must start on 16-byte boundaries")
 
 
@@ -399,7 +497,9 @@ def _check(xs: Sequence[torch.Tensor], projs: Sequence[Proj], bias, mask,
     _need("bias", bias, (heads, n, n), torch.float32, dev)
     if mask is not None:
         _need("mask", mask, (nw, n, n), torch.float32, dev)
-    if backward and t == torch.bfloat16:
+    if t == torch.bfloat16 and (
+            backward or _plan(n, c, heads, len(xs) - 2, t, False).body
+            == "tc"):
         _aligned(*xs)
     smem = smem_bytes(n, c, heads, t, len(xs) - 2, backward)
     if smem > MAX_SMEM_BYTES:
@@ -423,7 +523,7 @@ def _operands(projs: dict, t: torch.dtype, x: torch.Tensor,
 
 
 def _call(entry: str, keep: dict, x: torch.Tensor, heads: int, nv: int,
-          wsplit: int = 1, plan: Optional[AttnBwdPlan] = None) -> None:
+          wsplit: int = 1, plan=None) -> None:
     b, nw, n, c = x.shape
     if plan is not None and plan.body == "tc":
         _aligned(*(keep[f] for f in _PTRS
@@ -470,7 +570,8 @@ def window_attention_fwd_kernel(q, k, v, wq, wk, wv, wp, bias, mask, heads):
                           False),
                 q=q, k=k, v0=v, out0=torch.empty_like(q), rel_bias=bias,
                 mask=mask)
-    _call("window_attention", keep, q, heads, 1)
+    _call("window_attention", keep, q, heads, 1, plan=attn_fwd_plan(
+        *q.shape[2:], heads, 1, q.dtype))
     return keep["out0"]
 
 
@@ -511,7 +612,8 @@ def window_attention_dual_fwd_kernel(q, k, v_scale, v_shift, wvs, wvh, wp,
                           False),
                 q=q, k=k, v0=v_scale, v1=v_shift, out0=torch.empty_like(q),
                 out1=torch.empty_like(q), rel_bias=bias, mask=mask)
-    _call("window_attention_dual", keep, q, heads, 2)
+    _call("window_attention_dual", keep, q, heads, 2, plan=attn_fwd_plan(
+        *q.shape[2:], heads, 2, q.dtype))
     return keep["out0"], keep["out1"]
 
 

@@ -1,10 +1,19 @@
-"""Where one K8 or K9 backward call of the PyTorch/CUDA port spends its
-device time: every launch of one call (``window_attention_bwd_kernel``,
-``window_attention_dual_bwd_kernel``), by kernel name, at the training
+"""Where one K8 or K9 call of the PyTorch/CUDA port spends its device
+time: every launch of one backward call (``window_attention_bwd_kernel``,
+``window_attention_dual_bwd_kernel``) or, with ``--direction fwd``, one
+forward call (``window_attention_fwd_kernel``,
+``window_attention_dual_fwd_kernel``), by kernel name, at the training
 step's attention shapes, from torch.profiler on one NVIDIA GPU.
 
     python3 scripts/torch_attn_launches.py [--repo DIR] [--iters N]
                                            [--dtype bfloat16|float32]
+                                           [--direction bwd|fwd]
+                                           [--fwd-form BLOCKS,KP,STAGES]
+
+``--fwd-form`` lets the forward's plan take that form only (of
+ops/window_attention.py's ATTN_FWD_FORMS, which it replaces for the run),
+so that the forms are timed by one script; a shape where it does not fit
+runs the scalar body and is left out.
 
 ``--repo`` imports the port from another checkout (a parent commit unpacked
 beside this one), so that two trees are measured by the same script in one
@@ -48,7 +57,11 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("bfloat16", "float32"))
+    ap.add_argument("--direction", default="bwd", choices=("bwd", "fwd"))
+    ap.add_argument("--fwd-form", default=None)
     args = ap.parse_args(argv)
+    form = (None if args.fwd_form is None
+            else tuple(int(v) for v in args.fwd_form.split(",")))
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -62,7 +75,15 @@ def main(argv=None) -> int:
         print("torch_attn_launches: no CUDA device", file=sys.stderr)
         return 2
     dtype = getattr(torch, args.dtype)
-    plan = getattr(wa, "attn_bwd_plan", None)  # None before the tc body
+    fwd = args.direction == "fwd"
+    # None before the tree had the tensor-core body
+    plan = getattr(wa, "attn_fwd_plan" if fwd else "attn_bwd_plan", None)
+    if form is not None:
+        if not fwd or form not in wa.ATTN_FWD_FORMS:
+            ap.error(f"--fwd-form: one of {wa.ATTN_FWD_FORMS}, with "
+                     "--direction fwd")
+        wa.ATTN_FWD_FORMS = (form,)
+        wa.attn_fwd_plan.cache_clear()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -79,12 +100,24 @@ def main(argv=None) -> int:
         xs = [randn((b, nw, 49, c)).to(dtype) for _ in range(4)]
         gs = [randn((b, nw, 49, c)).to(dtype) for _ in range(2)]
         bias = randn((heads, 49, 49), 0.02)
+        fplan = {nv: None if plan is None else plan(49, c, heads, nv, dtype)
+                 for nv in (1, 2)}
         calls = {
             "k8": lambda: wa.window_attention_bwd_kernel(
                 gs[0], *xs[:3], *projs, bias, mask, heads),
             "k9": lambda: wa.window_attention_dual_bwd_kernel(
                 *gs, *xs, projs[0], projs[1], projs[3], bias, mask, heads)}
+        if fwd:
+            calls = {
+                "k8": lambda: wa.window_attention_fwd_kernel(
+                    *xs[:3], *projs, bias, mask, heads),
+                "k9": lambda: wa.window_attention_dual_fwd_kernel(
+                    *xs, projs[0], projs[1], projs[3], bias, mask, heads)}
+            entries = ("k8", "k9")
         for entry in entries:
+            nv = 1 if entry == "k8" else 2
+            if form and fplan[nv].body != "tc":
+                continue
             fn = calls[entry]
             fn()
             torch.cuda.synchronize()
@@ -106,13 +139,12 @@ def main(argv=None) -> int:
                   "ms": device_ms(e) / args.iters}
                  for e in prof.key_averages() if device_ms(e) > 0),
                 key=lambda r: -r["ms"])
-            nv = 1 if entry == "k8" else 2
             print(json.dumps({
                 "shape": label, "entry": entry, "images": b, "windows": nw,
                 "C": c, "heads": heads, "dtype": args.dtype,
-                "repo": args.repo, "call_ms": total,
-                "plan": None if plan is None else plan(
-                    49, c, heads, nv, dtype)._asdict(),
+                "direction": args.direction, "repo": args.repo,
+                "call_ms": total,
+                "plan": None if plan is None else fplan[nv]._asdict(),
                 "profiled_ms": sum(r["ms"] for r in launches),
                 "launches": launches}), flush=True)
     print(subprocess.run(

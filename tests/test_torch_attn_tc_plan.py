@@ -1,9 +1,11 @@
-"""K8's and K9's tensor-core backward body (csrc/attn_tc.cuh) replayed in
-torch on the CPU from its plan (ops/window_attention.py:attn_bwd_plan,
-attn_bwd_layout) and the order of its weight tiles
+"""K8's and K9's tensor-core bodies replayed in torch on the CPU: the
+backward (csrc/attn_tc.cuh) from its plan (ops/window_attention.py:
+attn_bwd_plan, attn_bwd_layout) and the order of its weight tiles
 (attn_bwd_tile_schedule), with the weight-gradient product's row chunks
 (ops/ln_mlp.py:weight_splits, wgrad_chunks) and the per-window partials
-added in window order.
+added in window order; and the forward (csrc/attn_fwd_tc.cuh) from
+attn_fwd_plan, attn_fwd_layout and attn_fwd_tile_schedule (the second
+half of the file).
 
 The replay runs the body's algorithm on every window at once, on 64 rows
 (the window's 49 tokens and 15 pad rows, zero in every input tile), head
@@ -468,3 +470,268 @@ def test_schedule_covers_each_matrix_once_per_use(nv, c):
     for gi in range(c // plan.panel):
         assert {s[2] for s in sched[gi * per_group:(gi + 1) * per_group]} \
             == {gi * plan.panel}
+
+
+# ---------------------------------------------------------------------------
+# The forward body (csrc/attn_fwd_tc.cuh)
+# ---------------------------------------------------------------------------
+#
+# Replayed on every window at once on 64 rows, head group by head group,
+# each projection summed in f32 from weight tiles taken one by one from
+# attn_fwd_tile_schedule: NV 1 the group's q, k and v panels (q = round((x
+# Wq + bq) scale), k and v rounded after their bias); NV 2 q scaled and
+# rounded, k as it comes, each value stream's panel rounded; per head S =
+# qs k^T + mask + bias on the real rows and keys, -inf on the pad keys, e =
+# exp(S - max), the head output round((round(e) v) / sum e); then per
+# stream out = round(heads Wp + bp) through wp's 128-column panels. At
+# bfloat16 it must agree with the plain forward within the card's
+# tolerance, at float32 with JAX's kernels in interpret mode within 1e-4;
+# and a rounding point moved ("e_f32": the numerators unrounded; "q_scale":
+# NV 1's q rounded before its scale, NV 2's q scale left unrounded; "o_f32":
+# the head outputs unrounded) must move the output well past the replay's
+# own error.
+FWD_VARIANTS = ("e_f32", "q_scale", "o_f32")
+
+
+def replay_fwd(nv, q, k, vs, projs, bias, mask, heads, plan, variant=None):
+    """The forward as the tensor-core body (plan) computes it: what
+    ``window_attention_plain`` (nv 1: projs wq, wk, wv, wp) or
+    ``window_attention_dual_plain`` (nv 2: wvs, wvh, wp) returns.
+    ``variant`` (one of FWD_VARIANTS) moves one rounding point."""
+    t = q.dtype
+    b, nw, n, c = q.shape
+    nwin, rows, gw, kp = b * nw, plan.rows, plan.panel, plan.kp
+    dh = c // heads
+    scale = dh ** -0.5
+
+    def rnd(v):
+        return v.to(t).float()
+
+    def tile(x):
+        out = torch.zeros(nwin, rows, c)
+        out[:, :n] = x.reshape(nwin, n, c).float()
+        return out
+
+    w = [rnd(p.w) for p in projs]
+    vecs = [torch.zeros(c) if p.b is None else p.b.float() for p in projs]
+    mats = ({"wq": w[0], "wk": w[1], "wv0": w[2], "wp": w[3]} if nv == 1
+            else {"wv0": w[0], "wv1": w[1], "wp": w[2]})
+    tiles = iter(wa.attn_fwd_tile_schedule(plan, c, nv))
+
+    def gemm(a, name, col, width):
+        acc = torch.zeros(nwin, rows, width)
+        for k0 in range(0, c, kp):
+            got = next(tiles)
+            assert got == (name, k0, col, kp, width), (got, name, col)
+            acc += a[:, :, k0:k0 + kp] @ mats[name][k0:k0 + kp,
+                                                    col:col + width]
+        return acc
+
+    comb = bias.float()[None].expand(nw, heads, n, n)
+    if mask is not None:
+        comb = comb + mask[:, None]
+    comb = comb.repeat(b, 1, 1, 1)                     # per window
+    tin = [tile(x) for x in ([q, k] + list(vs))]
+    ob = [torch.zeros(nwin, rows, c) for _ in range(nv)]
+    for gi in range(c // gw):
+        c0 = gi * gw
+        cols = slice(c0, c0 + gw)
+        if nv == 1:
+            qf = gemm(tin[0], "wq", c0, gw) + vecs[0][cols]
+            qs = rnd(rnd(qf) * scale) if variant == "q_scale" else rnd(
+                qf * scale)
+            kc = rnd(gemm(tin[1], "wk", c0, gw) + vecs[1][cols])
+            vc = [rnd(gemm(tin[2], "wv0", c0, gw) + vecs[2][cols])]
+        else:
+            qs = tin[0][..., cols] * scale
+            qs = qs if variant == "q_scale" else rnd(qs)
+            kc = tin[1][..., cols]
+            vc = [rnd(gemm(tin[2 + s_], f"wv{s_}", c0, gw) + vecs[s_][cols])
+                  for s_ in range(2)]
+        for hl in range(gw // dh):
+            h, hc = c0 // dh + hl, slice(hl * dh, (hl + 1) * dh)
+            add = torch.zeros(nwin, rows, rows)
+            add[:, :n, :n] = comb[:, h]
+            add[:, :, n:] = -torch.inf
+            s_ = qs[..., hc] @ kc[..., hc].transpose(-1, -2) + add
+            e = torch.exp(s_ - s_.amax(-1, keepdim=True))
+            recip = 1.0 / e.sum(-1, keepdim=True)
+            er = e if variant == "e_f32" else rnd(e)
+            for si in range(nv):
+                o = (er @ vc[si][..., hc]) * recip
+                ob[si][..., c0 + hl * dh:c0 + (hl + 1) * dh] = (
+                    o if variant == "o_f32" else rnd(o))
+    outs = [torch.cat([rnd(gemm(ob[si], "wp", p0, 128)
+                           + vecs[-1][p0:p0 + 128])
+                       for p0 in range(0, c, 128)], -1)
+            for si in range(nv)]
+    assert next(tiles, None) is None  # every tile used, in order
+    return tuple(o[:, :n].reshape(b, nw, n, c).to(t) for o in outs)
+
+
+def _fwd_case(nv, c, heads, shifted, shared=False, seed=0):
+    """numpy draws of a forward call (``_case``'s, without the output
+    gradients)."""
+    xs, _, projs, bias, mask = _case(nv, c, heads, shifted, shared, seed)
+    return xs, projs, bias, mask
+
+
+def _fwd_torch(case, dtype):
+    xs, projs, bias, mask = case
+    args = _torch_case((xs, [], projs, bias, mask), dtype)
+    return args[0], args[2], args[3], args[4]
+
+
+def _fwd_plain(nv, xs, projs, bias, mask, heads):
+    if nv == 1:
+        return (wa.window_attention_plain(*xs, *projs, bias, mask, heads),)
+    return wa.window_attention_dual_plain(*xs, *projs, bias, mask, heads)
+
+
+def _fwd_replay(nv, xs, projs, bias, mask, heads, plan, variant=None):
+    return replay_fwd(nv, xs[0], xs[1], xs[2:], projs, bias, mask, heads,
+                      plan, variant)
+
+
+def _fwd_plan(nv, c, heads):
+    plan = wa.attn_fwd_plan(N, c, heads, nv, torch.bfloat16)
+    assert plan.body == "tc"
+    return plan
+
+
+def _fwd_card_errors(got, ref):
+    """Per output (largest error / the card's tolerance -- two units in the
+    last place plus 2^-6 of the output's largest |value| --, share of
+    elements that differ, mean |error|)."""
+    out = []
+    for a, r in zip(got, ref):
+        a, r = a.float(), r.float()
+        ulp = torch.exp2((torch.frexp(r)[1] - 8).float())
+        tol = 2 * torch.where(r == 0, 0.0, ulp) + 2.0 ** -6 * r.abs().max()
+        err = (a - r).abs()
+        out.append(((err / tol).max().item(), (err > 0).float().mean().item(),
+                    err.mean().item()))
+    return out
+
+
+FWD_BF16_CASES = ([(1, False, c, c // 32, s) for c in (128, 256)
+                   for s in (True, False)]
+                  + [(2, sh, 256, 8, s) for sh in (False, True)
+                     for s in (True, False)])
+
+
+@pytest.mark.parametrize("nv,shared,c,heads,shifted", FWD_BF16_CASES)
+def test_fwd_replay_matches_plain_at_bf16(nv, shared, c, heads, shifted):
+    """bfloat16: K8's forward at C = 128 with 4 heads (the Swin's stage 1,
+    one head group) and 256 with 8 (stage 2 and the style transformer, two
+    groups), K9's at 256 in both forms (shared: one wv for both streams),
+    the shift mask on and off: every output within the card's tolerance of
+    the plain forward's."""
+    args = _fwd_torch(_fwd_case(nv, c, heads, shifted, shared),
+                      torch.bfloat16)
+    got = _fwd_replay(nv, *args, heads, _fwd_plan(nv, c, heads))
+    errs = _fwd_card_errors(got, _fwd_plain(nv, *args, heads))
+    assert max(e[0] for e in errs) <= 1.0, errs
+
+
+@pytest.mark.parametrize("nv", [1, 2])
+@pytest.mark.parametrize("c,heads", [(128, 4), (256, 8)])
+def test_fwd_replay_matches_plain_and_jax_at_f32(nv, c, heads):
+    """float32, C = 128 and 256, shift mask on: the replay within 1e-4
+    (relative max-abs) of the plain forward and of JAX's window_attention
+    (nv 1) or window_attention_dual (nv 2) kernel in interpret mode."""
+    case = _fwd_case(nv, c, heads, True, seed=3)
+    xs, projs, bias, mask = case
+    args = _fwd_torch(case, torch.float32)
+    got = _fwd_replay(nv, *args, heads, _fwd_plan(nv, c, heads))
+    for a, r in zip(got, _fwd_plain(nv, *args, heads)):
+        assert _rel(a, r.numpy()) <= TOL_F32
+    pj, _ = _jax_params(nv, projs)
+    mask_key = (mask.shape, tuple(mask.ravel().tolist()))
+    jxs = [jnp.asarray(x) for x in xs]
+    want = (jwindow_attention if nv == 1 else jwindow_attention_dual)(
+        pj, *jxs, jnp.asarray(bias), mask_key, heads, True)
+    for a, w in zip(got, want if nv == 2 else (want,)):
+        assert _rel(a, w) <= TOL_F32
+
+
+@pytest.mark.parametrize("nv", [1, 2])
+def test_fwd_replay_tells_the_rounding_points_apart(nv):
+    """bfloat16 at C = 128 (K8) or 256 (K9): the replay is within the
+    card's tolerance of the plain forward and equal to it but for a few
+    elements (under 1%) that a sum in another order moved by a unit; each
+    planted variant -- the numerators unrounded, q's rounding moved, the
+    head outputs unrounded -- changes over 30% of an output's elements and
+    its mean error over 100 times the replay's own (each stays within the
+    card's tolerance: the shares and means tell it)."""
+    c = 128 if nv == 1 else 256
+    heads = c // 32
+    args = _fwd_torch(_fwd_case(nv, c, heads, True, seed=5), torch.bfloat16)
+    plan = _fwd_plan(nv, c, heads)
+    ref = _fwd_plain(nv, *args, heads)
+    base = _fwd_card_errors(_fwd_replay(nv, *args, heads, plan), ref)
+    assert max(e[0] for e in base) <= 1.0 and max(e[1] for e in base) < 0.01
+    for variant in FWD_VARIANTS:
+        errs = _fwd_card_errors(
+            _fwd_replay(nv, *args, heads, plan, variant), ref)
+        assert any(e[1] > 0.3 and e[2] > 100 * b_[2]
+                   for e, b_ in zip(errs, base)), (variant, errs, base)
+
+
+@pytest.mark.parametrize("nv", [1, 2])
+@pytest.mark.parametrize("c,heads", sorted(set(TRAIN_SHAPES)))
+def test_fwd_plan_takes_the_training_shapes(nv, c, heads):
+    """Every training shape at bf16 takes the tensor-core forward: K8 at C
+    = 128 in two blocks of 8 warps an SM (104,448 bytes, within half an
+    SM), K8 at 256 and K9 in one block of 16 warps (154,624 and 188,416
+    bytes); the shared memory attn_fwd_layout's and the form the first of
+    ATTN_FWD_FORMS that fits."""
+    plan = wa.attn_fwd_plan(N, c, heads, nv, torch.bfloat16)
+    assert (plan.body, plan.rows, plan.panel) == ("tc", 64, 128)
+    fits = [f for f in wa.ATTN_FWD_FORMS
+            if wa.attn_fwd_layout(c, nv, f[1], f[2])["total"]
+            <= min(wb.MAX_SMEM_BYTES, wb.SMEM_PER_SM // f[0] - 1024)]
+    assert (plan.blocks_per_sm, plan.kp, plan.stages) == fits[0]
+    assert plan.smem_bytes == wa.attn_fwd_layout(c, nv, plan.kp,
+                                                 plan.stages)["total"]
+    assert wa.smem_bytes(N, c, heads, torch.bfloat16, nv, False) == \
+        plan.smem_bytes
+    want = {(1, 128): (2, 104448), (1, 256): (1, 154624),
+            (2, 128): (1, 139264), (2, 256): (1, 188416)}[nv, c]
+    assert (plan.blocks_per_sm, plan.smem_bytes) == want
+
+
+def test_fwd_plan_leaves_f32_and_other_shapes_scalar():
+    """f32, a head dim other than 32, N over 64 or a C that is no multiple
+    of the 128-column head group keep the scalar forward."""
+    for args in ((49, 256, 8, torch.float32), (49, 128, 4, torch.float32),
+                 (49, 256, 4, torch.bfloat16), (49, 256, 16, torch.bfloat16),
+                 (81, 256, 8, torch.bfloat16), (49, 96, 3, torch.bfloat16),
+                 (49, 192, 6, torch.bfloat16), (49, 64, 2, torch.bfloat16)):
+        for nv in (1, 2):
+            assert wa.attn_fwd_plan(args[0], args[1], args[2], nv,
+                                    args[3]).body == "scalar", args
+
+
+@pytest.mark.parametrize("nv,c", [(1, 128), (1, 256), (1, 384), (2, 128),
+                                  (2, 256)])
+def test_fwd_schedule_covers_each_matrix_once_per_use(nv, c):
+    """The forward's schedule streams each projection's matrix once over
+    its columns, group by group, and wp once per value stream, every tile
+    kp rows deep and 128 wide (K9's two head-output tiles at C = 384 no
+    longer fit: the scalar body)."""
+    plan = _fwd_plan(nv, c, c // 32)
+    uses = ({"wq": 1, "wk": 1, "wv0": 1, "wp": 1} if nv == 1
+            else {"wv0": 1, "wv1": 1, "wp": 2})
+    count = {m: torch.zeros(c, c, dtype=torch.int32) for m in uses}
+    sched = wa.attn_fwd_tile_schedule(plan, c, nv)
+    for m, r0, c0, nr, wd in sched:
+        assert nr == plan.kp and wd == 128
+        count[m][r0:r0 + nr, c0:c0 + wd] += 1
+    for m, n_uses in uses.items():
+        assert (count[m] == n_uses).all(), m
+    per_group = (3 if nv == 1 else 2) * (c // plan.kp)
+    for gi in range(c // plan.panel):
+        part = sched[gi * per_group:(gi + 1) * per_group]
+        assert {s_[2] for s_ in part} == {gi * plan.panel}
+        assert all(s_[0] != "wp" for s_ in part)

@@ -974,6 +974,23 @@ def _attn_bwd_call(cuda, nv, shape, dtype=torch.bfloat16):
         *gs, *xs, *projs, bias, mask, heads)
 
 
+def _kernel_names(fn, stem):
+    """The kernel names of one call of fn() in torch.profiler. The profiler
+    now and then returns a session that holds none of the call's kernels
+    (seen on the card, about once in 50 such sessions): profile again, up
+    to three sessions, until a kernel whose name holds ``stem`` shows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        if any(stem in n for n in names):
+            break
+    return names
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nv", [1, 2])
 @pytest.mark.parametrize("shape", ["swin_stage1", "style_transformer"])
@@ -982,8 +999,6 @@ def test_attention_backward_runs_its_plans_body(cuda, nv, shape):
     torch.profiler) and not the scalar one, in the plan's form, whose
     kernel reports the plan's shared memory and at most 128 registers; at
     f32 the scalar body."""
-    from torch.profiler import ProfilerActivity, profile
-
     from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
 
     _, _, c, heads, _, _ = ATTN_SHAPES[shape]
@@ -991,10 +1006,7 @@ def test_attention_backward_runs_its_plans_body(cuda, nv, shape):
         fn = _attn_bwd_call(cuda, nv, shape, dtype)
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()]
+        names = _kernel_names(fn, "attn_bwd")
         tc = [n for n in names if "attn_bwd_tc_kernel" in n]
         scalar = [n for n in names if "attn_bwd_kernel" in n]
         plan = wa.attn_bwd_plan(49, c, heads, nv, dtype)
@@ -1005,7 +1017,8 @@ def test_attention_backward_runs_its_plans_body(cuda, nv, shape):
             assert smem == 0 and dyn >= plan.smem_bytes > 0
             assert 0 < regs <= 128 and local >= 0
         else:
-            assert plan.body == "scalar" and len(scalar) == 1 and not tc
+            assert plan.body == "scalar" and len(scalar) == 1 and not tc, \
+                names
 
 
 @pytest.mark.cuda
@@ -1083,6 +1096,157 @@ def test_attention_backward_refuses_a_wrong_plan(cuda, monkeypatch):
                 fn()
             assert wa.LAUNCHES == before
             monkeypatch.undo()
+
+
+def _attn_fwd_call(cuda, nv, shape, dtype=torch.bfloat16):
+    """One K8 (nv 1) or K9 (nv 2) forward kernel call as a function of
+    nothing, on the case's inputs."""
+    from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
+
+    heads = ATTN_SHAPES[shape][3]
+    xs, ws, bias, mask, _ = _attn_case(cuda, dtype, nv, shape=shape)
+    projs = [wa.Proj(ws[i], ws[i + 1]) for i in range(0, len(ws), 2)]
+    fwd = (wa.window_attention_fwd_kernel if nv == 1
+           else wa.window_attention_dual_fwd_kernel)
+    return lambda: fwd(*xs, *projs, bias, mask, heads)
+
+
+def _attn_fwd_plain(cuda, nv, shape, dtype=torch.bfloat16):
+    from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
+
+    heads = ATTN_SHAPES[shape][3]
+    xs, ws, bias, mask, _ = _attn_case(cuda, dtype, nv, shape=shape)
+    projs = [wa.Proj(ws[i], ws[i + 1]) for i in range(0, len(ws), 2)]
+    if nv == 1:
+        return (wa.window_attention_plain(*xs, *projs, bias, mask, heads),)
+    return wa.window_attention_dual_plain(*xs, *projs, bias, mask, heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv", [1, 2])
+@pytest.mark.parametrize("shape", ["swin_stage1", "swin_stage2",
+                                   "style_transformer"])
+def test_attention_forward_runs_its_plans_body(cuda, nv, shape):
+    """At bf16 the forward launches its tensor-core body (by name, in
+    torch.profiler) and not the scalar one, in the plan's form, whose
+    kernel reports the plan's shared memory, at most 128 registers and its
+    spills (local memory); at f32 the scalar body."""
+    from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
+
+    _, _, c, heads, _, _ = ATTN_SHAPES[shape]
+    for dtype in (torch.bfloat16, torch.float32):
+        fn = _attn_fwd_call(cuda, nv, shape, dtype)
+        fn()
+        torch.cuda.synchronize()
+        names = _kernel_names(fn, "attn_fwd")
+        tc = [n for n in names if "attn_fwd_tc_kernel" in n]
+        scalar = [n for n in names if "attn_fwd_kernel" in n]
+        plan = wa.attn_fwd_plan(49, c, heads, nv, dtype)
+        if dtype == torch.bfloat16:
+            assert plan.body == "tc" and len(tc) == 1 and not scalar, names
+            smem, dyn, regs, local = wa.kernel_attributes(plan, dtype, nv,
+                                                          False)
+            assert smem == 0 and dyn >= plan.smem_bytes > 0
+            assert 0 < regs <= 128 and local >= 0
+        else:
+            assert plan.body == "scalar" and len(scalar) == 1 and not tc, \
+                names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv", [1, 2])
+@pytest.mark.parametrize("shape", ["small", "swin_stage1", "swin_stage2",
+                                   "style_transformer"])
+def test_attention_forward_forms_match_plain(cuda, monkeypatch, nv, shape):
+    """The forward's tensor-core body in each of its forms that fits the
+    shape (ATTN_FWD_FORMS: two blocks of 8 warps an SM at C = 128 with one
+    value stream, one block of 16 warps at every shape) against the plain
+    forward, bf16: two units in the last place plus 2^-6 of the largest
+    |output|."""
+    from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
+
+    _, _, c, heads, _, _ = ATTN_SHAPES[shape]
+    ref = _attn_fwd_plain(cuda, nv, shape)
+    ran = 0
+    for form in wa.ATTN_FWD_FORMS:
+        monkeypatch.setattr(wa, "ATTN_FWD_FORMS", (form,))
+        wa.attn_fwd_plan.cache_clear()
+        if wa.attn_fwd_plan(49, c, heads, nv, torch.bfloat16).body == "tc":
+            got = _attn_fwd_call(cuda, nv, shape)()
+            for a, r in zip(got if nv == 2 else (got,), ref):
+                _check(a, r, torch.zeros_like(r))
+            ran += 1
+        monkeypatch.undo()
+        wa.attn_fwd_plan.cache_clear()
+    assert ran == (2 if nv == 1 and c == 128 else 1)
+
+
+@pytest.mark.cuda
+def test_attention_forward_refuses_a_wrong_plan(cuda, monkeypatch):
+    """The forward's C entries check the tensor-core plan they are given
+    against the layout and refuse a mismatch (a shared-memory size 16
+    bytes off, a ring the form lacks, another head-group width) with
+    cudaErrorInvalidValue, launching nothing; the wrappers raise."""
+    from mastermetastyletransfer_tpu_torch.ops import window_attention as wa
+
+    for nv in (1, 2):
+        plan = wa.attn_fwd_plan(49, C, HEADS, nv, torch.bfloat16)
+        assert plan.body == "tc"
+        fn = _attn_fwd_call(cuda, nv, "small")
+        for change in (dict(smem_bytes=plan.smem_bytes + 16),
+                       dict(stages=plan.stages + 1),
+                       dict(panel=64)):
+            bad = plan._replace(**change)
+            monkeypatch.setattr(wa, "attn_fwd_plan",
+                                lambda *a, bad=bad: bad)
+            before = dict(wa.LAUNCHES)
+            with pytest.raises(RuntimeError, match="CUDA error 1 "):
+                fn()
+            assert wa.LAUNCHES == before
+            monkeypatch.undo()
+
+
+@pytest.mark.cuda
+def test_attention_forward_two_host_threads_bit_equal(cuda):
+    """F5 for the tensor-core forward: two host threads launch K8's and
+    K9's forward at two shapes each (K8 in both of its forms: two blocks an
+    SM at C = 128, one at 256), 200 times each, alternately and in
+    opposite orders; no launch is refused and every output equals, bit for
+    bit, the same call on one thread."""
+    import threading
+
+    calls = {f"k{7 + nv}_{shape}": _attn_fwd_call(cuda, nv, shape)
+             for nv in (1, 2) for shape in ("small", "style_transformer")}
+    want = {name: fn() for name, fn in calls.items()}
+    torch.cuda.synchronize()
+    names = list(calls)
+    results, errors = {}, []
+
+    def work(tag, order):
+        try:
+            outs = [(order[i % len(order)], calls[order[i % len(order)]]())
+                    for i in range(200)]
+            torch.cuda.synchronize()
+            results[tag] = outs
+        except Exception as e:  # reported below, in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=("a", names)),
+               threading.Thread(target=work, args=("b", names[::-1]))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert not errors, errors[0]
+    assert set(results) == {"a", "b"}
+    for outs in results.values():
+        assert len(outs) == 200
+        for name, got in outs:
+            got = got if isinstance(got, tuple) else (got,)
+            ref = want[name] if isinstance(want[name], tuple) else (
+                want[name],)
+            for x, y in zip(got, ref):
+                assert torch.equal(x, y), name
 
 
 def _mlp_case(cuda, dtype, c, use_norm, seed=9):

@@ -10,8 +10,8 @@
 * bfloat16 against the JAX package: the port's bf16 ``master_apply`` with
   the Swin, style-transformer and decoder kernels on (their plain versions
   here; the decoder on its phase-space path) against JAX's bf16
-  ``master_apply`` with K1-K7 in interpret mode, at 64^2.
-  Bound: per-pixel MAE <= 2e-2 of the mean |JAX output| (two bf16 paths
+  ``master_apply`` with K1-K7 in interpret mode, at 64^2; and the same in
+  the JAX package's round-5 configuration (K11 and K12 rgb128). Bound: per-pixel MAE <= 2e-2 of the mean |JAX output| (two bf16 paths
   round independently through the whole model).
 * bfloat16 against float32, the criterion of chip_smoke.py's bf16 slice
   check on a few weight draws: the port's bf16 kernel route (every kernel
@@ -127,14 +127,21 @@ def test_concurrent_float32_stages_keep_tf32_off(tf32_on):
     assert all(m.allow_tf32 for m in TF32_FLAGS)
 
 
-def test_bf16_master_apply_matches_jax(model):
+def _bf16_master_apply_vs_jax(model, rgb_tail=None):
+    """The bf16 ``master_apply`` of the port (every kernel on) and of JAX
+    (K1-K7 in interpret mode), optionally with ``rgb_tail``: the per-pixel
+    MAE between them must stay within 2e-2 of the mean |JAX output|."""
     pj, pt = model
     cj = jcfg.ModelConfig(compute_dtype="bfloat16")
     cj = cj.replace(swin=cj.swin.replace(use_pallas=True),
                     transformer=cj.transformer.replace(use_pallas=True),
                     decoder=cj.decoder.replace(use_pallas=True))
+    if rgb_tail is not None:
+        cj = cj.replace(decoder=cj.decoder.replace(rgb_tail=rgb_tail))
     ct = tcfg.ModelConfig.from_dict(cj.to_dict())
-    assert ct == tcfg.ModelConfig(compute_dtype="bfloat16").with_kernels()
+    assert ct.decoder.rgb_tail == cj.decoder.rgb_tail
+    if rgb_tail is None:
+        assert ct == tcfg.ModelConfig(compute_dtype="bfloat16").with_kernels()
     assert ct.decoder.fuse_upsample and ct.decoder.phase2_tail
     pj = jmaster.cast_params(pj, jnp.bfloat16)
     pt = tmaster.cast_params(pt, torch.bfloat16)
@@ -148,6 +155,31 @@ def test_bf16_master_apply_matches_jax(model):
     print(f"bf16 port vs JAX: MAE {mae:.6g}, mean |JAX| {scale:.6g}, "
           f"relative {mae / scale:.6g}")
     assert mae <= 2e-2 * scale, (mae, scale)
+
+
+def test_bf16_master_apply_matches_jax(model):
+    _bf16_master_apply_vs_jax(model)
+
+
+def test_bf16_master_apply_matches_jax_pair_route(model, monkeypatch):
+    """The JAX package's round-5 configuration at bf16: the Swin's stages on
+    the block-pair kernel (K11, ``MMST_BLOCK_PAIR=1`` on both sides) and
+    the decoder's L2 tail with its rgb128 output conv (K12,
+    ``rgb_tail="l2k128"``), under the same bound."""
+    from mastermetastyletransfer_tpu_torch.ops import block_pair as bpr
+    from mastermetastyletransfer_tpu_torch.ops import phase_conv as pc
+
+    ran = []
+    for mod, name in ((bpr, "window_block_pair_rows_plain"),
+                      (pc, "stencil_phase2_rgb128")):
+        def spy(*args, fn=getattr(mod, name), name=name, **kwargs):
+            ran.append(name)
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(mod, name, spy)
+    monkeypatch.setenv("MMST_BLOCK_PAIR", "1")
+    _bf16_master_apply_vs_jax(model, "l2k128")
+    assert sorted(ran) == ["stencil_phase2_rgb128"] + [
+        "window_block_pair_rows_plain"] * 2   # both Swin stages, conv8
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -183,6 +183,52 @@ def test_train_step_matches_jax(step_case, k):
             key, err / float(np.abs(w).max()), spread[key])
 
 
+def test_bf16_train_step_within_jax_noise(step_case):
+    """F7: the bf16 step, the port with every kernel on (their plain
+    versions through the autograd Functions of K5, K7, K8, K9 and K10)
+    against JAX's bf16 ``_make_loss_and_grad``, at k = 1 from the f32
+    case's weights and images. Criterion: chip_smoke.py's bf16 noise ratio
+    per gradient group (``chip_smoke.param_group``), mean |port bf16 - JAX
+    f32| over mean |JAX bf16 - JAX f32|, at most TOL_BF16_NOISE (1.5): the
+    two bf16 routes round independently through the whole model and the
+    loss, so the port is held to JAX's own bf16 distance from f32, not to
+    JAX's bf16 bits. The loss within the same ratio."""
+    import chip_smoke
+
+    cfg, pj, vj, content, style, want = step_case
+    cb = cfg.replace(model=cfg.model.replace(compute_dtype="bfloat16"))
+    (jax_loss, _), jax_grads = jax.jit(jstep._make_loss_and_grad(cb, vj))(
+        pj, jnp.asarray(content), jnp.asarray(style), 1,
+        jax.random.PRNGKey(3))
+    jax_grads = flatten_params(jax.device_get(jax_grads))
+    ct = tcfg.ExperimentConfig.from_dict(cb.to_dict())
+    ct = ct.replace(model=ct.model.with_kernels())
+    assert ct.model.compute_dtype == "bfloat16"
+    params = params_from_jax(pj)
+    state = tstate.create_train_state(params, ct.train)
+    loss, _, grads = tstep.make_loss_and_grad(ct, params_from_jax(vj))(
+        state.params, torch.from_numpy(content), torch.from_numpy(style), 1,
+        torch.Generator().manual_seed(0))
+    ref_loss, _, ref = want[1]
+    ratios = {}
+    for grp in sorted({chip_smoke.param_group(key) for key in grads}):
+        keys = [key for key in grads if chip_smoke.param_group(key) == grp]
+        port = sum(float(np.abs(grads[key].float().numpy()
+                                - np.asarray(ref[key])).sum())
+                   for key in keys)
+        own = sum(float(np.abs(np.asarray(jax_grads[key], np.float32)
+                               - np.asarray(ref[key])).sum())
+                  for key in keys)
+        ratios[grp] = port / own
+    loss_ratio = abs(float(loss) - ref_loss) / abs(float(jax_loss) - ref_loss)
+    print(f"bf16 step: loss {float(loss)} (JAX bf16 {float(jax_loss)}, f32 "
+          f"{ref_loss}), loss ratio {loss_ratio:.4g}; group ratios "
+          f"{ {g: round(r, 4) for g, r in ratios.items()} }")
+    assert len(ratios) > 10
+    assert max(ratios.values()) <= chip_smoke.TOL_BF16_NOISE, ratios
+    assert loss_ratio <= chip_smoke.TOL_BF16_NOISE, loss_ratio
+
+
 @pytest.mark.parametrize("mode", ["plain", "fast_adaptation"])
 def test_training_after_a_served_call(step_case, mode):
     """The constants the port caches (shift masks, gather indices, a frozen

@@ -1,6 +1,7 @@
 """The training kernels' plain versions (ops/window_attention.py K8 and K9,
 ops/ln_mlp.py K10) and the decoder kernels' backward passes
-(ops/phase_conv.py K5, K6, K7) against the JAX package, float32 on the CPU.
+(ops/phase_conv.py K5, K6, K7) against the JAX package on the CPU: float32,
+and K8, K9 and K10 also at bfloat16, training's type.
 
 The JAX side runs its Pallas kernels in interpret mode, as its own tests do:
 the forward kernels and, through ``jax.vjp`` of their custom VJPs, their
@@ -15,6 +16,20 @@ Abramowitz-Stegun erf against the exact erf). The key bias of K8 has an
 exactly zero gradient (the softmax does not see a shift of every key by one
 vector), so its two sides are both rounding noise: it is held to 1e-4 of
 the largest gradient of the other projections instead.
+
+At bfloat16 (the ``-bf16`` cases) the inputs are the same numpy draws
+cast to bf16 on both sides (the weights stay float32; both sides round
+them where their kernels do), and the port's plain forward and explicit
+plain backward are held to JAX's bf16 kernels and ``jax.vjp`` of them.
+Bound: the card's bf16 tolerance (PERF.md section 2; chip_smoke.py), two
+bf16 units in the last place of JAX's element plus 2^-6 of the tensor's
+largest |value| (the bias gradients: of the largest of them, the key
+bias's own being zero up to rounding); and the bf16 tensors -- the
+outputs and the input gradients -- equal to JAX's but for under 1% of
+their elements (a sum in another order moves an element by one unit).
+The second bound is the one that sees a rounding point out of place: one
+rounding of an intermediate moves an output by less than the first's 2^-6
+term, but a third of its elements (a planted one shows it).
 
 tests/test_torch_cuda_kernels.py holds the CUDA kernels to the plain
 versions on the card.
@@ -49,7 +64,11 @@ from mastermetastyletransfer_tpu_torch.utils.checkpoint import (
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL_FWD, TOL_GRAD = 1e-5, 1e-4
+TOL_BF16_ULPS, TOL_BF16_SCALE = 2, 2.0 ** -6
+MAX_BF16_DIFF_SHARE = 0.01
 C, HEADS, B, NW, N = 128, 4, 2, 4, 49
+# The f32 cases keep their ids; the bf16 cases add "-bf16".
+F32_BF16 = [torch.float32, torch.bfloat16]
 
 
 def _np(seed, shape, scale=1.0):
@@ -104,11 +123,92 @@ def _leaves(tree):
     return flat
 
 
-@pytest.mark.parametrize("shifted", [True, False])
-def test_window_attention_matches_jax(shifted):
+def _params(*vals):
+    """pytest cases of ``vals`` at float32 (the value's id, as before the
+    bf16 cases) and at bfloat16 (id ``...-bf16``)."""
+    return [pytest.param(v, t, id=f"{v}" + ("-bf16" if t == torch.bfloat16
+                                            else ""))
+            for t in F32_BF16 for v in vals]
+
+
+def _card(got, want, scale=None):
+    """(largest error over the card's bf16 tolerance, share of elements that
+    differ) of the port's tensor against JAX's: two bf16 units in the last
+    place of JAX's element plus 2^-6 of ``scale`` (default: the largest
+    |JAX value|)."""
+    got = (got.detach().float().numpy() if isinstance(got, torch.Tensor)
+           else np.asarray(got, np.float32))
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = np.abs(want).max() if scale is None else scale
+    ulp = np.where(want == 0, 0.0, 2.0 ** (np.frexp(want)[1] - 8))
+    err = np.abs(got - want)
+    return (float((err / (TOL_BF16_ULPS * ulp + TOL_BF16_SCALE * scale))
+                  .max()), float((err > 0).mean()))
+
+
+def _bf16_errors(names, got, want):
+    """Per tensor of a bf16 case: _card's pair, the bias gradients (names
+    "b...") scaled by the largest of them."""
+    vec = max(float(np.abs(np.asarray(w, np.float32)).max())
+              for n, w in zip(names, want) if n.startswith("b"))
+    return {n: _card(g, w, vec if n.startswith("b") else None)
+            for n, g, w in zip(names, got, want)}
+
+
+def _assert_bf16(errs, bf16_names):
+    """The bf16 bounds: every tensor within the card's tolerance, and the
+    bf16 ones (outputs, input gradients) equal to JAX's but for under
+    MAX_BF16_DIFF_SHARE of their elements."""
+    for n, (over, share) in errs.items():
+        assert over <= 1.0, (n, errs)
+        if n in bf16_names:
+            assert share <= MAX_BF16_DIFF_SHARE, (n, errs)
+
+
+def _bf16(x):
+    return jnp.asarray(x).astype(jnp.bfloat16)
+
+
+K8_NAMES = ["out", "dq", "dk", "dv", "wq", "bq", "wk", "bk", "wv", "bv",
+            "wp", "bp", "dbias"]
+
+
+def _k8_bf16_errors(shifted):
+    """K8 at bf16: the port's plain forward and explicit plain backward
+    against JAX's kernel and its VJP, per tensor (``_bf16_errors``)."""
+    pj, pt = _attn_params(0)
+    mask_key, mask = _mask(shifted)
+    xs = [_np(10 + i, (B, NW, N, C), 0.5) for i in range(3)]
+    bnp, gnp = _np(20, (HEADS, N, N), 0.1), _np(30, (B, NW, N, C))
+    want, vjp = jax.vjp(lambda p, q, k, v, b: jwindow_attention(
+        p, q, k, v, b, mask_key, HEADS, True), pj, *map(_bf16, xs),
+        jnp.asarray(bnp))
+    dp, dq, dk, dv, db = vjp(_bf16(gnp))
+    dpf = flatten_params(jax.device_get(dp))
+    tx = [torch.from_numpy(x).to(torch.bfloat16) for x in xs]
+    projs = [wa.Proj(pt[p]["kernel"], pt[p]["bias"])
+             for p in ("wq", "wk", "wv", "proj")]
+    bt = torch.from_numpy(bnp)
+    out = wa.window_attention_plain(*tx, *projs, bt, mask, HEADS)
+    grads = wa.window_attention_bwd_plain(
+        torch.from_numpy(gnp).to(torch.bfloat16), *tx, *projs, bt, mask,
+        HEADS)
+    assert out.dtype == grads[0].dtype == torch.bfloat16
+    wants = [want, dq, dk, dv] + [dpf[f"{p}/{leaf}"] for p in (
+        "wq", "wk", "wv", "proj") for leaf in ("kernel", "bias")] + [db]
+    return _bf16_errors(K8_NAMES, (out,) + tuple(grads), wants)
+
+
+@pytest.mark.parametrize("shifted,dtype", _params(True, False))
+def test_window_attention_matches_jax(shifted, dtype):
     """K8: the forward, the explicit plain backward and the autograd
     Function against JAX's kernels, and the plain backward against autograd
-    of the plain forward."""
+    of the plain forward; at bf16 the plain forward and backward against
+    JAX's bf16 kernels."""
+    if dtype == torch.bfloat16:
+        _assert_bf16(_k8_bf16_errors(shifted), K8_NAMES[:4])
+        return
     pj, pt = _attn_params(0)
     mask_key, mask = _mask(shifted)
     (qj, kj, vj), (qt, kt, vt) = _windows(10, 3)
@@ -149,10 +249,78 @@ def test_window_attention_matches_jax(shifted):
                                                      a.abs().max()), name
 
 
-@pytest.mark.parametrize("shared", [False, True])
-def test_window_attention_dual_matches_jax(shared):
+def test_bf16_bound_sees_a_rounding_point_moved(monkeypatch):
+    """The bf16 bound bites: with the softmax numerators left unrounded
+    before the value product (planted in the port's plain K8 through its
+    attention core), the output stays within the card's tolerance -- one
+    rounding is under its 2^-6 term -- but differs from JAX's in far more
+    than MAX_BF16_DIFF_SHARE of its elements, and the bf16 case fails."""
+
+    def attend_unrounded(q, k, values, rel_bias, *, heads, mask=None):
+        t = q.dtype
+        b, nw, n, c = q.shape
+
+        def split(z):
+            return z.reshape(b, nw, n, heads, c // heads).transpose(2, 3)\
+                .float()
+
+        comb = rel_bias[None, None]
+        if mask is not None:
+            comb = mask[None, :, None] + comb
+        s_ = split(q) @ split(k).transpose(-1, -2) + comb
+        e = torch.exp(s_ - s_.amax(-1, keepdim=True))
+        recip = 1.0 / e.sum(-1, keepdim=True)
+        return tuple(((e @ split(v)) * recip).to(t).transpose(2, 3)
+                     .reshape(b, nw, n, c) for v in values)
+
+    monkeypatch.setattr(wa, "attend", attend_unrounded)
+    errs = _k8_bf16_errors(True)
+    assert errs["out"][0] <= 1.0 and errs["out"][1] > 10 * MAX_BF16_DIFF_SHARE
+    with pytest.raises(AssertionError):
+        _assert_bf16(errs, K8_NAMES[:4])
+
+
+K9_NAMES = ["sigma", "mu", "dq", "dk", "dvs", "dvh", "wvs", "bvs", "wvh",
+            "bvh", "wp", "bp", "dbias"]
+
+
+def _k9_bf16_errors(shared):
+    """K9 at bf16 in one of its forms, as ``_k8_bf16_errors``; with one wv
+    for both streams each use's gradient is held to JAX's for that use."""
+    pj, pt = _attn_params(1, dual=True)
+    if shared:
+        pj = dict(pj, wv_shift=pj["wv_scale"])
+        pt = dict(pt, wv_shift=pt["wv_scale"])
+    mask_key, mask = _mask(True)
+    xs = [_np(40 + i, (B, NW, N, C), 0.5) for i in range(4)]
+    bnp = _np(50, (HEADS, N, N), 0.1)
+    gs = [_np(60 + i, (B, NW, N, C)) for i in range(2)]
+    (sj, mj), vjp = jax.vjp(lambda p, q, k, vs, vh, b: jwindow_attention_dual(
+        p, q, k, vs, vh, b, mask_key, HEADS, True), pj, *map(_bf16, xs),
+        jnp.asarray(bnp))
+    dp, dq, dk, dvs, dvh, db = vjp(tuple(map(_bf16, gs)))
+    dpf = flatten_params(jax.device_get(dp))
+    tx = [torch.from_numpy(x).to(torch.bfloat16) for x in xs]
+    projs = [wa.Proj(pt[p]["kernel"], pt[p]["bias"])
+             for p in ("wv_scale", "wv_shift", "proj")]
+    bt = torch.from_numpy(bnp)
+    outs = wa.window_attention_dual_plain(*tx, *projs, bt, mask, HEADS)
+    grads = wa.window_attention_dual_bwd_plain(
+        *(torch.from_numpy(g).to(torch.bfloat16) for g in gs), *tx, *projs,
+        bt, mask, HEADS)
+    wants = [sj, mj, dq, dk, dvs, dvh] + [dpf[f"{p}/{leaf}"] for p in (
+        "wv_scale", "wv_shift", "proj") for leaf in ("kernel", "bias")] + [db]
+    return _bf16_errors(K9_NAMES, tuple(outs) + tuple(grads), wants)
+
+
+@pytest.mark.parametrize("shared,dtype", _params(False, True))
+def test_window_attention_dual_matches_jax(shared, dtype):
     """K9 in both of its forms: the decoder's (wv_scale, wv_shift) and the
-    style encoder's Scale/Shift pair, which passes one wv twice."""
+    style encoder's Scale/Shift pair, which passes one wv twice; at bf16
+    the plain forward and backward against JAX's bf16 kernels."""
+    if dtype == torch.bfloat16:
+        _assert_bf16(_k9_bf16_errors(shared), K9_NAMES[:6])
+        return
     pj, pt = _attn_params(1, dual=True)
     if shared:
         pj = dict(pj, wv_shift=pj["wv_scale"])
@@ -205,16 +373,56 @@ def test_window_attention_dual_matches_jax(shared):
                 name
 
 
-@pytest.mark.parametrize("use_norm", [True, False])
-def test_ln_mlp_residual_matches_jax(use_norm):
-    """K10 with and without its LayerNorm."""
+def _mlp_case(use_norm):
+    """K10's numpy draws: the MLP's params, the norm's or None, x and the
+    output's gradient (3, 5, 7, C)."""
     p = jax.device_get(jmlp.init_mlp(jax.random.PRNGKey(2), C, 4 * C,
                                      init="xavier_uniform"))
     p["fc1"]["bias"] = _np(70, (4 * C,), 0.1)
     p["fc2"]["bias"] = _np(71, (C,), 0.1)
     norm = ({"scale": 1.0 + _np(72, (C,), 0.3), "bias": _np(73, (C,), 0.3)}
             if use_norm else None)
-    xnp, gnp = _np(74, (3, 5, 7, C)), _np(75, (3, 5, 7, C))
+    return p, norm, _np(74, (3, 5, 7, C)), _np(75, (3, 5, 7, C))
+
+
+def _k10_bf16_errors(use_norm):
+    """K10 at bf16, as ``_k8_bf16_errors``: the port's plain forward and
+    explicit plain backward against JAX's kernel and its VJP."""
+    p, norm, xnp, gnp = _mlp_case(use_norm)
+    pj = jax.tree_util.tree_map(jnp.asarray, p)
+    nj = None if norm is None else jax.tree_util.tree_map(jnp.asarray, norm)
+    want, vjp = jax.vjp(lambda x, m, n: jln_mlp_residual(x, m, n, 1e-5, True),
+                        _bf16(xnp), pj, nj)
+    dx, dm, dn = vjp(_bf16(gnp))
+    t = {k: torch.tensor(np.asarray(v)) for k, v in flatten_params(
+        {"mlp": p, **({"norm": norm} if norm else {})}).items()}
+    w = (t["mlp/fc1/kernel"], t["mlp/fc1/bias"], t["mlp/fc2/kernel"])
+    ns_nb = ((t["norm/scale"], t["norm/bias"]) if norm else (None, None))
+    xt = torch.from_numpy(xnp).to(torch.bfloat16)
+    out = lm.ln_mlp_residual_plain(xt, *w, t["mlp/fc2/bias"], *ns_nb)
+    grads = lm.ln_mlp_residual_bwd_plain(
+        torch.from_numpy(gnp).to(torch.bfloat16), xt, *w, *ns_nb)
+    dj = flatten_params(jax.device_get({"mlp": dm, **(
+        {"norm": dn} if norm else {})}))
+    names = ["out", "dx", "w1", "b1", "w2", "b2"] + (
+        ["scale", "bn"] if norm else [])
+    wants = [want, dx] + [dj[k] for k in (
+        "mlp/fc1/kernel", "mlp/fc1/bias", "mlp/fc2/kernel", "mlp/fc2/bias")]
+    if norm:
+        wants += [dj["norm/scale"], dj["norm/bias"]]
+    got = (out,) + tuple(g for g in grads if g is not None)
+    assert out.dtype == grads[0].dtype == torch.bfloat16
+    return _bf16_errors(names, got, wants)
+
+
+@pytest.mark.parametrize("use_norm,dtype", _params(True, False))
+def test_ln_mlp_residual_matches_jax(use_norm, dtype):
+    """K10 with and without its LayerNorm; at bf16 the plain forward and
+    backward against JAX's bf16 kernel and its VJP."""
+    if dtype == torch.bfloat16:
+        _assert_bf16(_k10_bf16_errors(use_norm), ["out", "dx"])
+        return
+    p, norm, xnp, gnp = _mlp_case(use_norm)
     pj = jax.tree_util.tree_map(jnp.asarray, p)
     nj = None if norm is None else jax.tree_util.tree_map(jnp.asarray, norm)
     want, vjp = jax.vjp(lambda x, m, n: jln_mlp_residual(x, m, n, 1e-5, True),
