@@ -73,7 +73,19 @@ generator of their own, the kernels of the pair slice and K13: K11 at the
 Swin's two stages (bf16, f32) and at C=192, K12's two entries at conv8
 (bf16, f32; cuDNN's conv of the same composed kernel as the yardstick) and
 their plain backward passes, K13 at the patch embedding of one 16-image
-pass; refusals (K11 and K13 raise under autograd and launch nothing).
+pass; refusals (K11 and K13 raise under autograd and launch nothing);
+then, on the slice's weights with draws of their own, style-locked
+serving: locked (``LockedStyleService`` with two locked styles at bf16,
+k=1 and k=3, and at f32, k=1: the stream builds' launches and each k's
+launches counted from zero and checked exactly against
+``locked_per_stream`` and ``locked_per_batch``, the outputs held to the
+reference services on the same contents paired with the locked style by
+the slice's criteria, the f32 ones to the f32 kernel pair service too),
+locked_blend (``blend_style_streams`` with weights [1, 0] decodes to its
+first stream's output bit for bit), locked_stages (CUDA-event times of
+one locked batch, stage by stage) and sweep (a ``SweepService`` over the
+slice's weights and a second set: launches exactly two batches', each
+set's output equal bit for bit to a run of that set alone).
 
 Needs only torch, numpy and the standard library, and one CUDA card.
 
@@ -118,12 +130,14 @@ loss finite.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -135,11 +149,14 @@ from mastermetastyletransfer_tpu_torch.config import (
 from mastermetastyletransfer_tpu_torch.losses.loss import perceptual_loss
 from mastermetastyletransfer_tpu_torch.losses.vgg import init_vgg19_features
 from mastermetastyletransfer_tpu_torch.models.decoder import cnn_decoder_apply
+from mastermetastyletransfer_tpu_torch.inference import blend_style_streams
 from mastermetastyletransfer_tpu_torch.models.master import (
-    _TF32_OFF, init_master_model, make_stylize_fn, master_apply,
+    _TF32_OFF, encode_features, init_master_model, make_stylize_fn,
+    master_apply, stylize_with_style_stream,
 )
 from mastermetastyletransfer_tpu_torch.models.style_transformer import (
     init_style_swin_block, style_transformer_apply,
+    style_transformer_apply_from_stream,
 )
 from mastermetastyletransfer_tpu_torch.models.swin import swin_backbone_apply
 from mastermetastyletransfer_tpu_torch.ops import _build
@@ -158,7 +175,9 @@ from mastermetastyletransfer_tpu_torch.ops.mlp import init_mlp
 from mastermetastyletransfer_tpu_torch.ops.windows import (
     effective_shift, shift_attention_mask, valid_token_mask, window_partition,
 )
-from mastermetastyletransfer_tpu_torch.serve import StylizeService
+from mastermetastyletransfer_tpu_torch.serve import (
+    LockedStyleService, StylizeService, SweepService,
+)
 from mastermetastyletransfer_tpu_torch.train.state import create_train_state
 from mastermetastyletransfer_tpu_torch.train.step import (
     _loss_views, _sample_k, make_loss_and_grad, make_train_step,
@@ -1973,6 +1992,277 @@ def run_train() -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# 6. style-locked serving and the lambda sweep at 512^2
+# ---------------------------------------------------------------------------
+
+LOCKED_SEED = TRAIN_SEED + 4
+LOCKED_STYLES, LOCKED_KS = 2, (1, 3)
+# bf16 content requests per (style, k); f32 requests in all, at k=1.
+LOCKED_REQUESTS = {1: 16, 3: 8}
+LOCKED_F32_REQUESTS = 4
+
+
+def locked_per_batch(dtype: str, k: int) -> dict:
+    """Launches of one style-locked batch at depth k: the contents' Swin (4
+    blocks: K1 at bf16, K2 at f32, as PER_BATCH), then per iteration the
+    decoder half's self block (K2) and tail (K4), no K3 (the stream holds
+    the encoder's triples), and the decoder."""
+    bf16 = dtype == "bfloat16"
+    return {**PER_BATCH[dtype], "window_block_rows": 4 if bf16 else 0,
+            "window_block_windows": (0 if bf16 else 4) + k,
+            "encoder_scale_shift": 0, "decoder_tail": k}
+
+
+def locked_per_stream(dtype: str, k: int) -> dict:
+    """Launches of one stream build at depth k: the style's Swin at batch 1
+    (4 blocks), then per iteration the encoder's Key block (K2) and its
+    Scale/Shift (K3); no decoder."""
+    bf16 = dtype == "bfloat16"
+    return {**{e: 0 for e in PER_BATCH[dtype]},
+            "window_block_rows": 4 if bf16 else 0,
+            "window_block_windows": (0 if bf16 else 4) + k,
+            "encoder_scale_shift": k}
+
+
+def expect_launches(label: str, launches: dict, per: dict, n: int) -> None:
+    want = {e: c * n for e, c in per.items()}
+    if n <= 0 or launches != want:
+        raise AssertionError(f"{label}: launched {launches}, expected {n} x "
+                             f"{per}")
+
+
+def serve_locked(svc: LockedStyleService, reqs, k: int, clients: int):
+    """serve_requests over (content, style name) requests at depth k."""
+    return serve_requests(
+        types.SimpleNamespace(stylize=functools.partial(svc.stylize, k=k)),
+        reqs, clients)
+
+
+def reference_outputs(params, pairs, k: int) -> dict:
+    """The slice's reference services (every kernel off, the nine plain
+    convs) at depth k on the pairs, f32 and bf16; they launch nothing."""
+    before = all_launches()
+    refs = {}
+    for dtype in ("float32", "bfloat16"):
+        svc = StylizeService(params, reference_config(dtype), size=SIZE, k=k,
+                             max_batch=MAX_BATCH, device=DEVICE)
+        refs[dtype] = np.stack(serve_requests(svc, pairs, CLIENTS)[0])
+        svc.close()
+    if all_launches() != before:
+        raise AssertionError("a reference service launched a kernel")
+    return refs
+
+
+def f32_check(got: np.ndarray, ref32: np.ndarray) -> dict:
+    mean32 = float(np.abs(ref32).mean())
+    mae = float(np.abs(got - ref32).mean())
+    return dict(mae_vs_f32=mae, mae_tol=TOL_SLICE_MAE * mean32,
+                mean_abs_output=mean32,
+                max_abs_vs_f32=float(np.abs(got - ref32).max()),
+                ok=mae <= TOL_SLICE_MAE * mean32)
+
+
+def finite_images(label: str, out: np.ndarray, n: int) -> None:
+    if out.shape != (n, SIZE, SIZE, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"{label}: output of shape {out.shape}, or not "
+                             "finite")
+
+
+def run_locked(params, styles: dict, contents: list) -> dict:
+    """The style-locked path at bf16 (both styles, k=1 and k=3) and f32
+    (k=1): each service's stream builds, then each k's requests, with the
+    launches of each counted from zero and checked exactly; every output
+    against the reference services on the same contents paired with the
+    locked style image; the f32 route against the f32 kernel pair service
+    too. Returns the bf16 service's streams and each run's readings."""
+    names = list(styles)
+    out = {}
+    streams = {}
+    for dtype, ks in (("bfloat16", LOCKED_KS), ("float32", (1,))):
+        cfg = slice_config(dtype, True)
+        torch.cuda.synchronize()
+        reset_launches()
+        svc = LockedStyleService(params, cfg, styles, size=SIZE, ks=ks,
+                                 max_batch=MAX_BATCH, device=DEVICE)
+        build = all_launches()
+        try:
+            per_stream = {e: sum(locked_per_stream(dtype, k)[e] for k in ks)
+                          for e in build}
+            expect_launches(f"{dtype} locked stream builds", build,
+                            per_stream, len(names))
+            svc.warmup()
+            for k in ks:
+                n = (LOCKED_REQUESTS[k] if dtype == "bfloat16"
+                     else LOCKED_F32_REQUESTS // len(names))
+                reqs = [(c, name) for name in names for c in contents[:n]]
+                torch.cuda.synchronize()
+                reset_launches()
+                outs, lat, wall = serve_locked(svc, reqs, k, CLIENTS)
+                launches = all_launches()
+                batches = launches["decoder_tail"] // k
+                expect_launches(f"{dtype} locked k={k}", launches,
+                                locked_per_batch(dtype, k), batches)
+                outs = np.stack(outs)
+                finite_images(f"{dtype} locked k={k}", outs, len(reqs))
+                out[dtype, k] = dict(
+                    reqs=reqs, outs=outs, requests=len(reqs),
+                    clients=CLIENTS, batches=batches,
+                    imgs_per_s=len(reqs) / wall,
+                    p50_ms=float(np.median(lat)) * 1e3,
+                    max_ms=float(np.max(lat)) * 1e3, launches=launches,
+                    launches_per_batch=locked_per_batch(dtype, k),
+                    stream_launches=build,
+                    launches_per_stream=locked_per_stream(dtype, k),
+                    stream_build_ms={f"{nm},k={kk}": s * 1e3 for (nm, kk), s
+                                     in svc.build_s.items() if kk == k})
+        finally:
+            svc.close()
+        if dtype == "bfloat16":
+            streams = svc.streams
+    for (dtype, k), r in out.items():
+        pairs = [(c, styles[name]) for c, name in r.pop("reqs")]
+        refs = reference_outputs(params, pairs, k)
+        if dtype == "bfloat16":
+            check = bf16_noise_verdict(r["outs"], refs["bfloat16"],
+                                       refs["float32"])
+        else:
+            check = f32_check(r["outs"], refs["float32"])
+            svc = StylizeService(params, slice_config("float32", True),
+                                 size=SIZE, k=k, max_batch=MAX_BATCH,
+                                 device=DEVICE)
+            pair_out = np.stack(serve_requests(svc, pairs, CLIENTS)[0])
+            svc.close()
+            vs_pair = f32_check(r["outs"], pair_out)
+            check["vs_pair_service"] = dict(
+                mae=vs_pair["mae_vs_f32"], mae_tol=vs_pair["mae_tol"],
+                max_abs=vs_pair["max_abs_vs_f32"],
+                bits_equal=bool(np.array_equal(r["outs"], pair_out)),
+                ok=vs_pair["ok"])
+            check["ok"] = check["ok"] and vs_pair["ok"]
+        del r["outs"]
+        r.update(check)
+        emit("locked", dtype=dtype, size=SIZE, k=k, max_batch=MAX_BATCH,
+             styles=names, **r)
+        if not check["ok"]:
+            raise AssertionError(f"locked {dtype} k={k}: {check}")
+    return dict(out=out, streams=streams)
+
+
+def run_locked_blend(params, streams: dict, names: list,
+                     contents: list) -> float:
+    """blend_style_streams([a, b], [1, 0]) decodes to stream a's output bit
+    for bit (a batch of MAX_BATCH contents, bf16, k=1)."""
+    cfg = slice_config("bfloat16", True)
+    a, b = (streams[(n, 1)] for n in names[:2])
+    x = torch.as_tensor(np.stack(contents[:MAX_BATCH]), device=DEVICE)
+    with torch.inference_mode():
+        blended = blend_style_streams([a, b], [1, 0])
+        got, want = (stylize_with_style_stream(params, x, s, cfg)
+                     for s in (blended, a))
+    diff = float((got - want).abs().max())
+    emit("locked_blend", dtype="bfloat16", k=1, weights=[1, 0],
+         max_abs_diff_vs_stream_a=diff)
+    if not torch.equal(got, want):
+        raise AssertionError(f"blend [1, 0] differs from stream a: {diff}")
+    return diff
+
+
+def locked_stage_times(params, contents: np.ndarray, stream) -> dict:
+    """CUDA-event times (ms) of one bf16 batch of MAX_BATCH contents at k=1
+    through the locked route, stage by stage, through the functions
+    stylize_with_style_stream runs: host-to-device, the contents' Swin, the
+    style transformer's decoder half against the stream, the decoder,
+    device-to-host; mean of 3 after one run."""
+    cfg = slice_config("bfloat16", True)
+    names = ("h2d", "swin", "style_transformer", "decoder", "d2h")
+
+    def once():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        c = torch.as_tensor(contents, device=DEVICE)
+        ev[1].record()
+        fc = encode_features(params, c, cfg)
+        ev[2].record()
+        fcs = style_transformer_apply_from_stream(
+            params["style_transformer"], fc, stream, cfg.transformer)
+        ev[3].record()
+        rgb = cnn_decoder_apply(params["decoder"], fcs, cfg.decoder)
+        ev[4].record()
+        rgb.float().cpu()
+        ev[5].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+
+    with torch.inference_mode():
+        once()
+        runs = [once() for _ in range(3)]
+    ms = {n: float(np.mean([r[i] for r in runs])) for i, n in enumerate(names)}
+    ms["total"] = sum(ms.values())
+    return ms
+
+
+def run_sweep(params, params2, content: np.ndarray, style: np.ndarray):
+    """A SweepService over two bf16 parameter sets at k=1: one call's
+    launches exactly two pair batches', and each set's output equal, bit
+    for bit, to make_stylize_fn of that set alone at the same batch of 1."""
+    cfg = slice_config("bfloat16", True)
+    svc = SweepService({"set0": params, "set1": params2}, cfg, size=SIZE,
+                       ks=(1,), device=DEVICE)
+    svc.warmup()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = svc.sweep(content, style, k=1)
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    diffs = {}
+    for name, p in (("set0", params), ("set1", params2)):
+        one = make_stylize_fn(cfg, k=1, device=DEVICE)(
+            p, content[None], style[None])[0].cpu().numpy()
+        finite_images(f"sweep {name}", outs[name][None], 1)
+        diffs[name] = float(np.abs(outs[name] - one).max())
+    sets_differ = float(np.abs(outs["set0"] - outs["set1"]).mean())
+    emit("sweep", dtype="bfloat16", size=SIZE, k=1, sets=svc.names,
+         ms=wall * 1e3, launches=launches,
+         launches_per_set=PER_BATCH["bfloat16"],
+         max_abs_diff_vs_single=diffs, mean_abs_diff_between_sets=sets_differ)
+    expect_launches("sweep", launches, PER_BATCH["bfloat16"], 2)
+    if any(d != 0.0 for d in diffs.values()) or sets_differ == 0.0:
+        raise AssertionError(f"sweep outputs differ from single runs: {diffs}"
+                             f", or the sets agree ({sets_differ})")
+    return diffs
+
+
+def run_locked_phases(params) -> dict:
+    """Style-locked serving, its stage times and the lambda sweep, with the
+    slice's weights and draws of their own (the styles, the contents and
+    the sweep's second set)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(LOCKED_SEED)
+    styles = {f"style{i}": rng.random((SIZE, SIZE, 3), dtype=np.float32)
+              for i in range(LOCKED_STYLES)}
+    contents = [rng.random((SIZE, SIZE, 3), dtype=np.float32)
+                for _ in range(max(LOCKED_REQUESTS.values()))]
+    locked = run_locked(params, styles, contents)
+    names = list(styles)
+    run_locked_blend(params, locked["streams"], names, contents)
+    stages = locked_stage_times(params, np.stack(contents[:MAX_BATCH]),
+                                locked["streams"][names[0], 1])
+    emit("locked_stages", dtype="bfloat16", batch=MAX_BATCH, size=SIZE, k=1,
+         **stages)
+    params2 = init_master_model(
+        slice_config("bfloat16", True),
+        torch.Generator().manual_seed(LOCKED_SEED + 1), device=DEVICE)
+    run_sweep(params, params2, contents[0], styles[names[0]])
+    wall = time.perf_counter() - t0
+    emit("locked_phases", wall_s=wall)
+    return {**{f"{dtype} k={k}": r["launches"]
+               for (dtype, k), r in locked["out"].items()},
+            "bfloat16 stream builds": locked["out"][
+                "bfloat16", 1]["stream_launches"]}
+
+
 def main(argv=None) -> int:
     only = (argv if argv is not None else sys.argv[1:])
     if only not in ([], ["--only-train-grads"]):
@@ -2030,7 +2320,7 @@ def main(argv=None) -> int:
     # The pair slice reuses the weights, the requests and the reference
     # outputs, and draws nothing.
     pair = run_pair_slice(params, reqs, refs)
-    del params, refs
+    del refs
     # The training slice's kernel cases and run draw from generators of
     # their own, after the serving phases, whose weights stay the draw they
     # were checked on before the training slice came.
@@ -2043,6 +2333,10 @@ def main(argv=None) -> int:
     rgb_cases(gen_k, rows)
     patch_embed_cases(gen_k, rows)
     refusal_checks()
+    # Style-locked serving and the sweep on the slice's weights,
+    # after every phase, with draws of their own.
+    locked = run_locked_phases(params)
+    del params
 
     def summary(entry, source, replaces, mine, count, origin, per,
                 library=True):
@@ -2105,6 +2399,10 @@ def main(argv=None) -> int:
         kernels.append(summary(entry, source, replaces,
                                bf16_rows(entry, dict.fromkeys(cases, 1)),
                                launches[entry], "bfloat16 slice run", per))
+        # The style-locked path's runs (each counted from zero), and the
+        # stream builds of its bf16 service (2 styles x k = 1, 3).
+        kernels[-1]["locked_launches"] = {run: counts[entry]
+                                          for run, counts in locked.items()}
     # The training kernels: launches from the bf16 train run, times summed
     # over the calls of one step at k=1.
     for entry, replaces, calls, per in (

@@ -6,9 +6,9 @@ JAX package). Field names and defaults follow the JAX package's
 keys it does not know (reference: codes/full_model.py:21-60,
 codes/style_transformer.py:1159-1226). The model's configurations carry
 every field of the JAX package's, so that no model field of its JSON is
-dropped: a value the port does not run raises where it is read
-(``matmul_mode`` other than "native" where its stage is built), never
-silently.
+dropped: a value the port does not know raises where it is read
+(``matmul_mode`` other than "native" or "split3" where its stage is
+built), never silently.
 
 ``use_pallas`` keeps its JAX name so that JSON round-trips: in the port it
 means "run the hand-written CUDA kernels of this stage" (the Swin blocks,
@@ -28,17 +28,22 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 
-def require_native_matmul(cfg, stage: str) -> None:
-    """Raise where a stage is built with a matmul mode the port does not
-    run. The JAX package's modes (its ops/precision.py): "native", the
-    products in the working type with f32 sums, as every kernel of the
-    port runs them; "split3", three bf16 passes of a hi/lo split of f32
-    operands, not ported (ROADMAP.md queue 1 item 4)."""
-    if cfg.matmul_mode != "native":
-        raise NotImplementedError(
-            f"{stage}: matmul_mode={cfg.matmul_mode!r} is not ported; the "
-            "port's kernels run the 'native' products (ROADMAP.md queue 1 "
-            "item 4)")
+MATMUL_MODES = ("native", "split3")
+
+
+def check_matmul_mode(cfg, stage: str) -> None:
+    """Raise where a stage is built with a matmul mode the JAX package does
+    not have. Its modes (its ops/precision.py): "native", the products in
+    the working type with f32 sums; "split3", an f32 x f32 product as three
+    bf16 passes of a hi/lo split (about 4.4e-6 relative error), a TPU
+    workaround for the Mosaic compiler's missing HIGH precision, which
+    leaves non-f32 products native. The port runs both as its native
+    route: an f32 stage with TF32 off (models/master.py:_stage_ctx) and the
+    kernels' scalar f32 bodies, which compute the same product more
+    exactly; a bf16 stage one pass, as split3 runs it in JAX."""
+    if cfg.matmul_mode not in MATMUL_MODES:
+        raise ValueError(f"{stage}: matmul_mode={cfg.matmul_mode!r}, not one "
+                         f"of {MATMUL_MODES}")
 
 
 def _one_of(name: str, value: str, allowed) -> None:
@@ -119,7 +124,7 @@ class StyleTransformerConfig(_ConfigBase):
     decoder_use_Key_instance_norm_after_linear_transformation: bool = True
     decoder_exclude_MLP_after_Fcs_self_MHA: bool = False
     use_pallas: bool = False
-    # The kernels' products: "native" (or "split3", which raises).
+    # The kernels' products: "native" or "split3" (one route in the port).
     matmul_mode: str = "native"
     # How the JAX package compiles a traced k: a masked scan or a switch
     # over the depths, two XLA graph shapes of one function. The port runs
@@ -167,7 +172,7 @@ class SwinConfig(_ConfigBase):
     stochastic_depth_probs: Tuple[float, ...] = (0.0, 0.5 / 23, 1.0 / 23,
                                                  1.5 / 23)
     use_pallas: bool = False
-    # The kernels' products: "native" (or "split3", which raises).
+    # The kernels' products: "native" or "split3" (one route in the port).
     matmul_mode: str = "native"
     # The 4x4 stride-4 patch embedding as a space-to-depth GEMM ("s2d") or
     # a direct strided convolution ("conv"): one function.
@@ -209,7 +214,7 @@ class DecoderConfig(_ConfigBase):
     # Each upsample -> pad -> conv pair as one coarse-grid phase conv.
     fuse_upsample: bool = True
     use_pallas: bool = False
-    # The kernels' products: "native" (or "split3", which raises).
+    # The kernels' products: "native" or "split3" (one route in the port).
     matmul_mode: str = "native"
     # First conv index that runs on the plain fine grid instead.
     phase_exit: int = 99

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from mastermetastyletransfer_tpu_torch.config import (
-    DecoderConfig, require_native_matmul,
+    DecoderConfig, check_matmul_mode,
 )
 from mastermetastyletransfer_tpu_torch.ops.conv import (
     init_conv, l2_to_l1, phase2_conv3x3, phase_conv3x3, phase_interleave,
@@ -54,7 +54,7 @@ def cnn_decoder_apply(params: dict, x: torch.Tensor, cfg: DecoderConfig,
     (eval) allows the double-phase tail, as in the JAX package. A conv
     that emits the L2 tail's padded output always does so when the stencil
     kernels run (the JAX package's default padded-output chaining)."""
-    require_native_matmul(cfg, "decoder")
+    check_matmul_mode(cfg, "decoder")
     plan = _channel_plan(cfg.channel_dim)
     n = len(plan)
     pending_up = False   # the previous conv is marked upsample-after

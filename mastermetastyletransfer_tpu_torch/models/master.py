@@ -17,6 +17,7 @@ from mastermetastyletransfer_tpu_torch.models.decoder import (
 )
 from mastermetastyletransfer_tpu_torch.models.style_transformer import (
     init_style_transformer, style_transformer_apply,
+    style_transformer_apply_from_stream, style_transformer_stream,
 )
 from mastermetastyletransfer_tpu_torch.models.swin import (
     init_swin_backbone, swin_backbone_apply,
@@ -133,6 +134,55 @@ def stylize_from_features(params: dict, fc: torch.Tensor, fs: torch.Tensor,
         out = cnn_decoder_apply(params["decoder"], fcs.to(dd), cfg.decoder,
                                 deterministic=deterministic)
     return out.float()
+
+
+def encode_features(params: dict, images: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Frozen-encoder features (B, H/8, W/8, 2E) of NHWC images, so that
+    a caller can keep a style's features across many contents (the
+    reference recomputes the Swin per pair, codes/full_model.py:219-220)."""
+    with _stage_ctx(cfg, "swin"):
+        return swin_backbone_apply(
+            params["swin"], images.to(DTYPES[cfg.stage_dtype("swin")]),
+            cfg.swin)
+
+
+def encode_style_stream(params: dict, style: torch.Tensor, cfg: ModelConfig,
+                        *, k: int):
+    """Everything of one style that no content changes: its Swin features
+    and the k (Key, Scale, Shift) encoder triples evolved from them. The
+    encoder reads the style alone (reference:
+    codes/style_transformer.py:1229-1245), so computing it once per style
+    is exact, and each content then pays only its own Swin pass and the
+    decoder halves (style-locked serving)."""
+    fs = encode_features(params, style, cfg)
+    td = DTYPES[cfg.stage_dtype("transformer")]
+    with _stage_ctx(cfg, "transformer"):
+        return style_transformer_stream(params["style_transformer"],
+                                        fs.to(td), cfg.transformer, k=k)
+
+
+def stylize_from_features_with_stream(params: dict, fc: torch.Tensor, stream,
+                                      cfg: ModelConfig) -> torch.Tensor:
+    """The style transformer's decoder half and the CNN decoder on content
+    features and a style stream (``encode_style_stream`` under the same
+    cfg); returns float32 RGB."""
+    td = DTYPES[cfg.stage_dtype("transformer")]
+    with _stage_ctx(cfg, "transformer"):
+        fcs = style_transformer_apply_from_stream(
+            params["style_transformer"], fc.to(td), stream, cfg.transformer)
+    dd = DTYPES[cfg.stage_dtype("decoder")]
+    with _stage_ctx(cfg, "decoder"):
+        out = cnn_decoder_apply(params["decoder"], fcs.to(dd), cfg.decoder)
+    return out.float()
+
+
+def stylize_with_style_stream(params: dict, content: torch.Tensor, stream,
+                              cfg: ModelConfig) -> torch.Tensor:
+    """Stylize a content batch against one style stream; a batch-1 stream
+    serves any content batch."""
+    fc = encode_features(params, content, cfg)
+    return stylize_from_features_with_stream(params, fc, stream, cfg)
 
 
 def make_stylize_fn(cfg: ModelConfig, k: int = 1,

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from mastermetastyletransfer_tpu_torch.config import (
-    AttentionConfig, StyleTransformerConfig, require_native_matmul,
+    AttentionConfig, StyleTransformerConfig, check_matmul_mode,
 )
 from mastermetastyletransfer_tpu_torch.ops import style_block, window_block
 from mastermetastyletransfer_tpu_torch.ops.attention import (
@@ -556,7 +556,7 @@ def style_transformer_apply(params: dict, Fc: torch.Tensor, Fs: torch.Tensor,
     ``deterministic=False`` and the generator of its random masks. A Python
     loop over k serves both of the JAX package's ``traced_k_impl`` forms
     (graph shapes of one function there)."""
-    require_native_matmul(cfg, "style transformer")
+    check_matmul_mode(cfg, "style transformer")
     if _st_windowed_ok(cfg, deterministic):
         return style_transformer_apply_windowed(params, Fc, Fs, cfg, k=int(k))
     rand = dict(deterministic=deterministic, generator=generator)
@@ -575,7 +575,7 @@ def style_transformer_stream(params: dict, Fs: torch.Tensor,
     triples evolved from Fs. Pair it with
     ``style_transformer_apply_from_stream`` under the same cfg (the stream
     is windowed exactly when the windowed path is taken)."""
-    require_native_matmul(cfg, "style transformer")
+    check_matmul_mode(cfg, "style transformer")
     if _st_windowed_ok(cfg):
         return style_stream_windowed(params, Fs, cfg, k=int(k))
     Key = Scale = Shift = Fs
@@ -592,7 +592,7 @@ def style_transformer_apply_from_stream(params: dict, Fc: torch.Tensor,
                                         ) -> torch.Tensor:
     """Decode Fc against a precomputed style stream. A batch-1 stream
     serves any content batch (style-locked serving)."""
-    require_native_matmul(cfg, "style transformer")
+    check_matmul_mode(cfg, "style transformer")
     if _st_windowed_ok(cfg):
         return style_apply_windowed_from_stream(params, Fc, stream, cfg)
     if len(stream) and stream[0][0].shape[1:3] != Fc.shape[1:3]:

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from mastermetastyletransfer_tpu_torch.config import (
-    AttentionConfig, SwinConfig, require_native_matmul,
+    AttentionConfig, SwinConfig, check_matmul_mode,
 )
 from mastermetastyletransfer_tpu_torch.models.style_transformer import (
     init_style_swin_block, style_swin_block_apply,
@@ -94,7 +94,7 @@ def swin_backbone_apply(params: dict, images: torch.Tensor,
                         generator: Optional[torch.Generator] = None
                         ) -> torch.Tensor:
     """NHWC images (B, H, W, 3) -> features (B, H/8, W/8, 2E)."""
-    require_native_matmul(cfg, "swin")
+    check_matmul_mode(cfg, "swin")
     b, h, w, cin = images.shape
     pe = params["patch_embed"]["conv"]
     e = pe["kernel"].shape[-1]

@@ -71,10 +71,21 @@ def params_from_jax(tree: Any, device="cpu") -> Any:
     return torch.from_numpy(np.array(tree)).to(device)
 
 
-def tree_map(fn, tree: Any) -> Any:
-    """Apply ``fn`` to every tensor leaf of a nested dict/list."""
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every tensor leaf of a nested dict/list, or, given
+    more trees of the same structure, to the leaves at each position:
+    ``fn(leaf, *leaves_of_rest)``. Raises ValueError where the dict keys
+    or list lengths differ."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        if any(not isinstance(r, dict) or r.keys() != tree.keys()
+               for r in rest):
+            raise ValueError(f"trees differ at keys {sorted(tree)}")
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        if any(not isinstance(r, (list, tuple)) or len(r) != len(tree)
+               for r in rest):
+            raise ValueError(f"trees differ at a sequence of {len(tree)}")
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)

@@ -1,6 +1,7 @@
 """The port's configuration against the JAX package's JSON, float32 on the
-CPU: every model field of a JAX JSON is kept, a matmul mode the port does
-not run raises where its stage is built, ``patch_embed_impl="conv"`` runs
+CPU: every model field of a JAX JSON is kept, split3 runs as the native
+route and a matmul mode the JAX package does not have raises where its
+stage is built, ``patch_embed_impl="conv"`` runs
 the strided convolution (max-abs 1e-4 against JAX's, the TOL of
 tests/test_torch_models.py), and both ``traced_k_impl`` values give the
 port's loop over k, which matches JAX's traced-k forms of either kind."""
@@ -61,6 +62,9 @@ def test_jax_json_round_trips_through_the_port():
 
 @pytest.mark.parametrize("stage", ["swin", "transformer", "decoder"])
 def test_split3_raises_where_its_stage_is_built(model, stage):
+    """split3 from a JAX JSON runs where its stage is built, as the port's
+    native route (equal bit for bit); a mode the JAX package does not have
+    raises there."""
     _, pt = model
     cj = jcfg.ModelConfig()
     cj = cj.replace(**{stage: getattr(cj, stage).replace(
@@ -68,21 +72,33 @@ def test_split3_raises_where_its_stage_is_built(model, stage):
     ct = tcfg.ModelConfig.from_json(cj.to_json())
     assert getattr(ct, stage).matmul_mode == "split3"
     x = torch.zeros((1, 32, 32, 3))
-    f = torch.zeros((1, 4, 4, 256))
+    f = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 4, 4, 256)).astype(np.float32))
     build = {
         "swin": lambda c: tswin.swin_backbone_apply(pt["swin"], x, c.swin),
         "transformer": lambda c: tst.style_transformer_apply(
             pt["style_transformer"], f, f, c.transformer, k=1),
         "decoder": lambda c: tdec.cnn_decoder_apply(pt["decoder"], f,
                                                     c.decoder)}
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        build[stage](ct)
-    build[stage](ct.replace(**{stage: getattr(ct, stage).replace(
-        matmul_mode="native")}))
+
+    def with_mode(mode):
+        return ct.replace(**{stage: getattr(ct, stage).replace(
+            matmul_mode=mode)})
+
+    assert torch.equal(build[stage](ct), build[stage](with_mode("native")))
+    with pytest.raises(ValueError, match="split6"):
+        build[stage](with_mode("split6"))
     if stage == "transformer":
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        stream = tst.style_transformer_stream(pt["style_transformer"], f,
+                                              ct.transformer, k=1)
+        assert torch.equal(
+            tst.style_transformer_apply_from_stream(
+                pt["style_transformer"], f, stream, ct.transformer),
+            build[stage](ct))
+        with pytest.raises(ValueError, match="split6"):
             tst.style_transformer_stream(pt["style_transformer"], f,
-                                         ct.transformer, k=1)
+                                         with_mode("split6").transformer,
+                                         k=1)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
