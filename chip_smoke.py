@@ -85,7 +85,28 @@ locked_blend (``blend_style_streams`` with weights [1, 0] decodes to its
 first stream's output bit for bit), locked_stages (CUDA-event times of
 one locked batch, stage by stage) and sweep (a ``SweepService`` over the
 slice's weights and a second set: launches exactly two batches', each
-set's output equal bit for bit to a run of that set alone).
+set's output equal bit for bit to a run of that set alone). Last, on the
+training phase's weights with draws of their own, the other training
+modes at 256^2, bf16, batch 8: meta (``make_meta_train_step`` as the JAX
+meta bench runs it, 4 inner updates, outer_lr 1e-4: 3 steps with the
+kernels on and 3 off, per step imgs/s counting 4 x 8 images, ms, peak
+memory, launches against the sum of ``train_per_step`` over its ks, the
+frozen Swin bit for bit), meta_checks (one meta step per route at fixed
+ks, stochastic depth off: Adam's first moments at f32 by grad_checks'
+bound, at bf16 by its noise ratio; theta' within 2.5 x outer_lr x n x lr
+plus the f32 spacing of theta', a sanity check only (an update of about lr
+per element either way cannot break it); the bf16 step, with deterministic
+algorithms (under PyTorch's defaults cuDNN's differ run to run), bit for
+bit with its composition, clone, plain inner steps through the shared
+Adam state, interpolation), adapt (``adapt_to_style`` with the JAX command line's
+defaults: 20 steps, batch 4, lr 1e-4, one style, 8 contents: each step's
+launches against ``adapt_per_step``, only the style encoder's leaves
+changed), and remat and accum (3 steps at k = 1 and 3 at k = 2 against the
+plain step from one generator seed; launches against ``remat_per_step``,
+every forward entry twice, and ``accum_per_step``; the first step's
+gradients, stochastic depth off, by grad_checks' criteria; remat leaves the
+generator where the plain step does); the kernels line's training entries
+carry each mode's launches.
 
 Needs only torch, numpy and the standard library, and one CUDA card.
 
@@ -138,14 +159,17 @@ import sys
 import threading
 import time
 import types
+import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mastermetastyletransfer_tpu_torch.adapt import adapt_to_style
 from mastermetastyletransfer_tpu_torch.config import (
     AttentionConfig, DataConfig, ExperimentConfig, ModelConfig,
 )
+from mastermetastyletransfer_tpu_torch.data import repeat_style_to_batch
 from mastermetastyletransfer_tpu_torch.losses.loss import perceptual_loss
 from mastermetastyletransfer_tpu_torch.losses.vgg import init_vgg19_features
 from mastermetastyletransfer_tpu_torch.models.decoder import cnn_decoder_apply
@@ -178,12 +202,16 @@ from mastermetastyletransfer_tpu_torch.ops.windows import (
 from mastermetastyletransfer_tpu_torch.serve import (
     LockedStyleService, StylizeService, SweepService,
 )
-from mastermetastyletransfer_tpu_torch.train.state import create_train_state
-from mastermetastyletransfer_tpu_torch.train.step import (
-    _loss_views, _sample_k, make_loss_and_grad, make_train_step,
-    prepare_batch_for_model,
+from mastermetastyletransfer_tpu_torch.train.state import (
+    TrainState, create_train_state, trainable_labels,
 )
-from mastermetastyletransfer_tpu_torch.utils.checkpoint import tree_map
+from mastermetastyletransfer_tpu_torch.train.step import (
+    _interp, _loss_views, _sample_k, make_loss_and_grad,
+    make_meta_train_step, make_train_step, prepare_batch_for_model,
+)
+from mastermetastyletransfer_tpu_torch.utils.checkpoint import (
+    flatten_params, tree_map,
+)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -1800,20 +1828,7 @@ def grad_checks(params0, vgg, content, style) -> dict:
     groups = sorted({param_group(key) for key in ref})
 
     def per_group(grads, measure):
-        out = {}
-        for grp in groups:
-            keys = [key for key in ref if param_group(key) == grp]
-            out[grp] = measure([grads[key].float() for key in keys],
-                               [ref[key] for key in keys])
-        return out
-
-    def rel_max(a, b):
-        return (max((x - y).abs().max().item() for x, y in zip(a, b))
-                / max(y.abs().max().item() for y in b))
-
-    def rel_l1(a, b):
-        return (sum((x - y).abs().sum().item() for x, y in zip(a, b))
-                / sum(y.abs().sum().item() for y in b))
+        return group_measure(grads, ref, measure)
 
     f32 = per_group(got["float32", True], rel_max)
     spread = {grp: max(per_group(m, rel_max)[grp] for m in moved)
@@ -2263,6 +2278,540 @@ def run_locked_phases(params) -> dict:
                 "bfloat16", 1]["stream_launches"]}
 
 
+# ---------------------------------------------------------------------------
+# 7. meta training, fast adaptation, remat and gradient accumulation
+# ---------------------------------------------------------------------------
+
+MODES_SEED = TRAIN_SEED + 5
+META_INNER, META_OUTER_LR, META_STEPS = 4, 1e-4, 3
+META_CHECK_KS = (1, 2, 1, 2)
+ADAPT_STEPS, ADAPT_BATCH, ADAPT_CONTENTS, ADAPT_LR = 20, 4, 8, 1e-4
+MODE_KS, MODE_STEPS, ACCUM = (1, 2), 3, 2
+# The kernel entries every training step launches.
+TRAINING_ENTRIES = ("window_attention", "window_attention_bwd",
+                    "window_attention_dual", "window_attention_dual_bwd",
+                    "ln_mlp_residual", "ln_mlp_residual_bwd",
+                    "stencil_phase_conv", "phase_align")
+
+
+def meta_config(dtype: str, kernels: bool,
+                depth_drop: bool = True) -> ExperimentConfig:
+    """The JAX meta bench's configuration (bench.py:351-375): the train
+    configuration, mode "meta", 4 inner updates, outer_lr 1e-4; without
+    ``depth_drop`` every stochastic-depth probability is 0."""
+    cfg = train_config(dtype, kernels)
+    if not depth_drop:
+        cfg = no_depth_drop(cfg)
+    return cfg.replace(train=cfg.train.replace(
+        mode="meta", num_inner_updates=META_INNER, outer_lr=META_OUTER_LR))
+
+
+def no_depth_drop(cfg: ExperimentConfig) -> ExperimentConfig:
+    m = cfg.model
+    return cfg.replace(model=m.replace(
+        swin=m.swin.replace(stochastic_depth_probs=tuple(
+            0.0 for _ in m.swin.stochastic_depth_probs)),
+        transformer=m.transformer.replace(encoder_stochastic_depth_prob=0.0,
+                                          decoder_stochastic_depth_prob=0.0)))
+
+
+def with_train(cfg: ExperimentConfig, **fields) -> ExperimentConfig:
+    return cfg.replace(train=cfg.train.replace(**fields))
+
+
+def table_sum(tables) -> dict:
+    tables = list(tables)
+    return {e: sum(t[e] for t in tables) for e in tables[0]}
+
+
+def remat_per_step(k: int) -> dict:
+    """Launches of one remat step at depth k: the non-reentrant recompute
+    runs the whole checkpointed forward again, so every forward entry
+    launches twice, every backward entry once."""
+    return {e: n * (1 if e.endswith("_bwd") else 2)
+            for e, n in train_per_step(k).items()}
+
+
+def adapt_per_step(k: int) -> dict:
+    """Launches of one fast-adaptation step at depth k: ``train_per_step``
+    but for the backward of the first iteration's decoder self block (its
+    K8 and its K10): it reads the frozen Swin's content features with
+    frozen weights, so nothing before it needs a gradient and autograd
+    does not run it; at iterations 2..k its input comes from the encoder
+    and its backward runs, as every other backward does, since the
+    encoder's gradient passes back through the frozen style decoder and
+    CNN decoder."""
+    t = dict(train_per_step(k))
+    t["window_attention_bwd"] -= 1
+    t["ln_mlp_residual_bwd"] -= 1
+    return t
+
+
+def accum_per_step(k: int) -> dict:
+    """Launches of one step of ACCUM micro-batches at depth k."""
+    return {e: ACCUM * n for e, n in train_per_step(k).items()}
+
+
+def clone_params(params0: dict) -> dict:
+    return tree_map(lambda t: t.detach().clone(), params0)
+
+
+def moments(state) -> tuple:
+    """Adam's (mu, nu) by the flat keys of the trainable leaves."""
+    keys = list(state.trainable())
+    return dict(zip(keys, state.opt.mu)), dict(zip(keys, state.opt.nu))
+
+
+def meta_tasks(n: int, seed: int = MODES_SEED):
+    """n tasks of uniform noise, as the JAX meta bench feeds: contents
+    (META_INNER, B, 256, 256, 3) and one style repeated to B."""
+    rng = np.random.default_rng(seed)
+    return [(torch.from_numpy(rng.random(
+        (META_INNER, TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+        dtype=np.float32)).to(DEVICE),
+        repeat_style_to_batch(rng.random(
+            (TRAIN_SIZE, TRAIN_SIZE, 3), dtype=np.float32),
+            TRAIN_BATCH).to(DEVICE)) for _ in range(n)]
+
+
+def meta_run(params0, vgg, tasks, kernels: bool) -> dict:
+    """META_STEPS bf16 meta steps through make_meta_train_step (after one
+    untimed step); per step its ks, loss, wall time (ending in a
+    synchronize), imgs/s counting META_INNER x B images, peak memory, and
+    its launches, counted from zero, against the sum of ``train_per_step``
+    over its ks (none with the kernels off); the Swin's leaves stay those
+    of theta before the step, bit for bit."""
+    cfg = meta_config("bfloat16", kernels)
+    state = create_train_state(clone_params(params0), cfg.train)
+    step = make_meta_train_step(cfg, vgg, device=DEVICE)
+    swin = flatten_params(state.params["swin"])
+    swin0 = {key: t.clone() for key, t in swin.items()}
+    step(state, *tasks[0], torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    rows = []
+    for i in range(META_STEPS):
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, *tasks[i % len(tasks)],
+                        torch.Generator().manual_seed(2000 + i))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        per = all_launches()
+        if not np.isfinite(m["total"]):
+            raise AssertionError(f"meta step {i}: loss {m['total']}")
+        want = (table_sum(train_per_step(k) for k in m["ks"]) if kernels
+                else {e: 0 for e in per})
+        if per != want:
+            raise AssertionError(f"meta step {i} (ks={m['ks']}) launched "
+                                 f"{per}, expected {want}")
+        moved = [key for key, t in swin.items() if not torch.equal(
+            t, swin0[key])]
+        if moved:
+            raise AssertionError(f"meta step {i} changed the frozen Swin: "
+                                 f"{moved[:3]}")
+        row = dict(step=i, ks=m["ks"], loss=m["total"], content=m["content"],
+                   style=m["style"], ms=dt * 1e3,
+                   imgs_per_s=META_INNER * TRAIN_BATCH / dt,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   launches=per)
+        emit("meta", kernels=kernels, inner=META_INNER, batch=TRAIN_BATCH,
+             size=TRAIN_SIZE, dtype="bfloat16", **row)
+        rows.append(row)
+    return dict(rows=rows, imgs_per_s_mean=float(np.mean(
+        [r["imgs_per_s"] for r in rows])), ms_mean=float(np.mean(
+            [r["ms"] for r in rows])),
+        peak_mem_gib=max(r["peak_mem_gib"] for r in rows),
+        launches=table_sum(r["launches"] for r in rows))
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's deterministic algorithms and PyTorch's deterministic mode
+    (warnings only), restored after; yields the warnings caught, which
+    name the ops that have no deterministic implementation."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
+def meta_by_hand(cfg: ExperimentConfig, vgg, state, contents, style,
+                 generator, ks):
+    """The meta step's composition: omega a copy of theta's trainable
+    leaves (the frozen ones shared), one plain step per inner batch on
+    omega through theta's Adam state, the interpolation."""
+    omega = tree_map(lambda t: (t.detach().clone().requires_grad_()
+                                if t.requires_grad else t), state.params)
+    inner = TrainState(step=0, params=omega, opt=state.opt)
+    plain = make_train_step(cfg, vgg, device=DEVICE)
+    for j, k in enumerate(ks):
+        inner, _ = plain(inner, contents[j], style, generator, k=k)
+    _interp(state.params, omega, trainable_labels(state.params, cfg.train),
+            cfg.train.outer_lr)
+    state.step += 1
+    return state
+
+
+def state_diff(a, b) -> list:
+    """The parameter groups in which two states' leaves or Adam moments
+    differ in any bit."""
+    out = set()
+    for key, t in flatten_params(a.params).items():
+        if not torch.equal(t, flatten_params(b.params)[key]):
+            out.add(param_group(key))
+    for ma, mb in zip(moments(a), moments(b)):
+        out |= {param_group(key) for key in ma
+                if not torch.equal(ma[key], mb[key])}
+    return sorted(out)
+
+
+def group_measure(grads, ref, measure) -> dict:
+    """measure(list of tensors, list of reference tensors) per parameter
+    group (``param_group``) of the reference's keys."""
+    out = {}
+    for grp in sorted({param_group(key) for key in ref}):
+        keys = [key for key in ref if param_group(key) == grp]
+        out[grp] = measure([grads[key].float() for key in keys],
+                           [ref[key].float() for key in keys])
+    return out
+
+
+def rel_max(a, b) -> float:
+    return (max((x - y).abs().max().item() for x, y in zip(a, b))
+            / max(y.abs().max().item() for y in b))
+
+
+def rel_l1(a, b) -> float:
+    return (sum((x - y).abs().sum().item() for x, y in zip(a, b))
+            / sum(y.abs().sum().item() for y in b))
+
+
+def f32_verdict(got, ref, moved) -> dict:
+    """grad_checks' float32 criterion per group: relative max-abs within
+    max(TOL_TRAIN_F32, TRAIN_SPREAD_FACTOR x the reference's spread)."""
+    err = group_measure(got, ref, rel_max)
+    spread = {grp: max(group_measure(m, ref, rel_max)[grp] for m in moved)
+              for grp in err}
+    over = {grp: err[grp] / max(TOL_TRAIN_F32, TRAIN_SPREAD_FACTOR
+                                * spread[grp]) for grp in err}
+    worst = max(over, key=over.get)
+    return dict(f32_rel_max=max(err.values()), f32_over_tol=over[worst],
+                f32_worst_group=worst, spread_max=max(spread.values()))
+
+
+def bf16_verdict(got, plain, ref) -> dict:
+    """grad_checks' bfloat16 criterion per group: the kernel path's
+    relative L1 error against the f32 reference at most TOL_BF16_NOISE
+    times the plain bf16 route's."""
+    k = group_measure(got, ref, rel_l1)
+    p = group_measure(plain, ref, rel_l1)
+    ratio = {grp: k[grp] / p[grp] for grp in k}
+    worst = max(ratio, key=ratio.get)
+    return dict(bf16_noise_ratio=ratio[worst], bf16_worst_group=worst,
+                bf16_kernel_rel_l1=max(k.values()),
+                bf16_plain_rel_l1=max(p.values()))
+
+
+def require(label: str, out: dict) -> None:
+    if "f32_over_tol" in out and not out["f32_over_tol"] <= 1.0:
+        raise AssertionError(f"{label}: float32 {out['f32_worst_group']} "
+                             f"{out['f32_over_tol']} times its bound")
+    if "bf16_noise_ratio" in out and \
+            not out["bf16_noise_ratio"] <= TOL_BF16_NOISE:
+        raise AssertionError(f"{label}: bfloat16 {out['bf16_worst_group']} "
+                             f"noise ratio {out['bf16_noise_ratio']}")
+
+
+def meta_checks(params0, vgg, task) -> dict:
+    """One meta step (ks META_CHECK_KS, stochastic depth off) per route
+    from the same theta and task. Adam's first moments (mu, a linear mix of
+    the gradients) of the kernel path against the float32 kernels-off
+    route: float32 by grad_checks' bound (the spread from the contents
+    scaled by 1 + eps), bfloat16 by its noise ratio against the plain bf16
+    route. theta' of the kernel path against the kernels-off route of its
+    type within 2.5 x outer_lr x n x lr per element, plus the f32 spacing
+    at theta' (outer_lr x n x lr is 4e-8 here, under the spacing of a
+    weight near 1, so the two sides may round to neighbours), a sanity
+    check only: each side moves an element by about outer_lr x n x lr, so
+    no gradient can break it, and mu is the check of the gradients; the
+    share of elements beyond 1e-3 of that bound. The bf16 kernel path's meta step,
+    run twice under PyTorch's defaults (the groups that differ are named),
+    then twice again and its composition (``meta_by_hand``) with
+    deterministic algorithms (cuDNN's, and PyTorch's deterministic mode,
+    whose warnings name the ops without one): the composition bit for bit
+    if those two runs are, else held to the mu criterion."""
+    contents, style = task
+
+    def run(dtype, kernels, scale=1.0, by_hand=False):
+        cfg = meta_config(dtype, kernels, depth_drop=False)
+        state = create_train_state(clone_params(params0), cfg.train)
+        gen = torch.Generator().manual_seed(3000)
+        if by_hand:
+            return meta_by_hand(cfg, vgg, state, contents * scale, style,
+                                gen, META_CHECK_KS)
+        return make_meta_train_step(cfg, vgg, device=DEVICE)(
+            state, contents * scale, style, gen, ks=META_CHECK_KS)[0]
+
+    t0 = time.perf_counter()
+    ref = run("float32", False)
+    moved = [moments(run("float32", False, 1 + eps))[0]
+             for eps in TRAIN_SPREAD_EPS]
+    states = {("float32", True): run("float32", True),
+              ("bfloat16", True): run("bfloat16", True),
+              ("bfloat16", False): run("bfloat16", False)}
+    mu_ref = moments(ref)[0]
+    out = dict(ks=list(META_CHECK_KS), inner=META_INNER,
+               **f32_verdict(moments(states["float32", True])[0], mu_ref,
+                             moved),
+               **bf16_verdict(moments(states["bfloat16", True])[0],
+                              moments(states["bfloat16", False])[0],
+                              mu_ref))
+    lr = train_config("float32", True).train.inner_lr
+    bound = 2.5 * META_OUTER_LR * META_INNER * lr
+    for dtype, base in (("float32", ref), ("bfloat16",
+                                          states["bfloat16", False])):
+        got = flatten_params(states[dtype, True].params)
+        worst, bare, beyond, total = 0.0, 0.0, 0, 0
+        for key, t in flatten_params(base.params).items():
+            t, g = t.detach(), got[key].detach()
+            if key.startswith("swin/"):
+                if not torch.equal(g, t):
+                    raise AssertionError(f"{dtype}: the Swin moved ({key})")
+                continue
+            spacing = torch.nextafter(t.abs(), torch.full_like(t, np.inf)) \
+                - t.abs()
+            d = (g - t).abs()
+            worst = max(worst, float((d / (bound + spacing)).max()))
+            bare = max(bare, float(d.max()) / bound)
+            beyond += int((d > 1e-3 * bound).sum())
+            total += d.numel()
+        out[f"theta_{dtype}_over_bound"] = worst
+        out[f"theta_{dtype}_over_bound_without_spacing"] = bare
+        out[f"theta_{dtype}_share_beyond_1e-3_bound"] = beyond / total
+        if not worst <= 1.0:
+            raise AssertionError(f"{dtype}: theta' {worst} times the bound")
+    out["theta_bound"] = bound
+    out["run_to_run_groups"] = state_diff(states["bfloat16", True],
+                                          run("bfloat16", True))
+    # The composition's runs with deterministic algorithms, whose warnings
+    # name the ops that have none: under PyTorch's defaults two runs of
+    # the step differ (cuDNN's algorithms).
+    with deterministic_algorithms() as caught:
+        first = run("bfloat16", True)
+        again = run("bfloat16", True)
+        by_hand = run("bfloat16", True, by_hand=True)
+    out["run_to_run_groups_deterministic"] = state_diff(first, again)
+    out["nondeterministic_ops"] = sorted({str(w.message)[:200]
+                                          for w in caught})
+    if not out["run_to_run_groups_deterministic"]:
+        diff = state_diff(first, by_hand)
+        out["composition_bit_equal"] = not diff
+        if diff:
+            raise AssertionError(f"the meta step and its composition differ "
+                                 f"in {diff}")
+    else:
+        comp = bf16_verdict(moments(by_hand)[0],
+                            moments(states["bfloat16", False])[0], mu_ref)
+        out["composition_bit_equal"] = False
+        out["composition_noise_ratio"] = comp["bf16_noise_ratio"]
+        require("the composition", comp)
+    out["wall_s"] = time.perf_counter() - t0
+    emit("meta_checks", **out)
+    require("meta_checks", out)
+    return out
+
+
+def run_adapt(params0, vgg) -> dict:
+    """``adapt_to_style`` with the JAX command line's defaults (20 steps,
+    batch 4, lr 1e-4) at 256^2, bf16, kernels on: one style and 8 contents
+    of noise from a seed. Each step's launches against ``adapt_per_step``;
+    only the style transformer's encoder leaves change."""
+    rng = np.random.default_rng(MODES_SEED + 1)
+    style = rng.random((TRAIN_SIZE, TRAIN_SIZE, 3), dtype=np.float32)
+    contents = rng.random((ADAPT_CONTENTS, TRAIN_SIZE, TRAIN_SIZE, 3),
+                          dtype=np.float32)
+    rows, logged, seen = [], [], {}
+
+    def on_step(i, m):
+        now = all_launches()
+        per = {e: now[e] - seen.get(e, 0) for e in now}
+        seen.update(now)
+        if per != adapt_per_step(m["k"]):
+            raise AssertionError(f"adapt step {i} (k={m['k']}) launched "
+                                 f"{per}, expected {adapt_per_step(m['k'])}")
+        if not np.isfinite(m["total"]):
+            raise AssertionError(f"adapt step {i}: loss {m['total']}")
+        rows.append(dict(step=i, k=m["k"], total=m["total"],
+                         style=m["style"], content=m["content"]))
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    adapted = adapt_to_style(params0, vgg, train_config("bfloat16", True),
+                             style, contents, steps=ADAPT_STEPS, lr=ADAPT_LR,
+                             batch=ADAPT_BATCH, seed=0, log=logged.append,
+                             device=DEVICE, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    before, after = flatten_params(params0), flatten_params(adapted)
+    changed = [key for key in after if not torch.equal(after[key],
+                                                       before[key])]
+    others = [key for key in changed
+              if not key.startswith("style_transformer/encoder/")]
+    encoder = [key for key in after
+               if key.startswith("style_transformer/encoder/")]
+    out = dict(steps=ADAPT_STEPS, batch=ADAPT_BATCH, lr=ADAPT_LR,
+               size=TRAIN_SIZE, dtype="bfloat16", wall_s=wall,
+               imgs_per_s=ADAPT_STEPS * ADAPT_BATCH / wall,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               ks=[r["k"] for r in rows], first=rows[0], last=rows[-1],
+               encoder_leaves=len(encoder),
+               encoder_leaves_changed=len(changed) - len(others),
+               other_leaves_changed=others, leaves=len(after),
+               launches=launches, log=logged)
+    emit("adapt", **out)
+    if others or not changed:
+        raise AssertionError(f"adaptation changed {others} (and "
+                             f"{len(changed)} leaves in all)")
+    return out
+
+
+def train_batches(seed: int):
+    rng = np.random.default_rng(seed)
+    return [tuple(torch.from_numpy(rng.random(
+        (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3),
+        dtype=np.float32)).to(DEVICE) for _ in range(2)) for _ in range(3)]
+
+
+def mode_run(params0, vgg, batches, mode: str, on: bool) -> dict:
+    """MODE_STEPS bf16 steps at each k of MODE_KS (stochastic depth on),
+    with ``mode`` ("remat" or "accum") on or off, from one generator of a
+    fixed seed; per step its launches, counted from zero, against the
+    mode's table, loss, ms, imgs/s and peak memory."""
+    cfg = train_config("bfloat16", True)
+    if on:
+        cfg = with_train(cfg, **({"remat": True} if mode == "remat"
+                                 else {"grad_accum_steps": ACCUM}))
+    table = ({"remat": remat_per_step, "accum": accum_per_step}[mode]
+             if on else train_per_step)
+    step = make_train_step(cfg, vgg, device=DEVICE)
+    # an untimed step on a copy of its own: the timed run starts from
+    # params0, so that its first loss compares across the modes
+    step(create_train_state(clone_params(params0), cfg.train), *batches[0],
+         torch.Generator().manual_seed(0), k=1)
+    torch.cuda.synchronize()
+    state = create_train_state(clone_params(params0), cfg.train)
+    gen = torch.Generator().manual_seed(4000)
+    rows, counted = [], []
+    for i, k in enumerate(k for k in MODE_KS for _ in range(MODE_STEPS)):
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, *batches[i % len(batches)], gen, k=k)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        per = all_launches()
+        if per != table(k):
+            raise AssertionError(f"{mode}={on} step {i} (k={k}) launched "
+                                 f"{per}, expected {table(k)}")
+        counted.append(per)
+        if not np.isfinite(m["total"]):
+            raise AssertionError(f"{mode}={on} step {i}: loss {m['total']}")
+        rows.append(dict(step=i, k=k, loss=m["total"], ms=dt * 1e3,
+                         imgs_per_s=TRAIN_BATCH / dt,
+                         peak_mem_gib=torch.cuda.max_memory_allocated()
+                         / 2 ** 30))
+        emit(f"{mode}_step", on=on, **rows[-1])
+    return dict(rows=rows, generator=gen.get_state(),
+                imgs_per_s=float(np.mean([r["imgs_per_s"] for r in rows])),
+                ms=float(np.mean([r["ms"] for r in rows])),
+                peak_mem_gib=max(r["peak_mem_gib"] for r in rows),
+                launches=table_sum(counted))
+
+
+def run_modes(params0, vgg) -> dict:
+    """remat and accum: their runs against the plain step's, and the first
+    step's gradients of each mode at f32 and bf16 (stochastic depth off,
+    since micro-batches draw other masks than the whole batch) by
+    grad_checks' criteria against the f32 kernels-off plain step."""
+    batches = train_batches(MODES_SEED + 2)
+    content, style = batches[0]
+    f32_off = no_depth_drop(train_config("float32", False))
+    _, ref = first_step_grads(f32_off, params0, vgg, content, style, 100)
+    moved = [first_step_grads(f32_off, params0, vgg, content * (1 + eps),
+                              style, 100)[1] for eps in TRAIN_SPREAD_EPS]
+    _, plain = first_step_grads(no_depth_drop(train_config("bfloat16",
+                                                           False)),
+                                params0, vgg, content, style, 100)
+    plain_run = mode_run(params0, vgg, batches, "plain", False)
+    out = {}
+    for mode, fields in (("remat", {"remat": True}),
+                         ("accum", {"grad_accum_steps": ACCUM})):
+        grads = {dtype: first_step_grads(
+            with_train(no_depth_drop(train_config(dtype, True)), **fields),
+            params0, vgg, content, style, 100)[1]
+            for dtype in ("float32", "bfloat16")}
+        run = mode_run(params0, vgg, batches, mode, True)
+        res = dict(f32=f32_verdict(grads["float32"], ref, moved),
+                   bf16=bf16_verdict(grads["bfloat16"], plain, ref),
+                   imgs_per_s=run["imgs_per_s"], ms=run["ms"],
+                   peak_mem_gib=run["peak_mem_gib"],
+                   plain_imgs_per_s=plain_run["imgs_per_s"],
+                   plain_ms=plain_run["ms"],
+                   plain_peak_mem_gib=plain_run["peak_mem_gib"],
+                   generator_as_plain=bool(torch.equal(
+                       run["generator"], plain_run["generator"])),
+                   # equal on the first step; after it the weights
+                   # carry cuDNN's run-to-run rounding (meta_checks)
+                   losses_as_plain=[r["loss"] == p["loss"] for r, p in zip(
+                       run["rows"], plain_run["rows"])],
+                   launches=run["launches"], ks=list(MODE_KS),
+                   steps_per_k=MODE_STEPS)
+        emit(mode, **res)
+        require(mode, {**res["f32"], **res["bf16"]})
+        if mode == "remat" and not res["generator_as_plain"]:
+            raise AssertionError("remat left the generator elsewhere")
+        out[mode] = res
+    return out
+
+
+def run_new_training_modes() -> dict:
+    """The phases of the meta step, fast adaptation, remat and
+    accumulation, on the training phase's weights (``train_inputs``)."""
+    t0 = time.perf_counter()
+    params0, vgg, _ = train_inputs()
+    tasks = meta_tasks(2)
+    meta = {kernels: meta_run(params0, vgg, tasks, kernels)
+            for kernels in (True, False)}
+    emit("meta_summary", dtype="bfloat16", inner=META_INNER,
+         batch=TRAIN_BATCH, size=TRAIN_SIZE,
+         imgs_per_s_kernels_on=meta[True]["imgs_per_s_mean"],
+         imgs_per_s_kernels_off=meta[False]["imgs_per_s_mean"],
+         ms_kernels_on=meta[True]["ms_mean"],
+         ms_kernels_off=meta[False]["ms_mean"],
+         peak_mem_gib_on=meta[True]["peak_mem_gib"],
+         peak_mem_gib_off=meta[False]["peak_mem_gib"])
+    checks = meta_checks(params0, vgg, tasks[0])
+    adapt = run_adapt(params0, vgg)
+    modes = run_modes(params0, vgg)
+    emit("training_modes", wall_s=time.perf_counter() - t0)
+    return dict(meta=meta[True]["launches"], adapt=adapt["launches"],
+                remat=modes["remat"]["launches"],
+                accum=modes["accum"]["launches"], checks=checks)
+
+
 def main(argv=None) -> int:
     only = (argv if argv is not None else sys.argv[1:])
     if only not in ([], ["--only-train-grads"]):
@@ -2337,6 +2886,9 @@ def main(argv=None) -> int:
     # after every phase, with draws of their own.
     locked = run_locked_phases(params)
     del params
+    # The meta step, fast adaptation, remat and accumulation, on the
+    # training phase's weights, after every phase, with draws of their own.
+    modes = run_new_training_modes()
 
     def summary(entry, source, replaces, mine, count, origin, per,
                 library=True):
@@ -2428,6 +2980,11 @@ def main(argv=None) -> int:
                                train["launches"][entry],
                                "bfloat16 train run", per, library=False))
     for k in kernels:
+        if k["name"] in TRAINING_ENTRIES:
+            # The training modes' runs, each counted from zero: 3 meta
+            # steps, 20 adaptation steps, 6 remat and 6 accum steps.
+            k.update({f"{mode}_launches": modes[mode][k["name"]]
+                      for mode in ("meta", "adapt", "remat", "accum")})
         if k["name"] in ("stencil_phase_conv", "phase_align"):
             k["train_launches"] = train["launches"][k["name"]]
             k["train_bwd_ms"] = sum(

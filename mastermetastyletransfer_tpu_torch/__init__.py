@@ -14,9 +14,12 @@ Layout:
               backward passes
   models/     Swin backbone, style transformer, CNN decoder, full model
   losses/     VGG19 features and the perceptual loss
-  train/      the plain training step, Adam, the lr schedule
+  train/      the plain and Reptile meta steps (remat, gradient
+              accumulation), Adam, the lr schedule
+  data/       the device half of the data pipeline (crops, style repeat)
   utils/      parameter loading (flat .npz key scheme, JAX param trees)
-  inference.py, serve.py   bucketed stylization and the pair service
+  inference.py, serve.py   bucketed stylization and the services
+  adapt.py    few-shot adaptation to one style image
 """
 
 __version__ = "0.1.0"

@@ -17,7 +17,8 @@ the style transformer, the decoder's phase convs).
 The training fields (dropouts, stochastic depth, ``LossConfig``,
 ``DataConfig``, ``TrainConfig``, ``ExperimentConfig``) follow the same
 rule: the JAX package's names and defaults, for the fields the port's
-plain training step reads.
+training steps (plain, meta, fast adaptation), the on-device crop and
+``adapt_to_style`` read.
 """
 
 from __future__ import annotations
@@ -294,20 +295,29 @@ class LossConfig(_ConfigBase):
 
 @dataclass(frozen=True)
 class DataConfig(_ConfigBase):
-    """The fields of the data pipeline's config that the training step reads
-    (reference: train_only_inner_loop.py:494-575, get_dataloader.py)."""
+    """The fields of the data pipeline's config that the training steps and
+    ``data.device_preprocess_pair`` read (reference:
+    train_only_inner_loop.py:494-575, get_dataloader.py, train.py:222-245).
+    """
+    batch_size_content: int = 4
     crop_to: int = 256
+    use_random_crop: bool = True
     use_imagenet_normalization_for_swin: bool = True
     use_imagenet_normalization_for_loss: bool = True
 
 
 @dataclass(frozen=True)
 class TrainConfig(_ConfigBase):
-    """The fields of the training loop's config that the plain step, the
+    """The fields of the training loop's config that the steps, the
     optimizer and the schedule read (reference: train.py:589-806,
-    train_only_inner_loop.py:321-341, :619-879)."""
+    train_only_inner_loop.py:321-341, :619-879). ``remat`` recomputes the
+    model's forward in the backward pass; ``grad_accum_steps`` splits each
+    batch into that many micro-batches run in turn, their gradients
+    averaged."""
     mode: str = "plain"                 # "plain" | "meta" | "fast_adaptation"
     inner_lr: float = 1e-4
+    outer_lr: float = 1e-4              # Reptile's outer step (meta mode)
+    num_inner_updates: int = 1
     max_layers: int = 4                 # random k in [1, max_layers]
     lambda_style: float = 10.0
     freeze_encoder: bool = True
@@ -316,6 +326,8 @@ class TrainConfig(_ConfigBase):
     lr_decay_rate: float = 0.02
     lr_decay_every: int = 3000
     lr_decay_until: float = 0.0
+    remat: bool = False
+    grad_accum_steps: int = 1
 
 
 @dataclass(frozen=True)

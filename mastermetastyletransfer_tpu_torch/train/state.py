@@ -10,13 +10,16 @@ frozen group gets neither gradients nor updates.
 
 ``Adam`` is the update of ``optax.adam``: bias-corrected moments, eps
 outside the square root, the learning rate of the schedule at the step
-count before the update (0 first).
+count before the update (0 first). Its moments and count can also update
+another list of leaves of the same shapes: the meta step's per-task copy
+omega, task after task, through the one state that the JAX package keeps
+in ``TrainState.opt_state`` (its train/step.py:189-205).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -61,9 +64,12 @@ class Adam:
         self.nu = [torch.zeros_like(p) for p in params]
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor]) -> float:
-        """One update from grads (one per parameter, in order); returns the
-        learning rate it used."""
+    def step(self, grads: List[torch.Tensor],
+             params: Optional[List[torch.Tensor]] = None) -> float:
+        """One update from grads (one per parameter, in order) of
+        ``params``, by default the leaves the optimizer was built over, else
+        leaves of the same shapes in the same order; returns the learning
+        rate it used."""
         lr = self.schedule(self.count)
         self.count += 1
         b1, b2 = self.b1, self.b2
@@ -76,7 +82,8 @@ class Adam:
         denom = torch._foreach_sqrt(vhat)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(mhat, denom)
-        torch._foreach_add_(self.params, mhat, alpha=-lr)
+        torch._foreach_add_(self.params if params is None else params, mhat,
+                            alpha=-lr)
         return lr
 
 

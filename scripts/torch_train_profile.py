@@ -3,10 +3,14 @@ port: the step's wall time against the device's busy time (the union of
 its kernels' intervals in torch.profiler), the idle share, the kernel
 launches and the device time by kernel name, at the JAX train bench's
 configuration (swin_B, 256^2 crops, batch 8 content + 8 style, k = 1,
-every kernel on, or off with ``--kernels off``).
+every kernel on, or off with ``--kernels off``). ``--mode`` takes the plain
+step (the default), the meta step of the JAX meta bench (4 inner updates of
+batch 8, outer_lr 1e-4, each inner step at k = 1), the step with remat, or
+with 2 micro-batches.
 
     python3 scripts/torch_train_profile.py [--repo DIR] [--steps N]
                                            [--kernels on|off]
+                                           [--mode plain|meta|remat|accum]
 
 ``--repo`` imports the port from another checkout (a parent commit unpacked
 beside this one), so that two trees are measured by the same script in one
@@ -47,6 +51,8 @@ def main(argv=None) -> int:
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--kernels", default="on", choices=("on", "off"))
+    ap.add_argument("--mode", default="plain",
+                    choices=("plain", "meta", "remat", "accum"))
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import numpy as np
@@ -64,7 +70,9 @@ def main(argv=None) -> int:
     from mastermetastyletransfer_tpu_torch.train.state import (
         create_train_state,
     )
-    from mastermetastyletransfer_tpu_torch.train.step import make_train_step
+    from mastermetastyletransfer_tpu_torch.train.step import (
+        make_meta_train_step, make_train_step,
+    )
 
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
@@ -74,14 +82,27 @@ def main(argv=None) -> int:
         model=ModelConfig(compute_dtype="bfloat16").with_kernels(
             args.kernels == "on"),
         data=DataConfig(crop_to=256))
+    inner = 4 if args.mode == "meta" else 1
+    cfg = cfg.replace(train=cfg.train.replace(**{
+        "plain": {}, "remat": {"remat": True},
+        "accum": {"grad_accum_steps": 2},
+        "meta": {"mode": "meta", "num_inner_updates": inner,
+                 "outer_lr": 1e-4}}[args.mode]))
     gen = torch.Generator().manual_seed(1)
     state = create_train_state(init_master_model(cfg.model, gen, device=dev),
                                cfg.train)
-    step = make_train_step(cfg, init_vgg19_features(gen, device=dev),
-                           device=dev)
+    vgg = init_vgg19_features(gen, device=dev)
     rng = np.random.default_rng(1)
     content, style = (torch.from_numpy(rng.random(
         (8, 256, 256, 3), dtype=np.float32)).to(dev) for _ in range(2))
+    if args.mode == "meta":
+        meta = make_meta_train_step(cfg, vgg, device=dev)
+        contents = torch.stack([content] * inner)
+
+        def step(state, content, style, generator, k):
+            return meta(state, contents, style, generator, ks=[k] * inner)
+    else:
+        step = make_train_step(cfg, vgg, device=dev)
 
     def run(i):
         nonlocal state
@@ -111,8 +132,10 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     wall_ms = statistics.median(wall)
     print(json.dumps({
-        "repo": args.repo, "kernels": args.kernels, "steps": args.steps,
-        "k": 1, "wall_ms": wall, "wall_ms_median": wall_ms,
+        "repo": args.repo, "kernels": args.kernels, "mode": args.mode,
+        "steps": args.steps, "k": 1, "wall_ms": wall,
+        "wall_ms_median": wall_ms,
+        "imgs_per_s": inner * 8 / wall_ms * 1e3,
         "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
         "launches_per_step": len(kernels) / args.steps,
         "top": [{"name": n[:100], "ms": ms} for n, ms in top]}),

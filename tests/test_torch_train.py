@@ -57,21 +57,11 @@ from mastermetastyletransfer_tpu_torch.train import step as tstep
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import (
     flatten_params, params_from_jax,
 )
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 SIZE, BATCH, MAX_K = 64, 2, 2
 SPREAD_FACTOR = 4
 SPREAD_EPS = (2.0 ** -20, 2.0 ** -17)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module's whole-model steps: with one
-    test worker per core and every worker's torch on every core, the steps
-    slow down a hundredfold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax_cfg() -> jcfg.ExperimentConfig:
