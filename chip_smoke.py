@@ -106,7 +106,19 @@ plain step from one generator seed; launches against ``remat_per_step``,
 every forward entry twice, and ``accum_per_step``; the first step's
 gradients, stochastic depth off, by grad_checks' criteria; remat leaves the
 generator where the plain step does); the kernels line's training entries
-carry each mode's launches.
+carry each mode's launches. Last, the training entry point: trainer
+(``trainer.main`` on folders of BMP files written here, 16 contents at
+640x480 and 4 styles at 1024x768 from a seed, at the train phase's
+configuration: plain for 6 iterations, resumed to 9, meta with 4 inner
+updates for 2, fast adaptation at batch 4 for 3, checkpoints and dumps
+every 3; one finite JSONL line per iteration, checkpoints 3, 6 and 9, the
+resumed run at step 6 with Adam's count 6, its restored state equal to
+checkpoint 6's files bit for bit and its first lr the schedule's at 6,
+each iteration's launches exactly its step's table plus
+``DUMP_PER_CALL`` at a dump, the dumps 256x256x3 and not constant; the
+loader's ms a batch, whether the native loader built, the trainer's
+imgs/s beside the step alone's); every kernel of the kernels line
+carries ``trainer_launches``.
 
 Needs only torch, numpy and the standard library, and one CUDA card.
 
@@ -152,14 +164,18 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import io
 import json
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
 import warnings
+import zlib
 
 import numpy as np
 import torch
@@ -170,6 +186,12 @@ from mastermetastyletransfer_tpu_torch.config import (
     AttentionConfig, DataConfig, ExperimentConfig, ModelConfig,
 )
 from mastermetastyletransfer_tpu_torch.data import repeat_style_to_batch
+from mastermetastyletransfer_tpu_torch.data.native_loader import (
+    native_available,
+)
+from mastermetastyletransfer_tpu_torch.data.pipeline import (
+    ImageFolderDataset,
+)
 from mastermetastyletransfer_tpu_torch.losses.loss import perceptual_loss
 from mastermetastyletransfer_tpu_torch.losses.vgg import init_vgg19_features
 from mastermetastyletransfer_tpu_torch.models.decoder import cnn_decoder_apply
@@ -202,6 +224,8 @@ from mastermetastyletransfer_tpu_torch.ops.windows import (
 from mastermetastyletransfer_tpu_torch.serve import (
     LockedStyleService, StylizeService, SweepService,
 )
+from mastermetastyletransfer_tpu_torch.train import trainer
+from mastermetastyletransfer_tpu_torch.train.schedule import make_lr_schedule
 from mastermetastyletransfer_tpu_torch.train.state import (
     TrainState, create_train_state, trainable_labels,
 )
@@ -2812,6 +2836,310 @@ def run_new_training_modes() -> dict:
                 accum=modes["accum"]["launches"], checks=checks)
 
 
+# ---------------------------------------------------------------------------
+# 8. the training entry point: image folders -> trainer.main
+# ---------------------------------------------------------------------------
+
+TRAINER_SEED = TRAIN_SEED + 6
+# COCO's usual content size and a WikiArt-like style size, as BMP files.
+TRAINER_CONTENTS, TRAINER_CONTENT_HW = 16, (480, 640)
+TRAINER_STYLES, TRAINER_STYLE_HW = 4, (768, 1024)
+TRAINER_RESIZE, TRAINER_EVERY = 512, 3
+# The evaluation kernels of one dump, master_apply on one 256^2 pair at
+# bf16, k=1, kernels on (the serving batch's routes; a CPU test counts
+# them with the wrappers made to see a card).
+DUMP_PER_CALL = {**{e: 0 for e in all_launches()},
+                 "window_block_rows": 4, "window_block_windows": 2,
+                 "encoder_scale_shift": 1, "decoder_tail": 1,
+                 "stencil_phase_conv": 5, "stencil_phase2_conv_padcols": 1,
+                 "phase_align": 1}
+
+
+def write_bmp(path: str, rgb: np.ndarray) -> None:
+    """uint8 (H, W, 3) as an uncompressed 24-bit BMP, rows bottom-up."""
+    h, w, _ = rgb.shape
+    stride = (w * 3 + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = rgb[::-1, :, ::-1].reshape(h, w * 3)
+    header = (b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54)
+              + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size,
+                            2835, 2835, 0, 0))
+    with open(path, "wb") as f:
+        f.write(header + rows.tobytes())
+
+
+def read_png(path: str) -> np.ndarray:
+    """The trainer's dumps: an 8-bit RGB PNG, filter 0 on every row."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, (w, h) = 8, b"", (0, 0)
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+            if (depth, color) != (8, 2):
+                raise AssertionError(f"{path}: not an 8-bit RGB PNG")
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def smooth_images(rng, n: int, hw) -> list:
+    """n smooth uint8 images (low-resolution noise, bilinear upsampled)."""
+    base = torch.from_numpy(rng.random((n, 3, hw[0] // 32, hw[1] // 32),
+                                       dtype=np.float32))
+    up = F.interpolate(base, size=hw, mode="bilinear", align_corners=False)
+    return list((up * 255).round().to(torch.uint8).permute(0, 2, 3, 1)
+                .numpy())
+
+
+class StepRecorder:
+    """The trainer's step makers wrapped: at each step call, the kernel
+    counts, the state's step and Adam's count, and the time; each step's
+    metrics as it returns; ``check(state)`` on the first call."""
+
+    def __init__(self, check=None):
+        self.calls, self.metrics, self.check = [], [], check
+
+    @contextlib.contextmanager
+    def patched(self):
+        made = (trainer.make_train_step, trainer.make_meta_train_step)
+
+        def wrap(make):
+            def maker(*args, **kwargs):
+                step = make(*args, **kwargs)
+
+                def run(state, *step_args):
+                    if not self.calls and self.check is not None:
+                        self.check(state)
+                    self.calls.append(dict(launches=all_launches(),
+                                           step=state.step,
+                                           count=state.opt.count,
+                                           t=time.perf_counter()))
+                    state, m = step(state, *step_args)
+                    self.metrics.append(dict(m, t=time.perf_counter()))
+                    return state, m
+                return run
+            return maker
+
+        trainer.make_train_step, trainer.make_meta_train_step = (
+            wrap(m) for m in made)
+        try:
+            yield self
+        finally:
+            trainer.make_train_step, trainer.make_meta_train_step = made
+
+    def per_iteration(self, end: dict) -> list:
+        """Each iteration's launches: from its step call to the next one's
+        (the last to ``end``), the dump between them included."""
+        marks = [c["launches"] for c in self.calls] + [end]
+        return [{e: b[e] - a[e] for e in a} for a, b in zip(marks, marks[1:])]
+
+
+def trainer_run(tag: str, argv: list, expect, check=None) -> dict:
+    """trainer.main(argv), its stdout kept; each iteration's launches held
+    to ``expect(it, metrics)``; returns the recorder's rows."""
+    rec = StepRecorder(check)
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with rec.patched(), contextlib.redirect_stdout(out):
+        trainer.main(argv)
+    wall = time.perf_counter() - t0
+    per = rec.per_iteration(all_launches())
+    first = rec.calls[0]["step"]
+    for i, (counted, m) in enumerate(zip(per, rec.metrics)):
+        want = expect(first + i + 1, m)
+        if counted != want:
+            raise AssertionError(f"trainer {tag} iteration {first + i + 1} "
+                                 f"launched {counted}, expected {want}")
+    return dict(calls=rec.calls, metrics=rec.metrics, wall_s=wall,
+                launches=table_sum(per),
+                stdout_lines=len(out.getvalue().splitlines()))
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    for r in rows:
+        bad = [k for k, v in r.items() if k != "ks" and not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{path} step {r['step']}: {bad} not finite")
+    return rows
+
+
+def check_restored(ckpt: str, step: int):
+    """A check of the state the resumed trainer restored: every leaf,
+    Adam's moments, step and count equal checkpoint ``step``'s files bit
+    for bit."""
+    def check(state):
+        path = os.path.join(ckpt, str(step))
+        with np.load(os.path.join(path, "params.npz")) as data:
+            leaves = flatten_params(state.params)
+            diff = [k for k, v in leaves.items()
+                    if not np.array_equal(v.detach().cpu().numpy(), data[k])]
+            if diff or set(data.files) != set(leaves):
+                raise AssertionError(f"restored leaves differ: {diff[:4]}")
+        with np.load(os.path.join(path, "opt.npz")) as data:
+            keys = list(state.trainable())
+            for m, moments in (("mu", state.opt.mu), ("nu", state.opt.nu)):
+                for k, t in zip(keys, moments):
+                    if not np.array_equal(t.cpu().numpy(), data[f"{m}/{k}"]):
+                        raise AssertionError(f"restored {m}/{k} differs")
+        with open(os.path.join(path, "state.json")) as f:
+            meta = json.load(f)
+        if (state.step, state.opt.count) != (meta["step"], meta["count"]):
+            raise AssertionError(f"restored step/count {state.step}, "
+                                 f"{state.opt.count}, not {meta}")
+    return check
+
+
+def check_dumps(exp: str, steps) -> list:
+    """The dumps at ``steps``: 256x256x3 PNGs, not constant."""
+    names = sorted(f for f in os.listdir(exp) if f.startswith("stylized_"))
+    want = [f"stylized_{s}.png" for s in steps]
+    if sorted(names) != sorted(want):
+        raise AssertionError(f"{exp}: dumps {names}, expected {want}")
+    stds = []
+    for name in want:
+        img = read_png(os.path.join(exp, name))
+        if img.shape != (TRAIN_SIZE, TRAIN_SIZE, 3) or img.std() == 0:
+            raise AssertionError(f"{name}: shape {img.shape}, std "
+                                 f"{img.std()}")
+        stds.append(float(img.std()))
+    return stds
+
+
+def run_trainer(train: dict) -> dict:
+    """The training entry point, ``trainer.main``, on image folders written
+    here (TRAINER_CONTENTS content BMPs, TRAINER_STYLES style BMPs, smooth
+    images from a seed), at the train phase's configuration (swin_B,
+    256^2 crops from 512^2 staging, batch 8, bf16, kernels on): plain for 6
+    iterations, then resumed to 9; meta (4 inner updates) for 2; fast
+    adaptation (batch 4) for 3; checkpoints and dumps every 3. Checks:
+    one finite JSONL line per iteration; checkpoints 3, 6 and 9; the
+    resumed run starts at step 6 with Adam's count 6, the restored state
+    equal to checkpoint 6's files, its first lr the schedule's at count 6;
+    each iteration's launches the step's table for its k (meta: the sum
+    over its ks; fast adaptation: ``adapt_per_step``), plus
+    ``DUMP_PER_CALL`` at a dump; the dumps 256x256x3 and not constant.
+    Reports whether the native loader built, the loader's ms per batch of
+    8, and the trainer's imgs/s over iterations 2-6 beside the train
+    phase's step alone."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(TRAINER_SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        cdir, sdir = os.path.join(tmp, "coco"), os.path.join(tmp, "wikiart")
+        for d, n, hw in ((cdir, TRAINER_CONTENTS, TRAINER_CONTENT_HW),
+                         (sdir, TRAINER_STYLES, TRAINER_STYLE_HW)):
+            os.makedirs(d)
+            for i, img in enumerate(smooth_images(rng, n, hw)):
+                write_bmp(os.path.join(d, f"{i:03d}.bmp"), img)
+        t_native = time.perf_counter()
+        native = native_available()
+        native_s = time.perf_counter() - t_native
+        ds = ImageFolderDataset(cdir, TRAINER_RESIZE, recursive=False)
+        ds.get_batch(range(TRAIN_BATCH))
+        t1 = time.perf_counter()
+        for i in range(3):
+            batch = ds.get_batch(range(i, i + TRAIN_BATCH))
+        loader_ms = (time.perf_counter() - t1) / 3 * 1e3
+        if batch.shape != (TRAIN_BATCH, TRAINER_RESIZE, TRAINER_RESIZE, 3):
+            raise AssertionError(f"loader batch {batch.shape}")
+
+        def argv(exp, *extra):
+            return ["--content_dir", cdir, "--style_dir", sdir,
+                    "--exp_dir", os.path.join(tmp, exp), "--batch_size",
+                    str(TRAIN_BATCH), "--crop_to", str(TRAIN_SIZE),
+                    "--resize_to", str(TRAINER_RESIZE), "--compute_dtype",
+                    "bfloat16", "--use_pallas", "--save_every",
+                    str(TRAINER_EVERY), "--save_every_for_model",
+                    str(TRAINER_EVERY), "--log_every", "1", "--seed",
+                    str(TRAINER_SEED), *extra]
+
+        def expect(table):
+            def want(it, m):
+                t = table(m)
+                if it % TRAINER_EVERY == 0:
+                    t = table_sum([t, DUMP_PER_CALL])
+                return t
+            return want
+
+        plain = expect(lambda m: train_per_step(m["k"]))
+        runs = {"plain": trainer_run("plain", argv(
+            "plain", "--max_iterations", "6"), plain)}
+        ckpt = os.path.join(tmp, "plain", "checkpoints")
+        runs["resume"] = trainer_run("resume", argv(
+            "plain", "--max_iterations", "9", "--resume"), plain,
+            check=check_restored(ckpt, 6))
+        runs["meta"] = trainer_run("meta", argv(
+            "meta", "--mode", "meta", "--num_inner_updates", "4",
+            "--max_iterations", "2"),
+            expect(lambda m: table_sum(train_per_step(k) for k in m["ks"])))
+        fast = argv("fast", "--mode", "fast_adaptation", "--max_iterations",
+                    "3")
+        fast[fast.index("--batch_size") + 1] = "4"
+        runs["fast_adaptation"] = trainer_run(
+            "fast_adaptation", fast,
+            expect(lambda m: adapt_per_step(m["k"])))
+
+        logs = {name: read_jsonl(os.path.join(tmp, name, "metrics.jsonl"))
+                for name in ("plain", "meta", "fast")}
+        steps = {"plain": list(range(1, 10)), "meta": [1, 2],
+                 "fast": [1, 2, 3]}
+        for name, rows in logs.items():
+            if [r["step"] for r in rows] != steps[name]:
+                raise AssertionError(f"{name}: logged steps "
+                                     f"{[r['step'] for r in rows]}")
+        ckpts = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
+        if ckpts != [3, 6, 9]:
+            raise AssertionError(f"checkpoints {ckpts}, expected 3, 6, 9")
+        first = runs["resume"]["calls"][0]
+        schedule = make_lr_schedule(trainer.config_from_args(
+            trainer.build_argparser().parse_args(argv("plain"))).train)
+        lr7 = logs["plain"][6]["lr"]
+        if (first["step"], first["count"]) != (6, 6) or lr7 != schedule(6):
+            raise AssertionError(f"resumed at step {first['step']}, count "
+                                 f"{first['count']}, lr {lr7} (the "
+                                 f"schedule's at 6: {schedule(6)})")
+        stds = check_dumps(os.path.join(tmp, "plain"), (3, 6, 9))
+        stds += check_dumps(os.path.join(tmp, "fast"), (3,))
+
+    # imgs/s over iterations 2-6 of the first plain run, from its log:
+    # the trainer logs B * i / (seconds since its loop began) at i.
+    rows = logs["plain"]
+    elapsed = [TRAIN_BATCH * r["step"] / r["imgs_per_sec"] for r in rows[:6]]
+    calls, ms = runs["plain"]["calls"], runs["plain"]["metrics"]
+    step_ms = [(m["t"] - c["t"]) * 1e3 for c, m in zip(calls[1:6], ms[1:6])]
+    gap_ms = [(c["t"] - m["t"]) * 1e3 for m, c in zip(ms[1:5], calls[2:6])]
+    out = dict(
+        native_loader_built=native, native_build_s=native_s,
+        loader_ms_per_batch=loader_ms, loader_batch=TRAIN_BATCH,
+        loader_images=f"{TRAINER_CONTENT_HW[1]}x{TRAINER_CONTENT_HW[0]} BMP "
+                      f"-> {TRAINER_RESIZE}^2",
+        trainer_imgs_per_s_it2_6=TRAIN_BATCH * 5 / (elapsed[5] - elapsed[0]),
+        step_alone_imgs_per_s=train["imgs_per_s_kernels_on"],
+        step_alone_imgs_per_s_by_k=train["imgs_per_s_by_k_on"],
+        trainer_ks=[int(r["k"]) for r in rows],
+        step_ms_it2_6=float(np.mean(step_ms)),
+        between_steps_ms_it2_5=float(np.mean(gap_ms)),
+        meta_ks=[r["ks"] for r in logs["meta"]],
+        fast_ks=[int(r["k"]) for r in logs["fast"]],
+        resumed_at=(first["step"], first["count"]), resumed_lr=lr7,
+        checkpoints=ckpts, dump_std=stds,
+        run_wall_s={k: v["wall_s"] for k, v in runs.items()},
+        launches=table_sum(r["launches"] for r in runs.values()),
+        dump_per_call=DUMP_PER_CALL,
+        wall_s=time.perf_counter() - t0)
+    emit("trainer", **out)
+    return out
+
+
 def main(argv=None) -> int:
     only = (argv if argv is not None else sys.argv[1:])
     if only not in ([], ["--only-train-grads"]):
@@ -2889,6 +3217,9 @@ def main(argv=None) -> int:
     # The meta step, fast adaptation, remat and accumulation, on the
     # training phase's weights, after every phase, with draws of their own.
     modes = run_new_training_modes()
+    # The training entry point on image folders, after every phase, with
+    # draws of its own.
+    trained = run_trainer(train)
 
     def summary(entry, source, replaces, mine, count, origin, per,
                 library=True):
@@ -3020,6 +3351,10 @@ def main(argv=None) -> int:
                               if r["entry"] == entry + "_bwd"
                               and r["dtype"] == "bfloat16")
         kernels.append(k)
+    for k in kernels:
+        # The trainer phase's four runs (plain 6, resumed 3, meta 2, fast
+        # adaptation 3 iterations), each counted from zero.
+        k["trainer_launches"] = trained["launches"][k["name"]]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,9 +16,9 @@ the style transformer, the decoder's phase convs).
 
 The training fields (dropouts, stochastic depth, ``LossConfig``,
 ``DataConfig``, ``TrainConfig``, ``ExperimentConfig``) follow the same
-rule: the JAX package's names and defaults, for the fields the port's
-training steps (plain, meta, fast adaptation), the on-device crop and
-``adapt_to_style`` read.
+rule: the JAX package's names and defaults, every field of its
+``DataConfig`` and ``TrainConfig``, so that the trainer's ``config.json``
+round-trips between the two.
 """
 
 from __future__ import annotations
@@ -295,37 +295,53 @@ class LossConfig(_ConfigBase):
 
 @dataclass(frozen=True)
 class DataConfig(_ConfigBase):
-    """The fields of the data pipeline's config that the training steps and
-    ``data.device_preprocess_pair`` read (reference:
-    train_only_inner_loop.py:494-575, get_dataloader.py, train.py:222-245).
-    """
+    """The data pipeline's config (reference: codes/get_dataloader.py,
+    train.py:222-245, train_only_inner_loop.py:494-575): the image folders
+    and the loaders' batch sizes, staging size, workers and sampler seed
+    (data/pipeline.py's host half), the crop and the normalization flags
+    (its device half and the training steps)."""
+    content_dir: str = "datasets/coco_train_dataset/train2017"
+    style_dir: str = "datasets/wikiart"
     batch_size_content: int = 4
+    batch_size_style: int = 1
+    resize_to: int = 512
     crop_to: int = 256
     use_random_crop: bool = True
     use_imagenet_normalization_for_swin: bool = True
     use_imagenet_normalization_for_loss: bool = True
+    num_workers: int = 4
+    seed: int = 0
 
 
 @dataclass(frozen=True)
 class TrainConfig(_ConfigBase):
-    """The fields of the training loop's config that the steps, the
-    optimizer and the schedule read (reference: train.py:589-806,
-    train_only_inner_loop.py:321-341, :619-879). ``remat`` recomputes the
-    model's forward in the backward pass; ``grad_accum_steps`` splits each
-    batch into that many micro-batches run in turn, their gradients
-    averaged."""
+    """The training loop's config (reference: train.py:589-806,
+    train_only_inner_loop.py:321-341, :619-879): what the steps, the
+    optimizer and the schedule read, and what train/trainer.py's loop reads
+    (iterations, the save periods, the seed, the device count).
+    ``matmul_precision`` is recorded as the JAX package records it; the
+    port's f32 stages run with TF32 off whatever its value
+    (models/master.py:_stage_ctx). ``remat`` recomputes the model's forward
+    in the backward pass; ``grad_accum_steps`` splits each batch into that
+    many micro-batches run in turn, their gradients averaged."""
     mode: str = "plain"                 # "plain" | "meta" | "fast_adaptation"
+    matmul_precision: str = "default"   # "default" | "high" | "highest"
     inner_lr: float = 1e-4
     outer_lr: float = 1e-4              # Reptile's outer step (meta mode)
     num_inner_updates: int = 1
     max_layers: int = 4                 # random k in [1, max_layers]
     lambda_style: float = 10.0
+    max_iterations: int = 15000
     freeze_encoder: bool = True
+    save_every: int = 100
+    save_every_for_model: int = 1000
     use_lr_schedule: bool = True
     warmup_iterations: int = 0
     lr_decay_rate: float = 0.02
     lr_decay_every: int = 3000
     lr_decay_until: float = 0.0
+    seed: int = 42
+    num_devices: int = 1
     remat: bool = False
     grad_accum_steps: int = 1
 

@@ -1,5 +1,8 @@
-"""The device half of the data pipeline (JAX counterpart: data/)."""
+"""The data pipeline: image folders, samplers and the prefetching loader
+on the host, the crops on the device (JAX counterpart: data/)."""
 
 from mastermetastyletransfer_tpu_torch.data.pipeline import (  # noqa: F401
-    device_preprocess_batch, device_preprocess_pair, repeat_style_to_batch,
+    ImageFolderDataset, InfiniteIndexSampler, PrefetchLoader,
+    device_preprocess_batch, device_preprocess_pair, list_images,
+    make_train_iterators, repeat_style_to_batch,
 )

@@ -1,18 +1,351 @@
-"""The device half of the data pipeline (JAX counterpart:
-data/pipeline.py:213-258): a staged uint8 batch becomes float crops in
-[0, 1] on its device, and one style image is repeated to the content
-batch; ``device_preprocess_pair`` makes a training step's two inputs so,
-by the configuration, as the JAX trainer does. The host half (image
-folders, samplers, the prefetching loader) is not ported yet.
+"""The data pipeline: COCO content and WikiArt style streams (JAX
+counterpart: data/pipeline.py; reference: codes/get_dataloader.py,
+train.py:222-245, :411-416).
+
+The host half decodes each image and resizes it to the fixed staging size
+(``resize_to``): ``list_images`` finds the files, ``InfiniteIndexSampler``
+draws an endless reshuffled index stream, ``ImageFolderDataset`` decodes
+(batches through the native JPEG loader where it builds,
+data/native_loader.py), and ``PrefetchLoader`` prefetches batches from
+worker threads in a deterministic order. The device half turns a staged
+uint8 batch into float crops in [0, 1] on its device and repeats one style
+image to the content batch; ``device_preprocess_pair`` makes a training
+step's two inputs so, by the configuration, as the JAX trainer does.
+
+``_decode_resize`` reads uncompressed 24- and 32-bit BMP files with numpy
+and resizes with ``_resize_bilinear``, which computes Pillow's BILINEAR
+resample bit for bit, so that this route needs no PIL (the machine with
+the card has none). Every other format goes through PIL, imported where it
+is needed.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import glob
+import os
+import queue
+import threading
+from typing import Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from mastermetastyletransfer_tpu_torch.config import ExperimentConfig
+from mastermetastyletransfer_tpu_torch.config import (
+    DataConfig, ExperimentConfig,
+)
+
+_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+# Pillow's fixed-point precision for 8-bit resampling (libImaging/Resample.c)
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def list_images(root: str, recursive: bool = True) -> List[str]:
+    """All image files under root, sorted (reference: a flat *.jpg glob for
+    COCO, a recursive one for WikiArt, get_dataloader.py:30,81)."""
+    pat = (os.path.join(root, "**", "*") if recursive
+           else os.path.join(root, "*"))
+    files = [f for f in glob.glob(pat, recursive=recursive)
+             if f.lower().endswith(_EXTS)]
+    files.sort()
+    return files
+
+
+class InfiniteIndexSampler:
+    """Endless reshuffled index stream (reference: get_dataloader.py:10-19):
+    one ``np.random.default_rng(seed).permutation(n)`` per epoch."""
+
+    def __init__(self, n: int, seed: int = 0):
+        if n <= 0:
+            raise ValueError("empty dataset")
+        self.n = n
+        self._rng = np.random.default_rng(seed)
+
+    def __iter__(self) -> Iterator[int]:
+        while True:
+            for i in self._rng.permutation(self.n):
+                yield int(i)
+
+
+def _read_bmp(data: bytes) -> Optional[np.ndarray]:
+    """An uncompressed 24- or 32-bit (BI_RGB) BMP file's pixels as uint8
+    (H, W, 3) RGB, rows top to bottom; None for any other file. Rows are
+    stored bottom-up unless the height is negative, each padded to 4
+    bytes; a 32-bit pixel's fourth byte is dropped, as Pillow reads it."""
+    if len(data) < 34 or data[:2] != b"BM":
+        return None
+    offset = int.from_bytes(data[10:14], "little")
+    if int.from_bytes(data[14:18], "little") < 40:     # BITMAPINFOHEADER+
+        return None
+    width = int.from_bytes(data[18:22], "little", signed=True)
+    height = int.from_bytes(data[22:26], "little", signed=True)
+    bits = int.from_bytes(data[28:30], "little")
+    compression = int.from_bytes(data[30:34], "little")
+    if bits not in (24, 32) or compression != 0 or width <= 0 or height == 0:
+        return None
+    rows, channels = abs(height), bits // 8
+    stride = (width * bits + 31) // 32 * 4
+    if len(data) < offset + stride * rows:
+        return None
+    px = np.frombuffer(data, np.uint8, stride * rows, offset)
+    px = px.reshape(rows, stride)[:, :width * channels]
+    px = px.reshape(rows, width, channels)[:, :, 2::-1]    # BGR(X) -> RGB
+    if height > 0:
+        px = px[::-1]
+    return np.ascontiguousarray(px)
+
+
+def _resample_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Pillow's BILINEAR taps along one axis (libImaging/Resample.c,
+    precompute_coeffs and normalize_coeffs_8bpp): for each output i, the
+    (n_out, ksize) input indices and 22-bit fixed-point weights of a
+    triangle filter of support max(n_in / n_out, 1) centred at
+    (i + 0.5) n_in / n_out, the taps from int(centre - support + 0.5) to
+    int(centre + support + 0.5) clipped to the input, the weights
+    normalised to sum to one in double precision (summed in tap order),
+    then rounded half away from zero. Unused taps have weight 0 and index
+    0."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(n_out) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    xmax = np.minimum(np.trunc(center + support + 0.5),
+                      n_in).astype(np.int64) - xmin
+    j = np.arange(ksize)
+    used = j[None, :] < xmax[:, None]
+    arg = np.abs(((j[None, :] + xmin[:, None]).astype(np.float64)
+                  - center[:, None] + 0.5) * (1.0 / filterscale))
+    w = np.where(used, np.where(arg < 1.0, 1.0 - arg, 0.0), 0.0)
+    total = np.zeros(n_out)
+    for t in range(ksize):          # in tap order, as the C loop sums
+        total += w[:, t]
+    w = np.where(total[:, None] != 0.0,
+                 w / np.where(total == 0.0, 1.0, total)[:, None], w)
+    w = w * (1 << _PRECISION_BITS)
+    fixed = np.trunc(np.where(w < 0, w - 0.5, w + 0.5)).astype(np.int64)
+    idx = np.where(used, j[None, :] + xmin[:, None], 0)
+    return idx, np.where(used, fixed, 0)
+
+
+def _resample_rows(x: np.ndarray, n_out: int) -> np.ndarray:
+    """One pass of Pillow's 8-bit resample along the rows of a contiguous
+    uint8 (n_in, M) array: each output row's taps gathered as whole rows
+    and weighted, tap by tap, in exact int32 arithmetic (the weights are
+    non-negative and sum to about 2^22, so no partial sum reaches 2^31),
+    plus one half, shifted down by the precision and clipped to
+    [0, 255]."""
+    idx, w = _resample_taps(x.shape[0], n_out)
+    x = x.astype(np.int32)
+    w = w.astype(np.int32)
+    acc = np.full((n_out, x.shape[1]), 1 << (_PRECISION_BITS - 1), np.int32)
+    tap = np.empty_like(acc)
+    for t in range(idx.shape[1]):
+        np.multiply(x[idx[:, t]], w[:, t, None], out=tap)
+        acc += tap
+    acc >>= _PRECISION_BITS
+    return np.clip(acc, 0, 255).astype(np.uint8)
+
+
+def _resize_bilinear(img: np.ndarray, size: int) -> np.ndarray:
+    """uint8 (H, W, C) -> (size, size, C), equal bit for bit to Pillow's
+    ``Image.resize((size, size), Image.BILINEAR)`` of the RGB image: a
+    horizontal pass, then a vertical one, each skipped where its side
+    keeps its size."""
+    h, w, c = img.shape
+    if w != size:
+        cols = np.ascontiguousarray(img.transpose(1, 0, 2)).reshape(w, h * c)
+        img = _resample_rows(cols, size).reshape(size, h, c).transpose(1, 0, 2)
+    if h != size:
+        rows = np.ascontiguousarray(img).reshape(h, size * c)
+        img = _resample_rows(rows, size).reshape(size, size, c)
+    return np.ascontiguousarray(img)
+
+
+def _decode_resize(path: str, resize_to: int) -> np.ndarray:
+    """Host side: decode -> RGB -> bilinear resize to (resize_to, resize_to)
+    uint8 HWC (reference: cv2 BGR->RGB + transforms.Resize((512, 512)),
+    get_dataloader.py:63-69), as the JAX package's PIL route computes it.
+    Uncompressed 24- and 32-bit BMP files need no PIL; any other format
+    raises where PIL is absent."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pixels = _read_bmp(data)
+    if pixels is not None:
+        return _resize_bilinear(pixels, resize_to)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        jpeg = data[:3] == b"\xff\xd8\xff"
+        raise RuntimeError(
+            f"{path}: this format needs PIL"
+            + (" or the native JPEG loader (data/native_loader.py)"
+               if jpeg else "")
+            + "; only uncompressed 24- and 32-bit BMP files decode without "
+            "it") from e
+    with Image.open(path) as im:
+        im = im.convert("RGB").resize((resize_to, resize_to), Image.BILINEAR)
+        return np.asarray(im, dtype=np.uint8)
+
+
+class ImageFolderDataset:
+    """Decoded and staged images of a directory. Batches go through the
+    native loader (threaded libjpeg decode + resize, native/loader.cpp)
+    where it is available, with ``_decode_resize`` for any file it fails
+    on."""
+
+    def __init__(self, root: str, resize_to: int = 512, recursive: bool = True,
+                 use_native: bool = True):
+        self.files = list_images(root, recursive=recursive)
+        self.resize_to = resize_to
+        self.use_native = use_native
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        return _decode_resize(self.files[i], self.resize_to)
+
+    def get_batch(self, indices) -> np.ndarray:
+        if self.use_native:
+            from mastermetastyletransfer_tpu_torch.data.native_loader import (
+                decode_resize_batch, native_available,
+            )
+            if native_available():
+                return decode_resize_batch(
+                    [self.files[i] for i in indices], self.resize_to)
+        return np.stack([self[i] for i in indices])
+
+
+class _LoadError:
+    """A worker's batch failure, delivered in sequence to the consumer."""
+
+    def __init__(self, indices, error):
+        self.indices = indices
+        self.error = error
+
+
+class PrefetchLoader:
+    """Thread-pool batch loader with a bounded prefetch window and a
+    deterministic batch order.
+
+    Yields uint8 (B, resize_to, resize_to, 3) batches forever. One index
+    producer gives every batch's index group a sequence number (so batch
+    n always holds the same images for a given seed), the workers decode
+    concurrently, and delivery reorders by sequence number: a run with a
+    fixed seed sees the same batch stream whatever the worker count or the
+    threads' scheduling. The producer is gated on consumption, so that at
+    most prefetch + num_workers batches are in flight while the consumer
+    stalls. A worker's failure is raised at the consumer, naming the
+    batch's indices.
+    """
+
+    def __init__(self, dataset, batch_size: int, *, num_workers: int = 4,
+                 seed: int = 0, prefetch: int = 4):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self._sampler = iter(InfiniteIndexSampler(len(dataset), seed))
+        self._window = prefetch + max(1, num_workers)
+        self._tasks: "queue.Queue[Tuple[int, List[int]]]" = queue.Queue(
+            maxsize=prefetch)
+        self._results = {}
+        self._cond = threading.Condition()
+        self._next_seq = 0
+        self._stop = threading.Event()
+        self._threads = [
+            threading.Thread(target=self._worker, daemon=True)
+            for _ in range(max(1, num_workers))
+        ]
+        self._threads.append(
+            threading.Thread(target=self._produce, daemon=True))
+        for t in self._threads:
+            t.start()
+
+    def _produce(self):
+        seq = 0
+        while not self._stop.is_set():
+            # Gated on consumption, not only on the task queue: otherwise
+            # the workers drain tasks into _results as fast as they decode
+            # and the producer refills, so decoded but unconsumed batches
+            # (and the decode threads' CPU time) grow without bound while
+            # the consumer stalls.
+            with self._cond:
+                while (not self._stop.is_set()
+                       and seq >= self._next_seq + self._window):
+                    self._cond.wait(0.5)
+            if self._stop.is_set():
+                break
+            idx = [next(self._sampler) for _ in range(self.batch_size)]
+            while not self._stop.is_set():
+                try:
+                    self._tasks.put((seq, idx), timeout=0.5)
+                    seq += 1
+                    break
+                except queue.Full:
+                    continue
+
+    def _worker(self):
+        while not self._stop.is_set():
+            try:
+                seq, idx = self._tasks.get(timeout=0.5)
+            except queue.Empty:
+                continue
+            try:
+                if hasattr(self.dataset, "get_batch"):
+                    batch = self.dataset.get_batch(idx)
+                else:
+                    batch = np.stack([self.dataset[i] for i in idx])
+            except Exception as e:  # noqa: BLE001
+                # Delivered for this sequence number instead of ending the
+                # worker: a dead worker would leave a hole in the sequence
+                # and __next__ would wait on it forever.
+                batch = _LoadError(idx, e)
+            with self._cond:
+                self._results[seq] = batch
+                self._cond.notify_all()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> np.ndarray:
+        with self._cond:
+            while self._next_seq not in self._results:
+                if self._stop.is_set():
+                    raise StopIteration
+                self._cond.wait(0.5)
+            batch = self._results.pop(self._next_seq)
+            self._next_seq += 1
+            self._cond.notify_all()  # wake the gated producer
+        if isinstance(batch, _LoadError):
+            raise RuntimeError(
+                f"batch load failed for dataset indices {batch.indices}"
+            ) from batch.error
+        return batch
+
+    def close(self):
+        self._stop.set()
+        with self._cond:
+            self._cond.notify_all()
+
+
+def make_train_iterators(cfg: DataConfig
+                         ) -> Tuple[PrefetchLoader, PrefetchLoader]:
+    """(content_loader, style_loader) over the COCO and WikiArt folders:
+    the contents flat, the styles recursive; batch sizes, workers (half for
+    the styles) and seeds (the styles' one more) as the JAX package's."""
+    content = ImageFolderDataset(cfg.content_dir, cfg.resize_to,
+                                 recursive=False)
+    style = ImageFolderDataset(cfg.style_dir, cfg.resize_to, recursive=True)
+    if len(content) == 0:
+        raise FileNotFoundError(f"no images under {cfg.content_dir}")
+    if len(style) == 0:
+        raise FileNotFoundError(f"no images under {cfg.style_dir}")
+    c_loader = PrefetchLoader(content, cfg.batch_size_content,
+                              num_workers=cfg.num_workers, seed=cfg.seed)
+    s_loader = PrefetchLoader(style, cfg.batch_size_style,
+                              num_workers=max(1, cfg.num_workers // 2),
+                              seed=cfg.seed + 1)
+    return c_loader, s_loader
 
 
 def device_preprocess_batch(batch_u8: torch.Tensor, crop_to: int, *,

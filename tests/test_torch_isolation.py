@@ -55,8 +55,9 @@ def test_every_port_module_imports_without_jax_or_pil():
     """Each module of the package on its own, the kernel wrappers
     (ops/window_block.py, ops/block_pair.py, ops/style_block.py,
     ops/phase_conv.py, ops/patch_embed.py, ops/window_attention.py,
-    ops/ln_mlp.py), the losses, the training steps, fast adaptation and
-    the data pipeline's device half included."""
+    ops/ln_mlp.py), the losses, the training steps, fast adaptation, the
+    data pipeline and its native loader, the trainer and the VGG19
+    conversion included."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in (ROOT / "mastermetastyletransfer_tpu_torch").rglob("*.py")
@@ -65,7 +66,8 @@ def test_every_port_module_imports_without_jax_or_pil():
                  "ops.patch_embed", "ops.window_attention",
                  "ops.ln_mlp", "losses.vgg", "losses.loss",
                  "train.schedule", "train.state", "train.step", "adapt",
-                 "data.pipeline"):
+                 "data.pipeline", "data.native_loader", "train.trainer",
+                 "utils.convert"):
         assert f"mastermetastyletransfer_tpu_torch.{name}" in modules, name
     probe = _PROBE.replace(
         "import chip_smoke\n",
