@@ -118,7 +118,28 @@ each iteration's launches exactly its step's table plus
 ``DUMP_PER_CALL`` at a dump, the dumps 256x256x3 and not constant; the
 loader's ms a batch, whether the native loader built, the trainer's
 imgs/s beside the step alone's); every kernel of the kernels line
-carries ``trainer_launches``.
+carries ``trainer_launches``. Last, the evaluation and weight entry
+points, on folders of BMP files written here (11 contents at 640x480, 20
+styles at 1024x768): eval (``evaluate_grid``, the JAX command line's 220
+pairs at 256^2, style batch 8: f32 with the kernels on and off at k = 1
+and 3, bf16 on and off at k = 1; each kernels-on grid's launches exactly
+``eval_per_grid``, a stream build per style chunk and the decoder half
+per (content, chunk); f32 on against off, each pair's losses within
+TOL_EVAL_LOSS relative and the outputs by the slice's f32 criterion; bf16
+by the noise ratio against the f32 kernels-off outputs; pairs/s and ms
+per batched call), eval_cli (``eval.cli.main --use_pallas``: its launches,
+its 220 PNG dumps 256x256x3), adapt_cli (``adapt.main --use_pallas``, 20
+steps of batch 4 at 256^2 under deterministic algorithms: each step's
+launches ``adapt_per_step``, the stylize calls ``PER_BATCH``,
+``adapted.npz`` equal bit for bit to ``adapt_to_style`` called directly),
+convert (every ``convert_cli`` kind on full-width state dicts written with
+``torch.save``: the .npz leaves exactly ``expected_leaves``; the grid from
+the converted whole model's .npz equal bit for bit to the grid from the
+same conversion in memory) and calibrate (``calibrate.main`` on a BMP
+triplet with plain and BN VGG19 .pt files: the card's rows within
+TOL_EVAL_LOSS relative of the CPU's, which TF32 would break); every
+kernel of the kernels line carries ``eval_launches`` and
+``adapt_cli_launches``.
 
 Needs only torch, numpy and the standard library, and one CUDA card.
 
@@ -181,6 +202,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mastermetastyletransfer_tpu_torch import adapt as adapt_cli
 from mastermetastyletransfer_tpu_torch.adapt import adapt_to_style
 from mastermetastyletransfer_tpu_torch.config import (
     AttentionConfig, DataConfig, ExperimentConfig, ModelConfig,
@@ -190,11 +212,19 @@ from mastermetastyletransfer_tpu_torch.data.native_loader import (
     native_available,
 )
 from mastermetastyletransfer_tpu_torch.data.pipeline import (
-    ImageFolderDataset,
+    ImageFolderDataset, _decode_resize, list_images,
 )
+from mastermetastyletransfer_tpu_torch.eval import cli as eval_cli
+from mastermetastyletransfer_tpu_torch.eval import harness as eval_harness
+from mastermetastyletransfer_tpu_torch.eval.harness import (
+    evaluate_grid, load_eval_images,
+)
+from mastermetastyletransfer_tpu_torch.losses import calibrate
 from mastermetastyletransfer_tpu_torch.losses.loss import perceptual_loss
 from mastermetastyletransfer_tpu_torch.losses.vgg import init_vgg19_features
-from mastermetastyletransfer_tpu_torch.models.decoder import cnn_decoder_apply
+from mastermetastyletransfer_tpu_torch.models.decoder import (
+    _channel_plan, cnn_decoder_apply,
+)
 from mastermetastyletransfer_tpu_torch.inference import blend_style_streams
 from mastermetastyletransfer_tpu_torch.models.master import (
     _TF32_OFF, encode_features, init_master_model, make_stylize_fn,
@@ -233,8 +263,10 @@ from mastermetastyletransfer_tpu_torch.train.step import (
     _interp, _loss_views, _sample_k, make_loss_and_grad,
     make_meta_train_step, make_train_step, prepare_batch_for_model,
 )
+from mastermetastyletransfer_tpu_torch.utils import convert as tconvert
+from mastermetastyletransfer_tpu_torch.utils import convert_cli
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import (
-    flatten_params, tree_map,
+    flatten_params, load_params_npz, tree_map,
 )
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -3139,6 +3171,678 @@ def run_trainer(train: dict) -> dict:
     emit("trainer", **out)
     return out
 
+# ---------------------------------------------------------------------------
+# 9. the evaluation and weight entry points: the content x style grid, the
+#    adaptation command line, weight conversion, loss calibration
+# ---------------------------------------------------------------------------
+
+EVAL_SEED = TRAIN_SEED + 7
+# The JAX package's grid (goals.txt:34: the reference's 11 contents x 20
+# styles) at its command line's defaults, 256^2 and a style batch of 8, on
+# BMP files of COCO's and WikiArt's usual sizes.
+EVAL_CONTENTS, EVAL_STYLES, EVAL_SIZE, EVAL_STYLE_BATCH = 11, 20, 256, 8
+# (dtype, kernels, k) of each grid run; the kernels-off runs are the
+# references.
+EVAL_RUNS = (("float32", False, 1), ("float32", True, 1),
+             ("float32", False, 3), ("float32", True, 3),
+             ("bfloat16", False, 1), ("bfloat16", True, 1))
+TOL_EVAL_LOSS = 1e-4
+EVAL_LOSSES = ("total", "content", "style")
+ADAPT_CLI_STEPS, ADAPT_CLI_BATCH = 20, 4
+CONVERT_SEED = TRAIN_SEED + 8
+CONVERT_KINDS = ("swin", "vgg19", "style_transformer", "decoder",
+                 "seed_from_swin", "whole_model")
+
+
+def eval_per_grid(dtype: str, k: int, contents: int, styles: int) -> dict:
+    """Launches of one grid with the kernels on: a stream build per style
+    chunk (``locked_per_stream``: the chunk's Swin, then K2 and K3 k times)
+    and, per (content, chunk), the tiled content's Swin, the decoder half
+    and the decoder (``locked_per_batch``)."""
+    chunks = -(-styles // EVAL_STYLE_BATCH)
+    return table_sum([
+        {e: chunks * n for e, n in locked_per_stream(dtype, k).items()},
+        {e: chunks * contents * n
+         for e, n in locked_per_batch(dtype, k).items()}])
+
+
+def run_label(dtype: str, kernels: bool, k: int) -> str:
+    return f"{dtype}_{'on' if kernels else 'off'}_k{k}"
+
+
+@contextlib.contextmanager
+def recorded_grid(images: dict, stream_s: list):
+    """The harness with each pair's stylized image kept in ``images`` by
+    its file's stem instead of written, and each stream build's time, from
+    a synchronize before it to one after it, appended to ``stream_s``."""
+    save, encode = eval_harness._save_image, eval_harness.encode_style_stream
+
+    def keep(img01, path):
+        images[os.path.splitext(os.path.basename(path))[0]] = img01
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = encode(*args, **kwargs)
+        torch.cuda.synchronize()
+        stream_s.append(time.perf_counter() - t)
+        return out
+
+    eval_harness._save_image, eval_harness.encode_style_stream = keep, timed
+    try:
+        yield
+    finally:
+        eval_harness._save_image, eval_harness.encode_style_stream = (
+            save, encode)
+
+
+def eval_folders(root: str) -> dict:
+    """EVAL_CONTENTS content BMPs at 640x480 and EVAL_STYLES style BMPs at
+    1024x768 (smooth images from EVAL_SEED) under root."""
+    rng = np.random.default_rng(EVAL_SEED)
+    dirs = {}
+    for name, n, hw in (("content", EVAL_CONTENTS, TRAINER_CONTENT_HW),
+                        ("style", EVAL_STYLES, TRAINER_STYLE_HW)):
+        dirs[name] = os.path.join(root, name)
+        os.makedirs(dirs[name])
+        for i, img in enumerate(smooth_images(rng, n, hw)):
+            write_bmp(os.path.join(dirs[name], f"{name}{i:02d}.bmp"), img)
+    return dirs
+
+
+def grid_run(params, vgg, cfg: ExperimentConfig, k: int, grid: dict,
+             scratch: str) -> dict:
+    """``evaluate_grid`` on the grid's images at depth k: the report, each
+    pair's image, the launches counted from zero, the wall time (the
+    harness copies each call's output to the host, so the wall ends with
+    the card's work), the stream builds' time."""
+    images, stream_s = {}, []
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_grid(images, stream_s):
+        report = evaluate_grid(
+            params, vgg, cfg, content_images=grid["content"],
+            style_images=grid["style"], content_names=grid["cnames"],
+            style_names=grid["snames"], k=k, style_batch=EVAL_STYLE_BATCH,
+            save_images_to=scratch, device=DEVICE)
+    wall = time.perf_counter() - t0
+    calls = len(grid["cnames"]) * -(-len(grid["snames"]) // EVAL_STYLE_BATCH)
+    pairs = [(c, s) for c in grid["cnames"] for s in grid["snames"]]
+    if report.pairs != pairs:
+        raise AssertionError("the grid's pairs are not every content x "
+                             "style in order")
+    losses = np.array([getattr(report, n) for n in EVAL_LOSSES])
+    if not np.isfinite(losses).all():
+        raise AssertionError("a grid loss is not finite")
+    return dict(report=report, losses=losses, launches=all_launches(),
+                images=np.stack([images[f"{eval_harness._stem(c)}__"
+                                        f"{eval_harness._stem(s)}"]
+                                 for c, s in pairs]),
+                wall_s=wall, stream_builds_ms=[t * 1e3 for t in stream_s],
+                pairs_per_s=len(pairs) / wall,
+                ms_per_call=(wall - sum(stream_s)) / calls * 1e3,
+                calls=calls)
+
+
+def grid_equal(a: dict, b: dict) -> bool:
+    return bool(np.array_equal(a["losses"], b["losses"])
+                and np.array_equal(a["images"], b["images"]))
+
+
+def run_eval(root: str, smi: str) -> dict:
+    """The grid (``evaluate_grid``) at the JAX command line's shape: f32
+    with the kernels on and off at k = 1 and 3, bf16 on and off at k = 1
+    (each after an untimed grid of one content and one style chunk), each
+    run's launches exact against ``eval_per_grid`` (none with the
+    kernels off); f32 kernels on against off, each pair's losses within
+    TOL_EVAL_LOSS relative and the outputs by the slice's f32 criterion;
+    bf16 by the services' noise ratio against the f32 kernels-off outputs;
+    then ``eval.cli.main --use_pallas`` on the same folders, its launches
+    and its 220 PNG dumps."""
+    t0 = time.perf_counter()
+    dirs = eval_folders(os.path.join(root, "eval"))
+    content, cnames = load_eval_images(dirs["content"], EVAL_SIZE)
+    styles, snames = load_eval_images(dirs["style"], EVAL_SIZE)
+    grid = dict(content=content, style=styles, cnames=cnames, snames=snames)
+    gen = torch.Generator().manual_seed(EVAL_SEED)
+    params = init_master_model(ModelConfig(), gen, device=DEVICE)
+    vgg = init_vgg19_features(gen, device=DEVICE)
+    scratch = os.path.join(root, "eval_scratch")
+    # one content against one style chunk, untimed, ahead of each run:
+    # cuDNN's plans and the first launches
+    warm = dict(content=content[:1], style=styles[:EVAL_STYLE_BATCH],
+                cnames=cnames[:1], snames=snames[:EVAL_STYLE_BATCH])
+    runs, rows = {}, {}
+    for dtype, kernels, k in EVAL_RUNS:
+        label = run_label(dtype, kernels, k)
+        cfg = ExperimentConfig(model=slice_config(dtype, kernels))
+        grid_run(params, vgg, cfg, k, warm, scratch)
+        run = runs[label] = grid_run(params, vgg, cfg, k, grid, scratch)
+        want = (eval_per_grid(dtype, k, EVAL_CONTENTS, EVAL_STYLES)
+                if kernels else {e: 0 for e in run["launches"]})
+        if run["launches"] != want:
+            raise AssertionError(f"eval {label} launched {run['launches']}, "
+                                 f"expected {want}")
+        row = dict(dtype=dtype, kernels=kernels, k=k,
+                   pairs=len(run["report"].pairs), wall_s=run["wall_s"],
+                   pairs_per_s=run["pairs_per_s"], calls=run["calls"],
+                   ms_per_call=run["ms_per_call"],
+                   stream_builds_ms=run["stream_builds_ms"],
+                   summary=run["report"].summary(), launches=run["launches"],
+                   nvidia_smi=smi)
+        if kernels:
+            ref = runs[run_label("float32", False, k)]
+            if dtype == "float32":
+                rel = np.abs(run["losses"] - ref["losses"]) / np.abs(
+                    ref["losses"])
+                check = dict(loss_rel_max=float(rel.max()),
+                             loss_rel_tol=TOL_EVAL_LOSS,
+                             **f32_check(run["images"], ref["images"]))
+                check["ok"] = bool(check["ok"] and rel.max() <= TOL_EVAL_LOSS)
+            else:
+                plain = runs[run_label(dtype, False, k)]
+                check = bf16_noise_verdict(run["images"], plain["images"],
+                                           ref["images"])
+            row["check"] = check
+        emit("eval", **row)
+        if kernels:
+            require(f"eval {label}", row["check"])
+        rows[label] = row
+    del runs
+    out_dir = os.path.join(root, "eval_cli")
+    argv = ["--content_dir", dirs["content"], "--style_dir", dirs["style"],
+            "--image_size", str(EVAL_SIZE), "--use_pallas",
+            "--save_images_to", out_dir, "--device", DEVICE]
+    reset_launches()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = eval_cli.main(argv)
+    cli_wall = time.perf_counter() - t1
+    cli_launches = all_launches()
+    want = eval_per_grid("float32", 1, EVAL_CONTENTS, EVAL_STYLES)
+    if cli_launches != want or summary["num_pairs"] != (EVAL_CONTENTS
+                                                         * EVAL_STYLES):
+        raise AssertionError(f"eval.cli launched {cli_launches} for "
+                             f"{summary['num_pairs']} pairs, expected {want}")
+    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    if len(pngs) != EVAL_CONTENTS * EVAL_STYLES:
+        raise AssertionError(f"eval.cli wrote {len(pngs)} PNGs")
+    for name in pngs:
+        shape = read_png(os.path.join(out_dir, name)).shape
+        if shape != (EVAL_SIZE, EVAL_SIZE, 3):
+            raise AssertionError(f"{name}: shape {shape}")
+    cli = dict(wall_s=cli_wall, pairs_per_s=summary["num_pairs"] / cli_wall,
+               pngs=len(pngs), summary=summary, launches=cli_launches)
+    emit("eval_cli", **cli, nvidia_smi=smi)
+    launches = {label: row["launches"] for label, row in rows.items()
+                if row["kernels"]}
+    launches["cli"] = cli_launches
+    return dict(dirs=dirs, launches=launches, rows=rows, cli=cli,
+                wall_s=time.perf_counter() - t0)
+
+
+class AdaptRecorder:
+    """``adapt.make_train_step`` wrapped: the kernel counts before and
+    after each step, and each step's k."""
+
+    def __init__(self):
+        self.before, self.after, self.ks = [], [], []
+
+    @contextlib.contextmanager
+    def patched(self):
+        make = adapt_cli.make_train_step
+
+        def maker(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def run(*step_args):
+                self.before.append(all_launches())
+                state, m = step(*step_args)
+                self.after.append(all_launches())
+                self.ks.append(m["k"])
+                return state, m
+            return run
+
+        adapt_cli.make_train_step = maker
+        try:
+            yield self
+        finally:
+            adapt_cli.make_train_step = make
+
+
+def run_adapt_cli(root: str, dirs: dict, smi: str) -> dict:
+    """``adapt.main --use_pallas`` with the JAX command line's defaults (20
+    steps of batch 4 at 256^2, k = 1 for the stylized outputs) on the eval
+    phase's first style and its contents, under deterministic algorithms:
+    each step's launches ``adapt_per_step`` of its k, then one f32
+    ``master_apply`` per content (``PER_BATCH``); ``adapted.npz`` equal bit
+    for bit to ``adapt_to_style`` called directly on the same decoded
+    images and weights; one 256x256x3 PNG per content."""
+    style = os.path.join(dirs["style"], sorted(os.listdir(dirs["style"]))[0])
+    out_dir = os.path.join(root, "adapted")
+    argv = ["--style", style, "--content_dir", dirs["content"],
+            "--out_dir", out_dir, "--steps", str(ADAPT_CLI_STEPS),
+            "--batch", str(ADAPT_CLI_BATCH), "--image_size", str(EVAL_SIZE),
+            "--use_pallas", "--device", DEVICE]
+    rec = AdaptRecorder()
+    with deterministic_algorithms() as caught, rec.patched(), \
+            contextlib.redirect_stdout(io.StringIO()):
+        reset_launches()
+        t0 = time.perf_counter()
+        adapt_cli.main(argv)
+        wall = time.perf_counter() - t0
+        end = all_launches()
+    for i, (a, b, k) in enumerate(zip(rec.before, rec.after, rec.ks)):
+        per = {e: b[e] - a[e] for e in a}
+        if per != adapt_per_step(k):
+            raise AssertionError(f"adapt.main step {i} (k={k}) launched "
+                                 f"{per}, expected {adapt_per_step(k)}")
+    stylize = {e: end[e] - rec.after[-1][e] for e in end}
+    n = len(os.listdir(dirs["content"]))
+    expect_launches("adapt.main's stylize calls", stylize,
+                    PER_BATCH["float32"], n)
+    if len(rec.ks) != ADAPT_CLI_STEPS:
+        raise AssertionError(f"adapt.main ran {len(rec.ks)} steps")
+
+    cfg = ExperimentConfig()
+    cfg = cfg.replace(model=cfg.model.with_kernels())
+    params = init_master_model(
+        cfg.model, torch.Generator().manual_seed(adapt_cli.WEIGHTS_SEED),
+        device=DEVICE)
+    vgg = trainer.load_vgg_params(None, DEVICE)
+    files = list_images(dirs["content"])
+    contents = np.stack([_decode_resize(f, EVAL_SIZE).astype(np.float32)
+                         / 255.0 for f in files])
+    style_img = _decode_resize(style, EVAL_SIZE).astype(np.float32) / 255.0
+    with deterministic_algorithms():
+        direct = flatten_params(adapt_to_style(
+            params, vgg, cfg, style_img, contents, steps=ADAPT_CLI_STEPS,
+            lr=1e-4, batch=ADAPT_CLI_BATCH, seed=0, log=lambda s: None,
+            device=DEVICE))
+    with np.load(os.path.join(out_dir, "adapted.npz")) as data:
+        diff = [key for key, t in direct.items()
+                if not np.array_equal(data[key], t.cpu().numpy())]
+        if diff or set(data.files) != set(direct):
+            raise AssertionError(f"adapted.npz differs from adapt_to_style "
+                                 f"in {diff[:4]}")
+    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    if len(pngs) != n or any(read_png(os.path.join(out_dir, p)).shape != (
+            EVAL_SIZE, EVAL_SIZE, 3) for p in pngs):
+        raise AssertionError(f"adapt.main wrote {pngs}")
+    out = dict(steps=ADAPT_CLI_STEPS, batch=ADAPT_CLI_BATCH, size=EVAL_SIZE,
+               dtype="float32", contents=n, ks=rec.ks, wall_s=wall,
+               step_launches=table_sum(
+                   {e: b[e] - a[e] for e in a}
+                   for a, b in zip(rec.before, rec.after)),
+               stylize_launches=stylize, launches=end,
+               adapted_equal_direct=True, pngs=len(pngs),
+               nondeterministic_ops=sorted({str(w.message)[:80]
+                                            for w in caught}),
+               nvidia_smi=smi)
+    emit("adapt_cli", **out)
+    return out
+
+
+def randn(gen, *shape, std=0.02) -> torch.Tensor:
+    return torch.randn(shape, generator=gen) * std
+
+
+def linear_sd(gen, prefix: str, n_out: int, n_in: int) -> dict:
+    return {f"{prefix}.weight": randn(gen, n_out, n_in),
+            f"{prefix}.bias": randn(gen, n_out)}
+
+
+def norm_sd(gen, prefix: str, n: int) -> dict:
+    return {f"{prefix}.weight": 1 + randn(gen, n),
+            f"{prefix}.bias": randn(gen, n)}
+
+
+def mlp_sd(gen, prefix: str, d: int) -> dict:
+    return {**linear_sd(gen, f"{prefix}.0", 4 * d, d),
+            **linear_sd(gen, f"{prefix}.3", d, 4 * d)}
+
+
+def conv_sd(gen, prefix: str, c_out: int, c_in: int, k: int = 3) -> dict:
+    return {f"{prefix}.weight": randn(gen, c_out, c_in, k, k,
+                                      std=(2.0 / (c_in * k * k)) ** 0.5),
+            f"{prefix}.bias": randn(gen, c_out)}
+
+
+def swin_state_dict(gen, cfg) -> dict:
+    """torchvision's swin features[:4] at ``cfg``'s widths: "0.0" the patch
+    conv, "0.2" its norm, "1.{b}" and "3.{b}" the blocks (fused qkv), "2"
+    PatchMerging."""
+    e = cfg.embed_dim
+    wh, ww = cfg.window_size
+    sd = {**conv_sd(gen, "0.0", e, 3, 4), **norm_sd(gen, "0.2", e),
+          **norm_sd(gen, "2.norm", 4 * e),
+          "2.reduction.weight": randn(gen, 2 * e, 4 * e)}
+    for seq, stage in (("1", 0), ("3", 1)):
+        d, heads = e * 2 ** stage, cfg.num_heads[stage]
+        for b in range(cfg.depths[stage]):
+            p = f"{seq}.{b}"
+            sd.update({**norm_sd(gen, f"{p}.norm1", d),
+                       **linear_sd(gen, f"{p}.attn.qkv", 3 * d, d),
+                       **linear_sd(gen, f"{p}.attn.proj", d, d),
+                       f"{p}.attn.relative_position_bias_table": randn(
+                           gen, (2 * wh - 1) * (2 * ww - 1), heads),
+                       f"{p}.attn.relative_position_index": torch.zeros(
+                           wh * ww * wh * ww, dtype=torch.int64),
+                       **norm_sd(gen, f"{p}.norm2", d),
+                       **mlp_sd(gen, f"{p}.mlp", d)})
+    return sd
+
+
+def style_transformer_state_dict(gen, d: int = ST_C,
+                                 heads: int = ST_HEADS) -> dict:
+    """The reference's StyleTransformer state dict, default form (dual-MHA
+    tail, decoder self block with both norms and its MLP)."""
+    sd = {}
+
+    def attn(prefix, names=("Wq", "Wk", "Wv")):
+        for name in names + ("proj",):
+            sd.update(linear_sd(gen, f"{prefix}.{name}", d, d))
+        sd[f"{prefix}.relative_position_bias_table"] = randn(gen, 169, heads)
+
+    attn("encoder.shared_MHA_without_MLP.attn")
+    for name in ("Key", "Scale", "Shift"):
+        sd.update(mlp_sd(gen, f"encoder.encoder_MLP_{name}", d))
+    attn("decoder.MHA_self_attn.attn")
+    sd.update({**norm_sd(gen, "decoder.MHA_self_attn.norm1", d),
+               **norm_sd(gen, "decoder.MHA_self_attn.norm2", d),
+               **mlp_sd(gen, "decoder.MHA_self_attn.mlp", d)})
+    attn("decoder.decoder_MHA_for_sigma_and_mu", ("Wk", "Wv_scale",
+                                                  "Wv_shift"))
+    sd.update(mlp_sd(gen, "decoder.last_MLP", d))
+    return sd
+
+
+DECODER_CONV_IDX = (0, 3, 5, 7, 9, 12, 14, 17, 19)
+VGG19_CONVS = ((3, 64), (64, 64), (64, 128), (128, 128), (128, 256),
+               (256, 256), (256, 256), (256, 256), (256, 512), (512, 512),
+               (512, 512), (512, 512), (512, 512))
+
+
+def decoder_state_dict(gen, c: int = ST_C) -> dict:
+    """The reference's Decoder state dict: nine convs in a Sequential."""
+    sd = {}
+    for i, (ci, co, _) in zip(DECODER_CONV_IDX, _channel_plan(c)):
+        sd.update(conv_sd(gen, f"decoder.{i}", co, ci))
+    return sd
+
+
+def vgg19_state_dict(gen, bn: bool) -> dict:
+    """vgg19(_bn).features as torchvision initializes it (kaiming-normal
+    convs, zero biases; batch norm weight 1, bias 0, mean 0, var 1)."""
+    idxs = (tconvert._VGG19_BN_CONV_IDX if bn else tconvert._VGG19_CONV_IDX)
+    sd = {}
+    for i, (ci, co) in zip(idxs, VGG19_CONVS):
+        sd[f"features.{i}.weight"] = randn(gen, co, ci, 3, 3,
+                                           std=(2.0 / (co * 9)) ** 0.5)
+        sd[f"features.{i}.bias"] = torch.zeros(co)
+        if bn:
+            sd.update({f"features.{i + 1}.weight": torch.ones(co),
+                       f"features.{i + 1}.bias": torch.zeros(co),
+                       f"features.{i + 1}.running_mean": torch.zeros(co),
+                       f"features.{i + 1}.running_var": torch.ones(co),
+                       f"features.{i + 1}.num_batches_tracked":
+                           torch.tensor(0)})
+    return sd
+
+
+def reference_state_dicts(gen) -> dict:
+    """The state dicts of each conversion at full width (swin_B, the style
+    transformer 256 wide with 8 heads, the decoder at 256 channels), by
+    command-line kind; ``whole_model`` is the three under
+    codes/full_model.py's attribute names."""
+    swin = swin_state_dict(gen, ModelConfig().swin)
+    st, dec = style_transformer_state_dict(gen), decoder_state_dict(gen)
+    return {"swin": swin, "vgg19": vgg19_state_dict(gen, False),
+            "style_transformer": st, "decoder": dec, "seed_from_swin": swin,
+            "whole_model": {
+                **{f"swin_encoder.{k}": v for k, v in swin.items()},
+                **{f"style_transformer.{k}": v for k, v in st.items()},
+                **{f"decoder.{k}": v for k, v in dec.items()}}}
+
+
+def expected_leaves(kind: str, sd: dict) -> dict:
+    """The flat .npz a conversion must write, from the state dict (numpy)
+    by the layout rules: a Linear weight transposed, a conv weight to HWIO,
+    a fused qkv split into thirds, norms' weight to scale, and, for
+    seed_from_swin, the stage-2 block "3.1" copied into every attention
+    and MLP of the style transformer (its dual attention's values both
+    from v)."""
+    def lin(prefix, out_key):
+        out = {f"{out_key}/kernel": sd[f"{prefix}.weight"].T}
+        if f"{prefix}.bias" in sd:
+            out[f"{out_key}/bias"] = sd[f"{prefix}.bias"]
+        return out
+
+    def norm(prefix, out_key):
+        return {f"{out_key}/scale": sd[f"{prefix}.weight"],
+                f"{out_key}/bias": sd[f"{prefix}.bias"]}
+
+    def conv(prefix, out_key):
+        return {f"{out_key}/kernel": sd[f"{prefix}.weight"].transpose(
+            2, 3, 1, 0), f"{out_key}/bias": sd[f"{prefix}.bias"]}
+
+    def qkv(prefix, out_key, names=("wq", "wk", "wv")):
+        w, b = sd[f"{prefix}.weight"], sd[f"{prefix}.bias"]
+        c = w.shape[0] // 3
+        out = {}
+        for name in names:
+            i = {"wq": 0, "wk": 1, "wv": 2, "wv_scale": 2, "wv_shift": 2}[name]
+            out[f"{out_key}/{name}/kernel"] = w[i * c:(i + 1) * c].T
+            out[f"{out_key}/{name}/bias"] = b[i * c:(i + 1) * c]
+        return out
+
+    def mlp(prefix, out_key, fc=(".0", ".3")):
+        return {**lin(prefix + fc[0], f"{out_key}/fc1"),
+                **lin(prefix + fc[1], f"{out_key}/fc2")}
+
+    def swin(pre=""):
+        out = {**conv(f"{pre}0.0", "patch_embed/conv"),
+               **norm(f"{pre}0.2", "patch_embed/norm"),
+               **norm(f"{pre}2.norm", "patch_merge/norm"),
+               "patch_merge/reduction/kernel":
+                   sd[f"{pre}2.reduction.weight"].T}
+        for seq, stage in (("1", 0), ("3", 1)):
+            for b in range(2):
+                p, o = f"{pre}{seq}.{b}", f"stage{stage}_block{b}"
+                out.update({**qkv(f"{p}.attn.qkv", f"{o}/attn"),
+                            **lin(f"{p}.attn.proj", f"{o}/attn/proj"),
+                            f"{o}/attn/rel_bias_table": sd[
+                                f"{p}.attn.relative_position_bias_table"],
+                            **norm(f"{p}.norm1", f"{o}/norm1"),
+                            **norm(f"{p}.norm2", f"{o}/norm2"),
+                            **mlp(f"{p}.mlp", f"{o}/mlp")})
+        return out
+
+    def attn(prefix, out_key, names=("wq", "wk", "wv")):
+        out = {**lin(f"{prefix}.proj", f"{out_key}/proj"),
+               f"{out_key}/rel_bias_table": sd[
+                   f"{prefix}.relative_position_bias_table"]}
+        for name in names:
+            torch_name = {"wq": "Wq", "wk": "Wk", "wv": "Wv",
+                          "wv_scale": "Wv_scale",
+                          "wv_shift": "Wv_shift"}[name]
+            out.update(lin(f"{prefix}.{torch_name}", f"{out_key}/{name}"))
+        return out
+
+    def style_transformer(pre=""):
+        e, d = f"{pre}encoder.", f"{pre}decoder."
+        out = {**attn(f"{e}shared_MHA_without_MLP.attn",
+                      "encoder/shared_mha/attn"),
+               **attn(f"{d}MHA_self_attn.attn", "decoder/self_mha/attn"),
+               **norm(f"{d}MHA_self_attn.norm1", "decoder/self_mha/norm1"),
+               **norm(f"{d}MHA_self_attn.norm2", "decoder/self_mha/norm2"),
+               **mlp(f"{d}MHA_self_attn.mlp", "decoder/self_mha/mlp"),
+               **attn(f"{d}decoder_MHA_for_sigma_and_mu", "decoder/dual_mha",
+                      ("wk", "wv_scale", "wv_shift")),
+               **mlp(f"{d}last_MLP", "decoder/last_mlp")}
+        for name in ("key", "scale", "shift"):
+            out.update(mlp(f"{e}encoder_MLP_{name.title()}",
+                           f"encoder/mlp_{name}"))
+        return out
+
+    def decoder(pre=""):
+        return {k: v for n, i in enumerate(DECODER_CONV_IDX)
+                for k, v in conv(f"{pre}decoder.{i}", f"conv{n}").items()}
+
+    if kind == "swin":
+        return swin()
+    if kind == "vgg19":
+        return {k: v for n, i in enumerate(tconvert._VGG19_CONV_IDX)
+                for k, v in conv(f"features.{i}", f"conv{n}").items()}
+    if kind == "style_transformer":
+        return style_transformer()
+    if kind == "decoder":
+        return decoder()
+    if kind == "whole_model":
+        return {**{f"swin/{k}": v for k, v in swin("swin_encoder.").items()},
+                **{f"style_transformer/{k}": v for k, v in
+                   style_transformer("style_transformer.").items()},
+                **{f"decoder/{k}": v for k, v in decoder("decoder.").items()}}
+    # seed_from_swin: the stage-2 block 3.1 everywhere
+    blk = "3.1"
+    out = {}
+    for o in ("encoder/shared_mha/attn", "decoder/self_mha/attn"):
+        out.update({**qkv(f"{blk}.attn.qkv", o),
+                    **lin(f"{blk}.attn.proj", f"{o}/proj"),
+                    f"{o}/rel_bias_table": sd[
+                        f"{blk}.attn.relative_position_bias_table"]})
+    out.update({**qkv(f"{blk}.attn.qkv", "decoder/dual_mha",
+                      ("wk", "wv_scale", "wv_shift")),
+                **lin(f"{blk}.attn.proj", "decoder/dual_mha/proj"),
+                "decoder/dual_mha/rel_bias_table": sd[
+                    f"{blk}.attn.relative_position_bias_table"],
+                **norm(f"{blk}.norm1", "decoder/self_mha/norm1"),
+                **norm(f"{blk}.norm2", "decoder/self_mha/norm2")})
+    for o in ("encoder/mlp_key", "encoder/mlp_scale", "encoder/mlp_shift",
+              "decoder/self_mha/mlp", "decoder/last_mlp"):
+        out.update(mlp(f"{blk}.mlp", o))
+    return out
+
+
+def run_convert(root: str, grid_dirs: dict, smi: str) -> dict:
+    """Each ``convert_cli`` kind on full-width state dicts written with
+    ``torch.save``: its .npz holds exactly ``expected_leaves``, bit for
+    bit; then the grid (f32, kernels on, k=1, deterministic algorithms)
+    from the converted whole model read back from its .npz equals, bit for
+    bit, the grid from the same conversion passed in memory."""
+    t0 = time.perf_counter()
+    sds = reference_state_dicts(torch.Generator().manual_seed(CONVERT_SEED))
+    files = {}
+    for kind in CONVERT_KINDS:
+        pt = os.path.join(root, f"{kind}.pt")
+        npz = files[kind] = os.path.join(root, f"{kind}.npz")
+        torch.save(sds[kind], pt)
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert_cli.main([kind, "--input", pt, "--output", npz])
+        want = expected_leaves(kind, {k: v.numpy() for k, v in
+                                      sds[kind].items()})
+        with np.load(npz) as data:
+            bad = [k for k in want if k not in data.files
+                   or data[k].dtype != np.float32
+                   or not np.array_equal(data[k], want[k])]
+            if bad or set(data.files) != set(want):
+                raise AssertionError(
+                    f"convert_cli {kind}: leaves {bad[:4]} differ, or keys "
+                    f"{sorted(set(data.files) ^ set(want))[:4]}")
+    cfg = ExperimentConfig(model=slice_config("float32", True))
+    template = init_master_model(
+        cfg.model, torch.Generator().manual_seed(convert_cli.TEMPLATE_SEED),
+        device=DEVICE)
+    from_file = load_params_npz(files["whole_model"], template)
+    in_memory = tconvert.convert_whole_model(
+        {k: v.numpy() for k, v in sds["whole_model"].items()}, template,
+        cfg.model, device=DEVICE)
+    content, cnames = load_eval_images(grid_dirs["content"], EVAL_SIZE)
+    styles, snames = load_eval_images(grid_dirs["style"], EVAL_SIZE)
+    grid = dict(content=content, style=styles, cnames=cnames, snames=snames)
+    vgg = trainer.load_vgg_params(files["vgg19"], DEVICE)
+    scratch = os.path.join(root, "convert_scratch")
+    with deterministic_algorithms():
+        runs = [grid_run(p, vgg, cfg, 1, grid, scratch)
+                for p in (from_file, in_memory)]
+    for run in runs:
+        want = eval_per_grid("float32", 1, EVAL_CONTENTS, EVAL_STYLES)
+        if run["launches"] != want:
+            raise AssertionError(f"convert grid launched {run['launches']}")
+    if not grid_equal(*runs):
+        raise AssertionError("the grid from the converted .npz differs from "
+                             "the grid from the conversion in memory")
+    out = dict(kinds=list(CONVERT_KINDS),
+               leaves={kind: len(expected_leaves(kind, {
+                   k: v.numpy() for k, v in sds[kind].items()}))
+                   for kind in CONVERT_KINDS},
+               grid_bit_equal=True, grid_summary=runs[0]["report"].summary(),
+               grid_pairs_per_s=runs[0]["pairs_per_s"],
+               launches=table_sum(r["launches"] for r in runs),
+               wall_s=time.perf_counter() - t0, nvidia_smi=smi)
+    emit("convert", **out)
+    return out
+
+
+def run_calibrate(root: str, smi: str) -> dict:
+    """``calibrate.main`` on one BMP triplet (smooth images from a seed)
+    with plain and BN VGG19 .pt files as torchvision initializes them: the
+    card's rows within TOL_EVAL_LOSS relative of the same command on the
+    CPU, key for key and in order (TF32 in the card's float32 convs would
+    show here)."""
+    rng = np.random.default_rng(CONVERT_SEED + 1)
+    paths = []
+    for i, img in enumerate(smooth_images(rng, 3, TRAINER_CONTENT_HW)):
+        paths.append(os.path.join(root, f"triplet{i}.bmp"))
+        write_bmp(paths[-1], img)
+    gen = torch.Generator().manual_seed(CONVERT_SEED + 2)
+    vggs = []
+    for bn in (False, True):
+        vggs.append(os.path.join(root, f"vgg19{'_bn' if bn else ''}.pt"))
+        torch.save(vgg19_state_dict(gen, bn), vggs[-1])
+    argv = ["--content", paths[0], "--style", paths[1], "--output",
+            paths[2], "--vgg_weights", vggs[0], "--vgg_bn_weights", vggs[1],
+            "--compute_similarity"]
+    rows, wall = {}, {}
+    for device in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rows[device] = calibrate.main(argv + ["--device", device])
+        wall[device] = time.perf_counter() - t0
+    worst = 0.0
+    for g, w in zip(rows[DEVICE], rows["cpu"]):
+        if list(g) != list(w) or any(g[k] != w[k] for k in (
+                "vgg", "distance", "imagenet_norm", "triplet")):
+            raise AssertionError(f"calibrate rows differ: {g} / {w}")
+        for key in ("content", "style", "total", "similarity"):
+            worst = max(worst, abs(g[key] - w[key]) / abs(w[key]))
+    out = dict(rows=len(rows[DEVICE]), rel_max_vs_cpu=worst,
+               tol=TOL_EVAL_LOSS, wall_s=wall[DEVICE], cpu_wall_s=wall["cpu"],
+               tf32_cudnn_default=torch.backends.cudnn.allow_tf32,
+               nvidia_smi=smi)
+    emit("calibrate", **out)
+    if len(rows[DEVICE]) != len(rows["cpu"]) or len(rows[DEVICE]) != 8 \
+            or worst > TOL_EVAL_LOSS:
+        raise AssertionError(f"calibrate on the card against the CPU: {out}")
+    return out
+
+
+def run_entry_points(smi: str) -> dict:
+    """The evaluation and weight entry points, after every phase, with
+    draws of their own."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        ev = run_eval(root, smi)
+        adapt = run_adapt_cli(root, ev["dirs"], smi)
+        convert = run_convert(root, ev["dirs"], smi)
+        cal = run_calibrate(root, smi)
+    emit("entry_points", wall_s=time.perf_counter() - t0,
+         eval_wall_s=ev["wall_s"], adapt_cli_wall_s=adapt["wall_s"],
+         convert_wall_s=convert["wall_s"], calibrate_wall_s=cal["wall_s"])
+    return dict(eval=ev["launches"], adapt_cli=adapt["launches"],
+                convert=convert["launches"])
+
 
 def main(argv=None) -> int:
     only = (argv if argv is not None else sys.argv[1:])
@@ -3220,6 +3924,9 @@ def main(argv=None) -> int:
     # The training entry point on image folders, after every phase, with
     # draws of its own.
     trained = run_trainer(train)
+    # The evaluation and weight entry points, after every phase, with
+    # draws of their own.
+    entry_points = run_entry_points(smi)
 
     def summary(entry, source, replaces, mine, count, origin, per,
                 library=True):
@@ -3355,6 +4062,13 @@ def main(argv=None) -> int:
         # The trainer phase's four runs (plain 6, resumed 3, meta 2, fast
         # adaptation 3 iterations), each counted from zero.
         k["trainer_launches"] = trained["launches"][k["name"]]
+        # The eval phase's kernels-on grids and its command line's, and
+        # the adaptation command line's run (20 steps, 11 stylize calls),
+        # each counted from zero.
+        k["eval_launches"] = {
+            run: counts[k["name"]]
+            for run, counts in entry_points["eval"].items()}
+        k["adapt_cli_launches"] = entry_points["adapt_cli"][k["name"]]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

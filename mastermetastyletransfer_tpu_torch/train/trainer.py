@@ -30,9 +30,7 @@ import argparse
 import contextlib
 import json
 import os
-import struct
 import time
-import zlib
 from typing import Optional, Union
 
 import numpy as np
@@ -54,15 +52,19 @@ from mastermetastyletransfer_tpu_torch.train.step import (
     make_meta_train_step, make_train_step,
 )
 from mastermetastyletransfer_tpu_torch.utils import checkpoint as ckpt_lib
+from mastermetastyletransfer_tpu_torch.utils.device import require_device
+from mastermetastyletransfer_tpu_torch.utils.png import save_png
 
 VGG_SEED = 1
 
 
 def load_vgg_params(path: Optional[str],
-                    device: Union[str, torch.device] = "cuda") -> dict:
+                    device: Union[str, torch.device] = "cuda",
+                    use_batchnorm: bool = False) -> dict:
     """VGG19 loss weights on ``device``: a flat .npz export, a torchvision
-    .pt state dict, or, without a path, a random draw from seed 1 (right in
-    shape; only for smoke runs)."""
+    .pt state dict (of vgg19_bn with ``use_batchnorm``, batch norm folded
+    into the convs), or, without a path, a random draw from seed 1 (right
+    in shape; only for smoke runs)."""
     template = init_vgg19_features(torch.Generator().manual_seed(VGG_SEED),
                                    device=device)
     if path is None:
@@ -72,7 +74,8 @@ def load_vgg_params(path: Optional[str],
     from mastermetastyletransfer_tpu_torch.utils.convert import (
         convert_vgg19, load_torch_state_dict,
     )
-    return convert_vgg19(load_torch_state_dict(path), device=device)
+    return convert_vgg19(load_torch_state_dict(path),
+                         use_batchnorm=use_batchnorm, device=device)
 
 
 class MetricsLogger:
@@ -119,30 +122,6 @@ class MetricsLogger:
             self.wandb.finish()
 
 
-def _png_bytes(rgb: np.ndarray) -> bytes:
-    """An 8-bit RGB PNG of uint8 (H, W, 3): filter 0 on every row, one
-    IDAT, zlib's default compression."""
-    h, w, _ = rgb.shape
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           np.ascontiguousarray(rgb).reshape(h, w * 3)], 1)
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
-            + chunk(b"IEND", b""))
-
-
-def _dump_image(path: str, img01: np.ndarray):
-    """A float RGB image in [0, 1] as an 8-bit PNG (values scaled by 255,
-    clipped, truncated, as the JAX package writes them through PIL)."""
-    with open(path, "wb") as f:
-        f.write(_png_bytes(np.clip(img01 * 255, 0, 255).astype(np.uint8)))
-
-
 def _resolve_exp_dir(exp_dir: str, resume: bool) -> str:
     """Collision renaming (reference train.py:137-150): a fresh run never
     reuses an existing experiment dir, it appends _2, _3, ... until one is
@@ -185,10 +164,7 @@ def train(cfg: ExperimentConfig, *, exp_dir: str = "experiments/run",
             "matmul_precision='high' cannot combine with use_pallas (the "
             "JAX package's kernels reject it); use 'highest' or disable "
             "the kernels")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device cuda asked for, and torch sees no CUDA "
-                           "device (pass --device cpu to run on the CPU)")
+    device = require_device(device)
     exp_dir = _resolve_exp_dir(exp_dir, resume)
     os.makedirs(exp_dir, exist_ok=True)
     with open(os.path.join(exp_dir, "config.json"), "w") as f:
@@ -259,8 +235,8 @@ def train(cfg: ExperimentConfig, *, exp_dir: str = "experiments/run",
                     out = master_apply(state.params, c1[None], style[:1],
                                        cfg.model, k=1, deterministic=True)
                 out_np = out[0].float().cpu().numpy()
-                _dump_image(os.path.join(exp_dir, f"stylized_{it + 1}.png"),
-                            out_np)
+                save_png(os.path.join(exp_dir, f"stylized_{it + 1}.png"),
+                         out_np)
                 logger.log_images(it + 1, {
                     "content": c1.cpu().numpy(),
                     "style": style[0].cpu().numpy(), "stylized": out_np})

@@ -56,8 +56,9 @@ def test_every_port_module_imports_without_jax_or_pil():
     (ops/window_block.py, ops/block_pair.py, ops/style_block.py,
     ops/phase_conv.py, ops/patch_embed.py, ops/window_attention.py,
     ops/ln_mlp.py), the losses, the training steps, fast adaptation, the
-    data pipeline and its native loader, the trainer and the VGG19
-    conversion included."""
+    data pipeline and its native loader, the trainer, the eval grid and its
+    command line, the adaptation, conversion and calibration command lines
+    and the PNG writer included."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in (ROOT / "mastermetastyletransfer_tpu_torch").rglob("*.py")
@@ -67,7 +68,9 @@ def test_every_port_module_imports_without_jax_or_pil():
                  "ops.ln_mlp", "losses.vgg", "losses.loss",
                  "train.schedule", "train.state", "train.step", "adapt",
                  "data.pipeline", "data.native_loader", "train.trainer",
-                 "utils.convert"):
+                 "utils.convert", "eval.harness", "eval.cli",
+                 "utils.convert_cli", "losses.calibrate", "utils.png",
+                 "utils.device"):
         assert f"mastermetastyletransfer_tpu_torch.{name}" in modules, name
     probe = _PROBE.replace(
         "import chip_smoke\n",

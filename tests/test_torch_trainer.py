@@ -38,6 +38,7 @@ from mastermetastyletransfer_tpu_torch.train import trainer
 from mastermetastyletransfer_tpu_torch.utils import checkpoint as tckpt
 from mastermetastyletransfer_tpu_torch.utils import convert as tconvert
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import flatten_params
+from mastermetastyletransfer_tpu_torch.utils.png import png_bytes, save_png
 from tests.torch_threads import two_torch_threads  # noqa: F401
 
 SIZE, STAGE, BATCH, MAX_K = 64, 80, 2, 2
@@ -460,12 +461,37 @@ def test_load_vgg_params_npz_and_default(tmp_path):
 def test_dump_image_matches_jax(tmp_path):
     img = np.random.default_rng(3).uniform(-0.2, 1.2, (33, 47, 3)).astype(
         np.float32)
-    trainer._dump_image(str(tmp_path / "port.png"), img)
+    save_png(str(tmp_path / "port.png"), img)
     _jax_trainer()._dump_image(str(tmp_path / "jax.png"), img)
     with Image.open(tmp_path / "port.png") as a, \
             Image.open(tmp_path / "jax.png") as b:
         assert a.mode == b.mode == "RGB" and a.size == (47, 33)
         assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+# The writer's bytes as the trainer wrote its dumps before the writer moved
+# to utils/png.py: a 3x2 image, and the sha256 of the dump of the float
+# image of test_dump_image_matches_jax.
+PNG_3X2 = bytes.fromhex(
+    "89504e470d0a1a0a0000000d49484452000000030000000208020000001216f14d0000"
+    "001c49444154789c6360e095523771f48bce60286dea9fb372dbe10b7701331d07c63d"
+    "5e59a10000000049454e44ae426082")
+DUMP_SHA256 = ("7a2bf417b39b747db643ed7869abd5e2"
+               "89e72c245772b3aea4e1cd541f7e4d82")
+
+
+def test_dump_bytes_are_pinned(tmp_path):
+    """The PNG writer's bytes; the trainer dumps through that writer."""
+    import hashlib
+
+    img = (np.arange(18, dtype=np.uint8) * 13).reshape(2, 3, 3)
+    assert png_bytes(img) == PNG_3X2
+    assert trainer.save_png is save_png
+    f32 = np.random.default_rng(3).uniform(-0.2, 1.2, (33, 47, 3)).astype(
+        np.float32)
+    save_png(str(tmp_path / "dump.png"), f32)
+    digest = hashlib.sha256((tmp_path / "dump.png").read_bytes()).hexdigest()
+    assert digest == DUMP_SHA256
 
 
 @pytest.mark.parametrize("existing,resume", [
