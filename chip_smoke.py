@@ -128,7 +128,7 @@ per (content, chunk); f32 on against off, each pair's losses within
 TOL_EVAL_LOSS relative and the outputs by the slice's f32 criterion; bf16
 by the noise ratio against the f32 kernels-off outputs; pairs/s and ms
 per batched call), eval_cli (``eval.cli.main --use_pallas``: its launches,
-its 220 PNG dumps 256x256x3), adapt_cli (``adapt.main --use_pallas``, 20
+its 220 JPEG dumps 256x256x3), adapt_cli (``adapt.main --use_pallas``, 20
 steps of batch 4 at 256^2 under deterministic algorithms: each step's
 launches ``adapt_per_step``, the stylize calls ``PER_BATCH``,
 ``adapted.npz`` equal bit for bit to ``adapt_to_style`` called directly),
@@ -139,7 +139,28 @@ same conversion in memory) and calibrate (``calibrate.main`` on a BMP
 triplet with plain and BN VGG19 .pt files: the card's rows within
 TOL_EVAL_LOSS relative of the CPU's, which TF32 would break); every
 kernel of the kernels line carries ``eval_launches`` and
-``adapt_cli_launches``.
+``adapt_cli_launches``. Last, the serving routes, with draws of their
+own: codecs (the port's JPEG decoder on the seven fixtures of
+tests/data/jpeg/ against Pillow's pixels stored beside them, within 1 level
+and equal in 99% of the samples; a seeded 512^2 image encoded at quality
+95 and decoded: the host's ms each way and the PSNR), split_route
+(``style_transformer_apply_windowed`` with ``fuse_iteration`` False, True
+and the kernels-off route at serving's shape, 512^2 batch 8 + 8, bf16
+and f32, and at the eval grid's, 256^2 batch 8, f32, k = 1 and 3: the
+card's ms per route, each call's launches exactly ``split_per_call``, f32
+within the slice's MAE of the f32 kernels-off route, bf16 by the noise
+ratio; the locked split route's stream build and batch, bf16),
+exclude_mlp (``master_apply`` with an exclude-MLP decoder at 512^2, k=1,
+batch 8, bf16 and f32, kernels on against the reference by the slice's
+criteria, launches exactly ``exclude_per_batch``; its split route at
+f32), http (serve's services behind ``make_handler`` on a
+``ThreadingHTTPServer`` at 127.0.0.1: 16 /stylize requests at k 1 and 3
+from 4 clients, 4 /stylize_locked, 2 /sweep, /healthz, two bad bodies
+answered 400; each run's launches exact; each reply the encoder's bytes on
+its own service's output on the same decoded inputs, and decoded by the
+port's decoder within TOL_JPEG95_MEAN levels of it; p50, max, imgs/s, the
+codecs' ms a request); every kernel of the kernels line carries
+``split_launches``, ``exclude_mlp_launches`` and ``http_launches``.
 
 Needs only torch, numpy and the standard library, and one CUDA card.
 
@@ -209,10 +230,10 @@ from mastermetastyletransfer_tpu_torch.config import (
 )
 from mastermetastyletransfer_tpu_torch.data import repeat_style_to_batch
 from mastermetastyletransfer_tpu_torch.data.native_loader import (
-    native_available,
+    decode_jpeg, encode_jpeg, native_available,
 )
 from mastermetastyletransfer_tpu_torch.data.pipeline import (
-    ImageFolderDataset, _decode_resize, list_images,
+    ImageFolderDataset, _decode_resize, decode_image, list_images,
 )
 from mastermetastyletransfer_tpu_torch.eval import cli as eval_cli
 from mastermetastyletransfer_tpu_torch.eval import harness as eval_harness
@@ -231,8 +252,10 @@ from mastermetastyletransfer_tpu_torch.models.master import (
     master_apply, stylize_with_style_stream,
 )
 from mastermetastyletransfer_tpu_torch.models.style_transformer import (
-    init_style_swin_block, style_transformer_apply,
-    style_transformer_apply_from_stream,
+    init_style_swin_block, init_style_transformer,
+    style_apply_windowed_from_stream, style_stream_windowed,
+    style_transformer_apply, style_transformer_apply_from_stream,
+    style_transformer_apply_windowed,
 )
 from mastermetastyletransfer_tpu_torch.models.swin import swin_backbone_apply
 from mastermetastyletransfer_tpu_torch.ops import _build
@@ -251,6 +274,7 @@ from mastermetastyletransfer_tpu_torch.ops.mlp import init_mlp
 from mastermetastyletransfer_tpu_torch.ops.windows import (
     effective_shift, shift_attention_mask, valid_token_mask, window_partition,
 )
+from mastermetastyletransfer_tpu_torch import serve
 from mastermetastyletransfer_tpu_torch.serve import (
     LockedStyleService, StylizeService, SweepService,
 )
@@ -268,6 +292,8 @@ from mastermetastyletransfer_tpu_torch.utils import convert_cli
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import (
     flatten_params, load_params_npz, tree_map,
 )
+from mastermetastyletransfer_tpu_torch.utils import png as port_png
+from mastermetastyletransfer_tpu_torch.utils.png import png_bytes
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -2887,7 +2913,7 @@ DUMP_PER_CALL = {**{e: 0 for e in all_launches()},
                  "phase_align": 1}
 
 
-def write_bmp(path: str, rgb: np.ndarray) -> None:
+def bmp_bytes(rgb: np.ndarray) -> bytes:
     """uint8 (H, W, 3) as an uncompressed 24-bit BMP, rows bottom-up."""
     h, w, _ = rgb.shape
     stride = (w * 3 + 3) // 4 * 4
@@ -2896,29 +2922,18 @@ def write_bmp(path: str, rgb: np.ndarray) -> None:
     header = (b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54)
               + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size,
                             2835, 2835, 0, 0))
+    return header + rows.tobytes()
+
+
+def write_bmp(path: str, rgb: np.ndarray) -> None:
     with open(path, "wb") as f:
-        f.write(header + rows.tobytes())
+        f.write(bmp_bytes(rgb))
 
 
-def read_png(path: str) -> np.ndarray:
-    """The trainer's dumps: an 8-bit RGB PNG, filter 0 on every row."""
+def read_image(path: str) -> np.ndarray:
+    """An image file through the port's own readers (no Pillow there)."""
     with open(path, "rb") as f:
-        data = f.read()
-    pos, idat, (w, h) = 8, b"", (0, 0)
-    while pos < len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if kind == b"IHDR":
-            w, h, depth, color = struct.unpack(">IIBB", body[:10])
-            if (depth, color) != (8, 2):
-                raise AssertionError(f"{path}: not an 8-bit RGB PNG")
-        elif kind == b"IDAT":
-            idat += body
-        pos += 12 + n
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
-    if rows[:, 0].any():
-        raise AssertionError(f"{path}: a row filter other than 0")
-    return rows[:, 1:].reshape(h, w, 3)
+        return decode_image(f.read())
 
 
 def smooth_images(rng, n: int, hw) -> list:
@@ -3039,7 +3054,7 @@ def check_dumps(exp: str, steps) -> list:
         raise AssertionError(f"{exp}: dumps {names}, expected {want}")
     stds = []
     for name in want:
-        img = read_png(os.path.join(exp, name))
+        img = read_image(os.path.join(exp, name))
         if img.shape != (TRAIN_SIZE, TRAIN_SIZE, 3) or img.std() == 0:
             raise AssertionError(f"{name}: shape {img.shape}, std "
                                  f"{img.std()}")
@@ -3299,7 +3314,7 @@ def run_eval(root: str, smi: str) -> dict:
     TOL_EVAL_LOSS relative and the outputs by the slice's f32 criterion;
     bf16 by the services' noise ratio against the f32 kernels-off outputs;
     then ``eval.cli.main --use_pallas`` on the same folders, its launches
-    and its 220 PNG dumps."""
+    and its 220 JPEG dumps (quality 95, read back by the port's decoder)."""
     t0 = time.perf_counter()
     dirs = eval_folders(os.path.join(root, "eval"))
     content, cnames = load_eval_images(dirs["content"], EVAL_SIZE)
@@ -3365,15 +3380,15 @@ def run_eval(root: str, smi: str) -> dict:
                                                          * EVAL_STYLES):
         raise AssertionError(f"eval.cli launched {cli_launches} for "
                              f"{summary['num_pairs']} pairs, expected {want}")
-    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
-    if len(pngs) != EVAL_CONTENTS * EVAL_STYLES:
-        raise AssertionError(f"eval.cli wrote {len(pngs)} PNGs")
-    for name in pngs:
-        shape = read_png(os.path.join(out_dir, name)).shape
+    jpegs = sorted(f for f in os.listdir(out_dir) if f.endswith(".jpg"))
+    if len(jpegs) != EVAL_CONTENTS * EVAL_STYLES:
+        raise AssertionError(f"eval.cli wrote {len(jpegs)} JPEGs")
+    for name in jpegs:
+        shape = read_image(os.path.join(out_dir, name)).shape
         if shape != (EVAL_SIZE, EVAL_SIZE, 3):
             raise AssertionError(f"{name}: shape {shape}")
     cli = dict(wall_s=cli_wall, pairs_per_s=summary["num_pairs"] / cli_wall,
-               pngs=len(pngs), summary=summary, launches=cli_launches)
+               jpegs=len(jpegs), summary=summary, launches=cli_launches)
     emit("eval_cli", **cli, nvidia_smi=smi)
     launches = {label: row["launches"] for label, row in rows.items()
                 if row["kernels"]}
@@ -3418,7 +3433,7 @@ def run_adapt_cli(root: str, dirs: dict, smi: str) -> dict:
     each step's launches ``adapt_per_step`` of its k, then one f32
     ``master_apply`` per content (``PER_BATCH``); ``adapted.npz`` equal bit
     for bit to ``adapt_to_style`` called directly on the same decoded
-    images and weights; one 256x256x3 PNG per content."""
+    images and weights; one 256x256x3 JPEG per content."""
     style = os.path.join(dirs["style"], sorted(os.listdir(dirs["style"]))[0])
     out_dir = os.path.join(root, "adapted")
     argv = ["--style", style, "--content_dir", dirs["content"],
@@ -3466,17 +3481,17 @@ def run_adapt_cli(root: str, dirs: dict, smi: str) -> dict:
         if diff or set(data.files) != set(direct):
             raise AssertionError(f"adapted.npz differs from adapt_to_style "
                                  f"in {diff[:4]}")
-    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
-    if len(pngs) != n or any(read_png(os.path.join(out_dir, p)).shape != (
-            EVAL_SIZE, EVAL_SIZE, 3) for p in pngs):
-        raise AssertionError(f"adapt.main wrote {pngs}")
+    jpegs = sorted(f for f in os.listdir(out_dir) if f.endswith(".jpg"))
+    if len(jpegs) != n or any(read_image(os.path.join(out_dir, p)).shape
+                              != (EVAL_SIZE, EVAL_SIZE, 3) for p in jpegs):
+        raise AssertionError(f"adapt.main wrote {jpegs}")
     out = dict(steps=ADAPT_CLI_STEPS, batch=ADAPT_CLI_BATCH, size=EVAL_SIZE,
                dtype="float32", contents=n, ks=rec.ks, wall_s=wall,
                step_launches=table_sum(
                    {e: b[e] - a[e] for e in a}
                    for a, b in zip(rec.before, rec.after)),
                stylize_launches=stylize, launches=end,
-               adapted_equal_direct=True, pngs=len(pngs),
+               adapted_equal_direct=True, jpegs=len(jpegs),
                nondeterministic_ops=sorted({str(w.message)[:80]
                                             for w in caught}),
                nvidia_smi=smi)
@@ -3844,6 +3859,644 @@ def run_entry_points(smi: str) -> dict:
                 convert=convert["launches"])
 
 
+# ---------------------------------------------------------------------------
+# 10. the codecs, the style transformer's split and exclude-MLP routes, and
+#     the HTTP server
+# ---------------------------------------------------------------------------
+
+CODECS_SEED = TRAIN_SEED + 9
+SPLIT_SEED = TRAIN_SEED + 10
+EXCLUDE_SEED = TRAIN_SEED + 11
+HTTP_SEED = TRAIN_SEED + 12
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "jpeg")
+# The decoder against Pillow's stored pixels (tests/test_torch_codecs.py's
+# bounds): within 1 level, equal in 99% of the samples.
+TOL_DECODE_LEVELS, TOL_DECODE_EQUAL = 1, 0.99
+CODEC_SIZE, CODEC_ITERS = 512, 10
+SPLIT_KS = (1, 3)
+# (shape label, token grid side, batch, dtypes): serving's 512^2 requests
+# and the eval grid's 256^2 pairs (Swin features at 1/8 of the image).
+SPLIT_SHAPES = (("serving", SIZE // 8, MAX_BATCH, ("bfloat16", "float32")),
+                ("eval", EVAL_SIZE // 8, EVAL_STYLE_BATCH, ("float32",)))
+SPLIT_ITERS = 3
+# A style-transformer output at bf16 against another bf16 route of the
+# same function: a few units in the last place of the largest element.
+TOL_BF16_ROUTE = 2.0 ** -6
+HTTP_KS = (1, 3)
+HTTP_PAIR_REQUESTS = 8           # per k: 16 /stylize requests in all
+HTTP_CONTENT_HW, HTTP_STYLE_HW = (480, 640), (512, 512)
+# Each HTTP reply, decoded, against the service's own output quantised:
+# its mean error in levels of 255 is the JPEG noise at quality 95. On this
+# phase's weights and inputs at 512^2 (f32, the CPU) that noise is 1.54 to
+# 2.26 levels a reply (97-99% of the random model's output values clip, so
+# the few edges left take large errors: a max of 123-169 levels);
+# tests/test_torch_http.py measures it and holds it under this bound, twice
+# the largest mean measured. With so much clipped, another request's output
+# could lie within this bound too: the check that tells requests apart is
+# that each reply is the encoder's very bytes on its own output.
+TOL_JPEG95_MEAN = 4.5
+
+
+def fixture_pixels() -> dict:
+    """The JPEG fixtures (tests/data/jpeg/, scripts/make_jpeg_fixtures.py)
+    and Pillow's decoded pixels of each, stored beside them."""
+    with np.load(os.path.join(FIXTURES, "pixels.npz")) as stored:
+        out = {}
+        for name in sorted(stored.files):
+            with open(os.path.join(FIXTURES, f"{name}.jpg"), "rb") as f:
+                out[name] = (f.read(), stored[name])
+    return out
+
+
+def host_ms(fn, iters: int) -> float:
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def psnr_db(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return 10 * np.log10(255.0 ** 2 / mse)
+
+
+def png_unfilter_ms(body: bytes) -> dict:
+    """read_png on one PNG body, and its two ways of undoing the row
+    filters on that body's rows (every row None, Sub or Up, so both apply):
+    the host's ms each, mean of 3, the two checked equal."""
+    w, h = struct.unpack(">II", body[16:24])
+    idat = b"".join(b for kind, b in port_png._chunks(body)
+                    if kind == b"IDAT")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    kinds = raw[:, 0].astype(np.int32)
+    filt = raw[:, 1:].reshape(h, w, -1).astype(np.int32)
+    if not np.array_equal(port_png._unfilter_rows(filt, kinds),
+                          port_png._unfilter_sweep(filt, kinds)):
+        raise AssertionError("the PNG reader's two unfilter paths differ")
+    return dict(
+        png_hw=[h, w], png_read_ms=host_ms(
+            lambda: port_png.read_png(body), 3),
+        png_unfilter_rows_ms=host_ms(
+            lambda: port_png._unfilter_rows(filt, kinds), 3),
+        png_unfilter_sweep_ms=host_ms(
+            lambda: port_png._unfilter_sweep(filt, kinds), 3))
+
+
+def run_codecs() -> dict:
+    """The port's JPEG decoder on the fixtures against Pillow's pixels, then a
+    seeded 512^2 image encoded at quality 95 and decoded: ms each way (the
+    host's, mean of CODEC_ITERS) and the PSNR against the source; the PNG
+    reader's unfilter paths on the http phase's PNG body."""
+    t0 = time.perf_counter()
+    fixtures = {}
+    for name, (data, want) in fixture_pixels().items():
+        got = decode_jpeg(data)
+        if got.shape != want.shape:
+            raise AssertionError(f"fixture {name}: decoded {got.shape}, "
+                                 f"Pillow {want.shape}")
+        diff = np.abs(got.astype(np.int64) - want)
+        fixtures[name] = dict(shape=list(got.shape),
+                              max_levels=int(diff.max()),
+                              differ_share=float((diff > 0).mean()))
+        if (diff.max() > TOL_DECODE_LEVELS
+                or (diff > 0).mean() > 1 - TOL_DECODE_EQUAL):
+            raise AssertionError(f"fixture {name}: {fixtures[name]}")
+    if len(fixtures) != 7:
+        raise AssertionError(f"fixtures: {sorted(fixtures)}")
+    src = smooth_images(np.random.default_rng(CODECS_SEED), 1,
+                        (CODEC_SIZE, CODEC_SIZE))[0]
+    data = encode_jpeg(src, 95)
+    back = decode_jpeg(data)
+    if back.shape != src.shape:
+        raise AssertionError(f"round trip gave {back.shape}")
+    out = dict(fixtures=fixtures, size=CODEC_SIZE, quality=95,
+               bytes=len(data), psnr_db=psnr_db(back, src),
+               encode_ms=host_ms(lambda: encode_jpeg(src, 95), CODEC_ITERS),
+               decode_ms=host_ms(lambda: decode_jpeg(data), CODEC_ITERS),
+               decode_to_ms=host_ms(lambda: serve._decode_to(SIZE, data),
+                                    CODEC_ITERS),
+               **png_unfilter_ms(http_inputs()["contents"][1]))
+    out["wall_s"] = time.perf_counter() - t0
+    emit("codecs", **out)
+    # This image's round trip gives 48.16 dB wherever it runs (integer
+    # arithmetic; Pillow's encoder writes the same bytes,
+    # tests/test_torch_codecs.py); a broken codec falls far below 38.
+    if out["psnr_db"] < 38.0:
+        raise AssertionError(f"round trip PSNR {out['psnr_db']} dB")
+    return out
+
+
+def split_per_call(route: str, k: int, part: str = "") -> dict:
+    """Launches of one windowed style transformer call at depth k (JAX's
+    _windowed_machinery): the encoder's Key block (K2) and the decoder's
+    self block (K2) each iteration; fused, K3 and K4; split, the
+    Scale/Shift update as K9 and two K10, the tail as K9 and K10. ``part``
+    "stream" (the encoder alone, a locked stream build) or "batch" (the
+    decoder alone, a locked batch)."""
+    zero = {e: 0 for e in all_launches()}
+    fused = route == "fused"
+    enc = {**zero, "window_block_windows": k,
+           **({"encoder_scale_shift": k} if fused else
+              {"window_attention_dual": k, "ln_mlp_residual": 2 * k})}
+    dec = {**zero, "window_block_windows": k,
+           **({"decoder_tail": k} if fused else
+              {"window_attention_dual": k, "ln_mlp_residual": k})}
+    return {"stream": enc, "batch": dec, "": table_sum((enc, dec))}[part]
+
+
+def route_check(dtype: str, got: torch.Tensor, ref32: torch.Tensor,
+                plain: torch.Tensor) -> dict:
+    """f32: per-element MAE within TOL_SLICE_MAE of the mean |output| of
+    the kernels-off f32 route; bf16: MAE against it at most TOL_BF16_NOISE
+    times the plain bf16 route's."""
+    got, ref32, plain = (t.float().cpu().numpy() for t in (got, ref32, plain))
+    if not np.isfinite(got).all():
+        raise AssertionError("output not finite")
+    if dtype == "float32":
+        return f32_check(got, ref32)
+    mae = float(np.abs(got - ref32).mean())
+    plain_mae = float(np.abs(plain - ref32).mean())
+    return dict(mae_vs_f32=mae, plain_mae_vs_f32=plain_mae,
+                noise_ratio=mae / plain_mae, noise_ratio_tol=TOL_BF16_NOISE,
+                ok=mae / plain_mae <= TOL_BF16_NOISE)
+
+
+def precision_ctx(dtype: str):
+    return _TF32_OFF if dtype == "float32" else contextlib.nullcontext()
+
+
+def run_split_route() -> dict:
+    """``style_transformer_apply_windowed`` with ``fuse_iteration`` False
+    (K9, K10) against True (K3, K4) and against the kernels-off route
+    (the generic path in plain PyTorch), at serving's shape (512^2, batch
+    8 + 8; bf16, f32) and the eval grid's (256^2, batch 8; f32), k = 1 and
+    3: each route's ms (the card's, mean of SPLIT_ITERS), each call's
+    launches exactly ``split_per_call``, the outputs by the slice's
+    criteria; then the locked split route (a stream build and a batch
+    against it) at serving's shape, bf16."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SPLIT_SEED)
+    cfg = slice_config("bfloat16", True).transformer
+    params = tree_map(lambda t: t.to(DEVICE), init_style_transformer(gen,
+                                                                     cfg))
+    off = cfg.replace(use_pallas=False)
+    launches, rows = {}, []
+    for shape, grid, batch, dtypes in SPLIT_SHAPES:
+        fc32, fs32 = (torch.randn((batch, grid, grid, ST_C), generator=gen)
+                      .to(DEVICE) for _ in range(2))
+        for k in SPLIT_KS:
+            with torch.inference_mode(), precision_ctx("float32"):
+                ref32 = style_transformer_apply(params, fc32, fs32, off, k=k)
+            for dtype in dtypes:
+                fc, fs = (x.to(getattr(torch, dtype)) for x in (fc32, fs32))
+                calls = {
+                    "split": lambda: style_transformer_apply_windowed(
+                        params, fc, fs, cfg, k=k, fuse_iteration=False),
+                    "fused": lambda: style_transformer_apply_windowed(
+                        params, fc, fs, cfg, k=k, fuse_iteration=True),
+                    "off": lambda: style_transformer_apply(params, fc, fs,
+                                                           off, k=k)}
+                outs, ms = {}, {}
+                with torch.inference_mode(), precision_ctx(dtype):
+                    for route, fn in calls.items():
+                        torch.cuda.synchronize()
+                        reset_launches()
+                        outs[route] = fn()
+                        torch.cuda.synchronize()
+                        got = all_launches()
+                        want = ({e: 0 for e in got} if route == "off"
+                                else split_per_call(route, k))
+                        if got != want:
+                            raise AssertionError(
+                                f"split_route {shape} {dtype} k={k} "
+                                f"{route}: launched {got}, expected {want}")
+                        launches[f"{shape} {dtype} k={k} {route}"] = got
+                        ms[route] = cuda_ms(fn, SPLIT_ITERS)
+                row = dict(shape=shape, dtype=dtype, k=k, batch=batch,
+                           tokens=[grid, grid], ms=ms,
+                           split_vs_fused=ms["split"] / ms["fused"])
+                for route in ("split", "fused"):
+                    row[route] = route_check(dtype, outs[route], ref32,
+                                             outs["off"])
+                row["split_vs_fused_max_abs"] = float(
+                    (outs["split"].float() - outs["fused"].float()).abs()
+                    .max())
+                emit("split_route", **row)
+                rows.append(row)
+                if not (row["split"]["ok"] and row["fused"]["ok"]):
+                    raise AssertionError(f"split_route: {row}")
+    # the locked split route: a stream build, then a batch against it
+    grid, batch = SPLIT_SHAPES[0][1], SPLIT_SHAPES[0][2]
+    fc, fs = (torch.randn((batch, grid, grid, ST_C), generator=gen)
+              .to(DEVICE, torch.bfloat16) for _ in range(2))
+    for k in SPLIT_KS:
+        with torch.inference_mode():
+            one = style_transformer_apply_windowed(params, fc, fs, cfg, k=k,
+                                                   fuse_iteration=False)
+            reset_launches()
+            stream = style_stream_windowed(params, fs, cfg, k=k,
+                                           fuse_iteration=False)
+            torch.cuda.synchronize()
+            built = all_launches()
+            reset_launches()
+            got = style_apply_windowed_from_stream(params, fc, stream, cfg,
+                                                   fuse_iteration=False)
+            torch.cuda.synchronize()
+            decoded = all_launches()
+        for label, n, part in (("stream", built, "stream"),
+                               ("batch", decoded, "batch")):
+            want = split_per_call("split", k, part)
+            if n != want:
+                raise AssertionError(f"locked split k={k} {label}: "
+                                     f"launched {n}, expected {want}")
+            launches[f"locked bfloat16 k={k} {label}"] = n
+        diff = float((got.float() - one.float()).abs().max())
+        scale = float(one.float().abs().max())
+        emit("split_route_locked", dtype="bfloat16", k=k, batch=batch,
+             max_abs_vs_one_pass=diff, tol=TOL_BF16_ROUTE * scale)
+        if diff > TOL_BF16_ROUTE * scale:
+            raise AssertionError(f"locked split k={k}: {diff} against the "
+                                 f"one-pass split route")
+    emit("split_route_wall", wall_s=time.perf_counter() - t0)
+    return dict(rows=rows, launches=launches)
+
+
+def exclude_config(dtype: str, kernels: bool) -> ModelConfig:
+    cfg = (slice_config(dtype, True) if kernels
+           else reference_config(dtype))
+    return cfg.replace(transformer=cfg.transformer.replace(
+        decoder_exclude_MLP_after_Fcs_self_MHA=True))
+
+
+def exclude_per_batch(dtype: str, k: int) -> dict:
+    """A request batch with the exclude-MLP decoder, fused route: the slice's
+    table, with the decoder's self block as K8 in place of K2."""
+    per = dict(PER_BATCH[dtype])
+    per["window_block_windows"] = (0 if dtype == "bfloat16" else 4) + k
+    per.update(encoder_scale_shift=k, decoder_tail=k, window_attention=k)
+    return per
+
+
+def run_exclude_mlp() -> dict:
+    """``master_apply`` at 512^2, k = 1, batch 8 pairs, with an exclude-MLP
+    decoder (weights of its own): bf16 and f32 with every kernel on
+    against the kernels-off reference (the slice's criteria), each run's
+    launches exactly ``exclude_per_batch`` and its ms (the card's); then
+    the style transformer's split route with that decoder at f32: K2 k, K8
+    k, K9 2k, K10 3k, against the fused route."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(EXCLUDE_SEED)
+    params = init_master_model(exclude_config("bfloat16", True), gen,
+                               device=DEVICE)
+    if "mlp" in params["style_transformer"]["decoder"]["self_mha"]:
+        raise AssertionError("an exclude-MLP decoder with a self-block MLP")
+    rng = np.random.default_rng(EXCLUDE_SEED)
+    pairs = [torch.as_tensor(rng.random((MAX_BATCH, SIZE, SIZE, 3),
+                                        dtype=np.float32), device=DEVICE)
+             for _ in range(2)]
+    outs, ms, launches = {}, {}, {}
+    for dtype in ("bfloat16", "float32"):
+        for kernels in (True, False):
+            fn = make_stylize_fn(exclude_config(dtype, kernels), k=1,
+                                 device=DEVICE)
+            torch.cuda.synchronize()
+            reset_launches()
+            out = fn(params, *pairs)
+            torch.cuda.synchronize()
+            got = all_launches()
+            want = (exclude_per_batch(dtype, 1) if kernels
+                    else {e: 0 for e in got})
+            if got != want:
+                raise AssertionError(f"exclude_mlp {dtype} kernels="
+                                     f"{kernels}: launched {got}, expected "
+                                     f"{want}")
+            key = (dtype, kernels)
+            launches[f"{dtype} {'on' if kernels else 'off'}"] = got
+            outs[key] = out.cpu().numpy()
+            ms[key] = cuda_ms(lambda: fn(params, *pairs), SPLIT_ITERS)
+            finite_images(f"exclude_mlp {dtype}", outs[key], MAX_BATCH)
+    checks = {
+        "bfloat16": bf16_noise_verdict(outs["bfloat16", True],
+                                       outs["bfloat16", False],
+                                       outs["float32", False]),
+        "float32": f32_check(outs["float32", True], outs["float32", False])}
+    for dtype, check in checks.items():
+        emit("exclude_mlp", dtype=dtype, size=SIZE, k=1, batch=MAX_BATCH,
+             ms_kernels_on=ms[dtype, True], ms_kernels_off=ms[dtype, False],
+             launches=launches[f"{dtype} on"],
+             launches_per_batch=exclude_per_batch(dtype, 1), **check)
+        if not check["ok"]:
+            raise AssertionError(f"exclude_mlp {dtype}: {check}")
+    # the split route with this decoder, on its Swin features
+    cfg = exclude_config("float32", True)
+    with torch.inference_mode(), _TF32_OFF:
+        fc = encode_features(params, pairs[0], cfg)
+        fs = encode_features(params, pairs[1], cfg)
+        st = params["style_transformer"]
+        fused = style_transformer_apply_windowed(st, fc, fs, cfg.transformer,
+                                                 k=1, fuse_iteration=True)
+        torch.cuda.synchronize()
+        reset_launches()
+        split = style_transformer_apply_windowed(st, fc, fs, cfg.transformer,
+                                                 k=1, fuse_iteration=False)
+        torch.cuda.synchronize()
+    got = all_launches()
+    want = {**split_per_call("split", 1), "window_block_windows": 1,
+            "window_attention": 1}
+    launches["split float32"] = got
+    if got != want:
+        raise AssertionError(f"exclude_mlp split: launched {got}, expected "
+                             f"{want}")
+    check = f32_check(split.cpu().numpy(), fused.cpu().numpy())
+    emit("exclude_mlp_split", dtype="float32", k=1, launches=got,
+         split_vs_fused=check, wall_s=time.perf_counter() - t0)
+    if not check["ok"]:
+        raise AssertionError(f"exclude_mlp split against fused: {check}")
+    return dict(launches=launches, ms={f"{d} {'on' if on else 'off'}": v
+                                       for (d, on), v in ms.items()})
+
+
+def multipart(fields: dict) -> bytes:
+    body = b"".join(
+        b"--MMSTB\r\nContent-Disposition: form-data; name=\"%s\"; "
+        b"filename=\"f\"\r\n\r\n" % name.encode() + data + b"\r\n"
+        for name, data in fields.items())
+    return body + b"--MMSTB--\r\n"
+
+
+def http_call(url: str, body: bytes = None,
+              ctype: str = "multipart/form-data; boundary=MMSTB"):
+    """(status, content type, body) of a GET (no body) or POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body,
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+def http_inputs(seed: int = HTTP_SEED) -> dict:
+    """The phase's request bodies from a seed: 8 contents at COCO's
+    640x480 and 4 styles at 512^2, smooth images encoded by the port's
+    JPEG encoder at quality 90, but for one content as PNG and one as BMP;
+    two of the styles are the locked ones."""
+    rng = np.random.default_rng(seed)
+    contents = smooth_images(rng, 8, HTTP_CONTENT_HW)
+    styles = smooth_images(rng, 4, HTTP_STYLE_HW)
+    bodies = [encode_jpeg(c, 90) for c in contents]
+    bodies[1] = png_bytes(contents[1])
+    bodies[2] = bmp_bytes(contents[2])
+    return dict(contents=bodies, styles=[encode_jpeg(s, 90) for s in styles])
+
+
+def http_requests(inputs: dict) -> dict:
+    """(k, path, fields) of each request by route: 8 /stylize per k (each
+    content against a style in turn), a /stylize_locked per locked style
+    and k, two /sweep."""
+    c, s = inputs["contents"], inputs["styles"]
+    out = {"stylize": [], "locked": [], "sweep": []}
+    for k in HTTP_KS:
+        for i in range(HTTP_PAIR_REQUESTS):
+            out["stylize"].append((k, f"/stylize?k={k}", {
+                "content": c[i], "style": s[(i + k) % len(s)]}))
+    for k in HTTP_KS:
+        for j, name in enumerate(("s0", "s1")):
+            out["locked"].append((k, f"/stylize_locked?style={name}&k={k}",
+                                  {"content": c[(j + k) % len(c)]}))
+    for i in range(2):
+        out["sweep"].append((1, "/sweep?k=1", {"content": c[i + 3],
+                                                "style": s[i]}))
+    return out
+
+
+def direct_output(svcs: dict, route: str, k: int, path: str,
+                  fields: dict):
+    """The service's own output on the request's decoded inputs: one
+    (H, W, 3) image, or {set: image} for the sweep."""
+    content = serve._decode_to(SIZE, fields["content"])
+    if route == "locked":
+        name = path.split("style=")[1].split("&")[0]
+        return svcs["locked"].stylize(content, name, k=k)
+    style = serve._decode_to(SIZE, fields["style"])
+    if route == "sweep":
+        return svcs["sweep"].sweep(content, style, k=k)
+    return svcs["pair"][k].stylize(content, style)
+
+
+def reply_error(data: bytes, want01: np.ndarray) -> dict:
+    """A JPEG reply decoded by the port's decoder against the output it
+    encodes, quantised as the server quantises it, in levels."""
+    got = decode_image(data).astype(np.int64)
+    q = np.clip(want01 * 255, 0, 255).astype(np.uint8)
+    if got.shape != q.shape:
+        raise AssertionError(f"reply of shape {got.shape}, want {q.shape}")
+    err = np.abs(got - q)
+    return dict(mean=float(err.mean()), max=int(err.max()),
+                bytes_equal=data == encode_jpeg(q, 95))
+
+
+def pair_per_batch(dtype: str, k: int) -> dict:
+    """The slice's table (PER_BATCH, k = K) at depth k."""
+    per = dict(PER_BATCH[dtype])
+    per.update(window_block_windows=(0 if dtype == "bfloat16" else 4) + 2 * k,
+               encoder_scale_shift=k, decoder_tail=k)
+    return per
+
+
+def http_send(url: str, reqs: list) -> tuple:
+    """POST each (k, path, fields) request from CLIENTS client threads, each
+    in turn; (replies, per-request latencies in s, wall s)."""
+    replies, lat, errors = [None] * len(reqs), [None] * len(reqs), []
+
+    def client(idx):
+        for i in idx:
+            t = time.perf_counter()
+            try:
+                replies[i] = http_call(url + reqs[i][1],
+                                       multipart(reqs[i][2]))
+            except Exception as e:  # re-raised below, in the main thread
+                errors.append(e)
+                return
+            lat[i] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=client,
+                                args=(range(j, len(reqs), CLIENTS),))
+               for j in range(CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    if errors or any(v is None for v in lat):
+        raise AssertionError(f"requests failed: {errors}")
+    return replies, lat, wall
+
+
+def run_http() -> dict:
+    """serve.main's services behind ``make_handler`` on a
+    ``ThreadingHTTPServer`` at 127.0.0.1, port 0, at bf16 with every kernel
+    on: pair at k = 1 and 3, two locked styles (read by the same decoder),
+    a sweep over two seeded parameter sets. GET /healthz and two bad bodies
+    (400), then 16 /stylize requests from 4 clients (per k, counted from
+    zero: ``pair_per_batch`` per batch), 4 /stylize_locked (2 x
+    ``locked_per_batch`` at each k) and 2 /sweep (2 x 2 pair batches),
+    launches exact. Every reply's status and content type; each JPEG
+    decoded by the port's decoder against the service's own output on the
+    same decoded inputs: its bytes the encoder's on that output (the
+    service's bytes, and so that request's and no other's), and its mean
+    error within the JPEG noise at quality 95 (TOL_JPEG95_MEAN levels).
+    p50 and max request ms, imgs/s, and the codecs' ms per request."""
+    import base64
+    from http.server import ThreadingHTTPServer
+
+    t0 = time.perf_counter()
+    cfg = slice_config("bfloat16", True)
+    params = init_master_model(cfg, torch.Generator().manual_seed(HTTP_SEED),
+                               device=DEVICE)
+    params2 = init_master_model(
+        cfg, torch.Generator().manual_seed(HTTP_SEED + 1), device=DEVICE)
+    inputs = http_inputs()
+    reqs = http_requests(inputs)
+    locked_styles = {name: serve._decode_to(SIZE, inputs["styles"][i])
+                     for i, name in enumerate(("s0", "s1"))}
+    pair = {k: StylizeService(params, cfg, size=SIZE, k=k,
+                              max_batch=MAX_BATCH, device=DEVICE)
+            for k in HTTP_KS}
+    svcs = dict(pair=pair, locked=LockedStyleService(
+        params, cfg, locked_styles, size=SIZE, ks=HTTP_KS,
+        max_batch=MAX_BATCH, device=DEVICE), sweep=SweepService(
+            {"set0": params, "set1": params2}, cfg, size=SIZE, ks=(1,),
+            device=DEVICE))
+    server = thread = None
+    runs = {}
+    try:
+        for svc in (*pair.values(), svcs["locked"], svcs["sweep"]):
+            svc.warmup()
+        server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(
+            pair, default_k=1, sweep_service=svcs["sweep"],
+            locked_service=svcs["locked"]))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        code, ctype, data = http_call(url + "/healthz")
+        health = json.loads(data)
+        if (code, ctype) != (200, "application/json") or (
+                health["ks"] != list(HTTP_KS)
+                or health["locked_styles"] != ["s0", "s1"]
+                or health["lambdas"] != ["set0", "set1"]):
+            raise AssertionError(f"/healthz: {code} {ctype} {health}")
+        for body, ctype_in in (
+                (b"not multipart", "text/plain"),
+                (multipart({"content": inputs["contents"][0][
+                    :len(inputs["contents"][0]) // 2],
+                            "style": inputs["styles"][0]}),
+                 "multipart/form-data; boundary=MMSTB")):
+            code, _, data = http_call(url + "/stylize", body, ctype_in)
+            if code != 400:
+                raise AssertionError(f"a bad body got {code}: {data[:200]}")
+        plan = [(f"stylize k={k}", "stylize",
+                 [r for r in reqs["stylize"] if r[0] == k],
+                 pair_per_batch("bfloat16", k)) for k in HTTP_KS]
+        plan += [("locked", "locked", reqs["locked"], table_sum(
+            locked_per_batch("bfloat16", k) for k in HTTP_KS
+            for _ in range(2))),
+                 ("sweep", "sweep", reqs["sweep"],
+                  {e: 4 * n for e, n in PER_BATCH["bfloat16"].items()})]
+        for label, route, batch, per in plan:
+            torch.cuda.synchronize()
+            reset_launches()
+            replies, lat, wall = http_send(url, batch)
+            torch.cuda.synchronize()
+            got = all_launches()
+            # a pair run batches as its requests arrive: per batch; a
+            # locked key and a sweep set take one batch a request: in all
+            if route == "stylize":
+                n = batches = got["decoder_tail"] // batch[0][0]
+            else:
+                n, batches = 1, len(batch) * (2 if route == "sweep" else 1)
+            expect_launches(f"http {label}", got, per, n)
+            runs[label] = dict(route=route, reqs=batch, replies=replies,
+                               lat=lat, wall=wall, launches=got,
+                               batches=batches)
+        # every reply against its service's own output on the decoded inputs
+        errors = []
+        for label, run in runs.items():
+            for (k, path, fields), (code, ctype, data) in zip(
+                    run["reqs"], run["replies"]):
+                want = direct_output(svcs, run["route"], k, path, fields)
+                if run["route"] != "sweep":
+                    if (code, ctype) != (200, "image/jpeg"):
+                        raise AssertionError(f"{path}: {code} {ctype} "
+                                             f"{data[:200]}")
+                    errors.append(reply_error(data, want))
+                    continue
+                sets = json.loads(data) if code == 200 else {}
+                if (ctype != "application/json"
+                        or sorted(sets) != ["set0", "set1"]):
+                    raise AssertionError(f"{path}: {code} {ctype}")
+                errors.extend(reply_error(base64.b64decode(b64), want[name])
+                              for name, b64 in sets.items())
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            thread.join(60)
+        for svc in (*pair.values(), svcs["locked"]):
+            svc.close()
+    stylize = [runs[f"stylize k={k}"] for k in HTTP_KS]
+    lat = [v for run in stylize for v in run["lat"]]
+    sample = [b for _, _, fields in reqs["stylize"][:4]
+              for b in (fields["content"], fields["style"])]
+    out = dict(
+        dtype="bfloat16", size=SIZE, max_batch=MAX_BATCH, clients=CLIENTS,
+        stylize_p50_ms=float(np.median(lat)) * 1e3,
+        stylize_max_ms=float(np.max(lat)) * 1e3,
+        stylize_imgs_per_s=len(lat) / sum(run["wall"] for run in stylize),
+        runs={label: dict(requests=len(run["reqs"]), batches=run["batches"],
+                          imgs_per_s=len(run["reqs"]) / run["wall"],
+                          p50_ms=float(np.median(run["lat"])) * 1e3,
+                          max_ms=float(np.max(run["lat"])) * 1e3)
+              for label, run in runs.items()},
+        decode_ms_per_request=2 * host_ms(
+            lambda: [serve._decode_to(SIZE, b) for b in sample], 2)
+        / len(sample),
+        encode_ms_per_reply=host_ms(
+            lambda: serve._encode_jpeg(locked_styles["s0"]), 5),
+        replies=len(errors),
+        reply_err_mean_levels=max(e["mean"] for e in errors),
+        reply_err_max_levels=max(e["max"] for e in errors),
+        replies_bytes_equal=sum(e["bytes_equal"] for e in errors),
+        tol_mean_levels=TOL_JPEG95_MEAN,
+        launches={label: run["launches"] for label, run in runs.items()},
+        wall_s=time.perf_counter() - t0)
+    emit("http", **out)
+    if (out["replies_bytes_equal"] != out["replies"]
+            or out["reply_err_mean_levels"] > TOL_JPEG95_MEAN):
+        raise AssertionError(f"http replies off their outputs: {errors}")
+    return out
+
+
+def run_serving_routes() -> dict:
+    """The codecs, the split and exclude-MLP routes and the HTTP server,
+    with draws of their own; each kernel's launches of each run."""
+    t0 = time.perf_counter()
+    codecs = run_codecs()
+    split = run_split_route()
+    exclude = run_exclude_mlp()
+    http = run_http()
+    emit("serving_routes", wall_s=time.perf_counter() - t0,
+         codecs_wall_s=codecs["wall_s"])
+    return dict(split=split["launches"], exclude_mlp=exclude["launches"],
+                http=http["launches"])
+
+
 def main(argv=None) -> int:
     only = (argv if argv is not None else sys.argv[1:])
     if only not in ([], ["--only-train-grads"]):
@@ -3927,6 +4580,9 @@ def main(argv=None) -> int:
     # The evaluation and weight entry points, after every phase, with
     # draws of their own.
     entry_points = run_entry_points(smi)
+    # The codecs, the style transformer's split and exclude-MLP routes and
+    # the HTTP server, after every phase, with draws of their own.
+    routes = run_serving_routes()
 
     def summary(entry, source, replaces, mine, count, origin, per,
                 library=True):
@@ -4069,6 +4725,11 @@ def main(argv=None) -> int:
             run: counts[k["name"]]
             for run, counts in entry_points["eval"].items()}
         k["adapt_cli_launches"] = entry_points["adapt_cli"][k["name"]]
+        # The split route's, the exclude-MLP decoder's and the HTTP
+        # server's runs, each counted from zero.
+        for run, tables in routes.items():
+            k[f"{run}_launches"] = {label: counts[k["name"]]
+                                    for label, counts in tables.items()}
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,7 @@ or, from image files:
         --checkpoint pretrained.npz --steps 20 --out_dir adapted/ --use_pallas
 
 which writes the adapted weights (adapted.npz) and each content stylized
-with them ({stem}_stylized.png; the JAX package writes JPEG).
+with them ({stem}_stylized.jpg, JPEG at quality 95, as the JAX package).
 ``--use_pallas`` keeps its JAX name: it turns on the port's CUDA kernels in
 every stage. ``--device`` (default cuda) places the run.
 """
@@ -135,7 +135,7 @@ def main(argv=None) -> None:
         out = stylize(adapted, torch.from_numpy(c)[None], style_b, cfg.model,
                       k=args.k, device=device)
         _save_image(out[0].cpu().numpy(), os.path.join(
-            args.out_dir, _stem(f) + "_stylized.png"))
+            args.out_dir, _stem(f) + "_stylized.jpg"))
     print(f"wrote {args.out_dir}/adapted.npz and "
           f"{len(files)} stylized images")
 

@@ -1,20 +1,37 @@
-"""ctypes bridge to the native C++ JPEG decode + resize loader (JAX
-counterpart: data/native_loader.py).
+"""ctypes bridge to the native library: the port's own baseline JPEG codec
+(``native/jpeg.cpp``) and the batch loader that decodes and resizes with it
+on worker threads (``native/loader.cpp``; JAX counterpart:
+data/native_loader.py, which links libjpeg).
 
-``native/loader.cpp`` is compiled on first use with the flags of the JAX
-package's native/build.sh,
+The library is compiled on first use with the flags of the JAX package's
+native/build.sh, less libjpeg, which neither machine needs:
 
     g++ -O3 -march=native -shared -fPIC -o build/libmmst_loader-<hash>.so
-        native/loader.cpp -ljpeg -lpthread
+        native/loader.cpp native/jpeg.cpp -lpthread
 
 into ``build/`` at the repository root (listed in .gitignore), keyed by a
-hash of the source and the flags; the library is written to a temporary
+hash of the sources and the flags; the library is written to a temporary
 file first and renamed into place. Nothing is written inside the package.
-It is a host decode: it runs on the CPU, not on the device.
+It runs on the host, not on the device.
 
-A file the library fails on (not a JPEG, or a broken one) goes through
-``data.pipeline._decode_resize``, file by file; where g++ or libjpeg is
-missing and the library does not build, every file does.
+* ``decode_jpeg(bytes) -> uint8 (H, W, 3)``: baseline JPEG (SOF0/SOF1,
+  Huffman, 8-bit; grayscale or YCbCr at any sampling; restart intervals)
+  with libjpeg's default arithmetic, so the pixels are PIL's. Anything
+  else (progressive, arithmetic-coded, 12-bit, CMYK, corrupt) raises
+  ``ValueError`` naming the reason.
+* ``encode_jpeg(uint8 (H, W, 3), quality) -> bytes``: baseline 4:2:0 JFIF
+  as PIL's ``Image.save(..., "JPEG", quality=q)`` writes it (IJG tables
+  scaled to the quality, standard Huffman tables).
+* ``decode_resize_batch``: a batch of JPEG files decoded at full size and
+  resized on worker threads. The JAX package's loader decodes with
+  libjpeg's DCT-domain prescale (JAX native/loader.cpp:62-75) where the
+  target is small; this decoder has none yet (ROADMAP.md), so large
+  sources cost their full-size decode.
+
+The codec keeps no state between calls, and ctypes releases the
+interpreter lock while it runs: the HTTP server's threads decode at once.
+Where the library does not build (no g++), the codec raises ``RuntimeError``
+with the compiler's reason; nothing decodes a JPEG by another route.
 """
 
 from __future__ import annotations
@@ -29,65 +46,144 @@ from typing import List, Optional
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[1] / "native" / "loader.cpp"
+NATIVE = Path(__file__).resolve().parents[1] / "native"
+SOURCES = [NATIVE / "loader.cpp", NATIVE / "jpeg.cpp"]
+HEADERS = [NATIVE / "jpeg.h"]
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
-LIBS = ["-ljpeg", "-lpthread"]
+LIBS = ["-lpthread"]
 
 _lock = threading.Lock()
-_state = {"lib": None, "failed": False}
+_state = {"lib": None, "error": None}
+_ERR_LEN = 256
+_u8p = ctypes.POINTER(ctypes.c_uint8)
 
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(FLAGS + LIBS).encode())
-    digest.update(SOURCE.read_bytes())
+    for f in SOURCES + HEADERS:
+        digest.update(f.read_bytes())
     return BUILD_DIR / f"libmmst_loader-{digest.hexdigest()[:16]}.so"
 
 
 def _build(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     try:
-        subprocess.run(["g++", *FLAGS, "-o", str(tmp), str(SOURCE), *LIBS],
-                       check=True, capture_output=True, timeout=120)
+        subprocess.run(["g++", *FLAGS, "-o", str(tmp),
+                        *(str(s) for s in SOURCES), *LIBS],
+                       check=True, capture_output=True, timeout=300)
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     finally:
         tmp.unlink(missing_ok=True)
 
 
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.mmst_decode_resize_batch.restype = ctypes.c_int
+    lib.mmst_decode_resize_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, _u8p, ctypes.c_int,
+        ctypes.c_int, _u8p]
+    lib.mmst_jpeg_info.restype = ctypes.c_int
+    lib.mmst_jpeg_info.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int]
+    lib.mmst_jpeg_decode.restype = ctypes.c_int
+    lib.mmst_jpeg_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, _u8p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_int]
+    lib.mmst_jpeg_encode.restype = ctypes.c_int
+    lib.mmst_jpeg_encode.argtypes = [
+        _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_u8p),
+        ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p, ctypes.c_int]
+    lib.mmst_jpeg_free.restype = None
+    lib.mmst_jpeg_free.argtypes = [ctypes.c_void_p]
+
+
 def _load_library() -> Optional[ctypes.CDLL]:
     """The loaded library, built first if needed; None where it does not
-    build or load (then and later: one attempt per process)."""
+    build or load (then and later: one attempt per process, the reason
+    kept for ``_library``)."""
     with _lock:
-        if _state["lib"] is not None or _state["failed"]:
+        if _state["lib"] is not None or _state["error"] is not None:
             return _state["lib"]
         out = library_path()
         try:
             if not out.exists():
                 _build(out)
             lib = ctypes.CDLL(str(out))
-        except (OSError, subprocess.SubprocessError):
-            _state["failed"] = True
+        except subprocess.CalledProcessError as e:
+            _state["error"] = (f"g++ failed: "
+                               f"{e.stderr.decode(errors='replace')[-2000:]}")
             return None
-        lib.mmst_decode_resize_batch.restype = ctypes.c_int
-        lib.mmst_decode_resize_batch.argtypes = [
-            ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint8)]
+        except (OSError, subprocess.SubprocessError) as e:
+            _state["error"] = f"{type(e).__name__}: {e}"
+            return None
+        _declare(lib)
         _state["lib"] = lib
         return lib
+
+
+def _library() -> ctypes.CDLL:
+    lib = _load_library()
+    if lib is None:
+        raise RuntimeError("the native JPEG codec (native/jpeg.cpp) did not "
+                           f"build: {_state['error']}")
+    return lib
 
 
 def native_available() -> bool:
     return _load_library() is not None
 
 
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """A baseline JPEG's pixels as uint8 (H, W, 3) RGB (grayscale
+    replicated, as PIL's convert("RGB")); ValueError for a file the
+    decoder does not read, a frame above PIL's decompression-bomb limit
+    (2 x 89,478,485 pixels) among them. The frame header is read first
+    and the pixels decoded straight into the returned array."""
+    lib = _library()
+    data = bytes(data)
+    w, h = ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if lib.mmst_jpeg_info(data, len(data), ctypes.byref(w), ctypes.byref(h),
+                          err, _ERR_LEN):
+        raise ValueError(f"JPEG: {err.value.decode(errors='replace')}")
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    if lib.mmst_jpeg_decode(data, len(data), out.ctypes.data_as(_u8p),
+                            w.value, h.value, err, _ERR_LEN):
+        raise ValueError(f"JPEG: {err.value.decode(errors='replace')}")
+    return out
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
+    """uint8 (H, W, 3) RGB as baseline 4:2:0 JFIF bytes at ``quality``."""
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes uint8 (H, W, 3), got "
+                         f"{rgb.dtype} {rgb.shape}")
+    lib = _library()
+    out = _u8p()
+    n = ctypes.c_size_t()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if lib.mmst_jpeg_encode(rgb.ctypes.data_as(_u8p), rgb.shape[1],
+                            rgb.shape[0], int(quality), ctypes.byref(out),
+                            ctypes.byref(n), err, _ERR_LEN):
+        raise ValueError(f"JPEG: {err.value.decode(errors='replace')}")
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.mmst_jpeg_free(out)
+
+
 def decode_resize_batch(paths: List[str], resize_to: int,
                         n_threads: int = 4) -> np.ndarray:
     """Decode and resize a batch of image files to uint8 (N, S, S, 3).
 
-    JPEGs go through the native library; a file it fails on, and every
-    file where it is not available, through ``_decode_resize``."""
+    JPEGs go through the library's threads; every other file, a file the
+    library could not read, and every file where the library does not
+    build, through ``_decode_resize``, which reads each format with its own
+    reader (a JPEG with this library's decoder) and raises, naming the
+    file, where none reads it."""
     n = len(paths)
     out = np.empty((n, resize_to, resize_to, 3), np.uint8)
     ok = np.zeros((n,), np.uint8)
@@ -95,9 +191,8 @@ def decode_resize_batch(paths: List[str], resize_to: int,
     if lib is not None and n:
         names = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
         lib.mmst_decode_resize_batch(
-            names, n, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            resize_to, n_threads,
-            ok.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+            names, n, out.ctypes.data_as(_u8p), resize_to, n_threads,
+            ok.ctypes.data_as(_u8p))
     for i in np.flatnonzero(ok == 0):
         from mastermetastyletransfer_tpu_torch.data.pipeline import (
             _decode_resize,

@@ -12,11 +12,14 @@ uint8 batch into float crops in [0, 1] on its device and repeats one style
 image to the content batch; ``device_preprocess_pair`` makes a training
 step's two inputs so, by the configuration, as the JAX trainer does.
 
-``_decode_resize`` reads uncompressed 24- and 32-bit BMP files with numpy
-and resizes with ``_resize_bilinear``, which computes Pillow's BILINEAR
-resample bit for bit, so that this route needs no PIL (the machine with
-the card has none). Every other format goes through PIL, imported where it
-is needed.
+No PIL (the machine with the card has none): ``decode_image`` reads
+uncompressed 24- and 32-bit BMP files with numpy (``_read_bmp``), 8-bit
+PNG with ``utils/png.read_png`` and baseline JPEG with the port's own
+decoder (``native_loader.decode_jpeg``), each bit for bit what PIL's
+``convert("RGB")`` gives, and ``_resize_bilinear`` computes Pillow's
+BILINEAR resample bit for bit. A file none of them reads (WebP, a
+progressive JPEG, ...) raises ``ValueError`` naming it and the formats
+that are read.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ import torch
 from mastermetastyletransfer_tpu_torch.config import (
     DataConfig, ExperimentConfig,
 )
+from mastermetastyletransfer_tpu_torch.data.native_loader import decode_jpeg
+from mastermetastyletransfer_tpu_torch.utils.png import read_png
 
 _EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 # Pillow's fixed-point precision for 8-bit resampling (libImaging/Resample.c)
@@ -162,37 +167,48 @@ def _resize_bilinear(img: np.ndarray, size: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
+READ_FORMATS = ("uncompressed 24/32-bit BMP", "8-bit non-interlaced PNG",
+                "baseline JPEG")
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """An image file's bytes as uint8 (H, W, 3) RGB, by its signature:
+    BMP, PNG or JPEG, each through its own reader; ``ValueError`` for
+    anything else or a file its reader refuses."""
+    if data[:2] == b"BM":
+        pixels = _read_bmp(data)
+        if pixels is None:
+            raise ValueError("BMP: only uncompressed 24- and 32-bit files "
+                             "are read")
+        return pixels
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        return read_png(data)
+    if data[:3] == b"\xff\xd8\xff":
+        return decode_jpeg(data)
+    raise ValueError("not an image this reads (read: "
+                     + ", ".join(READ_FORMATS) + ")")
+
+
 def _decode_resize(path: str, resize_to: int) -> np.ndarray:
     """Host side: decode -> RGB -> bilinear resize to (resize_to, resize_to)
     uint8 HWC (reference: cv2 BGR->RGB + transforms.Resize((512, 512)),
-    get_dataloader.py:63-69), as the JAX package's PIL route computes it.
-    Uncompressed 24- and 32-bit BMP files need no PIL; any other format
-    raises where PIL is absent."""
+    get_dataloader.py:63-69), as the JAX package's PIL route computes it,
+    without PIL. A file ``decode_image`` does not read raises ValueError
+    naming it."""
     with open(path, "rb") as f:
         data = f.read()
-    pixels = _read_bmp(data)
-    if pixels is not None:
-        return _resize_bilinear(pixels, resize_to)
     try:
-        from PIL import Image
-    except ImportError as e:
-        jpeg = data[:3] == b"\xff\xd8\xff"
-        raise RuntimeError(
-            f"{path}: this format needs PIL"
-            + (" or the native JPEG loader (data/native_loader.py)"
-               if jpeg else "")
-            + "; only uncompressed 24- and 32-bit BMP files decode without "
-            "it") from e
-    with Image.open(path) as im:
-        im = im.convert("RGB").resize((resize_to, resize_to), Image.BILINEAR)
-        return np.asarray(im, dtype=np.uint8)
+        pixels = decode_image(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from e
+    return _resize_bilinear(pixels, resize_to)
 
 
 class ImageFolderDataset:
     """Decoded and staged images of a directory. Batches go through the
-    native loader (threaded libjpeg decode + resize, native/loader.cpp)
-    where it is available, with ``_decode_resize`` for any file it fails
-    on."""
+    native loader (threaded JPEG decode + resize, native/loader.cpp) where
+    it is available, with ``_decode_resize`` for every file that is not a
+    JPEG it read."""
 
     def __init__(self, root: str, resize_to: int = 512, recursive: bool = True,
                  use_native: bool = True):

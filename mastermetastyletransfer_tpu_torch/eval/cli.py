@@ -11,7 +11,7 @@ train-state checkpoints, utils/checkpoint.py; the port reads no Orbax
 directory), sweeps the full content x style grid at the given transformer
 depth, prints the loss statistics (mean and std of
 total/content/style[/similarity], the numbers goals.txt compares with the
-paper), and optionally writes the stylized images as PNG.
+paper), and optionally writes the stylized images as JPEG.
 ``--use_pallas`` keeps its JAX name: it turns on the port's CUDA kernels in
 every stage. ``--device`` (default cuda) places the run.
 """

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from mastermetastyletransfer_tpu_torch.config import ExperimentConfig
+from mastermetastyletransfer_tpu_torch.data.native_loader import encode_jpeg
 from mastermetastyletransfer_tpu_torch.data.pipeline import (
     _decode_resize, list_images,
 )
@@ -33,7 +34,6 @@ from mastermetastyletransfer_tpu_torch.train.step import (
     _loss_views, _precision, prepare_batch_for_model,
 )
 from mastermetastyletransfer_tpu_torch.utils.device import require_device
-from mastermetastyletransfer_tpu_torch.utils.png import save_png
 
 
 @dataclasses.dataclass
@@ -85,7 +85,7 @@ def evaluate_grid(params: dict, vgg_params: dict, cfg: ExperimentConfig, *,
     [0, 1]; ``params`` and ``vgg_params`` live on ``device``. The styles
     are padded with zero images to a multiple of ``style_batch``, so that
     every call has one shape; a padded style never reaches the report. A
-    pair's stylized image goes to ``save_images_to/{content}__{style}.png``
+    pair's stylized image goes to ``save_images_to/{content}__{style}.jpg``
     (reference: test_model.py:101-199, per pair)."""
     device = require_device(device)
     C, S = content_images.shape[0], style_images.shape[0]
@@ -144,7 +144,7 @@ def evaluate_grid(params: dict, vgg_params: dict, cfg: ExperimentConfig, *,
                         _save_image(out[j], os.path.join(
                             save_images_to,
                             f"{_stem(content_names[ci])}__"
-                            f"{_stem(style_names[si])}.png"))
+                            f"{_stem(style_names[si])}.jpg"))
     return report
 
 
@@ -153,5 +153,9 @@ def _stem(p: str) -> str:
 
 
 def _save_image(img01: np.ndarray, path: str) -> None:
-    """8-bit PNG (the JAX package writes JPEG at quality 95 through PIL)."""
-    save_png(path, img01)
+    """JPEG at quality 95 through the port's own encoder, as the JAX
+    package writes it through PIL (values scaled by 255, clipped,
+    truncated)."""
+    with open(path, "wb") as f:
+        f.write(encode_jpeg(np.clip(img01 * 255.0, 0, 255).astype(np.uint8),
+                            95))

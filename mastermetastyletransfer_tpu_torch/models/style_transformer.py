@@ -10,7 +10,11 @@ partitioned into rolled, padded windows once, all k iterations run in the
 (B, nW, N, C) layout through the evaluation kernels -- the block kernel K2
 for the encoder Key block and the decoder self block (ops/window_block.py),
 K3 for the encoder's Scale/Shift update and K4 for the decoder tail
-(ops/style_block.py) -- and the result is merged once.
+(ops/style_block.py) -- and the result is merged once. Its split route
+(``fuse_iteration=False``) runs the Scale/Shift update and the tail as K9
+and K10 instead (ops/window_attention.py, ops/ln_mlp.py), and a decoder
+without its self-block MLP (``decoder_exclude_MLP_after_Fcs_self_MHA``)
+runs its self attention as K8, in either route.
 
 Otherwise (training, or a configuration the windowed gate refuses) the
 generic path runs every attention through its own pad/roll/partition round
@@ -48,7 +52,12 @@ from mastermetastyletransfer_tpu_torch.ops.mlp import (
 from mastermetastyletransfer_tpu_torch.ops.norm import (
     instance_norm, layer_norm,
 )
-from mastermetastyletransfer_tpu_torch.ops.windows import valid_token_mask
+from mastermetastyletransfer_tpu_torch.ops.window_attention import (
+    window_attention, window_attention_dual,
+)
+from mastermetastyletransfer_tpu_torch.ops.windows import (
+    relative_position_bias, valid_token_mask,
+)
 
 
 def _norm_params(d: int) -> dict:
@@ -365,12 +374,16 @@ def _windowed_machinery(params: dict, cfg: StyleTransformerConfig,
     encoder: (Key, Scale, Shift) -> the updated triple; decoder: (Fcs, Key,
     Scale, Shift) -> Fcs'; all (B, nW, N, C). Shared by the interleaved path
     and the style-stream API (the encoder triple evolves from the style
-    alone)."""
-    if fuse_iteration is False:
-        raise NotImplementedError(
-            "fuse_iteration=False (the JAX package's float32 split route "
-            "through K9 and K10) is not wired into the windowed path yet; "
-            "the port fuses the iteration (K3, K4) at both dtypes")
+    alone).
+
+    ``fuse_iteration`` picks the route of the Scale/Shift update and the
+    decoder tail: fused, K3 and K4; split, K9 and K10 as the JAX package's
+    ``:592-604`` and ``:673-683``. None fuses at both dtypes. The JAX
+    package fuses only at 2-byte dtypes because at f32 its fused kernels
+    overflow the TPU's 16 MB of scoped VMEM; the card has no such limit,
+    so its default waits for the two routes' measured times."""
+    if fuse_iteration is None:
+        fuse_iteration = True
     window = cfg.encoder_attn().window_size
     wh, ww = window
     heads_e, heads_d = cfg.encoder_num_heads, cfg.decoder_num_heads
@@ -391,6 +404,12 @@ def _windowed_machinery(params: dict, cfg: StyleTransformerConfig,
     def kernel_args(heads):
         return dict(heads=heads, mask=mask, padmask=padmask)
 
+    def rel_bias(attn):
+        """K8's and K9's bias (heads, N, N); they take only the shift mask,
+        the pad tokens reaching them re-zeroed by zp, as in JAX."""
+        return relative_position_bias(attn["rel_bias_table"], wh,
+                                      ww).float().contiguous()
+
     enc, dec = params["encoder"], params["decoder"]
     e_attn = enc["shared_mha"]["attn"]
     n1p = enc["shared_mha"].get("norm1") if cfg.encoder_use_norm else None
@@ -399,16 +418,35 @@ def _windowed_machinery(params: dict, cfg: StyleTransformerConfig,
     key_w = window_block.block_weights(
         {"attn": e_attn, "mlp": enc["mlp_key"], "norm1": n1p}, window, dtype,
         n1p is not None, norm2=False)
-    ss_w = style_block.encoder_weights(e_attn, enc["mlp_scale"],
-                                       enc["mlp_shift"], n1p, window, dtype)
 
     def key_block(Key):
         return window_block.window_block_windows(Key, key_w,
                                                  **kernel_args(heads_e))
 
-    def scale_shift(Key, Scale, Shift):
-        return style_block.encoder_scale_shift(Key, Scale, Shift, ss_w,
-                                               **kernel_args(heads_e))
+    if fuse_iteration:
+        ss_w = style_block.encoder_weights(e_attn, enc["mlp_scale"],
+                                           enc["mlp_shift"], n1p, window,
+                                           dtype)
+
+        def scale_shift(Key, Scale, Shift):
+            return style_block.encoder_scale_shift(Key, Scale, Shift, ss_w,
+                                                   **kernel_args(heads_e))
+    else:
+        bias_e = rel_bias(e_attn)
+        shared = {"wv_scale": e_attn["wv"], "wv_shift": e_attn["wv"],
+                  "proj": e_attn["proj"]}
+
+        def ln_e(t):
+            return t if n1p is None else layer_norm(t, n1p["scale"],
+                                                    n1p["bias"])
+
+        def scale_shift(Key, Scale, Shift):
+            qk = zp(ln_e(Key))
+            a1, a2 = window_attention_dual(
+                shared, linear(e_attn["wq"], qk), linear(e_attn["wk"], qk),
+                zp(ln_e(Scale)), zp(ln_e(Shift)), bias_e, mask, heads_e)
+            return (ln_mlp_residual(Scale + a1, enc["mlp_scale"]),
+                    ln_mlp_residual(Shift + a2, enc["mlp_shift"]))
 
     def encoder(Key, Scale, Shift):
         if cfg.encoder_if_use_processed_Key_in_Scale_and_Shift_calculation:
@@ -420,11 +458,39 @@ def _windowed_machinery(params: dict, cfg: StyleTransformerConfig,
         return Key, Scale, Shift
 
     d_self, d_dual = dec["self_mha"], dec["dual_mha"]
-    self_w = (None if cfg.decoder_exclude_MLP_after_Fcs_self_MHA
-              else window_block.block_weights(d_self, window, dtype,
-                                              cfg.decoder_use_norm))
-    tail_w = style_block.decoder_tail_weights(d_dual, dec["last_mlp"],
-                                              window, dtype)
+    if cfg.decoder_exclude_MLP_after_Fcs_self_MHA:
+        # The self attention and its residual alone (JAX :628-637).
+        bias_self = rel_bias(d_self["attn"])
+        dn1 = d_self.get("norm1") if cfg.decoder_use_norm else None
+
+        def self_block(Fcs):
+            x = zp(Fcs if dn1 is None
+                   else layer_norm(Fcs, dn1["scale"], dn1["bias"]))
+            return Fcs + window_attention(d_self["attn"], x, x, x, bias_self,
+                                          mask, heads_d)
+    else:
+        self_w = window_block.block_weights(d_self, window, dtype,
+                                            cfg.decoder_use_norm)
+
+        def self_block(Fcs):
+            return window_block.window_block_windows(Fcs, self_w,
+                                                     **kernel_args(heads_d))
+
+    if fuse_iteration:
+        tail_w = style_block.decoder_tail_weights(d_dual, dec["last_mlp"],
+                                                  window, dtype)
+
+        def tail(q, kk, Scale, Shift, Query):
+            return style_block.decoder_tail(q, kk, Scale, Shift, Query,
+                                            tail_w, **kernel_args(heads_d))
+    else:
+        bias_dual = rel_bias(d_dual)
+
+        def tail(q, kk, Scale, Shift, Query):
+            sigma, mu = window_attention_dual(d_dual, q, kk, zp(Scale),
+                                              zp(Shift), bias_dual, mask,
+                                              heads_d)
+            return ln_mlp_residual(Query * sigma + mu, dec["last_mlp"])
     affine = cfg.decoder_use_instance_norm_with_affine
 
     def affine_of(which):
@@ -436,13 +502,7 @@ def _windowed_machinery(params: dict, cfg: StyleTransformerConfig,
         return _masked_instance_norm(x4, vm, count, **affine_of(which))
 
     def decoder(Fcs, Key, Scale, Shift):
-        if self_w is None:
-            raise NotImplementedError(
-                "decoder_exclude_MLP_after_Fcs_self_MHA (the decoder's self "
-                "attention through K8) is not wired into the windowed path "
-                "yet")
-        Query = window_block.window_block_windows(Fcs, self_w,
-                                                  **kernel_args(heads_d))
+        Query = self_block(Fcs)
         # The entry INs see the un-padded image: masked statistics
         # (reference: codes/style_transformer.py:1053-1057).
         query_in = in_masked(Query, "in_q")
@@ -457,8 +517,7 @@ def _windowed_machinery(params: dict, cfg: StyleTransformerConfig,
                                **affine_of("in_k")).reshape(kk.shape)
         else:
             kk = linear(d_dual["wk"], zp(in_masked(key_in, "in_k")))
-        return style_block.decoder_tail(q, kk, Scale, Shift, Query, tail_w,
-                                        **kernel_args(heads_d))
+        return tail(q, kk, Scale, Shift, Query)
 
     return encoder, decoder
 

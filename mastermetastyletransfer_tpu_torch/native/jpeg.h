@@ -1,0 +1,33 @@
+// Baseline JPEG decoder and encoder of the port's own (native/jpeg.cpp),
+// shared by the batch loader (native/loader.cpp) and the C ABI that
+// data/native_loader.py binds with ctypes. No library beyond libstdc++.
+
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+#include <string>
+#include <vector>
+
+namespace mmst_jpeg {
+
+// The frame size of a baseline (SOF0/SOF1, Huffman, 8-bit) grayscale or
+// 3-component JPEG, from its markers up to the frame header. Throws
+// std::runtime_error naming what is wrong or unsupported (e.g.
+// "progressive JPEG (SOF2) is not supported"), a frame above the
+// decompression-bomb limit included.
+void info(const uint8_t* data, size_t size, int* width, int* height);
+
+// Decode such a JPEG, of the width and height that info gave, to RGB8 in
+// rgb (height x width x 3, rows top to bottom). Throws as info does, and
+// for a corrupt or truncated scan.
+void decode(const uint8_t* data, size_t size, uint8_t* rgb, int width,
+            int height);
+
+// Encode RGB8 (height x width x 3) as a baseline 4:2:0 JFIF at `quality`
+// (1-100, IJG scaling of the standard tables), standard Huffman tables:
+// the bytes libjpeg writes with its defaults at that quality.
+std::vector<uint8_t> encode(const uint8_t* rgb, int width, int height,
+                            int quality);
+
+}  // namespace mmst_jpeg

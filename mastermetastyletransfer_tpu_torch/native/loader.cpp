@@ -2,90 +2,50 @@
 //
 // The reference's ingest path is cv2.imread + torchvision Resize inside
 // torch DataLoader workers (reference: codes/get_dataloader.py:63-69,
-// train.py:355-378). Here libjpeg decode and resize to the fixed staging
-// size run in C++ worker threads, handing the Python side one contiguous
-// uint8 (N, S, S, 3) batch ready for upload (the crop and the scaling to
-// [0, 1] happen on the device, data/pipeline.py).
+// train.py:355-378). Here the port's own baseline JPEG decoder
+// (native/jpeg.cpp, libjpeg's default arithmetic, no library) and the
+// resize to the fixed staging size run in C++ worker threads, handing the
+// Python side one contiguous uint8 (N, S, S, 3) batch ready for upload (the
+// crop and the scaling to [0, 1] happen on the device, data/pipeline.py).
+// Each image decodes at full size: the JAX package's loader asks libjpeg
+// for a DCT-domain prescale to the smallest 1/8..8/8 scale that covers the
+// target, which this decoder does not offer yet.
 //
 // C ABI only, consumed through ctypes. Built at first use by
 // data/native_loader.py:
 //   g++ -O3 -march=native -shared -fPIC -o build/libmmst_loader-<hash>.so
-//       loader.cpp -ljpeg -lpthread
-
-#include <cstddef>
-#include <cstdio>
-
-#include <jpeglib.h>
+//       loader.cpp jpeg.cpp -lpthread
 
 #include <atomic>
-#include <csetjmp>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <stdexcept>
 #include <thread>
 #include <vector>
 
+#include "jpeg.h"
+
 namespace {
 
-struct JpegErr {
-  jpeg_error_mgr mgr;
-  jmp_buf jmp;
-};
-
-void jpeg_err_exit(j_common_ptr cinfo) {
-  JpegErr* err = reinterpret_cast<JpegErr*>(cinfo->err);
-  longjmp(err->jmp, 1);
-}
-
-// Decode one JPEG file to RGB8 (optionally DCT-prescaled to cover `target`).
-// Returns true on success.
+// Decode one JPEG file to RGB8. Returns true on success.
 bool decode_jpeg(const char* path, std::vector<uint8_t>* pixels, int* w,
-                 int* h, int target) {
-  FILE* f = fopen(path, "rb");
+                 int* h) {
+  FILE* f = std::fopen(path, "rb");
   if (!f) return false;
-
-  jpeg_decompress_struct cinfo;
-  JpegErr jerr;
-  cinfo.err = jpeg_std_error(&jerr.mgr);
-  jerr.mgr.error_exit = jpeg_err_exit;
-  if (setjmp(jerr.jmp)) {
-    jpeg_destroy_decompress(&cinfo);
-    fclose(f);
+  std::vector<uint8_t> bytes;
+  uint8_t chunk[1 << 16];
+  size_t got;
+  while ((got = std::fread(chunk, 1, sizeof(chunk), f)) > 0)
+    bytes.insert(bytes.end(), chunk, chunk + got);
+  std::fclose(f);
+  try {
+    mmst_jpeg::info(bytes.data(), bytes.size(), w, h);
+    pixels->resize(size_t(*w) * *h * 3);
+    mmst_jpeg::decode(bytes.data(), bytes.size(), pixels->data(), *w, *h);
+  } catch (const std::exception&) {
     return false;
   }
-  jpeg_create_decompress(&cinfo);
-  jpeg_stdio_src(&cinfo, f);
-  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK) {
-    jpeg_destroy_decompress(&cinfo);
-    fclose(f);
-    return false;
-  }
-  cinfo.out_color_space = JCS_RGB;
-  // DCT-domain prescale: decode at the smallest 1/8..8/8 scale that still
-  // covers the resize target (huge win on large sources, e.g. WikiArt
-  // scans; the reference's cv2 path decodes at full size).
-  if (target > 0) {
-    int num = 8;
-    while (num > 1 &&
-           (cinfo.image_width * (num - 1)) / 8 >= JDIMENSION(target) &&
-           (cinfo.image_height * (num - 1)) / 8 >= JDIMENSION(target)) {
-      --num;
-    }
-    cinfo.scale_num = num;
-    cinfo.scale_denom = 8;
-  }
-  jpeg_start_decompress(&cinfo);
-  *w = cinfo.output_width;
-  *h = cinfo.output_height;
-  pixels->resize(size_t(*w) * (*h) * 3);
-  const size_t stride = size_t(*w) * 3;
-  while (cinfo.output_scanline < cinfo.output_height) {
-    uint8_t* row = pixels->data() + size_t(cinfo.output_scanline) * stride;
-    jpeg_read_scanlines(&cinfo, &row, 1);
-  }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  fclose(f);
   return true;
 }
 
@@ -126,7 +86,8 @@ extern "C" {
 
 // Decode `n` JPEG files and resize each to (resize_to, resize_to, 3) uint8,
 // writing into `out` (n * resize_to * resize_to * 3 bytes, caller-owned).
-// ok[i] = 1 on success, 0 on failure (caller falls back per-file).
+// ok[i] = 1 on success, 0 on failure (the caller decodes that file
+// itself, by its format).
 // Returns the number of successfully decoded images.
 int mmst_decode_resize_batch(const char** paths, int n, uint8_t* out,
                              int resize_to, int n_threads, uint8_t* ok) {
@@ -140,7 +101,7 @@ int mmst_decode_resize_batch(const char** paths, int n, uint8_t* out,
       int i = next.fetch_add(1);
       if (i >= n) break;
       int w = 0, h = 0;
-      if (decode_jpeg(paths[i], &pixels, &w, &h, resize_to) && w > 0 && h > 0) {
+      if (decode_jpeg(paths[i], &pixels, &w, &h) && w > 0 && h > 0) {
         resize_bilinear(pixels.data(), w, h, out + size_t(i) * img_bytes,
                         resize_to);
         ok[i] = 1;
@@ -160,6 +121,6 @@ int mmst_decode_resize_batch(const char** paths, int n, uint8_t* out,
   return good.load();
 }
 
-int mmst_loader_version() { return 1; }
+int mmst_loader_version() { return 2; }
 
 }  // extern "C"

@@ -20,16 +20,19 @@ short window are stacked into one device batch.
       POST /sweep?k=1 (content and style) -> JSON {"lambda2": <base64
       JPEG>, ...}
 
-The model runs on CUDA unless ``--device cpu`` is given. JPEG decoding and
-encoding use PIL, imported only by the two codec functions: the services
-(``StylizeService``, ``LockedStyleService``, ``SweepService``) take and
-return numpy arrays.
+The model runs on CUDA unless ``--device cpu`` is given. Request bodies
+(and ``--locked_style`` files) are read without PIL: baseline JPEG by the
+port's own decoder (native/jpeg.cpp), PNG and uncompressed BMP in numpy
+(``data.pipeline.decode_image``), each then resized with Pillow's BILINEAR
+in numpy, so a request decodes to the JAX package's array. Replies are
+JPEG at quality 95 from the port's own encoder. A body none of the readers
+reads gets a 400. The services (``StylizeService``, ``LockedStyleService``,
+``SweepService``) take and return numpy arrays.
 """
 
 from __future__ import annotations
 
 import argparse
-import io
 import json
 import queue
 import threading
@@ -41,6 +44,10 @@ import numpy as np
 import torch
 
 from mastermetastyletransfer_tpu_torch.config import ModelConfig
+from mastermetastyletransfer_tpu_torch.data.native_loader import encode_jpeg
+from mastermetastyletransfer_tpu_torch.data.pipeline import (
+    _resize_bilinear, decode_image,
+)
 from mastermetastyletransfer_tpu_torch.inference import make_lambda_sweep_fn
 from mastermetastyletransfer_tpu_torch.models.master import (
     encode_style_stream, make_stylize_fn, stylize_with_style_stream,
@@ -284,20 +291,17 @@ class SweepService:
 
 
 def _decode_to(size: int, data: bytes) -> np.ndarray:
-    from PIL import Image
-
-    with Image.open(io.BytesIO(data)) as im:
-        im = im.convert("RGB").resize((size, size), Image.BILINEAR)
-        return np.asarray(im, np.float32) / 255.0
+    """An image body as float32 (size, size, 3) in [0, 1]: decoded,
+    resized with Pillow's BILINEAR (JAX: PIL's convert("RGB").resize);
+    ValueError for a body no reader reads."""
+    pixels = _resize_bilinear(decode_image(data), size)
+    return pixels.astype(np.float32) / 255.0
 
 
 def _encode_jpeg(img01: np.ndarray) -> bytes:
-    from PIL import Image
-
-    buf = io.BytesIO()
-    Image.fromarray(np.clip(img01 * 255, 0, 255).astype(np.uint8)).save(
-        buf, "JPEG", quality=95)
-    return buf.getvalue()
+    """A [0, 1] image as JPEG at quality 95 (values scaled by 255, clipped,
+    truncated, as the JAX package hands them to PIL)."""
+    return encode_jpeg(np.clip(img01 * 255, 0, 255).astype(np.uint8), 95)
 
 
 def _parse_multipart(body: bytes, boundary: bytes) -> dict:
@@ -318,6 +322,17 @@ def _parse_multipart(body: bytes, boundary: bytes) -> dict:
             if field in head:
                 parts[field.split(b'"')[1].decode()] = payload
     return parts
+
+
+class _BadImage(ValueError):
+    """A request part no reader reads: the client's fault, a 400."""
+
+
+def _decode_part(size: int, parts: dict, name: str) -> np.ndarray:
+    try:
+        return _decode_to(size, parts[name])
+    except ValueError as e:
+        raise _BadImage(f"part {name!r}: {e}") from e
 
 
 def make_handler(services: Dict[int, StylizeService], default_k: int, *,
@@ -386,6 +401,8 @@ def make_handler(services: Dict[int, StylizeService], default_k: int, *,
                     self._sweep(k)
                 else:
                     self._stylize(k)
+            except _BadImage as e:
+                self._bad(str(e))
             except Exception as e:  # report, keep serving
                 self._reply(500, f"{type(e).__name__}: {e}".encode(),
                             "text/plain")
@@ -400,8 +417,8 @@ def make_handler(services: Dict[int, StylizeService], default_k: int, *,
                           "'style' parts")
                 return
             out = services[k].stylize(
-                _decode_to(any_service.size, parts["content"]),
-                _decode_to(any_service.size, parts["style"]))
+                _decode_part(any_service.size, parts, "content"),
+                _decode_part(any_service.size, parts, "style"))
             self._reply(200, _encode_jpeg(out), "image/jpeg")
 
         def _locked(self, k: int, query: dict):
@@ -414,7 +431,7 @@ def make_handler(services: Dict[int, StylizeService], default_k: int, *,
                           "part")
                 return
             name = query.get("style", [locked_service.names[0]])[0]
-            content = _decode_to(locked_service.size, parts["content"])
+            content = _decode_part(locked_service.size, parts, "content")
             try:
                 out = locked_service.stylize(content, name, k=k)
             except KeyError as e:
@@ -435,8 +452,8 @@ def make_handler(services: Dict[int, StylizeService], default_k: int, *,
                 return
             try:
                 outs = sweep_service.sweep(
-                    _decode_to(sweep_service.size, parts["content"]),
-                    _decode_to(sweep_service.size, parts["style"]), k=k)
+                    _decode_part(sweep_service.size, parts, "content"),
+                    _decode_part(sweep_service.size, parts, "style"), k=k)
             except KeyError as e:
                 self._bad(str(e))
                 return

@@ -1,7 +1,14 @@
-"""The port's image writer: 8-bit RGB PNG with the standard library and
-numpy (the machine with the card has no PIL). The trainer's dumps, the eval
-grid's stylized images and the adaptation CLI's outputs all go through it;
-the JAX package writes the last two as JPEG (quality 95) through PIL.
+"""The port's PNG reader and writer, with the standard library and numpy
+(the machine with the card has no PIL).
+
+``read_png`` reads what PIL's ``convert("RGB")`` reads from a
+non-interlaced 8-bit PNG of colour type 0 (grey), 2 (RGB), 3 (palette), 4
+(grey + alpha) or 6 (RGBA), all five row filters, bit for bit; the alpha
+channel is dropped, grey replicated, a palette looked up. An interlaced
+(Adam7) or 16-bit file, or another bit depth, raises ``ValueError``, and
+so does one above PIL's decompression-bomb limit (``MAX_PIXELS``), before
+its image data is inflated.
+``png_bytes`` writes 8-bit RGB; the trainer's dumps go through it.
 """
 
 from __future__ import annotations
@@ -10,6 +17,133 @@ import struct
 import zlib
 
 import numpy as np
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> channels in the image data
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# PIL refuses an image above twice Image.MAX_IMAGE_PIXELS as a
+# decompression bomb; so do the port's readers (native/jpeg.cpp's kMaxPixels)
+MAX_PIXELS = 2 * 89_478_485
+
+
+def _chunks(data: bytes):
+    """(kind, body) of each chunk, CRCs checked."""
+    pos = len(_SIGNATURE)
+    while pos + 12 <= len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        if len(body) != n or pos + 12 + n > len(data):
+            raise ValueError("PNG: truncated chunk")
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"PNG: bad CRC in chunk {kind!r}")
+        yield kind, body
+        if kind == b"IEND":
+            return
+        pos += 12 + n
+    raise ValueError("PNG: no IEND chunk")
+
+
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters (PNG spec 9.2) of (h, 1 + stride) bytes:
+    0 none, 1 Sub, 2 Up, 3 Average, 4 Paeth, every row by its own. Rows
+    of the first three only (what ``png_bytes`` and most writers give)
+    are undone a row at a time, the others by ``_unfilter_sweep``."""
+    kinds = raw[:, 0].astype(np.int32)
+    if kinds.max(initial=0) > 4:
+        raise ValueError(f"PNG: unknown row filter {int(kinds.max())}")
+    w = stride // bpp
+    filt = raw[:, 1:].reshape(h, w, bpp).astype(np.int32)
+    if (kinds >= 3).any():
+        return _unfilter_sweep(filt, kinds)
+    return _unfilter_rows(filt, kinds)
+
+
+def _unfilter_rows(filt: np.ndarray, kinds: np.ndarray) -> np.ndarray:
+    """None, Sub and Up rows of (h, w, bpp) filtered bytes: each row is its
+    bytes, their cumulative sum (Sub) or the row above plus them (Up), a
+    row at a time (h steps). The http phase of chip_smoke.py times it
+    against ``_unfilter_sweep`` on its PNG body (PERF.md)."""
+    h, w, bpp = filt.shape
+    out = np.zeros((h + 1, w, bpp), np.int32)   # a zero row above
+    for r in range(h):
+        f = filt[r]
+        row = (f + out[r] if kinds[r] == 2 else
+               np.cumsum(f, axis=0) if kinds[r] == 1 else f)
+        out[r + 1] = row & 0xFF
+    return out[1:].astype(np.uint8)
+
+
+def _unfilter_sweep(filt: np.ndarray, kinds: np.ndarray) -> np.ndarray:
+    """Rows of any filter in (h, w, bpp) filtered bytes. Each reconstructed
+    byte depends on its left, upper and upper-left neighbours, so the bytes
+    are rebuilt an anti-diagonal of pixels at a time (h + w - 1 steps,
+    each vectorized)."""
+    h, w, bpp = filt.shape
+    out = np.zeros((h + 1, w + 1, bpp), np.int32)   # a zero row and column
+    for d in range(h + w - 1):
+        r = np.arange(max(0, d - w + 1), min(d, h - 1) + 1)
+        x = d - r
+        a, b, c = out[r + 1, x], out[r, x + 1], out[r, x]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, b, c))
+        k = kinds[r][:, None]
+        pred = np.select([k == 1, k == 2, k == 3, k == 4],
+                         [a, b, (a + b) >> 1, paeth], 0)
+        out[r + 1, x + 1] = (filt[r, x] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8)
+
+
+def read_png(data: bytes) -> np.ndarray:
+    """A PNG's pixels as uint8 (H, W, 3) RGB, as PIL's convert("RGB")
+    gives them."""
+    if data[:8] != _SIGNATURE:
+        raise ValueError("not a PNG (no signature)")
+    header, palette, idat = None, None, []
+    for kind, body in _chunks(data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ValueError("PNG: no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = header
+    if interlace:
+        raise ValueError("PNG: interlaced (Adam7) files are not read")
+    if ctype not in _CHANNELS:
+        raise ValueError(f"PNG: unknown colour type {ctype}")
+    if depth != 8:
+        raise ValueError(f"PNG: {depth}-bit files are not read (8-bit "
+                         "only)")
+    if w * h > MAX_PIXELS:
+        raise ValueError(f"PNG of {w}x{h} pixels is above the limit of "
+                         f"{MAX_PIXELS} (a decompression bomb)")
+    channels = _CHANNELS[ctype]
+    stride = w * channels
+    try:   # inflated no further than the image needs
+        raw = zlib.decompressobj().decompress(b"".join(idat),
+                                              h * (stride + 1))
+    except zlib.error as e:
+        raise ValueError(f"PNG: bad image data ({e})") from None
+    raw = np.frombuffer(raw, np.uint8)
+    if raw.size < h * (stride + 1):
+        raise ValueError("PNG: truncated image data")
+    px = _unfilter(raw[:h * (stride + 1)].reshape(h, stride + 1), h, stride,
+                   channels)
+    if ctype == 3:
+        if palette is None:
+            raise ValueError("PNG: palette image without PLTE")
+        full = np.zeros((256, 3), np.uint8)   # PIL pads the palette with 0
+        full[:len(palette)] = palette[:256]
+        return full[px[:, :, 0]]
+    if ctype in (0, 4):
+        return np.repeat(px[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(px[:, :, :3])
 
 
 def png_bytes(rgb: np.ndarray) -> bytes:
@@ -23,7 +157,7 @@ def png_bytes(rgb: np.ndarray) -> bytes:
 
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
                            np.ascontiguousarray(rgb).reshape(h, w * 3)], 1)
-    return (b"\x89PNG\r\n\x1a\n"
+    return (_SIGNATURE
             + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(rows.tobytes()))
             + chunk(b"IEND", b""))

@@ -5,12 +5,13 @@ on (their plain versions), a .npz checkpoint and VGG19 .npz.
 ``adapted.npz`` equals ``adapt_to_style`` called on the same inputs, bit
 for bit (``adapt_to_style`` is held to JAX's by tests/test_torch_adapt.py);
 only the style transformer's encoder leaves differ from the checkpoint;
-each content's ``{stem}_stylized.png`` is ``inference.stylize``'s output
-quantised. JAX's ``adapt.main`` is not run: it fixes the full default
+each content's ``{stem}_stylized.jpg`` is ``inference.stylize``'s output
+quantised, in the bytes PIL writes at quality 95 (JAX's adapt.main). JAX's ``adapt.main`` is not run: it fixes the full default
 configuration and its own weights and k draws, and one 2-step call of it
 took 47 s on the CPU, four times this whole file.
 """
 
+import io
 import os
 
 import numpy as np
@@ -84,15 +85,19 @@ def test_only_the_style_encoder_moves(run):
 
 
 def test_one_stylized_png_per_content(run):
-    names = sorted(f for f in os.listdir(run["out"]) if f.endswith(".png"))
-    assert names == [f"photo{i}_stylized.png" for i in range(4)]
+    """One {stem}_stylized.jpg per content (the name kept from when the
+    port wrote PNG)."""
+    names = sorted(f for f in os.listdir(run["out"]) if f.endswith(".jpg"))
+    assert names == [f"photo{i}_stylized.jpg" for i in range(4)]
     style_b = torch.from_numpy(run["style"])[None]
     for f, c in zip(run["files"], run["contents"]):
         out = stylize(run["direct"], torch.from_numpy(c)[None], style_b,
                       run["cfg"].model, k=1, device="cpu")[0].numpy()
-        with Image.open(run["out"] / f"{f.stem}_stylized.png") as im:
-            assert np.array_equal(np.asarray(im), np.clip(
-                out * 255, 0, 255).astype(np.uint8)), f.name
+        buf = io.BytesIO()
+        Image.fromarray(np.clip(out * 255, 0, 255).astype(np.uint8)).save(
+            buf, "JPEG", quality=95)
+        data = (run["out"] / f"{f.stem}_stylized.jpg").read_bytes()
+        assert data == buf.getvalue(), f.name
 
 
 def test_cuda_without_a_card_raises(tmp_path):

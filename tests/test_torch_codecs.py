@@ -1,0 +1,415 @@
+"""The port's image codecs against PIL (and the JAX package's request
+decode) on the CPU: the baseline JPEG decoder and encoder of
+``native/jpeg.cpp`` through ``data/native_loader.py``, the PNG reader of
+``utils/png.py`` and ``serve._decode_to``.
+
+The JPEGs are written here by PIL (libjpeg-turbo) from numpy seeds. Bounds:
+the decoder within 1 level of PIL's pixels and equal in at least 99% of
+the samples (it computes libjpeg's own integer arithmetic, so
+every case here is equal; the share that differs is printed); the encoder's
+PSNR within 0.2 dB of PIL's own quality-95 JPEG and its size within 10%
+(it writes libjpeg's bytes, so both are equal); the PNG reader bit for bit;
+``_decode_to`` within 2/255 max and 0.3/255 mean of JAX's.
+"""
+
+import io
+import resource
+import struct
+import subprocess
+import sys
+import threading
+import zlib
+from pathlib import Path
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from mastermetastyletransfer_tpu import serve as jserve
+from mastermetastyletransfer_tpu_torch import serve as tserve
+from mastermetastyletransfer_tpu_torch.data import native_loader as tnative
+from mastermetastyletransfer_tpu_torch.data import pipeline as tpipe
+from mastermetastyletransfer_tpu_torch.utils.png import png_bytes, read_png
+from scripts import make_jpeg_fixtures
+
+FIXTURES = Path(__file__).resolve().parent / "data" / "jpeg"
+MAX_LEVELS, MIN_EQUAL = 1, 0.99
+PSNR_DB, SIZE_REL = 0.2, 0.10
+
+
+def _smooth(rng, h, w):
+    return make_jpeg_fixtures.smooth(rng, h, w)
+
+
+def _jpeg(img, **kw):
+    return make_jpeg_fixtures.jpeg(img, **kw)
+
+
+def _pil(data):
+    with Image.open(io.BytesIO(data)) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def _held_to_pil(data, label):
+    want = _pil(data)
+    got = tnative.decode_jpeg(data)
+    assert got.shape == want.shape and got.dtype == np.uint8
+    diff = np.abs(got.astype(int) - want)
+    share = float((diff > 0).mean())
+    print(f"{label}: max {diff.max()} levels, {share:.4%} of samples differ")
+    assert diff.max() <= MAX_LEVELS and share <= 1 - MIN_EQUAL, label
+
+
+# (subsampling, quality, (H, W), extra save options)
+JPEG_CASES = {
+    "444_q95": (0, 95, (48, 64), {}),
+    "422_q95": (1, 95, (48, 64), {}),
+    "420_q95": (2, 95, (48, 64), {}),
+    "420_q50": (2, 50, (48, 64), {}),
+    "444_odd": (0, 90, (37, 23), {}),
+    "422_odd": (1, 90, (37, 23), {}),
+    "420_odd": (2, 90, (37, 23), {}),
+    "420_thin": (2, 90, (3, 70), {}),
+    "420_restart_blocks": (2, 85, (40, 56), {"restart_marker_blocks": 3}),
+    "422_restart_rows": (1, 85, (40, 56), {"restart_marker_rows": 1}),
+    "420_noise": (2, 75, (33, 45), {}),
+}
+
+
+@pytest.mark.parametrize("case", list(JPEG_CASES))
+def test_jpeg_decoder_matches_pil(case):
+    sub, quality, (h, w), kw = JPEG_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    img = (rng.integers(0, 256, (h, w, 3), np.uint8) if "noise" in case
+           else _smooth(rng, h, w))
+    _held_to_pil(_jpeg(img, quality=quality, subsampling=sub, **kw), case)
+
+
+@pytest.mark.parametrize("hw", [(48, 64), (37, 23), (5, 3)])
+def test_jpeg_decoder_matches_pil_at_440(hw):
+    """4:4:0 (h1v2 fancy upsampling): PIL's 4:2:2 file of the transposed
+    size with its frame header rewritten (scripts/make_jpeg_fixtures.py)."""
+    rng = np.random.default_rng(hw[0])
+    data = make_jpeg_fixtures.as_440(
+        _jpeg(_smooth(rng, hw[1], hw[0]), quality=90, subsampling=1))
+    assert _pil(data).shape == hw + (3,)
+    _held_to_pil(data, f"440 {hw}")
+
+
+@pytest.mark.parametrize("quality", [50, 95])
+def test_jpeg_decoder_matches_pil_on_grayscale(quality):
+    rng = np.random.default_rng(quality)
+    gray = np.asarray(Image.fromarray(_smooth(rng, 37, 41)).convert("L"))
+    _held_to_pil(_jpeg(gray, quality=quality), f"gray q{quality}")
+
+
+def test_jpeg_decoder_refuses_what_it_does_not_read():
+    img = _smooth(np.random.default_rng(1), 32, 32)
+    with pytest.raises(ValueError, match=r"progressive JPEG \(SOF2\)"):
+        tnative.decode_jpeg(_jpeg(img, quality=90, progressive=True))
+    data = _jpeg(img, quality=90)
+    for broken in (data[:len(data) // 3], b"\xff\xd8\xff\xd9",
+                   b"not a jpeg"):
+        with pytest.raises(ValueError, match="JPEG"):
+            tnative.decode_jpeg(broken)
+    # the arithmetic-coded and lossless frame markers are named too
+    for marker, kind in ((0xC9, "arithmetic-coded"), (0xC3, "lossless")):
+        patched = data.replace(b"\xff\xc0", bytes([0xFF, marker]), 1)
+        with pytest.raises(ValueError, match=f"{kind} JPEG"):
+            tnative.decode_jpeg(patched)
+
+
+def with_frame_size(data: bytes, h: int, w: int) -> bytes:
+    """A JPEG whose frame header (SOF0) claims h x w pixels."""
+    i = data.index(b"\xff\xc0")
+    return data[:i + 5] + struct.pack(">HH", h, w) + data[i + 9:]
+
+
+def with_dc_symbol(data: bytes, symbol: int) -> bytes:
+    """A JPEG whose first DC Huffman table has ``symbol`` as its first
+    value (a DC symbol is a coefficient's bit length: 15 at the most)."""
+    i = data.index(b"\xff\xc4")
+    assert data[i + 4] == 0x00   # class 0 (DC), table 0
+    return data[:i + 21] + bytes([symbol]) + data[i + 22:]
+
+
+def bomb_bodies() -> dict:
+    """Small JPEGs that claim what no request may make the decoder
+    allocate, each with the reason it is refused: frames above PIL's
+    decompression-bomb limit (2 x 89,478,485 pixels), a frame far larger
+    than its bytes could code, and a DC table symbol of 200."""
+    data = _jpeg(_smooth(np.random.default_rng(11), 32, 32), quality=90)
+    return {
+        "65535x65535": (with_frame_size(data, 65535, 65535),
+                        "decompression bomb"),
+        "above_limit": (with_frame_size(data, 10923, 16384),
+                        "decompression bomb"),
+        "short_data": (with_frame_size(data, 4000, 4000),
+                       "cannot hold a 4000x4000 frame"),
+        "dc_symbol_200": (with_dc_symbol(data, 200), "DC symbol above 15"),
+    }
+
+
+def _max_rss_mb() -> float:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+@pytest.mark.parametrize("case", list(bomb_bodies()))
+def test_jpeg_decoder_refuses_bombs_before_allocating(case):
+    """A 1 KB body may not make the decoder allocate its claimed frame:
+    each is refused with its reason, the process's peak memory unmoved
+    (65535^2 would be some 13 GB of planes)."""
+    data, why = bomb_bodies()[case]
+    assert len(data) < 2000
+    tnative.decode_jpeg(_jpeg(_smooth(np.random.default_rng(1), 8, 8)))
+    before = _max_rss_mb()
+    with pytest.raises(ValueError, match=why):
+        tnative.decode_jpeg(data)
+    assert _max_rss_mb() - before < 64
+
+
+@pytest.mark.parametrize("symbol", [15, 16])
+def test_jpeg_decoder_dc_symbols_up_to_15(symbol):
+    """libjpeg's bound on a DC table: 15 is read (the file then decodes as
+    far as its codes allow), 16 is refused."""
+    data = with_dc_symbol(
+        _jpeg(_smooth(np.random.default_rng(12), 16, 16), quality=90),
+        symbol)
+    if symbol > 15:
+        with pytest.raises(ValueError, match="DC symbol above 15"):
+            tnative.decode_jpeg(data)
+    else:
+        assert tnative.decode_jpeg(data).shape == (16, 16, 3)
+
+
+def test_fixtures_decode_to_their_stored_pixels():
+    """The card's fixtures: PIL decodes each to the stored pixels, and so
+    does the port's decoder (what chip_smoke.py's codecs phase checks)."""
+    stored = np.load(FIXTURES / "pixels.npz")
+    names = sorted(p.stem for p in FIXTURES.glob("*.jpg"))
+    assert names == sorted(stored.files) and len(names) == 7
+    total = sum(p.stat().st_size for p in FIXTURES.iterdir())
+    assert total < 200_000, total
+    for name in names:
+        data = (FIXTURES / f"{name}.jpg").read_bytes()
+        assert np.array_equal(_pil(data), stored[name]), name
+        assert np.array_equal(tnative.decode_jpeg(data), stored[name]), name
+
+
+def _psnr(a, b):
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return 10 * np.log10(255.0 ** 2 / mse)
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (61, 97), (100, 33), (1, 1)])
+def test_jpeg_encoder_against_pil(hw):
+    """PIL reads the port's quality-95 JPEG; its PSNR and size against
+    PIL's own are within the bounds (and the bytes are PIL's)."""
+    rng = np.random.default_rng(hw[0] * 3 + hw[1])
+    img = _smooth(rng, *hw)
+    ours = tnative.encode_jpeg(img, 95)
+    pils = _jpeg(img, quality=95)
+    with Image.open(io.BytesIO(ours)) as im:
+        assert im.format == "JPEG" and im.size == (hw[1], hw[0])
+        decoded = np.asarray(im.convert("RGB"))
+    if hw != (1, 1):
+        assert abs(_psnr(decoded, img) - _psnr(_pil(pils), img)) <= PSNR_DB
+    assert abs(len(ours) - len(pils)) <= SIZE_REL * len(pils)
+    assert ours == pils
+
+
+def test_jpeg_encoder_refuses_other_arrays():
+    with pytest.raises(ValueError, match="uint8"):
+        tnative.encode_jpeg(np.zeros((4, 4, 3), np.float32))
+    with pytest.raises(ValueError, match="uint8"):
+        tnative.encode_jpeg(np.zeros((4, 4), np.uint8))
+
+
+def test_codec_is_thread_safe():
+    """Sixteen threads (more than the cores), the interpreter switching
+    often, decode and encode different images at once; each result equals
+    the same call made alone."""
+    rng = np.random.default_rng(5)
+    imgs = [_smooth(rng, 40 + 8 * i, 56) for i in range(16)]
+    datas = [_jpeg(img, quality=90, subsampling=i % 3)
+             for i, img in enumerate(imgs)]
+    alone = [(tnative.decode_jpeg(d), tnative.encode_jpeg(img, 95))
+             for d, img in zip(datas, imgs)]
+    results = [None] * len(imgs)
+
+    def work(i):
+        out = None
+        for _ in range(20):
+            out = (tnative.decode_jpeg(datas[i]),
+                   tnative.encode_jpeg(imgs[i], 95))
+        results[i] = out
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(len(imgs))]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    for (a_px, a_jpg), (b_px, b_jpg) in zip(alone, results):
+        assert np.array_equal(a_px, b_px) and a_jpg == b_jpg
+
+
+# ---------------------------------------------------------------------------
+# PNG
+# ---------------------------------------------------------------------------
+
+PNG_MODES = {0: "L", 2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}
+
+
+@pytest.mark.parametrize("ctype", list(PNG_MODES))
+@pytest.mark.parametrize("content", ["smooth", "noise"])
+def test_png_reader_matches_pil(ctype, content):
+    """Colour types 0, 2, 3, 4 and 6 as PIL writes them (its adaptive row
+    filters: all five kinds) and at compress_level 0, bit for bit with
+    PIL's convert("RGB")."""
+    rng = np.random.default_rng(ctype)
+    rgb = (_smooth(rng, 45, 61) if content == "smooth"
+           else rng.integers(0, 256, (45, 61, 3), np.uint8))
+    im = Image.fromarray(rgb)
+    if ctype == 6:
+        im = Image.fromarray(np.dstack([rgb, rgb[:, :, 1]]), "RGBA")
+    else:
+        im = im.convert(PNG_MODES[ctype])
+    for kw in ({}, {"compress_level": 0}, {"optimize": True}):
+        buf = io.BytesIO()
+        im.save(buf, "PNG", **kw)
+        data = buf.getvalue()
+        with Image.open(io.BytesIO(data)) as back:
+            want = np.asarray(back.convert("RGB"))
+        assert np.array_equal(read_png(data), want), (ctype, kw)
+
+
+def test_png_reader_refuses_interlaced_and_16_bit():
+    rgb = _smooth(np.random.default_rng(2), 20, 20)
+    # PIL writes no Adam7 file: set the IHDR's interlace byte (and CRC)
+    data = bytearray(png_bytes(rgb))
+    ihdr = data.index(b"IHDR")
+    data[ihdr + 16] = 1
+    data[ihdr + 17:ihdr + 21] = struct.pack(
+        ">I", zlib.crc32(bytes(data[ihdr:ihdr + 17])) & 0xFFFFFFFF)
+    with pytest.raises(ValueError, match="interlaced"):
+        read_png(bytes(data))
+    buf = io.BytesIO()
+    Image.fromarray(rgb[:, :, 0].astype(np.uint16) * 257).save(buf, "PNG")
+    with pytest.raises(ValueError, match="16-bit"):
+        read_png(buf.getvalue())
+    assert np.array_equal(read_png(png_bytes(rgb)), rgb)
+
+
+def png_bomb() -> bytes:
+    """A PNG whose header claims 65535 x 65535 RGB pixels."""
+    data = bytearray(png_bytes(np.zeros((2, 2, 3), np.uint8)))
+    ihdr = data.index(b"IHDR")
+    data[ihdr + 4:ihdr + 12] = struct.pack(">II", 65535, 65535)
+    data[ihdr + 17:ihdr + 21] = struct.pack(
+        ">I", zlib.crc32(bytes(data[ihdr:ihdr + 17])) & 0xFFFFFFFF)
+    return bytes(data)
+
+
+def test_png_reader_refuses_bombs():
+    """A header above PIL's decompression-bomb limit is refused before the
+    data is inflated; image data that inflates far past the image (64 MB
+    of zeros behind a 4 x 4 header) is inflated only as far as the image
+    needs."""
+    with pytest.raises(ValueError, match="decompression bomb"):
+        read_png(png_bomb())
+    z = zlib.compressobj()
+    idat = b"".join(z.compress(bytes(1 << 20)) for _ in range(64)) + z.flush()
+    data = bytearray(png_bytes(np.zeros((4, 4, 3), np.uint8)))
+    i = data.index(b"IDAT") - 4
+    (n,) = struct.unpack(">I", data[i:i + 4])
+    body = (struct.pack(">I", len(idat)) + b"IDAT" + idat
+            + struct.pack(">I", zlib.crc32(b"IDAT" + idat) & 0xFFFFFFFF))
+    data = bytes(data[:i]) + body + bytes(data[i + 12 + n:])
+    before = _max_rss_mb()
+    assert np.array_equal(read_png(data), np.zeros((4, 4, 3), np.uint8))
+    assert _max_rss_mb() - before < 32
+
+
+# ---------------------------------------------------------------------------
+# the server's request decode against JAX's
+# ---------------------------------------------------------------------------
+
+def _bodies(rng):
+    img = _smooth(rng, 75, 97)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "PNG")
+    bmp = io.BytesIO()
+    Image.fromarray(img).save(bmp, "BMP")
+    return {"jpeg": _jpeg(img, quality=92), "png": buf.getvalue(),
+            "bmp": bmp.getvalue(),
+            "gray_jpeg": _jpeg(np.asarray(Image.fromarray(img).convert("L")),
+                               quality=90)}
+
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_decode_to_matches_jax(size):
+    for name, data in _bodies(np.random.default_rng(size)).items():
+        got = tserve._decode_to(size, data)
+        want = jserve._decode_to(size, data)
+        assert got.shape == want.shape == (size, size, 3)
+        assert got.dtype == np.float32
+        err = np.abs(got - want)
+        assert err.max() <= 2 / 255 and err.mean() <= 0.3 / 255, name
+
+
+def test_decode_image_names_what_it_reads():
+    with pytest.raises(ValueError, match="baseline JPEG"):
+        tpipe.decode_image(b"RIFF\x00\x00\x00\x00WEBPVP8 ")
+    with pytest.raises(ValueError, match="BMP"):
+        tpipe.decode_image(b"BM" + bytes(60))
+
+
+def test_library_needs_no_libjpeg():
+    """The codec and the loader build from the port's sources alone: no
+    -ljpeg on the command line, no libjpeg among the library's
+    dependencies (the machine with the card has no jpeglib.h)."""
+    assert not any("jpeg" in flag for flag in tnative.LIBS)
+    assert tnative.native_available()
+    deps = subprocess.run(["ldd", str(tnative.library_path())],
+                          capture_output=True, text=True, timeout=60).stdout
+    assert deps and "libjpeg" not in deps, deps
+
+
+def test_png_reader_sub_and_up_rows():
+    """A file whose rows use only None, Sub and Up (the reader's per-row
+    route, which PIL's adaptive filtering rarely picks alone), written
+    here, against PIL."""
+    rgb = _smooth(np.random.default_rng(4), 23, 31)
+    h, w, _ = rgb.shape
+    px = rgb.astype(np.int64).reshape(h, w * 3)
+    rows = []
+    for r in range(h):
+        kind = r % 3
+        if kind == 1:
+            left = np.concatenate([np.zeros(3, np.int64), px[r, :-3]])
+            f = px[r] - left
+        elif kind == 2:
+            f = px[r] - (px[r - 1] if r else 0)
+        else:
+            f = px[r]
+        rows.append(bytes([kind]) + (f & 0xFF).astype(np.uint8).tobytes())
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    data = (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(b"".join(rows)))
+            + chunk(b"IEND", b""))
+    with Image.open(io.BytesIO(data)) as im:
+        want = np.asarray(im.convert("RGB"))
+    assert np.array_equal(want, rgb)
+    assert np.array_equal(read_png(data), want)

@@ -4,10 +4,14 @@
 Images are written by PIL into ``tmp_path`` from numpy seeds. Pixels,
 index streams and batch streams are held bit for bit: the port's
 ``_resize_bilinear`` to Pillow's BILINEAR resample, its ``_decode_resize``
-(a numpy route for uncompressed BMP files, PIL for the rest) to JAX's
-(PIL for every file), its native loader (the same C++ source, built with
-the same flags on the same machine) to JAX's, its sampler and prefetching
-loader to JAX's for the same folder and seed.
+(its own BMP, PNG and JPEG readers, no PIL) to JAX's (PIL for every file),
+its native loader (the port's own JPEG decoder in place of libjpeg, the
+same resize, built with the same flags on the same machine) to JAX's
+where JAX's decodes at full size, its sampler and prefetching loader to
+JAX's for the same folder and seed. Where JAX's loader asks libjpeg for a
+DCT-domain prescale the port's decodes at full size (native/loader.cpp),
+and is held to the loader's resize of PIL's full-size decode, replayed
+in numpy float32 (within 1 level: the compiler may fuse its multiply-adds).
 """
 
 import os
@@ -164,6 +168,33 @@ def test_read_bmp_takes_only_uncompressed_rgb(tmp_path):
     assert tpipe._read_bmp(b"BM" + bytes(20)) is None
 
 
+def _loader_resize(src, s):
+    """native/loader.cpp's resize_bilinear in numpy float32: half-pixel
+    centres clamped at 0, no antialiasing, +0.5 and truncation."""
+    h, w, _ = src.shape
+    f32 = np.float32
+
+    def taps(n):
+        t = np.maximum((np.arange(s, dtype=f32) + f32(0.5)) * (f32(n) / f32(s))
+                       - f32(0.5), f32(0))
+        i0 = t.astype(np.int64)
+        return i0, np.minimum(i0 + 1, n - 1), (t - i0).astype(f32)
+
+    y0, y1, wy = taps(h)
+    x0, x1, wx = taps(w)
+    img = src.astype(f32)
+    wx = wx[None, :, None]
+    top = img[y0][:, x0] + (img[y0][:, x1] - img[y0][:, x0]) * wx
+    bot = img[y1][:, x0] + (img[y1][:, x1] - img[y1][:, x0]) * wx
+    v = top + (bot - top) * wy[:, None, None]
+    return (v + f32(0.5)).astype(np.uint8)
+
+
+def _full_size_reference(path, size):
+    with Image.open(path) as im:
+        return _loader_resize(np.asarray(im.convert("RGB")), size)
+
+
 _NO_PIL = textwrap.dedent(r"""
     import importlib.abc, sys
     import numpy as np
@@ -178,41 +209,45 @@ _NO_PIL = textwrap.dedent(r"""
     sys.meta_path.insert(0, Refuse())
     from mastermetastyletransfer_tpu_torch.data import pipeline
     folder, size = sys.argv[1], int(sys.argv[2])
-    for name in ("a24.bmp", "b32.bmp", "c24_topdown.bmp"):
+    for name in ("a24.bmp", "b32.bmp", "c24_topdown.bmp", "d.png", "e.jpg"):
         np.save(f"{folder}/{name}.npy",
                 pipeline._decode_resize(f"{folder}/{name}", size))
-    for name in ("d.png", "e.jpg"):
+    for name in ("f.webp", "g.jpg"):
         try:
             pipeline._decode_resize(f"{folder}/{name}", size)
-        except RuntimeError as e:
+        except ValueError as e:
             print("ERROR", name, e)
 """)
 
 
 def test_decode_resize_without_pil(tmp_path):
-    """With PIL (and JAX) refused, the BMP route gives JAX's arrays, and a
-    PNG or a JPEG raises an error that names the file and what it needs."""
+    """With PIL (and JAX) refused, BMP, PNG and JPEG files give JAX's
+    arrays; a WebP file and a progressive JPEG raise ValueError naming the
+    file and what is read."""
     rng = np.random.default_rng(7)
     files = {"a24.bmp": "bmp24", "b32.bmp": "bmp32",
              "c24_topdown.bmp": "bmp24_topdown", "d.png": "png",
              "e.jpg": "jpeg"}
     for name, kind in files.items():
         _write(str(tmp_path / name), kind, _smooth(rng, 70, 90))
+    Image.fromarray(_smooth(rng, 30, 40)).save(tmp_path / "f.webp")
+    Image.fromarray(_smooth(rng, 30, 40)).save(tmp_path / "g.jpg",
+                                               progressive=True)
     proc = subprocess.run(
         [sys.executable, "-c", _NO_PIL, str(tmp_path), "64"], cwd=ROOT,
         capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    for name in ("a24.bmp", "b32.bmp", "c24_topdown.bmp"):
+    for name in files:
         got = np.load(tmp_path / f"{name}.npy")
         assert np.array_equal(got, jpipe._decode_resize(
             str(tmp_path / name), 64)), name
     errors = [line for line in proc.stdout.splitlines()
               if line.startswith("ERROR")]
     assert len(errors) == 2, proc.stdout
-    png, jpg = errors
-    assert str(tmp_path / "d.png") in png and "needs PIL" in png
-    assert "native JPEG loader" not in png
-    assert str(tmp_path / "e.jpg") in jpg and "native JPEG loader" in jpg
+    webp, progressive = errors
+    assert str(tmp_path / "f.webp") in webp and "baseline JPEG" in webp
+    assert str(tmp_path / "g.jpg") in progressive
+    assert "progressive JPEG (SOF2)" in progressive
 
 
 # ---------------------------------------------------------------------------
@@ -221,8 +256,8 @@ def test_decode_resize_without_pil(tmp_path):
 
 @pytest.fixture(scope="module")
 def native_built():
-    """The port's library, built here with JAX's flags (g++ and libjpeg are
-    present), into build/ and not under either package."""
+    """The port's library, built here with JAX's flags less libjpeg, into
+    build/ and not under either package (JAX's links libjpeg)."""
     assert tnative.native_available(), "the native loader did not build"
     path = tnative.library_path()
     assert path.parent == tnative.BUILD_DIR and path.exists()
@@ -232,12 +267,20 @@ def native_built():
 
 
 def test_native_loader_matches_jax(tmp_path, native_built):
+    """Bit for bit with JAX's loader at a size it decodes at full size
+    (288: over 7/8 of the 300-pixel side); at 96 and 256, where JAX's
+    prescales, the loader's resize of the full-size decode."""
     folder = _folder(str(tmp_path), 5, seed=8, kind="jpeg", hw=(300, 400))
     paths = tpipe.list_images(folder)
+    got = tnative.decode_resize_batch(paths, 288, n_threads=3)
+    assert got.shape == (5, 288, 288, 3)
+    assert np.array_equal(got, jnative.decode_resize_batch(paths, 288))
     for size in (96, 256):
         got = tnative.decode_resize_batch(paths, size, n_threads=3)
         assert got.shape == (5, size, size, 3)
-        assert np.array_equal(got, jnative.decode_resize_batch(paths, size))
+        for g, p in zip(got, paths):
+            want = _full_size_reference(p, size)
+            assert np.abs(g.astype(int) - want).max() <= 1, (p, size)
 
 
 def test_native_loader_sends_other_files_through_decode_resize(
@@ -252,7 +295,13 @@ def test_native_loader_sends_other_files_through_decode_resize(
     got = tnative.decode_resize_batch(paths, 64)
     assert np.array_equal(got[2], tpipe._decode_resize(png, 64))
     assert np.array_equal(got[3], tpipe._decode_resize(bmp, 64))
-    assert np.array_equal(got, jnative.decode_resize_batch(paths, 64))
+    assert np.array_equal(got[2:], jnative.decode_resize_batch(paths,
+                                                               64)[2:])
+    for g, p in zip(got[:2], paths):
+        assert np.abs(g.astype(int) - _full_size_reference(p, 64)).max() <= 1
+    # at 100, over 7/8 of the 90-pixel side, JAX's decodes at full size too
+    assert np.array_equal(tnative.decode_resize_batch(paths, 100),
+                          jnative.decode_resize_batch(paths, 100))
 
 
 def test_native_loader_unavailable_decodes_every_file(tmp_path, monkeypatch):

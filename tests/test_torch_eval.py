@@ -22,6 +22,7 @@ checkpoint is read into; they are replaced here by zeros of the same tree
 op by op in 20 s.
 """
 
+import io
 import json
 import os
 
@@ -179,17 +180,28 @@ def test_grid_matches_jax(grids, k):
         assert np.abs(g - w).mean() <= TOL_MAE, pair
 
 
+def _pil_jpeg95(img01):
+    """What the JAX harness's _save_image writes: PIL's quality-95 JPEG of
+    the output quantised."""
+    buf = io.BytesIO()
+    Image.fromarray(np.clip(img01 * 255, 0, 255).astype(np.uint8)).save(
+        buf, "JPEG", quality=95)
+    return buf.getvalue()
+
+
 @pytest.mark.parametrize("k", [1, 2])
 def test_grid_dumps_are_outputs_quantised(grids, k):
+    """{content}__{style}.jpg as JAX names them, each the bytes PIL writes
+    for the output quantised at quality 95."""
     got = grids["port", k]
     files = sorted(os.listdir(got["dump"]))
-    assert files == sorted(f"{p}.png" for p in got["images"])
+    assert files == sorted(f"{p}.jpg" for p in got["images"])
     assert len(files) == 6
     for pair, img in got["images"].items():
-        with Image.open(got["dump"] / f"{pair}.png") as im:
-            assert im.mode == "RGB"
-            assert np.array_equal(np.asarray(im), np.clip(
-                img * 255, 0, 255).astype(np.uint8)), pair
+        data = (got["dump"] / f"{pair}.jpg").read_bytes()
+        assert data == _pil_jpeg95(img), pair
+        with Image.open(io.BytesIO(data)) as im:
+            assert im.format == "JPEG" and im.mode == "RGB"
 
 
 # ---------------------------------------------------------------------------

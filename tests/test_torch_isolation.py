@@ -6,6 +6,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
@@ -57,8 +59,9 @@ def test_every_port_module_imports_without_jax_or_pil():
     ops/phase_conv.py, ops/patch_embed.py, ops/window_attention.py,
     ops/ln_mlp.py), the losses, the training steps, fast adaptation, the
     data pipeline and its native loader, the trainer, the eval grid and its
-    command line, the adaptation, conversion and calibration command lines
-    and the PNG writer included."""
+    command line, the adaptation, conversion and calibration command lines,
+    the PNG reader and writer, the profiling hooks and the server
+    included."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in (ROOT / "mastermetastyletransfer_tpu_torch").rglob("*.py")
@@ -70,7 +73,7 @@ def test_every_port_module_imports_without_jax_or_pil():
                  "data.pipeline", "data.native_loader", "train.trainer",
                  "utils.convert", "eval.harness", "eval.cli",
                  "utils.convert_cli", "losses.calibrate", "utils.png",
-                 "utils.device"):
+                 "utils.device", "utils.profiling", "serve"):
         assert f"mastermetastyletransfer_tpu_torch.{name}" in modules, name
     probe = _PROBE.replace(
         "import chip_smoke\n",
@@ -80,3 +83,60 @@ def test_every_port_module_imports_without_jax_or_pil():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("isolated-ok")
+
+
+_ROUTES = r"""
+import os, sys
+import numpy as np
+folder = sys.argv[1]
+from mastermetastyletransfer_tpu_torch import serve
+from mastermetastyletransfer_tpu_torch.adapt import _save_image as adapt_save
+from mastermetastyletransfer_tpu_torch.data import pipeline
+from mastermetastyletransfer_tpu_torch.eval.harness import _save_image
+from mastermetastyletransfer_tpu_torch.utils import profiling
+import torch
+
+for name in ("a.jpg", "b.png", "c.bmp"):
+    path = os.path.join(folder, name)
+    with open(path, "rb") as f:
+        x = serve._decode_to(48, f.read())
+    y = pipeline._decode_resize(path, 48)
+    assert x.shape == y.shape == (48, 48, 3)
+    assert np.array_equal((x * 255).round().astype(np.uint8), y), name
+    reply = serve._encode_jpeg(x)
+    assert reply[:3] == b"\xff\xd8\xff"
+    assert pipeline.decode_image(reply).shape == (48, 48, 3)
+_save_image(x, os.path.join(folder, "grid.jpg"))
+adapt_save(x, os.path.join(folder, "adapted.jpg"))
+timer = profiling.StepTimer()
+with profiling.trace_to(os.path.join(folder, "trace")):
+    with profiling.annotate("step"):
+        profiling.sync(torch.ones(2) * 2)
+    timer.tick()
+    timer.tick()
+assert timer.mean_step_seconds >= 0
+print("isolated-ok")
+"""
+
+
+def test_routes_run_without_jax_or_pil(tmp_path):
+    """Not only imports: the request decode and the reply encode of
+    ``serve``, the data pipeline's decode of JPEG, PNG and BMP files, the
+    eval grid's and the adaptation CLI's image writer and the profiling
+    hooks run with PIL and JAX refused."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (40, 56, 3), np.uint8)
+    for name, fmt in (("a.jpg", "JPEG"), ("b.png", "PNG"),
+                      ("c.bmp", "BMP")):
+        Image.fromarray(img).save(tmp_path / name, fmt)
+    probe = _PROBE.replace("import chip_smoke\n", _ROUTES)
+    proc = subprocess.run([sys.executable, "-c", probe, str(tmp_path)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("isolated-ok")
+    for name in ("grid.jpg", "adapted.jpg"):
+        with Image.open(tmp_path / name) as im:
+            assert im.format == "JPEG" and im.size == (48, 48)

@@ -236,20 +236,61 @@ def test_style_stream_rejects_another_feature_size(st_default):
         tst.style_transformer_apply_from_stream(pt, fct, stream, ct)
 
 
-def test_routes_without_their_kernels_raise(st_default):
-    """What the windowed path has not wired yet raises rather than run in
-    plain PyTorch: the f32 split route (K9, K10) and the decoder without its
-    self-block MLP (K8). The generic path with kernels on (a configuration
-    the windowed gate refuses) now runs K8-K10, and matches the same path
-    with the kernels off."""
-    _, ct, _, pt = st_default
-    _, fct = _features(11)
-    with pytest.raises(NotImplementedError, match="K9"):
-        tst.style_transformer_apply_windowed(pt, fct, fct, ct, k=1,
-                                             fuse_iteration=False)
-    exclude = ct.replace(decoder_exclude_MLP_after_Fcs_self_MHA=True)
-    with pytest.raises(NotImplementedError, match="K8"):
-        tst.style_transformer_apply(pt, fct, fct, exclude, k=1)
+@pytest.mark.parametrize("k", [1, 3])
+def test_split_route_matches_jax_split_route(st_default, k):
+    """fuse_iteration=False on both sides: the Scale/Shift update through
+    K9 and two K10 without a norm, the decoder tail through K9 and K10,
+    only the shift mask passed to K9 on the grid the window does not
+    divide (JAX models/style_transformer.py:592-604, :673-683)."""
+    cj, ct, pj, pt = st_default
+    fcj, fct = _features(13)
+    fsj, fst = _features(14)
+    want = jst.style_transformer_apply_windowed(pj, fcj, fsj, cj, k=k,
+                                                fuse_iteration=False)
+    _close(tst.style_transformer_apply_windowed(pt, fct, fst, ct, k=k,
+                                                fuse_iteration=False), want)
+
+
+def test_split_route_variant_matches_jax():
+    """The split route with LN1 in the encoder (K9's value streams and q,
+    k normed), Key after Scale/Shift and the affine INs."""
+    cj, ct, pj, pt = _st(VARIANT, seed=2)
+    fcj, fct = _features(15)
+    fsj, fst = _features(16)
+    want = jst.style_transformer_apply_windowed(pj, fcj, fsj, cj, k=2,
+                                                fuse_iteration=False)
+    _close(tst.style_transformer_apply_windowed(pt, fct, fst, ct, k=2,
+                                                fuse_iteration=False), want)
+
+
+@pytest.fixture(scope="module")
+def st_exclude():
+    return _st({"decoder_exclude_MLP_after_Fcs_self_MHA": True}, seed=3)
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("use_norm", [True, False])
+def test_exclude_mlp_windowed_matches_jax(st_exclude, fuse, use_norm):
+    """The decoder's self block without its MLP: zp(LN1(Fcs)) (or zp(Fcs))
+    through K8, plus Fcs, in the fused and the split route (JAX :628-637);
+    the stream API too."""
+    cj, ct, pj, pt = st_exclude
+    cj = cj.replace(decoder_use_norm=use_norm)
+    ct = ct.replace(decoder_use_norm=use_norm)
+    fcj, fct = _features(17)
+    fsj, fst = _features(18)
+    want = jst.style_transformer_apply_windowed(pj, fcj, fsj, cj, k=2,
+                                                fuse_iteration=fuse)
+    _close(tst.style_transformer_apply_windowed(pt, fct, fst, ct, k=2,
+                                                fuse_iteration=fuse), want)
+    stream = tst.style_stream_windowed(pt, fst, ct, k=2, fuse_iteration=fuse)
+    _close(tst.style_apply_windowed_from_stream(pt, fct, stream, ct,
+                                                fuse_iteration=fuse), want)
+
+
+def test_generic_path_with_kernels_matches_jax():
+    """The generic path with kernels on (a configuration the windowed gate
+    refuses: the regular-MHA tail) runs K8-K10 and matches JAX."""
     cj, regular, pj, preg = _st(
         {"decoder_use_regular_MHA_instead_of_Swin_at_the_end": True})
     assert not tst._st_windowed_ok(regular)
@@ -258,15 +299,16 @@ def test_routes_without_their_kernels_raise(st_default):
            jst.style_transformer_apply(pj, fcj, fcj, cj, k=1))
 
 
-def test_master_apply_all_kernels_matches_jax():
-    """The slice at float32: every stage's kernels on, both sides (JAX:
-    K1-K7 in interpret mode; the port: the plain versions)."""
+def _master_all_kernels(transformer=None):
+    """master_apply at 64^2, k=1, every stage's kernels on, on both sides,
+    from JAX's seed-0 weights: the per-pixel error against JAX."""
     cj = jcfg.ModelConfig()
+    if transformer:
+        cj = cj.replace(transformer=cj.transformer.replace(**transformer))
     cj = cj.replace(swin=cj.swin.replace(use_pallas=True),
                     transformer=cj.transformer.replace(use_pallas=True),
                     decoder=cj.decoder.replace(use_pallas=True))
     ct = tcfg.ModelConfig.from_dict(cj.to_dict())
-    assert ct == tcfg.ModelConfig().with_kernels()
     pj = jax.device_get(jmaster.init_master_model(jax.random.PRNGKey(0), cj))
     pt = params_from_jax(pj)
     rng = np.random.default_rng(12)
@@ -274,8 +316,25 @@ def test_master_apply_all_kernels_matches_jax():
     want = np.asarray(jmaster.master_apply(pj, jnp.asarray(c), jnp.asarray(s),
                                            cj, k=1))
     got = tmaster.make_stylize_fn(ct, k=1, device="cpu")(pt, c, s)
-    err = np.abs(got.numpy() - want)
+    return ct, np.abs(got.numpy() - want)
+
+
+def test_master_apply_all_kernels_matches_jax():
+    """The slice at float32: every stage's kernels on, both sides (JAX:
+    K1-K7 in interpret mode; the port: the plain versions)."""
+    ct, err = _master_all_kernels()
+    assert ct == tcfg.ModelConfig().with_kernels()
     assert err.mean() <= 1e-5 and err.max() <= TOL, (err.mean(), err.max())
+
+
+def test_master_apply_exclude_mlp_all_kernels_matches_jax():
+    """An exclude-MLP checkpoint's configuration (what utils/convert.py
+    writes for such a style transformer) with every kernel on: the
+    decoder's self attention through K8 inside the whole model."""
+    ct, err = _master_all_kernels(
+        {"decoder_exclude_MLP_after_Fcs_self_MHA": True})
+    assert ct.transformer.decoder_exclude_MLP_after_Fcs_self_MHA
+    assert err.mean() <= 1e-5, (err.mean(), err.max())
 
 
 def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
