@@ -161,8 +161,33 @@ its own service's output on the same decoded inputs, and decoded by the
 port's decoder within TOL_JPEG95_MEAN levels of it; p50, max, imgs/s, the
 codecs' ms a request); every kernel of the kernels line carries
 ``split_launches``, ``exclude_mlp_launches`` and ``http_launches``.
+Last, the band-owned spatial path (parallel/), with draws of its own: K1
+at a band's geometry in the kernels phase (the last of 4 bands of a
+1024^2 pass of 4 images, window rows padded past the reference grid,
+shift (0, 3) with the H-roll outside the kernel, the band's mask slab
+with -1e9 keys outside the reference grid; stage-1 and stage-2 widths,
+bf16 and f32), and K2-K4 on the last band of 2 and of 4 of the style
+transformer's grid with the band's mask slabs; then spatial_single (the single-device master_apply at
+1024^2, batch 2: the f32 reference route and bf16 with the kernels at k
+1 and 3, the f32 kernels-off route at k 1; ms and peak memory) and
+spatial (``make_spatial_stylize_shmap`` at 1024^2, batch 2, ModelConfig
+defaults: one band in a world-1 NCCL group in this process at bf16 k 1
+and 3 and f32 with the kernels off; 2 and 4 bands as ranks started by
+parallel/launch.py that share the card over gloo, bf16 k 1 and f32 off;
+2 and 4 bands over NCCL where there are that many cards (one each): each
+rank's launches of
+one call exactly ``spatial_per_call``, the bands put together held to
+the single-device outputs, bf16 by the noise verdict, f32 within MAE
+1e-4; ms of one call, each rank's peak memory and its halo messages and
+bytes); every kernel of the kernels line carries ``spatial_launches``.
+To run them alone on a machine with a card: ``python3 -c "import torch, chip_smoke as
+cs; cs._build.build_all(); cs.band_block_cases(
+torch.Generator().manual_seed(cs.SPATIAL_SEED + 1), []);
+cs.run_spatial()"`` from the repo root.
 
-Needs only torch, numpy and the standard library, and one CUDA card.
+Needs only torch, numpy and the standard library, and one CUDA card (the
+spatial phase's NCCL runs need a card per band, and are left out with
+one).
 
 Tolerances, kernel against plain version, element by element. float32:
 1e-4 of the largest magnitude of the plain output (order of sums).
@@ -221,6 +246,7 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from mastermetastyletransfer_tpu_torch import adapt as adapt_cli
@@ -273,6 +299,14 @@ from mastermetastyletransfer_tpu_torch.ops.attention import (
 from mastermetastyletransfer_tpu_torch.ops.mlp import init_mlp
 from mastermetastyletransfer_tpu_torch.ops.windows import (
     effective_shift, shift_attention_mask, valid_token_mask, window_partition,
+)
+from mastermetastyletransfer_tpu_torch.parallel import (
+    make_mesh, make_spatial_stylize_shmap, replicate,
+)
+from mastermetastyletransfer_tpu_torch.parallel import spatial_shmap
+from mastermetastyletransfer_tpu_torch.parallel.launch import spawn_ranks
+from mastermetastyletransfer_tpu_torch.parallel.spatial import (
+    gather_images_spatial, shard_images_spatial,
 )
 from mastermetastyletransfer_tpu_torch import serve
 from mastermetastyletransfer_tpu_torch.serve import (
@@ -588,15 +622,26 @@ def style_cases(gen, rows):
     dev = torch.device(DEVICE)
     grid = SIZE // 8
     pad = padded(grid)
-    b, nw, n, c, heads = MAX_BATCH, (pad // 7) ** 2, 49, ST_C, ST_HEADS
     sh, sw = effective_shift(pad, pad, (7, 7), (4, 4))
     mask = torch.from_numpy(shift_attention_mask(pad, pad, 7, 7, sh, sw)
                             ).to(dev)
     padmask = torch.from_numpy(valid_token_mask(
         grid, grid, pad, pad, 7, 7, sh, sw)).to(dev)
+    st_kernel_cases(gen, rows, b=MAX_BATCH, mask=mask, padmask=padmask,
+                    labels=("st_encoder_key", "st_decoder_self",
+                            "st_encoder", "st_decoder"))
+
+
+def st_kernel_cases(gen, rows, *, b, mask, padmask, labels, **meta):
+    """K2 as the encoder Key block (no norms) and as the decoder self block
+    (both norms), K3 and K4, on (b, nW, 49, 256) windows with the given
+    shift mask (nW, 49, 49) and validity mask (nW, 49), 8 heads, bf16 and
+    f32; ``labels`` name the four cases, ``meta`` goes on each line."""
+    dev = torch.device(DEVICE)
+    nw, n, c, heads = mask.shape[0], 49, ST_C, ST_HEADS
     kw = dict(heads=heads, mask=mask, padmask=padmask)
     acfg = AttentionConfig(dim=c, num_heads=heads, window_size=(7, 7),
-                           shift_size=(sh, sw))
+                           shift_size=(4, 4))
     block = init_style_swin_block(gen, acfg, use_norm=True, exclude_mlp=False,
                                   mlp_ratio=4.0)
     params = tree_map(lambda t: t.to(dev), {
@@ -606,10 +651,10 @@ def style_cases(gen, rows):
            for m in ("mlp_scale", "mlp_shift", "last_mlp")}})
     x32 = [torch.randn((b, nw, n, c), generator=gen).to(dev)
            for _ in range(5)]
+    key_label, self_label, enc_label, tail_label = labels
     for dtype in (torch.bfloat16, torch.float32):
         xs = [x.to(dtype).contiguous() for x in x32]
-        for label, use_norm in (("st_encoder_key", False),
-                                ("st_decoder_self", True)):
+        for label, use_norm in ((key_label, False), (self_label, True)):
             w = wb.block_weights(params["block"], (7, 7), dtype, use_norm)
             plan = wb.block_plan("window_block_windows", n, c, heads, 4 * c,
                                  dtype)
@@ -625,11 +670,11 @@ def style_cases(gen, rows):
                          lambda: wb.window_block_windows(xs[0], w, **kw),
                          lambda: wb.kernel_attributes(
                              plan, dtype, c // heads,
-                             "window_block_windows")))
+                             "window_block_windows")), **meta)
         w = sb.encoder_weights(params["attn"], params["mlp_scale"],
                                params["mlp_shift"], None, (7, 7), dtype)
         plan = sb.style_plan(n, c, heads, 4 * c, dtype)
-        run_case(rows, "encoder_scale_shift", "st_encoder", dtype,
+        run_case(rows, "encoder_scale_shift", enc_label, dtype,
                  lambda: sb.encoder_scale_shift(*xs[:3], w, **kw),
                  lambda: sb.encoder_scale_shift_plain(*xs[:3], w, **kw),
                  xs[1:3], style_cost("encoder_scale_shift", b, nw, n, c,
@@ -638,11 +683,12 @@ def style_cases(gen, rows):
                  **body_attributes(
                      plan, f"style_tc{c // heads}", "encoder_scale_shift",
                      lambda: sb.encoder_scale_shift(*xs[:3], w, **kw),
-                     lambda: sb.kernel_attributes(plan, dtype, c // heads)))
+                     lambda: sb.kernel_attributes(plan, dtype, c // heads)),
+                 **meta)
         w = sb.decoder_tail_weights(params["dual"], params["last_mlp"],
                                     (7, 7), dtype)
         plan = sb.tail_plan(n, c, heads, 4 * c, dtype)
-        run_case(rows, "decoder_tail", "st_decoder", dtype,
+        run_case(rows, "decoder_tail", tail_label, dtype,
                  lambda: [sb.decoder_tail(*xs, w, **kw)],
                  lambda: [sb.decoder_tail_plain(*xs, w, **kw)],
                  [xs[4]], style_cost("decoder_tail", b, nw, n, c, heads,
@@ -652,7 +698,7 @@ def style_cases(gen, rows):
                      plan, f"tail_tc{c // heads}", "decoder_tail",
                      lambda: sb.decoder_tail(*xs, w, **kw),
                      lambda: sb.kernel_attributes(plan, dtype, c // heads,
-                                                  "decoder_tail")))
+                                                  "decoder_tail")), **meta)
 
 
 def stencil_cost(pp: torch.Tensor, table: pc.GroupTable, c_out: int,
@@ -1243,6 +1289,83 @@ def check_kernels(gen: torch.Generator):
                               ("window_block_windows", torch.float32)))
     decoder_cases(gen, rows)
     return rows
+
+
+def band_block_cases(gen, rows):
+    """K1-K4 at a band's geometry, as the band-owned spatial path launches
+    them. K1: the last of 4 bands of the spatial phase's 1024^2 pass (2 x
+    SPATIAL_BATCH images), whose window rows run past the reference grid
+    (the band grid pads the window-row count to a multiple of 4: 37 -> 40
+    at stage 1, 19 -> 20 at stage 2), shift (0, 3) with the H-roll done
+    outside the kernel, and the band's slab of the shift mask, whose keys
+    outside the reference grid carry -1e9 (spatial_shmap._build_aux); at
+    stage-1 and stage-2 widths, bf16 and f32. K2 (the Key block without
+    norms, the self block with them), K3 and K4: the last band of 2 and of
+    4 of the style transformer's grid (128x128 tokens, 19 window rows
+    padded to 20: (SPATIAL_BATCH, 190 or 95, 49, 256) windows), the band's
+    slabs of the shift mask (-1e9 keys outside the reference grid) and of
+    the validity mask, bf16 and f32 (st_kernel_cases)."""
+    dev = torch.device(DEVICE)
+    n, index = 4, 3
+    cfg = ModelConfig()
+    aux, meta = spatial_shmap._build_aux(SPATIAL_SIZE, SPATIAL_SIZE, cfg, n,
+                                         index, dev)
+    for stage, (c, heads) in enumerate(((128, 4), (256, 8))):
+        g = meta[f"s{stage}"]
+        mask, padmask = aux[f"s{stage}_mask"], aux[f"s{stage}_pm1"]
+        if not (g["nwh_pad"] > -(-g["hs"] // 7)
+                and mask.min().item() <= -1e9 and g["sh"] and g["sw"]):
+            raise AssertionError(f"stage {stage + 1}: the band case lacks "
+                                 "its padded rows or refgrid keys")
+        acfg = AttentionConfig(dim=c, num_heads=heads, window_size=(7, 7),
+                               shift_size=(3, 3))
+        params = tree_map(lambda t: t.to(dev), init_style_swin_block(
+            gen, acfg, use_norm=True, exclude_mlp=False, mlp_ratio=4.0))
+        b = 2 * SPATIAL_BATCH
+        x32 = torch.randn((b, g["rows_loc"], g["Wp"], c), generator=gen)
+        nw = mask.shape[0]
+        for dtype in (torch.bfloat16, torch.float32):
+            w = wb.block_weights(params, (7, 7), dtype, use_norm=True)
+            x = x32.to(dev, dtype).contiguous()
+            kw = dict(heads=heads, window=(7, 7), shift=(0, g["sw"]),
+                      mask=mask, padmask=padmask)
+            plan = wb.block_plan("window_block_rows", 49, c, heads, 4 * c,
+                                 dtype)
+            run_case(rows, "window_block_rows", f"band_stage{stage + 1}",
+                     dtype, lambda: [wb.window_block_rows(x, w, **kw)],
+                     lambda: [wb.window_block_rows_plain(x, w, **kw)], [x],
+                     block_cost(b, nw, 49, c, heads, 4 * c, dtype, True,
+                                True),
+                     wb.smem_bytes(plan, 49, c, heads, dtype),
+                     shift=[0, g["sw"]], band=f"{index + 1} of {n}",
+                     window_rows=[g["nwh_pad"], -(-g["hs"] // 7)])
+    band_st_cases(gen, rows)
+
+
+def band_st_cases(gen, rows):
+    """K2-K4 on the last band of 2 and of 4 of the style transformer's
+    grid at the spatial phase's 1024^2, with the band's mask slabs (see
+    band_block_cases)."""
+    dev = torch.device(DEVICE)
+    cfg = ModelConfig()
+    for n in (2, 4):
+        index = n - 1
+        aux, meta = spatial_shmap._build_aux(SPATIAL_SIZE, SPATIAL_SIZE, cfg,
+                                             n, index, dev)
+        g = meta["st"]
+        mask, padmask = aux["st_mask"], aux["st_pm"]
+        if not (g["nwh_pad"] > -(-g["hs"] // 7)
+                and mask.min().item() <= -1e9 and g["sh"] and g["sw"]):
+            raise AssertionError(f"style transformer, band {n} of {n}: the "
+                                 "band case lacks its padded rows or "
+                                 "refgrid keys")
+        st_kernel_cases(gen, rows, b=SPATIAL_BATCH, mask=mask,
+                        padmask=padmask,
+                        labels=tuple(f"band{n}_{label}" for label in (
+                            "st_encoder_key", "st_decoder_self",
+                            "st_encoder", "st_decoder")),
+                        band=f"{index + 1} of {n}",
+                        window_rows=[g["nwh_pad"], -(-g["hs"] // 7)])
 
 
 def pair_cases(gen, rows):
@@ -4497,6 +4620,227 @@ def run_serving_routes() -> dict:
                 http=http["launches"])
 
 
+# ---------------------------------------------------------------------------
+# spatial: the band-owned path at 1024^2
+# ---------------------------------------------------------------------------
+
+SPATIAL_SEED = TRAIN_SEED + 13
+SPATIAL_SIZE, SPATIAL_BATCH = 1024, 2
+SPATIAL_ITERS = 3
+# (dtype, kernels, k) per band count: bf16 with the kernels, and f32 with
+# them off; k = 3 on one band only, which the script's own process runs.
+SPATIAL_RUNS = {1: (("bfloat16", True, 1), ("bfloat16", True, 3),
+                    ("float32", False, 1)),
+                2: (("bfloat16", True, 1), ("float32", False, 1)),
+                4: (("bfloat16", True, 1), ("float32", False, 1))}
+TOL_SPATIAL_F32_MAE = 1e-4
+
+
+def spatial_per_call(dtype: str, kernels: bool, k: int, n: int) -> dict:
+    """Each rank's launches in one band-owned call: at bf16 with the
+    kernels, K1 for the 4 Swin blocks, K2 for the Key and self blocks and
+    K3, K4 per iteration; the phase decoder's kernels at n = 1 only (the
+    plain decoder runs at n > 1); nothing with the kernels off."""
+    table = dict.fromkeys(all_launches(), 0)
+    if kernels and dtype == "bfloat16":
+        table.update(window_block_rows=4, window_block_windows=2 * k,
+                     encoder_scale_shift=k, decoder_tail=k)
+        if n == 1:
+            table.update({e: c for e, c in DECODER_PER_BATCH.items() if c})
+    return table
+
+
+def spatial_inputs():
+    """The phase's content and style batches, (SPATIAL_BATCH, SPATIAL_SIZE,
+    SPATIAL_SIZE, 3) in [0, 1), the same in every rank."""
+    rng = np.random.default_rng(SPATIAL_SEED)
+    shape = (SPATIAL_BATCH, SPATIAL_SIZE, SPATIAL_SIZE, 3)
+    return (rng.random(shape, dtype=np.float32),
+            rng.random(shape, dtype=np.float32))
+
+
+def spatial_rank(rank: int, n: int, dev: torch.device, runs) -> dict:
+    """One rank of the spatial phase, in a process group of n ranks: the
+    seed's weights (the first rank's broadcast), this rank's H-band of the
+    inputs, and per run a warm-up call, one call with the launches counted
+    from zero, SPATIAL_ITERS timed calls (each started together after a
+    barrier; ms to its synchronize), the peak memory allocated since the
+    warm-up, and the counted call's bands put together on rank 0."""
+    mesh = make_mesh(n, ("space",))
+    params = replicate(init_master_model(
+        ModelConfig(), torch.Generator().manual_seed(SPATIAL_SEED),
+        device=dev), mesh)
+    content, style = shard_images_spatial(
+        tuple(torch.from_numpy(a).to(dev) for a in spatial_inputs()), mesh)
+    out = {}
+    for dtype, kernels, k in runs:
+        fn = make_spatial_stylize_shmap(slice_config(dtype, kernels), mesh,
+                                        k=k)
+        fn(params, content, style)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        dist.barrier()
+        reset_launches()
+        traffic = dict(spatial_shmap.TRAFFIC)
+        band = fn(params, content, style)
+        torch.cuda.synchronize(dev)
+        launches = all_launches()
+        traffic = {key: spatial_shmap.TRAFFIC[key] - v
+                   for key, v in traffic.items()}
+        times = []
+        for _ in range(SPATIAL_ITERS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn(params, content, style)
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        full = gather_images_spatial(band, mesh)
+        out[(dtype, kernels, k)] = dict(
+            ms=float(np.median(times)), times_ms=times,
+            peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            launches=launches, band=list(band.shape), traffic=traffic,
+            image=None if full is None else full.cpu().numpy())
+    return out
+
+
+def run_spatial() -> dict:
+    """The band-owned spatial path (parallel/spatial_shmap.py) at 1024^2,
+    batch 2, ModelConfig defaults, weights from SPATIAL_SEED: one band in a
+    world-1 NCCL group in this process; 2 and 4 bands as ranks that share
+    the card over gloo (the halos through pinned host copies); 2 and 4
+    bands over NCCL where there are that many cards. Each run against the
+    single-device master_apply on the card on the same inputs: bf16 by
+    the bf16 noise verdict against the same setting, f32 (kernels off)
+    within TOL_SPATIAL_F32_MAE of the f32 reference route; each rank's
+    launches of one call exactly ``spatial_per_call``. One line per run
+    (ms of one call, the median of SPATIAL_ITERS after a warm-up; each
+    rank's peak memory allocated); before them, one line per
+    single-device call (master_apply at the references' settings and the
+    f32 kernels-off route, the f32 nine-conv decoder alone on the whole
+    feature map and on half of it: ms and peak memory). Returns each
+    kernel's launches per run and rank."""
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    params = init_master_model(ModelConfig(),
+                               torch.Generator().manual_seed(SPATIAL_SEED),
+                               device=dev)
+    content, style = (torch.from_numpy(a).to(dev) for a in spatial_inputs())
+    refs = {}   # by label, then by (dtype, k)
+    # The single-device references (the f32 reference route: kernels off,
+    # nine plain convs; bf16 with the kernels), and the f32 kernels-off
+    # route with the phase decoder, the band path's configuration at one
+    # band: each one's output, ms and peak memory, beside the bands'.
+    singles = [(f"{dtype}_{label}_k{k}", cfg, k)
+               for dtype, label, cfg in (
+                   ("float32", "reference", reference_config("float32")),
+                   ("bfloat16", "on", slice_config("bfloat16", True)))
+               for k in (1, 3)]
+    singles.append(("float32_off_k1", slice_config("float32", False), 1))
+    # and the f32 nine-conv decoder alone on the whole (2, 128, 128, 256)
+    # feature map, and on one of two bands of it (2, 64, 128, 256)
+    feats = torch.randn((SPATIAL_BATCH, SPATIAL_SIZE // 8, SPATIAL_SIZE // 8,
+                         256), generator=torch.Generator().manual_seed(
+                             SPATIAL_SEED)).to(dev)
+    dcfg = spatial_shmap.plain_decoder(ModelConfig()).decoder
+    singles += [(f"float32_decoder_{label}", x, None)
+                for label, x in (("whole", feats),
+                                 ("half", feats[:, :SPATIAL_SIZE // 16]))]
+    with torch.inference_mode():
+        for label, cfg, k in singles:
+            if k is None:
+                def call(x=cfg):
+                    with _TF32_OFF:
+                        return cnn_decoder_apply(params["decoder"], x, dcfg)
+            else:
+                def call(cfg=cfg, k=k):
+                    return master_apply(params, content, style, cfg, k=k)
+            call()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(SPATIAL_ITERS):
+                t1 = time.perf_counter()
+                out = call()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            refs[label] = out.cpu().numpy()
+            emit("spatial_single", run=label, k=k, size=SPATIAL_SIZE,
+                 batch=SPATIAL_BATCH, shape=list(out.shape),
+                 ms=float(np.median(times)), times_ms=times,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    refs = {(dtype, k): refs[f"{dtype}_{label}_k{k}"] for k in (1, 3)
+            for dtype, label in (("float32", "reference"),
+                                 ("bfloat16", "on"))}
+    del params, content, style, out, feats
+    torch.cuda.empty_cache()
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="mmst_spatial_") as tmp:
+        dist.init_process_group(
+            "nccl", init_method="file://" + os.path.join(tmp, "rendezvous"),
+            world_size=1, rank=0)
+        try:
+            results[("nccl", 1)] = [spatial_rank(0, 1, dev, SPATIAL_RUNS[1])]
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    for n in (2, 4):
+        results[("gloo", n)] = spawn_ranks(spatial_rank, n, backend="gloo",
+                                           device="cuda",
+                                           args=(SPATIAL_RUNS[n],))
+    # One card per rank over NCCL, where the machine has the cards.
+    cards = torch.cuda.device_count()
+    nccl = [n for n in (2, 4) if cards >= n]
+    for n in nccl:
+        results[("nccl", n)] = spawn_ranks(spatial_rank, n, backend="nccl",
+                                           device="cuda",
+                                           args=(SPATIAL_RUNS[n],))
+    emit("spatial_cards", count=cards, nccl_bands=nccl)
+    launches, failed = {}, []
+    for (backend, n), ranks in results.items():
+        for dtype, kernels, k in SPATIAL_RUNS[n]:
+            label = f"{backend}_n{n}_{dtype}_{'on' if kernels else 'off'}_k{k}"
+            per = [r[(dtype, kernels, k)] for r in ranks]
+            img = per[0]["image"]
+            want = spatial_per_call(dtype, kernels, k, n)
+            launches[label] = [p["launches"] for p in per]
+            checks = dict(launches_exact=all(p["launches"] == want
+                                             for p in per),
+                          shape_finite=bool(
+                              img.shape == (SPATIAL_BATCH, SPATIAL_SIZE,
+                                            SPATIAL_SIZE, 3)
+                              and np.isfinite(img).all()))
+            if dtype == "bfloat16":
+                verdict = bf16_noise_verdict(img, refs[(dtype, k)],
+                                             refs[("float32", k)])
+            else:
+                ref32 = refs[("float32", k)]
+                mae = float(np.abs(img - ref32).mean())
+                verdict = dict(mae_vs_f32=mae, mae_tol=TOL_SPATIAL_F32_MAE,
+                               max_abs_vs_f32=float(np.abs(img - ref32).max()),
+                               mean_abs_output=float(np.abs(ref32).mean()),
+                               ok=mae <= TOL_SPATIAL_F32_MAE)
+            checks["output"] = verdict["ok"]
+            emit("spatial", run=label, backend=backend, bands=n, dtype=dtype,
+                 kernels=kernels, k=k, size=SPATIAL_SIZE,
+                 batch=SPATIAL_BATCH, band_shape=per[0]["band"],
+                 ms=max(p["ms"] for p in per),
+                 rank_ms=[p["ms"] for p in per],
+                 rank_times_ms=[p["times_ms"] for p in per],
+                 rank_peak_gib=[p["peak_gib"] for p in per],
+                 rank_sent_messages=[p["traffic"]["messages"] for p in per],
+                 rank_sent_mbytes=[p["traffic"]["bytes"] / 1e6 for p in per],
+                 launches={e: [p["launches"][e] for p in per]
+                           for e, c in want.items() if c},
+                 launches_want={e: c for e, c in want.items() if c},
+                 **verdict, checks=checks)
+            if not all(checks.values()):
+                failed.append(label)
+    emit("spatial_phase", wall_s=time.perf_counter() - t0, failed=failed)
+    if failed:
+        raise AssertionError(f"spatial runs failed: {failed}")
+    return launches
+
+
 def main(argv=None) -> int:
     only = (argv if argv is not None else sys.argv[1:])
     if only not in ([], ["--only-train-grads"]):
@@ -4583,6 +4927,10 @@ def main(argv=None) -> int:
     # The codecs, the style transformer's split and exclude-MLP routes and
     # the HTTP server, after every phase, with draws of their own.
     routes = run_serving_routes()
+    # K1 at a band's geometry, and the band-owned spatial path at 1024^2,
+    # after every phase, with draws of their own.
+    band_block_cases(torch.Generator().manual_seed(SPATIAL_SEED + 1), rows)
+    spatial = run_spatial()
 
     def summary(entry, source, replaces, mine, count, origin, per,
                 library=True):
@@ -4730,6 +5078,9 @@ def main(argv=None) -> int:
         for run, tables in routes.items():
             k[f"{run}_launches"] = {label: counts[k["name"]]
                                     for label, counts in tables.items()}
+        # The spatial phase's runs: each rank's launches of one call.
+        k["spatial_launches"] = {label: [counts[k["name"]] for counts in per]
+                                 for label, per in spatial.items()}
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

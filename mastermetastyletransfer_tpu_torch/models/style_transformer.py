@@ -30,7 +30,7 @@ seed.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,10 +53,10 @@ from mastermetastyletransfer_tpu_torch.ops.norm import (
     instance_norm, layer_norm,
 )
 from mastermetastyletransfer_tpu_torch.ops.window_attention import (
-    window_attention, window_attention_dual,
+    Proj, window_attention, window_attention_dual, window_attention_plain,
 )
 from mastermetastyletransfer_tpu_torch.ops.windows import (
-    relative_position_bias, valid_token_mask,
+    relative_position_bias,
 )
 
 
@@ -304,19 +304,25 @@ def _st_windowed_ok(cfg: StyleTransformerConfig,
             and not cfg.decoder_use_regular_MHA_instead_of_Swin_at_the_end)
 
 
-def _masked_instance_norm(x4: torch.Tensor, vm: torch.Tensor, count: float,
-                          eps: float = 1e-5,
+def _masked_instance_norm(x4: torch.Tensor, vm: Optional[torch.Tensor],
+                          count: float, eps: float = 1e-5,
                           scale: Optional[torch.Tensor] = None,
-                          bias: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          bias: Optional[torch.Tensor] = None,
+                          reduce: Optional[Callable] = None) -> torch.Tensor:
     """InstanceNorm over the valid tokens of a window tensor (B, nW, N, C):
     the image-layout statistics of the un-padded image (the reference
     normalizes before padding). One-pass biased variance E[x^2] - mean^2,
-    f32 statistics, eps 1e-5, as the JAX package."""
+    f32 statistics, eps 1e-5, as the JAX package. vm (1, nW, N, 1) marks
+    the valid tokens (None: all); ``reduce`` sums the two per-instance sums
+    over the parts of the image held elsewhere (the band path's bands)."""
     xf = x4.float()
-    xm = xf * vm
-    mean = xm.sum((1, 2), keepdim=True) / count
-    var = (xm * xm).sum((1, 2), keepdim=True) / count - mean * mean
+    xm = xf if vm is None else xf * vm
+    sums = torch.stack([xm.sum((1, 2), keepdim=True),
+                        (xm * xm).sum((1, 2), keepdim=True)])
+    if reduce is not None:
+        sums = reduce(sums)
+    mean = sums[0] / count
+    var = sums[1] / count - mean * mean
     y = (xf - mean) * (var + eps) ** -0.5
     if scale is not None:
         y = y * scale.float()
@@ -367,39 +373,80 @@ def _bcast_stream_batch(t: torch.Tensor, bc: int) -> torch.Tensor:
     raise ValueError(f"stream batch {t.shape[0]} vs content batch {bc}")
 
 
+class WindowGrid(NamedTuple):
+    """The window grid the window-resident machinery runs on: the shift
+    mask (nW, N, N) or None, the validity mask (nW, N) of the grid's tokens
+    or None where none is padding, and the image's count of valid tokens.
+    Two hooks serve the band path (parallel/spatial_shmap.py), whose grid
+    is one band of the image's: ``reduce`` sums the instance norms'
+    statistics over the bands, and ``key_in`` gives the post-linear Key IN
+    the validity mask (nW, N) and token count of the reference's padded
+    grid. On one device both are None: no sum, and that IN over the whole
+    grid held."""
+    mask: Optional[torch.Tensor]
+    padmask: Optional[torch.Tensor]
+    count: float
+    reduce: Optional[Callable] = None
+    key_in: Optional[Tuple[torch.Tensor, float]] = None
+
+
+def _grid(geom: dict, cfg: StyleTransformerConfig,
+          device: torch.device) -> WindowGrid:
+    """The WindowGrid of a whole image partitioned by ``_prepare``."""
+    wh, ww = cfg.encoder_attn().window_size
+    h, w = geom["h"], geom["w"]
+    ph, pw, sh, sw = geom["pad_h"], geom["pad_w"], geom["sh"], geom["sw"]
+    return WindowGrid(
+        mask=_shift_mask(ph, pw, wh, ww, sh, sw, device) if sh or sw
+        else None,
+        padmask=_valid_mask(h, w, ph, pw, wh, ww, sh, sw, device),
+        count=float(h * w))
+
+
+def _plain_window_attention(params: dict, q, k, v, bias, mask, heads):
+    """K8's plain version on the parameters ``window_attention`` takes."""
+    projs = (Proj(params[p]["kernel"], params[p].get("bias"))
+             for p in ("wq", "wk", "wv", "proj"))
+    return window_attention_plain(q, k, v, *projs, bias, mask, heads)
+
+
 def _windowed_machinery(params: dict, cfg: StyleTransformerConfig,
-                        geom: dict, dtype: torch.dtype, device: torch.device,
-                        fuse_iteration: Optional[bool] = None):
-    """The window-resident (encoder, decoder) closures for one geometry.
+                        grid: WindowGrid, dtype: torch.dtype,
+                        fuse_iteration: Optional[bool] = None,
+                        kernels: bool = True):
+    """The window-resident (encoder, decoder) closures for one grid.
     encoder: (Key, Scale, Shift) -> the updated triple; decoder: (Fcs, Key,
-    Scale, Shift) -> Fcs'; all (B, nW, N, C). Shared by the interleaved path
-    and the style-stream API (the encoder triple evolves from the style
-    alone).
+    Scale, Shift) -> Fcs'; all (B, nW, N, C). Shared by the interleaved path,
+    the style-stream API (the encoder triple evolves from the style alone)
+    and the band path, which runs it on its band of the grid.
 
     ``fuse_iteration`` picks the route of the Scale/Shift update and the
     decoder tail: fused, K3 and K4; split, K9 and K10 as the JAX package's
     ``:592-604`` and ``:673-683``. None fuses at both dtypes. The JAX
     package fuses only at 2-byte dtypes because at f32 its fused kernels
     overflow the TPU's 16 MB of scoped VMEM; the card has no such limit,
-    so its default waits for the two routes' measured times."""
+    so its default waits for the two routes' measured times.
+    ``kernels=False`` runs the fused route's K2-K4, and K8 for the
+    exclude-MLP self block, as their plain versions: the band path's route
+    where the JAX package's band gate takes no kernel (it never asks for
+    the split route)."""
     if fuse_iteration is None:
         fuse_iteration = True
     window = cfg.encoder_attn().window_size
     wh, ww = window
     heads_e, heads_d = cfg.encoder_num_heads, cfg.decoder_num_heads
-    b, h, w = geom["b"], geom["h"], geom["w"]
-    ph, pw, sh, sw = geom["pad_h"], geom["pad_w"], geom["sh"], geom["sw"]
-    mask = _shift_mask(ph, pw, wh, ww, sh, sw, device) if sh or sw else None
-    padmask = _valid_mask(h, w, ph, pw, wh, ww, sh, sw, device)
-    vm = torch.from_numpy(
-        valid_token_mask(h, w, ph, pw, wh, ww, sh, sw)).to(device)[
-            None, :, :, None]
-    count = float(h * w)
+    mask, padmask = grid.mask, grid.padmask
+    vm = None if padmask is None else padmask[None, :, :, None]
+
+    def entry(module, name):
+        """A kernel entry, or with the kernels off its plain version (looked
+        up at the call)."""
+        return getattr(module, name if kernels else name + "_plain")
 
     def zp(x4):
         """Re-zero the pad tokens (the identity when the window divides the
         grid)."""
-        return x4 if padmask is None else x4 * vm.to(x4.dtype)
+        return x4 if vm is None else x4 * vm.to(x4.dtype)
 
     def kernel_args(heads):
         return dict(heads=heads, mask=mask, padmask=padmask)
@@ -420,8 +467,8 @@ def _windowed_machinery(params: dict, cfg: StyleTransformerConfig,
         n1p is not None, norm2=False)
 
     def key_block(Key):
-        return window_block.window_block_windows(Key, key_w,
-                                                 **kernel_args(heads_e))
+        return entry(window_block, "window_block_windows")(
+            Key, key_w, **kernel_args(heads_e))
 
     if fuse_iteration:
         ss_w = style_block.encoder_weights(e_attn, enc["mlp_scale"],
@@ -429,8 +476,8 @@ def _windowed_machinery(params: dict, cfg: StyleTransformerConfig,
                                            dtype)
 
         def scale_shift(Key, Scale, Shift):
-            return style_block.encoder_scale_shift(Key, Scale, Shift, ss_w,
-                                                   **kernel_args(heads_e))
+            return entry(style_block, "encoder_scale_shift")(
+                Key, Scale, Shift, ss_w, **kernel_args(heads_e))
     else:
         bias_e = rel_bias(e_attn)
         shared = {"wv_scale": e_attn["wv"], "wv_shift": e_attn["wv"],
@@ -462,27 +509,28 @@ def _windowed_machinery(params: dict, cfg: StyleTransformerConfig,
         # The self attention and its residual alone (JAX :628-637).
         bias_self = rel_bias(d_self["attn"])
         dn1 = d_self.get("norm1") if cfg.decoder_use_norm else None
+        attention = window_attention if kernels else _plain_window_attention
 
         def self_block(Fcs):
             x = zp(Fcs if dn1 is None
                    else layer_norm(Fcs, dn1["scale"], dn1["bias"]))
-            return Fcs + window_attention(d_self["attn"], x, x, x, bias_self,
-                                          mask, heads_d)
+            return Fcs + attention(d_self["attn"], x, x, x, bias_self, mask,
+                                   heads_d)
     else:
         self_w = window_block.block_weights(d_self, window, dtype,
                                             cfg.decoder_use_norm)
 
         def self_block(Fcs):
-            return window_block.window_block_windows(Fcs, self_w,
-                                                     **kernel_args(heads_d))
+            return entry(window_block, "window_block_windows")(
+                Fcs, self_w, **kernel_args(heads_d))
 
     if fuse_iteration:
         tail_w = style_block.decoder_tail_weights(d_dual, dec["last_mlp"],
                                                   window, dtype)
 
         def tail(q, kk, Scale, Shift, Query):
-            return style_block.decoder_tail(q, kk, Scale, Shift, Query,
-                                            tail_w, **kernel_args(heads_d))
+            return entry(style_block, "decoder_tail")(
+                q, kk, Scale, Shift, Query, tail_w, **kernel_args(heads_d))
     else:
         bias_dual = rel_bias(d_dual)
 
@@ -499,7 +547,8 @@ def _windowed_machinery(params: dict, cfg: StyleTransformerConfig,
                                        "bias": aff["bias"]}
 
     def in_masked(x4, which):
-        return _masked_instance_norm(x4, vm, count, **affine_of(which))
+        return _masked_instance_norm(x4, vm, grid.count, reduce=grid.reduce,
+                                     **affine_of(which))
 
     def decoder(Fcs, Key, Scale, Shift):
         Query = self_block(Fcs)
@@ -510,11 +559,19 @@ def _windowed_machinery(params: dict, cfg: StyleTransformerConfig,
         # The in-attention Q IN (reference :468), applied again, masked.
         q = zp(in_masked(query_in, "in_q"))
         if cfg.decoder_use_Key_instance_norm_after_linear_transformation:
-            # Post-linear IN over the whole padded grid, where the pad
-            # tokens hold the wk bias (reference :520-530).
+            # Post-linear IN over the padded grid, where the pad tokens
+            # hold the wk bias (reference :520-530). A band's grid holds
+            # all-pad window rows past the reference's: its statistics
+            # take the reference grid's tokens (grid.key_in).
             kk = linear(d_dual["wk"], zp(key_in))
-            kk = instance_norm(kk.reshape(b, -1, kk.shape[-1]),
-                               **affine_of("in_k")).reshape(kk.shape)
+            if grid.key_in is None:
+                kk = instance_norm(kk.reshape(kk.shape[0], -1, kk.shape[-1]),
+                                   **affine_of("in_k")).reshape(kk.shape)
+            else:
+                ref_mask, ref_count = grid.key_in
+                kk = _masked_instance_norm(
+                    kk, ref_mask[None, :, :, None], ref_count,
+                    reduce=grid.reduce, **affine_of("in_k"))
         else:
             kk = linear(d_dual["wk"], zp(in_masked(key_in, "in_k")))
         return tail(q, kk, Scale, Shift, Query)
@@ -549,8 +606,9 @@ def style_transformer_apply_windowed(params: dict, Fc: torch.Tensor,
     (fc_w, fs_w), geom = _prepare([Fc, Fs], acfg.window_size,
                                   acfg.shift_size)
     fc_w, fs_w = _to4(fc_w, geom["b"]), _to4(fs_w, geom["b"])
-    encoder, decoder = _windowed_machinery(params, cfg, geom, fc_w.dtype,
-                                           fc_w.device, fuse_iteration)
+    encoder, decoder = _windowed_machinery(
+        params, cfg, _grid(geom, cfg, fc_w.device), fc_w.dtype,
+        fuse_iteration)
     Key = Scale = Shift = fs_w
     Fcs = fc_w
     for _ in range(int(k)):
@@ -567,8 +625,9 @@ def style_stream_windowed(params: dict, Fs: torch.Tensor,
     from Fs alone (reference: codes/style_transformer.py:1229-1245), so a
     fixed style's stream serves any number of contents of its size."""
     fs_w, geom = _partition(Fs, cfg)
-    encoder, _ = _windowed_machinery(params, cfg, geom, fs_w.dtype,
-                                     fs_w.device, fuse_iteration)
+    encoder, _ = _windowed_machinery(
+        params, cfg, _grid(geom, cfg, fs_w.device), fs_w.dtype,
+        fuse_iteration)
     Key = Scale = Shift = fs_w
     stream = []
     for _ in range(int(k)):
@@ -594,8 +653,9 @@ def style_apply_windowed_from_stream(params: dict, Fc: torch.Tensor, stream,
         raise ValueError(
             f"style stream geometry {tuple(stream[0][0].shape[1:])} does not "
             f"match content windows {tuple(fc_w.shape[1:])}")
-    _, decoder = _windowed_machinery(params, cfg, geom, fc_w.dtype,
-                                     fc_w.device, fuse_iteration)
+    _, decoder = _windowed_machinery(
+        params, cfg, _grid(geom, cfg, fc_w.device), fc_w.dtype,
+        fuse_iteration)
     bc = fc_w.shape[0]
     Fcs = fc_w
     for Key, Scale, Shift in stream:

@@ -89,14 +89,14 @@ def patch_merging(params: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ params["reduction"]["kernel"].to(x.dtype)
 
 
-def swin_backbone_apply(params: dict, images: torch.Tensor,
-                        cfg: SwinConfig, *, deterministic: bool = True,
-                        generator: Optional[torch.Generator] = None
-                        ) -> torch.Tensor:
-    """NHWC images (B, H, W, 3) -> features (B, H/8, W/8, 2E)."""
-    check_matmul_mode(cfg, "swin")
+def patch_embed(params: dict, images: torch.Tensor,
+                cfg: SwinConfig) -> torch.Tensor:
+    """4x4 stride-4 patch embedding + LayerNorm: (B, H, W, 3) ->
+    (B, H/4, W/4, E), as a space-to-depth GEMM or a strided convolution
+    (``cfg.patch_embed_impl``). Each patch is its own, so an H-band of the
+    image embeds to the band of the features."""
     b, h, w, cin = images.shape
-    pe = params["patch_embed"]["conv"]
+    pe = params["conv"]
     e = pe["kernel"].shape[-1]
     kernel = pe["kernel"].to(images.dtype)
     if cfg.patch_embed_impl == "conv":
@@ -108,8 +108,16 @@ def swin_backbone_apply(params: dict, images: torch.Tensor,
             b, h // 4, w // 4, 16 * cin)
         x = patches @ kernel.reshape(16 * cin, e)
     x = x + pe["bias"].to(images.dtype)
-    pn = params["patch_embed"]["norm"]
-    x = layer_norm(x, pn["scale"], pn["bias"])
+    return layer_norm(x, params["norm"]["scale"], params["norm"]["bias"])
+
+
+def swin_backbone_apply(params: dict, images: torch.Tensor,
+                        cfg: SwinConfig, *, deterministic: bool = True,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+    """NHWC images (B, H, W, 3) -> features (B, H/8, W/8, 2E)."""
+    check_matmul_mode(cfg, "swin")
+    x = patch_embed(params["patch_embed"], images, cfg)
 
     # A stage stays padded only where every block runs through the kernel:
     # the composed path has no validity mask for the pad tokens.

@@ -228,6 +228,40 @@ def test_k1_tensor_core_body_matches_plain(cuda, c, heads, shift, grid):
     assert dyn >= plan.smem_bytes and regs > 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage,c,heads", [(0, 128, 4), (1, 256, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_on_a_band_slab_matches_plain(cuda, dtype, stage, c, heads):
+    """K1 as the band-owned spatial path launches it: the last of 4 bands
+    of a 1024^2 image (window rows padded to a multiple of 4, past the
+    reference grid), shift (0, 3) with the H-roll outside the kernel, and
+    the band's mask slab, whose keys outside the reference grid carry
+    -1e9 (parallel/spatial_shmap.py); at stage 1's and stage 2's widths."""
+    from mastermetastyletransfer_tpu_torch.config import ModelConfig
+    from mastermetastyletransfer_tpu_torch.parallel import spatial_shmap
+
+    aux, meta = spatial_shmap._build_aux(1024, 1024, ModelConfig(), 4, 3,
+                                         cuda)
+    geo = meta[f"s{stage}"]
+    mask, padmask = aux[f"s{stage}_mask"], aux[f"s{stage}_pm1"]
+    assert geo["nwh_pad"] * 7 > geo["pad_h_ref"] and geo["sw"] == 3
+    assert mask.min().item() <= -1e9
+    g = torch.Generator().manual_seed(stage)
+    acfg = AttentionConfig(dim=c, num_heads=heads, window_size=(7, 7),
+                           shift_size=(3, 3))
+    params = tree_map(lambda t: t.to(cuda), init_style_swin_block(
+        g, acfg, use_norm=True, exclude_mlp=False, mlp_ratio=4.0))
+    w = wb.block_weights(params, (7, 7), dtype, True)
+    x = torch.randn((2, geo["rows_loc"], geo["Wp"], c),
+                    generator=g).to(cuda, dtype)
+    kw = dict(heads=heads, window=(7, 7), shift=(0, geo["sw"]), mask=mask,
+              padmask=padmask)
+    before = wb.LAUNCHES["window_block_rows"]
+    got = wb.window_block_rows(x, w, **kw)
+    assert wb.LAUNCHES["window_block_rows"] == before + 1
+    _check(got, wb.window_block_rows_plain(x, w, **kw), x)
+
+
 # ---------------------------------------------------------------------------
 # The style transformer's kernels (ops/style_block.py)
 # ---------------------------------------------------------------------------
@@ -283,6 +317,63 @@ def test_encoder_scale_shift_matches_plain(cuda, dtype, use_ln1):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decoder_tail_matches_plain(cuda, dtype):
     params, xs, kw = _style_case(cuda, dtype, 5)
+    w = sb.decoder_tail_weights(params["dual"], params["last_mlp"], (7, 7),
+                                dtype)
+    before = sb.LAUNCHES["decoder_tail"]
+    got = sb.decoder_tail(*xs, w, **kw)
+    assert sb.LAUNCHES["decoder_tail"] == before + 1
+    _check(got, sb.decoder_tail_plain(*xs, w, **kw), xs[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_style_kernels_on_a_band_slab_match_plain(cuda, dtype, n):
+    """K2 (the Key block without norms, the self block with them), K3 and
+    K4 as the band-owned spatial path launches them: the last band of n of
+    a 1024^2 image's style-transformer grid (19 window rows padded to 20,
+    past the reference grid), (2, 20 / n x 19, 49, 256) windows, the band's
+    slab of the shift mask, whose keys outside the reference grid carry
+    -1e9, and of the validity mask (parallel/spatial_shmap.py)."""
+    from mastermetastyletransfer_tpu_torch.config import ModelConfig
+    from mastermetastyletransfer_tpu_torch.ops.attention import (
+        init_dual_value_window_attention, init_window_attention,
+    )
+    from mastermetastyletransfer_tpu_torch.ops.mlp import init_mlp
+    from mastermetastyletransfer_tpu_torch.parallel import spatial_shmap
+
+    aux, meta = spatial_shmap._build_aux(1024, 1024, ModelConfig(), n, n - 1,
+                                         cuda)
+    geo = meta["st"]
+    mask, padmask = aux["st_mask"], aux["st_pm"]
+    assert geo["nwh_pad"] * 7 > geo["pad_h_ref"] and mask.min() <= -1e9
+    kw = dict(heads=ST_HEADS, mask=mask, padmask=padmask)
+    g = torch.Generator().manual_seed(n)
+    acfg = AttentionConfig(dim=ST_C, num_heads=ST_HEADS, window_size=(7, 7),
+                           shift_size=(4, 4))
+    params = tree_map(lambda t: t.to(cuda), {
+        "block": init_style_swin_block(g, acfg, use_norm=True,
+                                       exclude_mlp=False, mlp_ratio=4.0),
+        "attn": init_window_attention(g, acfg),
+        "dual": init_dual_value_window_attention(g, acfg),
+        **{m: init_mlp(g, ST_C, 4 * ST_C, init="xavier_uniform")
+           for m in ("mlp_scale", "mlp_shift", "last_mlp")}})
+    xs = [torch.randn((2, mask.shape[0], 49, ST_C), generator=g)
+          .to(cuda, dtype) for _ in range(5)]
+    for use_norm in (False, True):
+        w = wb.block_weights(params["block"], (7, 7), dtype, use_norm)
+        before = wb.LAUNCHES["window_block_windows"]
+        got = wb.window_block_windows(xs[0], w, **kw)
+        assert wb.LAUNCHES["window_block_windows"] == before + 1
+        _check(got, wb.window_block_windows_plain(xs[0], w, **kw), xs[0])
+    w = sb.encoder_weights(params["attn"], params["mlp_scale"],
+                           params["mlp_shift"], None, (7, 7), dtype)
+    before = sb.LAUNCHES["encoder_scale_shift"]
+    got_s, got_h = sb.encoder_scale_shift(*xs[:3], w, **kw)
+    assert sb.LAUNCHES["encoder_scale_shift"] == before + 1
+    ref_s, ref_h = sb.encoder_scale_shift_plain(*xs[:3], w, **kw)
+    _check(got_s, ref_s, xs[1])
+    _check(got_h, ref_h, xs[2])
     w = sb.decoder_tail_weights(params["dual"], params["last_mlp"], (7, 7),
                                 dtype)
     before = sb.LAUNCHES["decoder_tail"]

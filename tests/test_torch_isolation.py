@@ -9,6 +9,8 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
+# What the ranks of the spatial tests import (parallel/launch.py).
+WORKERS = "torch_parallel_workers.py"
 
 _PROBE = r"""
 import importlib.abc, sys
@@ -43,7 +45,7 @@ def test_port_and_smoke_import_without_jax_or_pil():
 
 def test_sources_name_no_jax():
     files = sorted((ROOT / "mastermetastyletransfer_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / WORKERS]
     jax_import = re.compile(r"\bimport jax|\bfrom jax\b")
     jax_package = re.compile(r"\bmastermetastyletransfer_tpu\b(?!_torch)")
     for f in files:
@@ -60,8 +62,10 @@ def test_every_port_module_imports_without_jax_or_pil():
     ops/ln_mlp.py), the losses, the training steps, fast adaptation, the
     data pipeline and its native loader, the trainer, the eval grid and its
     command line, the adaptation, conversion and calibration command lines,
-    the PNG reader and writer, the profiling hooks and the server
-    included."""
+    the PNG reader and writer, the profiling hooks, the server and the
+    band-owned spatial path (parallel/) included; and the module the
+    spatial tests' ranks import (each rank is a fresh process that imports
+    it)."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in (ROOT / "mastermetastyletransfer_tpu_torch").rglob("*.py")
@@ -73,12 +77,15 @@ def test_every_port_module_imports_without_jax_or_pil():
                  "data.pipeline", "data.native_loader", "train.trainer",
                  "utils.convert", "eval.harness", "eval.cli",
                  "utils.convert_cli", "losses.calibrate", "utils.png",
-                 "utils.device", "utils.profiling", "serve"):
+                 "utils.device", "utils.profiling", "serve",
+                 "parallel.mesh", "parallel.launch", "parallel.spatial",
+                 "parallel.spatial_shmap"):
         assert f"mastermetastyletransfer_tpu_torch.{name}" in modules, name
     probe = _PROBE.replace(
         "import chip_smoke\n",
         "import chip_smoke\nimport importlib\n"
-        + "".join(f"importlib.import_module({m!r})\n" for m in modules))
+        + "".join(f"importlib.import_module({m!r})\n" for m in modules)
+        + f"importlib.import_module('tests.{WORKERS[:-3]}')\n")
     proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
