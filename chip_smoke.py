@@ -184,10 +184,27 @@ To run them alone on a machine with a card: ``python3 -c "import torch, chip_smo
 cs; cs._build.build_all(); cs.band_block_cases(
 torch.Generator().manual_seed(cs.SPATIAL_SEED + 1), []);
 cs.run_spatial()"`` from the repo root.
+Then data parallelism (train/step.py with a mesh), with draws of its own:
+data_parallel_single (each mode at the training slice's shape, 256^2,
+global batch 8, ModelConfig defaults, kernels on, bf16 and f32, on one
+device: plain at k 1 and with k drawn, meta with 2 inner updates, fast
+adaptation, accumulation 2; ms a step and peak memory) and data_parallel
+(each mode on 2 and 4 ranks that share the card over gloo, and over NCCL
+with a card a rank where there are the cards: each rank's launches of a
+step exactly the one-device table, the same k, Adam's first moments
+against the one-device step's, f32 by ``f32_verdict``, bf16 by
+``bf16_verdict``, every rank's state bit-equal to rank 0's after every
+step; per rank ms of a step, global imgs/s, peak memory, all-reduce ms
+and MB a step, beside the one-device step's), data_parallel_trainer
+(``trainer.train`` with num_devices 2 in two gloo ranks on the trainer
+phase's folders, 3 iterations, against the one-device trainer) and
+data_parallel_phase; every kernel of the kernels line carries
+``data_parallel_launches``. To run them alone: ``python3 -c "import
+chip_smoke as cs; cs._build.build_all(); cs.run_data_parallel()"``.
 
 Needs only torch, numpy and the standard library, and one CUDA card (the
-spatial phase's NCCL runs need a card per band, and are left out with
-one).
+spatial and data-parallel phases' NCCL runs need a card per rank, and are
+left out with one).
 
 Tolerances, kernel against plain version, element by element. float32:
 1e-4 of the largest magnitude of the plain output (order of sums).
@@ -301,8 +318,10 @@ from mastermetastyletransfer_tpu_torch.ops.windows import (
     effective_shift, shift_attention_mask, valid_token_mask, window_partition,
 )
 from mastermetastyletransfer_tpu_torch.parallel import (
-    make_mesh, make_spatial_stylize_shmap, replicate,
+    DataShard, all_reduce_mean, make_mesh, make_spatial_stylize_shmap,
+    replicate,
 )
+from mastermetastyletransfer_tpu_torch.parallel import mesh as port_mesh
 from mastermetastyletransfer_tpu_torch.parallel import spatial_shmap
 from mastermetastyletransfer_tpu_torch.parallel.launch import spawn_ranks
 from mastermetastyletransfer_tpu_torch.parallel.spatial import (
@@ -3185,6 +3204,31 @@ def check_dumps(exp: str, steps) -> list:
     return stds
 
 
+def trainer_folders(root: str):
+    """The trainer phase's image folders under ``root``: TRAINER_CONTENTS
+    content BMPs and TRAINER_STYLES style BMPs, smooth images from
+    TRAINER_SEED; returns (content dir, style dir)."""
+    rng = np.random.default_rng(TRAINER_SEED)
+    cdir, sdir = os.path.join(root, "coco"), os.path.join(root, "wikiart")
+    for d, n, hw in ((cdir, TRAINER_CONTENTS, TRAINER_CONTENT_HW),
+                     (sdir, TRAINER_STYLES, TRAINER_STYLE_HW)):
+        os.makedirs(d)
+        for i, img in enumerate(smooth_images(rng, n, hw)):
+            write_bmp(os.path.join(d, f"{i:03d}.bmp"), img)
+    return cdir, sdir
+
+
+def trainer_argv(cdir: str, sdir: str, exp: str, *extra) -> list:
+    """The trainer phase's command line (the train phase's configuration,
+    bf16, kernels on, checkpoints and dumps every TRAINER_EVERY)."""
+    return ["--content_dir", cdir, "--style_dir", sdir, "--exp_dir", exp,
+            "--batch_size", str(TRAIN_BATCH), "--crop_to", str(TRAIN_SIZE),
+            "--resize_to", str(TRAINER_RESIZE), "--compute_dtype",
+            "bfloat16", "--use_pallas", "--save_every", str(TRAINER_EVERY),
+            "--save_every_for_model", str(TRAINER_EVERY), "--log_every",
+            "1", "--seed", str(TRAINER_SEED), *extra]
+
+
 def run_trainer(train: dict) -> dict:
     """The training entry point, ``trainer.main``, on image folders written
     here (TRAINER_CONTENTS content BMPs, TRAINER_STYLES style BMPs, smooth
@@ -3202,14 +3246,8 @@ def run_trainer(train: dict) -> dict:
     8, and the trainer's imgs/s over iterations 2-6 beside the train
     phase's step alone."""
     t0 = time.perf_counter()
-    rng = np.random.default_rng(TRAINER_SEED)
     with tempfile.TemporaryDirectory() as tmp:
-        cdir, sdir = os.path.join(tmp, "coco"), os.path.join(tmp, "wikiart")
-        for d, n, hw in ((cdir, TRAINER_CONTENTS, TRAINER_CONTENT_HW),
-                         (sdir, TRAINER_STYLES, TRAINER_STYLE_HW)):
-            os.makedirs(d)
-            for i, img in enumerate(smooth_images(rng, n, hw)):
-                write_bmp(os.path.join(d, f"{i:03d}.bmp"), img)
+        cdir, sdir = trainer_folders(tmp)
         t_native = time.perf_counter()
         native = native_available()
         native_s = time.perf_counter() - t_native
@@ -3223,14 +3261,7 @@ def run_trainer(train: dict) -> dict:
             raise AssertionError(f"loader batch {batch.shape}")
 
         def argv(exp, *extra):
-            return ["--content_dir", cdir, "--style_dir", sdir,
-                    "--exp_dir", os.path.join(tmp, exp), "--batch_size",
-                    str(TRAIN_BATCH), "--crop_to", str(TRAIN_SIZE),
-                    "--resize_to", str(TRAINER_RESIZE), "--compute_dtype",
-                    "bfloat16", "--use_pallas", "--save_every",
-                    str(TRAINER_EVERY), "--save_every_for_model",
-                    str(TRAINER_EVERY), "--log_every", "1", "--seed",
-                    str(TRAINER_SEED), *extra]
+            return trainer_argv(cdir, sdir, os.path.join(tmp, exp), *extra)
 
         def expect(table):
             def want(it, m):
@@ -4841,6 +4872,355 @@ def run_spatial() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# data_parallel: the training steps over a data mesh at 256^2, batch 8
+# ---------------------------------------------------------------------------
+
+DP_SEED = TRAIN_SEED + 14
+DP_NS = (2, 4)
+# steps of a run after its warm-up: the first is checked, all are timed
+DP_STEPS = 3
+DP_META_INNER, DP_TRAINER_ITERS = 2, 3
+# mode -> (TrainConfig fields, k); k None is drawn from the step generator
+DP_MODES = {
+    "plain_k1": ({}, 1),
+    "plain": ({}, None),
+    "meta": ({"mode": "meta", "num_inner_updates": DP_META_INNER,
+              "outer_lr": META_OUTER_LR}, None),
+    "fast_adaptation": ({"mode": "fast_adaptation"}, None),
+    "accum": ({"grad_accum_steps": ACCUM}, None),
+}
+DP_DTYPES = ("bfloat16", "float32")
+
+
+def dp_config(mode: str, dtype: str) -> ExperimentConfig:
+    """The train phase's configuration (kernels on) in ``mode``."""
+    return with_train(train_config(dtype, True), **DP_MODES[mode][0])
+
+
+def dp_table(mode: str, metrics: dict) -> dict:
+    """The one-device step's launches for the depths it drew."""
+    if mode == "meta":
+        return table_sum(train_per_step(k) for k in metrics["ks"])
+    if mode == "fast_adaptation":
+        return adapt_per_step(metrics["k"])
+    if mode == "accum":
+        return accum_per_step(metrics["k"])
+    return train_per_step(metrics["k"])
+
+
+def dp_inputs():
+    """The global batches, on the host: contents (8, 256, 256, 3), the
+    meta step's (2, 8, 256, 256, 3), one style repeated to 8, uniform
+    noise from DP_SEED."""
+    rng = np.random.default_rng(DP_SEED)
+    shape = (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3)
+    content = rng.random(shape, dtype=np.float32)
+    contents = rng.random((DP_META_INNER,) + shape, dtype=np.float32)
+    style = np.repeat(rng.random((1,) + shape[1:], dtype=np.float32),
+                      TRAIN_BATCH, 0)
+    return content, contents, style
+
+
+def dp_weights(dev):
+    gen = torch.Generator().manual_seed(DP_SEED)
+    return (init_master_model(train_config("bfloat16", True).model, gen,
+                              device=dev),
+            init_vgg19_features(gen, device=dev))
+
+
+def state_checksum(state) -> list:
+    """Two int64 sums of the bits of every leaf and Adam moment, one plain
+    and one weighted by position (wrapping, so order-free): equal on two
+    ranks only if their states are, bit for bit, in all likelihood."""
+    sums = []
+    for t in (list(flatten_params(state.params).values()) + state.opt.mu
+              + state.opt.nu):
+        bits = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        sums += [bits.sum(), (bits * w).sum()]
+    return torch.stack(sums).cpu().tolist() + [state.step, state.opt.count]
+
+
+def allreduce_ms(state, mesh, dev) -> float:
+    """ms of one ``all_reduce_mean`` of the state's trainable leaves and 3
+    losses (what a step all-reduces), median of 3 after a warm-up, each
+    started together after a barrier and ended by a synchronize."""
+    like = ([torch.zeros_like(t) for t in state.trainable().values()]
+            + [torch.zeros((), device=dev) for _ in range(3)])
+    all_reduce_mean(like, mesh)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        all_reduce_mean(like, mesh)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def dp_run(mode: str, dtype: str, params0, vgg, inputs, dev, mesh=None,
+           scale: float = 1.0, steps: int = DP_STEPS,
+           warm: bool = True) -> dict:
+    """``steps`` steps of ``mode`` at ``dtype`` from params0, one step
+    generator of a fixed seed, after an untimed step on a copy of its own:
+    on the global batch, or with a mesh on this rank's rows of it through
+    the data-parallel step (the contents scaled by ``scale``). The first
+    step's launches counted from zero, its metrics and Adam's first
+    moments (host copies); every step's ms to its synchronize (after a
+    barrier with a mesh) and the peak memory allocated since the warm-up;
+    with a mesh, the state's checksum gathered over the group after every
+    step, the all-reduces a step and their MB, and one's ms."""
+    cfg = dp_config(mode, dtype)
+    meta = cfg.train.mode == "meta"
+    content, contents, style = inputs
+    x = contents if meta else content
+    if mesh is not None:
+        rows = DataShard.on(mesh, max(cfg.train.grad_accum_steps, 1)).rows(
+            TRAIN_BATCH)
+        x, style = (x[:, rows] if meta else x[rows]), style[rows]
+    x = torch.from_numpy(np.ascontiguousarray(x * np.float32(scale))).to(dev)
+    style = torch.from_numpy(np.ascontiguousarray(style)).to(dev)
+    k = DP_MODES[mode][1]
+    kw = ({"ks": None if k is None else [k] * DP_META_INNER} if meta
+          else {"k": k})
+    step = (make_meta_train_step if meta else make_train_step)(
+        cfg, vgg, device=dev, mesh=mesh)
+    if warm:
+        step(create_train_state(clone_params(params0), cfg.train), x, style,
+             torch.Generator().manual_seed(0), **kw)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = create_train_state(clone_params(params0), cfg.train)
+    gen = torch.Generator().manual_seed(DP_SEED + 100 + list(DP_MODES).index(
+        mode))
+    out = dict(times_ms=[], checksums_equal=True)
+    for i in range(steps):
+        if mesh is not None:
+            dist.barrier()
+        reset_launches()
+        sent = dict(port_mesh.ALL_REDUCES)
+        t0 = time.perf_counter()
+        state, m = step(state, x, style, gen, **kw)
+        torch.cuda.synchronize(dev)
+        out["times_ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out.update(launches=all_launches(), metrics=m,
+                       mu={key: t.detach().cpu() for key, t in
+                           moments(state)[0].items()},
+                       allreduce_calls=port_mesh.ALL_REDUCES["calls"]
+                       - sent["calls"],
+                       allreduce_mb=(port_mesh.ALL_REDUCES["bytes"]
+                                     - sent["bytes"]) / 1e6)
+        if not all(np.isfinite(m[name]) for name in ("total", "content",
+                                                     "style")):
+            raise AssertionError(f"{mode} {dtype} step {i}: {m}")
+        if mesh is not None:
+            sums = [None] * mesh.size()
+            dist.all_gather_object(sums, state_checksum(state))
+            out["checksums_equal"] &= all(c == sums[0] for c in sums)
+    out.update(ms=float(np.median(out["times_ms"])),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    if mesh is not None:
+        out["allreduce_ms"] = allreduce_ms(state, mesh, dev)
+    return out
+
+
+def dp_rank(rank: int, n: int, dev: torch.device, runs) -> dict:
+    """One rank of the data_parallel phase in a process group of n: the
+    seed's weights (the first rank's broadcast, as the trainer replicates
+    them) and each (mode, dtype) run of ``dp_run`` on this rank's rows;
+    Adam's moments from rank 0 only."""
+    mesh = make_mesh(n)
+    params0, vgg = (replicate(t, mesh) for t in dp_weights(dev))
+    inputs = dp_inputs()
+    out = {}
+    for mode, dtype in runs:
+        out[(mode, dtype)] = dp_run(mode, dtype, params0, vgg, inputs, dev,
+                                    mesh)
+        if rank:
+            del out[(mode, dtype)]["mu"]
+    return out
+
+
+def dp_trainer_rank(rank: int, n: int, dev: torch.device, argv) -> dict:
+    """``trainer.train`` on the command line's configuration in one rank,
+    its printed lines kept off the script's output."""
+    args = trainer.build_argparser().parse_args(argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return trainer.train(trainer.config_from_args(args),
+                             exp_dir=args.exp_dir, log_every=args.log_every,
+                             device=dev)
+
+
+def run_dp_trainer() -> dict:
+    """The trainer with ``num_devices=2`` in two gloo ranks that share the
+    card, on the trainer phase's folders and command line, for
+    DP_TRAINER_ITERS plain iterations, beside the one-device trainer at
+    bf16 and at f32 (``trainer.main``): one experiment dir (config, one
+    metrics line per iteration, one checkpoint, one dump), and the logged
+    losses within the bf16 verdict: summed over the iterations, |2 ranks -
+    f32| at most TOL_BF16_NOISE x |one device - f32| per loss."""
+    t0 = time.perf_counter()
+    losses = ("total", "content", "style")
+    with tempfile.TemporaryDirectory() as tmp:
+        cdir, sdir = trainer_folders(tmp)
+
+        def argv(exp, *extra):
+            return trainer_argv(cdir, sdir, os.path.join(tmp, exp),
+                                "--max_iterations", str(DP_TRAINER_ITERS),
+                                *extra)
+
+        walls = {}
+        for label, extra in (("one_bf16", ()),
+                             ("one_f32", ("--compute_dtype", "float32"))):
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                trainer.main(argv(label, *extra))
+            walls[label] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        spawn_ranks(dp_trainer_rank, 2, backend="gloo", device="cuda",
+                    args=(argv("dp", "--num_devices", "2"),))
+        walls["dp"] = time.perf_counter() - t1
+        logs = {label: read_jsonl(os.path.join(tmp, label, "metrics.jsonl"))
+                for label in ("one_bf16", "one_f32", "dp")}
+        dp_dir = os.path.join(tmp, "dp")
+        files = sorted(os.listdir(dp_dir))
+        ckpts = sorted(os.listdir(os.path.join(dp_dir, "checkpoints")))
+        others = sorted(f for f in os.listdir(tmp) if f.startswith("dp_"))
+    want_files = ["checkpoints", "config.json", "metrics.jsonl",
+                  f"stylized_{DP_TRAINER_ITERS}.png"]
+    steps = [r["step"] for r in logs["dp"]]
+    ratio = {}
+    for name in losses:
+        ref = [r[name] for r in logs["one_f32"]]
+        got = sum(abs(r[name] - f) for r, f in zip(logs["dp"], ref))
+        one = sum(abs(r[name] - f) for r, f in zip(logs["one_bf16"], ref))
+        ratio[name] = got / one
+    out = dict(iterations=DP_TRAINER_ITERS, ranks=2, backend="gloo",
+               files=files, checkpoints=ckpts, other_dirs=others,
+               steps=steps, ks=[int(r["k"]) for r in logs["dp"]],
+               one_device_ks=[int(r["k"]) for r in logs["one_bf16"]],
+               losses={label: [r["total"] for r in rows]
+                       for label, rows in logs.items()},
+               loss_noise_ratio=ratio, loss_noise_tol=TOL_BF16_NOISE,
+               imgs_per_s={label: rows[-1]["imgs_per_sec"]
+                           for label, rows in logs.items()},
+               run_wall_s=walls, wall_s=time.perf_counter() - t0)
+    out["checks"] = dict(
+        one_dir=files == want_files and others == [],
+        one_line_per_iteration=steps == list(range(1, DP_TRAINER_ITERS + 1)),
+        one_checkpoint=ckpts == [str(DP_TRAINER_ITERS), "config.json"],
+        same_ks=out["ks"] == out["one_device_ks"],
+        losses=max(ratio.values()) <= TOL_BF16_NOISE)
+    emit("data_parallel_trainer", **out)
+    return out
+
+
+def run_data_parallel() -> dict:
+    """Data parallelism (train/step.py with a mesh) at the training slice's
+    width and shape: ModelConfig defaults, 256^2, global batch 8, weights
+    from DP_SEED. Each mode of DP_MODES (plain at k = 1 and with k drawn,
+    meta with 2 inner updates, fast adaptation, accumulation 2) at bf16 and
+    f32, kernels on: first on one device here (the reference; the f32 runs
+    also on the contents scaled by 1 + eps for the spread), then on 2 and
+    4 ranks that share the card over gloo, and over NCCL with a card a rank
+    where the machine has the cards. Each rank's first step: launches
+    exactly the one-device step's table, Adam's first moments against the
+    one-device step's (f32 by ``f32_verdict``, bf16 by ``bf16_verdict``
+    against the one-device bf16 step's distance from f32), the same k;
+    after every step every rank's state bit-equal to rank 0's. One line a
+    run: per rank ms of a step (median of DP_STEPS after a warm-up),
+    global imgs/s, peak memory, all-reduce ms and MB a step, beside the
+    one-device step's. Then the trainer over 2 ranks (``run_dp_trainer``).
+    Returns each kernel's launches per run and rank."""
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    params0, vgg = dp_weights(dev)
+    inputs = dp_inputs()
+    runs = [(mode, dtype) for mode in DP_MODES for dtype in DP_DTYPES]
+    single = {run: dp_run(*run, params0, vgg, inputs, dev) for run in runs}
+    moved = {mode: [dp_run(mode, "float32", params0, vgg, inputs, dev,
+                           scale=1 + eps, steps=1, warm=False)["mu"]
+                    for eps in TRAIN_SPREAD_EPS] for mode in DP_MODES}
+    for (mode, dtype), r in single.items():
+        emit("data_parallel_single", run=f"{mode}_{dtype}", mode=mode,
+             dtype=dtype, ms=r["ms"], times_ms=r["times_ms"],
+             peak_gib=r["peak_gib"], loss=r["metrics"]["total"],
+             k=r["metrics"].get("ks", r["metrics"]["k"]))
+        if r["launches"] != dp_table(mode, r["metrics"]):
+            raise AssertionError(f"one-device {mode} {dtype} launched "
+                                 f"{r['launches']}")
+    del params0, vgg
+    torch.cuda.empty_cache()
+    results = {}
+    for n in DP_NS:
+        results[("gloo", n)] = spawn_ranks(dp_rank, n, backend="gloo",
+                                           device="cuda", args=(runs,))
+    cards = torch.cuda.device_count()
+    nccl = [n for n in DP_NS if cards >= n]
+    for n in nccl:
+        results[("nccl", n)] = spawn_ranks(dp_rank, n, backend="nccl",
+                                           device="cuda", args=(runs,))
+    emit("data_parallel_cards", count=cards, nccl_ranks=nccl)
+    launches, failed = {}, []
+    for (backend, n), ranks in results.items():
+        for mode, dtype in runs:
+            label = f"{backend}_n{n}_{mode}_{dtype}"
+            per = [r[(mode, dtype)] for r in ranks]
+            one = single[(mode, dtype)]
+            m0 = per[0]["metrics"]
+            if dtype == "float32":
+                verdict = f32_verdict(per[0]["mu"], one["mu"], moved[mode])
+            else:
+                verdict = bf16_verdict(per[0]["mu"], one["mu"],
+                                       single[(mode, "float32")]["mu"])
+            launches[label] = [p["launches"] for p in per]
+            want = dp_table(mode, one["metrics"])
+            drawn = m0.get("ks", m0["k"])
+            checks = dict(
+                launches_exact=all(p["launches"] == want for p in per),
+                same_k=all(p["metrics"].get("ks", p["metrics"]["k"])
+                           == one["metrics"].get("ks", one["metrics"]["k"])
+                           for p in per),
+                states_bit_equal=all(p["checksums_equal"] for p in per),
+                allreduces=all(p["allreduce_calls"] == (
+                    DP_META_INNER if mode == "meta" else 1) for p in per),
+                grads=(verdict["f32_over_tol"] <= 1.0 if dtype == "float32"
+                       else verdict["bf16_noise_ratio"] <= TOL_BF16_NOISE))
+            images = TRAIN_BATCH * (DP_META_INNER if mode == "meta" else 1)
+            ms = max(p["ms"] for p in per)
+            emit("data_parallel", run=label, backend=backend, ranks=n,
+                 mode=mode, dtype=dtype, k=drawn, size=TRAIN_SIZE,
+                 batch=TRAIN_BATCH, rank_rows=TRAIN_BATCH // n,
+                 ms=ms, rank_ms=[p["ms"] for p in per],
+                 rank_times_ms=[p["times_ms"] for p in per],
+                 imgs_per_s=images / ms * 1e3,
+                 rank_peak_gib=[p["peak_gib"] for p in per],
+                 allreduce_ms=[p["allreduce_ms"] * p["allreduce_calls"]
+                               for p in per],
+                 allreduce_mb=per[0]["allreduce_mb"],
+                 allreduce_calls=per[0]["allreduce_calls"],
+                 loss=m0["total"], single_loss=one["metrics"]["total"],
+                 single_ms=one["ms"], single_imgs_per_s=images / one["ms"]
+                 * 1e3, single_peak_gib=one["peak_gib"],
+                 launches={e: [p["launches"][e] for p in per]
+                           for e, c in want.items() if c},
+                 launches_want={e: c for e, c in want.items() if c},
+                 **verdict, checks=checks)
+            if not all(checks.values()):
+                failed.append(label)
+    trained = run_dp_trainer()
+    if not all(trained["checks"].values()):
+        failed.append("trainer")
+    emit("data_parallel_phase", wall_s=time.perf_counter() - t0,
+         failed=failed)
+    if failed:
+        raise AssertionError(f"data-parallel runs failed: {failed}")
+    return launches
+
+
 def main(argv=None) -> int:
     only = (argv if argv is not None else sys.argv[1:])
     if only not in ([], ["--only-train-grads"]):
@@ -4931,6 +5311,9 @@ def main(argv=None) -> int:
     # after every phase, with draws of their own.
     band_block_cases(torch.Generator().manual_seed(SPATIAL_SEED + 1), rows)
     spatial = run_spatial()
+    # The training steps over a data mesh and the trainer over ranks,
+    # after every phase, with draws of their own.
+    data_parallel = run_data_parallel()
 
     def summary(entry, source, replaces, mine, count, origin, per,
                 library=True):
@@ -5081,6 +5464,10 @@ def main(argv=None) -> int:
         # The spatial phase's runs: each rank's launches of one call.
         k["spatial_launches"] = {label: [counts[k["name"]] for counts in per]
                                  for label, per in spatial.items()}
+        # The data-parallel runs: each rank's launches of one step.
+        k["data_parallel_launches"] = {
+            label: [counts[k["name"]] for counts in per]
+            for label, per in data_parallel.items()}
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

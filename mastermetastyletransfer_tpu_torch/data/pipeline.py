@@ -20,6 +20,15 @@ decoder (``native_loader.decode_jpeg``), each bit for bit what PIL's
 BILINEAR resample bit for bit. A file none of them reads (WebP, a
 progressive JPEG, ...) raises ``ValueError`` naming it and the formats
 that are read.
+
+Under data parallelism (a ``DataShard``: rank r of n, ``grad_accum_steps``
+a) every rank keeps the one-device run's seed and index stream, so that
+the ranks agree on every global batch's index group, and decodes only its
+rows of each group (``DataShard.rows``); the crops are drawn for the
+global batch and kept at those rows, and the styles, one image repeated,
+are loaded whole on every rank and repeated to its rows. The ranks' rows,
+put together in rank order (micro-batch by micro-batch under a > 1), are
+the one-device run's batch.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from mastermetastyletransfer_tpu_torch.config import (
     DataConfig, ExperimentConfig,
 )
 from mastermetastyletransfer_tpu_torch.data.native_loader import decode_jpeg
+from mastermetastyletransfer_tpu_torch.parallel.mesh import DataShard
 from mastermetastyletransfer_tpu_torch.utils.png import read_png
 
 _EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
@@ -253,13 +263,18 @@ class PrefetchLoader:
     threads' scheduling. The producer is gated on consumption, so that at
     most prefetch + num_workers batches are in flight while the consumer
     stalls. A worker's failure is raised at the consumer, naming the
-    batch's indices.
+    batch's indices. With a ``shard`` each group stays ``batch_size``
+    indices of the one stream, and the batch is the shard's rows of it
+    (``DataShard.rows``), the only images decoded.
     """
 
     def __init__(self, dataset, batch_size: int, *, num_workers: int = 4,
-                 seed: int = 0, prefetch: int = 4):
+                 seed: int = 0, prefetch: int = 4,
+                 shard: Optional[DataShard] = None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self._rows = (None if shard is None
+                      else [int(i) for i in shard.rows(batch_size)])
         self._sampler = iter(InfiniteIndexSampler(len(dataset), seed))
         self._window = prefetch + max(1, num_workers)
         self._tasks: "queue.Queue[Tuple[int, List[int]]]" = queue.Queue(
@@ -292,6 +307,8 @@ class PrefetchLoader:
             if self._stop.is_set():
                 break
             idx = [next(self._sampler) for _ in range(self.batch_size)]
+            if self._rows is not None:
+                idx = [idx[i] for i in self._rows]
             while not self._stop.is_set():
                 try:
                     self._tasks.put((seq, idx), timeout=0.5)
@@ -344,11 +361,12 @@ class PrefetchLoader:
             self._cond.notify_all()
 
 
-def make_train_iterators(cfg: DataConfig
+def make_train_iterators(cfg: DataConfig, shard: Optional[DataShard] = None
                          ) -> Tuple[PrefetchLoader, PrefetchLoader]:
     """(content_loader, style_loader) over the COCO and WikiArt folders:
     the contents flat, the styles recursive; batch sizes, workers (half for
-    the styles) and seeds (the styles' one more) as the JAX package's."""
+    the styles) and seeds (the styles' one more) as the JAX package's. A
+    ``shard`` cuts the contents to its rows; the styles stay whole."""
     content = ImageFolderDataset(cfg.content_dir, cfg.resize_to,
                                  recursive=False)
     style = ImageFolderDataset(cfg.style_dir, cfg.resize_to, recursive=True)
@@ -357,7 +375,8 @@ def make_train_iterators(cfg: DataConfig
     if len(style) == 0:
         raise FileNotFoundError(f"no images under {cfg.style_dir}")
     c_loader = PrefetchLoader(content, cfg.batch_size_content,
-                              num_workers=cfg.num_workers, seed=cfg.seed)
+                              num_workers=cfg.num_workers, seed=cfg.seed,
+                              shard=shard)
     s_loader = PrefetchLoader(style, cfg.batch_size_style,
                               num_workers=max(1, cfg.num_workers // 2),
                               seed=cfg.seed + 1)
@@ -366,15 +385,19 @@ def make_train_iterators(cfg: DataConfig
 
 def device_preprocess_batch(batch_u8: torch.Tensor, crop_to: int, *,
                             random_crop: bool,
-                            generator: Optional[torch.Generator] = None
-                            ) -> torch.Tensor:
+                            generator: Optional[torch.Generator] = None,
+                            shard: Optional[DataShard] = None,
+                            groups: int = 1) -> torch.Tensor:
     """(B, H, W, C) uint8 -> (B, crop_to, crop_to, C) float32 in [0, 1],
     on the batch's device: RandomCrop or CenterCrop(crop_to) + ToTensor
     (reference: train.py:222-245). A random crop draws each image's row
     offsets, then its column offsets, in [0, H - crop_to] and
     [0, W - crop_to] from ``generator`` (on the generator's device); the
     centre crop starts at ((H - crop_to) // 2, (W - crop_to) // 2). ImageNet
-    normalization comes later, by the flags (train/step.py)."""
+    normalization comes later, by the flags (train/step.py). With a
+    ``shard`` the batch is its rows of ``groups`` global batches one after
+    another (the meta step's inner batches), and the offsets are drawn for
+    the global batches and kept at those rows."""
     b, h, w, _ = batch_u8.shape
     x = batch_u8.to(torch.float32) / 255.0
     if crop_to > h or crop_to > w:
@@ -384,8 +407,16 @@ def device_preprocess_batch(batch_u8: torch.Tensor, crop_to: int, *,
     if random_crop:
         if generator is None:
             raise ValueError("random_crop requires a generator")
-        oy, ox = (torch.randint(0, n - crop_to + 1, (b,), generator=generator,
-                                device=generator.device).to(x.device)
+        rows = slice(None)
+        total = b
+        if shard is not None:
+            per = b // groups * shard.n         # one global batch
+            rows = torch.from_numpy(np.concatenate(
+                [g * per + shard.rows(per) for g in range(groups)]))
+            total = groups * per
+        oy, ox = (torch.randint(0, n - crop_to + 1, (total,),
+                                generator=generator,
+                                device=generator.device)[rows].to(x.device)
                   for n in (h, w))
     else:
         oy = torch.full((b,), (h - crop_to) // 2, device=x.device)
@@ -407,7 +438,9 @@ def repeat_style_to_batch(style_one, batch_size: int) -> torch.Tensor:
 
 def device_preprocess_pair(cfg: ExperimentConfig, content_u8: torch.Tensor,
                            style_u8: torch.Tensor, *,
-                           generator: Optional[torch.Generator] = None
+                           generator: Optional[torch.Generator] = None,
+                           shard: Optional[DataShard] = None,
+                           groups: int = 1
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A training step's (content, style) from staged uint8 batches, as the
     JAX trainer makes them (its train/trainer.py:174-186): both cropped to
@@ -415,13 +448,19 @@ def device_preprocess_pair(cfg: ExperimentConfig, content_u8: torch.Tensor,
     ``cfg.data.use_random_crop``, but the styles always centred in fast
     adaptation (reference: train_only_inner_loop.py:280-286); the first
     style repeated to ``cfg.data.batch_size_content``. Random crops draw
-    the contents' offsets, then the styles', from ``generator``."""
+    the contents' offsets, then the styles', from ``generator``. With a
+    ``shard`` the contents are its rows of ``groups`` global batches
+    (``device_preprocess_batch``), the styles the whole style batch, and
+    the first style is repeated to the shard's rows of one batch."""
     data = cfg.data
     content = device_preprocess_batch(content_u8, data.crop_to,
                                       random_crop=data.use_random_crop,
-                                      generator=generator)
+                                      generator=generator, shard=shard,
+                                      groups=groups)
     style = device_preprocess_batch(
         style_u8, data.crop_to, generator=generator,
         random_crop=data.use_random_crop
         and cfg.train.mode != "fast_adaptation")
-    return content, repeat_style_to_batch(style, data.batch_size_content)
+    b = data.batch_size_content
+    return content, repeat_style_to_batch(
+        style, b if shard is None else len(shard.rows(b)))

@@ -22,6 +22,7 @@ from mastermetastyletransfer_tpu_torch.models.style_transformer import (
 from mastermetastyletransfer_tpu_torch.models.swin import (
     init_swin_backbone, swin_backbone_apply,
 )
+from mastermetastyletransfer_tpu_torch.ops.mlp import stacked_batches
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import tree_map
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -100,16 +101,18 @@ def master_apply(params: dict, content: torch.Tensor, style: torch.Tensor,
 
     Content and style share one Swin pass when their shapes agree (the
     reference calls it twice, codes/full_model.py:219-220; every op is
-    independent per image, so the concatenation is exact)."""
+    independent per image, so the concatenation is exact; a data-parallel
+    step's draws see the two batches stacked, ops/mlp.stacked_batches)."""
     dtype = DTYPES[cfg.stage_dtype("swin")]
     content, style = content.to(dtype), style.to(dtype)
     rand = dict(deterministic=deterministic, generator=generator)
     with _stage_ctx(cfg, "swin"):
         if content.shape == style.shape:
             b = content.shape[0]
-            both = swin_backbone_apply(params["swin"],
-                                       torch.cat([content, style]), cfg.swin,
-                                       **rand)
+            with stacked_batches(2):
+                both = swin_backbone_apply(params["swin"],
+                                           torch.cat([content, style]),
+                                           cfg.swin, **rand)
             fc, fs = both[:b], both[b:]
         else:
             fc = swin_backbone_apply(params["swin"], content, cfg.swin, **rand)

@@ -9,11 +9,21 @@ JAX package's rng keys), on the generator's device, one draw per call that
 is not the identity: at evaluation (``deterministic``) and at a rate of 0
 nothing is drawn, so two routes that make the same calls in the same order
 see the same masks.
+
+In a data-parallel step (train/step.py with a mesh) each rank holds its
+rows of the global batch, and ``data_shard`` makes every draw the one-device
+step's: the draw takes the global shape and keeps this rank's rows, so that
+every rank advances the shared generator as the one-device step does and
+the same images get the same masks. Dim 0 of every draw is batch-major
+(NHWC activations; windows (B * nW, ...) grouped by image), or
+``stacked_batches`` such batches one after another (the Swin's one pass over
+contents and styles, models/master.py).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,9 +36,44 @@ def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+# (rank, n) of the data-parallel step in progress, and how many batches
+# dim 0 of a draw stacks. Module globals, not thread-locals: a remat
+# forward's recompute runs on autograd's device thread.
+_SHARD: Optional[Tuple[int, int]] = None
+_STACKED = 1
+
+
+@contextlib.contextmanager
+def data_shard(rank: int, n: int):
+    """Draws as rank ``rank`` of ``n`` of a data-parallel step."""
+    global _SHARD
+    prev, _SHARD = _SHARD, (rank, n)
+    try:
+        yield
+    finally:
+        _SHARD = prev
+
+
+@contextlib.contextmanager
+def stacked_batches(groups: int):
+    """Dim 0 of the draws inside is ``groups`` batches one after another."""
+    global _STACKED
+    prev, _STACKED = _STACKED, groups
+    try:
+        yield
+    finally:
+        _STACKED = prev
+
+
 def _uniform_like(x: torch.Tensor, shape, g: torch.Generator
                   ) -> torch.Tensor:
-    return torch.rand(shape, generator=g, device=g.device).to(x.device)
+    if _SHARD is None:
+        return torch.rand(shape, generator=g, device=g.device).to(x.device)
+    rank, n = _SHARD
+    rest = tuple(shape[1:])
+    m = shape[0] // _STACKED            # this rank's rows of each batch
+    u = torch.rand((_STACKED, n * m) + rest, generator=g, device=g.device)
+    return u[:, rank * m:(rank + 1) * m].reshape(tuple(shape)).to(x.device)
 
 
 def dropout(x: torch.Tensor, p: float, *, deterministic: bool = True,

@@ -1,5 +1,5 @@
-"""Device mesh and placement on torch.distributed (JAX counterpart:
-parallel/mesh.py).
+"""Device mesh, placement and the data axis's collectives on
+torch.distributed (JAX counterpart: parallel/mesh.py).
 
 JAX's ``Mesh`` holds the devices of one process and XLA places each array
 by its ``NamedSharding``. Here each rank is a process with one device (on
@@ -16,11 +16,16 @@ How a tensor crosses ranks follows the group's backend (``to_wire``):
 NCCL takes the rank's CUDA tensors as they are (one card per rank); gloo
 takes CPU tensors, so a CUDA tensor goes through a pinned host copy and
 back (ranks that share one card, where NCCL refuses two ranks).
+
+Data parallelism (train/step.py) needs two more pieces that XLA gives the
+JAX package for free: which rows of a global batch a rank holds
+(``DataShard``), and the gradient's mean over the data axis
+(``all_reduce_mean``, one collective a call).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -123,3 +128,61 @@ def replicate(tree, mesh: DeviceMesh):
         return w.to(t.device)
 
     return tree_map(bcast, tree)
+
+
+class DataShard(NamedTuple):
+    """One rank's part of every global batch: rank ``rank`` of ``n`` on
+    the data axis, under ``accum`` micro-batches (``grad_accum_steps``).
+    The loader, the crops and the step take their rows from it."""
+    rank: int
+    n: int
+    accum: int = 1
+
+    def rows(self, b: int) -> np.ndarray:
+        """This rank's rows of a global batch of ``b``, in the order it
+        holds them. Micro-batch j is global rows j b / a onward, as the
+        JAX package reshapes the global batch, and the rank holds its 1/n
+        of each in turn: j b / a + [rank b / (a n), (rank + 1) b / (a n));
+        with a = 1 the contiguous slice ``shard_batch`` takes."""
+        n, a = self.n, self.accum
+        if b % (n * a):
+            raise ValueError(f"a global batch of {b} does not divide over "
+                             f"{n} ranks x grad_accum_steps={a} "
+                             f"micro-batches")
+        mb, m = b // a, b // (a * n)
+        return np.concatenate([j * mb + self.rank * m + np.arange(m)
+                               for j in range(a)])
+
+    @classmethod
+    def on(cls, mesh: DeviceMesh, accum: int = 1,
+           axis: str = "data") -> "DataShard":
+        """This rank's shard on the mesh's ``axis``."""
+        return cls(mesh.get_local_rank(axis),
+                   mesh.size(axis_index(mesh, axis)), accum)
+
+
+# all_reduce_mean's calls and the bytes each rank sent into them, since
+# the process started (chip_smoke.py reads them per step).
+ALL_REDUCES = {"calls": 0, "bytes": 0}
+
+
+def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh: DeviceMesh,
+                    axis: str = "data") -> List[torch.Tensor]:
+    """Each tensor's mean over the ranks of ``axis``, as new tensors on
+    the inputs' devices and in their dtypes: flattened into one float32
+    buffer, summed by one all-reduce (gloo has no AVG), divided by the
+    axis size and unflattened. Every rank gets the same bits."""
+    group = mesh.get_group(axis)
+    n = mesh.size(axis_index(mesh, axis))
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    wire = to_wire(flat, group)
+    dist.all_reduce(wire, group=group)
+    wire.div_(n)
+    ALL_REDUCES["calls"] += 1
+    ALL_REDUCES["bytes"] += wire.numel() * wire.element_size()
+    flat = wire.to(flat.device)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
+        at += t.numel()
+    return out

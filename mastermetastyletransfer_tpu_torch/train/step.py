@@ -1,5 +1,5 @@
-"""The training steps (JAX counterpart: train/step.py, one device;
-reference: train_only_inner_loop.py:389-614, train.py:316-563).
+"""The training steps (JAX counterpart: train/step.py; reference:
+train_only_inner_loop.py:389-614, train.py:316-563).
 
 The plain step: sample k in [1, max_layers] (reference: train.py:448), run
 the model in training mode (stochastic depth on, the Swin included) on the
@@ -30,6 +30,20 @@ the sampled k in Python.
 A float32 model runs the whole step, backward and loss included, with TF32
 off (the port's f32 stages do so in evaluation too); a bfloat16 model keeps
 PyTorch's own flags.
+
+Data parallelism: pass a mesh (parallel/mesh.py, a "data" axis over the
+ranks of an initialised process group, one device each) and the step is
+the one-device step on the global batch, computed by ranks that each hold
+their rows of it (``DataShard``: the contiguous 1/n, or under
+``grad_accum_steps`` their 1/n of each micro-batch). Every rank draws k
+from the same generator; the model's masks are drawn in the global
+batch's shape and sliced to the rank's rows (ops/mlp.data_shard); the
+trainable leaves' gradients and the losses go through one mean all-reduce
+(``all_reduce_mean``) before Adam, at every inner update of the meta
+step; Adam and the meta step's interpolation then run identically on
+every rank, whose weights stay equal bit for bit. Where the JAX package
+lets XLA insert the all-reduce, the port makes it by hand; it uses no
+``DistributedDataParallel``, since the parameters are dicts of tensors.
 """
 
 from __future__ import annotations
@@ -46,6 +60,10 @@ from mastermetastyletransfer_tpu_torch.config import (
 from mastermetastyletransfer_tpu_torch.losses.loss import perceptual_loss
 from mastermetastyletransfer_tpu_torch.models.master import (
     _TF32_OFF, imagenet_normalize, master_apply,
+)
+from mastermetastyletransfer_tpu_torch.ops.mlp import data_shard
+from mastermetastyletransfer_tpu_torch.parallel.mesh import (
+    DataShard, all_reduce_mean,
 )
 from mastermetastyletransfer_tpu_torch.train.state import (
     TrainState, trainable_labels,
@@ -122,15 +140,18 @@ def _model_forward(cfg: ExperimentConfig) -> Callable:
     return remat_forward
 
 
-def make_loss_and_grad(cfg: ExperimentConfig, vgg_params: dict
-                       ) -> Callable:
+def make_loss_and_grad(cfg: ExperimentConfig, vgg_params: dict,
+                       mesh=None) -> Callable:
     """(params, content, style, k, generator) -> (total loss, metrics, {flat
     key: grad}) for the leaves of params that require grad. With
     ``grad_accum_steps`` = n > 1 the batch (which n must divide) runs as n
     micro-batches in turn, each drawing its masks from the generator after
-    the one before; the gradients and the losses are their means."""
+    the one before; the gradients and the losses are their means. With a
+    mesh, content and style are this rank's rows, the masks the global
+    batch's, and the gradients and losses their means over the ranks."""
     forward = _model_forward(cfg)
     accum = max(int(cfg.train.grad_accum_steps), 1)
+    shard = None if mesh is None else DataShard.on(mesh, accum)
 
     def one(params, content, style, k, generator):
         with _precision(cfg):
@@ -148,22 +169,32 @@ def make_loss_and_grad(cfg: ExperimentConfig, vgg_params: dict
                  for (key, v), g in zip(leaves.items(), grads)}
         return {name: v.detach() for name, v in losses.items()}, grads
 
-    def loss_and_grad(params, content, style, k, generator):
+    def local(params, content, style, k, generator):
         if accum == 1:
-            losses, grads = one(params, content, style, k, generator)
+            return one(params, content, style, k, generator)
+        b = content.shape[0]
+        if b % accum:
+            raise ValueError(f"batch {b} does not divide into "
+                             f"grad_accum_steps={accum} micro-batches")
+        mb = b // accum
+        parts = [one(params, content[i * mb:(i + 1) * mb],
+                     style[i * mb:(i + 1) * mb], k, generator)
+                 for i in range(accum)]
+        losses = {name: sum(lo[name] for lo, _ in parts) / accum
+                  for name in parts[0][0]}
+        grads = {key: sum(g[key] for _, g in parts) / accum
+                 for key in parts[0][1]}
+        return losses, grads
+
+    def loss_and_grad(params, content, style, k, generator):
+        if shard is None:
+            losses, grads = local(params, content, style, k, generator)
         else:
-            b = content.shape[0]
-            if b % accum:
-                raise ValueError(f"batch {b} does not divide into "
-                                 f"grad_accum_steps={accum} micro-batches")
-            mb = b // accum
-            parts = [one(params, content[i * mb:(i + 1) * mb],
-                         style[i * mb:(i + 1) * mb], k, generator)
-                     for i in range(accum)]
-            losses = {name: sum(lo[name] for lo, _ in parts) / accum
-                      for name in parts[0][0]}
-            grads = {key: sum(g[key] for _, g in parts) / accum
-                     for key in parts[0][1]}
+            with data_shard(shard.rank, shard.n):
+                losses, grads = local(params, content, style, k, generator)
+            mean = all_reduce_mean([*grads.values(), *losses.values()], mesh)
+            grads = dict(zip(grads, mean))
+            losses = dict(zip(losses, mean[len(grads):]))
         metrics = {name: float(v) for name, v in losses.items()}
         return losses["total"], metrics, grads
 
@@ -186,15 +217,18 @@ def _update(state: TrainState, loss_and_grad: Callable, content, style,
 
 
 def make_train_step(cfg: ExperimentConfig, vgg_params: dict,
-                    device: Union[str, torch.device] = "cuda") -> Callable:
+                    device: Union[str, torch.device] = "cuda",
+                    mesh=None) -> Callable:
     """The plain step (and fast adaptation's): (state, content, style,
     generator) -> (state, metrics). ``content`` and ``style`` are NHWC
     float32 in [0, 1] (numpy or tensors), the style already repeated to the
     content batch (reference: train.py:411-416); they are moved to
     ``device``. Adam's update is in place on the state's trainable
-    leaves."""
+    leaves. With a mesh (data parallelism, module docstring) they are this
+    rank's rows of the global batch (``DataShard.rows``), the state and
+    the generator every rank's same."""
     device = torch.device(device)
-    loss_and_grad = make_loss_and_grad(cfg, vgg_params)
+    loss_and_grad = make_loss_and_grad(cfg, vgg_params, mesh)
 
     def step(state: TrainState, content, style,
              generator: torch.Generator, k: Optional[int] = None):
@@ -225,8 +259,8 @@ def _interp(theta: dict, omega: dict, labels: dict, eta: float) -> dict:
 
 
 def make_meta_train_step(cfg: ExperimentConfig, vgg_params: dict,
-                         device: Union[str, torch.device] = "cuda"
-                         ) -> Callable:
+                         device: Union[str, torch.device] = "cuda",
+                         mesh=None) -> Callable:
     """The Reptile meta step: (state, contents, style, generator, ks=None)
     -> (state, metrics of the last inner step). One call is one task:
     ``contents`` is (num_inner_updates, B, H, W, 3), a content batch per
@@ -236,9 +270,11 @@ def make_meta_train_step(cfg: ExperimentConfig, vgg_params: dict,
     inside the call. Each inner step draws its k, or takes ``ks[j]``, and
     takes one update through ``state.opt``, whose moments and count carry
     across tasks (reference: train.py:392-398); then theta moves toward
-    omega by ``outer_lr`` and ``state.step`` counts one."""
+    omega by ``outer_lr`` and ``state.step`` counts one. With a mesh each
+    inner batch is this rank's rows (``contents`` (n, B / ranks, ...)) and
+    each inner update's gradients are averaged over the ranks."""
     device = torch.device(device)
-    loss_and_grad = make_loss_and_grad(cfg, vgg_params)
+    loss_and_grad = make_loss_and_grad(cfg, vgg_params, mesh)
     n = cfg.train.num_inner_updates
 
     def step(state: TrainState, contents, style,

@@ -12,8 +12,22 @@ Run:
 ``--use_pallas`` keeps its JAX name: it turns on the port's CUDA kernels in
 every stage. ``--device`` (default cuda) places the run; the tests pass
 cpu. Checkpoints are the port's own format (utils/checkpoint.py), not
-Orbax. One device only: ``--num_devices`` above 1 raises until the port
-has data parallelism.
+Orbax.
+
+Data parallelism (JAX's ``--num_devices``): ``main`` with ``--num_devices``
+n > 1 starts n ranks (parallel/launch.py), over NCCL with a card each on
+``--device cuda`` (fewer cards than n raise) and over gloo on ``--device
+cpu``; each runs ``train``, which with ``num_devices`` n > 1 needs an
+initialised process group of world size n (``make_mesh`` raises
+otherwise). The ranks hold the same weights (rank 0's, broadcast once, as
+the JAX package replicates them), restore the same checkpoint on
+``--resume``, decode only their rows of each global batch and step
+together through the data-parallel steps (train/step.py); rank 0 alone
+resolves and writes the experiment directory (config, metrics,
+checkpoints, dumps) and prints. ``--batch_size`` is the global batch,
+and imgs/s counts it. Ranks that share one card over gloo are reached by
+calling ``train`` inside ``spawn_ranks(..., backend="gloo",
+device="cuda")``.
 
 Randomness: the weights come from ``torch.Generator`` seeded with
 ``--seed`` (the VGG19's, without ``--vgg_weights``, from seed 1, as the
@@ -35,6 +49,7 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mastermetastyletransfer_tpu_torch.config import (
     DataConfig, ExperimentConfig, LossConfig, ModelConfig, SwinConfig,
@@ -46,6 +61,10 @@ from mastermetastyletransfer_tpu_torch.data.pipeline import (
 from mastermetastyletransfer_tpu_torch.losses.vgg import init_vgg19_features
 from mastermetastyletransfer_tpu_torch.models.master import (
     init_master_model, master_apply,
+)
+from mastermetastyletransfer_tpu_torch.parallel.launch import spawn_ranks
+from mastermetastyletransfer_tpu_torch.parallel.mesh import (
+    DataShard, make_mesh, replicate,
 )
 from mastermetastyletransfer_tpu_torch.train.state import create_train_state
 from mastermetastyletransfer_tpu_torch.train.step import (
@@ -149,12 +168,9 @@ def train(cfg: ExperimentConfig, *, exp_dir: str = "experiments/run",
           dump_images: bool = True, wandb_mode: str = "online",
           device: Union[str, torch.device] = "cuda") -> dict:
     """Run the configured training loop on ``device``; returns the last
-    logged metrics."""
+    logged metrics. With ``num_devices`` n > 1, one rank of n in an
+    initialised process group (module docstring)."""
     tcfg, dcfg = cfg.train, cfg.data
-    if tcfg.num_devices > 1:
-        raise NotImplementedError(
-            "num_devices > 1: the port has no data parallelism yet "
-            "(ROADMAP.md, queue 1: the rest of utils/, then parallel/)")
     if tcfg.matmul_precision == "high" and (
             cfg.model.swin.use_pallas or cfg.model.transformer.use_pallas
             or cfg.model.decoder.use_pallas):
@@ -165,15 +181,30 @@ def train(cfg: ExperimentConfig, *, exp_dir: str = "experiments/run",
             "JAX package's kernels reject it); use 'highest' or disable "
             "the kernels")
     device = require_device(device)
-    exp_dir = _resolve_exp_dir(exp_dir, resume)
-    os.makedirs(exp_dir, exist_ok=True)
-    with open(os.path.join(exp_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    mesh = shard = None
+    if tcfg.num_devices > 1:
+        mesh = make_mesh(tcfg.num_devices, device_type=device.type)
+        shard = DataShard.on(mesh, max(int(tcfg.grad_accum_steps), 1))
+        shard.rows(dcfg.batch_size_content)     # raises where n x a does
+    lead = mesh is None or shard.rank == 0      # not divide the batch
+    if lead:
+        exp_dir = _resolve_exp_dir(exp_dir, resume)
+        os.makedirs(exp_dir, exist_ok=True)
+        with open(os.path.join(exp_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+    if mesh is not None:
+        # resolved once: a rank that resolved it after rank 0 made the
+        # directory would pick the next free name
+        shared = [exp_dir]
+        dist.broadcast_object_list(shared, src=0)
+        exp_dir = shared[0]
 
     params = init_master_model(cfg.model,
                                torch.Generator().manual_seed(tcfg.seed),
                                device=device)
     vgg = load_vgg_params(vgg_path, device)
+    if mesh is not None:
+        params, vgg = replicate(params, mesh), replicate(vgg, mesh)
     state = create_train_state(params, tcfg)
 
     start_step = 0
@@ -181,22 +212,24 @@ def train(cfg: ExperimentConfig, *, exp_dir: str = "experiments/run",
     if resume and ckpt_lib.latest_step(ckpt_dir) is not None:
         state = ckpt_lib.restore_checkpoint(ckpt_dir, state)
         start_step = state.step
-        print(f"resumed from step {start_step}")
+        if lead:
+            print(f"resumed from step {start_step}")
 
     meta = tcfg.mode == "meta"
     make_step = make_meta_train_step if meta else make_train_step
-    step_fn = make_step(cfg, vgg, device=device)
+    step_fn = make_step(cfg, vgg, device=device, mesh=mesh)
     per_step = dcfg.batch_size_content * (tcfg.num_inner_updates if meta
                                           else 1)
-
     last_metrics = {}
     with contextlib.ExitStack() as stack:
-        content_loader, style_loader = make_train_iterators(dcfg)
+        content_loader, style_loader = make_train_iterators(dcfg, shard)
         stack.callback(content_loader.close)
         stack.callback(style_loader.close)
-        logger = MetricsLogger(exp_dir, use_wandb, cfg.to_dict(),
-                               wandb_mode=wandb_mode)
-        stack.callback(logger.close)
+        logger = None
+        if lead:
+            logger = MetricsLogger(exp_dir, use_wandb, cfg.to_dict(),
+                                   wandb_mode=wandb_mode)
+            stack.callback(logger.close)
         t_start = time.time()
         for it in range(start_step, tcfg.max_iterations):
             gen = iteration_generator(tcfg.seed, it)
@@ -206,16 +239,19 @@ def train(cfg: ExperimentConfig, *, exp_dir: str = "experiments/run",
                            for _ in range(tcfg.num_inner_updates)]
                 content_u8 = torch.from_numpy(np.stack(batches)).to(device)
                 cflat, style = device_preprocess_pair(
-                    cfg, content_u8.flatten(0, 1), style_u8, generator=gen)
+                    cfg, content_u8.flatten(0, 1), style_u8, generator=gen,
+                    shard=shard, groups=tcfg.num_inner_updates)
                 content = cflat.unflatten(0, content_u8.shape[:2])
             else:
                 content_u8 = torch.from_numpy(next(content_loader)).to(device)
                 content, style = device_preprocess_pair(
-                    cfg, content_u8, style_u8, generator=gen)
+                    cfg, content_u8, style_u8, generator=gen, shard=shard)
             state, metrics = step_fn(state, content, style, gen)
             if meta:
                 metrics.pop("k")      # the last inner step's; ks has all
 
+            if not lead:
+                continue
             if (it + 1) % log_every == 0 or it == start_step:
                 m = dict(metrics)
                 m["imgs_per_sec"] = (per_step * (it + 1 - start_step)
@@ -241,8 +277,11 @@ def train(cfg: ExperimentConfig, *, exp_dir: str = "experiments/run",
                     "content": c1.cpu().numpy(),
                     "style": style[0].cpu().numpy(), "stylized": out_np})
 
-    ckpt_lib.save_checkpoint(ckpt_dir, state, state.step,
-                             config_json=cfg.to_json())
+    if lead:
+        ckpt_lib.save_checkpoint(ckpt_dir, state, state.step,
+                                 config_json=cfg.to_json())
+    if mesh is not None:
+        dist.barrier()      # the directory is whole when any rank returns
     return last_metrics
 
 
@@ -272,7 +311,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--save_every_for_model", type=int, default=1000)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--num_devices", type=int, default=1,
-                   help="only 1 in the port (no data parallelism yet)")
+                   help="data-parallel ranks: over NCCL with a card each "
+                        "(--device cuda) or gloo (--device cpu)")
     p.add_argument("--compute_dtype", default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--matmul_precision", default=None,
@@ -339,10 +379,21 @@ def main(argv=None):
     if args.matmul_precision is not None:
         cfg = cfg.replace(train=cfg.train.replace(
             matmul_precision=args.matmul_precision))
-    return train(cfg, exp_dir=args.exp_dir, vgg_path=args.vgg_weights,
-                 resume=args.resume, use_wandb=args.use_wandb,
-                 log_every=args.log_every, wandb_mode=args.wandb_mode,
-                 device=args.device)
+    kwargs = dict(exp_dir=args.exp_dir, vgg_path=args.vgg_weights,
+                  resume=args.resume, use_wandb=args.use_wandb,
+                  log_every=args.log_every, wandb_mode=args.wandb_mode)
+    if args.num_devices > 1:
+        device = require_device(args.device).type
+        return spawn_ranks(_train_rank, args.num_devices,
+                           backend="nccl" if device == "cuda" else "gloo",
+                           device=device, args=(cfg, kwargs))[0]
+    return train(cfg, device=args.device, **kwargs)
+
+
+def _train_rank(rank: int, n: int, device: torch.device,
+                cfg: ExperimentConfig, kwargs: dict) -> dict:
+    """One rank of ``main``'s data-parallel run."""
+    return train(cfg, device=device, **kwargs)
 
 
 if __name__ == "__main__":

@@ -70,8 +70,8 @@ def main(argv=None) -> int:
     _build.build_all()
     real = trainer.make_train_iterators
 
-    def predecoded(cfg):
-        loaders = real(cfg)
+    def predecoded(cfg, shard=None):
+        loaders = real(cfg, shard)
         try:
             return tuple(Replay([next(ld).copy()
                                  for _ in range(args.iterations)])
@@ -81,8 +81,8 @@ def main(argv=None) -> int:
                 ld.close()
 
     variants = {"real": (real, None), "predecoded": (predecoded, None),
-                "workers1": (lambda cfg: real(cfg.replace(num_workers=1)),
-                             None),
+                "workers1": (lambda cfg, shard=None: real(
+                    cfg.replace(num_workers=1), shard), None),
                 "switch0.5ms": (real, 0.0005)}
     rng = np.random.default_rng(cs.TRAINER_SEED)
     with tempfile.TemporaryDirectory() as tmp:

@@ -9,8 +9,9 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
-# What the ranks of the spatial tests import (parallel/launch.py).
-WORKERS = "torch_parallel_workers.py"
+# What the ranks of the spatial and data-parallel tests import
+# (parallel/launch.py).
+WORKERS = ("torch_parallel_workers.py", "torch_dp_workers.py")
 
 _PROBE = r"""
 import importlib.abc, sys
@@ -45,7 +46,7 @@ def test_port_and_smoke_import_without_jax_or_pil():
 
 def test_sources_name_no_jax():
     files = sorted((ROOT / "mastermetastyletransfer_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tests" / WORKERS]
+    files += [ROOT / "chip_smoke.py"] + [ROOT / "tests" / w for w in WORKERS]
     jax_import = re.compile(r"\bimport jax|\bfrom jax\b")
     jax_package = re.compile(r"\bmastermetastyletransfer_tpu\b(?!_torch)")
     for f in files:
@@ -63,9 +64,9 @@ def test_every_port_module_imports_without_jax_or_pil():
     data pipeline and its native loader, the trainer, the eval grid and its
     command line, the adaptation, conversion and calibration command lines,
     the PNG reader and writer, the profiling hooks, the server and the
-    band-owned spatial path (parallel/) included; and the module the
-    spatial tests' ranks import (each rank is a fresh process that imports
-    it)."""
+    band-owned spatial path (parallel/) included; and the modules the
+    spatial and data-parallel tests' ranks import (each rank is a fresh
+    process that imports them)."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in (ROOT / "mastermetastyletransfer_tpu_torch").rglob("*.py")
@@ -85,7 +86,8 @@ def test_every_port_module_imports_without_jax_or_pil():
         "import chip_smoke\n",
         "import chip_smoke\nimport importlib\n"
         + "".join(f"importlib.import_module({m!r})\n" for m in modules)
-        + f"importlib.import_module('tests.{WORKERS[:-3]}')\n")
+        + "".join(f"importlib.import_module('tests.{w[:-3]}')\n"
+                  for w in WORKERS))
     proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

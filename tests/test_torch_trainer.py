@@ -11,7 +11,9 @@ the VGG19 conversion, the PNG dump and the experiment-dir renaming are
 held to JAX's; a checkpoint's round trip bit for bit; a resumed run's
 draws to a continuous run's, its loaders restarting at their first batch
 as JAX's do. chip_smoke.py's launch table of one dump is counted here
-with the kernel wrappers made to see a card.
+with the kernel wrappers made to see a card. With ``num_devices`` 2 the
+trainer runs in 2 gloo ranks (tests/torch_dp_workers.py, no JAX) against
+the one-device runs, and ``main --num_devices 2`` starts its own ranks.
 """
 
 import contextlib
@@ -33,12 +35,14 @@ from mastermetastyletransfer_tpu.train import step as jstep
 from mastermetastyletransfer_tpu.utils import checkpoint as jckpt
 from mastermetastyletransfer_tpu.utils import convert as jconvert
 from mastermetastyletransfer_tpu_torch import config as tcfg
+from mastermetastyletransfer_tpu_torch.parallel.launch import spawn_ranks
 from mastermetastyletransfer_tpu_torch.train import state as tstate
 from mastermetastyletransfer_tpu_torch.train import trainer
 from mastermetastyletransfer_tpu_torch.utils import checkpoint as tckpt
 from mastermetastyletransfer_tpu_torch.utils import convert as tconvert
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import flatten_params
 from mastermetastyletransfer_tpu_torch.utils.png import png_bytes, save_png
+from tests import torch_dp_workers as dp_workers
 from tests.torch_threads import two_torch_threads  # noqa: F401
 
 SIZE, STAGE, BATCH, MAX_K = 64, 80, 2, 2
@@ -109,10 +113,10 @@ def _recording(seen):
             return run
         return maker
 
-    def preprocess(cfg, content_u8, style_u8, *, generator):
+    def preprocess(cfg, content_u8, style_u8, *, generator, **kw):
         seen.append(dict(content_u8=content_u8.clone(),
                          gen=generator.get_state()))
-        return made[2](cfg, content_u8, style_u8, generator=generator)
+        return made[2](cfg, content_u8, style_u8, generator=generator, **kw)
 
     (trainer.make_train_step, trainer.make_meta_train_step,
      trainer.device_preprocess_pair) = (wrap(made[0]), wrap(made[1]),
@@ -380,11 +384,113 @@ def test_matmul_precision_high_with_kernels_refused(runs, capsys):
                       device="cpu")
 
 
-def test_num_devices_above_one_raises(runs):
+# ---------------------------------------------------------------------------
+# data parallelism: num_devices = 2 over gloo ranks on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def dp_runs(runs):
+    """``train`` with ``num_devices=2`` in 2 gloo ranks, spawned once:
+    plain and meta for 2 iterations (as ``runs``), and 1 plain iteration
+    into an experiment dir that exists."""
+    root = runs["root"]
+    os.makedirs(os.path.join(root, "dp_taken"))
+    cfgs = {
+        "plain": (_config(runs["cdir"], runs["sdir"], num_devices=2),
+                  os.path.join(root, "dp_plain")),
+        "meta": (_config(runs["cdir"], runs["sdir"], "meta", num_devices=2),
+                 os.path.join(root, "dp_meta")),
+        "taken": (_config(runs["cdir"], runs["sdir"], iters=1,
+                          num_devices=2), os.path.join(root, "dp_taken"))}
+    return cfgs, spawn_ranks(dp_workers.dp_train, 2, backend="gloo",
+                             device="cpu", args=(cfgs,))
+
+
+@pytest.mark.parametrize("mode", ["plain", "meta"])
+def test_data_parallel_trainer_matches_one_device(runs, dp_runs, mode):
+    """Two ranks train as the one-device trainer does: one experiment dir
+    (config, one metrics line per step, one checkpoint), the final weights
+    within 2.5 lr per update (each Adam update is about lr per element,
+    and a near-zero gradient may take either sign; JAX's own bound,
+    tests/test_train.py), the first logged losses the one-device run's
+    within 1e-5 relative. The second step's within 1e-4: its weights have
+    taken updates whose near-zero gradients may take the other sign on
+    the ranks, and such a 2 lr move of the weights moves the losses by up
+    to 5.2e-5 relative (tests/test_torch_meta.py); the meta run's content
+    loss moves 1.2e-5 here."""
+    cfgs, ranks = dp_runs
+    cfg, exp = cfgs[mode]
+    assert [r[mode]["exp_dir"] for r in ranks] == [exp, exp]
+    assert sorted(os.listdir(exp)) == ["checkpoints", "config.json",
+                                       "metrics.jsonl"]
+    assert json.loads(open(os.path.join(exp, "config.json")).read())[
+        "train"]["num_devices"] == 2
+    rows = [json.loads(line) for line in open(
+        os.path.join(exp, "metrics.jsonl"))]
+    want = [json.loads(line)
+            for line in runs[mode]["metrics.jsonl"].splitlines()]
+    assert [r["step"] for r in rows] == [w["step"] for w in want] == [1, 2]
+    assert ranks[0][mode]["result"] == {k: v for k, v in rows[-1].items()
+                                        if k != "step"}
+    for r, w in zip(rows, want):
+        assert set(r) == set(w)
+        assert r.get("ks", r.get("k")) == w.get("ks", w.get("k"))
+        tol = 1e-5 if r["step"] == 1 else 1e-4
+        for name in ("total", "content", "style"):
+            assert abs(r[name] - w[name]) <= tol * abs(w[name]), (
+                r["step"], name, r[name], w[name])
+    ckpt = os.path.join(exp, "checkpoints")
+    assert tckpt.latest_step(ckpt) == 2
+    assert sorted(os.listdir(ckpt)) == ["2", "config.json"]
+    state = runs[mode]["result"][1][-1]["state"]
+    with np.load(os.path.join(ckpt, "2", "params.npz")) as got:
+        leaves = flatten_params(state.params)
+        assert set(got.files) == set(leaves)
+        lr = cfg.train.inner_lr
+        updates = 2 * (cfg.train.num_inner_updates if mode == "meta" else 1)
+        for key, leaf in leaves.items():
+            err = float(np.abs(got[key] - leaf.detach().numpy()).max())
+            assert err <= 2.5 * lr * updates, (key, err)
+
+
+def test_data_parallel_trainer_shares_a_renamed_exp_dir(runs, dp_runs):
+    """An experiment dir that exists: rank 0 resolves dp_taken_2 once and
+    every rank takes it; nothing else is made."""
+    cfgs, ranks = dp_runs
+    exp = cfgs["taken"][1]
+    assert [r["taken"]["exp_dir"] for r in ranks] == [exp + "_2"] * 2
+    assert os.listdir(exp) == []
+    assert not os.path.exists(exp + "_3")
+    assert sorted(os.listdir(exp + "_2")) == ["checkpoints", "config.json",
+                                              "metrics.jsonl"]
+    assert tckpt.latest_step(os.path.join(exp + "_2", "checkpoints")) == 1
+
+
+def test_main_trains_over_num_devices_ranks(runs, monkeypatch):
+    """``main --num_devices 2 --device cpu`` starts 2 gloo ranks and
+    returns rank 0's logged metrics."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    exp = os.path.join(runs["root"], "dp_main")
+    metrics = trainer.main([
+        "--num_devices", "2", "--device", "cpu", "--content_dir",
+        runs["cdir"], "--style_dir", runs["sdir"], "--exp_dir", exp,
+        "--batch_size", str(BATCH), "--crop_to", str(SIZE), "--resize_to",
+        str(STAGE), "--max_layers", str(MAX_K), "--max_iterations", "1",
+        "--use_pallas", "--log_every", "1"])
+    assert np.isfinite(metrics["total"]) and metrics["k"] in (1, 2)
+    assert [json.loads(line)["step"] for line in open(
+        os.path.join(exp, "metrics.jsonl"))] == [1]
+    assert tckpt.latest_step(os.path.join(exp, "checkpoints")) == 1
+
+
+def test_num_devices_above_one_needs_a_process_group(runs):
+    """No fallback to one device: ``train`` with num_devices 2 outside a
+    process group of 2 raises (make_mesh's RuntimeError)."""
     cfg = _config(runs["cdir"], runs["sdir"], num_devices=2)
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(RuntimeError, match="initialised process group"):
         trainer.train(cfg, exp_dir=os.path.join(runs["root"], "dp"),
                       device="cpu")
+    assert not os.path.exists(os.path.join(runs["root"], "dp"))
 
 
 def test_cuda_without_a_card_raises(runs):
