@@ -14,12 +14,14 @@ step's two inputs so, by the configuration, as the JAX trainer does.
 
 No PIL (the machine with the card has none): ``decode_image`` reads
 uncompressed 24- and 32-bit BMP files with numpy (``_read_bmp``), 8-bit
-PNG with ``utils/png.read_png`` and baseline JPEG with the port's own
-decoder (``native_loader.decode_jpeg``), each bit for bit what PIL's
-``convert("RGB")`` gives, and ``_resize_bilinear`` computes Pillow's
-BILINEAR resample bit for bit. A file none of them reads (WebP, a
-progressive JPEG, ...) raises ``ValueError`` naming it and the formats
-that are read.
+PNG with ``utils/png.read_png`` and baseline and progressive JPEG with the
+port's own decoder (``native_loader.decode_jpeg``, at full size as PIL
+decodes), each bit for bit what PIL's ``convert("RGB")`` gives, and
+``_resize_bilinear`` computes Pillow's BILINEAR resample bit for bit. A
+file none of them reads (WebP, an arithmetic-coded JPEG, ...) raises
+``ValueError`` naming it and the formats that are read. The batch loader
+(``native_loader.decode_resize_batch``) prescales its JPEGs in the DCT
+domain as the JAX package's loader does.
 
 Under data parallelism (a ``DataShard``: rank r of n, ``grad_accum_steps``
 a) every rank keeps the one-device run's seed and index stream, so that
@@ -178,7 +180,7 @@ def _resize_bilinear(img: np.ndarray, size: int) -> np.ndarray:
 
 
 READ_FORMATS = ("uncompressed 24/32-bit BMP", "8-bit non-interlaced PNG",
-                "baseline JPEG")
+                "baseline JPEG", "progressive JPEG")
 
 
 def decode_image(data: bytes) -> np.ndarray:

@@ -1,28 +1,40 @@
-// Baseline JPEG decoder and encoder, with no library beyond libstdc++.
+// JPEG decoder and baseline encoder, with no library beyond libstdc++.
 //
-// The decoder reads what baseline writers give: SOF0 and SOF1 Huffman
-// scans at 8 bits, grayscale or three components (YCbCr, or RGB where an
-// Adobe marker or the component ids say so), any integer sampling (4:4:4,
-// 4:2:2, 4:2:0, 4:4:0, ...), interleaved or one scan per component,
-// DRI/RSTn restart intervals; the standard Huffman tables stand in for
-// missing ones (Motion-JPEG frames), as libjpeg-turbo does. Its arithmetic
-// is libjpeg's default decompression, so that the pixels are what PIL and
-// libjpeg-turbo give:
-//   * the integer "islow" inverse DCT (IJG jidctint.c, with the range
-//     limit's wraparound table),
+// The decoder reads what libjpeg-turbo reads in 8-bit Huffman JPEG: SOF0
+// and SOF1 (sequential) and SOF2 (progressive) frames, grayscale or three
+// components (YCbCr, or RGB where an Adobe marker or the component ids say
+// so), any integer sampling (4:4:4, 4:2:2, 4:2:0, 4:4:0, ...), interleaved
+// or one scan per component, DRI/RSTn restart intervals, DHT and DRI
+// segments between scans; the standard Huffman tables stand in for missing
+// ones (Motion-JPEG frames), as libjpeg-turbo does. A progressive frame's
+// scans (spectral selection and successive approximation, jdphuff.c) fill
+// a buffer of every block's coefficients, dequantized at the end with the
+// table latched at each component's first scan. Its arithmetic is
+// libjpeg-turbo's default decompression with JCS_RGB, so that the pixels
+// are what PIL and libjpeg-turbo give, at full size or at n/8 of it (n in
+// 1..8, libjpeg's scale_num / scale_denom, jdmaster.c):
+//   * the inverse DCT of each output block size (jddctmgr.c): jidctint.c's
+//     "islow" at 8 x 8 and its scaled routines at 3, 5, 6, 7, 10, 12 and
+//     14, jidctred.c's reduced ones at 4, 2 and 1, each with the range
+//     limit's wraparound table; a chroma component's size doubles while its
+//     sampling allows (4:2:0 chroma decodes at 2n, unupsampled);
 //   * fancy (triangular) chroma upsampling (jdsample.c: h2v1, h1v2, h2v2
 //     with their bias terms; box replication where a chroma plane is at
-//     most 2 samples wide, or for other ratios),
+//     most 2 samples wide, at 1/8 scale, or for other ratios),
 //   * the JFIF YCbCr -> RGB conversion with libjpeg's fixed-point tables
 //     (jdcolor.c).
-// A progressive (SOF2), lossless, arithmetic-coded or 12-bit file, a
-// CMYK/YCCK one and a truncated or corrupt one throw std::runtime_error
-// naming the reason (the SOF marker for the unsupported kinds). So does a
-// frame above kMaxPixels, or one whose scans could not fit in the file's
-// bytes, before anything of its size is allocated: the decoder reads
-// untrusted request bodies. A DC table with a symbol above 15 is refused
-// as libjpeg refuses it (jdhuff.c jpeg_make_d_derived_tbl), and a DC
-// prediction that leaves int's range as libjpeg-turbo refuses it.
+// A lossless, hierarchical, arithmetic-coded or 12-bit file, a CMYK/YCCK
+// one, a progressive one that libjpeg would block-smooth (its scans leave
+// the first AC coefficients incomplete) and a truncated or corrupt one
+// throw std::runtime_error naming the reason (the SOF marker for the
+// unsupported kinds). So does a frame above kMaxPixels, one whose scans
+// could not fit in the file's bytes, and a progressive one whose
+// coefficient buffer would be above the limit, before anything of its size
+// is allocated: the decoder reads untrusted request bodies. A DC table with
+// a symbol above 15 is refused as libjpeg refuses it (jdhuff.c
+// jpeg_make_d_derived_tbl), a DC prediction that leaves int's range as
+// libjpeg-turbo refuses it, and a scan that would decode a coefficient's
+// bit a second time.
 //
 // The encoder writes a baseline 4:2:0 JFIF as libjpeg does at a quality
 // setting with its defaults (PIL's Image.save(..., "JPEG", quality=q)):
@@ -254,8 +266,17 @@ inline int extend(int v, int s) {
   return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
 }
 
-// IJG jidctint.c ("islow"), the range limit of jdmaster.c included.
+// ---------------------------------------------------------------------------
+// Inverse DCTs: libjpeg-turbo's at every output size its decoder picks
+// (jddctmgr.c). Each takes one block's quantized coefficients in natural
+// order and its quantization table, and writes size x size samples.
+// ---------------------------------------------------------------------------
+
 constexpr int kConstBits = 13, kPass1Bits = 2;
+// FIX(x) of jdct.h: x in CONST_BITS fixed point, rounded.
+constexpr int64_t fix(double x) {
+  return int64_t(x * (int64_t(1) << kConstBits) + 0.5);
+}
 constexpr int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270,
                   F0899 = 7373, F1175 = 9633, F1501 = 12299, F1847 = 15137,
                   F1961 = 16069, F2053 = 16819, F2562 = 20995, F3072 = 25172;
@@ -264,16 +285,21 @@ inline int64_t descale(int64_t x, int n) {
   return (x + (int64_t(1) << (n - 1))) >> n;
 }
 
+// jdmaster.c's range limit of an IDCT output (the table's wraparound).
 inline uint8_t idct_limit(int64_t x) {
   int i = int(x & 1023);
   return uint8_t(i < 128 ? i + 128 : i < 512 ? 255 : i < 896 ? 0 : i - 896);
 }
 
-void idct_islow(const int* coef, const uint16_t* q, uint8_t* out,
+using Idct = void (*)(const int16_t* coef, const uint16_t* q, uint8_t* out,
+                      int stride);
+
+// IJG jidctint.c ("islow"), 8 x 8.
+void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out,
                 int stride) {
   int ws[64];
   for (int c = 0; c < 8; ++c) {
-    const int* in = coef + c;
+    const int16_t* in = coef + c;
     const uint16_t* qp = q + c;
     int* w = ws + c;
     if (!in[8] && !in[16] && !in[24] && !in[32] && !in[40] && !in[48] &&
@@ -374,20 +400,435 @@ void idct_islow(const int* coef, const uint16_t* q, uint8_t* out,
   }
 }
 
+// The reduced-size routines of IJG jidctred.c (libjpeg 6b), which
+// libjpeg-turbo keeps for 4 x 4, 2 x 2 and 1 x 1 output. The 4 x 4 reads
+// no coefficient of row or column 4, the 2 x 2 none of rows or columns 2,
+// 4 and 6.
+constexpr int64_t R0211 = 1730, R0509 = 4176, R0601 = 4926, R0720 = 5906,
+                  R0850 = 6967, R1061 = 8697, R1272 = 10426, R1451 = 11893,
+                  R2172 = 17799, R3624 = 29692;
+
+void idct_4x4(const int16_t* in, const uint16_t* q, uint8_t* out,
+              int stride) {
+  int ws[8 * 4];
+  for (int c = 0; c < 8; ++c) {
+    if (c == 4) continue;
+    auto dq = [&](int r) { return int64_t(in[8 * r + c]) * q[8 * r + c]; };
+    if (!in[8 + c] && !in[16 + c] && !in[24 + c] && !in[40 + c] &&
+        !in[48 + c] && !in[56 + c]) {
+      const int dc = int(dq(0) * (1 << kPass1Bits));
+      for (int r = 0; r < 4; ++r) ws[8 * r + c] = dc;
+      continue;
+    }
+    const int64_t tmp0 = dq(0) * (1 << (kConstBits + 1));
+    const int64_t tmp2 = dq(2) * F1847 + dq(6) * -F0765;
+    const int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+    const int64_t z1 = dq(7), z2 = dq(5), z3 = dq(3), z4 = dq(1);
+    const int64_t o0 = z1 * -R0211 + z2 * R1451 + z3 * -R2172 + z4 * R1061;
+    const int64_t o2 = z1 * -R0509 + z2 * -R0601 + z3 * F0899 + z4 * F2562;
+    const int s = kConstBits - kPass1Bits + 1;
+    ws[c] = int(descale(tmp10 + o2, s));
+    ws[24 + c] = int(descale(tmp10 - o2, s));
+    ws[8 + c] = int(descale(tmp12 + o0, s));
+    ws[16 + c] = int(descale(tmp12 - o0, s));
+  }
+  for (int r = 0; r < 4; ++r) {
+    const int* w = ws + 8 * r;
+    uint8_t* o = out + r * stride;
+    if (!w[1] && !w[2] && !w[3] && !w[5] && !w[6] && !w[7]) {
+      const uint8_t dc = idct_limit(descale(w[0], kPass1Bits + 3));
+      for (int c = 0; c < 4; ++c) o[c] = dc;
+      continue;
+    }
+    const int64_t tmp0 = int64_t(w[0]) * (1 << (kConstBits + 1));
+    const int64_t tmp2 = w[2] * F1847 + w[6] * -F0765;
+    const int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+    const int64_t z1 = w[7], z2 = w[5], z3 = w[3], z4 = w[1];
+    const int64_t o0 = z1 * -R0211 + z2 * R1451 + z3 * -R2172 + z4 * R1061;
+    const int64_t o2 = z1 * -R0509 + z2 * -R0601 + z3 * F0899 + z4 * F2562;
+    const int s = kConstBits + kPass1Bits + 3 + 1;
+    o[0] = idct_limit(descale(tmp10 + o2, s));
+    o[3] = idct_limit(descale(tmp10 - o2, s));
+    o[1] = idct_limit(descale(tmp12 + o0, s));
+    o[2] = idct_limit(descale(tmp12 - o0, s));
+  }
+}
+
+void idct_2x2(const int16_t* in, const uint16_t* q, uint8_t* out,
+              int stride) {
+  int ws[8 * 2];
+  for (int c : {0, 1, 3, 5, 7}) {
+    auto dq = [&](int r) { return int64_t(in[8 * r + c]) * q[8 * r + c]; };
+    if (!in[8 + c] && !in[24 + c] && !in[40 + c] && !in[56 + c]) {
+      ws[c] = ws[8 + c] = int(dq(0) * (1 << kPass1Bits));
+      continue;
+    }
+    const int64_t tmp10 = dq(0) * (1 << (kConstBits + 2));
+    const int64_t tmp0 =
+        dq(7) * -R0720 + dq(5) * R0850 + dq(3) * -R1272 + dq(1) * R3624;
+    const int s = kConstBits - kPass1Bits + 2;
+    ws[c] = int(descale(tmp10 + tmp0, s));
+    ws[8 + c] = int(descale(tmp10 - tmp0, s));
+  }
+  for (int r = 0; r < 2; ++r) {
+    const int* w = ws + 8 * r;
+    uint8_t* o = out + r * stride;
+    if (!w[1] && !w[3] && !w[5] && !w[7]) {
+      o[0] = o[1] = idct_limit(descale(w[0], kPass1Bits + 3));
+      continue;
+    }
+    const int64_t tmp10 = int64_t(w[0]) * (1 << (kConstBits + 2));
+    const int64_t tmp0 = int64_t(w[7]) * -R0720 + int64_t(w[5]) * R0850 +
+                         int64_t(w[3]) * -R1272 + int64_t(w[1]) * R3624;
+    const int s = kConstBits + kPass1Bits + 3 + 2;
+    o[0] = idct_limit(descale(tmp10 + tmp0, s));
+    o[1] = idct_limit(descale(tmp10 - tmp0, s));
+  }
+}
+
+void idct_1x1(const int16_t* in, const uint16_t* q, uint8_t* out, int) {
+  out[0] = idct_limit(descale(int64_t(in[0]) * q[0], 3));
+}
+
+
+// IJG jidctint.c's scaled routines (libjpeg 7+) for N = 3, 5, 6, 7, 10, 12
+// and 14. Each is one N-point transform, `points`, run on the columns
+// (pass 1) and then on the work array's rows (pass 2): x(i) is input i,
+// `base` x(0) << CONST_BITS with the rounding for the pass's final shift
+// added ("fudge factor"), and y(i, v) takes output i before its shift.
+// Below 8 the transform reads the first N coefficients of each column and
+// row, above 8 all 8. (Where jidctint.c's pass 1 shifts a term earlier,
+// that term is a multiple of the shift's unit, so the result is the same.)
+template <int N, class Points>
+void idct_scaled(const int16_t* in, const uint16_t* q, uint8_t* out,
+                 int stride, Points points) {
+  constexpr int K = N < 8 ? N : 8;
+  int ws[K * N];
+  for (int c = 0; c < K; ++c) {
+    auto x = [&](int r) { return int64_t(in[8 * r + c]) * q[8 * r + c]; };
+    points(x, x(0) * (1 << kConstBits) +
+                  (int64_t(1) << (kConstBits - kPass1Bits - 1)),
+           [&](int i, int64_t v) {
+             ws[K * i + c] = int(v >> (kConstBits - kPass1Bits));
+           });
+  }
+  for (int r = 0; r < N; ++r) {
+    const int* w = ws + K * r;
+    uint8_t* o = out + r * stride;
+    points([&](int i) { return int64_t(w[i]); },
+           (int64_t(w[0]) + (int64_t(1) << (kPass1Bits + 2))) *
+               (1 << kConstBits),
+           [&](int i, int64_t v) {
+             o[i] = idct_limit(v >> (kConstBits + kPass1Bits + 3));
+           });
+  }
+}
+
+constexpr int64_t kOne = int64_t(1) << kConstBits;
+
+void idct_3x3(const int16_t* in, const uint16_t* q, uint8_t* out,
+              int stride) {
+  idct_scaled<3>(in, q, out, stride, [](auto x, int64_t base, auto y) {
+    const int64_t t12 = x(2) * fix(0.707106781);           // c2
+    const int64_t t10 = base + t12, t2 = base - t12 - t12;
+    const int64_t t0 = x(1) * fix(1.224744871);            // c1
+    y(0, t10 + t0);
+    y(2, t10 - t0);
+    y(1, t2);
+  });
+}
+
+void idct_5x5(const int16_t* in, const uint16_t* q, uint8_t* out,
+              int stride) {
+  idct_scaled<5>(in, q, out, stride, [](auto x, int64_t base, auto y) {
+    int64_t t12 = base, t0 = x(2), t1 = x(4);
+    int64_t z1 = (t0 + t1) * fix(0.790569415);             // (c2+c4)/2
+    int64_t z2 = (t0 - t1) * fix(0.353553391);             // (c2-c4)/2
+    int64_t z3 = t12 + z2;
+    const int64_t t10 = z3 + z1, t11 = z3 - z1;
+    t12 -= z2 * 4;
+    z2 = x(1);
+    z3 = x(3);
+    z1 = (z2 + z3) * fix(0.831253876);                     // c3
+    t0 = z1 + z2 * fix(0.513743148);                       // c1-c3
+    t1 = z1 - z3 * fix(2.176250899);                       // c1+c3
+    y(0, t10 + t0);
+    y(4, t10 - t0);
+    y(1, t11 + t1);
+    y(3, t11 - t1);
+    y(2, t12);
+  });
+}
+
+void idct_6x6(const int16_t* in, const uint16_t* q, uint8_t* out,
+              int stride) {
+  idct_scaled<6>(in, q, out, stride, [](auto x, int64_t base, auto y) {
+    int64_t t10 = x(4) * fix(0.707106781);                 // c4
+    int64_t t1 = base + t10;
+    const int64_t t11 = base - t10 - t10;
+    int64_t t0 = x(2) * fix(1.224744871);                  // c2
+    t10 = t1 + t0;
+    const int64_t t12 = t1 - t0;
+    const int64_t z1 = x(1), z2 = x(3), z3 = x(5);
+    t1 = (z1 + z3) * fix(0.366025404);                     // c5
+    t0 = t1 + (z1 + z2) * kOne;
+    const int64_t t2 = t1 + (z3 - z2) * kOne;
+    t1 = (z1 - z2 - z3) * kOne;
+    y(0, t10 + t0);
+    y(5, t10 - t0);
+    y(1, t11 + t1);
+    y(4, t11 - t1);
+    y(2, t12 + t2);
+    y(3, t12 - t2);
+  });
+}
+
+void idct_7x7(const int16_t* in, const uint16_t* q, uint8_t* out,
+              int stride) {
+  idct_scaled<7>(in, q, out, stride, [](auto x, int64_t base, auto y) {
+    int64_t t13 = base;
+    int64_t z1 = x(2), z2 = x(4), z3 = x(6);
+    int64_t t10 = (z2 - z3) * fix(0.881747734);            // c4
+    int64_t t12 = (z1 - z2) * fix(0.314692123);            // c6
+    const int64_t t11 = t10 + t12 + t13 - z2 * fix(1.841218003);
+    int64_t t0 = z1 + z3;
+    z2 -= t0;
+    t0 = t0 * fix(1.274162392) + t13;                      // c2
+    t10 += t0 - z3 * fix(0.077722536);                     // c2-c4-c6
+    t12 += t0 - z1 * fix(2.470602249);                     // c2+c4+c6
+    t13 += z2 * fix(1.414213562);                          // c0
+    z1 = x(1);
+    z2 = x(3);
+    z3 = x(5);
+    int64_t t1 = (z1 + z2) * fix(0.935414347);             // (c3+c1-c5)/2
+    int64_t t2 = (z1 - z2) * fix(0.170262339);             // (c3+c5-c1)/2
+    t0 = t1 - t2;
+    t1 += t2;
+    t2 = (z2 + z3) * -fix(1.378756276);                    // -c1
+    t1 += t2;
+    z2 = (z1 + z3) * fix(0.613604268);                     // c5
+    t0 += z2;
+    t2 += z2 + z3 * fix(1.870828693);                      // c3+c1-c5
+    y(0, t10 + t0);
+    y(6, t10 - t0);
+    y(1, t11 + t1);
+    y(5, t11 - t1);
+    y(2, t12 + t2);
+    y(4, t12 - t2);
+    y(3, t13);
+  });
+}
+
+void idct_10x10(const int16_t* in, const uint16_t* q, uint8_t* out,
+                int stride) {
+  idct_scaled<10>(in, q, out, stride, [](auto x, int64_t base, auto y) {
+    int64_t z3 = base, z4 = x(4);
+    int64_t z1 = z4 * fix(1.144122806);                    // c4
+    int64_t z2 = z4 * fix(0.437016024);                    // c8
+    int64_t t10 = z3 + z1, t11 = z3 - z2;
+    const int64_t t22 = z3 - (z1 - z2) * 2;                // c0 = (c4-c8)*2
+    z2 = x(2);
+    z3 = x(6);
+    z1 = (z2 + z3) * fix(0.831253876);                     // c6
+    int64_t t12 = z1 + z2 * fix(0.513743148);              // c2-c6
+    int64_t t13 = z1 - z3 * fix(2.176250899);              // c2+c6
+    const int64_t t20 = t10 + t12, t24 = t10 - t12;
+    const int64_t t21 = t11 + t13, t23 = t11 - t13;
+    z1 = x(1);
+    z2 = x(3);
+    z3 = x(5) * kOne;
+    z4 = x(7);
+    t11 = z2 + z4;
+    t13 = z2 - z4;
+    t12 = t13 * fix(0.309016994);                          // (c3-c7)/2
+    z2 = t11 * fix(0.951056516);                           // (c3+c7)/2
+    z4 = z3 + t12;
+    t10 = z1 * fix(1.396802247) + z2 + z4;                 // c1
+    const int64_t t14 = z1 * fix(0.221231742) - z2 + z4;   // c9
+    z2 = t11 * fix(0.587785252);                           // (c1-c9)/2
+    z4 = z3 - t12 - t13 * (kOne / 2);
+    t12 = (z1 - t13) * kOne - z3;
+    t11 = z1 * fix(1.260073511) - z2 - z4;                 // c3
+    t13 = z1 * fix(0.642039522) - z2 + z4;                 // c7
+    y(0, t20 + t10);
+    y(9, t20 - t10);
+    y(1, t21 + t11);
+    y(8, t21 - t11);
+    y(2, t22 + t12);
+    y(7, t22 - t12);
+    y(3, t23 + t13);
+    y(6, t23 - t13);
+    y(4, t24 + t14);
+    y(5, t24 - t14);
+  });
+}
+
+void idct_12x12(const int16_t* in, const uint16_t* q, uint8_t* out,
+                int stride) {
+  idct_scaled<12>(in, q, out, stride, [](auto x, int64_t base, auto y) {
+    int64_t z3 = base;
+    int64_t z4 = x(4) * fix(1.224744871);                  // c4
+    const int64_t t10 = z3 + z4, t11 = z3 - z4;
+    int64_t z1 = x(2);
+    z4 = z1 * fix(1.366025404);                            // c2
+    z1 *= kOne;
+    int64_t z2 = x(6) * kOne;
+    int64_t t12 = z1 - z2;
+    const int64_t t21 = z3 + t12, t24 = z3 - t12;
+    t12 = z4 + z2;
+    const int64_t t20 = t10 + t12, t25 = t10 - t12;
+    t12 = z4 - z1 - z2;
+    const int64_t t22 = t11 + t12, t23 = t11 - t12;
+    z1 = x(1);
+    z2 = x(3);
+    z3 = x(5);
+    z4 = x(7);
+    int64_t o11 = z2 * fix(1.306562965);                   // c3
+    int64_t o14 = z2 * -F0541;                             // -c9
+    int64_t o10 = z1 + z3;
+    int64_t o15 = (o10 + z4) * fix(0.860918669);           // c7
+    int64_t o12 = o15 + o10 * fix(0.261052384);            // c5-c7
+    o10 = o12 + o11 + z1 * fix(0.280143716);               // c1-c5
+    int64_t o13 = (z3 + z4) * -fix(1.045510580);           // -(c7+c11)
+    o12 += o13 + o14 - z3 * fix(1.478575242);              // c1+c5-c7-c11
+    o13 += o15 - o11 + z4 * fix(1.586706681);              // c1+c11
+    o15 += o14 - z1 * fix(0.676326758) - z4 * fix(1.982889723);
+    z1 -= z4;
+    z2 -= z3;
+    z3 = (z1 + z2) * F0541;                                // c9
+    o11 = z3 + z1 * F0765;                                 // c3-c9
+    o14 = z3 - z2 * F1847;                                 // c3+c9
+    y(0, t20 + o10);
+    y(11, t20 - o10);
+    y(1, t21 + o11);
+    y(10, t21 - o11);
+    y(2, t22 + o12);
+    y(9, t22 - o12);
+    y(3, t23 + o13);
+    y(8, t23 - o13);
+    y(4, t24 + o14);
+    y(7, t24 - o14);
+    y(5, t25 + o15);
+    y(6, t25 - o15);
+  });
+}
+
+void idct_14x14(const int16_t* in, const uint16_t* q, uint8_t* out,
+                int stride) {
+  idct_scaled<14>(in, q, out, stride, [](auto x, int64_t base, auto y) {
+    int64_t z1 = base, z4 = x(4);
+    int64_t z2 = z4 * fix(1.274162392);                    // c4
+    int64_t z3 = z4 * fix(0.314692123);                    // c12
+    z4 *= fix(0.881747734);                                // c8
+    const int64_t t10 = z1 + z2, t11 = z1 + z3, t12 = z1 - z4;
+    const int64_t t23 = z1 - (z2 + z3 - z4) * 2;           // c0
+    z1 = x(2);
+    z2 = x(6);
+    z3 = (z1 + z2) * fix(1.105676686);                     // c6
+    const int64_t t13 = z3 + z1 * fix(0.273079590);        // c2-c6
+    const int64_t t14 = z3 - z2 * fix(1.719280954);        // c6+c10
+    const int64_t t15 = z1 * fix(0.613604268) - z2 * fix(1.378756276);
+    const int64_t t20 = t10 + t13, t26 = t10 - t13;
+    const int64_t t21 = t11 + t14, t25 = t11 - t14;
+    const int64_t t22 = t12 + t15, t24 = t12 - t15;
+    z1 = x(1);
+    z2 = x(3);
+    z3 = x(5);
+    z4 = x(7) * kOne;
+    int64_t o14 = z1 + z3;
+    int64_t o11 = (z1 + z2) * fix(1.334852607);            // c3
+    int64_t o12 = o14 * fix(1.197448846);                  // c5
+    const int64_t o10 = o11 + o12 + z4 - z1 * fix(1.126980169);
+    o14 *= fix(0.752406978);                               // c9
+    int64_t o16 = o14 - z1 * fix(1.061150426);             // c9+c11-c13
+    z1 -= z2;
+    int64_t o15 = z1 * fix(0.467085129) - z4;              // c11
+    o16 += o15;
+    int64_t o13 = (z2 + z3) * -fix(0.158341681) - z4;      // -c13
+    o11 += o13 - z2 * fix(0.424103948);                    // c3-c9-c13
+    o12 += o13 - z3 * fix(2.373959773);                    // c3+c5-c13
+    o13 = (z3 - z2) * fix(1.405321284);                    // c1
+    o14 += o13 + z4 - z3 * fix(1.6906431334);              // c1+c9-c11
+    o15 += o13 + z2 * fix(0.674957567);                    // c1+c11-c5
+    o13 = (z1 - z3) * kOne + z4;
+    y(0, t20 + o10);
+    y(13, t20 - o10);
+    y(1, t21 + o11);
+    y(12, t21 - o11);
+    y(2, t22 + o12);
+    y(11, t22 - o12);
+    y(3, t23 + o13);
+    y(10, t23 - o13);
+    y(4, t24 + o14);
+    y(9, t24 - o14);
+    y(5, t25 + o15);
+    y(8, t25 - o15);
+    y(6, t26 + o16);
+    y(7, t26 - o16);
+  });
+}
+
+// The IDCT libjpeg-turbo's jddctmgr.c picks for an output block of
+// `size` x `size` samples.
+Idct idct_of_size(int size) {
+  switch (size) {
+    case 1: return idct_1x1;
+    case 2: return idct_2x2;
+    case 3: return idct_3x3;
+    case 4: return idct_4x4;
+    case 5: return idct_5x5;
+    case 6: return idct_6x6;
+    case 7: return idct_7x7;
+    case 8: return idct_islow;
+    case 10: return idct_10x10;
+    case 12: return idct_12x12;
+    case 14: return idct_14x14;
+    default: fail("no IDCT of size " + std::to_string(size));
+  }
+}
+
+// The coefficients that libjpeg's block smoothing (jdcoefct.c
+// smoothing_ok) looks at: zigzag positions 0 to 9.
+constexpr int kSmoothCoefs = 10;
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int td = 0, ta = 0;   // the current scan's table selectors
   int dc_pred = 0;
   int width = 0, height = 0;   // downsampled size (jdiv_round_up)
-  int stride = 0, rows = 0;    // the plane, padded to whole MCUs
+  int bw = 0, bh = 0; // its blocks: ceil(width / 8) x ceil(height / 8)
+  // The quantization table latched at the component's first scan (jdinput.c
+  // latch_quant_tables), natural order.
+  uint16_t q[64] = {};
+  bool latched = false;
+  // Per zigzag coefficient, the lowest bit decoded so far; -1: none yet
+  // (libjpeg's coef_bits).
+  int8_t coef_bits[64];
+  // Progressive frames: every block's quantized coefficients, natural
+  // order, bw * bh blocks of 64, kept until all scans are read.
+  std::vector<int16_t> coef;
+  // The decode's output: IDCT size, downsampled size at that scale, and the
+  // plane of its samples (bw * size x bh * size).
+  int size = 8, out_w = 0, out_h = 0, stride = 0;
+  Idct idct = nullptr;
   std::vector<uint8_t> plane;
-  bool decoded = false;
+
+  Component() { std::memset(coef_bits, -1, sizeof(coef_bits)); }
+
+  int16_t* block(int bx, int by) {
+    return coef.data() + (size_t(by) * bw + bx) * 64;
+  }
+  void emit(int bx, int by, const int16_t* coefs) {
+    idct(coefs, q, plane.data() + size_t(by) * size * stride + bx * size,
+         stride);
+  }
 };
 
 struct Decoder {
   const uint8_t* data = nullptr;
   size_t size = 0;
   size_t pos = 0;
+  int scale = 8;            // the output is scale / 8 of the frame's size
   uint16_t qt[4][64] = {};  // natural order
   bool qt_present[4] = {};
   DecHuff dc[4], ac[4];
@@ -395,7 +836,7 @@ struct Decoder {
   int width = 0, height = 0, hmax = 1, vmax = 1;
   int mcus_x = 0, mcus_y = 0;
   int restart_interval = 0;
-  bool frame = false, jfif = false, adobe = false;
+  bool frame = false, progressive = false, jfif = false, adobe = false;
   int adobe_transform = -1;
 
   uint8_t byte() {
@@ -446,6 +887,7 @@ struct Decoder {
 
   void read_sof(int marker) {
     if (frame) fail("more than one frame");
+    progressive = marker == 0xC2;
     size_t end = segment();
     int precision = byte();
     if (precision != 8)
@@ -479,43 +921,74 @@ struct Decoder {
            " (a decompression bomb)");
     mcus_x = (width + 8 * hmax - 1) / (8 * hmax);
     mcus_y = (height + 8 * vmax - 1) / (8 * vmax);
-    // Every block of every component is coded, in 2 bits at the least (a
-    // 1-bit DC code and a 1-bit EOB): a file of `size` bytes holds at most
-    // 4 * size of them.
+    // Every block of every component is coded: in a sequential frame in 2
+    // bits at the least (a 1-bit DC code and a 1-bit EOB), so a file of
+    // `size` bytes holds at most 4 * size of them; in a progressive one the
+    // first DC scan still codes each block in 1 bit at the least (8 * size).
     int64_t blocks = 0;
     for (auto& c : comps) {
       if (hmax % c.h || vmax % c.v)
         fail("unsupported chroma sampling");
       c.width = int((int64_t(width) * c.h + hmax - 1) / hmax);
       c.height = int((int64_t(height) * c.v + vmax - 1) / vmax);
-      c.stride = mcus_x * c.h * 8;
-      c.rows = mcus_y * c.v * 8;
-      blocks += int64_t(c.width + 7) / 8 * ((c.height + 7) / 8);
+      c.bw = (c.width + 7) / 8;
+      c.bh = (c.height + 7) / 8;
+      blocks += int64_t(c.bw) * c.bh;
     }
-    if (blocks > 4 * int64_t(size))
+    if (blocks > (progressive ? 8 : 4) * int64_t(size))
       fail("corrupt JPEG data: " + std::to_string(size) + " bytes cannot "
            "hold a " + std::to_string(width) + "x" + std::to_string(height) +
            " frame");
+    // A progressive frame keeps every coefficient until its last scan:
+    // no more of them than its components have samples at the pixel limit.
+    if (progressive && blocks * 64 > int64_t(n) * kMaxPixels)
+      fail("progressive JPEG of " + std::to_string(width) + "x" +
+           std::to_string(height) + " pixels: its coefficient buffer of " +
+           std::to_string(blocks * 128) + " bytes is above the limit of " +
+           std::to_string(n) + " x " + std::to_string(kMaxPixels) +
+           " coefficients (a decompression bomb)");
     frame = true;
   }
 
-  void decode_block(Bits& bits, Component& c, uint8_t* out) {
-    int coef[64] = {0};
-    const DecHuff& hd = dc[c.td];
-    const DecHuff& ha = ac[c.ta];
-    int s = bits.decode(hd);
+  // The output's planes at this decode's scale (jdmaster.c
+  // jpeg_core_output_dimensions): a component's IDCT size starts at the
+  // scale and doubles while its sampling leaves room for it, which spares
+  // 4:2:0 chroma its upsampling below full size.
+  void prepare() {
+    for (auto& c : comps) {
+      int s = scale;
+      while (s < 8 && (hmax * scale) % (c.h * s * 2) == 0 &&
+             (vmax * scale) % (c.v * s * 2) == 0)
+        s *= 2;
+      c.size = s;
+      c.idct = idct_of_size(s);
+      c.out_w = int((int64_t(width) * c.h * s + hmax * 8 - 1) / (hmax * 8));
+      c.out_h = int((int64_t(height) * c.v * s + vmax * 8 - 1) / (vmax * 8));
+      c.stride = c.bw * s;
+      c.plane.assign(size_t(c.stride) * c.bh * s, 0);
+      if (progressive) c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+    }
+  }
+
+  int decode_dc(Bits& bits, Component& c) {
+    int s = bits.decode(dc[c.td]);
     const int64_t pred = int64_t(c.dc_pred) + (s ? extend(bits.get(s), s) : 0);
     if (pred > INT32_MAX || pred < INT32_MIN)
       fail("corrupt JPEG data: DC coefficient out of range");
-    c.dc_pred = int(pred);
-    coef[0] = int16_t(c.dc_pred);  // libjpeg's JCOEF is 16 bits
+    return c.dc_pred = int(pred);
+  }
+
+  // A sequential block (jdhuff.c decode_mcu), natural order, into coef
+  // (zeroed by the caller).
+  void decode_block(Bits& bits, Component& c, int16_t* coef) {
+    coef[0] = int16_t(decode_dc(bits, c));  // libjpeg's JCOEF is 16 bits
+    const DecHuff& ha = ac[c.ta];
     for (int k = 1; k < 64;) {
       int rs = bits.decode(ha);
-      int r = rs >> 4;
-      s = rs & 15;
+      int r = rs >> 4, s = rs & 15;
       if (s) {
         k += r;
-        coef[kNatural[k]] = extend(bits.get(s), s);
+        coef[kNatural[k]] = int16_t(extend(bits.get(s), s));
         ++k;
       } else if (r == 15) {
         k += 16;
@@ -523,7 +996,39 @@ struct Decoder {
         break;
       }
     }
-    idct_islow(coef, qt[c.tq], out, c.stride);
+  }
+
+  // Calls block(c, bx, by) for every block of the scan in its order, an
+  // interleaved scan's blocks past a component's edge (which libjpeg codes
+  // but never shows) included, and reads the restart markers on the way.
+  template <class F>
+  void each_block(Bits& bits, const std::vector<Component*>& scan,
+                  int* eobrun, F&& block) {
+    const bool one = scan.size() == 1;
+    const int units_x = one ? scan[0]->bw : mcus_x;
+    const int units_y = one ? scan[0]->bh : mcus_y;
+    int todo = restart_interval;
+    for (int my = 0; my < units_y; ++my) {
+      for (int mx = 0; mx < units_x; ++mx) {
+        if (restart_interval) {
+          if (todo == 0) {
+            bits.restart();
+            for (Component* c : scan) c->dc_pred = 0;
+            *eobrun = 0;
+            todo = restart_interval;
+          }
+          --todo;
+        }
+        if (one) {
+          block(*scan[0], mx, my);
+          continue;
+        }
+        for (Component* c : scan)
+          for (int by = 0; by < c->v; ++by)
+            for (int bx = 0; bx < c->h; ++bx)
+              block(*c, mx * c->h + bx, my * c->v + by);
+      }
+    }
   }
 
   void read_sos() {
@@ -537,15 +1042,45 @@ struct Decoder {
       Component* found = nullptr;
       for (auto& c : comps)
         if (c.id == id) found = &c;
-      if (!found || found->decoded) fail("bad SOS segment");
+      if (!found) fail("bad SOS segment");
       found->td = t >> 4;
       found->ta = t & 15;
       if (found->td > 3 || found->ta > 3) fail("bad SOS segment");
-      if (!qt_present[found->tq]) fail("missing quantization table");
       scan.push_back(found);
     }
-    pos = end;  // Ss, Se, Ah/Al are 0, 63, 0 in a sequential scan
+    int ss = byte(), se = byte(), ah = byte(), al = ah & 15;
+    ah >>= 4;
+    if (pos > end) fail("bad SOS segment");
+    pos = end;
+    if (!progressive) {
+      ss = 0;  // a sequential scan's Ss, Se, Ah/Al are 0, 63, 0 (ignored)
+      se = 63;
+      ah = al = 0;
+    } else {
+      // jdphuff.c start_pass_phuff_decoder: a DC scan codes Ss = Se = 0,
+      // an AC scan one component's band; a refinement codes the next bit.
+      bool bad = ss == 0 ? se != 0 : ss > se || se > 63 || ns != 1;
+      if (bad || (ah && al != ah - 1) || al > 13)
+        fail("bad progressive scan: Ss=" + std::to_string(ss) + " Se=" +
+             std::to_string(se) + " Ah=" + std::to_string(ah) + " Al=" +
+             std::to_string(al));
+    }
     for (Component* c : scan) {
+      // Each coefficient's bits are decoded once: a scan that would decode
+      // a band and bit already decoded (or a component twice) is refused.
+      for (int k = ss; k <= se; ++k) {
+        int8_t& b = c->coef_bits[k];
+        if (ah == 0 ? b >= 0 : (b >= 0 && b <= al))
+          fail("bad SOS segment: coefficient " + std::to_string(k) +
+               " of component " + std::to_string(c->id) +
+               " decoded a second time");
+        b = int8_t(al);
+      }
+      if (!c->latched) {
+        if (!qt_present[c->tq]) fail("missing quantization table");
+        std::memcpy(c->q, qt[c->tq], sizeof(c->q));
+        c->latched = true;
+      }
       // libjpeg-turbo's default tables where a stream has none (MJPEG)
       for (int cls = 0; cls < 2; ++cls) {
         int t = cls ? c->ta : c->td;
@@ -558,41 +1093,16 @@ struct Decoder {
       c->dc_pred = 0;
     }
     Bits bits{data + pos, data + size};
-    int units_x, units_y;  // MCUs (interleaved) or blocks (one component)
-    if (ns == 1) {
-      units_x = (scan[0]->width + 7) / 8;
-      units_y = (scan[0]->height + 7) / 8;
+    int eobrun = 0;
+    if (!progressive) {
+      each_block(bits, scan, &eobrun, [&](Component& c, int bx, int by) {
+        int16_t coef[64] = {0};
+        decode_block(bits, c, coef);
+        if (bx < c.bw && by < c.bh) c.emit(bx, by, coef);
+      });
     } else {
-      units_x = mcus_x;
-      units_y = mcus_y;
+      scan_progressive(bits, scan, ss, se, ah, al);
     }
-    int todo = restart_interval;
-    for (int my = 0; my < units_y; ++my) {
-      for (int mx = 0; mx < units_x; ++mx) {
-        if (restart_interval) {
-          if (todo == 0) {
-            bits.restart();
-            for (Component* c : scan) c->dc_pred = 0;
-            todo = restart_interval;
-          }
-          --todo;
-        }
-        if (ns == 1) {
-          Component& c = *scan[0];
-          decode_block(bits, c,
-                       c.plane.data() + size_t(my) * 8 * c.stride + mx * 8);
-          continue;
-        }
-        for (Component* c : scan)
-          for (int by = 0; by < c->v; ++by)
-            for (int bx = 0; bx < c->h; ++bx)
-              decode_block(bits, *c,
-                           c->plane.data() +
-                               size_t(my * c->v + by) * 8 * c->stride +
-                               (mx * c->h + bx) * 8);
-      }
-    }
-    for (Component* c : scan) c->decoded = true;
     // Past the scan: to the first marker that is not a restart marker.
     const uint8_t* p = bits.p;
     while (p + 1 < data + size &&
@@ -602,40 +1112,142 @@ struct Decoder {
     pos = size_t(p - data);
   }
 
-  // A component's plane upsampled to the image's size (jdsample.c): rows
-  // and columns past the plane's own size are its last ones repeated.
-  std::vector<uint8_t> upsample(const Component& c) const {
-    const int hf = hmax / c.h, vf = vmax / c.v;
-    const int cw = c.width, ch = c.height;
-    std::vector<uint8_t> out(size_t(width) * height);
+  // One scan of a progressive frame into the coefficient buffers (jdphuff.c
+  // decode_mcu_DC_first, _DC_refine, _AC_first, _AC_refine).
+  void scan_progressive(Bits& bits, const std::vector<Component*>& scan,
+                        int ss, int se, int ah, int al) {
+    int eobrun = 0;
+    int16_t dummy[64] = {0};  // the blocks past a component's edge
+    auto at = [&](Component& c, int bx, int by) {
+      return bx < c.bw && by < c.bh ? c.block(bx, by) : dummy;
+    };
+    const int p1 = 1 << al, m1 = -p1;  // 1 and -1 in the bit coded
+    if (se == 0 && ah == 0) {
+      each_block(bits, scan, &eobrun, [&](Component& c, int bx, int by) {
+        at(c, bx, by)[0] = int16_t(unsigned(decode_dc(bits, c)) << al);
+      });
+    } else if (se == 0) {
+      each_block(bits, scan, &eobrun, [&](Component& c, int bx, int by) {
+        int16_t* b = at(c, bx, by);
+        if (bits.get(1)) b[0] = int16_t(b[0] | p1);
+      });
+    } else if (ah == 0) {
+      each_block(bits, scan, &eobrun, [&](Component& c, int bx, int by) {
+        if (eobrun > 0) {
+          --eobrun;
+          return;
+        }
+        int16_t* b = at(c, bx, by);
+        const DecHuff& h = ac[c.ta];
+        for (int k = ss; k <= se; ++k) {
+          int rs = bits.decode(h);
+          int r = rs >> 4, s = rs & 15;
+          if (s) {
+            k += r;
+            b[kNatural[k]] = int16_t(unsigned(extend(bits.get(s), s)) << al);
+          } else if (r == 15) {
+            k += 15;
+          } else {
+            eobrun = (1 << r) + bits.get(r) - 1;
+            break;
+          }
+        }
+      });
+    } else {
+      // A correction bit for each coefficient already nonzero, where its
+      // magnitude takes the bit coded.
+      auto refine = [&](int16_t& coef) {
+        if (bits.get(1) && (coef & p1) == 0)
+          coef = int16_t(coef + (coef >= 0 ? p1 : m1));
+      };
+      each_block(bits, scan, &eobrun, [&](Component& c, int bx, int by) {
+        int16_t* b = at(c, bx, by);
+        const DecHuff& h = ac[c.ta];
+        int k = ss;
+        if (eobrun == 0) {
+          for (; k <= se; ++k) {
+            int rs = bits.decode(h);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+              s = bits.get(1) ? p1 : m1;  // the new coefficient's sign
+            } else if (r != 15) {
+              eobrun = (1 << r) + bits.get(r);
+              break;
+            }
+            // skip r zero coefficients, refining the nonzero ones passed
+            do {
+              int16_t& coef = b[kNatural[k]];
+              if (coef != 0)
+                refine(coef);
+              else if (--r < 0)
+                break;
+              ++k;
+            } while (k <= se);
+            if (s) b[kNatural[k]] = int16_t(s);
+          }
+        }
+        if (eobrun > 0) {
+          for (; k <= se; ++k)
+            if (b[kNatural[k]] != 0) refine(b[kNatural[k]]);
+          --eobrun;
+        }
+      });
+    }
+  }
+
+  // Whether libjpeg would smooth the blocks of this progressive frame
+  // (jdcoefct.c smoothing_ok, with every scan read): every component's DC
+  // known and its first quantizers nonzero, and some component's
+  // coefficients 1-9 short of their last bit.
+  bool smoothing_applies() const {
+    bool useful = false;
+    for (const auto& c : comps) {
+      for (int k = 0; k < kSmoothCoefs; ++k)
+        if (c.q[kNatural[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < kSmoothCoefs; ++k)
+        useful |= c.coef_bits[k] != 0;
+    }
+    return useful;
+  }
+
+  // A component's plane upsampled to the output's size (jdsample.c): rows
+  // and columns past the plane's own size are its last ones repeated. The
+  // triangular filters need an IDCT above 1 x 1 (jinit_upsampler).
+  std::vector<uint8_t> upsample(const Component& c, int ow, int oh) const {
+    const int hf = hmax * scale / (c.h * c.size);
+    const int vf = vmax * scale / (c.v * c.size);
+    const int cw = c.out_w, ch = c.out_h;
+    const bool fancy = scale > 1;
+    std::vector<uint8_t> out(size_t(ow) * oh);
     std::vector<int> sum(size_t(cw) + 2);  // with a repeated edge each side
     auto row = [&](int r) {
       return c.plane.data() + size_t(std::min(std::max(r, 0), ch - 1)) *
                                   c.stride;
     };
-    const bool fancy_h = hf == 2 && cw > 2;
-    for (int y = 0; y < height; ++y) {
-      uint8_t* o = out.data() + size_t(y) * width;
+    const bool fancy_h = fancy && hf == 2 && cw > 2;
+    for (int y = 0; y < oh; ++y) {
+      uint8_t* o = out.data() + size_t(y) * ow;
       const int sy = y / vf, dy = y % vf;
       const uint8_t* here = row(sy);
       if (hf == 1 && vf == 1) {
-        std::memcpy(o, here, width);
+        std::memcpy(o, here, ow);
         continue;
       }
-      if (vf == 2 && (fancy_h || hf == 1)) {
+      if (vf == 2 && (fancy_h || (fancy && hf == 1))) {
         // triangular in y: 3/4 this row, 1/4 the nearer neighbour
         const uint8_t* near = row(dy ? sy + 1 : sy - 1);
         for (int i = 0; i < cw; ++i) sum[i + 1] = 3 * here[i] + near[i];
         if (hf == 1) {  // h1v2
           const int bias = dy ? 2 : 1;
-          for (int x = 0; x < width; ++x)
+          for (int x = 0; x < ow; ++x)
             o[x] = uint8_t((sum[x + 1] + bias) >> 2);
           continue;
         }
       } else if (fancy_h && vf == 1) {
         for (int i = 0; i < cw; ++i) sum[i + 1] = here[i];
       } else {  // box replication
-        for (int x = 0; x < width; ++x) o[x] = here[x / hf];
+        for (int x = 0; x < ow; ++x) o[x] = here[x / hf];
         continue;
       }
       sum[0] = sum[1];
@@ -643,7 +1255,7 @@ struct Decoder {
       // triangular in x: h2v2 in 4 x 16ths (+8, +7), h2v1 in 4ths (+1, +2)
       const int shift = vf == 2 ? 4 : 2;
       const int b0 = vf == 2 ? 8 : 1, b1 = vf == 2 ? 7 : 2;
-      for (int x = 0; x < width; ++x) {
+      for (int x = 0; x < ow; ++x) {
         const int i = (x >> 1) + 1;
         o[x] = uint8_t(x & 1 ? (3 * sum[i] + sum[i + 1] + b1) >> shift
                              : (3 * sum[i] + sum[i - 1] + b0) >> shift);
@@ -654,7 +1266,7 @@ struct Decoder {
 
   // With out == nullptr: read up to the frame header and stop (width and
   // height are then known). Otherwise decode the whole file into out, which
-  // holds width x height x 3 bytes of a frame of that size.
+  // holds want_w x want_h x 3 bytes: the frame at scale / 8 of its size.
   void run(uint8_t* out, int want_w, int want_h) {
     if (size < 4 || data[0] != 0xFF || data[1] != 0xD8)
       fail("not a JPEG (no SOI marker)");
@@ -665,19 +1277,18 @@ struct Decoder {
       int m = byte();
       while (m == 0xFF) m = byte();
       if (m == 0xD9) break;  // EOI
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
         read_sof(m);
         if (!out) return;
-        for (auto& c : comps) c.plane.assign(size_t(c.stride) * c.rows, 0);
-      } else if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE) {
-        fail("progressive JPEG (SOF" + std::to_string(m - 0xC0) +
-             ") is not supported");
+        prepare();
       } else if (m == 0xC3 || m == 0xC7 || m == 0xCB || m == 0xCF) {
         fail("lossless JPEG (SOF" + std::to_string(m - 0xC0) +
              ") is not supported");
-      } else if (m == 0xC5 || m == 0xC9 || m == 0xCD) {
-        fail((m == 0xC5 ? "hierarchical JPEG (SOF" : "arithmetic-coded "
-              "JPEG (SOF") + std::to_string(m - 0xC0) +
+      } else if (m == 0xC5 || m == 0xC6) {
+        fail("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) +
+             ") is not supported");
+      } else if (m == 0xC9 || m == 0xCA || m == 0xCD || m == 0xCE) {
+        fail("arithmetic-coded JPEG (SOF" + std::to_string(m - 0xC0) +
              ") is not supported");
       } else if (m == 0xCC) {
         fail("arithmetic-coded JPEG (DAC) is not supported");
@@ -708,12 +1319,23 @@ struct Decoder {
     }
     if (!frame) fail("JPEG without a frame header");
     for (auto& c : comps)
-      if (!c.decoded) fail("truncated JPEG: a component has no scan");
-    if (width != want_w || height != want_h)
+      if (c.coef_bits[0] < 0) fail("truncated JPEG: a component has no scan");
+    const int ow = int((int64_t(width) * scale + 7) / 8);
+    const int oh = int((int64_t(height) * scale + 7) / 8);
+    if (ow != want_w || oh != want_h)
       fail("JPEG frame of another size than its header gave");
+    if (progressive) {
+      if (smoothing_applies())
+        fail("progressive JPEG whose scans leave AC coefficients 1-9 "
+             "short of their last bit (libjpeg smooths its blocks) is not "
+             "supported");
+      for (auto& c : comps)
+        for (int by = 0; by < c.bh; ++by)
+          for (int bx = 0; bx < c.bw; ++bx) c.emit(bx, by, c.block(bx, by));
+    }
     uint8_t* o = out;
     if (comps.size() == 1) {
-      std::vector<uint8_t> g = upsample(comps[0]);
+      std::vector<uint8_t> g = upsample(comps[0], ow, oh);
       for (size_t i = 0; i < g.size(); ++i)
         o[3 * i] = o[3 * i + 1] = o[3 * i + 2] = g[i];
       return;
@@ -723,8 +1345,9 @@ struct Decoder {
     bool is_rgb = !jfif && (adobe ? adobe_transform == 0
                                   : comps[0].id == 'R' && comps[1].id == 'G'
                                         && comps[2].id == 'B');
-    std::vector<uint8_t> p0 = upsample(comps[0]), p1 = upsample(comps[1]),
-                         p2 = upsample(comps[2]);
+    std::vector<uint8_t> p0 = upsample(comps[0], ow, oh),
+                         p1 = upsample(comps[1], ow, oh),
+                         p2 = upsample(comps[2], ow, oh);
     const size_t n = p0.size();
     if (is_rgb) {
       for (size_t i = 0; i < n; ++i) {
@@ -939,9 +1562,16 @@ void info(const uint8_t* data, size_t size, int* width, int* height) {
 
 void decode(const uint8_t* data, size_t size, uint8_t* rgb, int width,
             int height) {
+  decode_scaled(data, size, 8, rgb, width, height);
+}
+
+void decode_scaled(const uint8_t* data, size_t size, int n, uint8_t* rgb,
+                   int width, int height) {
+  if (n < 1 || n > 8) fail("scale " + std::to_string(n) + "/8 out of 1..8");
   Decoder d;
   d.data = data;
   d.size = size;
+  d.scale = n;
   d.run(rgb, width, height);
 }
 
@@ -1061,9 +1691,10 @@ std::vector<uint8_t> encode(const uint8_t* rgb, int width, int height,
 
 // The C ABI (data/native_loader.py). A decode is two calls: mmst_jpeg_info
 // gives the size, mmst_jpeg_decode writes the pixels into the caller's
-// width x height x 3 buffer. An encoded JPEG is malloc'ed and handed to the
-// caller, who frees it with mmst_jpeg_free. An error's reason is copied
-// into err (NUL-terminated) and 1 returned.
+// width x height x 3 buffer (mmst_jpeg_decode_scaled at n/8 of the size:
+// ceil(width * n / 8) x ceil(height * n / 8)). An encoded JPEG is
+// malloc'ed and handed to the caller, who frees it with mmst_jpeg_free. An
+// error's reason is copied into err (NUL-terminated) and 1 returned.
 extern "C" {
 
 static int mmst_jpeg_error(const std::exception& e, char* err, int errlen) {
@@ -1088,6 +1719,17 @@ int mmst_jpeg_decode(const uint8_t* data, size_t size, uint8_t* rgb,
                      int width, int height, char* err, int errlen) {
   try {
     mmst_jpeg::decode(data, size, rgb, width, height);
+    return 0;
+  } catch (const std::exception& e) {
+    return mmst_jpeg_error(e, err, errlen);
+  }
+}
+
+int mmst_jpeg_decode_scaled(const uint8_t* data, size_t size, int n,
+                            uint8_t* rgb, int width, int height, char* err,
+                            int errlen) {
+  try {
+    mmst_jpeg::decode_scaled(data, size, n, rgb, width, height);
     return 0;
   } catch (const std::exception& e) {
     return mmst_jpeg_error(e, err, errlen);

@@ -1,4 +1,4 @@
-// Baseline JPEG decoder and encoder of the port's own (native/jpeg.cpp),
+// JPEG decoder and baseline encoder of the port's own (native/jpeg.cpp),
 // shared by the batch loader (native/loader.cpp) and the C ABI that
 // data/native_loader.py binds with ctypes. No library beyond libstdc++.
 
@@ -11,11 +11,11 @@
 
 namespace mmst_jpeg {
 
-// The frame size of a baseline (SOF0/SOF1, Huffman, 8-bit) grayscale or
-// 3-component JPEG, from its markers up to the frame header. Throws
-// std::runtime_error naming what is wrong or unsupported (e.g.
-// "progressive JPEG (SOF2) is not supported"), a frame above the
-// decompression-bomb limit included.
+// The frame size of a sequential or progressive (SOF0/SOF1/SOF2, Huffman,
+// 8-bit) grayscale or 3-component JPEG, from its markers up to the frame
+// header. Throws std::runtime_error naming what is wrong or unsupported
+// (e.g. "arithmetic-coded JPEG (SOF10) is not supported"), a frame above
+// the decompression-bomb limit included.
 void info(const uint8_t* data, size_t size, int* width, int* height);
 
 // Decode such a JPEG, of the width and height that info gave, to RGB8 in
@@ -23,6 +23,13 @@ void info(const uint8_t* data, size_t size, int* width, int* height);
 // for a corrupt or truncated scan.
 void decode(const uint8_t* data, size_t size, uint8_t* rgb, int width,
             int height);
+
+// The same at n/8 of the frame's size (n in 1..8), as libjpeg-turbo gives
+// it with scale_num = n, scale_denom = 8 and its defaults: width and height
+// are ceil(W * n / 8) and ceil(H * n / 8) of the frame's W x H. n = 8 is
+// decode.
+void decode_scaled(const uint8_t* data, size_t size, int n, uint8_t* rgb,
+                   int width, int height);
 
 // Encode RGB8 (height x width x 3) as a baseline 4:2:0 JFIF at `quality`
 // (1-100, IJG scaling of the standard tables), standard Huffman tables:

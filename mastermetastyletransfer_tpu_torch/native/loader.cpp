@@ -2,14 +2,14 @@
 //
 // The reference's ingest path is cv2.imread + torchvision Resize inside
 // torch DataLoader workers (reference: codes/get_dataloader.py:63-69,
-// train.py:355-378). Here the port's own baseline JPEG decoder
-// (native/jpeg.cpp, libjpeg's default arithmetic, no library) and the
-// resize to the fixed staging size run in C++ worker threads, handing the
-// Python side one contiguous uint8 (N, S, S, 3) batch ready for upload (the
-// crop and the scaling to [0, 1] happen on the device, data/pipeline.py).
-// Each image decodes at full size: the JAX package's loader asks libjpeg
-// for a DCT-domain prescale to the smallest 1/8..8/8 scale that covers the
-// target, which this decoder does not offer yet.
+// train.py:355-378). Here the port's own JPEG decoder (native/jpeg.cpp,
+// libjpeg-turbo's default arithmetic, no library) and the resize to the
+// fixed staging size run in C++ worker threads, handing the Python side one
+// contiguous uint8 (N, S, S, 3) batch ready for upload (the crop and the
+// scaling to [0, 1] happen on the device, data/pipeline.py). Each image
+// decodes with the JAX package's DCT-domain prescale: at the smallest
+// n/8 scale that still covers the target, chosen by the JAX loader's own
+// loop, so that the batches are the JAX loader's bit for bit.
 //
 // C ABI only, consumed through ctypes. Built at first use by
 // data/native_loader.py:
@@ -28,9 +28,11 @@
 
 namespace {
 
-// Decode one JPEG file to RGB8. Returns true on success.
+// Decode one JPEG file to RGB8, DCT-prescaled to cover `target` as the JAX
+// package's loader asks libjpeg to (its native/loader.cpp). Returns true on
+// success.
 bool decode_jpeg(const char* path, std::vector<uint8_t>* pixels, int* w,
-                 int* h) {
+                 int* h, int target) {
   FILE* f = std::fopen(path, "rb");
   if (!f) return false;
   std::vector<uint8_t> bytes;
@@ -40,9 +42,22 @@ bool decode_jpeg(const char* path, std::vector<uint8_t>* pixels, int* w,
     bytes.insert(bytes.end(), chunk, chunk + got);
   std::fclose(f);
   try {
-    mmst_jpeg::info(bytes.data(), bytes.size(), w, h);
+    int width = 0, height = 0;
+    mmst_jpeg::info(bytes.data(), bytes.size(), &width, &height);
+    // the smallest 1/8..8/8 scale that still covers the resize target
+    unsigned num = 8;
+    if (target > 0) {
+      while (num > 1 &&
+             (unsigned(width) * (num - 1)) / 8 >= unsigned(target) &&
+             (unsigned(height) * (num - 1)) / 8 >= unsigned(target)) {
+        --num;
+      }
+    }
+    *w = int((int64_t(width) * num + 7) / 8);
+    *h = int((int64_t(height) * num + 7) / 8);
     pixels->resize(size_t(*w) * *h * 3);
-    mmst_jpeg::decode(bytes.data(), bytes.size(), pixels->data(), *w, *h);
+    mmst_jpeg::decode_scaled(bytes.data(), bytes.size(), int(num),
+                             pixels->data(), *w, *h);
   } catch (const std::exception&) {
     return false;
   }
@@ -101,7 +116,8 @@ int mmst_decode_resize_batch(const char** paths, int n, uint8_t* out,
       int i = next.fetch_add(1);
       if (i >= n) break;
       int w = 0, h = 0;
-      if (decode_jpeg(paths[i], &pixels, &w, &h) && w > 0 && h > 0) {
+      if (decode_jpeg(paths[i], &pixels, &w, &h, resize_to) && w > 0 &&
+          h > 0) {
         resize_bilinear(pixels.data(), w, h, out + size_t(i) * img_bytes,
                         resize_to);
         ok[i] = 1;
@@ -121,6 +137,6 @@ int mmst_decode_resize_batch(const char** paths, int n, uint8_t* out,
   return good.load();
 }
 
-int mmst_loader_version() { return 2; }
+int mmst_loader_version() { return 3; }
 
 }  // extern "C"

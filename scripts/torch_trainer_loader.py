@@ -1,7 +1,8 @@
 """Does the data loader slow the port's trainer? The plain trainer run of
 chip_smoke.py's `trainer` phase (swin_B, 256^2 crops from 512^2 staging,
-batch 8, bf16, kernels on, 640x480 content and 1024x768 style BMPs
-written from a seed), with its loaders as they are and in variants:
+batch 8, bf16, kernels on, on that phase's folders: 640x480 content and
+1024x768 style JPEGs written from a seed, ``trainer_folders``), with its
+loaders as they are and in variants:
 
     real          the prefetching loaders (4 content workers, 2 style)
     predecoded    the batches decoded before the run and replayed: no
@@ -84,18 +85,8 @@ def main(argv=None) -> int:
                 "workers1": (lambda cfg, shard=None: real(
                     cfg.replace(num_workers=1), shard), None),
                 "switch0.5ms": (real, 0.0005)}
-    rng = np.random.default_rng(cs.TRAINER_SEED)
     with tempfile.TemporaryDirectory() as tmp:
-        dirs = []
-        for name, n, hw in (("coco", cs.TRAINER_CONTENTS,
-                             cs.TRAINER_CONTENT_HW),
-                            ("wikiart", cs.TRAINER_STYLES,
-                             cs.TRAINER_STYLE_HW)):
-            d = os.path.join(tmp, name)
-            os.makedirs(d)
-            for i, img in enumerate(cs.smooth_images(rng, n, hw)):
-                cs.write_bmp(os.path.join(d, f"{i:03d}.bmp"), img)
-            dirs.append(d)
+        dirs = cs.trainer_folders(tmp)
         for i, name in enumerate(args.plan.split(",")):
             make, switch = variants[name]
             rec = cs.StepRecorder()

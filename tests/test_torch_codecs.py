@@ -1,17 +1,20 @@
 """The port's image codecs against PIL (and the JAX package's request
-decode) on the CPU: the baseline JPEG decoder and encoder of
+decode and batch loader) on the CPU: the JPEG decoder (sequential and
+progressive, at full size and at n/8 of it) and the baseline encoder of
 ``native/jpeg.cpp`` through ``data/native_loader.py``, the PNG reader of
 ``utils/png.py`` and ``serve._decode_to``.
 
 The JPEGs are written here by PIL (libjpeg-turbo) from numpy seeds. Bounds:
 the decoder within 1 level of PIL's pixels and equal in at least 99% of
 the samples (it computes libjpeg's own integer arithmetic, so
-every case here is equal; the share that differs is printed); the encoder's
+every case here is equal; the share that differs is printed), progressive
+files and the scaled decode bit for bit with PIL's; the encoder's
 PSNR within 0.2 dB of PIL's own quality-95 JPEG and its size within 10%
 (it writes libjpeg's bytes, so both are equal); the PNG reader bit for bit;
 ``_decode_to`` within 2/255 max and 0.3/255 mean of JAX's.
 """
 
+import ctypes
 import io
 import resource
 import struct
@@ -23,9 +26,12 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from PIL import Image
 
 from mastermetastyletransfer_tpu import serve as jserve
+from mastermetastyletransfer_tpu.data import native_loader as jnative
 from mastermetastyletransfer_tpu_torch import serve as tserve
 from mastermetastyletransfer_tpu_torch.data import native_loader as tnative
 from mastermetastyletransfer_tpu_torch.data import pipeline as tpipe
@@ -104,19 +110,241 @@ def test_jpeg_decoder_matches_pil_on_grayscale(quality):
 
 
 def test_jpeg_decoder_refuses_what_it_does_not_read():
+    """A progressive file decodes (to PIL's pixels); a truncated or foreign
+    body, an arithmetic-coded, lossless, hierarchical or 12-bit frame
+    raises, naming it."""
     img = _smooth(np.random.default_rng(1), 32, 32)
-    with pytest.raises(ValueError, match=r"progressive JPEG \(SOF2\)"):
-        tnative.decode_jpeg(_jpeg(img, quality=90, progressive=True))
+    prog = _jpeg(img, quality=90, progressive=True)
+    assert np.array_equal(tnative.decode_jpeg(prog), _pil(prog))
     data = _jpeg(img, quality=90)
     for broken in (data[:len(data) // 3], b"\xff\xd8\xff\xd9",
-                   b"not a jpeg"):
+                   b"not a jpeg", prog[:len(prog) // 2]):
         with pytest.raises(ValueError, match="JPEG"):
             tnative.decode_jpeg(broken)
-    # the arithmetic-coded and lossless frame markers are named too
-    for marker, kind in ((0xC9, "arithmetic-coded"), (0xC3, "lossless")):
+    # the arithmetic-coded, lossless and hierarchical frame markers are
+    # named too, the progressive ones among them
+    for marker, kind in ((0xC9, "arithmetic-coded"), (0xC3, "lossless"),
+                         (0xC5, "hierarchical")):
         patched = data.replace(b"\xff\xc0", bytes([0xFF, marker]), 1)
         with pytest.raises(ValueError, match=f"{kind} JPEG"):
             tnative.decode_jpeg(patched)
+    for marker, kind in ((0xCA, "arithmetic-coded"), (0xC6, "hierarchical")):
+        patched = prog.replace(b"\xff\xc2", bytes([0xFF, marker]), 1)
+        with pytest.raises(ValueError, match=f"{kind} JPEG"):
+            tnative.decode_jpeg(patched)
+    for body, sof in ((data, b"\xff\xc0"), (prog, b"\xff\xc2")):
+        i = body.index(sof)
+        twelve = body[:i + 4] + b"\x0c" + body[i + 5:]
+        with pytest.raises(ValueError, match=r"12-bit JPEG \(SOF[02]\)"):
+            tnative.decode_jpeg(twelve)
+
+
+# ---------------------------------------------------------------------------
+# progressive JPEG
+# ---------------------------------------------------------------------------
+
+def _held_to_pil_exactly(data, label):
+    want = _pil(data)
+    got = tnative.decode_jpeg(data)
+    assert got.shape == want.shape and got.dtype == np.uint8, label
+    assert np.array_equal(got, want), (
+        label, int(np.abs(got.astype(int) - want).max()))
+
+
+# (subsampling, quality, (H, W), extra save options); "gray" and "440" are
+# the grayscale and 4:4:0 files.
+PROGRESSIVE_CASES = {
+    "444_q95": (0, 95, (48, 64), {}),
+    "422_q95": (1, 95, (48, 64), {}),
+    "420_q95": (2, 95, (48, 64), {}),
+    "420_q50": (2, 50, (48, 64), {}),
+    "440_q90": ("440", 90, (48, 64), {}),
+    "gray_q50": ("gray", 50, (37, 41), {}),
+    "gray_q95": ("gray", 95, (37, 41), {}),
+    "444_odd": (0, 90, (37, 23), {}),
+    "422_odd": (1, 90, (37, 23), {}),
+    "420_odd": (2, 90, (37, 23), {}),
+    "440_odd": ("440", 90, (37, 23), {}),
+    "420_thin": (2, 90, (3, 70), {}),
+    "420_optimize": (2, 90, (45, 61), {"optimize": True}),
+    "444_optimize": (0, 50, (45, 61), {"optimize": True}),
+    "gray_optimize": ("gray", 90, (45, 61), {"optimize": True}),
+    "420_restart_blocks": (2, 85, (40, 56), {"restart_marker_blocks": 3}),
+    "422_restart_rows": (1, 85, (40, 56), {"restart_marker_rows": 1}),
+    "gray_restart_blocks": ("gray", 85, (40, 56),
+                            {"restart_marker_blocks": 1}),
+    "420_noise": (2, 75, (33, 45), {}),
+}
+
+
+def progressive_jpeg(sub, quality, hw, rng, **kw):
+    """PIL's progressive JPEG of a seeded image: ``sub`` 0, 1, 2 (4:4:4,
+    4:2:2, 4:2:0), "440" (PIL's 4:2:2 file of the transposed size, its
+    frame header rewritten; scripts/make_jpeg_fixtures.py) or "gray"."""
+    h, w = hw
+    if sub == "440":
+        return make_jpeg_fixtures.as_440(_jpeg(
+            _smooth(rng, w, h), quality=quality, subsampling=1,
+            progressive=True, **kw))
+    img = (rng.integers(0, 256, (h, w, 3), np.uint8)
+           if kw.pop("noise", False) else _smooth(rng, h, w))
+    if sub == "gray":
+        return _jpeg(np.asarray(Image.fromarray(img).convert("L")),
+                     quality=quality, progressive=True, **kw)
+    return _jpeg(img, quality=quality, subsampling=sub, progressive=True,
+                 **kw)
+
+
+@pytest.mark.parametrize("case", list(PROGRESSIVE_CASES))
+def test_progressive_decoder_matches_pil(case):
+    sub, quality, hw, kw = PROGRESSIVE_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    data = progressive_jpeg(sub, quality, hw, rng, noise="noise" in case,
+                            **kw)
+    assert b"\xff\xc2" in data
+    _held_to_pil_exactly(data, case)
+
+
+@settings(max_examples=40, deadline=None, derandomize=True, database=None)
+@given(h=st.integers(1, 70), w=st.integers(1, 70),
+       sub=st.sampled_from([0, 1, 2, "gray"]),
+       quality=st.sampled_from([30, 75, 95]))
+def test_progressive_decoder_matches_pil_at_any_size(h, w, sub, quality):
+    rng = np.random.default_rng(h * 71 + w)
+    data = progressive_jpeg(sub, quality, (h, w), rng)
+    _held_to_pil_exactly(data, (h, w, sub, quality))
+
+
+def _segments(data):
+    """(marker, start, end) of each marker segment and its entropy-coded
+    data up to the next marker (SOI and EOI have no payload)."""
+    out, i = [], 2
+    while i < len(data) - 1:
+        marker = data[i + 1]
+        if marker == 0xD9:
+            out.append((marker, i, i + 2))
+            break
+        end = i + 2 + struct.unpack(">H", data[i + 2:i + 4])[0]
+        if marker == 0xDA:
+            while not (data[end] == 0xFF and data[end + 1] not in
+                       (0x00, *range(0xD0, 0xD8))):
+                end += 1
+        out.append((marker, i, end))
+        i = end
+    return out
+
+
+def test_progressive_decoder_refuses_a_scan_decoded_twice():
+    """A scan repeated (the same band and bit of the same component) is
+    refused; the file without the repeat decodes."""
+    data = _jpeg(_smooth(np.random.default_rng(2), 40, 40), quality=90,
+                 progressive=True)
+    scans = [(a, b) for m, a, b in _segments(data) if m == 0xDA]
+    for a, b in (scans[0], scans[3]):
+        twice = data[:b] + data[a:b] + data[b:]
+        with pytest.raises(ValueError, match="decoded a second time"):
+            tnative.decode_jpeg(twice)
+    assert np.array_equal(tnative.decode_jpeg(data), _pil(data))
+
+
+def test_progressive_decoder_refuses_what_libjpeg_would_smooth():
+    """A progressive file whose scans stop after the DC (its first AC
+    coefficients never decoded, EOI after them) is one that libjpeg
+    block-smooths (jdcoefct.c): the decoder refuses it, naming that."""
+    data = _jpeg(_smooth(np.random.default_rng(3), 40, 40), quality=90,
+                 progressive=True)
+    first_ac = next(a for m, a, b in _segments(data)
+                    if m == 0xDA and data[a + 5 + 2 * data[a + 4]] != 0)
+    with pytest.raises(ValueError, match="smooths"):
+        tnative.decode_jpeg(data[:first_ac] + b"\xff\xd9")
+
+
+def progressive_bomb() -> bytes:
+    """A grayscale progressive JPEG whose frame header claims 65535 x 2730
+    pixels (under the pixel limit) with enough bytes before its frame to
+    pass the bound on the blocks a byte can code: its coefficient buffer,
+    65536 x 2736 coefficients, is above the limit for one component."""
+    gray = np.asarray(Image.fromarray(_smooth(np.random.default_rng(4),
+                                              16, 16)).convert("L"))
+    data = _jpeg(gray, quality=90, progressive=True)
+    i = data.index(b"\xff\xc2")
+    data = data[:i + 5] + struct.pack(">HH", 2730, 65535) + data[i + 9:]
+    com = b"\xff\xfe" + struct.pack(">H", 65535) + bytes(65533)
+    return data[:2] + com * 6 + data[2:]
+
+
+def test_progressive_bomb_refused_before_allocating():
+    data = progressive_bomb()
+    assert 65535 * 2730 <= 2 * 89478485 and len(data) < 400_000
+    tnative.decode_jpeg(_jpeg(_smooth(np.random.default_rng(1), 8, 8),
+                              progressive=True))
+    before = _max_rss_mb()
+    with pytest.raises(ValueError, match="coefficient buffer .* above the "
+                                         "limit"):
+        tnative.decode_jpeg(data)
+    assert _max_rss_mb() - before < 64
+
+
+# ---------------------------------------------------------------------------
+# the scaled decode (libjpeg's scale_num / scale_denom)
+# ---------------------------------------------------------------------------
+
+def decode_scaled(data: bytes, n: int) -> np.ndarray:
+    """``mmst_jpeg_decode_scaled`` at n/8 (its C ABI)."""
+    lib = tnative._library()
+    w, h = ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(256)
+    assert lib.mmst_jpeg_info(data, len(data), ctypes.byref(w),
+                              ctypes.byref(h), err, 256) == 0, err.value
+    out = np.empty(((h.value * n + 7) // 8, (w.value * n + 7) // 8, 3),
+                   np.uint8)
+    if lib.mmst_jpeg_decode_scaled(data, len(data), n,
+                                   out.ctypes.data_as(tnative._u8p),
+                                   out.shape[1], out.shape[0], err, 256):
+        raise ValueError(err.value.decode())
+    return out
+
+
+def _pil_draft(data: bytes, denom: int) -> np.ndarray:
+    """PIL's decode at 1/denom (``Image.draft``: libjpeg's scale_num 1,
+    scale_denom ``denom``, its defaults otherwise)."""
+    with Image.open(io.BytesIO(data)) as im:
+        w, h = im.size
+        im.draft("RGB", (max(w // denom, 1), max(h // denom, 1)))
+        assert im.size == ((w + denom - 1) // denom, (h + denom - 1) // denom)
+        return np.asarray(im.convert("RGB"))
+
+
+@pytest.mark.parametrize("denom", [2, 4, 8])
+@pytest.mark.parametrize("sub", [0, 1, 2, "440", "gray"])
+@pytest.mark.parametrize("progressive", [False, True],
+                         ids=["baseline", "progressive"])
+def test_scaled_decode_matches_pil_draft(denom, sub, progressive):
+    """n/8 = 1/2, 1/4, 1/8 (the 4 x 4, 2 x 2 and 1 x 1 IDCTs; 4:2:0 chroma
+    at twice that), odd sizes, bit for bit with PIL's draft decode."""
+    for hw in ((61, 83), (37, 23)):
+        rng = np.random.default_rng(denom * 100 + hw[0])
+        if progressive:
+            data = progressive_jpeg(sub, 90, hw, rng)
+        elif sub == "440":
+            data = make_jpeg_fixtures.as_440(
+                _jpeg(_smooth(rng, hw[1], hw[0]), quality=90, subsampling=1))
+        elif sub == "gray":
+            data = _jpeg(np.asarray(Image.fromarray(_smooth(rng, *hw))
+                                    .convert("L")), quality=90)
+        else:
+            data = _jpeg(_smooth(rng, *hw), quality=90, subsampling=sub)
+        got, want = decode_scaled(data, 8 // denom), _pil_draft(data, denom)
+        assert got.shape == want.shape and np.array_equal(got, want), (
+            hw, int(np.abs(got.astype(int) - want).max()))
+
+
+def test_scaled_decode_refuses_other_scales():
+    data = _jpeg(_smooth(np.random.default_rng(6), 16, 16))
+    assert np.array_equal(decode_scaled(data, 8), tnative.decode_jpeg(data))
+    for n in (0, 9):
+        with pytest.raises(ValueError, match="out of 1..8"):
+            decode_scaled(data, n)
 
 
 def with_frame_size(data: bytes, h: int, w: int) -> bytes:
@@ -186,14 +414,42 @@ def test_fixtures_decode_to_their_stored_pixels():
     """The card's fixtures: PIL decodes each to the stored pixels, and so
     does the port's decoder (what chip_smoke.py's codecs phase checks)."""
     stored = np.load(FIXTURES / "pixels.npz")
-    names = sorted(p.stem for p in FIXTURES.glob("*.jpg"))
-    assert names == sorted(stored.files) and len(names) == 7
-    total = sum(p.stat().st_size for p in FIXTURES.iterdir())
-    assert total < 200_000, total
+    names = sorted(p.stem for p in FIXTURES.glob("*.jpg")
+                   if not p.stem.startswith("src_"))
+    assert names == sorted(stored.files) and len(names) == 11
+    assert sum(n.startswith("progressive_") for n in names) == 4
+    total = sum((FIXTURES / f"{n}.jpg").stat().st_size for n in names)
+    assert total + (FIXTURES / "pixels.npz").stat().st_size < 200_000
     for name in names:
         data = (FIXTURES / f"{name}.jpg").read_bytes()
         assert np.array_equal(_pil(data), stored[name]), name
         assert np.array_equal(tnative.decode_jpeg(data), stored[name]), name
+
+
+def test_prescale_fixtures_are_the_jax_loaders_batches():
+    """The card's prescale fixtures: the JAX package's loader gives the
+    stored batch of each source at each target (one per scale n/8, n =
+    1..8), and so does the port's loader."""
+    stored = np.load(FIXTURES / "prescale.npz")
+    names = [name for name, *_ in make_jpeg_fixtures.PRESCALE_SOURCES]
+    files = [FIXTURES / f"{name}.jpg" for name in names]
+    total = sum(f.stat().st_size for f in files)
+    assert total + (FIXTURES / "prescale.npz").stat().st_size < 400_000
+    keys = []
+    for name, path in zip(names, files):
+        with Image.open(path) as im:
+            w, h = im.size
+        targets = make_jpeg_fixtures.prescale_targets(w, h)
+        assert [make_jpeg_fixtures.jax_loader_scale(w, h, t)
+                for t in targets] == list(range(1, 9))
+        for t in targets:
+            want = stored[f"{name}_{t}"]
+            keys.append(f"{name}_{t}")
+            assert np.array_equal(
+                jnative.decode_resize_batch([str(path)], t)[0], want)
+            assert np.array_equal(
+                tnative.decode_resize_batch([str(path)], t)[0], want)
+    assert sorted(keys) == sorted(stored.files)
 
 
 def _psnr(a, b):
@@ -227,11 +483,11 @@ def test_jpeg_encoder_refuses_other_arrays():
 
 def test_codec_is_thread_safe():
     """Sixteen threads (more than the cores), the interpreter switching
-    often, decode and encode different images at once; each result equals
-    the same call made alone."""
+    often, decode and encode different images at once, half of them
+    progressive files; each result equals the same call made alone."""
     rng = np.random.default_rng(5)
     imgs = [_smooth(rng, 40 + 8 * i, 56) for i in range(16)]
-    datas = [_jpeg(img, quality=90, subsampling=i % 3)
+    datas = [_jpeg(img, quality=90, subsampling=i % 3, progressive=i % 2)
              for i, img in enumerate(imgs)]
     alone = [(tnative.decode_jpeg(d), tnative.encode_jpeg(img, 95))
              for d, img in zip(datas, imgs)]

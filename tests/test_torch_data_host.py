@@ -4,14 +4,12 @@
 Images are written by PIL into ``tmp_path`` from numpy seeds. Pixels,
 index streams and batch streams are held bit for bit: the port's
 ``_resize_bilinear`` to Pillow's BILINEAR resample, its ``_decode_resize``
-(its own BMP, PNG and JPEG readers, no PIL) to JAX's (PIL for every file),
-its native loader (the port's own JPEG decoder in place of libjpeg, the
-same resize, built with the same flags on the same machine) to JAX's
-where JAX's decodes at full size, its sampler and prefetching loader to
-JAX's for the same folder and seed. Where JAX's loader asks libjpeg for a
-DCT-domain prescale the port's decodes at full size (native/loader.cpp),
-and is held to the loader's resize of PIL's full-size decode, replayed
-in numpy float32 (within 1 level: the compiler may fuse its multiply-adds).
+(its own BMP, PNG and JPEG readers, no PIL; progressive JPEG too) to JAX's
+(PIL for every file), its native loader (the port's own JPEG decoder in
+place of libjpeg, the same DCT-domain prescale and resize, built with the
+same flags on the same machine) to JAX's at every scale n/8 that JAX's
+loop picks, baseline and progressive files of every chroma sampling, its
+sampler and prefetching loader to JAX's for the same folder and seed.
 """
 
 import os
@@ -31,6 +29,7 @@ from mastermetastyletransfer_tpu.data import pipeline as jpipe
 from mastermetastyletransfer_tpu_torch.config import DataConfig
 from mastermetastyletransfer_tpu_torch.data import native_loader as tnative
 from mastermetastyletransfer_tpu_torch.data import pipeline as tpipe
+from scripts import make_jpeg_fixtures
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -168,33 +167,6 @@ def test_read_bmp_takes_only_uncompressed_rgb(tmp_path):
     assert tpipe._read_bmp(b"BM" + bytes(20)) is None
 
 
-def _loader_resize(src, s):
-    """native/loader.cpp's resize_bilinear in numpy float32: half-pixel
-    centres clamped at 0, no antialiasing, +0.5 and truncation."""
-    h, w, _ = src.shape
-    f32 = np.float32
-
-    def taps(n):
-        t = np.maximum((np.arange(s, dtype=f32) + f32(0.5)) * (f32(n) / f32(s))
-                       - f32(0.5), f32(0))
-        i0 = t.astype(np.int64)
-        return i0, np.minimum(i0 + 1, n - 1), (t - i0).astype(f32)
-
-    y0, y1, wy = taps(h)
-    x0, x1, wx = taps(w)
-    img = src.astype(f32)
-    wx = wx[None, :, None]
-    top = img[y0][:, x0] + (img[y0][:, x1] - img[y0][:, x0]) * wx
-    bot = img[y1][:, x0] + (img[y1][:, x1] - img[y1][:, x0]) * wx
-    v = top + (bot - top) * wy[:, None, None]
-    return (v + f32(0.5)).astype(np.uint8)
-
-
-def _full_size_reference(path, size):
-    with Image.open(path) as im:
-        return _loader_resize(np.asarray(im.convert("RGB")), size)
-
-
 _NO_PIL = textwrap.dedent(r"""
     import importlib.abc, sys
     import numpy as np
@@ -209,10 +181,11 @@ _NO_PIL = textwrap.dedent(r"""
     sys.meta_path.insert(0, Refuse())
     from mastermetastyletransfer_tpu_torch.data import pipeline
     folder, size = sys.argv[1], int(sys.argv[2])
-    for name in ("a24.bmp", "b32.bmp", "c24_topdown.bmp", "d.png", "e.jpg"):
+    for name in ("a24.bmp", "b32.bmp", "c24_topdown.bmp", "d.png", "e.jpg",
+                 "g.jpg"):
         np.save(f"{folder}/{name}.npy",
                 pipeline._decode_resize(f"{folder}/{name}", size))
-    for name in ("f.webp", "g.jpg"):
+    for name in ("f.webp",):
         try:
             pipeline._decode_resize(f"{folder}/{name}", size)
         except ValueError as e:
@@ -221,9 +194,9 @@ _NO_PIL = textwrap.dedent(r"""
 
 
 def test_decode_resize_without_pil(tmp_path):
-    """With PIL (and JAX) refused, BMP, PNG and JPEG files give JAX's
-    arrays; a WebP file and a progressive JPEG raise ValueError naming the
-    file and what is read."""
+    """With PIL (and JAX) refused, BMP, PNG and JPEG files, a progressive
+    JPEG among them, give JAX's arrays; a WebP file raises ValueError
+    naming the file and what is read."""
     rng = np.random.default_rng(7)
     files = {"a24.bmp": "bmp24", "b32.bmp": "bmp32",
              "c24_topdown.bmp": "bmp24_topdown", "d.png": "png",
@@ -233,6 +206,7 @@ def test_decode_resize_without_pil(tmp_path):
     Image.fromarray(_smooth(rng, 30, 40)).save(tmp_path / "f.webp")
     Image.fromarray(_smooth(rng, 30, 40)).save(tmp_path / "g.jpg",
                                                progressive=True)
+    files["g.jpg"] = "progressive jpeg"
     proc = subprocess.run(
         [sys.executable, "-c", _NO_PIL, str(tmp_path), "64"], cwd=ROOT,
         capture_output=True, text=True, timeout=120)
@@ -243,11 +217,9 @@ def test_decode_resize_without_pil(tmp_path):
             str(tmp_path / name), 64)), name
     errors = [line for line in proc.stdout.splitlines()
               if line.startswith("ERROR")]
-    assert len(errors) == 2, proc.stdout
-    webp, progressive = errors
-    assert str(tmp_path / "f.webp") in webp and "baseline JPEG" in webp
-    assert str(tmp_path / "g.jpg") in progressive
-    assert "progressive JPEG (SOF2)" in progressive
+    assert len(errors) == 1, proc.stdout
+    assert str(tmp_path / "f.webp") in errors[0]
+    assert "baseline JPEG" in errors[0] and "progressive JPEG" in errors[0]
 
 
 # ---------------------------------------------------------------------------
@@ -268,19 +240,85 @@ def native_built():
 
 def test_native_loader_matches_jax(tmp_path, native_built):
     """Bit for bit with JAX's loader at a size it decodes at full size
-    (288: over 7/8 of the 300-pixel side); at 96 and 256, where JAX's
-    prescales, the loader's resize of the full-size decode."""
+    (288: over 7/8 of the 300-pixel side) and at 96 and 256, where it
+    prescales (to 3/8 and 7/8)."""
     folder = _folder(str(tmp_path), 5, seed=8, kind="jpeg", hw=(300, 400))
     paths = tpipe.list_images(folder)
-    got = tnative.decode_resize_batch(paths, 288, n_threads=3)
-    assert got.shape == (5, 288, 288, 3)
-    assert np.array_equal(got, jnative.decode_resize_batch(paths, 288))
-    for size in (96, 256):
+    for size in (288, 96, 256):
         got = tnative.decode_resize_batch(paths, size, n_threads=3)
         assert got.shape == (5, size, size, 3)
-        for g, p in zip(got, paths):
-            want = _full_size_reference(p, size)
-            assert np.abs(g.astype(int) - want).max() <= 1, (p, size)
+        assert np.array_equal(got, jnative.decode_resize_batch(paths, size))
+
+
+def _sampled(rgb, sub, progressive):
+    """PIL's JPEG of ``rgb`` at one chroma sampling: 0, 1, 2 (4:4:4,
+    4:2:2, 4:2:0), "440" (the transposed 4:2:2 file with its frame header
+    rewritten, scripts/make_jpeg_fixtures.py) or "gray"."""
+    kw = dict(quality=90, progressive=progressive)
+    if sub == "gray":
+        return make_jpeg_fixtures.jpeg(
+            np.asarray(Image.fromarray(rgb).convert("L")), **kw)
+    if sub == "440":
+        return make_jpeg_fixtures.as_440(make_jpeg_fixtures.jpeg(
+            np.ascontiguousarray(rgb.transpose(1, 0, 2)), subsampling=1,
+            **kw))
+    return make_jpeg_fixtures.jpeg(rgb, subsampling=sub, **kw)
+
+
+@pytest.mark.parametrize("sub", [0, 1, 2, "440", "gray"])
+@pytest.mark.parametrize("progressive", [False, True],
+                         ids=["baseline", "progressive"])
+def test_native_loader_matches_jax_at_every_scale(tmp_path, native_built,
+                                                  sub, progressive):
+    """At targets that make JAX's loader decode at each n/8, n = 1..8,
+    bit for bit with it, for two odd-sized files of one sampling."""
+    rng = np.random.default_rng(30 + (sub if isinstance(sub, int) else 5))
+    paths = []
+    for i, hw in enumerate(((203, 157), (150, 232))):
+        path = str(tmp_path / f"x{i}.jpg")
+        with open(path, "wb") as f:
+            f.write(_sampled(_smooth(rng, *hw), sub, progressive))
+        paths.append(path)
+    for h, w in ((203, 157), (150, 232)):
+        for t in make_jpeg_fixtures.prescale_targets(w, h):
+            got = tnative.decode_resize_batch(paths, t, n_threads=2)
+            want = jnative.decode_resize_batch(paths, t)
+            assert np.array_equal(got, want), (sub, progressive, t)
+
+
+_NO_SIMD = textwrap.dedent(r"""
+    import sys
+    import numpy as np
+    from mastermetastyletransfer_tpu.data import native_loader as jnative
+    from mastermetastyletransfer_tpu_torch.data import native_loader as tn
+    from scripts import make_jpeg_fixtures
+    paths = sys.argv[1:]
+    differ = 0
+    for t in make_jpeg_fixtures.prescale_targets(157, 150):
+        differ += int(np.count_nonzero(tn.decode_resize_batch(paths, t)
+                                       != jnative.decode_resize_batch(
+                                           paths, t)))
+    print("DIFFER", differ)
+""")
+
+
+def test_native_loader_matches_jax_without_simd(tmp_path, native_built):
+    """libjpeg-turbo's SIMD IDCTs off (``JSIMD_FORCENONE=1``, its C
+    routines: jidctred.c's 2 x 2 and 4 x 4 among them) the JAX loader
+    still gives the port's batches at every n, for every sampling."""
+    rng = np.random.default_rng(40)
+    paths = []
+    for i, (sub, prog) in enumerate(((0, True), (1, False), (2, True),
+                                     ("440", True), ("gray", False))):
+        paths.append(str(tmp_path / f"x{i}.jpg"))
+        with open(paths[-1], "wb") as f:
+            f.write(_sampled(_smooth(rng, 150, 157), sub, prog))
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_SIMD, *paths], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "JSIMD_FORCENONE": "1"})
+    assert proc.returncode == 0, proc.stderr
+    assert "DIFFER 0" in proc.stdout, proc.stdout
 
 
 def test_native_loader_sends_other_files_through_decode_resize(
@@ -297,9 +335,10 @@ def test_native_loader_sends_other_files_through_decode_resize(
     assert np.array_equal(got[3], tpipe._decode_resize(bmp, 64))
     assert np.array_equal(got[2:], jnative.decode_resize_batch(paths,
                                                                64)[2:])
-    for g, p in zip(got[:2], paths):
-        assert np.abs(g.astype(int) - _full_size_reference(p, 64)).max() <= 1
-    # at 100, over 7/8 of the 90-pixel side, JAX's decodes at full size too
+    # the JPEGs as JAX's at 64 (where its loader decodes at 6/8) and at 100
+    # (over 7/8 of the 90-pixel side: at full size)
+    assert np.array_equal(got[:2], jnative.decode_resize_batch(paths,
+                                                               64)[:2])
     assert np.array_equal(tnative.decode_resize_batch(paths, 100),
                           jnative.decode_resize_batch(paths, 100))
 

@@ -137,11 +137,36 @@ def test_stylize_replies_match_jax_within_jpeg_noise(servers, fmt):
     assert err.mean() <= noise.mean() + 1 and err.max() <= noise.max() + 1
 
 
+def test_progressive_bodies_read_as_their_baseline_files(servers):
+    """A progressive JPEG body decodes (``serve._decode_to``) to the array
+    of the baseline file of the same image at the same quality (the same
+    coefficients, coded in another order), and the port's server answers
+    progressive bodies 200 with the very reply it gives the baseline
+    ones."""
+    rng = np.random.default_rng(9)
+    images = smooth(rng, 80, 96), smooth(rng, 70, 60)
+    bodies = {prog: [_encoded(x, "JPEG", quality=92, progressive=prog)
+                     for x in images] for prog in (False, True)}
+    assert all(b"\xff\xc2" in b for b in bodies[True])
+    for size in (SIZE, 128):
+        for base, prog in zip(bodies[False], bodies[True]):
+            assert np.array_equal(tserve._decode_to(size, prog),
+                                  tserve._decode_to(size, base))
+    url = servers["url"]["port"] + "/stylize"
+    replies = {}
+    for prog, (content, style) in bodies.items():
+        code, ctype, data = _post(url, _multipart({"content": content,
+                                                   "style": style}))
+        assert code == 200 and ctype == "image/jpeg", data[:200]
+        replies[prog] = data
+    assert replies[True] == replies[False]
+
+
 def test_bad_requests_get_400(servers):
     """A body that is not multipart, a missing part and an unknown k are
     400 on both servers; an image body no reader reads (a truncated JPEG,
-    a progressive one, WebP) is a 400 from the port, naming the reason
-    (JAX answers those 500, PIL's exception)."""
+    WebP) is a 400 from the port, naming the reason (JAX answers those
+    500, PIL's exception)."""
     rng = np.random.default_rng(7)
     jpeg = _encoded(smooth(rng, 40, 40), "JPEG", quality=90)
     for name, url in servers["url"].items():
@@ -152,10 +177,8 @@ def test_bad_requests_get_400(servers):
         assert _post(url + "/stylize?k=2",
                      _multipart({"content": jpeg, "style": jpeg}))[0] == 400
     url = servers["url"]["port"]
-    progressive = _encoded(smooth(rng, 40, 40), "JPEG", progressive=True)
     webp = _encoded(smooth(rng, 40, 40), "WEBP")
     for bad, why in ((jpeg[:len(jpeg) // 2], "JPEG"),
-                     (progressive, "progressive JPEG (SOF2)"),
                      (webp, "baseline JPEG")):
         code, ctype, data = _post(url + "/stylize", _multipart(
             {"content": bad, "style": jpeg}))
@@ -170,14 +193,18 @@ def test_bad_requests_get_400(servers):
 def test_bombs_get_400(servers):
     """Bodies that claim more than a request may make the server allocate
     (a JPEG or PNG frame above PIL's decompression-bomb limit, a JPEG frame
-    its bytes could not code, a DC table symbol of 200) are each a 400
+    its bytes could not code, a DC table symbol of 200, a progressive
+    frame whose coefficient buffer is above the limit) are each a 400
     naming the reason, and the server keeps serving."""
-    from tests.test_torch_codecs import bomb_bodies, png_bomb
+    from tests.test_torch_codecs import (
+        bomb_bodies, png_bomb, progressive_bomb,
+    )
 
     url = servers["url"]["port"]
     jpeg = _encoded(smooth(np.random.default_rng(8), 40, 40), "JPEG",
                     quality=90)
-    cases = dict(bomb_bodies(), png=(png_bomb(), "decompression bomb"))
+    cases = dict(bomb_bodies(), png=(png_bomb(), "decompression bomb"),
+                 progressive=(progressive_bomb(), "coefficient buffer"))
     for name, (bad, why) in cases.items():
         code, ctype, data = _post(url + "/stylize", _multipart(
             {"content": jpeg, "style": bad}))
