@@ -109,7 +109,9 @@ generator where the plain step does); the kernels line's training entries
 carry each mode's launches. Last, the training entry point: trainer
 (``trainer.main`` on folders of JPEG files written here by the port's
 encoder, 16 contents at 640x480 and 4 styles at 1024x768 from a seed
-(the styles staged at 6/8, the JAX loader's prescale), at the train
+(the styles staged at 6/8, the JAX loader's prescale), the contents
+joined by a CMYK JPEG, an arithmetic-coded JPEG, an Adam7 PNG and a
+palette BMP at 640x480 (``TRAINER_KINDS``), at the train
 phase's configuration: plain for 6 iterations, resumed to 9, meta with 4 inner
 updates for 2, fast adaptation at batch 4 for 3, checkpoints and dumps
 every 3; one finite JSONL line per iteration, checkpoints 3, 6 and 9, the
@@ -117,9 +119,10 @@ resumed run at step 6 with Adam's count 6, its restored state equal to
 checkpoint 6's files bit for bit and its first lr the schedule's at 6,
 each iteration's launches exactly its step's table plus
 ``DUMP_PER_CALL`` at a dump, the dumps 256x256x3 and not constant; the
-loader's ms a batch of contents and of styles, whether the native
-loader built, the trainer's imgs/s beside the step alone's); every
-kernel of the kernels line carries ``trainer_launches``. Last, the
+loader's ms a batch of contents, of styles and of the four new kinds,
+whether the native loader built, the trainer's imgs/s beside the step
+alone's); every kernel of the kernels line carries ``trainer_launches``.
+Last, the
 evaluation and weight entry points, on folders of BMP files written here
 (11 contents at 640x480, 20 styles at 1024x768): eval
 (``evaluate_grid``, the JAX command line's 220 pairs at 256^2, style
@@ -145,11 +148,18 @@ kernel of the kernels line carries ``eval_launches`` and
 own: codecs (the port's JPEG decoder on the eleven fixtures of
 tests/data/jpeg/, four of them progressive, against Pillow's pixels stored
 beside them, and its batch loader on two sources at one target per scale
-n/8 against the JAX loader's stored batches: 0 values may differ; the
-host's ms of a progressive decode and of the loader on 8 large 4:2:0
-JPEGs, prescaled, against the full decode and numpy resize; a seeded 512^2
-image encoded at quality 95 and decoded: the host's ms each way and the
-PSNR), split_route (``style_transformer_apply_windowed`` with
+n/8 against the JAX loader's stored batches; ``decode_image`` on the
+fixtures of the other kinds Pillow reads -- tests/data/jpeg_kinds/
+(arithmetic-coded, CMYK, YCCK, block-smoothed progressive, lossless),
+tests/data/png/ (1- to 16-bit, Adam7) and tests/data/bmp/ (palettes, RLE,
+bit fields, core to V5 headers) -- against Pillow's stored pixels, and
+the batch loader on five sources of those kinds against the JAX loader's
+batches (prescaled, or through its fallback for CMYK, YCCK and lossless):
+0 values may differ; the host's ms of each of those decodes, and of the
+new kinds at 640x480; the host's ms of a progressive decode and of the
+loader on 8 large 4:2:0 JPEGs, prescaled, against the full decode and
+numpy resize; a seeded 512^2 image encoded at quality 95 and decoded: the
+host's ms each way and the PSNR), split_route (``style_transformer_apply_windowed`` with
 ``fuse_iteration`` False, True and the kernels-off route at serving's
 shape, 512^2 batch 8 + 8, bf16
 and f32, and at the eval grid's, 256^2 batch 8, f32, k = 1 and 3: the
@@ -161,7 +171,8 @@ batch 8, bf16 and f32, kernels on against the reference by the slice's
 criteria, launches exactly ``exclude_per_batch``; its split route at
 f32), http (serve's services behind ``make_handler`` on a
 ``ThreadingHTTPServer`` at 127.0.0.1: 16 /stylize requests at k 1 and 3
-from 4 clients, 4 /stylize_locked, 2 /sweep, /healthz, two bad bodies
+from 4 clients (the contents JPEG, PNG, BMP, a CMYK JPEG and an Adam7
+PNG), 4 /stylize_locked, 2 /sweep, /healthz, two bad bodies
 answered 400; each run's launches exact; each reply the encoder's bytes on
 its own service's output on the same decoded inputs, and decoded by the
 port's decoder within TOL_JPEG95_MEAN levels of it; p50, max, imgs/s, the
@@ -353,6 +364,7 @@ from mastermetastyletransfer_tpu_torch.utils.checkpoint import (
 )
 from mastermetastyletransfer_tpu_torch.utils import png as port_png
 from mastermetastyletransfer_tpu_torch.utils.png import png_bytes
+from scripts.make_image_fixtures import bmp_file, bmp_rows, png_file
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -3052,6 +3064,13 @@ TRAINER_SEED = TRAIN_SEED + 6
 # the contents decode at full size and the styles at 6/8 (the JAX loader's
 # prescale), their chroma through 12 x 12 IDCTs.
 TRAINER_CONTENTS, TRAINER_CONTENT_HW = 16, (480, 640)
+# Beside them, one content file of each kind the JAX package reads through
+# Pillow and the port now reads too, at COCO's size: a CMYK JPEG and an
+# arithmetic-coded one (tests/data/jpeg_kinds/trainer_*.jpg), an Adam7 PNG
+# and an 8-bit palette BMP (written here). The batch loader takes the
+# JAX loader's fallback for the first and its prescale for the second.
+TRAINER_KINDS = ("kind_cmyk.jpg", "kind_arith.jpg", "kind_adam7.png",
+                 "kind_palette.bmp")
 TRAINER_STYLES, TRAINER_STYLE_HW = 4, (768, 1024)
 TRAINER_RESIZE, TRAINER_EVERY, TRAINER_QUALITY = 512, 3, 95
 # The evaluation kernels of one dump, master_apply on one 256^2 pair at
@@ -3213,11 +3232,32 @@ def check_dumps(exp: str, steps) -> list:
     return stds
 
 
+def kind_bodies(rng) -> dict:
+    """The TRAINER_KINDS files' bytes: the two JPEGs of
+    tests/data/jpeg_kinds/, and an Adam7 RGB PNG and a 64-colour palette
+    BMP of smooth images from ``rng`` at TRAINER_CONTENT_HW."""
+    with open(os.path.join(KIND_DIRS["jpeg_kinds"],
+                           "trainer_cmyk_adobe.jpg"), "rb") as f:
+        cmyk = f.read()
+    with open(os.path.join(KIND_DIRS["jpeg_kinds"],
+                           "trainer_arith_420.jpg"), "rb") as f:
+        arith = f.read()
+    png_img, bmp_img = smooth_images(rng, 2, TRAINER_CONTENT_HW)
+    palette = np.concatenate([rng.integers(0, 256, (64, 3), np.uint8),
+                              np.zeros((64, 1), np.uint8)], 1)
+    h, w = TRAINER_CONTENT_HW
+    return dict(zip(TRAINER_KINDS, (
+        cmyk, arith, png_file(png_img, 8, 2, interlace=True),
+        bmp_file(bmp_rows(bmp_img[:, :, 1] // 4, 8), w, h, 8,
+                 palette=palette.tobytes(), colors=64))))
+
+
 def trainer_folders(root: str):
     """The trainer phase's image folders under ``root``: TRAINER_CONTENTS
     content JPEGs and TRAINER_STYLES style JPEGs (the port's encoder at
-    TRAINER_QUALITY), smooth images from TRAINER_SEED; returns (content
-    dir, style dir)."""
+    TRAINER_QUALITY), smooth images from TRAINER_SEED, and the
+    TRAINER_KINDS files among the contents; returns (content dir, style
+    dir)."""
     rng = np.random.default_rng(TRAINER_SEED)
     cdir, sdir = os.path.join(root, "coco"), os.path.join(root, "wikiart")
     for d, n, hw in ((cdir, TRAINER_CONTENTS, TRAINER_CONTENT_HW),
@@ -3226,6 +3266,9 @@ def trainer_folders(root: str):
         for i, img in enumerate(smooth_images(rng, n, hw)):
             with open(os.path.join(d, f"{i:03d}.jpg"), "wb") as f:
                 f.write(encode_jpeg(img, TRAINER_QUALITY))
+    for name, body in kind_bodies(rng).items():
+        with open(os.path.join(cdir, name), "wb") as f:
+            f.write(body)
     return cdir, sdir
 
 
@@ -3242,8 +3285,9 @@ def trainer_argv(cdir: str, sdir: str, exp: str, *extra) -> list:
 
 def run_trainer(train: dict) -> dict:
     """The training entry point, ``trainer.main``, on image folders written
-    here (TRAINER_CONTENTS content JPEGs, TRAINER_STYLES style JPEGs, smooth
-    images from a seed), at the train phase's configuration (swin_B,
+    here (TRAINER_CONTENTS content JPEGs and the TRAINER_KINDS files,
+    TRAINER_STYLES style JPEGs, smooth images from a seed), at the train
+    phase's configuration (swin_B,
     256^2 crops from 512^2 staging, batch 8, bf16, kernels on): plain for 6
     iterations, then resumed to 9; meta (4 inner updates) for 2; fast
     adaptation (batch 4) for 3; checkpoints and dumps every 3. Checks:
@@ -3254,8 +3298,8 @@ def run_trainer(train: dict) -> dict:
     over its ks; fast adaptation: ``adapt_per_step``), plus
     ``DUMP_PER_CALL`` at a dump; the dumps 256x256x3 and not constant.
     Reports whether the native loader built, the loader's ms per batch of
-    8 contents and of the 4 styles, and the trainer's imgs/s over
-    iterations 2-6 beside the train phase's step alone."""
+    8 contents, of the 4 styles and of the 4 new kinds, and the trainer's
+    imgs/s over iterations 2-6 beside the train phase's step alone."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         cdir, sdir = trainer_folders(tmp)
@@ -3273,6 +3317,12 @@ def run_trainer(train: dict) -> dict:
         styles = ImageFolderDataset(sdir, TRAINER_RESIZE)
         style_loader_ms = host_ms(
             lambda: styles.get_batch(range(TRAINER_STYLES)), 3)
+        # the new kinds, sorted after the numbered JPEGs: one batch of them
+        kinds = list(range(TRAINER_CONTENTS, len(ds)))
+        if [os.path.basename(ds.files[i]) for i in kinds] != sorted(
+                TRAINER_KINDS):
+            raise AssertionError(f"content files {ds.files}")
+        kinds_loader_ms = host_ms(lambda: ds.get_batch(kinds), 3)
 
         def argv(exp, *extra):
             return trainer_argv(cdir, sdir, os.path.join(tmp, exp), *extra)
@@ -3340,6 +3390,9 @@ def run_trainer(train: dict) -> dict:
                       f"{TRAINER_RESIZE}^2 (decoded at 8/8)",
         style_loader_ms_per_batch=style_loader_ms,
         style_loader_batch=TRAINER_STYLES,
+        kinds_loader_ms_per_batch=kinds_loader_ms,
+        kinds_loader_files=sorted(TRAINER_KINDS),
+        contents=len(ds),
         style_loader_images=f"{TRAINER_STYLE_HW[1]}x{TRAINER_STYLE_HW[0]} "
                             f"4:2:0 JPEG q{TRAINER_QUALITY} -> "
                             f"{TRAINER_RESIZE}^2 (decoded at 6/8)",
@@ -4077,6 +4130,18 @@ HTTP_CONTENT_HW, HTTP_STYLE_HW = (480, 640), (512, 512)
 TOL_JPEG95_MEAN = 4.5
 
 
+# The other kinds Pillow reads (tests/data/{jpeg_kinds,png,bmp},
+# scripts/make_jpeg_fixtures.py and make_image_fixtures.py): each fixture
+# against Pillow's stored pixels, and five loader sources against the JAX
+# loader's stored batches at one target per n/8 (prescaled, or through its
+# fallback): 0 values may differ.
+KIND_DIRS = {d: os.path.join(os.path.dirname(FIXTURES), d)
+             for d in ("jpeg_kinds", "png", "bmp")}
+KIND_SUFFIX = {"jpeg_kinds": "jpg", "png": "png", "bmp": "bmp"}
+N_KIND_FIXTURES = {"jpeg_kinds": 10, "png": 13, "bmp": 10}
+N_KIND_BATCHES = 40
+
+
 def fixture_pixels() -> dict:
     """The JPEG fixtures (tests/data/jpeg/, scripts/make_jpeg_fixtures.py)
     and Pillow's decoded pixels of each, stored beside them."""
@@ -4098,6 +4163,72 @@ def prescale_batches() -> dict:
             out[key] = (os.path.join(FIXTURES, f"{name}.jpg"), int(target),
                         stored[key])
     return out
+
+
+def kind_fixtures() -> dict:
+    """{"<dir>/<name>": (file bytes, Pillow's pixels)} of the other kinds'
+    fixtures."""
+    out = {}
+    for d, path in KIND_DIRS.items():
+        with np.load(os.path.join(path, "pixels.npz")) as stored:
+            for name in sorted(stored.files):
+                with open(os.path.join(path, f"{name}.{KIND_SUFFIX[d]}"),
+                          "rb") as f:
+                    out[f"{d}/{name}"] = (f.read(), stored[name])
+    return out
+
+
+def kind_batches() -> dict:
+    """The other kinds' loader sources: {key: (path, target, the JAX
+    loader's batch)}, key ``<source>_<target>``."""
+    with np.load(os.path.join(KIND_DIRS["jpeg_kinds"],
+                              "prescale.npz")) as stored:
+        out = {}
+        for key in sorted(stored.files):
+            name, target = key.rsplit("_", 1)
+            out[key] = (os.path.join(KIND_DIRS["jpeg_kinds"],
+                                     f"{name}.jpg"), int(target),
+                        stored[key])
+    return out
+
+
+def check_kinds() -> dict:
+    """``decode_image`` on every fixture of the other kinds against
+    Pillow's pixels and the batch loader on their sources against the JAX
+    loader's batches, 0 values differing (any other count raises); the
+    host's ms of each fixture's decode (mean of CODEC_ITERS) and of each
+    TRAINER_KINDS file's at 640x480."""
+    fixtures, counts = {}, {d: 0 for d in KIND_DIRS}
+    for key, (data, want) in kind_fixtures().items():
+        got = decode_image(data)
+        differing = (int(np.count_nonzero(got != want))
+                     if got.shape == want.shape else None)
+        if differing != 0:
+            raise AssertionError(f"fixture {key}: {differing} values differ "
+                                 f"({list(got.shape)}, Pillow "
+                                 f"{list(want.shape)})")
+        counts[key.split("/")[0]] += 1
+        fixtures[key] = dict(shape=list(got.shape), differing=differing,
+                             decode_ms=host_ms(lambda: decode_image(data),
+                                               CODEC_ITERS))
+    if counts != N_KIND_FIXTURES:
+        raise AssertionError(f"kind fixtures {counts}")
+    batches = {}
+    for key, (path, target, want) in kind_batches().items():
+        got = decode_resize_batch([path], target)[0]
+        batches[key] = (int(np.count_nonzero(got != want))
+                        if got.shape == want.shape else None)
+        if batches[key] != 0:
+            raise AssertionError(f"kind batch {key}: {batches[key]} values "
+                                 f"differ ({list(got.shape)})")
+    if len(batches) != N_KIND_BATCHES:
+        raise AssertionError(f"kind batches: {sorted(batches)}")
+    large = {name: dict(bytes=len(body), decode_ms=host_ms(
+                 lambda: decode_image(body), CODEC_ITERS))
+             for name, body in kind_bodies(
+                 np.random.default_rng(CODECS_SEED + 2)).items()}
+    return dict(kind_fixtures=fixtures, kind_batches_differing=batches,
+                kinds_640x480=large)
 
 
 def loader_ms(tmp: str) -> dict:
@@ -4192,6 +4323,7 @@ def run_codecs() -> dict:
                                  f"differ ({list(got.shape)})")
     if len(prescale) != N_PRESCALE_BATCHES:
         raise AssertionError(f"prescale batches: {sorted(prescale)}")
+    kinds = check_kinds()
     sources = {}
     for name in ("src_420", "src_422_progressive"):
         with open(os.path.join(FIXTURES, f"{name}.jpg"), "rb") as f:
@@ -4207,7 +4339,7 @@ def run_codecs() -> dict:
         raise AssertionError(f"round trip gave {back.shape}")
     with tempfile.TemporaryDirectory() as tmp:
         loader = loader_ms(tmp)
-    out = dict(fixtures=fixtures, prescale_differing=prescale,
+    out = dict(fixtures=fixtures, prescale_differing=prescale, **kinds,
                source_decode=sources, **loader, size=CODEC_SIZE,
                quality=95, bytes=len(data), psnr_db=psnr_db(back, src),
                encode_ms=host_ms(lambda: encode_jpeg(src, 95), CODEC_ITERS),
@@ -4481,14 +4613,19 @@ def http_call(url: str, body: bytes = None,
 def http_inputs(seed: int = HTTP_SEED) -> dict:
     """The phase's request bodies from a seed: 8 contents at COCO's
     640x480 and 4 styles at 512^2, smooth images encoded by the port's
-    JPEG encoder at quality 90, but for one content as PNG and one as BMP;
-    two of the styles are the locked ones."""
+    JPEG encoder at quality 90, but for one content as PNG, one as BMP, one
+    as an Adam7 PNG, and one the CMYK JPEG of tests/data/jpeg_kinds/; two
+    of the styles are the locked ones."""
     rng = np.random.default_rng(seed)
     contents = smooth_images(rng, 8, HTTP_CONTENT_HW)
     styles = smooth_images(rng, 4, HTTP_STYLE_HW)
     bodies = [encode_jpeg(c, 90) for c in contents]
     bodies[1] = png_bytes(contents[1])
     bodies[2] = bmp_bytes(contents[2])
+    with open(os.path.join(KIND_DIRS["jpeg_kinds"],
+                           "trainer_cmyk_adobe.jpg"), "rb") as f:
+        bodies[3] = f.read()
+    bodies[4] = png_file(contents[4], 8, 2, interlace=True)
     return dict(contents=bodies, styles=[encode_jpeg(s, 90) for s in styles])
 
 

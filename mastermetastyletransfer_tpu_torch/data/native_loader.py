@@ -14,20 +14,25 @@ hash of the sources and the flags; the library is written to a temporary
 file first and renamed into place. Nothing is written inside the package.
 It runs on the host, not on the device.
 
-* ``decode_jpeg(bytes) -> uint8 (H, W, 3)``: sequential and progressive
-  JPEG (SOF0/SOF1/SOF2, Huffman, 8-bit; grayscale or YCbCr at any
-  sampling; restart intervals) at full size with libjpeg-turbo's default
-  arithmetic, so the pixels are PIL's. Anything else (arithmetic-coded,
-  lossless, 12-bit, CMYK, corrupt) raises ``ValueError`` naming the
-  reason.
+* ``decode_jpeg(bytes) -> uint8 (H, W, 3)``: every 8-bit JPEG that PIL
+  reads (sequential and progressive, Huffman or arithmetic-coded, and
+  lossless frames; grey, YCbCr, RGB, CMYK or YCCK at any sampling; restart
+  intervals; libjpeg-turbo's block smoothing where a progressive file's
+  scans stop early) at full size with libjpeg-turbo's default arithmetic,
+  so the pixels are PIL's ``convert("RGB")``. Anything else (hierarchical,
+  12-bit, truncated, corrupt, a decompression bomb) raises ``ValueError``
+  naming the reason.
 * ``encode_jpeg(uint8 (H, W, 3), quality) -> bytes``: baseline 4:2:0 JFIF
   as PIL's ``Image.save(..., "JPEG", quality=q)`` writes it (IJG tables
   scaled to the quality, standard Huffman tables).
 * ``decode_resize_batch``: a batch of JPEG files decoded and resized on
   worker threads, each with the JAX package's DCT-domain prescale (JAX
   native/loader.cpp:62-75): decoded at the smallest n/8 of its size that
-  still covers the target, then resized as JAX's loader resizes, so that
-  the batch is JAX's bit for bit.
+  still covers the target (block smoothing as that loader's libjpeg-turbo
+  2.1 does it), then resized as JAX's loader resizes, so that the batch is
+  JAX's bit for bit. CMYK, YCCK and lossless files, which that libjpeg
+  does not decode to RGB, take its fallback as there: the full-size decode
+  and Pillow's BILINEAR (``pipeline._decode_resize``).
 
 The codec keeps no state between calls, and ctypes releases the
 interpreter lock while it runs: the HTTP server's threads decode at once.
@@ -92,7 +97,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mmst_jpeg_decode.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t, _u8p, ctypes.c_int, ctypes.c_int,
         ctypes.c_char_p, ctypes.c_int]
-    # the n/8 decode (n = 1..8) that the batch loader runs in C++
+    # the n/8 decode (n = 1..8) that the batch loader runs in C++, block
+    # smoothing's edges as libjpeg-turbo 2.1 (the JAX loader's) takes them
     lib.mmst_jpeg_decode_scaled.restype = ctypes.c_int
     lib.mmst_jpeg_decode_scaled.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, _u8p, ctypes.c_int,
@@ -142,11 +148,12 @@ def native_available() -> bool:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """A JPEG's pixels at full size as uint8 (H, W, 3) RGB (grayscale
-    replicated, as PIL's convert("RGB")); ValueError for a file the
-    decoder does not read, a frame above PIL's decompression-bomb limit
-    (2 x 89,478,485 pixels) among them. The frame header is read first
-    and the pixels decoded straight into the returned array."""
+    """A JPEG's pixels at full size as uint8 (H, W, 3) RGB, as PIL's
+    convert("RGB") gives them (grayscale replicated, CMYK through Pillow's
+    cmyk2rgb); ValueError for a file the decoder does not read, a frame
+    above PIL's decompression-bomb limit (2 x 89,478,485 pixels) among
+    them. The frame header is read first and the pixels decoded straight
+    into the returned array."""
     lib = _library()
     data = bytes(data)
     w, h = ctypes.c_int(), ctypes.c_int()

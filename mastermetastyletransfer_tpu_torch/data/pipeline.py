@@ -13,15 +13,17 @@ image to the content batch; ``device_preprocess_pair`` makes a training
 step's two inputs so, by the configuration, as the JAX trainer does.
 
 No PIL (the machine with the card has none): ``decode_image`` reads
-uncompressed 24- and 32-bit BMP files with numpy (``_read_bmp``), 8-bit
-PNG with ``utils/png.read_png`` and baseline and progressive JPEG with the
-port's own decoder (``native_loader.decode_jpeg``, at full size as PIL
-decodes), each bit for bit what PIL's ``convert("RGB")`` gives, and
+every JPEG, PNG and BMP kind that PIL's ``convert("RGB")`` reads, bit for
+bit what it gives (``READ_FORMATS``): BMP with ``utils/bmp.read_bmp``, PNG
+with ``utils/png.read_png``, JPEG with the port's own decoder
+(``native_loader.decode_jpeg``, at full size as PIL decodes); and
 ``_resize_bilinear`` computes Pillow's BILINEAR resample bit for bit. A
-file none of them reads (WebP, an arithmetic-coded JPEG, ...) raises
-``ValueError`` naming it and the formats that are read. The batch loader
-(``native_loader.decode_resize_batch``) prescales its JPEGs in the DCT
-domain as the JAX package's loader does.
+file none of them reads (WebP, GIF, a hierarchical or 12-bit JPEG, ...)
+raises ``ValueError`` naming it and the formats that are read. The batch
+loader (``native_loader.decode_resize_batch``) takes the JAX package's
+loader's route for each JPEG: prescaled in the DCT domain as its libjpeg
+does, or, for the kinds that libjpeg does not decode to RGB (CMYK, YCCK,
+lossless), the full-size decode and Pillow's BILINEAR.
 
 Under data parallelism (a ``DataShard``: rank r of n, ``grad_accum_steps``
 a) every rank keeps the one-device run's seed and index stream, so that
@@ -49,6 +51,7 @@ from mastermetastyletransfer_tpu_torch.config import (
 )
 from mastermetastyletransfer_tpu_torch.data.native_loader import decode_jpeg
 from mastermetastyletransfer_tpu_torch.parallel.mesh import DataShard
+from mastermetastyletransfer_tpu_torch.utils.bmp import read_bmp
 from mastermetastyletransfer_tpu_torch.utils.png import read_png
 
 _EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
@@ -84,31 +87,12 @@ class InfiniteIndexSampler:
 
 
 def _read_bmp(data: bytes) -> Optional[np.ndarray]:
-    """An uncompressed 24- or 32-bit (BI_RGB) BMP file's pixels as uint8
-    (H, W, 3) RGB, rows top to bottom; None for any other file. Rows are
-    stored bottom-up unless the height is negative, each padded to 4
-    bytes; a 32-bit pixel's fourth byte is dropped, as Pillow reads it."""
-    if len(data) < 34 or data[:2] != b"BM":
+    """A BMP file's pixels as uint8 (H, W, 3) RGB, rows top to bottom, as
+    Pillow reads them (``utils/bmp.read_bmp``; ValueError for a BMP it does
+    not read); None for a file that is not a BMP."""
+    if data[:2] != b"BM":
         return None
-    offset = int.from_bytes(data[10:14], "little")
-    if int.from_bytes(data[14:18], "little") < 40:     # BITMAPINFOHEADER+
-        return None
-    width = int.from_bytes(data[18:22], "little", signed=True)
-    height = int.from_bytes(data[22:26], "little", signed=True)
-    bits = int.from_bytes(data[28:30], "little")
-    compression = int.from_bytes(data[30:34], "little")
-    if bits not in (24, 32) or compression != 0 or width <= 0 or height == 0:
-        return None
-    rows, channels = abs(height), bits // 8
-    stride = (width * bits + 31) // 32 * 4
-    if len(data) < offset + stride * rows:
-        return None
-    px = np.frombuffer(data, np.uint8, stride * rows, offset)
-    px = px.reshape(rows, stride)[:, :width * channels]
-    px = px.reshape(rows, width, channels)[:, :, 2::-1]    # BGR(X) -> RGB
-    if height > 0:
-        px = px[::-1]
-    return np.ascontiguousarray(px)
+    return read_bmp(data)
 
 
 def _resample_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -179,19 +163,20 @@ def _resize_bilinear(img: np.ndarray, size: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
-READ_FORMATS = ("uncompressed 24/32-bit BMP", "8-bit non-interlaced PNG",
-                "baseline JPEG", "progressive JPEG")
+READ_FORMATS = (
+    "BMP (1-, 4- and 8-bit palettes, RLE8, RLE4, 16-, 24- and 32-bit, bit "
+    "fields, core to V5 headers)",
+    "PNG (grey, RGB, palette, grey + alpha, RGBA at 1 to 16 bits, Adam7)",
+    "baseline JPEG", "progressive JPEG", "arithmetic-coded JPEG",
+    "lossless JPEG", "CMYK and YCCK JPEG")
 
 
 def decode_image(data: bytes) -> np.ndarray:
     """An image file's bytes as uint8 (H, W, 3) RGB, by its signature:
     BMP, PNG or JPEG, each through its own reader; ``ValueError`` for
     anything else or a file its reader refuses."""
-    if data[:2] == b"BM":
-        pixels = _read_bmp(data)
-        if pixels is None:
-            raise ValueError("BMP: only uncompressed 24- and 32-bit files "
-                             "are read")
+    pixels = _read_bmp(data)
+    if pixels is not None:
         return pixels
     if data[:8] == b"\x89PNG\r\n\x1a\n":
         return read_png(data)

@@ -1,18 +1,28 @@
 // JPEG decoder and baseline encoder, with no library beyond libstdc++.
 //
-// The decoder reads what libjpeg-turbo reads in 8-bit Huffman JPEG: SOF0
-// and SOF1 (sequential) and SOF2 (progressive) frames, grayscale or three
-// components (YCbCr, or RGB where an Adobe marker or the component ids say
-// so), any integer sampling (4:4:4, 4:2:2, 4:2:0, 4:4:0, ...), interleaved
-// or one scan per component, DRI/RSTn restart intervals, DHT and DRI
-// segments between scans; the standard Huffman tables stand in for missing
-// ones (Motion-JPEG frames), as libjpeg-turbo does. A progressive frame's
-// scans (spectral selection and successive approximation, jdphuff.c) fill
-// a buffer of every block's coefficients, dequantized at the end with the
-// table latched at each component's first scan. Its arithmetic is
-// libjpeg-turbo's default decompression with JCS_RGB, so that the pixels
-// are what PIL and libjpeg-turbo give, at full size or at n/8 of it (n in
-// 1..8, libjpeg's scale_num / scale_denom, jdmaster.c):
+// The decoder reads what libjpeg-turbo reads in 8-bit JPEG: SOF0 and SOF1
+// (sequential) and SOF2 (progressive) frames with Huffman coding, SOF9 and
+// SOF10 (sequential and progressive) with arithmetic coding (jdarith.c,
+// its DAC conditioning tables included) and SOF3 lossless frames
+// (jdlhuff.c, jdpred.c: predictors 1-7, the point transform, restarts at
+// whole MCU rows); grayscale, three components (YCbCr, or RGB where an
+// Adobe marker or the component ids say so) or four (CMYK, or YCCK under
+// an Adobe marker of transform 2, jdcolor.c ycck_cmyk_convert); any
+// integer sampling (4:4:4, 4:2:2, 4:2:0, 4:4:0, ...), interleaved or one
+// scan per component, DRI/RSTn restart intervals, DHT, DAC and DRI segments
+// between scans; the standard Huffman tables stand in for missing ones
+// (Motion-JPEG frames), as libjpeg-turbo does. A progressive frame's scans
+// (spectral selection and successive approximation, jdphuff.c, jdarith.c)
+// fill a buffer of every block's coefficients, dequantized at the end with
+// the table latched at each component's first scan; where the scans leave
+// coefficients 1-9 short of their last bit, libjpeg-turbo's block smoothing
+// (jdcoefct.c decompress_smooth_data, 2.1 and later: coefficients 0-9 from
+// the DC values of the 5 x 5 blocks around each) estimates them before the
+// inverse DCT. Its arithmetic is libjpeg-turbo's default decompression
+// with JCS_RGB (JCS_CMYK for four components), so that the pixels are what
+// PIL and libjpeg-turbo give, at full size or at n/8 of it (n in 1..8,
+// libjpeg's scale_num / scale_denom, jdmaster.c; a lossless frame at full
+// size only):
 //   * the inverse DCT of each output block size (jddctmgr.c): jidctint.c's
 //     "islow" at 8 x 8 and its scaled routines at 3, 5, 6, 7, 10, 12 and
 //     14, jidctred.c's reduced ones at 4, 2 and 1, each with the range
@@ -20,21 +30,24 @@
 //     sampling allows (4:2:0 chroma decodes at 2n, unupsampled);
 //   * fancy (triangular) chroma upsampling (jdsample.c: h2v1, h1v2, h2v2
 //     with their bias terms; box replication where a chroma plane is at
-//     most 2 samples wide, at 1/8 scale, or for other ratios),
+//     most 2 samples wide, at 1/8 scale, in a lossless frame, or for other
+//     ratios),
 //   * the JFIF YCbCr -> RGB conversion with libjpeg's fixed-point tables
 //     (jdcolor.c).
-// A lossless, hierarchical, arithmetic-coded or 12-bit file, a CMYK/YCCK
-// one, a progressive one that libjpeg would block-smooth (its scans leave
-// the first AC coefficients incomplete) and a truncated or corrupt one
-// throw std::runtime_error naming the reason (the SOF marker for the
-// unsupported kinds). So does a frame above kMaxPixels, one whose scans
-// could not fit in the file's bytes, and a progressive one whose
+// A CMYK or YCCK frame's pixels are what PIL's convert("RGB") makes of
+// libjpeg's CMYK: the samples inverted (PIL reads every 4-component JPEG
+// as "CMYK;I") and Pillow's cmyk2rgb (libImaging/Convert.c).
+// A hierarchical, lossless arithmetic-coded or 12-bit file, one of 2
+// components, and a truncated or corrupt one throw std::runtime_error
+// naming the reason (the SOF marker for the unsupported kinds). So does a
+// frame above kMaxPixels, one whose scans could not fit in the file's
+// bytes (Huffman and lossless frames), and a progressive one whose
 // coefficient buffer would be above the limit, before anything of its size
 // is allocated: the decoder reads untrusted request bodies. A DC table with
-// a symbol above 15 is refused as libjpeg refuses it (jdhuff.c
-// jpeg_make_d_derived_tbl), a DC prediction that leaves int's range as
-// libjpeg-turbo refuses it, and a scan that would decode a coefficient's
-// bit a second time.
+// a symbol above 15 (16 in a lossless frame) is refused as libjpeg refuses
+// it (jdhuff.c jpeg_make_d_derived_tbl), a DC prediction that leaves int's
+// range as libjpeg-turbo refuses it, and a scan that would decode a
+// coefficient's bit a second time.
 //
 // The encoder writes a baseline 4:2:0 JFIF as libjpeg does at a quality
 // setting with its defaults (PIL's Image.save(..., "JPEG", quality=q)):
@@ -131,6 +144,12 @@ const StdHuff kStdHuff[2][2] = {
 // a decompression bomb; this decoder refuses it too.
 constexpr int64_t kMaxPixels = 2 * int64_t(89478485);
 
+// libjpeg-turbo converts no colour space of a lossless frame (jdcolor.c):
+// YCbCr and YCCK ones are refused, RGB, CMYK and grey ones read as stored.
+const char* const kLosslessColour =
+    "lossless JPEG in YCbCr or YCCK is not supported (libjpeg converts no "
+    "colour space of a lossless frame)";
+
 [[noreturn]] void fail(const std::string& why) {
   throw std::runtime_error(why);
 }
@@ -159,6 +178,7 @@ constexpr int kLook = 9;
 
 struct DecHuff {
   bool present = false;
+  int max_symbol = 0;  // libjpeg bounds a DC table's at its first scan
   uint8_t vals[256] = {};
   int32_t maxcode[18] = {};
   int32_t valoffset[18] = {};
@@ -169,6 +189,7 @@ struct DecHuff {
     uint32_t code[257];
     make_codes(bits, nvals, size, code);
     std::memcpy(vals, v, nvals);
+    max_symbol = nvals ? *std::max_element(v, v + nvals) : 0;
     int p = 0;
     for (int l = 1; l <= 16; ++l) {
       if (bits[l]) {
@@ -259,6 +280,146 @@ struct Bits {
       ++p;
     if (p + 1 >= end) fail("corrupt JPEG data: missing RST marker");
     p += 2;
+  }
+};
+
+// The arithmetic decoder's probability estimation (T.81 Table D.2, as
+// libjpeg's jaricom.c packs it): Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed estimate of
+// 0.5 that signs and refinement bits use.
+constexpr int32_t ari(int qe, int nl, int nm, int sw) {
+  return int32_t(qe) << 16 | nm << 8 | sw << 7 | nl;
+}
+const int32_t kAriTab[114] = {
+    ari(0x5a1d, 1, 1, 1),     ari(0x2586, 14, 2, 0),
+    ari(0x1114, 16, 3, 0),    ari(0x080b, 18, 4, 0),
+    ari(0x03d8, 20, 5, 0),    ari(0x01da, 23, 6, 0),
+    ari(0x00e5, 25, 7, 0),    ari(0x006f, 28, 8, 0),
+    ari(0x0036, 30, 9, 0),    ari(0x001a, 33, 10, 0),
+    ari(0x000d, 35, 11, 0),   ari(0x0006, 9, 12, 0),
+    ari(0x0003, 10, 13, 0),   ari(0x0001, 12, 13, 0),
+    ari(0x5a7f, 15, 15, 1),   ari(0x3f25, 36, 16, 0),
+    ari(0x2cf2, 38, 17, 0),   ari(0x207c, 39, 18, 0),
+    ari(0x17b9, 40, 19, 0),   ari(0x1182, 42, 20, 0),
+    ari(0x0cef, 43, 21, 0),   ari(0x09a1, 45, 22, 0),
+    ari(0x072f, 46, 23, 0),   ari(0x055c, 48, 24, 0),
+    ari(0x0406, 49, 25, 0),   ari(0x0303, 51, 26, 0),
+    ari(0x0240, 52, 27, 0),   ari(0x01b1, 54, 28, 0),
+    ari(0x0144, 56, 29, 0),   ari(0x00f5, 57, 30, 0),
+    ari(0x00b7, 59, 31, 0),   ari(0x008a, 60, 32, 0),
+    ari(0x0068, 62, 33, 0),   ari(0x004e, 63, 34, 0),
+    ari(0x003b, 32, 35, 0),   ari(0x002c, 33, 9, 0),
+    ari(0x5ae1, 37, 37, 1),   ari(0x484c, 64, 38, 0),
+    ari(0x3a0d, 65, 39, 0),   ari(0x2ef1, 67, 40, 0),
+    ari(0x261f, 68, 41, 0),   ari(0x1f33, 69, 42, 0),
+    ari(0x19a8, 70, 43, 0),   ari(0x1518, 72, 44, 0),
+    ari(0x1177, 73, 45, 0),   ari(0x0e74, 74, 46, 0),
+    ari(0x0bfb, 75, 47, 0),   ari(0x09f8, 77, 48, 0),
+    ari(0x0861, 78, 49, 0),   ari(0x0706, 79, 50, 0),
+    ari(0x05cd, 48, 51, 0),   ari(0x04de, 50, 52, 0),
+    ari(0x040f, 50, 53, 0),   ari(0x0363, 51, 54, 0),
+    ari(0x02d4, 52, 55, 0),   ari(0x025c, 53, 56, 0),
+    ari(0x01f8, 54, 57, 0),   ari(0x01a4, 55, 58, 0),
+    ari(0x0160, 56, 59, 0),   ari(0x0125, 57, 60, 0),
+    ari(0x00f6, 58, 61, 0),   ari(0x00cb, 59, 62, 0),
+    ari(0x00ab, 61, 63, 0),   ari(0x008f, 61, 32, 0),
+    ari(0x5b12, 65, 65, 1),   ari(0x4d04, 80, 66, 0),
+    ari(0x412c, 81, 67, 0),   ari(0x37d8, 82, 68, 0),
+    ari(0x2fe8, 83, 69, 0),   ari(0x293c, 84, 70, 0),
+    ari(0x2379, 86, 71, 0),   ari(0x1edf, 87, 72, 0),
+    ari(0x1aa9, 87, 73, 0),   ari(0x174e, 72, 74, 0),
+    ari(0x1424, 72, 75, 0),   ari(0x119c, 74, 76, 0),
+    ari(0x0f6b, 74, 77, 0),   ari(0x0d51, 75, 78, 0),
+    ari(0x0bb6, 77, 79, 0),   ari(0x0a40, 77, 48, 0),
+    ari(0x5832, 80, 81, 1),   ari(0x4d1c, 88, 82, 0),
+    ari(0x438e, 89, 83, 0),   ari(0x3bdd, 90, 84, 0),
+    ari(0x34ee, 91, 85, 0),   ari(0x2eae, 92, 86, 0),
+    ari(0x299a, 93, 87, 0),   ari(0x2516, 86, 71, 0),
+    ari(0x5570, 88, 89, 1),   ari(0x4ca9, 95, 90, 0),
+    ari(0x44d9, 96, 91, 0),   ari(0x3e22, 97, 92, 0),
+    ari(0x3824, 99, 93, 0),   ari(0x32b4, 99, 94, 0),
+    ari(0x2e17, 93, 86, 0),   ari(0x56a8, 95, 96, 1),
+    ari(0x4f46, 101, 97, 0),  ari(0x47e5, 102, 98, 0),
+    ari(0x41cf, 103, 99, 0),  ari(0x3c3d, 104, 100, 0),
+    ari(0x375e, 99, 93, 0),   ari(0x5231, 105, 102, 0),
+    ari(0x4c0f, 106, 103, 0), ari(0x4639, 107, 104, 0),
+    ari(0x415e, 103, 99, 0),  ari(0x5627, 105, 106, 1),
+    ari(0x50e7, 108, 107, 0), ari(0x4b85, 109, 103, 0),
+    ari(0x5597, 110, 109, 0), ari(0x504f, 111, 107, 0),
+    ari(0x5a10, 110, 111, 1), ari(0x5522, 112, 109, 0),
+    ari(0x59eb, 112, 111, 1), ari(0x5a1d, 113, 113, 0)};
+
+// Arithmetic-coded data (jdarith.c arith_decode, T.81 D.2): C holds the
+// code register and the bits read ahead, CT the shift between them. A
+// marker ends the data: zeros are fed from there, as libjpeg does (the
+// scan's end is legal anywhere in arithmetic coding), and p stays on it.
+struct Arith {
+  const uint8_t* p;
+  const uint8_t* end;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: the first two bytes are still to be read
+  bool at_marker = false;
+
+  int byte() {
+    if (at_marker || p >= end) return 0;
+    if (*p != 0xFF) return *p++;
+    const uint8_t* q = p + 1;
+    while (q < end && *q == 0xFF) ++q;  // fill bytes
+    if (q < end && *q == 0) {
+      p = q + 1;
+      return 0xFF;
+    }
+    p = q - 1;  // on the marker's last 0xFF
+    at_marker = true;
+    return 0;
+  }
+  // After a restart interval: to RSTn, and the decoder reset.
+  void restart() {
+    while (p + 1 < end && !(p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7))
+      ++p;
+    if (p + 1 >= end) fail("corrupt JPEG data: missing RST marker");
+    p += 2;
+    c = a = 0;
+    ct = -16;
+    at_marker = false;
+  }
+  // One binary decision with the adaptive estimate *st (bit 7: the MPS).
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the first two bytes
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    const int nl = int(qe & 0xFF);
+    qe >>= 8;
+    const int nm = int(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {          // conditional exchange: this was the MPS
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {          // conditional exchange: this was the LPS
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
   }
 };
 
@@ -795,8 +956,10 @@ struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int td = 0, ta = 0;   // the current scan's table selectors
   int dc_pred = 0;
+  int dc_context = 0;   // arithmetic coding's DC conditioning (jdarith.c)
   int width = 0, height = 0;   // downsampled size (jdiv_round_up)
   int bw = 0, bh = 0; // its blocks: ceil(width / 8) x ceil(height / 8)
+  int bh_pad = 0;     // block rows of the coefficient buffer
   // The quantization table latched at the component's first scan (jdinput.c
   // latch_quant_tables), natural order.
   uint16_t q[64] = {};
@@ -808,7 +971,8 @@ struct Component {
   // order, bw * bh blocks of 64, kept until all scans are read.
   std::vector<int16_t> coef;
   // The decode's output: IDCT size, downsampled size at that scale, and the
-  // plane of its samples (bw * size x bh * size).
+  // plane of its samples (bw * size x bh * size; a lossless frame's: width
+  // x height).
   int size = 8, out_w = 0, out_h = 0, stride = 0;
   Idct idct = nullptr;
   std::vector<uint8_t> plane;
@@ -837,7 +1001,21 @@ struct Decoder {
   int mcus_x = 0, mcus_y = 0;
   int restart_interval = 0;
   bool frame = false, progressive = false, jfif = false, adobe = false;
+  bool arithmetic = false, lossless = false;
   int adobe_transform = -1;
+  // Block smoothing's edges as libjpeg-turbo 3 (PIL's) or 2.1 (the JAX
+  // loader's) takes them (emit_smoothed).
+  bool turbo3 = true;
+  // The DAC segment's conditioning (jdmarker.c get_dac; libjpeg's defaults
+  // L = 0, U = 1, K = 5) and the arithmetic decoder's statistics bins.
+  uint8_t dac_l[16], dac_u[16], dac_k[16];
+  uint8_t dc_stats[16][64], ac_stats[16][256];
+
+  Decoder() {
+    std::memset(dac_l, 0, sizeof(dac_l));
+    std::memset(dac_u, 1, sizeof(dac_u));
+    std::memset(dac_k, 5, sizeof(dac_k));
+  }
 
   uint8_t byte() {
     if (pos >= size) fail("truncated JPEG");
@@ -877,8 +1055,6 @@ struct Decoder {
       int total = 0;
       for (int l = 1; l <= 16; ++l) total += bits[l] = byte();
       if (total > 256 || pos + total > end) fail("bad DHT segment");
-      for (int i = 0; i < total && !tc; ++i)
-        if (data[pos + i] > 15) fail("bad DHT segment: a DC symbol above 15");
       (tc ? ac : dc)[th].build(bits, data + pos, total);
       pos += total;
     }
@@ -887,7 +1063,9 @@ struct Decoder {
 
   void read_sof(int marker) {
     if (frame) fail("more than one frame");
-    progressive = marker == 0xC2;
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arithmetic = marker == 0xC9 || marker == 0xCA;
+    lossless = marker == 0xC3;
     size_t end = segment();
     int precision = byte();
     if (precision != 8)
@@ -899,9 +1077,8 @@ struct Decoder {
     if (width <= 0 || height <= 0)
       fail("JPEG without its size in the frame header (DNL) is not "
            "supported");
-    if (n != 1 && n != 3)
-      fail(std::to_string(n) + "-component JPEG (CMYK/YCCK) is not "
-           "supported");
+    if (n != 1 && n != 3 && n != 4)
+      fail(std::to_string(n) + "-component JPEG is not supported");
     comps.resize(n);
     for (auto& c : comps) {
       c.id = byte();
@@ -919,43 +1096,74 @@ struct Decoder {
       fail("JPEG of " + std::to_string(width) + "x" + std::to_string(height) +
            " pixels is above the limit of " + std::to_string(kMaxPixels) +
            " (a decompression bomb)");
-    mcus_x = (width + 8 * hmax - 1) / (8 * hmax);
-    mcus_y = (height + 8 * vmax - 1) / (8 * vmax);
-    // Every block of every component is coded: in a sequential frame in 2
-    // bits at the least (a 1-bit DC code and a 1-bit EOB), so a file of
-    // `size` bytes holds at most 4 * size of them; in a progressive one the
-    // first DC scan still codes each block in 1 bit at the least (8 * size).
-    int64_t blocks = 0;
+    // A lossless frame's data unit is one sample, a DCT frame's a block.
+    const int unit = lossless ? 1 : 8;
+    mcus_x = (width + unit * hmax - 1) / (unit * hmax);
+    mcus_y = (height + unit * vmax - 1) / (unit * vmax);
+    // Every data unit of every component is coded. Huffman-coded, a
+    // sequential block takes 2 bits at the least (a 1-bit DC code and a
+    // 1-bit EOB), so a file of `size` bytes holds at most 4 * size of them;
+    // a progressive frame's first DC scan still codes each block in 1 bit
+    // at the least, and a lossless frame each sample (8 * size). An
+    // arithmetic-coded decision can take far less than a bit: those frames
+    // are bounded by the pixel limit alone.
+    int64_t units = 0;
     for (auto& c : comps) {
       if (hmax % c.h || vmax % c.v)
         fail("unsupported chroma sampling");
       c.width = int((int64_t(width) * c.h + hmax - 1) / hmax);
       c.height = int((int64_t(height) * c.v + vmax - 1) / vmax);
-      c.bw = (c.width + 7) / 8;
-      c.bh = (c.height + 7) / 8;
-      blocks += int64_t(c.bw) * c.bh;
+      c.bw = (c.width + unit - 1) / unit;
+      c.bh = (c.height + unit - 1) / unit;
+      units += int64_t(c.bw) * c.bh;
     }
-    if (blocks > (progressive ? 8 : 4) * int64_t(size))
+    if (!arithmetic &&
+        units > (progressive || lossless ? 8 : 4) * int64_t(size))
       fail("corrupt JPEG data: " + std::to_string(size) + " bytes cannot "
            "hold a " + std::to_string(width) + "x" + std::to_string(height) +
            " frame");
     // A progressive frame keeps every coefficient until its last scan:
     // no more of them than its components have samples at the pixel limit.
-    if (progressive && blocks * 64 > int64_t(n) * kMaxPixels)
+    if (progressive && units * 64 > int64_t(n) * kMaxPixels)
       fail("progressive JPEG of " + std::to_string(width) + "x" +
            std::to_string(height) + " pixels: its coefficient buffer of " +
-           std::to_string(blocks * 128) + " bytes is above the limit of " +
+           std::to_string(units * 128) + " bytes is above the limit of " +
            std::to_string(n) + " x " + std::to_string(kMaxPixels) +
            " coefficients (a decompression bomb)");
     frame = true;
   }
 
+  // DAC (jdmarker.c get_dac): arithmetic coding's conditioning, per table.
+  void read_dac() {
+    size_t end = segment();
+    if ((end - pos) % 2) fail("bad DAC segment");
+    while (pos < end) {
+      const int index = byte(), val = byte();
+      if (index >= 32) fail("bad DAC segment: table " + std::to_string(index));
+      if (index >= 16) {
+        dac_k[index - 16] = uint8_t(val);
+      } else {
+        dac_l[index] = uint8_t(val & 15);
+        dac_u[index] = uint8_t(val >> 4);
+        if (dac_l[index] > dac_u[index]) fail("bad DAC segment: L above U");
+      }
+    }
+  }
+
   // The output's planes at this decode's scale (jdmaster.c
   // jpeg_core_output_dimensions): a component's IDCT size starts at the
   // scale and doubles while its sampling leaves room for it, which spares
-  // 4:2:0 chroma its upsampling below full size.
+  // 4:2:0 chroma its upsampling below full size. A lossless frame's planes
+  // are its components' samples.
   void prepare() {
     for (auto& c : comps) {
+      if (lossless) {
+        c.size = 8;  // for upsample: the factors hmax / h and vmax / v
+        c.out_w = c.stride = c.width;
+        c.out_h = c.height;
+        c.plane.assign(size_t(c.width) * c.height, 0);
+        continue;
+      }
       int s = scale;
       while (s < 8 && (hmax * scale) % (c.h * s * 2) == 0 &&
              (vmax * scale) % (c.v * s * 2) == 0)
@@ -965,8 +1173,9 @@ struct Decoder {
       c.out_w = int((int64_t(width) * c.h * s + hmax * 8 - 1) / (hmax * 8));
       c.out_h = int((int64_t(height) * c.v * s + vmax * 8 - 1) / (vmax * 8));
       c.stride = c.bw * s;
-      c.plane.assign(size_t(c.stride) * c.bh * s, 0);
-      if (progressive) c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+      c.plane.assign(size_t(c.stride) * c.bh * s, 128);  // IDCT of zeros
+      c.bh_pad = comps.size() > 1 ? mcus_y * c.v : c.bh;
+      if (progressive) c.coef.assign(size_t(c.bw) * c.bh_pad * 64, 0);
     }
   }
 
@@ -998,12 +1207,114 @@ struct Decoder {
     }
   }
 
+  // An arithmetic-coded DC difference (jdarith.c, T.81 F.1.4.4.1) added to
+  // the component's prediction, which libjpeg keeps in 16 bits, unsigned;
+  // false for a magnitude past 15 bits.
+  bool arith_dc(Arith& ar, Component& c, int* value) {
+    uint8_t* stats = dc_stats[c.td];
+    uint8_t* st = stats + c.dc_context;
+    if (ar.decode(st) == 0) {
+      c.dc_context = 0;
+    } else {
+      const int sign = ar.decode(st + 1);
+      st += 2 + sign;
+      int m = ar.decode(st);
+      if (m != 0) {
+        st = stats + 20;
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          st += 1;
+        }
+      }
+      if (m < int((1L << dac_l[c.td]) >> 1))
+        c.dc_context = 0;
+      else if (m > int((1L << dac_u[c.td]) >> 1))
+        c.dc_context = 12 + sign * 4;
+      else
+        c.dc_context = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      c.dc_pred = (c.dc_pred + v) & 0xFFFF;
+    }
+    *value = c.dc_pred;
+    return true;
+  }
+
+  // Arithmetic-coded AC coefficients ss..se of a block (T.81 F.1.4.4.2),
+  // each shifted up by al; false at a coding error (a run or a magnitude
+  // past its range).
+  bool arith_ac(Arith& ar, Component& c, int16_t* coef, int ss, int se,
+                int al) {
+    uint8_t* stats = ac_stats[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) return false;
+      }
+      uint8_t fixed = 113;
+      const int sign = ar.decode(&fixed);
+      st += 2;
+      int m = ar.decode(st);
+      if (m != 0 && ar.decode(st)) {
+        m <<= 1;
+        st = stats + (k <= dac_k[c.ta] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      coef[kNatural[k]] = int16_t(unsigned(v) << al);
+    }
+    return true;
+  }
+
+  // An arithmetic-coded AC refinement (jdarith.c decode_mcu_AC_refine).
+  bool arith_ac_refine(Arith& ar, Component& c, int16_t* b, int ss, int se,
+                       int al) {
+    uint8_t* stats = ac_stats[c.ta];
+    const int p1 = 1 << al, m1 = -p1;
+    int kex = se;  // the previous stage's end of block
+    for (; kex > 0; --kex)
+      if (b[kNatural[kex]]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t& coef = b[kNatural[k]];
+        if (coef) {
+          if (ar.decode(st + 2)) coef = int16_t(coef + (coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          uint8_t fixed = 113;
+          coef = int16_t(ar.decode(&fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) return false;
+      }
+    }
+    return true;
+  }
+
   // Calls block(c, bx, by) for every block of the scan in its order, an
   // interleaved scan's blocks past a component's edge (which libjpeg codes
-  // but never shows) included, and reads the restart markers on the way.
-  template <class F>
-  void each_block(Bits& bits, const std::vector<Component*>& scan,
-                  int* eobrun, F&& block) {
+  // but never shows) included, and restart() at each restart interval.
+  template <class R, class F>
+  void each_block(const std::vector<Component*>& scan, R&& restart,
+                  F&& block) {
     const bool one = scan.size() == 1;
     const int units_x = one ? scan[0]->bw : mcus_x;
     const int units_y = one ? scan[0]->bh : mcus_y;
@@ -1012,9 +1323,7 @@ struct Decoder {
       for (int mx = 0; mx < units_x; ++mx) {
         if (restart_interval) {
           if (todo == 0) {
-            bits.restart();
-            for (Component* c : scan) c->dc_pred = 0;
-            *eobrun = 0;
+            restart();
             todo = restart_interval;
           }
           --todo;
@@ -1037,6 +1346,7 @@ struct Decoder {
     int ns = byte();
     if (ns < 1 || ns > int(comps.size())) fail("bad SOS segment");
     std::vector<Component*> scan;
+    const int max_table = arithmetic ? 15 : 3;
     for (int i = 0; i < ns; ++i) {
       int id = byte(), t = byte();
       Component* found = nullptr;
@@ -1045,14 +1355,22 @@ struct Decoder {
       if (!found) fail("bad SOS segment");
       found->td = t >> 4;
       found->ta = t & 15;
-      if (found->td > 3 || found->ta > 3) fail("bad SOS segment");
+      if (found->td > max_table || found->ta > max_table)
+        fail("bad SOS segment");
       scan.push_back(found);
     }
     int ss = byte(), se = byte(), ah = byte(), al = ah & 15;
     ah >>= 4;
     if (pos > end) fail("bad SOS segment");
     pos = end;
-    if (!progressive) {
+    if (lossless) {
+      // jdlossls.c: Ss the predictor, Se and Ah unused, Al the point
+      // transform
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8)
+        fail("bad lossless scan: Ss=" + std::to_string(ss) + " Se=" +
+             std::to_string(se) + " Ah=" + std::to_string(ah) + " Al=" +
+             std::to_string(al));
+    } else if (!progressive) {
       ss = 0;  // a sequential scan's Ss, Se, Ah/Al are 0, 63, 0 (ignored)
       se = 63;
       ah = al = 0;
@@ -1068,7 +1386,7 @@ struct Decoder {
     for (Component* c : scan) {
       // Each coefficient's bits are decoded once: a scan that would decode
       // a band and bit already decoded (or a component twice) is refused.
-      for (int k = ss; k <= se; ++k) {
+      for (int k = lossless ? 0 : ss; k <= (lossless ? 0 : se); ++k) {
         int8_t& b = c->coef_bits[k];
         if (ah == 0 ? b >= 0 : (b >= 0 && b <= al))
           fail("bad SOS segment: coefficient " + std::to_string(k) +
@@ -1076,35 +1394,40 @@ struct Decoder {
                " decoded a second time");
         b = int8_t(al);
       }
-      if (!c->latched) {
+      if (!lossless && !c->latched) {
         if (!qt_present[c->tq]) fail("missing quantization table");
         std::memcpy(c->q, qt[c->tq], sizeof(c->q));
         c->latched = true;
       }
-      // libjpeg-turbo's default tables where a stream has none (MJPEG)
-      for (int cls = 0; cls < 2; ++cls) {
-        int t = cls ? c->ta : c->td;
-        DecHuff& h = (cls ? ac : dc)[t];
-        if (!h.present) {
-          const StdHuff& sh = kStdHuff[cls][t ? 1 : 0];
-          h.build(sh.bits, sh.vals, sh.nvals);
+      if (!arithmetic) {
+        // libjpeg-turbo's default tables where a stream has none (MJPEG)
+        for (int cls = 0; cls < 2; ++cls) {
+          int t = cls ? c->ta : c->td;
+          DecHuff& h = (cls ? ac : dc)[t];
+          if (!h.present) {
+            const StdHuff& sh = kStdHuff[cls][t ? 1 : 0];
+            h.build(sh.bits, sh.vals, sh.nvals);
+          }
         }
+        // the scans that read a DC table check it as libjpeg builds it
+        const int max_dc = lossless ? 16 : 15;
+        if ((!progressive || (ss == 0 && ah == 0)) &&
+            dc[c->td].max_symbol > max_dc)
+          fail("bad DHT segment: a DC symbol above " +
+               std::to_string(max_dc));
+      } else {
+        if (!progressive || (ss == 0 && ah == 0))
+          std::memset(dc_stats[c->td], 0, sizeof(dc_stats[0]));
+        if (!progressive || ss)
+          std::memset(ac_stats[c->ta], 0, sizeof(ac_stats[0]));
       }
       c->dc_pred = 0;
+      c->dc_context = 0;
     }
-    Bits bits{data + pos, data + size};
-    int eobrun = 0;
-    if (!progressive) {
-      each_block(bits, scan, &eobrun, [&](Component& c, int bx, int by) {
-        int16_t coef[64] = {0};
-        decode_block(bits, c, coef);
-        if (bx < c.bw && by < c.bh) c.emit(bx, by, coef);
-      });
-    } else {
-      scan_progressive(bits, scan, ss, se, ah, al);
-    }
+    const uint8_t* p = lossless     ? scan_lossless(scan, ss, al)
+                       : arithmetic ? scan_arithmetic(scan, ss, se, ah, al)
+                                    : scan_huffman(scan, ss, se, ah, al);
     // Past the scan: to the first marker that is not a restart marker.
-    const uint8_t* p = bits.p;
     while (p + 1 < data + size &&
            !(p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF &&
              !(p[1] >= 0xD0 && p[1] <= 0xD7)))
@@ -1112,27 +1435,43 @@ struct Decoder {
     pos = size_t(p - data);
   }
 
-  // One scan of a progressive frame into the coefficient buffers (jdphuff.c
-  // decode_mcu_DC_first, _DC_refine, _AC_first, _AC_refine).
-  void scan_progressive(Bits& bits, const std::vector<Component*>& scan,
-                        int ss, int se, int ah, int al) {
+  // A Huffman-coded scan: a sequential frame's blocks into the planes, a
+  // progressive one's into the coefficient buffers (jdphuff.c
+  // decode_mcu_DC_first, _DC_refine, _AC_first, _AC_refine). Returns where
+  // its data stopped.
+  const uint8_t* scan_huffman(const std::vector<Component*>& scan, int ss,
+                              int se, int ah, int al) {
+    Bits bits{data + pos, data + size};
     int eobrun = 0;
+    auto restart = [&] {
+      bits.restart();
+      for (Component* c : scan) c->dc_pred = 0;
+      eobrun = 0;
+    };
+    if (!progressive) {
+      each_block(scan, restart, [&](Component& c, int bx, int by) {
+        int16_t coef[64] = {0};
+        decode_block(bits, c, coef);
+        if (bx < c.bw && by < c.bh) c.emit(bx, by, coef);
+      });
+      return bits.p;
+    }
     int16_t dummy[64] = {0};  // the blocks past a component's edge
     auto at = [&](Component& c, int bx, int by) {
-      return bx < c.bw && by < c.bh ? c.block(bx, by) : dummy;
+      return bx < c.bw && by < c.bh_pad ? c.block(bx, by) : dummy;
     };
     const int p1 = 1 << al, m1 = -p1;  // 1 and -1 in the bit coded
     if (se == 0 && ah == 0) {
-      each_block(bits, scan, &eobrun, [&](Component& c, int bx, int by) {
+      each_block(scan, restart, [&](Component& c, int bx, int by) {
         at(c, bx, by)[0] = int16_t(unsigned(decode_dc(bits, c)) << al);
       });
     } else if (se == 0) {
-      each_block(bits, scan, &eobrun, [&](Component& c, int bx, int by) {
+      each_block(scan, restart, [&](Component& c, int bx, int by) {
         int16_t* b = at(c, bx, by);
         if (bits.get(1)) b[0] = int16_t(b[0] | p1);
       });
     } else if (ah == 0) {
-      each_block(bits, scan, &eobrun, [&](Component& c, int bx, int by) {
+      each_block(scan, restart, [&](Component& c, int bx, int by) {
         if (eobrun > 0) {
           --eobrun;
           return;
@@ -1160,7 +1499,7 @@ struct Decoder {
         if (bits.get(1) && (coef & p1) == 0)
           coef = int16_t(coef + (coef >= 0 ? p1 : m1));
       };
-      each_block(bits, scan, &eobrun, [&](Component& c, int bx, int by) {
+      each_block(scan, restart, [&](Component& c, int bx, int by) {
         int16_t* b = at(c, bx, by);
         const DecHuff& h = ac[c.ta];
         int k = ss;
@@ -1193,6 +1532,166 @@ struct Decoder {
         }
       });
     }
+    return bits.p;
+  }
+
+  // An arithmetic-coded scan (jdarith.c decode_mcu and, progressive,
+  // decode_mcu_DC_first, _DC_refine, _AC_first, _AC_refine): libjpeg
+  // resets the statistics of the scan's tables at each restart. A coding
+  // error (which libjpeg only warns of, leaving the interval's remaining
+  // blocks zero) is refused as corrupt data.
+  const uint8_t* scan_arithmetic(const std::vector<Component*>& scan,
+                                 int ss, int se, int ah, int al) {
+    Arith ar{data + pos, data + size};
+    auto restart = [&] {
+      ar.restart();
+      for (Component* c : scan) {
+        if (!progressive || (ss == 0 && ah == 0)) {
+          std::memset(dc_stats[c->td], 0, sizeof(dc_stats[0]));
+          c->dc_pred = 0;
+          c->dc_context = 0;
+        }
+        if (!progressive || ss)
+          std::memset(ac_stats[c->ta], 0, sizeof(ac_stats[0]));
+      }
+    };
+    auto check = [](bool ok) {
+      if (!ok) fail("corrupt JPEG data: bad arithmetic code");
+    };
+    int16_t dummy[64] = {0};
+    auto at = [&](Component& c, int bx, int by) {
+      return bx < c.bw && by < c.bh_pad ? c.block(bx, by) : dummy;
+    };
+    if (!progressive) {
+      each_block(scan, restart, [&](Component& c, int bx, int by) {
+        int16_t coef[64] = {0};
+        int v = 0;
+        check(arith_dc(ar, c, &v));
+        coef[0] = int16_t(v);
+        check(arith_ac(ar, c, coef, 1, 63, 0));
+        if (bx < c.bw && by < c.bh) c.emit(bx, by, coef);
+      });
+    } else if (se == 0 && ah == 0) {
+      each_block(scan, restart, [&](Component& c, int bx, int by) {
+        int v = 0;
+        check(arith_dc(ar, c, &v));
+        at(c, bx, by)[0] = int16_t(unsigned(v) << al);
+      });
+    } else if (se == 0) {
+      each_block(scan, restart, [&](Component& c, int bx, int by) {
+        uint8_t fixed = 113;
+        int16_t* b = at(c, bx, by);
+        if (ar.decode(&fixed)) b[0] = int16_t(b[0] | (1 << al));
+      });
+    } else if (ah == 0) {
+      each_block(scan, restart, [&](Component& c, int bx, int by) {
+        check(arith_ac(ar, c, at(c, bx, by), ss, se, al));
+      });
+    } else {
+      each_block(scan, restart, [&](Component& c, int bx, int by) {
+        check(arith_ac_refine(ar, c, at(c, bx, by), ss, se, al));
+      });
+    }
+    return ar.p;
+  }
+
+  // A lossless scan (jddiffct.c, jdlhuff.c, jdpred.c): the sample
+  // differences of an iMCU row (a one-component scan's v MCU rows of one
+  // sample, an interleaved scan's one row of MCUs of h x v samples), then
+  // each row undifferenced by the predictor psv and scaled by the point
+  // transform pt. A row after the scan's start or a restart predicts from
+  // its left neighbour alone, its first sample from 2^(7 - pt); every
+  // other row's first sample from the sample above it. Values are kept in
+  // 16 bits and the output is their low 8 bits after the shift, as libjpeg
+  // keeps them.
+  const uint8_t* scan_lossless(const std::vector<Component*>& scan, int psv,
+                               int pt) {
+    Bits bits{data + pos, data + size};
+    const bool one = scan.size() == 1;
+    const int per_row = one ? scan[0]->width : mcus_x;
+    if (restart_interval % per_row)
+      fail("lossless JPEG with a restart interval of " +
+           std::to_string(restart_interval) + " MCUs, not whole rows of " +
+           std::to_string(per_row) + ", is not supported");
+    struct Rows {
+      std::vector<int32_t> diff, prev, cur;
+      int cols = 0;
+      bool first = true;
+    };
+    std::vector<Rows> rows(scan.size());
+    for (size_t i = 0; i < scan.size(); ++i) {
+      const Component& c = *scan[i];
+      rows[i].cols = one ? c.width : mcus_x * c.h;
+      rows[i].diff.assign(size_t(rows[i].cols) * c.v, 0);
+      rows[i].prev.assign(c.width, 0);
+      rows[i].cur.assign(c.width, 0);
+    }
+    auto diff = [&](Component& c) {
+      int s = bits.decode(dc[c.td]);
+      if (s == 16) return 32768;
+      return s ? extend(bits.get(s), s) : 0;
+    };
+    const int initial = 1 << (7 - pt);
+    int rows_to_go = restart_interval / per_row;
+    for (int i = 0; i < mcus_y; ++i) {
+      const bool last = i == mcus_y - 1;
+      const int mcu_rows =
+          !one ? 1 : last && scan[0]->height % scan[0]->v
+                         ? scan[0]->height % scan[0]->v : scan[0]->v;
+      for (int y = 0; y < mcu_rows; ++y) {
+        if (restart_interval) {
+          if (rows_to_go == 0) {
+            bits.restart();
+            for (auto& r : rows) r.first = true;
+            rows_to_go = restart_interval / per_row;
+          }
+          --rows_to_go;
+        }
+        for (int mx = 0; mx < per_row; ++mx) {
+          if (one) {
+            rows[0].diff[size_t(y) * rows[0].cols + mx] = diff(*scan[0]);
+            continue;
+          }
+          for (size_t j = 0; j < scan.size(); ++j) {
+            Component& c = *scan[j];
+            for (int by = 0; by < c.v; ++by)
+              for (int bx = 0; bx < c.h; ++bx)
+                rows[j].diff[size_t(by) * rows[j].cols + mx * c.h + bx] =
+                    diff(c);
+          }
+        }
+      }
+      for (size_t j = 0; j < scan.size(); ++j) {
+        Component& c = *scan[j];
+        Rows& r = rows[j];
+        const int n = last && c.height % c.v ? c.height % c.v : c.v;
+        for (int y = 0; y < n; ++y) {
+          const int32_t* d = r.diff.data() + size_t(y) * r.cols;
+          int32_t* out = r.cur.data();
+          const int32_t* up = r.prev.data();
+          int ra = (d[0] + (r.first ? initial : up[0])) & 0xFFFF;
+          out[0] = ra;
+          for (int x = 1; x < c.width; ++x) {
+            const int rb = up[x], rc = up[x - 1];
+            const int pred = r.first ? ra
+                             : psv == 1 ? ra
+                             : psv == 2 ? rb
+                             : psv == 3 ? rc
+                             : psv == 4 ? ra + rb - rc
+                             : psv == 5 ? ra + ((rb - rc) >> 1)
+                             : psv == 6 ? rb + ((ra - rc) >> 1)
+                                        : (ra + rb) >> 1;
+            ra = (d[x] + pred) & 0xFFFF;
+            out[x] = ra;
+          }
+          r.first = false;
+          uint8_t* o = c.plane.data() + size_t(i * c.v + y) * c.stride;
+          for (int x = 0; x < c.width; ++x) o[x] = uint8_t(out[x] << pt);
+          std::swap(r.prev, r.cur);
+        }
+      }
+    }
+    return bits.p;
   }
 
   // Whether libjpeg would smooth the blocks of this progressive frame
@@ -1211,14 +1710,160 @@ struct Decoder {
     return useful;
   }
 
+  // libjpeg-turbo's block smoothing of a component (jdcoefct.c
+  // decompress_smooth_data, 2.1 and later), then its inverse DCTs: each
+  // block's coefficients 1-9 that are still zero and short of their last
+  // bit are estimated from the DC values of the 5 x 5 blocks around it,
+  // clamped below the bits not yet coded; where no AC coefficient was
+  // coded at all, a Gaussian-like kernel estimates them and the DC too.
+  // Which blocks stand in for the neighbours missing at the frame's edges
+  // is where the versions differ (`turbo3`):
+  //   * libjpeg-turbo 2.1 (the JAX loader's): rows by its iMCU-row buffer,
+  //     so that the top two and bottom two iMCU rows of a component of
+  //     vertical sampling v > 1 repeat the nearer row where the buffer holds
+  //     the farther one; columns by its sliding registers (a component two
+  //     blocks wide repeats its first column on the right);
+  //   * libjpeg-turbo 3 (PIL's): rows and columns clamped to the frame, but
+  //     for a row two below reaching into the rows an interleaved scan
+  //     codes past the component's edge (kept in the coefficient buffer,
+  //     bh_pad), and for the second iMCU row where it is the last and one
+  //     block row high, whose row two above repeats the row above.
+  void emit_smoothed(Component& c) {
+    const int8_t* bits = c.coef_bits;
+    bool change_dc = true;
+    for (int k = 1; k < kSmoothCoefs; ++k) change_dc &= bits[k] == -1;
+    const int64_t q00 = c.q[0], q01 = c.q[1], q10 = c.q[8], q20 = c.q[16],
+                  q11 = c.q[9], q02 = c.q[2], q03 = c.q[3], q12 = c.q[10],
+                  q21 = c.q[17], q30 = c.q[24];
+    // pred = round(num / (q << 8)) away from zero, below 2^al where al > 0
+    auto estimate = [](int64_t num, int64_t q, int al) {
+      const bool neg = num < 0;
+      int pred = int(((q << 7) + (neg ? -num : num)) / (q << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      return int16_t(neg ? -pred : pred);
+    };
+    const int last_imcu = mcus_y - 1, v = c.v, last_col = c.bw - 1;
+    int16_t w[64];
+    for (int r = 0; r < c.bh; ++r) {
+      const int i = r / v, br = r % v;
+      const int rows = i < last_imcu ? v : c.bh - last_imcu * v;
+      int prev, prev2, next, next2;
+      if (turbo3) {
+        prev = r > 0 ? r - 1 : r;
+        prev2 = r > 1 && !(i == 1 && i == last_imcu && rows == 1) ? r - 2
+                                                                  : prev;
+        next = r + 1 < c.bh ? r + 1 : r;
+        next2 = r + 2 < c.bh_pad ? r + 2 : next;
+      } else {
+        prev = br > 0 || i > 0 ? r - 1 : r;
+        prev2 = br > 1 || i > 1 ? r - 2 : prev;
+        next = br < rows - 1 || i < last_imcu ? r + 1 : r;
+        next2 = br < rows - 2 || i + 1 < last_imcu ? r + 2 : next;
+      }
+      const int16_t* row[5] = {c.block(0, prev2), c.block(0, prev),
+                               c.block(0, r), c.block(0, next),
+                               c.block(0, next2)};
+      // D[y][x]: libjpeg's DC01..DC25, x the column from two left to two
+      // right of the block
+      int D[5][5];
+      for (int y = 0; y < 5; ++y)
+        for (int x = 0; x < 5; ++x) D[y][x] = row[y][0];
+      for (int b = 0; b < c.bw; ++b) {
+        if (turbo3) {
+          for (int y = 0; y < 5; ++y)
+            for (int x = 0; x < 5; ++x)
+              D[y][x] = row[y][64 * std::min(std::max(b + x - 2, 0),
+                                             last_col)];
+        } else {
+          if (b == 0 && b < last_col)
+            for (int y = 0; y < 5; ++y) D[y][3] = row[y][64 * 1];
+          if (b + 1 < last_col)
+            for (int y = 0; y < 5; ++y) D[y][4] = row[y][64 * (b + 2)];
+        }
+        std::memcpy(w, c.block(b, r), sizeof(w));
+        auto dc = [&](int n) { return int64_t(D[(n - 1) / 5][(n - 1) % 5]); };
+        int al;
+        if ((al = bits[1]) != 0 && w[1] == 0) {
+          const int64_t num = q00 * (change_dc
+              ? -dc(1) - dc(2) + dc(4) + dc(5) - 3 * dc(6) + 13 * dc(7) -
+                13 * dc(9) + 3 * dc(10) - 3 * dc(11) + 38 * dc(12) -
+                38 * dc(14) + 3 * dc(15) - 3 * dc(16) + 13 * dc(17) -
+                13 * dc(19) + 3 * dc(20) - dc(21) - dc(22) + dc(24) + dc(25)
+              : -7 * dc(11) + 50 * dc(12) - 50 * dc(14) + 7 * dc(15));
+          w[1] = estimate(num, q01, al);
+        }
+        if ((al = bits[2]) != 0 && w[8] == 0) {
+          const int64_t num = q00 * (change_dc
+              ? -dc(1) - 3 * dc(2) - 3 * dc(3) - 3 * dc(4) - dc(5) - dc(6) +
+                13 * dc(7) + 38 * dc(8) + 13 * dc(9) - dc(10) + dc(16) -
+                13 * dc(17) - 38 * dc(18) - 13 * dc(19) + dc(20) + dc(21) +
+                3 * dc(22) + 3 * dc(23) + 3 * dc(24) + dc(25)
+              : -7 * dc(3) + 50 * dc(8) - 50 * dc(18) + 7 * dc(23));
+          w[8] = estimate(num, q10, al);
+        }
+        if ((al = bits[3]) != 0 && w[16] == 0) {
+          const int64_t num = q00 * (change_dc
+              ? dc(3) + 2 * dc(7) + 7 * dc(8) + 2 * dc(9) - 5 * dc(12) -
+                14 * dc(13) - 5 * dc(14) + 2 * dc(17) + 7 * dc(18) +
+                2 * dc(19) + dc(23)
+              : -dc(3) + 13 * dc(8) - 24 * dc(13) + 13 * dc(18) - dc(23));
+          w[16] = estimate(num, q20, al);
+        }
+        if ((al = bits[4]) != 0 && w[9] == 0) {
+          const int64_t num = q00 * (change_dc
+              ? -dc(1) + dc(5) + 9 * dc(7) - 9 * dc(9) - 9 * dc(17) +
+                9 * dc(19) + dc(21) - dc(25)
+              : dc(10) + dc(16) - 10 * dc(17) + 10 * dc(19) - dc(2) -
+                dc(20) + dc(22) - dc(24) + dc(4) - dc(6) + 10 * dc(7) -
+                10 * dc(9));
+          w[9] = estimate(num, q11, al);
+        }
+        if ((al = bits[5]) != 0 && w[2] == 0) {
+          const int64_t num = q00 * (change_dc
+              ? 2 * dc(7) - 5 * dc(8) + 2 * dc(9) + dc(11) + 7 * dc(12) -
+                14 * dc(13) + 7 * dc(14) + dc(15) + 2 * dc(17) -
+                5 * dc(18) + 2 * dc(19)
+              : -dc(11) + 13 * dc(12) - 24 * dc(13) + 13 * dc(14) - dc(15));
+          w[2] = estimate(num, q02, al);
+        }
+        if (change_dc) {
+          if ((al = bits[6]) != 0 && w[3] == 0)
+            w[3] = estimate(q00 * (dc(7) - dc(9) + 2 * dc(12) - 2 * dc(14) +
+                                   dc(17) - dc(19)), q03, al);
+          if ((al = bits[7]) != 0 && w[10] == 0)
+            w[10] = estimate(q00 * (dc(7) - 3 * dc(8) + dc(9) - dc(17) +
+                                    3 * dc(18) - dc(19)), q12, al);
+          if ((al = bits[8]) != 0 && w[17] == 0)
+            w[17] = estimate(q00 * (dc(7) - dc(9) - 3 * dc(12) +
+                                    3 * dc(14) + dc(17) - dc(19)), q21, al);
+          if ((al = bits[9]) != 0 && w[24] == 0)
+            w[24] = estimate(q00 * (dc(7) + 2 * dc(8) + dc(9) - dc(17) -
+                                    2 * dc(18) - dc(19)), q30, al);
+          const int64_t num = q00 *
+              (-2 * dc(1) - 6 * dc(2) - 8 * dc(3) - 6 * dc(4) - 2 * dc(5) -
+               6 * dc(6) + 6 * dc(7) + 42 * dc(8) + 6 * dc(9) - 6 * dc(10) -
+               8 * dc(11) + 42 * dc(12) + 152 * dc(13) + 42 * dc(14) -
+               8 * dc(15) - 6 * dc(16) + 6 * dc(17) + 42 * dc(18) +
+               6 * dc(19) - 6 * dc(20) - 2 * dc(21) - 6 * dc(22) -
+               8 * dc(23) - 6 * dc(24) - 2 * dc(25));
+          w[0] = estimate(num, q00, 0);
+        }
+        c.emit(b, r, w);
+        for (int y = 0; y < 5; ++y)
+          for (int x = 0; x < 4; ++x) D[y][x] = D[y][x + 1];
+      }
+    }
+  }
+
   // A component's plane upsampled to the output's size (jdsample.c): rows
   // and columns past the plane's own size are its last ones repeated. The
-  // triangular filters need an IDCT above 1 x 1 (jinit_upsampler).
+  // triangular filters need an IDCT above 1 x 1 (jinit_upsampler), which a
+  // lossless frame does not have.
   std::vector<uint8_t> upsample(const Component& c, int ow, int oh) const {
     const int hf = hmax * scale / (c.h * c.size);
     const int vf = vmax * scale / (c.v * c.size);
     const int cw = c.out_w, ch = c.out_h;
-    const bool fancy = scale > 1;
+    const bool fancy = scale > 1 && !lossless;
     std::vector<uint8_t> out(size_t(ow) * oh);
     std::vector<int> sum(size_t(cw) + 2);  // with a repeated edge each side
     auto row = [&](int r) {
@@ -1264,9 +1909,10 @@ struct Decoder {
     return out;
   }
 
-  // With out == nullptr: read up to the frame header and stop (width and
-  // height are then known). Otherwise decode the whole file into out, which
-  // holds want_w x want_h x 3 bytes: the frame at scale / 8 of its size.
+  // With out == nullptr: read up to the frame header and stop (the frame's
+  // size and kind are then known). Otherwise decode the whole file into
+  // out, which holds want_w x want_h x 3 bytes: the frame at scale / 8 of
+  // its size.
   void run(uint8_t* out, int want_w, int want_h) {
     if (size < 4 || data[0] != 0xFF || data[1] != 0xD8)
       fail("not a JPEG (no SOI marker)");
@@ -1277,23 +1923,23 @@ struct Decoder {
       int m = byte();
       while (m == 0xFF) m = byte();
       if (m == 0xD9) break;  // EOI
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 ||
+          m == 0xCA) {
         read_sof(m);
         if (!out) return;
+        if (lossless && scale != 8)
+          fail("lossless JPEG (SOF3) is decoded at full size only");
         prepare();
-      } else if (m == 0xC3 || m == 0xC7 || m == 0xCB || m == 0xCF) {
-        fail("lossless JPEG (SOF" + std::to_string(m - 0xC0) +
-             ") is not supported");
-      } else if (m == 0xC5 || m == 0xC6) {
+      } else if (m == 0xCB) {
+        fail("arithmetic-coded lossless JPEG (SOF11) is not supported");
+      } else if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xCD ||
+                 m == 0xCE || m == 0xCF) {
         fail("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) +
              ") is not supported");
-      } else if (m == 0xC9 || m == 0xCA || m == 0xCD || m == 0xCE) {
-        fail("arithmetic-coded JPEG (SOF" + std::to_string(m - 0xC0) +
-             ") is not supported");
-      } else if (m == 0xCC) {
-        fail("arithmetic-coded JPEG (DAC) is not supported");
       } else if (m == 0xC4) {
         read_dht();
+      } else if (m == 0xCC) {
+        read_dac();
       } else if (m == 0xDB) {
         read_dqt();
       } else if (m == 0xDD) {
@@ -1306,7 +1952,9 @@ struct Decoder {
         continue;  // a stray restart marker between segments
       } else {
         size_t end = segment();  // APPn, COM and the rest
-        if (m == 0xE0 && end - pos >= 5 &&
+        // jdmarker.c examine_app0 / examine_app14: JFIF in an APP0 of 14
+        // bytes at the least, the Adobe transform in an APP14 of 12
+        if (m == 0xE0 && end - pos >= 14 &&
             std::memcmp(data + pos, "JFIF\0", 5) == 0)
           jfif = true;
         if (m == 0xEE && end - pos >= 12 &&
@@ -1318,20 +1966,25 @@ struct Decoder {
       }
     }
     if (!frame) fail("JPEG without a frame header");
+    // A component that no scan coded is mid grey (its blocks all zero, as
+    // libjpeg leaves them); a lossless frame's has no value to show.
     for (auto& c : comps)
-      if (c.coef_bits[0] < 0) fail("truncated JPEG: a component has no scan");
+      if (c.coef_bits[0] < 0 && lossless)
+        fail("truncated JPEG: a component has no scan");
     const int ow = int((int64_t(width) * scale + 7) / 8);
     const int oh = int((int64_t(height) * scale + 7) / 8);
     if (ow != want_w || oh != want_h)
       fail("JPEG frame of another size than its header gave");
     if (progressive) {
-      if (smoothing_applies())
-        fail("progressive JPEG whose scans leave AC coefficients 1-9 "
-             "short of their last bit (libjpeg smooths its blocks) is not "
-             "supported");
-      for (auto& c : comps)
+      const bool smooth = smoothing_applies();
+      for (auto& c : comps) {
+        if (smooth) {
+          emit_smoothed(c);
+          continue;
+        }
         for (int by = 0; by < c.bh; ++by)
           for (int bx = 0; bx < c.bw; ++bx) c.emit(bx, by, c.block(bx, by));
+      }
     }
     uint8_t* o = out;
     if (comps.size() == 1) {
@@ -1340,24 +1993,10 @@ struct Decoder {
         o[3 * i] = o[3 * i + 1] = o[3 * i + 2] = g[i];
       return;
     }
-    // jdapimin.c default_decompress_parms: JFIF implies YCbCr; else the
-    // Adobe transform; else component ids 'R', 'G', 'B' mean RGB.
-    bool is_rgb = !jfif && (adobe ? adobe_transform == 0
-                                  : comps[0].id == 'R' && comps[1].id == 'G'
-                                        && comps[2].id == 'B');
-    std::vector<uint8_t> p0 = upsample(comps[0], ow, oh),
-                         p1 = upsample(comps[1], ow, oh),
-                         p2 = upsample(comps[2], ow, oh);
-    const size_t n = p0.size();
-    if (is_rgb) {
-      for (size_t i = 0; i < n; ++i) {
-        o[3 * i] = p0[i];
-        o[3 * i + 1] = p1[i];
-        o[3 * i + 2] = p2[i];
-      }
-      return;
-    }
-    // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert
+    std::vector<std::vector<uint8_t>> p;
+    for (const auto& c : comps) p.push_back(upsample(c, ow, oh));
+    const size_t n = p[0].size();
+    // jdcolor.c build_ycc_rgb_table: YCbCr -> RGB in fixed point
     int cr_r[256], cb_b[256];
     int64_t cr_g[256], cb_g[256];
     const int64_t half = int64_t(1) << 15;
@@ -1371,8 +2010,46 @@ struct Decoder {
     auto limit = [](int v) {
       return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v);
     };
+    if (comps.size() == 4) {
+      // jdapimin.c default_decompress_parms: CMYK unless an Adobe marker's
+      // transform is not 0 (YCCK, jdcolor.c ycck_cmyk_convert); PIL then
+      // inverts the samples ("CMYK;I") and applies cmyk2rgb.
+      const bool ycck = adobe && adobe_transform != 0;
+      if (ycck && lossless) fail(kLosslessColour);
+      for (size_t i = 0; i < n; ++i) {
+        int cmy[3] = {p[0][i], p[1][i], p[2][i]};
+        if (ycck) {
+          const int y = cmy[0], cb = cmy[1], cr = cmy[2];
+          cmy[0] = limit(255 - (y + cr_r[cr]));
+          cmy[1] = limit(255 - (y + int((cb_g[cb] + cr_g[cr]) >> 16)));
+          cmy[2] = limit(255 - (y + cb_b[cb]));
+        }
+        const int nk = p[3][i];  // 255 - the inverted K
+        for (int ch = 0; ch < 3; ++ch) {
+          const int t = (255 - cmy[ch]) * nk + 128;  // Pillow's MULDIV255
+          o[3 * i + ch] = limit(nk - (((t >> 8) + t) >> 8));
+        }
+      }
+      return;
+    }
+    // jdapimin.c default_decompress_parms: JFIF implies YCbCr; else the
+    // Adobe transform; else component ids 'R', 'G', 'B' mean RGB (and in a
+    // lossless frame any ids do).
+    const bool ids_rgb = comps[0].id == 'R' && comps[1].id == 'G' &&
+                         comps[2].id == 'B';
+    const bool is_rgb = !jfif && (adobe ? adobe_transform == 0
+                                        : ids_rgb || lossless);
+    if (!is_rgb && lossless) fail(kLosslessColour);
+    if (is_rgb) {
+      for (size_t i = 0; i < n; ++i) {
+        o[3 * i] = p[0][i];
+        o[3 * i + 1] = p[1][i];
+        o[3 * i + 2] = p[2][i];
+      }
+      return;
+    }
     for (size_t i = 0; i < n; ++i) {
-      int y = p0[i], cb = p1[i], cr = p2[i];
+      int y = p[0][i], cb = p[1][i], cr = p[2][i];
       o[3 * i] = limit(y + cr_r[cr]);
       o[3 * i + 1] = limit(y + int((cb_g[cb] + cr_g[cr]) >> 16));
       o[3 * i + 2] = limit(y + cb_b[cb]);
@@ -1551,18 +2228,21 @@ void put_dht(std::vector<uint8_t>& o, int cls, int id, const StdHuff& t) {
 
 }  // namespace
 
-void info(const uint8_t* data, size_t size, int* width, int* height) {
+Info frame_info(const uint8_t* data, size_t size) {
   Decoder d;
   d.data = data;
   d.size = size;
   d.run(nullptr, 0, 0);
-  *width = d.width;
-  *height = d.height;
+  return Info{d.width, d.height, int(d.comps.size()), d.lossless};
 }
+
 
 void decode(const uint8_t* data, size_t size, uint8_t* rgb, int width,
             int height) {
-  decode_scaled(data, size, 8, rgb, width, height);
+  Decoder d;
+  d.data = data;
+  d.size = size;
+  d.run(rgb, width, height);
 }
 
 void decode_scaled(const uint8_t* data, size_t size, int n, uint8_t* rgb,
@@ -1572,6 +2252,7 @@ void decode_scaled(const uint8_t* data, size_t size, int n, uint8_t* rgb,
   d.data = data;
   d.size = size;
   d.scale = n;
+  d.turbo3 = false;
   d.run(rgb, width, height);
 }
 
@@ -1691,8 +2372,10 @@ std::vector<uint8_t> encode(const uint8_t* rgb, int width, int height,
 
 // The C ABI (data/native_loader.py). A decode is two calls: mmst_jpeg_info
 // gives the size, mmst_jpeg_decode writes the pixels into the caller's
-// width x height x 3 buffer (mmst_jpeg_decode_scaled at n/8 of the size:
-// ceil(width * n / 8) x ceil(height * n / 8)). An encoded JPEG is
+// width x height x 3 buffer as PIL gives them (mmst_jpeg_decode_scaled at
+// n/8 of the size, ceil(width * n / 8) x ceil(height * n / 8), as the JAX
+// loader's libjpeg-turbo 2.1 gives them: the two differ only in the edges
+// of block smoothing, emit_smoothed). An encoded JPEG is
 // malloc'ed and handed to the caller, who frees it with mmst_jpeg_free. An
 // error's reason is copied into err (NUL-terminated) and 1 returned.
 extern "C" {
@@ -1708,7 +2391,9 @@ static int mmst_jpeg_error(const std::exception& e, char* err, int errlen) {
 int mmst_jpeg_info(const uint8_t* data, size_t size, int* width,
                    int* height, char* err, int errlen) {
   try {
-    mmst_jpeg::info(data, size, width, height);
+    const mmst_jpeg::Info info = mmst_jpeg::frame_info(data, size);
+    *width = info.width;
+    *height = info.height;
     return 0;
   } catch (const std::exception& e) {
     return mmst_jpeg_error(e, err, errlen);

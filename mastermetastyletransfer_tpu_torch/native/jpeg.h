@@ -11,23 +11,33 @@
 
 namespace mmst_jpeg {
 
-// The frame size of a sequential or progressive (SOF0/SOF1/SOF2, Huffman,
-// 8-bit) grayscale or 3-component JPEG, from its markers up to the frame
-// header. Throws std::runtime_error naming what is wrong or unsupported
-// (e.g. "arithmetic-coded JPEG (SOF10) is not supported"), a frame above
-// the decompression-bomb limit included.
-void info(const uint8_t* data, size_t size, int* width, int* height);
+// A frame's size and what the batch loader routes by.
+struct Info {
+  int width, height, components;
+  bool lossless;
+};
 
-// Decode such a JPEG, of the width and height that info gave, to RGB8 in
-// rgb (height x width x 3, rows top to bottom). Throws as info does, and
-// for a corrupt or truncated scan.
+// The frame header of an 8-bit JPEG that the decoder reads (sequential or
+// progressive, Huffman or arithmetic-coded, or lossless; 1, 3 or 4
+// components), from its markers up to the frame header. Throws
+// std::runtime_error naming what is wrong or unsupported (e.g.
+// "hierarchical JPEG (SOF5) is not supported"), a frame above the
+// decompression-bomb limit included.
+Info frame_info(const uint8_t* data, size_t size);
+
+// Decode such a JPEG, of the width and height that frame_info gave, to
+// RGB8 in rgb (height x width x 3, rows top to bottom), as PIL's
+// convert("RGB") gives it. Throws as frame_info does, and for a corrupt or
+// truncated scan.
 void decode(const uint8_t* data, size_t size, uint8_t* rgb, int width,
             int height);
 
-// The same at n/8 of the frame's size (n in 1..8), as libjpeg-turbo gives
-// it with scale_num = n, scale_denom = 8 and its defaults: width and height
-// are ceil(W * n / 8) and ceil(H * n / 8) of the frame's W x H. n = 8 is
-// decode.
+// The same at n/8 of the frame's size (n in 1..8), as libjpeg-turbo 2.1
+// (the JAX loader's) gives it with scale_num = n, scale_denom = 8 and its
+// defaults: width and height are ceil(W * n / 8) and ceil(H * n / 8) of the
+// frame's W x H. n = 8 is decode but for block smoothing's edges, which
+// the two versions take differently; a lossless frame is decoded at n = 8
+// only.
 void decode_scaled(const uint8_t* data, size_t size, int n, uint8_t* rgb,
                    int width, int height);
 

@@ -30,7 +30,10 @@ namespace {
 
 // Decode one JPEG file to RGB8, DCT-prescaled to cover `target` as the JAX
 // package's loader asks libjpeg to (its native/loader.cpp). Returns true on
-// success.
+// success; false also for the kinds that the JAX loader's libjpeg
+// (libjpeg-turbo 2.1, JCS_RGB) does not decode, CMYK and YCCK (no such
+// colour conversion) and lossless frames, so that they take its fallback:
+// the full-size decode and Pillow's BILINEAR (data/pipeline.py).
 bool decode_jpeg(const char* path, std::vector<uint8_t>* pixels, int* w,
                  int* h, int target) {
   FILE* f = std::fopen(path, "rb");
@@ -42,8 +45,10 @@ bool decode_jpeg(const char* path, std::vector<uint8_t>* pixels, int* w,
     bytes.insert(bytes.end(), chunk, chunk + got);
   std::fclose(f);
   try {
-    int width = 0, height = 0;
-    mmst_jpeg::info(bytes.data(), bytes.size(), &width, &height);
+    const mmst_jpeg::Info info = mmst_jpeg::frame_info(bytes.data(),
+                                                      bytes.size());
+    if (info.components == 4 || info.lossless) return false;
+    const int width = info.width, height = info.height;
     // the smallest 1/8..8/8 scale that still covers the resize target
     unsigned num = 8;
     if (target > 0) {
@@ -137,6 +142,6 @@ int mmst_decode_resize_batch(const char** paths, int n, uint8_t* out,
   return good.load();
 }
 
-int mmst_loader_version() { return 3; }
+int mmst_loader_version() { return 4; }
 
 }  // extern "C"

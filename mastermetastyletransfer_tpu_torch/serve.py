@@ -21,14 +21,15 @@ short window are stacked into one device batch.
       JPEG>, ...}
 
 The model runs on CUDA unless ``--device cpu`` is given. Request bodies
-(and ``--locked_style`` files) are read without PIL: baseline and
-progressive JPEG by the port's own decoder (native/jpeg.cpp), PNG and
-uncompressed BMP in numpy (``data.pipeline.decode_image``), each then
-resized with Pillow's BILINEAR in numpy, so a request decodes to the JAX
-package's array. Replies are
-JPEG at quality 95 from the port's own encoder. A body none of the readers
-reads gets a 400. The services (``StylizeService``, ``LockedStyleService``,
-``SweepService``) take and return numpy arrays.
+(and ``--locked_style`` files) are read without PIL: every JPEG kind PIL
+reads (baseline, progressive, arithmetic-coded, lossless, CMYK and YCCK)
+by the port's own decoder (native/jpeg.cpp), every PNG and BMP kind it
+reads in numpy (``data.pipeline.decode_image``), each then resized with
+Pillow's BILINEAR in numpy, so a request decodes to the JAX package's
+array. Replies are JPEG at quality 95 from the port's own encoder. A body
+none of the readers reads gets a 400 naming the reason and what is read
+(``data.pipeline.READ_FORMATS``). The services (``StylizeService``,
+``LockedStyleService``, ``SweepService``) take and return numpy arrays.
 """
 
 from __future__ import annotations

@@ -1,13 +1,17 @@
 """The port's PNG reader and writer, with the standard library and numpy
 (the machine with the card has no PIL).
 
-``read_png`` reads what PIL's ``convert("RGB")`` reads from a
-non-interlaced 8-bit PNG of colour type 0 (grey), 2 (RGB), 3 (palette), 4
-(grey + alpha) or 6 (RGBA), all five row filters, bit for bit; the alpha
-channel is dropped, grey replicated, a palette looked up. An interlaced
-(Adam7) or 16-bit file, or another bit depth, raises ``ValueError``, and
-so does one above PIL's decompression-bomb limit (``MAX_PIXELS``), before
-its image data is inflated.
+``read_png`` reads every PNG that PIL's ``convert("RGB")`` reads, bit for
+bit: colour type 0 (grey) at 1, 2, 4, 8 and 16 bits, 2 (RGB) at 8 and 16,
+3 (palette) at 1, 2, 4 and 8, 4 (grey + alpha) and 6 (RGBA) at 8 and 16,
+non-interlaced or Adam7, all five row filters. PIL's conversions are kept:
+the alpha channel and any tRNS chunk are dropped, grey is replicated (1-bit
+as 0 or 255, 2- and 4-bit scaled by 85 and 17), a palette is looked up
+(padded with black past its entries), 16-bit grey ("I;16") clips at 255
+and the other 16-bit kinds keep their high byte. Another depth or colour
+type, a filter method other than 0, and a file above PIL's
+decompression-bomb limit (``MAX_PIXELS``) raise ``ValueError``, the last
+before its image data is inflated.
 ``png_bytes`` writes 8-bit RGB; the trainer's dumps go through it.
 """
 
@@ -21,6 +25,12 @@ import numpy as np
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels in the image data
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# colour type -> the bit depths PIL reads it at (PngImagePlugin._MODES)
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 # PIL refuses an image above twice Image.MAX_IMAGE_PIXELS as a
 # decompression bomb; so do the port's readers (native/jpeg.cpp's kMaxPixels)
 MAX_PIXELS = 2 * 89_478_485
@@ -97,6 +107,52 @@ def _unfilter_sweep(filt: np.ndarray, kinds: np.ndarray) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
+def _passes(w: int, h: int, interlace: bool):
+    """(x0, y0, dx, dy, pass width, pass height) of each non-empty pass:
+    the whole image, or Adam7's seven (PNG spec 8.2)."""
+    out = []
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw > 0 and ph > 0:
+            out.append((x0, y0, dx, dy, pw, ph))
+    return out
+
+
+def _samples(rows: np.ndarray, pw: int, depth: int,
+             channels: int) -> np.ndarray:
+    """A pass's unfiltered rows (ph, row bytes) as (ph, pw, channels)
+    samples: packed 1-, 2- and 4-bit ones unpacked from each byte's high
+    bits down, 16-bit ones big-endian."""
+    ph = rows.shape[0]
+    if depth == 16:
+        return (rows.reshape(ph, pw, channels, 2).astype(np.uint16)
+                @ np.array([256, 1], np.uint16))
+    if depth == 8:
+        return rows.reshape(ph, pw, channels)
+    per = 8 // depth
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(ph, -1)[:, :pw, None]
+
+
+def _to_rgb(px: np.ndarray, depth: int, ctype: int, palette) -> np.ndarray:
+    """PIL's convert("RGB") of the image's samples (H, W, channels)."""
+    if ctype == 3:
+        if palette is None:
+            raise ValueError("PNG: palette image without PLTE")
+        full = np.zeros((256, 3), np.uint8)   # PIL pads the palette with 0
+        full[:len(palette)] = palette[:256]
+        return full[px[:, :, 0]]
+    if depth == 16:
+        # "I;16" clips to 255; LA;16B, RGB;16B, RGBA;16B keep the high byte
+        px = (np.minimum(px, 255) if ctype == 0 else px >> 8).astype(np.uint8)
+    elif depth < 8:
+        px = px * np.uint8(255 // ((1 << depth) - 1))  # 1: 255, 2: 85, 4: 17
+    if ctype in (0, 4):
+        return np.repeat(px[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(px[:, :, :3])
+
+
 def read_png(data: bytes) -> np.ndarray:
     """A PNG's pixels as uint8 (H, W, 3) RGB, as PIL's convert("RGB")
     gives them."""
@@ -107,43 +163,46 @@ def read_png(data: bytes) -> np.ndarray:
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            palette = np.frombuffer(body[:len(body) // 3 * 3],
+                                    np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
         raise ValueError("PNG: no IHDR chunk")
-    w, h, depth, ctype, _, _, interlace = header
-    if interlace:
-        raise ValueError("PNG: interlaced (Adam7) files are not read")
+    w, h, depth, ctype, _, filt, interlace = header
     if ctype not in _CHANNELS:
         raise ValueError(f"PNG: unknown colour type {ctype}")
-    if depth != 8:
-        raise ValueError(f"PNG: {depth}-bit files are not read (8-bit "
-                         "only)")
+    if depth not in _DEPTHS[ctype]:
+        raise ValueError(f"PNG: colour type {ctype} at {depth} bits is not "
+                         "read")
+    if filt:
+        raise ValueError(f"PNG: unknown filter method {filt}")
     if w * h > MAX_PIXELS:
         raise ValueError(f"PNG of {w}x{h} pixels is above the limit of "
                          f"{MAX_PIXELS} (a decompression bomb)")
     channels = _CHANNELS[ctype]
-    stride = w * channels
+    bits = depth * channels
+    passes = _passes(w, h, bool(interlace))
+    need = sum(ph * (1 + (pw * bits + 7) // 8)
+               for *_, pw, ph in passes)
     try:   # inflated no further than the image needs
-        raw = zlib.decompressobj().decompress(b"".join(idat),
-                                              h * (stride + 1))
+        raw = zlib.decompressobj().decompress(b"".join(idat), need)
     except zlib.error as e:
         raise ValueError(f"PNG: bad image data ({e})") from None
     raw = np.frombuffer(raw, np.uint8)
-    if raw.size < h * (stride + 1):
+    if raw.size < need:
         raise ValueError("PNG: truncated image data")
-    px = _unfilter(raw[:h * (stride + 1)].reshape(h, stride + 1), h, stride,
-                   channels)
-    if ctype == 3:
-        if palette is None:
-            raise ValueError("PNG: palette image without PLTE")
-        full = np.zeros((256, 3), np.uint8)   # PIL pads the palette with 0
-        full[:len(palette)] = palette[:256]
-        return full[px[:, :, 0]]
-    if ctype in (0, 4):
-        return np.repeat(px[:, :, :1], 3, axis=2)
-    return np.ascontiguousarray(px[:, :, :3])
+    px = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    at = 0
+    for x0, y0, dx, dy, pw, ph in passes:
+        stride = (pw * bits + 7) // 8
+        rows = raw[at:at + ph * (stride + 1)].reshape(ph, stride + 1)
+        at += ph * (stride + 1)
+        # the filters' byte step: a pixel's bytes, at least 1
+        bpp = max(bits // 8, 1)
+        rows = _unfilter(rows, ph, stride, bpp).reshape(ph, stride)
+        px[y0::dy, x0::dx] = _samples(rows, pw, depth, channels)
+    return _to_rgb(px, depth, ctype, palette)
 
 
 def png_bytes(rgb: np.ndarray) -> bytes:

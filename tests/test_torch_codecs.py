@@ -2,7 +2,9 @@
 decode and batch loader) on the CPU: the JPEG decoder (sequential and
 progressive, at full size and at n/8 of it) and the baseline encoder of
 ``native/jpeg.cpp`` through ``data/native_loader.py``, the PNG reader of
-``utils/png.py`` and ``serve._decode_to``.
+``utils/png.py`` and ``serve._decode_to``. The other kinds PIL reads
+(arithmetic-coded, lossless, CMYK and smoothed JPEG; every PNG and BMP
+kind) are held to PIL in tests/test_torch_image_kinds.py.
 
 The JPEGs are written here by PIL (libjpeg-turbo) from numpy seeds. Bounds:
 the decoder within 1 level of PIL's pixels and equal in at least 99% of
@@ -36,7 +38,7 @@ from mastermetastyletransfer_tpu_torch import serve as tserve
 from mastermetastyletransfer_tpu_torch.data import native_loader as tnative
 from mastermetastyletransfer_tpu_torch.data import pipeline as tpipe
 from mastermetastyletransfer_tpu_torch.utils.png import png_bytes, read_png
-from scripts import make_jpeg_fixtures
+from scripts import make_image_fixtures, make_jpeg_fixtures
 
 FIXTURES = Path(__file__).resolve().parent / "data" / "jpeg"
 MAX_LEVELS, MIN_EQUAL = 1, 0.99
@@ -110,29 +112,33 @@ def test_jpeg_decoder_matches_pil_on_grayscale(quality):
 
 
 def test_jpeg_decoder_refuses_what_it_does_not_read():
-    """A progressive file decodes (to PIL's pixels); a truncated or foreign
-    body, an arithmetic-coded, lossless, hierarchical or 12-bit frame
-    raises, naming it."""
+    """What PIL reads decodes to PIL's pixels: a progressive file, and the
+    arithmetic-coded (SOF9, SOF10), lossless (SOF3) and CMYK files that
+    were once refused. What PIL refuses raises, naming it: a truncated or
+    foreign body, a hierarchical frame (its markers named, the
+    progressive ones among them) and a 12-bit one."""
     img = _smooth(np.random.default_rng(1), 32, 32)
     prog = _jpeg(img, quality=90, progressive=True)
     assert np.array_equal(tnative.decode_jpeg(prog), _pil(prog))
     data = _jpeg(img, quality=90)
+    cmyk = np.dstack([img, img[:, :, :1]])
+    for read in (make_jpeg_fixtures.libjpeg_file(img, arith=True),
+                 make_jpeg_fixtures.libjpeg_file(img, arith=True, scans="p"),
+                 make_jpeg_fixtures.lossless_jpeg([img[:, :, 0]], [(1, 1)]),
+                 make_jpeg_fixtures.libjpeg_file(cmyk, space="cmyk"),
+                 make_jpeg_fixtures.libjpeg_file(cmyk, space="ycck")):
+        assert np.array_equal(tnative.decode_jpeg(read), _pil(read))
     for broken in (data[:len(data) // 3], b"\xff\xd8\xff\xd9",
                    b"not a jpeg", prog[:len(prog) // 2]):
         with pytest.raises(ValueError, match="JPEG"):
             tnative.decode_jpeg(broken)
-    # the arithmetic-coded, lossless and hierarchical frame markers are
-    # named too, the progressive ones among them
-    for marker, kind in ((0xC9, "arithmetic-coded"), (0xC3, "lossless"),
-                         (0xC5, "hierarchical")):
-        patched = data.replace(b"\xff\xc0", bytes([0xFF, marker]), 1)
-        with pytest.raises(ValueError, match=f"{kind} JPEG"):
-            tnative.decode_jpeg(patched)
-    for marker, kind in ((0xCA, "arithmetic-coded"), (0xC6, "hierarchical")):
-        patched = prog.replace(b"\xff\xc2", bytes([0xFF, marker]), 1)
-        with pytest.raises(ValueError, match=f"{kind} JPEG"):
-            tnative.decode_jpeg(patched)
-    for body, sof in ((data, b"\xff\xc0"), (prog, b"\xff\xc2")):
+    for body, sof, markers in ((data, b"\xff\xc0", (0xC5, 0xC7, 0xCD)),
+                               (prog, b"\xff\xc2", (0xC6, 0xCE, 0xCF))):
+        for marker in markers:
+            patched = body.replace(sof, bytes([0xFF, marker]), 1)
+            with pytest.raises(ValueError, match=f"hierarchical JPEG "
+                                                 f"\\(SOF{marker - 0xC0}\\)"):
+                tnative.decode_jpeg(patched)
         i = body.index(sof)
         twelve = body[:i + 4] + b"\x0c" + body[i + 5:]
         with pytest.raises(ValueError, match=r"12-bit JPEG \(SOF[02]\)"):
@@ -249,14 +255,20 @@ def test_progressive_decoder_refuses_a_scan_decoded_twice():
 
 def test_progressive_decoder_refuses_what_libjpeg_would_smooth():
     """A progressive file whose scans stop after the DC (its first AC
-    coefficients never decoded, EOI after them) is one that libjpeg
-    block-smooths (jdcoefct.c): the decoder refuses it, naming that."""
-    data = _jpeg(_smooth(np.random.default_rng(3), 40, 40), quality=90,
-                 progressive=True)
-    first_ac = next(a for m, a, b in _segments(data)
-                    if m == 0xDA and data[a + 5 + 2 * data[a + 4]] != 0)
-    with pytest.raises(ValueError, match="smooths"):
-        tnative.decode_jpeg(data[:first_ac] + b"\xff\xd9")
+    coefficients never decoded, EOI after them), or after any later scan
+    but the last, is one that libjpeg block-smooths (jdcoefct.c): the
+    decoder smooths it as PIL's libjpeg-turbo does, to PIL's pixels, at
+    4:2:0, 4:4:4 and grey."""
+    rng = np.random.default_rng(3)
+    for sub in (2, 0, "gray"):
+        data = progressive_jpeg(sub, 90, (40, 40), rng)
+        first_ac = next(a for m, a, b in _segments(data)
+                        if m == 0xDA and data[a + 5 + 2 * data[a + 4]] != 0)
+        cut = data[:first_ac] + b"\xff\xd9"
+        _held_to_pil_exactly(cut, (sub, "DC only"))
+        scans = [b for m, a, b in _segments(data) if m == 0xDA]
+        for end in scans[1:-1]:
+            _held_to_pil_exactly(data[:end] + b"\xff\xd9", (sub, end))
 
 
 def progressive_bomb() -> bytes:
@@ -547,19 +559,28 @@ def test_png_reader_matches_pil(ctype, content):
 
 
 def test_png_reader_refuses_interlaced_and_16_bit():
+    """Adam7 and 16-bit files, once refused, read to PIL's pixels: an
+    interlaced RGB file (PIL writes none: scripts/make_image_fixtures.py)
+    and PIL's own 16-bit grey one ("I;16", clipped at 255). A depth its
+    colour type does not take (3-bit grey, 16-bit palette) is refused by
+    PIL and by the reader."""
     rgb = _smooth(np.random.default_rng(2), 20, 20)
-    # PIL writes no Adam7 file: set the IHDR's interlace byte (and CRC)
-    data = bytearray(png_bytes(rgb))
-    ihdr = data.index(b"IHDR")
-    data[ihdr + 16] = 1
-    data[ihdr + 17:ihdr + 21] = struct.pack(
-        ">I", zlib.crc32(bytes(data[ihdr:ihdr + 17])) & 0xFFFFFFFF)
-    with pytest.raises(ValueError, match="interlaced"):
-        read_png(bytes(data))
+    data = make_image_fixtures.png_file(rgb, 8, 2, interlace=True)
+    assert np.array_equal(read_png(data), _pil(data))
+    assert np.array_equal(read_png(data), rgb)
     buf = io.BytesIO()
     Image.fromarray(rgb[:, :, 0].astype(np.uint16) * 257).save(buf, "PNG")
-    with pytest.raises(ValueError, match="16-bit"):
-        read_png(buf.getvalue())
+    assert np.array_equal(read_png(buf.getvalue()), _pil(buf.getvalue()))
+    for depth, ctype in ((3, 0), (16, 3)):
+        bad = bytearray(png_bytes(rgb))
+        ihdr = bad.index(b"IHDR")
+        bad[ihdr + 12:ihdr + 14] = bytes([depth, ctype])
+        bad[ihdr + 17:ihdr + 21] = struct.pack(
+            ">I", zlib.crc32(bytes(bad[ihdr:ihdr + 17])) & 0xFFFFFFFF)
+        with pytest.raises(Exception):
+            _pil(bytes(bad))
+        with pytest.raises(ValueError, match=f"at {depth} bits"):
+            read_png(bytes(bad))
     assert np.array_equal(read_png(png_bytes(rgb)), rgb)
 
 

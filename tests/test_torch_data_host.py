@@ -155,16 +155,25 @@ def test_decode_resize_matches_jax(tmp_path, kind):
 
 
 def test_read_bmp_takes_only_uncompressed_rgb(tmp_path):
+    """Uncompressed 24- and 32-bit files read to their pixels, and what
+    once was refused reads to PIL's: PIL's 8-bit palette BMP, PIL's 1-bit
+    and grey ones. A file that is not a BMP gives None; a BMP header the
+    reader does not take (none at all) raises, and PIL refuses it too."""
     rgb = _smooth(np.random.default_rng(6), 21, 13)
     for kind in ("bmp24", "bmp24_topdown", "bmp32"):
         path = tmp_path / f"{kind}.bmp"
         _write(str(path), kind, rgb)
         assert np.array_equal(tpipe._read_bmp(path.read_bytes()), rgb)
-    Image.fromarray(rgb).convert("P").save(tmp_path / "palette.bmp")
+    for mode in ("P", "1", "L"):
+        path = tmp_path / f"{mode}.bmp"
+        Image.fromarray(rgb).convert(mode).save(path)
+        with Image.open(path) as im:
+            want = np.asarray(im.convert("RGB"))
+        assert np.array_equal(tpipe._read_bmp(path.read_bytes()), want)
     Image.fromarray(rgb).save(tmp_path / "x.png")
-    for name in ("palette.bmp", "x.png"):
-        assert tpipe._read_bmp((tmp_path / name).read_bytes()) is None
-    assert tpipe._read_bmp(b"BM" + bytes(20)) is None
+    assert tpipe._read_bmp((tmp_path / "x.png").read_bytes()) is None
+    with pytest.raises(ValueError, match="BMP"):
+        tpipe._read_bmp(b"BM" + bytes(20))
 
 
 _NO_PIL = textwrap.dedent(r"""
