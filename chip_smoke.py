@@ -110,8 +110,9 @@ carry each mode's launches. Last, the training entry point: trainer
 (``trainer.main`` on folders of JPEG files written here by the port's
 encoder, 16 contents at 640x480 and 4 styles at 1024x768 from a seed
 (the styles staged at 6/8, the JAX loader's prescale), the contents
-joined by a CMYK JPEG, an arithmetic-coded JPEG, an Adam7 PNG and a
-palette BMP at 640x480 (``TRAINER_KINDS``), at the train
+joined by a CMYK JPEG, an arithmetic-coded JPEG, an Adam7 PNG, a
+palette BMP, a lossy WebP with alpha and a lossless WebP at 640x480
+(``TRAINER_KINDS``), at the train
 phase's configuration: plain for 6 iterations, resumed to 9, meta with 4 inner
 updates for 2, fast adaptation at batch 4 for 3, checkpoints and dumps
 every 3; one finite JSONL line per iteration, checkpoints 3, 6 and 9, the
@@ -119,7 +120,7 @@ resumed run at step 6 with Adam's count 6, its restored state equal to
 checkpoint 6's files bit for bit and its first lr the schedule's at 6,
 each iteration's launches exactly its step's table plus
 ``DUMP_PER_CALL`` at a dump, the dumps 256x256x3 and not constant; the
-loader's ms a batch of contents, of styles and of the four new kinds,
+loader's ms a batch of contents, of styles and of the six new kinds,
 whether the native loader built, the trainer's imgs/s beside the step
 alone's); every kernel of the kernels line carries ``trainer_launches``.
 Last, the
@@ -151,8 +152,10 @@ beside them, and its batch loader on two sources at one target per scale
 n/8 against the JAX loader's stored batches; ``decode_image`` on the
 fixtures of the other kinds Pillow reads -- tests/data/jpeg_kinds/
 (arithmetic-coded, CMYK, YCCK, block-smoothed progressive, lossless),
-tests/data/png/ (1- to 16-bit, Adam7) and tests/data/bmp/ (palettes, RLE,
-bit fields, core to V5 headers) -- against Pillow's stored pixels, and
+tests/data/png/ (1- to 16-bit, Adam7), tests/data/bmp/ (palettes, RLE,
+bit fields, core to V5 headers) and tests/data/webp/ (lossy, lossless,
+alpha, animations; the port's own decoder, native/webp.cpp) -- against
+Pillow's stored pixels, and
 the batch loader on five sources of those kinds against the JAX loader's
 batches (prescaled, or through its fallback for CMYK, YCCK and lossless):
 0 values may differ; the host's ms of each of those decodes, and of the
@@ -3067,10 +3070,13 @@ TRAINER_CONTENTS, TRAINER_CONTENT_HW = 16, (480, 640)
 # Beside them, one content file of each kind the JAX package reads through
 # Pillow and the port now reads too, at COCO's size: a CMYK JPEG and an
 # arithmetic-coded one (tests/data/jpeg_kinds/trainer_*.jpg), an Adam7 PNG
-# and an 8-bit palette BMP (written here). The batch loader takes the
-# JAX loader's fallback for the first and its prescale for the second.
+# and an 8-bit palette BMP (written here), a lossy WebP with alpha and a
+# lossless one (tests/data/webp/trainer_*.webp: nothing here writes WebP).
+# The batch loader takes the JAX loader's fallback for the first and the
+# WebP files and its prescale for the second.
 TRAINER_KINDS = ("kind_cmyk.jpg", "kind_arith.jpg", "kind_adam7.png",
-                 "kind_palette.bmp")
+                 "kind_palette.bmp", "kind_webp_lossy_alpha.webp",
+                 "kind_webp_lossless.webp")
 TRAINER_STYLES, TRAINER_STYLE_HW = 4, (768, 1024)
 TRAINER_RESIZE, TRAINER_EVERY, TRAINER_QUALITY = 512, 3, 95
 # The evaluation kernels of one dump, master_apply on one 256^2 pair at
@@ -3234,8 +3240,9 @@ def check_dumps(exp: str, steps) -> list:
 
 def kind_bodies(rng) -> dict:
     """The TRAINER_KINDS files' bytes: the two JPEGs of
-    tests/data/jpeg_kinds/, and an Adam7 RGB PNG and a 64-colour palette
-    BMP of smooth images from ``rng`` at TRAINER_CONTENT_HW."""
+    tests/data/jpeg_kinds/, an Adam7 RGB PNG and a 64-colour palette BMP
+    of smooth images from ``rng`` at TRAINER_CONTENT_HW, and the two WebP
+    files of tests/data/webp/."""
     with open(os.path.join(KIND_DIRS["jpeg_kinds"],
                            "trainer_cmyk_adobe.jpg"), "rb") as f:
         cmyk = f.read()
@@ -3246,10 +3253,15 @@ def kind_bodies(rng) -> dict:
     palette = np.concatenate([rng.integers(0, 256, (64, 3), np.uint8),
                               np.zeros((64, 1), np.uint8)], 1)
     h, w = TRAINER_CONTENT_HW
+    webp = []
+    for name in ("trainer_lossy_alpha", "trainer_lossless"):
+        with open(os.path.join(KIND_DIRS["webp"], f"{name}.webp"),
+                  "rb") as f:
+            webp.append(f.read())
     return dict(zip(TRAINER_KINDS, (
         cmyk, arith, png_file(png_img, 8, 2, interlace=True),
         bmp_file(bmp_rows(bmp_img[:, :, 1] // 4, 8), w, h, 8,
-                 palette=palette.tobytes(), colors=64))))
+                 palette=palette.tobytes(), colors=64), *webp)))
 
 
 def trainer_folders(root: str):
@@ -3298,7 +3310,7 @@ def run_trainer(train: dict) -> dict:
     over its ks; fast adaptation: ``adapt_per_step``), plus
     ``DUMP_PER_CALL`` at a dump; the dumps 256x256x3 and not constant.
     Reports whether the native loader built, the loader's ms per batch of
-    8 contents, of the 4 styles and of the 4 new kinds, and the trainer's
+    8 contents, of the 4 styles and of the 6 new kinds, and the trainer's
     imgs/s over iterations 2-6 beside the train phase's step alone."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4130,15 +4142,16 @@ HTTP_CONTENT_HW, HTTP_STYLE_HW = (480, 640), (512, 512)
 TOL_JPEG95_MEAN = 4.5
 
 
-# The other kinds Pillow reads (tests/data/{jpeg_kinds,png,bmp},
-# scripts/make_jpeg_fixtures.py and make_image_fixtures.py): each fixture
-# against Pillow's stored pixels, and five loader sources against the JAX
-# loader's stored batches at one target per n/8 (prescaled, or through its
-# fallback): 0 values may differ.
+# The other kinds Pillow reads (tests/data/{jpeg_kinds,png,bmp,webp},
+# scripts/make_jpeg_fixtures.py, make_image_fixtures.py and
+# make_webp_fixtures.py): each fixture against Pillow's stored pixels, and
+# five loader sources against the JAX loader's stored batches at one
+# target per n/8 (prescaled, or through its fallback): 0 values may differ.
 KIND_DIRS = {d: os.path.join(os.path.dirname(FIXTURES), d)
-             for d in ("jpeg_kinds", "png", "bmp")}
-KIND_SUFFIX = {"jpeg_kinds": "jpg", "png": "png", "bmp": "bmp"}
-N_KIND_FIXTURES = {"jpeg_kinds": 10, "png": 13, "bmp": 10}
+             for d in ("jpeg_kinds", "png", "bmp", "webp")}
+KIND_SUFFIX = {"jpeg_kinds": "jpg", "png": "png", "bmp": "bmp",
+               "webp": "webp"}
+N_KIND_FIXTURES = {"jpeg_kinds": 10, "png": 13, "bmp": 10, "webp": 33}
 N_KIND_BATCHES = 40
 
 
@@ -4610,11 +4623,17 @@ def http_call(url: str, body: bytes = None,
         return e.code, e.headers["Content-Type"], e.read()
 
 
+# The kind of each content body of http_inputs, in order.
+HTTP_CONTENT_KINDS = ("jpeg q90", "png", "bmp", "cmyk jpeg", "adam7 png",
+                      "webp lossy + alpha", "webp lossless", "jpeg q90")
+
+
 def http_inputs(seed: int = HTTP_SEED) -> dict:
     """The phase's request bodies from a seed: 8 contents at COCO's
     640x480 and 4 styles at 512^2, smooth images encoded by the port's
     JPEG encoder at quality 90, but for one content as PNG, one as BMP, one
-    as an Adam7 PNG, and one the CMYK JPEG of tests/data/jpeg_kinds/; two
+    as an Adam7 PNG, one the CMYK JPEG of tests/data/jpeg_kinds/, and two
+    the WebP files of tests/data/webp/ (lossy with alpha, lossless); two
     of the styles are the locked ones."""
     rng = np.random.default_rng(seed)
     contents = smooth_images(rng, 8, HTTP_CONTENT_HW)
@@ -4626,6 +4645,10 @@ def http_inputs(seed: int = HTTP_SEED) -> dict:
                            "trainer_cmyk_adobe.jpg"), "rb") as f:
         bodies[3] = f.read()
     bodies[4] = png_file(contents[4], 8, 2, interlace=True)
+    for i, name in ((5, "trainer_lossy_alpha"), (6, "trainer_lossless")):
+        with open(os.path.join(KIND_DIRS["webp"], f"{name}.webp"),
+                  "rb") as f:
+            bodies[i] = f.read()
     return dict(contents=bodies, styles=[encode_jpeg(s, 90) for s in styles])
 
 
@@ -4830,6 +4853,7 @@ def run_http() -> dict:
               for b in (fields["content"], fields["style"])]
     out = dict(
         dtype="bfloat16", size=SIZE, max_batch=MAX_BATCH, clients=CLIENTS,
+        content_bodies=list(HTTP_CONTENT_KINDS),
         stylize_p50_ms=float(np.median(lat)) * 1e3,
         stylize_max_ms=float(np.max(lat)) * 1e3,
         stylize_imgs_per_s=len(lat) / sum(run["wall"] for run in stylize),

@@ -1,13 +1,14 @@
 """ctypes bridge to the native library: the port's own JPEG codec
-(``native/jpeg.cpp``) and the batch loader that decodes and resizes with it
-on worker threads (``native/loader.cpp``; JAX counterpart:
-data/native_loader.py, which links libjpeg).
+(``native/jpeg.cpp``), its WebP decoder (``native/webp.cpp``) and the batch
+loader that decodes and resizes JPEGs on worker threads
+(``native/loader.cpp``; JAX counterpart: data/native_loader.py, which links
+libjpeg, and PIL for every other file).
 
 The library is compiled on first use with the flags of the JAX package's
 native/build.sh, less libjpeg, which neither machine needs:
 
     g++ -O3 -march=native -shared -fPIC -o build/libmmst_loader-<hash>.so
-        native/loader.cpp native/jpeg.cpp -lpthread
+        native/loader.cpp native/jpeg.cpp native/webp.cpp -lpthread
 
 into ``build/`` at the repository root (listed in .gitignore), keyed by a
 hash of the sources and the flags; the library is written to a temporary
@@ -22,6 +23,13 @@ It runs on the host, not on the device.
   so the pixels are PIL's ``convert("RGB")``. Anything else (hierarchical,
   12-bit, truncated, corrupt, a decompression bomb) raises ``ValueError``
   naming the reason.
+* ``decode_webp(bytes) -> uint8 (H, W, 3)``: every WebP that PIL reads
+  (lossy VP8 and lossless VP8L, simple or extended, with or without
+  alpha, still or animated) as PIL's ``convert("RGB")`` gives it: the
+  first frame on its canvas, zero outside it, the alpha dropped. A file
+  libwebp refuses (truncated, corrupt, not a key frame, sizes that
+  disagree) or one above the decompression-bomb limit raises
+  ``ValueError`` naming the reason.
 * ``encode_jpeg(uint8 (H, W, 3), quality) -> bytes``: baseline 4:2:0 JFIF
   as PIL's ``Image.save(..., "JPEG", quality=q)`` writes it (IJG tables
   scaled to the quality, standard Huffman tables).
@@ -34,10 +42,11 @@ It runs on the host, not on the device.
   does not decode to RGB, take its fallback as there: the full-size decode
   and Pillow's BILINEAR (``pipeline._decode_resize``).
 
-The codec keeps no state between calls, and ctypes releases the
-interpreter lock while it runs: the HTTP server's threads decode at once.
-Where the library does not build (no g++), the codec raises ``RuntimeError``
-with the compiler's reason; nothing decodes a JPEG by another route.
+The codecs keep no state between calls, and ctypes releases the
+interpreter lock while they run: the HTTP server's threads decode at once.
+Where the library does not build (no g++), the codecs raise
+``RuntimeError`` with the compiler's reason; nothing decodes a JPEG or a
+WebP by another route.
 """
 
 from __future__ import annotations
@@ -53,8 +62,8 @@ from typing import List, Optional
 import numpy as np
 
 NATIVE = Path(__file__).resolve().parents[1] / "native"
-SOURCES = [NATIVE / "loader.cpp", NATIVE / "jpeg.cpp"]
-HEADERS = [NATIVE / "jpeg.h"]
+SOURCES = [NATIVE / "loader.cpp", NATIVE / "jpeg.cpp", NATIVE / "webp.cpp"]
+HEADERS = [NATIVE / "jpeg.h", NATIVE / "webp.h"]
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 LIBS = ["-lpthread"]
@@ -109,6 +118,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p, ctypes.c_int]
     lib.mmst_jpeg_free.restype = None
     lib.mmst_jpeg_free.argtypes = [ctypes.c_void_p]
+    lib.mmst_webp_info.restype = ctypes.c_int
+    lib.mmst_webp_info.argtypes = lib.mmst_jpeg_info.argtypes
+    lib.mmst_webp_decode.restype = ctypes.c_int
+    lib.mmst_webp_decode.argtypes = lib.mmst_jpeg_decode.argtypes
 
 
 def _load_library() -> Optional[ctypes.CDLL]:
@@ -138,8 +151,9 @@ def _load_library() -> Optional[ctypes.CDLL]:
 def _library() -> ctypes.CDLL:
     lib = _load_library()
     if lib is None:
-        raise RuntimeError("the native JPEG codec (native/jpeg.cpp) did not "
-                           f"build: {_state['error']}")
+        raise RuntimeError("the native codecs (native/jpeg.cpp, "
+                           "native/webp.cpp) did not build: "
+                           f"{_state['error']}")
     return lib
 
 
@@ -165,6 +179,25 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     if lib.mmst_jpeg_decode(data, len(data), out.ctypes.data_as(_u8p),
                             w.value, h.value, err, _ERR_LEN):
         raise ValueError(f"JPEG: {err.value.decode(errors='replace')}")
+    return out
+
+
+def decode_webp(data: bytes) -> np.ndarray:
+    """A WebP file's first frame on its canvas as uint8 (H, W, 3) RGB, as
+    PIL's convert("RGB") gives it; ValueError for a file libwebp refuses,
+    or a canvas above PIL's decompression-bomb limit (2 x 89,478,485
+    pixels), checked with the container before the array is allocated."""
+    lib = _library()
+    data = bytes(data)
+    w, h = ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if lib.mmst_webp_info(data, len(data), ctypes.byref(w), ctypes.byref(h),
+                          err, _ERR_LEN):
+        raise ValueError(err.value.decode(errors="replace"))
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    if lib.mmst_webp_decode(data, len(data), out.ctypes.data_as(_u8p),
+                            w.value, h.value, err, _ERR_LEN):
+        raise ValueError(err.value.decode(errors="replace"))
     return out
 
 

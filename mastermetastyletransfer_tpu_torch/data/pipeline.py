@@ -13,14 +13,15 @@ image to the content batch; ``device_preprocess_pair`` makes a training
 step's two inputs so, by the configuration, as the JAX trainer does.
 
 No PIL (the machine with the card has none): ``decode_image`` reads
-every JPEG, PNG and BMP kind that PIL's ``convert("RGB")`` reads, bit for
-bit what it gives (``READ_FORMATS``): BMP with ``utils/bmp.read_bmp``, PNG
-with ``utils/png.read_png``, JPEG with the port's own decoder
-(``native_loader.decode_jpeg``, at full size as PIL decodes); and
-``_resize_bilinear`` computes Pillow's BILINEAR resample bit for bit. A
-file none of them reads (WebP, GIF, a hierarchical or 12-bit JPEG, ...)
-raises ``ValueError`` naming it and the formats that are read. The batch
-loader (``native_loader.decode_resize_batch``) takes the JAX package's
+every JPEG, PNG, BMP and WebP kind that PIL's ``convert("RGB")`` reads,
+bit for bit what it gives (``READ_FORMATS``): BMP with
+``utils/bmp.read_bmp``, PNG with ``utils/png.read_png``, JPEG and WebP
+with the port's own decoders (``native_loader.decode_jpeg``, at full size
+as PIL decodes, and ``native_loader.decode_webp``, the first frame on its
+canvas); and ``_resize_bilinear`` computes Pillow's BILINEAR resample bit
+for bit. A file none of them reads (GIF, a hierarchical or 12-bit JPEG,
+...) raises ``ValueError`` naming it and the formats that are read. The
+batch loader (``native_loader.decode_resize_batch``) takes the JAX package's
 loader's route for each JPEG: prescaled in the DCT domain as its libjpeg
 does, or, for the kinds that libjpeg does not decode to RGB (CMYK, YCCK,
 lossless), the full-size decode and Pillow's BILINEAR.
@@ -49,7 +50,9 @@ import torch
 from mastermetastyletransfer_tpu_torch.config import (
     DataConfig, ExperimentConfig,
 )
-from mastermetastyletransfer_tpu_torch.data.native_loader import decode_jpeg
+from mastermetastyletransfer_tpu_torch.data.native_loader import (
+    decode_jpeg, decode_webp,
+)
 from mastermetastyletransfer_tpu_torch.parallel.mesh import DataShard
 from mastermetastyletransfer_tpu_torch.utils.bmp import read_bmp
 from mastermetastyletransfer_tpu_torch.utils.png import read_png
@@ -168,13 +171,14 @@ READ_FORMATS = (
     "fields, core to V5 headers)",
     "PNG (grey, RGB, palette, grey + alpha, RGBA at 1 to 16 bits, Adam7)",
     "baseline JPEG", "progressive JPEG", "arithmetic-coded JPEG",
-    "lossless JPEG", "CMYK and YCCK JPEG")
+    "lossless JPEG", "CMYK and YCCK JPEG",
+    "WebP (lossy, lossless, alpha, animation's first frame)")
 
 
 def decode_image(data: bytes) -> np.ndarray:
     """An image file's bytes as uint8 (H, W, 3) RGB, by its signature:
-    BMP, PNG or JPEG, each through its own reader; ``ValueError`` for
-    anything else or a file its reader refuses."""
+    BMP, PNG, JPEG or WebP, each through its own reader; ``ValueError``
+    for anything else or a file its reader refuses."""
     pixels = _read_bmp(data)
     if pixels is not None:
         return pixels
@@ -182,6 +186,8 @@ def decode_image(data: bytes) -> np.ndarray:
         return read_png(data)
     if data[:3] == b"\xff\xd8\xff":
         return decode_jpeg(data)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return decode_webp(data)
     raise ValueError("not an image this reads (read: "
                      + ", ".join(READ_FORMATS) + ")")
 

@@ -642,8 +642,8 @@ def test_decode_to_matches_jax(size):
 
 
 def test_decode_image_names_what_it_reads():
-    with pytest.raises(ValueError, match="baseline JPEG"):
-        tpipe.decode_image(b"RIFF\x00\x00\x00\x00WEBPVP8 ")
+    with pytest.raises(ValueError, match="baseline JPEG.*WebP"):
+        tpipe.decode_image(b"GIF89a" + bytes(20))
     with pytest.raises(ValueError, match="BMP"):
         tpipe.decode_image(b"BM" + bytes(60))
 

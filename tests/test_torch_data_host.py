@@ -191,10 +191,10 @@ _NO_PIL = textwrap.dedent(r"""
     from mastermetastyletransfer_tpu_torch.data import pipeline
     folder, size = sys.argv[1], int(sys.argv[2])
     for name in ("a24.bmp", "b32.bmp", "c24_topdown.bmp", "d.png", "e.jpg",
-                 "g.jpg"):
+                 "f.webp", "g.jpg"):
         np.save(f"{folder}/{name}.npy",
                 pipeline._decode_resize(f"{folder}/{name}", size))
-    for name in ("f.webp",):
+    for name in ("h.gif",):
         try:
             pipeline._decode_resize(f"{folder}/{name}", size)
         except ValueError as e:
@@ -203,9 +203,9 @@ _NO_PIL = textwrap.dedent(r"""
 
 
 def test_decode_resize_without_pil(tmp_path):
-    """With PIL (and JAX) refused, BMP, PNG and JPEG files, a progressive
-    JPEG among them, give JAX's arrays; a WebP file raises ValueError
-    naming the file and what is read."""
+    """With PIL (and JAX) refused, BMP, PNG, JPEG and WebP files, a
+    progressive JPEG among them, give JAX's arrays; a GIF file raises
+    ValueError naming the file and what is read."""
     rng = np.random.default_rng(7)
     files = {"a24.bmp": "bmp24", "b32.bmp": "bmp32",
              "c24_topdown.bmp": "bmp24_topdown", "d.png": "png",
@@ -213,9 +213,11 @@ def test_decode_resize_without_pil(tmp_path):
     for name, kind in files.items():
         _write(str(tmp_path / name), kind, _smooth(rng, 70, 90))
     Image.fromarray(_smooth(rng, 30, 40)).save(tmp_path / "f.webp")
+    files["f.webp"] = "webp"
     Image.fromarray(_smooth(rng, 30, 40)).save(tmp_path / "g.jpg",
                                                progressive=True)
     files["g.jpg"] = "progressive jpeg"
+    Image.fromarray(_smooth(rng, 30, 40)).save(tmp_path / "h.gif")
     proc = subprocess.run(
         [sys.executable, "-c", _NO_PIL, str(tmp_path), "64"], cwd=ROOT,
         capture_output=True, text=True, timeout=120)
@@ -227,8 +229,9 @@ def test_decode_resize_without_pil(tmp_path):
     errors = [line for line in proc.stdout.splitlines()
               if line.startswith("ERROR")]
     assert len(errors) == 1, proc.stdout
-    assert str(tmp_path / "f.webp") in errors[0]
+    assert str(tmp_path / "h.gif") in errors[0]
     assert "baseline JPEG" in errors[0] and "progressive JPEG" in errors[0]
+    assert "WebP" in errors[0]
 
 
 # ---------------------------------------------------------------------------

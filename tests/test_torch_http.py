@@ -1,8 +1,9 @@
 """The HTTP layer on the CPU: the same requests to the JAX package's
 ``make_handler`` (PIL's codecs) and to the port's (its own JPEG decoder
-and encoder, its PNG and BMP readers), each behind a ``ThreadingHTTPServer``
-on 127.0.0.1, at float32 with the same converted weights, 64^2, k=1, the
-kernels off on both sides (their parity is other files' business).
+and encoder, its PNG, BMP and WebP readers), each behind a
+``ThreadingHTTPServer`` on 127.0.0.1, at float32 with the same converted
+weights, 64^2, k=1, the kernels off on both sides (their parity is other
+files' business).
 
 Bound: the two replies, decoded by PIL, differ by no more than the JPEG
 noise at quality 95 measured here on the same output (PIL's quality-95
@@ -107,7 +108,7 @@ def _quantised(img01: np.ndarray) -> np.ndarray:
     return np.clip(img01 * 255, 0, 255).astype(np.uint8)
 
 
-@pytest.mark.parametrize("fmt", ["JPEG", "PNG", "BMP"])
+@pytest.mark.parametrize("fmt", ["JPEG", "PNG", "BMP", "WEBP"])
 def test_stylize_replies_match_jax_within_jpeg_noise(servers, fmt):
     rng = np.random.default_rng(len(fmt))
     content, style = smooth(rng, 80, 96), smooth(rng, 70, 60)
@@ -165,8 +166,8 @@ def test_progressive_bodies_read_as_their_baseline_files(servers):
 def test_bad_requests_get_400(servers):
     """A body that is not multipart, a missing part and an unknown k are
     400 on both servers; an image body no reader reads (a truncated JPEG,
-    WebP) is a 400 from the port, naming the reason (JAX answers those
-    500, PIL's exception)."""
+    a GIF, a truncated WebP) is a 400 from the port, naming the reason
+    (JAX answers those 500, PIL's exception)."""
     rng = np.random.default_rng(7)
     jpeg = _encoded(smooth(rng, 40, 40), "JPEG", quality=90)
     for name, url in servers["url"].items():
@@ -177,9 +178,11 @@ def test_bad_requests_get_400(servers):
         assert _post(url + "/stylize?k=2",
                      _multipart({"content": jpeg, "style": jpeg}))[0] == 400
     url = servers["url"]["port"]
+    gif = _encoded(smooth(rng, 40, 40), "GIF")
     webp = _encoded(smooth(rng, 40, 40), "WEBP")
     for bad, why in ((jpeg[:len(jpeg) // 2], "JPEG"),
-                     (webp, "baseline JPEG")):
+                     (gif, "baseline JPEG"),
+                     (webp[:len(webp) // 2], "WebP: truncated")):
         code, ctype, data = _post(url + "/stylize", _multipart(
             {"content": bad, "style": jpeg}))
         assert code == 400 and ctype == "text/plain", data
