@@ -153,13 +153,19 @@ n/8 against the JAX loader's stored batches; ``decode_image`` on the
 fixtures of the other kinds Pillow reads -- tests/data/jpeg_kinds/
 (arithmetic-coded, CMYK, YCCK, block-smoothed progressive, lossless),
 tests/data/png/ (1- to 16-bit, Adam7), tests/data/bmp/ (palettes, RLE,
-bit fields, core to V5 headers) and tests/data/webp/ (lossy, lossless,
-alpha, animations; the port's own decoder, native/webp.cpp) -- against
-Pillow's stored pixels, and
+bit fields, core to V5 headers), tests/data/webp/ (lossy, lossless,
+alpha, animations; the port's own decoder, native/webp.cpp) and
+tests/data/{pnm,gif,tiff,ico,dib}/ (Netpbm, GIF, TIFF in every
+compression read, ICO, headerless BMP; utils/pnm.py, native/gif.cpp,
+utils/tiff.py with native/tiff.cpp, utils/ico.py, utils/bmp.py) --
+against Pillow's stored pixels (the 640x480 timing inputs by digest), and
 the batch loader on five sources of those kinds against the JAX loader's
 batches (prescaled, or through its fallback for CMYK, YCCK and lossless):
 0 values may differ; the host's ms of each of those decodes, and of the
-new kinds at 640x480; the host's ms of a progressive decode and of the
+new kinds at 640x480 (``kinds_640x480``; ``formats_640x480``: a GIF, an
+LZW TIFF with predictor 2, a Deflate TIFF, a JPEG TIFF, a raw and a
+plain PPM); the
+host's ms of a progressive decode and of the
 loader on 8 large 4:2:0 JPEGs, prescaled, against the full decode and
 numpy resize; a seeded 512^2 image encoded at quality 95 and decoded: the
 host's ms each way and the PSNR), split_route (``style_transformer_apply_windowed`` with
@@ -174,8 +180,9 @@ batch 8, bf16 and f32, kernels on against the reference by the slice's
 criteria, launches exactly ``exclude_per_batch``; its split route at
 f32), http (serve's services behind ``make_handler`` on a
 ``ThreadingHTTPServer`` at 127.0.0.1: 16 /stylize requests at k 1 and 3
-from 4 clients (the contents JPEG, PNG, BMP, a CMYK JPEG and an Adam7
-PNG), 4 /stylize_locked, 2 /sweep, /healthz, two bad bodies
+from 4 clients (the contents JPEG, PNG, an LZW TIFF, a CMYK JPEG, an Adam7
+PNG, two WebP and a GIF), 4 /stylize_locked (one locked style read from
+a Deflate TIFF), 2 /sweep, /healthz, two bad bodies
 answered 400; each run's launches exact; each reply the encoder's bytes on
 its own service's output on the same decoded inputs, and decoded by the
 port's decoder within TOL_JPEG95_MEAN levels of it; p50, max, imgs/s, the
@@ -268,6 +275,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import io
 import json
 import os
@@ -4148,10 +4156,19 @@ TOL_JPEG95_MEAN = 4.5
 # five loader sources against the JAX loader's stored batches at one
 # target per n/8 (prescaled, or through its fallback): 0 values may differ.
 KIND_DIRS = {d: os.path.join(os.path.dirname(FIXTURES), d)
-             for d in ("jpeg_kinds", "png", "bmp", "webp")}
+             for d in ("jpeg_kinds", "png", "bmp", "webp", "pnm", "gif",
+                       "tiff", "ico", "dib")}
 KIND_SUFFIX = {"jpeg_kinds": "jpg", "png": "png", "bmp": "bmp",
-               "webp": "webp"}
-N_KIND_FIXTURES = {"jpeg_kinds": 10, "png": 13, "bmp": 10, "webp": 33}
+               "webp": "webp", "pnm": "pnm", "gif": "gif", "tiff": "tif",
+               "ico": "ico", "dib": "dib"}
+N_KIND_FIXTURES = {"jpeg_kinds": 10, "png": 13, "bmp": 10, "webp": 33,
+                   "pnm": 30, "gif": 25, "tiff": 85, "ico": 10, "dib": 13}
+# The 640x480 timing inputs of the Netpbm/GIF/TIFF/ICO/DIB slice
+# (scripts/make_image_format_fixtures.py): Pillow's pixels of each kept as
+# a digest (digests.json); the PPM is written here.
+FORMAT_TIMING = {"gif": "gif/coco.gif", "tiff lzw predictor 2":
+                 "tiff/coco_lzw_pred2.tif", "tiff deflate":
+                 "tiff/coco_deflate.tif", "tiff jpeg": "tiff/coco_jpeg.tif"}
 N_KIND_BATCHES = 40
 
 
@@ -4180,14 +4197,60 @@ def prescale_batches() -> dict:
 
 def kind_fixtures() -> dict:
     """{"<dir>/<name>": (file bytes, Pillow's pixels)} of the other kinds'
-    fixtures."""
+    fixtures; a timing input's pixels as (shape, sha256)."""
     out = {}
     for d, path in KIND_DIRS.items():
+        digests = {}
+        if os.path.exists(os.path.join(path, "digests.json")):
+            with open(os.path.join(path, "digests.json")) as f:
+                digests = {name: (tuple(v["shape"]), v["sha256"])
+                           for name, v in json.load(f).items()}
         with np.load(os.path.join(path, "pixels.npz")) as stored:
-            for name in sorted(stored.files):
-                with open(os.path.join(path, f"{name}.{KIND_SUFFIX[d]}"),
-                          "rb") as f:
-                    out[f"{d}/{name}"] = (f.read(), stored[name])
+            wants = {**{n: stored[n] for n in stored.files}, **digests}
+        for name in sorted(wants):
+            with open(os.path.join(path, f"{name}.{KIND_SUFFIX[d]}"),
+                      "rb") as f:
+                out[f"{d}/{name}"] = (f.read(), wants[name])
+    return out
+
+
+def pixels_differing(got: np.ndarray, want) -> int:
+    """Values of got that differ from Pillow's pixels (None for another
+    shape); against a (shape, sha256) digest, 0 or all of them."""
+    if isinstance(want, tuple):
+        shape, sha = want
+        if got.shape != shape:
+            return None
+        same = hashlib.sha256(got.tobytes()).hexdigest() == sha
+        return 0 if same else int(got.size)
+    return (int(np.count_nonzero(got != want)) if got.shape == want.shape
+            else None)
+
+
+def format_timing() -> dict:
+    """The host's ms (mean of CODEC_ITERS) of decode_image at 640x480: the
+    GIF and TIFF timing inputs (their digests checked in check_kinds), a
+    raw PPM and a plain (P3, decimal) PPM of a smooth image written here,
+    each decoded back to it."""
+    out = {}
+    for name, rel in FORMAT_TIMING.items():
+        with open(os.path.join(os.path.dirname(FIXTURES), rel), "rb") as f:
+            body = f.read()
+        out[name] = dict(bytes=len(body), decode_ms=host_ms(
+            lambda: decode_image(body), CODEC_ITERS))
+    img = smooth_images(np.random.default_rng(CODECS_SEED + 3), 1,
+                        HTTP_CONTENT_HW)[0]
+    ppm = b"P6\n640 480\n255\n" + img.tobytes()
+    if not np.array_equal(decode_image(ppm), img):
+        raise AssertionError("the 640x480 PPM decodes to another image")
+    out["ppm"] = dict(bytes=len(ppm), decode_ms=host_ms(
+        lambda: decode_image(ppm), CODEC_ITERS))
+    plain = b"P3\n640 480\n255\n" + b"\n".join(
+        b" ".join(b"%d" % v for v in row) for row in img.reshape(480, -1))
+    if not np.array_equal(decode_image(plain), img):
+        raise AssertionError("the 640x480 plain PPM decodes to another image")
+    out["ppm plain"] = dict(bytes=len(plain), decode_ms=host_ms(
+        lambda: decode_image(plain), CODEC_ITERS))
     return out
 
 
@@ -4214,12 +4277,10 @@ def check_kinds() -> dict:
     fixtures, counts = {}, {d: 0 for d in KIND_DIRS}
     for key, (data, want) in kind_fixtures().items():
         got = decode_image(data)
-        differing = (int(np.count_nonzero(got != want))
-                     if got.shape == want.shape else None)
+        differing = pixels_differing(got, want)
         if differing != 0:
             raise AssertionError(f"fixture {key}: {differing} values differ "
-                                 f"({list(got.shape)}, Pillow "
-                                 f"{list(want.shape)})")
+                                 f"({list(got.shape)})")
         counts[key.split("/")[0]] += 1
         fixtures[key] = dict(shape=list(got.shape), differing=differing,
                              decode_ms=host_ms(lambda: decode_image(data),
@@ -4241,7 +4302,7 @@ def check_kinds() -> dict:
              for name, body in kind_bodies(
                  np.random.default_rng(CODECS_SEED + 2)).items()}
     return dict(kind_fixtures=fixtures, kind_batches_differing=batches,
-                kinds_640x480=large)
+                kinds_640x480=large, formats_640x480=format_timing())
 
 
 def loader_ms(tmp: str) -> dict:
@@ -4287,9 +4348,9 @@ def png_unfilter_ms(body: bytes) -> dict:
     filters on that body's rows (every row None, Sub or Up, so both apply):
     the host's ms each, mean of 3, the two checked equal."""
     w, h = struct.unpack(">II", body[16:24])
-    idat = b"".join(b for kind, b in port_png._chunks(body)
-                    if kind == b"IDAT")
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    idat = next(b for kind, b in port_png._chunks(body) if kind == b"IDAT")
+    raw = np.frombuffer(port_png._image_data(body, idat, h * (1 + 3 * w)),
+                        np.uint8).reshape(h, -1)
     kinds = raw[:, 0].astype(np.int32)
     filt = raw[:, 1:].reshape(h, w, -1).astype(np.int32)
     if not np.array_equal(port_png._unfilter_rows(filt, kinds),
@@ -4624,32 +4685,42 @@ def http_call(url: str, body: bytes = None,
 
 
 # The kind of each content body of http_inputs, in order.
-HTTP_CONTENT_KINDS = ("jpeg q90", "png", "bmp", "cmyk jpeg", "adam7 png",
-                      "webp lossy + alpha", "webp lossless", "jpeg q90")
+HTTP_CONTENT_KINDS = ("jpeg q90", "png", "tiff lzw predictor 2", "cmyk jpeg",
+                      "adam7 png", "webp lossy + alpha", "webp lossless",
+                      "gif")
+# The locked style s1's body (s0's is a JPEG of the styles).
+HTTP_LOCKED_TIFF = "tiff/coco_deflate.tif"
 
 
 def http_inputs(seed: int = HTTP_SEED) -> dict:
     """The phase's request bodies from a seed: 8 contents at COCO's
     640x480 and 4 styles at 512^2, smooth images encoded by the port's
-    JPEG encoder at quality 90, but for one content as PNG, one as BMP, one
-    as an Adam7 PNG, one the CMYK JPEG of tests/data/jpeg_kinds/, and two
-    the WebP files of tests/data/webp/ (lossy with alpha, lossless); two
-    of the styles are the locked ones."""
+    JPEG encoder at quality 90, but for one content as PNG, one as an
+    Adam7 PNG, one the CMYK JPEG of tests/data/jpeg_kinds/, two the WebP
+    files of tests/data/webp/ (lossy with alpha, lossless), one the LZW
+    TIFF (predictor 2) and one the GIF of tests/data/{tiff,gif}/; the
+    locked styles are a JPEG of the first style and the Deflate TIFF of
+    tests/data/tiff/ (``locked_tiff``)."""
     rng = np.random.default_rng(seed)
     contents = smooth_images(rng, 8, HTTP_CONTENT_HW)
     styles = smooth_images(rng, 4, HTTP_STYLE_HW)
     bodies = [encode_jpeg(c, 90) for c in contents]
     bodies[1] = png_bytes(contents[1])
-    bodies[2] = bmp_bytes(contents[2])
     with open(os.path.join(KIND_DIRS["jpeg_kinds"],
                            "trainer_cmyk_adobe.jpg"), "rb") as f:
         bodies[3] = f.read()
     bodies[4] = png_file(contents[4], 8, 2, interlace=True)
-    for i, name in ((5, "trainer_lossy_alpha"), (6, "trainer_lossless")):
-        with open(os.path.join(KIND_DIRS["webp"], f"{name}.webp"),
-                  "rb") as f:
+    data = os.path.dirname(FIXTURES)
+    for i, rel in ((5, "webp/trainer_lossy_alpha.webp"),
+                   (6, "webp/trainer_lossless.webp"),
+                   (2, FORMAT_TIMING["tiff lzw predictor 2"]),
+                   (7, FORMAT_TIMING["gif"])):
+        with open(os.path.join(data, rel), "rb") as f:
             bodies[i] = f.read()
-    return dict(contents=bodies, styles=[encode_jpeg(s, 90) for s in styles])
+    with open(os.path.join(data, HTTP_LOCKED_TIFF), "rb") as f:
+        locked_tiff = f.read()
+    return dict(contents=bodies, styles=[encode_jpeg(s, 90) for s in styles],
+                locked_tiff=locked_tiff)
 
 
 def http_requests(inputs: dict) -> dict:
@@ -4761,8 +4832,8 @@ def run_http() -> dict:
         cfg, torch.Generator().manual_seed(HTTP_SEED + 1), device=DEVICE)
     inputs = http_inputs()
     reqs = http_requests(inputs)
-    locked_styles = {name: serve._decode_to(SIZE, inputs["styles"][i])
-                     for i, name in enumerate(("s0", "s1"))}
+    locked_styles = {"s0": serve._decode_to(SIZE, inputs["styles"][0]),
+                     "s1": serve._decode_to(SIZE, inputs["locked_tiff"])}
     pair = {k: StylizeService(params, cfg, size=SIZE, k=k,
                               max_batch=MAX_BATCH, device=DEVICE)
             for k in HTTP_KS}
@@ -4855,6 +4926,9 @@ def run_http() -> dict:
         dtype="bfloat16", size=SIZE, max_batch=MAX_BATCH, clients=CLIENTS,
         content_bodies=list(HTTP_CONTENT_KINDS),
         stylize_p50_ms=float(np.median(lat)) * 1e3,
+        stylize_p50_note="not comparable with runs whose contents had a "
+                         "BMP and a second JPEG where a TIFF and a GIF "
+                         "are now",
         stylize_max_ms=float(np.max(lat)) * 1e3,
         stylize_imgs_per_s=len(lat) / sum(run["wall"] for run in stylize),
         runs={label: dict(requests=len(run["reqs"]), batches=run["batches"],

@@ -1,14 +1,17 @@
 """ctypes bridge to the native library: the port's own JPEG codec
-(``native/jpeg.cpp``), its WebP decoder (``native/webp.cpp``) and the batch
-loader that decodes and resizes JPEGs on worker threads
-(``native/loader.cpp``; JAX counterpart: data/native_loader.py, which links
-libjpeg, and PIL for every other file).
+(``native/jpeg.cpp``), its WebP and GIF decoders (``native/webp.cpp``,
+``native/gif.cpp``), the byte-serial TIFF codecs that ``utils/tiff.py``
+drives (``native/tiff.cpp``) and the batch loader that decodes and
+resizes JPEGs on worker threads (``native/loader.cpp``; JAX counterpart:
+data/native_loader.py, which links libjpeg, and PIL for every other
+file).
 
 The library is compiled on first use with the flags of the JAX package's
 native/build.sh, less libjpeg, which neither machine needs:
 
     g++ -O3 -march=native -shared -fPIC -o build/libmmst_loader-<hash>.so
-        native/loader.cpp native/jpeg.cpp native/webp.cpp -lpthread
+        native/loader.cpp native/jpeg.cpp native/webp.cpp native/gif.cpp
+        native/tiff.cpp -lpthread
 
 into ``build/`` at the repository root (listed in .gitignore), keyed by a
 hash of the sources and the flags; the library is written to a temporary
@@ -30,6 +33,16 @@ It runs on the host, not on the device.
   libwebp refuses (truncated, corrupt, not a key frame, sizes that
   disagree) or one above the decompression-bomb limit raises
   ``ValueError`` naming the reason.
+* ``decode_gif(bytes) -> uint8 (H, W, 3)``: a GIF's first frame as PIL's
+  ``convert("RGB")`` gives it (Pillow's GifImagePlugin and GifDecode.c:
+  the canvas grown to the frame, filled with the transparency index or 0,
+  the palette black past its entries, a grey ramp read as grey). A file
+  Pillow refuses, or a canvas above the decompression-bomb limit, raises
+  ``ValueError`` naming the reason.
+* ``decode_tiff``: a TIFF's strips or tiles (a ``TIFF_CHUNK`` table)
+  through libtiff's LZW, PackBits or JPEG codec as libtiff runs them for
+  Pillow, many in one call (``utils/tiff.py`` reads the file and lays out
+  the rows).
 * ``encode_jpeg(uint8 (H, W, 3), quality) -> bytes``: baseline 4:2:0 JFIF
   as PIL's ``Image.save(..., "JPEG", quality=q)`` writes it (IJG tables
   scaled to the quality, standard Huffman tables).
@@ -45,8 +58,8 @@ It runs on the host, not on the device.
 The codecs keep no state between calls, and ctypes releases the
 interpreter lock while they run: the HTTP server's threads decode at once.
 Where the library does not build (no g++), the codecs raise
-``RuntimeError`` with the compiler's reason; nothing decodes a JPEG or a
-WebP by another route.
+``RuntimeError`` with the compiler's reason; nothing decodes a JPEG, a
+WebP, a GIF or a compressed TIFF by another route.
 """
 
 from __future__ import annotations
@@ -62,8 +75,10 @@ from typing import List, Optional
 import numpy as np
 
 NATIVE = Path(__file__).resolve().parents[1] / "native"
-SOURCES = [NATIVE / "loader.cpp", NATIVE / "jpeg.cpp", NATIVE / "webp.cpp"]
-HEADERS = [NATIVE / "jpeg.h", NATIVE / "webp.h"]
+SOURCES = [NATIVE / "loader.cpp", NATIVE / "jpeg.cpp", NATIVE / "webp.cpp",
+           NATIVE / "gif.cpp", NATIVE / "tiff.cpp"]
+HEADERS = [NATIVE / "jpeg.h", NATIVE / "webp.h", NATIVE / "gif.h",
+           NATIVE / "tiff.h"]
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 LIBS = ["-lpthread"]
@@ -72,6 +87,10 @@ _lock = threading.Lock()
 _state = {"lib": None, "error": None}
 _ERR_LEN = 256
 _u8p = ctypes.POINTER(ctypes.c_uint8)
+# native/tiff.h Chunk, one row of the table decode_tiff takes
+TIFF_CHUNK = np.dtype([("offset", "<u8"), ("count", "<u8"), ("need", "<i8"),
+                       ("width", "<i4"), ("height", "<i4"), ("last", "<i4")],
+                      align=True)
 
 
 def library_path() -> Path:
@@ -122,6 +141,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mmst_webp_info.argtypes = lib.mmst_jpeg_info.argtypes
     lib.mmst_webp_decode.restype = ctypes.c_int
     lib.mmst_webp_decode.argtypes = lib.mmst_jpeg_decode.argtypes
+    lib.mmst_gif_info.restype = ctypes.c_int
+    lib.mmst_gif_info.argtypes = lib.mmst_jpeg_info.argtypes
+    lib.mmst_gif_decode.restype = ctypes.c_int
+    lib.mmst_gif_decode.argtypes = lib.mmst_jpeg_decode.argtypes
+    lib.mmst_tiff_decode.restype = ctypes.c_int
+    lib.mmst_tiff_decode.argtypes = [
+        ctypes.c_int, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
+        ctypes.c_size_t, ctypes.c_int, ctypes.c_int, _u8p, ctypes.c_char_p,
+        ctypes.c_int]
 
 
 def _load_library() -> Optional[ctypes.CDLL]:
@@ -152,7 +181,8 @@ def _library() -> ctypes.CDLL:
     lib = _load_library()
     if lib is None:
         raise RuntimeError("the native codecs (native/jpeg.cpp, "
-                           "native/webp.cpp) did not build: "
+                           "native/webp.cpp, native/gif.cpp, "
+                           "native/tiff.cpp) did not build: "
                            f"{_state['error']}")
     return lib
 
@@ -199,6 +229,53 @@ def decode_webp(data: bytes) -> np.ndarray:
                             w.value, h.value, err, _ERR_LEN):
         raise ValueError(err.value.decode(errors="replace"))
     return out
+
+
+def decode_gif(data: bytes) -> np.ndarray:
+    """A GIF's first frame on its canvas as uint8 (H, W, 3) RGB, as PIL's
+    convert("RGB") gives it; ValueError for a file Pillow refuses, or a
+    canvas above PIL's decompression-bomb limit (2 x 89,478,485 pixels),
+    checked with the header before the array is allocated."""
+    lib = _library()
+    data = bytes(data)
+    w, h = ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if lib.mmst_gif_info(data, len(data), ctypes.byref(w), ctypes.byref(h),
+                         err, _ERR_LEN):
+        raise ValueError(err.value.decode(errors="replace"))
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    if lib.mmst_gif_decode(data, len(data), out.ctypes.data_as(_u8p),
+                           w.value, h.value, err, _ERR_LEN):
+        raise ValueError(err.value.decode(errors="replace"))
+    return out
+
+
+def decode_tiff(compression: int, data: bytes, chunks: np.ndarray,
+                reverse: bool, tables: bytes, colour: int, channels: int,
+                out: np.ndarray, tolerant: bool = False) -> None:
+    """Decode a TIFF's strips or tiles (``chunks``, a ``TIFF_CHUNK``
+    array) into ``out`` (uint8, their bytes one after another) with the
+    byte-serial codecs of native/tiff.cpp: compression 5 (LZW), 32773
+    (PackBits) or 7 (JPEG, ``tables`` the JPEGTables stream, ``colour`` 1
+    YCbCr to RGB or 2 the ``channels`` components as stored); ``reverse``
+    reverses each byte's bits first (FillOrder 2). ValueError naming the
+    chunk and the reason where libtiff refuses it; with ``tolerant`` a
+    failed chunk keeps what its codec wrote before it failed and the call
+    goes on (libtiff's TIFFRGBAImage reading)."""
+    chunks = np.ascontiguousarray(chunks, TIFF_CHUNK)
+    if (chunks.ndim != 1 or len(chunks) >= 1 << 31
+            or out.dtype != np.uint8 or not out.flags.c_contiguous
+            or out.size < int(chunks["need"].sum())):
+        raise ValueError("decode_tiff: out cannot hold the chunks")
+    lib = _library()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if lib.mmst_tiff_decode(int(compression), bytes(data), len(data),
+                            chunks.ctypes.data, len(chunks), int(reverse),
+                            int(tolerant), bytes(tables), len(tables),
+                            int(colour),
+                            int(channels), out.ctypes.data_as(_u8p), err,
+                            _ERR_LEN):
+        raise ValueError(err.value.decode(errors="replace"))
 
 
 def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:

@@ -13,14 +13,18 @@ image to the content batch; ``device_preprocess_pair`` makes a training
 step's two inputs so, by the configuration, as the JAX trainer does.
 
 No PIL (the machine with the card has none): ``decode_image`` reads
-every JPEG, PNG, BMP and WebP kind that PIL's ``convert("RGB")`` reads,
-bit for bit what it gives (``READ_FORMATS``): BMP with
-``utils/bmp.read_bmp``, PNG with ``utils/png.read_png``, JPEG and WebP
-with the port's own decoders (``native_loader.decode_jpeg``, at full size
-as PIL decodes, and ``native_loader.decode_webp``, the first frame on its
-canvas); and ``_resize_bilinear`` computes Pillow's BILINEAR resample bit
-for bit. A file none of them reads (GIF, a hierarchical or 12-bit JPEG,
-...) raises ``ValueError`` naming it and the formats that are read. The
+what PIL's ``Image.open`` opens with the plugins it tries first (BMP,
+DIB, GIF, JPEG, PPM, PNG) and three of the rest (ICO, TIFF, WebP), each
+kind picked as Pillow picks its plugin and read bit for bit as
+``convert("RGB")`` gives it (``READ_FORMATS``): BMP and DIB with
+``utils/bmp``, PNG with ``utils/png.read_png``, Netpbm with
+``utils/pnm.read_pnm``, ICO with ``utils/ico.read_ico``, TIFF with
+``utils/tiff.read_tiff``, JPEG, GIF and WebP with the port's own
+decoders (``native_loader.decode_jpeg`` at full size as PIL decodes,
+``decode_gif`` and ``decode_webp`` the first frame on its canvas); and
+``_resize_bilinear`` computes Pillow's BILINEAR resample bit for bit. A
+file none of them reads (TGA, a CCITT TIFF, a 12-bit JPEG, ...) raises
+``ValueError`` naming it and the formats that are read. The
 batch loader (``native_loader.decode_resize_batch``) takes the JAX package's
 loader's route for each JPEG: prescaled in the DCT domain as its libjpeg
 does, or, for the kinds that libjpeg does not decode to RGB (CMYK, YCCK,
@@ -51,11 +55,19 @@ from mastermetastyletransfer_tpu_torch.config import (
     DataConfig, ExperimentConfig,
 )
 from mastermetastyletransfer_tpu_torch.data.native_loader import (
-    decode_jpeg, decode_webp,
+    decode_gif, decode_jpeg, decode_webp,
 )
 from mastermetastyletransfer_tpu_torch.parallel.mesh import DataShard
-from mastermetastyletransfer_tpu_torch.utils.bmp import read_bmp
+from mastermetastyletransfer_tpu_torch.utils.bmp import (
+    dib_accept, read_bmp, read_dib,
+)
+from mastermetastyletransfer_tpu_torch.utils.ico import MAGIC as ICO_MAGIC
+from mastermetastyletransfer_tpu_torch.utils.ico import read_ico
 from mastermetastyletransfer_tpu_torch.utils.png import read_png
+from mastermetastyletransfer_tpu_torch.utils.pnm import accept as pnm_accept
+from mastermetastyletransfer_tpu_torch.utils.pnm import read_pnm
+from mastermetastyletransfer_tpu_torch.utils.tiff import accept as tiff_accept
+from mastermetastyletransfer_tpu_torch.utils.tiff import read_tiff
 
 _EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 # Pillow's fixed-point precision for 8-bit resampling (libImaging/Resample.c)
@@ -87,15 +99,6 @@ class InfiniteIndexSampler:
         while True:
             for i in self._rng.permutation(self.n):
                 yield int(i)
-
-
-def _read_bmp(data: bytes) -> Optional[np.ndarray]:
-    """A BMP file's pixels as uint8 (H, W, 3) RGB, rows top to bottom, as
-    Pillow reads them (``utils/bmp.read_bmp``; ValueError for a BMP it does
-    not read); None for a file that is not a BMP."""
-    if data[:2] != b"BM":
-        return None
-    return read_bmp(data)
 
 
 def _resample_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -169,25 +172,46 @@ def _resize_bilinear(img: np.ndarray, size: int) -> np.ndarray:
 READ_FORMATS = (
     "BMP (1-, 4- and 8-bit palettes, RLE8, RLE4, 16-, 24- and 32-bit, bit "
     "fields, core to V5 headers)",
-    "PNG (grey, RGB, palette, grey + alpha, RGBA at 1 to 16 bits, Adam7)",
+    "DIB (a BMP without its file header)",
+    "GIF (the first frame on its canvas)",
     "baseline JPEG", "progressive JPEG", "arithmetic-coded JPEG",
     "lossless JPEG", "CMYK and YCCK JPEG",
+    "PBM, PGM, PPM and PFM (plain and raw, any maxval)",
+    "PNG (grey, RGB, palette, grey + alpha, RGBA at 1 to 16 bits, Adam7)",
+    "ICO (its largest image, PNG or BMP)",
+    "TIFF (IFD 0: uncompressed, LZW, PackBits, Deflate or JPEG; strips or "
+    "tiles; 1 to 32 bits)",
     "WebP (lossy, lossless, alpha, animation's first frame)")
+
+# The kinds in the order Pillow's Image.open tries its plugins (the order
+# they register in: BMP, DIB, GIF, JPEG, PPM and PNG by Image.preinit, ICO,
+# TIFF and WebP among the rest by Image.init), each with its plugin's
+# _accept on the file's first bytes. No two accept the same bytes, so the
+# first that accepts is the one that reads: a file it refuses is refused
+# (Pillow may still open it with a plugin the port does not have).
+_KINDS = (
+    ("BMP", lambda d: d[:2] == b"BM", read_bmp),
+    ("DIB", dib_accept, read_dib),
+    ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a"), decode_gif),
+    ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff", decode_jpeg),
+    ("PPM", pnm_accept, read_pnm),
+    ("PNG", lambda d: d[:8] == b"\x89PNG\r\n\x1a\n", read_png),
+    ("ICO", lambda d: d[:4] == ICO_MAGIC, read_ico),
+    ("TIFF", tiff_accept, read_tiff),
+    ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP"
+     and d[12:16] in (b"VP8 ", b"VP8X", b"VP8L"), decode_webp),
+)
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """An image file's bytes as uint8 (H, W, 3) RGB, by its signature:
-    BMP, PNG, JPEG or WebP, each through its own reader; ``ValueError``
-    for anything else or a file its reader refuses."""
-    pixels = _read_bmp(data)
-    if pixels is not None:
-        return pixels
-    if data[:8] == b"\x89PNG\r\n\x1a\n":
-        return read_png(data)
-    if data[:3] == b"\xff\xd8\xff":
-        return decode_jpeg(data)
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return decode_webp(data)
+    """An image file's bytes as uint8 (H, W, 3) RGB, as PIL's
+    ``Image.open(...).convert("RGB")`` gives them: the kind by its first
+    bytes, as Pillow picks its plugin, then that kind's reader;
+    ``ValueError`` for bytes no reader takes or a file its reader
+    refuses."""
+    for _, accept, read in _KINDS:
+        if accept(data[:16]):
+            return read(data)
     raise ValueError("not an image this reads (read: "
                      + ", ".join(READ_FORMATS) + ")")
 

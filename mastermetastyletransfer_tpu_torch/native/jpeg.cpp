@@ -23,9 +23,11 @@
 // PIL and libjpeg-turbo give, at full size or at n/8 of it (n in 1..8,
 // libjpeg's scale_num / scale_denom, jdmaster.c; a lossless frame at full
 // size only):
-//   * the inverse DCT of each output block size (jddctmgr.c): jidctint.c's
-//     "islow" at 8 x 8 and its scaled routines at 3, 5, 6, 7, 10, 12 and
-//     14, jidctred.c's reduced ones at 4, 2 and 1, each with the range
+//   * the inverse DCT of each output block size (jddctmgr.c): "islow" at
+//     8 x 8 as libjpeg-turbo's SIMD code computes it (jidctint-avx2.asm:
+//     jidctint.c's arithmetic in 16- and 32-bit lanes, which tells only on
+//     a damaged stream), jidctint.c's scaled routines at 3, 5, 6, 7, 10, 12
+//     and 14, jidctred.c's reduced ones at 4, 2 and 1, these with the range
 //     limit's wraparound table; a chroma component's size doubles while its
 //     sampling allows (4:2:0 chroma decodes at 2n, unupsampled);
 //   * fancy (triangular) chroma upsampling (jdsample.c: h2v1, h1v2, h2v2
@@ -269,7 +271,11 @@ struct Bits {
         return h.vals[(c + h.valoffset[l]) & 0xFF];
       }
     }
-    fail("corrupt JPEG data: bad Huffman code");
+    // jdhuff.c jpeg_huff_decode: garbage reaches the sentinel length 17;
+    // libjpeg warns, takes the 17 bits and fakes a 0
+    peek(17);
+    skip(17);
+    return 0;
   }
   // After a restart interval: drop the padding bits and read RSTn.
   void restart() {
@@ -455,109 +461,85 @@ inline uint8_t idct_limit(int64_t x) {
 using Idct = void (*)(const int16_t* coef, const uint16_t* q, uint8_t* out,
                       int stride);
 
-// IJG jidctint.c ("islow"), 8 x 8.
-void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out,
-                int stride) {
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* in = coef + c;
-    const uint16_t* qp = q + c;
-    int* w = ws + c;
-    if (!in[8] && !in[16] && !in[24] && !in[32] && !in[40] && !in[48] &&
-        !in[56]) {
-      int dc = int(int64_t(in[0]) * qp[0] * (1 << kPass1Bits));
-      for (int r = 0; r < 8; ++r) w[8 * r] = dc;
-      continue;
+// libjpeg-turbo's SIMD islow IDCT (jidctint-avx2.asm; SSE2 alike), which
+// PIL's and the system's libjpeg-turbo run on x86-64 for every full-size
+// block. It equals jidctint.c's wherever no value leaves its range; on
+// coefficients that do (a damaged stream) it keeps its own arithmetic:
+// dequantization and the sums in0 + in4, in0 - in4, in7 + in3, in5 + in1
+// in 16-bit lanes that wrap, the products and the outputs in 32-bit lanes
+// that wrap, pass 1 saturated to 16 bits (packssdw), pass 2 to 8 bits
+// (packsswb) before the +128; and where rows 1-7 of the whole block are 0,
+// pass 1 is the DC row shifted left by 2 in 16 bits (psllw, wrapping).
+inline int16_t wrap16(int64_t x) { return int16_t(uint16_t(uint64_t(x))); }
+inline int32_t wrap32(int64_t x) { return int32_t(uint32_t(uint64_t(x))); }
+inline int16_t sat16(int32_t x) {
+  return int16_t(x < -32768 ? -32768 : x > 32767 ? 32767 : x);
+}
+
+// One column or row of dodct: eight 16-bit inputs to eight 32-bit outputs
+// (descaled by `shift`, wrapping as the lanes do).
+void simd_dct8(const int16_t* in, int step, int shift, int32_t* out) {
+  const int32_t in0 = in[0], in1 = in[step], in2 = in[2 * step],
+                in3 = in[3 * step], in4 = in[4 * step], in5 = in[5 * step],
+                in6 = in[6 * step], in7 = in[7 * step];
+  const int32_t tmp3 = wrap32(int64_t(in2) * (F0541 + F0765) + in6 * F0541);
+  const int32_t tmp2 = wrap32(int64_t(in2) * F0541 + in6 * (F0541 - F1847));
+  const int32_t tmp0 = wrap32(int64_t(wrap16(in0 + in4)) << kConstBits);
+  const int32_t tmp1 = wrap32(int64_t(wrap16(in0 - in4)) << kConstBits);
+  const int32_t tmp10 = wrap32(int64_t(tmp0) + tmp3);
+  const int32_t tmp13 = wrap32(int64_t(tmp0) - tmp3);
+  const int32_t tmp11 = wrap32(int64_t(tmp1) + tmp2);
+  const int32_t tmp12 = wrap32(int64_t(tmp1) - tmp2);
+  const int32_t z3 = wrap16(in7 + in3), z4 = wrap16(in5 + in1);
+  const int32_t z3p = wrap32(int64_t(z3) * (F1175 - F1961) + z4 * F1175);
+  const int32_t z4p = wrap32(int64_t(z3) * F1175 + z4 * (F1175 - F0390));
+  const int32_t o0 = wrap32(
+      wrap32(int64_t(in7) * (F0298 - F0899) + in1 * -F0899) + int64_t(z3p));
+  const int32_t o3 = wrap32(
+      wrap32(int64_t(in7) * -F0899 + in1 * (F1501 - F0899)) + int64_t(z4p));
+  const int32_t o1 = wrap32(
+      wrap32(int64_t(in5) * (F2053 - F2562) + in3 * -F2562) + int64_t(z4p));
+  const int32_t o2 = wrap32(
+      wrap32(int64_t(in5) * -F2562 + in3 * (F3072 - F2562)) + int64_t(z3p));
+  const int64_t round = int64_t(1) << (shift - 1);
+  auto d = [&](int64_t a, int64_t b) {
+    return int32_t(wrap32(wrap32(a + b) + round) >> shift);
+  };
+  out[0] = d(tmp10, o3);
+  out[7] = d(tmp10, -int64_t(o3));
+  out[1] = d(tmp11, o2);
+  out[6] = d(tmp11, -int64_t(o2));
+  out[2] = d(tmp12, o1);
+  out[5] = d(tmp12, -int64_t(o1));
+  out[3] = d(tmp13, o0);
+  out[4] = d(tmp13, -int64_t(o0));
+}
+
+void idct_islow_simd(const int16_t* coef, const uint16_t* q, uint8_t* out,
+                     int stride) {
+  int16_t dq[64], ws[64];
+  bool ac_zero = true;
+  for (int k = 8; k < 64; ++k) ac_zero = ac_zero && coef[k] == 0;
+  for (int k = 0; k < 64; ++k) dq[k] = wrap16(int64_t(coef[k]) * q[k]);
+  if (ac_zero) {
+    for (int c = 0; c < 8; ++c)
+      for (int r = 0; r < 8; ++r)
+        ws[8 * r + c] = wrap16(int64_t(dq[c]) * (1 << kPass1Bits));
+  } else {
+    int32_t o[8];
+    for (int c = 0; c < 8; ++c) {
+      simd_dct8(dq + c, 8, kConstBits - kPass1Bits, o);
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = sat16(o[r]);
     }
-    int64_t z2 = int64_t(in[16]) * qp[16], z3 = int64_t(in[48]) * qp[48];
-    int64_t z1 = (z2 + z3) * F0541;
-    int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
-    z2 = int64_t(in[0]) * qp[0];
-    z3 = int64_t(in[32]) * qp[32];
-    int64_t tmp0 = (z2 + z3) * (1 << kConstBits);
-    int64_t tmp1 = (z2 - z3) * (1 << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = int64_t(in[56]) * qp[56];
-    tmp1 = int64_t(in[40]) * qp[40];
-    tmp2 = int64_t(in[24]) * qp[24];
-    tmp3 = int64_t(in[8]) * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1175;
-    tmp0 *= F0298;
-    tmp1 *= F2053;
-    tmp2 *= F3072;
-    tmp3 *= F1501;
-    z1 *= -F0899;
-    z2 *= -F2562;
-    z3 *= -F1961;
-    z4 *= -F0390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int s = kConstBits - kPass1Bits;
-    w[0] = int(descale(tmp10 + tmp3, s));
-    w[56] = int(descale(tmp10 - tmp3, s));
-    w[8] = int(descale(tmp11 + tmp2, s));
-    w[48] = int(descale(tmp11 - tmp2, s));
-    w[16] = int(descale(tmp12 + tmp1, s));
-    w[40] = int(descale(tmp12 - tmp1, s));
-    w[24] = int(descale(tmp13 + tmp0, s));
-    w[32] = int(descale(tmp13 - tmp0, s));
   }
+  int32_t o[8];
   for (int r = 0; r < 8; ++r) {
-    const int* w = ws + 8 * r;
-    uint8_t* o = out + r * stride;
-    const int s = kConstBits + kPass1Bits + 3;
-    if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-      uint8_t dc = idct_limit(descale(w[0], kPass1Bits + 3));
-      for (int c = 0; c < 8; ++c) o[c] = dc;
-      continue;
+    simd_dct8(ws + 8 * r, 1, kConstBits + kPass1Bits + 3, o);
+    uint8_t* row = out + r * stride;
+    for (int c = 0; c < 8; ++c) {
+      const int v = sat16(o[c]);
+      row[c] = uint8_t((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
     }
-    int64_t z2 = w[2], z3 = w[6];
-    int64_t z1 = (z2 + z3) * F0541;
-    int64_t tmp2 = z1 + z3 * -F1847, tmp3 = z1 + z2 * F0765;
-    int64_t tmp0 = (int64_t(w[0]) + w[4]) * (1 << kConstBits);
-    int64_t tmp1 = (int64_t(w[0]) - w[4]) * (1 << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1175;
-    tmp0 *= F0298;
-    tmp1 *= F2053;
-    tmp2 *= F3072;
-    tmp3 *= F1501;
-    z1 *= -F0899;
-    z2 *= -F2562;
-    z3 *= -F1961;
-    z4 *= -F0390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    o[0] = idct_limit(descale(tmp10 + tmp3, s));
-    o[7] = idct_limit(descale(tmp10 - tmp3, s));
-    o[1] = idct_limit(descale(tmp11 + tmp2, s));
-    o[6] = idct_limit(descale(tmp11 - tmp2, s));
-    o[2] = idct_limit(descale(tmp12 + tmp1, s));
-    o[5] = idct_limit(descale(tmp12 - tmp1, s));
-    o[3] = idct_limit(descale(tmp13 + tmp0, s));
-    o[4] = idct_limit(descale(tmp13 - tmp0, s));
   }
 }
 
@@ -940,7 +922,7 @@ Idct idct_of_size(int size) {
     case 5: return idct_5x5;
     case 6: return idct_6x6;
     case 7: return idct_7x7;
-    case 8: return idct_islow;
+    case 8: return idct_islow_simd;
     case 10: return idct_10x10;
     case 12: return idct_12x12;
     case 14: return idct_14x14;
@@ -1006,6 +988,11 @@ struct Decoder {
   // Block smoothing's edges as libjpeg-turbo 3 (PIL's) or 2.1 (the JAX
   // loader's) takes them (emit_smoothed).
   bool turbo3 = true;
+  // The colour conversion: kColourPil as PIL's convert("RGB") takes it;
+  // kColourYcc YCbCr to RGB whatever the markers say, and kColourRaw the
+  // components as stored (one to four a pixel), libtiff's
+  // JPEGCOLORMODE_RGB and JCS_UNKNOWN.
+  int colour = kColourPil;
   // The DAC segment's conditioning (jdmarker.c get_dac; libjpeg's defaults
   // L = 0, U = 1, K = 5) and the arithmetic decoder's statistics bins.
   uint8_t dac_l[16], dac_u[16], dac_k[16];
@@ -1918,10 +1905,16 @@ struct Decoder {
       fail("not a JPEG (no SOI marker)");
     pos = 2;
     for (;;) {
-      // markers may be preceded by fill bytes 0xFF
-      if (byte() != 0xFF) fail("corrupt JPEG data: expected a marker");
-      int m = byte();
-      while (m == 0xFF) m = byte();
+      // jdmarker.c next_marker: bytes before a marker are skipped (libjpeg
+      // warns of them), as are fill bytes 0xFF and stuffed 0xFF 0x00
+      int m = 0;
+      while (m == 0) {
+        while (byte() != 0xFF) {
+        }
+        do {
+          m = byte();
+        } while (m == 0xFF);
+      }
       if (m == 0xD9) break;  // EOI
       if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 ||
           m == 0xCA) {
@@ -1987,6 +1980,17 @@ struct Decoder {
       }
     }
     uint8_t* o = out;
+    if (colour == kColourRaw) {
+      const size_t nc = comps.size();
+      for (size_t k = 0; k < nc; ++k) {
+        const std::vector<uint8_t> g = upsample(comps[k], ow, oh);
+        for (size_t i = 0; i < g.size(); ++i) o[nc * i + k] = g[i];
+      }
+      return;
+    }
+    if (colour == kColourYcc && (comps.size() != 3 || lossless))
+      fail("JPEG: YCbCr to RGB asked of a frame of " +
+           std::to_string(comps.size()) + " components");
     if (comps.size() == 1) {
       std::vector<uint8_t> g = upsample(comps[0], ow, oh);
       for (size_t i = 0; i < g.size(); ++i)
@@ -2037,8 +2041,8 @@ struct Decoder {
     // lossless frame any ids do).
     const bool ids_rgb = comps[0].id == 'R' && comps[1].id == 'G' &&
                          comps[2].id == 'B';
-    const bool is_rgb = !jfif && (adobe ? adobe_transform == 0
-                                        : ids_rgb || lossless);
+    const bool is_rgb = colour == kColourPil && !jfif &&
+                        (adobe ? adobe_transform == 0 : ids_rgb || lossless);
     if (!is_rgb && lossless) fail(kLosslessColour);
     if (is_rgb) {
       for (size_t i = 0; i < n; ++i) {
@@ -2243,6 +2247,15 @@ void decode(const uint8_t* data, size_t size, uint8_t* rgb, int width,
   d.data = data;
   d.size = size;
   d.run(rgb, width, height);
+}
+
+void decode_colour(const uint8_t* data, size_t size, uint8_t* out,
+                   int width, int height, int colour) {
+  Decoder d;
+  d.data = data;
+  d.size = size;
+  d.colour = colour;
+  d.run(out, width, height);
 }
 
 void decode_scaled(const uint8_t* data, size_t size, int n, uint8_t* rgb,

@@ -32,6 +32,18 @@ Info frame_info(const uint8_t* data, size_t size);
 void decode(const uint8_t* data, size_t size, uint8_t* rgb, int width,
             int height);
 
+// The colour conversions of decode_colour.
+constexpr int kColourPil = 0;   // as decode
+constexpr int kColourYcc = 1;   // YCbCr to RGB, whatever the markers say
+constexpr int kColourRaw = 2;   // the components as stored, one a byte
+
+// Decode as decode does, with the colour conversion given: kColourRaw
+// writes the frame's 1, 3 or 4 components a pixel (height x width x
+// components), the others RGB8. libtiff's JPEG codec takes its strips and
+// tiles so (JPEGCOLORMODE_RGB, or JCS_UNKNOWN).
+void decode_colour(const uint8_t* data, size_t size, uint8_t* out,
+                   int width, int height, int colour);
+
 // The same at n/8 of the frame's size (n in 1..8), as libjpeg-turbo 2.1
 // (the JAX loader's) gives it with scale_num = n, scale_denom = 8 and its
 // defaults: width and height are ceil(W * n / 8) and ceil(H * n / 8) of the

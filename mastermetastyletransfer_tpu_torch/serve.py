@@ -21,12 +21,13 @@ short window are stacked into one device batch.
       JPEG>, ...}
 
 The model runs on CUDA unless ``--device cpu`` is given. Request bodies
-(and ``--locked_style`` files) are read without PIL: every JPEG kind PIL
-reads (baseline, progressive, arithmetic-coded, lossless, CMYK and YCCK)
-by the port's own decoder (native/jpeg.cpp), every PNG and BMP kind it
-reads in numpy (``data.pipeline.decode_image``), each then resized with
-Pillow's BILINEAR in numpy, so a request decodes to the JAX package's
-array. Replies are JPEG at quality 95 from the port's own encoder. A body
+(and ``--locked_style`` files) are read without PIL by
+``data.pipeline.decode_image``, which picks the reader as PIL's
+``Image.open`` picks its plugin: JPEG (every kind PIL reads), GIF, WebP
+and the compressed strips of TIFF by the port's native code
+(native/jpeg.cpp, gif.cpp, webp.cpp, tiff.cpp), PNG, BMP, DIB, ICO,
+Netpbm and TIFF's layout in numpy, each then resized with Pillow's
+BILINEAR in numpy, so a request decodes to the JAX package's array. Replies are JPEG at quality 95 from the port's own encoder. A body
 none of the readers reads gets a 400 naming the reason and what is read
 (``data.pipeline.READ_FORMATS``). The services (``StylizeService``,
 ``LockedStyleService``, ``SweepService``) take and return numpy arrays.

@@ -156,11 +156,42 @@ def read_bmp(data: bytes) -> np.ndarray:
         raise ValueError("not a BMP (no BM signature)")
     if len(data) < 18:
         raise _short("its file header")
-    offset, hsize = _u32(data, 10), _u32(data, 14)
-    head = data[18:14 + hsize]
+    return bitmap(data, 14, _u32(data, 10))[0]
+
+
+def dib_accept(prefix: bytes) -> bool:
+    """BmpImagePlugin._dib_accept: a header size that Pillow reads."""
+    return len(prefix) >= 4 and _u32(prefix, 0) in (12,) + _HEADERS
+
+
+def read_dib(data: bytes) -> np.ndarray:
+    """A headerless BMP (Pillow's DIB plugin) as uint8 (H, W, 3) RGB, as
+    PIL's convert("RGB") gives it."""
+    if not dib_accept(data[:4]):
+        raise ValueError("not a DIB (no header size that is read)")
+    return bitmap(data)[0]
+
+
+def bitmap(data: bytes, start: int = 0, offset: int = 0,
+           halve: bool = False):
+    """The bitmap whose header starts at ``start`` of ``data`` as uint8
+    (H, W, 3) RGB, as Pillow's ``BmpImageFile._bitmap`` reads it: a BMP's
+    at 14, with the file header's pixel ``offset``, or a headerless DIB
+    (Pillow's DIB plugin, an ICO's bitmap entry) with ``offset`` 0, the
+    pixels then right after the header, its bit field masks and its
+    palette. Positions (the RLE decoder's 16-bit alignment among them)
+    are of ``data`` as a whole, as Pillow's file pointer gives them.
+    ``halve`` reads the top half of the declared height, an ICO entry's
+    XOR bitmap (Pillow's ``int(height / 2)``); the bomb limit applies to
+    the declared size. Returns the pixels and the offset they start at.
+    """
+    if len(data) < start + 4:
+        raise _short("its bitmap header")
+    hsize = _u32(data, start)
+    head = data[start + 4:start + hsize]
     if len(head) < hsize - 4:
         raise _short("its bitmap header")
-    pos = 14 + hsize   # where Pillow's file pointer stands after the header
+    pos = start + hsize   # where Pillow's file pointer stands after the header
     masks = None
     if hsize == 12:   # OS/2 1.x / BITMAPCOREHEADER
         w, h, bits = _u16(head, 0), _u16(head, 2), _u16(head, 6)
@@ -191,6 +222,8 @@ def read_bmp(data: bytes) -> np.ndarray:
     colors = colors or 1 << bits
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
+    if halve:
+        h //= 2
     if bits not in _RAW_MODES:
         raise ValueError(f"BMP: {bits}-bit pixels are not read")
     raw, rle = _RAW_MODES[bits], False
@@ -238,7 +271,7 @@ def read_bmp(data: bytes) -> np.ndarray:
     if not top_down:
         px = px[::-1]
     if palette is not None:
-        return palette[px]
+        return palette[px], offset
     if px.ndim == 2:
-        return np.repeat(px[:, :, None], 3, axis=2)
-    return np.ascontiguousarray(px)
+        return np.repeat(px[:, :, None], 3, axis=2), offset
+    return np.ascontiguousarray(px), offset

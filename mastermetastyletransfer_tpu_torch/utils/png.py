@@ -11,18 +11,24 @@ as 0 or 255, 2- and 4-bit scaled by 85 and 17), a palette is looked up
 and the other 16-bit kinds keep their high byte. Another depth or colour
 type, a filter method other than 0, and a file above PIL's
 decompression-bomb limit (``MAX_PIXELS``) raise ``ValueError``, the last
-before its image data is inflated.
+before its image data is inflated. The chunks are read as Pillow reads
+them: those before the image data with their CRCs checked, the IDAT
+chunks unchecked until the image is whole, and what follows only as far
+as load_end reads it, so that a file Pillow decodes with a damaged
+ending is decoded too.
 ``png_bytes`` writes 8-bit RGB; the trainer's dumps go through it.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CID = re.compile(rb"\w\w\w\w")   # PngImagePlugin.is_cid
 # colour type -> channels in the image data
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 # colour type -> the bit depths PIL reads it at (PngImagePlugin._MODES)
@@ -37,11 +43,22 @@ MAX_PIXELS = 2 * 89_478_485
 
 
 def _chunks(data: bytes):
-    """(kind, body) of each chunk, CRCs checked."""
+    """(kind, body) of each chunk before the first IDAT, its CRC checked,
+    as PngImageFile._open reads them; then ("IDAT", position of its
+    header)."""
     pos = len(_SIGNATURE)
-    while pos + 12 <= len(data):
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError("PNG: truncated chunk")
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
+        if not _CID.match(kind):
+            raise ValueError(f"PNG: broken chunk {kind!r}")
+        if kind == b"IDAT":
+            yield kind, pos
+            return
+        if kind == b"IEND":
+            raise ValueError("PNG: no image data")
         body = data[pos + 8:pos + 8 + n]
         if len(body) != n or pos + 12 + n > len(data):
             raise ValueError("PNG: truncated chunk")
@@ -49,10 +66,51 @@ def _chunks(data: bytes):
         if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
             raise ValueError(f"PNG: bad CRC in chunk {kind!r}")
         yield kind, body
-        if kind == b"IEND":
-            return
         pos += 12 + n
-    raise ValueError("PNG: no IEND chunk")
+
+
+def _image_data(data: bytes, pos: int, need: int) -> bytes:
+    """The first ``need`` inflated bytes of the IDAT chunks from the one
+    whose header is at ``pos``, read as Pillow reads them
+    (PngImageFile.load_read, ImageFile.load): 64 KiB pieces of each chunk,
+    each inflated in turn, until the image is whole; the IDAT chunks'
+    CRCs are not checked. A chunk that is not IDAT, or the file's end,
+    before then is a truncated image. Once the image is whole, what
+    follows is read as load_end reads it: chunk headers from where the
+    last piece ended, each chunk's body skipped, until IEND or a header
+    that is not one; only a body that runs past the file's end is an
+    error."""
+    inflater = zlib.decompressobj()
+    parts, got = [], 0
+    at, left = pos + 8, int.from_bytes(data[pos:pos + 4], "big")
+    while got < need:
+        if left == 0:   # the next chunk's header, its CRC skipped
+            at += 4
+            if data[at + 4:at + 8] != b"IDAT":
+                raise ValueError("PNG: truncated image data")
+            left = int.from_bytes(data[at:at + 4], "big")
+            at += 8
+            continue
+        piece = data[at:at + min(left, 65536)]
+        if not piece:
+            raise ValueError("PNG: truncated image data")
+        at, left = at + len(piece), left - len(piece)
+        try:
+            out = inflater.decompress(piece, need - got)
+        except zlib.error as e:
+            raise ValueError(f"PNG: bad image data ({e})") from None
+        parts.append(out)
+        got += len(out)
+    while True:   # load_end
+        at += 4
+        head = data[at:at + 8]
+        if len(head) < 8 or not _CID.match(head[4:]) or head[4:] == b"IEND":
+            break
+        n = int.from_bytes(head[:4], "big")
+        at += 8 + n
+        if at > len(data):
+            raise ValueError(f"PNG: truncated chunk {head[4:]!r}")
+    return b"".join(parts)
 
 
 def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -158,15 +216,17 @@ def read_png(data: bytes) -> np.ndarray:
     gives them."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG (no signature)")
-    header, palette, idat = None, None, []
+    header, palette, idat = None, None, 0
     for kind, body in _chunks(data):
         if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
+            if len(body) < 13:
+                raise ValueError("PNG: truncated IHDR chunk")
+            header = struct.unpack(">IIBBBBB", body[:13])
         elif kind == b"PLTE":
             palette = np.frombuffer(body[:len(body) // 3 * 3],
                                     np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
-            idat.append(body)
+            idat = body
     if header is None:
         raise ValueError("PNG: no IHDR chunk")
     w, h, depth, ctype, _, filt, interlace = header
@@ -185,13 +245,7 @@ def read_png(data: bytes) -> np.ndarray:
     passes = _passes(w, h, bool(interlace))
     need = sum(ph * (1 + (pw * bits + 7) // 8)
                for *_, pw, ph in passes)
-    try:   # inflated no further than the image needs
-        raw = zlib.decompressobj().decompress(b"".join(idat), need)
-    except zlib.error as e:
-        raise ValueError(f"PNG: bad image data ({e})") from None
-    raw = np.frombuffer(raw, np.uint8)
-    if raw.size < need:
-        raise ValueError("PNG: truncated image data")
+    raw = np.frombuffer(_image_data(data, idat, need), np.uint8)
     px = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
     at = 0
     for x0, y0, dx, dy, pw, ph in passes:

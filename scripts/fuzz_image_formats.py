@@ -1,0 +1,209 @@
+"""Differential fuzz of the port's image readers against PIL on the CPU:
+random files of one kind (PIL's save and the byte-level writers of
+scripts/make_image_format_fixtures.py), some of them damaged (bytes
+flipped, the file cut short), each decoded by PIL and by the port's
+``data/pipeline.decode_image``; a case counts as a difference where the
+verdicts differ (one decodes, the other refuses) or the pixels do. Bodies
+PIL opens as a format the port does not read are counted apart.
+
+    python scripts/fuzz_image_formats.py --kind tiff --seed 2 --n 1500
+        [--damage 0.7] [--keep DIR] [--repo DIR]
+
+Kinds: pnm, gif, ico, dib, tiff, jpeg (a damaged JPEG's scan data),
+png. ``--damage`` is the share of damaged files (flips in 0.7 of them,
+cuts in the rest); ``--keep`` writes each differing file there. Prints
+one JSON line: the counts by (PIL decodes, the port decodes) and the
+differences. ``--repo`` tests another checkout's port (a parent
+unpacked with ``git archive``) with this checkout's generators.
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import os
+import sys
+import warnings
+
+import numpy as np
+from PIL import Image
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+import scripts.make_image_format_fixtures as fx  # noqa: E402
+
+PORT_FORMATS = {"BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "ICO", "TIFF",
+                "WEBP", "MPO"}
+
+
+def pil(data: bytes):
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with Image.open(io.BytesIO(data)) as im:
+                return np.asarray(im.convert("RGB")), im.format
+    except Exception:  # noqa: BLE001 - any refusal of PIL's
+        return None, None
+
+
+def saved(img: Image.Image, fmt: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def gen_pnm(rng) -> bytes:
+    magic = [b"P1", b"P2", b"P3", b"P4", b"P5", b"P6", b"P0CMYK", b"Pf",
+             b"PyP", b"PyRGBA", b"PyCMYK"][int(rng.integers(0, 11))]
+    w, h = int(rng.integers(1, 9)), int(rng.integers(1, 9))
+    bands = {b"P3": 3, b"P6": 3, b"P0CMYK": 4, b"PyRGBA": 4,
+             b"PyCMYK": 4}.get(magic, 1)
+    seps = [b" ", b"\n", b"\t", b"  ", b"\r\n", b" #c\n", b"#x\r"]
+    sep = [seps[int(rng.integers(0, len(seps)))] for _ in range(4)]
+    if magic == b"Pf":
+        f = rng.normal(100, 150, (h, w)).astype(np.float32)
+        return fx.pnm_file(magic, f, header_sep=sep, scale=float(
+            rng.choice([-1.0, 1.0, -2.5])))
+    maxval = int(rng.choice([1, 100, 255, 256, 1000, 65535]))
+    vals = rng.integers(0, 2 if magic in (b"P1", b"P4") else maxval + 1,
+                        (h, w, bands) if bands > 1 else (h, w))
+    return fx.pnm_file(magic, vals, maxval, header_sep=sep)
+
+
+def gen_gif(rng) -> bytes:
+    w, h = int(rng.integers(1, 40)), int(rng.integers(1, 40))
+    if rng.random() < 0.4:
+        im = Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8))
+        im = im.quantize(int(rng.choice([2, 4, 16, 256])))
+        return saved(im, "GIF", interlace=bool(rng.random() < 0.3))
+    size = int(rng.integers(2, 9))
+    idx = rng.integers(0, 1 << size, (h, w)).astype(np.uint8)
+    kw = dict(min_size=size, interlace=bool(rng.random() < 0.3),
+              global_pal=rng.integers(0, 256, (int(rng.integers(1, 257)), 3)))
+    if rng.random() < 0.3:
+        kw["screen"] = (int(rng.integers(1, 50)), int(rng.integers(1, 50)))
+        kw["at"] = (int(rng.integers(0, 10)), int(rng.integers(0, 10)))
+    if rng.random() < 0.3:
+        kw["transparency"] = int(rng.integers(0, 256))
+    for key, p in (("comment", 0.3), ("defer", 0.2), ("later_frame", 0.2)):
+        if rng.random() < p:
+            kw[key] = True
+    return fx.gif_file(idx, **kw)
+
+
+def gen_ico(rng) -> bytes:
+    side = int(rng.choice([16, 24, 32, 48, 64]))
+    img = fx.smooth(rng, side, side, c=4)
+    mode = ["RGBA", "RGB", "P", "L"][int(rng.integers(0, 4))]
+    im = (Image.fromarray(img, "RGBA") if mode == "RGBA"
+          else fx._pil_image(img[..., :3], mode))
+    sizes = sorted({int(s) for s in rng.choice([16, 24, 32, 48], 3)
+                    if s <= side})
+    return saved(im, "ICO", sizes=[(s, s) for s in sizes],
+                 bitmap_format=str(rng.choice(["bmp", "png"])))
+
+
+def gen_dib(rng) -> bytes:
+    h, w = int(rng.integers(1, 40)), int(rng.integers(1, 40))
+    mode = ["1", "L", "P", "RGB"][int(rng.integers(0, 4))]
+    return saved(fx._pil_image(fx.smooth(rng, h, w), mode), "DIB")
+
+
+def gen_tiff(rng) -> bytes:
+    if rng.random() < 0.4:
+        h, w = int(rng.integers(1, 70)), int(rng.integers(1, 70))
+        mode = list(fx.PIL_TIFF_MODES + ("LA", "I"))[int(rng.integers(0, 10))]
+        src = fx.smooth(rng, h, w)
+        src = src if mode in ("RGB", "RGBA", "P", "CMYK", "LA") else \
+            src[..., 1]
+        comps = list(fx.PIL_TIFF_COMPRESSIONS) + (
+            ["jpeg"] if mode in ("RGB", "L", "CMYK") else [])
+        return fx.pil_tiff(src, mode,
+                           compression=comps[int(rng.integers(0, len(comps)))])
+    return fx.writer_case(rng)
+
+
+def gen_jpeg(rng) -> bytes:
+    w, h = int(rng.integers(8, 60)), int(rng.integers(8, 60))
+    a = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    im = Image.fromarray(a) if rng.random() < 0.8 else Image.fromarray(a[..., 0])
+    return saved(im, "JPEG", quality=int(rng.choice([50, 90, 100])),
+                 progressive=bool(rng.random() < 0.3),
+                 subsampling=int(rng.choice([0, 1, 2])))
+
+
+def gen_png(rng) -> bytes:
+    w, h = int(rng.integers(1, 300)), int(rng.integers(1, 300))
+    mode = ["RGB", "RGBA", "L", "P", "1", "LA"][int(rng.integers(0, 6))]
+    a = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    im = (Image.fromarray(a[..., :3]).quantize(16) if mode == "P" else
+          Image.fromarray(a[..., :2], "LA") if mode == "LA" else
+          Image.fromarray(a[..., :len(mode)], mode) if mode.startswith("RGB")
+          else Image.fromarray(a[..., 0]).convert(mode))
+    return saved(im, "PNG")
+
+
+GENERATORS = {"pnm": gen_pnm, "gif": gen_gif, "ico": gen_ico,
+              "dib": gen_dib, "tiff": gen_tiff, "jpeg": gen_jpeg,
+              "png": gen_png}
+
+
+def damage(data: bytes, rng, kind: str) -> bytes:
+    if rng.random() < 0.7:
+        start = data.find(b"\xff\xda") + 10 if kind == "jpeg" else 0
+        b = bytearray(data)
+        for _ in range(int(rng.integers(1, 4))):
+            b[int(rng.integers(start, len(b)))] ^= int(rng.integers(1, 256))
+        return bytes(b)
+    return data[:int(rng.integers(1, len(data)))]
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--kind", required=True, choices=sorted(GENERATORS))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n", type=int, default=1000)
+    ap.add_argument("--damage", type=float, default=0.5)
+    ap.add_argument("--keep", default=None)
+    ap.add_argument("--repo", default=ROOT,
+                    help="the checkout whose port is tested")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.repo))
+    from mastermetastyletransfer_tpu_torch.data.pipeline import decode_image
+
+    rng = np.random.default_rng(args.seed)
+    counts, diffs, other = {}, [], 0
+    for i in range(args.n):
+        data = GENERATORS[args.kind](rng)
+        if rng.random() < args.damage:
+            data = damage(data, rng, args.kind)
+        want, fmt = pil(data)
+        try:
+            got = decode_image(data)
+        except ValueError:
+            got = None
+        key = f"pil {'decodes' if want is not None else 'refuses'}, port " \
+              f"{'decodes' if got is not None else 'refuses'}"
+        counts[key] = counts.get(key, 0) + 1
+        if want is not None and fmt not in PORT_FORMATS:
+            other += got is None
+            continue
+        if (want is None) != (got is None) or (
+                want is not None and (want.shape != got.shape
+                                      or not np.array_equal(want, got))):
+            diffs.append(i)
+            if args.keep:
+                os.makedirs(args.keep, exist_ok=True)
+                with open(os.path.join(args.keep, f"{args.kind}_{i}"),
+                          "wb") as f:
+                    f.write(data)
+    print(json.dumps(dict(kind=args.kind, seed=args.seed, n=args.n,
+                          damage=args.damage, counts=counts,
+                          other_formats_refused=other,
+                          differing=len(diffs), differing_cases=diffs[:50])))
+
+
+if __name__ == "__main__":
+    main()

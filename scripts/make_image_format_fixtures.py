@@ -1,0 +1,992 @@
+"""Write the Netpbm, GIF, TIFF, ICO and DIB fixtures under tests/data/{pnm,
+gif,tiff,ico,dib}/ and PIL's ``convert("RGB")`` pixels beside them
+(pixels.npz in each, compressed, by file name without its extension),
+from a fixed seed.
+
+    python scripts/make_image_format_fixtures.py [--out tests/data]
+
+The port reads these kinds with its own readers (utils/pnm.py,
+native/gif.cpp, utils/tiff.py with native/tiff.cpp, utils/ico.py,
+utils/bmp.read_dib); the CPU tests (tests/test_torch_image_formats.py,
+tests/test_torch_tiff.py) hold them to PIL on these files, and
+chip_smoke.py's ``codecs`` phase to the stored pixels on the machine with
+the card, which has no PIL. PIL's save writes what it can: TIFF with no,
+PackBits, LZW, Deflate, Adobe Deflate and JPEG compression in modes 1, L,
+I;16, F, RGB, RGBA, P and CMYK; GIF; ICO with BMP and PNG entries; PPM,
+PGM and PBM. The byte-level writers here (``struct``, with their own LZW
+and PackBits encoders) write the rest: TIFF tiles, planar configuration
+2, predictors 2 and 3, big-endian and BigTIFF files, FillOrder 2, 1-, 2-
+and 4-bit palettes, min-is-white, 12-bit grey, JPEG (YCbCr) in tiles and
+in strips each a JFIF of PIL's, YCbCr not JPEG in every subsampling
+libtiff's TIFFRGBAImage reads (with ReferenceBlackWhite and
+YCbCrCoefficients), associated and
+unassociated alpha, a strip with no EOI, the old LSB-first LZW; GIF
+interlaced, with a local palette, a first frame offset in, smaller or
+larger than the screen, no colour table, a deferred clear and code sizes
+2 to 8; every Netpbm magic, maxvals 1 to 65535, comments between tokens,
+PFM in both byte orders; ICO entries at 1, 4, 8, 24 and 32 bits up to
+256 pixels; DIB at every header size. Five files at COCO's 640x480
+(``coco*``: a GIF, an LZW TIFF with predictor 2, a Deflate TIFF and a
+JPEG TIFF) are chip_smoke.py's timing inputs, their pixels kept as
+digests (``digests.json``); chip_smoke.py writes its 640x480 PPM itself.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import io
+import json
+import os
+import struct
+import sys
+import zlib
+
+import numpy as np
+
+SEED = 27
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+from scripts.make_image_fixtures import (  # noqa: E402
+    _palette, bmp_file, bmp_rows, rle4, rle8,
+)
+
+KINDS = ("pnm", "gif", "tiff", "ico", "dib")
+# chip_smoke.py's 640 x 480 timing inputs (tests/data/<kind>/coco_*)
+COCO = ("gif/coco.gif", "tiff/coco_lzw_pred2.tif", "tiff/coco_deflate.tif",
+        "tiff/coco_jpeg.tif")
+
+
+def smooth(rng: np.random.Generator, h: int, w: int, c: int = 3,
+           noise: int = 12) -> np.ndarray:
+    """A smooth random image (bilinear upsampling of coarse noise, in
+    numpy) plus a little fine noise, uint8 (h, w, c)."""
+    gh, gw = max(h // 12, 2), max(w // 12, 2)
+    base = rng.integers(0, 256, (gh, gw, c)).astype(np.float64)
+    y = np.linspace(0, gh - 1, h)
+    x = np.linspace(0, gw - 1, w)
+    y0 = np.minimum(y.astype(int), gh - 2)
+    x0 = np.minimum(x.astype(int), gw - 2)
+    fy, fx = (y - y0)[:, None, None], (x - x0)[None, :, None]
+    img = (base[y0][:, x0] * (1 - fy) * (1 - fx)
+           + base[y0 + 1][:, x0] * fy * (1 - fx)
+           + base[y0][:, x0 + 1] * (1 - fy) * fx
+           + base[y0 + 1][:, x0 + 1] * fy * fx)
+    img += rng.integers(-noise, noise + 1, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# GIF
+# ---------------------------------------------------------------------------
+
+def lzw_gif(indices: np.ndarray, min_size: int, *, clear_every: int = 0,
+            defer: bool = False, eoi: bool = True) -> bytes:
+    """GIF's LZW (LSB-first codes, a clear code first) of a flat index
+    array, in sub-blocks of at most 255 bytes and a terminator.
+    ``clear_every`` emits a clear code after that many codes; ``defer``
+    keeps coding at 12 bits once the table is full instead of clearing
+    (the deferred clear); ``eoi`` ends with the end code. The code width
+    follows the decoder's table (Pillow's GifDecode.c), so that every
+    decoder reads the same codes."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    out, acc, nbits = bytearray(), 0, 0
+
+    def emit(code: int, size: int) -> None:
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+
+    def reset():
+        return {bytes([i]): i for i in range(clear)}, clear + 2, \
+            min_size + 1, clear + 2, True
+
+    table, nxt, size, dnext, first = reset()
+    emit(clear, size)
+    codes = 0
+    data = bytes(np.asarray(indices, np.uint8).reshape(-1))
+    w = b""
+    for ch in data:
+        wc = w + bytes([ch])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w], size)
+        codes += 1
+        if not first and dnext < 4096:   # the decoder adds an entry
+            if dnext == (1 << size) - 1 and size < 12:
+                size += 1
+            dnext += 1
+        first = False
+        if nxt < 4096:
+            table[wc] = nxt
+            nxt += 1
+        elif not defer:
+            emit(clear, size)
+            table, nxt, size, dnext, first = reset()
+        if clear_every and codes % clear_every == 0:
+            emit(clear, size)
+            table, nxt, size, dnext, first = reset()
+        w = bytes([ch])
+    if w:
+        emit(table[w], size)
+        if not first and dnext < 4096:
+            if dnext == (1 << size) - 1 and size < 12:
+                size += 1
+            dnext += 1
+    if eoi:
+        emit(end, size)
+    if nbits:
+        out.append(acc & 0xFF)
+    blocks = b"".join(bytes([len(out[i:i + 255])]) + bytes(out[i:i + 255])
+                      for i in range(0, len(out), 255))
+    return bytes([min_size]) + blocks + b"\0"
+
+
+def _table(pal) -> tuple:
+    """(flag bits, bytes) of a colour table padded to a power of two."""
+    pal = np.asarray(pal, np.uint8).reshape(-1, 3)
+    bits = max(1, int(np.ceil(np.log2(max(len(pal), 2)))))
+    padded = np.zeros((1 << bits, 3), np.uint8)
+    padded[:len(pal)] = pal
+    return 0x80 | (bits - 1), padded.tobytes()
+
+
+def gif_file(indices: np.ndarray, *, screen=None, at=(0, 0),
+             global_pal=None, local_pal=None, interlace: bool = False,
+             min_size: int = 8, transparency=None, background: int = 0,
+             comment: bool = False, later_frame: bool = False,
+             **lzw) -> bytes:
+    """A GIF89a of one frame (two with ``later_frame``): the frame's (h, w)
+    indices at ``at`` on a ``screen`` (w, h) (the frame's size by
+    default), with a global and/or a local colour table, a graphic
+    control extension for ``transparency``, a comment and a NETSCAPE
+    loop extension with ``comment``."""
+    h, w = indices.shape
+    sw, sh = screen or (w + at[0], h + at[1])
+    flags, gtab = (0, b"") if global_pal is None else _table(global_pal)
+    out = bytearray(b"GIF89a" + struct.pack("<HH", sw, sh)
+                    + bytes([flags, background, 0]) + gtab)
+    if comment:
+        out += b"!\xfe" + bytes([11]) + b"a comment!!" + b"\0"
+        out += (b"!\xff\x0bNETSCAPE2.0" + bytes([3, 1, 0, 0]) + b"\0")
+    if transparency is not None:
+        out += b"!\xf9\x04" + bytes([1, 10, 0, transparency]) + b"\0"
+    lflags, ltab = (0, b"") if local_pal is None else _table(local_pal)
+    rows = indices
+    if interlace:
+        order = np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8),
+                                np.arange(2, h, 4), np.arange(1, h, 2)])
+        rows = indices[order]
+        lflags |= 0x40
+    out += (b"," + struct.pack("<HHHH", at[0], at[1], w, h) + bytes([lflags])
+            + ltab + lzw_gif(rows, min_size, **lzw))
+    if later_frame:
+        out += (b"!\xf9\x04" + bytes([8, 10, 0, 0]) + b"\0" + b","
+                + struct.pack("<HHHH", 0, 0, w, h) + b"\0"
+                + lzw_gif(np.zeros_like(indices), min_size))
+    return bytes(out + b";")
+
+
+# ---------------------------------------------------------------------------
+# TIFF
+# ---------------------------------------------------------------------------
+
+def lzw_tiff(data: bytes, *, old: bool = False, eoi: bool = True) -> bytes:
+    """TIFF's LZW of ``data``: a clear code first, 9-12-bit codes written
+    MSB-first with libtiff's early change (``old``: LSB-first and no early
+    change, the form libtiff's LZWDecodeCompat reads), a clear code before
+    the table fills, the end code last unless ``eoi`` is False."""
+    out, acc, nbits = bytearray(), 0, 0
+
+    def emit(code: int, size: int) -> None:
+        nonlocal acc, nbits
+        if old:
+            acc |= code << nbits
+            nbits += size
+            while nbits >= 8:
+                out.append(acc & 0xFF)
+                acc >>= 8
+                nbits -= 8
+        else:
+            acc = (acc << size) | code
+            nbits += size
+            while nbits >= 8:
+                out.append((acc >> (nbits - 8)) & 0xFF)
+                nbits -= 8
+            acc &= (1 << nbits) - 1
+
+    def width(free: int) -> int:
+        # the decoder reads a code a step behind this table, and widens
+        # once its own table reaches the mask (less one, libtiff's early
+        # change, in the MSB-first form)
+        for size in (9, 10, 11):
+            if free < (1 << size) + (1 if old else 0):
+                return size
+        return 12
+
+    table = {bytes([i]): i for i in range(256)}
+    free = 258
+    emit(256, 9)
+    w = b""
+    for ch in data:
+        wc = w + bytes([ch])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w], width(free))
+        table[wc] = free
+        free += 1
+        if free >= 4093:
+            emit(256, width(free))
+            table = {bytes([i]): i for i in range(256)}
+            free = 258
+        w = bytes([ch])
+    if w:
+        emit(table[w], width(free))
+        free += 1
+    if eoi:
+        emit(257, width(free))
+    if nbits:
+        out.append((acc << (8 - nbits)) & 0xFF if not old else acc & 0xFF)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: runs of 3 to 128 equal bytes replicated, the rest literal
+    in pieces of at most 128."""
+    out, i, n = bytearray(), 0, len(data)
+    lit = bytearray()
+
+    def flush():
+        for k in range(0, len(lit), 128):
+            piece = lit[k:k + 128]
+            out.append(len(piece) - 1)
+            out.extend(piece)
+        lit.clear()
+
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            flush()
+            out.extend([(257 - (j - i)) & 0xFF, data[i]])
+            i = j
+        else:
+            lit.append(data[i])
+            i += 1
+    flush()
+    return bytes(out)
+
+
+def _pack_rows(samples: np.ndarray, bps: int, big_endian: bool) -> np.ndarray:
+    """(rows, cols, spp) samples as (rows, row bytes): MSB-first bit
+    packing below 8 bits (each row byte-aligned), whole samples in the
+    file's byte order at 8 bits and above."""
+    rows = samples.shape[0]
+    flat = np.ascontiguousarray(samples).reshape(rows, -1)
+    if bps in (8, 16, 32, 64) and flat.dtype.kind == "f":
+        dt = np.dtype(f"{'>' if big_endian else '<'}f{bps // 8}")
+        return flat.astype(dt).view(np.uint8).reshape(rows, -1)
+    if bps in (16, 32):
+        dt = np.dtype(f"{'>' if big_endian else '<'}u{bps // 8}")
+        return flat.astype(np.int64).astype(dt).view(np.uint8).reshape(rows, -1)
+    if bps == 8:
+        return flat.astype(np.uint8)
+    vals = flat.astype(np.uint64)
+    n = vals.shape[1]
+    bits = ((vals[:, :, None] >> np.arange(bps - 1, -1, -1, dtype=np.uint64))
+            & 1).astype(np.uint8).reshape(rows, n * bps)
+    return np.packbits(bits, axis=1)
+
+
+def _predict(samples: np.ndarray, predictor: int, bps: int,
+             big_endian: bool) -> np.ndarray:
+    """The rows' bytes with the predictor applied: 2 the horizontal
+    difference of each sample (modulo its width), 3 the floating-point
+    one (each row's bytes in planes, most significant first, then the
+    byte differences across the row)."""
+    rows, cols, spp = samples.shape
+    if predictor == 2:
+        dt = {8: np.uint8, 16: np.uint16, 32: np.uint32}[bps]
+        s = samples.astype(np.int64).astype(dt)
+        d = s.copy()
+        d[:, 1:] = s[:, 1:] - s[:, :-1]
+        return _pack_rows(d, bps, big_endian)
+    if predictor == 3:
+        be = samples.astype(f">f{bps // 8}").view(np.uint8).reshape(
+            rows, cols * spp, bps // 8)
+        planes = be.transpose(0, 2, 1).reshape(rows, -1).astype(np.int16)
+        d = planes.copy()
+        d[:, spp:] = planes[:, spp:] - planes[:, :-spp]
+        return (d & 0xFF).astype(np.uint8)
+    return _pack_rows(samples, bps, big_endian)
+
+
+def writer_case(rng) -> bytes:
+    """One seeded layout of the byte-level writer."""
+    h, w = (int(v) for v in rng.integers(1, 48, 2))
+    comp = int(rng.choice([1, 5, 8, 32773, 32946]))
+    kw = dict(compression=comp, big_endian=bool(rng.random() < 0.4),
+              bigtiff=bool(rng.random() < 0.2),
+              tile=(16, 32) if rng.random() < 0.3 else None,
+              rows_per_strip=int(rng.integers(1, h + 2)))
+    pred = comp in (5, 8, 32946) and rng.random() < 0.5
+    kind = int(rng.integers(0, 6))
+    if kind == 0:   # RGB(A) at 8 or 16 bits, chunky or planar
+        bps = int(rng.choice([8, 16]))
+        extra = [(), (1,), (2,)][int(rng.integers(0, 3))]
+        s = rng.integers(0, 1 << bps, (h, w, 3 + len(extra)))
+        return tiff_file(s, bps=bps, extra=extra, predictor=2 if pred
+                            else 1, planar=int(rng.choice([1, 2])), **kw)
+    if kind == 1:   # grey and min-is-white at 1-16 bits
+        bps = int(rng.choice([1, 2, 4, 8, 16]))
+        s = rng.integers(0, 1 << bps, (h, w, 1))
+        return tiff_file(s, bps=bps, photometric=int(rng.integers(0, 2)),
+                            predictor=2 if pred and bps >= 8 else 1, **kw)
+    if kind == 2:   # palettes
+        bps = int(rng.choice([1, 2, 4, 8]))
+        return tiff_file(rng.integers(0, 1 << bps, (h, w, 1)), bps=bps,
+                            photometric=3, colormap=rng.integers(
+                                0, 65536, (3, 1 << bps)), **kw)
+    if kind == 3:   # CMYK
+        bps = int(rng.choice([8, 16]))
+        return tiff_file(rng.integers(0, 1 << bps, (h, w, 4)), bps=bps,
+                            photometric=5, predictor=2 if pred else 1, **kw)
+    if kind == 5:   # YCbCr, not JPEG: libtiff's RGBA route
+        sub = [(1, 1), (2, 2), (2, 1), (1, 2), (4, 4), (4, 2), (4, 1),
+               None][int(rng.integers(0, 8))]
+        ref = ([(int(rng.integers(0, 20)), 1), (int(rng.integers(200, 300)),
+                                                1), (128, 1), (255, 1),
+                (128, 1), (int(rng.integers(200, 300)), 1)]
+               if rng.random() < 0.3 else None)
+        vs = (sub or (2, 2))[1]
+        return ycbcr_tiff(rng, h, w, sub, ref=ref,
+                          rows_per_strip=-(-kw["rows_per_strip"] // vs) * vs,
+                          compression=comp if comp != 1 else 5,
+                          big_endian=kw["big_endian"])
+    f = rng.normal(100, 150, (h, w, 1)).astype(np.float32)
+    return tiff_file(f, bps=32, photometric=1, sample_format=3,
+                     predictor=3 if pred else 1, **kw)
+
+
+def ycbcr_tiff(rng, h: int, w: int, sub=(2, 2), *, ref=None, luma=None,
+               planar: int = 1, rows_per_strip=None, **kw) -> bytes:
+    """A YCbCr TIFF (photometric 6, 8-bit) of random samples, not JPEG:
+    chunky in the subsampling's blocks (hs x vs luma samples, then Cb and
+    Cr) or planar at 1x1, with a YCbCrSubSampling tag unless ``sub`` is
+    None (libtiff's default 2x2), ReferenceBlackWhite ``ref`` and
+    YCbCrCoefficients ``luma`` as (numerator, denominator) pairs."""
+    hs, vs = sub or (2, 2)
+    rps = rows_per_strip or h
+    tags = {}
+    if sub:
+        tags[530] = (3, list(sub))
+    if ref:
+        tags[532] = (5, list(ref))
+    if luma:
+        tags[529] = (5, list(luma))
+    if planar == 2:
+        return tiff_file(rng.integers(0, 256, (h, w, 3)), photometric=6,
+                         planar=2, rows_per_strip=rps, tags=tags, **kw)
+    bh, bw = -(-h // vs), -(-w // hs)
+    blocks = rng.integers(0, 256, (bh, bw * (hs * vs + 2), 1))
+    tags.update({256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]),
+                 277: (3, [3]), 278: (4, [rps])})
+    return tiff_file(blocks, photometric=6, rows_per_strip=-(-rps // vs),
+                     tags=tags, **kw)
+
+
+def _jpeg(chunk: np.ndarray, quality: int) -> bytes:
+    """A chunk of 8-bit RGB samples as a JFIF (YCbCr 4:2:0), PIL's."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(chunk.astype(np.uint8)).save(buf, "JPEG",
+                                                 quality=quality)
+    return buf.getvalue()
+
+
+def _compress(raw: bytes, compression: int, **kw) -> bytes:
+    if compression == 1:
+        return raw
+    if compression == 5:
+        return lzw_tiff(raw, **kw)
+    if compression in (8, 32946):
+        return zlib.compress(raw, 6)
+    if compression == 32773:
+        return packbits(raw)
+    raise ValueError(compression)
+
+
+_REVERSED = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
+_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II", 7: "s", 11: "f", 16: "Q"}
+
+
+def tiff_file(samples: np.ndarray, *, bps: int = 8, photometric: int = 2,
+              compression: int = 1, predictor: int = 1,
+              big_endian: bool = False, bigtiff: bool = False, tile=None,
+              rows_per_strip=None, planar: int = 1, fill_order: int = 1,
+              sample_format: int = 1, extra=(), colormap=None,
+              orientation=None, old_lzw: bool = False, eoi: bool = True,
+              tags=None) -> bytes:
+    """A one-page TIFF of (h, w, spp) samples, written tag by tag: strips
+    of ``rows_per_strip`` rows or ``tile`` = (width, length) tiles (edge
+    tiles padded), chunky or planar (``planar`` 2: each sample a plane of
+    its own), compressed each on its own, FillOrder 2 (each byte's bits
+    reversed after compression), big-endian or BigTIFF, with a colour
+    map, extra samples, an orientation and any other ``tags`` (tag ->
+    (type, values))."""
+    h, w, spp = samples.shape
+    order = ">" if big_endian else "<"
+    planes = ([samples[:, :, k:k + 1] for k in range(spp)] if planar == 2
+              else [samples])
+    chunks = []
+    if tile:
+        tw, tl = tile
+        for p in planes:
+            padded = np.zeros((-(-h // tl) * tl, -(-w // tw) * tw,
+                               p.shape[2]), p.dtype)
+            padded[:h, :w] = p
+            for y in range(0, h, tl):
+                for x in range(0, w, tw):
+                    chunks.append(padded[y:y + tl, x:x + tw])
+    else:
+        rps = rows_per_strip or h
+        for p in planes:
+            for y in range(0, h, rps):
+                chunks.append(p[y:y + rps])
+    blobs = []
+    for c in chunks:
+        if compression == 7:   # each strip or tile a JPEG of its own
+            blobs.append(_jpeg(c, 85))
+            continue
+        raw = _predict(c, predictor, bps, big_endian).tobytes()
+        blob = _compress(raw, compression, **(
+            {"old": old_lzw, "eoi": eoi} if compression == 5 else {}))
+        if fill_order == 2:
+            blob = blob.translate(_REVERSED)
+        blobs.append(blob)
+    entries = {
+        256: (4, [w]), 257: (4, [h]), 258: (3, [bps] * spp),
+        259: (3, [compression]), 262: (3, [photometric]),
+        277: (3, [spp]), 284: (3, [planar]),
+    }
+    if fill_order != 1:
+        entries[266] = (3, [fill_order])
+    if predictor != 1:
+        entries[317] = (3, [predictor])
+    if sample_format != 1:
+        entries[339] = (3, [sample_format] * spp)
+    if extra:
+        entries[338] = (3, list(extra))
+    if colormap is not None:
+        entries[320] = (3, list(np.asarray(colormap).reshape(-1)))
+    if orientation:
+        entries[274] = (3, [orientation])
+    if tile:
+        entries[322], entries[323] = (4, [tile[0]]), (4, [tile[1]])
+    else:
+        entries[278] = (4, [rows_per_strip or h])
+    entries.update(tags or {})
+    off_tag, cnt_tag = (324, 325) if tile else (273, 279)
+    head = 16 if bigtiff else 8
+    body = bytearray()
+    offsets = []
+    for b in blobs:
+        offsets.append(head + len(body))
+        body += b
+        if len(body) % 2:
+            body += b"\0"
+    entries[off_tag] = (16 if bigtiff else 4, offsets)
+    entries[cnt_tag] = (16 if bigtiff else 4, [len(b) for b in blobs])
+    ifd_at = head + len(body)
+    size = 20 if bigtiff else 12
+    inline = 8 if bigtiff else 4
+    n = len(entries)
+    data_at = ifd_at + (8 if bigtiff else 2) + n * size + (8 if bigtiff else 4)
+    ifd, extra_data = bytearray(), bytearray()
+    ifd += struct.pack(order + ("Q" if bigtiff else "H"), n)
+    for tag in sorted(entries):
+        typ, values = entries[tag]
+        if typ in (2, 7):
+            payload = bytes(values)
+            count = len(payload)
+        elif typ == 5:
+            payload = b"".join(struct.pack(order + "II", *v) for v in values)
+            count = len(values)
+        else:
+            payload = struct.pack(order + _TYPES[typ] * len(values),
+                                  *[int(v) for v in values])
+            count = len(values)
+        if len(payload) <= inline:
+            field = payload.ljust(inline, b"\0")
+        else:
+            field = struct.pack(order + ("Q" if bigtiff else "I"),
+                                data_at + len(extra_data))
+            extra_data += payload
+            if len(extra_data) % 2:
+                extra_data += b"\0"
+        ifd += struct.pack(order + ("HHQ" if bigtiff else "HHI"), tag, typ,
+                           count) + field
+    ifd += bytes(8 if bigtiff else 4)
+    if bigtiff:
+        header = (b"MM" if big_endian else b"II") + struct.pack(
+            order + "HHHQ", 43, 8, 0, ifd_at)
+    else:
+        header = (b"MM" if big_endian else b"II") + struct.pack(
+            order + "HI", 42, ifd_at)
+    return bytes(header + body + ifd + extra_data)
+
+
+# ---------------------------------------------------------------------------
+# Netpbm
+# ---------------------------------------------------------------------------
+
+def pnm_file(magic: bytes, samples: np.ndarray, maxval=None, *,
+             plain_sep: bytes = b" ", header_sep=(b"\n",) * 4,
+             scale: float = 1.0) -> bytes:
+    """A Netpbm file: ``magic``, width, height and maxval (or PFM's
+    scale) separated by ``header_sep``, then the samples: plain decimal
+    (P1-P3) or raw (bits packed MSB-first for P4, big-endian 16-bit above
+    a maxval of 255, float32 rows bottom to top for Pf)."""
+    h, w = samples.shape[:2]
+    head = magic + header_sep[0] + str(w).encode() + header_sep[1] + \
+        str(h).encode()
+    if magic == b"Pf":
+        head += header_sep[2] + repr(scale).encode() + header_sep[3]
+        order = "<f4" if scale < 0 else ">f4"
+        return head + samples[::-1].astype(order).tobytes()
+    if magic not in (b"P1", b"P4"):
+        head += header_sep[2] + str(maxval).encode()
+    head += header_sep[3]
+    flat = samples.reshape(-1)
+    if magic in (b"P1", b"P2", b"P3"):
+        return head + plain_sep.join(str(int(v)).encode() for v in flat)
+    if magic == b"P4":
+        return head + np.packbits(samples.astype(np.uint8), axis=1).tobytes()
+    dt = np.uint8 if maxval < 256 else ">u2"
+    return head + flat.astype(dt).tobytes()
+
+
+def pnm_fixtures(rng) -> dict:
+    img = smooth(rng, 19, 23)
+    grey = img[..., 1]
+    bits = (grey > 128).astype(np.uint8)
+    out = {}
+    for name, mode, fmt in (("pil_p4", "1", "PPM"), ("pil_p5", "L", "PPM"),
+                            ("pil_p6", "RGB", "PPM"),
+                            ("pil_16bit", "I;16", "PPM"),
+                            ("pil_float", "F", "PPM")):
+        src = img if mode == "RGB" else grey
+        im = _pil_image(src, mode)
+        buf = io.BytesIO()
+        im.save(buf, fmt)
+        out[name] = buf.getvalue()
+    out["p1_plain_comments"] = pnm_file(
+        b"P1", bits, plain_sep=b"", header_sep=(b" # a comment\n", b"\t",
+                                                 b"", b"\n#x\n"))
+    out["p4_odd_width"] = pnm_file(b"P4", bits[:, :21])
+    out["p2_maxval_100"] = pnm_file(b"P2", grey * 100 // 255, 100,
+                                    plain_sep=b"\n")
+    out["p2_maxval_1000"] = pnm_file(b"P2", grey.astype(int) * 1000 // 255, 1000,
+                                     plain_sep=b" #c\n")
+    out["p3_plain"] = pnm_file(b"P3", img, 255, plain_sep=b"  ")
+    out["p3_maxval_65535"] = pnm_file(b"P3", img.astype(int) * 257 - 3
+                                      * (img > 0), 65535)
+    for m in (1, 100, 255, 256, 1000, 65535):
+        vals = (grey.astype(np.int64) * m // 255)
+        out[f"p5_maxval_{m}"] = pnm_file(b"P5", vals, m)
+        out[f"p6_maxval_{m}"] = pnm_file(b"P6", img.astype(np.int64) * m
+                                         // 255, m)
+    out["p6_comment_in_token"] = pnm_file(
+        b"P6", img, 255, header_sep=(b"\n#c\n", b" #x\r", b"\n", b"\n"))
+    f = (grey.astype(np.float32) - 40) * 1.7
+    f[0, :4] = (np.nan, np.inf, -np.inf, 255.5)
+    out["pf_little_endian"] = pnm_file(b"Pf", f, scale=-1.0)
+    out["pf_big_endian"] = pnm_file(b"Pf", f, scale=2.5)
+    cmyk = np.dstack([img, grey[..., None]])
+    out["p0cmyk"] = pnm_file(b"P0CMYK", cmyk, 255)
+    out["pycmyk_maxval_1000"] = pnm_file(b"PyCMYK", cmyk.astype(int) * 3,
+                                         1000)
+    out["pyrgba"] = pnm_file(b"PyRGBA", cmyk, 255)
+    out["pyp"] = pnm_file(b"PyP", grey, 255)
+    return out
+
+
+def _pil_image(src: np.ndarray, mode: str):
+    from PIL import Image
+
+    if mode == "1":
+        return Image.fromarray(src).convert("1")
+    if mode == "I;16":
+        return Image.fromarray(src.astype(np.uint16) * 251)
+    if mode == "F":
+        return Image.fromarray(src.astype(np.float32) * 1.5 - 20)
+    if mode == "I":
+        return Image.fromarray((src.astype(np.int32) - 60) * 3)
+    if mode == "P":
+        return Image.fromarray(src).quantize(37)
+    if mode in ("RGBA", "CMYK"):
+        return Image.fromarray(np.dstack([src, src[..., :1] // 2 + 100]),
+                               mode)
+    if mode == "LA":
+        return Image.fromarray(np.dstack([src[..., 0], src[..., 1]]), "LA")
+    return Image.fromarray(src).convert(mode)
+
+
+# ---------------------------------------------------------------------------
+# GIF fixtures
+# ---------------------------------------------------------------------------
+
+def gif_fixtures(rng) -> dict:
+    from PIL import Image
+
+    img = smooth(rng, 27, 35)
+    out = {}
+    q = Image.fromarray(img).quantize(200)
+    for name, im, kw in (
+            ("pil_palette", q, {}),
+            ("pil_grey", Image.fromarray(img[..., 0]), {}),
+            ("pil_interlaced", q, {"interlace": True}),
+            ("pil_transparent", q, {"transparency": 5}),
+            ("pil_animated", q, {"save_all": True, "append_images": [
+                Image.fromarray(img[::-1]).quantize(16)]})):
+        buf = io.BytesIO()
+        im.save(buf, "GIF", **kw)
+        out[name] = buf.getvalue()
+    pal = rng.integers(0, 256, (256, 3))
+    idx = (img[..., 0] // 16).astype(np.uint8)
+    out["interlaced"] = gif_file(idx, global_pal=pal[:16], min_size=4,
+                                 interlace=True)
+    out["local_palette"] = gif_file(idx, global_pal=pal[:16], min_size=4,
+                                    local_pal=pal[100:116])
+    out["offset_frame"] = gif_file(idx[:9, :11], screen=(30, 20), at=(7, 5),
+                                   global_pal=pal[:16], min_size=4,
+                                   transparency=3)
+    out["offset_frame_no_transparency"] = gif_file(
+        idx[:9, :11], screen=(30, 20), at=(7, 5), global_pal=pal[:16],
+        min_size=4, background=9)
+    out["frame_past_screen"] = gif_file(idx, screen=(20, 12), at=(4, 3),
+                                        global_pal=pal[:16], min_size=4)
+    out["no_colour_table"] = gif_file(idx, min_size=4)
+    out["grey_ramp_table"] = gif_file(
+        idx, global_pal=np.repeat(np.arange(16)[:, None], 3, 1), min_size=4)
+    out["short_palette"] = gif_file(idx, global_pal=pal[:5], min_size=4)
+    big = rng.integers(0, 256, (70, 90)).astype(np.uint8)
+    out["deferred_clear"] = gif_file(big, global_pal=pal, defer=True)
+    out["clear_every_40"] = gif_file(idx, global_pal=pal[:16], min_size=4,
+                                     clear_every=40)
+    out["no_end_code"] = gif_file(idx, global_pal=pal[:16], min_size=4,
+                                  eoi=False)
+    out["extensions"] = gif_file(idx, global_pal=pal[:16], min_size=4,
+                                 comment=True, transparency=1,
+                                 later_frame=True)
+    for size in range(2, 9):
+        out[f"code_size_{size}"] = gif_file(
+            (img[..., 0].astype(int) % (1 << size)).astype(np.uint8),
+            global_pal=pal[:1 << size],
+            min_size=size)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# TIFF fixtures
+# ---------------------------------------------------------------------------
+
+PIL_TIFF_MODES = ("1", "L", "I;16", "F", "RGB", "RGBA", "P", "CMYK")
+PIL_TIFF_COMPRESSIONS = (None, "packbits", "tiff_lzw", "tiff_deflate",
+                         "tiff_adobe_deflate")
+
+
+def pil_tiff(src: np.ndarray, mode: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    _pil_image(src, mode).save(buf, "TIFF", **kw)
+    return buf.getvalue()
+
+
+def tiff_fixtures(rng) -> dict:
+    img = smooth(rng, 19, 21)
+    out = {}
+    for mode in PIL_TIFF_MODES:
+        src = img if mode in ("RGB", "RGBA", "P", "CMYK") else img[..., 1]
+        for comp in PIL_TIFF_COMPRESSIONS:
+            name = f"pil_{mode.replace(';', '')}_{comp or 'raw'}".lower()
+            out[name] = pil_tiff(src, mode, compression=comp)
+    for mode in ("RGB", "L", "CMYK"):
+        src = img if mode != "L" else img[..., 1]
+        out[f"pil_{mode.lower()}_jpeg"] = pil_tiff(
+            src, mode, compression="jpeg", quality=80)
+    s8 = img.astype(np.int64)
+    s16 = s8 * 257 + rng.integers(0, 257, img.shape)
+    alpha = s8[..., :1] // 2 + 100
+    out["tiles_lzw"] = tiff_file(s8, compression=5, tile=(16, 16))
+    out["tiles_planar_deflate_16bit"] = tiff_file(
+        s16, bps=16, compression=8, tile=(16, 32), planar=2)
+    out["planar_rgb_raw"] = tiff_file(s8, planar=2, rows_per_strip=7)
+    out["planar_rgba_lzw"] = tiff_file(
+        np.dstack([s8, alpha]), extra=(2,), planar=2, compression=5)
+    out["lzw_predictor2_8bit"] = tiff_file(s8, compression=5, predictor=2,
+                                           rows_per_strip=5)
+    out["deflate_predictor2_16bit"] = tiff_file(
+        s16, bps=16, compression=32946, predictor=2)
+    f = (s8[..., :1] * 1.5 - 30).astype(np.float32)
+    out["lzw_predictor3_float"] = tiff_file(
+        f, bps=32, photometric=1, sample_format=3, compression=5,
+        predictor=3)
+    out["big_endian_rgb16_lzw"] = tiff_file(s16, bps=16, compression=5,
+                                            big_endian=True)
+    out["big_endian_float"] = tiff_file(f, bps=32, photometric=1,
+                                        sample_format=3, big_endian=True)
+    out["bigtiff_rgb"] = tiff_file(s8, bigtiff=True, compression=8)
+    g = s8[..., 1:2]
+    for b in (1, 2, 4):
+        cmap = rng.integers(0, 65536, (3, 1 << b))
+        out[f"palette_{b}bit_lzw"] = tiff_file(
+            g >> (8 - b), bps=b, photometric=3, colormap=cmap, compression=5)
+    out["palette_4bit_raw"] = tiff_file(
+        g >> 4, bps=4, photometric=3,
+        colormap=rng.integers(0, 65536, (3, 16)))
+    out["fill_order2_1bit_lzw"] = tiff_file(g >> 7, bps=1, photometric=1,
+                                            compression=5, fill_order=2)
+    out["fill_order2_4bit_packbits"] = tiff_file(
+        g >> 4, bps=4, photometric=1, compression=32773, fill_order=2)
+    out["fill_order2_8bit_raw"] = tiff_file(g, photometric=1, fill_order=2)
+    out["min_is_white_8bit_deflate"] = tiff_file(g, photometric=0,
+                                                 compression=8)
+    out["min_is_white_2bit_raw"] = tiff_file(g >> 6, bps=2, photometric=0)
+    out["grey_12bit_raw"] = tiff_file(s16[..., 1:2] >> 4, bps=12,
+                                      photometric=1)
+    out["grey_12bit_lzw"] = tiff_file(s16[..., 1:2] >> 4, bps=12,
+                                      photometric=1, compression=5)
+    out["signed_16bit_lzw"] = tiff_file(g * 3 - 300, bps=16, photometric=1,
+                                        sample_format=2, compression=5)
+    out["signed_32bit_raw"] = tiff_file(g * 5 - 300, bps=32, photometric=1,
+                                        sample_format=2)
+    out["associated_alpha_8bit"] = tiff_file(
+        np.dstack([s8 * alpha // 255, alpha]), extra=(1,), compression=5)
+    out["associated_alpha_16bit"] = tiff_file(
+        np.dstack([s16 * alpha // 255, alpha * 257]), bps=16, extra=(1,),
+        compression=8)
+    out["unassociated_alpha_16bit"] = tiff_file(
+        np.dstack([s16, alpha * 257]), bps=16, extra=(2,), compression=5)
+    out["extra_samples_rgbxx"] = tiff_file(
+        np.dstack([s8, alpha, alpha]), extra=(0, 0), compression=32773)
+    out["cmyk_16bit_deflate"] = tiff_file(
+        np.dstack([s16, s16[..., :1]]), bps=16, photometric=5,
+        compression=8)
+    out["grey_alpha_lzw"] = tiff_file(np.dstack([g, alpha]), photometric=1,
+                                      extra=(2,), compression=5)
+    out["lzw_no_end_code"] = tiff_file(s8, compression=5, eoi=False,
+                                       rows_per_strip=8)
+    out["lzw_old_style"] = tiff_file(s8, compression=5, old_lzw=True,
+                                     rows_per_strip=8)
+    out["orientation_6"] = tiff_file(s8, compression=5, orientation=6)
+    out["orientation_3_raw"] = tiff_file(s8, orientation=3)
+    out["jpeg_tiles_ycbcr"] = tiff_file(s8, photometric=6, compression=7,
+                                        tile=(16, 16))
+    out["ycbcr_lzw_2x2_default"] = ycbcr_tiff(rng, 19, 21, None,
+                                              compression=5,
+                                              rows_per_strip=6)
+    out["ycbcr_deflate_4x2_refbw"] = ycbcr_tiff(
+        rng, 19, 21, (4, 2), compression=8, rows_per_strip=8,
+        ref=[(15, 1), (235, 1), (128, 1), (240, 1), (128, 1), (240, 1)])
+    out["ycbcr_packbits_1x1_bt709"] = ycbcr_tiff(
+        rng, 19, 21, (1, 1), compression=32773,
+        luma=[(2126, 10000), (7152, 10000), (722, 10000)])
+    out["ycbcr_planar_lzw"] = ycbcr_tiff(rng, 19, 21, (1, 1), planar=2,
+                                         compression=5, rows_per_strip=7)
+    out["jpeg_strips_ycbcr"] = tiff_file(s8, photometric=6, compression=7,
+                                         rows_per_strip=8)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ICO and DIB
+# ---------------------------------------------------------------------------
+
+def dib_file(samples: np.ndarray, bits: int, **kw) -> bytes:
+    """A headerless bitmap: a BMP of ``bmp_file`` without its file
+    header."""
+    h, w = samples.shape[:2]
+    return bmp_file(bmp_rows(samples, bits), w, h, bits, **kw)[14:]
+
+
+def ico_file(entries) -> bytes:
+    """An ICO of (width byte, height byte, colours, bpp, image bytes)
+    entries; a bitmap entry's DIB carries twice its height and the AND
+    mask after its rows."""
+    head = struct.pack("<HHH", 0, 1, len(entries))
+    at = 6 + 16 * len(entries)
+    table, body = b"", b""
+    for wb, hb, colors, bpp, data in entries:
+        table += struct.pack("<BBBBHHII", wb, hb, colors, 0, 1, bpp,
+                             len(data), at + len(body))
+        body += data
+    return head + table + body
+
+
+def ico_bitmap(samples: np.ndarray, bits: int, mask: np.ndarray, **kw):
+    """A DIB for an ICO entry: height doubled, the rows, then the AND
+    mask's 1-bit rows padded to 32 bits, bottom-up."""
+    h, w = samples.shape[:2]
+    rows = bmp_rows(samples, bits)
+    stride = (w + 31) // 32 * 4
+    m = np.packbits(mask.astype(np.uint8), axis=1)
+    m = np.pad(m, ((0, 0), (0, stride - m.shape[1])))[::-1].tobytes()
+    dib = bmp_file(rows + m, w, 2 * h, bits, **kw)[14:]
+    return dib
+
+
+def ico_fixtures(rng) -> dict:
+    from PIL import Image
+
+    img = smooth(rng, 48, 48)
+    out = {}
+    for fmt in ("png", "bmp"):
+        buf = io.BytesIO()
+        Image.fromarray(np.dstack([img, img[..., :1]])).save(
+            buf, "ICO", sizes=[(16, 16), (32, 32), (48, 48)],
+            bitmap_format=fmt)
+        out[f"pil_{fmt}_entries"] = buf.getvalue()
+    mask = rng.integers(0, 2, (32, 32))
+    e = img[:32, :32]
+    entries = []
+    for bits, colors in ((1, 2), (4, 16), (8, 0)):
+        idx = (e[..., 0] >> (8 - bits)).astype(np.uint8)
+        pal = _palette(rng, 1 << bits)
+        entries.append((32, 32, colors % 256, bits, ico_bitmap(
+            idx, bits, mask, palette=pal)))
+        out[f"bitmap_{bits}bit"] = ico_file([entries[-1]])
+    bgr = e[..., ::-1]
+    out["bitmap_24bit"] = ico_file([(32, 32, 0, 24, ico_bitmap(
+        bgr, 24, mask))])
+    bgra = np.dstack([bgr, e[..., :1]])
+    out["bitmap_32bit"] = ico_file([(32, 32, 0, 32, ico_bitmap(
+        bgra, 32, np.zeros_like(mask)))])
+    png_buf = io.BytesIO()
+    Image.fromarray(coco_source()[:256, 100:356]).save(png_buf, "PNG")
+    out["png_256_beside_bitmaps"] = ico_file(
+        entries + [(0, 0, 0, 32, png_buf.getvalue())])
+    small = io.BytesIO()
+    Image.fromarray(e[:20, :24]).save(small, "PNG")
+    out["png_size_disagrees"] = ico_file([(16, 16, 0, 32,
+                                           small.getvalue())])
+    out["same_size_depths"] = ico_file(entries[::-1])
+    return out
+
+
+def dib_fixtures(rng) -> dict:
+    img = smooth(rng, 13, 17)
+    bgr = img[..., ::-1]
+    idx = (img[..., 0] >> 4).astype(np.uint8)
+    out = {}
+    for header in (12, 40, 52, 56, 64, 108, 124):
+        out[f"header_{header}_24bit"] = dib_file(bgr, 24, header=header)
+    out["palette_4bit"] = dib_file(idx, 4, palette=_palette(rng, 16),
+                                   colors=16)
+    out["palette_8bit_core"] = dib_file(
+        idx * 7, 8, header=12, palette=_palette(rng, 256, quad=False))
+    out["bitfields_16bit"] = bmp_file(
+        bmp_rows(np.frombuffer(rng.integers(0, 256, 13 * 17 * 2).astype(
+            np.uint8).tobytes(), np.uint8).reshape(13, 17 * 2), 8),
+        17, 13, 16, compression=3, masks=(0xF800, 0x7E0, 0x1F))[14:]
+    out["rle8"] = bmp_file(rle8(idx * 9), 17, 13, 8, compression=1,
+                           palette=_palette(rng, 256), colors=256)[14:]
+    out["rle4"] = bmp_file(rle4(idx), 17, 13, 4, compression=2,
+                           palette=_palette(rng, 16), colors=16)[14:]
+    out["top_down_32bit"] = dib_file(np.dstack([bgr, bgr[..., :1]]), 32,
+                                     top_down=True)
+    return out
+
+
+def coco_source() -> np.ndarray:
+    """The 640 x 480 (COCO's size) timing image, in integers only: two
+    ramps and a checker."""
+    y, x = np.mgrid[0:480, 0:640]
+    r = x * 255 // 639
+    g = y * 255 // 479
+    b = (((x // 16) ^ (y // 16)) & 15) * 16
+    return np.dstack([r, g, b]).astype(np.uint8)
+
+
+def coco_fixtures(rng) -> dict:
+    """chip_smoke.py's timing inputs at 640 x 480: a GIF of 64 colours,
+    an LZW TIFF with predictor 2 (16-row strips), a Deflate TIFF and a
+    JPEG TIFF (PIL's save). Their pixels are kept as digests
+    (digests.json), not in pixels.npz."""
+    from PIL import Image
+
+    img = coco_source()
+    y, x = np.mgrid[0:480, 0:640]
+    idx = ((x // 20 + (y // 20) * 3) % 64).astype(np.uint8)
+    pal = rng.integers(0, 256, (64, 3))
+    out = {"gif/coco": gif_file(idx, global_pal=pal, min_size=6),
+           "tiff/coco_lzw_pred2": tiff_file(
+               img.astype(np.int64), compression=5, predictor=2,
+               rows_per_strip=16)}
+    for name, kw in (("coco_deflate", {"compression": "tiff_adobe_deflate"}),
+                     ("coco_jpeg", {"compression": "jpeg", "quality": 90})):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "TIFF", **kw)
+        out[f"tiff/{name}"] = buf.getvalue()
+    return out
+
+
+EXTENSIONS = {"pnm": "pnm", "gif": "gif", "tiff": "tif", "ico": "ico",
+              "dib": "dib"}
+
+
+def all_fixtures() -> dict:
+    """{kind: {name: bytes}}, every file of every kind, from SEED."""
+    rng = np.random.default_rng(SEED)
+    out = {"pnm": pnm_fixtures(rng), "gif": gif_fixtures(rng),
+           "tiff": tiff_fixtures(rng), "ico": ico_fixtures(rng),
+           "dib": dib_fixtures(rng)}
+    for key, data in coco_fixtures(rng).items():
+        kind, name = key.split("/")
+        out[kind][name] = data
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--out", default=os.path.join(ROOT, "tests", "data"))
+    args = ap.parse_args(argv)
+    from PIL import Image
+
+    for kind, files in all_fixtures().items():
+        d = os.path.join(args.out, kind)
+        os.makedirs(d, exist_ok=True)
+        for old in os.listdir(d):
+            os.remove(os.path.join(d, old))
+        pixels, digests = {}, {}
+        for name, data in files.items():
+            with open(os.path.join(d, f"{name}.{EXTENSIONS[kind]}"),
+                      "wb") as f:
+                f.write(data)
+            with Image.open(io.BytesIO(data)) as im:
+                px = np.asarray(im.convert("RGB"))
+            if name.startswith("coco"):
+                digests[name] = {"shape": list(px.shape),
+                                 "sha256": hashlib.sha256(
+                                     px.tobytes()).hexdigest()}
+            else:
+                pixels[name] = px
+        np.savez_compressed(os.path.join(d, "pixels.npz"), **pixels)
+        if digests:
+            with open(os.path.join(d, "digests.json"), "w") as f:
+                json.dump(digests, f, indent=1, sort_keys=True)
+                f.write("\n")
+        print(f"wrote {len(files)} {kind.upper()} files and pixels.npz "
+              f"to {d}")
+
+
+if __name__ == "__main__":
+    main()

@@ -29,6 +29,7 @@ from mastermetastyletransfer_tpu.data import pipeline as jpipe
 from mastermetastyletransfer_tpu_torch.config import DataConfig
 from mastermetastyletransfer_tpu_torch.data import native_loader as tnative
 from mastermetastyletransfer_tpu_torch.data import pipeline as tpipe
+from mastermetastyletransfer_tpu_torch.utils import bmp as tbmp
 from scripts import make_jpeg_fixtures
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
@@ -157,23 +158,31 @@ def test_decode_resize_matches_jax(tmp_path, kind):
 def test_read_bmp_takes_only_uncompressed_rgb(tmp_path):
     """Uncompressed 24- and 32-bit files read to their pixels, and what
     once was refused reads to PIL's: PIL's 8-bit palette BMP, PIL's 1-bit
-    and grey ones. A file that is not a BMP gives None; a BMP header the
-    reader does not take (none at all) raises, and PIL refuses it too."""
+    and grey ones, through ``utils/bmp.read_bmp`` and ``decode_image``.
+    A file that is not a BMP is refused by ``read_bmp`` (``decode_image``
+    reads it as what it is); a BMP header the reader does not take (none
+    at all) raises, and PIL refuses it too."""
     rgb = _smooth(np.random.default_rng(6), 21, 13)
     for kind in ("bmp24", "bmp24_topdown", "bmp32"):
         path = tmp_path / f"{kind}.bmp"
         _write(str(path), kind, rgb)
-        assert np.array_equal(tpipe._read_bmp(path.read_bytes()), rgb)
+        assert np.array_equal(tbmp.read_bmp(path.read_bytes()), rgb)
+        assert np.array_equal(tpipe.decode_image(path.read_bytes()), rgb)
     for mode in ("P", "1", "L"):
         path = tmp_path / f"{mode}.bmp"
         Image.fromarray(rgb).convert(mode).save(path)
         with Image.open(path) as im:
             want = np.asarray(im.convert("RGB"))
-        assert np.array_equal(tpipe._read_bmp(path.read_bytes()), want)
+        assert np.array_equal(tbmp.read_bmp(path.read_bytes()), want)
+        assert np.array_equal(tpipe.decode_image(path.read_bytes()), want)
     Image.fromarray(rgb).save(tmp_path / "x.png")
-    assert tpipe._read_bmp((tmp_path / "x.png").read_bytes()) is None
-    with pytest.raises(ValueError, match="BMP"):
-        tpipe._read_bmp(b"BM" + bytes(20))
+    with pytest.raises(ValueError, match="not a BMP"):
+        tbmp.read_bmp((tmp_path / "x.png").read_bytes())
+    assert np.array_equal(
+        tpipe.decode_image((tmp_path / "x.png").read_bytes()), rgb)
+    for read in (tbmp.read_bmp, tpipe.decode_image):
+        with pytest.raises(ValueError, match="BMP"):
+            read(b"BM" + bytes(20))
 
 
 _NO_PIL = textwrap.dedent(r"""
@@ -191,10 +200,10 @@ _NO_PIL = textwrap.dedent(r"""
     from mastermetastyletransfer_tpu_torch.data import pipeline
     folder, size = sys.argv[1], int(sys.argv[2])
     for name in ("a24.bmp", "b32.bmp", "c24_topdown.bmp", "d.png", "e.jpg",
-                 "f.webp", "g.jpg"):
+                 "f.webp", "g.jpg", "i.gif", "j.tif", "k.ppm", "l.ico"):
         np.save(f"{folder}/{name}.npy",
                 pipeline._decode_resize(f"{folder}/{name}", size))
-    for name in ("h.gif",):
+    for name in ("h.tga",):
         try:
             pipeline._decode_resize(f"{folder}/{name}", size)
         except ValueError as e:
@@ -203,9 +212,10 @@ _NO_PIL = textwrap.dedent(r"""
 
 
 def test_decode_resize_without_pil(tmp_path):
-    """With PIL (and JAX) refused, BMP, PNG, JPEG and WebP files, a
-    progressive JPEG among them, give JAX's arrays; a GIF file raises
-    ValueError naming the file and what is read."""
+    """With PIL (and JAX) refused, BMP, PNG, JPEG, WebP, GIF, TIFF (LZW),
+    PPM and ICO files, a progressive JPEG among them, give JAX's arrays; a
+    TGA file (a kind the port does not read) raises ValueError naming the
+    file and what is read."""
     rng = np.random.default_rng(7)
     files = {"a24.bmp": "bmp24", "b32.bmp": "bmp32",
              "c24_topdown.bmp": "bmp24_topdown", "d.png": "png",
@@ -217,7 +227,11 @@ def test_decode_resize_without_pil(tmp_path):
     Image.fromarray(_smooth(rng, 30, 40)).save(tmp_path / "g.jpg",
                                                progressive=True)
     files["g.jpg"] = "progressive jpeg"
-    Image.fromarray(_smooth(rng, 30, 40)).save(tmp_path / "h.gif")
+    Image.fromarray(_smooth(rng, 30, 40)).save(tmp_path / "h.tga")
+    for name, kw in (("i.gif", {}), ("j.tif", {"compression": "tiff_lzw"}),
+                     ("k.ppm", {}), ("l.ico", {"sizes": [(16, 16), (24, 24)]})):
+        Image.fromarray(_smooth(rng, 30, 40)).save(tmp_path / name, **kw)
+        files[name] = name[2:]
     proc = subprocess.run(
         [sys.executable, "-c", _NO_PIL, str(tmp_path), "64"], cwd=ROOT,
         capture_output=True, text=True, timeout=120)
@@ -229,7 +243,7 @@ def test_decode_resize_without_pil(tmp_path):
     errors = [line for line in proc.stdout.splitlines()
               if line.startswith("ERROR")]
     assert len(errors) == 1, proc.stdout
-    assert str(tmp_path / "h.gif") in errors[0]
+    assert str(tmp_path / "h.tga") in errors[0]
     assert "baseline JPEG" in errors[0] and "progressive JPEG" in errors[0]
     assert "WebP" in errors[0]
 
