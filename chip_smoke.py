@@ -163,8 +163,8 @@ the batch loader on five sources of those kinds against the JAX loader's
 batches (prescaled, or through its fallback for CMYK, YCCK and lossless):
 0 values may differ; the host's ms of each of those decodes, and of the
 new kinds at 640x480 (``kinds_640x480``; ``formats_640x480``: a GIF, an
-LZW TIFF with predictor 2, a Deflate TIFF, a JPEG TIFF, a raw and a
-plain PPM); the
+LZW TIFF with predictor 2, a Deflate TIFF, a JPEG TIFF, a T.6, an LZMA
+and a Zstandard TIFF, an RLE TGA, a raw and a plain PPM); the
 host's ms of a progressive decode and of the
 loader on 8 large 4:2:0 JPEGs, prescaled, against the full decode and
 numpy resize; a seeded 512^2 image encoded at quality 95 and decoded: the
@@ -180,8 +180,9 @@ batch 8, bf16 and f32, kernels on against the reference by the slice's
 criteria, launches exactly ``exclude_per_batch``; its split route at
 f32), http (serve's services behind ``make_handler`` on a
 ``ThreadingHTTPServer`` at 127.0.0.1: 16 /stylize requests at k 1 and 3
-from 4 clients (the contents JPEG, PNG, an LZW TIFF, a CMYK JPEG, an Adam7
-PNG, two WebP and a GIF), 4 /stylize_locked (one locked style read from
+from 4 clients (the contents JPEG, PNG, an LZW TIFF, a Zstandard TIFF,
+an Adam7 PNG, two WebP and an RLE TGA), 4 /stylize_locked (one locked
+style read from
 a Deflate TIFF), 2 /sweep, /healthz, two bad bodies
 answered 400; each run's launches exact; each reply the encoder's bytes on
 its own service's output on the same decoded inputs, and decoded by the
@@ -4157,18 +4158,23 @@ TOL_JPEG95_MEAN = 4.5
 # target per n/8 (prescaled, or through its fallback): 0 values may differ.
 KIND_DIRS = {d: os.path.join(os.path.dirname(FIXTURES), d)
              for d in ("jpeg_kinds", "png", "bmp", "webp", "pnm", "gif",
-                       "tiff", "ico", "dib")}
+                       "tiff", "ico", "dib", "tiff_ccitt", "tga")}
 KIND_SUFFIX = {"jpeg_kinds": "jpg", "png": "png", "bmp": "bmp",
                "webp": "webp", "pnm": "pnm", "gif": "gif", "tiff": "tif",
-               "ico": "ico", "dib": "dib"}
+               "ico": "ico", "dib": "dib", "tiff_ccitt": "tif",
+               "tga": "tga"}
 N_KIND_FIXTURES = {"jpeg_kinds": 10, "png": 13, "bmp": 10, "webp": 33,
-                   "pnm": 30, "gif": 25, "tiff": 85, "ico": 10, "dib": 13}
-# The 640x480 timing inputs of the Netpbm/GIF/TIFF/ICO/DIB slice
-# (scripts/make_image_format_fixtures.py): Pillow's pixels of each kept as
-# a digest (digests.json); the PPM is written here.
+                   "pnm": 30, "gif": 25, "tiff": 123, "ico": 10, "dib": 13,
+                   "tiff_ccitt": 24, "tga": 32}
+# The 640x480 timing inputs of the Netpbm, GIF, TIFF, ICO, DIB and TGA
+# readers (scripts/make_image_format_fixtures.py): Pillow's pixels of each
+# kept as a digest (digests.json); the PPM is written here.
 FORMAT_TIMING = {"gif": "gif/coco.gif", "tiff lzw predictor 2":
                  "tiff/coco_lzw_pred2.tif", "tiff deflate":
-                 "tiff/coco_deflate.tif", "tiff jpeg": "tiff/coco_jpeg.tif"}
+                 "tiff/coco_deflate.tif", "tiff jpeg": "tiff/coco_jpeg.tif",
+                 "tiff g4": "tiff/coco_g4.tif", "tiff lzma":
+                 "tiff/coco_lzma.tif", "tiff zstd": "tiff/coco_zstd.tif",
+                 "tga rle": "tga/coco_rle.tga"}
 N_KIND_BATCHES = 40
 
 
@@ -4685,9 +4691,9 @@ def http_call(url: str, body: bytes = None,
 
 
 # The kind of each content body of http_inputs, in order.
-HTTP_CONTENT_KINDS = ("jpeg q90", "png", "tiff lzw predictor 2", "cmyk jpeg",
+HTTP_CONTENT_KINDS = ("jpeg q90", "png", "tiff lzw predictor 2", "tiff zstd",
                       "adam7 png", "webp lossy + alpha", "webp lossless",
-                      "gif")
+                      "tga rle")
 # The locked style s1's body (s0's is a JPEG of the styles).
 HTTP_LOCKED_TIFF = "tiff/coco_deflate.tif"
 
@@ -4696,9 +4702,9 @@ def http_inputs(seed: int = HTTP_SEED) -> dict:
     """The phase's request bodies from a seed: 8 contents at COCO's
     640x480 and 4 styles at 512^2, smooth images encoded by the port's
     JPEG encoder at quality 90, but for one content as PNG, one as an
-    Adam7 PNG, one the CMYK JPEG of tests/data/jpeg_kinds/, two the WebP
-    files of tests/data/webp/ (lossy with alpha, lossless), one the LZW
-    TIFF (predictor 2) and one the GIF of tests/data/{tiff,gif}/; the
+    Adam7 PNG, two the WebP files of tests/data/webp/ (lossy with alpha,
+    lossless), one the LZW TIFF (predictor 2) and one the Zstandard TIFF
+    of tests/data/tiff/ and one the RLE TGA of tests/data/tga/; the
     locked styles are a JPEG of the first style and the Deflate TIFF of
     tests/data/tiff/ (``locked_tiff``)."""
     rng = np.random.default_rng(seed)
@@ -4706,15 +4712,13 @@ def http_inputs(seed: int = HTTP_SEED) -> dict:
     styles = smooth_images(rng, 4, HTTP_STYLE_HW)
     bodies = [encode_jpeg(c, 90) for c in contents]
     bodies[1] = png_bytes(contents[1])
-    with open(os.path.join(KIND_DIRS["jpeg_kinds"],
-                           "trainer_cmyk_adobe.jpg"), "rb") as f:
-        bodies[3] = f.read()
     bodies[4] = png_file(contents[4], 8, 2, interlace=True)
     data = os.path.dirname(FIXTURES)
     for i, rel in ((5, "webp/trainer_lossy_alpha.webp"),
                    (6, "webp/trainer_lossless.webp"),
                    (2, FORMAT_TIMING["tiff lzw predictor 2"]),
-                   (7, FORMAT_TIMING["gif"])):
+                   (3, FORMAT_TIMING["tiff zstd"]),
+                   (7, FORMAT_TIMING["tga rle"])):
         with open(os.path.join(data, rel), "rb") as f:
             bodies[i] = f.read()
     with open(os.path.join(data, HTTP_LOCKED_TIFF), "rb") as f:
@@ -4927,8 +4931,8 @@ def run_http() -> dict:
         content_bodies=list(HTTP_CONTENT_KINDS),
         stylize_p50_ms=float(np.median(lat)) * 1e3,
         stylize_p50_note="not comparable with runs whose contents had a "
-                         "BMP and a second JPEG where a TIFF and a GIF "
-                         "are now",
+                         "CMYK JPEG and a GIF where a Zstandard TIFF and an "
+                         "RLE TGA are now",
         stylize_max_ms=float(np.max(lat)) * 1e3,
         stylize_imgs_per_s=len(lat) / sum(run["wall"] for run in stylize),
         runs={label: dict(requests=len(run["reqs"]), batches=run["batches"],

@@ -1,7 +1,9 @@
 """ctypes bridge to the native library: the port's own JPEG codec
 (``native/jpeg.cpp``), its WebP and GIF decoders (``native/webp.cpp``,
 ``native/gif.cpp``), the byte-serial TIFF codecs that ``utils/tiff.py``
-drives (``native/tiff.cpp``) and the batch loader that decodes and
+drives (``native/tiff.cpp``, with CCITT in ``native/fax.cpp`` and
+Zstandard in ``native/zstd.cpp``), TGA's run-length decoder
+(``native/tga.cpp``) and the batch loader that decodes and
 resizes JPEGs on worker threads (``native/loader.cpp``; JAX counterpart:
 data/native_loader.py, which links libjpeg, and PIL for every other
 file).
@@ -11,7 +13,8 @@ native/build.sh, less libjpeg, which neither machine needs:
 
     g++ -O3 -march=native -shared -fPIC -o build/libmmst_loader-<hash>.so
         native/loader.cpp native/jpeg.cpp native/webp.cpp native/gif.cpp
-        native/tiff.cpp -lpthread
+        native/tiff.cpp native/fax.cpp native/zstd.cpp native/tga.cpp
+        -lpthread
 
 into ``build/`` at the repository root (listed in .gitignore), keyed by a
 hash of the sources and the flags; the library is written to a temporary
@@ -40,9 +43,13 @@ It runs on the host, not on the device.
   Pillow refuses, or a canvas above the decompression-bomb limit, raises
   ``ValueError`` naming the reason.
 * ``decode_tiff``: a TIFF's strips or tiles (a ``TIFF_CHUNK`` table)
-  through libtiff's LZW, PackBits or JPEG codec as libtiff runs them for
-  Pillow, many in one call (``utils/tiff.py`` reads the file and lays out
-  the rows).
+  through libtiff's LZW, PackBits, JPEG, CCITT (``native/fax.cpp``) or
+  Zstandard (``native/zstd.cpp``) codec as libtiff runs them for Pillow,
+  many in one call (``utils/tiff.py`` reads the file and lays out the
+  rows).
+* ``decode_tga_rle``: a TGA's run-length packets as Pillow's
+  TgaRleDecode.c reads them (``native/tga.cpp``; ``utils/tga.py`` reads
+  the header and the colours).
 * ``encode_jpeg(uint8 (H, W, 3), quality) -> bytes``: baseline 4:2:0 JFIF
   as PIL's ``Image.save(..., "JPEG", quality=q)`` writes it (IJG tables
   scaled to the quality, standard Huffman tables).
@@ -59,7 +66,7 @@ The codecs keep no state between calls, and ctypes releases the
 interpreter lock while they run: the HTTP server's threads decode at once.
 Where the library does not build (no g++), the codecs raise
 ``RuntimeError`` with the compiler's reason; nothing decodes a JPEG, a
-WebP, a GIF or a compressed TIFF by another route.
+WebP, a GIF, a compressed TIFF or a run-length TGA by another route.
 """
 
 from __future__ import annotations
@@ -76,9 +83,11 @@ import numpy as np
 
 NATIVE = Path(__file__).resolve().parents[1] / "native"
 SOURCES = [NATIVE / "loader.cpp", NATIVE / "jpeg.cpp", NATIVE / "webp.cpp",
-           NATIVE / "gif.cpp", NATIVE / "tiff.cpp"]
+           NATIVE / "gif.cpp", NATIVE / "tiff.cpp", NATIVE / "fax.cpp",
+           NATIVE / "zstd.cpp", NATIVE / "tga.cpp"]
 HEADERS = [NATIVE / "jpeg.h", NATIVE / "webp.h", NATIVE / "gif.h",
-           NATIVE / "tiff.h"]
+           NATIVE / "tiff.h", NATIVE / "fax.h", NATIVE / "zstd.h",
+           NATIVE / "tga.h"]
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 LIBS = ["-lpthread"]
@@ -89,8 +98,8 @@ _ERR_LEN = 256
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 # native/tiff.h Chunk, one row of the table decode_tiff takes
 TIFF_CHUNK = np.dtype([("offset", "<u8"), ("count", "<u8"), ("need", "<i8"),
-                       ("width", "<i4"), ("height", "<i4"), ("last", "<i4")],
-                      align=True)
+                       ("width", "<i4"), ("height", "<i4"), ("last", "<i4"),
+                       ("status", "<i4")], align=True)
 
 
 def library_path() -> Path:
@@ -148,9 +157,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mmst_tiff_decode.restype = ctypes.c_int
     lib.mmst_tiff_decode.argtypes = [
         ctypes.c_int, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
-        ctypes.c_size_t, ctypes.c_int, ctypes.c_int, _u8p, ctypes.c_char_p,
-        ctypes.c_int]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, _u8p, ctypes.c_char_p, ctypes.c_int]
+    lib.mmst_tiff_state_new.restype = ctypes.c_void_p
+    lib.mmst_tiff_state_new.argtypes = []
+    lib.mmst_tiff_state_free.restype = None
+    lib.mmst_tiff_state_free.argtypes = [ctypes.c_void_p]
+    lib.mmst_tga_rle.restype = ctypes.c_int
+    lib.mmst_tga_rle.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, _u8p, ctypes.c_char_p, ctypes.c_int]
 
 
 def _load_library() -> Optional[ctypes.CDLL]:
@@ -182,7 +199,9 @@ def _library() -> ctypes.CDLL:
     if lib is None:
         raise RuntimeError("the native codecs (native/jpeg.cpp, "
                            "native/webp.cpp, native/gif.cpp, "
-                           "native/tiff.cpp) did not build: "
+                           "native/tiff.cpp, native/fax.cpp, "
+                           "native/zstd.cpp, native/tga.cpp) did not "
+                           "build: "
                            f"{_state['error']}")
     return lib
 
@@ -250,19 +269,46 @@ def decode_gif(data: bytes) -> np.ndarray:
     return out
 
 
+class TiffState:
+    """What libtiff keeps from one strip or tile of an image to the next
+    (native/tiff.h State: the CCITT codec's run arrays and "no EOL" mode,
+    the tables libjpeg holds), for the ``decode_tiff`` calls over one
+    image; a context manager that frees it."""
+
+    def __init__(self):
+        self._lib = _library()
+        self.handle = self._lib.mmst_tiff_state_new()
+
+    def __enter__(self) -> "TiffState":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.handle:
+            self._lib.mmst_tiff_state_free(self.handle)
+            self.handle = None
+
+
 def decode_tiff(compression: int, data: bytes, chunks: np.ndarray,
                 reverse: bool, tables: bytes, colour: int, channels: int,
-                out: np.ndarray, tolerant: bool = False) -> None:
+                out: np.ndarray, tolerant: bool = False, carry: bool = False,
+                options: int = 0, state: Optional[TiffState] = None
+                ) -> np.ndarray:
     """Decode a TIFF's strips or tiles (``chunks``, a ``TIFF_CHUNK``
     array) into ``out`` (uint8, their bytes one after another) with the
     byte-serial codecs of native/tiff.cpp: compression 5 (LZW), 32773
-    (PackBits) or 7 (JPEG, ``tables`` the JPEGTables stream, ``colour`` 1
-    YCbCr to RGB or 2 the ``channels`` components as stored); ``reverse``
-    reverses each byte's bits first (FillOrder 2). ValueError naming the
-    chunk and the reason where libtiff refuses it; with ``tolerant`` a
-    failed chunk keeps what its codec wrote before it failed and the call
-    goes on (libtiff's TIFFRGBAImage reading)."""
-    chunks = np.ascontiguousarray(chunks, TIFF_CHUNK)
+    (PackBits), 7 (JPEG, ``tables`` the JPEGTables stream, ``colour`` 1
+    YCbCr to RGB or 2 the ``channels`` components as stored, ``options``
+    the expected sampling, native/tiff.h), 2, 3, 4 and 32771 (CCITT;
+    ``options`` the T4Options tag; each chunk's ``height`` its rows) or
+    50000 (Zstandard), ``state`` the image's TiffState (else one for this
+    call); ``reverse`` reverses each byte's bits
+    first (FillOrder 2). ValueError naming the chunk and the reason where
+    libtiff refuses it; with ``tolerant`` a failed chunk keeps what its
+    codec wrote before it failed and the call goes on (libtiff's
+    TIFFRGBAImage reading); with ``carry`` each chunk starts from the
+    bytes of the one before (one buffer for all, as libtiff's and
+    Pillow's). Returns each chunk's status (0 decoded, 1 failed)."""
+    chunks = np.array(chunks, TIFF_CHUNK)
     if (chunks.ndim != 1 or len(chunks) >= 1 << 31
             or out.dtype != np.uint8 or not out.flags.c_contiguous
             or out.size < int(chunks["need"].sum())):
@@ -271,11 +317,30 @@ def decode_tiff(compression: int, data: bytes, chunks: np.ndarray,
     err = ctypes.create_string_buffer(_ERR_LEN)
     if lib.mmst_tiff_decode(int(compression), bytes(data), len(data),
                             chunks.ctypes.data, len(chunks), int(reverse),
-                            int(tolerant), bytes(tables), len(tables),
-                            int(colour),
-                            int(channels), out.ctypes.data_as(_u8p), err,
-                            _ERR_LEN):
+                            int(tolerant), int(carry), bytes(tables),
+                            len(tables), int(colour), int(channels),
+                            int(options), state.handle if state else None,
+                            out.ctypes.data_as(_u8p), err, _ERR_LEN):
         raise ValueError(err.value.decode(errors="replace"))
+    return chunks["status"].copy()
+
+
+def decode_tga_rle(data: bytes, depth: int, linesize: int, ysize: int,
+                   bottom_up: bool) -> np.ndarray:
+    """A TGA's run-length packets (``data``, from the first packet) as
+    Pillow's TgaRleDecode.c reads them: (ysize, linesize) uint8 rows of
+    ``depth`` bytes a pixel, the file's first row at the bottom where
+    ``bottom_up``. ValueError where Pillow refuses (the data ends early, a
+    run crosses a row's end). The caller bounds ysize * linesize."""
+    lib = _library()
+    data = bytes(data)
+    out = np.zeros((ysize, linesize), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if lib.mmst_tga_rle(data, len(data), int(depth), int(linesize),
+                        int(ysize), int(bottom_up), out.ctypes.data_as(_u8p),
+                        err, _ERR_LEN):
+        raise ValueError(err.value.decode(errors="replace"))
+    return out
 
 
 def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:

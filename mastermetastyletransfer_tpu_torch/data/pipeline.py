@@ -14,17 +14,20 @@ step's two inputs so, by the configuration, as the JAX trainer does.
 
 No PIL (the machine with the card has none): ``decode_image`` reads
 what PIL's ``Image.open`` opens with the plugins it tries first (BMP,
-DIB, GIF, JPEG, PPM, PNG) and three of the rest (ICO, TIFF, WebP), each
-kind picked as Pillow picks its plugin and read bit for bit as
+DIB, GIF, JPEG, PPM, PNG) and four of the rest (ICO, TIFF, TGA, WebP),
+trying Pillow's plugins in its order as ``Image.open`` does (the port's
+kinds by their plugins' ``_accept`` and ``_open``, the others by
+``utils/plugins.takes``), and reads each bit for bit as
 ``convert("RGB")`` gives it (``READ_FORMATS``): BMP and DIB with
 ``utils/bmp``, PNG with ``utils/png.read_png``, Netpbm with
 ``utils/pnm.read_pnm``, ICO with ``utils/ico.read_ico``, TIFF with
-``utils/tiff.read_tiff``, JPEG, GIF and WebP with the port's own
-decoders (``native_loader.decode_jpeg`` at full size as PIL decodes,
-``decode_gif`` and ``decode_webp`` the first frame on its canvas); and
-``_resize_bilinear`` computes Pillow's BILINEAR resample bit for bit. A
-file none of them reads (TGA, a CCITT TIFF, a 12-bit JPEG, ...) raises
-``ValueError`` naming it and the formats that are read. The
+``utils/tiff.read_tiff``, TGA with ``utils/tga.read_tga``, JPEG, GIF and
+WebP with the port's own decoders (``native_loader.decode_jpeg`` at full
+size as PIL decodes, ``decode_gif`` and ``decode_webp`` the first frame
+on its canvas); and ``_resize_bilinear`` computes Pillow's BILINEAR
+resample bit for bit. A file none of them reads (PCX, a CIELab TIFF, a
+12-bit JPEG, ...) raises ``ValueError`` naming it and the formats that
+are read. The
 batch loader (``native_loader.decode_resize_batch``) takes the JAX package's
 loader's route for each JPEG: prescaled in the DCT domain as its libjpeg
 does, or, for the kinds that libjpeg does not decode to RGB (CMYK, YCCK,
@@ -63,10 +66,12 @@ from mastermetastyletransfer_tpu_torch.utils.bmp import (
 )
 from mastermetastyletransfer_tpu_torch.utils.ico import MAGIC as ICO_MAGIC
 from mastermetastyletransfer_tpu_torch.utils.ico import read_ico
-from mastermetastyletransfer_tpu_torch.utils.png import read_png
+from mastermetastyletransfer_tpu_torch.utils.plugins import takes
+from mastermetastyletransfer_tpu_torch.utils.png import OpenRefusal, read_png
 from mastermetastyletransfer_tpu_torch.utils.pnm import accept as pnm_accept
 from mastermetastyletransfer_tpu_torch.utils.pnm import read_pnm
 from mastermetastyletransfer_tpu_torch.utils.tiff import accept as tiff_accept
+from mastermetastyletransfer_tpu_torch.utils.tga import read_tga
 from mastermetastyletransfer_tpu_torch.utils.tiff import read_tiff
 
 _EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
@@ -179,16 +184,20 @@ READ_FORMATS = (
     "PBM, PGM, PPM and PFM (plain and raw, any maxval)",
     "PNG (grey, RGB, palette, grey + alpha, RGBA at 1 to 16 bits, Adam7)",
     "ICO (its largest image, PNG or BMP)",
-    "TIFF (IFD 0: uncompressed, LZW, PackBits, Deflate or JPEG; strips or "
-    "tiles; 1 to 32 bits)",
+    "TIFF (IFD 0: uncompressed, LZW, PackBits, Deflate, JPEG, CCITT "
+    "Modified Huffman, RLE-W, T.4 and T.6, LZMA or Zstandard; strips or "
+    "tiles; 1 to 32 bits; YCbCr at any subsampling)",
+    "TGA (colour-mapped, grey and true colour, raw and run-length)",
     "WebP (lossy, lossless, alpha, animation's first frame)")
 
-# The kinds in the order Pillow's Image.open tries its plugins (the order
-# they register in: BMP, DIB, GIF, JPEG, PPM and PNG by Image.preinit, ICO,
-# TIFF and WebP among the rest by Image.init), each with its plugin's
-# _accept on the file's first bytes. No two accept the same bytes, so the
-# first that accepts is the one that reads: a file it refuses is refused
-# (Pillow may still open it with a plugin the port does not have).
+# Pillow's plugins in the order its Image.open tries them (the order they
+# register in: BMP, DIB, GIF, JPEG, PPM and PNG by Image.preinit, the rest
+# by Image.init), each with its _accept on the file's first bytes. The
+# port's kinds read (a refusal of theirs that Pillow's _open raises as one
+# of the exceptions it passes over is an OpenRefusal, and the next plugin
+# is tried); a plugin the port does not read (a reader of None) ends the
+# search where Pillow's would (utils/plugins.takes), and the bytes are
+# refused by its name.
 _KINDS = (
     ("BMP", lambda d: d[:2] == b"BM", read_bmp),
     ("DIB", dib_accept, read_dib),
@@ -198,20 +207,45 @@ _KINDS = (
     ("PNG", lambda d: d[:8] == b"\x89PNG\r\n\x1a\n", read_png),
     ("ICO", lambda d: d[:4] == ICO_MAGIC, read_ico),
     ("TIFF", tiff_accept, read_tiff),
+    ("TGA", lambda d: True, read_tga),
     ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP"
      and d[12:16] in (b"VP8 ", b"VP8X", b"VP8L"), decode_webp),
 )
+_ORDER = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "AVIF", "BLP", "BUFR",
+          "CUR", "PCX", "DCX", "DDS", "EPS", "FITS", "FLI", "FTEX", "GBR",
+          "GRIB", "HDF5", "JPEG2000", "ICNS", "ICO", "IM", "IMT", "IPTC",
+          "MCIDAS", "MPEG", "TIFF", "MSP", "PCD", "PIXAR", "PSD", "QOI",
+          "SGI", "SPIDER", "SUN", "TGA", "WEBP", "WMF", "XBM", "XPM",
+          "XVTHUMB")
+_READERS = {name: (accept, read) for name, accept, read in _KINDS}
 
 
 def decode_image(data: bytes) -> np.ndarray:
     """An image file's bytes as uint8 (H, W, 3) RGB, as PIL's
-    ``Image.open(...).convert("RGB")`` gives them: the kind by its first
-    bytes, as Pillow picks its plugin, then that kind's reader;
-    ``ValueError`` for bytes no reader takes or a file its reader
+    ``Image.open(...).convert("RGB")`` gives them: Pillow's plugins tried
+    in its order, each that accepts the first bytes opening them, the
+    first that opens them reading them; ``ValueError`` for bytes no
+    plugin opens, a plugin the port does not read, or a file its reader
     refuses."""
-    for _, accept, read in _KINDS:
-        if accept(data[:16]):
+    prefix = data[:16]
+    first = None
+    for name in _ORDER:
+        if name not in _READERS:
+            if takes(name, data):
+                raise ValueError(
+                    f"{name}: a kind this does not read (Pillow opens it "
+                    f"with its {name} plugin; read: "
+                    + ", ".join(READ_FORMATS) + ")")
+            continue
+        accept, read = _READERS[name]
+        if not accept(prefix):
+            continue
+        try:
             return read(data)
+        except OpenRefusal as e:   # Pillow goes on to its next plugin
+            first = first or e
+    if first is not None:
+        raise ValueError(f"{first} (and no other kind opens it)")
     raise ValueError("not an image this reads (read: "
                      + ", ".join(READ_FORMATS) + ")")
 

@@ -67,6 +67,7 @@
 
 #include <algorithm>
 #include <cstdlib>
+#include <cstdio>
 #include <cstring>
 #include <stdexcept>
 #include <string>
@@ -977,6 +978,44 @@ struct Decoder {
   int scale = 8;            // the output is scale / 8 of the frame's size
   uint16_t qt[4][64] = {};  // natural order
   bool qt_present[4] = {};
+  int qt_prec[4] = {};
+  // each defined Huffman table's DHT payload (class, id), for tables()
+  std::vector<uint8_t> dht_raw[2][4];
+  // libtiff's JPEG codec: a frame whose first scan codes every component
+  // (no buffered image) is read to that scan's end only, as
+  // jpeg_read_scanlines reads it; the markers after go unread
+  bool stop_after_scan = false;
+  bool scanned = false;
+  int scan_components = 0;
+
+  // The decoder's tables as a tables-only stream (SOI, DQT, DHT, EOI):
+  // what libjpeg keeps from one image to the next.
+  std::vector<uint8_t> tables() const {
+    std::vector<uint8_t> o = {0xFF, 0xD8};
+    for (int t = 0; t < 4; ++t) {
+      if (!qt_present[t]) continue;
+      const int n = 64 * (qt_prec[t] ? 2 : 1);
+      o.insert(o.end(), {0xFF, 0xDB, uint8_t((n + 3) >> 8),
+                         uint8_t((n + 3) & 255), uint8_t(qt_prec[t] << 4 | t)});
+      for (int i = 0; i < 64; ++i) {
+        const uint16_t v = qt[t][kNatural[i]];
+        if (qt_prec[t]) o.push_back(uint8_t(v >> 8));
+        o.push_back(uint8_t(v & 255));
+      }
+    }
+    for (int tc = 0; tc < 2; ++tc) {
+      for (int th = 0; th < 4; ++th) {
+        const std::vector<uint8_t>& r = dht_raw[tc][th];
+        if (r.empty()) continue;
+        const size_t n = r.size() + 1;
+        o.insert(o.end(), {0xFF, 0xC4, uint8_t((n + 2) >> 8),
+                           uint8_t((n + 2) & 255), uint8_t(tc << 4 | th)});
+        o.insert(o.end(), r.begin(), r.end());
+      }
+    }
+    o.insert(o.end(), {0xFF, 0xD9});
+    return o;
+  }
   DecHuff dc[4], ac[4];
   std::vector<Component> comps;
   int width = 0, height = 0, hmax = 1, vmax = 1;
@@ -1028,8 +1067,10 @@ struct Decoder {
       for (int i = 0; i < 64; ++i)
         qt[t][kNatural[i]] = uint16_t(pq ? u16() : byte());
       qt_present[t] = true;
+      qt_prec[t] = pq;
     }
-    pos = end;
+    // jdmarker.c get_dqt: the tables must fill the segment exactly
+    if (pos != end) fail("bad DQT segment length");
   }
 
   void read_dht() {
@@ -1043,6 +1084,9 @@ struct Decoder {
       for (int l = 1; l <= 16; ++l) total += bits[l] = byte();
       if (total > 256 || pos + total > end) fail("bad DHT segment");
       (tc ? ac : dc)[th].build(bits, data + pos, total);
+      dht_raw[tc][th].assign(bits + 1, bits + 17);
+      dht_raw[tc][th].insert(dht_raw[tc][th].end(), data + pos,
+                             data + pos + total);
       pos += total;
     }
     pos = end;
@@ -1078,7 +1122,8 @@ struct Decoder {
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    pos = end;
+    // jdmarker.c get_sof: the segment holds the components, exactly
+    if (pos != end) fail("bad SOF segment length");
     if (int64_t(width) * height > kMaxPixels)
       fail("JPEG of " + std::to_string(width) + "x" + std::to_string(height) +
            " pixels is above the limit of " + std::to_string(kMaxPixels) +
@@ -1332,6 +1377,7 @@ struct Decoder {
     size_t end = segment();
     int ns = byte();
     if (ns < 1 || ns > int(comps.size())) fail("bad SOS segment");
+    scan_components = ns;
     std::vector<Component*> scan;
     const int max_table = arithmetic ? 15 : 3;
     for (int i = 0; i < ns; ++i) {
@@ -1348,8 +1394,8 @@ struct Decoder {
     }
     int ss = byte(), se = byte(), ah = byte(), al = ah & 15;
     ah >>= 4;
-    if (pos > end) fail("bad SOS segment");
-    pos = end;
+    // jdmarker.c get_sos: the segment holds the scan's components, exactly
+    if (pos != end) fail("bad SOS segment length");
     if (lossless) {
       // jdlossls.c: Ss the predictor, Se and Ah unused, Al the point
       // transform
@@ -1940,11 +1986,23 @@ struct Decoder {
         restart_interval = u16();
         pos = end;
       } else if (m == 0xDA) {
+        const bool first = !scanned;
+        scanned = true;
         read_sos();
-      } else if (m >= 0xD0 && m <= 0xD7) {
-        continue;  // a stray restart marker between segments
+        if (stop_after_scan && first && !progressive &&
+            scan_components == int(comps.size()))
+          break;
+      } else if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) {
+        continue;  // a stray restart marker or TEM: no parameters
+      } else if (m == 0xD8) {
+        fail("a second SOI marker");
+      } else if (!(m >= 0xE0 && m <= 0xEF) && m != 0xFE && m != 0xDC) {
+        // jdmarker.c read_markers: DHP, EXP, JPGn and RESn are fatal
+        char hex[8];
+        std::snprintf(hex, sizeof(hex), "%02X", m);
+        fail(std::string("unsupported marker type 0x") + hex);
       } else {
-        size_t end = segment();  // APPn, COM and the rest
+        size_t end = segment();  // APPn, COM and DNL (ignored)
         // jdmarker.c examine_app0 / examine_app14: JFIF in an APP0 of 14
         // bytes at the least, the Adobe transform in an APP14 of 12
         if (m == 0xE0 && end - pos >= 14 &&
@@ -1959,6 +2017,8 @@ struct Decoder {
       }
     }
     if (!frame) fail("JPEG without a frame header");
+    // jdapimin.c jpeg_read_header: an image needs a scan
+    if (!scanned) fail("JPEG without a scan (missing SOS marker)");
     // A component that no scan coded is mid grey (its blocks all zero, as
     // libjpeg leaves them); a lossless frame's has no value to show.
     for (auto& c : comps)
@@ -2237,7 +2297,25 @@ Info frame_info(const uint8_t* data, size_t size) {
   d.data = data;
   d.size = size;
   d.run(nullptr, 0, 0);
-  return Info{d.width, d.height, int(d.comps.size()), d.lossless};
+  Info info{d.width, d.height, int(d.comps.size()), d.lossless};
+  info.h0 = d.comps.empty() ? 0 : d.comps[0].h;
+  info.v0 = d.comps.empty() ? 0 : d.comps[0].v;
+  info.others_1x1 = true;
+  for (size_t k = 1; k < d.comps.size(); ++k)
+    if (d.comps[k].h != 1 || d.comps[k].v != 1) info.others_1x1 = false;
+  return info;
+}
+
+std::vector<uint8_t> decode_tiff_chunk(const uint8_t* data, size_t size,
+                                       uint8_t* out, int width, int height,
+                                       int colour) {
+  Decoder d;
+  d.data = data;
+  d.size = size;
+  d.colour = colour;
+  d.stop_after_scan = true;
+  d.run(out, width, height);
+  return d.tables();
 }
 
 

@@ -15,6 +15,10 @@ namespace mmst_jpeg {
 struct Info {
   int width, height, components;
   bool lossless;
+  // the sampling factors of the first component; whether the others' are
+  // all 1 x 1
+  int h0 = 0, v0 = 0;
+  bool others_1x1 = true;
 };
 
 // The frame header of an 8-bit JPEG that the decoder reads (sequential or
@@ -43,6 +47,16 @@ constexpr int kColourRaw = 2;   // the components as stored, one a byte
 // tiles so (JPEGCOLORMODE_RGB, or JCS_UNKNOWN).
 void decode_colour(const uint8_t* data, size_t size, uint8_t* out,
                    int width, int height, int colour);
+
+// Decode as decode_colour does one strip or tile of a JPEG TIFF for
+// libtiff's JPEG codec: a frame whose first scan codes every component is
+// read to that scan's end, the markers after unread (libtiff ignores what
+// jpeg_finish_decompress meets). Returns the decoder's tables at the end
+// as a tables-only stream (SOI, DQT, DHT, EOI), which libjpeg keeps for
+// the next strip or tile.
+std::vector<uint8_t> decode_tiff_chunk(const uint8_t* data, size_t size,
+                                       uint8_t* out, int width, int height,
+                                       int colour);
 
 // The same at n/8 of the frame's size (n in 1..8), as libjpeg-turbo 2.1
 // (the JAX loader's) gives it with scale_num = n, scale_denom = 8 and its

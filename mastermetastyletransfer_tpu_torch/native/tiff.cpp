@@ -1,7 +1,8 @@
 // The TIFF codecs that run byte by byte, with no library beyond libstdc++:
 // libtiff's LZW (tif_lzw.c) and PackBits (tif_packbits.c) decoders as
-// Pillow's libtiff runs them, and its JPEG codec's (tif_jpeg.c) framing of
-// each strip or tile around native/jpeg.cpp. utils/tiff.py parses the
+// Pillow's libtiff runs them, its JPEG codec's (tif_jpeg.c) framing of
+// each strip or tile around native/jpeg.cpp, and the dispatch to the
+// CCITT (native/fax.cpp) and Zstandard (native/zstd.cpp) decoders. utils/tiff.py parses the
 // file, calls decode once for all the strips or tiles of an image (ctypes
 // releases the interpreter lock), and undoes the predictor and the sample
 // layout in numpy.
@@ -34,12 +35,15 @@
 
 #include "tiff.h"
 
+#include <algorithm>
 #include <cstring>
 #include <stdexcept>
 #include <string>
 #include <vector>
 
+#include "fax.h"
 #include "jpeg.h"
+#include "zstd.h"
 
 namespace mmst_tiff {
 
@@ -212,12 +216,14 @@ std::vector<uint8_t> fake_eoi(const uint8_t* in, size_t n) {
   return s;
 }
 
-void jpeg(int i, const uint8_t* in, size_t n, const uint8_t* tables,
-          size_t ntables, int colour, int channels, const Chunk& c,
-          uint8_t* op) {
+void jpeg(int i, const uint8_t* in, size_t n, int colour, int channels,
+          int options, const Chunk& c, State& st, uint8_t* op) {
+  // the tables libjpeg holds (JPEGTables first, then each strip's or
+  // tile's own), read before the chunk's stream
   std::vector<uint8_t> stream;
-  if (ntables) {   // the tables' segments, then the chunk after its SOI
-    const std::vector<uint8_t> t = fake_eoi(tables, ntables);
+  if (!st.jpeg_tables.empty()) {   // their segments, then the chunk's
+    const std::vector<uint8_t> t =
+        fake_eoi(st.jpeg_tables.data(), st.jpeg_tables.size());
     if (t[0] != 0xFF || t[1] != 0xD8)
       fail(i, "JPEG: JPEGTables does not start with SOI");
     stream.assign(t.begin(), t.begin() + 2);
@@ -253,17 +259,35 @@ void jpeg(int i, const uint8_t* in, size_t n, const uint8_t* tables,
   in = stream.data();
   n = stream.size();
   const mmst_jpeg::Info f = mmst_jpeg::frame_info(in, n);
+  // tif_jpeg.c JPEGPreDecode's checks
   const int comps = colour == mmst_jpeg::kColourYcc ? 3 : f.components;
+  const bool planar = options & kJpegPlanar;
+  if (!(f.width == c.width && f.height > c.height && c.last) &&
+      (f.width > c.width || f.height > c.height))
+    fail(i, "JPEG: a frame of " + std::to_string(f.width) + "x" +
+                std::to_string(f.height) + " exceeds its segment of " +
+                std::to_string(c.width) + "x" + std::to_string(c.height));
   if (f.components != (colour == mmst_jpeg::kColourYcc ? 3 : channels))
     fail(i, "JPEG: improper component count");
-  if (f.width != c.width ||
-      (f.height > c.height && !c.last) || f.height < c.height)
-    fail(i, "JPEG: a frame of " + std::to_string(f.width) + "x" +
-                std::to_string(f.height) + " for a segment of " +
-                std::to_string(c.width) + "x" + std::to_string(c.height));
+  if (!planar && st.jpeg_h == 0) {   // JPEGFixupTagsSubsampling
+    st.jpeg_h = options & 15 ? options & 15 : f.h0;
+    st.jpeg_v = (options >> 4) & 15 ? (options >> 4) & 15 : f.v0;
+  }
+  const int h = planar ? 1 : st.jpeg_h, v = planar ? 1 : st.jpeg_v;
+  if (f.h0 != h || f.v0 != v || (!planar && !f.others_1x1))
+    fail(i, "JPEG: improper sampling factors");
+  // jpeg_read_scanlines: the frame's rows, as wide as the frame, into the
+  // segment's rows; a smaller frame leaves the rest as the buffer held
   std::vector<uint8_t> px(size_t(f.width) * f.height * comps);
-  mmst_jpeg::decode_colour(in, n, px.data(), f.width, f.height, colour);
-  std::memcpy(op, px.data(), size_t(c.need));
+  st.jpeg_tables = mmst_jpeg::decode_tiff_chunk(in, n, px.data(), f.width,
+                                                f.height, colour);
+  const int rows = std::min(c.height, f.height);
+  const int64_t rowbytes = c.height ? c.need / c.height : 0;
+  const size_t width = std::min<size_t>(size_t(f.width) * comps,
+                                        size_t(rowbytes));
+  for (int r = 0; r < rows; ++r)
+    std::memcpy(op + r * rowbytes, px.data() + size_t(r) * f.width * comps,
+                width);
 }
 
 uint8_t reversed(uint8_t b) {
@@ -275,8 +299,8 @@ uint8_t reversed(uint8_t b) {
 }  // namespace
 
 void decode_one(int compression, const uint8_t* data, size_t size,
-                const Chunk& c, int i, int reverse, const uint8_t* tables,
-                size_t ntables, int colour, int channels, uint8_t* out) {
+                const Chunk& c, int i, int reverse, int colour, int channels,
+                int options, State& st, uint8_t* out) {
   if (c.count == 0) fail(i, "a strip or tile of 0 bytes");
   if (c.offset > size || c.count > size - c.offset)
     fail(i, "read error: the strip or tile runs past the file");
@@ -292,7 +316,22 @@ void decode_one(int compression, const uint8_t* data, size_t size,
   } else if (compression == 32773) {
     packbits(i, in, c.count, out, c.need);
   } else if (compression == 7) {
-    jpeg(i, in, c.count, tables, ntables, colour, channels, c, out);
+    jpeg(i, in, c.count, colour, channels, options, c, st, out);
+  } else if (compression == 2 || compression == 3 || compression == 4 ||
+             compression == 32771) {
+    try {
+      mmst_fax::decode(compression, options, in, c.count, c.offset, c.width,
+                       c.height, c.height ? c.need / c.height : 0, out,
+                       st.fax);
+    } catch (const std::runtime_error& e) {
+      fail(i, e.what());
+    }
+  } else if (compression == 50000) {
+    try {
+      mmst_zstd::decode(in, c.count, out, size_t(c.need));
+    } catch (const std::runtime_error& e) {
+      fail(i, e.what());
+    }
   } else {
     fail(i, "compression " + std::to_string(compression) +
                 " is not a byte-serial codec");
@@ -300,14 +339,23 @@ void decode_one(int compression, const uint8_t* data, size_t size,
 }
 
 void decode(int compression, const uint8_t* data, size_t size,
-            const Chunk* chunks, int n, int reverse, int tolerant,
+            Chunk* chunks, int n, int reverse, int tolerant, int carry,
             const uint8_t* tables, size_t ntables, int colour, int channels,
-            uint8_t* out) {
+            int options, State& st, uint8_t* out) {
+  if (!st.jpeg_started) {   // libjpeg reads JPEGTables once, first
+    st.jpeg_tables.assign(tables, tables + ntables);
+    st.jpeg_started = true;
+  }
   for (int i = 0; i < n; ++i) {
+    if (carry && i > 0)
+      std::memcpy(out, out - chunks[i - 1].need,
+                  size_t(std::min(chunks[i].need, chunks[i - 1].need)));
+    chunks[i].status = 0;
     try {
-      decode_one(compression, data, size, chunks[i], i, reverse, tables,
-                 ntables, colour, channels, out);
+      decode_one(compression, data, size, chunks[i], i, reverse, colour,
+                 channels, options, st, out);
     } catch (const std::runtime_error&) {
+      chunks[i].status = 1;
       if (!tolerant) throw;
     }
     out += chunks[i].need;
@@ -319,13 +367,16 @@ void decode(int compression, const uint8_t* data, size_t size,
 extern "C" {
 
 int mmst_tiff_decode(int compression, const uint8_t* data, size_t size,
-                     const mmst_tiff::Chunk* chunks, int n, int reverse,
-                     int tolerant, const uint8_t* tables, size_t ntables,
-                     int colour, int channels, uint8_t* out, char* err,
-                     int errlen) {
+                     mmst_tiff::Chunk* chunks, int n, int reverse,
+                     int tolerant, int carry, const uint8_t* tables,
+                     size_t ntables, int colour, int channels, int options,
+                     void* state, uint8_t* out, char* err, int errlen) {
   try {
+    mmst_tiff::State local;
     mmst_tiff::decode(compression, data, size, chunks, n, reverse, tolerant,
-                      tables, ntables, colour, channels, out);
+                      carry, tables, ntables, colour, channels, options,
+                      state ? *static_cast<mmst_tiff::State*>(state) : local,
+                      out);
     return 0;
   } catch (const std::exception& e) {
     if (errlen > 0) {
@@ -334,6 +385,12 @@ int mmst_tiff_decode(int compression, const uint8_t* data, size_t size,
     }
     return 1;
   }
+}
+
+void* mmst_tiff_state_new() { return new mmst_tiff::State(); }
+
+void mmst_tiff_state_free(void* state) {
+  delete static_cast<mmst_tiff::State*>(state);
 }
 
 }  // extern "C"

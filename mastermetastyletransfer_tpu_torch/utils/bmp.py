@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from mastermetastyletransfer_tpu_torch.utils.png import MAX_PIXELS
+from mastermetastyletransfer_tpu_torch.utils.png import MAX_PIXELS, OpenRefusal
 
 # Pillow's BIT2MODE: pixel depth -> its raw mode (compression 0)
 _RAW_MODES = {1: "P;1", 4: "P;4", 8: "P", 16: "BGR;15", 24: "BGR",
@@ -185,8 +185,8 @@ def bitmap(data: bytes, start: int = 0, offset: int = 0,
     XOR bitmap (Pillow's ``int(height / 2)``); the bomb limit applies to
     the declared size. Returns the pixels and the offset they start at.
     """
-    if len(data) < start + 4:
-        raise _short("its bitmap header")
+    if len(data) < start + 4:   # Pillow: a struct.error in its _open
+        raise OpenRefusal("BMP: the file ends before its bitmap header")
     hsize = _u32(data, start)
     head = data[start + 4:start + hsize]
     if len(head) < hsize - 4:
@@ -208,20 +208,17 @@ def bitmap(data: bytes, start: int = 0, offset: int = 0,
                               for i in range(4 if len(head) >= 52 else 3))
             else:   # a 40-byte header: three masks after it
                 if pos + 12 > len(data):
-                    raise _short("its bit field masks")
+                    raise OpenRefusal("BMP: the file ends before its bit "
+                                      "field masks")
                 masks = tuple(_u32(data, pos + 4 * i) for i in range(3))
                 pos += 12
             masks = masks + (0,) * (4 - len(masks))
     else:
         raise ValueError(f"BMP: a header of {hsize} bytes is not read")
-    if w * h > MAX_PIXELS:
-        raise ValueError(f"BMP of {w}x{h} pixels is above the limit of "
-                         f"{MAX_PIXELS} (a decompression bomb)")
-    if w == 0 or h == 0:
-        raise ValueError(f"BMP of {w}x{h} pixels")
     colors = colors or 1 << bits
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
+    full_h = h
     if halve:
         h //= 2
     if bits not in _RAW_MODES:
@@ -237,10 +234,15 @@ def bitmap(data: bytes, start: int = 0, offset: int = 0,
         rle = True
     elif compression != 0:
         raise ValueError(f"BMP: compression {compression} is not read")
+    if raw in ("P;1", "P;4", "P") and not 0 < colors <= 65536:
+        raise ValueError(f"BMP: a palette of {colors} colours")
+    if w == 0 or full_h == 0:   # ImageFile refuses an image of no pixels
+        raise OpenRefusal(f"BMP of {w}x{full_h} pixels")
+    if w * full_h > MAX_PIXELS:
+        raise ValueError(f"BMP of {w}x{full_h} pixels is above the limit of "
+                         f"{MAX_PIXELS} (a decompression bomb)")
     palette = None
     if raw in ("P;1", "P;4", "P"):
-        if not 0 < colors <= 65536:
-            raise ValueError(f"BMP: a palette of {colors} colours")
         table = data[pos:pos + pad * colors]
         pos += len(table)
         grey = (0, 255) if colors == 2 else range(colors)

@@ -12,7 +12,10 @@ alpha that ``convert("RGB")`` drops, but Pillow reads it, so a mask that
 the file is too short to hold, or that starts before the file, is refused
 as Pillow refuses it. So is what Pillow refuses in the directory or the
 entry, and an entry above PIL's decompression-bomb limit, before anything
-of its size is allocated.
+of its size is allocated. Pillow's ICO plugin loads the image in its
+``_open``, so all its refusals are made there: an ``OpenRefusal`` where
+Pillow's exception passes the file on to its next plugin (a short
+directory or entry, a bad PNG chunk, a bitmap of no pixels).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import math
 import numpy as np
 
 from mastermetastyletransfer_tpu_torch.utils.bmp import bitmap
-from mastermetastyletransfer_tpu_torch.utils.png import read_png
+from mastermetastyletransfer_tpu_torch.utils.png import OpenRefusal, read_png
 
 MAGIC = b"\0\0\1\0"
 _PNG = b"\x89PNG\r\n\x1a\n"
@@ -41,12 +44,16 @@ def _u32(b: bytes, i: int) -> int:
 
 
 def _entry(data: bytes) -> tuple:
-    """(width, height, bpp, size, offset) of the entry Pillow opens."""
+    """(width, height, bpp, size, offset) of the entry Pillow opens; the
+    refusals here are IcoFile's IndexError and struct.error, which pass
+    the file on to Pillow's next plugin."""
+    if len(data) < 6:
+        raise OpenRefusal("ICO: truncated header")
     count = _u16(data, 4)
     if len(data) < 6 + 16 * count:
-        raise _fail("truncated directory")
+        raise OpenRefusal("ICO: truncated directory")
     if count == 0:
-        raise _fail("no images")
+        raise OpenRefusal("ICO: no images")
     entries = []
     for i in range(count):   # one step an entry of the directory
         s = data[6 + 16 * i:22 + 16 * i]
@@ -67,8 +74,8 @@ def read_ico(data: bytes) -> np.ndarray:
     _, _, bpp, size, offset = _entry(data)
     if data[offset:offset + 8] == _PNG:
         return read_png(data[offset:])
-    if offset + 4 > len(data):
-        raise _fail("truncated entry")
+    if offset + 4 > len(data):   # the DIB plugin's struct.error
+        raise OpenRefusal("ICO: truncated entry")
     rgb, start = bitmap(data, offset, halve=True)
     h, w = rgb.shape[:2]
     if bpp == 32:   # the alpha: every fourth byte from the pixels on

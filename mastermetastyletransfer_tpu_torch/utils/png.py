@@ -42,6 +42,14 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
 MAX_PIXELS = 2 * 89_478_485
 
 
+class OpenRefusal(ValueError):
+    """A refusal where Pillow's plugin fails in its ``_open`` with one of
+    the exceptions ``Image.open`` passes over (SyntaxError, IndexError,
+    TypeError, struct.error; KeyError and EOFError, which ImageFile turns
+    into SyntaxError): Pillow then tries its next plugin, and so does
+    ``data.pipeline.decode_image``. Every other refusal is the verdict."""
+
+
 def _chunks(data: bytes):
     """(kind, body) of each chunk before the first IDAT, its CRC checked,
     as PngImageFile._open reads them; then ("IDAT", position of its
@@ -49,22 +57,22 @@ def _chunks(data: bytes):
     pos = len(_SIGNATURE)
     while True:
         if pos + 8 > len(data):
-            raise ValueError("PNG: truncated chunk")
+            raise OpenRefusal("PNG: truncated chunk")
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
         if not _CID.match(kind):
-            raise ValueError(f"PNG: broken chunk {kind!r}")
-        if kind == b"IDAT":
+            raise OpenRefusal(f"PNG: broken chunk {kind!r}")
+        if kind in (b"IDAT", b"IEND"):   # IEND: Pillow's _open stops there
             yield kind, pos
             return
-        if kind == b"IEND":
-            raise ValueError("PNG: no image data")
         body = data[pos + 8:pos + 8 + n]
-        if len(body) != n or pos + 12 + n > len(data):
+        if len(body) != n:
             raise ValueError("PNG: truncated chunk")
+        if pos + 12 + n > len(data):
+            raise OpenRefusal("PNG: truncated chunk (its checksum)")
         (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
         if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
-            raise ValueError(f"PNG: bad CRC in chunk {kind!r}")
+            raise OpenRefusal(f"PNG: bad CRC in chunk {kind!r}")
         yield kind, body
         pos += 12 + n
 
@@ -218,6 +226,10 @@ def read_png(data: bytes) -> np.ndarray:
         raise ValueError("not a PNG (no signature)")
     header, palette, idat = None, None, 0
     for kind, body in _chunks(data):
+        if kind == b"IEND":
+            if header is None:
+                break
+            raise ValueError("PNG: no image data")
         if kind == b"IHDR":
             if len(body) < 13:
                 raise ValueError("PNG: truncated IHDR chunk")
@@ -228,15 +240,15 @@ def read_png(data: bytes) -> np.ndarray:
         elif kind == b"IDAT":
             idat = body
     if header is None:
-        raise ValueError("PNG: no IHDR chunk")
+        raise OpenRefusal("PNG: no IHDR chunk")
     w, h, depth, ctype, _, filt, interlace = header
     if ctype not in _CHANNELS:
-        raise ValueError(f"PNG: unknown colour type {ctype}")
+        raise OpenRefusal(f"PNG: unknown colour type {ctype}")
     if depth not in _DEPTHS[ctype]:
-        raise ValueError(f"PNG: colour type {ctype} at {depth} bits is not "
-                         "read")
+        raise OpenRefusal(f"PNG: colour type {ctype} at {depth} bits is not "
+                          "read")
     if filt:
-        raise ValueError(f"PNG: unknown filter method {filt}")
+        raise OpenRefusal(f"PNG: unknown filter method {filt}")
     if w * h > MAX_PIXELS:
         raise ValueError(f"PNG of {w}x{h} pixels is above the limit of "
                          f"{MAX_PIXELS} (a decompression bomb)")

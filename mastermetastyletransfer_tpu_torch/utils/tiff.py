@@ -20,38 +20,48 @@ gives it. Pillow's TiffImagePlugin is the specification of what is read:
   letter names;
 * every other compression as libtiff decodes it for Pillow
   (``TiffDecode.c``): strips or tiles of the byte counts libtiff reads,
-  decoded by LZW and PackBits (``native/tiff.cpp``), Deflate (zlib, the
-  standard library's) or JPEG (``native/jpeg.cpp`` through
-  ``native/tiff.cpp``: JPEGTables first, YCbCr turned to RGB where
-  Pillow asks libtiff for RGB, else the components as stored), FillOrder
-  2 reversed first; the predictor undone (2: horizontal, 3: floating
-  point) and the samples swapped to the host's order as libtiff does;
-  then Pillow's unpacker on each row (its native-order raw modes where
-  Pillow names them, a planar file's planes into the bands); YCbCr that
-  is not JPEG as libtiff's TIFFRGBAImage gives it to Pillow (the
-  subsampling's blocks, TIFFYCbCrToRGB's tables, a strip whose codec
-  fails kept as far as it got);
+  decoded by LZW and PackBits (``native/tiff.cpp``), CCITT Modified
+  Huffman, RLE-W, T.4 and T.6 (``native/fax.cpp``: libtiff's state kept
+  from strip to strip, its "no EOL" mode among it), Deflate (zlib, the
+  standard library's), LZMA (liblzma, the library the standard library's
+  ``lzma`` wraps, through ctypes as tif_lzma.c drives it; a dictionary
+  declared far beyond the strip cut to what the strip needs), Zstandard
+  (``native/zstd.cpp``, from RFC 8878, as tif_zstd.c drives libzstd) or
+  JPEG (``native/jpeg.cpp`` through ``native/tiff.cpp``: the tables
+  libjpeg holds, JPEGTables first, then each strip's own; libtiff's
+  checks of a frame's size, components and sampling; YCbCr turned to RGB
+  where Pillow asks libtiff for RGB, else the components as stored; a
+  frame's first full scan read to its end only), FillOrder 2 reversed
+  first; the predictor undone (2: horizontal, 3: floating point) and the
+  samples swapped to the host's order as libtiff does; then Pillow's
+  unpacker on each row (its native-order raw modes where Pillow names
+  them, a planar file's planes into the bands); YCbCr that is not JPEG
+  as libtiff's TIFFRGBAImage gives it to Pillow (strips or tiles, the
+  subsampling's blocks as its put functions step through them,
+  TIFFYCbCrToRGB's tables, the predictor undone where a strip decoded
+  whole, a strip or tile whose codec fails kept as far as it got);
 * the modes to RGB as Pillow converts them (``I;16``, ``I`` and ``F``
   clamped, ``1`` to 0/255, a palette black past its entries, CMYK through
   cmyk2rgb, alpha dropped, associated alpha divided out by the unpacker),
   and the Orientation tag applied as ``exif_transpose`` applies it.
 
 What Pillow or libtiff refuses raises ``ValueError``, and so does what is
-not ported yet: compressions other than none, LZW, PackBits, Deflate and
-JPEG (named), YCbCr tiles without JPEG, YCbCr with a predictor or an
-orientation, CIELab (which Pillow converts through LittleCMS), planar
-JPEG. An image above PIL's
-decompression-bomb limit (``MAX_PIXELS``) is refused before anything of
-its size is allocated, and so is one whose strips or tiles lie past the
-file's end, one that declares more strips or tiles than its byte counts
-give (libtiff: a strip of 0 bytes; above a million, a short tag), and a
-tile above Pillow's 2 GiB. Strips and tiles are decoded some at a time
+not ported yet: the compressions Pillow reads that are not named above
+(ThunderScan, old-style JPEG) and CIELab (which Pillow converts through
+LittleCMS), each named. An image above PIL's decompression-bomb limit
+(``MAX_PIXELS``) is refused before anything of its size is allocated,
+and so is one whose strips or tiles lie past the file's end, one that
+declares more strips or tiles than its byte counts give (libtiff: a
+strip of 0 bytes; above a million, a short tag), and a tile above
+Pillow's 2 GiB. Strips and tiles are decoded some at a time
 (``_BATCH_BYTES``), as Pillow decodes them one at a time, so tiles that
 reach far past a small image are never held all at once.
 """
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import math
 import struct
 import zlib
@@ -72,7 +82,10 @@ COMPRESSIONS = {
     32773: "packbits", 32809: "tiff_thunderscan", 32946: "tiff_deflate",
     34676: "tiff_sgilog", 34677: "tiff_sgilog24", 34925: "lzma",
     50000: "zstd", 50001: "webp"}
-READ_COMPRESSIONS = (1, 5, 7, 8, 32773, 32946)
+READ_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32946, 34925, 50000)
+_CCITT = (2, 3, 4, 32771)
+# the codecs through libtiff's predictor module
+_PREDICTED = (5, 8, 32946, 34925, 50000)
 # TiffImagePlugin.OPEN_INFO: (photometric, sample format, fill order, bits,
 # extra samples, mode, raw mode, byte orders: I little-endian, M big)
 _OPEN_ROWS = (
@@ -777,6 +790,14 @@ class _Layout:
             raise _fail("libtiff: bad ExtraSamples")
         bits = lt.value(258, 1, persample=spp, short=True)
         self.sample_format = lt.value(339, 1, persample=spp, short=True)
+        for tag in (280, 281):   # Min/MaxSampleValue, as BitsPerSample
+            lt.value(tag, 0, persample=spp, short=True)
+        for tag in (340, 341):   # SMin/SMaxSampleValue: one a sample
+            if tag in lt.entries and (
+                    lt.entries[tag][1] != spp or lt.entries[tag][0] not in (
+                        1, 3, 4, 5, 6, 8, 9, 10, 11, 12, 16, 17)
+                    or lt.raw(tag)[2] is None):
+                raise _fail(f"libtiff: cannot read tag {tag}")
         if code not in READ_COMPRESSIONS or code == 1:
             raise _fail(f"compression {code} "
                         f"({COMPRESSIONS.get(code, 'unknown')}) is not read")
@@ -790,7 +811,17 @@ class _Layout:
         self.fillorder = lt.soft(266, 1)
         if self.fillorder not in (1, 2):
             self.fillorder = 1
-        self.predictor = lt.soft(317, 1) if code in (5, 8, 32946) else 1
+        self.predictor = lt.soft(317, 1) if code in _PREDICTED else 1
+        t4 = lt.ints(292) if code == 3 else None   # T4Options
+        self.t4options = t4[0] if t4 and len(t4) == 1 else 0
+        # tif_jpeg.c: the sampling the JPEG frames must have (YCbCr: the
+        # YCbCrSubsampling tag, or the first strip's where it is absent;
+        # other colours 1 x 1; each plane of a planar file 1 x 1)
+        sub = lt.ints(530) if self.photo == 6 else [1, 1]
+        hv = sub if sub and len(sub) == 2 and all(
+            0 < v < 16 for v in sub) else [0, 0]
+        self.jpeg_options = (1 << 8 if planar == 2 else
+                             hv[0] | hv[1] << 4)
         tables = lt.raw(347)
         self.tables = (tables[2] if code == 7 and tables and tables[0] == 7
                        and tables[2] else b"")
@@ -907,8 +938,8 @@ def _libtiff_decode(data: bytes, s: _Setup) -> np.ndarray:
     jpeg = s.code == 7
     if ycbcr and not (jpeg and lay.planar == 1):
         return _rgba_decode(data, s, lay)
-    if jpeg and lay.planar == 2:
-        raise _fail("JPEG of planar configuration 2 is not read")
+    if s.code in _CCITT and lay.bits != 1:   # Fax3SetupState
+        raise _fail("CCITT: bits per sample must be 1")
     if s.mode == "LAB":
         raise _fail("CIELab is not read")
     rawmode = s.rawmode
@@ -934,7 +965,8 @@ def _libtiff_decode(data: bytes, s: _Setup) -> np.ndarray:
             raise _fail("tile size is too large for the mode")
     elif row_bytes != (seg_w * unpacker_bits // planes + 7) // 8:
         raise _fail("scanline size is not the unpacker's row size")
-    elif lay.rps != 2 ** 32 - 1 and lay.rps > (2 ** 31 - 1) // row_bytes:
+    elif lay.rps != 2 ** 32 - 1 and (
+            lay.rps >= 2 ** 31 or min(lay.rps, h) > (2 ** 31 - 1) // row_bytes):
         raise _fail("rows per strip overflow the strip buffer")
     # the strips or tiles in Pillow's order: rows of them, then planes
     yi = np.repeat(np.arange(ny), nx * planes)
@@ -961,56 +993,87 @@ def _libtiff_decode(data: bytes, s: _Setup) -> np.ndarray:
     unpackers = ([rawmode] if not planar else
                  [("R", "G", "B", "A")[p] for p in range(planes)])
     table = table.reshape(ny, nx, planes)
-    for y0, y1, x0, x1 in _batches(lay, planes, row_bytes):
-        part = np.ascontiguousarray(table[y0:y1, x0:x1]).reshape(-1)
-        out = np.empty(int(part["need"].sum()), np.uint8)
-        if s.code in (8, 32946):
-            at = 0
-            for offset, count, need in zip(   # one step a strip or tile
-                    part["offset"].tolist(), part["count"].tolist(),
-                    part["need"].tolist()):
-                raw = data[offset:offset + count]
-                if lay.fillorder == 2:
-                    raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
-                try:
-                    got = zlib.decompressobj().decompress(raw, need)
-                except zlib.error as e:
-                    raise _fail(f"Deflate: decoding error ({e})") from None
-                if len(got) < need:
-                    raise _fail("Deflate: not enough data")
-                out[at:at + need] = np.frombuffer(got, np.uint8)
-                at += need
-        else:
-            native_loader.decode_tiff(s.code, data, part, lay.fillorder == 2,
-                                      lay.tables, colour, channels, out)
-        decoded = _predictor(out.reshape(-1, row_bytes), lay, per_plane,
-                             s.ifd.order)
-        for p, unpacker in enumerate(unpackers):
-            if lay.tiled:   # rows y0 * rows_per on, tiles x0 to x1
-                top = y0 * rows_per
-                tiles = decoded.reshape(y1 - y0, x1 - x0, planes, rows_per,
-                                        row_bytes)
-                for x in range(x0, x1):   # one step a column of tiles
-                    column = tiles[:, x - x0, p]
-                    block = (column[0] if y1 - y0 == 1 else
-                             column.reshape(-1, row_bytes))[:h - top]
-                    _put_plane(img, top, x * seg_w, s.mode, unpacker, block,
-                               min(seg_w, w - x * seg_w), planar, p,
-                               lay.bits)
-            else:   # strips y0 to y1, from row y0 * rows_per
-                top = y0 * rows_per
-                part = (_planar_rows(decoded, y1 - y0, planes, rows_per,
-                                     h - top, p) if planar else decoded)
-                _put_plane(img, top, 0, s.mode, unpacker, part, w, planar, p,
-                           lay.bits)
+    carried = np.zeros(0, np.uint8)   # the strip buffer Pillow reuses
+    with native_loader.TiffState() as state:   # libtiff's, strip to strip
+        for batch in _batches(lay, planes, row_bytes):
+            _decode_batch(data, s, lay, table, batch, planar, planes,
+                          unpackers, colour, channels, per_plane, row_bytes,
+                          img, carried, state)
     if planar and s.mode == "RGBA" and lay.extra and lay.extra[0] in (0, 1):
         img = _unpremultiply(img)   # TiffDecode.c: planar RGBa to RGBA
     return img
 
 
+def _decode_batch(data, s, lay, table, batch, planar, planes, unpackers,
+                  colour, channels, per_plane, row_bytes, img, carried,
+                  state):
+    """One batch of _libtiff_decode's strips or tiles: decoded, the
+    predictor undone, unpacked into img. ``carried`` holds the last
+    strip's bytes of the batch before (Pillow's strip buffer), updated in
+    place."""
+    from mastermetastyletransfer_tpu_torch.data import native_loader
+
+    w, h = s.xsize, s.ysize
+    seg_w, rows_per = lay.seg_w, lay.rows_per
+    y0, y1, x0, x1 = batch
+    part = np.ascontiguousarray(table[y0:y1, x0:x1]).reshape(-1)
+    out = np.zeros(int(part["need"].sum()), np.uint8)
+    if s.code in (8, 32946, 34925):
+        at = 0
+        for offset, count, need in zip(   # one step a strip or tile
+                part["offset"].tolist(), part["count"].tolist(),
+                part["need"].tolist()):
+            raw = data[offset:offset + count]
+            if lay.fillorder == 2:
+                raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
+            out[at:at + need] = np.frombuffer(
+                _inflate(raw, need) if s.code != 34925
+                else _unxz(raw, need), np.uint8)
+            at += need
+    else:
+        # CCITT and JPEG: a strip that ends early (T.6) or a frame smaller
+        # than its strip keeps the rest of the buffer from the strip
+        # decoded before it
+        carry = s.code in _CCITT or s.code == 7
+        first = int(part["need"][0])
+        out[:min(first, carried.size)] = carried[:first]
+        native_loader.decode_tiff(
+            s.code, data, part, lay.fillorder == 2, lay.tables, colour,
+            channels, out, carry=carry, state=state,
+            options=lay.jpeg_options if s.code == 7 else lay.t4options)
+        if carry:
+            last = out[out.size - int(part["need"][-1]):]
+            carried.resize(last.size, refcheck=False)
+            carried[:] = last
+    decoded = _predictor(out.reshape(-1, row_bytes), lay, per_plane,
+                         s.ifd.order)
+    for p, unpacker in enumerate(unpackers):
+        if lay.tiled:   # rows y0 * rows_per on, tiles x0 to x1
+            top = y0 * rows_per
+            tiles = decoded.reshape(y1 - y0, x1 - x0, planes, rows_per,
+                                    row_bytes)
+            for x in range(x0, x1):   # one step a column of tiles
+                column = tiles[:, x - x0, p]
+                block = (column[0] if y1 - y0 == 1 else
+                         column.reshape(-1, row_bytes))[:h - top]
+                _put_plane(img, top, x * seg_w, s.mode, unpacker, block,
+                           min(seg_w, w - x * seg_w), planar, p,
+                           lay.bits)
+        else:   # strips y0 to y1, from row y0 * rows_per
+            top = y0 * rows_per
+            part = (_planar_rows(decoded, y1 - y0, planes, rows_per,
+                                 h - top, p) if planar else decoded)
+            _put_plane(img, top, 0, s.mode, unpacker, part, w, planar, p,
+                       lay.bits)
+
+
 # libtiff's YCbCr subsamplings that TIFFRGBAImage has a put function for,
-# chunky (putcontig8bitYCbCr44tile ... 11tile) and planar (11 only)
-_YCC_CONTIG = {(4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1)}
+# chunky (putcontig8bitYCbCr44tile ... 11tile) and planar (11 only), with
+# the bytes each put function skips, a block row of a clipped tile, for
+# every hs columns clipped (4x4's is 4 * 2 + 2, as libtiff has it)
+_YCC_SKIP = {(4, 4): 10, (4, 2): 10, (4, 1): 6, (2, 2): 6, (2, 1): 4,
+             (1, 2): 4, (1, 1): 3}
+_YCC_CONTIG = set(_YCC_SKIP)
 
 
 def _ycbcr_tables(lt: _LibtiffDir):
@@ -1069,11 +1132,17 @@ def _ycbcr_tables(lt: _LibtiffDir):
 
 def _rgba_decode(data: bytes, s: _Setup, lay: _Layout) -> np.ndarray:
     """Pillow's _decodeAsRGBA (libtiff's TIFFRGBAImage, started with
-    stoponerr 0): a YCbCr file not JPEG-compressed, strip by strip into a
-    zeroed buffer (a strip whose codec fails keeps what it wrote; one that
-    cannot be read stops it), the 8-bit YCbCr blocks of the subsampling
-    turned to RGB through TIFFYCbCrtoRGB's tables, opaque; Pillow's
-    unpacker of its mode ("RGBX" for YCbCr) on each row of the RGBA."""
+    stoponerr 0): a YCbCr file not JPEG-compressed, read in Pillow's blocks
+    (a strip, or a row of tiles): a strip or tile whose codec fails keeps
+    what it wrote, zeros after it (the codecs clear the rest); one that
+    cannot be read is zeros, or, first in its block, stops the read; the
+    predictor
+    undone where the codec succeeded; the 8-bit YCbCr blocks of the
+    subsampling turned to RGB through TIFFYCbCrtoRGB's tables, opaque, a
+    clipped tile's block rows as far apart as libtiff's put function
+    steps; Pillow's unpacker of its mode ("RGBX" for YCbCr) on each row
+    of the RGBA. The Orientation tag is not applied here (Pillow
+    transposes the image after)."""
     from mastermetastyletransfer_tpu_torch.data import native_loader
 
     lt = lay.lt
@@ -1088,104 +1157,147 @@ def _rgba_decode(data: bytes, s: _Setup, lay: _Layout) -> np.ndarray:
         raise _fail("TIFFRGBAImage: floating point samples")
     if s.code == 6:
         raise _fail("compression 6 (tiff_jpeg, old-style JPEG) is not read")
+    if s.code in _CCITT:   # Fax3SetupState, before the first strip's buffer
+        raise _fail("CCITT: bits per sample must be 1")
     if lay.planar == 2 and (hs, vs) != (1, 1) or (hs, vs) not in _YCC_CONTIG:
         raise _fail(f"TIFFRGBAImage: YCbCr subsampling {hs}x{vs} of "
                     f"planar configuration {lay.planar}")
-    if lay.tiled:
-        raise _fail("YCbCr tiles without JPEG are not read")
-    if lay.predictor != 1:
-        raise _fail("YCbCr with a predictor is not read")
-    if lt.soft(274, 1) not in (1, None):
-        raise _fail("YCbCr with an orientation is not read")
+    if lay.predictor == 3:
+        raise _fail("floating point predictor of these samples")
     rps = lay.rows_per
-    if lay.rps != 2 ** 32 - 1 and lay.rps > (2 ** 31 - 1) // (4 * w):
-        raise _fail("rows per strip overflow the RGBA buffer")
+    if lay.tiled and rps > (2 ** 31 - 1) // (4 * w) or not lay.tiled and (
+            lay.rps != 2 ** 32 - 1 and lay.rps >= 2 ** 31):
+        raise _fail("rows per block overflow the RGBA buffer")
     planes = 3 if lay.planar == 2 else 1
+    seg_w = lay.seg_w
     if planes == 3:
-        block, blocks_h, scan = 1, w, w
+        block, blocks_h, scan = 1, seg_w, seg_w
     else:
-        block, blocks_h = hs * vs + 2, -(-w // hs)
+        block, blocks_h = hs * vs + 2, -(-seg_w // hs)
         scan = blocks_h * block // vs   # TIFFScanlineSize, cut
-    ny = -(-h // rps)
+    # PredictorSetup: the predictor's rows (TIFFTileRowSize for tiles,
+    # not cut to the subsampling) and samples
+    pred_row = seg_w * (3 if planes == 1 else 1) if lay.tiled else scan
+    pred_stride = 3 if planes == 1 else 1
     tabs = _ycbcr_tables(lt)
-    chunks, shapes = [], []
-    for yi in range(ny):   # one step a strip, as Pillow's blocks of rows
-        rows = min(rps, h - yi * rps)
-        full = (-(-rows // vs) * blocks_h * block if planes == 1
-                else rows * w)
-        need = min(-(-rows // vs) * vs * scan, full)
-        for p in range(planes):
-            index = yi + p * ny
-            offset, count = int(lay.offsets[index]), int(lay.counts[index])
-            if count > 1 << 20 and (count - 4096) // 10 > full:
-                count = full * 10 + 4096   # TIFFFillStrip's limit
-            if p == 0 and (count == 0 or offset + count > len(data)):
-                # read before the strip buffer exists: gtStripContig stops
-                raise _fail(f"read error on strip {index}")
-            chunks.append((offset, count, need, w, rows, 0))
-        shapes.append((rows, full, need))
-    packed = np.zeros(sum(c[2] for c in chunks), np.uint8)
-    if s.code in (8, 32946):
-        at = 0
-        for offset, count, need, *_ in chunks:   # one step a strip
-            _inflate_partial(data, offset, count, need, lay.fillorder,
-                             packed[at:at + need])
-            at += need
-    else:
-        native_loader.decode_tiff(s.code, data,
-                                  np.array(chunks, native_loader.TIFF_CHUNK),
-                                  lay.fillorder == 2, b"", 2, 1, packed,
-                                  tolerant=True)
-    out = np.zeros(sum(planes * f for _, f, _ in shapes), np.uint8)
-    src = dst = 0
-    for rows, full, need in shapes:   # each strip's bytes in its buffer
-        for _ in range(planes):
-            out[dst:dst + need] = packed[src:src + need]
-            src += need
-            dst += full
     rgba = np.zeros((h, w, 4), np.uint8)
     rgba[..., 3] = 255
-    at = 0
-    y0 = 0
-    for rows, full, _ in shapes:   # one step a strip
-        if planes == 3:
-            ycc = out[at:at + 3 * full].reshape(3, rows, w).transpose(1, 2, 0)
-            at += 3 * full
-        else:
-            blocks = out[at:at + full].reshape(-1, blocks_h, block)
-            at += full
-            yy = np.arange(rows)[:, None]
-            xx = np.arange(w)[None, :]
-            b = blocks[yy // vs, xx // hs]
-            luma = np.take_along_axis(
-                b, ((yy % vs) * hs + xx % hs)[..., None], axis=2)[..., 0]
-            ycc = np.stack([luma, b[..., hs * vs], b[..., hs * vs + 1]], -1)
-        yv, cb, cr = (ycc[..., k].astype(np.int64) for k in range(3))
-        y_tab = tabs[0][yv]
-        rgb = np.stack([y_tab + tabs[1][cr],
-                        y_tab + ((tabs[4][cb] + tabs[3][cr]) >> 16),
-                        y_tab + tabs[2][cb]], -1)
-        rgba[y0:y0 + rows, :, :3] = np.clip(rgb, 0, 255)
-        y0 += rows
+    with native_loader.TiffState() as state:   # libtiff's, strip to strip
+        _rgba_blocks(data, s, lay, rgba, tabs, hs, vs, planes, block,
+                     blocks_h, scan, pred_row, pred_stride, state)
     img = _new_image(s.mode, h, w)   # Pillow's unpacker on the RGBA rows
     _put(img, 0, 0, _unpack(s.mode, s.rawmode, rgba.reshape(h, 4 * w), w))
     return img
 
 
-def _inflate_partial(data, offset, count, need, fillorder, out) -> None:
+def _rgba_blocks(data, s, lay, rgba, tabs, hs, vs, planes, block, blocks_h,
+                 scan, pred_row, pred_stride, state) -> None:
+    """_rgba_decode's blocks (a strip, or a row of tiles, each) into
+    rgba."""
+    w, h = s.xsize, s.ysize
+    rps, seg_w = lay.rows_per, lay.seg_w
+    nx = lay.nx if lay.tiled else 1
+    for yi in range(lay.ny):   # one step a block of Pillow's
+        top = yi * rps
+        rows = min(rps, h - top)
+        full = (-(-rps // vs) * blocks_h * block if lay.tiled else
+                -(-rows // vs) * blocks_h * block if planes == 1
+                else rows * w)
+        need = (full if lay.tiled else
+                min(-(-rows // vs) * vs * scan, full))
+        buf = np.zeros((planes, full), np.uint8)
+        for xi in range(nx):   # one step a strip, or a tile of the row
+            for p in range(planes):
+                index = (yi * nx + xi) + p * lay.ny * nx
+                offset = int(lay.offsets[index])
+                count = int(lay.counts[index])
+                if count > 1 << 20 and (count - 4096) // 10 > full:
+                    count = full * 10 + 4096   # TIFFFillStrip's limit
+                if count == 0 or offset + count > len(data):
+                    if xi == 0 and p == 0:   # before the block's buffer
+                        raise _fail(f"read error on strip or tile {index}")
+                buf[p, :need] = 0   # TIFFReadEncodedTile clears a failed one
+                if count == 0 or offset + count > len(data):
+                    continue
+                ok = _decode_into(data, s.code, lay, offset, count, need,
+                                  seg_w, rows, buf[p, :need], state)
+                if ok and lay.predictor == 2:
+                    _predict_in_place(buf[p, :need], lay, pred_row,
+                                      pred_stride)
+            x0 = xi * seg_w
+            cols = min(seg_w, w - x0)
+            yy = np.arange(rows)[:, None]
+            xx = np.arange(cols)[None, :]
+            if planes == 3:
+                at = np.minimum(yy * seg_w + xx, full - 1)
+                ycc = np.stack([buf[k][at] for k in range(3)], -1)
+            else:
+                # the put function's steps: whole blocks along a block row,
+                # then the clipped columns' skip
+                step = (-(-cols // hs) * block
+                        + (seg_w - cols) // hs * _YCC_SKIP[hs, vs])
+                at = (yy // vs) * step + (xx // hs) * block
+                luma = np.minimum(at + (yy % vs) * hs + xx % hs, full - 1)
+                cb = np.minimum(at + hs * vs, full - 1)
+                ycc = np.stack([buf[0][luma], buf[0][cb],
+                                buf[0][np.minimum(cb + 1, full - 1)]], -1)
+            yv, cb, cr = (ycc[..., k].astype(np.int64) for k in range(3))
+            y_tab = tabs[0][yv]
+            rgb = np.stack([y_tab + tabs[1][cr],
+                            y_tab + ((tabs[4][cb] + tabs[3][cr]) >> 16),
+                            y_tab + tabs[2][cb]], -1)
+            rgba[top:top + rows, x0:x0 + cols, :3] = np.clip(rgb, 0, 255)
+
+
+def _decode_into(data, code, lay, offset, count, need, width, rows, out,
+                 state) -> bool:
+    """One strip or tile through its codec into ``out`` (its first
+    ``need`` bytes), keeping what the codec wrote where it fails (False);
+    ``out`` past that keeps what it held."""
+    from mastermetastyletransfer_tpu_torch.data import native_loader
+
+    if code in (8, 32946):
+        return _inflate_partial(data, offset, count, need, lay.fillorder,
+                                out)
+    if code == 34925:
+        return _unxz_partial(data, offset, count, need, lay.fillorder, out)
+    chunk = np.array([(offset, count, need, width, rows, 0, 0)],
+                     native_loader.TIFF_CHUNK)
+    status = native_loader.decode_tiff(code, data, chunk,
+                                       lay.fillorder == 2, lay.tables, 2, 1,
+                                       out, tolerant=True, state=state,
+                                       options=lay.jpeg_options)
+    return not status[0] & 1
+
+
+def _predict_in_place(buf: np.ndarray, lay: _Layout, row: int,
+                      stride: int) -> None:
+    """PredictorDecodeTile's horAcc8 on a decoded strip or tile: each row
+    of ``row`` bytes summed along itself ``stride`` bytes apart; nothing
+    where the strip is not whole rows, or a row not whole samples (libtiff
+    then fails the strip after its codec wrote it)."""
+    if row <= 0 or buf.size % row or row % stride:
+        return
+    rows = buf.reshape(-1, row // stride, stride)
+    np.cumsum(rows, axis=1, dtype=np.uint8, out=rows)
+
+
+def _inflate_partial(data, offset, count, need, fillorder, out) -> bool:
     """ZIPDecode on one strip into ``out``, keeping what inflate wrote
     before an error or the end of the data (libtiff's TIFFRGBAImage goes
-    on past a failed strip)."""
+    on past a failed strip); whether the strip decoded: whole, and with
+    no error from zlib (which reads on to a block's end and the stream's
+    check in the call that fills the strip)."""
     if count == 0 or offset + count > len(data):
-        return
+        return False
     raw = data[offset:offset + count]
     if fillorder == 2:
         raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
-    inflater, got = zlib.decompressobj(), []
+    inflater, got, failed = zlib.decompressobj(), [], False
     try:
         got.append(inflater.decompress(raw, need))
     except zlib.error:   # again a byte at a time, for the bytes before it
-        inflater, got = zlib.decompressobj(), []
+        inflater, got, failed = zlib.decompressobj(), [], True
         try:
             for k in range(len(raw)):   # only on a damaged stream
                 got.append(inflater.decompress(raw[k:k + 1],
@@ -1196,6 +1308,158 @@ def _inflate_partial(data, offset, count, need, fillorder, out) -> None:
             pass
     buf = b"".join(got)[:need]
     out[:len(buf)] = np.frombuffer(buf, np.uint8)
+    return len(buf) == need and not failed
+
+
+def _inflate(raw: bytes, need: int) -> bytes:
+    """ZIPDecode on one strip: exactly ``need`` bytes or a refusal."""
+    try:
+        got = zlib.decompressobj().decompress(raw, need)
+    except zlib.error as e:
+        raise _fail(f"Deflate: decoding error ({e})") from None
+    if len(got) < need:
+        raise _fail("Deflate: not enough data")
+    return got
+
+
+# liblzma's smallest dictionary (LZMA_DICT_SIZE_MIN)
+_XZ_DICT_MIN = 4096
+
+
+def _vli(data: bytes, pos: int):
+    """An xz variable-length integer at pos: (value, next pos), or None."""
+    value = 0
+    for k in range(9):   # at most 9 bytes
+        if pos + k >= len(data):
+            return None
+        value |= (data[pos + k] & 0x7F) << (7 * k)
+        if not data[pos + k] & 0x80:
+            return value, pos + k + 1
+    return None
+
+
+def _xz_bounded(raw: bytes, need: int) -> bytes:
+    """The xz stream with its first block's LZMA2 dictionary cut to the
+    smallest that holds ``need`` bytes, where it declares a larger one:
+    liblzma would allocate the declared size (up to 4 GiB) before the
+    first byte, and the decoder never reaches back more than ``need``
+    bytes, so the pixels are the same. The block header is left as it is
+    where its CRC32 does not hold (liblzma refuses it)."""
+    if len(raw) < 13 or raw[:6] != b"\xfd7zXZ\x00" or raw[12] == 0:
+        return raw
+    size = (raw[12] + 1) * 4
+    header = bytearray(raw[12:12 + size])
+    if len(header) < size or zlib.crc32(header[:-4]) != int.from_bytes(
+            header[-4:], "little"):
+        return raw
+    pos = 2
+    for bit in (0x40, 0x80):   # the compressed and uncompressed sizes
+        if header[1] & bit:
+            got = _vli(header, pos)
+            if got is None:
+                return raw
+            pos = got[1]
+    bound = max(need, _XZ_DICT_MIN)
+    for _ in range((header[1] & 3) + 1):   # one step a filter (4 at most)
+        fid, psize = _vli(header, pos) or (None, None), None
+        if fid[0] is None:
+            return raw
+        got = _vli(header, fid[1])
+        if got is None:
+            return raw
+        psize, pos = got
+        if fid[0] == 0x21 and psize == 1 and pos < size - 4:
+            prop = header[pos]
+            if prop <= 40 and (2 | prop & 1) << (prop // 2 + 11) > bound:
+                header[pos] = next(k for k in range(41)
+                                   if (2 | k & 1) << (k // 2 + 11) >= bound)
+        pos += psize
+    header[-4:] = zlib.crc32(header[:-4]).to_bytes(4, "little")
+    return raw[:12] + bytes(header) + raw[12 + size:]
+
+
+class _LzmaStream(ctypes.Structure):
+    """liblzma's lzma_stream."""
+    _fields_ = [("next_in", ctypes.c_void_p), ("avail_in", ctypes.c_size_t),
+                ("total_in", ctypes.c_uint64), ("next_out", ctypes.c_void_p),
+                ("avail_out", ctypes.c_size_t),
+                ("total_out", ctypes.c_uint64),
+                ("allocator", ctypes.c_void_p), ("internal", ctypes.c_void_p),
+                ("reserved", ctypes.c_void_p * 4),
+                ("seek_pos", ctypes.c_uint64), ("reserved_int", ctypes.c_uint64),
+                ("reserved_size", ctypes.c_size_t * 2),
+                ("reserved_enum", ctypes.c_int * 2)]
+
+
+_LIBLZMA = {}
+
+
+def _liblzma():
+    """liblzma, the library the standard library's lzma module wraps,
+    through ctypes: tif_lzma.c keeps what lzma_code wrote in a call that
+    ends in an error, which the lzma module drops."""
+    if "lib" not in _LIBLZMA:
+        name = ctypes.util.find_library("lzma") or "liblzma.so.5"
+        try:
+            lib = ctypes.CDLL(name)
+        except OSError as e:
+            raise RuntimeError(f"liblzma (for LZMA TIFF strips) is not "
+                               f"found: {e}") from None
+        lib.lzma_stream_decoder.argtypes = [
+            ctypes.POINTER(_LzmaStream), ctypes.c_uint64, ctypes.c_uint32]
+        lib.lzma_code.argtypes = [ctypes.POINTER(_LzmaStream), ctypes.c_int]
+        lib.lzma_end.argtypes = [ctypes.POINTER(_LzmaStream)]
+        _LIBLZMA["lib"] = lib
+    return _LIBLZMA["lib"]
+
+
+def _unxz(raw: bytes, need: int) -> bytes:
+    """LZMADecode (tif_lzma.c) on one strip: exactly ``need`` bytes or a
+    refusal. libtiff stops once the strip is whole: data past it is not
+    read, and an error that liblzma reports with the strip whole (a bad
+    check of a block that ends there) does not count."""
+    out = np.zeros(need, np.uint8)
+    if not _xz_into(raw, need, out):
+        raise _fail("LZMA: decoding error or not enough data")
+    return out.tobytes()
+
+
+def _xz_into(raw: bytes, need: int, out: np.ndarray) -> bool:
+    """LZMADecode (tif_lzma.c) of one strip's stream into ``out``: one
+    xz stream, lzma_code run until the stream ends, an error, or the strip
+    is whole; what it wrote stays in ``out``. Whether the strip is whole
+    (an error reported with the strip whole does not count, as there).
+    The decoder's memory is held to what a dictionary of ``need`` bytes
+    asks (a later block that declares more is refused: ROADMAP,
+    differences from JAX)."""
+    lib = _liblzma()
+    raw = _xz_bounded(raw, need)
+    stream = _LzmaStream()
+    limit = 2 * max(need, _XZ_DICT_MIN) + (16 << 20)
+    if lib.lzma_stream_decoder(ctypes.byref(stream), limit, 0) != 0:
+        raise _fail("LZMA: the decoder does not start")
+    src = np.frombuffer(raw, np.uint8)
+    stream.next_in, stream.avail_in = src.ctypes.data, src.size
+    stream.next_out, stream.avail_out = out.ctypes.data, need
+    try:
+        while stream.avail_out:   # lzma_code until it stops
+            if lib.lzma_code(ctypes.byref(stream), 0) != 0:   # LZMA_RUN
+                break   # the stream's end, an error, or no progress
+    finally:
+        lib.lzma_end(ctypes.byref(stream))
+    return stream.avail_out == 0
+
+
+def _unxz_partial(data, offset, count, need, fillorder, out) -> bool:
+    """LZMADecode on one strip into ``out``, keeping what liblzma wrote
+    before an error or the end of the data (TIFFRGBAImage goes on past a
+    failed strip); whether the strip decoded whole."""
+    if count == 0 or offset + count > len(data):
+        return False
+    raw = data[offset:offset + count]
+    if fillorder == 2:
+        raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
+    return _xz_into(raw, need, out)
 
 
 def _batches(lay: _Layout, planes: int, row_bytes: int):

@@ -52,7 +52,7 @@ from scripts.make_image_fixtures import (  # noqa: E402
     _palette, bmp_file, bmp_rows, rle4, rle8,
 )
 
-KINDS = ("pnm", "gif", "tiff", "ico", "dib")
+KINDS = ("pnm", "gif", "tiff", "ico", "dib", "tga", "tiff_ccitt")
 # chip_smoke.py's 640 x 480 timing inputs (tests/data/<kind>/coco_*)
 COCO = ("gif/coco.gif", "tiff/coco_lzw_pred2.tif", "tiff/coco_deflate.tif",
         "tiff/coco_jpeg.tif")
@@ -385,7 +385,7 @@ def ycbcr_tiff(rng, h: int, w: int, sub=(2, 2), *, ref=None, luma=None,
     YCbCrCoefficients ``luma`` as (numerator, denominator) pairs."""
     hs, vs = sub or (2, 2)
     rps = rows_per_strip or h
-    tags = {}
+    tags = dict(kw.pop("tags", {}))
     if sub:
         tags[530] = (3, list(sub))
     if ref:
@@ -408,8 +408,9 @@ def _jpeg(chunk: np.ndarray, quality: int) -> bytes:
     from PIL import Image
 
     buf = io.BytesIO()
-    Image.fromarray(chunk.astype(np.uint8)).save(buf, "JPEG",
-                                                 quality=quality)
+    chunk = chunk.astype(np.uint8)
+    Image.fromarray(chunk[..., 0] if chunk.shape[2] == 1 else chunk).save(
+        buf, "JPEG", quality=quality)
     return buf.getvalue()
 
 
@@ -422,6 +423,14 @@ def _compress(raw: bytes, compression: int, **kw) -> bytes:
         return zlib.compress(raw, 6)
     if compression == 32773:
         return packbits(raw)
+    if compression == 34925:   # one xz stream a strip, as tif_lzma.c
+        import lzma
+
+        return lzma.compress(raw, format=lzma.FORMAT_XZ, **kw)
+    if compression == 50000:   # one frame a strip (fixtures only)
+        import zstandard
+
+        return zstandard.ZstdCompressor(**kw).compress(raw)
     raise ValueError(compression)
 
 
@@ -435,14 +444,17 @@ def tiff_file(samples: np.ndarray, *, bps: int = 8, photometric: int = 2,
               rows_per_strip=None, planar: int = 1, fill_order: int = 1,
               sample_format: int = 1, extra=(), colormap=None,
               orientation=None, old_lzw: bool = False, eoi: bool = True,
-              tags=None) -> bytes:
+              tags=None, gap: int = 0, codec=None, chunk_hook=None) -> bytes:
     """A one-page TIFF of (h, w, spp) samples, written tag by tag: strips
     of ``rows_per_strip`` rows or ``tile`` = (width, length) tiles (edge
     tiles padded), chunky or planar (``planar`` 2: each sample a plane of
     its own), compressed each on its own, FillOrder 2 (each byte's bits
     reversed after compression), big-endian or BigTIFF, with a colour
     map, extra samples, an orientation and any other ``tags`` (tag ->
-    (type, values))."""
+    (type, values)). ``gap`` bytes come before the first strip or tile
+    (an odd gap leaves them at odd offsets), ``codec`` are the
+    compressor's options, ``chunk_hook(i, blob)`` may replace chunk i's
+    bytes (a damaged strip or tile)."""
     h, w, spp = samples.shape
     order = ">" if big_endian else "<"
     planes = ([samples[:, :, k:k + 1] for k in range(spp)] if planar == 2
@@ -469,7 +481,8 @@ def tiff_file(samples: np.ndarray, *, bps: int = 8, photometric: int = 2,
             continue
         raw = _predict(c, predictor, bps, big_endian).tobytes()
         blob = _compress(raw, compression, **(
-            {"old": old_lzw, "eoi": eoi} if compression == 5 else {}))
+            {"old": old_lzw, "eoi": eoi} if compression == 5 else
+            codec or {}))
         if fill_order == 2:
             blob = blob.translate(_REVERSED)
         blobs.append(blob)
@@ -497,12 +510,14 @@ def tiff_file(samples: np.ndarray, *, bps: int = 8, photometric: int = 2,
     entries.update(tags or {})
     off_tag, cnt_tag = (324, 325) if tile else (273, 279)
     head = 16 if bigtiff else 8
-    body = bytearray()
+    body = bytearray(gap)
     offsets = []
+    if chunk_hook:
+        blobs = [chunk_hook(i, b) for i, b in enumerate(blobs)]
     for b in blobs:
         offsets.append(head + len(body))
         body += b
-        if len(body) % 2:
+        if (len(body) - gap) % 2:
             body += b"\0"
     entries[off_tag] = (16 if bigtiff else 4, offsets)
     entries[cnt_tag] = (16 if bigtiff else 4, [len(b) for b in blobs])
@@ -808,6 +823,343 @@ def tiff_fixtures(rng) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# TIFF's CCITT, LZMA and Zstandard strips, its YCbCr tiles, predictor and
+# orientation, planar JPEG (from their own seed, so the files above stay
+# as they were)
+# ---------------------------------------------------------------------------
+
+CODECS_SEED = 28
+
+
+def pil_ccitt(bits: np.ndarray, compression: str, tiffinfo=None) -> bytes:
+    """A bilevel image (True black) as PIL's save writes it with a CCITT
+    compression (libtiff's encoder): ``tiffinfo`` may set RowsPerStrip
+    (278), T4Options (292), FillOrder (266) and Photometric (262)."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(~bits.astype(bool)).save(
+        buf, "TIFF", compression=compression, tiffinfo=tiffinfo or {})
+    return buf.getvalue()
+
+
+def strips_of(data: bytes) -> list:
+    """The strips (or tiles) of a little-endian TIFF, by its offsets and
+    byte counts."""
+    from PIL import Image
+
+    with Image.open(io.BytesIO(data)) as im:
+        offsets = im.tag_v2.get(273) or im.tag_v2.get(324)
+        counts = im.tag_v2.get(279) or im.tag_v2.get(325)
+    return [data[o:o + c] for o, c in zip(offsets, counts)]
+
+
+def fax_pattern(rng, h: int, w: int) -> np.ndarray:
+    """A page-like bilevel image: bars, a box, text-like dots and noise."""
+    bits = np.zeros((h, w), bool)
+    bits[h // 5:h // 5 + 3, 2:w - 2] = True
+    bits[h // 2:, w // 3:w // 3 + 2] = True
+    bits[h // 2:h // 2 + 8, w // 2:w // 2 + 9] ^= True
+    bits |= rng.random((h, w)) < 0.06
+    return bits
+
+
+def thunderscan_tiff(rng) -> bytes:
+    """A 4-bit grey TIFF in ThunderScan compression (32809): every pixel a
+    raw code (0xC0 | value). PIL reads it; the port does not yet."""
+    g = rng.integers(0, 16, (6, 9, 1))
+    codes = bytes(0xC0 | int(v) for v in g.reshape(-1))
+    return tiff_file(g, bps=4, photometric=1, tags={259: (3, [32809])},
+                     chunk_hook=lambda i, b: codes)
+
+
+def ojpeg_tiff(rng) -> bytes:
+    """An old-style JPEG TIFF (compression 6) whose JPEGInterchangeFormat
+    holds a whole JFIF. PIL reads it; the port does not yet."""
+    s = rng.integers(0, 256, (8, 8, 3))
+    jpg = _jpeg(s, 90)
+    plain = tiff_file(s, photometric=6, tags={259: (3, [6])},
+                      chunk_hook=lambda i, b: jpg)
+    at = strips_at(plain)[0]
+    return tiff_file(s, photometric=6, tags={
+        259: (3, [6]), 513: (4, [at]), 514: (4, [len(jpg)])},
+        chunk_hook=lambda i, b: jpg)
+
+
+def strips_at(data: bytes) -> list:
+    from PIL import Image
+
+    with Image.open(io.BytesIO(data)) as im:
+        return list(im.tag_v2.get(273))
+
+
+def unread_code_tiff(rng, code: int, photometric: int = 1) -> bytes:
+    """A TIFF of compression ``code`` whose strips are the raw samples:
+    SGILog, WebP, NeXT, JBIG or a code Pillow does not know, each of which
+    PIL refuses."""
+    spp = 3 if photometric == 2 else 1
+    return tiff_file(rng.integers(0, 256, (6, 8, spp)),
+                     photometric=photometric, tags={259: (3, [code])})
+
+
+def ycbcr_tiles_tiff(rng, h: int, w: int, sub=(2, 2), tile=(16, 16), *,
+                     compression: int = 5, chunk_hook=None, **kw) -> bytes:
+    """A YCbCr TIFF (8-bit, not JPEG) in tiles of random samples, each
+    tile in the subsampling's blocks (hs x vs luma samples, Cb, Cr) as
+    TIFFTileSize lays them out."""
+    hs, vs = sub
+    tw, tl = tile
+    bw, bh = -(-tw // hs), -(-tl // vs)
+    block = hs * vs + 2
+    nx, ny = -(-w // tw), -(-h // tl)
+    blocks = rng.integers(0, 256, (ny * bh, nx * bw * block, 1))
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]),
+            277: (3, [3]), 530: (3, list(sub)), 322: (4, [tw]),
+            323: (4, [tl])}
+    tags.update(kw.pop("tags", {}))
+    return tiff_file(blocks, photometric=6, compression=compression,
+                     tile=(bw * block, bh), tags=tags, chunk_hook=chunk_hook,
+                     **kw)
+
+
+def codec_tiff_fixtures(rng) -> dict:
+    """The TIFF fixtures of CCITT (PIL's save: MH, RLE-W, T.4 1-D
+    and 2-D with and without fill bits, T.6; strips; both fill orders,
+    WhiteIsZero and BlackIsZero; RLE-W strips at odd offsets, a T.6 strip
+    cut short), LZMA and Zstandard (PIL's save in five modes; predictor 2,
+    tiles, planar, FillOrder 2, a 64 MiB xz dictionary, Zstandard frames
+    with a content size and checksum, of several blocks, raw and RLE
+    blocks), YCbCr in tiles (each codec, a tile whose codec fails), with a
+    predictor, with each orientation, and planar JPEG (RGB, grey and
+    alpha)."""
+    out = {}
+    bits = fax_pattern(rng, 29, 45)
+    cases = (("mh", "tiff_ccitt", {}), ("mh_strips", "tiff_ccitt", {278: 7}),
+             ("rlew", "tiff_raw_16", {278: 7}),
+             ("g3_1d", "group3", {278: 10}),
+             ("g3_2d", "group3", {292: 1, 278: 10}),
+             ("g3_fill", "group3", {292: 4}),
+             ("g3_2d_fill", "group3", {292: 5, 278: 8}),
+             ("g3_uncompressed_option", "group3", {292: 2}),
+             ("g4", "group4", {}), ("g4_strips", "group4", {278: 6}))
+    for name, comp, info in cases:
+        out[f"ccitt_{name}"] = pil_ccitt(bits, comp, info)
+        if comp != "tiff_raw_16":   # PIL refuses RLE-W of FillOrder 2
+            out[f"ccitt_{name}_fill2_white0"] = pil_ccitt(
+                bits, comp, {**info, 266: 2, 262: 0})
+    wide = fax_pattern(rng, 12, 1000)
+    out["ccitt_g4_wide"] = pil_ccitt(wide, "group4")
+    out["ccitt_g3_2d_wide"] = pil_ccitt(wide, "group3", {292: 1})
+    # RLE-W strips at odd offsets: libtiff aligns each row to the file's
+    # 16-bit words, where the encoder aligned it to the strip's
+    packed = np.packbits(bits, axis=1)[..., None]
+    rlew = strips_of(pil_ccitt(bits, "tiff_raw_16", {278: 7}))
+    for gap in (1, 3):
+        out[f"ccitt_rlew_gap{gap}"] = tiff_file(
+            packed, bps=1, photometric=1, rows_per_strip=7, gap=gap,
+            tags={256: (4, [45]), 259: (3, [32771])},
+            chunk_hook=lambda i, b: rlew[i])
+    g4 = strips_of(pil_ccitt(bits, "group4", {278: 10}))
+    out["ccitt_g4_cut_strip"] = tiff_file(
+        packed, bps=1, photometric=1, rows_per_strip=10,
+        tags={256: (4, [45]), 259: (3, [4])},
+        chunk_hook=lambda i, b: g4[i][:len(g4[i]) // 2] if i == 1 else g4[i])
+    img = smooth(rng, 19, 21)
+    for mode in ("RGB", "L", "1", "P", "I;16"):
+        src = img if mode in ("RGB", "P") else img[..., 1]
+        for comp in ("lzma", "zstd"):
+            out[f"pil_{mode.replace(';', '').lower()}_{comp}"] = pil_tiff(
+                src, mode, compression=comp)
+    s8 = img.astype(np.int64)
+    s16 = s8 * 257 + rng.integers(0, 257, img.shape)
+    out["lzma_predictor2_16bit"] = tiff_file(
+        s16, bps=16, compression=34925, predictor=2, rows_per_strip=6)
+    out["lzma_tiles_fill2"] = tiff_file(s8, compression=34925,
+                                        tile=(16, 16), fill_order=2)
+    out["lzma_dict_64mib"] = tiff_file(s8, compression=34925,
+                                       codec={"preset": 9})
+    out["zstd_predictor2_8bit"] = tiff_file(s8, compression=50000,
+                                            predictor=2, rows_per_strip=5)
+    out["zstd_checksum_size"] = tiff_file(s8, compression=50000, codec={
+        "write_checksum": True, "write_content_size": True, "level": 19})
+    out["zstd_planar_tiles"] = tiff_file(s16, bps=16, compression=50000,
+                                         tile=(16, 32), planar=2)
+    big = smooth(rng, 160, 288)    # 138 KB: two blocks
+    big[140:] = rng.integers(0, 256, (20, 288, 3))     # raw blocks
+    big[130:140] = 77                                  # an RLE run
+    out["zstd_blocks"] = tiff_file(big.astype(np.int64), compression=50000,
+                                   codec={"level": 3})
+    out["ycbcr_tiles_lzw_2x2"] = ycbcr_tiles_tiff(rng, 29, 37, (2, 2))
+    out["ycbcr_tiles_deflate_4x2"] = ycbcr_tiles_tiff(
+        rng, 29, 37, (4, 2), compression=8, tile=(32, 16))
+    out["ycbcr_tiles_packbits_1x1"] = ycbcr_tiles_tiff(
+        rng, 21, 19, (1, 1), compression=32773)
+    out["ycbcr_tiles_zstd_2x1"] = ycbcr_tiles_tiff(
+        rng, 29, 37, (2, 1), compression=50000)
+    out["ycbcr_tiles_lzma_4x4"] = ycbcr_tiles_tiff(
+        rng, 29, 37, (4, 4), compression=34925)
+    out["ycbcr_tiles_bad_tile"] = ycbcr_tiles_tiff(
+        rng, 29, 37, (2, 2), chunk_hook=lambda i, b: b[:len(b) // 3]
+        if i in (1, 4) else b)
+    out["ycbcr_lzw_predictor2_2x2"] = ycbcr_tiff(
+        rng, 19, 21, (2, 2), compression=5, rows_per_strip=6,
+        tags={317: (3, [2])})
+    out["ycbcr_deflate_predictor2_1x1"] = ycbcr_tiff(
+        rng, 19, 21, (1, 1), compression=8, tags={317: (3, [2])})
+    out["ycbcr_tiles_zstd_predictor2"] = ycbcr_tiles_tiff(
+        rng, 29, 37, (1, 1), compression=50000, tags={317: (3, [2])})
+    for k in range(2, 9):
+        out[f"ycbcr_orientation_{k}"] = ycbcr_tiff(
+            rng, 19, 21, (2, 2), compression=5, rows_per_strip=6,
+            tags={274: (3, [k])})
+    out["jpeg_planar_rgb"] = tiff_file(s8, compression=7, planar=2,
+                                       rows_per_strip=8)
+    out["jpeg_planar_grey_alpha"] = tiff_file(
+        np.dstack([s8[..., :1], s8[..., 2:]]), compression=7, planar=2,
+        photometric=1, extra=(2,))
+    return out
+
+
+def coco_poster() -> np.ndarray:
+    """A 640 x 480 timing image of flat bands (runs of 16 to 40 pixels),
+    in integers only, so that these files stay small."""
+    y, x = np.mgrid[0:480, 0:640]
+    r = (x // 40) * 16
+    g = (y // 30) * 16
+    b = (((x // 16) ^ (y // 16)) & 3) * 64
+    return np.dstack([r, g, b]).astype(np.uint8)
+
+
+def coco_codec_fixtures() -> dict:
+    """chip_smoke.py's timing inputs of these kinds at 640 x 480: a T.6
+    TIFF of a dithered page, an LZMA and a Zstandard TIFF (PIL's save)
+    and an RLE TGA, of flat bands (``coco_poster``)."""
+    from PIL import Image
+
+    img = coco_poster()
+    out = {}
+    src = coco_source()
+    page = (src[..., 0].astype(np.int64) + src[..., 2]) % 97 < 30
+    out["tiff/coco_g4"] = pil_ccitt(page, "group4")
+    for comp in ("lzma", "zstd"):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "TIFF", compression=comp)
+        out[f"tiff/coco_{comp}"] = buf.getvalue()
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "TGA", rle=True)
+    out["tga/coco_rle"] = buf.getvalue()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# TGA
+# ---------------------------------------------------------------------------
+
+def tga_rle(rows: list, depth: int, *, cross: bool = False) -> bytes:
+    """Run-length packets of pixel rows (each bytes, ``depth`` bytes a
+    pixel): runs of equal pixels, literals of the rest, none longer than
+    128; ``cross`` lets literals run on past a row's end, as TgaRleDecode
+    reads them."""
+    px = [r[i:i + depth] for r in rows for i in range(0, len(r), depth)]
+    per_row = len(rows[0]) // depth
+    out, i = bytearray(), 0
+    while i < len(px):
+        row_end = (i // per_row + 1) * per_row
+        limit = len(px) if cross else row_end
+        j = i + 1
+        while j < min(limit, row_end, i + 128) and px[j] == px[i]:
+            j += 1
+        if j - i >= 2:
+            out += bytes([0x80 | (j - i - 1)]) + px[i]
+        else:
+            j = i + 1
+            while j < min(limit, i + 128) and not (
+                    j + 1 < limit and px[j] == px[j + 1]
+                    and (j + 1) // per_row == j // per_row):
+                j += 1
+            out += bytes([j - i - 1]) + b"".join(px[i:j])
+        i = j
+    return bytes(out)
+
+
+def tga_file(pixels: np.ndarray, itype: int, depth: int, *, cmap=None,
+             map_depth: int = 24, map_start: int = 0, flags: int = 0,
+             id_section: bytes = b"", cross: bool = False) -> bytes:
+    """A TGA of (h, w, bytes a pixel) uint8 samples as stored (BGR order,
+    16-bit little-endian, palette indices), rows from the bottom unless
+    ``flags`` has bit 5; type ``itype`` (RLE where bit 3 is set), a
+    colour map of ``map_depth`` bits from entry ``map_start``."""
+    h, w, k = pixels.shape
+    rows = [pixels[y].tobytes() for y in range(h)]
+    if not flags & 0x20:
+        rows = rows[::-1]
+    if depth == 1:
+        rows = [np.packbits(pixels[y, :, 0] > 0).tobytes() for y in (
+            range(h) if flags & 0x20 else range(h - 1, -1, -1))]
+    body = (tga_rle(rows, k, cross=cross) if itype & 8
+            else b"".join(rows))
+    cm = b""
+    if cmap is not None:
+        cm = np.asarray(cmap, np.uint8).tobytes()
+    head = struct.pack("<BBBHHBHHHHBB", len(id_section), int(cmap is not None),
+                       itype, map_start if cmap is not None else 0,
+                       len(cm) // (map_depth // 8) if cmap is not None else 0,
+                       map_depth if cmap is not None else 0, 0, 0, w, h,
+                       depth, flags)
+    return head + id_section + cm + body
+
+
+def tga_fixtures(rng) -> dict:
+    """PIL's save in modes L, LA, P, RGB and RGBA, raw and RLE, bottom-up
+    and top-down, and 1 raw; the byte-level writer's 16-bit true colour
+    (raw and RLE), colour maps of 16 and 24 bits from an offset entry,
+    colour-mapped RLE, a grey image with a colour map, an id section,
+    each horizontal flip, literals running past a row's end."""
+    from PIL import Image
+
+    img = smooth(rng, 19, 21)
+    img[5:9, 3:12] = 40   # runs
+    out = {}
+    for mode in ("L", "LA", "P", "RGB", "RGBA"):
+        src = _pil_image(img, mode) if mode != "LA" else Image.fromarray(
+            np.dstack([img[..., 1], img[..., 0]]), "LA")
+        for rle in (False, True):
+            for orient in (-1, 1):
+                buf = io.BytesIO()
+                src.save(buf, "TGA", rle=rle, orientation=orient)
+                name = (f"pil_{mode.lower()}_{'rle' if rle else 'raw'}"
+                        f"{'_top' if orient == 1 else ''}")
+                out[name] = buf.getvalue()
+    buf = io.BytesIO()
+    _pil_image(img, "1").save(buf, "TGA")
+    out["pil_1_raw"] = buf.getvalue()
+    v16 = rng.integers(0, 65536, (19, 21)).astype("<u2")
+    v16[4:8] = v16[4, 0]
+    p16 = v16.view(np.uint8).reshape(19, 21, 2)
+    out["truecolor_16bit_raw"] = tga_file(p16, 2, 16)
+    out["truecolor_16bit_rle"] = tga_file(p16, 10, 16, flags=0x20)
+    idx = rng.integers(0, 40, (19, 21, 1)).astype(np.uint8)
+    idx[10:12] = 7
+    cm24 = rng.integers(0, 256, (36, 3))
+    out["colormap_24bit_start4"] = tga_file(idx, 1, 8, cmap=cm24,
+                                            map_start=4)
+    cm16 = rng.integers(0, 65536, 40).astype("<u2").view(np.uint8)
+    out["colormap_16bit_rle"] = tga_file(idx, 9, 8, cmap=cm16, map_depth=16)
+    out["grey_with_colormap"] = tga_file(idx, 3, 8, cmap=cm24[:30],
+                                         map_start=10)
+    bgr = img[..., ::-1].copy()
+    out["id_section_hflip"] = tga_file(bgr, 2, 24, id_section=b"port " * 9,
+                                       flags=0x10)
+    out["rle_hflip_top"] = tga_file(bgr, 10, 24, flags=0x30)
+    out["rle_literals_cross_rows"] = tga_file(
+        rng.integers(0, 256, (7, 5, 3)).astype(np.uint8), 10, 24, cross=True)
+    out["grey_rle_cross_rows"] = tga_file(img[..., 1:2], 11, 8, cross=True)
+    bgra = np.dstack([bgr, img[..., :1]])
+    out["truecolor_32bit_rle_top"] = tga_file(bgra, 10, 32, flags=0x20)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # ICO and DIB
 # ---------------------------------------------------------------------------
 
@@ -940,7 +1292,7 @@ def coco_fixtures(rng) -> dict:
 
 
 EXTENSIONS = {"pnm": "pnm", "gif": "gif", "tiff": "tif", "ico": "ico",
-              "dib": "dib"}
+              "dib": "dib", "tga": "tga", "tiff_ccitt": "tif"}
 
 
 def all_fixtures() -> dict:
@@ -950,6 +1302,16 @@ def all_fixtures() -> dict:
            "tiff": tiff_fixtures(rng), "ico": ico_fixtures(rng),
            "dib": dib_fixtures(rng)}
     for key, data in coco_fixtures(rng).items():
+        kind, name = key.split("/")
+        out[kind][name] = data
+    rng = np.random.default_rng(CODECS_SEED)
+    # the CCITT files apart: a T.6 strip that ends early leaves rows of
+    # Pillow's strip buffer unwritten, which a damaged copy's pixels show
+    out["tiff_ccitt"] = {}
+    for name, data in codec_tiff_fixtures(rng).items():
+        out["tiff_ccitt" if name.startswith("ccitt_") else "tiff"][name] = data
+    out["tga"] = tga_fixtures(rng)
+    for key, data in coco_codec_fixtures().items():
         kind, name = key.split("/")
         out[kind][name] = data
     return out

@@ -642,12 +642,13 @@ def test_decode_to_matches_jax(size):
 
 
 def test_decode_image_names_what_it_reads():
-    """Bytes no reader takes (a TGA, which PIL opens through a plugin the
-    port does not have) name the kinds that are read."""
-    tga = io.BytesIO()
-    Image.fromarray(np.zeros((4, 5, 3), np.uint8)).save(tga, "TGA")
-    with pytest.raises(ValueError, match="GIF.*baseline JPEG.*TIFF.*WebP"):
-        tpipe.decode_image(tga.getvalue())
+    """Bytes no reader takes (a PCX, which PIL opens through a plugin the
+    port does not have) name that plugin and the kinds that are read."""
+    pcx = io.BytesIO()
+    Image.fromarray(np.zeros((4, 5, 3), np.uint8)).save(pcx, "PCX")
+    with pytest.raises(ValueError,
+                       match="PCX.*GIF.*baseline JPEG.*TIFF.*TGA.*WebP"):
+        tpipe.decode_image(pcx.getvalue())
     with pytest.raises(ValueError, match="BMP"):
         tpipe.decode_image(b"BM" + bytes(60))
 

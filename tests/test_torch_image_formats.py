@@ -46,6 +46,7 @@ from mastermetastyletransfer_tpu_torch.data import pipeline as tpipe
 from mastermetastyletransfer_tpu_torch.models.master import init_master_model
 from mastermetastyletransfer_tpu_torch.utils import bmp as tbmp
 from mastermetastyletransfer_tpu_torch.utils import ico as tico
+from mastermetastyletransfer_tpu_torch.utils import plugins as tplugins
 from mastermetastyletransfer_tpu_torch.utils import pnm as tpnm
 from scripts import make_image_format_fixtures as fx
 from tests import torch_image_formats as tf
@@ -240,15 +241,46 @@ def test_dib_sweep_matches_pil(hw):
 # ---------------------------------------------------------------------------
 
 def test_reader_order_is_pillows():
-    """A fresh Pillow tries its plugins in this order; the port's kinds
-    come in it, and the only plugins between them that take any bytes
-    (no _accept) refuse every body the port's kinds accept."""
+    """A fresh Pillow tries its plugins in this order, every one of them
+    (decode_image's _ORDER); the port's kinds come in it, and each plugin
+    that the port does not read is one utils/plugins decides for: by its
+    _accept, or, where it has none (IM, IMT, IPTC, PCD, SPIDER), by the
+    checks of its _open."""
     code = ("from PIL import Image\nImage.preinit()\nImage.init()\n"
             "print(' '.join(Image.ID))")
     ids = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
+    assert tuple(ids) == tpipe._ORDER
     order = [i for i in ids if i in {k[0] for k in tpipe._KINDS}]
     assert order == [k[0] for k in tpipe._KINDS]
+    Image.init()
+    for name in ids:
+        if name in {k[0] for k in tpipe._KINDS}:
+            continue
+        if Image.OPEN[name][1] is None:
+            assert name in ("IM", "IMT", "IPTC", "PCD", "SPIDER"), name
+            assert name in tplugins._OPEN, name
+        else:
+            assert name in tplugins.ACCEPT, name
+
+
+def _plugin_prefixes() -> list:
+    """First bytes each _accept of utils/plugins takes, and near misses."""
+    out = [b"BLP1", b"BLP2", b"BUFR", b"ZCZC", b"\0\0\2\0", b"\x0a\x05",
+           b"\x0a\x01", b"\xb1\x68\xde\x3a", b"DDS ", b"%!PS",
+           b"\xc5\xd0\xd3\xc6", b"SIMPLE", b"FTEX",
+           b"\0\0\0\x1c\0\0\0\x01", b"\0\0\0\x10\0\0\0\x03", b"GRIB\0\0\0\x01",
+           b"GRIB\0\0\0\x02", b"\x89HDF\r\n\x1a\n", b"\xff\x4f\xff\x51",
+           b"\0\0\0\x0cjP  \r\n\x87\n", b"icns", b"\0" * 7 + b"\x04",
+           b"\0\0\1\xb3", b"DanM", b"LinS", b"\x80\xe8\0\0", b"8BPS",
+           b"qoif", b"\x01\xda", b"\x59\xa6\x6a\x95", b"\xd7\xcd\xc6\x9a\0\0",
+           b"\x01\0\0\0", b"#define", b" \n #define", b"/* XPM */",
+           b"P7 332", b"\0\0\0\x18ftypavif", b"\0\0\0\x18ftypmif1",
+           b"\0\0\0\x18ftypheic"]
+    fli = bytearray(16)
+    fli[4:6], fli[14:16] = b"\x11\xaf", b"\x03\0"
+    out.append(bytes(fli))
+    return [p.ljust(16, b"\0") for p in out] + out
 
 
 def _prefixes(rng) -> list:
@@ -268,13 +300,20 @@ def _prefixes(rng) -> list:
 
 def test_each_kind_accepts_as_its_plugin():
     """Each kind's test on the first bytes is its Pillow plugin's _accept
-    (a plugin whose _accept fails on short bytes takes nothing)."""
+    (a plugin whose _accept fails on short bytes takes nothing; TGA has
+    none, so its plugin takes any bytes to its _open); so is each
+    _accept kept for a plugin the port does not read
+    (utils/plugins.ACCEPT)."""
     Image.init()
     rng = np.random.default_rng(5)
-    for prefix in _prefixes(rng):
-        for name, accept, _ in tpipe._KINDS:
+    kinds = [(name, accept) for name, accept, _ in tpipe._KINDS]
+    kinds += sorted(tplugins.ACCEPT.items())
+    for prefix in _prefixes(rng) + _plugin_prefixes():
+        for name, accept in kinds:
+            pil_accept = Image.OPEN[name][1]
             try:
-                want = bool(Image.OPEN[name][1](prefix))
+                want = pil_accept is None or pil_accept(prefix)
+                want = want is True   # a str is a warning, not a yes
             except Exception:  # noqa: BLE001 - struct.error on short bytes
                 want = False
             assert bool(accept(prefix)) == want, (name, prefix)
@@ -363,7 +402,8 @@ def _post(url: str, body: bytes):
 def test_stylize_gif_and_tiff_bodies_are_served():
     """A GIF body and a TIFF body (LZW, predictor 2) get 200 from the
     port's server, each reply equal to the reply for the same pixels sent
-    as PNG; a G4 TIFF body gets 400 naming its compression."""
+    as PNG; a ThunderScan TIFF body (a compression the port does not read
+    yet) gets 400 naming its compression."""
     cfg = _narrow_cfg()
     params = init_master_model(cfg, torch.Generator().manual_seed(0),
                                device="cpu")
@@ -386,12 +426,12 @@ def test_stylize_gif_and_tiff_bodies_are_served():
                    for k, v in (("content", content), ("style", style))}
             code, _, png_reply = _post(url, _multipart(png))
             assert code == 200 and png_reply == reply, name
-        g4 = _saved(Image.fromarray(np.eye(16, dtype=np.uint8) * 255)
-                    .convert("1"), "TIFF", compression="group4")
-        code, ctype, data = _post(url, _multipart({"content": g4,
+        thunderscan = fx.thunderscan_tiff(np.random.default_rng(0))
+        assert tf.pil(thunderscan)[0] is not None
+        code, ctype, data = _post(url, _multipart({"content": thunderscan,
                                                    "style": style}))
         assert code == 400 and ctype == "text/plain"
-        assert "group4" in data.decode()
+        assert "tiff_thunderscan" in data.decode()
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -501,15 +541,18 @@ def test_truncations_and_flips_match_pil(tmp_path, group):
 
 
 def test_chip_smoke_reads_the_new_fixtures():
-    """chip_smoke.py's codecs phase holds every fixture of the five kinds
-    to its stored pixels, and its http phase sends a GIF and an LZW TIFF
-    content and a TIFF locked style."""
+    """chip_smoke.py's codecs phase holds every fixture of the kinds read
+    with PIL's plugins (Netpbm, GIF, TIFF, ICO, DIB, CCITT TIFF, TGA) to
+    its stored pixels and times the 640x480 inputs; its http phase sends
+    an LZW and a Zstandard TIFF and an RLE TGA content and locks a style
+    from a Deflate TIFF."""
     import chip_smoke as cs
 
-    for kind in ("pnm", "gif", "tiff", "ico", "dib"):
+    kinds = ("pnm", "gif", "tiff", "ico", "dib", "tiff_ccitt", "tga")
+    for kind in kinds:
         assert cs.N_KIND_FIXTURES[kind] == len(tf.names(kind)), kind
     fixtures = cs.kind_fixtures()
-    for kind in ("pnm", "gif", "tiff", "ico", "dib"):
+    for kind in kinds:
         for name in tf.names(kind):
             data, want = fixtures[f"{kind}/{name}"]
             got = tpipe.decode_image(data)
@@ -517,12 +560,25 @@ def test_chip_smoke_reads_the_new_fixtures():
                 assert (got.shape, tf.digest(got)) == want, name
             else:
                 assert np.array_equal(got, want), name
+    for name in ("tiff g4", "tiff lzma", "tiff zstd", "tga rle"):
+        rel = cs.FORMAT_TIMING[name]
+        with open(os.path.join(tf.DATA, rel), "rb") as f:
+            assert tpipe.decode_image(f.read()).shape == (480, 640, 3), name
     accept = {name: test for name, test, _ in tpipe._KINDS}
     inputs = cs.http_inputs()
     contents = dict(zip(cs.HTTP_CONTENT_KINDS, inputs["contents"]))
-    assert accept["GIF"](contents["gif"])
+    assert len(contents) == 8
     assert accept["TIFF"](contents["tiff lzw predictor 2"])
+    assert accept["TIFF"](contents["tiff zstd"])
+    assert ttiff_code(contents["tiff zstd"]) == 50000
+    assert tf.pil(contents["tga rle"])[1] == "TGA"
     assert accept["TIFF"](inputs["locked_tiff"])
-    for body in (contents["gif"], contents["tiff lzw predictor 2"],
-                 inputs["locked_tiff"]):
+    for body in (contents["tiff lzw predictor 2"], contents["tiff zstd"],
+                 contents["tga rle"], inputs["locked_tiff"]):
         assert tpipe.decode_image(body).shape == (480, 640, 3)
+
+
+def ttiff_code(data: bytes) -> int:
+    from mastermetastyletransfer_tpu_torch.utils import tiff as ttiff
+
+    return ttiff._Ifd(data).get(259)
