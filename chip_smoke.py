@@ -3082,10 +3082,16 @@ TRAINER_CONTENTS, TRAINER_CONTENT_HW = 16, (480, 640)
 # and an 8-bit palette BMP (written here), a lossy WebP with alpha and a
 # lossless one (tests/data/webp/trainer_*.webp: nothing here writes WebP).
 # The batch loader takes the JAX loader's fallback for the first and the
-# WebP files and its prescale for the second.
+# WebP files and its prescale for the second. And two JPEGs cut short, as
+# a scraped folder holds them (tests/data/jpeg_damaged/trainer_cut_*.jpg:
+# one with restart markers, one progressive): Pillow refuses both, the JAX
+# loader's libjpeg reads them, the blocks past the cut grey or as the
+# earlier scans left them, and so does the port's loader; their staged
+# images are held to the JAX loader's digests.
 TRAINER_KINDS = ("kind_cmyk.jpg", "kind_arith.jpg", "kind_adam7.png",
                  "kind_palette.bmp", "kind_webp_lossy_alpha.webp",
-                 "kind_webp_lossless.webp")
+                 "kind_webp_lossless.webp", "kind_cut_restart.jpg",
+                 "kind_cut_progressive.jpg")
 TRAINER_STYLES, TRAINER_STYLE_HW = 4, (768, 1024)
 TRAINER_RESIZE, TRAINER_EVERY, TRAINER_QUALITY = 512, 3, 95
 # The evaluation kernels of one dump, master_apply on one 256^2 pair at
@@ -3250,8 +3256,9 @@ def check_dumps(exp: str, steps) -> list:
 def kind_bodies(rng) -> dict:
     """The TRAINER_KINDS files' bytes: the two JPEGs of
     tests/data/jpeg_kinds/, an Adam7 RGB PNG and a 64-colour palette BMP
-    of smooth images from ``rng`` at TRAINER_CONTENT_HW, and the two WebP
-    files of tests/data/webp/."""
+    of smooth images from ``rng`` at TRAINER_CONTENT_HW, the two WebP
+    files of tests/data/webp/ and the two cut JPEGs of
+    tests/data/jpeg_damaged/."""
     with open(os.path.join(KIND_DIRS["jpeg_kinds"],
                            "trainer_cmyk_adobe.jpg"), "rb") as f:
         cmyk = f.read()
@@ -3267,10 +3274,14 @@ def kind_bodies(rng) -> dict:
         with open(os.path.join(KIND_DIRS["webp"], f"{name}.webp"),
                   "rb") as f:
             webp.append(f.read())
+    cut = []
+    for name in ("trainer_cut_restart", "trainer_cut_progressive"):
+        with open(os.path.join(DAMAGED_DIR, f"{name}.jpg"), "rb") as f:
+            cut.append(f.read())
     return dict(zip(TRAINER_KINDS, (
         cmyk, arith, png_file(png_img, 8, 2, interlace=True),
         bmp_file(bmp_rows(bmp_img[:, :, 1] // 4, 8), w, h, 8,
-                 palette=palette.tobytes(), colors=64), *webp)))
+                 palette=palette.tobytes(), colors=64), *webp, *cut)))
 
 
 def trainer_folders(root: str):
@@ -3319,8 +3330,10 @@ def run_trainer(train: dict) -> dict:
     over its ks; fast adaptation: ``adapt_per_step``), plus
     ``DUMP_PER_CALL`` at a dump; the dumps 256x256x3 and not constant.
     Reports whether the native loader built, the loader's ms per batch of
-    8 contents, of the 4 styles and of the 6 new kinds, and the trainer's
-    imgs/s over iterations 2-6 beside the train phase's step alone."""
+    8 contents, of the 4 styles and of the 8 new kinds (two cut JPEGs
+    among them, their staged images held to the JAX loader's), and the
+    trainer's imgs/s over iterations 2-6 beside the train phase's step
+    alone."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         cdir, sdir = trainer_folders(tmp)
@@ -3344,6 +3357,17 @@ def run_trainer(train: dict) -> dict:
                 TRAINER_KINDS):
             raise AssertionError(f"content files {ds.files}")
         kinds_loader_ms = host_ms(lambda: ds.get_batch(kinds), 3)
+        digests = damaged_digests()
+        for i in kinds:
+            base = os.path.basename(ds.files[i])
+            if not base.startswith("kind_cut_"):
+                continue
+            want = digests[f"trainer_cut_{base[9:-4]}"]["loader"][
+                str(TRAINER_RESIZE)]
+            got = digest_of(lambda: ds.get_batch([i])[0])
+            if got is None or got != want:
+                raise AssertionError(f"the loader on {base}: {got}, the "
+                                     f"JAX loader's {want}")
 
         def argv(exp, *extra):
             return trainer_argv(cdir, sdir, os.path.join(tmp, exp), *extra)
@@ -4176,6 +4200,15 @@ FORMAT_TIMING = {"gif": "gif/coco.gif", "tiff lzw predictor 2":
                  "tiff/coco_lzma.tif", "tiff zstd": "tiff/coco_zstd.tif",
                  "tga rle": "tga/coco_rle.tga"}
 N_KIND_BATCHES = 40
+# JPEGs cut short and damaged (tests/data/jpeg_damaged/, written by
+# scripts/make_image_format_fixtures.py): decode_image against Pillow's
+# verdict and pixels, the batch loader against the JAX loader's (libjpeg
+# with jpeg_stdio_src's fake EOI, its fallback to Pillow) at one target per
+# n/8, both stored as digests: 0 values may differ. The two trainer_cut_*
+# files (640x480, a cut one with restart markers and a cut progressive
+# one) are also among the trainer phase's contents.
+DAMAGED_DIR = os.path.join(os.path.dirname(FIXTURES), "jpeg_damaged")
+N_DAMAGED, N_DAMAGED_BATCHES = 25, 186
 
 
 def fixture_pixels() -> dict:
@@ -4306,9 +4339,68 @@ def check_kinds() -> dict:
     large = {name: dict(bytes=len(body), decode_ms=host_ms(
                  lambda: decode_image(body), CODEC_ITERS))
              for name, body in kind_bodies(
-                 np.random.default_rng(CODECS_SEED + 2)).items()}
+                 np.random.default_rng(CODECS_SEED + 2)).items()
+             if not name.startswith("kind_cut_")}   # (check_damaged's)
     return dict(kind_fixtures=fixtures, kind_batches_differing=batches,
                 kinds_640x480=large, formats_640x480=format_timing())
+
+
+def damaged_digests() -> dict:
+    with open(os.path.join(DAMAGED_DIR, "digests.json")) as f:
+        return json.load(f)
+
+
+def digest_of(fn):
+    """sha256 of fn()'s array, or None where it raises ValueError."""
+    try:
+        return hashlib.sha256(np.ascontiguousarray(fn()).tobytes()).hexdigest()
+    except ValueError:
+        return None
+
+
+def check_damaged() -> dict:
+    """The damaged JPEGs: ``decode_image`` against Pillow's stored verdict and
+    pixels, the batch loader at each stored target against the JAX
+    loader's (a digest each, None where the reference refuses the file);
+    any difference raises. The host's ms of the loader on the two
+    640x480 cut files at TRAINER_RESIZE, and of ``decode_image`` refusing
+    them (Pillow refuses a cut file, the loader reads it)."""
+    fixtures, batches, times = {}, 0, {}
+    for name, want in sorted(damaged_digests().items()):
+        path = os.path.join(DAMAGED_DIR, f"{name}.jpg")
+        with open(path, "rb") as f:
+            body = f.read()
+        pil = want["pil"] and want["pil"]["sha256"]
+        got = digest_of(lambda: decode_image(body))
+        if got != pil:
+            raise AssertionError(f"damaged {name}: decode_image "
+                                 f"{'refuses' if got is None else got}, "
+                                 f"Pillow {'refuses' if pil is None else pil}")
+        loader = {}
+        for target, sha in want["loader"].items():
+            loader[target] = digest_of(
+                lambda: decode_resize_batch([path], int(target))[0])
+            if loader[target] != sha:
+                raise AssertionError(f"damaged {name} at {target}: the "
+                                     f"loader {loader[target]}, JAX {sha}")
+            batches += 1
+        fixtures[name] = dict(pil_reads=pil is not None,
+                              loader_reads=sum(v is not None
+                                               for v in loader.values()),
+                              targets=len(loader))
+        if name.startswith("trainer_"):
+            times[name] = dict(
+                bytes=len(body), loader_ms=host_ms(
+                    lambda: decode_resize_batch([path], TRAINER_RESIZE),
+                    CODEC_ITERS),
+                decode_image_refusal_ms=host_ms(
+                    lambda: digest_of(lambda: decode_image(body)),
+                    CODEC_ITERS))
+    if (len(fixtures), batches) != (N_DAMAGED, N_DAMAGED_BATCHES):
+        raise AssertionError(f"damaged fixtures {len(fixtures)}, loader "
+                             f"batches {batches}")
+    return dict(damaged_fixtures=fixtures, damaged_batches_differing=0,
+                damaged_batches=batches, damaged_640x480=times)
 
 
 def loader_ms(tmp: str) -> dict:
@@ -4404,6 +4496,7 @@ def run_codecs() -> dict:
     if len(prescale) != N_PRESCALE_BATCHES:
         raise AssertionError(f"prescale batches: {sorted(prescale)}")
     kinds = check_kinds()
+    damaged = check_damaged()
     sources = {}
     for name in ("src_420", "src_422_progressive"):
         with open(os.path.join(FIXTURES, f"{name}.jpg"), "rb") as f:
@@ -4420,7 +4513,7 @@ def run_codecs() -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         loader = loader_ms(tmp)
     out = dict(fixtures=fixtures, prescale_differing=prescale, **kinds,
-               source_decode=sources, **loader, size=CODEC_SIZE,
+               **damaged, source_decode=sources, **loader, size=CODEC_SIZE,
                quality=95, bytes=len(data), psnr_db=psnr_db(back, src),
                encode_ms=host_ms(lambda: encode_jpeg(src, 95), CODEC_ITERS),
                decode_ms=host_ms(lambda: decode_jpeg(data), CODEC_ITERS),
@@ -5368,9 +5461,11 @@ def dp_rank(rank: int, n: int, dev: torch.device, runs) -> dict:
 
 def dp_trainer_rank(rank: int, n: int, dev: torch.device, argv) -> dict:
     """``trainer.train`` on the command line's configuration in one rank,
-    its printed lines kept off the script's output."""
+    with deterministic algorithms, its printed lines kept off the script's
+    output."""
     args = trainer.build_argparser().parse_args(argv)
-    with contextlib.redirect_stdout(io.StringIO()):
+    with deterministic_algorithms(), \
+            contextlib.redirect_stdout(io.StringIO()):
         return trainer.train(trainer.config_from_args(args),
                              exp_dir=args.exp_dir, log_every=args.log_every,
                              device=dev)
@@ -5383,7 +5478,11 @@ def run_dp_trainer() -> dict:
     bf16 and at f32 (``trainer.main``): one experiment dir (config, one
     metrics line per iteration, one checkpoint, one dump), and the logged
     losses within the bf16 verdict: summed over the iterations, |2 ranks -
-    f32| at most TOL_BF16_NOISE x |one device - f32| per loss."""
+    f32| at most TOL_BF16_NOISE x |one device - f32| per loss. All three
+    run with deterministic algorithms: under PyTorch's defaults cuDNN's
+    choice of algorithm moves a bf16 trainer's content loss after its
+    first step by as much as bf16 moves it from f32, and the one-device
+    trainer fails this verdict against a second run of itself."""
     t0 = time.perf_counter()
     losses = ("total", "content", "style")
     with tempfile.TemporaryDirectory() as tmp:
@@ -5394,13 +5493,15 @@ def run_dp_trainer() -> dict:
                                 "--max_iterations", str(DP_TRAINER_ITERS),
                                 *extra)
 
-        walls = {}
+        walls, ops = {}, set()
         for label, extra in (("one_bf16", ()),
                              ("one_f32", ("--compute_dtype", "float32"))):
             t1 = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()):
+            with deterministic_algorithms() as caught, \
+                    contextlib.redirect_stdout(io.StringIO()):
                 trainer.main(argv(label, *extra))
             walls[label] = time.perf_counter() - t1
+            ops |= {str(w.message)[:200] for w in caught}
         t1 = time.perf_counter()
         spawn_ranks(dp_trainer_rank, 2, backend="gloo", device="cuda",
                     args=(argv("dp", "--num_devices", "2"),))
@@ -5429,7 +5530,8 @@ def run_dp_trainer() -> dict:
                loss_noise_ratio=ratio, loss_noise_tol=TOL_BF16_NOISE,
                imgs_per_s={label: rows[-1]["imgs_per_sec"]
                            for label, rows in logs.items()},
-               run_wall_s=walls, wall_s=time.perf_counter() - t0)
+               nondeterministic_ops=sorted(ops), run_wall_s=walls,
+               wall_s=time.perf_counter() - t0)
     out["checks"] = dict(
         one_dir=files == want_files and others == [],
         one_line_per_iteration=steps == list(range(1, DP_TRAINER_ITERS + 1)),

@@ -24,12 +24,13 @@
 // libjpeg's scale_num / scale_denom, jdmaster.c; a lossless frame at full
 // size only):
 //   * the inverse DCT of each output block size (jddctmgr.c): "islow" at
-//     8 x 8 as libjpeg-turbo's SIMD code computes it (jidctint-avx2.asm:
-//     jidctint.c's arithmetic in 16- and 32-bit lanes, which tells only on
-//     a damaged stream), jidctint.c's scaled routines at 3, 5, 6, 7, 10, 12
-//     and 14, jidctred.c's reduced ones at 4, 2 and 1, these with the range
-//     limit's wraparound table; a chroma component's size doubles while its
-//     sampling allows (4:2:0 chroma decodes at 2n, unupsampled);
+//     8 x 8, and jidctred.c's reduced ones at 4 and 2, as libjpeg-turbo's
+//     SIMD code computes them (jidctint-avx2.asm, jidctred-sse2.asm: 16-
+//     and 32-bit lanes, which tell only on a damaged stream), jidctint.c's
+//     scaled routines at 3, 5, 6, 7, 10, 12 and 14 and jidctred.c's 1 x 1,
+//     these with the range limit's wraparound table; a chroma component's
+//     size doubles while its sampling allows (4:2:0 chroma decodes at 2n,
+//     unupsampled);
 //   * fancy (triangular) chroma upsampling (jdsample.c: h2v1, h1v2, h2v2
 //     with their bias terms; box replication where a chroma plane is at
 //     most 2 samples wide, at 1/8 scale, in a lossless frame, or for other
@@ -39,17 +40,30 @@
 // A CMYK or YCCK frame's pixels are what PIL's convert("RGB") makes of
 // libjpeg's CMYK: the samples inverted (PIL reads every 4-component JPEG
 // as "CMYK;I") and Pillow's cmyk2rgb (libImaging/Convert.c).
+// Damaged and cut data are read as libjpeg recovers from them
+// (jdmarker.c, jdhuff.c, jdphuff.c, jdarith.c, jdlhuff.c, jdcoefct.c): its
+// markers read through its data source, whose end is where the callers
+// differ (End): PIL's source suspends, and PIL keeps a file only where
+// every row was out before the data ran out; jpeg_stdio_src (the JAX
+// loader's) and libtiff's read a fake EOI past the end. A scan that meets
+// a marker runs out of data: its MCUs to the next restart get no
+// coefficients (a sequential block is then 0, mid grey; a progressive one
+// keeps what the earlier scans gave it; block smoothing takes the
+// coefficient bits before the scan for the rows it did not reach); a
+// missing or misnumbered RSTn is resynced as jpeg_resync_to_restart does;
+// a bogus progression (a band or bit coded again) is decoded as libjpeg
+// decodes it; an arithmetic coding error ends its interval's data.
 // A hierarchical, lossless arithmetic-coded or 12-bit file, one of 2
-// components, and a truncated or corrupt one throw std::runtime_error
-// naming the reason (the SOF marker for the unsupported kinds). So does a
-// frame above kMaxPixels, one whose scans could not fit in the file's
-// bytes (Huffman and lossless frames), and a progressive one whose
-// coefficient buffer would be above the limit, before anything of its size
-// is allocated: the decoder reads untrusted request bodies. A DC table with
-// a symbol above 15 (16 in a lossless frame) is refused as libjpeg refuses
-// it (jdhuff.c jpeg_make_d_derived_tbl), a DC prediction that leaves int's
-// range as libjpeg-turbo refuses it, and a scan that would decode a
-// coefficient's bit a second time.
+// components, and one libjpeg refuses throw std::runtime_error naming the
+// reason (the SOF marker for the unsupported kinds). So does a frame above
+// kMaxPixels, one whose scans could not fit in a request body's bytes
+// (Huffman and lossless frames, PIL's source), and one whose coefficient
+// buffer (progressive, or sequential in several scans) would be above the
+// limit, before anything of its size is allocated: the decoder reads
+// untrusted request bodies. A DC table with a symbol above 15 (16 in a
+// lossless frame) is refused as libjpeg refuses it (jdhuff.c
+// jpeg_make_d_derived_tbl), and a DC prediction that leaves int's range
+// as libjpeg-turbo refuses it.
 //
 // The encoder writes a baseline 4:2:0 JFIF as libjpeg does at a quality
 // setting with its defaults (PIL's Image.save(..., "JPEG", quality=q)):
@@ -177,23 +191,53 @@ void make_codes(const uint8_t* bits, int nvals, int* size, uint32_t* code) {
 // Decoder
 // ---------------------------------------------------------------------------
 
-constexpr int kLook = 9;
+constexpr int kLookahead = 8;     // jdhuff.h HUFF_LOOKAHEAD
+constexpr int kMinGetBits = 57;   // jdhuff.h MIN_GET_BITS, 64-bit buffer
+constexpr int kMaxBlocksInMcu = 10;   // jpeglib.h D_MAX_BLOCKS_IN_MCU
 
+// A Huffman table as its DHT segment gives it, and libjpeg's decoding
+// tables of it (jdhuff.c jpeg_make_d_derived_tbl), derived at each scan
+// that reads it, where libjpeg checks it.
 struct DecHuff {
   bool present = false;
-  int max_symbol = 0;  // libjpeg bounds a DC table's at its first scan
+  uint8_t bits[17] = {};   // bits[l]: codes of length l (bits[0] unused)
   uint8_t vals[256] = {};
+  int nvals = 0;
   int32_t maxcode[18] = {};
   int32_t valoffset[18] = {};
-  uint16_t look[1 << kLook] = {};  // (length << 8) | symbol; 0: longer code
+  // (length << 8) | symbol of each 8-bit lookahead; length 9: a longer code
+  uint16_t lookup[1 << kLookahead] = {};
 
-  void build(const uint8_t* bits, const uint8_t* v, int nvals) {
+  void define(const uint8_t* b, const uint8_t* v, int n) {
+    std::memcpy(bits, b, sizeof(bits));
+    std::memset(vals, 0, sizeof(vals));
+    std::memcpy(vals, v, size_t(n));
+    nvals = n;
+    present = true;
+  }
+
+  // max_dc: the largest symbol a DC table may hold (15; 16 lossless), or
+  // -1 for an AC table, which may hold any.
+  void derive(int max_dc) {
     int size[257];
     uint32_t code[257];
-    make_codes(bits, nvals, size, code);
-    std::memcpy(vals, v, nvals);
-    max_symbol = nvals ? *std::max_element(v, v + nvals) : 0;
     int p = 0;
+    for (int l = 1; l <= 16; ++l) {
+      if (p + bits[l] > 256) fail("bad Huffman table");
+      for (int i = 0; i < bits[l]; ++i) size[p++] = l;
+    }
+    size[p] = 0;
+    const int nsym = p;
+    // canonical codes; a code of all ones does not fit its length
+    uint32_t c = 0;
+    int si = size[0];
+    for (p = 0; size[p];) {
+      while (size[p] == si) code[p++] = c++;
+      if (c >= (1u << si)) fail("bad Huffman table");
+      c <<= 1;
+      ++si;
+    }
+    p = 0;
     for (int l = 1; l <= 16; ++l) {
       if (bits[l]) {
         valoffset[l] = p - int32_t(code[p]);
@@ -203,92 +247,40 @@ struct DecHuff {
         maxcode[l] = -1;
       }
     }
-    maxcode[17] = 0x7fffffff;
-    std::memset(look, 0, sizeof(look));
-    for (int k = 0; k < nvals; ++k) {
-      if (size[k] > kLook) continue;
-      int shift = kLook - size[k];
-      for (int f = 0; f < (1 << shift); ++f)
-        look[(code[k] << shift) | f] = uint16_t((size[k] << 8) | vals[k]);
+    valoffset[17] = 0;
+    maxcode[17] = 0xFFFFF;   // ends a garbage code at 17 bits
+    for (auto& e : lookup) e = (kLookahead + 1) << kLookahead;
+    p = 0;
+    for (int l = 1; l <= kLookahead; ++l) {
+      for (int i = 0; i < bits[l]; ++i, ++p) {
+        int look = int(code[p]) << (kLookahead - l);
+        for (int n = 1 << (kLookahead - l); n > 0; --n)
+          lookup[look++] = uint16_t(l << kLookahead | vals[p]);
+      }
     }
-    present = true;
+    if (max_dc >= 0)
+      for (int i = 0; i < nsym; ++i)
+        if (vals[i] > max_dc)
+          fail("bad DHT segment: a DC symbol above " +
+               std::to_string(max_dc));
   }
 };
 
-// Entropy-coded bits, with 0xFF00 unstuffed; at a marker it feeds zeros.
-struct Bits {
-  const uint8_t* p;
-  const uint8_t* end;
-  uint64_t buf = 0;
-  int n = 0;
-  bool at_marker = false;
-
-  void fill() {
-    while (n <= 56) {
-      uint32_t b = 0;
-      if (!at_marker && p < end) {
-        b = *p;
-        if (b == 0xFF) {
-          if (p + 1 < end && p[1] == 0x00) {
-            p += 2;
-          } else {
-            at_marker = true;
-            b = 0;
-          }
-        } else {
-          ++p;
-        }
-      }
-      buf |= uint64_t(b) << (56 - n);
-      n += 8;
-    }
-  }
-  uint32_t peek(int k) {
-    if (n < k) fill();
-    return uint32_t(buf >> (64 - k));
-  }
-  void skip(int k) {
-    buf <<= k;
-    n -= k;
-  }
-  int get(int k) {
-    if (k == 0) return 0;
-    uint32_t v = peek(k);
-    skip(k);
-    return int(v);
-  }
-  int decode(const DecHuff& h) {
-    uint32_t look = peek(kLook);
-    uint16_t e = h.look[look];
-    if (e) {
-      skip(e >> 8);
-      return e & 0xFF;
-    }
-    int32_t code = int32_t(peek(16));
-    for (int l = kLook + 1; l <= 16; ++l) {
-      int32_t c = code >> (16 - l);
-      if (c <= h.maxcode[l]) {
-        skip(l);
-        return h.vals[(c + h.valoffset[l]) & 0xFF];
-      }
-    }
-    // jdhuff.c jpeg_huff_decode: garbage reaches the sentinel length 17;
-    // libjpeg warns, takes the 17 bits and fakes a 0
-    peek(17);
-    skip(17);
-    return 0;
-  }
-  // After a restart interval: drop the padding bits and read RSTn.
-  void restart() {
-    buf = 0;
-    n = 0;
-    at_marker = false;
-    while (p + 1 < end && !(p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7))
-      ++p;
-    if (p + 1 >= end) fail("corrupt JPEG data: missing RST marker");
-    p += 2;
-  }
+// How the data ends, as each caller's libjpeg data source meets it.
+enum class End {
+  // PIL's (Pillow's JpegDecode.c, whose fill_input_buffer suspends):
+  // ImageFile.load hands the file over in reads of kPilBlock bytes and
+  // raises "image file is truncated" where it has none left and libjpeg
+  // has not output every row.
+  kSuspend,
+  // jpeg_stdio_src's (the JAX loader's) and libtiff's: past the end,
+  // libjpeg warns and reads a fake EOI marker, FF D9, again and again.
+  kFakeEoi,
 };
+constexpr size_t kPilBlock = 65536;   // ImageFile's MAXBLOCK
+
+// PIL's data source ran dry.
+struct Suspended {};
 
 // The arithmetic decoder's probability estimation (T.81 Table D.2, as
 // libjpeg's jaricom.c packs it): Qe << 16 | Next_Index_MPS << 8 |
@@ -355,80 +347,6 @@ const int32_t kAriTab[114] = {
     ari(0x5597, 110, 109, 0), ari(0x504f, 111, 107, 0),
     ari(0x5a10, 110, 111, 1), ari(0x5522, 112, 109, 0),
     ari(0x59eb, 112, 111, 1), ari(0x5a1d, 113, 113, 0)};
-
-// Arithmetic-coded data (jdarith.c arith_decode, T.81 D.2): C holds the
-// code register and the bits read ahead, CT the shift between them. A
-// marker ends the data: zeros are fed from there, as libjpeg does (the
-// scan's end is legal anywhere in arithmetic coding), and p stays on it.
-struct Arith {
-  const uint8_t* p;
-  const uint8_t* end;
-  int64_t c = 0, a = 0;
-  int ct = -16;  // -16: the first two bytes are still to be read
-  bool at_marker = false;
-
-  int byte() {
-    if (at_marker || p >= end) return 0;
-    if (*p != 0xFF) return *p++;
-    const uint8_t* q = p + 1;
-    while (q < end && *q == 0xFF) ++q;  // fill bytes
-    if (q < end && *q == 0) {
-      p = q + 1;
-      return 0xFF;
-    }
-    p = q - 1;  // on the marker's last 0xFF
-    at_marker = true;
-    return 0;
-  }
-  // After a restart interval: to RSTn, and the decoder reset.
-  void restart() {
-    while (p + 1 < end && !(p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7))
-      ++p;
-    if (p + 1 >= end) fail("corrupt JPEG data: missing RST marker");
-    p += 2;
-    c = a = 0;
-    ct = -16;
-    at_marker = false;
-  }
-  // One binary decision with the adaptive estimate *st (bit 7: the MPS).
-  int decode(uint8_t* st) {
-    while (a < 0x8000) {
-      if (--ct < 0) {
-        c = (c << 8) | byte();
-        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the first two bytes
-      }
-      a <<= 1;
-    }
-    int sv = *st;
-    int64_t qe = kAriTab[sv & 0x7F];
-    const int nl = int(qe & 0xFF);
-    qe >>= 8;
-    const int nm = int(qe & 0xFF);
-    qe >>= 8;
-    int64_t temp = a - qe;
-    a = temp;
-    temp <<= ct;
-    if (c >= temp) {
-      c -= temp;
-      if (a < qe) {          // conditional exchange: this was the MPS
-        a = qe;
-        *st = uint8_t((sv & 0x80) ^ nm);
-      } else {
-        a = qe;
-        *st = uint8_t((sv & 0x80) ^ nl);
-        sv ^= 0x80;
-      }
-    } else if (a < 0x8000) {
-      if (a < qe) {          // conditional exchange: this was the LPS
-        *st = uint8_t((sv & 0x80) ^ nl);
-        sv ^= 0x80;
-      } else {
-        *st = uint8_t((sv & 0x80) ^ nm);
-      }
-    }
-    return sv >> 7;
-  }
-};
 
 inline int extend(int v, int s) {
   return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
@@ -544,94 +462,127 @@ void idct_islow_simd(const int16_t* coef, const uint16_t* q, uint8_t* out,
   }
 }
 
-// The reduced-size routines of IJG jidctred.c (libjpeg 6b), which
-// libjpeg-turbo keeps for 4 x 4, 2 x 2 and 1 x 1 output. The 4 x 4 reads
-// no coefficient of row or column 4, the 2 x 2 none of rows or columns 2,
-// 4 and 6.
+// The reduced-size transforms of IJG jidctred.c (libjpeg 6b) for 4 x 4
+// and 2 x 2 output, as libjpeg-turbo's SIMD code computes them on x86-64
+// (jidctred-sse2.asm, which both the JAX loader's and PIL's libjpeg run):
+// jidctred.c's sums, but the dequantization in 16-bit lanes that wrap
+// (pmullw), the products and sums in 32-bit lanes that wrap (pmaddwd,
+// paddd), pass 1's outputs saturated to 16 bits (packssdw) and pass 2's to
+// 8 bits (packsswb) before the +128, where jidctred.c's range limit wraps
+// around; and for 4 x 4, where rows 1-3 and 5-7 of the whole block are 0,
+// pass 1 is row 0 shifted left by 2 in 16 bits (psllw, wrapping). They
+// tell from jidctred.c only on a damaged stream. (The 2 x 2 keeps pass 1's
+// column 0 in 32 bits, see below.) The 4 x 4 reads no
+// coefficient of row or column 4, the 2 x 2 none of rows or columns 2, 4
+// and 6.
 constexpr int64_t R0211 = 1730, R0509 = 4176, R0601 = 4926, R0720 = 5906,
                   R0850 = 6967, R1061 = 8697, R1272 = 10426, R1451 = 11893,
                   R2172 = 17799, R3624 = 29692;
 
+inline int8_t sat8(int32_t x) {
+  return int8_t(x < -128 ? -128 : x > 127 ? 127 : x);
+}
+// x + the rounding of a right shift by n, in a 32-bit lane, then shifted
+inline int32_t simd_descale(int64_t x, int n) {
+  return wrap32(wrap32(x) + (int64_t(1) << (n - 1))) >> n;
+}
+
+// One column or row of the 4-point transform: 16-bit inputs x(0..7) (x(4)
+// unread) to four 32-bit sums before their shift.
+template <class X>
+void simd_red4(X x, int64_t* o) {
+  const int64_t tmp0 = int64_t(x(0)) * (1 << (kConstBits + 1));
+  const int64_t tmp2 = x(2) * F1847 + x(6) * -F0765;
+  const int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+  const int64_t z1 = x(7), z2 = x(5), z3 = x(3), z4 = x(1);
+  const int64_t t0 = z1 * -R0211 + z2 * R1451 + z3 * -R2172 + z4 * R1061;
+  const int64_t t2 = z1 * -R0509 + z2 * -R0601 + z3 * F0899 + z4 * F2562;
+  o[0] = tmp10 + t2;
+  o[3] = tmp10 - t2;
+  o[1] = tmp12 + t0;
+  o[2] = tmp12 - t0;
+}
+
 void idct_4x4(const int16_t* in, const uint16_t* q, uint8_t* out,
               int stride) {
-  int ws[8 * 4];
+  int16_t dq[64], ws[4 * 8] = {};
+  bool ac_zero = true;
+  for (int k = 8; k < 64; ++k) {
+    if (k >= 32 && k < 40) continue;   // row 4: not read
+    dq[k] = wrap16(int64_t(in[k]) * q[k]);
+    ac_zero = ac_zero && in[k] == 0;
+  }
+  for (int k = 0; k < 8; ++k) dq[k] = wrap16(int64_t(in[k]) * q[k]);
   for (int c = 0; c < 8; ++c) {
-    if (c == 4) continue;
-    auto dq = [&](int r) { return int64_t(in[8 * r + c]) * q[8 * r + c]; };
-    if (!in[8 + c] && !in[16 + c] && !in[24 + c] && !in[40 + c] &&
-        !in[48 + c] && !in[56 + c]) {
-      const int dc = int(dq(0) * (1 << kPass1Bits));
-      for (int r = 0; r < 4; ++r) ws[8 * r + c] = dc;
+    if (c == 4) continue;   // column 4: not read in pass 2
+    if (ac_zero) {
+      for (int r = 0; r < 4; ++r) ws[8 * r + c] = wrap16(int64_t(dq[c]) << 2);
       continue;
     }
-    const int64_t tmp0 = dq(0) * (1 << (kConstBits + 1));
-    const int64_t tmp2 = dq(2) * F1847 + dq(6) * -F0765;
-    const int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
-    const int64_t z1 = dq(7), z2 = dq(5), z3 = dq(3), z4 = dq(1);
-    const int64_t o0 = z1 * -R0211 + z2 * R1451 + z3 * -R2172 + z4 * R1061;
-    const int64_t o2 = z1 * -R0509 + z2 * -R0601 + z3 * F0899 + z4 * F2562;
-    const int s = kConstBits - kPass1Bits + 1;
-    ws[c] = int(descale(tmp10 + o2, s));
-    ws[24 + c] = int(descale(tmp10 - o2, s));
-    ws[8 + c] = int(descale(tmp12 + o0, s));
-    ws[16 + c] = int(descale(tmp12 - o0, s));
+    if (!dq[8 + c] && !dq[16 + c] && !dq[24 + c] && !dq[40 + c] &&
+        !dq[48 + c] && !dq[56 + c]) {   // the sums below, with no AC term
+      for (int r = 0; r < 4; ++r) ws[8 * r + c] = sat16(dq[c] * 4);
+      continue;
+    }
+    int64_t o[4];
+    simd_red4([&](int r) { return dq[8 * r + c]; }, o);
+    for (int r = 0; r < 4; ++r)
+      ws[8 * r + c] =
+          sat16(simd_descale(o[r], kConstBits - kPass1Bits + 1));
   }
   for (int r = 0; r < 4; ++r) {
-    const int* w = ws + 8 * r;
-    uint8_t* o = out + r * stride;
-    if (!w[1] && !w[2] && !w[3] && !w[5] && !w[6] && !w[7]) {
-      const uint8_t dc = idct_limit(descale(w[0], kPass1Bits + 3));
-      for (int c = 0; c < 4; ++c) o[c] = dc;
-      continue;
-    }
-    const int64_t tmp0 = int64_t(w[0]) * (1 << (kConstBits + 1));
-    const int64_t tmp2 = w[2] * F1847 + w[6] * -F0765;
-    const int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
-    const int64_t z1 = w[7], z2 = w[5], z3 = w[3], z4 = w[1];
-    const int64_t o0 = z1 * -R0211 + z2 * R1451 + z3 * -R2172 + z4 * R1061;
-    const int64_t o2 = z1 * -R0509 + z2 * -R0601 + z3 * F0899 + z4 * F2562;
-    const int s = kConstBits + kPass1Bits + 3 + 1;
-    o[0] = idct_limit(descale(tmp10 + o2, s));
-    o[3] = idct_limit(descale(tmp10 - o2, s));
-    o[1] = idct_limit(descale(tmp12 + o0, s));
-    o[2] = idct_limit(descale(tmp12 - o0, s));
+    int64_t o[4];
+    simd_red4([&](int i) { return ws[8 * r + i]; }, o);
+    for (int c = 0; c < 4; ++c)
+      out[r * stride + c] = uint8_t(sat8(sat16(simd_descale(
+          o[c], kConstBits + kPass1Bits + 3 + 1))) + 128);
   }
+}
+
+// One column or row of the 2-point transform: its two sums before their
+// shift.
+template <class X>
+void simd_red2(X x, int64_t* o) {
+  const int64_t tmp10 = int64_t(x(0)) * (1 << (kConstBits + 2));
+  const int64_t tmp0 =
+      x(7) * -R0720 + x(5) * R0850 + x(3) * -R1272 + x(1) * R3624;
+  o[0] = tmp10 + tmp0;
+  o[1] = tmp10 - tmp0;
 }
 
 void idct_2x2(const int16_t* in, const uint16_t* q, uint8_t* out,
               int stride) {
-  int ws[8 * 2];
+  int16_t dq[64];
+  int32_t ws[2 * 8] = {};
+  for (int k = 0; k < 64; ++k) dq[k] = wrap16(int64_t(in[k]) * q[k]);
   for (int c : {0, 1, 3, 5, 7}) {
-    auto dq = [&](int r) { return int64_t(in[8 * r + c]) * q[8 * r + c]; };
-    if (!in[8 + c] && !in[24 + c] && !in[40 + c] && !in[56 + c]) {
-      ws[c] = ws[8 + c] = int(dq(0) * (1 << kPass1Bits));
-      continue;
+    int64_t o[2];
+    simd_red2([&](int r) { return int64_t(dq[8 * r + c]); }, o);
+    for (int r = 0; r < 2; ++r) {
+      const int32_t v = simd_descale(o[r], kConstBits - kPass1Bits + 2);
+      ws[8 * r + c] = c ? sat16(v) : v;
     }
-    const int64_t tmp10 = dq(0) * (1 << (kConstBits + 2));
-    const int64_t tmp0 =
-        dq(7) * -R0720 + dq(5) * R0850 + dq(3) * -R1272 + dq(1) * R3624;
-    const int s = kConstBits - kPass1Bits + 2;
-    ws[c] = int(descale(tmp10 + tmp0, s));
-    ws[8 + c] = int(descale(tmp10 - tmp0, s));
   }
   for (int r = 0; r < 2; ++r) {
-    const int* w = ws + 8 * r;
-    uint8_t* o = out + r * stride;
-    if (!w[1] && !w[3] && !w[5] && !w[7]) {
-      o[0] = o[1] = idct_limit(descale(w[0], kPass1Bits + 3));
-      continue;
-    }
-    const int64_t tmp10 = int64_t(w[0]) * (1 << (kConstBits + 2));
-    const int64_t tmp0 = int64_t(w[7]) * -R0720 + int64_t(w[5]) * R0850 +
-                         int64_t(w[3]) * -R1272 + int64_t(w[1]) * R3624;
-    const int s = kConstBits + kPass1Bits + 3 + 2;
-    o[0] = idct_limit(descale(tmp10 + tmp0, s));
-    o[1] = idct_limit(descale(tmp10 - tmp0, s));
+    int64_t o[2];
+    // column 0 stays in its 32-bit lane: pass 2 shifts it left as it is
+    // (pslld), wrapping, where the odd columns were packed to 16 bits
+    simd_red2([&](int i) {
+      return i ? int64_t(ws[8 * r + i])
+               : int64_t(wrap32(int64_t(ws[8 * r]) << (kConstBits + 2))) >>
+                     (kConstBits + 2);
+    }, o);
+    for (int c = 0; c < 2; ++c)
+      out[r * stride + c] = uint8_t(sat8(sat16(simd_descale(
+          o[c], kConstBits + kPass1Bits + 3 + 2))) + 128);
   }
 }
 
+// jidctred.c's 1 x 1 (C in libjpeg-turbo too): the DC term alone, with the
+// range limit's wraparound. libjpeg's multiplier tables are 16-bit
+// (ISLOW_MULT_TYPE), as the quantizer is taken here and below.
 void idct_1x1(const int16_t* in, const uint16_t* q, uint8_t* out, int) {
-  out[0] = idct_limit(descale(int64_t(in[0]) * q[0], 3));
+  out[0] = idct_limit(descale(int32_t(in[0]) * int16_t(q[0]), 3));
 }
 
 
@@ -649,7 +600,9 @@ void idct_scaled(const int16_t* in, const uint16_t* q, uint8_t* out,
   constexpr int K = N < 8 ? N : 8;
   int ws[K * N];
   for (int c = 0; c < K; ++c) {
-    auto x = [&](int r) { return int64_t(in[8 * r + c]) * q[8 * r + c]; };
+    auto x = [&](int r) {
+      return int64_t(int32_t(in[8 * r + c]) * int16_t(q[8 * r + c]));
+    };
     points(x, x(0) * (1 << kConstBits) +
                   (int64_t(1) << (kConstBits - kPass1Bits - 1)),
            [&](int i, int64_t v) {
@@ -948,10 +901,14 @@ struct Component {
   uint16_t q[64] = {};
   bool latched = false;
   // Per zigzag coefficient, the lowest bit decoded so far; -1: none yet
-  // (libjpeg's coef_bits).
+  // (libjpeg's coef_bits); and the same before the component's latest scan
+  // (libjpeg-turbo's second half of coef_bits), which block smoothing
+  // takes for the iMCU rows past the last that a scan decoded with data.
   int8_t coef_bits[64];
-  // Progressive frames: every block's quantized coefficients, natural
-  // order, bw * bh blocks of 64, kept until all scans are read.
+  int8_t prev_bits[64];
+  // Frames of more than one scan (progressive, or sequential with a
+  // component in a scan of its own): every block's quantized coefficients,
+  // natural order, bw * bh_pad blocks of 64, kept until all scans are read.
   std::vector<int16_t> coef;
   // The decode's output: IDCT size, downsampled size at that scale, and the
   // plane of its samples (bw * size x bh * size; a lossless frame's: width
@@ -960,7 +917,10 @@ struct Component {
   Idct idct = nullptr;
   std::vector<uint8_t> plane;
 
-  Component() { std::memset(coef_bits, -1, sizeof(coef_bits)); }
+  Component() {
+    std::memset(coef_bits, -1, sizeof(coef_bits));
+    std::memset(prev_bits, 0, sizeof(prev_bits));
+  }
 
   int16_t* block(int bx, int by) {
     return coef.data() + (size_t(by) * bw + bx) * 64;
@@ -969,6 +929,12 @@ struct Component {
     idct(coefs, q, plane.data() + size_t(by) * size * stride + bx * size,
          stride);
   }
+};
+
+// One block of an MCU, in libjpeg's order (jdcoefct.c).
+struct Unit {
+  Component* c;
+  int bx, by;
 };
 
 struct Decoder {
@@ -986,7 +952,291 @@ struct Decoder {
   // jpeg_read_scanlines reads it; the markers after go unread
   bool stop_after_scan = false;
   bool scanned = false;
-  int scan_components = 0;
+
+  // ---- the data source and the markers (jdmarker.c) ----
+  End end = End::kSuspend;
+  // the bytes the source holds: kSuspend, those ImageFile.load has handed
+  // over so far; kFakeEoi, all of them
+  size_t limit = 0;
+  bool header_only = false;  // reading to the frame header alone
+  int unread_marker = 0;     // a marker read but not yet processed
+  int next_restart_num = 0;
+  int scan_number = 0;       // libjpeg's input_scan_number
+  bool multi_scan = false;   // has_multiple_scans, set at the first scan
+  // a single-scan frame's every MCU decoded: libjpeg has then output
+  // every row, and PIL keeps them whatever the markers after do
+  bool rows_done = false;
+  // the last iMCU row a scan reached with data (master->last_good_iMCU_row)
+  int last_good_imcu = 0;
+  // The Huffman decoders' bit buffer (jdhuff.h): the low bits_left bits
+  // of get_buffer are the next ones; insufficient is the entropy decoder's
+  // insufficient_data (the scan met a marker and ran out of bits).
+  uint64_t get_buffer = 0;
+  int bits_left = 0;
+  bool insufficient = false;
+  // The arithmetic decoder's registers (jdarith.c): C with the bits read
+  // ahead, A, and CT the shift between them, -1 after a coding error.
+  int64_t ar_c = 0, ar_a = 0;
+  int ar_ct = -16;
+
+  // One byte of the data, as the source hands it over.
+  int byte() {
+    if (pos < limit) return data[pos++];
+    if (limit < size) {   // kSuspend, short of the end: the next block
+      limit = std::min(size, limit + kPilBlock);
+      return data[pos++];
+    }
+    if (end == End::kFakeEoi) return (pos++ - size) & 1 ? 0xD9 : 0xFF;
+    throw Suspended{};
+  }
+  int u16() {
+    const int hi = byte();
+    return (hi << 8) | byte();
+  }
+  // skip_input_data: a segment's rest, past the end into the fake EOIs.
+  void skip(long n) {
+    if (n <= 0) return;
+    pos += size_t(n);
+    if (pos > limit) {
+      if (end == End::kSuspend && pos > size) throw Suspended{};
+      limit = std::min(size, (pos + kPilBlock - 1) / kPilBlock * kPilBlock);
+    }
+  }
+
+  // next_marker: the next marker, any other bytes before it skipped
+  // (libjpeg warns of them), fill bytes and stuffed FF 00 included.
+  void next_marker() {
+    int c;
+    for (;;) {
+      c = byte();
+      while (c != 0xFF) c = byte();
+      do {
+        c = byte();
+      } while (c == 0xFF);
+      if (c != 0) break;
+    }
+    unread_marker = c;
+  }
+
+  // read_restart_marker, and jpeg_resync_to_restart where the marker met
+  // is not the RSTn expected: another marker, or an RSTn that is one of
+  // the next two, stays unread (the interval then decodes from no data);
+  // a marker below SOF0 or an RSTn one or two behind is passed over for
+  // the next; any other RSTn is taken for the expected one.
+  void read_restart_marker() {
+    if (unread_marker == 0) next_marker();
+    const int want = next_restart_num;
+    if (unread_marker == 0xD0 + want) {
+      unread_marker = 0;
+    } else {
+      for (;;) {
+        const int m = unread_marker;
+        int action;
+        if (m < 0xC0)
+          action = 2;
+        else if (m < 0xD0 || m > 0xD7)
+          action = 3;
+        else if (m == 0xD0 + ((want + 1) & 7) || m == 0xD0 + ((want + 2) & 7))
+          action = 3;
+        else if (m == 0xD0 + ((want - 1) & 7) || m == 0xD0 + ((want - 2) & 7))
+          action = 2;
+        else
+          action = 1;
+        if (action == 1) unread_marker = 0;
+        if (action != 2) break;
+        next_marker();
+      }
+    }
+    next_restart_num = (next_restart_num + 1) & 7;
+  }
+
+  // ---- Huffman-coded bits (jdhuff.h, jdhuff.c) ----
+
+  // jpeg_fill_bit_buffer: at least kMinGetBits bits read ahead, unless a
+  // marker stops the reading; where nbits are then wanted beyond what is
+  // left, zeros stand in for them and the data counts as run out.
+  void fill_bits(int nbits) {
+    if (unread_marker == 0) {
+      while (bits_left < kMinGetBits) {
+        int c = byte();
+        if (c == 0xFF) {
+          do {
+            c = byte();
+          } while (c == 0xFF);
+          if (c == 0) {
+            c = 0xFF;
+          } else {
+            unread_marker = c;
+            break;
+          }
+        }
+        get_buffer = (get_buffer << 8) | uint64_t(c);
+        bits_left += 8;
+      }
+      if (unread_marker == 0) return;
+    }
+    if (nbits > bits_left) {
+      insufficient = true;
+      get_buffer <<= kMinGetBits - bits_left;
+      bits_left = kMinGetBits;
+    }
+  }
+  void check_bits(int n) {
+    if (bits_left < n) fill_bits(n);
+  }
+  int get_bits(int n) {
+    bits_left -= n;
+    return int((get_buffer >> bits_left) & ((uint64_t(1) << n) - 1));
+  }
+  // HUFF_DECODE and jpeg_huff_decode: a code of up to 16 bits; a garbage
+  // one reaches 17 bits and reads as 0, as libjpeg warns and fakes it.
+  int huff_decode(const DecHuff& h) {
+    int nb = 1;
+    if (bits_left < kLookahead) {
+      fill_bits(0);
+    }
+    if (bits_left >= kLookahead) {
+      const int look =
+          int(get_buffer >> (bits_left - kLookahead)) & ((1 << kLookahead) - 1);
+      nb = h.lookup[look] >> kLookahead;
+      if (nb <= kLookahead) {
+        bits_left -= nb;
+        return h.lookup[look] & 0xFF;
+      }
+    }
+    if (bits_left >= 17) {   // no fill comes: the code read at once
+      const int32_t top = int32_t(get_buffer >> (bits_left - 16)) & 0xFFFF;
+      for (; nb <= 16; ++nb) {
+        const int32_t code = top >> (16 - nb);
+        if (code <= h.maxcode[nb]) {
+          bits_left -= nb;
+          return h.vals[(code + h.valoffset[nb]) & 0xFF];
+        }
+      }
+      bits_left -= 17;
+      return 0;
+    }
+    check_bits(nb);
+    int32_t code = get_bits(nb);
+    while (code > h.maxcode[nb]) {
+      code <<= 1;
+      check_bits(1);
+      code |= get_bits(1);
+      ++nb;
+    }
+    if (nb > 16) return 0;
+    return h.vals[(code + h.valoffset[nb]) & 0xFF];
+  }
+  // FILL_BIT_BUFFER_FAST: six bytes where 16 bits or fewer are left, with
+  // no check of the data's end (the caller made sure of 512 bytes a block);
+  // a marker stuffs zeros and is left unread.
+  void fill_fast() {
+    if (bits_left > 16) return;
+    for (int i = 0; i < 6; ++i) {
+      const int c0 = data[pos++], c1 = data[pos];
+      get_buffer = (get_buffer << 8) | uint64_t(c0);
+      bits_left += 8;
+      if (c0 == 0xFF) {
+        ++pos;
+        if (c1 != 0) {
+          unread_marker = c1;
+          pos -= 2;
+          get_buffer &= ~uint64_t(0xFF);
+        }
+      }
+    }
+  }
+  // HUFF_DECODE_FAST
+  int huff_decode_fast(const DecHuff& h) {
+    fill_fast();
+    int s = h.lookup[(get_buffer >> (bits_left - kLookahead)) & 0xFF];
+    int nb = s >> kLookahead;
+    bits_left -= nb;
+    s &= 0xFF;
+    if (nb > kLookahead) {
+      s = int((get_buffer >> bits_left) & ((uint64_t(1) << nb) - 1));
+      while (s > h.maxcode[nb]) {
+        s = (s << 1) | get_bits(1);
+        ++nb;
+      }
+      s = nb > 16 ? 0 : h.vals[(s + h.valoffset[nb]) & 0xFF];
+    }
+    return s;
+  }
+  // An entropy decoder's restart (process_restart): the bits read ahead
+  // dropped, the RSTn read (or resynced), and the data counted as there
+  // again unless a marker is still unread.
+  void huff_restart() {
+    bits_left = 0;
+    read_restart_marker();
+    if (unread_marker == 0) insufficient = false;
+  }
+
+  // ---- arithmetic-coded data (jdarith.c) ----
+
+  // get_byte and arith_decode's marker handling: a marker ends the data,
+  // zeros are fed from there (legal in arithmetic coding). libjpeg's
+  // arithmetic decoder cannot suspend: where PIL's source would, the
+  // decode fails (an arithmetic-coded scan whose data crosses one of
+  // ImageFile.load's blocks, or is cut short).
+  int arith_byte() {
+    auto next = [&] {
+      if (pos >= limit && end == End::kSuspend)
+        fail("corrupt JPEG data: libjpeg's arithmetic decoder cannot "
+             "suspend (its data is cut short or crosses PIL's 64 KiB "
+             "read)");
+      return byte();
+    };
+    int c = next();
+    if (c == 0xFF) {
+      do {
+        c = next();
+      } while (c == 0xFF);
+      if (c == 0) return 0xFF;
+      unread_marker = c;
+      return 0;
+    }
+    return c;
+  }
+  // One binary decision with the adaptive estimate *st (bit 7: the MPS).
+  int arith_decode(uint8_t* st) {
+    while (ar_a < 0x8000) {
+      if (--ar_ct < 0) {
+        const int b = unread_marker ? 0 : arith_byte();
+        ar_c = (ar_c << 8) | b;
+        if ((ar_ct += 8) < 0 && ++ar_ct == 0) ar_a = 0x8000;  // 2 first bytes
+      }
+      ar_a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    const int nl = int(qe & 0xFF);
+    qe >>= 8;
+    const int nm = int(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = ar_a - qe;
+    ar_a = temp;
+    temp <<= ar_ct;
+    if (ar_c >= temp) {
+      ar_c -= temp;
+      if (ar_a < qe) {          // conditional exchange: this was the MPS
+        ar_a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        ar_a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (ar_a < 0x8000) {
+      if (ar_a < qe) {          // conditional exchange: this was the LPS
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
 
   // The decoder's tables as a tables-only stream (SOI, DQT, DHT, EOI):
   // what libjpeg keeps from one image to the next.
@@ -1043,53 +1293,43 @@ struct Decoder {
     std::memset(dac_k, 5, sizeof(dac_k));
   }
 
-  uint8_t byte() {
-    if (pos >= size) fail("truncated JPEG");
-    return data[pos++];
-  }
-  int u16() {
-    int hi = byte();
-    return (hi << 8) | byte();
-  }
-  // A marker segment's payload [pos, seg_end); pos moves past it after.
-  size_t segment() {
-    int len = u16();
-    if (len < 2 || pos + len - 2 > size) fail("truncated JPEG segment");
-    return pos + len - 2;
-  }
+  // ---- marker segments (jdmarker.c get_*), read through the source ----
 
   void read_dqt() {
-    size_t end = segment();
-    while (pos < end) {
-      int pq = byte(), t = pq & 15;
-      pq >>= 4;
-      if (t > 3 || pq > 1) fail("bad DQT segment");
+    long length = u16() - 2;
+    while (length > 0) {
+      const int n = byte(), t = n & 15, prec = n >> 4;
+      if (t > 3) fail("bad DQT segment: table " + std::to_string(t));
       for (int i = 0; i < 64; ++i)
-        qt[t][kNatural[i]] = uint16_t(pq ? u16() : byte());
+        qt[t][kNatural[i]] = uint16_t(prec ? u16() : byte());
       qt_present[t] = true;
-      qt_prec[t] = pq;
+      qt_prec[t] = prec ? 1 : 0;
+      length -= 64 + 1 + (prec ? 64 : 0);
     }
-    // jdmarker.c get_dqt: the tables must fill the segment exactly
-    if (pos != end) fail("bad DQT segment length");
+    // the tables must fill the segment exactly
+    if (length != 0) fail("bad DQT segment length");
   }
 
   void read_dht() {
-    size_t end = segment();
-    while (pos < end) {
-      int tc = byte(), th = tc & 15;
-      tc >>= 4;
-      if (tc > 1 || th > 3) fail("bad DHT segment");
+    long length = u16() - 2;
+    while (length > 16) {
+      const int index = byte();
       uint8_t bits[17] = {0};
-      int total = 0;
-      for (int l = 1; l <= 16; ++l) total += bits[l] = byte();
-      if (total > 256 || pos + total > end) fail("bad DHT segment");
-      (tc ? ac : dc)[th].build(bits, data + pos, total);
+      int count = 0;
+      for (int l = 1; l <= 16; ++l) count += bits[l] = uint8_t(byte());
+      length -= 1 + 16;
+      if (count > 256 || count > length) fail("bad DHT segment");
+      uint8_t vals[256];
+      for (int i = 0; i < count; ++i) vals[i] = uint8_t(byte());
+      length -= count;
+      const int tc = index >> 4, th = index & 15;
+      if (tc > 1 || th > 3) fail("bad DHT segment: table " +
+                                 std::to_string(index));
+      (tc ? ac : dc)[th].define(bits, vals, count);
       dht_raw[tc][th].assign(bits + 1, bits + 17);
-      dht_raw[tc][th].insert(dht_raw[tc][th].end(), data + pos,
-                             data + pos + total);
-      pos += total;
+      dht_raw[tc][th].insert(dht_raw[tc][th].end(), vals, vals + count);
     }
-    pos = end;
+    if (length != 0) fail("bad DHT segment length");
   }
 
   void read_sof(int marker) {
@@ -1097,23 +1337,26 @@ struct Decoder {
     progressive = marker == 0xC2 || marker == 0xCA;
     arithmetic = marker == 0xC9 || marker == 0xCA;
     lossless = marker == 0xC3;
-    size_t end = segment();
-    int precision = byte();
+    const long length = u16();
+    const int precision = byte();
+    height = u16();
+    width = u16();
+    const int n = byte();
     if (precision != 8)
       fail(std::to_string(precision) + "-bit JPEG (SOF" +
            std::to_string(marker - 0xC0) + ") is not supported");
-    height = u16();
-    width = u16();
-    int n = byte();
     if (width <= 0 || height <= 0)
       fail("JPEG without its size in the frame header (DNL) is not "
            "supported");
+    // the segment holds the components, exactly
+    if (length - 8 != n * 3) fail("bad SOF segment length");
     if (n != 1 && n != 3 && n != 4)
       fail(std::to_string(n) + "-component JPEG is not supported");
     comps.resize(n);
-    for (auto& c : comps) {
+    for (int k = 0; k < n; ++k) {
+      Component& c = comps[k];
       c.id = byte();
-      int hv = byte();
+      const int hv = byte();
       c.h = hv >> 4;
       c.v = hv & 15;
       c.tq = byte();
@@ -1122,8 +1365,6 @@ struct Decoder {
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    // jdmarker.c get_sof: the segment holds the components, exactly
-    if (pos != end) fail("bad SOF segment length");
     if (int64_t(width) * height > kMaxPixels)
       fail("JPEG of " + std::to_string(width) + "x" + std::to_string(height) +
            " pixels is above the limit of " + std::to_string(kMaxPixels) +
@@ -1138,7 +1379,9 @@ struct Decoder {
     // a progressive frame's first DC scan still codes each block in 1 bit
     // at the least, and a lossless frame each sample (8 * size). An
     // arithmetic-coded decision can take far less than a bit: those frames
-    // are bounded by the pixel limit alone.
+    // are bounded by the pixel limit alone. (A request body is held to
+    // this; a file the loader reads is not, as libjpeg reads the blocks
+    // past a cut as zeros.)
     int64_t units = 0;
     for (auto& c : comps) {
       if (hmax % c.h || vmax % c.v)
@@ -1149,28 +1392,34 @@ struct Decoder {
       c.bh = (c.height + unit - 1) / unit;
       units += int64_t(c.bw) * c.bh;
     }
-    if (!arithmetic &&
+    if (!arithmetic && end == End::kSuspend && !header_only &&
         units > (progressive || lossless ? 8 : 4) * int64_t(size))
       fail("corrupt JPEG data: " + std::to_string(size) + " bytes cannot "
            "hold a " + std::to_string(width) + "x" + std::to_string(height) +
            " frame");
     // A progressive frame keeps every coefficient until its last scan:
     // no more of them than its components have samples at the pixel limit.
-    if (progressive && units * 64 > int64_t(n) * kMaxPixels)
-      fail("progressive JPEG of " + std::to_string(width) + "x" +
+    if (progressive) check_coefficient_buffer(units);
+    frame = true;
+  }
+
+  void check_coefficient_buffer(int64_t units) const {
+    const int64_t n = int64_t(comps.size());
+    if (units * 64 > n * kMaxPixels)
+      fail(std::string(progressive ? "progressive" : "multi-scan") +
+           " JPEG of " + std::to_string(width) + "x" +
            std::to_string(height) + " pixels: its coefficient buffer of " +
            std::to_string(units * 128) + " bytes is above the limit of " +
            std::to_string(n) + " x " + std::to_string(kMaxPixels) +
            " coefficients (a decompression bomb)");
-    frame = true;
   }
 
-  // DAC (jdmarker.c get_dac): arithmetic coding's conditioning, per table.
+  // DAC: arithmetic coding's conditioning, per table.
   void read_dac() {
-    size_t end = segment();
-    if ((end - pos) % 2) fail("bad DAC segment");
-    while (pos < end) {
+    long length = u16() - 2;
+    while (length > 0) {
       const int index = byte(), val = byte();
+      length -= 2;
       if (index >= 32) fail("bad DAC segment: table " + std::to_string(index));
       if (index >= 16) {
         dac_k[index - 16] = uint8_t(val);
@@ -1180,13 +1429,43 @@ struct Decoder {
         if (dac_l[index] > dac_u[index]) fail("bad DAC segment: L above U");
       }
     }
+    if (length != 0) fail("bad DAC segment");
+  }
+
+  void read_dri() {
+    if (u16() != 4) fail("bad DRI segment length");
+    restart_interval = u16();
+  }
+
+  // APP0 and APP14 (get_interesting_appn: their first 14 bytes examined,
+  // the rest skipped); other APPn, COM and DNL skipped (skip_variable).
+  void read_appn(int m) {
+    long length = u16() - 2;
+    if (m != 0xE0 && m != 0xEE) {
+      skip(length);
+      return;
+    }
+    uint8_t b[14];
+    const int n = int(std::min<long>(std::max<long>(length, 0), 14));
+    for (int i = 0; i < n; ++i) b[i] = uint8_t(byte());
+    length -= n;
+    // examine_app0 / examine_app14: JFIF in an APP0 of 14 bytes at the
+    // least, the Adobe transform in an APP14 of 12
+    if (m == 0xE0 && n >= 14 && std::memcmp(b, "JFIF\0", 5) == 0)
+      jfif = true;
+    if (m == 0xEE && n >= 12 && std::memcmp(b, "Adobe", 5) == 0) {
+      adobe = true;
+      adobe_transform = b[11];
+    }
+    skip(length);
   }
 
   // The output's planes at this decode's scale (jdmaster.c
   // jpeg_core_output_dimensions): a component's IDCT size starts at the
   // scale and doubles while its sampling leaves room for it, which spares
   // 4:2:0 chroma its upsampling below full size. A lossless frame's planes
-  // are its components' samples.
+  // are its components' samples. Made at the first scan, which tells
+  // whether the frame keeps its coefficients to the end.
   void prepare() {
     for (auto& c : comps) {
       if (lossless) {
@@ -1207,195 +1486,103 @@ struct Decoder {
       c.stride = c.bw * s;
       c.plane.assign(size_t(c.stride) * c.bh * s, 128);  // IDCT of zeros
       c.bh_pad = comps.size() > 1 ? mcus_y * c.v : c.bh;
-      if (progressive) c.coef.assign(size_t(c.bw) * c.bh_pad * 64, 0);
+      if (multi_scan) c.coef.assign(size_t(c.bw) * c.bh_pad * 64, 0);
     }
   }
 
-  int decode_dc(Bits& bits, Component& c) {
-    int s = bits.decode(dc[c.td]);
-    const int64_t pred = int64_t(c.dc_pred) + (s ? extend(bits.get(s), s) : 0);
+  // Each MCU of a scan in libjpeg's order, mcu(units, n, iMCU row): an
+  // interleaved scan's MCUs of its components' h x v blocks, those past
+  // a component's edge included (libjpeg codes them but never shows
+  // them), a one-component scan's blocks row by row.
+  template <class F>
+  void each_mcu(const std::vector<Component*>& scan, F&& mcu) {
+    Unit u[kMaxBlocksInMcu];
+    if (scan.size() == 1) {
+      Component& c = *scan[0];
+      for (int by = 0; by < c.bh; ++by) {
+        for (int bx = 0; bx < c.bw; ++bx) {
+          u[0] = {&c, bx, by};
+          mcu(static_cast<const Unit*>(u), 1, by / c.v);
+        }
+      }
+      return;
+    }
+    for (int my = 0; my < mcus_y; ++my) {
+      for (int mx = 0; mx < mcus_x; ++mx) {
+        int n = 0;
+        for (Component* c : scan)
+          for (int by = 0; by < c->v; ++by)
+            for (int bx = 0; bx < c->h; ++bx)
+              u[n++] = {c, mx * c->h + bx, my * c->v + by};
+        mcu(static_cast<const Unit*>(u), n, my);
+      }
+    }
+  }
+
+  int16_t dummy[64] = {};   // the blocks past a component's edge
+  int16_t* coefs_of(const Unit& u) {
+    Component& c = *u.c;
+    return u.bx < c.bw && u.by < c.bh_pad ? c.block(u.bx, u.by) : dummy;
+  }
+
+  int dc_add(Component& c, int diff) {
+    const int64_t pred = int64_t(c.dc_pred) + diff;
     if (pred > INT32_MAX || pred < INT32_MIN)
       fail("corrupt JPEG data: DC coefficient out of range");
     return c.dc_pred = int(pred);
   }
 
-  // A sequential block (jdhuff.c decode_mcu), natural order, into coef
-  // (zeroed by the caller).
-  void decode_block(Bits& bits, Component& c, int16_t* coef) {
-    coef[0] = int16_t(decode_dc(bits, c));  // libjpeg's JCOEF is 16 bits
-    const DecHuff& ha = ac[c.ta];
-    for (int k = 1; k < 64;) {
-      int rs = bits.decode(ha);
-      int r = rs >> 4, s = rs & 15;
-      if (s) {
-        k += r;
-        coef[kNatural[k]] = int16_t(extend(bits.get(s), s));
-        ++k;
-      } else if (r == 15) {
-        k += 16;
-      } else {
-        break;
-      }
-    }
-  }
-
-  // An arithmetic-coded DC difference (jdarith.c, T.81 F.1.4.4.1) added to
-  // the component's prediction, which libjpeg keeps in 16 bits, unsigned;
-  // false for a magnitude past 15 bits.
-  bool arith_dc(Arith& ar, Component& c, int* value) {
-    uint8_t* stats = dc_stats[c.td];
-    uint8_t* st = stats + c.dc_context;
-    if (ar.decode(st) == 0) {
-      c.dc_context = 0;
-    } else {
-      const int sign = ar.decode(st + 1);
-      st += 2 + sign;
-      int m = ar.decode(st);
-      if (m != 0) {
-        st = stats + 20;
-        while (ar.decode(st)) {
-          if ((m <<= 1) == 0x8000) return false;
-          st += 1;
-        }
-      }
-      if (m < int((1L << dac_l[c.td]) >> 1))
-        c.dc_context = 0;
-      else if (m > int((1L << dac_u[c.td]) >> 1))
-        c.dc_context = 12 + sign * 4;
-      else
-        c.dc_context = 4 + sign * 4;
-      int v = m;
-      st += 14;
-      while (m >>= 1)
-        if (ar.decode(st)) v |= m;
-      v += 1;
-      if (sign) v = -v;
-      c.dc_pred = (c.dc_pred + v) & 0xFFFF;
-    }
-    *value = c.dc_pred;
-    return true;
-  }
-
-  // Arithmetic-coded AC coefficients ss..se of a block (T.81 F.1.4.4.2),
-  // each shifted up by al; false at a coding error (a run or a magnitude
-  // past its range).
-  bool arith_ac(Arith& ar, Component& c, int16_t* coef, int ss, int se,
-                int al) {
-    uint8_t* stats = ac_stats[c.ta];
-    for (int k = ss; k <= se; ++k) {
-      uint8_t* st = stats + 3 * (k - 1);
-      if (ar.decode(st)) break;  // EOB
-      while (ar.decode(st + 1) == 0) {
-        st += 3;
-        if (++k > se) return false;
-      }
-      uint8_t fixed = 113;
-      const int sign = ar.decode(&fixed);
-      st += 2;
-      int m = ar.decode(st);
-      if (m != 0 && ar.decode(st)) {
-        m <<= 1;
-        st = stats + (k <= dac_k[c.ta] ? 189 : 217);
-        while (ar.decode(st)) {
-          if ((m <<= 1) == 0x8000) return false;
-          st += 1;
-        }
-      }
-      int v = m;
-      st += 14;
-      while (m >>= 1)
-        if (ar.decode(st)) v |= m;
-      v += 1;
-      if (sign) v = -v;
-      coef[kNatural[k]] = int16_t(unsigned(v) << al);
-    }
-    return true;
-  }
-
-  // An arithmetic-coded AC refinement (jdarith.c decode_mcu_AC_refine).
-  bool arith_ac_refine(Arith& ar, Component& c, int16_t* b, int ss, int se,
-                       int al) {
-    uint8_t* stats = ac_stats[c.ta];
-    const int p1 = 1 << al, m1 = -p1;
-    int kex = se;  // the previous stage's end of block
-    for (; kex > 0; --kex)
-      if (b[kNatural[kex]]) break;
-    for (int k = ss; k <= se; ++k) {
-      uint8_t* st = stats + 3 * (k - 1);
-      if (k > kex && ar.decode(st)) break;  // EOB
-      for (;;) {
-        int16_t& coef = b[kNatural[k]];
-        if (coef) {
-          if (ar.decode(st + 2)) coef = int16_t(coef + (coef < 0 ? m1 : p1));
-          break;
-        }
-        if (ar.decode(st + 1)) {
-          uint8_t fixed = 113;
-          coef = int16_t(ar.decode(&fixed) ? m1 : p1);
-          break;
-        }
-        st += 3;
-        if (++k > se) return false;
-      }
-    }
-    return true;
-  }
-
-  // Calls block(c, bx, by) for every block of the scan in its order, an
-  // interleaved scan's blocks past a component's edge (which libjpeg codes
-  // but never shows) included, and restart() at each restart interval.
-  template <class R, class F>
-  void each_block(const std::vector<Component*>& scan, R&& restart,
-                  F&& block) {
-    const bool one = scan.size() == 1;
-    const int units_x = one ? scan[0]->bw : mcus_x;
-    const int units_y = one ? scan[0]->bh : mcus_y;
-    int todo = restart_interval;
-    for (int my = 0; my < units_y; ++my) {
-      for (int mx = 0; mx < units_x; ++mx) {
-        if (restart_interval) {
-          if (todo == 0) {
-            restart();
-            todo = restart_interval;
-          }
-          --todo;
-        }
-        if (one) {
-          block(*scan[0], mx, my);
-          continue;
-        }
-        for (Component* c : scan)
-          for (int by = 0; by < c->v; ++by)
-            for (int bx = 0; bx < c->h; ++bx)
-              block(*c, mx * c->h + bx, my * c->v + by);
-      }
-    }
-  }
-
+  // SOS (jdmarker.c get_sos, jdinput.c start_input_pass and the entropy
+  // decoders' start_pass), then the scan's data.
   void read_sos() {
     if (!frame) fail("scan before the frame header");
-    size_t end = segment();
-    int ns = byte();
-    if (ns < 1 || ns > int(comps.size())) fail("bad SOS segment");
-    scan_components = ns;
+    const int length = u16();
+    const int ns = byte();
+    if (length != ns * 2 + 6 || ns < 1 || ns > 4) fail("bad SOS segment");
     std::vector<Component*> scan;
-    const int max_table = arithmetic ? 15 : 3;
     for (int i = 0; i < ns; ++i) {
-      int id = byte(), t = byte();
+      const int id = byte(), t = byte();
+      // the first component of that id whose index is not below the
+      // scan's place for it, as libjpeg matches them (a scan lists its
+      // components in the frame's order)
       Component* found = nullptr;
-      for (auto& c : comps)
-        if (c.id == id) found = &c;
-      if (!found) fail("bad SOS segment");
+      for (size_t k = scan.size(); k < comps.size() && k < 4 && !found; ++k)
+        if (comps[k].id == id) found = &comps[k];
+      if (!found || std::find(scan.begin(), scan.end(), found) != scan.end())
+        fail("bad SOS segment: component " + std::to_string(id));
       found->td = t >> 4;
       found->ta = t & 15;
-      if (found->td > max_table || found->ta > max_table)
-        fail("bad SOS segment");
       scan.push_back(found);
     }
     int ss = byte(), se = byte(), ah = byte(), al = ah & 15;
     ah >>= 4;
-    // jdmarker.c get_sos: the segment holds the scan's components, exactly
-    if (pos != end) fail("bad SOS segment length");
+    next_restart_num = 0;
+    ++scan_number;
+    const bool first = !scanned;
+    scanned = true;
+    if (first) {
+      // jdinput.c initial_setup: one scan of every component, or several
+      multi_scan = progressive || ns < int(comps.size());
+      if (lossless && scale != 8)
+        fail("lossless JPEG (SOF3) is decoded at full size only");
+      if (multi_scan && !progressive && !lossless) {
+        int64_t units = 0;
+        for (const auto& c : comps)
+          units += int64_t(c.bw) * (comps.size() > 1 ? mcus_y * c.v : c.bh);
+        check_coefficient_buffer(units);
+      }
+      prepare();
+    } else if (!multi_scan) {
+      fail("corrupt JPEG data: a second scan where the first coded every "
+           "component (libjpeg expects EOI)");
+    }
+    if (ns > 1) {
+      int blocks = 0;
+      for (Component* c : scan) blocks += c->h * c->v;
+      if (blocks > kMaxBlocksInMcu)
+        fail("bad SOS segment: an MCU of " + std::to_string(blocks) +
+             " blocks (libjpeg reads 10 at the most)");
+    }
     if (lossless) {
       // jdlossls.c: Ss the predictor, Se and Ah unused, Al the point
       // transform
@@ -1404,50 +1591,56 @@ struct Decoder {
              std::to_string(se) + " Ah=" + std::to_string(ah) + " Al=" +
              std::to_string(al));
     } else if (!progressive) {
-      ss = 0;  // a sequential scan's Ss, Se, Ah/Al are 0, 63, 0 (ignored)
-      se = 63;
+      ss = 0;  // a sequential scan's Ss, Se, Ah/Al are 0, 63, 0 (libjpeg
+      se = 63; // only warns of others)
       ah = al = 0;
     } else {
-      // jdphuff.c start_pass_phuff_decoder: a DC scan codes Ss = Se = 0,
-      // an AC scan one component's band; a refinement codes the next bit.
+      // jdphuff.c / jdarith.c start_pass: a DC scan codes Ss = Se = 0, an
+      // AC scan one component's band; a refinement codes the next bit.
       bool bad = ss == 0 ? se != 0 : ss > se || se > 63 || ns != 1;
       if (bad || (ah && al != ah - 1) || al > 13)
         fail("bad progressive scan: Ss=" + std::to_string(ss) + " Se=" +
              std::to_string(se) + " Ah=" + std::to_string(ah) + " Al=" +
              std::to_string(al));
+      // A band or bit decoded again, or out of order, is decoded all the
+      // same (libjpeg warns of a bogus progression); the bits before this
+      // scan are kept for block smoothing.
+      for (Component* c : scan) {
+        for (int k = std::min(ss, 1); k <= std::max(se, 9); ++k)
+          c->prev_bits[k] = scan_number > 1 ? c->coef_bits[k] : 0;
+        for (int k = ss; k <= se; ++k) c->coef_bits[k] = int8_t(al);
+      }
     }
     for (Component* c : scan) {
-      // Each coefficient's bits are decoded once: a scan that would decode
-      // a band and bit already decoded (or a component twice) is refused.
-      for (int k = lossless ? 0 : ss; k <= (lossless ? 0 : se); ++k) {
-        int8_t& b = c->coef_bits[k];
-        if (ah == 0 ? b >= 0 : (b >= 0 && b <= al))
-          fail("bad SOS segment: coefficient " + std::to_string(k) +
-               " of component " + std::to_string(c->id) +
-               " decoded a second time");
-        b = int8_t(al);
-      }
       if (!lossless && !c->latched) {
         if (!qt_present[c->tq]) fail("missing quantization table");
         std::memcpy(c->q, qt[c->tq], sizeof(c->q));
         c->latched = true;
       }
+      if (lossless) c->coef_bits[0] = 0;
       if (!arithmetic) {
-        // libjpeg-turbo's default tables where a stream has none (MJPEG)
+        // A scan's tables are checked as it derives them (a table it does
+        // not read is not looked up). Where a sequential frame has none,
+        // libjpeg-turbo's standard tables 0 and 1 stand in (Motion-JPEG
+        // frames; jdhuff.c alone: its progressive and lossless decoders
+        // refuse a missing table).
+        const int max_dc = lossless ? 16 : 15;
         for (int cls = 0; cls < 2; ++cls) {
-          int t = cls ? c->ta : c->td;
+          if (cls == 0 && progressive && !(ss == 0 && ah == 0)) continue;
+          if (cls == 1 && (lossless || (progressive && ss == 0))) continue;
+          const int t = cls ? c->ta : c->td;
+          if (t > 3)
+            fail("bad SOS segment: Huffman table " + std::to_string(t));
           DecHuff& h = (cls ? ac : dc)[t];
           if (!h.present) {
-            const StdHuff& sh = kStdHuff[cls][t ? 1 : 0];
-            h.build(sh.bits, sh.vals, sh.nvals);
+            if (t > 1 || progressive || lossless)
+              fail("bad SOS segment: Huffman table " + std::to_string(t) +
+                   " is not defined");
+            const StdHuff& sh = kStdHuff[cls][t];
+            h.define(sh.bits, sh.vals, sh.nvals);
           }
+          h.derive(cls ? -1 : max_dc);
         }
-        // the scans that read a DC table check it as libjpeg builds it
-        const int max_dc = lossless ? 16 : 15;
-        if ((!progressive || (ss == 0 && ah == 0)) &&
-            dc[c->td].max_symbol > max_dc)
-          fail("bad DHT segment: a DC symbol above " +
-               std::to_string(max_dc));
       } else {
         if (!progressive || (ss == 0 && ah == 0))
           std::memset(dc_stats[c->td], 0, sizeof(dc_stats[0]));
@@ -1457,93 +1650,219 @@ struct Decoder {
       c->dc_pred = 0;
       c->dc_context = 0;
     }
-    const uint8_t* p = lossless     ? scan_lossless(scan, ss, al)
-                       : arithmetic ? scan_arithmetic(scan, ss, se, ah, al)
-                                    : scan_huffman(scan, ss, se, ah, al);
-    // Past the scan: to the first marker that is not a restart marker.
-    while (p + 1 < data + size &&
-           !(p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF &&
-             !(p[1] >= 0xD0 && p[1] <= 0xD7)))
-      ++p;
-    pos = size_t(p - data);
+    get_buffer = 0;
+    bits_left = 0;
+    insufficient = false;
+    ar_c = ar_a = 0;
+    ar_ct = -16;
+    if (lossless)
+      scan_lossless(scan, ss, al);
+    else if (arithmetic)
+      scan_arithmetic(scan, ss, se, ah, al);
+    else if (progressive)
+      scan_progressive(scan, ss, se, ah, al);
+    else
+      scan_sequential(scan);
+    if (!multi_scan) rows_done = true;
   }
 
-  // A Huffman-coded scan: a sequential frame's blocks into the planes, a
-  // progressive one's into the coefficient buffers (jdphuff.c
-  // decode_mcu_DC_first, _DC_refine, _AC_first, _AC_refine). Returns where
-  // its data stopped.
-  const uint8_t* scan_huffman(const std::vector<Component*>& scan, int ss,
-                              int se, int ah, int al) {
-    Bits bits{data + pos, data + size};
-    int eobrun = 0;
-    auto restart = [&] {
-      bits.restart();
-      for (Component* c : scan) c->dc_pred = 0;
-      eobrun = 0;
-    };
-    if (!progressive) {
-      each_block(scan, restart, [&](Component& c, int bx, int by) {
-        int16_t coef[64] = {0};
-        decode_block(bits, c, coef);
-        if (bx < c.bw && by < c.bh) c.emit(bx, by, coef);
-      });
-      return bits.p;
+  // A sequential Huffman-coded scan (jdhuff.c decode_mcu): a one-scan
+  // frame's blocks decoded and shown MCU by MCU, a buffered one's into
+  // its coefficients. Once the data has run out (a marker met), the
+  // blocks to the next restart get no coefficients.
+  void scan_sequential(const std::vector<Component*>& scan) {
+    int restarts_to_go = restart_interval;
+    int16_t temp[kMaxBlocksInMcu][64];
+    int16_t* b[kMaxBlocksInMcu];
+    each_mcu(scan, [&](const Unit* u, int n, int imcu) {
+      for (int i = 0; i < n; ++i) {
+        if (multi_scan) {
+          b[i] = coefs_of(u[i]);
+        } else {
+          std::memset(temp[i], 0, sizeof(temp[i]));
+          b[i] = temp[i];
+        }
+      }
+      if (!insufficient) last_good_imcu = imcu;
+      if (restart_interval && restarts_to_go == 0) {
+        huff_restart();
+        for (Component* c : scan) c->dc_pred = 0;
+        restarts_to_go = restart_interval;
+      }
+      if (!insufficient) huff_mcu(scan, u, n, b);
+      if (restart_interval) --restarts_to_go;
+      if (!multi_scan)
+        for (int i = 0; i < n; ++i)
+          if (u[i].bx < u[i].c->bw && u[i].by < u[i].c->bh)
+            u[i].c->emit(u[i].bx, u[i].by, b[i]);
+    });
+  }
+
+  // One MCU by decode_mcu_fast where libjpeg takes it (no restart
+  // interval, no marker unread, 512 bytes a block left of what the source
+  // was handed), else by decode_mcu_slow; the fast one gives way to the
+  // slow one, from the MCU's start, at a marker. Only PIL's source tells
+  // them apart: where the data ends, by how far each has read ahead.
+  void huff_mcu(const std::vector<Component*>& scan, const Unit* u, int n,
+                int16_t* const* b) {
+    if (end == End::kSuspend && restart_interval == 0 && unread_marker == 0 &&
+        limit - pos >= size_t(512) * n) {
+      const uint64_t buf = get_buffer;
+      const int left = bits_left;
+      const size_t at = pos;
+      int pred[4];
+      for (size_t k = 0; k < scan.size(); ++k) pred[k] = scan[k]->dc_pred;
+      if (huff_mcu_fast(u, n, b)) return;
+      get_buffer = buf;
+      bits_left = left;
+      pos = at;
+      for (size_t k = 0; k < scan.size(); ++k) scan[k]->dc_pred = pred[k];
     }
-    int16_t dummy[64] = {0};  // the blocks past a component's edge
-    auto at = [&](Component& c, int bx, int by) {
-      return bx < c.bw && by < c.bh_pad ? c.block(bx, by) : dummy;
-    };
+    huff_mcu_slow(u, n, b);
+  }
+
+  void huff_mcu_slow(const Unit* u, int n, int16_t* const* b) {
+    for (int i = 0; i < n; ++i) {
+      Component& c = *u[i].c;
+      int s = huff_decode(dc[c.td]);
+      if (s) {
+        check_bits(s);
+        s = extend(get_bits(s), s);
+      }
+      b[i][0] = int16_t(dc_add(c, s));  // libjpeg's JCOEF is 16 bits
+      const DecHuff& h = ac[c.ta];
+      for (int k = 1; k < 64; ++k) {
+        s = huff_decode(h);
+        const int r = s >> 4;
+        s &= 15;
+        if (s) {
+          k += r;
+          check_bits(s);
+          b[i][kNatural[k]] = int16_t(extend(get_bits(s), s));
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+    }
+  }
+
+  bool huff_mcu_fast(const Unit* u, int n, int16_t* const* b) {
+    for (int i = 0; i < n; ++i) {
+      Component& c = *u[i].c;
+      int s = huff_decode_fast(dc[c.td]);
+      if (s) {
+        fill_fast();
+        s = extend(get_bits(s), s);
+      }
+      b[i][0] = int16_t(dc_add(c, s));
+      const DecHuff& h = ac[c.ta];
+      for (int k = 1; k < 64; ++k) {
+        s = huff_decode_fast(h);
+        const int r = s >> 4;
+        s &= 15;
+        if (s) {
+          k += r;
+          fill_fast();
+          b[i][kNatural[k]] = int16_t(extend(get_bits(s), s));
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+    }
+    if (unread_marker == 0) return true;
+    unread_marker = 0;
+    return false;
+  }
+
+  // A progressive Huffman-coded scan (jdphuff.c decode_mcu_DC_first,
+  // _DC_refine, _AC_first, _AC_refine) into the coefficient buffers. Once
+  // the data has run out, the blocks to the next restart keep what the
+  // earlier scans gave them.
+  void scan_progressive(const std::vector<Component*>& scan, int ss, int se,
+                        int ah, int al) {
+    int restarts_to_go = restart_interval;
+    int eobrun = 0;
     const int p1 = 1 << al, m1 = -p1;  // 1 and -1 in the bit coded
-    if (se == 0 && ah == 0) {
-      each_block(scan, restart, [&](Component& c, int bx, int by) {
-        at(c, bx, by)[0] = int16_t(unsigned(decode_dc(bits, c)) << al);
-      });
-    } else if (se == 0) {
-      each_block(scan, restart, [&](Component& c, int bx, int by) {
-        int16_t* b = at(c, bx, by);
-        if (bits.get(1)) b[0] = int16_t(b[0] | p1);
-      });
-    } else if (ah == 0) {
-      each_block(scan, restart, [&](Component& c, int bx, int by) {
+    // A correction bit for a coefficient already nonzero, where its
+    // magnitude takes the bit coded.
+    auto refine = [&](int16_t& coef) {
+      check_bits(1);
+      if (get_bits(1) && (coef & p1) == 0)
+        coef = int16_t(coef + (coef >= 0 ? p1 : m1));
+    };
+    each_mcu(scan, [&](const Unit* u, int n, int imcu) {
+      if (!insufficient) last_good_imcu = imcu;
+      if (restart_interval && restarts_to_go == 0) {
+        huff_restart();
+        for (Component* c : scan) c->dc_pred = 0;
+        eobrun = 0;
+        restarts_to_go = restart_interval;
+      }
+      if (restart_interval) --restarts_to_go;
+      if (insufficient) return;
+      if (se == 0 && ah == 0) {
+        for (int i = 0; i < n; ++i) {
+          Component& c = *u[i].c;
+          int s = huff_decode(dc[c.td]);
+          if (s) {
+            check_bits(s);
+            s = extend(get_bits(s), s);
+          }
+          coefs_of(u[i])[0] = int16_t(unsigned(dc_add(c, s)) << al);
+        }
+      } else if (se == 0) {
+        for (int i = 0; i < n; ++i) {
+          check_bits(1);
+          int16_t* b = coefs_of(u[i]);
+          if (get_bits(1)) b[0] = int16_t(b[0] | p1);
+        }
+      } else if (ah == 0) {
         if (eobrun > 0) {
           --eobrun;
           return;
         }
-        int16_t* b = at(c, bx, by);
-        const DecHuff& h = ac[c.ta];
+        int16_t* b = coefs_of(u[0]);
+        const DecHuff& h = ac[u[0].c->ta];
         for (int k = ss; k <= se; ++k) {
-          int rs = bits.decode(h);
-          int r = rs >> 4, s = rs & 15;
+          int s = huff_decode(h);
+          int r = s >> 4;
+          s &= 15;
           if (s) {
             k += r;
-            b[kNatural[k]] = int16_t(unsigned(extend(bits.get(s), s)) << al);
+            check_bits(s);
+            b[kNatural[k]] = int16_t(unsigned(extend(get_bits(s), s)) << al);
           } else if (r == 15) {
             k += 15;
           } else {
-            eobrun = (1 << r) + bits.get(r) - 1;
+            eobrun = 1 << r;
+            if (r) {
+              check_bits(r);
+              eobrun += get_bits(r);
+            }
+            --eobrun;
             break;
           }
         }
-      });
-    } else {
-      // A correction bit for each coefficient already nonzero, where its
-      // magnitude takes the bit coded.
-      auto refine = [&](int16_t& coef) {
-        if (bits.get(1) && (coef & p1) == 0)
-          coef = int16_t(coef + (coef >= 0 ? p1 : m1));
-      };
-      each_block(scan, restart, [&](Component& c, int bx, int by) {
-        int16_t* b = at(c, bx, by);
-        const DecHuff& h = ac[c.ta];
+      } else {
+        int16_t* b = coefs_of(u[0]);
+        const DecHuff& h = ac[u[0].c->ta];
         int k = ss;
         if (eobrun == 0) {
           for (; k <= se; ++k) {
-            int rs = bits.decode(h);
-            int r = rs >> 4, s = rs & 15;
+            int s = huff_decode(h);
+            int r = s >> 4;
+            s &= 15;
             if (s) {
-              s = bits.get(1) ? p1 : m1;  // the new coefficient's sign
+              check_bits(1);
+              s = get_bits(1) ? p1 : m1;  // the new coefficient's sign
             } else if (r != 15) {
-              eobrun = (1 << r) + bits.get(r);
+              eobrun = 1 << r;
+              if (r) {
+                check_bits(r);
+                eobrun += get_bits(r);
+              }
               break;
             }
             // skip r zero coefficients, refining the nonzero ones passed
@@ -1563,21 +1882,120 @@ struct Decoder {
             if (b[kNatural[k]] != 0) refine(b[kNatural[k]]);
           --eobrun;
         }
-      });
+      }
+    });
+  }
+
+  // An arithmetic-coded DC difference (jdarith.c, T.81 F.1.4.4.1) added to
+  // the component's prediction, which libjpeg keeps in 16 bits, unsigned;
+  // false for a magnitude past 15 bits.
+  bool arith_dc(Component& c, int* value) {
+    uint8_t* stats = dc_stats[c.td];
+    uint8_t* st = stats + c.dc_context;
+    if (arith_decode(st) == 0) {
+      c.dc_context = 0;
+    } else {
+      const int sign = arith_decode(st + 1);
+      st += 2 + sign;
+      int m = arith_decode(st);
+      if (m != 0) {
+        st = stats + 20;
+        while (arith_decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          st += 1;
+        }
+      }
+      if (m < int((1L << dac_l[c.td]) >> 1))
+        c.dc_context = 0;
+      else if (m > int((1L << dac_u[c.td]) >> 1))
+        c.dc_context = 12 + sign * 4;
+      else
+        c.dc_context = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (arith_decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      c.dc_pred = (c.dc_pred + v) & 0xFFFF;
     }
-    return bits.p;
+    *value = c.dc_pred;
+    return true;
+  }
+
+  // Arithmetic-coded AC coefficients ss..se of a block (T.81 F.1.4.4.2),
+  // each shifted up by al; false at a coding error (a run or a magnitude
+  // past its range), the coefficients decoded before it kept.
+  bool arith_ac(Component& c, int16_t* coef, int ss, int se, int al) {
+    uint8_t* stats = ac_stats[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (arith_decode(st)) break;  // EOB
+      while (arith_decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) return false;
+      }
+      uint8_t fixed = 113;
+      const int sign = arith_decode(&fixed);
+      st += 2;
+      int m = arith_decode(st);
+      if (m != 0 && arith_decode(st)) {
+        m <<= 1;
+        st = stats + (k <= dac_k[c.ta] ? 189 : 217);
+        while (arith_decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (arith_decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      coef[kNatural[k]] = int16_t(unsigned(v) << al);
+    }
+    return true;
+  }
+
+  // An arithmetic-coded AC refinement (jdarith.c decode_mcu_AC_refine).
+  bool arith_ac_refine(Component& c, int16_t* b, int ss, int se, int al) {
+    uint8_t* stats = ac_stats[c.ta];
+    const int p1 = 1 << al, m1 = -p1;
+    int kex = se;  // the previous stage's end of block
+    for (; kex > 0; --kex)
+      if (b[kNatural[kex]]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && arith_decode(st)) break;  // EOB
+      for (;;) {
+        int16_t& coef = b[kNatural[k]];
+        if (coef) {
+          if (arith_decode(st + 2)) coef = int16_t(coef + (coef < 0 ? m1 : p1));
+          break;
+        }
+        if (arith_decode(st + 1)) {
+          uint8_t fixed = 113;
+          coef = int16_t(arith_decode(&fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) return false;
+      }
+    }
+    return true;
   }
 
   // An arithmetic-coded scan (jdarith.c decode_mcu and, progressive,
   // decode_mcu_DC_first, _DC_refine, _AC_first, _AC_refine): libjpeg
   // resets the statistics of the scan's tables at each restart. A coding
-  // error (which libjpeg only warns of, leaving the interval's remaining
-  // blocks zero) is refused as corrupt data.
-  const uint8_t* scan_arithmetic(const std::vector<Component*>& scan,
-                                 int ss, int se, int ah, int al) {
-    Arith ar{data + pos, data + size};
+  // error, of which libjpeg only warns, stops the MCU where it is met; the
+  // MCUs after it to the next restart get nothing (CT -1).
+  void scan_arithmetic(const std::vector<Component*>& scan, int ss, int se,
+                       int ah, int al) {
+    int restarts_to_go = restart_interval;
     auto restart = [&] {
-      ar.restart();
+      read_restart_marker();
       for (Component* c : scan) {
         if (!progressive || (ss == 0 && ah == 0)) {
           std::memset(dc_stats[c->td], 0, sizeof(dc_stats[0]));
@@ -1587,45 +2005,66 @@ struct Decoder {
         if (!progressive || ss)
           std::memset(ac_stats[c->ta], 0, sizeof(ac_stats[0]));
       }
+      ar_c = ar_a = 0;
+      ar_ct = -16;
+      restarts_to_go = restart_interval;
     };
-    auto check = [](bool ok) {
-      if (!ok) fail("corrupt JPEG data: bad arithmetic code");
-    };
-    int16_t dummy[64] = {0};
-    auto at = [&](Component& c, int bx, int by) {
-      return bx < c.bw && by < c.bh_pad ? c.block(bx, by) : dummy;
-    };
-    if (!progressive) {
-      each_block(scan, restart, [&](Component& c, int bx, int by) {
-        int16_t coef[64] = {0};
-        int v = 0;
-        check(arith_dc(ar, c, &v));
-        coef[0] = int16_t(v);
-        check(arith_ac(ar, c, coef, 1, 63, 0));
-        if (bx < c.bw && by < c.bh) c.emit(bx, by, coef);
-      });
-    } else if (se == 0 && ah == 0) {
-      each_block(scan, restart, [&](Component& c, int bx, int by) {
-        int v = 0;
-        check(arith_dc(ar, c, &v));
-        at(c, bx, by)[0] = int16_t(unsigned(v) << al);
-      });
-    } else if (se == 0) {
-      each_block(scan, restart, [&](Component& c, int bx, int by) {
-        uint8_t fixed = 113;
-        int16_t* b = at(c, bx, by);
-        if (ar.decode(&fixed)) b[0] = int16_t(b[0] | (1 << al));
-      });
-    } else if (ah == 0) {
-      each_block(scan, restart, [&](Component& c, int bx, int by) {
-        check(arith_ac(ar, c, at(c, bx, by), ss, se, al));
-      });
-    } else {
-      each_block(scan, restart, [&](Component& c, int bx, int by) {
-        check(arith_ac_refine(ar, c, at(c, bx, by), ss, se, al));
-      });
-    }
-    return ar.p;
+    int16_t temp[kMaxBlocksInMcu][64];
+    each_mcu(scan, [&](const Unit* u, int n, int imcu) {
+      if (!insufficient) last_good_imcu = imcu;
+      int16_t* b[kMaxBlocksInMcu];
+      for (int i = 0; i < n; ++i) {
+        if (multi_scan) {
+          b[i] = coefs_of(u[i]);
+        } else {
+          std::memset(temp[i], 0, sizeof(temp[i]));
+          b[i] = temp[i];
+        }
+      }
+      if (restart_interval) {
+        if (restarts_to_go == 0) restart();
+        --restarts_to_go;
+      }
+      auto error = [&] { ar_ct = -1; };
+      if (ar_ct != -1) {
+        if (!progressive) {
+          for (int i = 0; i < n; ++i) {
+            int v = 0;
+            if (!arith_dc(*u[i].c, &v)) {
+              error();
+              break;
+            }
+            b[i][0] = int16_t(v);
+            if (!arith_ac(*u[i].c, b[i], 1, 63, 0)) {
+              error();
+              break;
+            }
+          }
+        } else if (se == 0 && ah == 0) {
+          for (int i = 0; i < n; ++i) {
+            int v = 0;
+            if (!arith_dc(*u[i].c, &v)) {
+              error();
+              break;
+            }
+            b[i][0] = int16_t(unsigned(v) << al);
+          }
+        } else if (se == 0) {
+          for (int i = 0; i < n; ++i) {
+            uint8_t fixed = 113;
+            if (arith_decode(&fixed)) b[i][0] = int16_t(b[i][0] | (1 << al));
+          }
+        } else if (ah == 0) {
+          if (!arith_ac(*u[0].c, b[0], ss, se, al)) error();
+        } else {
+          if (!arith_ac_refine(*u[0].c, b[0], ss, se, al)) error();
+        }
+      }
+      if (!multi_scan)
+        for (int i = 0; i < n; ++i)
+          if (u[i].bx < u[i].c->bw && u[i].by < u[i].c->bh)
+            u[i].c->emit(u[i].bx, u[i].by, b[i]);
+    });
   }
 
   // A lossless scan (jddiffct.c, jdlhuff.c, jdpred.c): the sample
@@ -1636,10 +2075,9 @@ struct Decoder {
   // its left neighbour alone, its first sample from 2^(7 - pt); every
   // other row's first sample from the sample above it. Values are kept in
   // 16 bits and the output is their low 8 bits after the shift, as libjpeg
-  // keeps them.
-  const uint8_t* scan_lossless(const std::vector<Component*>& scan, int psv,
-                               int pt) {
-    Bits bits{data + pos, data + size};
+  // keeps them. Once the data has run out, an MCU row's differences are
+  // zeros and the iMCU row starts the prediction again (mid grey).
+  void scan_lossless(const std::vector<Component*>& scan, int psv, int pt) {
     const bool one = scan.size() == 1;
     const int per_row = one ? scan[0]->width : mcus_x;
     if (restart_interval % per_row)
@@ -1660,9 +2098,11 @@ struct Decoder {
       rows[i].cur.assign(c.width, 0);
     }
     auto diff = [&](Component& c) {
-      int s = bits.decode(dc[c.td]);
+      int s = huff_decode(dc[c.td]);
       if (s == 16) return 32768;
-      return s ? extend(bits.get(s), s) : 0;
+      if (!s) return 0;
+      check_bits(s);
+      return extend(get_bits(s), s);
     };
     const int initial = 1 << (7 - pt);
     int rows_to_go = restart_interval / per_row;
@@ -1674,11 +2114,20 @@ struct Decoder {
       for (int y = 0; y < mcu_rows; ++y) {
         if (restart_interval) {
           if (rows_to_go == 0) {
-            bits.restart();
+            huff_restart();
             for (auto& r : rows) r.first = true;
             rows_to_go = restart_interval / per_row;
           }
           --rows_to_go;
+        }
+        if (insufficient) {   // decode_mcus: zeros, the predictors reset
+          for (auto& r : rows) {
+            r.first = true;
+            const size_t from = one ? size_t(y) * r.cols : 0;
+            std::fill(r.diff.begin() + from,
+                      one ? r.diff.begin() + from + r.cols : r.diff.end(), 0);
+          }
+          continue;
         }
         for (int mx = 0; mx < per_row; ++mx) {
           if (one) {
@@ -1724,7 +2173,6 @@ struct Decoder {
         }
       }
     }
-    return bits.p;
   }
 
   // Whether libjpeg would smooth the blocks of this progressive frame
@@ -1762,9 +2210,14 @@ struct Decoder {
   //     bh_pad), and for the second iMCU row where it is the last and one
   //     block row high, whose row two above repeats the row above.
   void emit_smoothed(Component& c) {
-    const int8_t* bits = c.coef_bits;
-    bool change_dc = true;
-    for (int k = 1; k < kSmoothCoefs; ++k) change_dc &= bits[k] == -1;
+    // smoothing_ok's latches: the bits after every scan and, for the iMCU
+    // rows past the last that a scan reached with data, those before the
+    // component's latest scan (none at all where there was one scan)
+    int8_t now[kSmoothCoefs], before[kSmoothCoefs];
+    for (int k = 0; k < kSmoothCoefs; ++k) {
+      now[k] = c.coef_bits[k];
+      before[k] = scan_number > 1 ? c.prev_bits[k] : -1;
+    }
     const int64_t q00 = c.q[0], q01 = c.q[1], q10 = c.q[8], q20 = c.q[16],
                   q11 = c.q[9], q02 = c.q[2], q03 = c.q[3], q12 = c.q[10],
                   q21 = c.q[17], q30 = c.q[24];
@@ -1779,6 +2232,9 @@ struct Decoder {
     int16_t w[64];
     for (int r = 0; r < c.bh; ++r) {
       const int i = r / v, br = r % v;
+      const int8_t* bits = i > last_good_imcu ? before : now;
+      bool change_dc = true;
+      for (int k = 1; k < kSmoothCoefs; ++k) change_dc &= bits[k] == -1;
       const int rows = i < last_imcu ? v : c.bh - last_imcu * v;
       int prev, prev2, next, next2;
       if (turbo3) {
@@ -1942,33 +2398,21 @@ struct Decoder {
     return out;
   }
 
-  // With out == nullptr: read up to the frame header and stop (the frame's
-  // size and kind are then known). Otherwise decode the whole file into
-  // out, which holds want_w x want_h x 3 bytes: the frame at scale / 8 of
-  // its size.
-  void run(uint8_t* out, int want_w, int want_h) {
-    if (size < 4 || data[0] != 0xFF || data[1] != 0xD8)
-      fail("not a JPEG (no SOI marker)");
-    pos = 2;
+  // jdmarker.c read_markers and jdinput.c consume_markers over the whole
+  // stream: every marker to EOI, each scan's data read as it comes. A
+  // header-only read (out == nullptr) stops at the frame header.
+  void read_stream(bool header_only) {
+    // first_marker
+    if (byte() != 0xFF || byte() != 0xD8) fail("not a JPEG (no SOI marker)");
     for (;;) {
-      // jdmarker.c next_marker: bytes before a marker are skipped (libjpeg
-      // warns of them), as are fill bytes 0xFF and stuffed 0xFF 0x00
-      int m = 0;
-      while (m == 0) {
-        while (byte() != 0xFF) {
-        }
-        do {
-          m = byte();
-        } while (m == 0xFF);
-      }
-      if (m == 0xD9) break;  // EOI
+      if (unread_marker == 0) next_marker();
+      const int m = unread_marker;
+      unread_marker = 0;
+      if (m == 0xD9) return;  // EOI
       if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 ||
           m == 0xCA) {
         read_sof(m);
-        if (!out) return;
-        if (lossless && scale != 8)
-          fail("lossless JPEG (SOF3) is decoded at full size only");
-        prepare();
+        if (header_only) return;
       } else if (m == 0xCB) {
         fail("arithmetic-coded lossless JPEG (SOF11) is not supported");
       } else if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xCD ||
@@ -1982,39 +2426,46 @@ struct Decoder {
       } else if (m == 0xDB) {
         read_dqt();
       } else if (m == 0xDD) {
-        size_t end = segment();
-        restart_interval = u16();
-        pos = end;
+        read_dri();
       } else if (m == 0xDA) {
         const bool first = !scanned;
-        scanned = true;
         read_sos();
-        if (stop_after_scan && first && !progressive &&
-            scan_components == int(comps.size()))
-          break;
+        if (stop_after_scan && first && !multi_scan) return;
       } else if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) {
         continue;  // a stray restart marker or TEM: no parameters
       } else if (m == 0xD8) {
         fail("a second SOI marker");
       } else if (!(m >= 0xE0 && m <= 0xEF) && m != 0xFE && m != 0xDC) {
-        // jdmarker.c read_markers: DHP, EXP, JPGn and RESn are fatal
+        // DHP, EXP, JPGn and RESn are fatal
         char hex[8];
         std::snprintf(hex, sizeof(hex), "%02X", m);
         fail(std::string("unsupported marker type 0x") + hex);
       } else {
-        size_t end = segment();  // APPn, COM and DNL (ignored)
-        // jdmarker.c examine_app0 / examine_app14: JFIF in an APP0 of 14
-        // bytes at the least, the Adobe transform in an APP14 of 12
-        if (m == 0xE0 && end - pos >= 14 &&
-            std::memcmp(data + pos, "JFIF\0", 5) == 0)
-          jfif = true;
-        if (m == 0xEE && end - pos >= 12 &&
-            std::memcmp(data + pos, "Adobe", 5) == 0) {
-          adobe = true;
-          adobe_transform = data[pos + 11];
-        }
-        pos = end;
+        read_appn(m);  // APPn, COM and DNL (ignored)
       }
+    }
+  }
+
+  // With out == nullptr: read up to the frame header and stop (the frame's
+  // size and kind are then known). Otherwise decode the whole file into
+  // out, which holds want_w x want_h x 3 bytes: the frame at scale / 8 of
+  // its size.
+  void run(uint8_t* out, int want_w, int want_h) {
+    limit = end == End::kFakeEoi ? size : std::min(size, kPilBlock);
+    header_only = out == nullptr;
+    try {
+      read_stream(header_only);
+    } catch (const Suspended&) {
+      // PIL: libjpeg suspended for data there is none of; its rows stand
+      // where every one was out (jpeg_finish_decompress's suspension is
+      // not an error to Pillow)
+      if (!out || !rows_done)
+        fail("truncated JPEG: its data ends before every row is decoded "
+             "(PIL: image file is truncated)");
+    }
+    if (!out) {
+      if (!frame) fail("JPEG without a frame header");
+      return;
     }
     if (!frame) fail("JPEG without a frame header");
     // jdapimin.c jpeg_read_header: an image needs a scan
@@ -2028,8 +2479,8 @@ struct Decoder {
     const int oh = int((int64_t(height) * scale + 7) / 8);
     if (ow != want_w || oh != want_h)
       fail("JPEG frame of another size than its header gave");
-    if (progressive) {
-      const bool smooth = smoothing_applies();
+    if (multi_scan && !lossless) {
+      const bool smooth = progressive && smoothing_applies();
       for (auto& c : comps) {
         if (smooth) {
           emit_smoothed(c);
@@ -2313,6 +2764,7 @@ std::vector<uint8_t> decode_tiff_chunk(const uint8_t* data, size_t size,
   d.data = data;
   d.size = size;
   d.colour = colour;
+  d.end = End::kFakeEoi;   // libtiff's source (tif_jpeg.c)
   d.stop_after_scan = true;
   d.run(out, width, height);
   return d.tables();
@@ -2344,6 +2796,7 @@ void decode_scaled(const uint8_t* data, size_t size, int n, uint8_t* rgb,
   d.size = size;
   d.scale = n;
   d.turbo3 = false;
+  d.end = End::kFakeEoi;   // jpeg_stdio_src
   d.run(rgb, width, height);
 }
 

@@ -31,8 +31,10 @@ Info frame_info(const uint8_t* data, size_t size);
 
 // Decode such a JPEG, of the width and height that frame_info gave, to
 // RGB8 in rgb (height x width x 3, rows top to bottom), as PIL's
-// convert("RGB") gives it. Throws as frame_info does, and for a corrupt or
-// truncated scan.
+// convert("RGB") gives it: damaged data as PIL's libjpeg recovers from it,
+// and a cut file read only where PIL reads it (every row out before the
+// data ends; an arithmetic-coded scan not across PIL's 64 KiB reads).
+// Throws as frame_info does, and where PIL refuses the file.
 void decode(const uint8_t* data, size_t size, uint8_t* rgb, int width,
             int height);
 
@@ -51,7 +53,8 @@ void decode_colour(const uint8_t* data, size_t size, uint8_t* out,
 // Decode as decode_colour does one strip or tile of a JPEG TIFF for
 // libtiff's JPEG codec: a frame whose first scan codes every component is
 // read to that scan's end, the markers after unread (libtiff ignores what
-// jpeg_finish_decompress meets). Returns the decoder's tables at the end
+// jpeg_finish_decompress meets), and past the data's end libtiff's source
+// reads a fake EOI. Returns the decoder's tables at the end
 // as a tables-only stream (SOI, DQT, DHT, EOI), which libjpeg keeps for
 // the next strip or tile.
 std::vector<uint8_t> decode_tiff_chunk(const uint8_t* data, size_t size,
@@ -62,8 +65,10 @@ std::vector<uint8_t> decode_tiff_chunk(const uint8_t* data, size_t size,
 // (the JAX loader's) gives it with scale_num = n, scale_denom = 8 and its
 // defaults: width and height are ceil(W * n / 8) and ceil(H * n / 8) of the
 // frame's W x H. n = 8 is decode but for block smoothing's edges, which
-// the two versions take differently; a lossless frame is decoded at n = 8
-// only.
+// the two versions take differently, and for the data's end: the JAX
+// loader's jpeg_stdio_src reads a fake EOI past it, so a cut file is read
+// (its blocks past the cut grey, or as the earlier scans left them). A
+// lossless frame is decoded at n = 8 only.
 void decode_scaled(const uint8_t* data, size_t size, int n, uint8_t* rgb,
                    int width, int height);
 

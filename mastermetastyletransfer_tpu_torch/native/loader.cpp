@@ -29,11 +29,12 @@
 namespace {
 
 // Decode one JPEG file to RGB8, DCT-prescaled to cover `target` as the JAX
-// package's loader asks libjpeg to (its native/loader.cpp). Returns true on
-// success; false also for the kinds that the JAX loader's libjpeg
-// (libjpeg-turbo 2.1, JCS_RGB) does not decode, CMYK and YCCK (no such
-// colour conversion) and lossless frames, so that they take its fallback:
-// the full-size decode and Pillow's BILINEAR (data/pipeline.py).
+// package's loader asks libjpeg to (its native/loader.cpp; a file cut short
+// is read past its end as libjpeg's jpeg_stdio_src reads it, a fake EOI).
+// Returns true on success; false also for the kinds that the JAX loader's
+// libjpeg (libjpeg-turbo 2.1, JCS_RGB) does not decode, CMYK and YCCK (no
+// such colour conversion) and lossless frames, so that they take its
+// fallback: the full-size decode and Pillow's BILINEAR (data/pipeline.py).
 bool decode_jpeg(const char* path, std::vector<uint8_t>* pixels, int* w,
                  int* h, int target) {
   FILE* f = std::fopen(path, "rb");

@@ -11,7 +11,8 @@ PIL opens as a format the port does not read are counted apart.
 
 Kinds: pnm, gif, ico, dib, tiff (CCITT, LZMA, Zstandard and YCbCr tiles
 among them), tga (random bytes, TGA files and ICO headers, their header
-fields mutated), jpeg (a damaged JPEG's scan data), png. ``--damage`` is
+fields mutated), jpeg (a damaged JPEG's scan data; restart markers in
+0.3 of the files), png. ``--damage`` is
 the share of damaged files (flips in 0.7 of them, cuts in the rest);
 ``--keep`` writes each differing file there. Prints one JSON line: the
 counts by (PIL decodes, the port decodes) and the differences; a
@@ -19,11 +20,20 @@ difference whose pixels PIL takes from memory it never wrote (decoded
 again in a fresh process, PIL gives other pixels) is counted apart, as
 ``pil_unsettled``. ``--repo`` tests another checkout's port (a parent
 unpacked with ``git archive``) with this checkout's generators.
+
+``--kind loader`` holds the port's batch loader to the JAX package's
+instead (``decode_resize_batch`` of each file at its target, libjpeg
+with its fallback to PIL against the port's decoder): JPEGs of 64 to 700
+pixels a side, progressive and restart-bearing ones among them, a third
+cut short, a third with their scan data flipped, each at the target
+where the JAX loader decodes it at n/8 for an n from 1 to 8; the counts
+by (damage, JAX reads or refuses, the port reads or refuses).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import io
 import json
@@ -39,6 +49,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 import scripts.make_image_format_fixtures as fx  # noqa: E402
+import scripts.make_jpeg_fixtures as mjf  # noqa: E402
 
 PORT_FORMATS = {"BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "ICO", "TIFF",
                 "TGA", "WEBP", "MPO"}
@@ -222,13 +233,110 @@ def gen_tiff(rng) -> bytes:
     return fx.writer_case(rng)
 
 
+def restart_options(rng) -> dict:
+    """Pillow's restart markers: every one or two MCU rows, or every few
+    MCUs."""
+    if rng.random() < 0.5:
+        return {"restart_marker_rows": int(rng.integers(1, 3))}
+    return {"restart_marker_blocks": int(rng.integers(1, 8))}
+
+
 def gen_jpeg(rng) -> bytes:
     w, h = int(rng.integers(8, 60)), int(rng.integers(8, 60))
     a = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
     im = Image.fromarray(a) if rng.random() < 0.8 else Image.fromarray(a[..., 0])
+    kw = restart_options(rng) if rng.random() < 0.3 else {}
     return saved(im, "JPEG", quality=int(rng.choice([50, 90, 100])),
                  progressive=bool(rng.random() < 0.3),
-                 subsampling=int(rng.choice([0, 1, 2])))
+                 subsampling=int(rng.choice([0, 1, 2])), **kw)
+
+
+def gen_loader(rng):
+    """A JPEG of 64 to 700 pixels a side (0.3 of them progressive, 0.3 with
+    restart markers, some grey), cut short, its scan data flipped, or
+    whole, a third each; and the target at which the JAX loader decodes it
+    at n/8, n drawn from 1..8. Returns (bytes, damage, n, target)."""
+    h, w = (int(v) for v in rng.integers(64, 701, 2))
+    img = fx.smooth(rng, h, w)
+    im = Image.fromarray(img if rng.random() < 0.85 else img[..., 0])
+    kw = restart_options(rng) if rng.random() < 0.3 else {}
+    data = saved(im, "JPEG", quality=int(rng.choice([50, 75, 90, 95])),
+                 progressive=bool(rng.random() < 0.3),
+                 subsampling=int(rng.choice([0, 1, 2])), **kw)
+    pick = rng.random()
+    if pick < 1 / 3:
+        data, how = data[:int(rng.integers(2, len(data)))], "cut"
+    elif pick < 2 / 3:
+        start = data.find(b"\xff\xda") + 10
+        b = bytearray(data)
+        for _ in range(int(rng.integers(1, 4))):
+            b[int(rng.integers(start, len(b)))] ^= int(rng.integers(1, 256))
+        data, how = bytes(b), "flip"
+    else:
+        how = "clean"
+    n = int(rng.integers(1, 9))
+    return data, how, n, mjf.prescale_targets(w, h)[n - 1]
+
+
+@contextlib.contextmanager
+def _quiet_stderr():
+    """File descriptor 2 to /dev/null (what a C library prints there)."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with open(os.devnull, "w") as null:
+        os.dup2(null.fileno(), 2)
+        try:
+            yield
+        finally:
+            os.dup2(saved, 2)
+            os.close(saved)
+
+
+def loader_fuzz(args) -> dict:
+    """The port's batch loader against the JAX package's, file by file
+    (``decode_resize_batch`` of one path at its target): a difference where
+    one reads the file and the other raises, or the batches differ."""
+    import tempfile
+
+    from mastermetastyletransfer_tpu.data.native_loader import (
+        decode_resize_batch as jax_batch,
+    )
+    from mastermetastyletransfer_tpu_torch.data.native_loader import (
+        decode_resize_batch as port_batch,
+    )
+
+    rng = np.random.default_rng(args.seed)
+    counts, diffs = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(args.n):
+            data, how, n, target = gen_loader(rng)
+            path = os.path.join(tmp, f"{i}.jpg")
+            with open(path, "wb") as f:
+                f.write(data)
+            try:
+                with _quiet_stderr():   # libjpeg's warnings
+                    want = jax_batch([path], target)[0]
+            except Exception:  # noqa: BLE001 - PIL's refusal, any kind
+                want = None
+            try:
+                got = port_batch([path], target)[0]
+            except ValueError:
+                got = None
+            key = f"{how}: jax {'reads' if want is not None else 'refuses'}"\
+                  f", port {'reads' if got is not None else 'refuses'}"
+            counts[key] = counts.get(key, 0) + 1
+            if (want is None) != (got is None) or (
+                    want is not None and not np.array_equal(want, got)):
+                diffs.append(i)
+                if args.keep:
+                    os.makedirs(args.keep, exist_ok=True)
+                    with open(os.path.join(args.keep, f"loader_{i}_n{n}_"
+                                           f"{how}.jpg"), "wb") as f:
+                        f.write(data)
+            os.unlink(path)
+    return dict(kind="loader", seed=args.seed, n=args.n,
+                counts=dict(sorted(counts.items())), differing=len(diffs),
+                differing_cases=diffs[:50])
 
 
 def gen_png(rng) -> bytes:
@@ -278,7 +386,8 @@ def damage(data: bytes, rng, kind: str) -> bytes:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--kind", required=True, choices=sorted(GENERATORS))
+    ap.add_argument("--kind", required=True,
+                    choices=sorted(GENERATORS) + ["loader"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=1000)
     ap.add_argument("--damage", type=float, default=0.5)
@@ -287,6 +396,9 @@ def main(argv=None) -> None:
                     help="the checkout whose port is tested")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.repo))
+    if args.kind == "loader":
+        print(json.dumps(loader_fuzz(args)))
+        return
     from mastermetastyletransfer_tpu_torch.data.pipeline import decode_image
 
     rng = np.random.default_rng(args.seed)

@@ -29,6 +29,12 @@ PFM in both byte orders; ICO entries at 1, 4, 8, 24 and 32 bits up to
 (``coco*``: a GIF, an LZW TIFF with predictor 2, a Deflate TIFF and a
 JPEG TIFF) are chip_smoke.py's timing inputs, their pixels kept as
 digests (``digests.json``); chip_smoke.py writes its 640x480 PPM itself.
+
+tests/data/jpeg_damaged/ holds JPEGs cut short and damaged
+(``jpeg_damaged_fixtures``) with two references' digests beside them
+(``write_jpeg_damaged``): PIL's pixels, and the JAX package's batch
+loader's staged image at one target per scale n/8; writing them needs
+PIL, the JAX package's loader and the system's libjpeg.
 """
 
 from __future__ import annotations
@@ -1291,6 +1297,190 @@ def coco_fixtures(rng) -> dict:
     return out
 
 
+DAMAGED_SEED = 29
+DAMAGED_HW = (72, 104)          # the small sources' size
+TRAINER_CUT_HW = (480, 640)     # chip_smoke.py's trainer contents' size
+TRAINER_CUT_TARGET = 512        # and its staging size (decoded at 8/8)
+
+
+def _pil_jpeg(img: np.ndarray, **kw) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+def _markers(data: bytes) -> list:
+    """(offset, code) of each marker (FF then neither 00 nor FF)."""
+    return [(i, data[i + 1]) for i in range(len(data) - 1)
+            if data[i] == 0xFF and data[i + 1] not in (0x00, 0xFF)]
+
+
+def _simd_differs(data: bytes, n: int) -> bool:
+    """Whether libjpeg-turbo's SIMD IDCTs and its C ones (JSIMD_FORCENONE)
+    give other pixels for the bytes at n/8: a damaged block's coefficients
+    out of their normal range."""
+    import subprocess
+
+    from scripts import jpeg_recovery_oracle as oracle
+
+    code = ("import sys, hashlib\nsys.path.insert(0, %r)\n"
+            "from scripts import jpeg_recovery_oracle as o\n"
+            "px, _ = o.decode(sys.stdin.buffer.read(), %d)\n"
+            "print(None if px is None else "
+            "hashlib.sha256(px.tobytes()).hexdigest())\n" % (ROOT, n))
+    plain = subprocess.run([sys.executable, "-c", code], input=data,
+                           capture_output=True, check=True,
+                           env={**os.environ, "JSIMD_FORCENONE": "1"})
+    simd, _ = oracle.decode(data, n)
+    return simd is not None and plain.stdout.decode().strip() != \
+        hashlib.sha256(simd.tobytes()).hexdigest()
+
+
+def jpeg_damaged_fixtures() -> dict:
+    """{name: bytes}: JPEGs cut short or damaged the ways libjpeg recovers
+    from, from DAMAGED_SEED. Cut sequential (restart markers every two
+    MCUs), progressive and arithmetic-coded files, inside a scan, a
+    marker segment (a DHT or SOS between scans, a COM after the scan) and
+    a marker; restart markers missing, renumbered to each of
+    jpeg_resync_to_restart's actions, and stray markers inside an
+    interval (an RSTn, TEM, EOI; one in arithmetic-coded data); a scan
+    repeated (a bogus progression libjpeg decodes) and one breaking the
+    progression's rules (refused); bytes flipped in the scans of a 4:2:0,
+    a progressive and a grey file, the 4:2:0 ones chosen where libjpeg's
+    SIMD and C IDCTs disagree at 2/8 and 4/8. Two of chip_smoke.py's
+    trainer size (``trainer_cut_*``: a cut file with restart markers and
+    a cut progressive one) too."""
+    from scripts import make_jpeg_fixtures as mjf
+
+    rng = np.random.default_rng(DAMAGED_SEED)
+    h, w = DAMAGED_HW
+    rst = _pil_jpeg(smooth(rng, h, w), quality=90, subsampling=2,
+                    restart_marker_blocks=2)
+    prog = _pil_jpeg(smooth(rng, h, w), quality=90, subsampling=2,
+                     progressive=True)
+    plain = _pil_jpeg(smooth(rng, h, w), quality=95, subsampling=0)
+    gray = _pil_jpeg(np.ascontiguousarray(smooth(rng, h, w)[..., 1]),
+                     quality=75)
+    arith = mjf.libjpeg_file(smooth(rng, h, w), arith=True, restart=3,
+                             sampling="2x2,1x1,1x1")
+    arith_prog = mjf.libjpeg_file(smooth(rng, h, w), arith=True, scans="p")
+    out = {}
+    rsts = [i for i, m in _markers(rst) if 0xD0 <= m <= 0xD7]
+    out["cut_seq_restart_scan"] = rst[:len(rst) * 11 // 20]
+    out["cut_seq_restart_marker"] = rst[:rsts[len(rsts) // 2] + 1]
+    out["cut_seq_eoi_marker"] = plain[:-1]
+    com = b"\xff\xfe\x00\x40" + bytes(range(0x20, 0x5e))
+    with_com = plain[:-2] + com + plain[-2:]
+    out["cut_seq_com_after_scan"] = with_com[:len(with_com) - 30]
+    scans = mjf.scans_of(prog)
+    out["cut_prog_scan"] = prog[:(scans[3][0] + scans[3][1]) // 2]
+    dht = [i for i, m in _markers(prog) if m == 0xC4 and i > scans[2][0]]
+    out["cut_prog_dht"] = prog[:dht[0] + 9]
+    out["cut_prog_sos"] = prog[:scans[4][0] + 7]
+    out["cut_arith_scan"] = arith[:len(arith) * 3 // 5]
+    out["cut_arith_prog_scan"] = arith_prog[:len(arith_prog) * 2 // 3]
+    k = rsts[len(rsts) // 3]
+    out["rst_missing"] = rst[:k] + rst[k + 2:]
+    for name, step in (("rst_next", 1), ("rst_far", 4), ("rst_behind", -1)):
+        b = bytearray(rst)
+        b[k + 1] = 0xD0 + ((b[k + 1] - 0xD0 + step) & 7)
+        out[name] = bytes(b)
+    mid = (rsts[2] + rsts[3]) // 2
+    for name, code in (("stray_rst", 0xD5), ("stray_tem", 0x01)):
+        out[name] = rst[:mid] + bytes([0xFF, code]) + rst[mid:]
+    at = len(plain) * 2 // 3
+    out["stray_eoi"] = plain[:at] + b"\xff\xd9" + plain[at:]
+    at = len(arith) // 2
+    out["arith_stray_rst"] = arith[:at] + b"\xff\xd3" + arith[at:]
+    a, b = scans[3]
+    out["bogus_progression"] = prog[:b] + prog[a:b] + prog[b:]
+    out["refused_progression"] = prog[:a + 9] + b"\x31" + prog[a + 10:]
+
+    def flipped(data: bytes, seed: int) -> bytes:
+        r = np.random.default_rng(seed)
+        start = data.index(b"\xff\xda") + 10
+        d = bytearray(data)
+        for _ in range(3):
+            d[int(r.integers(start, len(d) - 2))] ^= int(r.integers(1, 256))
+        return bytes(d)
+
+    flip_src = _pil_jpeg(smooth(rng, h, w), quality=50, subsampling=2)
+    seed = DAMAGED_SEED
+    for n in (2, 4):   # (not the same file twice)
+        seed = next(s for s in range(seed, seed + 400)
+                    if _simd_differs(flipped(flip_src, s), n))
+        out[f"flip_420_simd_n{n}"] = flipped(flip_src, seed)
+        seed += 1
+    out["flip_prog"] = flipped(prog, DAMAGED_SEED)
+    out["flip_gray"] = flipped(gray, DAMAGED_SEED + 1)
+    th, tw = TRAINER_CUT_HW
+    big = _pil_jpeg(smooth(rng, th, tw), quality=75, subsampling=2,
+                    restart_marker_rows=1)
+    out["trainer_cut_restart"] = big[:len(big) * 3 // 5]
+    big = _pil_jpeg(smooth(rng, th, tw), quality=75, subsampling=2,
+                    progressive=True)
+    out["trainer_cut_progressive"] = big[:len(big) * 3 // 5]
+    return out
+
+
+def damaged_targets(name: str) -> list:
+    """The staging sizes a damaged fixture is held at: one a scale n/8,
+    n = 1..8, for the JAX loader's loop at the source's size; the trainer
+    files at chip_smoke.py's."""
+    from scripts import make_jpeg_fixtures as mjf
+
+    if name.startswith("trainer_"):
+        return [TRAINER_CUT_TARGET]
+    h, w = DAMAGED_HW
+    return mjf.prescale_targets(w, h)
+
+
+def write_jpeg_damaged(out_dir: str) -> None:
+    """The damaged JPEGs and digests.json beside them: per file PIL's
+    verdict and pixels (``pil``: shape and sha256 of ``convert("RGB")``,
+    null where PIL refuses the file) and the JAX loader's
+    (``decode_resize_batch``, libjpeg with its fallback to PIL) at each of
+    ``damaged_targets`` (``loader``: target to the sha256 of the staged
+    image, null where it raises)."""
+    from PIL import Image
+
+    from mastermetastyletransfer_tpu.data.native_loader import (
+        decode_resize_batch,
+    )
+
+    os.makedirs(out_dir, exist_ok=True)
+    for old in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, old))
+    digests = {}
+    for name, data in jpeg_damaged_fixtures().items():
+        path = os.path.join(out_dir, f"{name}.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        try:
+            with Image.open(io.BytesIO(data)) as im:
+                px = np.asarray(im.convert("RGB"))
+            pil = {"shape": list(px.shape),
+                   "sha256": hashlib.sha256(px.tobytes()).hexdigest()}
+        except Exception:  # noqa: BLE001 - any refusal of PIL's
+            pil = None
+        loader = {}
+        for target in damaged_targets(name):
+            try:
+                batch = decode_resize_batch([path], target)[0]
+                loader[str(target)] = hashlib.sha256(
+                    batch.tobytes()).hexdigest()
+            except Exception:  # noqa: BLE001 - PIL's refusal, any kind
+                loader[str(target)] = None
+        digests[name] = {"pil": pil, "loader": loader}
+    with open(os.path.join(out_dir, "digests.json"), "w") as f:
+        json.dump(digests, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(f"wrote {len(digests)} damaged JPEGs and digests.json to "
+          f"{out_dir}")
+
+
 EXTENSIONS = {"pnm": "pnm", "gif": "gif", "tiff": "tif", "ico": "ico",
               "dib": "dib", "tga": "tga", "tiff_ccitt": "tif"}
 
@@ -1323,6 +1513,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     from PIL import Image
 
+    write_jpeg_damaged(os.path.join(args.out, "jpeg_damaged"))
     for kind, files in all_fixtures().items():
         d = os.path.join(args.out, kind)
         os.makedirs(d, exist_ok=True)

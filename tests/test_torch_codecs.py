@@ -241,15 +241,24 @@ def _segments(data):
 
 
 def test_progressive_decoder_refuses_a_scan_decoded_twice():
-    """A scan repeated (the same band and bit of the same component) is
-    refused; the file without the repeat decodes."""
+    """A scan repeated (the same band and bit of the same component) is a
+    bogus progression that libjpeg warns of and decodes all the same: PIL
+    reads it, and so does the port, to PIL's pixels; a scan whose
+    parameters break the progression's rules (JERR_BAD_PROGRESSION: an AC
+    band of two components, Al not Ah - 1) is refused by both."""
     data = _jpeg(_smooth(np.random.default_rng(2), 40, 40), quality=90,
                  progressive=True)
     scans = [(a, b) for m, a, b in _segments(data) if m == 0xDA]
     for a, b in (scans[0], scans[3]):
         twice = data[:b] + data[a:b] + data[b:]
-        with pytest.raises(ValueError, match="decoded a second time"):
-            tnative.decode_jpeg(twice)
+        _held_to_pil_exactly(twice, ("twice", a))
+    a = scans[3][0]
+    assert data[a + 4] == 1   # one component: Ah/Al at a + 9
+    bad = data[:a + 9] + bytes([0x31]) + data[a + 10:]
+    with pytest.raises(OSError):
+        _pil(bad)
+    with pytest.raises(ValueError, match="bad progressive scan"):
+        tnative.decode_jpeg(bad)
     assert np.array_equal(tnative.decode_jpeg(data), _pil(data))
 
 
