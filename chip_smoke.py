@@ -123,7 +123,15 @@ each iteration's launches exactly its step's table plus
 loader's ms a batch of contents, of styles and of the six new kinds,
 whether the native loader built, the trainer's imgs/s beside the step
 alone's); every kernel of the kernels line carries ``trainer_launches``.
-Last, the
+The trainer's checkpoints are the JAX package's Orbax train-state
+checkpoints, written and read without Orbax. Then orbax (the JAX-written
+checkpoints of tests/data/orbax/, one in Orbax's OCDBT layout and one a
+zarr directory per leaf with bfloat16 leaves, each leaf read to its
+digest with 0 values differing, restored on the card, one step of its
+mode at k = 1 with its launches exactly ``fixture_per_step`` and a finite
+loss, written back and read bit for bit; the full-width state's save and
+restore, their host ms and the checkpoint's MB); every kernel of the
+kernels line carries ``orbax_launches``. Last, the
 evaluation and weight entry points, on folders of BMP files written here
 (11 contents at 640x480, 20 styles at 1024x768): eval
 (``evaluate_grid``, the JAX command line's 220 pairs at 256^2, style
@@ -363,7 +371,7 @@ from mastermetastyletransfer_tpu_torch.serve import (
 from mastermetastyletransfer_tpu_torch.train import trainer
 from mastermetastyletransfer_tpu_torch.train.schedule import make_lr_schedule
 from mastermetastyletransfer_tpu_torch.train.state import (
-    TrainState, create_train_state, trainable_labels,
+    TrainState, create_train_state, to_pytree, trainable_labels,
 )
 from mastermetastyletransfer_tpu_torch.train.step import (
     _interp, _loss_views, _sample_k, make_loss_and_grad,
@@ -371,9 +379,11 @@ from mastermetastyletransfer_tpu_torch.train.step import (
 )
 from mastermetastyletransfer_tpu_torch.utils import convert as tconvert
 from mastermetastyletransfer_tpu_torch.utils import convert_cli
+from mastermetastyletransfer_tpu_torch.utils import checkpoint as ckpt_lib
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import (
     flatten_params, load_params_npz, tree_map,
 )
+from mastermetastyletransfer_tpu_torch.utils.orbax import read_pytree
 from mastermetastyletransfer_tpu_torch.utils import png as port_png
 from mastermetastyletransfer_tpu_torch.utils.png import png_bytes
 from scripts.make_image_fixtures import bmp_file, bmp_rows, png_file
@@ -3211,29 +3221,34 @@ def read_jsonl(path: str) -> list:
     return rows
 
 
+def state_mismatches(state, leaves: dict) -> list:
+    """The keys of ``state``'s checkpoint tree (``to_pytree``) whose
+    leaf is not ``leaves``' bit for bit (dtype, shape and values), or is
+    missing there or extra."""
+    want = dict(to_pytree(state))
+    bad = sorted(map(str, set(want) ^ set(leaves)))
+    for k, v in want.items():
+        got = leaves.get(k)
+        if k not in leaves or (v is None) != (got is None):
+            bad.append(str(k))
+        elif v is not None and not (
+                got.dtype == v.dtype and got.shape == v.shape
+                and torch.equal(got.cpu(), v.detach().cpu())):
+            bad.append(str(k))
+    return bad
+
+
 def check_restored(ckpt: str, step: int):
     """A check of the state the resumed trainer restored: every leaf,
-    Adam's moments, step and count equal checkpoint ``step``'s files bit
-    for bit."""
+    Adam's moments, the step and both of optax's counts equal checkpoint
+    ``step``'s files (the JAX package's Orbax layout, read by
+    ``utils/orbax.read_pytree``) bit for bit."""
     def check(state):
-        path = os.path.join(ckpt, str(step))
-        with np.load(os.path.join(path, "params.npz")) as data:
-            leaves = flatten_params(state.params)
-            diff = [k for k, v in leaves.items()
-                    if not np.array_equal(v.detach().cpu().numpy(), data[k])]
-            if diff or set(data.files) != set(leaves):
-                raise AssertionError(f"restored leaves differ: {diff[:4]}")
-        with np.load(os.path.join(path, "opt.npz")) as data:
-            keys = list(state.trainable())
-            for m, moments in (("mu", state.opt.mu), ("nu", state.opt.nu)):
-                for k, t in zip(keys, moments):
-                    if not np.array_equal(t.cpu().numpy(), data[f"{m}/{k}"]):
-                        raise AssertionError(f"restored {m}/{k} differs")
-        with open(os.path.join(path, "state.json")) as f:
-            meta = json.load(f)
-        if (state.step, state.opt.count) != (meta["step"], meta["count"]):
-            raise AssertionError(f"restored step/count {state.step}, "
-                                 f"{state.opt.count}, not {meta}")
+        bad = state_mismatches(state, read_pytree(os.path.join(
+            ckpt, str(step))))
+        if bad:
+            raise AssertionError(f"restored state differs from checkpoint "
+                                 f"{step}: {len(bad)} leaves, {bad[:4]}")
     return check
 
 
@@ -3457,6 +3472,194 @@ def run_trainer(train: dict) -> dict:
         wall_s=time.perf_counter() - t0)
     emit("trainer", **out)
     return out
+
+# ---------------------------------------------------------------------------
+# 8b. the JAX trainer's Orbax train-state checkpoints: the JAX-written
+#     fixtures read and trained from on the card, the full-width save and
+#     restore
+# ---------------------------------------------------------------------------
+
+ORBAX_SEED = TRAIN_SEED + 15
+ORBAX_STEP, ORBAX_REPEATS = 9, 3
+
+
+def fixture_per_step(cfg: ExperimentConfig, k: int) -> dict:
+    """Launches of one training step of a JAX-written fixture's model
+    (scripts/make_orbax_fixtures.py: one Swin block a stage at 32 and 64
+    channels, the style transformer at 64, MLP ratio 1) at depth k with
+    the Swin's and the style transformer's kernels on: K10 alone, at each
+    Swin block forward and as ``train_per_step`` counts it in the style
+    transformer (``adapt_per_step`` in fast adaptation). K8 and K9 keep to
+    the JAX package's gate of 128-aligned widths
+    (ops/attention.py:_pallas_dim_ok), and the decoder's kernels stay off:
+    its stencil kernels want 32 channels after its third halving."""
+    per = (adapt_per_step(k) if cfg.train.mode == "fast_adaptation"
+           else train_per_step(k))
+    out = {e: 0 for e in per}
+    out["ln_mlp_residual"] = sum(cfg.model.swin.depths) + 5 * k
+    out["ln_mlp_residual_bwd"] = per["ln_mlp_residual_bwd"]
+    return out
+
+
+def fixture_config(exp: str) -> ExperimentConfig:
+    """A fixture's configuration (its config.json, the JAX package's), with
+    the kernels on where its widths take them (``fixture_per_step``)."""
+    with open(os.path.join(exp, "config.json")) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    model = cfg.model.with_kernels()
+    return cfg.replace(model=model.replace(
+        decoder=model.decoder.replace(use_pallas=False)))
+
+
+def leaf_sha(t: torch.Tensor) -> str:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()
+
+
+def fixture_run(name: str, info: dict, tmp: str) -> dict:
+    """One fixture: every array leaf read (``read_pytree``) against its
+    digest; restored into a train state on the card at its config, equal
+    to what was read; one step of its mode at k = 1, its launches exactly
+    ``fixture_per_step``, its loss finite; the state written back with
+    ``save_checkpoint`` and restored into a fresh state bit for bit."""
+    exp = os.path.join(ORBAX_FIXTURES, name)
+    step_dir = os.path.join(exp, str(info["step"]))
+    t0 = time.perf_counter()
+    leaves = read_pytree(step_dir)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    want = {tuple(r["key"]): r for r in info["leaves"]}
+    arrays = {k: v for k, v in leaves.items() if v is not None}
+    if set(arrays) != set(want):
+        raise AssertionError(f"{name}: leaves {len(arrays)}, digests "
+                             f"{len(want)}")
+    differ = [k for k, r in want.items() if (
+        "bfloat16" if arrays[k].dtype == torch.bfloat16
+        else str(arrays[k].numpy().dtype), list(arrays[k].shape),
+        leaf_sha(arrays[k])) != (r["dtype"], r["shape"], r["sha256"])]
+    if differ:
+        raise AssertionError(f"{name}: {len(differ)} leaves differ from "
+                             f"their digests: {differ[:4]}")
+    cfg = fixture_config(exp)
+    gen = torch.Generator().manual_seed(ORBAX_SEED)
+
+    def fresh():
+        return create_train_state(init_master_model(cfg.model, gen,
+                                                    device=DEVICE),
+                                  cfg.train)
+
+    state = ckpt_lib.restore_checkpoint(exp, fresh())
+    bad = state_mismatches(state, leaves)
+    if bad or state.step != info["step"]:
+        raise AssertionError(f"{name}: restored on the card: step "
+                             f"{state.step}, {len(bad)} leaves differ "
+                             f"{bad[:4]}")
+    vgg = init_vgg19_features(gen, device=DEVICE)
+    rng = np.random.default_rng(ORBAX_SEED)
+    b, size = info["batch"], info["size"]
+    content, style = (rng.random((b, size, size, 3), dtype=np.float32)
+                      for _ in range(2))
+    step_fn = make_train_step(cfg, vgg, device=DEVICE)
+    reset_launches()
+    state, metrics = step_fn(state, content, style, gen, k=1)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    table = fixture_per_step(cfg, 1)
+    if launches != table:
+        raise AssertionError(f"{name}: the step launched {launches}, "
+                             f"expected {table}")
+    if not all(np.isfinite(metrics[m]) for m in ("total", "content",
+                                                 "style")):
+        raise AssertionError(f"{name}: step metrics {metrics}")
+    out_dir = os.path.join(tmp, name)
+    ckpt_lib.save_checkpoint(out_dir, state, state.step)
+    back = ckpt_lib.restore_checkpoint(out_dir, fresh())
+    bad = state_mismatches(back, dict(to_pytree(state)))
+    if bad or (back.step, back.opt.count) != (state.step, state.opt.count):
+        raise AssertionError(f"{name}: written back and read: "
+                             f"{len(bad)} leaves differ {bad[:4]}")
+    dtypes = sorted({str(v.dtype) for v in arrays.values()})
+    return dict(mode=info["mode"], layout=info["layout"],
+                step=info["step"], leaves=len(arrays), differing=0,
+                dtypes=dtypes, read_ms=read_ms,
+                launches={e: n for e, n in launches.items() if n},
+                loss=float(metrics["total"]), lr=float(metrics["lr"]),
+                stepped_to=state.step, rewritten_exact=True)
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def full_width_round_trip(tmp: str) -> dict:
+    """The train phase's state (swin_B, the ModelConfig defaults; plain
+    mode, the Swin frozen) with Adam's moments drawn from a seed, written
+    by ``save_checkpoint`` and restored into a fresh state on the card
+    ORBAX_REPEATS times each: the host ms of each (the device-to-host and
+    host-to-device copies included; the files read warm from the page
+    cache), the checkpoint's MB, and the restored state bit for bit."""
+    cfg = train_config("bfloat16", True)
+    gen = torch.Generator().manual_seed(ORBAX_SEED + 1)
+    state = create_train_state(init_master_model(cfg.model, gen,
+                                                 device=DEVICE), cfg.train)
+    with torch.no_grad():
+        for m, v in zip(state.opt.mu, state.opt.nu):
+            m.copy_(torch.randn(m.shape, generator=gen) * 1e-3)
+            v.copy_(torch.rand(v.shape, generator=gen) * 1e-6)
+    state.step = state.opt.count = ORBAX_STEP
+    ckpt = os.path.join(tmp, "full_width")
+    save_ms, restore_ms = [], []
+    for _ in range(ORBAX_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt_lib.save_checkpoint(ckpt, state, ORBAX_STEP)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+    fresh = create_train_state(init_master_model(cfg.model, gen,
+                                                 device=DEVICE), cfg.train)
+    for _ in range(ORBAX_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt_lib.restore_checkpoint(ckpt, fresh)
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+    bad = state_mismatches(fresh, dict(to_pytree(state)))
+    if bad or (fresh.step, fresh.opt.count) != (ORBAX_STEP, ORBAX_STEP):
+        raise AssertionError(f"full-width round trip: {len(bad)} leaves "
+                             f"differ {bad[:4]}")
+    step_dir = os.path.join(ckpt, str(ORBAX_STEP))
+    leaves = [k for k, v in to_pytree(state) if v is not None]
+    return dict(params=sum(v.numel() for v in flatten_params(
+        state.params).values()), array_leaves=len(leaves),
+        files=sum(len(f) for _, _, f in os.walk(step_dir)),
+        mb=dir_bytes(step_dir) / 1e6, save_ms=save_ms,
+        restore_ms=restore_ms, save_ms_median=float(np.median(save_ms)),
+        restore_ms_median=float(np.median(restore_ms)))
+
+
+def run_orbax(smi: str) -> dict:
+    """The JAX trainer's Orbax train-state checkpoints on the card, with
+    no JAX, Orbax or tensorstore: each committed JAX-written fixture
+    (tests/data/orbax/, one per layout: OCDBT, and a zarr directory per
+    leaf with bfloat16 leaves among them) through ``fixture_run``, and the
+    full-width checkpoint's save and restore (``full_width_round_trip``).
+    The trainer phase writes and resumes its checkpoints in the same
+    layout."""
+    t0 = time.perf_counter()
+    with open(os.path.join(ORBAX_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    if sorted(digests) != ["fast_adaptation_leaves", "plain_ocdbt"]:
+        raise AssertionError(f"fixtures {sorted(digests)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        fixtures = {name: fixture_run(name, info, tmp)
+                    for name, info in sorted(digests.items())}
+        full = full_width_round_trip(tmp)
+    out = dict(fixtures=fixtures, full_width=full, card=smi,
+               wall_s=time.perf_counter() - t0)
+    emit("orbax", **out)
+    return out
+
 
 # ---------------------------------------------------------------------------
 # 9. the evaluation and weight entry points: the content x style grid, the
@@ -4208,6 +4411,10 @@ N_KIND_BATCHES = 40
 # files (640x480, a cut one with restart markers and a cut progressive
 # one) are also among the trainer phase's contents.
 DAMAGED_DIR = os.path.join(os.path.dirname(FIXTURES), "jpeg_damaged")
+# The JAX package's train-state checkpoints (tests/data/orbax/, written by
+# scripts/make_orbax_fixtures.py with digests of every leaf as the JAX
+# package restores them): the orbax phase's inputs.
+ORBAX_FIXTURES = os.path.join(os.path.dirname(FIXTURES), "orbax")
 N_DAMAGED, N_DAMAGED_BATCHES = 25, 186
 
 
@@ -5725,6 +5932,9 @@ def main(argv=None) -> int:
     # The training entry point on image folders, after every phase, with
     # draws of its own.
     trained = run_trainer(train)
+    # The JAX trainer's checkpoints: its fixtures read and trained from,
+    # and the full-width save and restore, with draws of their own.
+    orbax = run_orbax(smi)
     # The evaluation and weight entry points, after every phase, with
     # draws of their own.
     entry_points = run_entry_points(smi)
@@ -5873,6 +6083,11 @@ def main(argv=None) -> int:
         # The trainer phase's four runs (plain 6, resumed 3, meta 2, fast
         # adaptation 3 iterations), each counted from zero.
         k["trainer_launches"] = trained["launches"][k["name"]]
+        # The orbax phase's step from each JAX-written fixture, counted
+        # from zero.
+        k["orbax_launches"] = {
+            name: run["launches"].get(k["name"], 0)
+            for name, run in orbax["fixtures"].items()}
         # The eval phase's kernels-on grids and its command line's, and
         # the adaptation command line's run (20 steps, 11 stylize calls),
         # each counted from zero.

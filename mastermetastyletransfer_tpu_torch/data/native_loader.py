@@ -50,6 +50,9 @@ It runs on the host, not on the device.
 * ``decode_tga_rle``: a TGA's run-length packets as Pillow's
   TgaRleDecode.c reads them (``native/tga.cpp``; ``utils/tga.py`` reads
   the header and the colours).
+* ``decode_zstd_frame(bytes, limit) -> bytes``: one whole Zstandard frame
+  (``native/zstd.cpp``), the output growing as it decodes, for the
+  checkpoint readers (``utils/ocdbt.py``, ``utils/zarr.py``).
 * ``encode_jpeg(uint8 (H, W, 3), quality) -> bytes``: baseline 4:2:0 JFIF
   as PIL's ``Image.save(..., "JPEG", quality=q)`` writes it (IJG tables
   scaled to the quality, standard Huffman tables).
@@ -164,6 +167,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mmst_tiff_state_new.argtypes = []
     lib.mmst_tiff_state_free.restype = None
     lib.mmst_tiff_state_free.argtypes = [ctypes.c_void_p]
+    lib.mmst_zstd_frame.restype = ctypes.c_int
+    lib.mmst_zstd_frame.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_size_t,
+        ctypes.POINTER(_u8p), ctypes.POINTER(ctypes.c_size_t),
+        ctypes.c_char_p, ctypes.c_int]
+    lib.mmst_zstd_free.restype = None
+    lib.mmst_zstd_free.argtypes = [ctypes.c_void_p]
     lib.mmst_tga_rle.restype = ctypes.c_int
     lib.mmst_tga_rle.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int64,
@@ -341,6 +351,23 @@ def decode_tga_rle(data: bytes, depth: int, linesize: int, ysize: int,
                         err, _ERR_LEN):
         raise ValueError(err.value.decode(errors="replace"))
     return out
+
+
+def decode_zstd_frame(data: bytes, limit: int) -> bytes:
+    """The content of the one Zstandard frame ``data`` holds, at most
+    ``limit`` bytes; ValueError naming what is wrong where ``data`` is not
+    one whole frame that decodes within the limit."""
+    lib = _library()
+    out = _u8p()
+    n = ctypes.c_size_t()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if lib.mmst_zstd_frame(data, len(data), int(limit), ctypes.byref(out),
+                           ctypes.byref(n), err, _ERR_LEN):
+        raise ValueError(err.value.decode(errors="replace"))
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.mmst_zstd_free(out)
 
 
 def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:

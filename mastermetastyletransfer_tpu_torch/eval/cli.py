@@ -6,9 +6,11 @@ eval/cli.py).
         --checkpoint experiments/run/checkpoints --k 1 --lambda_style 4 \
         --use_pallas --save_images_to outputs/
 
-Loads a checkpoint (the flat .npz export, or a directory of the port's
-train-state checkpoints, utils/checkpoint.py; the port reads no Orbax
-directory), sweeps the full content x style grid at the given transformer
+Loads a checkpoint (the flat .npz export, or a directory of train-state
+checkpoints of either package, utils/checkpoint.py: its latest step's
+parameters, whatever the training mode that wrote it, as the JAX
+package's restore takes them), sweeps the full content x style grid at
+the given transformer
 depth, prints the loss statistics (mean and std of
 total/content/style[/similarity], the numbers goals.txt compares with the
 paper), and optionally writes the stylized images as JPEG.
@@ -31,7 +33,6 @@ from mastermetastyletransfer_tpu_torch.eval.harness import (
     evaluate_grid, load_eval_images,
 )
 from mastermetastyletransfer_tpu_torch.models.master import init_master_model
-from mastermetastyletransfer_tpu_torch.train.state import create_train_state
 from mastermetastyletransfer_tpu_torch.train.trainer import load_vgg_params
 from mastermetastyletransfer_tpu_torch.utils import checkpoint as ckpt_lib
 from mastermetastyletransfer_tpu_torch.utils.device import require_device
@@ -90,16 +91,15 @@ def config_from_args(args) -> ExperimentConfig:
 def load_params(checkpoint, cfg: ExperimentConfig,
                 device: torch.device) -> dict:
     """The model's weights: random from WEIGHTS_SEED, then, given a path,
-    a .npz export or the latest train-state checkpoint under a
-    directory."""
+    a .npz export or the parameters of the latest train-state checkpoint
+    under a directory."""
     params = init_master_model(
         cfg.model, torch.Generator().manual_seed(WEIGHTS_SEED), device=device)
     if not checkpoint:
         return params
     if checkpoint.endswith(".npz"):
         return ckpt_lib.load_params_npz(checkpoint, params)
-    state = create_train_state(params, cfg.train)
-    return ckpt_lib.restore_checkpoint(checkpoint, state).params
+    return ckpt_lib.restore_params(checkpoint, params)
 
 
 def main(argv=None) -> dict:

@@ -27,6 +27,7 @@
 #include "zstd.h"
 
 #include <algorithm>
+#include <cstdlib>
 #include <cstring>
 #include <stdexcept>
 #include <string>
@@ -963,4 +964,92 @@ void decode(const uint8_t* in, size_t n, uint8_t* out, size_t need) {
          " bytes)");
 }
 
+std::vector<uint8_t> decode_frame(const uint8_t* in, size_t n,
+                                  size_t limit) {
+  if (n < 4 || le32(in) != kMagic) fail("not a Zstandard frame");
+  const Header h = frame_header(in, n);
+  if (h.size == 0) fail("the data ends in the frame header");
+  if (h.content != kUnknown && h.content > limit)
+    fail("a content size of " + std::to_string(h.content) +
+         " bytes, above the limit of " + std::to_string(limit));
+  std::vector<uint8_t> out;
+  if (h.content != kUnknown) out.reserve(size_t(h.content));
+  Frame f(out);
+  f.block_max = size_t(std::min<uint64_t>(h.window, kBlockMax));
+  Xxh64 xxh;
+  size_t pos = h.size;
+  for (;;) {
+    if (pos + 3 > n) fail("the data ends within the frame");
+    const uint32_t bh = in[pos] | uint32_t(in[pos + 1]) << 8 |
+                        uint32_t(in[pos + 2]) << 16;
+    const bool last = bh & 1;
+    const int type = (bh >> 1) & 3;
+    const size_t csize = bh >> 3;
+    if (type == 3) fail("a block of the reserved type");
+    if (csize > f.block_max) fail("a block above its maximum size");
+    pos += 3;
+    const size_t before = out.size();
+    if (out.size() + (type == 2 ? 0 : csize) > limit)
+      fail("more than the limit of " + std::to_string(limit) + " bytes");
+    if (type == 0) {
+      if (csize > n - pos) fail("the data ends within a block");
+      out.insert(out.end(), in + pos, in + pos + csize);
+      pos += csize;
+    } else if (type == 1) {
+      if (pos + 1 > n) fail("the data ends within a block");
+      out.insert(out.end(), csize, in[pos]);
+      pos += 1;
+    } else {
+      if (csize > n - pos) fail("the data ends within a block");
+      f.block(in + pos, csize);
+      pos += csize;
+    }
+    if (out.size() > limit)
+      fail("more than the limit of " + std::to_string(limit) + " bytes");
+    if (h.content != kUnknown && out.size() > h.content)
+      fail("more data than the frame's content size");
+    xxh.update(out.data() + before, out.size() - before);
+    if (last) break;
+  }
+  if (h.content != kUnknown && out.size() != h.content)
+    fail("less data than the frame's content size");
+  if (h.checksum) {
+    if (n - pos < 4) fail("the data ends in the checksum");
+    if (le32(in + pos) != uint32_t(xxh.digest())) fail("checksum mismatch");
+    pos += 4;
+  }
+  if (pos != n)
+    fail(std::to_string(n - pos) + " bytes after the frame");
+  return out;
+}
+
 }  // namespace mmst_zstd
+
+// The whole-frame decoder for Python (data/native_loader.py): the output
+// malloc'ed and handed to the caller, who frees it with mmst_zstd_free. An
+// error's reason is copied into err (NUL-terminated) and 1 returned.
+extern "C" {
+
+int mmst_zstd_frame(const uint8_t* in, size_t n, size_t limit, uint8_t** out,
+                    size_t* size, char* err, int errlen) {
+  *out = nullptr;
+  try {
+    std::vector<uint8_t> bytes = mmst_zstd::decode_frame(in, n, limit);
+    *out = static_cast<uint8_t*>(std::malloc(bytes.empty() ? 1
+                                                           : bytes.size()));
+    if (!*out) throw std::bad_alloc();
+    std::memcpy(*out, bytes.data(), bytes.size());
+    *size = bytes.size();
+    return 0;
+  } catch (const std::exception& e) {
+    if (errlen > 0) {
+      std::strncpy(err, e.what(), size_t(errlen) - 1);
+      err[errlen - 1] = 0;
+    }
+    return 1;
+  }
+}
+
+void mmst_zstd_free(void* p) { std::free(p); }
+
+}  // extern "C"

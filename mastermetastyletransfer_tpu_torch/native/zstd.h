@@ -1,11 +1,13 @@
 // The port's Zstandard decoder (native/zstd.cpp), driven through
-// native/tiff.cpp for a TIFF's strips or tiles. No library beyond
-// libstdc++.
+// native/tiff.cpp for a TIFF's strips or tiles, and whole for the frames
+// of a checkpoint's files (utils/ocdbt.py, utils/zarr.py). No library
+// beyond libstdc++.
 
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
+#include <vector>
 
 namespace mmst_zstd {
 
@@ -15,5 +17,13 @@ namespace mmst_zstd {
 // std::runtime_error naming what is wrong where libzstd reports an error
 // on the part of the data it reads, or where out is not filled.
 void decode(const uint8_t* in, size_t n, uint8_t* out, size_t need);
+
+// Decode the one frame that in[0, n) holds, as ZSTD_decompress does, into
+// an output that grows as the blocks decode: the frame's content size,
+// where its header gives one, is checked, not needed. Throws
+// std::runtime_error naming what is wrong where the data is not one whole
+// frame (cut, or bytes after it), a block does not decode, the content
+// size or checksum disagrees, or the output would pass limit bytes.
+std::vector<uint8_t> decode_frame(const uint8_t* in, size_t n, size_t limit);
 
 }  // namespace mmst_zstd

@@ -14,19 +14,34 @@ count before the update (0 first). Its moments and count can also update
 another list of leaves of the same shapes: the meta step's per-task copy
 omega, task after task, through the one state that the JAX package keeps
 in ``TrainState.opt_state`` (its train/step.py:189-205).
+
+``to_pytree`` and ``load_pytree`` map the state to and from the tree that
+the JAX package's checkpoints hold (``{"state": TrainState}``, flattened by
+``utils/orbax.py``), optax's for ``make_optimizer``'s ``multi_transform``:
+
+    state.step
+    state.params.<path>
+    state.opt_state.inner_states.freeze.inner_state        EmptyState: None
+    state.opt_state.inner_states.train.inner_state.0.count Adam's count
+    state.opt_state.inner_states.train.inner_state.0.mu.<path>
+    state.opt_state.inner_states.train.inner_state.0.nu.<path>
+                                        a frozen leaf's moments: None
+    state.opt_state.inner_states.train.inner_state.1.count the schedule's
+
+The port keeps one count for the two.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from mastermetastyletransfer_tpu_torch.config import TrainConfig
 from mastermetastyletransfer_tpu_torch.train.schedule import make_lr_schedule
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import (
-    flatten_params, tree_map,
+    copy_leaf, flatten_params, tree_map,
 )
 
 
@@ -111,3 +126,91 @@ def create_train_state(params: dict, cfg: TrainConfig) -> TrainState:
             train.append(leaf)
     return TrainState(step=0, params=params,
                       opt=Adam(train, make_lr_schedule(cfg)))
+
+
+_OPT = ("state", "opt_state", "inner_states")
+_FREEZE = _OPT + ("freeze", "inner_state")
+_ADAM = _OPT + ("train", "inner_state", 0)
+_SCHEDULE = _OPT + ("train", "inner_state", 1, "count")
+_COUNTS = (("state", "step"), _ADAM + ("count",), _SCHEDULE)
+
+
+def param_paths(tree, prefix: tuple = ()) -> Dict[tuple, torch.Tensor]:
+    """{path: leaf} in JAX's order of leaves (dict keys sorted, list items
+    by their index as ints)."""
+    if isinstance(tree, dict):
+        return {p: v for k in sorted(tree)
+                for p, v in param_paths(tree[k], prefix + (k,)).items()}
+    if isinstance(tree, (list, tuple)):
+        return {p: v for i, t in enumerate(tree)
+                for p, v in param_paths(t, prefix + (i,)).items()}
+    return {prefix: tree}
+
+
+def _count(n: int) -> torch.Tensor:
+    return torch.tensor(int(n), dtype=torch.int32)
+
+
+def optax_tree(step: int, count: int, params: Dict[tuple, torch.Tensor],
+               mu: Dict[tuple, torch.Tensor], nu: Dict[tuple, torch.Tensor]
+               ) -> List[Tuple[tuple, Optional[torch.Tensor]]]:
+    """The checkpoint tree of a train state given by its parts: every
+    parameter by its path (in JAX's order), Adam's moments by the paths of
+    the trainable leaves (None for the rest), one count for Adam's and the
+    schedule's."""
+    out = [(("state", "step"), _count(step))]
+    out += [(("state", "params") + p, v) for p, v in params.items()]
+    out += [(_FREEZE, None), (_ADAM + ("count",), _count(count))]
+    for name, moments in (("mu", mu), ("nu", nu)):
+        out += [(_ADAM + (name,) + p, moments.get(p)) for p in params]
+    out.append((_SCHEDULE, _count(count)))
+    return out
+
+
+def to_pytree(state: TrainState) -> List[Tuple[tuple, Optional[torch.Tensor]]]:
+    """The state's leaves as the JAX package's checkpoint tree holds them,
+    in JAX's order."""
+    params = param_paths(state.params)
+    index = {id(t): i for i, t in enumerate(state.opt.params)}
+    trained = {p: index[id(v)] for p, v in params.items() if id(v) in index}
+    return optax_tree(state.step, state.opt.count, params,
+                      {p: state.opt.mu[i] for p, i in trained.items()},
+                      {p: state.opt.nu[i] for p, i in trained.items()})
+
+
+def load_pytree(state: TrainState, leaves: Dict[tuple, Optional[torch.Tensor]],
+                where: str) -> TrainState:
+    """Copy a checkpoint's tree (``utils/orbax.read_pytree``) into the
+    state, each tensor in place on its device, once every check has
+    passed. KeyError where the leaves or the trainable ones are not the
+    state's (another training mode), ValueError where a shape is not the
+    state's or Adam's and the schedule's counts differ."""
+    want = dict(to_pytree(state))
+    missing = [k for k in want if k not in leaves]
+    extra = [k for k in leaves if k not in want]
+    if missing or extra:
+        raise KeyError(f"{where}: the checkpoint's leaves are not the "
+                       f"state's: {len(missing)} missing {missing[:3]}, "
+                       f"{len(extra)} extra {extra[:3]}")
+    moved = [k for k, v in want.items() if (v is None) != (leaves[k] is None)]
+    if moved:
+        raise KeyError(f"{where}: the checkpoint's trainable leaves are not "
+                       f"the state's (another training mode?): {moved[:3]}")
+    for k, v in want.items():
+        got = leaves[k]
+        if v is not None and tuple(got.shape) != tuple(v.shape):
+            raise ValueError(f"{where}: {k}: shape {tuple(got.shape)} in the "
+                             f"checkpoint, {tuple(v.shape)} expected")
+    for k in _COUNTS:
+        if leaves[k].is_floating_point() or leaves[k].dtype == torch.bool:
+            raise ValueError(f"{where}: {k}: a count of dtype "
+                             f"{leaves[k].dtype}")
+    step, adam, schedule = (int(leaves[k]) for k in _COUNTS)
+    if adam != schedule:
+        raise ValueError(f"{where}: Adam's count {adam} and the schedule's "
+                         f"count {schedule} differ")
+    for k, v in want.items():
+        if v is not None and k not in _COUNTS:
+            copy_leaf(v, leaves[k])
+    state.step, state.opt.count = step, adam
+    return state

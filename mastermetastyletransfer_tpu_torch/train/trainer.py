@@ -11,8 +11,9 @@ Run:
 
 ``--use_pallas`` keeps its JAX name: it turns on the port's CUDA kernels in
 every stage. ``--device`` (default cuda) places the run; the tests pass
-cpu. Checkpoints are the port's own format (utils/checkpoint.py), not
-Orbax.
+cpu. Checkpoints are the JAX package's Orbax train-state checkpoints,
+read and written without Orbax (utils/checkpoint.py): ``--resume`` takes
+an exp_dir of either package.
 
 Data parallelism (JAX's ``--num_devices``): ``main`` with ``--num_devices``
 n > 1 starts n ranks (parallel/launch.py), over NCCL with a card each on

@@ -13,20 +13,25 @@ tensors as leaves: the same keys, the same shapes and the same layouts
   model's tree and the VGG19 loss's (``init_vgg19_features``, {"conv0":
   {"kernel", "bias"}, ...}) alike.
 
-A train-state checkpoint (JAX counterpart: utils/checkpoint.py:26-67) is
-the port's own format; the JAX package writes Orbax, which the machine
-with the card does not have. ``save_checkpoint`` writes
+A train-state checkpoint is the JAX package's (utils/checkpoint.py:26-67
+there): an Orbax PyTree checkpoint of ``{"state": TrainState}`` per step,
 
-    <dir>/<step>/params.npz   every leaf, in the flat .npz key scheme (so
-                              the JAX package's load_params_npz reads it)
-    <dir>/<step>/opt.npz      Adam's moments, "mu/<key>" and "nu/<key>"
-                              for each trainable leaf's flat key
-    <dir>/<step>/state.json   {"step": the state's step, "count": Adam's}
+    <dir>/<step>/             the tree of ``train.state.to_pytree``:
+                              params, Adam's moments and both of optax's
+                              counts, the step (utils/orbax.py)
     <dir>/config.json         the run's configuration, when given
 
-into a temporary directory first, renamed into place when complete;
-``restore_checkpoint`` copies them back into a train state's tensors, in
-place, on their devices.
+read and written without Orbax. ``save_checkpoint`` writes the layout
+Orbax writes with ``use_ocdbt=False`` (a zarr directory per leaf) into a
+temporary directory, renamed into place when complete; the JAX package's
+``restore_checkpoint`` reads it. ``restore_checkpoint`` copies a step
+written in either of Orbax's layouts (the JAX package writes OCDBT) back
+into a train state's tensors, in place, on their devices, and still
+reads the port's earlier layout where a step holds it (``params.npz``
+with every leaf in the flat key scheme, ``opt.npz`` with "mu/<key>" and
+"nu/<key>" for each trainable leaf, ``state.json`` with the step and
+Adam's count). ``restore_params`` takes the parameters alone, from a
+checkpoint of any training mode, as the JAX package's evaluation does.
 """
 
 from __future__ import annotations
@@ -38,6 +43,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from mastermetastyletransfer_tpu_torch.utils.orbax import (
+    is_pytree, read_pytree, write_pytree,
+)
 
 
 def flatten_params(tree: Any, prefix: str = "") -> Dict[str, Any]:
@@ -110,28 +119,20 @@ def tree_map(fn, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
-def _cpu_arrays(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {k: v.detach().cpu().numpy() for k, v in tensors.items()}
-
-
 def save_checkpoint(ckpt_dir: str, state, step: int, *,
                     config_json: Optional[str] = None) -> str:
     """Write the train state (``train.state.TrainState``) at
     ``ckpt_dir/step``, replacing a checkpoint of that step; returns the
     path."""
+    # train.state imports this module
+    from mastermetastyletransfer_tpu_torch.train.state import to_pytree
+
     ckpt_dir = os.path.abspath(ckpt_dir)
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, str(int(step)))
     tmp = os.path.join(ckpt_dir, f".{int(step)}.tmp-{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    save_params_npz(os.path.join(tmp, "params.npz"), state.params)
-    keys = list(state.trainable())
-    np.savez(os.path.join(tmp, "opt.npz"),
-             **_cpu_arrays({f"mu/{k}": v for k, v in zip(keys, state.opt.mu)}),
-             **_cpu_arrays({f"nu/{k}": v for k, v in zip(keys, state.opt.nu)}))
-    with open(os.path.join(tmp, "state.json"), "w") as f:
-        json.dump({"step": int(state.step), "count": int(state.opt.count)}, f)
+    write_pytree(tmp, to_pytree(state))
     if os.path.exists(path):
         old = f"{tmp}.old"
         os.replace(path, old)
@@ -152,44 +153,93 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _copy_into(dst: torch.Tensor, arr: np.ndarray, key: str) -> None:
-    if tuple(arr.shape) != tuple(dst.shape):
-        raise ValueError(f"{key}: shape {arr.shape} in the checkpoint, "
-                         f"{tuple(dst.shape)} expected")
+def _step_dir(ckpt_dir: str, step: Optional[int]) -> str:
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    path = os.path.join(os.path.abspath(ckpt_dir), str(int(step)))
+    if not (os.path.exists(os.path.join(path, "params.npz"))
+            or is_pytree(path)):
+        raise FileNotFoundError(f"no checkpoint at {path}")
+    return path
+
+
+def copy_leaf(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst takes src's values, in place on dst's device, and src's dtype
+    where they differ (JAX's restore gives a leaf the checkpoint's
+    dtype)."""
     with torch.no_grad():
-        dst.copy_(torch.from_numpy(np.array(arr)))
+        if src.dtype == dst.dtype:
+            dst.copy_(src)
+        else:
+            dst.data = src.to(dst.device)
+
+
+def _read_step(path: str, keep=None) -> dict:
+    """The tree of the step directory ``path`` as ``read_pytree`` gives it
+    (those leaves ``keep`` takes, where given), from either Orbax layout
+    or the port's earlier one."""
+    from mastermetastyletransfer_tpu_torch.train.state import optax_tree
+
+    if not os.path.exists(os.path.join(path, "params.npz")):
+        return read_pytree(path, keep)
+
+    def load(name: str) -> dict:
+        with np.load(os.path.join(path, name)) as data:
+            return {tuple(int(k) if k.isdigit() else k
+                          for k in key.split("/")):
+                    torch.from_numpy(np.array(data[key]))
+                    for key in data.files}
+
+    params, opt = load("params.npz"), load("opt.npz")
+    moments = {m: {k[1:]: v for k, v in opt.items() if k[0] == m}
+               for m in ("mu", "nu")}
+    if len(moments["mu"]) + len(moments["nu"]) != len(opt) or not (
+            set(moments["mu"]) | set(moments["nu"])) <= set(params):
+        raise KeyError(f"{path}: opt.npz holds moments of no parameter")
+    with open(os.path.join(path, "state.json")) as f:
+        meta = json.load(f)
+    return dict(optax_tree(meta["step"], meta["count"], params,
+                           moments["mu"], moments["nu"]))
 
 
 def restore_checkpoint(ckpt_dir: str, state, *, step: Optional[int] = None):
     """Restore the checkpoint of ``step`` (the latest if None) into
     ``state``: its parameters, Adam's moments and count, and its step, each
     tensor copied in place on its device. Returns the state. Raises
-    FileNotFoundError without a checkpoint, KeyError or ValueError where
-    the checkpoint's leaves, trainable leaves or shapes are not the
-    state's."""
-    if step is None:
-        step = latest_step(ckpt_dir)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-    path = os.path.join(os.path.abspath(ckpt_dir), str(int(step)))
-    leaves = flatten_params(state.params)
-    keys = list(state.trainable())
-    with np.load(os.path.join(path, "params.npz")) as data:
-        if set(data.files) != set(leaves):
-            raise KeyError(f"{path}: the checkpoint's leaves are not the "
-                           f"state's")
-        for key, leaf in leaves.items():
-            _copy_into(leaf, data[key], key)
-    with np.load(os.path.join(path, "opt.npz")) as data:
-        want = {f"{m}/{k}" for m in ("mu", "nu") for k in keys}
-        if set(data.files) != want:
-            raise KeyError(f"{path}: the checkpoint's trainable leaves are "
-                           f"not the state's (another training mode?)")
-        for moments, m in ((state.opt.mu, "mu"), (state.opt.nu, "nu")):
-            for key, t in zip(keys, moments):
-                _copy_into(t, data[f"{m}/{key}"], f"{m}/{key}")
-    with open(os.path.join(path, "state.json")) as f:
-        meta = json.load(f)
-    state.step = int(meta["step"])
-    state.opt.count = int(meta["count"])
-    return state
+    FileNotFoundError without a checkpoint, KeyError where the
+    checkpoint's leaves or trainable leaves are not the state's, and
+    ValueError where its shapes are not the state's or its data is
+    damaged."""
+    from mastermetastyletransfer_tpu_torch.train.state import load_pytree
+
+    path = _step_dir(ckpt_dir, step)
+    return load_pytree(state, _read_step(path), path)
+
+
+def restore_params(ckpt_dir: str, params: Any, *,
+                   step: Optional[int] = None) -> Any:
+    """Copy the parameters of the checkpoint of ``step`` (the latest if
+    None) into ``params``, in place on their devices, whatever the
+    training mode that wrote it; returns ``params``. Raises
+    FileNotFoundError without a checkpoint, KeyError where its parameter
+    leaves are not those of ``params``, ValueError where a shape differs
+    or the data is damaged."""
+    from mastermetastyletransfer_tpu_torch.train.state import param_paths
+
+    path = _step_dir(ckpt_dir, step)
+    dst = param_paths(params)
+    src = {k[2:]: v for k, v in _read_step(
+        path, keep=lambda k: k[:2] == ("state", "params")).items()
+        if k[:2] == ("state", "params")}
+    if set(src) != set(dst):
+        raise KeyError(f"{path}: the checkpoint's parameters are not the "
+                       f"model's: {sorted(map(str, set(dst) ^ set(src)))[:3]}")
+    for k, v in dst.items():
+        if tuple(src[k].shape) != tuple(v.shape):
+            raise ValueError(f"{path}: {k}: shape {tuple(src[k].shape)} in "
+                             f"the checkpoint, {tuple(v.shape)} expected")
+    for k, v in dst.items():
+        copy_leaf(v, src[k])
+    return params

@@ -1,5 +1,6 @@
 """The port and chip_smoke.py stand alone: they import neither JAX nor the
-JAX package nor PIL (the machine with the card has none of them)."""
+JAX package nor PIL, nor Orbax, tensorstore, flax or optax (the machine
+with the card has none of them)."""
 
 import re
 import subprocess
@@ -16,7 +17,8 @@ WORKERS = ("torch_parallel_workers.py", "torch_dp_workers.py")
 _PROBE = r"""
 import importlib.abc, sys
 
-BLOCKED = {"jax", "jaxlib", "mastermetastyletransfer_tpu", "PIL"}
+BLOCKED = {"jax", "jaxlib", "mastermetastyletransfer_tpu", "PIL", "orbax",
+           "tensorstore", "flax", "optax"}
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -80,7 +82,8 @@ def test_every_port_module_imports_without_jax_or_pil():
                  "utils.convert_cli", "losses.calibrate", "utils.png",
                  "utils.device", "utils.profiling", "serve",
                  "parallel.mesh", "parallel.launch", "parallel.spatial",
-                 "parallel.spatial_shmap"):
+                 "parallel.spatial_shmap", "utils.ocdbt", "utils.zarr",
+                 "utils.orbax", "utils.checkpoint"):
         assert f"mastermetastyletransfer_tpu_torch.{name}" in modules, name
     probe = _PROBE.replace(
         "import chip_smoke\n",
@@ -149,3 +152,44 @@ def test_routes_run_without_jax_or_pil(tmp_path):
     for name in ("grid.jpg", "adapted.jpg"):
         with Image.open(tmp_path / name) as im:
             assert im.format == "JPEG" and im.size == (48, 48)
+
+
+_CHECKPOINTS = r"""
+import json, os, shutil, sys
+import torch
+from mastermetastyletransfer_tpu_torch import config
+from mastermetastyletransfer_tpu_torch.models.master import init_master_model
+from mastermetastyletransfer_tpu_torch.train.state import create_train_state
+from mastermetastyletransfer_tpu_torch.utils import checkpoint
+
+fixtures, out = sys.argv[1], sys.argv[2]
+with open(os.path.join(fixtures, "digests.json")) as f:
+    digests = json.load(f)
+for name, info in digests.items():
+    exp = os.path.join(fixtures, name)
+    with open(os.path.join(exp, "config.json")) as f:
+        cfg = config.ExperimentConfig.from_json(f.read())
+    state = create_train_state(init_master_model(
+        cfg.model, torch.Generator().manual_seed(0), device="cpu"), cfg.train)
+    checkpoint.restore_checkpoint(exp, state)
+    assert state.step == info["step"], name
+    checkpoint.save_checkpoint(os.path.join(out, name), state, state.step)
+    checkpoint.restore_checkpoint(os.path.join(out, name), state)
+print("isolated-ok")
+"""
+
+
+def test_orbax_checkpoints_read_and_written_without_jax_or_orbax(tmp_path):
+    """The committed JAX-written checkpoints (tests/data/orbax/, both of
+    Orbax's layouts) restore into the port's train state, and the port
+    writes and reads its own, with JAX, the JAX package, Orbax,
+    tensorstore, flax and optax refused."""
+    probe = _PROBE.replace("import chip_smoke\n", "").replace(
+        'print("isolated-ok")\n', _CHECKPOINTS)
+    assert _CHECKPOINTS in probe
+    proc = subprocess.run(
+        [sys.executable, "-c", probe, str(ROOT / "tests" / "data" / "orbax"),
+         str(tmp_path)], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("isolated-ok")

@@ -6,7 +6,8 @@ checkpoints (``utils/checkpoint.py``) and the VGG19 conversion
 (the port's other training tests' configuration), k in [1, 2], kernels on
 (their plain versions on the CPU), ``device="cpu"``, on BMP folders
 written here from numpy seeds. The command line, its configuration, the
-metric keys, the checkpoint's weights (read by JAX's ``load_params_npz``),
+metric keys, the checkpoints (the JAX package's Orbax layout, read by
+JAX's ``restore_checkpoint``),
 the VGG19 conversion, the PNG dump and the experiment-dir renaming are
 held to JAX's; a checkpoint's round trip bit for bit; a resumed run's
 draws to a continuous run's, its loaders restarting at their first batch
@@ -41,11 +42,13 @@ from mastermetastyletransfer_tpu_torch.train import trainer
 from mastermetastyletransfer_tpu_torch.utils import checkpoint as tckpt
 from mastermetastyletransfer_tpu_torch.utils import convert as tconvert
 from mastermetastyletransfer_tpu_torch.utils.checkpoint import flatten_params
+from mastermetastyletransfer_tpu_torch.utils.orbax import read_pytree
 from mastermetastyletransfer_tpu_torch.utils.png import png_bytes, save_png
 from tests import torch_dp_workers as dp_workers
 from tests.torch_threads import two_torch_threads  # noqa: F401
 
 SIZE, STAGE, BATCH, MAX_K = 64, 80, 2, 2
+_ADAM = ("state", "opt_state", "inner_states", "train", "inner_state", 0)
 # What the port logs beside JAX's metrics: the step's learning rate, and
 # the meta step's depths (JAX's meta step logs no k).
 PORT_EXTRA = {"plain": {"lr"}, "fast_adaptation": {"lr"},
@@ -207,8 +210,9 @@ def test_train_runs_each_mode(runs, mode):
         assert all(len(r["ks"]) == 2 for r in rows)
     ckpt = os.path.join(run["exp"], "checkpoints")
     assert tckpt.latest_step(ckpt) == (4 if mode == "plain" else 2)
-    assert sorted(os.listdir(os.path.join(ckpt, "2"))) == [
-        "opt.npz", "params.npz", "state.json"]
+    files = os.listdir(os.path.join(ckpt, "2"))
+    assert {"_METADATA", "_CHECKPOINT_METADATA", "state.step"} <= set(files)
+    assert not {"opt.npz", "params.npz", "state.json"} & set(files)
     with Image.open(os.path.join(run["exp"], "stylized_2.png")) as im:
         dump = np.asarray(im)
     assert dump.shape == (SIZE, SIZE, 3) and dump.std() > 0
@@ -226,10 +230,19 @@ def test_meta_contents_are_flattened_crops(runs):
 # ---------------------------------------------------------------------------
 
 def _files(path):
-    with np.load(os.path.join(path, "params.npz")) as p, \
-            np.load(os.path.join(path, "opt.npz")) as o, \
-            open(os.path.join(path, "state.json")) as s:
-        return dict(p), dict(o), json.load(s)
+    """A checkpoint's leaves as the port's Orbax reader gives them:
+    (params by flat key, moments by "mu/<key>" and "nu/<key>", the step
+    and both counts)."""
+    leaves = read_pytree(path)
+    params = {"/".join(map(str, k[2:])): v.numpy()
+              for k, v in leaves.items() if k[:2] == ("state", "params")}
+    opt = {f"{k[6]}/" + "/".join(map(str, k[7:])): v.numpy()
+           for k, v in leaves.items()
+           if k[:6] == _ADAM and k[6] in ("mu", "nu") and v is not None}
+    counts = {"step": int(leaves[("state", "step")]),
+              "count": int(leaves[_ADAM + ("count",)]),
+              "schedule": int(leaves[_ADAM[:-1] + (1, "count")])}
+    return params, opt, counts
 
 
 def test_checkpoint_round_trip_is_exact(runs):
@@ -250,8 +263,8 @@ def test_checkpoint_round_trip_is_exact(runs):
     for m, moments in (("mu", state.opt.mu), ("nu", state.opt.nu)):
         for k, t in zip(keys, moments):
             assert np.array_equal(opt[f"{m}/{k}"], t.numpy()), (m, k)
-    assert meta == {"step": 2, "count": 2} == {"step": state.step,
-                                               "count": state.opt.count}
+    assert meta == {"step": 2, "count": 2, "schedule": 2}
+    assert (state.step, state.opt.count) == (2, 2)
     cfg = runs["plain"]["cfg"]
     fresh = tstate.create_train_state(trainer.init_master_model(
         cfg.model, torch.Generator().manual_seed(9), device="cpu"),
@@ -264,6 +277,33 @@ def test_checkpoint_round_trip_is_exact(runs):
     for m, moments in (("mu", fresh.opt.mu), ("nu", fresh.opt.nu)):
         for k, t in zip(keys, moments):
             assert np.array_equal(opt[f"{m}/{k}"], t.numpy()), (m, k)
+
+
+def test_npz_layout_still_restores(runs, tmp_path):
+    """A step directory in the port's earlier layout (params.npz, opt.npz
+    with "mu/<key>" and "nu/<key>", state.json), as older experiment
+    directories hold it, restores bit for bit; it is read, never
+    written."""
+    state = runs["plain"]["result"][1][-1]["state"]
+    keys = list(state.trainable())
+    path = tmp_path / "checkpoints" / "2"
+    path.mkdir(parents=True)
+    tckpt.save_params_npz(str(path / "params.npz"), state.params)
+    np.savez(str(path / "opt.npz"),
+             **{f"{m}/{k}": t.numpy() for m, moments in (
+                 ("mu", state.opt.mu), ("nu", state.opt.nu))
+                for k, t in zip(keys, moments)})
+    (path / "state.json").write_text(json.dumps({"step": 2, "count": 2}))
+    cfg = runs["plain"]["cfg"]
+    fresh = tstate.create_train_state(trainer.init_master_model(
+        cfg.model, torch.Generator().manual_seed(9), device="cpu"),
+        cfg.train)
+    tckpt.restore_checkpoint(str(tmp_path / "checkpoints"), fresh)
+    assert (fresh.step, fresh.opt.count) == (2, 2)
+    for k, v in flatten_params(state.params).items():
+        assert torch.equal(flatten_params(fresh.params)[k], v.detach()), k
+    for a, b in zip(fresh.opt.mu + fresh.opt.nu, state.opt.mu + state.opt.nu):
+        assert torch.equal(a, b)
 
 
 def test_restore_refuses_another_mode(runs):
@@ -299,15 +339,21 @@ def test_resume_repeats_a_continuous_runs_draws(runs):
 
 
 def test_checkpoint_params_load_in_jax(runs):
-    """A port checkpoint's params.npz loads through JAX's
-    ``load_params_npz`` into JAX's tree, equal to the port's leaves."""
+    """A port checkpoint restores through JAX's ``restore_checkpoint``
+    into JAX's train state at the run's configuration, its parameters
+    equal to the port's leaves, its step and counts the port's."""
+    cfg = jcfg.ExperimentConfig.from_json(runs["plain"]["cfg"].to_json())
     template = jax.eval_shape(lambda key: jmaster.init_master_model(
-        key, jcfg.ModelConfig()), jax.random.PRNGKey(0))
-    path = os.path.join(runs["plain"]["exp"], "checkpoints", "2",
-                        "params.npz")
-    tree = jckpt.load_params_npz(path, template)
+        key, cfg.model), jax.random.PRNGKey(0))
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                   template)
+    tx = jstate.make_optimizer(zeros, cfg.train)
+    target, _ = jstate.create_train_state(zeros, cfg.train, tx)
+    back = jckpt.restore_checkpoint(
+        os.path.join(runs["plain"]["exp"], "checkpoints"), target, step=2)
+    assert int(back.step) == 2
     state = runs["plain"]["result"][1][-1]["state"]
-    got = flatten_params(tree)
+    got = flatten_params(back.params)
     assert set(got) == set(flatten_params(state.params))
     for k, v in flatten_params(state.params).items():
         assert np.array_equal(np.asarray(got[k]), v.detach().numpy()), k
@@ -443,14 +489,14 @@ def test_data_parallel_trainer_matches_one_device(runs, dp_runs, mode):
     assert tckpt.latest_step(ckpt) == 2
     assert sorted(os.listdir(ckpt)) == ["2", "config.json"]
     state = runs[mode]["result"][1][-1]["state"]
-    with np.load(os.path.join(ckpt, "2", "params.npz")) as got:
-        leaves = flatten_params(state.params)
-        assert set(got.files) == set(leaves)
-        lr = cfg.train.inner_lr
-        updates = 2 * (cfg.train.num_inner_updates if mode == "meta" else 1)
-        for key, leaf in leaves.items():
-            err = float(np.abs(got[key] - leaf.detach().numpy()).max())
-            assert err <= 2.5 * lr * updates, (key, err)
+    got = _files(os.path.join(ckpt, "2"))[0]
+    leaves = flatten_params(state.params)
+    assert set(got) == set(leaves)
+    lr = cfg.train.inner_lr
+    updates = 2 * (cfg.train.num_inner_updates if mode == "meta" else 1)
+    for key, leaf in leaves.items():
+        err = float(np.abs(got[key] - leaf.detach().numpy()).max())
+        assert err <= 2.5 * lr * updates, (key, err)
 
 
 def test_data_parallel_trainer_shares_a_renamed_exp_dir(runs, dp_runs):
