@@ -163,16 +163,20 @@ fixtures of the other kinds Pillow reads -- tests/data/jpeg_kinds/
 tests/data/png/ (1- to 16-bit, Adam7), tests/data/bmp/ (palettes, RLE,
 bit fields, core to V5 headers), tests/data/webp/ (lossy, lossless,
 alpha, animations; the port's own decoder, native/webp.cpp) and
-tests/data/{pnm,gif,tiff,ico,dib}/ (Netpbm, GIF, TIFF in every
-compression read, ICO, headerless BMP; utils/pnm.py, native/gif.cpp,
-utils/tiff.py with native/tiff.cpp, utils/ico.py, utils/bmp.py) --
+tests/data/{pnm,gif,tiff,ico,dib,tiff_ccitt,tga,pcx,dcx,qoi}/ (Netpbm,
+GIF, TIFF in every compression read -- ThunderScan, old-style JPEG and
+CIELab among them --, ICO, headerless BMP, TGA, PCX, DCX, QOI;
+utils/pnm.py, native/gif.cpp, utils/tiff.py with native/tiff.cpp,
+utils/ojpeg.py, utils/cms.py, utils/ico.py, utils/bmp.py, utils/tga.py,
+utils/pcx.py, utils/qoi.py) --
 against Pillow's stored pixels (the 640x480 timing inputs by digest), and
 the batch loader on five sources of those kinds against the JAX loader's
 batches (prescaled, or through its fallback for CMYK, YCCK and lossless):
 0 values may differ; the host's ms of each of those decodes, and of the
 new kinds at 640x480 (``kinds_640x480``; ``formats_640x480``: a GIF, an
 LZW TIFF with predictor 2, a Deflate TIFF, a JPEG TIFF, a T.6, an LZMA
-and a Zstandard TIFF, an RLE TGA, a raw and a plain PPM); the
+and a Zstandard TIFF, an RLE TGA, a ThunderScan, an old-style JPEG and a
+CIELab TIFF, an RLE PCX, a DCX, a QOI, a raw and a plain PPM); the
 host's ms of a progressive decode and of the
 loader on 8 large 4:2:0 JPEGs, prescaled, against the full decode and
 numpy resize; a seeded 512^2 image encoded at quality 95 and decoded: the
@@ -4385,15 +4389,18 @@ TOL_JPEG95_MEAN = 4.5
 # target per n/8 (prescaled, or through its fallback): 0 values may differ.
 KIND_DIRS = {d: os.path.join(os.path.dirname(FIXTURES), d)
              for d in ("jpeg_kinds", "png", "bmp", "webp", "pnm", "gif",
-                       "tiff", "ico", "dib", "tiff_ccitt", "tga")}
+                       "tiff", "ico", "dib", "tiff_ccitt", "tga", "pcx",
+                       "dcx", "qoi")}
 KIND_SUFFIX = {"jpeg_kinds": "jpg", "png": "png", "bmp": "bmp",
                "webp": "webp", "pnm": "pnm", "gif": "gif", "tiff": "tif",
                "ico": "ico", "dib": "dib", "tiff_ccitt": "tif",
-               "tga": "tga"}
+               "tga": "tga", "pcx": "pcx", "dcx": "dcx", "qoi": "qoi"}
 N_KIND_FIXTURES = {"jpeg_kinds": 10, "png": 13, "bmp": 10, "webp": 33,
-                   "pnm": 30, "gif": 25, "tiff": 123, "ico": 10, "dib": 13,
-                   "tiff_ccitt": 24, "tga": 32}
-# The 640x480 timing inputs of the Netpbm, GIF, TIFF, ICO, DIB and TGA
+                   "pnm": 30, "gif": 25, "tiff": 154, "ico": 10, "dib": 13,
+                   "tiff_ccitt": 24, "tga": 32, "pcx": 20, "dcx": 5,
+                   "qoi": 8}
+# The 640x480 timing inputs of the Netpbm, GIF, TIFF (ThunderScan,
+# old-style JPEG and CIELab among them), ICO, DIB, TGA, PCX, DCX and QOI
 # readers (scripts/make_image_format_fixtures.py): Pillow's pixels of each
 # kept as a digest (digests.json); the PPM is written here.
 FORMAT_TIMING = {"gif": "gif/coco.gif", "tiff lzw predictor 2":
@@ -4401,7 +4408,12 @@ FORMAT_TIMING = {"gif": "gif/coco.gif", "tiff lzw predictor 2":
                  "tiff/coco_deflate.tif", "tiff jpeg": "tiff/coco_jpeg.tif",
                  "tiff g4": "tiff/coco_g4.tif", "tiff lzma":
                  "tiff/coco_lzma.tif", "tiff zstd": "tiff/coco_zstd.tif",
-                 "tga rle": "tga/coco_rle.tga"}
+                 "tga rle": "tga/coco_rle.tga",
+                 "tiff thunderscan": "tiff/coco_thunderscan.tif",
+                 "tiff ojpeg": "tiff/coco_ojpeg.tif",
+                 "tiff cielab": "tiff/coco_cielab.tif",
+                 "pcx rle": "pcx/coco.pcx", "dcx": "dcx/coco.dcx",
+                 "qoi": "qoi/coco.qoi"}
 N_KIND_BATCHES = 40
 # JPEGs cut short and damaged (tests/data/jpeg_damaged/, written by
 # scripts/make_image_format_fixtures.py): decode_image against Pillow's
@@ -4475,7 +4487,7 @@ def pixels_differing(got: np.ndarray, want) -> int:
 
 def format_timing() -> dict:
     """The host's ms (mean of CODEC_ITERS) of decode_image at 640x480: the
-    GIF and TIFF timing inputs (their digests checked in check_kinds), a
+    timing inputs of FORMAT_TIMING (their digests checked in check_kinds), a
     raw PPM and a plain (P3, decimal) PPM of a smooth image written here,
     each decoded back to it."""
     out = {}

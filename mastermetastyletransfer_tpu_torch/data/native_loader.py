@@ -2,8 +2,9 @@
 (``native/jpeg.cpp``), its WebP and GIF decoders (``native/webp.cpp``,
 ``native/gif.cpp``), the byte-serial TIFF codecs that ``utils/tiff.py``
 drives (``native/tiff.cpp``, with CCITT in ``native/fax.cpp`` and
-Zstandard in ``native/zstd.cpp``), TGA's run-length decoder
-(``native/tga.cpp``) and the batch loader that decodes and
+Zstandard in ``native/zstd.cpp``), TGA's, PCX's and QOI's decoders
+(``native/tga.cpp``, ``native/pcx.cpp``, ``native/qoi.cpp``) and the
+batch loader that decodes and
 resizes JPEGs on worker threads (``native/loader.cpp``; JAX counterpart:
 data/native_loader.py, which links libjpeg, and PIL for every other
 file).
@@ -14,7 +15,7 @@ native/build.sh, less libjpeg, which neither machine needs:
     g++ -O3 -march=native -shared -fPIC -o build/libmmst_loader-<hash>.so
         native/loader.cpp native/jpeg.cpp native/webp.cpp native/gif.cpp
         native/tiff.cpp native/fax.cpp native/zstd.cpp native/tga.cpp
-        -lpthread
+        native/pcx.cpp native/qoi.cpp native/cms.cpp -lpthread
 
 into ``build/`` at the repository root (listed in .gitignore), keyed by a
 hash of the sources and the flags; the library is written to a temporary
@@ -29,6 +30,8 @@ It runs on the host, not on the device.
   so the pixels are PIL's ``convert("RGB")``. Anything else (hierarchical,
   12-bit, truncated, corrupt, a decompression bomb) raises ``ValueError``
   naming the reason.
+* ``decode_jpeg_planes``: a JPEG's components as libjpeg's raw data
+  output gives them, for ``utils/ojpeg.py``.
 * ``decode_webp(bytes) -> uint8 (H, W, 3)``: every WebP that PIL reads
   (lossy VP8 and lossless VP8L, simple or extended, with or without
   alpha, still or animated) as PIL's ``convert("RGB")`` gives it: the
@@ -50,6 +53,14 @@ It runs on the host, not on the device.
 * ``decode_tga_rle``: a TGA's run-length packets as Pillow's
   TgaRleDecode.c reads them (``native/tga.cpp``; ``utils/tga.py`` reads
   the header and the colours).
+* ``decode_pcx_rle``: a PCX's run-length rows as Pillow's PcxDecode.c
+  reads them (``native/pcx.cpp``; ``utils/pcx.py`` reads the header, the
+  planes and the palette).
+* ``decode_qoi``: a QOI's ops as Pillow's QoiDecoder applies them
+  (``native/qoi.cpp``; ``utils/qoi.py`` reads the header).
+* ``cms_tetrahedral8``: an 8-bit colour transform's pixels through its
+  16-bit CLUT as LittleCMS evaluates them (``native/cms.cpp``;
+  ``utils/cms.py`` builds the CLUT).
 * ``decode_zstd_frame(bytes, limit) -> bytes``: one whole Zstandard frame
   (``native/zstd.cpp``), the output growing as it decodes, for the
   checkpoint readers (``utils/ocdbt.py``, ``utils/zarr.py``).
@@ -69,7 +80,8 @@ The codecs keep no state between calls, and ctypes releases the
 interpreter lock while they run: the HTTP server's threads decode at once.
 Where the library does not build (no g++), the codecs raise
 ``RuntimeError`` with the compiler's reason; nothing decodes a JPEG, a
-WebP, a GIF, a compressed TIFF or a run-length TGA by another route.
+WebP, a GIF, a compressed TIFF, a run-length TGA or PCX or a QOI by
+another route.
 """
 
 from __future__ import annotations
@@ -87,10 +99,12 @@ import numpy as np
 NATIVE = Path(__file__).resolve().parents[1] / "native"
 SOURCES = [NATIVE / "loader.cpp", NATIVE / "jpeg.cpp", NATIVE / "webp.cpp",
            NATIVE / "gif.cpp", NATIVE / "tiff.cpp", NATIVE / "fax.cpp",
-           NATIVE / "zstd.cpp", NATIVE / "tga.cpp"]
+           NATIVE / "zstd.cpp", NATIVE / "tga.cpp", NATIVE / "pcx.cpp",
+           NATIVE / "qoi.cpp", NATIVE / "cms.cpp"]
 HEADERS = [NATIVE / "jpeg.h", NATIVE / "webp.h", NATIVE / "gif.h",
            NATIVE / "tiff.h", NATIVE / "fax.h", NATIVE / "zstd.h",
-           NATIVE / "tga.h"]
+           NATIVE / "tga.h", NATIVE / "pcx.h", NATIVE / "qoi.h",
+           NATIVE / "cms.h"]
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 LIBS = ["-lpthread"]
@@ -143,6 +157,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mmst_jpeg_decode_scaled.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, _u8p, ctypes.c_int,
         ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+    lib.mmst_jpeg_decode_planes.restype = ctypes.c_int
+    lib.mmst_jpeg_decode_planes.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, _u8p,
+        ctypes.c_size_t, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_char_p, ctypes.c_int]
     lib.mmst_jpeg_encode.restype = ctypes.c_int
     lib.mmst_jpeg_encode.argtypes = [
         _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_u8p),
@@ -178,6 +198,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mmst_tga_rle.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int64,
         ctypes.c_int, ctypes.c_int, _u8p, ctypes.c_char_p, ctypes.c_int]
+    lib.mmst_pcx_rle.restype = ctypes.c_int
+    lib.mmst_pcx_rle.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int, _u8p, ctypes.c_char_p, ctypes.c_int]
+    lib.mmst_cms_tetrahedral8.restype = None
+    lib.mmst_cms_tetrahedral8.argtypes = [
+        _u8p, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint16), ctypes.c_int,
+        _u8p]
+    lib.mmst_qoi_decode.restype = ctypes.c_int
+    lib.mmst_qoi_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int64, ctypes.c_int,
+        _u8p]
 
 
 def _load_library() -> Optional[ctypes.CDLL]:
@@ -210,7 +242,9 @@ def _library() -> ctypes.CDLL:
         raise RuntimeError("the native codecs (native/jpeg.cpp, "
                            "native/webp.cpp, native/gif.cpp, "
                            "native/tiff.cpp, native/fax.cpp, "
-                           "native/zstd.cpp, native/tga.cpp) did not "
+                           "native/zstd.cpp, native/tga.cpp, "
+                           "native/pcx.cpp, native/qoi.cpp, "
+                           "native/cms.cpp) did not "
                            "build: "
                            f"{_state['error']}")
     return lib
@@ -239,6 +273,34 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                             w.value, h.value, err, _ERR_LEN):
         raise ValueError(f"JPEG: {err.value.decode(errors='replace')}")
     return out
+
+
+def decode_jpeg_planes(data: bytes, bound: int, stop: bool = False):
+    """A JPEG's components as libjpeg's raw data output gives them (each
+    component's samples at its own size, its blocks whole: a (rows,
+    stride) uint8 array each), the first scan read as libtiff's old-style
+    JPEG codec has libjpeg read its stream: a fake EOI past the data, or
+    with ``stop`` a failure there, and a failure at a restart marker other
+    than the one expected. Returns (planes, the iMCU row where the decode
+    failed or -1). ValueError where the decoder refuses the stream or the
+    planes pass ``bound`` bytes, which the caller bounds."""
+    lib = _library()
+    data = bytes(data)
+    out = np.empty(bound, np.uint8)
+    dims = (ctypes.c_int * 8)()
+    n, failed = ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if lib.mmst_jpeg_decode_planes(data, len(data), int(stop),
+                                   out.ctypes.data_as(_u8p), bound, dims,
+                                   ctypes.byref(n), ctypes.byref(failed),
+                                   err, _ERR_LEN):
+        raise ValueError(err.value.decode(errors="replace"))
+    planes, at = [], 0
+    for k in range(n.value):   # one step a component (4 at most)
+        stride, rows = dims[2 * k], dims[2 * k + 1]
+        planes.append(out[at:at + stride * rows].reshape(rows, stride))
+        at += stride * rows
+    return planes, failed.value
 
 
 def decode_webp(data: bytes) -> np.ndarray:
@@ -350,6 +412,62 @@ def decode_tga_rle(data: bytes, depth: int, linesize: int, ysize: int,
                         int(ysize), int(bottom_up), out.ctypes.data_as(_u8p),
                         err, _ERR_LEN):
         raise ValueError(err.value.decode(errors="replace"))
+    return out
+
+
+def decode_pcx_rle(data: bytes, bytes_per_row: int, xsize: int,
+                   ysize: int, bits: int) -> np.ndarray:
+    """A PCX's run-length rows (``data`` from the first packet) as Pillow's
+    PcxDecode.c reads them: (ysize, bytes_per_row) uint8, each row's planes
+    moved together where that decoder moves them for an unpacker of
+    ``bits`` a pixel. ValueError where
+    Pillow refuses (the data ends before the last row, a run passes a
+    row's end). The caller bounds ysize * bytes_per_row."""
+    lib = _library()
+    data = bytes(data)
+    out = np.zeros((ysize, bytes_per_row), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    status = lib.mmst_pcx_rle(data, len(data), int(bytes_per_row), int(xsize),
+                              int(ysize), int(bits),
+                              out.ctypes.data_as(_u8p), err, _ERR_LEN)
+    if status < 0:
+        raise ValueError(err.value.decode(errors="replace"))
+    if status == 1:
+        raise ValueError("PCX: image file is truncated")
+    if status == 2:
+        raise ValueError("PCX: a run passes a row's end (buffer overrun)")
+    return out
+
+
+def decode_qoi(data: bytes, pixels: int, bands: int) -> np.ndarray:
+    """A QOI's ops (``data`` from the first op) as Pillow's QoiDecoder
+    applies them: (pixels, bands) uint8. ValueError where the data ends
+    before the last pixel. The caller bounds pixels."""
+    lib = _library()
+    data = bytes(data)
+    out = np.zeros((pixels, bands), np.uint8)
+    if lib.mmst_qoi_decode(data, len(data), int(pixels), int(bands),
+                           out.ctypes.data_as(_u8p)):
+        raise ValueError("QOI: the data ends before the last pixel")
+    return out
+
+
+def cms_tetrahedral8(pixels: np.ndarray, clut: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 pixels through ``clut`` ((grid, grid, grid, 3)
+    uint16) as LittleCMS's 8-bit worker runs an optimised transform: each
+    byte as the word b * 257, TetrahedralInterp16, FROM_16_TO_8."""
+    lib = _library()
+    src = np.ascontiguousarray(pixels, np.uint8)
+    table = np.ascontiguousarray(clut, np.uint16)
+    if src.shape[-1] != 3 or table.ndim != 4 or table.shape[3] != 3 or len(
+            set(table.shape[:3])) != 1:
+        raise ValueError("cms_tetrahedral8: pixels of 3 bytes and a cube of "
+                         "3 words a node")
+    out = np.empty_like(src)
+    lib.mmst_cms_tetrahedral8(
+        src.ctypes.data_as(_u8p), src.size // 3,
+        table.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        table.shape[0], out.ctypes.data_as(_u8p))
     return out
 
 

@@ -14,20 +14,21 @@ step's two inputs so, by the configuration, as the JAX trainer does.
 
 No PIL (the machine with the card has none): ``decode_image`` reads
 what PIL's ``Image.open`` opens with the plugins it tries first (BMP,
-DIB, GIF, JPEG, PPM, PNG) and four of the rest (ICO, TIFF, TGA, WebP),
-trying Pillow's plugins in its order as ``Image.open`` does (the port's
-kinds by their plugins' ``_accept`` and ``_open``, the others by
-``utils/plugins.takes``), and reads each bit for bit as
+DIB, GIF, JPEG, PPM, PNG) and seven of the rest (PCX, DCX, ICO, TIFF,
+QOI, TGA, WebP), trying Pillow's plugins in its order as ``Image.open``
+does (the port's kinds by their plugins' ``_accept`` and ``_open``, the
+others by ``utils/plugins.takes``), and reads each bit for bit as
 ``convert("RGB")`` gives it (``READ_FORMATS``): BMP and DIB with
 ``utils/bmp``, PNG with ``utils/png.read_png``, Netpbm with
-``utils/pnm.read_pnm``, ICO with ``utils/ico.read_ico``, TIFF with
-``utils/tiff.read_tiff``, TGA with ``utils/tga.read_tga``, JPEG, GIF and
+``utils/pnm.read_pnm``, PCX and DCX with ``utils/pcx``, ICO with
+``utils/ico.read_ico``, TIFF with ``utils/tiff.read_tiff``, QOI with
+``utils/qoi.read_qoi``, TGA with ``utils/tga.read_tga``, JPEG, GIF and
 WebP with the port's own decoders (``native_loader.decode_jpeg`` at full
 size as PIL decodes, ``decode_gif`` and ``decode_webp`` the first frame
 on its canvas); and ``_resize_bilinear`` computes Pillow's BILINEAR
-resample bit for bit. A file none of them reads (PCX, a CIELab TIFF, a
-12-bit JPEG, ...) raises ``ValueError`` naming it and the formats that
-are read. The
+resample bit for bit. A file none of them reads (SGI, PSD, a 12-bit
+JPEG, ...) raises ``ValueError`` naming it and the formats that are
+read. The
 batch loader (``native_loader.decode_resize_batch``) takes the JAX package's
 loader's route for each JPEG: prescaled in the DCT domain as its libjpeg
 does, or, for the kinds that libjpeg does not decode to RGB (CMYK, YCCK,
@@ -66,11 +67,13 @@ from mastermetastyletransfer_tpu_torch.utils.bmp import (
 )
 from mastermetastyletransfer_tpu_torch.utils.ico import MAGIC as ICO_MAGIC
 from mastermetastyletransfer_tpu_torch.utils.ico import read_ico
-from mastermetastyletransfer_tpu_torch.utils.plugins import takes
+from mastermetastyletransfer_tpu_torch.utils.pcx import read_dcx, read_pcx
+from mastermetastyletransfer_tpu_torch.utils.plugins import ACCEPT, takes
 from mastermetastyletransfer_tpu_torch.utils.png import OpenRefusal, read_png
 from mastermetastyletransfer_tpu_torch.utils.pnm import accept as pnm_accept
 from mastermetastyletransfer_tpu_torch.utils.pnm import read_pnm
 from mastermetastyletransfer_tpu_torch.utils.tiff import accept as tiff_accept
+from mastermetastyletransfer_tpu_torch.utils.qoi import read_qoi
 from mastermetastyletransfer_tpu_torch.utils.tga import read_tga
 from mastermetastyletransfer_tpu_torch.utils.tiff import read_tiff
 
@@ -188,6 +191,8 @@ READ_FORMATS = (
     "Modified Huffman, RLE-W, T.4 and T.6, LZMA or Zstandard; strips or "
     "tiles; 1 to 32 bits; YCbCr at any subsampling)",
     "TGA (colour-mapped, grey and true colour, raw and run-length)",
+    "PCX (1-bit, 2- and 4-bit planes, 8-bit grey or palette, 24-bit RGB)",
+    "DCX (its first page)", "QOI (RGB and RGBA)",
     "WebP (lossy, lossless, alpha, animation's first frame)")
 
 # Pillow's plugins in the order its Image.open tries them (the order they
@@ -205,8 +210,11 @@ _KINDS = (
     ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff", decode_jpeg),
     ("PPM", pnm_accept, read_pnm),
     ("PNG", lambda d: d[:8] == b"\x89PNG\r\n\x1a\n", read_png),
+    ("PCX", ACCEPT["PCX"], read_pcx),
+    ("DCX", ACCEPT["DCX"], read_dcx),
     ("ICO", lambda d: d[:4] == ICO_MAGIC, read_ico),
     ("TIFF", tiff_accept, read_tiff),
+    ("QOI", ACCEPT["QOI"], read_qoi),
     ("TGA", lambda d: True, read_tga),
     ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP"
      and d[12:16] in (b"VP8 ", b"VP8X", b"VP8L"), decode_webp),

@@ -276,8 +276,16 @@ enum class End {
   // jpeg_stdio_src's (the JAX loader's) and libtiff's: past the end,
   // libjpeg warns and reads a fake EOI marker, FF D9, again and again.
   kFakeEoi,
+  // libtiff's old-style JPEG source where its strips run out before its
+  // EOI: past the end its fill_input_buffer fails the decode ("Premature
+  // end of JPEG data").
+  kStop,
 };
 constexpr size_t kPilBlock = 65536;   // ImageFile's MAXBLOCK
+
+// libtiff's old-style JPEG source failed the decode (kStop, or a restart
+// marker other than the one expected: its resync_to_restart fails).
+struct Stopped {};
 
 // PIL's data source ran dry.
 struct Suspended {};
@@ -952,6 +960,13 @@ struct Decoder {
   // jpeg_read_scanlines reads it; the markers after go unread
   bool stop_after_scan = false;
   bool scanned = false;
+  // libjpeg's raw_data_out: the components' planes are the output (no
+  // upsampling, no colour conversion); run() leaves them in comps
+  bool planes_only = false;
+  // libtiff's old-style JPEG source: a resync to a restart marker fails
+  // the decode; the iMCU row being decoded (where it failed)
+  bool resync_fatal = false;
+  int imcu_now = 0;
 
   // ---- the data source and the markers (jdmarker.c) ----
   End end = End::kSuspend;
@@ -987,6 +1002,7 @@ struct Decoder {
       return data[pos++];
     }
     if (end == End::kFakeEoi) return (pos++ - size) & 1 ? 0xD9 : 0xFF;
+    if (end == End::kStop) throw Stopped{};
     throw Suspended{};
   }
   int u16() {
@@ -999,6 +1015,7 @@ struct Decoder {
     pos += size_t(n);
     if (pos > limit) {
       if (end == End::kSuspend && pos > size) throw Suspended{};
+      if (end == End::kStop && pos > size) throw Stopped{};
       limit = std::min(size, (pos + kPilBlock - 1) / kPilBlock * kPilBlock);
     }
   }
@@ -1029,6 +1046,7 @@ struct Decoder {
     if (unread_marker == 0xD0 + want) {
       unread_marker = 0;
     } else {
+      if (resync_fatal) throw Stopped{};
       for (;;) {
         const int m = unread_marker;
         int action;
@@ -1675,6 +1693,7 @@ struct Decoder {
     int16_t temp[kMaxBlocksInMcu][64];
     int16_t* b[kMaxBlocksInMcu];
     each_mcu(scan, [&](const Unit* u, int n, int imcu) {
+      imcu_now = imcu;
       for (int i = 0; i < n; ++i) {
         if (multi_scan) {
           b[i] = coefs_of(u[i]);
@@ -2490,6 +2509,7 @@ struct Decoder {
           for (int bx = 0; bx < c.bw; ++bx) c.emit(bx, by, c.block(bx, by));
       }
     }
+    if (planes_only) return;
     uint8_t* o = out;
     if (colour == kColourRaw) {
       const size_t nc = comps.size();
@@ -2771,6 +2791,42 @@ std::vector<uint8_t> decode_tiff_chunk(const uint8_t* data, size_t size,
 }
 
 
+std::vector<std::vector<uint8_t>> decode_planes(const uint8_t* data,
+                                                size_t size, bool stop,
+                                                std::vector<int>* dims,
+                                                int* failed) {
+  Decoder d;
+  d.data = data;
+  d.size = size;
+  d.end = End::kFakeEoi;
+  d.stop_after_scan = true;
+  d.planes_only = true;
+  d.run(nullptr, 0, 0);   // the frame header: its size
+  if (d.lossless) fail("JPEG: raw data of a lossless frame");
+  Decoder e;
+  e.data = data;
+  e.size = size;
+  e.end = stop ? End::kStop : End::kFakeEoi;
+  e.resync_fatal = true;
+  e.stop_after_scan = true;
+  e.planes_only = true;
+  uint8_t none = 0;
+  *failed = -1;
+  try {
+    e.run(&none, d.width, d.height);
+  } catch (const Stopped&) {
+    *failed = e.imcu_now;
+  }
+  std::vector<std::vector<uint8_t>> planes;
+  dims->clear();
+  for (auto& c : e.comps) {
+    dims->push_back(c.stride);
+    dims->push_back(c.bh * c.size);
+    planes.push_back(std::move(c.plane));
+  }
+  return planes;
+}
+
 void decode(const uint8_t* data, size_t size, uint8_t* rgb, int width,
             int height) {
   Decoder d;
@@ -2948,6 +3004,35 @@ int mmst_jpeg_decode(const uint8_t* data, size_t size, uint8_t* rgb,
                      int width, int height, char* err, int errlen) {
   try {
     mmst_jpeg::decode(data, size, rgb, width, height);
+    return 0;
+  } catch (const std::exception& e) {
+    return mmst_jpeg_error(e, err, errlen);
+  }
+}
+
+// decode_planes into out (out_size bytes, the planes one after another;
+// too small: an error naming the size needed), their (stride, rows) in
+// dims (4 pairs at most), their number in ncomps, and in failed the iMCU
+// row where libtiff's source failed the decode (-1: none).
+int mmst_jpeg_decode_planes(const uint8_t* data, size_t size, int stop,
+                            uint8_t* out, size_t out_size, int* dims,
+                            int* ncomps, int* failed, char* err,
+                            int errlen) {
+  try {
+    std::vector<int> d;
+    const auto planes =
+        mmst_jpeg::decode_planes(data, size, stop != 0, &d, failed);
+    size_t total = 0;
+    for (const auto& p : planes) total += p.size();
+    if (planes.size() > 4 || total > out_size)
+      throw std::runtime_error("JPEG: planes of " + std::to_string(total) +
+                               " bytes");
+    *ncomps = int(planes.size());
+    for (size_t k = 0; k < d.size(); ++k) dims[k] = d[k];
+    for (const auto& p : planes) {
+      std::memcpy(out, p.data(), p.size());
+      out += p.size();
+    }
     return 0;
   } catch (const std::exception& e) {
     return mmst_jpeg_error(e, err, errlen);

@@ -61,6 +61,19 @@ std::vector<uint8_t> decode_tiff_chunk(const uint8_t* data, size_t size,
                                        uint8_t* out, int width, int height,
                                        int colour);
 
+// The components' planes as libjpeg's jpeg_read_raw_data gives them
+// (raw_data_out: each component's IDCT output at its own size, its blocks
+// whole, no upsampling and no colour conversion), the stream read as
+// libtiff's old-style JPEG codec hands it over: the first scan, a fake EOI
+// past the data, or with stop a failure there; and a restart marker other
+// than the one expected fails too. dims gets each plane's (stride, rows);
+// failed the iMCU row being decoded where it failed (-1: none), the rows
+// before it decoded.
+std::vector<std::vector<uint8_t>> decode_planes(const uint8_t* data,
+                                                size_t size, bool stop,
+                                                std::vector<int>* dims,
+                                                int* failed);
+
 // The same at n/8 of the frame's size (n in 1..8), as libjpeg-turbo 2.1
 // (the JAX loader's) gives it with scale_num = n, scale_denom = 8 and its
 // defaults: width and height are ceil(W * n / 8) and ceil(H * n / 8) of the

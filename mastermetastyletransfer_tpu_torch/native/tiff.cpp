@@ -1,6 +1,7 @@
 // The TIFF codecs that run byte by byte, with no library beyond libstdc++:
 // libtiff's LZW (tif_lzw.c) and PackBits (tif_packbits.c) decoders as
-// Pillow's libtiff runs them, its JPEG codec's (tif_jpeg.c) framing of
+// Pillow's libtiff runs them, its ThunderScan decoder (tif_thunder.c),
+// its JPEG codec's (tif_jpeg.c) framing of
 // each strip or tile around native/jpeg.cpp, and the dispatch to the
 // CCITT (native/fax.cpp) and Zstandard (native/zstd.cpp) decoders. utils/tiff.py parses the
 // file, calls decode once for all the strips or tiles of an image (ctypes
@@ -20,6 +21,8 @@
 //   * PackBits: -127..-1 repeats the next byte, 0..127 copies that many
 //     bytes plus one, -128 is skipped; a run past the room left is cut, a
 //     run past the data ends the chunk.
+//   * ThunderScan: 4-bit rows of runs, 2- and 3-bit deltas and raw
+//     values (thunder, below).
 //   * JPEG: the JPEGTables stream (SOI, tables, EOI) is read before each
 //     chunk's (SOI, frame, scans, EOI), which is how libjpeg takes an
 //     abbreviated stream after a tables-only one. The frame must be the
@@ -203,6 +206,84 @@ void packbits(int i, const uint8_t* in, size_t n, uint8_t* op, int64_t need) {
   if (occ > 0) fail(i, "PackBits: not enough data");
 }
 
+// tif_thunder.c ThunderDecodeRow on one chunk: rows of `width` 4-bit
+// pixels (the image's width, also for a tile) of (width + 1) / 2 bytes,
+// each decoded by ThunderDecode from where the row before stopped. A
+// byte's top two bits give its kind: a run of the last pixel (the low six
+// bits its count), three 2-bit deltas, two 3-bit deltas (each table's
+// skip entry, 2 and 4, gives no pixel) or a raw value. A row that ends with
+// fewer or more pixels than `width` fails the chunk (libtiff clears the
+// row's rest first).
+void thunder(int i, const uint8_t* in, size_t n, uint8_t* out, int64_t need,
+             int64_t width) {
+  static const int kDelta2[4] = {0, 1, 0, -1};
+  static const int kDelta3[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  const int64_t line = (width + 1) / 2;   // TIFFScanlineSize at 4 bits
+  if (width <= 0 || need % line)
+    fail(i, "ThunderScan: fractional scanlines cannot be read");
+  size_t bp = 0;
+  for (int64_t r = 0; r < need / line; ++r) {   // one step a row
+    uint8_t* const op0 = out + r * line;
+    uint8_t* op = op0;
+    unsigned lastpixel = 0;
+    int64_t npixels = 0;
+    auto setpixel = [&](unsigned v) {
+      lastpixel = v & 0xf;
+      if (npixels < width) {
+        if (npixels++ & 1)
+          *op++ |= uint8_t(lastpixel);
+        else
+          op[0] = uint8_t(lastpixel << 4);
+      }
+    };
+    while (bp < n && npixels < width) {
+      int c = in[bp++];
+      int delta;
+      switch (c & 0xc0) {
+        case 0x00: {   // a run of the last pixel, c times
+          if (npixels & 1) {
+            op[0] |= uint8_t(lastpixel);
+            lastpixel = *op++;
+            npixels++;
+            c--;
+          } else {
+            lastpixel |= lastpixel << 4;
+          }
+          npixels += c;
+          if (npixels <= width)
+            for (; c > 0; c -= 2) *op++ = uint8_t(lastpixel);
+          if (c == -1) *--op &= 0xf0;
+          lastpixel &= 0xf;
+          break;
+        }
+        case 0x40:   // three 2-bit deltas
+          if ((delta = (c >> 4) & 3) != 2)
+            setpixel(unsigned(int(lastpixel) + kDelta2[delta]));
+          if ((delta = (c >> 2) & 3) != 2)
+            setpixel(unsigned(int(lastpixel) + kDelta2[delta]));
+          if ((delta = c & 3) != 2)
+            setpixel(unsigned(int(lastpixel) + kDelta2[delta]));
+          break;
+        case 0x80:   // two 3-bit deltas
+          if ((delta = (c >> 3) & 7) != 4)
+            setpixel(unsigned(int(lastpixel) + kDelta3[delta]));
+          if ((delta = c & 7) != 4)
+            setpixel(unsigned(int(lastpixel) + kDelta3[delta]));
+          break;
+        default:   // a raw value
+          setpixel(unsigned(c));
+          break;
+      }
+    }
+    if (npixels != width) {
+      std::memset(op, 0, size_t(op0 + line - op));
+      fail(i, std::string("ThunderScan: ") +
+                  (npixels < width ? "not enough" : "too much") +
+                  " data at row " + std::to_string(r));
+    }
+  }
+}
+
 // tif_jpeg.c std_fill_input_buffer: past a stream's end libjpeg reads a
 // fake EOI, again and again (a marker segment that runs past the end is
 // read on into them), here enough of them for the longest segment.
@@ -315,6 +396,8 @@ void decode_one(int compression, const uint8_t* data, size_t size,
     lzw(i, in, c.count, out, c.need);
   } else if (compression == 32773) {
     packbits(i, in, c.count, out, c.need);
+  } else if (compression == 32809) {
+    thunder(i, in, c.count, out, c.need, options);
   } else if (compression == 7) {
     jpeg(i, in, c.count, colour, channels, options, c, st, out);
   } else if (compression == 2 || compression == 3 || compression == 4 ||

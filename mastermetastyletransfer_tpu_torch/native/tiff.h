@@ -49,7 +49,9 @@ constexpr int kJpegPlanar = 1 << 8;
 // starts so), 32773 (PackBits), 7 (JPEG: the JPEGTables stream, if any,
 // before each chunk's; colour 1 YCbCr turned to RGB, 2 the components as
 // stored), 2, 3, 4 and 32771 (CCITT, native/fax.cpp; options the
-// T4Options tag) or 50000 (Zstandard, native/zstd.cpp), with `st` what
+// T4Options tag), 32809 (ThunderScan; options the image's width, which
+// each row has, also in a tile) or 50000 (Zstandard, native/zstd.cpp),
+// with `st` what
 // libtiff keeps from strip to strip of the image (JPEG: its tables start
 // as `tables`, the JPEGTables stream, at the image's first call). reverse reverses
 // each byte's bits first (FillOrder 2; JPEG takes its bytes as they are).

@@ -500,10 +500,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max_batch", type=int, default=8)
     ap.add_argument("--compute_dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
-    ap.add_argument("--use_kernels", action=argparse.BooleanOptionalAction,
+    ap.add_argument("--use_pallas", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="run the Swin blocks, the style transformer and "
-                         "the decoder through the hand-written kernels")
+                         "the decoder through the hand-written kernels "
+                         "(the JAX package's name for its fused kernels; "
+                         "disable with --no-use_pallas)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights used without "
@@ -527,7 +529,7 @@ def main(argv=None):
     )
 
     cfg = ModelConfig(compute_dtype=args.compute_dtype).with_kernels(
-        args.use_kernels)
+        args.use_pallas)
     params = init_master_model(
         cfg, torch.Generator().manual_seed(args.seed), device=args.device)
     if args.checkpoint:

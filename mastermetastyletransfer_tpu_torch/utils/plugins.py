@@ -12,9 +12,11 @@ anything else ends the search: the file opens, or is refused. So
 and the port then refuses the bytes by the plugin's name.
 
 * Most plugins: their ``_accept``, one line each (``ACCEPT``); once it
-  holds, the port takes their ``_open`` to end the search.
+  holds, the port takes their ``_open`` to end the search. PCX's, DCX's
+  and QOI's serve the port's readers of them too (``data/pipeline.py``).
 * CUR, PCX and GBR, whose ``_accept`` holds for common TGA headers: also
-  the checks of their ``_open`` that pass bytes on.
+  the checks of their ``_open`` that pass bytes on (PCX's: the header and
+  its bounding box, which ``utils/pcx.py`` starts from).
 * IM, IMT, IPTC, PCD and SPIDER, which have no ``_accept``: the checks of
   their ``_open``, with the same exceptions as Pillow's (a ValueError of
   ``int()`` in IM's or IMT's header ends the search, as it does there).

@@ -23,7 +23,8 @@ gives it. Pillow's TiffImagePlugin is the specification of what is read:
   decoded by LZW and PackBits (``native/tiff.cpp``), CCITT Modified
   Huffman, RLE-W, T.4 and T.6 (``native/fax.cpp``: libtiff's state kept
   from strip to strip, its "no EOL" mode among it), Deflate (zlib, the
-  standard library's), LZMA (liblzma, the library the standard library's
+  standard library's), ThunderScan (``native/tiff.cpp``, tif_thunder.c:
+  4 bits, strips only), LZMA (liblzma, the library the standard library's
   ``lzma`` wraps, through ctypes as tif_lzma.c drives it; a dictionary
   declared far beyond the strip cut to what the strip needs), Zstandard
   (``native/zstd.cpp``, from RFC 8878, as tif_zstd.c drives libzstd) or
@@ -31,7 +32,10 @@ gives it. Pillow's TiffImagePlugin is the specification of what is read:
   libjpeg holds, JPEGTables first, then each strip's own; libtiff's
   checks of a frame's size, components and sampling; YCbCr turned to RGB
   where Pillow asks libtiff for RGB, else the components as stored; a
-  frame's first full scan read to its end only), FillOrder 2 reversed
+  frame's first full scan read to its end only) or old-style JPEG
+  (``utils/ojpeg.py``: tif_ojpeg.c's stream from the JPEGInterchangeFormat
+  and the strips, libjpeg's raw data laid out in libtiff's YCbCr blocks
+  for TIFFRGBAImage, or one sample's rows), FillOrder 2 reversed
   first; the predictor undone (2: horizontal, 3: floating point) and the
   samples swapped to the host's order as libtiff does; then Pillow's
   unpacker on each row (its native-order raw modes where Pillow names
@@ -42,13 +46,14 @@ gives it. Pillow's TiffImagePlugin is the specification of what is read:
   whole, a strip or tile whose codec fails kept as far as it got);
 * the modes to RGB as Pillow converts them (``I;16``, ``I`` and ``F``
   clamped, ``1`` to 0/255, a palette black past its entries, CMYK through
-  cmyk2rgb, alpha dropped, associated alpha divided out by the unpacker),
-  and the Orientation tag applied as ``exif_transpose`` applies it.
+  cmyk2rgb, alpha dropped, associated alpha divided out by the unpacker,
+  CIELab through LittleCMS's LAB -> sRGB transform, ``utils/cms.py``, its
+  a and b as Pillow's unpackers leave them), and the Orientation tag
+  applied as ``exif_transpose`` applies it.
 
 What Pillow or libtiff refuses raises ``ValueError``, and so does what is
-not ported yet: the compressions Pillow reads that are not named above
-(ThunderScan, old-style JPEG) and CIELab (which Pillow converts through
-LittleCMS), each named. An image above PIL's decompression-bomb limit
+not ported (old-style JPEG in tiles, planar or from its tables' tags:
+ROADMAP), named. An image above PIL's decompression-bomb limit
 (``MAX_PIXELS``) is refused before anything of its size is allocated,
 and so is one whose strips or tiles lie past the file's end, one that
 declares more strips or tiles than its byte counts give (libtiff: a
@@ -69,6 +74,8 @@ from fractions import Fraction
 
 import numpy as np
 
+from mastermetastyletransfer_tpu_torch.utils import ojpeg
+from mastermetastyletransfer_tpu_torch.utils.cms import lab_to_rgb
 from mastermetastyletransfer_tpu_torch.utils.png import MAX_PIXELS
 from mastermetastyletransfer_tpu_torch.utils.pnm import mode_to_rgb
 
@@ -82,7 +89,8 @@ COMPRESSIONS = {
     32773: "packbits", 32809: "tiff_thunderscan", 32946: "tiff_deflate",
     34676: "tiff_sgilog", 34677: "tiff_sgilog24", 34925: "lzma",
     50000: "zstd", 50001: "webp"}
-READ_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32946, 34925, 50000)
+READ_COMPRESSIONS = (1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946,
+                     34925, 50000)
 _CCITT = (2, 3, 4, 32771)
 # the codecs through libtiff's predictor module
 _PREDICTED = (5, 8, 32946, 34925, 50000)
@@ -206,6 +214,10 @@ _BAND = {("RGB", "R"): 0, ("RGB", "G"): 1, ("RGB", "B"): 2,
          ("RGBA", "A"): 3, ("CMYK", "C"): 0, ("CMYK", "M"): 1,
          ("CMYK", "Y"): 2, ("CMYK", "K"): 3, ("LAB", "L"): 0,
          ("LAB", "A"): 1, ("LAB", "B"): 2}
+# Pillow's one-band unpackers of LAB's a and b (band1I, band2I) turn the
+# file's byte to its two's complement; its LAB unpacker of whole pixels
+# copies them
+_LAB_BAND_XOR = {("LAB", 1): 128, ("LAB", 2): 128}
 _BANDS = {"1": 1, "L": 1, "P": 1, "I;16": 1, "I;16B": 1, "I": 1, "F": 1,
           "LA": 2, "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4, "LAB": 3}
 # TiffTags' single-valued tags among those read here
@@ -604,7 +616,8 @@ def _unpack(mode: str, rawmode: str, rows: np.ndarray, width: int):
     (n, width)) for one band of a planar file."""
     n = rows.shape[0]
     if (mode, rawmode) in _BAND:
-        return _BAND[mode, rawmode], rows[:, :width]
+        band = _BAND[mode, rawmode]
+        return band, rows[:, :width] ^ _LAB_BAND_XOR.get((mode, band), 0)
     if rawmode in _BIT_REVERSED:   # FillOrder 2: each byte's bits reversed
         rows = _REVERSE[rows]
         rawmode = _BIT_REVERSED[rawmode]
@@ -670,8 +683,8 @@ def _to_rgb(img: np.ndarray, mode: str, palette) -> np.ndarray:
     it out."""
     if mode in ("P", "PA"):
         return palette[img if mode == "P" else img[..., 0]]
-    if mode == "LAB":
-        raise _fail("CIELab is not read")
+    if mode == "LAB":   # LittleCMS's LAB -> sRGB, as Pillow runs it
+        return lab_to_rgb(img[..., :3])
     if mode == "LA":
         return mode_to_rgb(img[..., :1], "L")
     if mode in ("RGB", "RGBA", "CMYK"):
@@ -691,6 +704,10 @@ def _transpose(rgb: np.ndarray, orientation) -> np.ndarray:
 
 
 def _new_image(mode: str, h: int, w: int) -> np.ndarray:
+    if mode == "LAB":   # a new LAB image reads as L 0, a and b 128
+        img = np.zeros((h, w, 4), np.uint8)
+        img[..., 1:3] = 128
+        return img
     if _BANDS[mode] > 1:
         return np.zeros((h, w, 4), np.uint8)
     dt = {"I;16": np.uint16, "I;16B": np.uint16, "I": np.int32,
@@ -804,6 +821,13 @@ class _Layout:
         if code != s.code:
             raise _fail("libtiff: another compression than Pillow's")
         self.photo = lt.soft(262)
+        if code == 6:   # TIFFReadDirectory's old-style JPEG fix-ups
+            if self.photo is None or self.photo == 2:
+                self.photo = 6
+            if 277 not in lt.entries and self.photo == 6:
+                spp = 3
+            if 258 not in lt.entries:
+                bits = 8
         if self.photo == 3:   # a palette needs its colour map, read whole
             cmap = lt.ints(320) if 258 in lt.entries else None
             if (cmap is None or len(cmap) != 3 << bits) and bits < 8:
@@ -846,24 +870,36 @@ class _Layout:
                     _STRILE_MAX_RESIZE:
                 raise _fail(f"libtiff: incorrect count for tag {tag} "
                             f"({lt.entries[tag][1]} for {n} strips or tiles)")
+        # old-style JPEG's strips are read by its own codec: libtiff leaves
+        # their byte counts as they are (0 where absent: to the file's end)
         if count_tag not in lt.entries:
-            if not ((planar == 1 and n == 1) or
-                    (planar == 2 and n == planes)):
+            if code != 6 and not ((planar == 1 and n == 1) or
+                                  (planar == 2 and n == planes)):
                 raise _fail("libtiff: no StripByteCounts")
-        elif n > 1 and lt.entries[count_tag][1] < self.nx * self.ny * (
-                _BANDS[s.mode] if planar == 2 and _BANDS[s.mode] > 1 and
-                self.photo != 6 else 1):
+        elif code != 6 and n > 1 and lt.entries[count_tag][1] < (
+                self.nx * self.ny * (_BANDS[s.mode] if planar == 2
+                                     and _BANDS[s.mode] > 1
+                                     and self.photo != 6 else 1)):
             # the strips or tiles past the tag's count have 0 bytes, which
             # libtiff cannot read (TIFFFillStrip/Tile), where the decode
             # reads them (the planes of the mode's bands; TIFFRGBAImage
             # goes on past a later plane's): refused before n of anything
             raise _fail("a strip or tile of 0 bytes")
         offsets = lt.striles(offset_tag, n)
+        # old-style JPEG of one strip may have no offsets (its data may all
+        # be in the JPEGInterchangeFormat); its codec cannot read a strip
+        # whose offset or byte count has no array
+        self.unreadable = offsets is None or (
+            code == 6 and count_tag not in lt.entries)
+        if offsets is None and code == 6 and not self.tiled and n == 1:
+            offsets = np.zeros(1, np.uint64)
         if offsets is None:
             raise _fail("libtiff: no strip or tile offsets")
         counts = lt.striles(count_tag, n)
-        if counts is None or (n == 1 and not self.tiled and counts[0] == 0
-                              and offsets[0] != 0):
+        if code == 6:
+            counts = np.zeros(n, np.uint64) if counts is None else counts
+        elif counts is None or (n == 1 and not self.tiled and counts[0] == 0
+                                and offsets[0] != 0):
             counts = self._estimate(lt, offsets, n, planes, planar)
         self.offsets, self.counts = offsets, counts
 
@@ -935,13 +971,17 @@ def _libtiff_decode(data: bytes, s: _Setup) -> np.ndarray:
     lay = _Layout(data, s)
     w, h = s.xsize, s.ysize
     ycbcr = lay.photo == 6
+    if s.code == 6:
+        return _ojpeg_decode(data, s, lay)
     jpeg = s.code == 7
     if ycbcr and not (jpeg and lay.planar == 1):
         return _rgba_decode(data, s, lay)
     if s.code in _CCITT and lay.bits != 1:   # Fax3SetupState
         raise _fail("CCITT: bits per sample must be 1")
-    if s.mode == "LAB":
-        raise _fail("CIELab is not read")
+    if s.code == 32809 and lay.bits != 4:   # ThunderSetupDecode
+        raise _fail("ThunderScan: bits per sample must be 4")
+    if s.code == 32809 and lay.tiled:   # libtiff has no tile decoder
+        raise _fail("ThunderScan tile decoding is not implemented")
     rawmode = s.rawmode
     planar = lay.planar == 2 and _BANDS[s.mode] > 1
     planes = _BANDS[s.mode] if planar else 1
@@ -1040,7 +1080,8 @@ def _decode_batch(data, s, lay, table, batch, planar, planes, unpackers,
         native_loader.decode_tiff(
             s.code, data, part, lay.fillorder == 2, lay.tables, colour,
             channels, out, carry=carry, state=state,
-            options=lay.jpeg_options if s.code == 7 else lay.t4options)
+            options=(lay.jpeg_options if s.code == 7 else w if s.code == 32809
+                     else lay.t4options))
         if carry:
             last = out[out.size - int(part["need"][-1]):]
             carried.resize(last.size, refcheck=False)
@@ -1130,7 +1171,24 @@ def _ycbcr_tables(lt: _LibtiffDir):
     return tabs
 
 
-def _rgba_decode(data: bytes, s: _Setup, lay: _Layout) -> np.ndarray:
+def _ojpeg_decode(data: bytes, s: _Setup, lay: _Layout) -> np.ndarray:
+    """Compression 6 (``utils/ojpeg.py``): YCbCr through TIFFRGBAImage
+    from libtiff's subsampled blocks, one sample as its rows."""
+    ycbcr = lay.photo == 6
+    if ycbcr and lay.spp == 3:
+        st = ojpeg.Stream(data, lay, s.xsize, s.ysize, 3, True)
+        return _rgba_decode(data, s, lay, st)
+    if lay.spp != 1 or ycbcr or lay.bits != 8:
+        raise _fail(f"old-style JPEG of {lay.spp} samples, photometric "
+                    f"{lay.photo}")
+    if (s.mode, s.rawmode) != ("L", "L"):
+        raise _fail(f"unknown raw mode {s.rawmode!r} for {s.mode}")
+    st = ojpeg.Stream(data, lay, s.xsize, s.ysize, 1, False)
+    return ojpeg.grey_rows(st).copy()
+
+
+def _rgba_decode(data: bytes, s: _Setup, lay: _Layout,
+                 ojpeg_stream=None) -> np.ndarray:
     """Pillow's _decodeAsRGBA (libtiff's TIFFRGBAImage, started with
     stoponerr 0): a YCbCr file not JPEG-compressed, read in Pillow's blocks
     (a strip, or a row of tiles): a strip or tile whose codec fails keeps
@@ -1149,24 +1207,31 @@ def _rgba_decode(data: bytes, s: _Setup, lay: _Layout) -> np.ndarray:
     w, h = s.xsize, s.ysize
     sub = lt.ints(530)   # libtiff's default where it cannot read a pair
     hs, vs = sub if sub and len(sub) == 2 else (2, 2)
+    blocks = None
+    if ojpeg_stream is not None:   # the codec's subsampling, its blocks
+        hs, vs = ojpeg_stream.hs, ojpeg_stream.vs
+        blocks = ojpeg.ycbcr_blocks(ojpeg_stream)
     if lay.bits != 8 or lay.spp != 3:
         raise _fail("TIFFRGBAImage: YCbCr other than 8-bit, 3 samples")
     if _UNPACKERS.get((s.mode, s.rawmode), 64) > 32:
         raise _fail(f"unknown raw mode {s.rawmode!r} for {s.mode} on RGBA")
     if lay.sample_format == 3:
         raise _fail("TIFFRGBAImage: floating point samples")
-    if s.code == 6:
-        raise _fail("compression 6 (tiff_jpeg, old-style JPEG) is not read")
     if s.code in _CCITT:   # Fax3SetupState, before the first strip's buffer
         raise _fail("CCITT: bits per sample must be 1")
+    if s.code == 32809:    # ThunderSetupDecode, as well
+        raise _fail("ThunderScan: bits per sample must be 4")
     if lay.planar == 2 and (hs, vs) != (1, 1) or (hs, vs) not in _YCC_CONTIG:
         raise _fail(f"TIFFRGBAImage: YCbCr subsampling {hs}x{vs} of "
                     f"planar configuration {lay.planar}")
     if lay.predictor == 3:
         raise _fail("floating point predictor of these samples")
     rps = lay.rows_per
-    if lay.tiled and rps > (2 ** 31 - 1) // (4 * w) or not lay.tiled and (
-            lay.rps != 2 ** 32 - 1 and lay.rps >= 2 ** 31):
+    # _decodeAsRGBA's blocks: a tile's rows, or RowsPerStrip (the image's
+    # height where it is 2^32 - 1), held to INT_MAX bytes of RGBA
+    block_rows = (rps if lay.tiled else h if lay.rps == 2 ** 32 - 1
+                  else lay.rps)
+    if block_rows > (2 ** 31 - 1) // (4 * w):
         raise _fail("rows per block overflow the RGBA buffer")
     planes = 3 if lay.planar == 2 else 1
     seg_w = lay.seg_w
@@ -1184,16 +1249,17 @@ def _rgba_decode(data: bytes, s: _Setup, lay: _Layout) -> np.ndarray:
     rgba[..., 3] = 255
     with native_loader.TiffState() as state:   # libtiff's, strip to strip
         _rgba_blocks(data, s, lay, rgba, tabs, hs, vs, planes, block,
-                     blocks_h, scan, pred_row, pred_stride, state)
+                     blocks_h, scan, pred_row, pred_stride, state, blocks)
     img = _new_image(s.mode, h, w)   # Pillow's unpacker on the RGBA rows
     _put(img, 0, 0, _unpack(s.mode, s.rawmode, rgba.reshape(h, 4 * w), w))
     return img
 
 
 def _rgba_blocks(data, s, lay, rgba, tabs, hs, vs, planes, block, blocks_h,
-                 scan, pred_row, pred_stride, state) -> None:
+                 scan, pred_row, pred_stride, state, decoded=None) -> None:
     """_rgba_decode's blocks (a strip, or a row of tiles, each) into
-    rgba."""
+    rgba; ``decoded``, where given, the strips' subsampled blocks already
+    decoded (old-style JPEG), one row of blocks a row."""
     w, h = s.xsize, s.ysize
     rps, seg_w = lay.rows_per, lay.seg_w
     nx = lay.nx if lay.tiled else 1
@@ -1213,10 +1279,16 @@ def _rgba_blocks(data, s, lay, rgba, tabs, hs, vs, planes, block, blocks_h,
                 count = int(lay.counts[index])
                 if count > 1 << 20 and (count - 4096) // 10 > full:
                     count = full * 10 + 4096   # TIFFFillStrip's limit
-                if count == 0 or offset + count > len(data):
+                if decoded is None and (count == 0 or
+                                        offset + count > len(data)):
                     if xi == 0 and p == 0:   # before the block's buffer
                         raise _fail(f"read error on strip or tile {index}")
                 buf[p, :need] = 0   # TIFFReadEncodedTile clears a failed one
+                if decoded is not None:   # each strip from an iMCU row
+                    first = top // vs
+                    got = decoded[first:first + need // (blocks_h * block)]
+                    buf[p, :got.size] = got.reshape(-1)
+                    continue
                 if count == 0 or offset + count > len(data):
                     continue
                 ok = _decode_into(data, s.code, lay, offset, count, need,
@@ -1492,7 +1564,8 @@ def _put_plane(img, y0, x0, mode, rawmode, rows, width, planar, band,
     band (libtiff's route: the RGBA band unpackers), or every band."""
     if planar:
         v = rows[:, 1:2 * width:2] if bits == 16 else rows[:, :width]
-        img[y0:y0 + v.shape[0], x0:x0 + width, band] = v
+        img[y0:y0 + v.shape[0], x0:x0 + width, band] = v ^ _LAB_BAND_XOR.get(
+            (mode, band), 0)
         return
     _put(img, y0, x0, _unpack(mode, rawmode, rows, width))
 

@@ -12,7 +12,8 @@ PIL opens as a format the port does not read are counted apart.
 Kinds: pnm, gif, ico, dib, tiff (CCITT, LZMA, Zstandard and YCbCr tiles
 among them), tga (random bytes, TGA files and ICO headers, their header
 fields mutated), jpeg (a damaged JPEG's scan data; restart markers in
-0.3 of the files), png. ``--damage`` is
+0.3 of the files), png, pcx (PCX and DCX), qoi, thunderscan
+(ThunderScan and CIELab TIFF), ojpeg (old-style JPEG TIFF). ``--damage`` is
 the share of damaged files (flips in 0.7 of them, cuts in the rest);
 ``--keep`` writes each differing file there. Prints one JSON line: the
 counts by (PIL decodes, the port decodes) and the differences; a
@@ -52,7 +53,7 @@ import scripts.make_image_format_fixtures as fx  # noqa: E402
 import scripts.make_jpeg_fixtures as mjf  # noqa: E402
 
 PORT_FORMATS = {"BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "ICO", "TIFF",
-                "TGA", "WEBP", "MPO"}
+                "TGA", "WEBP", "MPO", "PCX", "DCX", "QOI"}
 
 
 def pil(data: bytes):
@@ -350,9 +351,116 @@ def gen_png(rng) -> bytes:
     return saved(im, "PNG")
 
 
+def gen_pcx(rng) -> bytes:
+    """A PCX (PIL's save, or the byte-level writer's with the version,
+    bits, planes, header stride and bounding box drawn, a body of random
+    packets at times), or a DCX of one or two of them."""
+    h, w = int(rng.integers(1, 24)), int(rng.integers(1, 40))
+    if rng.random() < 0.3:
+        mode = ["1", "L", "P", "RGB"][int(rng.integers(0, 4))]
+        data = saved(fx._pil_image(fx.smooth(rng, h, w), mode), "PCX")
+    else:
+        bits, planes = [(1, 1), (1, 2), (1, 4), (8, 1), (8, 3), (2, 1),
+                        (8, 4), (4, 1)][int(rng.integers(0, 8))]
+        stride = (w * bits + 7) // 8 + int(rng.integers(0, 3))
+        rows = rng.integers(0, 256, (h, planes * stride), dtype=np.uint8)
+        rows[:, ::3] = rows[:, :1]   # runs
+        body = None
+        if rng.random() < 0.2:
+            body = bytes(rng.integers(0, 256, int(rng.integers(0, 400)),
+                                      dtype=np.uint8))
+        data = fx.pcx_file(
+            rows, w, version=int(rng.choice([0, 2, 3, 5, 5, 5])), bits=bits,
+            planes=planes, stride=int(rng.choice([stride, stride - 1,
+                                                  stride + 1, 0])),
+            origin=(int(rng.integers(0, 4)), int(rng.integers(0, 4))),
+            palette256=(rng.integers(0, 256, 768) if rng.random() < 0.4
+                        else None), body=body,
+            zero_runs=bool(rng.random() < 0.2))
+    if rng.random() < 0.25:
+        pages = [data] + ([gen_pcx(rng)] if rng.random() < 0.5 else [])
+        data = fx.dcx_file(pages)
+    return data
+
+
+def gen_qoi(rng) -> bytes:
+    """A QOI: PIL's save in RGB or RGBA, or random ops (every kind) under
+    a header of any channels byte."""
+    h, w = int(rng.integers(1, 20)), int(rng.integers(1, 30))
+    if rng.random() < 0.4:
+        img = fx.smooth(rng, h, w, 4 if rng.random() < 0.5 else 3)
+        img[h // 2:, : w // 2] = img[0, 0]
+        return saved(Image.fromarray(img.astype(np.uint8)), "QOI")
+    ops = bytearray()
+    while len(ops) < h * w * 2:
+        k = int(rng.integers(0, 6))
+        if k == 0:
+            ops += bytes([0xFE]) + bytes(rng.integers(0, 256, 3,
+                                                       dtype=np.uint8))
+        elif k == 1:
+            ops += bytes([0xFF]) + bytes(rng.integers(0, 256, 4,
+                                                       dtype=np.uint8))
+        elif k == 2:
+            ops.append(int(rng.integers(0, 64)))
+        elif k == 3:
+            ops.append(0x40 | int(rng.integers(0, 64)))
+        elif k == 4:
+            ops += bytes([0x80 | int(rng.integers(0, 64)),
+                          int(rng.integers(0, 256))])
+        else:
+            ops.append(0xC0 | int(rng.integers(0, 62)))
+    return fx.qoi_file(w, h, bytes(ops), int(rng.choice([3, 4, 3, 7])),
+                       end=bool(rng.random() < 0.7))
+
+
+def gen_thunderscan(rng) -> bytes:
+    """A ThunderScan TIFF of drawn values in strips (FillOrder 2 at
+    times), or one of random codes, or a CIELab TIFF."""
+    h, w = int(rng.integers(1, 12)), int(rng.integers(1, 24))
+    if rng.random() < 0.2:
+        return fx.tiff_file(fx.smooth(rng, h, w).astype(np.int64),
+                            photometric=8, compression=int(rng.choice(
+                                [1, 5, 8, 32773])),
+                            planar=int(rng.choice([1, 2])))
+    rps = int(rng.integers(1, h + 1))
+    kw = {"photometric": int(rng.choice([0, 1]))}
+    if rng.random() < 0.2:
+        kw["fill_order"] = 2
+    if rng.random() < 0.5:
+        v = np.cumsum(rng.integers(-2, 3, (h, w)), 1) % 16
+        return fx.thunder_tiff(v, rows_per_strip=rps, **kw)
+    strips = [bytes(rng.integers(0, 256, int(rng.integers(1, 3 * w * rps)),
+                                 dtype=np.uint8)) for _ in range(h)]
+    return fx.tiff_file(np.zeros((h, w, 1), np.int64), bps=4,
+                        rows_per_strip=rps, tags={259: (3, [32809])},
+                        chunk_hook=lambda i, b: strips[i], **kw)
+
+
+def gen_ojpeg(rng) -> bytes:
+    """An old-style JPEG TIFF (the byte-level writer's ``ojpeg_file``) of
+    a drawn size, layout, sampling, restart interval and strip height."""
+    h, w = int(rng.integers(1, 60)), int(rng.integers(1, 60))
+    grey = rng.random() < 0.2
+    img = fx.smooth(rng, h, w)
+    sub = int(rng.integers(0, 3))
+    vs = 2 if sub == 2 and not grey else 1
+    rps = int(rng.choice([8 * vs, 16 * vs, h])) if rng.random() < 0.7 \
+        else int(rng.integers(1, h + 1))
+    kw = {"subsampling": sub, "quality": int(rng.integers(30, 96))}
+    if rps < h or rng.random() < 0.3:
+        kw["restart_marker_rows"] = int(rng.choice([1, 1, 2]))
+    layout = str(rng.choice(["whole", "split", "whole_split"]))
+    return fx.ojpeg_file(img[..., 1] if grey else img,
+                         photometric=1 if grey else int(rng.choice([6, 6, 2])),
+                         rows_per_strip=rps, layout=layout, jpeg_kw=kw,
+                         jif_extra=int(rng.choice([0, 0, 0, 50, -5])))
+
+
 GENERATORS = {"pnm": gen_pnm, "gif": gen_gif, "ico": gen_ico,
               "dib": gen_dib, "tiff": gen_tiff, "tga": gen_tga,
-              "jpeg": gen_jpeg, "png": gen_png}
+              "jpeg": gen_jpeg, "png": gen_png, "pcx": gen_pcx,
+              "qoi": gen_qoi, "thunderscan": gen_thunderscan,
+              "ojpeg": gen_ojpeg}
 
 
 def pil_elsewhere(data: bytes):

@@ -1,5 +1,6 @@
-"""Write the Netpbm, GIF, TIFF, ICO and DIB fixtures under tests/data/{pnm,
-gif,tiff,ico,dib}/ and PIL's ``convert("RGB")`` pixels beside them
+"""Write the Netpbm, GIF, TIFF, ICO, DIB, TGA, PCX, DCX and QOI fixtures
+under tests/data/{pnm,gif,tiff,tiff_ccitt,ico,dib,tga,pcx,dcx,qoi}/ and
+PIL's ``convert("RGB")`` pixels beside them
 (pixels.npz in each, compressed, by file name without its extension),
 from a fixed seed.
 
@@ -30,6 +31,12 @@ PFM in both byte orders; ICO entries at 1, 4, 8, 24 and 32 bits up to
 JPEG TIFF) are chip_smoke.py's timing inputs, their pixels kept as
 digests (``digests.json``); chip_smoke.py writes its 640x480 PPM itself.
 
+Since then also (``KINDS_SEED``): ThunderScan, CIELab and old-style
+JPEG TIFFs under tests/data/tiff/, and PCX, DCX and QOI files under
+tests/data/{pcx,dcx,qoi}/ (PIL's save and byte-level writers: every
+PCX layout Pillow opens, DCX page tables, QOI ops written byte by byte),
+with 640x480 timing inputs of each (``coco_kinds_fixtures``).
+
 tests/data/jpeg_damaged/ holds JPEGs cut short and damaged
 (``jpeg_damaged_fixtures``) with two references' digests beside them
 (``write_jpeg_damaged``): PIL's pixels, and the JAX package's batch
@@ -58,7 +65,8 @@ from scripts.make_image_fixtures import (  # noqa: E402
     _palette, bmp_file, bmp_rows, rle4, rle8,
 )
 
-KINDS = ("pnm", "gif", "tiff", "ico", "dib", "tga", "tiff_ccitt")
+KINDS = ("pnm", "gif", "tiff", "ico", "dib", "tga", "tiff_ccitt", "pcx",
+         "dcx", "qoi")
 # chip_smoke.py's 640 x 480 timing inputs (tests/data/<kind>/coco_*)
 COCO = ("gif/coco.gif", "tiff/coco_lzw_pred2.tif", "tiff/coco_deflate.tif",
         "tiff/coco_jpeg.tif")
@@ -872,7 +880,7 @@ def fax_pattern(rng, h: int, w: int) -> np.ndarray:
 
 def thunderscan_tiff(rng) -> bytes:
     """A 4-bit grey TIFF in ThunderScan compression (32809): every pixel a
-    raw code (0xC0 | value). PIL reads it; the port does not yet."""
+    raw code (0xC0 | value)."""
     g = rng.integers(0, 16, (6, 9, 1))
     codes = bytes(0xC0 | int(v) for v in g.reshape(-1))
     return tiff_file(g, bps=4, photometric=1, tags={259: (3, [32809])},
@@ -881,7 +889,7 @@ def thunderscan_tiff(rng) -> bytes:
 
 def ojpeg_tiff(rng) -> bytes:
     """An old-style JPEG TIFF (compression 6) whose JPEGInterchangeFormat
-    holds a whole JFIF. PIL reads it; the port does not yet."""
+    holds a whole JFIF, the strip's own bytes."""
     s = rng.integers(0, 256, (8, 8, 3))
     jpg = _jpeg(s, 90)
     plain = tiff_file(s, photometric=6, tags={259: (3, [6])},
@@ -1481,8 +1489,428 @@ def write_jpeg_damaged(out_dir: str) -> None:
           f"{out_dir}")
 
 
+# ---------------------------------------------------------------------------
+# ThunderScan and CIELab TIFF, PCX, DCX and QOI
+# ---------------------------------------------------------------------------
+
+KINDS_SEED = 31
+
+
+def thunder_row(values, *, kinds=("run", "d2", "d3", "raw")) -> bytes:
+    """One row of 4-bit values in ThunderScan codes (tif_thunder.c): runs
+    of the last pixel (a count of 1 to 63), three 2-bit deltas (-1, 0, 1;
+    the skip code where fewer are left), two 3-bit deltas (-3 to 3) or a
+    raw value, the first that fits among ``kinds`` taken."""
+    out, last, i, n = bytearray(), 0, 0, len(values)
+    while i < n:
+        v = int(values[i])
+        run = 0
+        while i + run < n and int(values[i + run]) == last and run < 63:
+            run += 1
+        if "run" in kinds and run >= 2:
+            out.append(run)
+            i += run
+            continue
+        d2 = {0: 0, 1: 1, -1: 3}
+        prev, codes = last, []
+        for k in range(3):
+            if i + k >= n or int(values[i + k]) - prev not in d2:
+                break
+            codes.append(d2[int(values[i + k]) - prev])
+            prev = int(values[i + k])
+        if "d2" in kinds and len(codes) >= 2:
+            codes += [2] * (3 - len(codes))   # the skip code
+            out.append(0x40 | codes[0] << 4 | codes[1] << 2 | codes[2])
+            i += sum(c != 2 for c in codes)
+            last = prev
+            continue
+        d3 = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+        codes, prev = [], last
+        for k in range(2):
+            if i + k >= n or int(values[i + k]) - prev not in d3:
+                break
+            codes.append(d3[int(values[i + k]) - prev])
+            prev = int(values[i + k])
+        if "d3" in kinds and codes:
+            codes += [4] * (2 - len(codes))   # the skip code
+            out.append(0x80 | codes[0] << 3 | codes[1])
+            i += sum(c != 4 for c in codes)
+            last = prev
+            continue
+        out.append(0xC0 | v)
+        last = v
+        i += 1
+    return bytes(out)
+
+
+def thunder_tiff(values: np.ndarray, *, rows_per_strip=None, tail=b"",
+                 kinds=("run", "d2", "d3", "raw"), **kw) -> bytes:
+    """A 4-bit TIFF of (h, w) values in ThunderScan compression (32809),
+    each strip its rows' codes and then ``tail`` (bit-reversed for
+    ``fill_order`` 2)."""
+    h, w = values.shape
+    rps = rows_per_strip or h
+    strips = [b"".join(thunder_row(r, kinds=kinds)
+                       for r in values[y:y + rps]) + tail
+              for y in range(0, h, rps)]
+    if kw.get("fill_order") == 2:
+        strips = [b.translate(_REVERSED) for b in strips]
+    return tiff_file(values[..., None].astype(np.int64), bps=4,
+                     rows_per_strip=rps, tags={259: (3, [32809])},
+                     chunk_hook=lambda i, b: strips[i], **kw)
+
+
+def thunder_fixtures(rng) -> dict:
+    """ThunderScan TIFFs: every code kind (runs up to 63, 2- and 3-bit
+    deltas with their skip codes, raw values), odd widths, several strips
+    of several rows, a run ending a row, bytes after a strip's last row,
+    min-is-white, a 4-bit palette, FillOrder 2."""
+    out = {"thunderscan_raw": thunderscan_tiff(rng)}
+    v = (smooth(rng, 13, 21)[..., 0] // 16).astype(np.int64)
+    v[2, :] = 9                     # a run that ends its row
+    v[5, 3:17] = 4
+    out["thunderscan_codes"] = thunder_tiff(v, photometric=1)
+    out["thunderscan_strips_odd"] = thunder_tiff(
+        v[:, :17], rows_per_strip=4, photometric=1)
+    out["thunderscan_deltas_only"] = thunder_tiff(
+        np.cumsum(rng.integers(-1, 2, (9, 15)), 1) % 16, photometric=1,
+        kinds=("d2", "d3", "raw"))
+    out["thunderscan_d3_raw"] = thunder_tiff(
+        rng.integers(0, 16, (7, 11)), photometric=0, kinds=("d3", "raw"))
+    out["thunderscan_long_runs"] = thunder_tiff(
+        np.repeat(rng.integers(0, 16, (6, 1)), 150, 1), photometric=1)
+    out["thunderscan_tail_bytes"] = thunder_tiff(
+        v[:6, :9], rows_per_strip=3, photometric=1, tail=b"\xc5\x07\x41")
+    cmap = rng.integers(0, 65536, (3, 16))
+    out["thunderscan_palette"] = thunder_tiff(
+        v[:, :19], photometric=3, colormap=cmap, rows_per_strip=5)
+    out["thunderscan_fill_order2"] = thunder_tiff(
+        v[:8, :7], photometric=1, fill_order=2)
+    return out
+
+
+def jpeg_scan_parts(jpg: bytes):
+    """A baseline JPEG's header through its SOS, and its scan's entropy-
+    coded segments (split at its RSTn markers, which are dropped)."""
+    i = 2
+    while True:
+        m = jpg[i + 1]
+        i += 2 + struct.unpack(">H", jpg[i + 2:i + 4])[0]
+        if m == 0xDA:
+            break
+    head, segs, start, j = jpg[:i], [], i, i
+    while j < len(jpg) - 1:   # one step a byte of the scan
+        if jpg[j] == 0xFF and 0xD0 <= jpg[j + 1] <= 0xD9:
+            segs.append(jpg[start:j])
+            if jpg[j + 1] == 0xD9:
+                break
+            start = j = j + 2
+            continue
+        j += 1
+    return head, segs
+
+
+def ojpeg_file(img: np.ndarray, *, photometric: int = 6, rows_per_strip=None,
+               layout: str = "whole", jpeg_kw=None, tags=None,
+               jif_extra: int = 0) -> bytes:
+    """An old-style JPEG TIFF (compression 6) of (h, w, 3) or (h, w)
+    samples, PIL's JPEG of them in its JPEGInterchangeFormat (tags 513 and
+    514, the JPEG placed after the directory), its strips by ``layout``:
+    "whole" each strip the whole JPEG again, "split" the interchange
+    format the JPEG's header through SOS and each strip one of its
+    restart intervals' data (markers dropped: libtiff writes its own),
+    "whole_split" the whole JPEG and the intervals. ``jif_extra`` is
+    added to the length tag."""
+    from PIL import Image
+
+    h, w = img.shape[:2]
+    buf = io.BytesIO()
+    Image.fromarray(img.astype(np.uint8)).save(buf, "JPEG", **(jpeg_kw or {}))
+    jpg = buf.getvalue()
+    head, segs = jpeg_scan_parts(jpg)
+    jif, strips = {"whole": (jpg, [jpg] * -(-h // (rows_per_strip or h))),
+                   "split": (head, segs),
+                   "whole_split": (jpg, segs)}[layout]
+    samples = np.zeros((h, w, 3 if img.ndim == 3 else 1), np.int64)
+
+    def build(at):
+        t = {259: (3, [6]), 513: (4, [at]),
+             514: (4, [len(jif) + jif_extra])}
+        t.update(tags or {})
+        return tiff_file(samples, photometric=photometric,
+                         rows_per_strip=rows_per_strip, tags=t,
+                         chunk_hook=lambda i, b: strips[i] if i < len(
+                             strips) else b"\0")
+    return build(len(build(0))) + jif
+
+
+def ojpeg_fixtures(rng) -> dict:
+    """Old-style JPEG TIFFs with a JPEGInterchangeFormat: the whole JPEG
+    in it and in the strip; its header in it and each strip a restart
+    interval's data (libtiff's own RSTn between them), at 4:2:0, 4:2:2 and
+    4:4:4; the whole JPEG and the intervals; grey in strips; photometric
+    RGB (taken for YCbCr); a YCbCrSubsampling tag the JPEG overrides; a
+    length past the file's end; and strips of two intervals each with one
+    given, whose second strip libjpeg fails on (its restart marker)."""
+    img = smooth(rng, 45, 37)
+    rst = {"restart_marker_rows": 1}
+    out = {"ojpeg_whole": ojpeg_file(img),
+           "ojpeg_split_420": ojpeg_file(img, rows_per_strip=16,
+                                         layout="split", jpeg_kw=rst),
+           "ojpeg_split_422": ojpeg_file(
+               img, rows_per_strip=8, layout="split",
+               jpeg_kw={**rst, "subsampling": 1}),
+           "ojpeg_split_444": ojpeg_file(
+               img, rows_per_strip=8, layout="split",
+               jpeg_kw={**rst, "subsampling": 0}),
+           "ojpeg_whole_split": ojpeg_file(img, rows_per_strip=16,
+                                           layout="whole_split", jpeg_kw=rst),
+           "ojpeg_grey_split": ojpeg_file(img[..., 1], photometric=1,
+                                          rows_per_strip=8, layout="split",
+                                          jpeg_kw=rst),
+           "ojpeg_photometric_rgb": ojpeg_file(img[:21, :30],
+                                               photometric=2),
+           "ojpeg_subsampling_tag_21": ojpeg_file(
+               img, tags={530: (3, [2, 1])}),
+           "ojpeg_length_past_end": ojpeg_file(img[:9, :13], jif_extra=999),
+           "ojpeg_strip_fails": ojpeg_file(img, rows_per_strip=32,
+                                           layout="split", jpeg_kw=rst),
+           "ojpeg_fixture": ojpeg_tiff(rng)}
+    return out
+
+
+def cielab_fixtures(rng) -> dict:
+    """CIELab TIFFs (photometric 8, 8-bit L, a, b): chunky and planar,
+    raw, LZW, PackBits and Deflate, strips and tiles, an orientation,
+    and a ramp over a and b at three lightnesses."""
+    img = smooth(rng, 23, 29).astype(np.int64)
+    out = {"cielab_raw": tiff_file(img, photometric=8),
+           "cielab_planar_raw": tiff_file(img, photometric=8, planar=2),
+           "cielab_lzw_strips": tiff_file(img, photometric=8, compression=5,
+                                          rows_per_strip=5),
+           "cielab_packbits": tiff_file(img, photometric=8,
+                                        compression=32773),
+           "cielab_planar_deflate": tiff_file(img, photometric=8,
+                                              compression=8, planar=2,
+                                              rows_per_strip=7),
+           "cielab_tiles_lzw": tiff_file(img, photometric=8, compression=5,
+                                         tile=(16, 16)),
+           "cielab_orientation_6": tiff_file(img, photometric=8,
+                                             orientation=6)}
+    a, b = np.meshgrid(np.arange(0, 256, 8), np.arange(0, 256, 8),
+                       indexing="ij")
+    ramp = np.concatenate([np.dstack([np.full_like(a, v), a, b])
+                           for v in (0, 128, 255)], 1)
+    out["cielab_ab_ramp"] = tiff_file(ramp, photometric=8, compression=5)
+    return out
+
+
+def pcx_rle(rows: np.ndarray, *, zero_runs: bool = False) -> bytes:
+    """PCX's run-length packets of (h, bytes) rows: runs of 2 to 63 equal
+    bytes, and single bytes of 0xC0 and above, as a count byte and the
+    value, the rest literal; no run crosses a row's end. ``zero_runs``
+    puts an empty run (0xC0, 0) before each row."""
+    out = bytearray()
+    for row in rows:
+        if zero_runs:
+            out += b"\xc0\x00"
+        i, n = 0, len(row)
+        while i < n:
+            k = 1
+            while i + k < n and row[i + k] == row[i] and k < 63:
+                k += 1
+            if k > 1 or row[i] >= 0xC0:
+                out += bytes([0xC0 | k, row[i]])
+            else:
+                out.append(row[i])
+            i += k
+    return bytes(out)
+
+
+def pcx_planes(planes: list, stride: int) -> np.ndarray:
+    """(h, planes x stride) rows of a PCX: each plane's (h, bytes) rows
+    padded to ``stride`` bytes, one after another."""
+    h = planes[0].shape[0]
+    out = np.zeros((h, len(planes) * stride), np.uint8)
+    for k, p in enumerate(planes):
+        out[:, k * stride:k * stride + p.shape[1]] = p
+    return out
+
+
+def pcx_file(rows: np.ndarray, width: int, *, version: int = 5,
+             bits: int = 8, planes: int = 1, stride=None, origin=(0, 0),
+             palette16: bytes = bytes(48), palette256=None, tail: bytes = b"",
+             zero_runs: bool = False, body=None) -> bytes:
+    """A PCX of (h, planes x stride) rows (``pcx_planes``): its 128-byte
+    header (the bounding box from ``origin``, ``stride`` the header's
+    bytes a plane's row, by default the rows' own), the rows' packets (or
+    ``body``), ``tail``, then a 256-colour palette (12 and 768 bytes)."""
+    h = rows.shape[0]
+    x0, y0 = origin
+    field = rows.shape[1] // planes if stride is None else stride
+    head = struct.pack("<BBBBHHHHHH48sBBHHHH54s", 10, version, 1, bits, x0,
+                       y0, x0 + width - 1, y0 + h - 1, 72, 72, palette16, 0,
+                       planes, field, 1, width, h, bytes(54))
+    data = head + (pcx_rle(rows, zero_runs=zero_runs) if body is None
+                   else body) + tail
+    if palette256 is not None:
+        data += b"\x0c" + bytes(np.asarray(palette256, np.uint8).reshape(-1))
+    return data
+
+
+def _bitplanes(idx: np.ndarray, n: int) -> list:
+    return [np.packbits((idx >> k) & 1, axis=1) for k in range(n)]
+
+
+def pcx_fixtures(rng) -> dict:
+    """PIL's save in modes 1, L, P and RGB, and the byte-level writer's
+    1-bit files of versions 0 and 2, 2 and 4 bit planes (a width of 3,
+    whose planes Pillow's decoder moves, and a header stride Pillow pads),
+    8-bit grey without a palette, with a grey ramp and with a palette
+    whose marker is not 12, a 256-colour palette, RGB at odd widths with
+    the header's stride kept, padded and given otherwise, a bounding box
+    away from the origin, empty runs, bytes after the last row."""
+    from PIL import Image
+
+    img = smooth(rng, 23, 37)
+    out = {}
+    for mode in ("1", "L", "P", "RGB"):
+        buf = io.BytesIO()
+        _pil_image(img, mode).save(buf, "PCX")
+        out[f"pil_{mode.lower()}"] = buf.getvalue()
+    grey = img[..., 1]
+    pal16 = bytes(rng.integers(0, 256, 48, dtype=np.uint8))
+    for version in (0, 2):
+        bits = np.packbits(grey[:, :21] > 120, axis=1)
+        out[f"mono_version{version}"] = pcx_file(
+            pcx_planes([bits], 4), 21, version=version, bits=1)
+    for n, w in ((2, 13), (4, 21), (4, 3)):
+        idx = (img[..., 0][:, :w] // (256 >> n)).astype(np.uint8)
+        stride = (w + 7) // 8
+        stride += stride % 2
+        out[f"planes{n}_1bit_w{w}"] = pcx_file(
+            pcx_planes(_bitplanes(idx, n), stride), w, bits=1, planes=n,
+            palette16=pal16)
+    idx = (img[..., 2][:, :11] // 16).astype(np.uint8)
+    out["planes4_stride_kept_odd"] = pcx_file(
+        pcx_planes(_bitplanes(idx, 4), 2), 11, bits=1, planes=4,
+        palette16=pal16, stride=1)
+    out["grey_no_palette"] = pcx_file(pcx_planes([grey[:, :30]], 30), 30)
+    ramp = np.repeat(np.arange(256, dtype=np.uint8), 3)
+    out["grey_ramp_palette"] = pcx_file(pcx_planes([grey], 38), 37,
+                                        palette256=ramp)
+    pal = rng.integers(0, 256, 768, dtype=np.uint8)
+    out["palette_256"] = pcx_file(pcx_planes([grey], 38), 37, palette256=pal)
+    body = pcx_file(pcx_planes([grey], 38), 37)
+    out["palette_marker_not_12"] = body + b"\x0b" + bytes(pal)
+    rgb = [img[..., k][:, :9] for k in range(3)]
+    out["rgb_w9_padded"] = pcx_file(pcx_planes(rgb, 10), 9, planes=3)
+    out["rgb_w9_stride_kept"] = pcx_file(pcx_planes(rgb, 9), 9, planes=3)
+    out["rgb_w9_stride_other"] = pcx_file(pcx_planes(rgb, 10), 9, planes=3,
+                                          stride=50)
+    out["rgb_origin_5_3"] = pcx_file(
+        pcx_planes([img[..., k] for k in range(3)], 38), 37, planes=3,
+        origin=(5, 3))
+    out["grey_zero_runs_tail"] = pcx_file(
+        pcx_planes([grey[:9]], 38), 37, zero_runs=True, tail=b"\xc5\x01\x02")
+    return out
+
+
+def dcx_file(pages: list, *, order=None) -> bytes:
+    """A DCX of PCX ``pages``: the magic, the page table ended by a 0,
+    then the pages (in ``order``, the table still in page order)."""
+    order = list(range(len(pages))) if order is None else order
+    at = 4 + 4 * (len(pages) + 1)
+    offsets, body = [0] * len(pages), b""
+    for k in order:
+        offsets[k] = at + len(body)
+        body += pages[k]
+    return struct.pack(f"<I{len(pages) + 1}I", 0x3ADE68B1, *offsets,
+                       0) + body
+
+
+def dcx_fixtures(rng) -> dict:
+    """DCX files: one page, two pages (the first RGB, the second grey),
+    pages stored out of order, and a first page of 256 colours whose
+    palette Pillow looks for at the end of the whole file."""
+    img = smooth(rng, 17, 25)
+    grey = img[..., 1]
+    rgb = pcx_file(pcx_planes([img[..., k] for k in range(3)], 26), 25,
+                   planes=3)
+    mono = pcx_file(pcx_planes([grey], 26), 25)
+    pal = rng.integers(0, 256, 768, dtype=np.uint8)
+    return {"one_page": dcx_file([rgb]),
+            "two_pages": dcx_file([rgb, mono]),
+            "pages_out_of_order": dcx_file([mono, rgb], order=[1, 0]),
+            "palette_at_file_end": dcx_file([mono, pcx_file(
+                pcx_planes([grey[:5]], 26), 25, palette256=pal)])}
+
+
+def qoi_file(width: int, height: int, ops: bytes, channels: int = 4, *,
+             end: bool = True) -> bytes:
+    """A QOI: the 14-byte header, ``ops``, and the end marker."""
+    return (b"qoif" + struct.pack(">IIBB", width, height, channels, 0) + ops
+            + (b"\0" * 7 + b"\1" if end else b""))
+
+
+def qoi_fixtures(rng) -> dict:
+    """PIL's save in RGB and RGBA, and ops written byte by byte: an index
+    op at an empty slot, a run first (of the starting pixel, which Pillow
+    does not store), a run past the last pixel, a channels byte of 7
+    (RGBA), differences and luma that wrap, no end marker."""
+    from PIL import Image
+
+    img = smooth(rng, 19, 27)
+    img[4:9, 2:20] = (10, 200, 30)   # runs and repeats
+    alpha = (np.arange(27)[None, :] * 9 + np.arange(19)[:, None] * 5) % 256
+    out = {}
+    for mode, px in (("rgb", img), ("rgba", np.dstack([img, alpha]))):
+        buf = io.BytesIO()
+        Image.fromarray(px.astype(np.uint8)).save(buf, "QOI")
+        out[f"pil_{mode}"] = buf.getvalue()
+    ops = bytes([0xC2, 0x05, 0xFE, 250, 3, 128, 0x7F, 0x40, 0x80 | 63,
+                 0xFF, 7, 80, 160, 9, 0x35, 0x9F, 0x0F, 0xC7, 0x35,
+                 0xFE, 1, 2, 3, 0x00, 0x3F])
+    out["ops_every_kind"] = qoi_file(5, 4, ops, 4)
+    out["ops_rgb_channels"] = qoi_file(5, 4, ops, 3)
+    out["channels_7"] = qoi_file(5, 4, ops, 7)
+    out["run_past_the_end"] = qoi_file(3, 2, bytes([0xFE, 9, 9, 9, 0xFD]))
+    out["no_end_marker"] = qoi_file(2, 2, bytes([0xFF, 1, 2, 3, 4, 0xC2]),
+                                    end=False)
+    return out
+
+
+def coco_kinds_fixtures() -> dict:
+    """chip_smoke.py's timing inputs of these kinds at 640 x 480: a
+    ThunderScan TIFF (a banded page's 16 grey levels), a CIELab TIFF
+    (LZW), an old-style JPEG TIFF (strips of one restart interval, 4:2:0,
+    quality 90), an RGB PCX, a DCX of it and a QOI (``coco_poster``'s
+    bands; PIL's save for the PCX and the QOI)."""
+    from PIL import Image
+
+    img = coco_poster()
+    grey = (img.astype(np.int64).sum(2) // 3) // 16
+    lab = img.astype(np.int64)
+    out = {"tiff/coco_thunderscan": thunder_tiff(grey, rows_per_strip=32,
+                                                 photometric=1),
+           "tiff/coco_cielab": tiff_file(lab, photometric=8, compression=5,
+                                         rows_per_strip=16),
+           "tiff/coco_ojpeg": ojpeg_file(
+               coco_source(), rows_per_strip=16, layout="split",
+               jpeg_kw={"quality": 90, "restart_marker_rows": 1})}
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "PCX")
+    out["pcx/coco"] = buf.getvalue()
+    out["dcx/coco"] = dcx_file([buf.getvalue()])
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "QOI")
+    out["qoi/coco"] = buf.getvalue()
+    return out
+
+
 EXTENSIONS = {"pnm": "pnm", "gif": "gif", "tiff": "tif", "ico": "ico",
-              "dib": "dib", "tga": "tga", "tiff_ccitt": "tif"}
+              "dib": "dib", "tga": "tga", "tiff_ccitt": "tif", "pcx": "pcx",
+              "dcx": "dcx", "qoi": "qoi"}
 
 
 def all_fixtures() -> dict:
@@ -1502,6 +1930,16 @@ def all_fixtures() -> dict:
         out["tiff_ccitt" if name.startswith("ccitt_") else "tiff"][name] = data
     out["tga"] = tga_fixtures(rng)
     for key, data in coco_codec_fixtures().items():
+        kind, name = key.split("/")
+        out[kind][name] = data
+    rng = np.random.default_rng(KINDS_SEED)
+    out["tiff"].update(thunder_fixtures(rng))
+    out["tiff"].update(cielab_fixtures(rng))
+    out["tiff"].update(ojpeg_fixtures(rng))
+    out["pcx"] = pcx_fixtures(rng)
+    out["dcx"] = dcx_fixtures(rng)
+    out["qoi"] = qoi_fixtures(rng)
+    for key, data in coco_kinds_fixtures().items():
         kind, name = key.split("/")
         out[kind][name] = data
     return out

@@ -651,13 +651,15 @@ def test_decode_to_matches_jax(size):
 
 
 def test_decode_image_names_what_it_reads():
-    """Bytes no reader takes (a PCX, which PIL opens through a plugin the
-    port does not have) name that plugin and the kinds that are read."""
-    pcx = io.BytesIO()
-    Image.fromarray(np.zeros((4, 5, 3), np.uint8)).save(pcx, "PCX")
+    """Bytes no reader takes (an SGI image, which PIL opens through a
+    plugin the port does not have) name that plugin and the kinds that
+    are read."""
+    sgi = io.BytesIO()
+    Image.fromarray(np.zeros((4, 5, 3), np.uint8)).save(sgi, "SGI")
     with pytest.raises(ValueError,
-                       match="PCX.*GIF.*baseline JPEG.*TIFF.*TGA.*WebP"):
-        tpipe.decode_image(pcx.getvalue())
+                       match="SGI.*GIF.*baseline JPEG.*TIFF.*TGA.*PCX.*QOI"
+                             ".*WebP"):
+        tpipe.decode_image(sgi.getvalue())
     with pytest.raises(ValueError, match="BMP"):
         tpipe.decode_image(b"BM" + bytes(60))
 

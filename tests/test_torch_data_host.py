@@ -203,7 +203,7 @@ _NO_PIL = textwrap.dedent(r"""
                  "f.webp", "g.jpg", "i.gif", "j.tif", "k.ppm", "l.ico"):
         np.save(f"{folder}/{name}.npy",
                 pipeline._decode_resize(f"{folder}/{name}", size))
-    for name in ("h.pcx",):
+    for name in ("h.sgi",):
         try:
             pipeline._decode_resize(f"{folder}/{name}", size)
         except ValueError as e:
@@ -214,7 +214,7 @@ _NO_PIL = textwrap.dedent(r"""
 def test_decode_resize_without_pil(tmp_path):
     """With PIL (and JAX) refused, BMP, PNG, JPEG, WebP, GIF, TIFF (LZW),
     PPM and ICO files, a progressive JPEG among them, give JAX's arrays; a
-    PCX file (a kind the port does not read) raises ValueError naming the
+    SGI file (a kind the port does not read) raises ValueError naming the
     file and what is read."""
     rng = np.random.default_rng(7)
     files = {"a24.bmp": "bmp24", "b32.bmp": "bmp32",
@@ -227,7 +227,7 @@ def test_decode_resize_without_pil(tmp_path):
     Image.fromarray(_smooth(rng, 30, 40)).save(tmp_path / "g.jpg",
                                                progressive=True)
     files["g.jpg"] = "progressive jpeg"
-    Image.fromarray(_smooth(rng, 30, 40)).save(tmp_path / "h.pcx")
+    Image.fromarray(_smooth(rng, 30, 40)).save(tmp_path / "h.sgi")
     for name, kw in (("i.gif", {}), ("j.tif", {"compression": "tiff_lzw"}),
                      ("k.ppm", {}), ("l.ico", {"sizes": [(16, 16), (24, 24)]})):
         Image.fromarray(_smooth(rng, 30, 40)).save(tmp_path / name, **kw)
@@ -243,7 +243,7 @@ def test_decode_resize_without_pil(tmp_path):
     errors = [line for line in proc.stdout.splitlines()
               if line.startswith("ERROR")]
     assert len(errors) == 1, proc.stdout
-    assert str(tmp_path / "h.pcx") in errors[0]
+    assert str(tmp_path / "h.sgi") in errors[0]
     assert "baseline JPEG" in errors[0] and "progressive JPEG" in errors[0]
     assert "WebP" in errors[0]
 

@@ -166,7 +166,7 @@ def test_progressive_bodies_read_as_their_baseline_files(servers):
 def test_bad_requests_get_400(servers):
     """A body that is not multipart, a missing part and an unknown k are
     400 on both servers; an image body no reader reads (a truncated JPEG,
-    a PCX, a truncated WebP) is a 400 from the port, naming the reason
+    an SGI image, a truncated WebP) is a 400 from the port, naming the reason
     (JAX answers those 500, PIL's exception)."""
     rng = np.random.default_rng(7)
     jpeg = _encoded(smooth(rng, 40, 40), "JPEG", quality=90)
@@ -178,10 +178,10 @@ def test_bad_requests_get_400(servers):
         assert _post(url + "/stylize?k=2",
                      _multipart({"content": jpeg, "style": jpeg}))[0] == 400
     url = servers["url"]["port"]
-    pcx = _encoded(smooth(rng, 40, 40), "PCX")
+    sgi = _encoded(smooth(rng, 40, 40), "SGI")
     webp = _encoded(smooth(rng, 40, 40), "WEBP")
     for bad, why in ((jpeg[:len(jpeg) // 2], "JPEG"),
-                     (pcx, "baseline JPEG"),
+                     (sgi, "baseline JPEG"),
                      (webp[:len(webp) // 2], "WebP: truncated")):
         code, ctype, data = _post(url + "/stylize", _multipart(
             {"content": bad, "style": jpeg}))

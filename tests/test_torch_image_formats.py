@@ -402,8 +402,8 @@ def _post(url: str, body: bytes):
 def test_stylize_gif_and_tiff_bodies_are_served():
     """A GIF body and a TIFF body (LZW, predictor 2) get 200 from the
     port's server, each reply equal to the reply for the same pixels sent
-    as PNG; a ThunderScan TIFF body (a compression the port does not read
-    yet) gets 400 naming its compression."""
+    as PNG; an SGI body (a kind the port does not read) gets 400 naming
+    it."""
     cfg = _narrow_cfg()
     params = init_master_model(cfg, torch.Generator().manual_seed(0),
                                device="cpu")
@@ -426,12 +426,12 @@ def test_stylize_gif_and_tiff_bodies_are_served():
                    for k, v in (("content", content), ("style", style))}
             code, _, png_reply = _post(url, _multipart(png))
             assert code == 200 and png_reply == reply, name
-        thunderscan = fx.thunderscan_tiff(np.random.default_rng(0))
-        assert tf.pil(thunderscan)[0] is not None
-        code, ctype, data = _post(url, _multipart({"content": thunderscan,
+        sgi = _saved(Image.fromarray(tf.pil(content)[0]), "SGI")
+        assert tf.pil(sgi)[0] is not None
+        code, ctype, data = _post(url, _multipart({"content": sgi,
                                                    "style": style}))
         assert code == 400 and ctype == "text/plain"
-        assert "tiff_thunderscan" in data.decode()
+        assert "SGI" in data.decode()
     finally:
         httpd.shutdown()
         httpd.server_close()

@@ -243,14 +243,18 @@ def test_parse_args_takes_the_new_flags():
     assert args.ks == [1, 3] and args.compute_dtype == "float32"
     defaults = tserve.parse_args([])
     assert (defaults.locked_style, defaults.lambda_checkpoint,
-            defaults.use_kernels) == ({}, {}, True)
+            defaults.use_pallas) == ({}, {}, True)
+    # JAX's serve.py spells the kernel switch --use_pallas / --no-use_pallas
+    assert tserve.parse_args(["--use_pallas"]).use_pallas is True
+    assert tserve.parse_args(["--no-use_pallas"]).use_pallas is False
 
 
 @pytest.mark.parametrize("argv", [
     ["--locked_style", "=a.jpg"],
     ["--locked_style", "nameonly"],
     ["--lambda_checkpoint", "=l2.npz"],
-    ["--compute_dtype", "float16"]])
+    ["--compute_dtype", "float16"],
+    ["--use_kernels"]])
 def test_parse_args_refusals(argv):
     with pytest.raises(SystemExit):
         tserve.parse_args(argv)

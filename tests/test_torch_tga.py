@@ -11,7 +11,8 @@
 * a seeded sweep of type x depth x colour-map depth x orientation x RLE,
   every verdict and pixel PIL's;
 * Pillow's plugin order: bytes each plugin before TGA (that the port does
-  not read) opens are refused by that plugin's name; bytes their _open
+  not read) opens are refused by that plugin's name, and those PCX, DCX
+  and QOI open are read as PIL reads them; bytes their _open
   passes on reach TGA, an ICO Pillow's ICO plugin refuses at open among
   them; a DIB refused at open never reaches TGA;
 * 2,000 seeded bodies (random bytes, TGA files and ICO headers with
@@ -161,14 +162,12 @@ def _plugin_bodies() -> dict:
     rng = np.random.default_rng(3)
     rgb = Image.fromarray(fx.smooth(rng, 8, 8))
     out = {
-        "PCX": _saved(rgb, "PCX"),
         "SGI": _saved(rgb, "SGI"),
         "IM": _saved(rgb, "IM"),
         "SPIDER": _saved(rgb.convert("F"), "SPIDER"),
         "MSP": _saved(rgb.convert("1"), "MSP"),
         "BLP": _saved(rgb.quantize(16), "BLP"),
         "DDS": _saved(rgb, "DDS"),
-        "QOI": _saved(rgb, "QOI"),
         "XBM": _saved(rgb.convert("1"), "XBM"),
         "IMT": b"width 4\nheight 4\npixel n8\n\x0c" + bytes(16),
         "IPTC": _iptc(),
@@ -194,6 +193,28 @@ def test_plugins_the_port_does_not_read_are_named(name):
     assert tplugins.takes(name, data)
     with pytest.raises(ValueError, match=f"^{name}: "):
         tpipe.decode_image(data)
+
+
+def _read_plugin_bodies() -> dict:
+    """name -> bytes Pillow's plugin of that name opens, for the plugins
+    the port reads now that it did not before (their place in Pillow's
+    order: PCX and DCX before TGA, QOI after TIFF)."""
+    rng = np.random.default_rng(3)
+    rgb = Image.fromarray(fx.smooth(rng, 8, 8))
+    pcx = _saved(rgb, "PCX")
+    return {"PCX": pcx, "QOI": _saved(rgb, "QOI"),
+            "DCX": fx.dcx_file([pcx])}
+
+
+@pytest.mark.parametrize("name", sorted(_read_plugin_bodies()))
+def test_plugins_the_port_reads_match_pil(name):
+    """Bytes Pillow opens with its PCX, DCX or QOI plugin: the port reads
+    them with its own reader, PIL's pixels with 0 values differing."""
+    data = _read_plugin_bodies()[name]
+    with Image.open(io.BytesIO(data)) as im:
+        assert im.format == name
+    assert tplugins.takes(name, data)
+    tf.assert_pil_pixels(tpipe.decode_image, data, name)
 
 
 def test_bytes_passed_on_reach_tga():

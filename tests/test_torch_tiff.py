@@ -25,11 +25,17 @@ libtiff; the port must give its ``Image.open(...).convert("RGB")`` of IFD
 * tiles reaching far past a small image decoded to PIL's pixels a few
   batches at a time, and files of several strips or tiles (planar ones
   too) in batches of one and in runs;
-* refusals by name: the compressions and photometrics
-  left out (CCITT, G3, G4, LZMA, ZSTD, YCbCr tiles without JPEG, CIELab)
-  refused by name; truncations and byte flips of every fixture, decoded in
-  a subprocess, each refused where PIL refuses it and PIL's pixels where
-  PIL decodes it.
+* the kinds once left out (CCITT, G3, G4, LZMA, ZSTD, YCbCr tiles
+  without JPEG, CIELab, ThunderScan, old-style JPEG) read; truncations and
+  byte flips of every fixture, decoded in a subprocess, each refused where
+  PIL refuses it and PIL's pixels where PIL decodes it;
+* ThunderScan (every code kind, strips, odd widths, FillOrder 2) and
+  old-style JPEG (its JPEGInterchangeFormat and strips in every layout,
+  each sampling, grey, a strip libjpeg fails in) to PIL's pixels in
+  sweeps at odd sizes, and the layouts PIL refuses (ThunderScan tiles or
+  8-bit samples, a row of too many pixels; old-style JPEG strips not of
+  whole iMCU rows, progressive, a middle strip that fails, RowsPerStrip
+  past Pillow's RGBA block) refused.
 """
 
 import os
@@ -357,15 +363,15 @@ def _lab() -> bytes:
                                  compression="lzma"), True),
     ("zstd", lambda: fx.pil_tiff(np.zeros((8, 8, 3), np.uint8), "RGB",
                                  compression="zstd"), True),
-    ("YCbCr tiles", _ycbcr_tiles, True), ("CIELab", _lab, False),
+    ("YCbCr tiles", _ycbcr_tiles, True), ("CIELab", _lab, True),
     ("tiff_thunderscan",
-     lambda: fx.thunderscan_tiff(np.random.default_rng(1)), False),
-    ("tiff_jpeg", lambda: fx.ojpeg_tiff(np.random.default_rng(2)), False)])
+     lambda: fx.thunderscan_tiff(np.random.default_rng(1)), True),
+    ("tiff_jpeg", lambda: fx.ojpeg_tiff(np.random.default_rng(2)), True)])
 def test_left_out_kinds_refused_by_name(why, make, read):
     """Kinds PIL reads that were left out before: those read now
-    (CCITT, LZMA, Zstandard, YCbCr in tiles) give PIL's pixels; those
-    still left out (CIELab, ThunderScan, old-style JPEG: ROADMAP) are
-    refused with a ValueError that names them."""
+    (CCITT, LZMA, Zstandard, YCbCr in tiles, CIELab, ThunderScan and
+    old-style JPEG with its JPEGInterchangeFormat) give PIL's pixels; one
+    still left out would be refused with a ValueError that names it."""
     data = make()
     assert tf.pil(data)[0] is not None
     if read:
@@ -535,13 +541,16 @@ def test_ycbcr_layouts_match_pil(sub):
 
 CODEC_RESIZED = [("tiff", "coco_g4"), ("tiff", "coco_lzma"),
                  ("tiff", "coco_zstd"), ("tiff", "ycbcr_tiles_lzw_2x2"),
-                 ("tiff_ccitt", "ccitt_g3_2d_fill2_white0")]
+                 ("tiff_ccitt", "ccitt_g3_2d_fill2_white0"),
+                 ("tiff", "coco_thunderscan"), ("tiff", "thunderscan_palette"),
+                 ("tiff", "coco_ojpeg"), ("tiff", "ojpeg_grey_split")]
 
 
 @pytest.mark.parametrize("kind,name", CODEC_RESIZED)
 def test_codec_entry_points_match_jax(kind, name):
     """_decode_resize and serve._decode_to equal the JAX package's for a
-    T.6, an LZMA, a Zstandard and a YCbCr-tiled TIFF."""
+    T.6, an LZMA, a Zstandard, a YCbCr-tiled, a ThunderScan and an
+    old-style JPEG TIFF."""
     path = os.path.join(tf.DATA, kind, f"{name}.tif")
     for size in (32, 100):
         assert np.array_equal(tpipe._decode_resize(path, size),
@@ -754,3 +763,152 @@ def test_ccitt_truncations_and_flips_match_pil(tmp_path, group):
         return tf.unwritten_rows(case, rps[index[id(case)]], tmp_path)
     counts = tf.verdicts_match_pil(cases, tmp_path, unwritten)
     assert counts["refused"] and counts["decoded"], counts
+
+
+# ---------------------------------------------------------------------------
+# ThunderScan and old-style JPEG
+# ---------------------------------------------------------------------------
+
+def test_thunderscan_and_ojpeg_fixtures_cover_the_kinds():
+    """The tags and codes the ThunderScan and old-style JPEG fixture names
+    promise: every ThunderScan code kind (runs, 2- and 3-bit deltas with
+    their skip codes, raw values), strips, FillOrder 2, a palette; old-
+    style JPEG with its JPEGInterchangeFormat, in one strip and in strips
+    of one restart interval, grey, photometric RGB."""
+    def tags(name):
+        ifd = ttiff._Ifd(_read(name))
+        return {t: ifd.get(t) for t in ifd.tags}
+    thunder = [n for n in NAMES if n.startswith("thunderscan")]
+    assert len(thunder) >= 9
+    assert all(tags(n)[259] == 32809 and tags(n)[258] == (4,)
+               for n in thunder)
+    data = _read("thunderscan_codes")
+    strip = data[tags("thunderscan_codes")[273][0]:][
+        :tags("thunderscan_codes")[279][0]]
+    kinds = {b >> 6 for b in strip}
+    assert kinds == {0, 1, 2, 3}
+    assert any(b >> 6 == 1 and 2 in (b >> 4 & 3, b >> 2 & 3, b & 3)
+               for b in strip)   # a 2-bit skip code
+    assert len(tags("thunderscan_strips_odd")[273]) > 1
+    assert tags("thunderscan_strips_odd")[256] % 2 == 1
+    assert tags("thunderscan_fill_order2")[266] == 2
+    assert tags("thunderscan_palette")[262] == 3
+    ojpeg = [n for n in NAMES if n.startswith("ojpeg")]
+    assert len(ojpeg) >= 10
+    assert all(tags(n)[259] == 6 and 513 in tags(n) for n in ojpeg)
+    assert len(tags("ojpeg_split_420")[273]) > 1
+    assert tags("ojpeg_grey_split")[277] == 1
+    assert tags("ojpeg_photometric_rgb")[262] == 2
+    assert tags("ojpeg_subsampling_tag_21")[530] == (2, 1)
+
+
+@pytest.mark.parametrize("hw", tf.SIZES[:4])
+def test_thunderscan_sweep_matches_pil(hw):
+    """ThunderScan TIFFs at odd sizes: drawn values in every code kind,
+    in strips of several rows and of one, both fill orders and
+    photometrics; random code streams (runs past a row's end, rows short
+    of pixels) refused where PIL refuses them."""
+    rng = np.random.default_rng(hw[0] * 31 + hw[1])
+    h, w = hw
+    for k in range(6):   # one step a drawn layout
+        v = (np.cumsum(rng.integers(-3, 4, (h, w)), 1) % 16 if k % 2
+             else rng.integers(0, 16, (h, w)))
+        data = fx.thunder_tiff(v, rows_per_strip=max(1, h // (k + 1)),
+                               photometric=k % 2, fill_order=1 + (k > 3))
+        tf.assert_pil_pixels(tpipe.decode_image, data, (hw, k))
+    for k in range(20):   # random codes: PIL's verdict
+        codes = bytes(rng.integers(0, 256, int(rng.integers(1, 3 * w + 2)),
+                                   dtype=np.uint8))
+        data = fx.tiff_file(np.zeros((h, w, 1), np.int64), bps=4,
+                            photometric=1, tags={259: (3, [32809])},
+                            chunk_hook=lambda i, b: codes)
+        want, _ = tf.pil(data)
+        if want is None:
+            with pytest.raises(ValueError):
+                tpipe.decode_image(data)
+        else:
+            assert np.array_equal(tpipe.decode_image(data), want), k
+
+
+@pytest.mark.parametrize("hw", tf.SIZES[:4])
+def test_ojpeg_sweep_matches_pil(hw):
+    """Old-style JPEG TIFFs at odd sizes: every layout (the whole JPEG in
+    the JPEGInterchangeFormat and the strip; its header there and a strip
+    a restart interval; both), 4:2:0, 4:2:2 and 4:4:4, grey, a strip
+    height of one iMCU row or the image."""
+    rng = np.random.default_rng(hw[0] * 7 + hw[1])
+    h, w = hw
+    img = fx.smooth(rng, h, w)
+    for layout in ("whole", "split", "whole_split"):
+        for sub in (0, 1, 2):
+            rps = 8 * (2 if sub == 2 else 1)
+            data = fx.ojpeg_file(img, rows_per_strip=rps, layout=layout,
+                                 jpeg_kw={"subsampling": sub,
+                                          "restart_marker_rows": 1})
+            tf.assert_pil_pixels(tpipe.decode_image, data, (layout, sub))
+        data = fx.ojpeg_file(img[..., 0], photometric=1, rows_per_strip=8,
+                             layout=layout,
+                             jpeg_kw={"restart_marker_rows": 1})
+        tf.assert_pil_pixels(tpipe.decode_image, data, (layout, "grey"))
+
+
+def _ojpeg_refused() -> dict:
+    """Old-style JPEG and ThunderScan files PIL refuses: name -> body."""
+    rng = np.random.default_rng(11)
+    img = fx.smooth(rng, 40, 24)
+    tv = (fx.smooth(rng, 20, 16)[..., 1] // 16).astype(np.int64)
+    rows = [fx.thunder_row(r) for r in np.vstack([tv, np.zeros(
+        (12, 16), np.int64)])]
+    tiles = [b"".join(rows[y:y + 16]) for y in (0, 16)]
+    return {
+        # strips of 8 rows at 4:2:0 (an iMCU row is 16)
+        "ojpeg_strips_not_imcu_rows": fx.ojpeg_file(
+            img, rows_per_strip=8, layout="split",
+            jpeg_kw={"restart_marker_rows": 1}),
+        # a progressive JPEG (SOF2): an unknown marker to libtiff
+        "ojpeg_progressive": fx.ojpeg_file(img,
+                                           jpeg_kw={"progressive": True}),
+        # strips of two restart intervals given one each: libjpeg fails
+        # at the middle strip's second restart marker, and then the last
+        # strip's read fails before TIFFRGBAImage has its buffer
+        "ojpeg_middle_strip_fails": fx.ojpeg_file(
+            fx.smooth(rng, 80, 24), rows_per_strip=32, layout="split",
+            jpeg_kw={"restart_marker_rows": 1}),
+        # RowsPerStrip past _decodeAsRGBA's INT_MAX bytes of RGBA
+        "ojpeg_rows_per_strip_huge": fx.ojpeg_file(
+            img, tags={278: (4, [(2 ** 31 - 1) // (4 * 24) + 1])}),
+        # ThunderScan in tiles: libtiff has no tile decoder for it
+        "thunderscan_tiles": fx.tiff_file(
+            tv[..., None], bps=4, photometric=1, tile=(16, 16),
+            tags={259: (3, [32809])}, chunk_hook=lambda i, b: tiles[i]),
+        # ThunderScan of 8 bits a sample
+        "thunderscan_8bit": fx.tiff_file(
+            np.zeros((4, 4, 1), np.int64), photometric=1,
+            tags={259: (3, [32809])},
+            chunk_hook=lambda i, b: bytes([0xC1] * 16)),
+        # a row that ends with too many pixels (a run past its end)
+        "thunderscan_run_past_row": fx.tiff_file(
+            np.zeros((2, 5, 1), np.int64), bps=4, photometric=1,
+            tags={259: (3, [32809])},
+            chunk_hook=lambda i, b: bytes([0xC3, 0x07, 0xC1, 0x04])),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_ojpeg_refused()))
+def test_thunderscan_and_ojpeg_refused_as_pil_refuses(name):
+    data = _ojpeg_refused()[name]
+    assert tf.pil(data)[0] is None
+    with pytest.raises(ValueError):
+        tpipe.decode_image(data)
+
+
+def test_ojpeg_last_strip_failing_is_zero_ycbcr():
+    """Where libjpeg fails in the last strip (its restart marker), libtiff
+    clears that strip and TIFFRGBAImage turns its zero samples to RGB:
+    PIL's pixels, the strips before decoded."""
+    data = _read("ojpeg_strip_fails")
+    want = tf.pil(data)[0]
+    got = tpipe.decode_image(data)
+    assert np.array_equal(got, want)
+    assert (got[32:] == got[32, 0]).all() and not (got[:32] == got[32, 0]
+                                                    ).all()

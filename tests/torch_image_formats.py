@@ -21,10 +21,11 @@ from PIL import Image
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data")
 EXT = {"pnm": "pnm", "gif": "gif", "tiff": "tif", "ico": "ico",
-       "dib": "dib", "tga": "tga", "tiff_ccitt": "tif"}
+       "dib": "dib", "tga": "tga", "tiff_ccitt": "tif", "pcx": "pcx",
+       "dcx": "dcx", "qoi": "qoi"}
 # Pillow's formats that the port reads (data/pipeline.py's _KINDS)
 PORT_FORMATS = {"BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "ICO", "TIFF",
-                "TGA", "WEBP", "MPO"}
+                "TGA", "WEBP", "MPO", "PCX", "DCX", "QOI"}
 SIZES = [(1, 1), (1, 17), (17, 1), (33, 47), (257, 131)]
 
 
